@@ -1,0 +1,246 @@
+"""Sweep machinery: instance x trajectory batching with memory-aware chunks.
+
+Port of ``dtc_tpu/experiments/engine.py`` (``build_context``,
+``traj_chunks``, ``_forward_batch``, ``_echo_batch``, ``forward_sweep``,
+``echo_sweep``, ``apply_shot_noise``).
+
+Dispatch is by shape, as in the reference, with the port's own tiers:
+- a constant x-drive (K = 1, no y angle, one angle for every cycle) at
+  17 <= L <= 23 in complex64 goes to the blocked x entries
+  (``ops/resident_blocked.py``: CUDA kernels K1/K2 for CUDA tensors, their
+  plain versions for CPU tensors);
+- everything else goes to the sigma-frame engine (``core/sigma_evolve.py``).
+Each sweep logs once which engine served it.
+
+Noise: every entry takes an optional block of f32 uniforms laid out as the
+reference draws them per trajectory — forward (inst, n_traj, T*K, L), echo
+(inst, n_traj, 2T*K, L), the echo block shared by every t. Without one, the
+sweep draws the whole block up front from a ``torch.Generator`` seeded with
+cfg.seed (echo: cfg.seed + 7919, the reference's echo salt), so results do
+not depend on chunking.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from dtc_tpu.utils.validation import guard
+from dtc_tpu_torch.core.sigma_evolve import (
+    draw_uniforms,
+    sigma_echo_batch,
+    sigma_forward_batch,
+)
+from dtc_tpu_torch.models.drives import build_kick_schedule
+from dtc_tpu_torch.models.noise import NoiseSpec
+from dtc_tpu_torch.ops import resident_blocked
+from dtc_tpu_torch.ops.params import echo_pair_tiles, forward_rows
+
+log = logging.getLogger("dtc_tpu_torch")
+
+# Live trajectory states per chunk for the sigma engine (its einsums keep a
+# few state-sized temporaries), as in the reference.
+DEFAULT_BATCH_BYTES = 2 << 30
+
+# Live states per chunk on the blocked kernel route. The CUDA kernels hold
+# every state of a chunk in device memory at once (8 MiB per trajectory or
+# echo pair at L=20, 64 MiB at L=23), unlike the TPU kernels, which hold one
+# per grid step. 8 GiB is a tenth of an 80 GB card: 1024 trajectories at
+# L=20, 128 at L=23, and room left for the plain route's angle tables.
+KERNEL_STATE_BYTES = 8 << 30
+
+ECHO_SALT = 7919
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for ``device``; a CUDA request without CUDA raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not"
+                           " available")
+    return dev
+
+
+def traj_chunks(n_traj: int, L: int, extra_factor: int = 2,
+                budget_bytes: int = DEFAULT_BATCH_BYTES) -> int:
+    """Trajectories per chunk so live states stay under the budget."""
+    bytes_per_traj = extra_factor * (1 << L) * 8
+    return max(1, min(n_traj, budget_bytes // max(1, bytes_per_traj)))
+
+
+def build_context(cfg, hs, phis, *, device):
+    """Per-run precomputation: kick schedule + parameter tensors on device."""
+    dev = resolve_device(device)
+    sched = build_kick_schedule(
+        cfg.polarization, cfg.g, cfg.tf,
+        circular_frequency=cfg.circular_frequency,
+        xy_cycle_period=cfg.xy_cycle_period, device=dev)
+    hs = torch.as_tensor(np.asarray(hs)[:, :cfg.L], dtype=torch.float64,
+                         device=dev)
+    phis = torch.as_tensor(np.asarray(phis)[:, :cfg.L - 1],
+                           dtype=torch.float64, device=dev)
+    return sched, (hs, phis), NoiseSpec(p=cfg.noise_p)
+
+
+def constant_x_theta(angles) -> float | None:
+    """The kick angle of a constant x-drive schedule, else None."""
+    ang = angles.detach().cpu()
+    if ang.shape[1] != 1 or bool((ang[:, :, 1] != 0).any()):
+        return None
+    if not bool((ang == ang[0]).all()):
+        return None
+    return float(ang[0, 0, 0])
+
+
+def engine_for(angles, *, L, T, q, dtype_name, has_y, echo: bool) -> str:
+    """'blocked' (x kernels / their plain versions) or 'sigma'."""
+    if has_y:
+        return "sigma"
+    t_max = (resident_blocked.MAX_T_ECHO if echo
+             else resident_blocked.MAX_T_FORWARD)
+    if (constant_x_theta(angles) is not None and dtype_name == "complex64"
+            and resident_blocked.MIN_L <= L <= resident_blocked.MAX_L
+            and 0 <= q < L and T <= t_max):
+        return "blocked"
+    return "sigma"
+
+
+def _forward_batch(hs, phis, angles, uniforms, *, L, T, K, p, q,
+                   initial_state, dtype_name, ancilla_factor, has_y=False,
+                   n_traj=None, generator=None):
+    """(inst, L), (inst, L-1), (T, K, 2), uniforms (inst, c, T*K, L) or
+    None -> (inst, c, T) tensor on hs's device."""
+    if engine_for(angles, L=L, T=T, q=q, dtype_name=dtype_name,
+                  has_y=has_y, echo=False) == "blocked":
+        inst = hs.shape[0]
+        if uniforms is None and p > 0.0:
+            uniforms = draw_uniforms((inst, n_traj, T, L),
+                                     generator=generator, device=hs.device)
+        c = uniforms.shape[1] if uniforms is not None else n_traj
+        rows, sig_after = forward_rows(uniforms, hs[:, None], phis[:, None],
+                                       L=L, T=T, p=p, batch=(inst, c))
+        return resident_blocked.blocked_forward_batch(
+            rows, sig_after, constant_x_theta(angles), L=L, q=q,
+            initial_state=initial_state, ancilla_factor=ancilla_factor)
+    return sigma_forward_batch(
+        hs, phis, angles, uniforms, L=L, T=T, K=K, p=p, q=q,
+        initial_state=initial_state, dtype_name=dtype_name,
+        ancilla_factor=ancilla_factor, has_y=has_y, n_traj=n_traj,
+        generator=generator)
+
+
+def _echo_batch(hs, phis, angles, ts, uniforms, *, L, T, K, p, q,
+                initial_state, dtype_name, ancilla_factor, has_y=False,
+                n_traj=None, generator=None):
+    """-> (inst, c, n_ts) echo values; uniforms (inst, c, 2T*K, L)."""
+    if engine_for(angles, L=L, T=T, q=q, dtype_name=dtype_name,
+                  has_y=has_y, echo=True) == "blocked":
+        inst = hs.shape[0]
+        if uniforms is None and p > 0.0:
+            uniforms = draw_uniforms((inst, n_traj, 2 * T, L),
+                                     generator=generator, device=hs.device)
+        c = uniforms.shape[1] if uniforms is not None else n_traj
+        tiles, sig_fin = echo_pair_tiles(uniforms, ts, hs[:, None],
+                                         phis[:, None], L=L, T=T, p=p,
+                                         batch=(inst, c))
+        return resident_blocked.blocked_echo_batch(
+            tiles, sig_fin, constant_x_theta(angles), L=L, q=q,
+            initial_state=initial_state, ancilla_factor=ancilla_factor)
+    return sigma_echo_batch(
+        hs, phis, angles, ts, uniforms, L=L, T=T, K=K, p=p, q=q,
+        initial_state=initial_state, dtype_name=dtype_name,
+        ancilla_factor=ancilla_factor, has_y=has_y, n_traj=n_traj,
+        generator=generator)
+
+
+def _sweep_uniforms(uniforms, shape, seed, device):
+    if uniforms is not None:
+        if not torch.is_tensor(uniforms):
+            uniforms = np.array(uniforms, dtype=np.float32)
+        u = torch.as_tensor(uniforms, dtype=torch.float32, device=device)
+        if tuple(u.shape) != tuple(shape):
+            raise ValueError(f"uniforms shape {tuple(u.shape)} != {shape}")
+        return u
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return draw_uniforms(shape, generator=gen, device=device)
+
+
+def forward_sweep(cfg, sched, params, noise, *, uniforms=None) -> np.ndarray:
+    """A(t) per instance, trajectory-averaged: (inst, T) numpy."""
+    hs, phis = params
+    p = noise.p
+    af = noise.ancilla_factor if p > 0 else 1.0
+    K, L, T = sched.K, cfg.L, cfg.tf
+    kw = dict(L=L, T=T, K=K, p=p, q=cfg.probe_qubit,
+              initial_state=cfg.initial_state, dtype_name=cfg.dtype,
+              ancilla_factor=af, has_y=cfg.polarization != "x")
+    engine = engine_for(sched.angles, L=L, T=T, q=cfg.probe_qubit,
+                        dtype_name=cfg.dtype, has_y=kw["has_y"], echo=False)
+    log.info("forward_sweep: engine=%s L=%d T=%d", engine, L, T)
+    n_traj = cfg.n_trajectories if p > 0 else 1
+    u = (_sweep_uniforms(uniforms, (cfg.inst, n_traj, T * K, L), cfg.seed,
+                         hs.device) if p > 0 else None)
+    if engine == "blocked":
+        chunk = traj_chunks(n_traj, L, extra_factor=cfg.inst,
+                            budget_bytes=KERNEL_STATE_BYTES)
+    else:
+        chunk = traj_chunks(n_traj, L, extra_factor=2 * cfg.inst)
+    acc = np.zeros((cfg.inst, T))
+    done = 0
+    while done < n_traj:
+        c = min(chunk, n_traj - done)
+        uc = u[:, done:done + c] if u is not None else None
+        vals = _forward_batch(hs, phis, sched.angles, uc, n_traj=c, **kw)
+        acc += guard("forward_batch", vals.sum(dim=1).cpu().numpy(),
+                     bound=float(c))
+        done += c
+    return guard("forward_sweep", acc / n_traj, bound=1.0)
+
+
+def echo_sweep(cfg, sched, params, noise, *, uniforms=None,
+               t_chunk: int = 8) -> np.ndarray:
+    """Echo A0(t) per instance, trajectory-averaged: (inst, T) numpy.
+    The noiseless echo is exactly 1 and is returned analytically."""
+    hs, phis = params
+    p = noise.p
+    if p == 0.0:
+        return np.ones((cfg.inst, cfg.tf))
+    K, L, T = sched.K, cfg.L, cfg.tf
+    kw = dict(L=L, T=T, K=K, p=p, q=cfg.probe_qubit,
+              initial_state=cfg.initial_state, dtype_name=cfg.dtype,
+              ancilla_factor=noise.ancilla_factor,
+              has_y=cfg.polarization != "x")
+    engine = engine_for(sched.angles, L=L, T=T, q=cfg.probe_qubit,
+                        dtype_name=cfg.dtype, has_y=kw["has_y"], echo=True)
+    log.info("echo_sweep: engine=%s L=%d T=%d", engine, L, T)
+    n_traj = cfg.n_trajectories
+    u = _sweep_uniforms(uniforms, (cfg.inst, n_traj, 2 * T * K, L),
+                        cfg.seed + ECHO_SALT, hs.device)
+    if engine == "blocked":
+        chunk = traj_chunks(n_traj, L, extra_factor=cfg.inst * t_chunk,
+                            budget_bytes=KERNEL_STATE_BYTES)
+    else:
+        chunk = traj_chunks(n_traj, L, extra_factor=2 * cfg.inst * t_chunk)
+    out = np.zeros((cfg.inst, T))
+    for t0 in range(0, T, t_chunk):
+        ts = torch.arange(t0, min(t0 + t_chunk, T), device=hs.device)
+        acc = np.zeros((cfg.inst, len(ts)))
+        done = 0
+        while done < n_traj:
+            c = min(chunk, n_traj - done)
+            vals = _echo_batch(hs, phis, sched.angles, ts,
+                               u[:, done:done + c], n_traj=c, **kw)
+            acc += guard("echo_batch", vals.sum(dim=1).cpu().numpy(),
+                         bound=float(c))
+            done += c
+        out[:, t0:t0 + len(ts)] = acc / n_traj
+    return guard("echo_sweep", out, bound=1.0)
+
+
+def apply_shot_noise(values: np.ndarray, shots: int, seed: int = 0) -> np.ndarray:
+    """Binomial measurement sampling: <Z> -> 2*Binom(shots, (1+A)/2)/shots - 1."""
+    rng = np.random.default_rng(seed)
+    p0 = np.clip((1.0 + values) / 2.0, 0.0, 1.0)
+    return 2.0 * rng.binomial(shots, p0) / shots - 1.0

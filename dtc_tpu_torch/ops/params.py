@@ -1,0 +1,165 @@
+"""Host-side feeders of the blocked x-drive kernels.
+
+Ports of
+- ``dtc_tpu/ops/pallas_noise.py::pack_cycle_params_compact`` (the compact
+  per-cycle parameter row),
+- ``dtc_tpu/ops/pallas_resident.py::_kick_matrices`` (RX kron-group kick
+  matrices) and ``::echo_pair_tiles`` (the echo's (pre, post) step rows).
+
+All are batched tensor ops (the reference vmaps them per trajectory and
+per t); bit masks are int64. Row layout, width 128:
+lanes [0,L) noise-Z bits n_q, [L,2L) sigma bits, [2L,3L-1) bond flips,
+[3L-1,4L-1) h_q, [4L-1,5L-2) phi_j. Echo rows carry flags at the tail:
+lane 124 (first row only) = the pair's trip count 2t, 125 = imag sign of
+the step's kick (-1 on inverse steps), 126 = step active, 127 = kick
+matrix index. Only lanes 124 and 125 are read by the port (K2 and its
+plain version); 126 and 127 are kept so that the tiles equal the
+reference's bit for bit, which ``tests/test_torch_ops.py`` checks.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from dtc_tpu_torch.core.sigma_evolve import (
+    _codes_from_uniform,
+    _masks_from_codes,
+    presample_noise,
+    xor_scan,
+)
+from dtc_tpu_torch.ops.kick import kron
+
+WIDTH = 128
+
+
+def _bit_lanes(mask: torch.Tensor, L: int) -> torch.Tensor:
+    sh = torch.arange(L, dtype=torch.int64, device=mask.device)
+    return ((mask[..., None] >> sh) & 1).to(torch.float32)
+
+
+def pack_cycle_params_compact(zm, sigma, hs, phis, L: int) -> torch.Tensor:
+    """(..., 128) f32 rows from int64 masks zm, sigma (...) and angles
+    hs (..., L), phis (..., L-1); all leading dimensions broadcast."""
+    if 5 * L - 2 > WIDTH:
+        raise ValueError(f"L={L} needs {5 * L - 2} lanes > {WIDTH}")
+    zm = torch.as_tensor(zm, dtype=torch.int64, device=hs.device)
+    sigma = torch.as_tensor(sigma, dtype=torch.int64, device=hs.device)
+    batch = torch.broadcast_shapes(zm.shape, sigma.shape, hs.shape[:-1],
+                                   phis.shape[:-1])
+    zmb = _bit_lanes(zm, L).expand(*batch, L)
+    sgb = _bit_lanes(sigma, L).expand(*batch, L)
+    flip = (sgb[..., :L - 1] - sgb[..., 1:]).abs()
+    pad = torch.zeros((*batch, WIDTH - (5 * L - 2)), dtype=torch.float32,
+                      device=hs.device)
+    return torch.cat([zmb, sgb, flip,
+                      hs.to(torch.float32).expand(*batch, L),
+                      phis.to(torch.float32).expand(*batch, L - 1), pad], -1)
+
+
+def forward_rows(uniforms, hs, phis, *, L: int, T: int, p: float,
+                 batch=None):
+    """Per-cycle rows of the forward kernel and the sigma after each cycle.
+
+    uniforms (..., T, L) f32 as ``presample_noise`` draws them; hs (..., L)
+    and phis (..., L-1) per row of the batch. With p == 0 the uniforms are
+    unused (may be None) and ``batch`` gives the leading shape.
+    Returns rows (..., T, 128) f32 and sig_after (..., T) int64."""
+    if p > 0.0:
+        _, zm, _, csum = presample_noise(uniforms, p, L)
+    else:
+        zm = csum = torch.zeros((*batch, T), dtype=torch.int64,
+                                device=hs.device)
+    rows = pack_cycle_params_compact(zm, csum, hs[..., None, :],
+                                     phis[..., None, :], L)
+    return rows, csum
+
+
+def kick_matrices(angles, L: int):
+    """Planar (1, 128, 128) U7 and (1, TOP, TOP) U_top kick matrices
+    (RX(theta)^{(x)7} and ^{(x)(L-14)}) of a constant x schedule
+    (T, 1, 2), f32. Returns (u7r, u7i, utr, uti)."""
+    TOP = 1 << max(L - 14, 0)
+    thetas = angles[:1, 0, 0]
+    c = torch.cos(thetas / 2).to(torch.float32)
+    s = torch.sin(thetas / 2).to(torch.float32)
+    eye = torch.eye(2, dtype=torch.float32, device=angles.device)
+    off = torch.tensor([[0.0, -1.0], [-1.0, 0.0]], dtype=torch.float32,
+                       device=angles.device)
+    rr = eye * c[:, None, None]
+    ri = off * s[:, None, None]
+
+    def kpow(k):
+        kr, ki = rr, ri
+        for _ in range(k - 1):
+            kr, ki = (kron(kr, rr) - kron(ki, ri),
+                      kron(kr, ri) + kron(ki, rr))
+        return kr, ki
+
+    u7r, u7i = kpow(7)
+    if TOP > 1:
+        utr, uti = kpow(int(math.log2(TOP)))
+    else:
+        utr = torch.ones((thetas.shape[0], 1, 1), dtype=torch.float32,
+                         device=angles.device)
+        uti = torch.zeros_like(utr)
+    return u7r, u7i, utr, uti
+
+
+def echo_pair_tiles(uniforms, ts, hs, phis, *, L: int, T: int, p: float,
+                    batch=None):
+    """Interleaved (pre, post) step rows for every (trajectory, t) pair.
+
+    uniforms (..., 2T, L) f32 — one block per trajectory, shared by every
+    t; ts (n_ts,) int; hs (..., L), phis (..., L-1). With p == 0 the
+    uniforms are unused (may be None) and ``batch`` gives the leading shape.
+    Returns tiles (..., n_ts, 4T, 128) f32 and the final sigma
+    (..., n_ts) int64.
+
+    pre row: inverse diagonal D0* with the conj-correction at the CURRENT
+    sigma (before this step's event) — the kernels apply the forward D0
+    sigma correction eagerly, so at the turnaround the inverse must
+    conj-correct it back. post row: forward steps carry the cycle's
+    diagonal at the sigma after the event; inverse steps only the event's
+    Z-signs.
+    """
+    if 5 * L - 2 > WIDTH - 4:
+        raise ValueError(f"L={L} data lanes collide with the flag lanes")
+    dev = hs.device
+    T2 = 2 * T
+    ts = torch.as_tensor(ts, dtype=torch.int64, device=dev)
+    n_ts = ts.shape[0]
+    if batch is None:
+        batch = uniforms.shape[:-2]
+    step = torch.arange(T2, device=dev)
+    t_ = ts[:, None]                                           # (n_ts, 1)
+    fwd = step < t_                                            # (n_ts, T2)
+    inv = (step >= t_) & (step < 2 * t_)
+    if p > 0.0:
+        codes = _codes_from_uniform(uniforms, p)[..., None, :, :]
+        codes = torch.where((fwd | inv)[..., None], codes, 0)
+        xm, zm = _masks_from_codes(codes, L)                   # (..., n_ts, T2)
+        csum = xor_scan(xm, L)
+        sig_b = torch.cat([torch.zeros_like(csum[..., :1]), csum[..., :-1]],
+                          dim=-1)
+    else:
+        zm = sig_b = csum = torch.zeros((*batch, n_ts, T2), dtype=torch.int64,
+                                        device=dev)
+    h = hs[..., None, None, :]
+    ph = phis[..., None, None, :]
+    fwd_f = fwd.to(torch.float32)[..., None]
+    inv_f = inv.to(torch.float32)[..., None]
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    pre = pack_cycle_params_compact(zero, sig_b, -h, -ph, L) * inv_f
+    post = (pack_cycle_params_compact(zm, csum, h, ph, L) * fwd_f
+            + pack_cycle_params_compact(zm, zero, torch.zeros_like(h),
+                                        torch.zeros_like(ph), L) * inv_f)
+    aidx = torch.where(fwd, step, torch.clamp(2 * t_ - 1 - step, 0, T - 1))
+    pre[..., WIDTH - 3] = torch.where(inv, -1.0, 1.0)
+    pre[..., WIDTH - 2] = (fwd | inv).to(torch.float32)
+    pre[..., WIDTH - 1] = aidx.to(torch.float32)
+    tiles = torch.stack([pre, post], dim=-2).reshape(*pre.shape[:-2],
+                                                     2 * T2, WIDTH)
+    tiles[..., 0, WIDTH - 4] = (2 * ts).to(torch.float32)
+    return tiles.contiguous(), csum[..., -1]

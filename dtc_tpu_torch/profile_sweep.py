@@ -1,0 +1,126 @@
+"""Where the device time of the main path goes, from ``torch.profiler``.
+
+Traces, on a CUDA card at the bench shape (L=20, T=50, p=0.05, g=0.97,
+vacuum, probe q = L//2):
+
+- ``forward``: three ``_forward_batch`` dispatches of 32 trajectories, each
+  copied to the host as ``bench.py`` does;
+- ``echo``: the ``autocorr`` echo sweep of 2 instances x 32 trajectories.
+
+For each it prints one JSON line: the wall ms, the device-busy ms (the union
+of the intervals of every device event, kernels and copies), the idle share
+1 - busy / wall, and the device ms and launches of each kernel, costliest
+first. With ``--out DIR`` it also writes the profiler's own table to
+``DIR/profile_<name>.txt``.
+
+Run: ``python -m dtc_tpu_torch.profile_sweep [--out DIR]``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import torch
+
+from dtc_tpu.io.disorder import generate_disorder
+from dtc_tpu.utils.config import SimConfig
+from dtc_tpu_torch.core.sigma_evolve import draw_uniforms
+from dtc_tpu_torch.experiments.engine import (
+    _forward_batch,
+    build_context,
+    echo_sweep,
+    resolve_device,
+)
+
+L, T, P, G, N_TRAJ, INST = 20, 50, 0.05, 0.97, 32, 2
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without its namespace prefix, template arguments and
+    parameter list: ``void ns::k<...>(float*, ...)`` -> ``ns::k``."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    cut = [i for i in (name.find("<"), name.find("(")) if i > 0]
+    return name[:min(cut)].strip() if cut else name
+
+
+def busy_summary(events, top: int = 6) -> dict:
+    """Busy ms (union of intervals) of the device events among ``events``
+    (``FunctionEvent``s, times in us), and the ms and counts of the ``top``
+    costliest kernel names; the rest are summed under ``other``."""
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    per = {}
+    for e in dev:
+        ms, n = per.get(short_name(e.name), (0.0, 0))
+        per[short_name(e.name)] = (
+            ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    ranked = sorted(per.items(), key=lambda kv: -kv[1][0])
+    kernels = [{"name": k, "ms": ms, "launches": n}
+               for k, (ms, n) in ranked[:top]]
+    if ranked[top:]:
+        kernels.append({"name": "other",
+                        "ms": sum(ms for _, (ms, _) in ranked[top:]),
+                        "launches": sum(n for _, (_, n) in ranked[top:])})
+    return {"busy_ms": busy / 1e3, "kernels": kernels}
+
+
+def traced(name, fn, out_dir):
+    """Run ``fn`` once under the profiler; print and return its summary."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    summary = busy_summary(prof.events())
+    summary = {"trace": name, "wall_ms": wall_ms,
+               "idle_share": 1.0 - summary["busy_ms"] / wall_ms, **summary}
+    if out_dir:
+        with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=40))
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None,
+                    help="directory for the profiler's tables")
+    args = ap.parse_args(argv)
+    dev = resolve_device("cuda")
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+    cfg = SimConfig(L=L, tf=T, g=G, inst=INST, noise_prob=P, use_noise=1,
+                    n_trajectories=N_TRAJ)
+    hs, phis = generate_disorder(L, INST, seed=0)
+    sched, params, noise = build_context(cfg, hs, phis, device=dev)
+    kw = dict(L=L, T=T, K=1, p=P, q=L // 2, initial_state="vacuum",
+              dtype_name="complex64", ancilla_factor=(1 - P) ** 6)
+
+    def forward(reps=3):
+        for seed in range(reps):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            u = draw_uniforms((1, N_TRAJ, T, L), generator=gen, device=dev)
+            _forward_batch(params[0][:1], params[1][:1], sched.angles, u,
+                           **kw).cpu()
+
+    forward(1)  # kernel build and first launch stay out of the trace
+    traced("forward_dispatch_x3", forward, args.out)
+    traced("echo_sweep",
+           lambda: echo_sweep(cfg, sched, params, noise), args.out)
+
+
+if __name__ == "__main__":
+    main()

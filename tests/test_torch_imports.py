@@ -1,0 +1,64 @@
+"""The port imports torch and never jax; a CUDA request without CUDA raises."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import dtc_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_no_module_of_the_port_loads_jax():
+    names = [m.name for m in pkgutil.walk_packages(
+        dtc_tpu_torch.__path__, "dtc_tpu_torch.")
+        if m.name != "dtc_tpu_torch.__main__"]
+    assert "dtc_tpu_torch.ops.resident_blocked" in names
+    code = ("import importlib, sys\n"
+            f"for n in {names!r}:\n"
+            "    importlib.import_module(n)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or"
+            " m.startswith('jax.') or m.startswith('jaxlib'))\n"
+            "assert not bad, bad\n"
+            "print(len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cuda_request_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available: the request is valid")
+    from dtc_tpu.utils.config import SimConfig
+    from dtc_tpu_torch.experiments.autocorr import run_autocorr
+    from dtc_tpu_torch.experiments.engine import resolve_device
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_autocorr(SimConfig(L=4, tf=2), device="cuda", write=False)
+
+
+def test_unported_methods_raise():
+    from dtc_tpu.utils.config import SimConfig
+    from dtc_tpu_torch.experiments.autocorr import run_autocorr
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_autocorr(SimConfig(L=4, tf=2), device="cpu", method="exact")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_autocorr(SimConfig(L=4, tf=2, use_fakebackend=1), device="cpu")
+
+
+@pytest.mark.parametrize("flag", [["--sharded"], ["--n_amp", "2"],
+                                  ["--emit_gate_counts"]])
+def test_unported_autocorr_flags_raise(flag, tmp_path):
+    from dtc_tpu_torch.utils.cli import main
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(["autocorr", "--device", "cpu", "--L", "4", "--tf", "2",
+              "--out_dir", str(tmp_path), *flag])

@@ -1,0 +1,123 @@
+"""CUDA kernels K1/K2 against their plain versions, on the card.
+
+These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
+without one. They import neither jax nor ``tests/conftest.py``'s setup, so
+on a machine with a card and no jax they run as
+``python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py``.
+Tolerance 1e-4: f32 sums over 2^L amplitudes in another order than the
+plain version's.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dtc_tpu.io.disorder import generate_disorder
+from dtc_tpu.utils.config import SimConfig
+from dtc_tpu_torch.experiments.autocorr import run_autocorr
+from dtc_tpu_torch.ops import resident_blocked as rb
+from dtc_tpu_torch.ops.params import echo_pair_tiles, forward_rows
+
+THETA = 0.97 * np.pi
+TOL = 1e-4
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from dtc_tpu_torch.ops.precision import set_fp32_policy
+
+    set_fp32_policy()
+    return torch.device("cuda")
+
+
+def _disorder(L, device):
+    hs, phis = generate_disorder(L, 1, seed=7)
+    return (torch.as_tensor(hs[:, :L], device=device),
+            torch.as_tensor(phis[:, :L - 1], device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,T,state", [(17, 4, "neel"), (20, 8, "vacuum"),
+                                       (23, 3, "vacuum")])
+def test_forward_kernel_matches_plain_on_card(cuda_device, L, T, state):
+    hs, phis = _disorder(L, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(L)
+    u = torch.rand((1, 3, T, L), generator=gen, device=cuda_device)
+    rows, sig = forward_rows(u, hs[:, None], phis[:, None], L=L, T=T, p=0.1)
+    launches = rb.LAUNCHES["forward"]
+    k = rb.blocked_forward_batch(rows, sig, THETA, L=L, q=L // 2,
+                                 initial_state=state)
+    torch.cuda.synchronize()
+    assert rb.LAUNCHES["forward"] == launches + 1
+    ref = rb.blocked_forward_batch_ref(rows, sig, THETA, L=L, q=L // 2,
+                                       initial_state=state)
+    assert float((k - ref).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,T,state", [(17, 3, "neel"), (20, 4, "vacuum"),
+                                       (23, 2, "vacuum")])
+def test_echo_kernel_matches_plain_on_card(cuda_device, L, T, state):
+    hs, phis = _disorder(L, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    u = torch.rand((1, 2, 2 * T, L), generator=gen, device=cuda_device)
+    ts = torch.arange(1, T + 1, device=cuda_device)
+    for p in (0.6, 0.0):
+        tiles, sig = echo_pair_tiles(u, ts, hs[:, None], phis[:, None], L=L,
+                                     T=T, p=p)
+        k = rb.blocked_echo_batch(tiles, sig, THETA, L=L, q=L // 2,
+                                  initial_state=state)
+        torch.cuda.synchronize()
+        ref = rb.blocked_echo_batch_ref(tiles, sig, THETA, L=L, q=L // 2,
+                                        initial_state=state)
+        assert float((k - ref).abs().max()) <= TOL
+        if p == 0:
+            assert float((k - 1).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_reject_bad_inputs(cuda_device):
+    rows = torch.zeros((1, 3, 128), device=cuda_device)
+    sig = torch.zeros((1, 3), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        rb.blocked_forward_batch(rows.double(), sig, THETA, L=17, q=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        rb.blocked_forward_batch(
+            torch.zeros((1, 3, 256), device=cuda_device)[..., ::2], sig,
+            THETA, L=17, q=3)
+    with pytest.raises(ValueError, match="shape"):
+        rb.blocked_forward_batch(torch.zeros((1, 3, 64), device=cuda_device),
+                                 sig, THETA, L=17, q=3)
+
+
+@pytest.mark.cuda
+def test_autocorr_on_card_runs_the_kernels_and_matches_cpu(cuda_device):
+    """The same injected uniforms through the CPU (plain versions) and the
+    card (kernels): per-instance A and A0 agree at 1e-4."""
+    cfg = SimConfig(L=17, tf=4, inst=1, n_trajectories=4, noise_prob=0.3)
+    rng = np.random.default_rng(0)
+    u = (rng.random((1, 4, 4, 17), dtype=np.float32),
+         rng.random((1, 4, 8, 17), dtype=np.float32))
+    rb.reset_counters()
+    got = run_autocorr(cfg, device="cuda", write=False, uniforms=u)
+    assert rb.LAUNCHES["forward"] >= 1 and rb.LAUNCHES["echo"] >= 1
+    assert rb.PLAIN_ON_CUDA == {"forward": 0, "echo": 0}
+    ref = run_autocorr(cfg, device="cpu", write=False, uniforms=u)
+    for k in ("autocorr_per_instance", "echo_per_instance"):
+        np.testing.assert_allclose(got[k], ref[k], atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_sigma_engine_on_card_matches_cpu(cuda_device):
+    """Shapes no kernel serves (here L=8) run the torch sigma engine on the
+    card; with the same uniforms it agrees with the CPU run at 1e-5."""
+    cfg = SimConfig(L=8, tf=6, inst=2, n_trajectories=8, noise_prob=0.2)
+    rng = np.random.default_rng(1)
+    u = (rng.random((2, 8, 6, 8), dtype=np.float32),
+         rng.random((2, 8, 12, 8), dtype=np.float32))
+    got = run_autocorr(cfg, device="cuda", write=False, uniforms=u)
+    ref = run_autocorr(cfg, device="cpu", write=False, uniforms=u)
+    for k in ("autocorr_per_instance", "echo_per_instance"):
+        np.testing.assert_allclose(got[k], ref[k], atol=1e-5, rtol=0)
