@@ -4,24 +4,30 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, one line
 each; any failure raises and the script exits non-zero without a result:
 
 1. card: CUDA present, name and power limit, TF32 off;
-2. build: the CUDA kernels from ``dtc_tpu_torch/csrc`` (nvcc, sm_90a);
+2. build: every CUDA library from ``dtc_tpu_torch/csrc`` (one nvcc per
+   source, all started at once, sm_90a);
 3. kernel vs plain version on the card, max |diff| <= 1e-4 each: small
-   shapes across the kernels' range, then the main path's own shapes (K1 on
-   2 instances x 32 trajectories at T=50; K2 on the echo sweep's last two
-   chunks, trip counts up to 98);
-4. main path: ``python -m dtc_tpu_torch autocorr --device cuda`` at L=20,
-   T=50, p=0.05, 2 instances x 32 trajectories, through the CLI's
-   ``main(argv)``; physics checks on its CSV; every kernel of the path
-   launched, no plain version called on a CUDA tensor; the forward and echo
-   sweep seconds from the run's own phase log;
-5. timing: the bench shape (``dtc_tpu_torch/bench.py::run_case``) and the
-   kernels against their plain versions on identical inputs, whose outputs
-   are held to the same bound;
+   shapes across each kernel's range, then the main paths' own shapes (K1
+   on 2 instances x 32 trajectories at T=50; K2 on the echo sweep's last
+   two chunks; K4 forward on 32 trajectories of the xy drive at T=50; K4
+   echo on the xy echo sweep's last two chunks);
+4. main paths, each through the CLI's ``main(argv)`` with every launch
+   count set to 0 just before it and read just after:
+   ``autocorr --device cuda`` (x drive: K1/K2) at L=20, T=50, 2 instances x
+   32 trajectories, and ``polarization --device cuda`` (x, y, xy, yx: K1/K2
+   and K4) at L=20, T=50, 32 trajectories; physics checks on their CSVs,
+   the engine each sweep logged, every kernel of the path launched and no
+   plain version called on a CUDA tensor; then ``xy-cycle`` and ``shots``
+   at T=20, with checks on their CSVs;
+5. timing: the bench shape (``dtc_tpu_torch/bench.py::run_case``) and every
+   kernel against its plain version on identical inputs, whose outputs are
+   held to the same bound; each kernel's bound: the larger of its bytes
+   (inputs read once, outputs written once) over 3.35 TB/s and its f32
+   operations over 67 TFLOP/s (the H100 SXM's published peaks);
 6. a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
-It imports only torch and the port; the port itself reuses the JAX
-package's jax-free modules (disorder, CSV, config).
+It imports only the standard library, torch and the port.
 """
 
 from __future__ import annotations
@@ -41,6 +47,12 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-4  # f32 sums over 2^L amplitudes in another order than the plain version
 THETA = 0.97 * math.pi
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
+F32_FLOPS_PER_S = 67e12     # H100 SXM, f32 outside the tensor cores
+P = 0.05
+# the main paths' shape: the bench shape of the reference (L=20, T=50, 32
+# trajectories); the studies run at T=20
+MAIN_L, MAIN_T, STUDY_T, N_TRAJ, DEVICE = 20, 50, 20, 32, "cuda"
 
 
 def phase(msg: str) -> None:
@@ -68,11 +80,14 @@ def build() -> None:
     from dtc_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load()
-    info = _build.build_info["floquet_x"]
-    regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
-    phase(f"[build] floquet_x.cu in {time.perf_counter() - t0:.2f}s "
-          f"(nvcc {info['seconds']:.2f}s); " + " | ".join(regs))
+    _build.load_all()
+    phase(f"[build] {len(_build.build_info)} libraries in "
+          f"{time.perf_counter() - t0:.2f}s")
+    for name, info in _build.build_info.items():
+        regs = [ln.strip() for ln in info["log"].splitlines()
+                if "registers" in ln]
+        phase(f"[build] {name}.cu (nvcc {info['seconds']:.2f}s): "
+              + " | ".join(regs))
 
 
 def disorder(L, dev, inst=1, seed=7):
@@ -84,12 +99,16 @@ def disorder(L, dev, inst=1, seed=7):
     return (2 * u[0] - 1) * math.pi, (u[1, :, :L - 1] - 1.5) * math.pi
 
 
+def uniforms(shape, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=dev)
+
+
 def forward_inputs(L, T, c, p, dev, seed, inst=1):
     from dtc_tpu_torch.ops.params import forward_rows
 
     hs, phis = disorder(L, dev, inst)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    u = torch.rand((inst, c, T, L), generator=gen, device=dev)
+    u = uniforms((inst, c, T, L), dev, seed)
     return forward_rows(u, hs[:, None], phis[:, None], L=L, T=T, p=p)
 
 
@@ -97,10 +116,39 @@ def echo_inputs(L, T, c, p, ts, dev, seed, inst=1):
     from dtc_tpu_torch.ops.params import echo_pair_tiles
 
     hs, phis = disorder(L, dev, inst)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    u = torch.rand((inst, c, 2 * T, L), generator=gen, device=dev)
+    u = uniforms((inst, c, 2 * T, L), dev, seed)
     return echo_pair_tiles(u, torch.as_tensor(ts, device=dev), hs[:, None],
                            phis[:, None], L=L, T=T, p=p)
+
+
+def schedule(pol, T, dev):
+    from dtc_tpu_torch.models.drives import build_kick_schedule
+
+    # the xy-cycle drive's axis flips every 2 cycles, inside short runs
+    return build_kick_schedule(pol, 0.97, T, xy_cycle_period=2,
+                               device=dev).angles
+
+
+def general_forward_inputs(L, pol, T, c, p, dev, seed, inst=1):
+    from dtc_tpu_torch.ops.params_general import general_forward_rows
+
+    hs, phis = disorder(L, dev, inst)
+    angles = schedule(pol, T, dev)
+    K = angles.shape[1]
+    u = uniforms((inst, c, T * K, L), dev, seed)
+    return general_forward_rows(u, hs[:, None], phis[:, None], angles, L=L,
+                                T=T, K=K, p=p)
+
+
+def general_echo_inputs(L, pol, T, c, p, ts, dev, seed, inst=1):
+    from dtc_tpu_torch.ops.params_general import general_echo_rows
+
+    hs, phis = disorder(L, dev, inst)
+    angles = schedule(pol, T, dev)
+    K = angles.shape[1]
+    u = uniforms((inst, c, 2 * T * K, L), dev, seed)
+    return general_echo_rows(u, torch.as_tensor(ts, device=dev), hs[:, None],
+                             phis[:, None], angles, L=L, T=T, K=K, p=p)
 
 
 def held(what: str, k, ref) -> float:
@@ -113,61 +161,114 @@ def held(what: str, k, ref) -> float:
     return d
 
 
-def compare(dev) -> dict:
+def against_plain(what, kernel, plain, args, kw) -> tuple:
+    """(max |kernel - plain|, kernel output) on identical inputs."""
+    k = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    return held(what, k, ref), k
+
+
+def compare_x(dev, err) -> None:
     from dtc_tpu_torch.ops import resident_blocked as rb
 
-    err = {"forward": 0.0, "echo": 0.0}
     # small shapes across the range, then the main path's batch:
     # 2 instances x 32 trajectories through all 50 cycles
     for L, T, state, c, inst in ((17, 4, "neel", 3, 1), (20, 8, "vacuum", 3, 1),
                                  (23, 3, "vacuum", 3, 1),
                                  (20, 50, "vacuum", 32, 2)):
-        rows, sig = forward_inputs(L, T, c, 0.05 if T == 50 else 0.1, dev,
+        rows, sig = forward_inputs(L, T, c, P if T == 50 else 0.1, dev,
                                    seed=L + T, inst=inst)
-        k = rb.blocked_forward_batch(rows, sig, THETA, L=L, q=L // 2,
-                                     initial_state=state)
-        torch.cuda.synchronize()
-        ref = rb.blocked_forward_batch_ref(rows, sig, THETA, L=L, q=L // 2,
-                                           initial_state=state)
-        torch.cuda.synchronize()
-        d = held(f"K1 L={L} T={T} {state} {inst}x{c}", k, ref)
-        err["forward"] = max(err["forward"], d)
+        d, _ = against_plain(
+            f"K1 L={L} T={T} {state} {inst}x{c}", rb.blocked_forward_batch,
+            rb.blocked_forward_batch_ref, (rows, sig, THETA),
+            dict(L=L, q=L // 2, initial_state=state))
+        err["K1"] = max(err["K1"], d)
     for p in (0.6, 0.0):
         tiles, sig = echo_inputs(20, 4, 2, p, [1, 2, 3, 4], dev, seed=2)
-        k = rb.blocked_echo_batch(tiles, sig, THETA, L=20, q=10)
-        torch.cuda.synchronize()
-        ref = rb.blocked_echo_batch_ref(tiles, sig, THETA, L=20, q=10)
-        torch.cuda.synchronize()
-        d = held(f"K2 L=20 T=4 ts=1..4 p={p} (min A0 {float(k.min()):.6f})",
-                 k, ref)
+        d, k = against_plain(
+            f"K2 L=20 T=4 ts=1..4 p={p}", rb.blocked_echo_batch,
+            rb.blocked_echo_batch_ref, (tiles, sig, THETA), dict(L=20, q=10))
         if p == 0.0 and not float((k - 1).abs().max()) <= TOL:
             raise RuntimeError(f"noiseless echo != 1: {k.tolist()}")
-        err["echo"] = max(err["echo"], d)
+        err["K2"] = max(err["K2"], d)
     # the main path's last two echo chunks (T=50, t_chunk=8): the longest
     # trip counts, 80..98 steps, on 2 instances x 32 trajectories
     for ts in (list(range(40, 48)), [48, 49]):
-        tiles, sig = echo_inputs(20, 50, 32, 0.05, ts, dev, seed=ts[0],
-                                 inst=2)
-        k = rb.blocked_echo_batch(tiles, sig, THETA, L=20, q=10)
-        torch.cuda.synchronize()
-        ref = rb.blocked_echo_batch_ref(tiles, sig, THETA, L=20, q=10)
-        torch.cuda.synchronize()
-        d = held(f"K2 L=20 T=50 ts={ts[0]}..{ts[-1]} p=0.05 2x32", k, ref)
-        err["echo"] = max(err["echo"], d)
-        del tiles, k, ref
-    return err
+        tiles, sig = echo_inputs(20, 50, 32, P, ts, dev, seed=ts[0], inst=2)
+        d, _ = against_plain(
+            f"K2 L=20 T=50 ts={ts[0]}..{ts[-1]} p={P} 2x32",
+            rb.blocked_echo_batch, rb.blocked_echo_batch_ref,
+            (tiles, sig, THETA), dict(L=20, q=10))
+        err["K2"] = max(err["K2"], d)
+        del tiles
 
 
-class PhaseLog(logging.Handler):
-    """Seconds of each ``phase_timer`` phase the run logs."""
+def compare_general(dev, err) -> None:
+    from dtc_tpu_torch.ops import resident_general as rg
+
+    drives = ("y", "xy", "circular_left", "xy_cycle")
+    # every drive at every L, the initial state and probe qubit varied
+    for i, L in enumerate((14, 17, 20, 23)):
+        for j, pol in enumerate(drives):
+            state = ("vacuum", "neel")[(i + j) % 2]
+            q = (0, L // 2, L - 1)[(i + j) % 3]
+            T = 6 if L < 23 else 3
+            rows = general_forward_inputs(L, pol, T, 2, 0.1, dev, seed=L + j)
+            d, _ = against_plain(
+                f"K4 forward L={L} {pol} T={T} {state} q={q}",
+                rg.general_forward_batch, rg.general_forward_batch_ref,
+                (rows,), dict(L=L, T=T, q=q, initial_state=state))
+            err["K4 forward"] = max(err["K4 forward"], d)
+        pol = drives[i]
+        for p in (0.6, 0.0):
+            tiles = general_echo_inputs(L, pol, 3, 2, p, [0, 1, 2, 3], dev,
+                                        seed=L)
+            q = (L // 2, L - 1, 0, L // 2)[i]
+            d, k = against_plain(
+                f"K4 echo L={L} {pol} T=3 ts=0..3 p={p} q={q}",
+                rg.general_echo_batch, rg.general_echo_batch_ref, (tiles,),
+                dict(L=L, q=q))
+            if p == 0.0 and not float((k - 1).abs().max()) <= TOL:
+                raise RuntimeError(f"noiseless echo != 1: {k.tolist()}")
+            err["K4 echo"] = max(err["K4 echo"], d)
+    # the main path's own shapes: the xy forward batch of 32 trajectories
+    # through all 50 cycles, and the xy echo sweep's last two chunks (trip
+    # counts up to 196 steps)
+    rows = general_forward_inputs(20, "xy", 50, 32, P, dev, seed=50)
+    d, _ = against_plain("K4 forward L=20 xy T=50 1x32",
+                         rg.general_forward_batch,
+                         rg.general_forward_batch_ref, (rows,),
+                         dict(L=20, T=50, q=10))
+    err["K4 forward"] = max(err["K4 forward"], d)
+    for ts in (list(range(40, 48)), [48, 49]):
+        tiles = general_echo_inputs(20, "xy", 50, 32, P, ts, dev, seed=ts[0])
+        d, _ = against_plain(f"K4 echo L=20 xy T=50 ts={ts[0]}..{ts[-1]} 1x32",
+                             rg.general_echo_batch, rg.general_echo_batch_ref,
+                             (tiles,), dict(L=20, q=10))
+        err["K4 echo"] = max(err["K4 echo"], d)
+        del tiles
+
+
+class SweepLog(logging.Handler):
+    """Seconds of each ``phase_timer`` phase, and the (sweep, engine,
+    polarization) of each sweep, from the port's log."""
 
     def __init__(self):
         super().__init__(logging.INFO)
         self.seconds = {}
+        self.sweeps = []
 
     def emit(self, record):
-        if record.msg.startswith("phase ") and len(record.args) == 2:
-            self.seconds[record.args[0]] = record.args[1]
+        msg = record.getMessage()
+        if msg.startswith("phase "):
+            name, sec = msg.split()[1:3]
+            self.seconds.setdefault(name, []).append(float(sec.rstrip("s")))
+        elif "_sweep: engine=" in msg:
+            sweep, engine, pol = msg.split()[:3]
+            self.sweeps.append((sweep.rstrip(":"), engine.split("=")[1],
+                                pol.split("=")[1]))
 
 
 def read_csv(path) -> dict:
@@ -176,28 +277,69 @@ def read_csv(path) -> dict:
     return {k: [float(r[i]) for r in rows[1:]] for i, k in enumerate(rows[0])}
 
 
-def main_path(smi) -> dict:
+def run_cli(argv) -> tuple:
+    """Run the CLI with every launch count at 0; returns (launches,
+    plain calls on CUDA, sweep log, seconds)."""
     from dtc_tpu_torch.ops import resident_blocked as rb
+    from dtc_tpu_torch.ops import resident_general as rg
     from dtc_tpu_torch.utils.cli import main as cli_main
 
-    p = 0.05
-    with tempfile.TemporaryDirectory() as tmp:
-        argv = ["autocorr", "--device", "cuda", "--L", "20", "--tf", "50",
-                "--g", "0.97", "--noise_prob", str(p), "--inst", "2",
-                "--n_trajectories", "32", "--out_dir", tmp,
-                "--disorder_dir", tmp]
-        phases = PhaseLog()
-        logging.getLogger("dtc_tpu").addHandler(phases)
-        rb.reset_counters()
-        t0 = time.perf_counter()
+    log = SweepLog()
+    logger = logging.getLogger("dtc_tpu_torch")
+    logger.addHandler(log)
+    rb.reset_counters()
+    rg.reset_counters()
+    t0 = time.perf_counter()
+    try:
         rc = cli_main(argv)
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = dict(rb.LAUNCHES)
-        plain_on_cuda = dict(rb.PLAIN_ON_CUDA)
-        logging.getLogger("dtc_tpu").removeHandler(phases)
-        if rc != 0:
-            raise RuntimeError(f"autocorr CLI returned {rc}")
+    finally:
+        logger.removeHandler(log)
+    seconds = time.perf_counter() - t0
+    launches = {"K1": rb.LAUNCHES["forward"], "K2": rb.LAUNCHES["echo"],
+                "K4 forward": rg.LAUNCHES["forward"],
+                "K4 echo": rg.LAUNCHES["echo"]}
+    plain = {**{f"x {k}": v for k, v in rb.PLAIN_ON_CUDA.items()},
+             **{f"general {k}": v for k, v in rg.PLAIN_ON_CUDA.items()}}
+    if rc != 0:
+        raise RuntimeError(f"{argv[0]} CLI returned {rc}")
+    return launches, plain, log, seconds
+
+
+def physics_checks(a, e, af, alternates) -> dict:
+    """A(0), |A|, finiteness, echo <= 1; and period doubling for drives
+    that flip the spins each cycle (x, y)."""
+    checks = {
+        "A(0) = (1-p)^6": abs(a[0] - af) < 1e-3,
+        "|A| <= 1": all(abs(x) <= 1 + 1e-3 for x in a),
+        "A finite": all(math.isfinite(x) for x in a),
+        "echo finite": all(math.isfinite(x) for x in e),
+        "echo <= 1": all(x <= 1 + 1e-3 for x in e),
+    }
+    if alternates:
+        checks["A alternates over 4 cycles"] = all(a[t] * a[t + 1] < 0
+                                                   for t in range(3))
+    return checks
+
+
+def fail_on(what, checks) -> None:
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"{what} checks failed: {bad}")
+    phase(f"[main] {what} checks passed: " + ", ".join(checks))
+
+
+def common_argv(T, tmp):
+    return ["--device", DEVICE, "--L", str(MAIN_L), "--tf", str(T), "--g",
+            "0.97", "--noise_prob", str(P), "--n_trajectories", str(N_TRAJ),
+            "--out_dir", tmp, "--disorder_dir", tmp]
+
+
+def main_autocorr(smi) -> dict:
+    """The x drive's path: ``autocorr`` at 2 instances x 32 trajectories."""
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, plain, log, seconds = run_cli(
+            ["autocorr", "--inst", "2", *common_argv(MAIN_T, tmp)])
         csvs = [f for f in os.listdir(tmp) if f.endswith(".csv")
                 and f.startswith("autocorr_data_")]
         if len(csvs) != 1:
@@ -207,31 +349,112 @@ def main_path(smi) -> dict:
     if list(cols) != want:
         raise RuntimeError(f"CSV columns {list(cols)} != {want}")
     a, e = cols["av_autocorr"], cols["av_autocorr_echo"]
-    af = (1 - p) ** 6
-    checks = {
-        "A(0) = (1-p)^6": abs(a[0] - af) < 1e-3,
-        "|A| <= 1": all(abs(x) <= 1 + 1e-3 for x in a),
-        "A finite": all(math.isfinite(x) for x in a),
-        "A alternates over 4 cycles": all(a[t] * a[t + 1] < 0
-                                          for t in range(3)),
-        "echo finite": all(math.isfinite(x) for x in e),
-        "echo <= 1": all(x <= 1 + 1e-3 for x in e),
-        "K1 launched": launches["forward"] > 0,
-        "K2 launched": launches["echo"] > 0,
-        "no plain version on CUDA": not any(plain_on_cuda.values()),
-    }
-    phase(f"[main] autocorr L=20 T=50 inst=2 traj=32 in {seconds:.2f}s: "
-          f"A[0:4]={[round(float(x), 6) for x in a[:4]]} "
-          f"echo[0:4]={[round(float(x), 6) for x in e[:4]]} "
-          f"launches={launches}")
-    bad = [k for k, ok in checks.items() if not ok]
-    if bad:
-        raise RuntimeError(f"main-path checks failed: {bad}")
-    phase("[main] checks passed: " + ", ".join(checks))
-    phase(f"[main] sweep seconds: forward {phases.seconds['forward']:.3f} s, "
-          f"echo {phases.seconds['echo']:.3f} s (inst=2 x 32 trajectories) "
-          f"on {smi}")
+    checks = physics_checks(a, e, (1 - P) ** 6, alternates=True)
+    checks.update({
+        "engine=blocked": {s[1] for s in log.sweeps} == {"blocked"},
+        "K1 launched": launches["K1"] > 0,
+        "K2 launched": launches["K2"] > 0,
+        "no plain version on CUDA": not any(plain.values()),
+    })
+    phase(f"[main] autocorr L={MAIN_L} T={MAIN_T} inst=2 traj={N_TRAJ} in "
+          f"{seconds:.2f}s: "
+          f"A[0:4]={[round(x, 6) for x in a[:4]]} "
+          f"echo[0:4]={[round(x, 6) for x in e[:4]]} launches={launches}")
+    fail_on("autocorr", checks)
+    phase(f"[main] autocorr sweep seconds: forward "
+          f"{log.seconds['forward'][0]:.3f} s, echo "
+          f"{log.seconds['echo'][0]:.3f} s (inst=2 x 32 trajectories) on "
+          f"{smi}")
     return launches
+
+
+def main_polarization(smi) -> dict:
+    """This slice's path: ``polarization`` over x, y, xy, yx."""
+    from dtc_tpu_torch.io import naming
+    from dtc_tpu_torch.utils.config import SimConfig
+
+    pols = ("x", "y", "xy", "yx")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, plain, log, seconds = run_cli(
+            ["polarization", "--inst", "1", *common_argv(MAIN_T, tmp)])
+        cfg = SimConfig(L=MAIN_L, tf=MAIN_T, g=0.97, noise_prob=P, inst=1)
+        path = os.path.join(tmp, naming.autocorr_comparison_csv_name(cfg))
+        if not os.path.exists(path):
+            raise RuntimeError(f"no {os.path.basename(path)} in "
+                               f"{sorted(os.listdir(tmp))}")
+        cols = read_csv(path)
+    keys = ("av_autocorr", "av_autocorr_echo", "sqrt_av_autocorr_echo",
+            "forward_upper_env", "forward_lower_env", "echo_upper_env",
+            "echo_lower_env", "sqrt_echo_upper_env", "sqrt_echo_lower_env")
+    want = ["time"] + [f"{k}_{pol}" for pol in pols for k in keys]
+    if list(cols) != want:
+        raise RuntimeError(f"merged CSV columns {list(cols)} != {want}")
+    checks = {}
+    for pol in pols:
+        a, e = cols[f"av_autocorr_{pol}"], cols[f"av_autocorr_echo_{pol}"]
+        for k, ok in physics_checks(a, e, (1 - P) ** 6,
+                                    alternates=pol in ("x", "y")).items():
+            checks[f"{pol}: {k}"] = ok
+        phase(f"[main] polarization {pol}: A[0:4]="
+              f"{[round(x, 6) for x in a[:4]]} echo[0:4]="
+              f"{[round(x, 6) for x in e[:4]]}")
+    engines = {(s[2], s[1]) for s in log.sweeps}
+    checks.update({
+        "engine=blocked for x": engines & {("x", "blocked")} == {
+            ("x", "blocked")},
+        "engine=general for y, xy, yx": all(
+            (pol, "general") in engines for pol in ("y", "xy", "yx")),
+        "one engine per polarization": len(engines) == len(pols),
+        "K1 launched": launches["K1"] > 0,
+        "K2 launched": launches["K2"] > 0,
+        "K4 forward launched": launches["K4 forward"] > 0,
+        "K4 echo launched": launches["K4 echo"] > 0,
+        "no plain version on CUDA": not any(plain.values()),
+    })
+    phase(f"[main] polarization L={MAIN_L} T={MAIN_T} inst=1 traj={N_TRAJ}"
+          " x,y,xy,yx in "
+          f"{seconds:.2f}s: launches={launches} sweeps={sorted(engines)}")
+    fail_on("polarization", checks)
+    per_pol = " ".join(f"{pol} {f:.3f}/{e:.3f}" for pol, f, e in zip(
+        pols, log.seconds["forward"], log.seconds["echo"]))
+    phase(f"[main] polarization sweep seconds (forward/echo): {per_pol} on "
+          f"{smi}")
+    return launches
+
+
+def main_studies() -> None:
+    """``xy-cycle`` and ``shots`` (y drive) at T=20."""
+    for argv, prefix, want, engines in (
+            (["xy-cycle"], "autocorr_xy_cycle_",
+             ["time", "av_autocorr_x", "av_autocorr_echo_x",
+              "av_autocorr_xy_cycle", "av_autocorr_echo_xy_cycle"],
+             {("x", "blocked"), ("xy_cycle", "general")}),
+            (["shots", "--polarization", "y", "--shots_list", "100,10000"],
+             "autocorr_shots_",
+             ["time", "av_autocorr_echo_shots100",
+              "av_autocorr_echo_shots10000"], {("y", "general")})):
+        with tempfile.TemporaryDirectory() as tmp:
+            launches, plain, log, seconds = run_cli(
+                [*argv, "--inst", "1", *common_argv(STUDY_T, tmp)])
+            csvs = [f for f in os.listdir(tmp) if f.startswith(prefix)]
+            if len(csvs) != 1:
+                raise RuntimeError(f"{argv[0]}: expected one {prefix}* CSV,"
+                                   f" got {csvs}")
+            cols = read_csv(os.path.join(tmp, csvs[0]))
+        values = [x for k in want[1:] for x in cols.get(k, [])]
+        checks = {
+            "columns": list(cols) == want,
+            "values finite, |x| <= 1": all(math.isfinite(x)
+                                           and abs(x) <= 1 + 1e-3
+                                           for x in values),
+            "engines": {(s[2], s[1]) for s in log.sweeps} == engines,
+            "K4 launched": launches["K4 echo"] > 0,
+            "no plain version on CUDA": not any(plain.values()),
+        }
+        phase(f"[main] {argv[0]} L={MAIN_L} T={STUDY_T} traj={N_TRAJ} in "
+              f"{seconds:.2f}s: "
+              f"launches={launches}")
+        fail_on(argv[0], checks)
 
 
 def time_ms(fn, reps=3):
@@ -250,7 +473,7 @@ def time_ms(fn, reps=3):
 
 def timed_pair(kernel, plain, reps) -> tuple:
     """Best ms of kernel and plain, timed in turns (plain, kernel, kernel,
-    plain), and the max |kernel - plain| of their outputs."""
+    plain), and their outputs."""
     p_a, ref = time_ms(plain, reps)
     k_a, out = time_ms(kernel)
     k_b, _ = time_ms(kernel)
@@ -258,62 +481,141 @@ def timed_pair(kernel, plain, reps) -> tuple:
     return min(k_a, k_b), min(p_a, p_b), out, ref
 
 
-def timing(dev, smi):
-    """Times and max |kernel - plain| of both kernels at the main path's
-    shapes."""
+def bound(io_bytes, amp_steps, flops_per_amp_step) -> tuple:
+    """(bound ms, what bounds it): the larger of the bytes that must move
+    (inputs read once, outputs written once) over the HBM rate and the f32
+    operations over the f32 peak."""
+    t_bytes = io_bytes / HBM_BYTES_PER_S
+    t_ops = amp_steps * flops_per_amp_step / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def report(name, what, ms, plain_ms, amp_steps, unit, units, io_bytes,
+           flops, smi) -> dict:
+    """Print one kernel's timing line; return its numbers."""
+    bound_ms, bound_by = bound(io_bytes, amp_steps, flops)
+    floor_ms = amp_steps * 32 / HBM_BYTES_PER_S * 1e3
+    gbps = amp_steps * 32 / (ms / 1e3) / 1e9
+    phase(f"[timing] {name} {what}: kernel {ms:.3f} ms = "
+          f"{units / (ms / 1e3):.1f} {unit}/s, plain {plain_ms:.3f} ms = "
+          f"{units / (plain_ms / 1e3):.1f} {unit}/s; state {gbps:.1f} GB/s ="
+          f" {100 * floor_ms / ms:.1f}% of the two-sweep floor "
+          f"({floor_ms:.3f} ms at 32 B/amp/step); bound {bound_ms:.3f} ms "
+          f"({bound_by}) on {smi}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "state_floor_ms": floor_ms}
+
+
+def timing(dev, smi, err) -> dict:
+    """Times of every kernel and its plain version at the main paths'
+    shapes; the outputs are held to the same bound."""
     from dtc_tpu_torch.bench import run_case
     from dtc_tpu_torch.ops import resident_blocked as rb
+    from dtc_tpu_torch.ops import resident_general as rg
 
     L, T, c = 20, 50, 32
-    cps, dt = run_case(L=L, T=T, p=0.05, n_traj=c, device=dev)
+    N = 1 << L
+    cps, dt = run_case(L=L, T=T, p=P, n_traj=c, device=dev)
     phase(f"[timing] bench shape L=20 T=50 traj=32 p=0.05 via run_case: "
           f"{cps:.1f} cycles/s ({dt * 1e3:.3f} ms/dispatch) on {smi}")
-    rows, sig = forward_inputs(L, T, c, 0.05, dev, seed=5)
-    k1_ms, p1_ms, out, ref = timed_pair(
+    out = {}
+    rows, sig = forward_inputs(L, T, c, P, dev, seed=5)
+    k_ms, p_ms, k, ref = timed_pair(
         lambda: rb.blocked_forward_batch(rows, sig, THETA, L=L, q=L // 2),
         lambda: rb.blocked_forward_batch_ref(rows, sig, THETA, L=L, q=L // 2),
         3)
-    err = {"forward": held("K1 L=20 T=50 vacuum 1x32 (timed inputs)", out, ref)}
-    phase(f"[timing] K1 forward batch L=20 T=50 traj=32: kernel {k1_ms:.3f} "
-          f"ms = {T * c / (k1_ms / 1e3):.1f} cycles/s, plain {p1_ms:.3f} ms "
-          f"= {T * c / (p1_ms / 1e3):.1f} cycles/s on {smi}")
+    err["K1"] = max(err["K1"], held("K1 L=20 T=50 1x32 (timed inputs)", k,
+                                    ref))
+    out["K1"] = report("K1", "forward L=20 T=50 traj=32", k_ms, p_ms,
+                       c * (T - 1) * N, "cycles", T * c,
+                       4 * (rows.numel() + k.numel()), 6 * L + 6, smi)
     # the main path's first echo call: 2 instances x 32 trajectories x t=0..7
-    tiles, sfin = echo_inputs(L, T, c, 0.05, list(range(8)), dev, seed=6,
+    tiles, sfin = echo_inputs(L, T, c, P, list(range(8)), dev, seed=6,
                               inst=2)
-    k2_ms, p2_ms, out, ref = timed_pair(
+    k_ms, p_ms, k, ref = timed_pair(
         lambda: rb.blocked_echo_batch(tiles, sfin, THETA, L=L, q=L // 2),
         lambda: rb.blocked_echo_batch_ref(tiles, sfin, THETA, L=L, q=L // 2),
         1)
-    err["echo"] = held("K2 L=20 T=50 ts=0..7 p=0.05 2x32 (timed inputs)",
-                       out, ref)
+    err["K2"] = max(err["K2"], held("K2 L=20 T=50 ts=0..7 2x32 (timed "
+                                    "inputs)", k, ref))
     steps = 2 * c * sum(2 * t for t in range(8))  # inst x traj x 2t
-    phase(f"[timing] K2 echo batch L=20 ts=0..7 pairs=512 steps={steps}: "
-          f"kernel {k2_ms:.3f} ms = {steps / (k2_ms / 1e3):.1f} steps/s, plain "
-          f"{p2_ms:.3f} ms = {steps / (p2_ms / 1e3):.1f} steps/s on {smi}")
-    return {"forward": (k1_ms, p1_ms), "echo": (k2_ms, p2_ms)}, err
+    out["K2"] = report("K2", f"echo L=20 ts=0..7 pairs=512 steps={steps}",
+                       k_ms, p_ms, steps * N, "steps", steps,
+                       4 * (tiles.numel() + k.numel()), 6 * L + 12, smi)
+    del tiles
+    for pol in ("y", "xy"):
+        rows = general_forward_inputs(L, pol, T, c, P, dev, seed=7)
+        K = rows.shape[-2] // T
+        k_ms, p_ms, k, ref = timed_pair(
+            lambda: rg.general_forward_batch(rows, L=L, T=T, q=L // 2),
+            lambda: rg.general_forward_batch_ref(rows, L=L, T=T, q=L // 2),
+            1)
+        err["K4 forward"] = max(err["K4 forward"], held(
+            f"K4 forward L=20 {pol} T=50 1x32 (timed inputs)", k, ref))
+        out[f"K4 forward {pol}"] = report(
+            "K4", f"forward {pol} L=20 T=50 traj=32 steps/cycle={K}", k_ms,
+            p_ms, c * (T - 1) * K * N, "cycles", T * c,
+            4 * (rows.numel() + k.numel()), 14 * L + 6, smi)
+    tiles = general_echo_inputs(L, "xy", T, c, P, list(range(8)), dev,
+                                seed=8, inst=2)
+    k_ms, p_ms, k, ref = timed_pair(
+        lambda: rg.general_echo_batch(tiles, L=L, q=L // 2),
+        lambda: rg.general_echo_batch_ref(tiles, L=L, q=L // 2), 1)
+    err["K4 echo"] = max(err["K4 echo"], held(
+        "K4 echo L=20 xy ts=0..7 2x32 (timed inputs)", k, ref))
+    steps = 2 * c * sum(2 * 2 * t for t in range(8))  # inst x traj x 2tK
+    out["K4 echo"] = report("K4", f"echo xy L=20 ts=0..7 pairs=512 "
+                            f"steps={steps}", k_ms, p_ms, steps * N, "steps",
+                            steps, 4 * (tiles.numel() + k.numel()),
+                            14 * L + 12, smi)
+    return out
 
 
 def main() -> None:
-    if not os.path.isfile(os.path.join(HERE, "dtc_tpu_torch", "csrc",
-                                       "floquet_x.cu")):
+    csrc = os.path.join(HERE, "dtc_tpu_torch", "csrc")
+    if not all(os.path.isfile(os.path.join(csrc, f))
+               for f in ("floquet_x.cu", "floquet_general.cu")):
         sys.exit("chip_smoke: run it from the root of a checkout of the"
-                 " repository (dtc_tpu_torch/ not found beside it)")
+                 " repository (dtc_tpu_torch/csrc not found beside it)")
     smi = card()
     dev = torch.device("cuda")
     build()
-    err = compare(dev)
-    launches = main_path(smi)
-    times, timed_err = timing(dev, smi)
-    err = {k: max(err[k], timed_err[k]) for k in err}
-    src = "dtc_tpu_torch/csrc/floquet_x.cu"
-    replaced = {"forward": ("K1", "dtc_tpu/ops/pallas_resident_blocked.py:131"),
-                "echo": ("K2", "dtc_tpu/ops/pallas_resident_blocked.py:374")}
-    kernels = [{"name": f"{kid} floquet_x_{name}", "route": "cuda",
-                "source": src, "replaces": where,
-                "launches": launches[name], "max_abs_err": err[name],
-                "ms": times[name][0], "plain_ms": times[name][1]}
-               for name, (kid, where) in replaced.items()]
-    print(json.dumps({"kernels": kernels}))
+    err = {"K1": 0.0, "K2": 0.0, "K4 forward": 0.0, "K4 echo": 0.0}
+    compare_x(dev, err)
+    compare_general(dev, err)
+    launches = main_autocorr(smi)
+    launches.update({k: v for k, v in main_polarization(smi).items()
+                     if k.startswith("K4")})
+    main_studies()
+    times = timing(dev, smi, err)
+    times["K4 forward"] = times.pop("K4 forward xy")
+    general = "dtc_tpu/ops/pallas_resident_general.py"
+    kernels = [
+        ("K1", "floquet_x_forward", "dtc_tpu_torch/csrc/floquet_x.cu",
+         "dtc_tpu/ops/pallas_resident_blocked.py:131", None),
+        ("K2", "floquet_x_echo", "dtc_tpu_torch/csrc/floquet_x.cu",
+         "dtc_tpu/ops/pallas_resident_blocked.py:374", None),
+        ("K4 forward", "floquet_general_forward",
+         "dtc_tpu_torch/csrc/floquet_general.cu", f"{general}:166",
+         f"{general}:334"),
+        ("K4 echo", "floquet_general_echo",
+         "dtc_tpu_torch/csrc/floquet_general.cu", f"{general}:166",
+         f"{general}:334"),
+    ]
+    line = []
+    for key, fn, src, where, also in kernels:
+        entry = {"name": f"{key.split()[0]} {fn}", "route": "cuda",
+                 "source": src, "replaces": where,
+                 "launches": launches[key], "max_abs_err": err[key],
+                 "ms": times[key]["ms"], "plain_ms": times[key]["plain_ms"],
+                 "bound_ms": times[key]["bound_ms"],
+                 "bound_by": times[key]["bound_by"], "library_ms": None,
+                 "state_floor_ms": times[key]["state_floor_ms"]}
+        if also:
+            entry["also_replaces"] = also
+        line.append(entry)
+    print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

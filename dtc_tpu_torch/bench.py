@@ -18,9 +18,9 @@ import time
 import numpy as np
 import torch
 
-from dtc_tpu.io.disorder import generate_disorder
 from dtc_tpu_torch.core.sigma_evolve import draw_uniforms
 from dtc_tpu_torch.experiments.engine import _forward_batch, resolve_device
+from dtc_tpu_torch.io.disorder import generate_disorder
 from dtc_tpu_torch.models.drives import build_kick_schedule
 
 G = 0.97

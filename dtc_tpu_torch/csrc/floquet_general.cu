@@ -1,0 +1,344 @@
+// Lab-frame Floquet kernels for Hopper (sm_90a), any kick schedule: forward
+// A(t) and echo A0(t) of the kicked-Ising chain under x, y, xy, yx,
+// circular and xy-cycle drives (K kick slots per cycle).
+//
+// Replaces (one CUDA family for both, which differ only in TPU blocking)
+//   K4a dtc_tpu/ops/pallas_resident_general.py::_make_general_kernel
+//   K4b dtc_tpu/ops/pallas_resident_general.py::_make_general_kernel_blocked
+//   (entries general_forward_batch, general_echo_batch)
+//
+// What is ported is the math, not the TPU design (no Karatsuba dots, no
+// in-kernel 128x128 group build, no P-packing). One step of a trajectory:
+// - kick B = X_m U^{(x)L}: U is the step's complex 2x2 (lanes FO+2..9 of the
+//   kick row, FO = 4L-1), m its X-mask (lanes [L, 2L)). Per qubit j the
+//   butterfly applies U, or X U (rows swapped) where m_j = 1: the per-bit
+//   form of B[a, b] = prod_j u[a_j ^ m_j, b_j];
+// - diagonal exp(i theta(s)), one angle linear in the bits,
+//     theta(s) = c0 + sum_q cz_q z_q(s) + sum_j cb_j z_j(s) z_{j+1}(s),
+//     cz_q = -h_q/2 - (pi/2) n_q,  cb_j = -phi_j/2,  c0 = (pi/2) sum_q n_q,
+//   from the row's noise-Z bits n (lanes [0, L)), h ([2L, 3L)) and phi
+//   ([3L, 4L-1)); there is no sigma frame, so no sigma or flip term.
+// Forward: each step is kick then the row's diagonal; where MPOS >= 0
+// (lane FO, the final slot of a cycle) sum |psi|^2 z_q into A(MPOS).
+// Echo: rows come in (pre, post) pairs; a step is the pre diagonal, the
+// kick of the pre row, then the post diagonal; each pair runs COUNT = 2tK
+// steps (lane FO+10 of its row 0) and is measured at the end.
+//
+// What bounds it on this card: as for K1/K2 (floquet_x.cu), the 2^L
+// complex64 state (8 MiB at L=20) lives in device memory, and a step is two
+// read+write sweeps of it (32 B per amplitude):
+//   pass lo: a block owns 2^k1 consecutive amplitudes and applies the
+//            [pre diagonal and] kick on bits [0, k1) in shared memory;
+//   pass hi: a block owns kW low columns x all 2^n2 high values, applies
+//            the kick on bits [k1, L), the (post) diagonal and the forward
+//            partial sum.
+// The butterflies run three bits per shared-memory round with the eight
+// amplitudes in registers; a general complex 2x2 costs 14 flops per
+// amplitude and bit against RX's 6, so the kick's arithmetic weighs more
+// than in K1/K2. The per-qubit matrices are built once per block in shared
+// memory. Reductions are deterministic (floquet_common.cuh).
+
+#include "floquet_common.cuh"
+
+namespace {
+
+constexpr int kMaxL = 32;
+constexpr int kLaneMpos = 0;   // flag lanes, offset from FO = 4L-1
+constexpr int kLaneU8 = 2;
+constexpr int kLaneCount = 10;
+
+struct Mat2 {
+  float2 a00, a01, a10, a11;
+};
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// (a, b) <- (m00 a + m01 b, m10 a + m11 b)
+__device__ __forceinline__ void mat_pair(float2& a, float2& b,
+                                         const Mat2& m) {
+  const float2 p = cmul(m.a00, a), r = cmul(m.a01, b);
+  const float2 u = cmul(m.a10, a), v = cmul(m.a11, b);
+  a = make_float2(p.x + r.x, p.y + r.y);
+  b = make_float2(u.x + v.x, u.y + v.y);
+}
+
+// Per-qubit kick matrices of one row: U, rows swapped where m_j = 1.
+__device__ void load_mats(const float* __restrict__ row, int L, Mat2* mats) {
+  const float* u = row + 4 * L - 1 + kLaneU8;
+  for (int j = threadIdx.x; j < L; j += blockDim.x) {
+    const float2 u00 = make_float2(u[0], u[1]), u01 = make_float2(u[2], u[3]);
+    const float2 u10 = make_float2(u[4], u[5]), u11 = make_float2(u[6], u[7]);
+    mats[j] = row[L + j] > 0.5f ? Mat2{u10, u11, u00, u01}
+                                : Mat2{u00, u01, u10, u11};
+  }
+}
+
+// cz_q, cb_j and c0 of one row, into shared memory.
+__device__ void load_coeffs(const float* __restrict__ row, int L, float* cz,
+                            float* cb, float* c0) {
+  for (int i = threadIdx.x; i < L; i += blockDim.x) {
+    cz[i] = -0.5f * row[2 * L + i] - kHalfPi * row[i];
+  }
+  for (int i = threadIdx.x; i < L - 1; i += blockDim.x) {
+    cb[i] = -0.5f * row[3 * L + i];
+  }
+  if (threadIdx.x == 0) {
+    float n = 0.0f;
+    for (int i = 0; i < L; ++i) n += row[i];
+    *c0 = kHalfPi * n;
+  }
+}
+
+// Kick on NB consecutive tile-index bits [b, b + NB) of a 2^tbits tile, one
+// shared-memory round; mats[k] acts on tile bit b + k.
+template <int NB>
+__device__ void kick_round(float2* tile, int tbits, int b, const Mat2* mats) {
+  constexpr int M = 1 << NB;
+  const int ntup = 1 << (tbits - NB);
+  const int lowmask = (1 << b) - 1;
+  Mat2 mk[NB];
+#pragma unroll
+  for (int k = 0; k < NB; ++k) mk[k] = mats[k];
+  for (int p = threadIdx.x; p < ntup; p += blockDim.x) {
+    const int base = ((p >> b) << (b + NB)) | (p & lowmask);
+    float2 v[M];
+#pragma unroll
+    for (int j = 0; j < M; ++j) v[j] = tile[base + (j << b)];
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        if (!(j & (1 << k))) mat_pair(v[j], v[j | (1 << k)], mk[k]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < M; ++j) tile[base + (j << b)] = v[j];
+  }
+  __syncthreads();
+}
+
+// Kick on tile-index bits [b0, b0 + n); mats[i] acts on tile bit b0 + i.
+__device__ void kick_bits(float2* tile, int tbits, int b0, int n,
+                          const Mat2* mats) {
+  int b = b0;
+  const int end = b0 + n;
+  while (end - b >= 3) {
+    kick_round<3>(tile, tbits, b, mats + (b - b0));
+    b += 3;
+  }
+  if (end - b == 2) kick_round<2>(tile, tbits, b, mats + (b - b0));
+  if (end - b == 1) kick_round<1>(tile, tbits, b, mats + (b - b0));
+}
+
+// The rows of one pair's step. Forward (echo == 0): row `step` is both the
+// kick row and the diagonal row. Echo: rows 2*step (pre: pre diagonal and
+// kick) and 2*step+1 (post diagonal); the pair runs while step < COUNT.
+struct StepRows {
+  const float* pre;   // nullptr when there is no pre diagonal
+  const float* kick;
+  const float* post;
+  bool active;
+};
+
+__device__ __forceinline__ StepRows step_rows(const float* rows, int L,
+                                              int64_t rows_per_pair, int pair,
+                                              int step, int echo) {
+  const float* base = rows + (int64_t)pair * rows_per_pair * kRowWidth;
+  StepRows r;
+  if (echo) {
+    const int count = (int)base[4 * L - 1 + kLaneCount];
+    r.active = step < count;
+    r.pre = base + (int64_t)(2 * step) * kRowWidth;
+    r.kick = r.pre;
+    r.post = r.pre + kRowWidth;
+  } else {
+    r.active = true;
+    r.pre = nullptr;
+    r.kick = base + (int64_t)step * kRowWidth;
+    r.post = r.kick;
+  }
+  return r;
+}
+
+// Pass lo: [pre diagonal] then the kick on bits [0, k1).
+__global__ void pass_lo_kernel(float2* __restrict__ st, int L, int k1,
+                               const float* __restrict__ rows,
+                               int64_t rows_per_pair, int step, int echo) {
+  extern __shared__ float2 tile[];
+  __shared__ float cz[kMaxL], cb[kMaxL], c0;
+  __shared__ Mat2 mats[kMaxL];
+  const int pair = blockIdx.y;
+  const StepRows r = step_rows(rows, L, rows_per_pair, pair, step, echo);
+  if (!r.active) return;
+  const int64_t N = (int64_t)1 << L;
+  const int64_t hi = blockIdx.x;
+  const int n = 1 << k1;
+  float2* g = st + (int64_t)pair * N + (hi << k1);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) tile[i] = g[i];
+  load_mats(r.kick, L, mats);
+  if (r.pre != nullptr) {
+    load_coeffs(r.pre, L, cz, cb, &c0);
+    __syncthreads();
+    // factorized phase: high part and straddle sign fixed per block
+    const float th_hi = c0 + angle_bits(cz, cb, hi, k1, L - k1);
+    const float cs = cb[k1 - 1] * zsign(hi, 0);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const float th = th_hi + angle_bits(cz, cb, i, 0, k1)
+                       + cs * zsign(i, k1 - 1);
+      tile[i] = cmul_phase(tile[i], th);
+    }
+  }
+  __syncthreads();
+  kick_bits(tile, k1, 0, k1, mats);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) g[i] = tile[i];
+}
+
+// Pass hi: the kick on bits [k1, L), the (post) diagonal, and (forward, on
+// a row with MPOS >= 0) the partial sum of |psi|^2 z_q into
+// partials[(pair * T + MPOS) * nblk + bx].
+__global__ void pass_hi_kernel(float2* __restrict__ st, int L, int k1,
+                               const float* __restrict__ rows,
+                               int64_t rows_per_pair, int step, int echo,
+                               int q, float* __restrict__ partials, int T) {
+  extern __shared__ float2 tile[];  // [2^n2][kW]
+  __shared__ float cz[kMaxL], cb[kMaxL], c0, th_lo[kW], red[kThreads / 32];
+  __shared__ Mat2 mats[kMaxL];
+  const int pair = blockIdx.y;
+  const StepRows r = step_rows(rows, L, rows_per_pair, pair, step, echo);
+  if (!r.active) return;
+  const int n2 = L - k1;
+  const int64_t N = (int64_t)1 << L;
+  const int64_t o = (int64_t)blockIdx.x * kW;
+  const int n = (1 << n2) * kW;
+  float2* g = st + (int64_t)pair * N + o;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    tile[i] = g[((int64_t)(i / kW) << k1) + (i % kW)];
+  }
+  load_coeffs(r.post, L, cz, cb, &c0);
+  load_mats(r.kick, L, mats);
+  __syncthreads();
+  if (threadIdx.x < kW) {
+    th_lo[threadIdx.x] = c0 + angle_bits(cz, cb, o + threadIdx.x, 0, k1);
+  }
+  // tile index = h * kW + w: the high bits sit at tile bits [2, 2 + n2)
+  kick_bits(tile, n2 + 2, 2, n2, mats + k1);  // ends in __syncthreads
+  const int mpos = echo ? -1 : (int)r.kick[4 * L - 1 + kLaneMpos];
+  float acc = 0.0f;
+  const bool zq_lo = q < k1;
+  for (int h = threadIdx.x; h < (1 << n2); h += blockDim.x) {
+    const float th_h = angle_bits(cz, cb, h, k1, n2);
+    const float cs = cb[k1 - 1] * zsign(h, 0);
+#pragma unroll
+    for (int w = 0; w < kW; ++w) {
+      const int64_t lo = o + w;
+      const float th = th_lo[w] + th_h + cs * zsign(lo, k1 - 1);
+      const float2 v = cmul_phase(tile[h * kW + w], th);
+      tile[h * kW + w] = v;
+      if (mpos >= 0) {
+        const float z = zq_lo ? zsign(lo, q) : zsign(h, q - k1);
+        acc += (v.x * v.x + v.y * v.y) * z;
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    g[((int64_t)(i / kW) << k1) + (i % kW)] = tile[i];
+  }
+  if (mpos >= 0) {  // uniform over the block: every thread reads one row
+    const float tot = block_sum(acc, red);
+    if (threadIdx.x == 0) {
+      partials[((int64_t)pair * T + mpos) * gridDim.x + blockIdx.x] = tot;
+    }
+  }
+}
+
+cudaError_t launch_step(float2* st, int L, const float* rows,
+                        int64_t rows_per_pair, int n_pairs, int step, int echo,
+                        int q, float* partials, int T, cudaStream_t stream) {
+  const int k1 = lo_bits(L);
+  const int n2 = L - k1;
+  const size_t smem_lo = sizeof(float2) << k1;
+  const size_t smem_hi = (sizeof(float2) * kW) << n2;
+  cudaError_t e = cudaFuncSetAttribute(
+      pass_lo_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_lo);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(pass_hi_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem_hi);
+  if (e != cudaSuccess) return e;
+  pass_lo_kernel<<<dim3(1u << n2, n_pairs), kThreads, smem_lo, stream>>>(
+      st, L, k1, rows, rows_per_pair, step, echo);
+  pass_hi_kernel<<<dim3((1u << k1) / kW, n_pairs), kThreads, smem_hi,
+                   stream>>>(st, L, k1, rows, rows_per_pair, step, echo, q,
+                             partials, T);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Sizes the wrapper allocates: partials of the forward entry.
+int floquet_general_forward_partials(int L) {
+  return (1 << lo_bits(L)) / kW;
+}
+
+// Sizes the wrapper allocates: partials of the echo entry (per pair).
+int floquet_general_echo_partials(int L) {
+  return (1 << L) / kMeasureChunk;
+}
+
+// K4 forward. state: n_traj x 2^L complex64 scratch; rows: n_traj x
+// rows_per_traj x 128 f32 (one row per kick slot, T*K of them); partials:
+// n_traj x T x floquet_general_forward_partials(L) f32, zeroed; out: n_traj
+// x T f32 (A(t) before the host's ancilla factor and sign). Runs the first
+// n_steps = (T-1)*K steps, the ones whose results are measured.
+int floquet_general_forward(void* state, const void* rows, void* partials,
+                            void* out, int n_traj, int L, int rows_per_traj,
+                            int T, int n_steps, int q, int64_t b0,
+                            void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  float2* st = (float2*)state;
+  const int64_t N = (int64_t)1 << L;
+  init_kernel<<<dim3(256, n_traj), kThreads, 0, stream>>>(st, N, b0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  for (int k = 0; k < n_steps; ++k) {
+    e = launch_step(st, L, (const float*)rows, rows_per_traj, n_traj, k, 0, q,
+                    (float*)partials, T, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int64_t n_rows = (int64_t)n_traj * T;
+  const float a0 = 1.0f - 2.0f * (float)((b0 >> q) & 1);
+  reduce_kernel<<<(unsigned)((n_rows + kThreads - 1) / kThreads), kThreads,
+                  0, stream>>>((const float*)partials, (float*)out, n_rows,
+                               floquet_general_forward_partials(L), T, a0);
+  return (int)cudaGetLastError();
+}
+
+// K4 echo. state: n_pairs x 2^L complex64 scratch; tiles: n_pairs x
+// rows_per_pair x 128 f32 (interleaved pre/post step rows, COUNT at lane
+// 4L+9 of row 0); partials: n_pairs x floquet_general_echo_partials(L) f32;
+// out: n_pairs f32. n_steps = the largest COUNT of the batch.
+int floquet_general_echo(void* state, const void* tiles, void* partials,
+                         void* out, int n_pairs, int L, int rows_per_pair,
+                         int n_steps, int q, int64_t b0, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  float2* st = (float2*)state;
+  const int64_t N = (int64_t)1 << L;
+  init_kernel<<<dim3(256, n_pairs), kThreads, 0, stream>>>(st, N, b0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  for (int k = 0; k < n_steps; ++k) {
+    e = launch_step(st, L, (const float*)tiles, rows_per_pair, n_pairs, k, 1,
+                    q, nullptr, 0, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)measure_and_reduce(st, L, q, n_pairs, (float*)partials,
+                                 (float*)out, stream);
+}
+
+}  // extern "C"

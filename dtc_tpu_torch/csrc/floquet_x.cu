@@ -41,21 +41,12 @@
 // cycle; shared-memory rounds (ceil(k/3) per pass) are the second limit.
 //
 // Reductions are deterministic: one partial per block, summed in a fixed
-// order by a second kernel (double accumulator). Offsets are 64-bit.
+// order by a second kernel (double accumulator). Offsets are 64-bit. The
+// pieces shared with floquet_general.cu are in floquet_common.cuh.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "floquet_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kW = 4;          // low columns per pass-hi block (32 B runs)
-constexpr int kRowWidth = 128; // compact row width (lanes)
-constexpr float kHalfPi = 1.5707963267948966f;
-
-__device__ __forceinline__ float zsign(int64_t s, int bit) {
-  return 1.0f - 2.0f * (float)((s >> bit) & 1);
-}
 
 // cz_q, cb_j and c0 of one compact row, into shared memory.
 __device__ void load_coeffs(const float* __restrict__ row, int L,
@@ -71,26 +62,6 @@ __device__ void load_coeffs(const float* __restrict__ row, int L,
     for (int i = 0; i < L; ++i) n += row[i];
     *c0 = kHalfPi * n;
   }
-}
-
-// sum_{k<n} cz[q0+k] z_k(x) + sum_{1<=k<n} cb[q0+k-1] z_{k-1}(x) z_k(x)
-__device__ __forceinline__ float angle_bits(const float* cz, const float* cb,
-                                            int64_t x, int q0, int n) {
-  float th = 0.0f;
-  float zp = 0.0f;
-  for (int k = 0; k < n; ++k) {
-    float z = zsign(x, k);
-    th += cz[q0 + k] * z;
-    if (k > 0) th += cb[q0 + k - 1] * zp * z;
-    zp = z;
-  }
-  return th;
-}
-
-__device__ __forceinline__ float2 cmul_phase(float2 a, float th) {
-  float s, c;
-  sincosf(th, &s, &c);
-  return make_float2(a.x * c - a.y * s, a.x * s + a.y * c);
 }
 
 // RX butterfly on (a, b): a' = c a - i s b, b' = -i s a + c b.
@@ -140,20 +111,6 @@ __device__ void kick_bits(float2* tile, int tbits, int b0, int n, float c,
   if (end - b == 1) kick_round<1>(tile, tbits, b, c, s);
 }
 
-// Block sum in a fixed order (warp shuffles, then warp 0 over the warps).
-__device__ float block_sum(float v, float* scratch) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float total = 0.0f;
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += scratch[w];
-  }
-  return total;
-}
-
 // Per-pair row pointer and trip gate. Forward (echo == 0): row `step` is
 // the cycle's row, the kick sign is +1. Echo: rows 2*step (pre) and
 // 2*step+1 (post); the pair runs only while step < trip (lane 124 of row 0).
@@ -182,14 +139,6 @@ __device__ __forceinline__ StepRows step_rows(const float* rows,
     r.sign = 1.0f;
   }
   return r;
-}
-
-__global__ void init_kernel(float2* __restrict__ st, int64_t N, int64_t b0) {
-  const int64_t pair = blockIdx.y;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < N;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    st[pair * N + i] = make_float2(i == b0 ? 1.0f : 0.0f, 0.0f);
-  }
 }
 
 // Pass lo: [pre diagonal] then the kick on bits [0, k1).
@@ -280,42 +229,6 @@ __global__ void pass_hi_kernel(float2* __restrict__ st, int L, int k1,
   }
 }
 
-// Terminal measurement (echo): partials[pair * gridDim.x + bx].
-__global__ void measure_kernel(const float2* __restrict__ st, int L, int q,
-                               int chunk, float* __restrict__ partials) {
-  __shared__ float red[kThreads / 32];
-  const int64_t N = (int64_t)1 << L;
-  const int pair = blockIdx.y;
-  const int64_t base = (int64_t)blockIdx.x * chunk;
-  const float2* g = st + (int64_t)pair * N;
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < chunk; i += blockDim.x) {
-    const int64_t s = base + i;
-    const float2 v = g[s];
-    acc += (v.x * v.x + v.y * v.y) * zsign(s, q);
-  }
-  const float tot = block_sum(acc, red);
-  if (threadIdx.x == 0) partials[(int64_t)pair * gridDim.x + blockIdx.x] = tot;
-}
-
-// out[i] = sum_b partials[i * nb + b] in fixed order; rows with
-// i % period == 0 get a0 instead (forward A(0) = basis-state sign).
-__global__ void reduce_kernel(const float* __restrict__ partials,
-                              float* __restrict__ out, int64_t n_rows, int nb,
-                              int period, float a0) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rows) return;
-  if (period > 0 && i % period == 0) {
-    out[i] = a0;
-    return;
-  }
-  double acc = 0.0;
-  for (int b = 0; b < nb; ++b) acc += partials[i * nb + b];
-  out[i] = (float)acc;
-}
-
-int lo_bits(int L) { return L - L / 2; }
-
 cudaError_t launch_step(float2* st, int L, const float* rows,
                         int64_t rows_per_pair, int n_pairs, int step, int echo,
                         float c, float s, int q, float* partials, int T,
@@ -348,7 +261,7 @@ extern "C" {
 int floquet_x_forward_partials(int L) { return (1 << lo_bits(L)) / kW; }
 
 // Sizes the wrapper allocates: partials of the echo entry (per pair).
-int floquet_x_echo_partials(int L) { return (1 << L) / 4096; }
+int floquet_x_echo_partials(int L) { return (1 << L) / kMeasureChunk; }
 
 // K1. state: n_traj x 2^L complex64 scratch; rows: n_traj x T x 128 f32;
 // partials: n_traj x T x floquet_x_forward_partials(L) f32;
@@ -394,14 +307,8 @@ int floquet_x_echo(void* state, const void* tiles, void* partials, void* out,
                     c, s, q, nullptr, 0, stream);
     if (e != cudaSuccess) return (int)e;
   }
-  const int nb = floquet_x_echo_partials(L);
-  measure_kernel<<<dim3(nb, n_pairs), kThreads, 0, stream>>>(
-      st, L, q, 4096, (float*)partials);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  reduce_kernel<<<(n_pairs + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      (const float*)partials, (float*)out, n_pairs, nb, 0, 0.0f);
-  return (int)cudaGetLastError();
+  return (int)measure_and_reduce(st, L, q, n_pairs, (float*)partials,
+                                 (float*)out, stream);
 }
 
 }  // extern "C"

@@ -1,10 +1,14 @@
-"""Autocorrelation sweep experiment.
+"""Autocorrelation sweep experiments.
 
-Port of ``dtc_tpu/experiments/autocorr.py`` (``run_autocorr``, trajectory
-method): forward + echo interferometric autocorrelator averaged over
+Port of ``dtc_tpu/experiments/autocorr.py``: ``run_autocorr`` (trajectory
+method), forward + echo interferometric autocorrelator averaged over
 disorder instances, CSV schema
 ``time, av_autocorr, av_autocorr_echo, sqrt_av_autocorr_echo`` (+6 envelope
-columns when requested), under the reference's file names.
+columns when requested); and the studies built on it,
+``run_polarization_comparison``, ``run_shots_study`` and
+``run_xy_cycle_comparison``, with the reference's CSV columns and file
+names. The xy-cycle plot (matplotlib) is not ported: ROADMAP.md queue 1,
+item 8 (``analysis/plots.py``).
 """
 
 from __future__ import annotations
@@ -13,10 +17,10 @@ import os
 
 import numpy as np
 
-from dtc_tpu.analysis.envelope import find_envelope
-from dtc_tpu.io import csvio, naming
-from dtc_tpu.io.disorder import get_disorder
-from dtc_tpu.utils.profiling import phase_timer
+from dtc_tpu_torch.analysis.envelope import find_envelope
+from dtc_tpu_torch.io import csvio, naming
+from dtc_tpu_torch.io.disorder import get_disorder
+from dtc_tpu_torch.utils.profiling import phase_timer
 from dtc_tpu_torch.experiments.engine import (
     apply_shot_noise,
     build_context,
@@ -45,13 +49,13 @@ def run_autocorr(cfg, hs=None, phis=None, *, device="cuda", out_dir=None,
     if method == "exact":
         raise NotImplementedError(
             "method='exact' (density-matrix superoperator) is not ported yet:"
-            " ROADMAP.md queue 1, item 5 (core/density.py)")
+            " ROADMAP.md queue 1, item 1 (core/density.py)")
     if method != "trajectories":
         raise ValueError(f"unknown method {method!r}")
     if cfg.use_fakebackend:
         raise NotImplementedError(
             "use_fakebackend=1 (device noise) is not ported yet: ROADMAP.md"
-            " queue 1, item 9 (core/device_evolve.py)")
+            " queue 1, item 5 (core/device_evolve.py)")
     if hs is None or phis is None:
         hs, phis = get_disorder(cfg, disorder_dir)
     sched, params, noise = build_context(cfg, hs, phis, device=device)
@@ -92,6 +96,83 @@ def run_autocorr(cfg, hs=None, phis=None, *, device="cuda", out_dir=None,
         pol = cfg.polarization if cfg.polarization != "x" else None
         path = os.path.join(folder, naming.autocorr_csv_name(
             cfg, pol=pol, with_envelopes=with_envelopes))
+        csvio.write_columns(path, data)
+        result["csv_path"] = path
+    return result
+
+
+def run_polarization_comparison(cfg, polarizations=("x", "y", "xy", "yx"), *,
+                                device="cuda", out_dir=None,
+                                disorder_dir=None, write=True) -> dict:
+    """One forward + echo sweep (with envelopes) per polarization, and the
+    merged comparison CSV: ``time`` then nine columns per polarization."""
+    merged = {"time": np.arange(cfg.tf)}
+    per_pol = {}
+    for pol in polarizations:
+        r = run_autocorr(cfg.replace(polarization=pol), device=device,
+                         out_dir=out_dir, disorder_dir=disorder_dir,
+                         with_envelopes=True, write=write)
+        per_pol[pol] = r
+        for key in ("av_autocorr", "av_autocorr_echo", "sqrt_av_autocorr_echo",
+                    "forward_upper_env", "forward_lower_env",
+                    "echo_upper_env", "echo_lower_env", "sqrt_echo_upper_env",
+                    "sqrt_echo_lower_env"):
+            merged[f"{key}_{pol}"] = r[key]
+    if write:
+        folder = out_dir or f"autocorr_data_L{cfg.L}_polarization"
+        path = os.path.join(folder, naming.autocorr_comparison_csv_name(cfg))
+        csvio.write_columns(path, merged)
+        merged["csv_path"] = path
+    merged["per_polarization"] = per_pol
+    return merged
+
+
+def run_shots_study(cfg, shots_list=(100, 1000, 10_000, 100_000, 1_000_000),
+                    *, device="cuda", out_dir=None, disorder_dir=None,
+                    write=True) -> dict:
+    """Echo A0(t) under binomial shot sampling, one column per shot count."""
+    if cfg.shots:
+        cfg = cfg.replace(shots=0)
+    hs, phis = get_disorder(cfg, disorder_dir)
+    sched, params, noise = build_context(cfg, hs, phis, device=device)
+    echo = echo_sweep(cfg, sched, params, noise)
+    data = {"time": np.arange(cfg.tf)}
+    for s in shots_list:
+        sampled = apply_shot_noise(echo, int(s), cfg.seed + int(s))
+        data[f"av_autocorr_echo_shots{int(s)}"] = sampled.mean(axis=0)
+    if write:
+        folder = out_dir or f"autocorr_data_L{cfg.L}_shots"
+        path = os.path.join(folder, naming.autocorr_csv_name(cfg).replace(
+            "autocorr_data_", "autocorr_shots_"))
+        csvio.write_columns(path, data)
+        data["csv_path"] = path
+    return data
+
+
+def run_xy_cycle_comparison(cfg, *, device="cuda", out_dir=None,
+                            disorder_dir=None, write=True,
+                            period=None) -> dict:
+    """The xy-cycle drive (kick axis flips every ``period`` cycles) against
+    the pure-x drive on the same disorder: one merged CSV."""
+    period = period or cfg.xy_cycle_period
+    hs, phis = get_disorder(cfg.replace(polarization="x"), disorder_dir)
+    r_x = run_autocorr(cfg.replace(polarization="x"), hs, phis,
+                       device=device, write=False)
+    r_xy = run_autocorr(cfg.replace(polarization="xy_cycle",
+                                    xy_cycle_period=period), hs, phis,
+                        device=device, write=False)
+    data = {
+        "time": np.arange(cfg.tf),
+        "av_autocorr_x": r_x["av_autocorr"],
+        "av_autocorr_echo_x": r_x["av_autocorr_echo"],
+        "av_autocorr_xy_cycle": r_xy["av_autocorr"],
+        "av_autocorr_echo_xy_cycle": r_xy["av_autocorr_echo"],
+    }
+    result = dict(data)
+    if write:
+        folder = out_dir or f"autocorr_data_L{cfg.L}_xy_cycle"
+        path = os.path.join(folder, naming.autocorr_csv_name(cfg).replace(
+            "autocorr_data_", "autocorr_xy_cycle_"))
         csvio.write_columns(path, data)
         result["csv_path"] = path
     return result

@@ -9,8 +9,11 @@ Dispatch is by shape, as in the reference, with the port's own tiers:
   17 <= L <= 23 in complex64 goes to the blocked x entries
   (``ops/resident_blocked.py``: CUDA kernels K1/K2 for CUDA tensors, their
   plain versions for CPU tensors);
+- every other drive (y, xy, yx, circular, xy-cycle, per-cycle x) at
+  14 <= L <= 23 in complex64 goes to the lab-frame general entries
+  (``ops/resident_general.py``: CUDA kernel K4, or its plain versions);
 - everything else goes to the sigma-frame engine (``core/sigma_evolve.py``).
-Each sweep logs once which engine served it.
+Each sweep logs once which engine served it (``engine=...``).
 
 Noise: every entry takes an optional block of f32 uniforms laid out as the
 reference draws them per trajectory — forward (inst, n_traj, T*K, L), echo
@@ -27,7 +30,6 @@ import logging
 import numpy as np
 import torch
 
-from dtc_tpu.utils.validation import guard
 from dtc_tpu_torch.core.sigma_evolve import (
     draw_uniforms,
     sigma_echo_batch,
@@ -35,8 +37,13 @@ from dtc_tpu_torch.core.sigma_evolve import (
 )
 from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.models.noise import NoiseSpec
-from dtc_tpu_torch.ops import resident_blocked
+from dtc_tpu_torch.ops import resident_blocked, resident_general
 from dtc_tpu_torch.ops.params import echo_pair_tiles, forward_rows
+from dtc_tpu_torch.ops.params_general import (
+    general_echo_rows,
+    general_forward_rows,
+)
+from dtc_tpu_torch.utils.validation import guard
 
 log = logging.getLogger("dtc_tpu_torch")
 
@@ -44,7 +51,7 @@ log = logging.getLogger("dtc_tpu_torch")
 # few state-sized temporaries), as in the reference.
 DEFAULT_BATCH_BYTES = 2 << 30
 
-# Live states per chunk on the blocked kernel route. The CUDA kernels hold
+# Live states per chunk on the kernel routes. The CUDA kernels hold
 # every state of a chunk in device memory at once (8 MiB per trajectory or
 # echo pair at L=20, 64 MiB at L=23), unlike the TPU kernels, which hold one
 # per grid step. 8 GiB is a tenth of an 80 GB card: 1024 trajectories at
@@ -95,15 +102,20 @@ def constant_x_theta(angles) -> float | None:
 
 
 def engine_for(angles, *, L, T, q, dtype_name, has_y, echo: bool) -> str:
-    """'blocked' (x kernels / their plain versions) or 'sigma'."""
-    if has_y:
+    """'blocked' (x kernels K1/K2 or their plain versions), 'general' (the
+    lab-frame kernel K4 or its plain versions) or 'sigma'."""
+    if dtype_name != "complex64" or not 0 <= q < L:
         return "sigma"
+    const_x = not has_y and constant_x_theta(angles) is not None
     t_max = (resident_blocked.MAX_T_ECHO if echo
              else resident_blocked.MAX_T_FORWARD)
-    if (constant_x_theta(angles) is not None and dtype_name == "complex64"
-            and resident_blocked.MIN_L <= L <= resident_blocked.MAX_L
-            and 0 <= q < L and T <= t_max):
+    if (const_x and resident_blocked.MIN_L <= L <= resident_blocked.MAX_L
+            and T <= t_max):
         return "blocked"
+    steps = (2 if echo else 1) * T * angles.shape[1]
+    if (not const_x and resident_general.MIN_L <= L <= resident_general.MAX_L
+            and steps <= resident_general.MAX_STEPS):
+        return "general"
     return "sigma"
 
 
@@ -112,18 +124,27 @@ def _forward_batch(hs, phis, angles, uniforms, *, L, T, K, p, q,
                    n_traj=None, generator=None):
     """(inst, L), (inst, L-1), (T, K, 2), uniforms (inst, c, T*K, L) or
     None -> (inst, c, T) tensor on hs's device."""
-    if engine_for(angles, L=L, T=T, q=q, dtype_name=dtype_name,
-                  has_y=has_y, echo=False) == "blocked":
+    engine = engine_for(angles, L=L, T=T, q=q, dtype_name=dtype_name,
+                        has_y=has_y, echo=False)
+    if engine != "sigma":
         inst = hs.shape[0]
         if uniforms is None and p > 0.0:
-            uniforms = draw_uniforms((inst, n_traj, T, L),
+            uniforms = draw_uniforms((inst, n_traj, T * K, L),
                                      generator=generator, device=hs.device)
         c = uniforms.shape[1] if uniforms is not None else n_traj
+    if engine == "blocked":
         rows, sig_after = forward_rows(uniforms, hs[:, None], phis[:, None],
                                        L=L, T=T, p=p, batch=(inst, c))
         return resident_blocked.blocked_forward_batch(
             rows, sig_after, constant_x_theta(angles), L=L, q=q,
             initial_state=initial_state, ancilla_factor=ancilla_factor)
+    if engine == "general":
+        rows = general_forward_rows(uniforms, hs[:, None], phis[:, None],
+                                    angles, L=L, T=T, K=K, p=p,
+                                    batch=(inst, c))
+        return resident_general.general_forward_batch(
+            rows, L=L, T=T, q=q, initial_state=initial_state,
+            ancilla_factor=ancilla_factor)
     return sigma_forward_batch(
         hs, phis, angles, uniforms, L=L, T=T, K=K, p=p, q=q,
         initial_state=initial_state, dtype_name=dtype_name,
@@ -135,19 +156,28 @@ def _echo_batch(hs, phis, angles, ts, uniforms, *, L, T, K, p, q,
                 initial_state, dtype_name, ancilla_factor, has_y=False,
                 n_traj=None, generator=None):
     """-> (inst, c, n_ts) echo values; uniforms (inst, c, 2T*K, L)."""
-    if engine_for(angles, L=L, T=T, q=q, dtype_name=dtype_name,
-                  has_y=has_y, echo=True) == "blocked":
+    engine = engine_for(angles, L=L, T=T, q=q, dtype_name=dtype_name,
+                        has_y=has_y, echo=True)
+    if engine != "sigma":
         inst = hs.shape[0]
         if uniforms is None and p > 0.0:
-            uniforms = draw_uniforms((inst, n_traj, 2 * T, L),
+            uniforms = draw_uniforms((inst, n_traj, 2 * T * K, L),
                                      generator=generator, device=hs.device)
         c = uniforms.shape[1] if uniforms is not None else n_traj
+    if engine == "blocked":
         tiles, sig_fin = echo_pair_tiles(uniforms, ts, hs[:, None],
                                          phis[:, None], L=L, T=T, p=p,
                                          batch=(inst, c))
         return resident_blocked.blocked_echo_batch(
             tiles, sig_fin, constant_x_theta(angles), L=L, q=q,
             initial_state=initial_state, ancilla_factor=ancilla_factor)
+    if engine == "general":
+        tiles = general_echo_rows(uniforms, ts, hs[:, None], phis[:, None],
+                                  angles, L=L, T=T, K=K, p=p,
+                                  batch=(inst, c))
+        return resident_general.general_echo_batch(
+            tiles, L=L, q=q, initial_state=initial_state,
+            ancilla_factor=ancilla_factor)
     return sigma_echo_batch(
         hs, phis, angles, ts, uniforms, L=L, T=T, K=K, p=p, q=q,
         initial_state=initial_state, dtype_name=dtype_name,
@@ -178,11 +208,12 @@ def forward_sweep(cfg, sched, params, noise, *, uniforms=None) -> np.ndarray:
               ancilla_factor=af, has_y=cfg.polarization != "x")
     engine = engine_for(sched.angles, L=L, T=T, q=cfg.probe_qubit,
                         dtype_name=cfg.dtype, has_y=kw["has_y"], echo=False)
-    log.info("forward_sweep: engine=%s L=%d T=%d", engine, L, T)
+    log.info("forward_sweep: engine=%s pol=%s L=%d T=%d", engine,
+             cfg.polarization, L, T)
     n_traj = cfg.n_trajectories if p > 0 else 1
     u = (_sweep_uniforms(uniforms, (cfg.inst, n_traj, T * K, L), cfg.seed,
                          hs.device) if p > 0 else None)
-    if engine == "blocked":
+    if engine != "sigma":
         chunk = traj_chunks(n_traj, L, extra_factor=cfg.inst,
                             budget_bytes=KERNEL_STATE_BYTES)
     else:
@@ -214,11 +245,12 @@ def echo_sweep(cfg, sched, params, noise, *, uniforms=None,
               has_y=cfg.polarization != "x")
     engine = engine_for(sched.angles, L=L, T=T, q=cfg.probe_qubit,
                         dtype_name=cfg.dtype, has_y=kw["has_y"], echo=True)
-    log.info("echo_sweep: engine=%s L=%d T=%d", engine, L, T)
+    log.info("echo_sweep: engine=%s pol=%s L=%d T=%d", engine,
+             cfg.polarization, L, T)
     n_traj = cfg.n_trajectories
     u = _sweep_uniforms(uniforms, (cfg.inst, n_traj, 2 * T * K, L),
                         cfg.seed + ECHO_SALT, hs.device)
-    if engine == "blocked":
+    if engine != "sigma":
         chunk = traj_chunks(n_traj, L, extra_factor=cfg.inst * t_chunk,
                             budget_bytes=KERNEL_STATE_BYTES)
     else:

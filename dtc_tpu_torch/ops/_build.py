@@ -1,16 +1,19 @@
 """Build and load the hand-written CUDA kernels.
 
-The sources under ``dtc_tpu_torch/csrc/`` expose a plain C interface; they
-are compiled at first use with nvcc for sm_90a into a shared library under
-``dtc_tpu_torch/csrc/build/`` (named by the hash of source and flags, so an
-edited source rebuilds) and loaded with ``ctypes``. This takes seconds;
-``torch.utils.cpp_extension.load`` would compile against PyTorch's headers
-and take minutes. A failed build raises: there is no fallback.
+Each source ``dtc_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and
+is one library: ``floquet_x`` (K1/K2) and ``floquet_general`` (K4). A source
+is compiled at first use with nvcc for sm_90a into a shared library under
+``dtc_tpu_torch/csrc/build/`` (named by the hash of the source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edit rebuilds) and loaded with
+``ctypes``. This takes seconds; ``torch.utils.cpp_extension.load`` would
+compile against PyTorch's headers and take minutes. ``load_all`` starts one
+nvcc per library at once. A failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -22,6 +25,30 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_VP, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_float)
+
+# library -> {C function: argtypes}; every function returns an int (a size,
+# or the cudaError of its launches)
+LIBRARIES = {
+    "floquet_x": {
+        "floquet_x_forward_partials": [_I32],
+        "floquet_x_echo_partials": [_I32],
+        "floquet_x_forward": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32,
+                              _I64, _F32, _F32, _VP],
+        "floquet_x_echo": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
+                           _I64, _F32, _F32, _VP],
+    },
+    "floquet_general": {
+        "floquet_general_forward_partials": [_I32],
+        "floquet_general_echo_partials": [_I32],
+        "floquet_general_forward": [_VP, _VP, _VP, _VP, _I32, _I32, _I32,
+                                    _I32, _I32, _I32, _I64, _VP],
+        "floquet_general_echo": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32,
+                                 _I32, _I64, _VP],
+    },
+}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_info: dict[str, dict] = {}
@@ -41,45 +68,64 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                         ctypes.c_float)
-    lib.floquet_x_forward_partials.argtypes = [i32]
-    lib.floquet_x_forward_partials.restype = i32
-    lib.floquet_x_echo_partials.argtypes = [i32]
-    lib.floquet_x_echo_partials.restype = i32
-    lib.floquet_x_forward.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i64,
-                                      f32, f32, vp]
-    lib.floquet_x_forward.restype = i32
-    lib.floquet_x_echo.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                                   i64, f32, f32, vp]
-    lib.floquet_x_echo.restype = i32
-
-
-def load(name: str = "floquet_x") -> ctypes.CDLL:
-    """The compiled library of ``csrc/<name>.cu``, built if needed."""
-    if name in _loaded:
-        return _loaded[name]
+def _library_path(name: str) -> tuple[str, str]:
+    """(source, hash-named library path) of ``csrc/<name>.cu``."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    so = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
-    info = {"path": so, "seconds": 0.0, "log": ""}
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
-        info["seconds"] = time.perf_counter() - t0
-        info["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed to build {src}:\n{info['log']}")
-        os.replace(tmp, so)
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return src, os.path.join(BUILD_DIR,
+                             f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def _open(name: str, so: str, info: dict) -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
-    _declare(lib)
+    for fn, argtypes in LIBRARIES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _I32
     _loaded[name] = lib
     build_info[name] = info
     return lib
+
+
+def load_all(names=None) -> dict[str, ctypes.CDLL]:
+    """Build (all nvcc runs at once) and load the named libraries, default
+    all of them; raises if any build fails."""
+    wanted = list(names or LIBRARIES)
+    jobs = []
+    for name in (n for n in wanted if n not in _loaded):
+        src, so = _library_path(name)
+        info = {"path": so, "seconds": 0.0, "log": ""}
+        if os.path.exists(so):
+            jobs.append((name, so, info, None, None))
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, so, info, proc, (tmp, src, time.perf_counter())))
+    failed = []
+    for name, so, info, proc, pending in jobs:
+        if proc is not None:
+            tmp, src, t0 = pending
+            info["log"] = proc.communicate()[0]
+            info["seconds"] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"nvcc failed to build {src}:\n{info['log']}")
+                continue
+            os.replace(tmp, so)
+        _open(name, so, info)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {n: _loaded[n] for n in wanted}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The compiled library of ``csrc/<name>.cu``, built if needed."""
+    if name not in _loaded:
+        load_all([name])
+    return _loaded[name]

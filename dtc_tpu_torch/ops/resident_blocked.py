@@ -62,8 +62,9 @@ def check_range(L: int, q: int, T: int, *, echo: bool) -> None:
                          f"supports 1 <= T <= {t_max} (got T={T})")
 
 
-def _sign(bits_src: int, q: int) -> float:
-    return 1.0 - 2.0 * ((bits_src >> q) & 1)
+def basis_sign(b0: int, q: int) -> float:
+    """z_q of the initial basis state b0: the sign of A(0)."""
+    return 1.0 - 2.0 * ((b0 >> q) & 1)
 
 
 def _sigma_sign(sigma: torch.Tensor, q: int) -> torch.Tensor:
@@ -74,7 +75,7 @@ def _sigma_sign(sigma: torch.Tensor, q: int) -> torch.Tensor:
 # plain versions
 
 
-def _angle_table(L: int, device) -> torch.Tensor:
+def angle_table(L: int, device) -> torch.Tensor:
     """(2L-1, 2^L) f32: rows z_q(s) (q < L), then z_j z_{j+1}(s) (j < L-1)."""
     s = torch.arange(1 << L, dtype=torch.int64, device=device)
     z = torch.stack([(1 - 2 * ((s >> k) & 1)) for k in range(L)]).to(
@@ -92,7 +93,7 @@ def _row_angles(rows: torch.Tensor, L: int, table: torch.Tensor):
     return c0[:, None] + torch.cat([cz, cb], dim=-1) @ table
 
 
-def _phase(state, theta):
+def apply_phase(state, theta):
     return state * torch.polar(torch.ones_like(theta), theta)
 
 
@@ -113,7 +114,7 @@ def _kick_pair(theta: float, L: int, device, sign: float = 1.0):
             torch.complex(utr[0], sign * uti[0]))
 
 
-def _basis_states(n, L, b0, device):
+def basis_states(n, L, b0, device):
     state = torch.zeros((n, 1 << L), dtype=torch.complex64, device=device)
     state[:, b0] = 1.0
     return state
@@ -130,14 +131,14 @@ def blocked_forward_batch_ref(rows, sig_after, theta, *, L, q,
     n, dev = rows.shape[0], rows.device
     b0 = basis_index(L, initial_state)
     u7, utop = _kick_pair(theta, L, dev)
-    table = _angle_table(L, dev)
+    table = angle_table(L, dev)
     zq = table[q]
-    state = _basis_states(n, L, b0, dev)
+    state = basis_states(n, L, b0, dev)
     a_raw = torch.empty((n, T), dtype=torch.float32, device=dev)
-    a_raw[:, 0] = _sign(b0, q)
+    a_raw[:, 0] = basis_sign(b0, q)
     for cyc in range(T - 1):
-        state = _phase(_kick(state, u7, utop, L),
-                       _row_angles(rows[:, cyc], L, table))
+        state = apply_phase(_kick(state, u7, utop, L),
+                            _row_angles(rows[:, cyc], L, table))
         a_raw[:, cyc + 1] = (state.real ** 2 + state.imag ** 2) @ zq
     return _forward_host_factor(a_raw.reshape(*batch, T), sig_after, q, b0,
                                 ancilla_factor)
@@ -154,8 +155,8 @@ def blocked_echo_batch_ref(tiles, sig_fin, theta, *, L, q,
     n, dev = tiles.shape[0], tiles.device
     b0 = basis_index(L, initial_state)
     kicks = {s: _kick_pair(theta, L, dev, s) for s in (1.0, -1.0)}
-    table = _angle_table(L, dev)
-    state = _basis_states(n, L, b0, dev)
+    table = angle_table(L, dev)
+    state = basis_states(n, L, b0, dev)
     trip = tiles[:, 0, WIDTH - 4].to(torch.int64)
     n_steps = int(trip.max()) if n else 0
     for k in range(n_steps):
@@ -164,9 +165,9 @@ def blocked_echo_batch_ref(tiles, sig_fin, theta, *, L, q,
             idx = torch.nonzero((k < trip) & (pre[:, WIDTH - 3] == s))[:, 0]
             if idx.numel() == 0:
                 continue
-            sub = _phase(state[idx], _row_angles(pre[idx], L, table))
-            sub = _phase(_kick(sub, u7, utop, L),
-                         _row_angles(post[idx], L, table))
+            sub = apply_phase(state[idx], _row_angles(pre[idx], L, table))
+            sub = apply_phase(_kick(sub, u7, utop, L),
+                              _row_angles(post[idx], L, table))
             state[idx] = sub
     val = (state.real ** 2 + state.imag ** 2) @ table[q]
     return _echo_host_factor(val.reshape(batch), sig_fin, q, b0,
@@ -176,18 +177,20 @@ def blocked_echo_batch_ref(tiles, sig_fin, theta, *, L, q,
 def _forward_host_factor(a_raw, sig_after, q, b0, ancilla_factor):
     sig_start = torch.cat([torch.zeros_like(sig_after[..., :1]),
                            sig_after[..., :-1]], dim=-1)
-    return (ancilla_factor * _sign(b0, q)) * _sigma_sign(sig_start, q) * a_raw
+    return ((ancilla_factor * basis_sign(b0, q)) * _sigma_sign(sig_start, q)
+            * a_raw)
 
 
 def _echo_host_factor(val, sig_fin, q, b0, ancilla_factor):
-    return (ancilla_factor * _sign(b0, q)) * _sigma_sign(sig_fin, q) * val
+    return ((ancilla_factor * basis_sign(b0, q)) * _sigma_sign(sig_fin, q)
+            * val)
 
 
 # ---------------------------------------------------------------------------
 # kernel entries
 
 
-def _check_cuda_input(name, x, ndim_min, last):
+def check_cuda_input(name, x, ndim_min, last):
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor (got {x.device})")
     if x.dtype != torch.float32:
@@ -199,7 +202,7 @@ def _check_cuda_input(name, x, ndim_min, last):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on(err: int, what: str) -> None:
+def raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
@@ -209,12 +212,22 @@ def _cs(theta: float):
             float(torch.tensor(math.sin(theta / 2), dtype=torch.float32)))
 
 
-def _route(x):
+def batch_size(batch, what: str) -> int:
+    """Trajectories or pairs of a launch: the grid's y dimension."""
+    n = math.prod(batch)
+    if not (1 <= n <= 65535):
+        raise ValueError(f"{what} batch of {n} outside [1, 65535]")
+    return n
+
+
+def route(x, what: str) -> str:
+    """'plain' for a CPU tensor, 'kernel' for a CUDA tensor; raises for any
+    other device."""
     if x.device.type == "cpu":
         return "plain"
     if x.device.type == "cuda":
         return "kernel"
-    raise ValueError(f"no blocked x kernel for device {x.device}")
+    raise ValueError(f"no {what} kernel for device {x.device}")
 
 
 def blocked_forward_batch(rows, sig_after, theta, *, L, q,
@@ -223,20 +236,17 @@ def blocked_forward_batch(rows, sig_after, theta, *, L, q,
 
     Forward autocorrelator of a constant x-drive (RX(theta) kicks). CPU
     tensors take the plain version; CUDA tensors launch kernel K1."""
-    if _route(rows) == "plain":
+    if route(rows, "blocked x") == "plain":
         return blocked_forward_batch_ref(rows, sig_after, theta, L=L, q=q,
                                          initial_state=initial_state,
                                          ancilla_factor=ancilla_factor)
-    _check_cuda_input("rows", rows, 2, WIDTH)
+    check_cuda_input("rows", rows, 2, WIDTH)
     batch, T = rows.shape[:-2], rows.shape[-2]
     check_range(L, q, T, echo=False)
-    n = math.prod(batch)
-    if not (1 <= n <= 65535):
-        raise ValueError(f"forward batch of {n} trajectories outside"
-                         " [1, 65535]")
+    n = batch_size(batch, "forward")
     from dtc_tpu_torch.ops import _build
 
-    lib = _build.load()
+    lib = _build.load("floquet_x")
     b0 = basis_index(L, initial_state)
     dev = rows.device
     state = torch.empty((n, 1 << L), dtype=torch.complex64, device=dev)
@@ -249,7 +259,7 @@ def blocked_forward_batch(rows, sig_after, theta, *, L, q,
                                 partials.data_ptr(), a_raw.data_ptr(), n, L,
                                 T, q, b0, c, s, stream)
     LAUNCHES["forward"] += 1
-    _raise_on(err, "floquet_x_forward")
+    raise_on(err, "floquet_x_forward")
     return _forward_host_factor(a_raw.reshape(*batch, T), sig_after, q, b0,
                                 ancilla_factor)
 
@@ -261,19 +271,17 @@ def blocked_echo_batch(tiles, sig_fin, theta, *, L, q,
     Echo of a constant x-drive: each pair runs the 2t steps its first row
     names. CPU tensors take the plain version; CUDA tensors launch kernel
     K2."""
-    if _route(tiles) == "plain":
+    if route(tiles, "blocked x") == "plain":
         return blocked_echo_batch_ref(tiles, sig_fin, theta, L=L, q=q,
                                       initial_state=initial_state,
                                       ancilla_factor=ancilla_factor)
-    _check_cuda_input("tiles", tiles, 2, WIDTH)
+    check_cuda_input("tiles", tiles, 2, WIDTH)
     batch, R = tiles.shape[:-2], tiles.shape[-2]
     check_range(L, q, R // 4, echo=True)
-    n = math.prod(batch)
-    if not (1 <= n <= 65535):
-        raise ValueError(f"echo batch of {n} pairs outside [1, 65535]")
+    n = batch_size(batch, "echo")
     from dtc_tpu_torch.ops import _build
 
-    lib = _build.load()
+    lib = _build.load("floquet_x")
     b0 = basis_index(L, initial_state)
     dev = tiles.device
     flat = tiles.view(n, R, WIDTH)
@@ -291,6 +299,6 @@ def blocked_echo_batch(tiles, sig_fin, theta, *, L, q,
                              partials.data_ptr(), val.data_ptr(), n, L, R,
                              n_steps, q, b0, c, s, stream)
     LAUNCHES["echo"] += 1
-    _raise_on(err, "floquet_x_echo")
+    raise_on(err, "floquet_x_echo")
     return _echo_host_factor(val.reshape(batch), sig_fin, q, b0,
                              ancilla_factor)

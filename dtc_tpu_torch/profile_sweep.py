@@ -1,7 +1,8 @@
 """Where the device time of the main path goes, from ``torch.profiler``.
 
 Traces, on a CUDA card at the bench shape (L=20, T=50, p=0.05, g=0.97,
-vacuum, probe q = L//2):
+vacuum, probe q = L//2) and the drive ``--polarization`` names (default x,
+the K1/K2 path; y, xy, yx, circular_* and xy_cycle take K4):
 
 - ``forward``: three ``_forward_batch`` dispatches of 32 trajectories, each
   copied to the host as ``bench.py`` does;
@@ -13,7 +14,8 @@ of the intervals of every device event, kernels and copies), the idle share
 first. With ``--out DIR`` it also writes the profiler's own table to
 ``DIR/profile_<name>.txt``.
 
-Run: ``python -m dtc_tpu_torch.profile_sweep [--out DIR]``.
+Run: ``python -m dtc_tpu_torch.profile_sweep [--polarization POL]
+[--out DIR]``.
 """
 
 from __future__ import annotations
@@ -25,15 +27,16 @@ import time
 
 import torch
 
-from dtc_tpu.io.disorder import generate_disorder
-from dtc_tpu.utils.config import SimConfig
 from dtc_tpu_torch.core.sigma_evolve import draw_uniforms
 from dtc_tpu_torch.experiments.engine import (
     _forward_batch,
     build_context,
     echo_sweep,
+    engine_for,
     resolve_device,
 )
+from dtc_tpu_torch.io.disorder import generate_disorder
+from dtc_tpu_torch.utils.config import SimConfig
 
 L, T, P, G, N_TRAJ, INST = 20, 50, 0.05, 0.97, 32, 2
 
@@ -73,8 +76,9 @@ def busy_summary(events, top: int = 6) -> dict:
     return {"busy_ms": busy / 1e3, "kernels": kernels}
 
 
-def traced(name, fn, out_dir):
-    """Run ``fn`` once under the profiler; print and return its summary."""
+def traced(name, fn, out_dir, **info):
+    """Run ``fn`` once under the profiler; print and return its summary
+    (with ``info`` added)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -84,7 +88,7 @@ def traced(name, fn, out_dir):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     summary = busy_summary(prof.events())
-    summary = {"trace": name, "wall_ms": wall_ms,
+    summary = {"trace": name, **info, "wall_ms": wall_ms,
                "idle_share": 1.0 - summary["busy_ms"] / wall_ms, **summary}
     if out_dir:
         with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
@@ -98,28 +102,37 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="directory for the profiler's tables")
+    ap.add_argument("--polarization", default="x",
+                    help="drive to trace (x: K1/K2; any other: K4)")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
+    pol = args.polarization
     cfg = SimConfig(L=L, tf=T, g=G, inst=INST, noise_prob=P, use_noise=1,
-                    n_trajectories=N_TRAJ)
+                    n_trajectories=N_TRAJ, polarization=pol)
     hs, phis = generate_disorder(L, INST, seed=0)
     sched, params, noise = build_context(cfg, hs, phis, device=dev)
-    kw = dict(L=L, T=T, K=1, p=P, q=L // 2, initial_state="vacuum",
-              dtype_name="complex64", ancilla_factor=(1 - P) ** 6)
+    kw = dict(L=L, T=T, K=sched.K, p=P, q=L // 2, initial_state="vacuum",
+              dtype_name="complex64", ancilla_factor=(1 - P) ** 6,
+              has_y=pol != "x")
+    engine = engine_for(sched.angles, L=L, T=T, q=L // 2,
+                        dtype_name="complex64", has_y=pol != "x", echo=False)
 
     def forward(reps=3):
         for seed in range(reps):
             gen = torch.Generator(device=dev).manual_seed(seed)
-            u = draw_uniforms((1, N_TRAJ, T, L), generator=gen, device=dev)
+            u = draw_uniforms((1, N_TRAJ, T * sched.K, L), generator=gen,
+                              device=dev)
             _forward_batch(params[0][:1], params[1][:1], sched.angles, u,
                            **kw).cpu()
 
     forward(1)  # kernel build and first launch stay out of the trace
-    traced("forward_dispatch_x3", forward, args.out)
-    traced("echo_sweep",
-           lambda: echo_sweep(cfg, sched, params, noise), args.out)
+    tag = "" if pol == "x" else f"_{pol}"
+    traced(f"forward_dispatch_x3{tag}", forward, args.out, engine=engine)
+    traced(f"echo_sweep{tag}",
+           lambda: echo_sweep(cfg, sched, params, noise), args.out,
+           engine=engine)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
-"""CLI of the port: ``python -m dtc_tpu_torch {autocorr,bench}``.
+"""CLI of the port:
+``python -m dtc_tpu_torch {autocorr,polarization,shots,xy-cycle,bench}``.
 
-Port of the ``autocorr`` and ``bench`` subcommands of
-``dtc_tpu/utils/cli.py``; the flag vocabulary is the reference's own
-(``add_common_flags``), plus ``--device`` (default cuda; a CUDA request on
-a machine without CUDA raises, it does not run on the CPU).
+Port of those subcommands of ``dtc_tpu/utils/cli.py``, with its flag
+vocabulary (``add_common_flags`` and ``config_from_args`` are copies), plus
+``--device`` (default cuda; a CUDA request on a machine without CUDA raises,
+it does not run on the CPU).
 """
 
 from __future__ import annotations
@@ -11,7 +12,46 @@ from __future__ import annotations
 import argparse
 import logging
 
-from dtc_tpu.utils.cli import add_common_flags, config_from_args
+from dtc_tpu_torch.utils.config import SimConfig
+
+
+def add_common_flags(p: argparse.ArgumentParser):
+    p.add_argument("--L", type=int, default=4, help="Number of qubits")
+    p.add_argument("--inst", type=int, default=1, help="Number of disorder instances")
+    p.add_argument("--randomphi", type=int, default=1, help="Prethermal=0 or DTC=1")
+    p.add_argument("--phi_delta", type=float, default=0.0)
+    p.add_argument("--phi_amplitude", type=float, default=1.0)
+    p.add_argument("--tf", type=int, default=50, help="End time (cycles)")
+    p.add_argument("--g", type=float, default=0.97)
+    p.add_argument("--noise_prob", type=float, default=0.05)
+    p.add_argument("--use_noise", type=int, default=1)
+    p.add_argument("--initial_state", type=str, default="vacuum",
+                   choices=["vacuum", "neel"])
+    p.add_argument("--use_fakebackend", type=int, default=0,
+                   help="1 = device-noise model mode")
+    p.add_argument("--fake_device", type=str, default="brisbane",
+                   choices=["brisbane", "garnet"],
+                   help="which QPU calibration use_fakebackend=1 mimics")
+    p.add_argument("--calibration_path", type=str, default=None,
+                   help="real calibration snapshot JSON overriding the "
+                        "synthetic calibration")
+    p.add_argument("--polarization", type=str, default="x")
+    p.add_argument("--circular_frequency", type=float, default=0.5)
+    p.add_argument("--n_trajectories", type=int, default=256)
+    p.add_argument("--shots", type=int, default=0,
+                   help="0 = analytic; >0 = Bernoulli-sampled measurement")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dtype", type=str, default="complex64",
+                   choices=["complex64", "complex128"])
+    p.add_argument("--out_dir", type=str, default=None)
+    p.add_argument("--disorder_dir", type=str, default=".",
+                   help="Folder with hs_L{L}.csv / phis_L{L}.csv (generated if absent)")
+
+
+def config_from_args(args) -> SimConfig:
+    fields = set(SimConfig.__dataclass_fields__)
+    kw = {k: v for k, v in vars(args).items() if k in fields and v is not None}
+    return SimConfig(**kw)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -19,10 +59,16 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m dtc_tpu_torch",
         description="PyTorch/CUDA kicked-Ising DTC simulation")
     sub = ap.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("autocorr",
-                       help="forward+echo interferometric autocorrelator sweep")
-    add_common_flags(p)
-    p.add_argument("--device", type=str, default="cuda")
+    for name, hlp in [
+        ("autocorr", "forward+echo interferometric autocorrelator sweep"),
+        ("polarization", "x/y/xy/yx comparison with envelopes"),
+        ("shots", "echo vs shot-count convergence study"),
+        ("xy-cycle", "XY-alternating vs pure-X comparison"),
+    ]:
+        p = sub.add_parser(name, help=hlp)
+        add_common_flags(p)
+        p.add_argument("--device", type=str, default="cuda")
+    p = sub.choices["autocorr"]
     p.add_argument("--with_envelopes", action="store_true")
     p.add_argument("--method", type=str, default="trajectories",
                    choices=["trajectories", "exact"],
@@ -32,6 +78,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sharded", action="store_true",
                    help="amplitude-shard over all devices (not ported)")
     p.add_argument("--n_amp", type=int, default=None)
+    sub.choices["polarization"].add_argument(
+        "--polarizations", type=str, default="x,y,xy,yx")
+    sub.choices["shots"].add_argument(
+        "--shots_list", type=str, default="100,1000,10000,100000,1000000")
     p = sub.add_parser("bench", help="headline benchmark on the GPU")
     p.add_argument("--device", type=str, default="cuda")
     return ap
@@ -48,18 +98,30 @@ def main(argv=None) -> int:
 
         bench.main(device=args.device)
         return 0
-    if args.sharded or args.n_amp:
-        raise NotImplementedError(
-            "--sharded / --n_amp (amplitude sharding) is not ported yet:"
-            " ROADMAP.md queue 1, item 7")
-    if args.emit_gate_counts:
-        raise NotImplementedError(
-            "--emit_gate_counts is not ported yet: ROADMAP.md queue 1, item 8")
-    cfg = config_from_args(args)
-    from dtc_tpu_torch.experiments.autocorr import run_autocorr
+    from dtc_tpu_torch.experiments import autocorr
 
-    r = run_autocorr(cfg, device=args.device, out_dir=args.out_dir,
-                     disorder_dir=args.disorder_dir,
-                     with_envelopes=args.with_envelopes, method=args.method)
+    cfg = config_from_args(args)
+    kw = dict(device=args.device, out_dir=args.out_dir,
+              disorder_dir=args.disorder_dir)
+    if args.command == "autocorr":
+        if args.sharded or args.n_amp:
+            raise NotImplementedError(
+                "--sharded / --n_amp (amplitude sharding) is not ported yet:"
+                " ROADMAP.md queue 1, item 7")
+        if args.emit_gate_counts:
+            raise NotImplementedError(
+                "--emit_gate_counts is not ported yet: ROADMAP.md queue 1,"
+                " item 8")
+        r = autocorr.run_autocorr(cfg, with_envelopes=args.with_envelopes,
+                                  method=args.method, **kw)
+    elif args.command == "polarization":
+        r = autocorr.run_polarization_comparison(
+            cfg, polarizations=tuple(args.polarizations.split(",")), **kw)
+    elif args.command == "shots":
+        r = autocorr.run_shots_study(
+            cfg, shots_list=[int(s) for s in args.shots_list.split(",")],
+            **kw)
+    else:
+        r = autocorr.run_xy_cycle_comparison(cfg, **kw)
     print(f"wrote {r['csv_path']}")
     return 0

@@ -1,4 +1,5 @@
-"""The port imports torch and never jax; a CUDA request without CUDA raises."""
+"""The port imports torch and never jax, nor any module of the JAX package
+``dtc_tpu``; a CUDA request without CUDA raises."""
 
 import os
 import pkgutil
@@ -14,15 +15,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_no_module_of_the_port_loads_jax():
+    """Every module of the port, and chip_smoke.py's module-level imports,
+    in a fresh interpreter: no jax* and no dtc_tpu / dtc_tpu.* module."""
     names = [m.name for m in pkgutil.walk_packages(
         dtc_tpu_torch.__path__, "dtc_tpu_torch.")
         if m.name != "dtc_tpu_torch.__main__"]
-    assert "dtc_tpu_torch.ops.resident_blocked" in names
+    assert "dtc_tpu_torch.ops.resident_general" in names
+    assert "dtc_tpu_torch.io.disorder" in names
     code = ("import importlib, sys\n"
-            f"for n in {names!r}:\n"
+            f"for n in {names + ['chip_smoke']!r}:\n"
             "    importlib.import_module(n)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or"
-            " m.startswith('jax.') or m.startswith('jaxlib'))\n"
+            "bad = sorted(m for m in sys.modules if m.startswith('jax')"
+            " or m == 'dtc_tpu' or m.startswith('dtc_tpu.'))\n"
             "assert not bad, bad\n"
             "print(len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -34,7 +38,7 @@ def test_no_module_of_the_port_loads_jax():
 def test_cuda_request_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("CUDA is available: the request is valid")
-    from dtc_tpu.utils.config import SimConfig
+    from dtc_tpu_torch.utils.config import SimConfig
     from dtc_tpu_torch.experiments.autocorr import run_autocorr
     from dtc_tpu_torch.experiments.engine import resolve_device
 
@@ -45,7 +49,7 @@ def test_cuda_request_without_cuda_raises():
 
 
 def test_unported_methods_raise():
-    from dtc_tpu.utils.config import SimConfig
+    from dtc_tpu_torch.utils.config import SimConfig
     from dtc_tpu_torch.experiments.autocorr import run_autocorr
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,4 +1,5 @@
-"""CUDA kernels K1/K2 against their plain versions, on the card.
+"""CUDA kernels K1/K2 (constant x) and K4 (lab frame, any drive) against
+their plain versions, on the card.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one. They import neither jax nor ``tests/conftest.py``'s setup, so
@@ -12,11 +13,17 @@ import numpy as np
 import pytest
 import torch
 
-from dtc_tpu.io.disorder import generate_disorder
-from dtc_tpu.utils.config import SimConfig
 from dtc_tpu_torch.experiments.autocorr import run_autocorr
+from dtc_tpu_torch.io.disorder import generate_disorder
+from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.ops import resident_blocked as rb
+from dtc_tpu_torch.ops import resident_general as rg
 from dtc_tpu_torch.ops.params import echo_pair_tiles, forward_rows
+from dtc_tpu_torch.ops.params_general import (
+    general_echo_rows,
+    general_forward_rows,
+)
+from dtc_tpu_torch.utils.config import SimConfig
 
 THETA = 0.97 * np.pi
 TOL = 1e-4
@@ -121,3 +128,86 @@ def test_sigma_engine_on_card_matches_cpu(cuda_device):
     ref = run_autocorr(cfg, device="cpu", write=False, uniforms=u)
     for k in ("autocorr_per_instance", "echo_per_instance"):
         np.testing.assert_allclose(got[k], ref[k], atol=1e-5, rtol=0)
+
+
+GENERAL_CASES = [(14, "y", "neel", 0), (17, "xy", "vacuum", 16),
+                 (20, "circular_left", "vacuum", 10),
+                 (23, "xy_cycle", "neel", 22)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,pol,state,q", GENERAL_CASES)
+def test_general_forward_kernel_matches_plain_on_card(cuda_device, L, pol,
+                                                      state, q):
+    T = 4 if L < 23 else 3
+    hs, phis = _disorder(L, cuda_device)
+    angles = build_kick_schedule(pol, 0.97, T, xy_cycle_period=1,
+                                 device=cuda_device).angles
+    K = angles.shape[1]
+    gen = torch.Generator(device=cuda_device).manual_seed(L)
+    u = torch.rand((1, 3, T * K, L), generator=gen, device=cuda_device)
+    rows = general_forward_rows(u, hs[:, None], phis[:, None], angles, L=L,
+                                T=T, K=K, p=0.1)
+    launches = rg.LAUNCHES["forward"]
+    k = rg.general_forward_batch(rows, L=L, T=T, q=q, initial_state=state)
+    torch.cuda.synchronize()
+    assert rg.LAUNCHES["forward"] == launches + 1
+    ref = rg.general_forward_batch_ref(rows, L=L, T=T, q=q,
+                                       initial_state=state)
+    assert float((k - ref).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,pol,state,q", GENERAL_CASES)
+def test_general_echo_kernel_matches_plain_on_card(cuda_device, L, pol,
+                                                   state, q):
+    T = 3 if L < 23 else 2
+    hs, phis = _disorder(L, cuda_device)
+    angles = build_kick_schedule(pol, 0.97, T, xy_cycle_period=1,
+                                 device=cuda_device).angles
+    K = angles.shape[1]
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    u = torch.rand((1, 2, 2 * T * K, L), generator=gen, device=cuda_device)
+    ts = torch.arange(0, T + 1, device=cuda_device)
+    for p in (0.6, 0.0):
+        tiles = general_echo_rows(u, ts, hs[:, None], phis[:, None], angles,
+                                  L=L, T=T, K=K, p=p)
+        k = rg.general_echo_batch(tiles, L=L, q=q, initial_state=state)
+        torch.cuda.synchronize()
+        ref = rg.general_echo_batch_ref(tiles, L=L, q=q, initial_state=state)
+        assert float((k - ref).abs().max()) <= TOL
+        if p == 0:
+            assert float((k - 1).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_general_wrappers_reject_bad_inputs(cuda_device):
+    rows = torch.zeros((1, 3, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        rg.general_forward_batch(rows.double(), L=14, T=3, q=3)
+    with pytest.raises(ValueError, match="K per cycle"):
+        rg.general_forward_batch(rows, L=14, T=2, q=3)
+    with pytest.raises(ValueError, match="step count"):
+        tiles = torch.zeros((1, 4, 128), device=cuda_device)
+        tiles[0, 0, 4 * 14 - 1 + 10] = 3.0
+        rg.general_echo_batch(tiles, L=14, q=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol", ["y", "xy"])
+def test_general_autocorr_on_card_runs_k4_and_matches_cpu(cuda_device, pol):
+    """A non-x drive at L=14 through the card (K4) and the CPU (its plain
+    version) with the same uniforms: per-instance A and A0 agree at 1e-4."""
+    K = 1 if pol == "y" else 2
+    cfg = SimConfig(L=14, tf=4, inst=1, n_trajectories=4, noise_prob=0.3,
+                    polarization=pol)
+    rng = np.random.default_rng(0)
+    u = (rng.random((1, 4, 4 * K, 14), dtype=np.float32),
+         rng.random((1, 4, 8 * K, 14), dtype=np.float32))
+    rg.reset_counters()
+    got = run_autocorr(cfg, device="cuda", write=False, uniforms=u)
+    assert rg.LAUNCHES["forward"] >= 1 and rg.LAUNCHES["echo"] >= 1
+    assert rg.PLAIN_ON_CUDA == {"forward": 0, "echo": 0}
+    ref = run_autocorr(cfg, device="cpu", write=False, uniforms=u)
+    for k in ("autocorr_per_instance", "echo_per_instance"):
+        np.testing.assert_allclose(got[k], ref[k], atol=TOL, rtol=0)

@@ -1,0 +1,149 @@
+"""Lab-frame general-drive entries (kernel K4 and its plain versions).
+
+On the CPU the entries run the plain versions, which are held against the
+JAX Pallas kernels in interpret mode (K4a's full-plane body at L=14, K4b's
+blocked body at L=18), fed the same uniforms: 1e-4, the reference's own
+bound for its interpret kernels against the sigma engine. The kernel itself
+is compared with these plain versions on the card by
+``test_torch_kernels_cuda.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dtc_tpu.io.disorder import generate_disorder
+from dtc_tpu.models.drives import build_kick_schedule as j_sched
+from dtc_tpu.ops.pallas_resident_general import general_echo_batch as j_echo
+from dtc_tpu.ops.pallas_resident_general import (
+    general_forward_batch as j_forward,
+)
+from dtc_tpu.ops.pallas_resident_general import slot_u8 as j_slot_u8
+from dtc_tpu_torch.models.drives import build_kick_schedule
+from dtc_tpu_torch.ops import resident_general as rg
+from dtc_tpu_torch.ops.params_general import (
+    general_echo_rows,
+    general_forward_rows,
+    slot_u8,
+)
+
+torch.set_num_threads(2)
+
+
+def _disorder(L):
+    hs, phis = generate_disorder(L, 1, seed=7)
+    return hs[:, :L], phis[:, :L - 1]
+
+
+def _uniforms(keys, shape):
+    return torch.from_numpy(np.array(jax.vmap(jax.vmap(
+        lambda k: jax.random.uniform(k, shape, dtype=jnp.float32)))(keys)))
+
+
+CASES = [(14, "y", "vacuum"), (14, "xy", "neel"), (14, "circular_left",
+                                                    "vacuum"),
+         (18, "y", "neel"), (18, "xy", "vacuum")]
+
+
+@pytest.mark.parametrize("L,pol,state", CASES)
+def test_plain_forward_matches_reference_interpret(L, pol, state):
+    T, q, p = 3, L // 2, 0.1
+    hs, phis = _disorder(L)
+    sched = j_sched(pol, 0.97, T)
+    K = sched.angles.shape[1]
+    keys = jax.random.split(jax.random.PRNGKey(3), 2)[None]
+    ref = np.asarray(j_forward(
+        jnp.asarray(hs), jnp.asarray(phis), sched.angles, keys, L=L, T=T, K=K,
+        p=p, q=q, initial_state=state, ancilla_factor=0.8, interpret=True))
+    h, ph = torch.from_numpy(hs), torch.from_numpy(phis)
+    rows = general_forward_rows(
+        _uniforms(keys, (T * K, L)), h[:, None], ph[:, None],
+        build_kick_schedule(pol, 0.97, T).angles, L=L, T=T, K=K, p=p)
+    got = rg.general_forward_batch(rows, L=L, T=T, q=q, initial_state=state,
+                                   ancilla_factor=0.8).numpy()
+    assert got.shape == (1, 2, T)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("L,pol,state", CASES)
+def test_plain_echo_matches_reference_interpret(L, pol, state):
+    T, q, ts = 2, L // 2, [1, 2]
+    hs, phis = _disorder(L)
+    sched = j_sched(pol, 0.97, T)
+    K = sched.angles.shape[1]
+    keys = jax.random.split(jax.random.PRNGKey(0), 2)[None]
+    jargs = (jnp.asarray(hs), jnp.asarray(phis), sched.angles, keys,
+             jnp.asarray(ts))
+    u = _uniforms(keys, (2 * T * K, L))
+    h, ph = torch.from_numpy(hs), torch.from_numpy(phis)
+    angles = build_kick_schedule(pol, 0.97, T).angles
+    for p in (0.6, 0.0):
+        ref = np.asarray(j_echo(*jargs, L=L, T=T, K=K, p=p, q=q,
+                                initial_state=state, interpret=True))
+        tiles = general_echo_rows(u, torch.tensor(ts), h[:, None],
+                                  ph[:, None], angles, L=L, T=T, K=K, p=p)
+        got = rg.general_echo_batch(tiles, L=L, q=q,
+                                    initial_state=state).numpy()
+        assert got.shape == (1, 2, 2)
+        np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+        if p == 0:
+            np.testing.assert_allclose(got, 1.0, atol=1e-4)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_slot_u8_matches_reference(inverse):
+    rng = np.random.default_rng(4)
+    tx, ty = rng.uniform(-4, 4, (2, 64))
+    ref = np.asarray(j_slot_u8(jnp.asarray(tx), jnp.asarray(ty),
+                               inverse=inverse))
+    got = slot_u8(torch.from_numpy(tx), torch.from_numpy(ty),
+                  inverse=inverse).numpy()
+    assert got.dtype == np.float32 and got.shape == (64, 8)
+    np.testing.assert_allclose(got, ref, atol=1e-7, rtol=0)
+
+
+def test_slot_u8_inverse_is_the_dagger():
+    u = slot_u8(torch.tensor(0.7, dtype=torch.float64),
+                torch.tensor(-1.3, dtype=torch.float64))
+    ui = slot_u8(torch.tensor(0.7, dtype=torch.float64),
+                 torch.tensor(-1.3, dtype=torch.float64), inverse=True)
+    m = torch.complex(u[0::2], u[1::2]).reshape(2, 2)
+    mi = torch.complex(ui[0::2], ui[1::2]).reshape(2, 2)
+    torch.testing.assert_close(mi @ m, torch.eye(2, dtype=torch.complex64),
+                               atol=1e-6, rtol=0)
+
+
+def test_entries_reject_out_of_range():
+    rows = torch.zeros((1, 3, 128))
+    for L, q in ((13, 3), (24, 3), (14, 14), (14, -1)):
+        with pytest.raises(ValueError):
+            rg.general_forward_batch(rows, L=L, T=3, q=q)
+    with pytest.raises(ValueError):
+        rg.general_forward_batch(torch.zeros((1, rg.MAX_STEPS + 1, 128)),
+                                 L=14, T=rg.MAX_STEPS + 1, q=3)
+    with pytest.raises(ValueError):
+        rg.general_echo_batch(torch.zeros((1, 2 * rg.MAX_STEPS + 2, 128)),
+                              L=14, q=3)
+    with pytest.raises(ValueError):  # neither CPU (plain) nor CUDA (kernel)
+        rg.general_forward_batch(rows.to("meta"), L=14, T=3, q=3)
+    with pytest.raises(ValueError):
+        general_forward_rows(None, torch.zeros(1, 32), torch.zeros(1, 31),
+                             torch.zeros(3, 1, 2), L=32, T=3, K=1, p=0.0,
+                             batch=(1, 1))
+
+
+def test_wrapper_routes_cpu_to_plain_version():
+    L, T = 14, 2
+    hs, phis = _disorder(L)
+    rows = general_forward_rows(
+        None, torch.from_numpy(hs)[:, None], torch.from_numpy(phis)[:, None],
+        build_kick_schedule("y", 0.97, T).angles, L=L, T=T, K=1, p=0.0,
+        batch=(1, 1))
+    rg.reset_counters()
+    a = rg.general_forward_batch(rows, L=L, T=T, q=3)
+    b = rg.general_forward_batch_ref(rows, L=L, T=T, q=3)
+    assert torch.equal(a, b)
+    assert rg.LAUNCHES == {"forward": 0, "echo": 0}
+    assert rg.PLAIN_ON_CUDA == {"forward": 0, "echo": 0}

@@ -1,8 +1,10 @@
 """Port's sigma-frame engine against the JAX reference (CPU).
 
 The same per-trajectory uniforms, drawn from the reference's own keys, go
-through both engines. Tolerances: 1e-10 in complex128 (the engines do the
-same arithmetic; rounding order differs), 1e-5 in complex64 (f32 rounding
+through both engines, for the x drive and for the y, xy, circular_left and
+xy_cycle drives (K = 1 or 2 kick slots per cycle). Tolerances: 1e-10 in
+complex128 (the engines do the same arithmetic; rounding order differs),
+1e-5 in complex64 (f32 rounding
 over T cycles). Codes, masks and the XOR sigma frame must be bit-identical.
 """
 
@@ -60,31 +62,37 @@ def test_presample_bit_identical():
                                       np.asarray(r).astype(np.int64))
 
 
-CASES = [
+_X_CASES = [
     (6, 0.1, "vacuum", "complex128"),
     (6, 0.6, "neel", "complex128"),
     (9, 0.6, "neel", "complex64"),
     (9, 0.1, "vacuum", "complex64"),
 ]
+# (pol, L, p, state, dtype); the x cases keep their ids
+CASES = ([pytest.param("x", *c, id="-".join(map(str, c))) for c in _X_CASES]
+         + [pytest.param(pol, *c, id="-".join(map(str, (pol, *c))))
+            for pol in ("y", "xy", "circular_left", "xy_cycle")
+            for c in (_X_CASES[1], _X_CASES[2])])
 T_CASE = 6
 ECHO_TS = [0, 1, 3, T_CASE - 1]
 
 
-def reference_case(L, p, state, dtype):
+def reference_case(pol, L, p, state, dtype):
     """Disorder, schedule, keys and engine kwargs of one parity case, the
     reference's inputs and the port's (uniforms drawn from the keys)."""
     inst, c, T = 2, 2, T_CASE
     hs, phis = generate_disorder(L, inst, seed=3)
     hs, phis = hs[:, :L], phis[:, :L - 1]
-    angles = j_sched("x", 0.97, T).angles
+    angles = j_sched(pol, 0.97, T).angles
+    K = angles.shape[1]
     keys = jax.vmap(lambda k: jax.random.split(k, c))(
         jax.random.split(jax.random.PRNGKey(1), inst))
-    kw = dict(L=L, T=T, K=1, p=p, q=L // 2, initial_state=state,
-              dtype_name=dtype, ancilla_factor=0.7, has_y=False)
+    kw = dict(L=L, T=T, K=K, p=p, q=L // 2, initial_state=state,
+              dtype_name=dtype, ancilla_factor=0.7, has_y=pol != "x")
     jax_args = (jnp.asarray(hs), jnp.asarray(phis), angles, keys)
     port_args = from_reference(
         hs, phis, np.asarray(angles),
-        (_uniforms(keys, (T, L)), _uniforms(keys, (2 * T, L))))
+        (_uniforms(keys, (T * K, L)), _uniforms(keys, (2 * T * K, L))))
     return jax_args, port_args, kw
 
 
@@ -92,9 +100,10 @@ def tolerance(dtype):
     return 1e-10 if dtype == "complex128" else 1e-5
 
 
-@pytest.mark.parametrize("L,p,state,dtype", CASES)
-def test_sigma_forward_matches_reference(L, p, state, dtype):
-    jax_args, (h, ph, ang, (uf, _ue)), kw = reference_case(L, p, state, dtype)
+@pytest.mark.parametrize("pol,L,p,state,dtype", CASES)
+def test_sigma_forward_matches_reference(pol, L, p, state, dtype):
+    jax_args, (h, ph, ang, (uf, _ue)), kw = reference_case(pol, L, p, state,
+                                                           dtype)
     ref = np.asarray(j_forward(*jax_args, **kw))
     got = sigma_forward_batch(h, ph, ang, uf, **kw).numpy()
     np.testing.assert_allclose(got, ref, atol=tolerance(dtype), rtol=0)
