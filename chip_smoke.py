@@ -6,11 +6,14 @@ each; any failure raises and the script exits non-zero without a result:
 1. card: CUDA present, name and power limit, TF32 off;
 2. build: every CUDA library from ``dtc_tpu_torch/csrc`` (one nvcc per
    source, all started at once, sm_90a);
-3. kernel vs plain version on the card, max |diff| <= 1e-4 each: small
-   shapes across each kernel's range, then the main paths' own shapes (K1
-   on 2 instances x 32 trajectories at T=50; K2 on the echo sweep's last
-   two chunks; K4 forward on 32 trajectories of the xy drive at T=50; K4
-   echo on the xy echo sweep's last two chunks);
+3. kernel vs plain version on the card, max |diff| <= 1e-4 each (K5's
+   e_diag <= 1e-4 * (sum|th| + sum|tph|), x_sum <= 1e-4 * L): small shapes
+   across each kernel's range, then the main paths' own shapes (K1 on 2
+   instances x 32 trajectories at T=50; K2 on the echo sweep's last two
+   chunks; K4 forward on 32 trajectories of the xy drive at T=50; K4 echo
+   on the xy echo sweep's last two chunks; K5 on 32 trajectories of the x
+   drive at T=50, p=0.1); and the eager observables engine on the card
+   against the same call on the CPU (L=12, complex64 and complex128);
 4. main paths, each through the CLI's ``main(argv)`` with every launch
    count set to 0 just before it and read just after:
    ``autocorr --device cuda`` (x drive: K1/K2) at L=20, T=50, 2 instances x
@@ -18,7 +21,10 @@ each; any failure raises and the script exits non-zero without a result:
    and K4) at L=20, T=50, 32 trajectories; physics checks on their CSVs,
    the engine each sweep logged, every kernel of the path launched and no
    plain version called on a CUDA tensor; then ``xy-cycle`` and ``shots``
-   at T=20, with checks on their CSVs;
+   at T=20, with checks on their CSVs; then the energy family (K5):
+   ``energy``, ``ham-comparison`` and ``per-qubit-z`` at L=20, T=50, 32
+   trajectories, ``per-qubit-z`` without noise, and ``per-qubit-z`` of the
+   xy drive at T=20, with checks on their CSVs (E(0), z(0), z(1) at p=0);
 5. timing: the bench shape (``dtc_tpu_torch/bench.py::run_case``) and every
    kernel against its plain version on identical inputs, whose outputs are
    held to the same bound; each kernel's bound: the larger of its bytes
@@ -151,6 +157,21 @@ def general_echo_inputs(L, pol, T, c, p, ts, dev, seed, inst=1):
                              phis[:, None], angles, L=L, T=T, K=K, p=p)
 
 
+def held_obs(what, k, ref, L, scale) -> float:
+    """K5's three outputs against the plain version's: e_diag within
+    TOL * scale (scale = sum|th| + sum|tph|), x_sum within TOL * L, <Z_q>
+    within TOL; prints and returns the largest |diff|, raises above a
+    bound."""
+    diffs = [float((a - b).abs().max()) for a, b in zip(k, ref)]
+    bounds = (TOL * scale, TOL * L, TOL)
+    phase(f"[compare] {what}: max|kernel-plain| e_diag {diffs[0]:.3e} "
+          f"(<= {bounds[0]:.3e}), x_sum {diffs[1]:.3e} (<= {bounds[1]:.3e}),"
+          f" z {diffs[2]:.3e} (<= {bounds[2]:.0e})")
+    if not all(d <= b for d, b in zip(diffs, bounds)):
+        raise RuntimeError(f"{what}: K5 disagrees with its plain version")
+    return max(diffs)
+
+
 def held(what: str, k, ref) -> float:
     """max |kernel - plain|, printed; raises above TOL."""
     d = float((k - ref).abs().max())
@@ -251,6 +272,109 @@ def compare_general(dev, err) -> None:
         del tiles
 
 
+def obs_inputs(L, pol, component, T, c, p, dev, seed, inst=1):
+    """(rows, energy rows, with_x, sum|th| + sum|tph|) of K5 on the CLI's
+    default disorder."""
+    from dtc_tpu_torch.models.hamiltonian import hamiltonian_terms
+    from dtc_tpu_torch.ops.observables import energy_row
+    from dtc_tpu_torch.ops.params_general import general_forward_rows
+
+    hs, phis = disorder(L, dev, inst)
+    angles = schedule(pol, T, dev)
+    K = angles.shape[1]
+    terms = [hamiltonian_terms(L, 0.97, hs[i], phis[i], component)
+             for i in range(inst)]
+    u = uniforms((inst, c, T * K, L), dev, seed)
+    rows = general_forward_rows(u, hs[:, None], phis[:, None], angles, L=L,
+                                T=T, K=K, p=p)
+    erow = energy_row(torch.stack([t.hs for t in terms]),
+                      torch.stack([t.phis for t in terms]), L)[:, None]
+    scale = max(float(t.hs.abs().sum() + t.phis.abs().sum()) for t in terms)
+    return rows, erow, terms[0].x_coeff != 0.0, scale
+
+
+def compare_obs(dev, err) -> None:
+    from dtc_tpu_torch.ops import observables as ob
+
+    # every drive, state and component family across the range, p=0 and
+    # p=0.3; then the main path's batch (32 trajectories through 50 cycles)
+    cases = [(14, "x", "vacuum", "full", 0.0),
+             (14, "circular_left", "neel", "x_only", 0.3),
+             (17, "y", "neel", "z_zz", 0.3), (17, "xy", "vacuum", "full", 0.3),
+             (20, "x", "vacuum", "full", 0.3),
+             (20, "xy", "neel", "x_only", 0.0),
+             (23, "y", "vacuum", "full", 0.3),
+             (23, "circular_left", "vacuum", "z_zz", 0.0)]
+    for L, pol, state, comp, p in cases:
+        T = 4 if L < 23 else 3
+        rows, erow, with_x, scale = obs_inputs(L, pol, comp, T, 2, p, dev,
+                                               seed=L)
+        kw = dict(L=L, T=T, initial_state=state, with_x=with_x)
+        k = ob.observables_forward_batch(rows, erow, **kw)
+        torch.cuda.synchronize()
+        ref = ob.observables_forward_batch_ref(rows, erow, **kw)
+        err["K5"] = max(err["K5"], held_obs(
+            f"K5 L={L} {pol} {state} {comp} p={p} T={T}", k, ref, L, scale))
+    # two instances in one launch against two one-instance launches
+    rows, erow, _, scale = obs_inputs(17, "xy", "full", 3, 2, 0.3, dev,
+                                      seed=3, inst=2)
+    both = ob.observables_forward_batch(rows, erow, L=17, T=3)
+    for i in range(2):
+        one = ob.observables_forward_batch(rows[i:i + 1], erow[i:i + 1],
+                                           L=17, T=3)
+        err["K5"] = max(err["K5"], held_obs(
+            f"K5 L=17 xy 2 instances, instance {i} vs its own launch",
+            [a[i:i + 1] for a in both], one, 17, scale))
+    rows, erow, _, scale = obs_inputs(MAIN_L, "x", "full", MAIN_T, N_TRAJ,
+                                      0.1, dev, seed=50)
+    kw = dict(L=MAIN_L, T=MAIN_T)
+    k = ob.observables_forward_batch(rows, erow, **kw)
+    torch.cuda.synchronize()
+    ref = ob.observables_forward_batch_ref(rows, erow, **kw)
+    err["K5"] = max(err["K5"], held_obs(
+        f"K5 L={MAIN_L} x T={MAIN_T} 1x{N_TRAJ} p=0.1 full", k, ref, MAIN_L,
+        scale))
+
+
+def compare_eager(dev) -> None:
+    """The torch eager observables engine (the energy route outside K5's
+    range) on the card against the same call on the CPU."""
+    from dtc_tpu_torch.core.evolve import (
+        evolve_observables,
+        make_floquet_params,
+    )
+    from dtc_tpu_torch.core.statevector import initial_statevector
+    from dtc_tpu_torch.models.hamiltonian import hamiltonian_terms
+    from dtc_tpu_torch.ops.diag import zz_z_diag_energy
+
+    L, T, c, p = 12, 6, 4, 0.1
+    cpu = torch.device("cpu")
+    hs, phis = disorder(L, cpu)
+    angles = schedule("xy", T, cpu)
+    terms = hamiltonian_terms(L, 0.97, hs[0], phis[0])
+    u = uniforms((c, T * 2, L), cpu, seed=12)
+    for dtype, real in ((torch.complex64, torch.float32),
+                        (torch.complex128, torch.float64)):
+        out = []
+        for d in (dev, cpu):
+            psi0 = initial_statevector(L, "neel", dtype=dtype,
+                                       device=d).expand(c, -1)
+            e, z = evolve_observables(
+                psi0, angles.to(d), make_floquet_params(
+                    hs[0].to(d), phis[0].to(d), L, dtype=dtype),
+                zz_z_diag_energy(terms.hs.to(d), terms.phis.to(d), L,
+                                 dtype=real),
+                terms.x_coeff, u.to(d), L=L, T=T, K=2, p=p)
+            out.append((e.cpu(), z.cpu()))
+        d_e = float((out[0][0] - out[1][0]).abs().max())
+        d_z = float((out[0][1] - out[1][1]).abs().max())
+        phase(f"[compare] eager observables L={L} xy {dtype} cuda vs cpu: "
+              f"max|dE| {d_e:.3e}, max|dz| {d_z:.3e}")
+        if not (d_e <= TOL and d_z <= TOL):
+            raise RuntimeError("the eager observables engine on the card "
+                               "disagrees with the CPU")
+
+
 class SweepLog(logging.Handler):
     """Seconds of each ``phase_timer`` phase, and the (sweep, engine,
     polarization) of each sweep, from the port's log."""
@@ -263,8 +387,9 @@ class SweepLog(logging.Handler):
     def emit(self, record):
         msg = record.getMessage()
         if msg.startswith("phase "):
-            name, sec = msg.split()[1:3]
-            self.seconds.setdefault(name, []).append(float(sec.rstrip("s")))
+            words = msg.split()
+            self.seconds.setdefault(" ".join(words[1:-1]), []).append(
+                float(words[-1].rstrip("s")))
         elif "_sweep: engine=" in msg:
             sweep, engine, pol = msg.split()[:3]
             self.sweeps.append((sweep.rstrip(":"), engine.split("=")[1],
@@ -277,9 +402,19 @@ def read_csv(path) -> dict:
     return {k: [float(r[i]) for r in rows[1:]] for i, k in enumerate(rows[0])}
 
 
+def one_csv(tmp, prefix) -> dict:
+    """The columns of the one CSV in ``tmp`` whose name starts with
+    ``prefix``."""
+    csvs = [f for f in os.listdir(tmp) if f.startswith(prefix)]
+    if len(csvs) != 1:
+        raise RuntimeError(f"expected one {prefix}* CSV, got {csvs}")
+    return read_csv(os.path.join(tmp, csvs[0]))
+
+
 def run_cli(argv) -> tuple:
     """Run the CLI with every launch count at 0; returns (launches,
     plain calls on CUDA, sweep log, seconds)."""
+    from dtc_tpu_torch.ops import observables as ob
     from dtc_tpu_torch.ops import resident_blocked as rb
     from dtc_tpu_torch.ops import resident_general as rg
     from dtc_tpu_torch.utils.cli import main as cli_main
@@ -289,6 +424,7 @@ def run_cli(argv) -> tuple:
     logger.addHandler(log)
     rb.reset_counters()
     rg.reset_counters()
+    ob.reset_counters()
     t0 = time.perf_counter()
     try:
         rc = cli_main(argv)
@@ -298,9 +434,11 @@ def run_cli(argv) -> tuple:
     seconds = time.perf_counter() - t0
     launches = {"K1": rb.LAUNCHES["forward"], "K2": rb.LAUNCHES["echo"],
                 "K4 forward": rg.LAUNCHES["forward"],
-                "K4 echo": rg.LAUNCHES["echo"]}
+                "K4 echo": rg.LAUNCHES["echo"],
+                "K5": ob.LAUNCHES["observables"]}
     plain = {**{f"x {k}": v for k, v in rb.PLAIN_ON_CUDA.items()},
-             **{f"general {k}": v for k, v in rg.PLAIN_ON_CUDA.items()}}
+             **{f"general {k}": v for k, v in rg.PLAIN_ON_CUDA.items()},
+             **ob.PLAIN_ON_CUDA}
     if rc != 0:
         raise RuntimeError(f"{argv[0]} CLI returned {rc}")
     return launches, plain, log, seconds
@@ -436,11 +574,7 @@ def main_studies() -> None:
         with tempfile.TemporaryDirectory() as tmp:
             launches, plain, log, seconds = run_cli(
                 [*argv, "--inst", "1", *common_argv(STUDY_T, tmp)])
-            csvs = [f for f in os.listdir(tmp) if f.startswith(prefix)]
-            if len(csvs) != 1:
-                raise RuntimeError(f"{argv[0]}: expected one {prefix}* CSV,"
-                                   f" got {csvs}")
-            cols = read_csv(os.path.join(tmp, csvs[0]))
+            cols = one_csv(tmp, prefix)
         values = [x for k in want[1:] for x in cols.get(k, [])]
         checks = {
             "columns": list(cols) == want,
@@ -455,6 +589,77 @@ def main_studies() -> None:
               f"{seconds:.2f}s: "
               f"launches={launches}")
         fail_on(argv[0], checks)
+
+
+def main_energy(smi) -> int:
+    """The energy family's path (K5): ``energy``, ``ham-comparison`` and
+    ``per-qubit-z`` at L=20, T=50, 32 trajectories (p=0.05), ``per-qubit-z``
+    without noise, and ``per-qubit-z`` of the xy drive (K=2) at T=20; each
+    run logs engine=obs, launches K5 once per noise level or component and
+    calls no plain version on a CUDA tensor. Returns K5's launches."""
+    from dtc_tpu_torch.io.disorder import get_disorder
+    from dtc_tpu_torch.utils.config import SimConfig
+
+    total = 0
+    g = 0.97
+    runs = (
+        ("energy", [], MAIN_T, "energy_data_", 4),
+        ("ham-comparison", [], MAIN_T, "energy_ham_comparison_", 5),
+        ("per-qubit-z", [], MAIN_T, "per_qubit_z_", 1),
+        ("per-qubit-z", ["--use_noise", "0"], MAIN_T, "per_qubit_z_", 1),
+        ("per-qubit-z", ["--polarization", "xy"], STUDY_T, "per_qubit_z_", 1),
+    )
+    for cmd, extra, T, prefix, want_launches in runs:
+        with tempfile.TemporaryDirectory() as tmp:
+            launches, plain, log, seconds = run_cli(
+                [cmd, "--inst", "1", *common_argv(T, tmp), *extra])
+            cols = one_csv(tmp, prefix)
+            hs, phis = get_disorder(SimConfig(L=MAIN_L, inst=1), tmp)
+        what = " ".join([cmd, *extra])
+        e0 = {"full": hs.sum() + phis.sum(), "z_only": hs.sum(),
+              "zz_only": phis.sum(), "x_only": 0.0,
+              "z_zz": hs.sum() + phis.sum()}
+        values = [x for k, v in cols.items() if k != "time" for x in v]
+        checks = {
+            "engine=obs": {s[1] for s in log.sweeps} == {"obs"},
+            f"K5 launched {want_launches}x": launches["K5"] == want_launches,
+            "no other kernel": not any(v for k, v in launches.items()
+                                       if k != "K5"),
+            "no plain version on CUDA": not any(plain.values()),
+            "values finite": all(math.isfinite(x) for x in values),
+            "time 0..T-1": cols["time"] == list(range(T)),
+        }
+        if cmd == "energy":
+            checks["columns"] = list(cols) == [
+                "time", "energy_p_0", "energy_p_0.001", "energy_p_0.01",
+                "energy_p_0.1"]
+            checks["E(0)/L = (sum h + sum phi)/L"] = all(
+                abs(v[0] - e0["full"] / MAIN_L) <= 1e-5
+                for k, v in cols.items() if k != "time")
+        elif cmd == "ham-comparison":
+            checks["columns"] = list(cols) == ["time"] + [
+                f"energy_{c}" for c in e0]
+            checks["E(0)/L per component"] = all(
+                abs(cols[f"energy_{c}"][0] - e / MAIN_L) <= 1e-5
+                for c, e in e0.items())
+        else:
+            zs = [cols[f"z_q{q}"] for q in range(MAIN_L)]
+            checks["columns"] = list(cols) == ["time"] + [
+                f"z_q{q}" for q in range(MAIN_L)]
+            checks["z_q(0) = 1"] = all(abs(z[0] - 1) <= 1e-5 for z in zs)
+            checks["|z| <= 1"] = all(abs(x) <= 1 + 1e-5 for x in values)
+            if extra == ["--use_noise", "0"]:
+                checks["z_q(1) = cos(pi g) at p=0"] = all(
+                    abs(z[1] - math.cos(math.pi * g)) <= 1e-5 for z in zs)
+        total += launches["K5"]
+        first = [(k, round(v[0], 6), round(v[1], 6))
+                 for k, v in list(cols.items())[1:4]]
+        phase(f"[main] {what} L={MAIN_L} T={T} traj={N_TRAJ} in "
+              f"{seconds:.2f}s: launches={launches} t=0,1 of {first}")
+        fail_on(what, checks)
+        per = ", ".join(f"{k} {v[0]:.3f}" for k, v in log.seconds.items())
+        phase(f"[main] {what} seconds per sweep: {per} on {smi}")
+    return total
 
 
 def time_ms(fn, reps=3):
@@ -481,20 +686,20 @@ def timed_pair(kernel, plain, reps) -> tuple:
     return min(k_a, k_b), min(p_a, p_b), out, ref
 
 
-def bound(io_bytes, amp_steps, flops_per_amp_step) -> tuple:
+def bound(io_bytes, amp_steps, flops_per_amp_step, extra_ops=0) -> tuple:
     """(bound ms, what bounds it): the larger of the bytes that must move
     (inputs read once, outputs written once) over the HBM rate and the f32
     operations over the f32 peak."""
     t_bytes = io_bytes / HBM_BYTES_PER_S
-    t_ops = amp_steps * flops_per_amp_step / F32_FLOPS_PER_S
+    t_ops = (amp_steps * flops_per_amp_step + extra_ops) / F32_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
 def report(name, what, ms, plain_ms, amp_steps, unit, units, io_bytes,
-           flops, smi) -> dict:
+           flops, smi, extra_ops=0) -> dict:
     """Print one kernel's timing line; return its numbers."""
-    bound_ms, bound_by = bound(io_bytes, amp_steps, flops)
+    bound_ms, bound_by = bound(io_bytes, amp_steps, flops, extra_ops)
     floor_ms = amp_steps * 32 / HBM_BYTES_PER_S * 1e3
     gbps = amp_steps * 32 / (ms / 1e3) / 1e9
     phase(f"[timing] {name} {what}: kernel {ms:.3f} ms = "
@@ -569,6 +774,41 @@ def timing(dev, smi, err) -> dict:
                             f"steps={steps}", k_ms, p_ms, steps * N, "steps",
                             steps, 4 * (tiles.numel() + k.numel()),
                             14 * L + 12, smi)
+    del tiles
+    out.update(timing_obs(dev, smi, err))
+    return out
+
+
+def timing_obs(dev, smi, err) -> dict:
+    """K5 against its plain version at the energy path's shape (L=20, T=50,
+    32 trajectories, p=0.05, the full Hamiltonian), x and xy drives. Its
+    operations: K4's steps, (T-1) K per trajectory at 14 L + 6 per
+    amplitude, and the measure, T per trajectory at 5 + 2 k1 + 2 L per
+    amplitude, k1 = L - L // 2 (|psi|^2 3, the E accumulation 2, the z_q
+    sums of the k1 tile bits 2 k1: a high bit's z_q is the block's
+    probability times one sign; the x pairs 2 L: 4 flops per pair, 2^L / 2
+    pairs per bit)."""
+    from dtc_tpu_torch.ops import observables as ob
+
+    L, T, c = MAIN_L, MAIN_T, N_TRAJ
+    N = 1 << L
+    k1 = L - L // 2
+    out = {}
+    for pol in ("x", "xy"):
+        rows, erow, _, scale = obs_inputs(L, pol, "full", T, c, P, dev,
+                                          seed=9)
+        K = rows.shape[-2] // T
+        k_ms, p_ms, k, ref = timed_pair(
+            lambda: ob.observables_forward_batch(rows, erow, L=L, T=T),
+            lambda: ob.observables_forward_batch_ref(rows, erow, L=L, T=T),
+            1)
+        err["K5"] = max(err["K5"], held_obs(
+            f"K5 L=20 {pol} T=50 1x32 (timed inputs)", k, ref, L, scale))
+        io_bytes = 4 * (rows.numel() + c * 128 + sum(a.numel() for a in k))
+        out[f"K5 {pol}"] = report(
+            "K5", f"observables {pol} L=20 T=50 traj=32 steps/cycle={K}",
+            k_ms, p_ms, c * (T - 1) * K * N, "cycles", T * c, io_bytes,
+            14 * L + 6, smi, extra_ops=c * T * N * (5 + 2 * k1 + 2 * L))
     return out
 
 
@@ -581,15 +821,20 @@ def main() -> None:
     smi = card()
     dev = torch.device("cuda")
     build()
-    err = {"K1": 0.0, "K2": 0.0, "K4 forward": 0.0, "K4 echo": 0.0}
+    err = {"K1": 0.0, "K2": 0.0, "K4 forward": 0.0, "K4 echo": 0.0,
+           "K5": 0.0}
     compare_x(dev, err)
     compare_general(dev, err)
+    compare_obs(dev, err)
+    compare_eager(dev)
     launches = main_autocorr(smi)
     launches.update({k: v for k, v in main_polarization(smi).items()
                      if k.startswith("K4")})
     main_studies()
+    launches["K5"] = main_energy(smi)
     times = timing(dev, smi, err)
     times["K4 forward"] = times.pop("K4 forward xy")
+    times["K5"] = times.pop("K5 x")
     general = "dtc_tpu/ops/pallas_resident_general.py"
     kernels = [
         ("K1", "floquet_x_forward", "dtc_tpu_torch/csrc/floquet_x.cu",
@@ -602,6 +847,9 @@ def main() -> None:
         ("K4 echo", "floquet_general_echo",
          "dtc_tpu_torch/csrc/floquet_general.cu", f"{general}:166",
          f"{general}:334"),
+        ("K5", "floquet_general_observables",
+         "dtc_tpu_torch/csrc/floquet_general.cu",
+         "dtc_tpu/ops/pallas_observables.py:87", None),
     ]
     line = []
     for key, fn, src, where, also in kernels:

@@ -1,0 +1,67 @@
+"""Eager observables engine: energy E(t) and every <Z_q(t)> per trajectory.
+
+Port of ``dtc_tpu/core/evolve.py`` (``make_floquet_params``,
+``evolve_observables``). The reference's scan over cycles is a Python loop
+and its vmap over trajectories a batch dimension; its ``key`` becomes an
+injected block of uniforms laid out as the reference draws them,
+``uniform(key, (T, K, L))`` row-major, i.e. (..., T*K, L).
+
+It serves what the observables kernel (``ops/observables.py``, K5) does
+not: complex128, and every L or schedule length outside K5's range.
+``autocorr_forward`` and ``autocorr_echo`` are not ported here; they go
+with ``core/density.py`` (ROADMAP.md queue 1, item 1).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dtc_tpu_torch.core.sigma_evolve import _codes_from_uniform
+from dtc_tpu_torch.models.drives import slot_unitary
+from dtc_tpu_torch.ops.diag import zz_z_phase_mask
+from dtc_tpu_torch.ops.gates import expect_x, expect_z
+from dtc_tpu_torch.ops.kick import apply_uniform_1q_layer
+from dtc_tpu_torch.ops.paulis import apply_pauli_string, pauli_string_masks
+
+
+def make_floquet_params(hs, phis, L: int, *, dtype=torch.complex64):
+    """The fused diagonal phase mask of one instance, (2^L,)."""
+    return zz_z_phase_mask(hs[:L], phis[:L - 1], L, dtype=dtype)
+
+
+def evolve_observables(psi0, angles, diag_mask, diag_energy, x_coeff,
+                       uniforms, *, L: int, T: int, K: int, p: float,
+                       with_x: bool = True):
+    """Single-branch evolution emitting E(t) and <Z_q(t)>, t = 0..T-1.
+
+    psi0 (..., 2^L); angles (T, K, 2); diag_mask and diag_energy (2^L,) or
+    batched like the state; uniforms (..., T*K, L) f32, or None when
+    p == 0. Each cycle first measures
+        E = sum_s |psi_s|^2 diag_energy(s) + x_coeff * sum_q <X_q>
+    (the x term only if with_x)
+    and every <Z_q>, then (cycles t < T-1) applies the K kick slots, each
+    followed by its sampled Pauli string, and the diagonal. Returns
+    E (..., T) and zs (..., T, L) in the state's real dtype."""
+    if p > 0.0:
+        codes = _codes_from_uniform(uniforms, p).reshape(
+            *uniforms.shape[:-2], T, K, L)
+    state = psi0
+    energies, zs = [], []
+    for t in range(T):
+        probs = state.real ** 2 + state.imag ** 2
+        e = (probs * diag_energy).sum(-1)
+        if with_x:
+            xs = sum(expect_x(state, q, L) for q in range(L))
+            e = e + x_coeff * xs
+        energies.append(e)
+        zs.append(torch.stack([expect_z(state, q, L) for q in range(L)], -1))
+        if t == T - 1:  # the last cycle's kicks are never measured
+            break
+        for k in range(K):
+            u = slot_unitary(angles[t, k, 0], angles[t, k, 1], psi0.dtype)
+            state = apply_uniform_1q_layer(state, u, L)
+            if p > 0.0:
+                state = apply_pauli_string(
+                    state, *pauli_string_masks(codes[..., t, k, :]))
+        state = state * diag_mask
+    return torch.stack(energies, -1), torch.stack(zs, -2)

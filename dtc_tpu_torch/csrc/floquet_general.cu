@@ -1,11 +1,16 @@
 // Lab-frame Floquet kernels for Hopper (sm_90a), any kick schedule: forward
 // A(t) and echo A0(t) of the kicked-Ising chain under x, y, xy, yx,
-// circular and xy-cycle drives (K kick slots per cycle).
+// circular and xy-cycle drives (K kick slots per cycle), and the per-cycle
+// observables of the energy study.
 //
 // Replaces (one CUDA family for both, which differ only in TPU blocking)
 //   K4a dtc_tpu/ops/pallas_resident_general.py::_make_general_kernel
 //   K4b dtc_tpu/ops/pallas_resident_general.py::_make_general_kernel_blocked
 //   (entries general_forward_batch, general_echo_batch)
+// and
+//   K5 dtc_tpu/ops/pallas_observables.py::_make_obs_kernel
+//   (entry observables_forward_batch), as the entry
+//   floquet_general_observables; see the note above that entry.
 //
 // What is ported is the math, not the TPU design (no Karatsuba dots, no
 // in-kernel 128x128 group build, no P-packing). One step of a trajectory:
@@ -43,6 +48,7 @@
 namespace {
 
 constexpr int kMaxL = 32;
+constexpr int kMaxLo = 12;     // pass-lo tile bits L - L/2 for L <= 23 (K5)
 constexpr int kLaneMpos = 0;   // flag lanes, offset from FO = 4L-1
 constexpr int kLaneU8 = 2;
 constexpr int kLaneCount = 10;
@@ -162,10 +168,109 @@ __device__ __forceinline__ StepRows step_rows(const float* rows, int L,
   return r;
 }
 
-// Pass lo: [pre diagonal] then the kick on bits [0, k1).
+// K5's measure of one cycle, riding the passes of the cycle's first slot.
+// part: per trajectory (2 + L) lanes x nb block slots, zeroed by the
+// wrapper; lane 0 sum |psi|^2 E(s), lane 1 sum_q <X_q>, lane 2+q <Z_q>.
+// Pass-lo block b writes slot b of every lane; pass-hi block b adds its x
+// pairs to slot 2^(L-k1) + b of lane 1. The slots are summed in order by
+// reduce_kernel (floquet_common.cuh).
+struct Obs {
+  const float* erow;  // n x 128 energy rows: th [0, L), tph [L, 2L-1)
+  float* part;
+  int nb;             // 2^(L-k1) + 2^k1/kW slots per lane
+  int with_x;         // 0: no x pairs (lane 1 stays 0)
+  int apply;          // 0: measure only, no kick (the last cycle)
+};
+
+// Pass lo, before the kick: the block holds amplitudes (hi << k1) + i.
+// E(s) splits as in the diagonal: the high bits' part and the straddling
+// bond's sign are fixed per block. z_q of a high bit is the block's
+// probability times its sign; the x pairs of bits q < k1 lie in the tile.
+__device__ void measure_lo(const float2* tile, int L, int k1, int64_t hi,
+                           int pair, const Obs& o) {
+  __shared__ float th[kMaxL], tph[kMaxL];
+  __shared__ float red[kMaxLo + 3][kThreads / 32];
+  const float* e = o.erow + (int64_t)pair * kRowWidth;
+  for (int i = threadIdx.x; i < L; i += blockDim.x) {
+    th[i] = e[i];
+    if (i < L - 1) tph[i] = e[L + i];
+  }
+  __syncthreads();  // the tile and the coefficients are in place
+  const float e_hi = angle_bits(th, tph, hi, k1, L - k1);
+  const float cs = tph[k1 - 1] * zsign(hi, 0);
+  float acc[kMaxLo + 3];  // E, x pairs, probability, z_q for q < k1
+#pragma unroll
+  for (int j = 0; j < kMaxLo + 3; ++j) acc[j] = 0.0f;
+  for (int i = threadIdx.x; i < (1 << k1); i += blockDim.x) {
+    const float2 v = tile[i];
+    const float p = v.x * v.x + v.y * v.y;
+    acc[0] += p * (e_hi + angle_bits(th, tph, i, 0, k1)
+                   + cs * zsign(i, k1 - 1));
+    acc[2] += p;
+#pragma unroll
+    for (int q = 0; q < kMaxLo; ++q) {
+      if (q < k1) {
+        acc[3 + q] += p * zsign(i, q);
+        if (o.with_x && !((i >> q) & 1)) {
+          const float2 w = tile[i | (1 << q)];
+          acc[1] += v.x * w.x + v.y * w.y;
+        }
+      }
+    }
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < kMaxLo + 3; ++j) {
+    float x = acc[j];
+    for (int off = 16; off > 0; off >>= 1) {
+      x += __shfl_down_sync(0xffffffffu, x, off);
+    }
+    if (lane == 0) red[j][warp] = x;
+  }
+  __syncthreads();
+  float* part = o.part + (int64_t)pair * (2 + L) * o.nb + blockIdx.x;
+  for (int j = threadIdx.x; j < 2 + L; j += blockDim.x) {
+    const int q = j - 2;
+    const int src = j < 2 ? j : (q < k1 ? 3 + q : 2);
+    float sum = 0.0f;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) sum += red[src][w];
+    if (j == 1) sum *= 2.0f;  // <X_q> = 2 Re sum conj(psi_s) psi_{s^2^q}
+    if (j >= 2 && q >= k1) sum *= zsign(hi, q - k1);
+    part[(int64_t)j * o.nb] = sum;
+  }
+}
+
+// Pass hi, after the low kick and before the high one: the x pairs of the
+// bits q >= k1 (tile bits 2.., tile index h * kW + w). The low kick acts
+// on other qubits and commutes with these X_q, so <X_q> is still the
+// cycle's.
+__device__ void measure_hi(const float2* tile, int L, int n2, int pair,
+                           const Obs& o, float* red) {
+  float acc = 0.0f;
+  for (int i = threadIdx.x; i < (kW << n2); i += blockDim.x) {
+    const float2 v = tile[i];
+    for (int b = 2; b < n2 + 2; ++b) {
+      if (!((i >> b) & 1)) {
+        const float2 w = tile[i | (1 << b)];
+        acc += v.x * w.x + v.y * w.y;
+      }
+    }
+  }
+  const float tot = block_sum(acc, red);  // ends in __syncthreads
+  if (threadIdx.x == 0) {
+    o.part[((int64_t)pair * (2 + L) + 1) * o.nb + (1 << n2) + blockIdx.x] =
+        2.0f * tot;
+  }
+}
+
+// Pass lo: [pre diagonal] then the kick on bits [0, k1); with kObs, K5's
+// measure first.
+template <bool kObs>
 __global__ void pass_lo_kernel(float2* __restrict__ st, int L, int k1,
                                const float* __restrict__ rows,
-                               int64_t rows_per_pair, int step, int echo) {
+                               int64_t rows_per_pair, int step, int echo,
+                               Obs obs) {
   extern __shared__ float2 tile[];
   __shared__ float cz[kMaxL], cb[kMaxL], c0;
   __shared__ Mat2 mats[kMaxL];
@@ -177,6 +282,10 @@ __global__ void pass_lo_kernel(float2* __restrict__ st, int L, int k1,
   const int n = 1 << k1;
   float2* g = st + (int64_t)pair * N + (hi << k1);
   for (int i = threadIdx.x; i < n; i += blockDim.x) tile[i] = g[i];
+  if constexpr (kObs) {
+    measure_lo(tile, L, k1, hi, pair, obs);
+    if (!obs.apply) return;
+  }
   load_mats(r.kick, L, mats);
   if (r.pre != nullptr) {
     load_coeffs(r.pre, L, cz, cb, &c0);
@@ -196,12 +305,15 @@ __global__ void pass_lo_kernel(float2* __restrict__ st, int L, int k1,
 }
 
 // Pass hi: the kick on bits [k1, L), the (post) diagonal, and (forward, on
-// a row with MPOS >= 0) the partial sum of |psi|^2 z_q into
-// partials[(pair * T + MPOS) * nblk + bx].
+// a row with MPOS >= 0, when partials are given) the partial sum of
+// |psi|^2 z_q into partials[(pair * T + MPOS) * nblk + bx]; with kObs,
+// K5's high-bit x pairs first.
+template <bool kObs>
 __global__ void pass_hi_kernel(float2* __restrict__ st, int L, int k1,
                                const float* __restrict__ rows,
                                int64_t rows_per_pair, int step, int echo,
-                               int q, float* __restrict__ partials, int T) {
+                               int q, float* __restrict__ partials, int T,
+                               Obs obs) {
   extern __shared__ float2 tile[];  // [2^n2][kW]
   __shared__ float cz[kMaxL], cb[kMaxL], c0, th_lo[kW], red[kThreads / 32];
   __shared__ Mat2 mats[kMaxL];
@@ -219,12 +331,17 @@ __global__ void pass_hi_kernel(float2* __restrict__ st, int L, int k1,
   load_coeffs(r.post, L, cz, cb, &c0);
   load_mats(r.kick, L, mats);
   __syncthreads();
+  if constexpr (kObs) {
+    if (obs.with_x) measure_hi(tile, L, n2, pair, obs, red);
+    if (!obs.apply) return;
+  }
   if (threadIdx.x < kW) {
     th_lo[threadIdx.x] = c0 + angle_bits(cz, cb, o + threadIdx.x, 0, k1);
   }
   // tile index = h * kW + w: the high bits sit at tile bits [2, 2 + n2)
   kick_bits(tile, n2 + 2, 2, n2, mats + k1);  // ends in __syncthreads
-  const int mpos = echo ? -1 : (int)r.kick[4 * L - 1 + kLaneMpos];
+  const int mpos = (echo || partials == nullptr)
+                       ? -1 : (int)r.kick[4 * L - 1 + kLaneMpos];
   float acc = 0.0f;
   const bool zq_lo = q < k1;
   for (int h = threadIdx.x; h < (1 << n2); h += blockDim.x) {
@@ -254,27 +371,41 @@ __global__ void pass_hi_kernel(float2* __restrict__ st, int L, int k1,
   }
 }
 
-cudaError_t launch_step(float2* st, int L, const float* rows,
-                        int64_t rows_per_pair, int n_pairs, int step, int echo,
-                        int q, float* partials, int T, cudaStream_t stream) {
+// One step's two passes; with obs (K5, the first slot of a cycle) the
+// measuring instances, and no pass hi when it has nothing to do.
+template <bool kObs>
+cudaError_t launch_passes(float2* st, int L, const float* rows,
+                          int64_t rows_per_pair, int n_pairs, int step,
+                          int echo, int q, float* partials, int T,
+                          const Obs& obs, cudaStream_t stream) {
   const int k1 = lo_bits(L);
   const int n2 = L - k1;
   const size_t smem_lo = sizeof(float2) << k1;
   const size_t smem_hi = (sizeof(float2) * kW) << n2;
   cudaError_t e = cudaFuncSetAttribute(
-      pass_lo_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pass_lo_kernel<kObs>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_lo);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(pass_hi_kernel,
+  e = cudaFuncSetAttribute(pass_hi_kernel<kObs>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem_hi);
   if (e != cudaSuccess) return e;
-  pass_lo_kernel<<<dim3(1u << n2, n_pairs), kThreads, smem_lo, stream>>>(
-      st, L, k1, rows, rows_per_pair, step, echo);
-  pass_hi_kernel<<<dim3((1u << k1) / kW, n_pairs), kThreads, smem_hi,
-                   stream>>>(st, L, k1, rows, rows_per_pair, step, echo, q,
-                             partials, T);
+  pass_lo_kernel<kObs><<<dim3(1u << n2, n_pairs), kThreads, smem_lo,
+                         stream>>>(st, L, k1, rows, rows_per_pair, step, echo,
+                                   obs);
+  if (!kObs || obs.apply || obs.with_x) {
+    pass_hi_kernel<kObs><<<dim3((1u << k1) / kW, n_pairs), kThreads, smem_hi,
+                           stream>>>(st, L, k1, rows, rows_per_pair, step,
+                                     echo, q, partials, T, obs);
+  }
   return cudaGetLastError();
+}
+
+cudaError_t launch_step(float2* st, int L, const float* rows,
+                        int64_t rows_per_pair, int n_pairs, int step, int echo,
+                        int q, float* partials, int T, cudaStream_t stream) {
+  return launch_passes<false>(st, L, rows, rows_per_pair, n_pairs, step, echo,
+                              q, partials, T, Obs{}, stream);
 }
 
 }  // namespace
@@ -339,6 +470,65 @@ int floquet_general_echo(void* state, const void* tiles, void* partials,
   }
   return (int)measure_and_reduce(st, L, q, n_pairs, (float*)partials,
                                  (float*)out, stream);
+}
+
+// Sizes the wrapper allocates: block slots per lane of the K5 partials.
+int floquet_general_observables_slots(int L) {
+  return (1 << (L - lo_bits(L))) + (1 << lo_bits(L)) / kW;
+}
+
+// K5: per cycle t < T, the observables of the state before the cycle's
+// kicks, then (t < T-1) the cycle's K forward steps of K4 (the MPOS lane of
+// the rows is not read).
+//
+// What bounds it: the steps are K4's (two read+write sweeps of the state
+// per step, the butterflies' operations); the measure adds no sweep of its
+// own. It rides the passes of each cycle's first slot, which read the
+// state anyway: pass lo, before its kick, sums |psi|^2 E(s), |psi|^2 z_q
+// and the x pairs of the tile's low bits; pass hi, before its kick, the x
+// pairs of the high bits. The last cycle runs the two passes as a measure
+// only. Per cycle a fixed-order reduce turns the block slots into one row.
+//
+// state: n_traj x 2^L complex64 scratch; rows: n_traj x rows_per_traj x
+// 128 f32 (K4 forward rows, T*K of them); erow: n_traj x 128 f32 energy
+// rows; part: n_traj x (2+L) x floquet_general_observables_slots(L) f32,
+// zeroed; out: T x n_traj x (2+L) f32, lanes e_diag, x_sum, z_0..z_{L-1}
+// (x_sum = 0 when with_x == 0).
+int floquet_general_observables(void* state, const void* rows,
+                                const void* erow, void* part, void* out,
+                                int n_traj, int L, int rows_per_traj, int T,
+                                int with_x, int64_t b0, void* stream_ptr) {
+  if (lo_bits(L) > kMaxLo || L - lo_bits(L) < 1 || rows_per_traj % T != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  float2* st = (float2*)state;
+  const int64_t N = (int64_t)1 << L;
+  const int K = rows_per_traj / T;
+  const int nq = 2 + L;
+  init_kernel<<<dim3(256, n_traj), kThreads, 0, stream>>>(st, N, b0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  Obs obs{(const float*)erow, (float*)part,
+          floquet_general_observables_slots(L), with_x, 1};
+  const int64_t n_rows = (int64_t)n_traj * nq;
+  for (int t = 0; t < T; ++t) {
+    obs.apply = t < T - 1;
+    e = launch_passes<true>(st, L, (const float*)rows, rows_per_traj, n_traj,
+                            t * K, 0, 0, nullptr, T, obs, stream);
+    for (int k = 1; e == cudaSuccess && obs.apply && k < K; ++k) {
+      e = launch_step(st, L, (const float*)rows, rows_per_traj, n_traj,
+                      t * K + k, 0, 0, nullptr, T, stream);
+    }
+    if (e != cudaSuccess) return (int)e;
+    reduce_kernel<<<(unsigned)((n_rows + kThreads - 1) / kThreads), kThreads,
+                    0, stream>>>((const float*)part,
+                                 (float*)out + (int64_t)t * n_rows, n_rows,
+                                 obs.nb, 0, 0.0f);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
-"""Config-encoded file names of the autocorrelator results.
+"""Config-encoded file names of the autocorrelator and energy results.
 
-A copy of the autocorr names of ``dtc_tpu/io/naming.py``
+A copy of the autocorr and energy names of ``dtc_tpu/io/naming.py``
 (``autocorr_csv_name``, ``autocorr_comparison_csv_name``,
-``autocorr_folder_name``); the file name is the experiment's config key:
+``autocorr_folder_name``, ``energy_csv_name``, ``energy_folder_name``);
+the file name is the experiment's config key:
 autocorr_data_{state}_g{g}_L{L}_inst{inst}_tf{tf}_randomphi{r}_delta{d}
 _amplitude{A}_noise{p}_usenoise{u}[_pol{pol}][_with_envelopes].csv
 """
@@ -43,3 +44,11 @@ def autocorr_comparison_csv_name(cfg, with_envelopes: bool = True) -> str:
 def autocorr_folder_name(cfg) -> str:
     return (f"autocorr_data_L{cfg.L}_noiseprob{cfg.noise_prob}"
             f"_fakebackend{cfg.use_fakebackend}")
+
+
+def energy_csv_name(cfg) -> str:
+    return f"energy_data_{cfg.initial_state}_{_base(cfg)}_{_suffix(cfg)}.csv"
+
+
+def energy_folder_name(cfg) -> str:
+    return f"energy-data_L{cfg.L}-full-ham"

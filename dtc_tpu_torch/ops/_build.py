@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
 Each source ``dtc_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and
-is one library: ``floquet_x`` (K1/K2) and ``floquet_general`` (K4). A source
-is compiled at first use with nvcc for sm_90a into a shared library under
+is one library: ``floquet_x`` (K1/K2) and ``floquet_general`` (K4, K5). A
+source is compiled at first use with nvcc for sm_90a into a shared library
+under
 ``dtc_tpu_torch/csrc/build/`` (named by the hash of the source, the shared
 headers ``csrc/*.cuh`` and the flags, so an edit rebuilds) and loaded with
 ``ctypes``. This takes seconds; ``torch.utils.cpp_extension.load`` would
@@ -47,6 +48,9 @@ LIBRARIES = {
                                     _I32, _I32, _I32, _I64, _VP],
         "floquet_general_echo": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32,
                                  _I32, _I64, _VP],
+        "floquet_general_observables_slots": [_I32],
+        "floquet_general_observables": [_VP, _VP, _VP, _VP, _VP, _I32, _I32,
+                                        _I32, _I32, _I32, _I64, _VP],
     },
 }
 

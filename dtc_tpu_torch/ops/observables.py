@@ -1,0 +1,151 @@
+"""Per-cycle observables of lab-frame trajectories (kernel K5).
+
+Port of ``dtc_tpu/ops/pallas_observables.py``
+(``observables_forward_batch``). Its Pallas kernel (``_make_obs_kernel``)
+becomes a third entry of the hand-written CUDA family of K4,
+``csrc/floquet_general.cu`` (``floquet_general_observables``), which reuses
+K4's forward step; beside it is the plain PyTorch version
+``observables_forward_batch_ref``, which consumes the same rows and
+computes the same algebra with tensor ops.
+
+Inputs: K4's forward step rows (``ops/params_general.py``,
+``general_forward_rows``, unchanged: the MPOS lane is not read) and one
+energy row per trajectory (``energy_row``): th at lanes [0, L), tph at
+[L, 2L-1), the component-selected Hamiltonian terms, not the evolution's h
+and phi. Per trajectory and cycle t = 0..T-1, on the state before the
+cycle's kicks:
+    e_diag(t) = sum_s |psi_s|^2 E(s),
+        E(s) = sum_q th_q z_q(s) + sum_b tph_b z_b(s) z_{b+1}(s),
+    z_q(t)    = sum_s |psi_s|^2 z_q(s),
+    x_sum(t)  = sum_q 2 Re sum_{s: bit q = 0} conj(psi_s) psi_{s ^ 2^q}
+                (with_x; 0 otherwise),
+then, for t < T-1, the cycle's K steps of K4 (kick X_m U^{(x)L}, then the
+row's diagonal). The caller forms E = e_diag + x_coeff * x_sum.
+
+A tensor on the CPU goes to the plain version; a CUDA tensor launches the
+kernel or raises. The entry counts its launches in ``LAUNCHES``; the plain
+version counts the calls it gets on CUDA tensors in ``PLAIN_ON_CUDA``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dtc_tpu_torch.core.statevector import basis_index
+from dtc_tpu_torch.ops.gates import expect_x
+from dtc_tpu_torch.ops.params import WIDTH
+from dtc_tpu_torch.ops.resident_blocked import (
+    angle_table,
+    apply_phase,
+    basis_states,
+    batch_size,
+    check_cuda_input,
+    raise_on,
+    route,
+)
+from dtc_tpu_torch.ops.resident_general import (
+    MAX_L,
+    MAX_STEPS,
+    MIN_L,
+    _kick,
+    _row_angles,
+)
+
+LAUNCHES = {"observables": 0}
+PLAIN_ON_CUDA = {"observables": 0}
+
+
+def reset_counters() -> None:
+    for d in (LAUNCHES, PLAIN_ON_CUDA):
+        for k in d:
+            d[k] = 0
+
+
+def check_range(L: int, T: int, steps: int) -> None:
+    """Raise ValueError outside the kernel's range: 14 <= L <= 23,
+    1 <= steps (T*K rows per trajectory) <= MAX_STEPS, K whole."""
+    if not (MIN_L <= L <= MAX_L):
+        raise ValueError(f"observables kernel supports {MIN_L} <= L <= "
+                         f"{MAX_L} (got L={L})")
+    if not (1 <= steps <= MAX_STEPS):
+        raise ValueError(f"observables kernel supports 1 <= T*K <= "
+                         f"{MAX_STEPS} (got {steps})")
+    if T < 1 or steps % T:
+        raise ValueError(f"{steps} step rows are not K per cycle for T={T}")
+
+
+def energy_row(th, tph, L: int) -> torch.Tensor:
+    """(..., L) th and (..., L-1) tph -> (..., 128) f32 energy rows."""
+    th, tph = torch.as_tensor(th), torch.as_tensor(tph)
+    lead = torch.broadcast_shapes(th.shape[:-1], tph.shape[:-1])
+    row = torch.zeros((*lead, WIDTH), dtype=torch.float32, device=th.device)
+    row[..., :L] = th[..., :L]
+    row[..., L:2 * L - 1] = tph[..., :L - 1]
+    return row
+
+
+def _split_out(out: torch.Tensor):
+    """(..., T, 2+L) rows -> (e_diag, x_sum, zs)."""
+    return out[..., 0], out[..., 1], out[..., 2:]
+
+
+def observables_forward_batch_ref(rows, erow, *, L, T,
+                                  initial_state="vacuum", with_x=True):
+    """Plain version of ``observables_forward_batch`` (same arguments)."""
+    if rows.is_cuda:
+        PLAIN_ON_CUDA["observables"] += 1
+    batch, S = rows.shape[:-2], rows.shape[-2]
+    check_range(L, T, S)
+    rows = rows.reshape(-1, S, rows.shape[-1]).to(torch.float32)
+    n, dev, K = rows.shape[0], rows.device, S // T
+    coef = erow.to(dev, torch.float32).expand(*batch, WIDTH).reshape(n, WIDTH)
+    coef = coef[:, :2 * L - 1]
+    table = angle_table(L, dev)
+    state = basis_states(n, L, basis_index(L, initial_state), dev)
+    out = torch.zeros((n, T, 2 + L), dtype=torch.float32, device=dev)
+    for t in range(T):
+        # marginals of z_q and z_b z_{b+1}: the z_q and, weighted, e_diag
+        m = (state.real ** 2 + state.imag ** 2) @ table.T
+        out[:, t, 0] = (m * coef).sum(-1)
+        out[:, t, 2:] = m[:, :L]
+        if with_x:
+            out[:, t, 1] = sum(expect_x(state, q, L) for q in range(L))
+        if t == T - 1:
+            break
+        for r in rows[:, t * K:(t + 1) * K].unbind(1):
+            state = apply_phase(_kick(state, r, L), _row_angles(r, L, table))
+    return _split_out(out.reshape(*batch, T, 2 + L))
+
+
+def observables_forward_batch(rows, erow, *, L, T, initial_state="vacuum",
+                              with_x=True):
+    """(..., T*K, 128) K4 forward rows and (..., 128) energy rows (any
+    shape that broadcasts to the rows' batch) -> e_diag (..., T),
+    x_sum (..., T), zs (..., T, L), f32.
+
+    CPU tensors take the plain version; CUDA tensors launch kernel K5."""
+    if route(rows, "observables") == "plain":
+        return observables_forward_batch_ref(rows, erow, L=L, T=T,
+                                             initial_state=initial_state,
+                                             with_x=with_x)
+    check_cuda_input("rows", rows, 2, WIDTH)
+    batch, S = rows.shape[:-2], rows.shape[-2]
+    check_range(L, T, S)
+    n = batch_size(batch, "observables")
+    from dtc_tpu_torch.ops import _build
+
+    lib = _build.load("floquet_general")
+    dev = rows.device
+    coef = erow.to(dev, torch.float32).expand(*batch, WIDTH).contiguous()
+    state = torch.empty((n, 1 << L), dtype=torch.complex64, device=dev)
+    part = torch.zeros((n, 2 + L, lib.floquet_general_observables_slots(L)),
+                       dtype=torch.float32, device=dev)
+    out = torch.empty((T, n, 2 + L), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.floquet_general_observables(
+        state.data_ptr(), rows.data_ptr(), coef.data_ptr(), part.data_ptr(),
+        out.data_ptr(), n, L, S, T, int(bool(with_x)),
+        basis_index(L, initial_state), stream)
+    LAUNCHES["observables"] += 1
+    raise_on(err, "floquet_general_observables")
+    return _split_out(out.transpose(0, 1).reshape(*batch, T, 2 + L))

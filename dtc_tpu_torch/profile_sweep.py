@@ -6,7 +6,9 @@ the K1/K2 path; y, xy, yx, circular_* and xy_cycle take K4):
 
 - ``forward``: three ``_forward_batch`` dispatches of 32 trajectories, each
   copied to the host as ``bench.py`` does;
-- ``echo``: the ``autocorr`` echo sweep of 2 instances x 32 trajectories.
+- ``echo``: the ``autocorr`` echo sweep of 2 instances x 32 trajectories;
+- ``energy_level``: one noise level (p=0.05, the full Hamiltonian) of the
+  ``energy`` sweep on 1 instance x 32 trajectories (K5 on its range).
 
 For each it prints one JSON line: the wall ms, the device-busy ms (the union
 of the intervals of every device event, kernels and copies), the idle share
@@ -23,11 +25,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import time
 
 import torch
 
 from dtc_tpu_torch.core.sigma_evolve import draw_uniforms
+from dtc_tpu_torch.experiments import energy
 from dtc_tpu_torch.experiments.engine import (
     _forward_batch,
     build_context,
@@ -43,10 +47,15 @@ L, T, P, G, N_TRAJ, INST = 20, 50, 0.05, 0.97, 32, 2
 
 def short_name(name: str) -> str:
     """A kernel's name without its namespace prefix, template arguments and
-    parameter list: ``void ns::k<...>(float*, ...)`` -> ``ns::k``."""
+    parameter list: ``void ns::k<...>(float*, ...)`` -> ``ns::k``; a single
+    bool template argument stays (``k<true>``: the port's passes that
+    measure, against ``k<false>``)."""
     name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
     cut = [i for i in (name.find("<"), name.find("(")) if i > 0]
-    return name[:min(cut)].strip() if cut else name
+    if not cut:
+        return name
+    flag = re.match(r"<(true|false)>", name[min(cut):])
+    return name[:min(cut)].strip() + (flag.group(0) if flag else "")
 
 
 def busy_summary(events, top: int = 6) -> dict:
@@ -133,6 +142,12 @@ def main(argv=None) -> None:
     traced(f"echo_sweep{tag}",
            lambda: echo_sweep(cfg, sched, params, noise), args.out,
            engine=engine)
+    cfg1 = cfg.replace(inst=1)
+    sweep = energy._sweep(cfg1, hs[:1], phis[:1], dev, None)
+    energy._energy_single_noise(cfg1, sweep, P)  # first launch: untraced
+    traced(f"energy_level{tag}",
+           lambda: energy._energy_single_noise(cfg1, sweep, P), args.out,
+           engine=energy.energy_engine(cfg1, sched.K))
 
 
 if __name__ == "__main__":

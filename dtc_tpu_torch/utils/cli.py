@@ -1,5 +1,5 @@
-"""CLI of the port:
-``python -m dtc_tpu_torch {autocorr,polarization,shots,xy-cycle,bench}``.
+"""CLI of the port: ``python -m dtc_tpu_torch {autocorr,polarization,shots,
+xy-cycle,energy,ham-comparison,per-qubit-z,bench}``.
 
 Port of those subcommands of ``dtc_tpu/utils/cli.py``, with its flag
 vocabulary (``add_common_flags`` and ``config_from_args`` are copies), plus
@@ -64,6 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
         ("polarization", "x/y/xy/yx comparison with envelopes"),
         ("shots", "echo vs shot-count convergence study"),
         ("xy-cycle", "XY-alternating vs pure-X comparison"),
+        ("energy", "energy sweep over noise probabilities"),
+        ("ham-comparison", "component-Hamiltonian energy comparison"),
+        ("per-qubit-z", "per-qubit <Z_i(t)> sweep"),
     ]:
         p = sub.add_parser(name, help=hlp)
         add_common_flags(p)
@@ -82,6 +85,19 @@ def build_parser() -> argparse.ArgumentParser:
         "--polarizations", type=str, default="x,y,xy,yx")
     sub.choices["shots"].add_argument(
         "--shots_list", type=str, default="100,1000,10000,100000,1000000")
+    for name in ("energy", "ham-comparison"):
+        # BackendEstimatorV2 precision=1/sqrt(shots) emulation
+        sub.choices[name].add_argument(
+            "--estimator_shots", type=int, default=None,
+            help="gaussian estimator sampling noise with sigma ="
+                 " 1/sqrt(shots); 0 = exact")
+    p = sub.choices["energy"]
+    p.add_argument("--nprobs", type=str, default="0,0.001,0.01,0.1")
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="journal path for crash-safe resume")
+    p.add_argument("--sharded", action="store_true",
+                   help="amplitude-shard over all devices (not ported)")
+    p.add_argument("--n_amp", type=int, default=None)
     p = sub.add_parser("bench", help="headline benchmark on the GPU")
     p.add_argument("--device", type=str, default="cuda")
     return ap
@@ -98,16 +114,16 @@ def main(argv=None) -> int:
 
         bench.main(device=args.device)
         return 0
-    from dtc_tpu_torch.experiments import autocorr
+    from dtc_tpu_torch.experiments import autocorr, energy
 
     cfg = config_from_args(args)
     kw = dict(device=args.device, out_dir=args.out_dir,
               disorder_dir=args.disorder_dir)
+    if getattr(args, "sharded", False) or getattr(args, "n_amp", None):
+        raise NotImplementedError(
+            "--sharded / --n_amp (amplitude sharding) is not ported yet:"
+            " ROADMAP.md queue 1, item 7")
     if args.command == "autocorr":
-        if args.sharded or args.n_amp:
-            raise NotImplementedError(
-                "--sharded / --n_amp (amplitude sharding) is not ported yet:"
-                " ROADMAP.md queue 1, item 7")
         if args.emit_gate_counts:
             raise NotImplementedError(
                 "--emit_gate_counts is not ported yet: ROADMAP.md queue 1,"
@@ -121,6 +137,14 @@ def main(argv=None) -> int:
         r = autocorr.run_shots_study(
             cfg, shots_list=[int(s) for s in args.shots_list.split(",")],
             **kw)
+    elif args.command == "energy":
+        r = energy.run_energy(
+            cfg, nprobs=[float(s) for s in args.nprobs.split(",")],
+            checkpoint_path=args.checkpoint, **kw)
+    elif args.command == "ham-comparison":
+        r = energy.run_ham_comparison(cfg, **kw)
+    elif args.command == "per-qubit-z":
+        r = energy.run_per_qubit_z(cfg, **kw)
     else:
         r = autocorr.run_xy_cycle_comparison(cfg, **kw)
     print(f"wrote {r['csv_path']}")

@@ -20,8 +20,9 @@ def test_no_module_of_the_port_loads_jax():
     names = [m.name for m in pkgutil.walk_packages(
         dtc_tpu_torch.__path__, "dtc_tpu_torch.")
         if m.name != "dtc_tpu_torch.__main__"]
-    assert "dtc_tpu_torch.ops.resident_general" in names
-    assert "dtc_tpu_torch.io.disorder" in names
+    for module in ("ops.resident_general", "io.disorder", "experiments.energy",
+                   "ops.observables", "utils.checkpoints"):
+        assert f"dtc_tpu_torch.{module}" in names
     code = ("import importlib, sys\n"
             f"for n in {names + ['chip_smoke']!r}:\n"
             "    importlib.import_module(n)\n"
@@ -65,4 +66,14 @@ def test_unported_autocorr_flags_raise(flag, tmp_path):
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["autocorr", "--device", "cpu", "--L", "4", "--tf", "2",
+              "--out_dir", str(tmp_path), *flag])
+
+
+@pytest.mark.parametrize("flag", [["--sharded"], ["--n_amp", "2"]])
+def test_unported_energy_flags_raise(flag, tmp_path):
+    from dtc_tpu_torch.utils.cli import main
+
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1, item 7"):
+        main(["energy", "--device", "cpu", "--L", "4", "--tf", "2",
               "--out_dir", str(tmp_path), *flag])

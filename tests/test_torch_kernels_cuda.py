@@ -1,12 +1,14 @@
-"""CUDA kernels K1/K2 (constant x) and K4 (lab frame, any drive) against
-their plain versions, on the card.
+"""CUDA kernels K1/K2 (constant x), K4 (lab frame, any drive) and K5
+(per-cycle observables) against their plain versions, on the card.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one. They import neither jax nor ``tests/conftest.py``'s setup, so
 on a machine with a card and no jax they run as
 ``python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py``.
 Tolerance 1e-4: f32 sums over 2^L amplitudes in another order than the
-plain version's.
+plain version's; K5's energy sums reach sum|th| + sum|tph| (tens at L=20)
+and its x sum L, so e_diag is held to 1e-4 * (sum|th| + sum|tph|) and
+x_sum to 1e-4 * L.
 """
 
 import numpy as np
@@ -14,9 +16,12 @@ import pytest
 import torch
 
 from dtc_tpu_torch.experiments.autocorr import run_autocorr
+from dtc_tpu_torch.experiments.energy import run_energy
+from dtc_tpu_torch.models.hamiltonian import hamiltonian_terms
 from dtc_tpu_torch.io.disorder import generate_disorder
 from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.ops import resident_blocked as rb
+from dtc_tpu_torch.ops import observables as obs
 from dtc_tpu_torch.ops import resident_general as rg
 from dtc_tpu_torch.ops.params import echo_pair_tiles, forward_rows
 from dtc_tpu_torch.ops.params_general import (
@@ -211,3 +216,108 @@ def test_general_autocorr_on_card_runs_k4_and_matches_cpu(cuda_device, pol):
     ref = run_autocorr(cfg, device="cpu", write=False, uniforms=u)
     for k in ("autocorr_per_instance", "echo_per_instance"):
         np.testing.assert_allclose(got[k], ref[k], atol=TOL, rtol=0)
+
+
+OBS_CASES = [(14, "x", "vacuum", "full", 0.0),
+             (14, "circular_left", "neel", "x_only", 0.3),
+             (17, "y", "neel", "z_zz", 0.3), (17, "xy", "vacuum", "full", 0.3),
+             (20, "x", "vacuum", "full", 0.3),
+             (20, "xy", "neel", "x_only", 0.0),
+             (23, "y", "vacuum", "full", 0.3),
+             (23, "circular_left", "vacuum", "z_zz", 0.0)]
+
+
+def _obs_inputs(device, L, pol, component, p, T, inst=1, n=2):
+    hs, phis = generate_disorder(L, inst, seed=7)
+    hs = torch.as_tensor(hs[:, :L], device=device)
+    phis = torch.as_tensor(phis[:, :L - 1], device=device)
+    terms = [hamiltonian_terms(L, 0.97, hs[i], phis[i], component)
+             for i in range(inst)]
+    angles = build_kick_schedule(pol, 0.97, T, device=device).angles
+    K = angles.shape[1]
+    gen = torch.Generator(device=device).manual_seed(L)
+    u = torch.rand((inst, n, T * K, L), generator=gen, device=device)
+    rows = general_forward_rows(u, hs[:, None], phis[:, None], angles, L=L,
+                                T=T, K=K, p=p)
+    erow = obs.energy_row(torch.stack([t.hs for t in terms]),
+                          torch.stack([t.phis for t in terms]), L)[:, None]
+    scale = float(max(t.hs.abs().sum() + t.phis.abs().sum() for t in terms))
+    return rows, erow, terms[0].x_coeff != 0.0, scale
+
+
+def _held_obs(k, ref, L, scale):
+    for name, a, b, tol in zip(("e_diag", "x_sum", "zs"), k, ref,
+                               (TOL * scale, TOL * L, TOL)):
+        assert float((a - b).abs().max()) <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,pol,state,component,p", OBS_CASES)
+def test_observables_kernel_matches_plain_on_card(cuda_device, L, pol, state,
+                                                  component, p):
+    T = 4 if L < 23 else 3
+    rows, erow, with_x, scale = _obs_inputs(cuda_device, L, pol, component,
+                                            p, T)
+    launches = obs.LAUNCHES["observables"]
+    k = obs.observables_forward_batch(rows, erow, L=L, T=T,
+                                      initial_state=state, with_x=with_x)
+    torch.cuda.synchronize()
+    assert obs.LAUNCHES["observables"] == launches + 1
+    ref = obs.observables_forward_batch_ref(rows, erow, L=L, T=T,
+                                            initial_state=state,
+                                            with_x=with_x)
+    _held_obs(k, ref, L, scale)
+    if not with_x:
+        assert not k[1].any()
+
+
+@pytest.mark.cuda
+def test_observables_kernel_two_instances_equal_single_calls(cuda_device):
+    L, T = 17, 3
+    rows, erow, _, scale = _obs_inputs(cuda_device, L, "xy", "full", 0.3, T,
+                                       inst=2)
+    both = obs.observables_forward_batch(rows, erow, L=L, T=T)
+    for i in range(2):
+        one = obs.observables_forward_batch(rows[i:i + 1], erow[i:i + 1],
+                                            L=L, T=T)
+        _held_obs([a[i:i + 1] for a in both], one, L, scale)
+        ref = obs.observables_forward_batch_ref(rows[i:i + 1],
+                                                erow[i:i + 1], L=L, T=T)
+        _held_obs(one, ref, L, scale)
+
+
+@pytest.mark.cuda
+def test_observables_wrapper_rejects_out_of_range(cuda_device):
+    erow = torch.zeros((1, 128), device=cuda_device)
+    for L in (13, 24):
+        with pytest.raises(ValueError, match="supports"):
+            obs.observables_forward_batch(
+                torch.zeros((1, 3, 128), device=cuda_device), erow, L=L, T=3)
+    with pytest.raises(ValueError, match="float32"):
+        obs.observables_forward_batch(
+            torch.zeros((1, 3, 128), device=cuda_device).double(), erow,
+            L=14, T=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,dtype", [(14, "complex64"), (8, "complex64"),
+                                     (8, "complex128")])
+def test_energy_on_card_matches_cpu(cuda_device, L, dtype):
+    """The same uniforms through the card and the CPU: at L=14 complex64
+    K5 against its plain version, else the eager engine on both."""
+    cfg = SimConfig(L=L, tf=4, inst=1, n_trajectories=3, noise_prob=0.2,
+                    polarization="xy", dtype=dtype)
+    hs, phis = generate_disorder(L, 1, seed=4)
+    u = np.random.default_rng(0).random((1, 3, 8, L), dtype=np.float32)
+    obs.reset_counters()
+    kw = dict(nprobs=(0.0, 0.2), write=False, uniforms=u)
+    got = run_energy(cfg, hs, phis, device="cuda", **kw)
+    assert obs.LAUNCHES["observables"] == (2 if L == 14 else 0)
+    assert obs.PLAIN_ON_CUDA == {"observables": 0}
+    ref = run_energy(cfg, hs, phis, device="cpu", **kw)
+    scale = (np.abs(hs[0, :L]).sum() + np.abs(phis[0, :L - 1]).sum()) / L
+    for p in (0, 0.2):
+        np.testing.assert_allclose(got[f"energy_p_{p}"], ref[f"energy_p_{p}"],
+                                   atol=TOL * scale, rtol=0)
+        np.testing.assert_allclose(got["per_qubit_z"][p],
+                                   ref["per_qubit_z"][p], atol=TOL, rtol=0)

@@ -42,6 +42,10 @@ def test_top_kernels_and_other():
      "(at::native::ReduceOp<float>)", "at::native::reduce_kernel"),
     ("Memcpy DtoH (Device -> Pageable)", "Memcpy DtoH"),
     ("plain", "plain"),
+    ("void (anonymous namespace)::pass_lo_kernel<true>(float2*, int, int, "
+     "(anonymous namespace)::Obs)", "pass_lo_kernel<true>"),
+    ("void (anonymous namespace)::pass_hi_kernel<false>(float2*, int)",
+     "pass_hi_kernel<false>"),
 ])
 def test_short_name(raw, short):
     assert short_name(raw) == short
