@@ -13,7 +13,14 @@ each; any failure raises and the script exits non-zero without a result:
    chunks; K4 forward on 32 trajectories of the xy drive at T=50; K4 echo
    on the xy echo sweep's last two chunks; K5 on 32 trajectories of the x
    drive at T=50, p=0.1); and the eager observables engine on the card
-   against the same call on the CPU (L=12, complex64 and complex128);
+   against the same call on the CPU (L=12, complex64 and complex128); the
+   streamed x family (K6/K7) against its plain version at L=22, 24 (two
+   passes), 26 and 28 (three), probes q = 0, L//2, L-1, vacuum and neel, and
+   against K1/K2 on the same rows at L=22 and 23; at L=30 value anchors:
+   A(1) = cos(pi g) within 1e-5 from the vacuum at p=0 for q = 0, 15, 29,
+   the noiseless echo = 1 within 1e-4 at t=1..3, and a noisy forward
+   (p=0.05, T=8) finite with |A| <= 1 (the plain comparison at L=30 is in
+   the timing phase, on the main path's own shapes);
 4. main paths, each through the CLI's ``main(argv)`` with every launch
    count set to 0 just before it and read just after:
    ``autocorr --device cuda`` (x drive: K1/K2) at L=20, T=50, 2 instances x
@@ -25,11 +32,17 @@ each; any failure raises and the script exits non-zero without a result:
    ``energy``, ``ham-comparison`` and ``per-qubit-z`` at L=20, T=50, 32
    trajectories, ``per-qubit-z`` without noise, and ``per-qubit-z`` of the
    xy drive at T=20, with checks on their CSVs (E(0), z(0), z(1) at p=0);
+   then the large-L x path: ``autocorr --device cuda`` at L=28 (T=20, 4
+   trajectories) and L=30 (T=6, 1 trajectory), engine=streamed for both
+   sweeps, the streamed kernels launched, no plain version on CUDA;
 5. timing: the bench shape (``dtc_tpu_torch/bench.py::run_case``) and every
    kernel against its plain version on identical inputs, whose outputs are
-   held to the same bound; each kernel's bound: the larger of its bytes
-   (inputs read once, outputs written once) over 3.35 TB/s and its f32
-   operations over 67 TFLOP/s (the H100 SXM's published peaks);
+   held to the same bound (the streamed family: forward at L=24, 26, 28 and
+   30, echo at L=28 and 30, with the plain version's peak device memory,
+   and against K1 on the same L=23 rows); each kernel's bound: the larger
+   of its bytes (inputs read once, outputs written once) over 3.35 TB/s and
+   its f32 operations over 67 TFLOP/s (the H100 SXM's published peaks), and
+   its state floor (16 B per amplitude per pass and step, 2 or 3 passes);
 6. a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -375,6 +388,82 @@ def compare_eager(dev) -> None:
                                "disagrees with the CPU")
 
 
+def compare_streamed(dev, err) -> None:
+    """The streamed x family against its plain version (two passes at
+    L <= 24, three above), and against K1/K2 on the same rows at L=22, 23;
+    its launches here are not the main path's."""
+    from dtc_tpu_torch.ops import resident_blocked as rb
+    from dtc_tpu_torch.ops import streamed as sm
+
+    for i, L in enumerate((22, 24, 26, 28)):
+        c, T = (2, 8) if L < 28 else (1, 4)
+        for j, q in enumerate((0, L // 2, L - 1)):
+            state = ("vacuum", "neel")[(i + j) % 2]
+            rows, sig = forward_inputs(L, T, c, 0.1, dev, seed=L + q)
+            d, _ = against_plain(
+                f"K6 forward L={L} T={T} {state} q={q} 1x{c}",
+                sm.streamed_forward_batch, sm.streamed_forward_batch_ref,
+                (rows, sig, THETA), dict(L=L, q=q, initial_state=state))
+            err["K6 forward"] = max(err["K6 forward"], d)
+        q = (L // 2, L - 1, 0, L // 2)[i]
+        state = ("neel", "vacuum")[i % 2]
+        for p in (0.6, 0.0):
+            tiles, sig = echo_inputs(L, 4, 1, p, [1, 2, 3, 4], dev, seed=L)
+            d, k = against_plain(
+                f"K6 echo L={L} ts=1..4 p={p} {state} q={q}",
+                sm.streamed_echo_batch, sm.streamed_echo_batch_ref,
+                (tiles, sig, THETA), dict(L=L, q=q, initial_state=state))
+            if p == 0.0 and not float((k - 1).abs().max()) <= TOL:
+                raise RuntimeError(f"noiseless echo != 1: {k.tolist()}")
+            err["K6 echo"] = max(err["K6 echo"], d)
+            del tiles
+    for L in (22, 23):
+        rows, sig = forward_inputs(L, 8, 4, 0.1, dev, seed=L)
+        kw = dict(L=L, q=L // 2)
+        err["K6 forward"] = max(err["K6 forward"], held(
+            f"K6 forward vs K1 L={L} T=8 1x4",
+            sm.streamed_forward_batch(rows, sig, THETA, **kw),
+            rb.blocked_forward_batch(rows, sig, THETA, **kw)))
+        tiles, sig = echo_inputs(L, 4, 2, 0.6, [1, 2, 3, 4], dev, seed=L)
+        err["K6 echo"] = max(err["K6 echo"], held(
+            f"K6 echo vs K2 L={L} ts=1..4 p=0.6 1x2",
+            sm.streamed_echo_batch(tiles, sig, THETA, **kw),
+            rb.blocked_echo_batch(tiles, sig, THETA, **kw)))
+
+
+def anchors_l30(dev) -> None:
+    """L=30, 8 GiB a state: values the physics fixes, which a wrapped 32-bit
+    offset would break."""
+    from dtc_tpu_torch.ops import streamed as sm
+    from dtc_tpu_torch.ops.params import forward_rows
+
+    L = 30
+    hs, phis = disorder(L, dev)
+    rows, sig = forward_rows(None, hs[:, None], phis[:, None], L=L, T=2,
+                             p=0.0, batch=(1, 1))
+    for q in (0, 15, L - 1):
+        a = sm.streamed_forward_batch(rows, sig, THETA, L=L, q=q)
+        d = abs(float(a[0, 0, 1]) - math.cos(THETA))
+        phase(f"[anchor] L=30 forward p=0 vacuum q={q}: A(1) = "
+              f"{float(a[0, 0, 1]):.7f}, |A(1) - cos(pi g)| = {d:.3e}")
+        if not d <= 1e-5:
+            raise RuntimeError(f"L=30 A(1) at q={q} is not cos(pi g)")
+    tiles, sig = echo_inputs(L, 3, 1, 0.0, [1, 2, 3], dev, seed=30)
+    e = sm.streamed_echo_batch(tiles, sig, THETA, L=L, q=15)
+    d = float((e - 1).abs().max())
+    phase(f"[anchor] L=30 noiseless echo t=1..3 q=15: {e.flatten().tolist()},"
+          f" max|A0 - 1| = {d:.3e}")
+    if not d <= TOL:
+        raise RuntimeError("L=30 noiseless echo != 1")
+    del tiles
+    rows, sig = forward_inputs(L, 8, 1, P, dev, seed=31)
+    a = sm.streamed_forward_batch(rows, sig, THETA, L=L, q=15)
+    vals = a.flatten().tolist()
+    phase(f"[anchor] L=30 forward p={P} T=8 q=15: {[round(x, 6) for x in vals]}")
+    if not all(math.isfinite(x) and abs(x) <= 1 + 1e-5 for x in vals):
+        raise RuntimeError("L=30 noisy forward not finite or |A| > 1")
+
+
 class SweepLog(logging.Handler):
     """Seconds of each ``phase_timer`` phase, and the (sweep, engine,
     polarization) of each sweep, from the port's log."""
@@ -417,6 +506,7 @@ def run_cli(argv) -> tuple:
     from dtc_tpu_torch.ops import observables as ob
     from dtc_tpu_torch.ops import resident_blocked as rb
     from dtc_tpu_torch.ops import resident_general as rg
+    from dtc_tpu_torch.ops import streamed as sm
     from dtc_tpu_torch.utils.cli import main as cli_main
 
     log = SweepLog()
@@ -425,6 +515,7 @@ def run_cli(argv) -> tuple:
     rb.reset_counters()
     rg.reset_counters()
     ob.reset_counters()
+    sm.reset_counters()
     t0 = time.perf_counter()
     try:
         rc = cli_main(argv)
@@ -435,10 +526,13 @@ def run_cli(argv) -> tuple:
     launches = {"K1": rb.LAUNCHES["forward"], "K2": rb.LAUNCHES["echo"],
                 "K4 forward": rg.LAUNCHES["forward"],
                 "K4 echo": rg.LAUNCHES["echo"],
-                "K5": ob.LAUNCHES["observables"]}
+                "K5": ob.LAUNCHES["observables"],
+                "K6 forward": sm.LAUNCHES["forward"],
+                "K6 echo": sm.LAUNCHES["echo"]}
     plain = {**{f"x {k}": v for k, v in rb.PLAIN_ON_CUDA.items()},
              **{f"general {k}": v for k, v in rg.PLAIN_ON_CUDA.items()},
-             **ob.PLAIN_ON_CUDA}
+             **ob.PLAIN_ON_CUDA,
+             **{f"streamed {k}": v for k, v in sm.PLAIN_ON_CUDA.items()}}
     if rc != 0:
         raise RuntimeError(f"{argv[0]} CLI returned {rc}")
     return launches, plain, log, seconds
@@ -662,6 +756,45 @@ def main_energy(smi) -> int:
     return total
 
 
+def main_large(smi) -> dict:
+    """The large-L x path: ``autocorr --device cuda`` at L=28 (T=20, 4
+    trajectories) and L=30 (T=6, 1 trajectory), one instance; returns the
+    streamed kernels' launches over both runs."""
+    total = {"K6 forward": 0, "K6 echo": 0}
+    for L, T, n in ((28, 20, 4), (30, 6, 1)):
+        with tempfile.TemporaryDirectory() as tmp:
+            launches, plain, log, seconds = run_cli(
+                ["autocorr", "--inst", "1", "--device", DEVICE, "--L", str(L),
+                 "--tf", str(T), "--g", "0.97", "--noise_prob", str(P),
+                 "--n_trajectories", str(n), "--out_dir", tmp,
+                 "--disorder_dir", tmp])
+            cols = one_csv(tmp, "autocorr_data_")
+        a, e = cols["av_autocorr"], cols["av_autocorr_echo"]
+        checks = physics_checks(a, e, (1 - P) ** 6, alternates=True)
+        checks.update({
+            "engine=streamed for both sweeps":
+                sorted(s[:2] for s in log.sweeps) == [
+                    ("echo_sweep", "streamed"), ("forward_sweep", "streamed")],
+            "K6 forward launched": launches["K6 forward"] > 0,
+            "K6 echo launched": launches["K6 echo"] > 0,
+            "no other kernel": not any(v for k, v in launches.items()
+                                       if not k.startswith("K6")),
+            "no plain version on CUDA": not any(plain.values()),
+        })
+        phase(f"[main] autocorr L={L} T={T} inst=1 traj={n} in "
+              f"{seconds:.2f}s: A[0:4]={[round(x, 6) for x in a[:4]]} "
+              f"echo[0:4]={[round(x, 6) for x in e[:4]]} launches="
+              f"{ {k: v for k, v in launches.items() if v} }")
+        fail_on(f"autocorr L={L}", checks)
+        phase(f"[main] autocorr L={L} sweep seconds: forward "
+              f"{log.seconds['forward'][0]:.3f} s, echo "
+              f"{log.seconds['echo'][0]:.3f} s (inst=1 x {n} trajectories) "
+              f"on {smi}")
+        for k in total:
+            total[k] += launches[k]
+    return total
+
+
 def time_ms(fn, reps=3):
     """(ms per call, the last call's output)."""
     fn()
@@ -697,17 +830,19 @@ def bound(io_bytes, amp_steps, flops_per_amp_step, extra_ops=0) -> tuple:
 
 
 def report(name, what, ms, plain_ms, amp_steps, unit, units, io_bytes,
-           flops, smi, extra_ops=0) -> dict:
-    """Print one kernel's timing line; return its numbers."""
+           flops, smi, extra_ops=0, passes=2) -> dict:
+    """Print one kernel's timing line; return its numbers. The state floor:
+    ``passes`` read+write sweeps of the state per step, 16 B per amplitude
+    each."""
     bound_ms, bound_by = bound(io_bytes, amp_steps, flops, extra_ops)
-    floor_ms = amp_steps * 32 / HBM_BYTES_PER_S * 1e3
-    gbps = amp_steps * 32 / (ms / 1e3) / 1e9
+    floor_ms = amp_steps * 16 * passes / HBM_BYTES_PER_S * 1e3
+    gbps = amp_steps * 16 * passes / (ms / 1e3) / 1e9
     phase(f"[timing] {name} {what}: kernel {ms:.3f} ms = "
           f"{units / (ms / 1e3):.1f} {unit}/s, plain {plain_ms:.3f} ms = "
-          f"{units / (plain_ms / 1e3):.1f} {unit}/s; state {gbps:.1f} GB/s ="
-          f" {100 * floor_ms / ms:.1f}% of the two-sweep floor "
-          f"({floor_ms:.3f} ms at 32 B/amp/step); bound {bound_ms:.3f} ms "
-          f"({bound_by}) on {smi}")
+          f"{units / (plain_ms / 1e3):.1f} {unit}/s; state {gbps:.1f} GB/s"
+          f" = {100 * floor_ms / ms:.1f}% of the {passes}-sweep floor "
+          f"({floor_ms:.3f} ms at {16 * passes} B/amp/step); bound "
+          f"{bound_ms:.3f} ms ({bound_by}) on {smi}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "state_floor_ms": floor_ms}
 
@@ -812,27 +947,101 @@ def timing_obs(dev, smi, err) -> dict:
     return out
 
 
+def timing_streamed(dev, smi, err) -> dict:
+    """The streamed family's forward at L=24, 26, 28 (4 trajectories, T=8)
+    and 30 (1 trajectory, T=6: the main path's launch), its echo at L=28
+    (the main path's first launch: ts=0..3, 1 trajectory) and L=30 (its
+    last: t=5), each against its plain version on the same inputs, with
+    the peak device memory of each kernel/plain pair; and the family
+    against K1 on the same L=23 rows (32 trajectories, T=20). Returns the
+    L=28 numbers."""
+    from dtc_tpu_torch.ops import _build
+    from dtc_tpu_torch.ops import resident_blocked as rb
+    from dtc_tpu_torch.ops import streamed as sm
+
+    lib = _build.load("floquet_x_streamed")
+
+    def peak(what, L):
+        phase(f"[timing] K6 {what}: peak device memory of the kernel and "
+              f"plain calls {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+              f" GiB (a state {2 ** (L + 3) / 2**30:.3f} GiB) on {smi}")
+
+    out = {}
+    for L, c, T in ((24, 4, 8), (26, 4, 8), (28, 4, 8), (30, 1, 6)):
+        rows, sig = forward_inputs(L, T, c, P, dev, seed=L)
+        kw = dict(L=L, q=L // 2)
+        torch.cuda.reset_peak_memory_stats(dev)
+        k_ms, p_ms, k, ref = timed_pair(
+            lambda: sm.streamed_forward_batch(rows, sig, THETA, **kw),
+            lambda: sm.streamed_forward_batch_ref(rows, sig, THETA, **kw), 1)
+        what = f"forward L={L} T={T} traj={c}"
+        err["K6 forward"] = max(err["K6 forward"], held(
+            f"K6 {what} (timed inputs)", k, ref))
+        peak(what, L)
+        out[f"forward {L}"] = report(
+            "K6", what, k_ms, p_ms, c * (T - 1) << L, "cycles", T * c,
+            4 * (rows.numel() + k.numel()), 6 * L + 6, smi,
+            passes=lib.floquet_x_streamed_passes(L))
+    # the main path's first echo launch at L=28 (one trajectory, t=0..3)
+    # and its last at L=30 (one pair, t=5)
+    for L, T, ts in ((28, 20, [0, 1, 2, 3]), (30, 6, [5])):
+        tiles, sfin = echo_inputs(L, T, 1, P, ts, dev, seed=L)
+        kw = dict(L=L, q=L // 2)
+        torch.cuda.reset_peak_memory_stats(dev)
+        k_ms, p_ms, k, ref = timed_pair(
+            lambda: sm.streamed_echo_batch(tiles, sfin, THETA, **kw),
+            lambda: sm.streamed_echo_batch_ref(tiles, sfin, THETA, **kw), 1)
+        steps = sum(2 * t for t in ts)
+        what = (f"echo L={L} ts={ts[0]}..{ts[-1]} pairs={len(ts)} "
+                f"steps={steps}")
+        err["K6 echo"] = max(err["K6 echo"], held(
+            f"K6 {what} (timed inputs)", k, ref))
+        peak(what, L)
+        out[f"echo {L}"] = report(
+            "K6", what, k_ms, p_ms, steps << L, "steps", steps,
+            4 * (tiles.numel() + k.numel()), 6 * L + 12, smi,
+            passes=lib.floquet_x_streamed_passes(L))
+        del tiles
+    L, c, T = 23, 32, 20
+    rows, sig = forward_inputs(L, T, c, P, dev, seed=23)
+    kw = dict(L=L, q=L // 2)
+    s_ms, k1_ms, a, b = timed_pair(
+        lambda: sm.streamed_forward_batch(rows, sig, THETA, **kw),
+        lambda: rb.blocked_forward_batch(rows, sig, THETA, **kw), 3)
+    held(f"K6 forward vs K1 L=23 T={T} 1x{c} (timed inputs)", a, b)
+    phase(f"[timing] forward L=23 T={T} traj={c}, same rows: streamed family "
+          f"{s_ms:.3f} ms, K1 {k1_ms:.3f} ms "
+          f"({c * (T - 1) / (s_ms / 1e3):.1f} / "
+          f"{c * (T - 1) / (k1_ms / 1e3):.1f} cycles/s) on {smi}")
+    return {"K6 forward": out["forward 28"], "K6 echo": out["echo 28"]}
+
+
 def main() -> None:
     csrc = os.path.join(HERE, "dtc_tpu_torch", "csrc")
     if not all(os.path.isfile(os.path.join(csrc, f))
-               for f in ("floquet_x.cu", "floquet_general.cu")):
+               for f in ("floquet_x.cu", "floquet_x_streamed.cu",
+                         "floquet_general.cu")):
         sys.exit("chip_smoke: run it from the root of a checkout of the"
                  " repository (dtc_tpu_torch/csrc not found beside it)")
     smi = card()
     dev = torch.device("cuda")
     build()
     err = {"K1": 0.0, "K2": 0.0, "K4 forward": 0.0, "K4 echo": 0.0,
-           "K5": 0.0}
+           "K5": 0.0, "K6 forward": 0.0, "K6 echo": 0.0}
     compare_x(dev, err)
     compare_general(dev, err)
     compare_obs(dev, err)
     compare_eager(dev)
+    compare_streamed(dev, err)
+    anchors_l30(dev)
     launches = main_autocorr(smi)
     launches.update({k: v for k, v in main_polarization(smi).items()
                      if k.startswith("K4")})
     main_studies()
     launches["K5"] = main_energy(smi)
+    launches.update(main_large(smi))
     times = timing(dev, smi, err)
+    times.update(timing_streamed(dev, smi, err))
     times["K4 forward"] = times.pop("K4 forward xy")
     times["K5"] = times.pop("K5 x")
     general = "dtc_tpu/ops/pallas_resident_general.py"
@@ -850,6 +1059,14 @@ def main() -> None:
         ("K5", "floquet_general_observables",
          "dtc_tpu_torch/csrc/floquet_general.cu",
          "dtc_tpu/ops/pallas_observables.py:87", None),
+        ("K6 forward", "floquet_x_streamed_forward",
+         "dtc_tpu_torch/csrc/floquet_x_streamed.cu",
+         "dtc_tpu/ops/pallas_streamed.py:58",
+         "dtc_tpu/ops/pallas_streamed_hi.py:82"),
+        ("K6 echo", "floquet_x_streamed_echo",
+         "dtc_tpu_torch/csrc/floquet_x_streamed.cu",
+         "dtc_tpu/ops/pallas_streamed.py:322",
+         "dtc_tpu/ops/pallas_streamed_hi.py:344"),
     ]
     line = []
     for key, fn, src, where, also in kernels:

@@ -1,0 +1,332 @@
+// Constant x-drive Floquet kernels for large chains (22 <= L <= 30) on
+// Hopper (sm_90a): forward A(t) and echo A0(t) of the kicked-Ising chain in
+// the sigma frame, the state streamed through device memory.
+//
+// Replaces, as one family with a forward and an echo entry,
+//   K6a dtc_tpu/ops/pallas_streamed.py::_make_streamed_kernel
+//       (entry streamed_forward_batch, 22 <= L <= 28)
+//   K6b dtc_tpu/ops/pallas_streamed.py::_make_streamed_echo_kernel
+//       (entry streamed_echo_batch)
+//   K7a dtc_tpu/ops/pallas_streamed_hi.py::_make_hi_kernel
+//       (entry streamed_hi_forward_batch, 22 <= L <= 30)
+//   K7b dtc_tpu/ops/pallas_streamed_hi.py::_make_hi_echo_kernel
+//       (entry streamed_hi_echo_batch)
+// The four differ on the TPU only in how VMEM slabs cut a state held in
+// HBM; their algebra is K1/K2's (floquet_x.cu): sigma frame, RX(theta) on
+// every qubit, one diagonal angle linear in the bits, factorized over a bit
+// split and fused into the pass that ends the step, and a deterministic
+// two-stage A(t) sum. Compact rows are 128 or 256 lanes wide (run-time
+// `width`; echo flags at width-4 and width-3).
+//
+// What bounds it on this card: a state is 2^L complex64, 32 MiB at L=22 and
+// 8 GiB at L=30, so every step streams it from device memory. What is new
+// against K1/K2 is a pass plan whose tiles fit a block's shared memory up to
+// L=30 (K1/K2's pass-hi tile is 2^(L/2) x 4 amplitudes, 256 KiB at L=26):
+//   pass lo:  bits [0, a), a tile of 2^a consecutive amplitudes; the echo's
+//             pre diagonal before its kick;
+//   pass mid: bits [a, a+b) (only when L >= 25), tiles of 2^b rows x kW
+//             consecutive columns;
+//   pass hi:  bits [a+b, L), tiles of 2^c rows x kW columns; the kick, the
+//             post diagonal and the partial of |psi|^2 z_q.
+// L <= 24 takes two passes (a <= 13, c <= 11: at most 64 KiB a tile), L =
+// 25..30 three (tiles of 4-32 KiB). Two passes would reach L=26 with 128 KiB
+// tiles, but at one block per SM they stream the state at half the rate of
+// three passes of small tiles (H100 SXM: 627 GB/s at L=26 against 1,345 GB/s
+// at L=28), which costs more than the third pass. The byte floor is 32 B per
+// amplitude per step at L <= 24 and 48 B at L >= 25; kW = 4 keeps the
+// strided column runs at 32 B.
+//
+// A(t) and the echo value are summed without atomics: one partial per
+// pass-hi block (the echo's only on the pair's last step), then one block
+// per output row adds them in a fixed order in double. Every offset that
+// can pass 2^31 (state, tile rows, blocks) is 64-bit.
+
+#include "floquet_common.cuh"
+#include "floquet_rx.cuh"
+
+namespace {
+
+static_assert(kW == 4, "strided tiles keep the columns in tile bits 0..1");
+
+// Bits per pass: lo [0, a), mid [a, a + b) (b = 0: no mid pass), hi
+// [a + b, L), with the tiles of about equal size (2^a = 2^c * kW).
+struct Plan {
+  int a, b, c;
+};
+
+Plan plan_for(int L) {
+  if (L <= 24) {
+    const int c = (L - 2) / 2;
+    return {L - c, 0, c};
+  }
+  const int c = (L - 2) / 3;
+  return {L - 2 * c, c, c};
+}
+
+// Per-pair row pointers and trip gate. Forward (echo == 0): row `step` of
+// the trajectory, kick sign +1, every step measured. Echo: rows 2*step
+// (pre) and 2*step+1 (post); the pair runs while step < trip (lane
+// width-4 of its first row) and is measured on its last step.
+struct StepRows {
+  const float* pre;  // nullptr when there is no pre diagonal
+  const float* post;
+  float sign;
+  bool active;
+  bool measured;
+};
+
+__device__ __forceinline__ StepRows step_rows(const float* rows, int width,
+                                              int64_t rows_per_pair, int pair,
+                                              int step, int echo) {
+  const float* base = rows + (int64_t)pair * rows_per_pair * width;
+  StepRows r;
+  if (echo) {
+    const int trip = (int)base[width - 4];
+    r.active = step < trip;
+    r.measured = step == trip - 1;
+    r.pre = base + (int64_t)(2 * step) * width;
+    r.post = r.pre + width;
+    r.sign = r.pre[width - 3];
+  } else {
+    r.active = true;
+    r.measured = true;
+    r.pre = nullptr;
+    r.post = base + (int64_t)step * width;
+    r.sign = 1.0f;
+  }
+  return r;
+}
+
+// Pass lo: [pre diagonal] then the kick on bits [0, a).
+__global__ void lo_kernel(float2* __restrict__ st, int L, int a,
+                          const float* __restrict__ rows, int width,
+                          int64_t rows_per_pair, int step, int echo, float c,
+                          float s) {
+  extern __shared__ float2 tile[];
+  __shared__ float cz[32], cb[32], c0;
+  const int pair = blockIdx.y;
+  const StepRows r = step_rows(rows, width, rows_per_pair, pair, step, echo);
+  if (!r.active) return;
+  const int64_t hi = blockIdx.x;
+  const int n = 1 << a;
+  float2* g = st + ((int64_t)pair << L) + (hi << a);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) tile[i] = g[i];
+  if (r.pre != nullptr) {
+    load_coeffs(r.pre, L, cz, cb, &c0);
+    __syncthreads();
+    // factorized phase: the high part and the straddle sign fixed per block
+    const float th_hi = c0 + angle_bits(cz, cb, hi, a, L - a);
+    const float cs = cb[a - 1] * zsign(hi, 0);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const float th = th_hi + angle_bits(cz, cb, i, 0, a)
+                       + cs * zsign(i, a - 1);
+      tile[i] = cmul_phase(tile[i], th);
+    }
+  }
+  __syncthreads();
+  kick_bits(tile, a, 0, a, c, s * r.sign);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) g[i] = tile[i];
+}
+
+// Pass over bits [k0, k0 + n) on a tile of 2^n rows x kW columns: tile
+// index h * kW + w holds amplitude col + w + (h << k0) + (top << (k0 + n)),
+// col the block's kW-aligned low index below 2^k0, top its bits above.
+// LAST (k0 + n == L): then the post diagonal and, where the step is
+// measured, the block's partial of |psi|^2 z_q into
+// partials[pair * gridDim.x + blockIdx.x].
+template <bool LAST>
+__global__ void strided_kernel(float2* __restrict__ st, int L, int k0, int n,
+                               const float* __restrict__ rows, int width,
+                               int64_t rows_per_pair, int step, int echo,
+                               float c, float s, int q,
+                               float* __restrict__ partials) {
+  extern __shared__ float2 tile[];
+  __shared__ float cz[32], cb[32], c0, th_lo[kW], red[kThreads / 32];
+  const int pair = blockIdx.y;
+  const StepRows r = step_rows(rows, width, rows_per_pair, pair, step, echo);
+  if (!r.active) return;
+  const int64_t cols = ((int64_t)1 << k0) / kW;
+  const int64_t col = ((int64_t)blockIdx.x % cols) * kW;
+  const int64_t top = (int64_t)blockIdx.x / cols;
+  const int nrow = 1 << n;
+  const int nt = nrow * kW;
+  float2* g = st + ((int64_t)pair << L) + col + (top << (k0 + n));
+  for (int i = threadIdx.x; i < nt; i += blockDim.x) {
+    tile[i] = g[((int64_t)(i / kW) << k0) + (i % kW)];
+  }
+  if (LAST) load_coeffs(r.post, L, cz, cb, &c0);
+  __syncthreads();
+  if (LAST && threadIdx.x < kW) {
+    th_lo[threadIdx.x] = c0 + angle_bits(cz, cb, col + threadIdx.x, 0, k0);
+  }
+  // the rows sit at tile bits [2, 2 + n); ends in __syncthreads
+  kick_bits(tile, n + 2, 2, n, c, s * r.sign);
+  if (LAST) {
+    float acc = 0.0f;
+    for (int h = threadIdx.x; h < nrow; h += blockDim.x) {
+      const float th_h = angle_bits(cz, cb, h, k0, n);
+      const float cs = cb[k0 - 1] * zsign(h, 0);
+#pragma unroll
+      for (int w = 0; w < kW; ++w) {
+        const int64_t lo = col + w;
+        const float th = th_lo[w] + th_h + cs * zsign(lo, k0 - 1);
+        const float2 v = cmul_phase(tile[h * kW + w], th);
+        tile[h * kW + w] = v;
+        if (r.measured) {
+          const float z = q < k0 ? zsign(lo, q) : zsign(h, q - k0);
+          acc += (v.x * v.x + v.y * v.y) * z;
+        }
+      }
+    }
+    __syncthreads();
+    if (r.measured) {
+      const float tot = block_sum(acc, red);
+      if (threadIdx.x == 0) {
+        partials[(int64_t)pair * gridDim.x + blockIdx.x] = tot;
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < nt; i += blockDim.x) {
+    g[((int64_t)(i / kW) << k0) + (i % kW)] = tile[i];
+  }
+}
+
+// out[row * stride + off] = the sum of partials[row * nb + b] over b, in a
+// fixed order (a fixed strided share per thread, then a fixed tree, in
+// double). With trips (echo): a pair whose trip count is 0 ran no step and
+// gets a0, the z_q of its basis state.
+__global__ void reduce_rows_kernel(const float* __restrict__ partials, int nb,
+                                   float* __restrict__ out, int64_t stride,
+                                   int64_t off, const float* __restrict__ trips,
+                                   int64_t trip_stride, float a0) {
+  __shared__ double red[kThreads];
+  const int64_t row = blockIdx.x;
+  const float* p = partials + row * nb;
+  double acc = 0.0;
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) acc += p[b];
+  red[threadIdx.x] = acc;
+  __syncthreads();
+  for (int w = kThreads / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    const bool idle = trips != nullptr && trips[row * trip_stride] == 0.0f;
+    out[row * stride + off] = idle ? a0 : (float)red[0];
+  }
+}
+
+// out[i * T] = a0: A(0) of every trajectory, its basis state's z_q.
+__global__ void first_kernel(float* __restrict__ out, int n, int T, float a0) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[(int64_t)i * T] = a0;
+}
+
+int hi_blocks(int L) { return (1 << (L - plan_for(L).c)) / kW; }
+
+template <typename K>
+cudaError_t allow_smem(K* kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// One step of every pair: pass lo, [pass mid], pass hi.
+cudaError_t launch_step(float2* st, int L, const float* rows, int width,
+                        int64_t rows_per_pair, int n_pairs, int step, int echo,
+                        float c, float s, int q, float* partials,
+                        cudaStream_t stream) {
+  const Plan p = plan_for(L);
+  const size_t smem_lo = sizeof(float2) << p.a;
+  const size_t smem_mid = (sizeof(float2) * kW) << p.b;
+  const size_t smem_hi = (sizeof(float2) * kW) << p.c;
+  cudaError_t e = allow_smem(lo_kernel, smem_lo);
+  if (e != cudaSuccess) return e;
+  lo_kernel<<<dim3(1u << (L - p.a), n_pairs), kThreads, smem_lo, stream>>>(
+      st, L, p.a, rows, width, rows_per_pair, step, echo, c, s);
+  if (p.b > 0) {
+    e = allow_smem(strided_kernel<false>, smem_mid);
+    if (e != cudaSuccess) return e;
+    strided_kernel<false><<<dim3((1u << (L - p.b)) / kW, n_pairs), kThreads,
+                            smem_mid, stream>>>(
+        st, L, p.a, p.b, rows, width, rows_per_pair, step, echo, c, s, q,
+        nullptr);
+  }
+  e = allow_smem(strided_kernel<true>, smem_hi);
+  if (e != cudaSuccess) return e;
+  strided_kernel<true><<<dim3((unsigned)hi_blocks(L), n_pairs), kThreads,
+                         smem_hi, stream>>>(
+      st, L, p.a + p.b, p.c, rows, width, rows_per_pair, step, echo, c, s, q,
+      partials);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Partials per trajectory or pair the wrapper allocates.
+int floquet_x_streamed_partials(int L) { return hi_blocks(L); }
+
+// State passes per step: 2 (L <= 24) or 3.
+int floquet_x_streamed_passes(int L) { return plan_for(L).b > 0 ? 3 : 2; }
+
+// Forward. state: n_traj x 2^L complex64 scratch; rows: n_traj x T x width
+// f32; partials: n_traj x floquet_x_streamed_partials(L) f32 scratch; out:
+// n_traj x T f32 (A(t) before the host's sigma/ancilla factor). Runs the
+// T - 1 cycles whose results are measured.
+int floquet_x_streamed_forward(void* state, const void* rows, void* partials,
+                               void* out, int n_traj, int L, int T, int width,
+                               int q, int64_t b0, float c, float s,
+                               void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  float2* st = (float2*)state;
+  float* a = (float*)out;
+  init_kernel<<<dim3(256, n_traj), kThreads, 0, stream>>>(st, (int64_t)1 << L,
+                                                          b0);
+  const float a0 = 1.0f - 2.0f * (float)((b0 >> q) & 1);
+  first_kernel<<<(n_traj + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      a, n_traj, T, a0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  for (int cyc = 0; cyc + 1 < T; ++cyc) {
+    e = launch_step(st, L, (const float*)rows, width, T, n_traj, cyc, 0, c, s,
+                    q, (float*)partials, stream);
+    if (e != cudaSuccess) return (int)e;
+    reduce_rows_kernel<<<n_traj, kThreads, 0, stream>>>(
+        (const float*)partials, hi_blocks(L), a, T, cyc + 1, nullptr, 0, 0.0f);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
+}
+
+// Echo. state: n_pairs x 2^L complex64 scratch; tiles: n_pairs x
+// rows_per_pair x width f32 (interleaved pre/post step rows, trip count 2t
+// at lane width-4 of row 0); partials: n_pairs x
+// floquet_x_streamed_partials(L) f32 scratch; out: n_pairs f32. n_steps =
+// the largest trip count of the batch.
+int floquet_x_streamed_echo(void* state, const void* tiles, void* partials,
+                            void* out, int n_pairs, int L, int rows_per_pair,
+                            int width, int n_steps, int q, int64_t b0, float c,
+                            float s, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  float2* st = (float2*)state;
+  const float* t = (const float*)tiles;
+  init_kernel<<<dim3(256, n_pairs), kThreads, 0, stream>>>(st, (int64_t)1 << L,
+                                                           b0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  for (int k = 0; k < n_steps; ++k) {
+    e = launch_step(st, L, t, width, rows_per_pair, n_pairs, k, 1, c, s, q,
+                    (float*)partials, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const float a0 = 1.0f - 2.0f * (float)((b0 >> q) & 1);
+  reduce_rows_kernel<<<n_pairs, kThreads, 0, stream>>>(
+      (const float*)partials, hi_blocks(L), (float*)out, 1, 0, t + width - 4,
+      (int64_t)rows_per_pair * width, a0);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

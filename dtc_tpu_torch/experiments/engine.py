@@ -5,14 +5,17 @@ Port of ``dtc_tpu/experiments/engine.py`` (``build_context``,
 ``echo_sweep``, ``apply_shot_noise``).
 
 Dispatch is by shape, as in the reference, with the port's own tiers:
-- a constant x-drive (K = 1, no y angle, one angle for every cycle) at
-  17 <= L <= 23 in complex64 goes to the blocked x entries
+- a constant x-drive (K = 1, no y angle, one angle for every cycle) in
+  complex64 goes to the blocked x entries at 17 <= L <= 23
   (``ops/resident_blocked.py``: CUDA kernels K1/K2 for CUDA tensors, their
-  plain versions for CPU tensors);
+  plain versions for CPU tensors) and to the streamed x entries at
+  24 <= L <= 30 (``ops/streamed.py``: the large-L CUDA family, or its plain
+  versions);
 - every other drive (y, xy, yx, circular, xy-cycle, per-cycle x) at
   14 <= L <= 23 in complex64 goes to the lab-frame general entries
   (``ops/resident_general.py``: CUDA kernel K4, or its plain versions);
-- everything else goes to the sigma-frame engine (``core/sigma_evolve.py``).
+- everything else goes to the sigma-frame engine (``core/sigma_evolve.py``),
+  among it every non-x drive at L >= 24 and complex128.
 Each sweep logs once which engine served it (``engine=...``).
 
 Noise: every entry takes an optional block of f32 uniforms laid out as the
@@ -37,7 +40,7 @@ from dtc_tpu_torch.core.sigma_evolve import (
 )
 from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.models.noise import NoiseSpec
-from dtc_tpu_torch.ops import resident_blocked, resident_general
+from dtc_tpu_torch.ops import resident_blocked, resident_general, streamed
 from dtc_tpu_torch.ops.params import echo_pair_tiles, forward_rows
 from dtc_tpu_torch.ops.params_general import (
     general_echo_rows,
@@ -51,11 +54,12 @@ log = logging.getLogger("dtc_tpu_torch")
 # few state-sized temporaries), as in the reference.
 DEFAULT_BATCH_BYTES = 2 << 30
 
-# Live states per chunk on the kernel routes. The CUDA kernels hold
-# every state of a chunk in device memory at once (8 MiB per trajectory or
-# echo pair at L=20, 64 MiB at L=23), unlike the TPU kernels, which hold one
-# per grid step. 8 GiB is a tenth of an 80 GB card: 1024 trajectories at
-# L=20, 128 at L=23, and room left for the plain route's angle tables.
+# Live states per launch on the kernel routes. The CUDA kernels hold
+# every state of a launch in device memory at once (8 MiB per trajectory or
+# echo pair at L=20, 64 MiB at L=23, 8 GiB at L=30), unlike the TPU kernels,
+# which hold one per grid step. 8 GiB is a tenth of an 80 GB card: 1024
+# trajectories at L=20, 128 at L=23, one at L=30, and room left for the
+# plain route's angle tables.
 KERNEL_STATE_BYTES = 8 << 30
 
 ECHO_SALT = 7919
@@ -75,6 +79,16 @@ def traj_chunks(n_traj: int, L: int, extra_factor: int = 2,
     """Trajectories per chunk so live states stay under the budget."""
     bytes_per_traj = extra_factor * (1 << L) * 8
     return max(1, min(n_traj, budget_bytes // max(1, bytes_per_traj)))
+
+
+def kernel_chunks(inst: int, n_traj: int, n_ts: int, L: int):
+    """(instances, trajectories, t values) per kernel launch: at most
+    KERNEL_STATE_BYTES of live states, at least one of each; the t values
+    are kept together first, then the instances, then the trajectories."""
+    states = max(1, KERNEL_STATE_BYTES // ((1 << L) * 8))
+    ts = min(n_ts, states)
+    ic = min(inst, states // ts)
+    return ic, min(n_traj, states // (ts * ic)), ts
 
 
 def build_context(cfg, hs, phis, *, device):
@@ -102,16 +116,18 @@ def constant_x_theta(angles) -> float | None:
 
 
 def engine_for(angles, *, L, T, q, dtype_name, has_y, echo: bool) -> str:
-    """'blocked' (x kernels K1/K2 or their plain versions), 'general' (the
-    lab-frame kernel K4 or its plain versions) or 'sigma'."""
+    """'blocked' (x kernels K1/K2 or their plain versions), 'streamed' (the
+    large-L x family or its plain versions), 'general' (the lab-frame kernel
+    K4 or its plain versions) or 'sigma'."""
     if dtype_name != "complex64" or not 0 <= q < L:
         return "sigma"
     const_x = not has_y and constant_x_theta(angles) is not None
-    t_max = (resident_blocked.MAX_T_ECHO if echo
-             else resident_blocked.MAX_T_FORWARD)
-    if (const_x and resident_blocked.MIN_L <= L <= resident_blocked.MAX_L
-            and T <= t_max):
-        return "blocked"
+    if const_x:
+        for name, mod in (("blocked", resident_blocked),
+                          ("streamed", streamed)):
+            t_max = mod.MAX_T_ECHO if echo else mod.MAX_T_FORWARD
+            if mod.MIN_L <= L <= mod.MAX_L and T <= t_max:
+                return name
     steps = (2 if echo else 1) * T * angles.shape[1]
     if (not const_x and resident_general.MIN_L <= L <= resident_general.MAX_L
             and steps <= resident_general.MAX_STEPS):
@@ -132,12 +148,14 @@ def _forward_batch(hs, phis, angles, uniforms, *, L, T, K, p, q,
             uniforms = draw_uniforms((inst, n_traj, T * K, L),
                                      generator=generator, device=hs.device)
         c = uniforms.shape[1] if uniforms is not None else n_traj
-    if engine == "blocked":
+    if engine in ("blocked", "streamed"):
         rows, sig_after = forward_rows(uniforms, hs[:, None], phis[:, None],
                                        L=L, T=T, p=p, batch=(inst, c))
-        return resident_blocked.blocked_forward_batch(
-            rows, sig_after, constant_x_theta(angles), L=L, q=q,
-            initial_state=initial_state, ancilla_factor=ancilla_factor)
+        entry = (resident_blocked.blocked_forward_batch if engine == "blocked"
+                 else streamed.streamed_forward_batch)
+        return entry(rows, sig_after, constant_x_theta(angles), L=L, q=q,
+                     initial_state=initial_state,
+                     ancilla_factor=ancilla_factor)
     if engine == "general":
         rows = general_forward_rows(uniforms, hs[:, None], phis[:, None],
                                     angles, L=L, T=T, K=K, p=p,
@@ -164,13 +182,15 @@ def _echo_batch(hs, phis, angles, ts, uniforms, *, L, T, K, p, q,
             uniforms = draw_uniforms((inst, n_traj, 2 * T * K, L),
                                      generator=generator, device=hs.device)
         c = uniforms.shape[1] if uniforms is not None else n_traj
-    if engine == "blocked":
+    if engine in ("blocked", "streamed"):
         tiles, sig_fin = echo_pair_tiles(uniforms, ts, hs[:, None],
                                          phis[:, None], L=L, T=T, p=p,
                                          batch=(inst, c))
-        return resident_blocked.blocked_echo_batch(
-            tiles, sig_fin, constant_x_theta(angles), L=L, q=q,
-            initial_state=initial_state, ancilla_factor=ancilla_factor)
+        entry = (resident_blocked.blocked_echo_batch if engine == "blocked"
+                 else streamed.streamed_echo_batch)
+        return entry(tiles, sig_fin, constant_x_theta(angles), L=L, q=q,
+                     initial_state=initial_state,
+                     ancilla_factor=ancilla_factor)
     if engine == "general":
         tiles = general_echo_rows(uniforms, ts, hs[:, None], phis[:, None],
                                   angles, L=L, T=T, K=K, p=p,
@@ -214,26 +234,29 @@ def forward_sweep(cfg, sched, params, noise, *, uniforms=None) -> np.ndarray:
     u = (_sweep_uniforms(uniforms, (cfg.inst, n_traj, T * K, L), cfg.seed,
                          hs.device) if p > 0 else None)
     if engine != "sigma":
-        chunk = traj_chunks(n_traj, L, extra_factor=cfg.inst,
-                            budget_bytes=KERNEL_STATE_BYTES)
+        ic, chunk, _ = kernel_chunks(cfg.inst, n_traj, 1, L)
     else:
+        ic = cfg.inst
         chunk = traj_chunks(n_traj, L, extra_factor=2 * cfg.inst)
     acc = np.zeros((cfg.inst, T))
-    done = 0
-    while done < n_traj:
-        c = min(chunk, n_traj - done)
-        uc = u[:, done:done + c] if u is not None else None
-        vals = _forward_batch(hs, phis, sched.angles, uc, n_traj=c, **kw)
-        acc += guard("forward_batch", vals.sum(dim=1).cpu().numpy(),
-                     bound=float(c))
-        done += c
+    for i0 in range(0, cfg.inst, ic):
+        i1 = min(i0 + ic, cfg.inst)
+        for done in range(0, n_traj, chunk):
+            c = min(chunk, n_traj - done)
+            uc = u[i0:i1, done:done + c] if u is not None else None
+            vals = _forward_batch(hs[i0:i1], phis[i0:i1], sched.angles, uc,
+                                  n_traj=c, **kw)
+            acc[i0:i1] += guard("forward_batch",
+                                vals.sum(dim=1).cpu().numpy(), bound=float(c))
     return guard("forward_sweep", acc / n_traj, bound=1.0)
 
 
 def echo_sweep(cfg, sched, params, noise, *, uniforms=None,
                t_chunk: int = 8) -> np.ndarray:
     """Echo A0(t) per instance, trajectory-averaged: (inst, T) numpy.
-    The noiseless echo is exactly 1 and is returned analytically."""
+    The noiseless echo is exactly 1 and is returned analytically. The
+    kernel routes take at most ``t_chunk`` t values per launch, fewer where
+    KERNEL_STATE_BYTES holds fewer states."""
     hs, phis = params
     p = noise.p
     if p == 0.0:
@@ -251,23 +274,23 @@ def echo_sweep(cfg, sched, params, noise, *, uniforms=None,
     u = _sweep_uniforms(uniforms, (cfg.inst, n_traj, 2 * T * K, L),
                         cfg.seed + ECHO_SALT, hs.device)
     if engine != "sigma":
-        chunk = traj_chunks(n_traj, L, extra_factor=cfg.inst * t_chunk,
-                            budget_bytes=KERNEL_STATE_BYTES)
+        ic, chunk, t_chunk = kernel_chunks(cfg.inst, n_traj, t_chunk, L)
     else:
+        ic = cfg.inst
         chunk = traj_chunks(n_traj, L, extra_factor=2 * cfg.inst * t_chunk)
     out = np.zeros((cfg.inst, T))
     for t0 in range(0, T, t_chunk):
         ts = torch.arange(t0, min(t0 + t_chunk, T), device=hs.device)
-        acc = np.zeros((cfg.inst, len(ts)))
-        done = 0
-        while done < n_traj:
-            c = min(chunk, n_traj - done)
-            vals = _echo_batch(hs, phis, sched.angles, ts,
-                               u[:, done:done + c], n_traj=c, **kw)
-            acc += guard("echo_batch", vals.sum(dim=1).cpu().numpy(),
-                         bound=float(c))
-            done += c
-        out[:, t0:t0 + len(ts)] = acc / n_traj
+        for i0 in range(0, cfg.inst, ic):
+            i1 = min(i0 + ic, cfg.inst)
+            acc = np.zeros((i1 - i0, len(ts)))
+            for done in range(0, n_traj, chunk):
+                c = min(chunk, n_traj - done)
+                vals = _echo_batch(hs[i0:i1], phis[i0:i1], sched.angles, ts,
+                                   u[i0:i1, done:done + c], n_traj=c, **kw)
+                acc += guard("echo_batch", vals.sum(dim=1).cpu().numpy(),
+                             bound=float(c))
+            out[i0:i1, t0:t0 + len(ts)] = acc / n_traj
     return guard("echo_sweep", out, bound=1.0)
 
 

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 Each source ``dtc_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and
-is one library: ``floquet_x`` (K1/K2) and ``floquet_general`` (K4, K5). A
+is one library: ``floquet_x`` (K1/K2), ``floquet_x_streamed`` (the large-L
+x family that replaces K6a/K6b/K7a/K7b) and ``floquet_general`` (K4, K5). A
 source is compiled at first use with nvcc for sm_90a into a shared library
 under
 ``dtc_tpu_torch/csrc/build/`` (named by the hash of the source, the shared
@@ -40,6 +41,14 @@ LIBRARIES = {
                               _I64, _F32, _F32, _VP],
         "floquet_x_echo": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
                            _I64, _F32, _F32, _VP],
+    },
+    "floquet_x_streamed": {
+        "floquet_x_streamed_partials": [_I32],
+        "floquet_x_streamed_passes": [_I32],
+        "floquet_x_streamed_forward": [_VP, _VP, _VP, _VP, _I32, _I32, _I32,
+                                       _I32, _I32, _I64, _F32, _F32, _VP],
+        "floquet_x_streamed_echo": [_VP, _VP, _VP, _VP, _I32, _I32, _I32,
+                                    _I32, _I32, _I32, _I64, _F32, _F32, _VP],
     },
     "floquet_general": {
         "floquet_general_forward_partials": [_I32],

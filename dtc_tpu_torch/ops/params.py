@@ -7,14 +7,19 @@ Ports of
   matrices) and ``::echo_pair_tiles`` (the echo's (pre, post) step rows).
 
 All are batched tensor ops (the reference vmaps them per trajectory and
-per t); bit masks are int64. Row layout, width 128:
+per t); bit masks are int64. Row layout, width 128 or 256:
 lanes [0,L) noise-Z bits n_q, [L,2L) sigma bits, [2L,3L-1) bond flips,
 [3L-1,4L-1) h_q, [4L-1,5L-2) phi_j. Echo rows carry flags at the tail:
-lane 124 (first row only) = the pair's trip count 2t, 125 = imag sign of
-the step's kick (-1 on inverse steps), 126 = step active, 127 = kick
-matrix index. Only lanes 124 and 125 are read by the port (K2 and its
-plain version); 126 and 127 are kept so that the tiles equal the
-reference's bit for bit, which ``tests/test_torch_ops.py`` checks.
+lane width-4 (first row only) = the pair's trip count 2t, width-3 = imag
+sign of the step's kick (-1 on inverse steps), width-2 = step active,
+width-1 = kick matrix index. Only the first two flags are read by the port
+(the x kernels and their plain versions); the others are kept so that the
+tiles equal the reference's bit for bit, which the tests check.
+
+Width, the reference's rule (``pallas_streamed.py``): 128 lanes while the
+5L-2 data lanes fit (forward: 5L-2 <= 128, L <= 26; echo: 5L-2 <= 124, so
+that the flags stay clear, L <= 25), else 256. K1/K2 (L <= 23) always get
+128; the streamed family (``ops/streamed.py``) takes either.
 """
 
 from __future__ import annotations
@@ -32,6 +37,17 @@ from dtc_tpu_torch.core.sigma_evolve import (
 from dtc_tpu_torch.ops.kick import kron
 
 WIDTH = 128
+WIDE = 256
+
+
+def forward_width(L: int) -> int:
+    """Lanes of a forward row at L: 128 while 5L-2 <= 128, else 256."""
+    return WIDTH if 5 * L - 2 <= WIDTH else WIDE
+
+
+def echo_width(L: int) -> int:
+    """Lanes of an echo step row at L: 128 while 5L-2 <= 124, else 256."""
+    return WIDTH if 5 * L - 2 <= WIDTH - 4 else WIDE
 
 
 def _bit_lanes(mask: torch.Tensor, L: int) -> torch.Tensor:
@@ -39,11 +55,12 @@ def _bit_lanes(mask: torch.Tensor, L: int) -> torch.Tensor:
     return ((mask[..., None] >> sh) & 1).to(torch.float32)
 
 
-def pack_cycle_params_compact(zm, sigma, hs, phis, L: int) -> torch.Tensor:
-    """(..., 128) f32 rows from int64 masks zm, sigma (...) and angles
+def pack_cycle_params_compact(zm, sigma, hs, phis, L: int,
+                              width: int = WIDTH) -> torch.Tensor:
+    """(..., width) f32 rows from int64 masks zm, sigma (...) and angles
     hs (..., L), phis (..., L-1); all leading dimensions broadcast."""
-    if 5 * L - 2 > WIDTH:
-        raise ValueError(f"L={L} needs {5 * L - 2} lanes > {WIDTH}")
+    if 5 * L - 2 > width:
+        raise ValueError(f"L={L} needs {5 * L - 2} lanes > {width}")
     zm = torch.as_tensor(zm, dtype=torch.int64, device=hs.device)
     sigma = torch.as_tensor(sigma, dtype=torch.int64, device=hs.device)
     batch = torch.broadcast_shapes(zm.shape, sigma.shape, hs.shape[:-1],
@@ -51,7 +68,7 @@ def pack_cycle_params_compact(zm, sigma, hs, phis, L: int) -> torch.Tensor:
     zmb = _bit_lanes(zm, L).expand(*batch, L)
     sgb = _bit_lanes(sigma, L).expand(*batch, L)
     flip = (sgb[..., :L - 1] - sgb[..., 1:]).abs()
-    pad = torch.zeros((*batch, WIDTH - (5 * L - 2)), dtype=torch.float32,
+    pad = torch.zeros((*batch, width - (5 * L - 2)), dtype=torch.float32,
                       device=hs.device)
     return torch.cat([zmb, sgb, flip,
                       hs.to(torch.float32).expand(*batch, L),
@@ -65,14 +82,16 @@ def forward_rows(uniforms, hs, phis, *, L: int, T: int, p: float,
     uniforms (..., T, L) f32 as ``presample_noise`` draws them; hs (..., L)
     and phis (..., L-1) per row of the batch. With p == 0 the uniforms are
     unused (may be None) and ``batch`` gives the leading shape.
-    Returns rows (..., T, 128) f32 and sig_after (..., T) int64."""
+    Returns rows (..., T, forward_width(L)) f32 and sig_after (..., T)
+    int64."""
     if p > 0.0:
         _, zm, _, csum = presample_noise(uniforms, p, L)
     else:
         zm = csum = torch.zeros((*batch, T), dtype=torch.int64,
                                 device=hs.device)
     rows = pack_cycle_params_compact(zm, csum, hs[..., None, :],
-                                     phis[..., None, :], L)
+                                     phis[..., None, :], L,
+                                     forward_width(L))
     return rows, csum
 
 
@@ -114,7 +133,7 @@ def echo_pair_tiles(uniforms, ts, hs, phis, *, L: int, T: int, p: float,
     uniforms (..., 2T, L) f32 — one block per trajectory, shared by every
     t; ts (n_ts,) int; hs (..., L), phis (..., L-1). With p == 0 the
     uniforms are unused (may be None) and ``batch`` gives the leading shape.
-    Returns tiles (..., n_ts, 4T, 128) f32 and the final sigma
+    Returns tiles (..., n_ts, 4T, echo_width(L)) f32 and the final sigma
     (..., n_ts) int64.
 
     pre row: inverse diagonal D0* with the conj-correction at the CURRENT
@@ -124,7 +143,8 @@ def echo_pair_tiles(uniforms, ts, hs, phis, *, L: int, T: int, p: float,
     diagonal at the sigma after the event; inverse steps only the event's
     Z-signs.
     """
-    if 5 * L - 2 > WIDTH - 4:
+    width = echo_width(L)
+    if 5 * L - 2 > width - 4:
         raise ValueError(f"L={L} data lanes collide with the flag lanes")
     dev = hs.device
     T2 = 2 * T
@@ -151,15 +171,16 @@ def echo_pair_tiles(uniforms, ts, hs, phis, *, L: int, T: int, p: float,
     fwd_f = fwd.to(torch.float32)[..., None]
     inv_f = inv.to(torch.float32)[..., None]
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    pre = pack_cycle_params_compact(zero, sig_b, -h, -ph, L) * inv_f
-    post = (pack_cycle_params_compact(zm, csum, h, ph, L) * fwd_f
+    pre = pack_cycle_params_compact(zero, sig_b, -h, -ph, L, width) * inv_f
+    post = (pack_cycle_params_compact(zm, csum, h, ph, L, width) * fwd_f
             + pack_cycle_params_compact(zm, zero, torch.zeros_like(h),
-                                        torch.zeros_like(ph), L) * inv_f)
+                                        torch.zeros_like(ph), L, width)
+            * inv_f)
     aidx = torch.where(fwd, step, torch.clamp(2 * t_ - 1 - step, 0, T - 1))
-    pre[..., WIDTH - 3] = torch.where(inv, -1.0, 1.0)
-    pre[..., WIDTH - 2] = (fwd | inv).to(torch.float32)
-    pre[..., WIDTH - 1] = aidx.to(torch.float32)
+    pre[..., width - 3] = torch.where(inv, -1.0, 1.0)
+    pre[..., width - 2] = (fwd | inv).to(torch.float32)
+    pre[..., width - 1] = aidx.to(torch.float32)
     tiles = torch.stack([pre, post], dim=-2).reshape(*pre.shape[:-2],
-                                                     2 * T2, WIDTH)
-    tiles[..., 0, WIDTH - 4] = (2 * ts).to(torch.float32)
+                                                     2 * T2, width)
+    tiles[..., 0, width - 4] = (2 * ts).to(torch.float32)
     return tiles.contiguous(), csum[..., -1]

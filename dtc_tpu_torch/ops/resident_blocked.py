@@ -140,7 +140,7 @@ def blocked_forward_batch_ref(rows, sig_after, theta, *, L, q,
         state = apply_phase(_kick(state, u7, utop, L),
                             _row_angles(rows[:, cyc], L, table))
         a_raw[:, cyc + 1] = (state.real ** 2 + state.imag ** 2) @ zq
-    return _forward_host_factor(a_raw.reshape(*batch, T), sig_after, q, b0,
+    return forward_host_factor(a_raw.reshape(*batch, T), sig_after, q, b0,
                                 ancilla_factor)
 
 
@@ -170,18 +170,21 @@ def blocked_echo_batch_ref(tiles, sig_fin, theta, *, L, q,
                               _row_angles(post[idx], L, table))
             state[idx] = sub
     val = (state.real ** 2 + state.imag ** 2) @ table[q]
-    return _echo_host_factor(val.reshape(batch), sig_fin, q, b0,
+    return echo_host_factor(val.reshape(batch), sig_fin, q, b0,
                              ancilla_factor)
 
 
-def _forward_host_factor(a_raw, sig_after, q, b0, ancilla_factor):
+def forward_host_factor(a_raw, sig_after, q, b0, ancilla_factor):
+    """A(t) = ancilla_factor * z_q(b0) * (1 - 2 sigma_q at the cycle's
+    start) * the kernel's sum."""
     sig_start = torch.cat([torch.zeros_like(sig_after[..., :1]),
                            sig_after[..., :-1]], dim=-1)
     return ((ancilla_factor * basis_sign(b0, q)) * _sigma_sign(sig_start, q)
             * a_raw)
 
 
-def _echo_host_factor(val, sig_fin, q, b0, ancilla_factor):
+def echo_host_factor(val, sig_fin, q, b0, ancilla_factor):
+    """A0 = ancilla_factor * z_q(b0) * (1 - 2 sigma_q final) * the sum."""
     return ((ancilla_factor * basis_sign(b0, q)) * _sigma_sign(sig_fin, q)
             * val)
 
@@ -207,7 +210,8 @@ def raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
 
-def _cs(theta: float):
+def kick_cs(theta: float):
+    """cos(theta/2), sin(theta/2) rounded to f32, as the kernels take them."""
     return (float(torch.tensor(math.cos(theta / 2), dtype=torch.float32)),
             float(torch.tensor(math.sin(theta / 2), dtype=torch.float32)))
 
@@ -253,14 +257,14 @@ def blocked_forward_batch(rows, sig_after, theta, *, L, q,
     partials = torch.empty((n, T, lib.floquet_x_forward_partials(L)),
                            dtype=torch.float32, device=dev)
     a_raw = torch.empty((n, T), dtype=torch.float32, device=dev)
-    c, s = _cs(theta)
+    c, s = kick_cs(theta)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.floquet_x_forward(state.data_ptr(), rows.data_ptr(),
                                 partials.data_ptr(), a_raw.data_ptr(), n, L,
                                 T, q, b0, c, s, stream)
     LAUNCHES["forward"] += 1
     raise_on(err, "floquet_x_forward")
-    return _forward_host_factor(a_raw.reshape(*batch, T), sig_after, q, b0,
+    return forward_host_factor(a_raw.reshape(*batch, T), sig_after, q, b0,
                                 ancilla_factor)
 
 
@@ -293,12 +297,12 @@ def blocked_echo_batch(tiles, sig_fin, theta, *, L, q,
     partials = torch.empty((n, lib.floquet_x_echo_partials(L)),
                            dtype=torch.float32, device=dev)
     val = torch.empty((n,), dtype=torch.float32, device=dev)
-    c, s = _cs(theta)
+    c, s = kick_cs(theta)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.floquet_x_echo(state.data_ptr(), tiles.data_ptr(),
                              partials.data_ptr(), val.data_ptr(), n, L, R,
                              n_steps, q, b0, c, s, stream)
     LAUNCHES["echo"] += 1
     raise_on(err, "floquet_x_echo")
-    return _echo_host_factor(val.reshape(batch), sig_fin, q, b0,
+    return echo_host_factor(val.reshape(batch), sig_fin, q, b0,
                              ancilla_factor)

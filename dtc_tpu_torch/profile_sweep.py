@@ -1,14 +1,21 @@
 """Where the device time of the main path goes, from ``torch.profiler``.
 
 Traces, on a CUDA card at the bench shape (L=20, T=50, p=0.05, g=0.97,
-vacuum, probe q = L//2) and the drive ``--polarization`` names (default x,
-the K1/K2 path; y, xy, yx, circular_* and xy_cycle take K4):
+vacuum, probe q = L//2, 32 trajectories; ``--L``, ``--tf`` and
+``--n_trajectories`` change it) and the drive ``--polarization`` names
+(default x, the K1/K2 path; y, xy, yx, circular_* and xy_cycle take K4):
 
-- ``forward``: three ``_forward_batch`` dispatches of 32 trajectories, each
+- ``forward``: three ``_forward_batch`` dispatches of n_trajectories, each
   copied to the host as ``bench.py`` does;
-- ``echo``: the ``autocorr`` echo sweep of 2 instances x 32 trajectories;
+- ``echo``: the ``autocorr`` echo sweep of 2 instances x n_trajectories;
 - ``energy_level``: one noise level (p=0.05, the full Hamiltonian) of the
-  ``energy`` sweep on 1 instance x 32 trajectories (K5 on its range).
+  ``energy`` sweep on 1 instance x n_trajectories (K5 on its range).
+
+Above K1/K2's range (L >= 24, the streamed x family) a whole echo sweep
+takes minutes, so ``echo_chunk`` traces one launch of it instead: its last
+(t values T-k..T-1, the longest trip counts, k and the trajectories as
+``engine.kernel_chunks`` sizes them for one instance); there is no energy
+trace (the energy route is the eager engine there).
 
 For each it prints one JSON line: the wall ms, the device-busy ms (the union
 of the intervals of every device event, kernels and copies), the idle share
@@ -17,7 +24,8 @@ first. With ``--out DIR`` it also writes the profiler's own table to
 ``DIR/profile_<name>.txt``.
 
 Run: ``python -m dtc_tpu_torch.profile_sweep [--polarization POL]
-[--out DIR]``.
+[--L L --tf T --n_trajectories N] [--out DIR]``, e.g. ``--L 28 --tf 20
+--n_trajectories 4`` or ``--L 30 --tf 6 --n_trajectories 1``.
 """
 
 from __future__ import annotations
@@ -33,16 +41,19 @@ import torch
 from dtc_tpu_torch.core.sigma_evolve import draw_uniforms
 from dtc_tpu_torch.experiments import energy
 from dtc_tpu_torch.experiments.engine import (
+    _echo_batch,
     _forward_batch,
     build_context,
     echo_sweep,
     engine_for,
+    kernel_chunks,
     resolve_device,
 )
 from dtc_tpu_torch.io.disorder import generate_disorder
+from dtc_tpu_torch.ops import resident_blocked
 from dtc_tpu_torch.utils.config import SimConfig
 
-L, T, P, G, N_TRAJ, INST = 20, 50, 0.05, 0.97, 32, 2
+P, G, INST = 0.05, 0.97, 2
 
 
 def short_name(name: str) -> str:
@@ -113,11 +124,16 @@ def main(argv=None) -> None:
                     help="directory for the profiler's tables")
     ap.add_argument("--polarization", default="x",
                     help="drive to trace (x: K1/K2; any other: K4)")
+    ap.add_argument("--L", type=int, default=20, help="chain length")
+    ap.add_argument("--tf", type=int, default=50, help="cycles T")
+    ap.add_argument("--n_trajectories", type=int, default=32,
+                    help="trajectories per dispatch and instance")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-    pol = args.polarization
+    pol, L, T, N_TRAJ = (args.polarization, args.L, args.tf,
+                         args.n_trajectories)
     cfg = SimConfig(L=L, tf=T, g=G, inst=INST, noise_prob=P, use_noise=1,
                     n_trajectories=N_TRAJ, polarization=pol)
     hs, phis = generate_disorder(L, INST, seed=0)
@@ -137,8 +153,19 @@ def main(argv=None) -> None:
                            **kw).cpu()
 
     forward(1)  # kernel build and first launch stay out of the trace
-    tag = "" if pol == "x" else f"_{pol}"
+    tag = ("" if pol == "x" else f"_{pol}") + ("" if L == 20 else f"_L{L}")
     traced(f"forward_dispatch_x3{tag}", forward, args.out, engine=engine)
+    if L > resident_blocked.MAX_L:
+        _, c, n_ts = kernel_chunks(1, N_TRAJ, 8, L)
+        ts = torch.arange(T - n_ts, T, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        u = draw_uniforms((1, c, 2 * T * sched.K, L), generator=gen,
+                          device=dev)
+        traced(f"echo_chunk{tag}", lambda: _echo_batch(
+            params[0][:1], params[1][:1], sched.angles, ts, u, **kw).cpu(),
+            args.out, engine=engine, pairs=c * n_ts,
+            ts=[T - n_ts, T - 1])
+        return
     traced(f"echo_sweep{tag}",
            lambda: echo_sweep(cfg, sched, params, noise), args.out,
            engine=engine)

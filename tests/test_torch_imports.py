@@ -21,7 +21,7 @@ def test_no_module_of_the_port_loads_jax():
         dtc_tpu_torch.__path__, "dtc_tpu_torch.")
         if m.name != "dtc_tpu_torch.__main__"]
     for module in ("ops.resident_general", "io.disorder", "experiments.energy",
-                   "ops.observables", "utils.checkpoints"):
+                   "ops.observables", "utils.checkpoints", "ops.streamed"):
         assert f"dtc_tpu_torch.{module}" in names
     code = ("import importlib, sys\n"
             f"for n in {names + ['chip_smoke']!r}:\n"

@@ -1,5 +1,6 @@
-"""CUDA kernels K1/K2 (constant x), K4 (lab frame, any drive) and K5
-(per-cycle observables) against their plain versions, on the card.
+"""CUDA kernels K1/K2 (constant x), the streamed x family (constant x at
+22 <= L <= 30), K4 (lab frame, any drive) and K5 (per-cycle observables)
+against their plain versions, on the card.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one. They import neither jax nor ``tests/conftest.py``'s setup, so
@@ -23,6 +24,7 @@ from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.ops import resident_blocked as rb
 from dtc_tpu_torch.ops import observables as obs
 from dtc_tpu_torch.ops import resident_general as rg
+from dtc_tpu_torch.ops import streamed as sm
 from dtc_tpu_torch.ops.params import echo_pair_tiles, forward_rows
 from dtc_tpu_torch.ops.params_general import (
     general_echo_rows,
@@ -321,3 +323,66 @@ def test_energy_on_card_matches_cpu(cuda_device, L, dtype):
                                    atol=TOL * scale, rtol=0)
         np.testing.assert_allclose(got["per_qubit_z"][p],
                                    ref["per_qubit_z"][p], atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,q,state", [(22, 0, "neel"), (24, 12, "vacuum"),
+                                       (27, 26, "vacuum")])
+def test_streamed_kernels_match_plain_on_card(cuda_device, L, q, state):
+    """Two passes (L=22, 24) and three (L=27), probes in every bit band."""
+    hs, phis = _disorder(L, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(L)
+    u = torch.rand((1, 2, 4, L), generator=gen, device=cuda_device)
+    rows, sig = forward_rows(u, hs[:, None], phis[:, None], L=L, T=4, p=0.1)
+    k = sm.streamed_forward_batch(rows, sig, THETA, L=L, q=q,
+                                  initial_state=state)
+    torch.cuda.synchronize()
+    ref = sm.streamed_forward_batch_ref(rows, sig, THETA, L=L, q=q,
+                                        initial_state=state)
+    assert float((k - ref).abs().max()) <= TOL
+    ue = torch.rand((1, 1, 6, L), generator=gen, device=cuda_device)
+    for p in (0.6, 0.0):
+        tiles, sfin = echo_pair_tiles(ue, torch.arange(4, device=cuda_device),
+                                      hs[:, None], phis[:, None], L=L, T=3,
+                                      p=p)
+        k = sm.streamed_echo_batch(tiles, sfin, THETA, L=L, q=q,
+                                   initial_state=state)
+        torch.cuda.synchronize()
+        ref = sm.streamed_echo_batch_ref(tiles, sfin, THETA, L=L, q=q,
+                                         initial_state=state)
+        assert float((k - ref).abs().max()) <= TOL
+        if p == 0:
+            assert float((k - 1).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [22, 23])
+def test_streamed_kernels_match_k1_k2_on_card(cuda_device, L):
+    """Where both families run, they agree on the same rows."""
+    hs, phis = _disorder(L, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    u = torch.rand((1, 3, 6, L), generator=gen, device=cuda_device)
+    rows, sig = forward_rows(u, hs[:, None], phis[:, None], L=L, T=6, p=0.1)
+    a = sm.streamed_forward_batch(rows, sig, THETA, L=L, q=L // 2)
+    b = rb.blocked_forward_batch(rows, sig, THETA, L=L, q=L // 2)
+    assert float((a - b).abs().max()) <= TOL
+    tiles, sfin = echo_pair_tiles(u, torch.arange(1, 4, device=cuda_device),
+                                  hs[:, None], phis[:, None], L=L, T=3, p=0.6)
+    a = sm.streamed_echo_batch(tiles, sfin, THETA, L=L, q=L // 2)
+    b = rb.blocked_echo_batch(tiles, sfin, THETA, L=L, q=L // 2)
+    assert float((a - b).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_streamed_wrappers_reject_bad_inputs(cuda_device):
+    sig = torch.zeros((1, 3), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        sm.streamed_forward_batch(
+            torch.zeros((1, 3, 128), device=cuda_device).double(), sig, THETA,
+            L=22, q=3)
+    with pytest.raises(ValueError, match="lanes"):
+        sm.streamed_forward_batch(torch.zeros((1, 3, 128), device=cuda_device),
+                                  sig, THETA, L=27, q=3)
+    with pytest.raises(ValueError, match="22 <= L <= 30"):
+        sm.streamed_forward_batch(torch.zeros((1, 3, 256), device=cuda_device),
+                                  sig, THETA, L=31, q=3)
