@@ -20,7 +20,11 @@ each; any failure raises and the script exits non-zero without a result:
    A(1) = cos(pi g) within 1e-5 from the vacuum at p=0 for q = 0, 15, 29,
    the noiseless echo = 1 within 1e-4 at t=1..3, and a noisy forward
    (p=0.05, T=8) finite with |A| <= 1 (the plain comparison at L=30 is in
-   the timing phase, on the main path's own shapes);
+   the timing phase, on the main path's own shapes); the streamed lab-frame
+   family (K10) against its plain version at L=22, 24, 25, 26, 28 and 29
+   (y, circular_left, xy_cycle; q = 0, L//2, L-1; vacuum and neel; echo at
+   p=0.6 and 0) and against K4 on the same rows at L=22 and 23 (its L=29
+   comparison on the main path's shapes is in the timing phase);
 4. main paths, each through the CLI's ``main(argv)`` with every launch
    count set to 0 just before it and read just after:
    ``autocorr --device cuda`` (x drive: K1/K2) at L=20, T=50, 2 instances x
@@ -32,14 +36,20 @@ each; any failure raises and the script exits non-zero without a result:
    ``energy``, ``ham-comparison`` and ``per-qubit-z`` at L=20, T=50, 32
    trajectories, ``per-qubit-z`` without noise, and ``per-qubit-z`` of the
    xy drive at T=20, with checks on their CSVs (E(0), z(0), z(1) at p=0);
-   then the large-L x path: ``autocorr --device cuda`` at L=28 (T=20, 4
-   trajectories) and L=30 (T=6, 1 trajectory), engine=streamed for both
-   sweeps, the streamed kernels launched, no plain version on CUDA;
+   then the large-L paths: ``polarization --device cuda`` at L=28 (T=12,
+   2 trajectories; x on the streamed x family, y, xy, yx on K10,
+   engine=general_hi), ``autocorr --device cuda`` of the x drive at L=28
+   (T=20, 4 trajectories) and L=30 (T=6, 1 trajectory), engine=streamed for
+   both sweeps, and of the circular_left drive at L=29 (T=6, 1
+   trajectory), engine=general_hi; each with its family's kernels launched,
+   no other kernel, no plain version on CUDA;
 5. timing: the bench shape (``dtc_tpu_torch/bench.py::run_case``) and every
    kernel against its plain version on identical inputs, whose outputs are
    held to the same bound (the streamed family: forward at L=24, 26, 28 and
    30, echo at L=28 and 30, with the plain version's peak device memory,
-   and against K1 on the same L=23 rows); each kernel's bound: the larger
+   and against K1 on the same L=23 rows; K10: forward y at L=28 and
+   circular_left at L=29, echo y at L=28 and circular_left at L=29, the
+   main paths' launches, with the peak memory); each kernel's bound: the larger
    of its bytes (inputs read once, outputs written once) over 3.35 TB/s and
    its f32 operations over 67 TFLOP/s (the H100 SXM's published peaks), and
    its state floor (16 B per amplitude per pass and step, 2 or 3 passes);
@@ -431,6 +441,60 @@ def compare_streamed(dev, err) -> None:
             rb.blocked_echo_batch(tiles, sig, THETA, **kw)))
 
 
+def compare_general_hi(dev, err) -> None:
+    """The streamed lab-frame family (K10) against its plain version at
+    L=22, 24 (two passes), 25, 26, 28 and 29 (three): y (K=1),
+    circular_left (K=2) and xy_cycle (x for two cycles, then y) at each L
+    with q = 0, L//2, L-1 and vacuum and neel in turn, forward (T=4) at
+    p=0.6 and echo (t = 0, 1, 3) at p=0.6 and 0; and
+    against K4 on the same rows at L=22, 23. The L=29 comparison on the main
+    path's own shapes is in the timing phase; these launches are not the
+    main path's."""
+    from dtc_tpu_torch.ops import cycle_hi_general as chg
+    from dtc_tpu_torch.ops import resident_general as rg
+
+    drives = ("y", "circular_left", "xy_cycle")
+    for i, L in enumerate((22, 24, 25, 26, 28, 29)):
+        c = 2 if L < 28 else 1
+        for j, pol in enumerate(drives):
+            state = ("vacuum", "neel")[(i + j) % 2]
+            q = (0, L // 2, L - 1)[(i + j) % 3]
+            rows = general_forward_inputs(L, pol, 4, c, 0.6, dev, seed=L + j)
+            d, _ = against_plain(
+                f"K10 forward L={L} {pol} T=4 {state} q={q} 1x{c}",
+                chg.general_hi_forward_batch, chg.general_hi_forward_batch_ref,
+                (rows,), dict(L=L, T=4, q=q, initial_state=state))
+            err["K10 forward"] = max(err["K10 forward"], d)
+            del rows
+        pol = drives[i % 3]
+        state = ("neel", "vacuum")[i % 2]
+        q = (L // 2, L - 1, 0)[i % 3]
+        for p in (0.6, 0.0):
+            tiles = general_echo_inputs(L, pol, 4, 1, p, [0, 1, 3], dev,
+                                        seed=L)
+            d, k = against_plain(
+                f"K10 echo L={L} {pol} T=4 ts=0,1,3 p={p} {state} q={q}",
+                chg.general_hi_echo_batch, chg.general_hi_echo_batch_ref,
+                (tiles,), dict(L=L, q=q, initial_state=state))
+            if p == 0.0 and not float((k - 1).abs().max()) <= TOL:
+                raise RuntimeError(f"noiseless echo != 1: {k.tolist()}")
+            err["K10 echo"] = max(err["K10 echo"], d)
+            del tiles
+    for L in (22, 23):
+        rows = general_forward_inputs(L, "xy", 8, 4, 0.1, dev, seed=L)
+        kw = dict(L=L, q=L // 2)
+        err["K10 forward"] = max(err["K10 forward"], held(
+            f"K10 forward vs K4 L={L} xy T=8 1x4",
+            chg.general_hi_forward_batch(rows, T=8, **kw),
+            rg.general_forward_batch(rows, T=8, **kw)))
+        tiles = general_echo_inputs(L, "circular_left", 4, 2, 0.6,
+                                    [1, 2, 3, 4], dev, seed=L)
+        err["K10 echo"] = max(err["K10 echo"], held(
+            f"K10 echo vs K4 L={L} circular_left ts=1..4 p=0.6 1x2",
+            chg.general_hi_echo_batch(tiles, **kw),
+            rg.general_echo_batch(tiles, **kw)))
+
+
 def anchors_l30(dev) -> None:
     """L=30, 8 GiB a state: values the physics fixes, which a wrapped 32-bit
     offset would break."""
@@ -503,6 +567,7 @@ def one_csv(tmp, prefix) -> dict:
 def run_cli(argv) -> tuple:
     """Run the CLI with every launch count at 0; returns (launches,
     plain calls on CUDA, sweep log, seconds)."""
+    from dtc_tpu_torch.ops import cycle_hi_general as chg
     from dtc_tpu_torch.ops import observables as ob
     from dtc_tpu_torch.ops import resident_blocked as rb
     from dtc_tpu_torch.ops import resident_general as rg
@@ -512,10 +577,8 @@ def run_cli(argv) -> tuple:
     log = SweepLog()
     logger = logging.getLogger("dtc_tpu_torch")
     logger.addHandler(log)
-    rb.reset_counters()
-    rg.reset_counters()
-    ob.reset_counters()
-    sm.reset_counters()
+    for mod in (rb, rg, ob, sm, chg):
+        mod.reset_counters()
     t0 = time.perf_counter()
     try:
         rc = cli_main(argv)
@@ -528,11 +591,14 @@ def run_cli(argv) -> tuple:
                 "K4 echo": rg.LAUNCHES["echo"],
                 "K5": ob.LAUNCHES["observables"],
                 "K6 forward": sm.LAUNCHES["forward"],
-                "K6 echo": sm.LAUNCHES["echo"]}
+                "K6 echo": sm.LAUNCHES["echo"],
+                "K10 forward": chg.LAUNCHES["forward"],
+                "K10 echo": chg.LAUNCHES["echo"]}
     plain = {**{f"x {k}": v for k, v in rb.PLAIN_ON_CUDA.items()},
              **{f"general {k}": v for k, v in rg.PLAIN_ON_CUDA.items()},
              **ob.PLAIN_ON_CUDA,
-             **{f"streamed {k}": v for k, v in sm.PLAIN_ON_CUDA.items()}}
+             **{f"streamed {k}": v for k, v in sm.PLAIN_ON_CUDA.items()},
+             **{f"general_hi {k}": v for k, v in chg.PLAIN_ON_CUDA.items()}}
     if rc != 0:
         raise RuntimeError(f"{argv[0]} CLI returned {rc}")
     return launches, plain, log, seconds
@@ -561,9 +627,9 @@ def fail_on(what, checks) -> None:
     phase(f"[main] {what} checks passed: " + ", ".join(checks))
 
 
-def common_argv(T, tmp):
-    return ["--device", DEVICE, "--L", str(MAIN_L), "--tf", str(T), "--g",
-            "0.97", "--noise_prob", str(P), "--n_trajectories", str(N_TRAJ),
+def common_argv(T, tmp, L=MAIN_L, n_traj=N_TRAJ):
+    return ["--device", DEVICE, "--L", str(L), "--tf", str(T), "--g",
+            "0.97", "--noise_prob", str(P), "--n_trajectories", str(n_traj),
             "--out_dir", tmp, "--disorder_dir", tmp]
 
 
@@ -600,16 +666,20 @@ def main_autocorr(smi) -> dict:
     return launches
 
 
-def main_polarization(smi) -> dict:
-    """This slice's path: ``polarization`` over x, y, xy, yx."""
+def main_polarization(smi, L=MAIN_L, T=MAIN_T, n_traj=N_TRAJ,
+                      x_route=("blocked", "K1", "K2"),
+                      route=("general", "K4 forward", "K4 echo")) -> dict:
+    """``polarization`` over x, y, xy, yx: the x drive on the engine route
+    and kernels ``x_route`` names, the others on ``route``'s."""
     from dtc_tpu_torch.io import naming
     from dtc_tpu_torch.utils.config import SimConfig
 
     pols = ("x", "y", "xy", "yx")
     with tempfile.TemporaryDirectory() as tmp:
         launches, plain, log, seconds = run_cli(
-            ["polarization", "--inst", "1", *common_argv(MAIN_T, tmp)])
-        cfg = SimConfig(L=MAIN_L, tf=MAIN_T, g=0.97, noise_prob=P, inst=1)
+            ["polarization", "--inst", "1",
+             *common_argv(T, tmp, L=L, n_traj=n_traj)])
+        cfg = SimConfig(L=L, tf=T, g=0.97, noise_prob=P, inst=1)
         path = os.path.join(tmp, naming.autocorr_comparison_csv_name(cfg))
         if not os.path.exists(path):
             raise RuntimeError(f"no {os.path.basename(path)} in "
@@ -632,25 +702,25 @@ def main_polarization(smi) -> dict:
               f"{[round(x, 6) for x in e[:4]]}")
     engines = {(s[2], s[1]) for s in log.sweeps}
     checks.update({
-        "engine=blocked for x": engines & {("x", "blocked")} == {
-            ("x", "blocked")},
-        "engine=general for y, xy, yx": all(
-            (pol, "general") in engines for pol in ("y", "xy", "yx")),
+        f"engine={x_route[0]} for x": ("x", x_route[0]) in engines,
+        f"engine={route[0]} for y, xy, yx": all(
+            (pol, route[0]) in engines for pol in ("y", "xy", "yx")),
         "one engine per polarization": len(engines) == len(pols),
-        "K1 launched": launches["K1"] > 0,
-        "K2 launched": launches["K2"] > 0,
-        "K4 forward launched": launches["K4 forward"] > 0,
-        "K4 echo launched": launches["K4 echo"] > 0,
+        **{f"{k} launched": launches[k] > 0 for k in (*x_route[1:],
+                                                      *route[1:])},
+        "no other kernel": not any(
+            v for k, v in launches.items()
+            if k not in (*x_route[1:], *route[1:])),
         "no plain version on CUDA": not any(plain.values()),
     })
-    phase(f"[main] polarization L={MAIN_L} T={MAIN_T} inst=1 traj={N_TRAJ}"
+    phase(f"[main] polarization L={L} T={T} inst=1 traj={n_traj}"
           " x,y,xy,yx in "
           f"{seconds:.2f}s: launches={launches} sweeps={sorted(engines)}")
     fail_on("polarization", checks)
     per_pol = " ".join(f"{pol} {f:.3f}/{e:.3f}" for pol, f, e in zip(
         pols, log.seconds["forward"], log.seconds["echo"]))
-    phase(f"[main] polarization sweep seconds (forward/echo): {per_pol} on "
-          f"{smi}")
+    phase(f"[main] polarization L={L} sweep seconds (forward/echo): "
+          f"{per_pol} on {smi}")
     return launches
 
 
@@ -757,36 +827,39 @@ def main_energy(smi) -> int:
 
 
 def main_large(smi) -> dict:
-    """The large-L x path: ``autocorr --device cuda`` at L=28 (T=20, 4
-    trajectories) and L=30 (T=6, 1 trajectory), one instance; returns the
-    streamed kernels' launches over both runs."""
-    total = {"K6 forward": 0, "K6 echo": 0}
-    for L, T, n in ((28, 20, 4), (30, 6, 1)):
+    """The large-L paths, one instance each: ``autocorr --device cuda`` of
+    the x drive at L=28 (T=20, 4 trajectories) and L=30 (T=6, 1
+    trajectory) on the streamed x family (K6), and of the circular_left
+    drive at L=29 (T=6, 1 trajectory) on the streamed lab-frame family
+    (K10); returns each family's launches."""
+    total = {"K6 forward": 0, "K6 echo": 0, "K10 forward": 0, "K10 echo": 0}
+    for L, T, n, pol in ((28, 20, 4, "x"), (30, 6, 1, "x"),
+                         (29, 6, 1, "circular_left")):
+        engine, fam = ("streamed", "K6") if pol == "x" else ("general_hi",
+                                                             "K10")
         with tempfile.TemporaryDirectory() as tmp:
             launches, plain, log, seconds = run_cli(
-                ["autocorr", "--inst", "1", "--device", DEVICE, "--L", str(L),
-                 "--tf", str(T), "--g", "0.97", "--noise_prob", str(P),
-                 "--n_trajectories", str(n), "--out_dir", tmp,
-                 "--disorder_dir", tmp])
+                ["autocorr", "--inst", "1", "--polarization", pol,
+                 *common_argv(T, tmp, L=L, n_traj=n)])
             cols = one_csv(tmp, "autocorr_data_")
         a, e = cols["av_autocorr"], cols["av_autocorr_echo"]
-        checks = physics_checks(a, e, (1 - P) ** 6, alternates=True)
+        checks = physics_checks(a, e, (1 - P) ** 6, alternates=pol == "x")
         checks.update({
-            "engine=streamed for both sweeps":
+            f"engine={engine} for both sweeps":
                 sorted(s[:2] for s in log.sweeps) == [
-                    ("echo_sweep", "streamed"), ("forward_sweep", "streamed")],
-            "K6 forward launched": launches["K6 forward"] > 0,
-            "K6 echo launched": launches["K6 echo"] > 0,
+                    ("echo_sweep", engine), ("forward_sweep", engine)],
+            f"{fam} forward launched": launches[f"{fam} forward"] > 0,
+            f"{fam} echo launched": launches[f"{fam} echo"] > 0,
             "no other kernel": not any(v for k, v in launches.items()
-                                       if not k.startswith("K6")),
+                                       if k.split()[0] != fam),
             "no plain version on CUDA": not any(plain.values()),
         })
-        phase(f"[main] autocorr L={L} T={T} inst=1 traj={n} in "
+        phase(f"[main] autocorr {pol} L={L} T={T} inst=1 traj={n} in "
               f"{seconds:.2f}s: A[0:4]={[round(x, 6) for x in a[:4]]} "
               f"echo[0:4]={[round(x, 6) for x in e[:4]]} launches="
               f"{ {k: v for k, v in launches.items() if v} }")
-        fail_on(f"autocorr L={L}", checks)
-        phase(f"[main] autocorr L={L} sweep seconds: forward "
+        fail_on(f"autocorr {pol} L={L}", checks)
+        phase(f"[main] autocorr {pol} L={L} sweep seconds: forward "
               f"{log.seconds['forward'][0]:.3f} s, echo "
               f"{log.seconds['echo'][0]:.3f} s (inst=1 x {n} trajectories) "
               f"on {smi}")
@@ -947,6 +1020,12 @@ def timing_obs(dev, smi, err) -> dict:
     return out
 
 
+def peak(name, what, L, dev, smi) -> None:
+    phase(f"[timing] {name} {what}: peak device memory of the kernel and "
+          f"plain calls {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+          f" GiB (a state {2 ** (L + 3) / 2**30:.3f} GiB) on {smi}")
+
+
 def timing_streamed(dev, smi, err) -> dict:
     """The streamed family's forward at L=24, 26, 28 (4 trajectories, T=8)
     and 30 (1 trajectory, T=6: the main path's launch), its echo at L=28
@@ -960,12 +1039,6 @@ def timing_streamed(dev, smi, err) -> dict:
     from dtc_tpu_torch.ops import streamed as sm
 
     lib = _build.load("floquet_x_streamed")
-
-    def peak(what, L):
-        phase(f"[timing] K6 {what}: peak device memory of the kernel and "
-              f"plain calls {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
-              f" GiB (a state {2 ** (L + 3) / 2**30:.3f} GiB) on {smi}")
-
     out = {}
     for L, c, T in ((24, 4, 8), (26, 4, 8), (28, 4, 8), (30, 1, 6)):
         rows, sig = forward_inputs(L, T, c, P, dev, seed=L)
@@ -977,7 +1050,7 @@ def timing_streamed(dev, smi, err) -> dict:
         what = f"forward L={L} T={T} traj={c}"
         err["K6 forward"] = max(err["K6 forward"], held(
             f"K6 {what} (timed inputs)", k, ref))
-        peak(what, L)
+        peak("K6", what, L, dev, smi)
         out[f"forward {L}"] = report(
             "K6", what, k_ms, p_ms, c * (T - 1) << L, "cycles", T * c,
             4 * (rows.numel() + k.numel()), 6 * L + 6, smi,
@@ -996,7 +1069,7 @@ def timing_streamed(dev, smi, err) -> dict:
                 f"steps={steps}")
         err["K6 echo"] = max(err["K6 echo"], held(
             f"K6 {what} (timed inputs)", k, ref))
-        peak(what, L)
+        peak("K6", what, L, dev, smi)
         out[f"echo {L}"] = report(
             "K6", what, k_ms, p_ms, steps << L, "steps", steps,
             4 * (tiles.numel() + k.numel()), 6 * L + 12, smi,
@@ -1016,32 +1089,94 @@ def timing_streamed(dev, smi, err) -> dict:
     return {"K6 forward": out["forward 28"], "K6 echo": out["echo 28"]}
 
 
+def timing_general_hi(dev, smi, err) -> dict:
+    """The streamed lab-frame family against its plain version on the main
+    paths' shapes, with the peak device memory of each kernel/plain pair:
+    forward at L=28 (y, 4 trajectories, T=8) and L=29 (circular_left, 1
+    trajectory, T=6: the ``autocorr`` run's launch), echo at L=28 (y, the
+    ``polarization`` run's first launch: ts=0..3, 1 trajectory) and L=29
+    (circular_left, its last: t=5). Operations per amplitude and step: K4's
+    (14 L + 6 forward, 14 L + 12 echo). Returns the L=28 numbers."""
+    from dtc_tpu_torch.ops import _build
+    from dtc_tpu_torch.ops import cycle_hi_general as chg
+
+    lib = _build.load("floquet_general_streamed")
+    out = {}
+    for L, pol, T, c in ((28, "y", 8, 4), (29, "circular_left", 6, 1)):
+        rows = general_forward_inputs(L, pol, T, c, P, dev, seed=L)
+        K = rows.shape[-2] // T
+        kw = dict(L=L, T=T, q=L // 2)
+        torch.cuda.reset_peak_memory_stats(dev)
+        k_ms, p_ms, k, ref = timed_pair(
+            lambda: chg.general_hi_forward_batch(rows, **kw),
+            lambda: chg.general_hi_forward_batch_ref(rows, **kw), 1)
+        what = f"forward {pol} L={L} T={T} traj={c} steps/cycle={K}"
+        err["K10 forward"] = max(err["K10 forward"], held(
+            f"K10 {what} (timed inputs)", k, ref))
+        peak("K10", what, L, dev, smi)
+        out[f"forward {L}"] = report(
+            "K10", what, k_ms, p_ms, c * (T - 1) * K << L, "cycles", T * c,
+            4 * (rows.numel() + k.numel()), 14 * L + 6, smi,
+            passes=lib.floquet_general_streamed_passes(L))
+        del rows
+    for L, pol, T, ts in ((28, "y", 12, [0, 1, 2, 3]),
+                          (29, "circular_left", 6, [5])):
+        tiles = general_echo_inputs(L, pol, T, 1, P, ts, dev, seed=L)
+        K = tiles.shape[-2] // (4 * T)
+        kw = dict(L=L, q=L // 2)
+        torch.cuda.reset_peak_memory_stats(dev)
+        k_ms, p_ms, k, ref = timed_pair(
+            lambda: chg.general_hi_echo_batch(tiles, **kw),
+            lambda: chg.general_hi_echo_batch_ref(tiles, **kw), 1)
+        steps = sum(2 * t * K for t in ts)
+        what = (f"echo {pol} L={L} ts={ts[0]}..{ts[-1]} pairs={len(ts)} "
+                f"steps={steps}")
+        err["K10 echo"] = max(err["K10 echo"], held(
+            f"K10 {what} (timed inputs)", k, ref))
+        peak("K10", what, L, dev, smi)
+        out[f"echo {L}"] = report(
+            "K10", what, k_ms, p_ms, steps << L, "steps", steps,
+            4 * (tiles.numel() + k.numel()), 14 * L + 12, smi,
+            passes=lib.floquet_general_streamed_passes(L))
+        del tiles
+    return {"K10 forward": out["forward 28"], "K10 echo": out["echo 28"]}
+
+
 def main() -> None:
     csrc = os.path.join(HERE, "dtc_tpu_torch", "csrc")
     if not all(os.path.isfile(os.path.join(csrc, f))
                for f in ("floquet_x.cu", "floquet_x_streamed.cu",
-                         "floquet_general.cu")):
+                         "floquet_general.cu",
+                         "floquet_general_streamed.cu")):
         sys.exit("chip_smoke: run it from the root of a checkout of the"
                  " repository (dtc_tpu_torch/csrc not found beside it)")
     smi = card()
     dev = torch.device("cuda")
     build()
     err = {"K1": 0.0, "K2": 0.0, "K4 forward": 0.0, "K4 echo": 0.0,
-           "K5": 0.0, "K6 forward": 0.0, "K6 echo": 0.0}
+           "K5": 0.0, "K6 forward": 0.0, "K6 echo": 0.0,
+           "K10 forward": 0.0, "K10 echo": 0.0}
     compare_x(dev, err)
     compare_general(dev, err)
     compare_obs(dev, err)
     compare_eager(dev)
     compare_streamed(dev, err)
+    compare_general_hi(dev, err)
     anchors_l30(dev)
     launches = main_autocorr(smi)
     launches.update({k: v for k, v in main_polarization(smi).items()
                      if k.startswith("K4")})
     main_studies()
     launches["K5"] = main_energy(smi)
-    launches.update(main_large(smi))
+    large = main_polarization(
+        smi, L=28, T=12, n_traj=2, x_route=("streamed", "K6 forward",
+                                            "K6 echo"),
+        route=("general_hi", "K10 forward", "K10 echo"))
+    for k, v in main_large(smi).items():
+        launches[k] = v + large[k]
     times = timing(dev, smi, err)
     times.update(timing_streamed(dev, smi, err))
+    times.update(timing_general_hi(dev, smi, err))
     times["K4 forward"] = times.pop("K4 forward xy")
     times["K5"] = times.pop("K5 x")
     general = "dtc_tpu/ops/pallas_resident_general.py"
@@ -1067,6 +1202,12 @@ def main() -> None:
          "dtc_tpu_torch/csrc/floquet_x_streamed.cu",
          "dtc_tpu/ops/pallas_streamed.py:322",
          "dtc_tpu/ops/pallas_streamed_hi.py:344"),
+        ("K10 forward", "floquet_general_streamed_forward",
+         "dtc_tpu_torch/csrc/floquet_general_streamed.cu",
+         "dtc_tpu/ops/pallas_cycle_hi_general.py:65", None),
+        ("K10 echo", "floquet_general_streamed_echo",
+         "dtc_tpu_torch/csrc/floquet_general_streamed.cu",
+         "dtc_tpu/ops/pallas_cycle_hi_general.py:250", None),
     ]
     line = []
     for key, fn, src, where, also in kernels:

@@ -41,102 +41,17 @@
 // amplitudes in registers; a general complex 2x2 costs 14 flops per
 // amplitude and bit against RX's 6, so the kick's arithmetic weighs more
 // than in K1/K2. The per-qubit matrices are built once per block in shared
-// memory. Reductions are deterministic (floquet_common.cuh).
+// memory. Reductions are deterministic (floquet_common.cuh). The row lanes,
+// the kick matrices and the butterflies are in floquet_lab.cuh, shared with
+// the large-L lab-frame family (floquet_general_streamed.cu).
 
 #include "floquet_common.cuh"
+#include "floquet_lab.cuh"
 
 namespace {
 
 constexpr int kMaxL = 32;
 constexpr int kMaxLo = 12;     // pass-lo tile bits L - L/2 for L <= 23 (K5)
-constexpr int kLaneMpos = 0;   // flag lanes, offset from FO = 4L-1
-constexpr int kLaneU8 = 2;
-constexpr int kLaneCount = 10;
-
-struct Mat2 {
-  float2 a00, a01, a10, a11;
-};
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// (a, b) <- (m00 a + m01 b, m10 a + m11 b)
-__device__ __forceinline__ void mat_pair(float2& a, float2& b,
-                                         const Mat2& m) {
-  const float2 p = cmul(m.a00, a), r = cmul(m.a01, b);
-  const float2 u = cmul(m.a10, a), v = cmul(m.a11, b);
-  a = make_float2(p.x + r.x, p.y + r.y);
-  b = make_float2(u.x + v.x, u.y + v.y);
-}
-
-// Per-qubit kick matrices of one row: U, rows swapped where m_j = 1.
-__device__ void load_mats(const float* __restrict__ row, int L, Mat2* mats) {
-  const float* u = row + 4 * L - 1 + kLaneU8;
-  for (int j = threadIdx.x; j < L; j += blockDim.x) {
-    const float2 u00 = make_float2(u[0], u[1]), u01 = make_float2(u[2], u[3]);
-    const float2 u10 = make_float2(u[4], u[5]), u11 = make_float2(u[6], u[7]);
-    mats[j] = row[L + j] > 0.5f ? Mat2{u10, u11, u00, u01}
-                                : Mat2{u00, u01, u10, u11};
-  }
-}
-
-// cz_q, cb_j and c0 of one row, into shared memory.
-__device__ void load_coeffs(const float* __restrict__ row, int L, float* cz,
-                            float* cb, float* c0) {
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    cz[i] = -0.5f * row[2 * L + i] - kHalfPi * row[i];
-  }
-  for (int i = threadIdx.x; i < L - 1; i += blockDim.x) {
-    cb[i] = -0.5f * row[3 * L + i];
-  }
-  if (threadIdx.x == 0) {
-    float n = 0.0f;
-    for (int i = 0; i < L; ++i) n += row[i];
-    *c0 = kHalfPi * n;
-  }
-}
-
-// Kick on NB consecutive tile-index bits [b, b + NB) of a 2^tbits tile, one
-// shared-memory round; mats[k] acts on tile bit b + k.
-template <int NB>
-__device__ void kick_round(float2* tile, int tbits, int b, const Mat2* mats) {
-  constexpr int M = 1 << NB;
-  const int ntup = 1 << (tbits - NB);
-  const int lowmask = (1 << b) - 1;
-  Mat2 mk[NB];
-#pragma unroll
-  for (int k = 0; k < NB; ++k) mk[k] = mats[k];
-  for (int p = threadIdx.x; p < ntup; p += blockDim.x) {
-    const int base = ((p >> b) << (b + NB)) | (p & lowmask);
-    float2 v[M];
-#pragma unroll
-    for (int j = 0; j < M; ++j) v[j] = tile[base + (j << b)];
-#pragma unroll
-    for (int k = 0; k < NB; ++k) {
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-        if (!(j & (1 << k))) mat_pair(v[j], v[j | (1 << k)], mk[k]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < M; ++j) tile[base + (j << b)] = v[j];
-  }
-  __syncthreads();
-}
-
-// Kick on tile-index bits [b0, b0 + n); mats[i] acts on tile bit b0 + i.
-__device__ void kick_bits(float2* tile, int tbits, int b0, int n,
-                          const Mat2* mats) {
-  int b = b0;
-  const int end = b0 + n;
-  while (end - b >= 3) {
-    kick_round<3>(tile, tbits, b, mats + (b - b0));
-    b += 3;
-  }
-  if (end - b == 2) kick_round<2>(tile, tbits, b, mats + (b - b0));
-  if (end - b == 1) kick_round<1>(tile, tbits, b, mats + (b - b0));
-}
 
 // The rows of one pair's step. Forward (echo == 0): row `step` is both the
 // kick row and the diagonal row. Echo: rows 2*step (pre: pre diagonal and

@@ -1,0 +1,313 @@
+// Lab-frame Floquet kernels for large chains (22 <= L <= 29) on Hopper
+// (sm_90a), any kick schedule: forward A(t) and echo A0(t) of the
+// kicked-Ising chain under y, xy, yx, circular and xy-cycle drives and
+// per-cycle x schedules (K kick slots per cycle), the state streamed
+// through device memory.
+//
+// Replaces, as one family with a forward and an echo entry,
+//   K10a dtc_tpu/ops/pallas_cycle_hi_general.py::_make_general_hi_cycle_kernel
+//        (entry general_hi_cycle_forward_apply, one forward cycle)
+//   K10b dtc_tpu/ops/pallas_cycle_hi_general.py::
+//        _make_general_hi_inverse_cycle_kernel
+//        (entry general_hi_cycle_inverse_apply, one daggered cycle)
+// as the reference's single-chip route runs them (engine.py
+// _singlechip_general_forward / _singlechip_general_echo: the cycle scans of
+// parallel/sharded.py make_sharded_autocorr_forward_general and
+// make_sharded_echo_general on one rank, where every bit is local).
+//
+// What is ported is K4's math (floquet_general.cu) on the streamed x
+// family's pass plan (floquet_plan.cuh), not the TPU design (no r2 blocks,
+// pass-A/B slabs, in-kernel 128x128 group builds, Karatsuba dots or DMA
+// slot rings). It takes K4's step rows (ops/params_general.py, 128 lanes):
+// a step is one kick slot,
+// - kick B = X_m U^{(x)L}: U the slot's complex 2x2 (lanes FO+2..9, FO =
+//   4L-1), rows swapped on qubit j where its X-mask bit m_j = 1; every pass
+//   applies it to its own bits;
+// - diagonal exp(i theta(s)), theta(s) = c0 + sum_q cz_q z_q(s)
+//   + sum_j cb_j z_j(s) z_{j+1}(s), cz_q = -h_q/2 - (pi/2) n_q,
+//   cb_j = -phi_j/2, c0 = (pi/2) sum_q n_q (lab frame: no sigma, no host
+//   sign), factorized over the split at a+b and applied at the end of pass
+//   hi.
+// Forward: step k of a trajectory runs row k; a row with MPOS >= 0 (lane FO,
+// the final slot of each cycle t < T-1) is measured into A(MPOS): pass hi
+// writes one partial of |psi|^2 z_q per block, and a fixed-order reduce
+// after every step sums them where the step's row is measured. A(0) is the
+// basis state's z_q. Echo: rows come in (pre, post) pairs; a step is the
+// pre diagonal (in pass lo, before the kick), the kick of the pre row, then
+// the post diagonal; each pair runs the COUNT = 2tK steps of lane FO+10 of
+// its row 0 and is measured in pass hi on its last step; a pair with COUNT
+// 0 gets z_q of its basis state.
+//
+// What bounds it on this card: a state is 2^L complex64, 32 MiB at L=22 and
+// 4 GiB at L=29, so every step streams it from device memory: 32 B per
+// amplitude and step at L <= 24 (two passes), 48 B from L=25 (three). A
+// general 2x2 costs 14 flops per amplitude and bit against RX's 6, and the
+// operation bound stays below the state floor. The kick's per-qubit
+// matrices are built once per block in shared memory from the row.
+//
+// The state's initialisation stays out of launch_step, which applies one
+// step to any state. Every offset that can pass 2^31 (state, tile rows,
+// blocks, rows of a batch) is 64-bit.
+
+#include "floquet_common.cuh"
+#include "floquet_lab.cuh"
+#include "floquet_plan.cuh"
+
+namespace {
+
+constexpr int kMaxL = 32;
+
+// The rows of one pair's step. Forward (echo == 0): row `step` is the kick
+// and the diagonal row, measured where its MPOS >= 0. Echo: rows 2*step
+// (pre: pre diagonal and kick) and 2*step+1 (post diagonal); the pair runs
+// while step < COUNT and is measured on its last step.
+struct StepRows {
+  const float* pre;   // nullptr when there is no pre diagonal
+  const float* kick;
+  const float* post;
+  bool active;
+  bool measured;
+};
+
+__device__ __forceinline__ StepRows step_rows(const float* rows, int L,
+                                              int64_t rows_per_pair, int pair,
+                                              int step, int echo) {
+  const float* base = rows + (int64_t)pair * rows_per_pair * kRowWidth;
+  const int fo = 4 * L - 1;
+  StepRows r;
+  if (echo) {
+    const int count = (int)base[fo + kLaneCount];
+    r.active = step < count;
+    r.measured = step == count - 1;
+    r.pre = base + (int64_t)(2 * step) * kRowWidth;
+    r.kick = r.pre;
+    r.post = r.pre + kRowWidth;
+  } else {
+    r.active = true;
+    r.pre = nullptr;
+    r.kick = base + (int64_t)step * kRowWidth;
+    r.post = r.kick;
+    r.measured = r.kick[fo + kLaneMpos] >= 0.0f;
+  }
+  return r;
+}
+
+// Pass lo: [pre diagonal] then the kick on bits [0, a).
+__global__ void general_lo_kernel(float2* __restrict__ st, int L, int a,
+                                  const float* __restrict__ rows,
+                                  int64_t rows_per_pair, int step, int echo) {
+  extern __shared__ float2 tile[];
+  __shared__ float cz[kMaxL], cb[kMaxL], c0;
+  __shared__ Mat2 mats[kMaxL];
+  const int pair = blockIdx.y;
+  const StepRows r = step_rows(rows, L, rows_per_pair, pair, step, echo);
+  if (!r.active) return;
+  const int64_t hi = blockIdx.x;
+  const int n = 1 << a;
+  float2* g = st + ((int64_t)pair << L) + (hi << a);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) tile[i] = g[i];
+  load_mats(r.kick, L, mats);
+  if (r.pre != nullptr) {
+    load_coeffs(r.pre, L, cz, cb, &c0);
+    __syncthreads();
+    // factorized phase: the high part and the straddle sign fixed per block
+    const float th_hi = c0 + angle_bits(cz, cb, hi, a, L - a);
+    const float cs = cb[a - 1] * zsign(hi, 0);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const float th = th_hi + angle_bits(cz, cb, i, 0, a)
+                       + cs * zsign(i, a - 1);
+      tile[i] = cmul_phase(tile[i], th);
+    }
+  }
+  __syncthreads();
+  kick_bits(tile, a, 0, a, mats);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) g[i] = tile[i];
+}
+
+// Pass over bits [k0, k0 + n) on a tile of 2^n rows x kW columns: tile
+// index h * kW + w holds amplitude col + w + (h << k0) + (top << (k0 + n)),
+// col the block's kW-aligned low index below 2^k0, top its bits above.
+// LAST (k0 + n == L): then the post diagonal and, where the step is
+// measured, the block's partial of |psi|^2 z_q into
+// partials[pair * gridDim.x + blockIdx.x].
+template <bool LAST>
+__global__ void general_strided_kernel(float2* __restrict__ st, int L, int k0,
+                                       int n, const float* __restrict__ rows,
+                                       int64_t rows_per_pair, int step,
+                                       int echo, int q,
+                                       float* __restrict__ partials) {
+  extern __shared__ float2 tile[];
+  __shared__ float cz[kMaxL], cb[kMaxL], c0, th_lo[kW], red[kThreads / 32];
+  __shared__ Mat2 mats[kMaxL];
+  const int pair = blockIdx.y;
+  const StepRows r = step_rows(rows, L, rows_per_pair, pair, step, echo);
+  if (!r.active) return;
+  const int64_t cols = ((int64_t)1 << k0) / kW;
+  const int64_t col = ((int64_t)blockIdx.x % cols) * kW;
+  const int64_t top = (int64_t)blockIdx.x / cols;
+  const int nrow = 1 << n;
+  const int nt = nrow * kW;
+  float2* g = st + ((int64_t)pair << L) + col + (top << (k0 + n));
+  for (int i = threadIdx.x; i < nt; i += blockDim.x) {
+    tile[i] = g[((int64_t)(i / kW) << k0) + (i % kW)];
+  }
+  load_mats(r.kick, L, mats);
+  if (LAST) load_coeffs(r.post, L, cz, cb, &c0);
+  __syncthreads();
+  if (LAST && threadIdx.x < kW) {
+    th_lo[threadIdx.x] = c0 + angle_bits(cz, cb, col + threadIdx.x, 0, k0);
+  }
+  // the rows sit at tile bits [2, 2 + n); ends in __syncthreads
+  kick_bits(tile, n + 2, 2, n, mats + k0);
+  if (LAST) {
+    float acc = 0.0f;
+    for (int h = threadIdx.x; h < nrow; h += blockDim.x) {
+      const float th_h = angle_bits(cz, cb, h, k0, n);
+      const float cs = cb[k0 - 1] * zsign(h, 0);
+#pragma unroll
+      for (int w = 0; w < kW; ++w) {
+        const int64_t lo = col + w;
+        const float th = th_lo[w] + th_h + cs * zsign(lo, k0 - 1);
+        const float2 v = cmul_phase(tile[h * kW + w], th);
+        tile[h * kW + w] = v;
+        if (r.measured) {
+          const float z = q < k0 ? zsign(lo, q) : zsign(h, q - k0);
+          acc += (v.x * v.x + v.y * v.y) * z;
+        }
+      }
+    }
+    __syncthreads();
+    if (r.measured) {  // uniform over the block: every thread reads one row
+      const float tot = block_sum(acc, red);
+      if (threadIdx.x == 0) {
+        partials[(int64_t)pair * gridDim.x + blockIdx.x] = tot;
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < nt; i += blockDim.x) {
+    g[((int64_t)(i / kW) << k0) + (i % kW)] = tile[i];
+  }
+}
+
+// Forward: out[pair * T + MPOS] = the sum of the pair's partials in a fixed
+// order, where row `step` of the pair has 0 <= MPOS < T; else nothing.
+__global__ void measured_reduce_kernel(const float* __restrict__ partials,
+                                       int nb, const float* __restrict__ rows,
+                                       int64_t rows_per_pair, int step, int L,
+                                       float* __restrict__ out, int T) {
+  const int64_t pair = blockIdx.x;
+  const float* row = rows + (pair * rows_per_pair + step) * kRowWidth;
+  const int mpos = (int)row[4 * L - 1 + kLaneMpos];
+  if (mpos < 0 || mpos >= T) return;  // uniform over the block
+  const double sum = fixed_sum(partials + pair * nb, nb);
+  if (threadIdx.x == 0) out[pair * T + mpos] = (float)sum;
+}
+
+// One step of every pair: pass lo, [pass mid], pass hi.
+cudaError_t launch_step(float2* st, int L, const float* rows,
+                        int64_t rows_per_pair, int n_pairs, int step, int echo,
+                        int q, float* partials, cudaStream_t stream) {
+  const Plan p = plan_for(L);
+  const size_t smem_lo = sizeof(float2) << p.a;
+  const size_t smem_mid = (sizeof(float2) * kW) << p.b;
+  const size_t smem_hi = (sizeof(float2) * kW) << p.c;
+  cudaError_t e = allow_smem(general_lo_kernel, smem_lo);
+  if (e != cudaSuccess) return e;
+  general_lo_kernel<<<dim3(1u << (L - p.a), n_pairs), kThreads, smem_lo,
+                      stream>>>(st, L, p.a, rows, rows_per_pair, step, echo);
+  if (p.b > 0) {
+    e = allow_smem(general_strided_kernel<false>, smem_mid);
+    if (e != cudaSuccess) return e;
+    general_strided_kernel<false><<<dim3((1u << (L - p.b)) / kW, n_pairs),
+                                    kThreads, smem_mid, stream>>>(
+        st, L, p.a, p.b, rows, rows_per_pair, step, echo, q, nullptr);
+  }
+  e = allow_smem(general_strided_kernel<true>, smem_hi);
+  if (e != cudaSuccess) return e;
+  general_strided_kernel<true><<<dim3((unsigned)hi_blocks(L), n_pairs),
+                                 kThreads, smem_hi, stream>>>(
+      st, L, p.a + p.b, p.c, rows, rows_per_pair, step, echo, q, partials);
+  return cudaGetLastError();
+}
+
+bool in_range(int L, int q) { return 22 <= L && L <= 29 && 0 <= q && q < L; }
+
+}  // namespace
+
+extern "C" {
+
+// Partials per trajectory or pair the wrapper allocates.
+int floquet_general_streamed_partials(int L) { return hi_blocks(L); }
+
+// State passes per step: 2 (L <= 24) or 3.
+int floquet_general_streamed_passes(int L) {
+  return plan_for(L).b > 0 ? 3 : 2;
+}
+
+// K10 forward. state: n_traj x 2^L complex64 scratch; rows: n_traj x
+// rows_per_traj x 128 f32 (one row per kick slot, T*K of them); partials:
+// n_traj x floquet_general_streamed_partials(L) f32 scratch; out: n_traj x
+// T f32, zeroed (A(t) before the host's ancilla factor and sign). Runs the
+// first n_steps = (T-1)*K steps, the ones whose results are measured.
+int floquet_general_streamed_forward(void* state, const void* rows,
+                                     void* partials, void* out, int n_traj,
+                                     int L, int rows_per_traj, int T,
+                                     int n_steps, int q, int64_t b0,
+                                     void* stream_ptr) {
+  if (!in_range(L, q) || n_steps > rows_per_traj) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  float2* st = (float2*)state;
+  const float* r = (const float*)rows;
+  float* a = (float*)out;
+  init_kernel<<<dim3(256, n_traj), kThreads, 0, stream>>>(st, (int64_t)1 << L,
+                                                          b0);
+  const float a0 = 1.0f - 2.0f * (float)((b0 >> q) & 1);
+  first_kernel<<<(n_traj + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      a, n_traj, T, a0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  for (int k = 0; k < n_steps; ++k) {
+    e = launch_step(st, L, r, rows_per_traj, n_traj, k, 0, q,
+                    (float*)partials, stream);
+    if (e != cudaSuccess) return (int)e;
+    measured_reduce_kernel<<<n_traj, kThreads, 0, stream>>>(
+        (const float*)partials, hi_blocks(L), r, rows_per_traj, k, L, a, T);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
+}
+
+// K10 echo. state: n_pairs x 2^L complex64 scratch; tiles: n_pairs x
+// rows_per_pair x 128 f32 (interleaved pre/post step rows, COUNT at lane
+// 4L+9 of row 0); partials: n_pairs x floquet_general_streamed_partials(L)
+// f32 scratch; out: n_pairs f32. n_steps = the largest COUNT of the batch.
+int floquet_general_streamed_echo(void* state, const void* tiles,
+                                  void* partials, void* out, int n_pairs,
+                                  int L, int rows_per_pair, int n_steps,
+                                  int q, int64_t b0, void* stream_ptr) {
+  if (!in_range(L, q) || 2 * n_steps > rows_per_pair) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  float2* st = (float2*)state;
+  const float* t = (const float*)tiles;
+  init_kernel<<<dim3(256, n_pairs), kThreads, 0, stream>>>(st, (int64_t)1 << L,
+                                                           b0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  for (int k = 0; k < n_steps; ++k) {
+    e = launch_step(st, L, t, rows_per_pair, n_pairs, k, 1, q,
+                    (float*)partials, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const float a0 = 1.0f - 2.0f * (float)((b0 >> q) & 1);
+  reduce_rows_kernel<<<n_pairs, kThreads, 0, stream>>>(
+      (const float*)partials, hi_blocks(L), (float*)out, 1, 0,
+      t + 4 * L - 1 + kLaneCount, (int64_t)rows_per_pair * kRowWidth, a0);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

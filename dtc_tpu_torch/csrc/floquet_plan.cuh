@@ -1,0 +1,86 @@
+// The pass plan of the streamed families, floquet_x_streamed.cu (constant
+// x) and floquet_general_streamed.cu (lab frame, any drive): how a step cuts
+// a 2^L state in device memory into shared-memory tiles up to L=30, and the
+// fixed-order reductions of the per-block partials.
+//
+//   pass lo:  bits [0, a), a tile of 2^a consecutive amplitudes;
+//   pass mid: bits [a, a+b) (only when L >= 25), tiles of 2^b rows x kW
+//             consecutive columns;
+//   pass hi:  bits [a+b, L), tiles of 2^c rows x kW columns, which end the
+//             step (the diagonal and the partial of |psi|^2 z_q).
+// L <= 24 takes two passes (a <= 13, c <= 11: at most 64 KiB a tile), L =
+// 25..30 three (tiles of 4-32 KiB); floquet_x_streamed.cu says why.
+//
+// Include after floquet_common.cuh; the definitions sit in an anonymous
+// namespace of their own.
+
+#pragma once
+
+#include "floquet_common.cuh"
+
+namespace {
+
+static_assert(kW == 4, "strided tiles keep the columns in tile bits 0..1");
+
+// Bits per pass: lo [0, a), mid [a, a + b) (b = 0: no mid pass), hi
+// [a + b, L), with the tiles of about equal size (2^a = 2^c * kW).
+struct Plan {
+  int a, b, c;
+};
+
+Plan plan_for(int L) {
+  if (L <= 24) {
+    const int c = (L - 2) / 2;
+    return {L - c, 0, c};
+  }
+  const int c = (L - 2) / 3;
+  return {L - 2 * c, c, c};
+}
+
+// Pass-hi blocks of one state: the partials per trajectory or pair.
+int hi_blocks(int L) { return (1 << (L - plan_for(L).c)) / kW; }
+
+template <typename K>
+cudaError_t allow_smem(K* kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// The sum of p[0..nb) in a fixed order (a fixed strided share per thread,
+// then a fixed tree, in double), in thread 0 of the block.
+__device__ double fixed_sum(const float* __restrict__ p, int nb) {
+  __shared__ double red[kThreads];
+  double acc = 0.0;
+  for (int b = threadIdx.x; b < nb; b += blockDim.x) acc += p[b];
+  red[threadIdx.x] = acc;
+  __syncthreads();
+  for (int w = kThreads / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+    __syncthreads();
+  }
+  return red[0];
+}
+
+// out[row * stride + off] = the sum of partials[row * nb + b] over b, in a
+// fixed order. With trips (echo): a pair whose trip count is 0 ran no step
+// and gets a0, the z_q of its basis state.
+__global__ void reduce_rows_kernel(const float* __restrict__ partials, int nb,
+                                   float* __restrict__ out, int64_t stride,
+                                   int64_t off, const float* __restrict__ trips,
+                                   int64_t trip_stride, float a0) {
+  const int64_t row = blockIdx.x;
+  const double sum = fixed_sum(partials + row * nb, nb);
+  if (threadIdx.x == 0) {
+    const bool idle = trips != nullptr && trips[row * trip_stride] == 0.0f;
+    out[row * stride + off] = idle ? a0 : (float)sum;
+  }
+}
+
+// out[i * T] = a0: A(0) of every trajectory, its basis state's z_q.
+__global__ void first_kernel(float* __restrict__ out, int n, int T, float a0) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[(int64_t)i * T] = a0;
+}
+
+}  // namespace

@@ -39,29 +39,15 @@
 // A(t) and the echo value are summed without atomics: one partial per
 // pass-hi block (the echo's only on the pair's last step), then one block
 // per output row adds them in a fixed order in double. Every offset that
-// can pass 2^31 (state, tile rows, blocks) is 64-bit.
+// can pass 2^31 (state, tile rows, blocks) is 64-bit. The plan and the
+// reductions are in floquet_plan.cuh, shared with the lab-frame family
+// (floquet_general_streamed.cu).
 
 #include "floquet_common.cuh"
+#include "floquet_plan.cuh"
 #include "floquet_rx.cuh"
 
 namespace {
-
-static_assert(kW == 4, "strided tiles keep the columns in tile bits 0..1");
-
-// Bits per pass: lo [0, a), mid [a, a + b) (b = 0: no mid pass), hi
-// [a + b, L), with the tiles of about equal size (2^a = 2^c * kW).
-struct Plan {
-  int a, b, c;
-};
-
-Plan plan_for(int L) {
-  if (L <= 24) {
-    const int c = (L - 2) / 2;
-    return {L - c, 0, c};
-  }
-  const int c = (L - 2) / 3;
-  return {L - 2 * c, c, c};
-}
 
 // Per-pair row pointers and trip gate. Forward (echo == 0): row `step` of
 // the trajectory, kick sign +1, every step measured. Echo: rows 2*step
@@ -189,46 +175,6 @@ __global__ void strided_kernel(float2* __restrict__ st, int L, int k0, int n,
   for (int i = threadIdx.x; i < nt; i += blockDim.x) {
     g[((int64_t)(i / kW) << k0) + (i % kW)] = tile[i];
   }
-}
-
-// out[row * stride + off] = the sum of partials[row * nb + b] over b, in a
-// fixed order (a fixed strided share per thread, then a fixed tree, in
-// double). With trips (echo): a pair whose trip count is 0 ran no step and
-// gets a0, the z_q of its basis state.
-__global__ void reduce_rows_kernel(const float* __restrict__ partials, int nb,
-                                   float* __restrict__ out, int64_t stride,
-                                   int64_t off, const float* __restrict__ trips,
-                                   int64_t trip_stride, float a0) {
-  __shared__ double red[kThreads];
-  const int64_t row = blockIdx.x;
-  const float* p = partials + row * nb;
-  double acc = 0.0;
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) acc += p[b];
-  red[threadIdx.x] = acc;
-  __syncthreads();
-  for (int w = kThreads / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    const bool idle = trips != nullptr && trips[row * trip_stride] == 0.0f;
-    out[row * stride + off] = idle ? a0 : (float)red[0];
-  }
-}
-
-// out[i * T] = a0: A(0) of every trajectory, its basis state's z_q.
-__global__ void first_kernel(float* __restrict__ out, int n, int T, float a0) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[(int64_t)i * T] = a0;
-}
-
-int hi_blocks(int L) { return (1 << (L - plan_for(L).c)) / kW; }
-
-template <typename K>
-cudaError_t allow_smem(K* kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 // One step of every pair: pass lo, [pass mid], pass hi.

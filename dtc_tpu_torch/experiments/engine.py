@@ -11,11 +11,16 @@ Dispatch is by shape, as in the reference, with the port's own tiers:
   plain versions for CPU tensors) and to the streamed x entries at
   24 <= L <= 30 (``ops/streamed.py``: the large-L CUDA family, or its plain
   versions);
-- every other drive (y, xy, yx, circular, xy-cycle, per-cycle x) at
-  14 <= L <= 23 in complex64 goes to the lab-frame general entries
-  (``ops/resident_general.py``: CUDA kernel K4, or its plain versions);
+- every other drive (y, xy, yx, circular, xy-cycle, per-cycle x) in
+  complex64 goes to the lab-frame general entries at 14 <= L <= 23
+  (``ops/resident_general.py``: CUDA kernel K4, or its plain versions) and
+  to the streamed lab-frame entries at 24 <= L <= 29
+  (``ops/cycle_hi_general.py``: the large-L CUDA family K10a/K10b, or its
+  plain versions), both fed the same step rows
+  (``ops/params_general.py``);
 - everything else goes to the sigma-frame engine (``core/sigma_evolve.py``),
-  among it every non-x drive at L >= 24 and complex128.
+  among it every non-x drive at L=30 and complex128, as in the reference,
+  whose single-chip general route stops at L=29 and complex64.
 Each sweep logs once which engine served it (``engine=...``).
 
 Noise: every entry takes an optional block of f32 uniforms laid out as the
@@ -40,7 +45,12 @@ from dtc_tpu_torch.core.sigma_evolve import (
 )
 from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.models.noise import NoiseSpec
-from dtc_tpu_torch.ops import resident_blocked, resident_general, streamed
+from dtc_tpu_torch.ops import (
+    cycle_hi_general,
+    resident_blocked,
+    resident_general,
+    streamed,
+)
 from dtc_tpu_torch.ops.params import echo_pair_tiles, forward_rows
 from dtc_tpu_torch.ops.params_general import (
     general_echo_rows,
@@ -118,7 +128,8 @@ def constant_x_theta(angles) -> float | None:
 def engine_for(angles, *, L, T, q, dtype_name, has_y, echo: bool) -> str:
     """'blocked' (x kernels K1/K2 or their plain versions), 'streamed' (the
     large-L x family or its plain versions), 'general' (the lab-frame kernel
-    K4 or its plain versions) or 'sigma'."""
+    K4 or its plain versions), 'general_hi' (the large-L lab-frame family
+    or its plain versions) or 'sigma'."""
     if dtype_name != "complex64" or not 0 <= q < L:
         return "sigma"
     const_x = not has_y and constant_x_theta(angles) is not None
@@ -128,10 +139,14 @@ def engine_for(angles, *, L, T, q, dtype_name, has_y, echo: bool) -> str:
             t_max = mod.MAX_T_ECHO if echo else mod.MAX_T_FORWARD
             if mod.MIN_L <= L <= mod.MAX_L and T <= t_max:
                 return name
+    if const_x:
+        return "sigma"
     steps = (2 if echo else 1) * T * angles.shape[1]
-    if (not const_x and resident_general.MIN_L <= L <= resident_general.MAX_L
-            and steps <= resident_general.MAX_STEPS):
-        return "general"
+    for name, lo, mod in (
+            ("general", resident_general.MIN_L, resident_general),
+            ("general_hi", cycle_hi_general.MIN_ROUTE_L, cycle_hi_general)):
+        if lo <= L <= mod.MAX_L and steps <= mod.MAX_STEPS:
+            return name
     return "sigma"
 
 
@@ -156,13 +171,15 @@ def _forward_batch(hs, phis, angles, uniforms, *, L, T, K, p, q,
         return entry(rows, sig_after, constant_x_theta(angles), L=L, q=q,
                      initial_state=initial_state,
                      ancilla_factor=ancilla_factor)
-    if engine == "general":
+    if engine in ("general", "general_hi"):
         rows = general_forward_rows(uniforms, hs[:, None], phis[:, None],
                                     angles, L=L, T=T, K=K, p=p,
                                     batch=(inst, c))
-        return resident_general.general_forward_batch(
-            rows, L=L, T=T, q=q, initial_state=initial_state,
-            ancilla_factor=ancilla_factor)
+        entry = (resident_general.general_forward_batch
+                 if engine == "general"
+                 else cycle_hi_general.general_hi_forward_batch)
+        return entry(rows, L=L, T=T, q=q, initial_state=initial_state,
+                     ancilla_factor=ancilla_factor)
     return sigma_forward_batch(
         hs, phis, angles, uniforms, L=L, T=T, K=K, p=p, q=q,
         initial_state=initial_state, dtype_name=dtype_name,
@@ -191,13 +208,14 @@ def _echo_batch(hs, phis, angles, ts, uniforms, *, L, T, K, p, q,
         return entry(tiles, sig_fin, constant_x_theta(angles), L=L, q=q,
                      initial_state=initial_state,
                      ancilla_factor=ancilla_factor)
-    if engine == "general":
+    if engine in ("general", "general_hi"):
         tiles = general_echo_rows(uniforms, ts, hs[:, None], phis[:, None],
                                   angles, L=L, T=T, K=K, p=p,
                                   batch=(inst, c))
-        return resident_general.general_echo_batch(
-            tiles, L=L, q=q, initial_state=initial_state,
-            ancilla_factor=ancilla_factor)
+        entry = (resident_general.general_echo_batch if engine == "general"
+                 else cycle_hi_general.general_hi_echo_batch)
+        return entry(tiles, L=L, q=q, initial_state=initial_state,
+                     ancilla_factor=ancilla_factor)
     return sigma_echo_batch(
         hs, phis, angles, ts, uniforms, L=L, T=T, K=K, p=p, q=q,
         initial_state=initial_state, dtype_name=dtype_name,

@@ -2,7 +2,8 @@
 
 Each source ``dtc_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and
 is one library: ``floquet_x`` (K1/K2), ``floquet_x_streamed`` (the large-L
-x family that replaces K6a/K6b/K7a/K7b) and ``floquet_general`` (K4, K5). A
+x family that replaces K6a/K6b/K7a/K7b), ``floquet_general`` (K4, K5) and
+``floquet_general_streamed`` (the large-L lab-frame family, K10a/K10b). A
 source is compiled at first use with nvcc for sm_90a into a shared library
 under
 ``dtc_tpu_torch/csrc/build/`` (named by the hash of the source, the shared
@@ -60,6 +61,15 @@ LIBRARIES = {
         "floquet_general_observables_slots": [_I32],
         "floquet_general_observables": [_VP, _VP, _VP, _VP, _VP, _I32, _I32,
                                         _I32, _I32, _I32, _I64, _VP],
+    },
+    "floquet_general_streamed": {
+        "floquet_general_streamed_partials": [_I32],
+        "floquet_general_streamed_passes": [_I32],
+        "floquet_general_streamed_forward": [_VP, _VP, _VP, _VP, _I32, _I32,
+                                             _I32, _I32, _I32, _I32, _I64,
+                                             _VP],
+        "floquet_general_streamed_echo": [_VP, _VP, _VP, _VP, _I32, _I32,
+                                          _I32, _I32, _I32, _I64, _VP],
     },
 }
 

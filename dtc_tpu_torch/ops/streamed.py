@@ -98,29 +98,34 @@ def _part(cz, cb, n: int) -> torch.Tensor:
     return cz @ z + cb @ (z[:-1] * z[1:])
 
 
-def _angles(row, L: int) -> torch.Tensor:
-    """One compact row -> its diagonal angle theta(s) as a
+def angle_grid(cz, cb, c0, L: int) -> torch.Tensor:
+    """theta(s) = c0 + sum_q cz_q z_q(s) + sum_j cb_j z_j(s) z_{j+1}(s) as a
     (2^(L-k), 2^k) grid over s = (hi << k) | lo, k = L // 2."""
-    n_bits = row[:L]
-    cz = row[3 * L - 1:4 * L - 1] * (row[L:2 * L] - 0.5) - _HALF_PI * n_bits
-    cb = row[4 * L - 1:5 * L - 2] * (row[2 * L:3 * L - 1] - 0.5)
     k = L // 2
     lo = _part(cz[:k], cb[:k - 1], k)
     hi = _part(cz[k:], cb[k:], L - k)
-    z_lo = 1.0 - 2.0 * ((torch.arange(1 << k, device=row.device) >> (k - 1))
+    z_lo = 1.0 - 2.0 * ((torch.arange(1 << k, device=cz.device) >> (k - 1))
                         & 1)
-    z_hi = 1.0 - 2.0 * (torch.arange(1 << (L - k), device=row.device) & 1)
+    z_hi = 1.0 - 2.0 * (torch.arange(1 << (L - k), device=cz.device) & 1)
     straddle = cb[k - 1] * z_hi[:, None] * z_lo[None, :]
-    return (_HALF_PI * n_bits.sum() + hi[:, None]) + lo[None, :] + straddle
+    return (c0 + hi[:, None]) + lo[None, :] + straddle
 
 
-def _phase(state, row, L: int) -> torch.Tensor:
-    theta = _angles(row, L)
+def _angles(row, L: int) -> torch.Tensor:
+    """One compact row -> its diagonal angle grid (``angle_grid``)."""
+    n_bits = row[:L]
+    cz = row[3 * L - 1:4 * L - 1] * (row[L:2 * L] - 0.5) - _HALF_PI * n_bits
+    cb = row[4 * L - 1:5 * L - 2] * (row[2 * L:3 * L - 1] - 0.5)
+    return angle_grid(cz, cb, _HALF_PI * n_bits.sum(), L)
+
+
+def phase_grid(state, theta) -> torch.Tensor:
+    """exp(i theta(s)) psi(s) of one (2^L,) state, theta an angle grid."""
     return (state.view(theta.shape)
             * torch.polar(torch.ones_like(theta), theta)).view(-1)
 
 
-def _measure(state, q: int, L: int) -> torch.Tensor:
+def measure_z(state, q: int, L: int) -> torch.Tensor:
     """sum_s |psi(s)|^2 z_q(s) of one (2^L,) state."""
     k = L // 2
     prob = (state.real ** 2 + state.imag ** 2).view(1 << (L - k), 1 << k)
@@ -153,9 +158,9 @@ def streamed_forward_batch_ref(rows, sig_after, theta, *, L, q,
     for i in range(rows.shape[0]):
         state = _basis_state(L, b0, dev)
         for cyc in range(T - 1):
-            state = _phase(apply_uniform_1q_layer(state, rx, L), rows[i, cyc],
-                           L)
-            a_raw[i, cyc + 1] = _measure(state, q, L)
+            state = phase_grid(apply_uniform_1q_layer(state, rx, L),
+                               _angles(rows[i, cyc], L))
+            a_raw[i, cyc + 1] = measure_z(state, q, L)
     return forward_host_factor(a_raw.reshape(*batch, T), sig_after, q, b0,
                                 ancilla_factor)
 
@@ -177,10 +182,10 @@ def streamed_echo_batch_ref(tiles, sig_fin, theta, *, L, q,
     for i, trip in enumerate(trips):
         state = _basis_state(L, b0, dev)
         for k in range(int(trip)):
-            state = _phase(state, tiles[i, 2 * k], L)
+            state = phase_grid(state, _angles(tiles[i, 2 * k], L))
             state = apply_uniform_1q_layer(state, rx[signs[i][k]], L)
-            state = _phase(state, tiles[i, 2 * k + 1], L)
-        val[i] = _measure(state, q, L)
+            state = phase_grid(state, _angles(tiles[i, 2 * k + 1], L))
+        val[i] = measure_z(state, q, L)
     return echo_host_factor(val.reshape(batch), sig_fin, q, b0,
                              ancilla_factor)
 

@@ -3,7 +3,8 @@
 Traces, on a CUDA card at the bench shape (L=20, T=50, p=0.05, g=0.97,
 vacuum, probe q = L//2, 32 trajectories; ``--L``, ``--tf`` and
 ``--n_trajectories`` change it) and the drive ``--polarization`` names
-(default x, the K1/K2 path; y, xy, yx, circular_* and xy_cycle take K4):
+(default x, the K1/K2 path; y, xy, yx, circular_* and xy_cycle take K4, and
+the streamed lab-frame family K10 at 24 <= L <= 29):
 
 - ``forward``: three ``_forward_batch`` dispatches of n_trajectories, each
   copied to the host as ``bench.py`` does;
@@ -11,11 +12,16 @@ vacuum, probe q = L//2, 32 trajectories; ``--L``, ``--tf`` and
 - ``energy_level``: one noise level (p=0.05, the full Hamiltonian) of the
   ``energy`` sweep on 1 instance x n_trajectories (K5 on its range).
 
-Above K1/K2's range (L >= 24, the streamed x family) a whole echo sweep
-takes minutes, so ``echo_chunk`` traces one launch of it instead: its last
-(t values T-k..T-1, the longest trip counts, k and the trajectories as
+Above K1/K2's range (L >= 24, the streamed x family, and for the other
+drives the streamed lab-frame family) a whole echo sweep takes minutes, so
+``echo_chunk`` traces one launch of it instead: its last (t values
+T-k..T-1, the longest trip counts, k and the trajectories as
 ``engine.kernel_chunks`` sizes them for one instance); there is no energy
-trace (the energy route is the eager engine there).
+trace (the energy route is the eager engine there). The streamed families'
+passes are lo (``lo_kernel``, ``general_lo_kernel``), mid and hi
+(``strided_kernel<false>``/``<true>``, ``general_strided_kernel<false>``/
+``<true>``) and the fixed-order reduce (``reduce_rows_kernel``, and
+``measured_reduce_kernel`` in the lab-frame forward).
 
 For each it prints one JSON line: the wall ms, the device-busy ms (the union
 of the intervals of every device event, kernels and copies), the idle share
@@ -25,7 +31,8 @@ first. With ``--out DIR`` it also writes the profiler's own table to
 
 Run: ``python -m dtc_tpu_torch.profile_sweep [--polarization POL]
 [--L L --tf T --n_trajectories N] [--out DIR]``, e.g. ``--L 28 --tf 20
---n_trajectories 4`` or ``--L 30 --tf 6 --n_trajectories 1``.
+--n_trajectories 4``, ``--L 30 --tf 6 --n_trajectories 1`` or
+``--polarization y --L 28 --tf 20 --n_trajectories 4``.
 """
 
 from __future__ import annotations
@@ -123,7 +130,8 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=None,
                     help="directory for the profiler's tables")
     ap.add_argument("--polarization", default="x",
-                    help="drive to trace (x: K1/K2; any other: K4)")
+                    help="drive to trace (x: K1/K2 or the streamed x "
+                    "family; any other: K4, or K10 at L >= 24)")
     ap.add_argument("--L", type=int, default=20, help="chain length")
     ap.add_argument("--tf", type=int, default=50, help="cycles T")
     ap.add_argument("--n_trajectories", type=int, default=32,

@@ -1,5 +1,6 @@
 """CUDA kernels K1/K2 (constant x), the streamed x family (constant x at
-22 <= L <= 30), K4 (lab frame, any drive) and K5 (per-cycle observables)
+22 <= L <= 30), K4 (lab frame, any drive), K5 (per-cycle observables) and
+the streamed lab-frame family (K10a/K10b, any drive at 22 <= L <= 29)
 against their plain versions, on the card.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
@@ -21,6 +22,7 @@ from dtc_tpu_torch.experiments.energy import run_energy
 from dtc_tpu_torch.models.hamiltonian import hamiltonian_terms
 from dtc_tpu_torch.io.disorder import generate_disorder
 from dtc_tpu_torch.models.drives import build_kick_schedule
+from dtc_tpu_torch.ops import cycle_hi_general as chg
 from dtc_tpu_torch.ops import resident_blocked as rb
 from dtc_tpu_torch.ops import observables as obs
 from dtc_tpu_torch.ops import resident_general as rg
@@ -386,3 +388,80 @@ def test_streamed_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="22 <= L <= 30"):
         sm.streamed_forward_batch(torch.zeros((1, 3, 256), device=cuda_device),
                                   sig, THETA, L=31, q=3)
+
+
+def _general_inputs(device, L, pol, T, n, seed, ts=None, p=0.1):
+    """Forward rows of n trajectories, or echo tiles of n trajectories x
+    ``ts``, of the drive ``pol`` on the suite's disorder."""
+    hs, phis = _disorder(L, device)
+    angles = build_kick_schedule(pol, 0.97, T, xy_cycle_period=1,
+                                 device=device).angles
+    K = angles.shape[1]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if ts is None:
+        u = torch.rand((1, n, T * K, L), generator=gen, device=device)
+        return general_forward_rows(u, hs[:, None], phis[:, None], angles,
+                                    L=L, T=T, K=K, p=p)
+    u = torch.rand((1, n, 2 * T * K, L), generator=gen, device=device)
+    return general_echo_rows(u, torch.as_tensor(ts, device=device),
+                             hs[:, None], phis[:, None], angles, L=L, T=T,
+                             K=K, p=p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,pol,q,state", [
+    (22, "y", 0, "neel"), (22, "circular_left", 11, "vacuum"),
+    (24, "y", 23, "vacuum"), (24, "circular_left", 12, "neel")])
+def test_general_hi_kernels_match_plain_on_card(cuda_device, L, pol, q,
+                                                state):
+    """The streamed lab-frame family's forward and echo (two passes at
+    L <= 24), K=1 and K=2, probes in the low and the high bits."""
+    rows = _general_inputs(cuda_device, L, pol, 3, 2, L)
+    launches = chg.LAUNCHES["forward"]
+    k = chg.general_hi_forward_batch(rows, L=L, T=3, q=q, initial_state=state)
+    torch.cuda.synchronize()
+    assert chg.LAUNCHES["forward"] == launches + 1
+    ref = chg.general_hi_forward_batch_ref(rows, L=L, T=3, q=q,
+                                           initial_state=state)
+    assert float((k - ref).abs().max()) <= TOL
+    for p in (0.6, 0.0):
+        tiles = _general_inputs(cuda_device, L, pol, 3, 1, 3, ts=range(4),
+                                p=p)
+        k = chg.general_hi_echo_batch(tiles, L=L, q=q, initial_state=state)
+        torch.cuda.synchronize()
+        ref = chg.general_hi_echo_batch_ref(tiles, L=L, q=q,
+                                            initial_state=state)
+        assert float((k - ref).abs().max()) <= TOL
+        if p == 0:
+            assert float((k - 1).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [22, 23])
+def test_general_hi_kernels_match_k4_on_card(cuda_device, L):
+    """Where K4 and the streamed lab-frame family both run, they agree on
+    the same rows."""
+    rows = _general_inputs(cuda_device, L, "xy", 4, 3, 5)
+    a = chg.general_hi_forward_batch(rows, L=L, T=4, q=L // 2)
+    b = rg.general_forward_batch(rows, L=L, T=4, q=L // 2)
+    assert float((a - b).abs().max()) <= TOL
+    tiles = _general_inputs(cuda_device, L, "xy", 3, 2, 6, ts=[1, 2, 3],
+                            p=0.6)
+    a = chg.general_hi_echo_batch(tiles, L=L, q=L // 2)
+    b = rg.general_echo_batch(tiles, L=L, q=L // 2)
+    assert float((a - b).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_general_hi_wrappers_reject_bad_inputs(cuda_device):
+    rows = torch.zeros((1, 3, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        chg.general_hi_forward_batch(rows.double(), L=22, T=3, q=3)
+    with pytest.raises(ValueError, match="K per cycle"):
+        chg.general_hi_forward_batch(rows, L=22, T=2, q=3)
+    with pytest.raises(ValueError, match="22 <= L <= 29"):
+        chg.general_hi_forward_batch(rows, L=30, T=3, q=3)
+    with pytest.raises(ValueError, match="step count"):
+        tiles = torch.zeros((1, 4, 128), device=cuda_device)
+        tiles[0, 0, 4 * 22 - 1 + 10] = 3.0
+        chg.general_hi_echo_batch(tiles, L=22, q=3)

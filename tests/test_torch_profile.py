@@ -46,6 +46,9 @@ def test_top_kernels_and_other():
      "(anonymous namespace)::Obs)", "pass_lo_kernel<true>"),
     ("void (anonymous namespace)::pass_hi_kernel<false>(float2*, int)",
      "pass_hi_kernel<false>"),
+    ("void (anonymous namespace)::general_strided_kernel<true>(float2*, int, "
+     "int, int, float const*, long, int, int, int, float*)",
+     "general_strided_kernel<true>"),
 ])
 def test_short_name(raw, short):
     assert short_name(raw) == short

@@ -201,8 +201,9 @@ def test_wrapper_routes_cpu_to_plain_version():
 @pytest.mark.parametrize("Lr", [24, 26, 28, 30])
 def test_engine_routes_large_x_to_streamed(Lr):
     """A constant x drive in complex64 at 24 <= L <= 30 takes the streamed
-    route, with autocorr's default probe q = L//2 too; complex128, other
-    drives and T past the kernels' limits stay on the sigma engine."""
+    route, with autocorr's default probe q = L//2 too; complex128 and T past
+    the kernels' limits stay on the sigma engine, and other drives take the
+    streamed lab-frame route to L=29 (the sigma engine at L=30)."""
     q = SimConfig(L=Lr).probe_qubit
     x = build_kick_schedule("x", 0.97, 6).angles
     kw = dict(L=Lr, T=6, q=q, has_y=False)
@@ -213,7 +214,8 @@ def test_engine_routes_large_x_to_streamed(Lr):
                                  **kw) == "sigma"
     y = build_kick_schedule("y", 0.97, 6).angles
     assert engine.engine_for(y, dtype_name="complex64", echo=False,
-                             **{**kw, "has_y": True}) == "sigma"
+                             **{**kw, "has_y": True}) == (
+        "sigma" if Lr == 30 else "general_hi")
     long_x = build_kick_schedule("x", 0.97, 513).angles
     assert engine.engine_for(long_x, L=Lr, T=513, q=q, has_y=False,
                              dtype_name="complex64", echo=True) == "sigma"
