@@ -24,7 +24,14 @@ each; any failure raises and the script exits non-zero without a result:
    family (K10) against its plain version at L=22, 24, 25, 26, 28 and 29
    (y, circular_left, xy_cycle; q = 0, L//2, L-1; vacuum and neel; echo at
    p=0.6 and 0) and against K4 on the same rows at L=22 and 23 (its L=29
-   comparison on the main path's shapes is in the timing phase);
+   comparison on the main path's shapes is in the timing phase); the
+   resident x family (K3a/K3b) against its plain version, constant x at
+   L=14, 15, 16 and a per-cycle ramp (theta_t = pi g_t, g from 0.86 to
+   0.99) at L=14, 17, 20, 21 (q = 0, L//2, L-1; vacuum and neel; echo at
+   p=0.6 and 0), against K1/K2 on the same rows (constant, L=17) and against
+   K4 (the ramp, L=20), and on the main paths' own shapes (constant x at
+   L=16, T=50, 2 x 32 trajectories: the forward and every echo chunk; the
+   ramp at L=20, T=51 x 32; 32 pairs at t=12);
 4. main paths, each through the CLI's ``main(argv)`` with every launch
    count set to 0 just before it and read just after:
    ``autocorr --device cuda`` (x drive: K1/K2) at L=20, T=50, 2 instances x
@@ -42,14 +49,27 @@ each; any failure raises and the script exits non-zero without a result:
    (T=20, 4 trajectories) and L=30 (T=6, 1 trajectory), engine=streamed for
    both sweeps, and of the circular_left drive at L=29 (T=6, 1
    trajectory), engine=general_hi; each with its family's kernels launched,
-   no other kernel, no plain version on CUDA;
+   no other kernel, no plain version on CUDA; then the resident x paths:
+   ``autocorr --device cuda`` at L=16 (T=50, 2 instances x 32
+   trajectories; engine=resident, K3 only), ``adaptive --device cuda`` at
+   L=20 (T=12, 32 trajectories) with the default flags (golden optimizer)
+   and with linear feedback, and ``adaptive-batch --device cuda`` at L=20
+   (T=50, 32 trajectories): each adaptive sweep logs engine=resident (and
+   engine=blocked for its first step, whose schedule is still constant),
+   the fixed-g comparisons and the batch's echo pass (constant schedules)
+   engine=blocked, K3 launched (in ``adaptive``, once for each forward and
+   echo call of a per-cycle schedule), no plain version on CUDA, g within
+   [g_min, g_max], |A| and echo <= 1, the g=0.97 comparison alternating,
+   and the reference-named CSVs written;
 5. timing: the bench shape (``dtc_tpu_torch/bench.py::run_case``) and every
    kernel against its plain version on identical inputs, whose outputs are
    held to the same bound (the streamed family: forward at L=24, 26, 28 and
    30, echo at L=28 and 30, with the plain version's peak device memory,
    and against K1 on the same L=23 rows; K10: forward y at L=28 and
    circular_left at L=29, echo y at L=28 and circular_left at L=29, the
-   main paths' launches, with the peak memory); each kernel's bound: the larger
+   main paths' launches, with the peak memory; K3a on the ramp at L=14, 16
+   and 20, T=51 x 32, and K3b on 32 pairs at t=12, each beside K4 on the
+   same schedule and rows); each kernel's bound: the larger
    of its bytes (inputs read once, outputs written once) over 3.35 TB/s and
    its f32 operations over 67 TFLOP/s (the H100 SXM's published peaks), and
    its state floor (16 B per amplitude per pass and step, 2 or 3 passes);
@@ -495,6 +515,123 @@ def compare_general_hi(dev, err) -> None:
             rg.general_echo_batch(tiles, **kw)))
 
 
+def x_schedule(T, dev, per_cycle):
+    """(T, 1, 2) x schedule: the per-cycle ramp theta_t = pi g_t, g from
+    0.86 to 0.99, or the constant g = 0.97."""
+    from dtc_tpu_torch.models.drives import build_kick_schedule
+
+    g = (torch.linspace(0.86, 0.99, T, dtype=torch.float64, device=dev)
+         if per_cycle else 0.97)
+    return build_kick_schedule("x", g, T, device=dev).angles
+
+
+def ramp_inputs(L, T, c, p, ts, dev, seed):
+    """The ramp's schedule with K3's rows and K4's rows from the same
+    uniforms: (angles, rows, sig_after, general rows) for the forward, or
+    (angles, tiles, sig_fin, general tiles) for the echo at ``ts``."""
+    from dtc_tpu_torch.ops.params import echo_pair_tiles, forward_rows
+    from dtc_tpu_torch.ops.params_general import (
+        general_echo_rows,
+        general_forward_rows,
+    )
+
+    hs, phis = disorder(L, dev)
+    angles = x_schedule(T, dev, True)
+    h, ph = hs[:, None], phis[:, None]
+    if ts is None:
+        u = uniforms((1, c, T, L), dev, seed)
+        rows, sig = forward_rows(u, h, ph, L=L, T=T, p=p)
+        return angles, rows, sig, general_forward_rows(
+            u, h, ph, angles, L=L, T=T, K=1, p=p)
+    u = uniforms((1, c, 2 * T, L), dev, seed)
+    ts = torch.as_tensor(ts, device=dev)
+    tiles, sig = echo_pair_tiles(u, ts, h, ph, L=L, T=T, p=p)
+    return angles, tiles, sig, general_echo_rows(u, ts, h, ph, angles, L=L,
+                                                 T=T, K=1, p=p)
+
+
+def compare_resident(dev, err) -> None:
+    """The resident x family (K3a/K3b) against its plain version: constant x
+    at L=14, 15, 16 (its route) and the per-cycle ramp at L=14, 17, 20, 21
+    (q = 0, L//2, L-1 and vacuum and neel in turn; forward T=6 at p=0.1,
+    echo t = 0, 1, 2, 4 at p=0.6 and 0), and at the shapes of the L=16
+    main path (constant x, T=50, 2 x 32 trajectories, the forward and
+    every echo chunk); against K1/K2 on the same rows
+    (constant, L=17) and against K4 (the ramp, L=20). These launches are
+    not the main path's."""
+    from dtc_tpu_torch.ops import resident as rs
+    from dtc_tpu_torch.ops import resident_blocked as rb
+    from dtc_tpu_torch.ops import resident_general as rg
+
+    cases = [(14, False), (15, False), (16, False), (14, True), (17, True),
+             (20, True), (21, True)]
+    for i, (L, per_cycle) in enumerate(cases):
+        what = "ramp" if per_cycle else "constant"
+        for j, q in enumerate((0, L // 2, L - 1)):
+            state = ("vacuum", "neel")[(i + j) % 2]
+            rows, sig = forward_inputs(L, 6, 3, 0.1, dev, seed=L + q)
+            d, _ = against_plain(
+                f"K3 forward L={L} {what} T=6 {state} q={q} 1x3",
+                rs.resident_forward_batch, rs.resident_forward_batch_ref,
+                (rows, sig, x_schedule(6, dev, per_cycle)),
+                dict(L=L, q=q, initial_state=state, time_dependent=per_cycle))
+            err["K3 forward"] = max(err["K3 forward"], d)
+        q, state = (L // 2, L - 1, 0)[i % 3], ("neel", "vacuum")[i % 2]
+        for p in (0.6, 0.0):
+            tiles, sig = echo_inputs(L, 4, 2, p, [0, 1, 2, 4], dev, seed=L)
+            d, k = against_plain(
+                f"K3 echo L={L} {what} ts=0,1,2,4 p={p} {state} q={q} 1x2",
+                rs.resident_echo_batch, rs.resident_echo_batch_ref,
+                (tiles, sig, x_schedule(4, dev, per_cycle)),
+                dict(L=L, q=q, initial_state=state, time_dependent=per_cycle))
+            if p == 0.0 and not float((k - 1).abs().max()) <= TOL:
+                raise RuntimeError(f"noiseless echo != 1: {k.tolist()}")
+            err["K3 echo"] = max(err["K3 echo"], d)
+    # the L=16 main path's shapes: the constant drive's forward on 2
+    # instances x 32 trajectories through all 50 cycles, and every chunk of
+    # its echo sweep (t_chunk=8: ts 0..7, ..., 48..49; trips up to 98)
+    rows, sig = forward_inputs(16, MAIN_T, N_TRAJ, P, dev, seed=16, inst=2)
+    d, _ = against_plain(
+        f"K3 forward L=16 constant T={MAIN_T} 2x{N_TRAJ}",
+        rs.resident_forward_batch, rs.resident_forward_batch_ref,
+        (rows, sig, x_schedule(MAIN_T, dev, False)), dict(L=16, q=8))
+    err["K3 forward"] = max(err["K3 forward"], d)
+    for t0 in range(0, MAIN_T, 8):
+        ts = list(range(t0, min(t0 + 8, MAIN_T)))
+        tiles, sig = echo_inputs(16, MAIN_T, N_TRAJ, P, ts, dev, seed=16,
+                                 inst=2)
+        d, _ = against_plain(
+            f"K3 echo L=16 constant T={MAIN_T} ts={ts[0]}..{ts[-1]} p={P} "
+            f"2x{N_TRAJ}", rs.resident_echo_batch, rs.resident_echo_batch_ref,
+            (tiles, sig, x_schedule(MAIN_T, dev, False)), dict(L=16, q=8))
+        err["K3 echo"] = max(err["K3 echo"], d)
+    rows, sig = forward_inputs(17, 8, 4, 0.1, dev, seed=17)
+    err["K3 forward"] = max(err["K3 forward"], held(
+        "K3 forward vs K1 L=17 constant T=8 1x4",
+        rs.resident_forward_batch(rows, sig, x_schedule(8, dev, False),
+                                  L=17, q=8),
+        rb.blocked_forward_batch(rows, sig, THETA, L=17, q=8)))
+    tiles, sig = echo_inputs(17, 4, 2, 0.6, [1, 2, 3, 4], dev, seed=17)
+    err["K3 echo"] = max(err["K3 echo"], held(
+        "K3 echo vs K2 L=17 constant ts=1..4 p=0.6 1x2",
+        rs.resident_echo_batch(tiles, sig, x_schedule(4, dev, False), L=17,
+                               q=8),
+        rb.blocked_echo_batch(tiles, sig, THETA, L=17, q=8)))
+    angles, rows, sig, grows = ramp_inputs(20, 8, 3, 0.1, None, dev, seed=20)
+    err["K3 forward"] = max(err["K3 forward"], held(
+        "K3 forward vs K4 L=20 ramp T=8 1x3",
+        rs.resident_forward_batch(rows, sig, angles, L=20, q=10,
+                                  time_dependent=True),
+        rg.general_forward_batch(grows, L=20, T=8, q=10)))
+    angles, tiles, sig, gtiles = ramp_inputs(20, 8, 2, 0.6, [1, 3, 8], dev,
+                                             seed=21)
+    err["K3 echo"] = max(err["K3 echo"], held(
+        "K3 echo vs K4 L=20 ramp ts=1,3,8 p=0.6 1x2",
+        rs.resident_echo_batch(tiles, sig, angles, L=20, q=10,
+                               time_dependent=True),
+        rg.general_echo_batch(gtiles, L=20, q=10)))
+
+
 def anchors_l30(dev) -> None:
     """L=30, 8 GiB a state: values the physics fixes, which a wrapped 32-bit
     offset would break."""
@@ -569,6 +706,7 @@ def run_cli(argv) -> tuple:
     plain calls on CUDA, sweep log, seconds)."""
     from dtc_tpu_torch.ops import cycle_hi_general as chg
     from dtc_tpu_torch.ops import observables as ob
+    from dtc_tpu_torch.ops import resident as rs
     from dtc_tpu_torch.ops import resident_blocked as rb
     from dtc_tpu_torch.ops import resident_general as rg
     from dtc_tpu_torch.ops import streamed as sm
@@ -577,7 +715,7 @@ def run_cli(argv) -> tuple:
     log = SweepLog()
     logger = logging.getLogger("dtc_tpu_torch")
     logger.addHandler(log)
-    for mod in (rb, rg, ob, sm, chg):
+    for mod in (rb, rs, rg, ob, sm, chg):
         mod.reset_counters()
     t0 = time.perf_counter()
     try:
@@ -587,6 +725,8 @@ def run_cli(argv) -> tuple:
         logger.removeHandler(log)
     seconds = time.perf_counter() - t0
     launches = {"K1": rb.LAUNCHES["forward"], "K2": rb.LAUNCHES["echo"],
+                "K3 forward": rs.LAUNCHES["forward"],
+                "K3 echo": rs.LAUNCHES["echo"],
                 "K4 forward": rg.LAUNCHES["forward"],
                 "K4 echo": rg.LAUNCHES["echo"],
                 "K5": ob.LAUNCHES["observables"],
@@ -595,6 +735,7 @@ def run_cli(argv) -> tuple:
                 "K10 forward": chg.LAUNCHES["forward"],
                 "K10 echo": chg.LAUNCHES["echo"]}
     plain = {**{f"x {k}": v for k, v in rb.PLAIN_ON_CUDA.items()},
+             **{f"resident {k}": v for k, v in rs.PLAIN_ON_CUDA.items()},
              **{f"general {k}": v for k, v in rg.PLAIN_ON_CUDA.items()},
              **ob.PLAIN_ON_CUDA,
              **{f"streamed {k}": v for k, v in sm.PLAIN_ON_CUDA.items()},
@@ -863,6 +1004,123 @@ def main_large(smi) -> dict:
               f"{log.seconds['forward'][0]:.3f} s, echo "
               f"{log.seconds['echo'][0]:.3f} s (inst=1 x {n} trajectories) "
               f"on {smi}")
+        for k in total:
+            total[k] += launches[k]
+    return total
+
+
+def main_resident(smi) -> dict:
+    """The resident x paths (K3): ``autocorr`` of the constant x drive at
+    L=16 (T=50, 2 instances x 32 trajectories), ``adaptive`` at L=20 (T=12,
+    32 trajectories) with the default flags (golden optimizer, 5
+    iterations, target 1.0) and with linear feedback, and
+    ``adaptive-batch`` at L=20 (T=50, 32 trajectories). Returns K3's
+    launches over the four runs."""
+    from dtc_tpu_torch.io import naming
+    from dtc_tpu_torch.utils.config import SimConfig
+
+    total = {"K3 forward": 0, "K3 echo": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, plain, log, seconds = run_cli(
+            ["autocorr", "--inst", "2", *common_argv(MAIN_T, tmp, L=16)])
+        cols = one_csv(tmp, "autocorr_data_")
+    a, e = cols["av_autocorr"], cols["av_autocorr_echo"]
+    checks = physics_checks(a, e, (1 - P) ** 6, alternates=True)
+    checks.update({
+        "engine=resident for both sweeps": sorted(
+            s[:2] for s in log.sweeps) == [("echo_sweep", "resident"),
+                                           ("forward_sweep", "resident")],
+        "K3 forward launched": launches["K3 forward"] > 0,
+        "K3 echo launched": launches["K3 echo"] > 0,
+        "no other kernel": not any(v for k, v in launches.items()
+                                   if not k.startswith("K3")),
+        "no plain version on CUDA": not any(plain.values()),
+    })
+    phase(f"[main] autocorr L=16 T={MAIN_T} inst=2 traj={N_TRAJ} in "
+          f"{seconds:.2f}s: A[0:4]={[round(x, 6) for x in a[:4]]} "
+          f"echo[0:4]={[round(x, 6) for x in e[:4]]} launches="
+          f"{ {k: v for k, v in launches.items() if v} }")
+    fail_on("autocorr L=16", checks)
+    phase(f"[main] autocorr L=16 sweep seconds: forward "
+          f"{log.seconds['forward'][0]:.3f} s, echo "
+          f"{log.seconds['echo'][0]:.3f} s (inst=2 x 32 trajectories) on "
+          f"{smi}")
+    for k in total:
+        total[k] += launches[k]
+    g_min, g_max = 0.84, 1.0  # the adaptive flags' defaults
+    for cmd, T, extra in (("adaptive", 12, []),
+                          ("adaptive", 12, ["--use_optimization", "0",
+                                            "--exponential_feedback", "0"]),
+                          ("adaptive-batch", MAIN_T, [])):
+        what = " ".join([cmd, *extra])
+        with tempfile.TemporaryDirectory() as tmp:
+            launches, plain, log, seconds = run_cli(
+                [cmd, "--inst", "1", *common_argv(T, tmp), *extra])
+            cfg = SimConfig(L=MAIN_L, tf=T, g=0.97, noise_prob=P, inst=1,
+                            use_optimization=int("--use_optimization"
+                                                 not in extra),
+                            exponential_feedback=int(
+                                "--exponential_feedback" not in extra))
+            name = naming.adaptive_csv_name(cfg)
+            if cmd == "adaptive":
+                names = [name, naming.adaptive_comparison_csv_name(cfg),
+                         naming.g_history_csv_name(cfg)]
+            else:
+                names = [name.replace("realtime_adaptive", "batch_adaptive")]
+            written = sorted(os.listdir(tmp))
+            missing = [n for n in names if n not in written]
+            if missing:
+                raise RuntimeError(f"{what}: no {missing} in {written}")
+            cols = read_csv(os.path.join(tmp, names[0]))
+        engines = {s[:2] for s in log.sweeps}
+        if cmd == "adaptive":
+            a = cols["av_autocorr_adaptive"] + cols["av_autocorr_standard_g97"]
+            e = (cols["av_autocorr_echo_adaptive"]
+                 + cols["av_autocorr_echo_standard_g97"])
+            g97 = cols["av_autocorr_standard_g97"]
+            checks = {
+                "adaptive sweep engine=resident (first step: blocked)": {
+                    en for sw, en in engines if sw == "adaptive_sweep"}
+                    == {"blocked", "resident"},
+                "fixed-g comparisons engine=blocked": {
+                    en for sw, en in engines if sw.startswith("fixed_g")}
+                    == {"blocked"},
+                "av_autocorr_standard_g97 alternates": all(
+                    g97[t] * g97[t + 1] < 0 for t in range(T - 1)),
+            }
+        else:
+            a = cols["av_autocorr_adaptive"]
+            e = cols["av_autocorr_echo_adaptive"]
+            checks = {
+                "adaptive forward engine=resident":
+                    ("adaptive_batch_forward_sweep", "resident") in engines,
+                "echo pass (constant schedule) engine=blocked":
+                    ("adaptive_batch_echo_sweep", "blocked") in engines,
+            }
+        g = cols["av_g_values"]
+        checks.update({
+            "g in [g_min, g_max]": all(g_min <= x <= g_max for x in g),
+            "|A| <= 1, finite": all(math.isfinite(x) and abs(x) <= 1 + 1e-3
+                                    for x in a),
+            "echo <= 1, finite": all(math.isfinite(x) and x <= 1 + 1e-3
+                                     for x in e),
+            "K3 forward launched": launches["K3 forward"] > 0,
+            "no plain version on CUDA": not any(plain.values()),
+        })
+        if cmd == "adaptive":
+            # every step after the first runs a per-cycle schedule: its
+            # forward and echo, and under the golden optimizer (5
+            # iterations: max(5 * 3, 12) = 15 rounds) 2 + 15 candidates
+            calls = 1 + (17 if "--use_optimization" not in extra else 0)
+            checks[f"K3 launches = {T - 1} forward, {(T - 1) * calls} echo"] \
+                = (launches["K3 forward"], launches["K3 echo"]) == (
+                    T - 1, (T - 1) * calls)
+        phase(f"[main] {what} L={MAIN_L} T={T} traj={N_TRAJ} in "
+              f"{seconds:.2f}s on {smi}: g[0:4]="
+              f"{[round(x, 6) for x in g[:4]]} A[0:4]="
+              f"{[round(x, 6) for x in cols['av_autocorr_adaptive'][:4]]}"
+              f" launches={ {k: v for k, v in launches.items() if v} }")
+        fail_on(what, checks)
         for k in total:
             total[k] += launches[k]
     return total
@@ -1142,18 +1400,79 @@ def timing_general_hi(dev, smi, err) -> dict:
     return {"K10 forward": out["forward 28"], "K10 echo": out["echo 28"]}
 
 
+def timing_resident(dev, smi, err) -> dict:
+    """K3 against its plain version on the adaptive path's shapes, each
+    beside K4 (the kernel that served these schedules before) on the same
+    schedule and rows: K3a on the per-cycle ramp at L=20, T=51 x 32 (one
+    ``forward_value`` of the L=20 loop at T=50) and at L=14 and 16; K3b on
+    32 pairs at t=12 (one ``echo_value`` of the T=12 loop). Operations per
+    amplitude and step: 6 L for RX on every bit, 6 per diagonal (forward
+    one, echo two). Returns the L=20 numbers."""
+    from dtc_tpu_torch.ops import resident as rs
+    from dtc_tpu_torch.ops import resident_general as rg
+
+    out = {}
+    c = N_TRAJ
+    for L in (14, 16, 20):
+        T = 51
+        angles, rows, sig, grows = ramp_inputs(L, T, c, P, None, dev,
+                                               seed=L)
+        kw = dict(L=L, q=L // 2, time_dependent=True)
+        k_ms, p_ms, k, ref = timed_pair(
+            lambda: rs.resident_forward_batch(rows, sig, angles, **kw),
+            lambda: rs.resident_forward_batch_ref(rows, sig, angles, **kw),
+            3 if L < 20 else 1)
+        what = f"forward ramp L={L} T={T} traj={c}"
+        err["K3 forward"] = max(err["K3 forward"], held(
+            f"K3 {what} (timed inputs)", k, ref))
+        k4_ms, k4 = time_ms(lambda: rg.general_forward_batch(
+            grows, L=L, T=T, q=L // 2))
+        held(f"K3 {what} vs K4 (timed inputs)", k, k4)
+        out[f"forward {L}"] = report(
+            "K3", what, k_ms, p_ms, c * (T - 1) << L, "cycles", T * c,
+            4 * (rows.numel() + 2 * angles.shape[0] + k.numel()), 6 * L + 6,
+            smi)
+        out[f"forward {L}"]["k4_ms"] = k4_ms
+        phase(f"[timing] K4 on the same ramp and rows, {what}: {k4_ms:.3f}"
+              f" ms = {T * c / (k4_ms / 1e3):.1f} cycles/s ({k4_ms / k_ms:.3f}"
+              f" x K3) on {smi}")
+    # 32 trajectories x t=12 on a T=13 schedule: one echo_value at t=12
+    L, T, ts = MAIN_L, 13, [12] * c
+    angles, tiles, sfin, gtiles = ramp_inputs(L, T, c, P, [12], dev, seed=12)
+    kw = dict(L=L, q=L // 2, time_dependent=True)
+    k_ms, p_ms, k, ref = timed_pair(
+        lambda: rs.resident_echo_batch(tiles, sfin, angles, **kw),
+        lambda: rs.resident_echo_batch_ref(tiles, sfin, angles, **kw), 1)
+    steps = sum(2 * t for t in ts)
+    what = f"echo ramp L={L} t=12 pairs={c} steps={steps}"
+    err["K3 echo"] = max(err["K3 echo"], held(f"K3 {what} (timed inputs)", k,
+                                              ref))
+    k4_ms, k4 = time_ms(lambda: rg.general_echo_batch(gtiles, L=L,
+                                                      q=L // 2))
+    held(f"K3 {what} vs K4 (timed inputs)", k, k4)
+    out["echo"] = report("K3", what, k_ms, p_ms, steps << L, "steps", steps,
+                         4 * (tiles.numel() + 2 * angles.shape[0]
+                              + k.numel()), 6 * L + 12, smi)
+    out["echo"]["k4_ms"] = k4_ms
+    phase(f"[timing] K4 on the same ramp and rows, {what}: {k4_ms:.3f} ms = "
+          f"{steps / (k4_ms / 1e3):.1f} steps/s ({k4_ms / k_ms:.3f} x K3) on "
+          f"{smi}")
+    return {"K3 forward": out[f"forward {MAIN_L}"], "K3 echo": out["echo"]}
+
+
 def main() -> None:
     csrc = os.path.join(HERE, "dtc_tpu_torch", "csrc")
     if not all(os.path.isfile(os.path.join(csrc, f))
-               for f in ("floquet_x.cu", "floquet_x_streamed.cu",
-                         "floquet_general.cu",
+               for f in ("floquet_x.cu", "floquet_x_resident.cu",
+                         "floquet_x_streamed.cu", "floquet_general.cu",
                          "floquet_general_streamed.cu")):
         sys.exit("chip_smoke: run it from the root of a checkout of the"
                  " repository (dtc_tpu_torch/csrc not found beside it)")
     smi = card()
     dev = torch.device("cuda")
     build()
-    err = {"K1": 0.0, "K2": 0.0, "K4 forward": 0.0, "K4 echo": 0.0,
+    err = {"K1": 0.0, "K2": 0.0, "K3 forward": 0.0, "K3 echo": 0.0,
+           "K4 forward": 0.0, "K4 echo": 0.0,
            "K5": 0.0, "K6 forward": 0.0, "K6 echo": 0.0,
            "K10 forward": 0.0, "K10 echo": 0.0}
     compare_x(dev, err)
@@ -1162,6 +1481,7 @@ def main() -> None:
     compare_eager(dev)
     compare_streamed(dev, err)
     compare_general_hi(dev, err)
+    compare_resident(dev, err)
     anchors_l30(dev)
     launches = main_autocorr(smi)
     launches.update({k: v for k, v in main_polarization(smi).items()
@@ -1174,9 +1494,11 @@ def main() -> None:
         route=("general_hi", "K10 forward", "K10 echo"))
     for k, v in main_large(smi).items():
         launches[k] = v + large[k]
+    launches.update(main_resident(smi))
     times = timing(dev, smi, err)
     times.update(timing_streamed(dev, smi, err))
     times.update(timing_general_hi(dev, smi, err))
+    times.update(timing_resident(dev, smi, err))
     times["K4 forward"] = times.pop("K4 forward xy")
     times["K5"] = times.pop("K5 x")
     general = "dtc_tpu/ops/pallas_resident_general.py"
@@ -1185,6 +1507,12 @@ def main() -> None:
          "dtc_tpu/ops/pallas_resident_blocked.py:131", None),
         ("K2", "floquet_x_echo", "dtc_tpu_torch/csrc/floquet_x.cu",
          "dtc_tpu/ops/pallas_resident_blocked.py:374", None),
+        ("K3 forward", "floquet_x_resident_forward",
+         "dtc_tpu_torch/csrc/floquet_x_resident.cu",
+         "dtc_tpu/ops/pallas_resident.py:119", None),
+        ("K3 echo", "floquet_x_resident_echo",
+         "dtc_tpu_torch/csrc/floquet_x_resident.cu",
+         "dtc_tpu/ops/pallas_resident.py:320", None),
         ("K4 forward", "floquet_general_forward",
          "dtc_tpu_torch/csrc/floquet_general.cu", f"{general}:166",
          f"{general}:334"),
@@ -1220,6 +1548,8 @@ def main() -> None:
                  "state_floor_ms": times[key]["state_floor_ms"]}
         if also:
             entry["also_replaces"] = also
+        if "k4_ms" in times[key]:  # K3: K4 on the same schedule and rows
+            entry["k4_ms"] = times[key]["k4_ms"]
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,25 @@
-"""Eager observables engine: energy E(t) and every <Z_q(t)> per trajectory.
+"""Eager Floquet engines: the observables engine and the branch-pair cycles.
 
 Port of ``dtc_tpu/core/evolve.py`` (``make_floquet_params``,
-``evolve_observables``). The reference's scan over cycles is a Python loop
-and its vmap over trajectories a batch dimension; its ``key`` becomes an
+``evolve_observables``, ``forward_cycle``, ``inverse_cycle``,
+``_noise_layer``, ``_branch_pair``, ``_branch_autocorr``). The reference's
+scan over cycles is a Python loop and its vmap over trajectories a batch
+dimension.
+
+``evolve_observables`` (energy E(t) and every <Z_q(t)>) serves what the
+observables kernel (``ops/observables.py``, K5) does not: complex128, and
+every L or schedule length outside K5's range. Its ``key`` becomes an
 injected block of uniforms laid out as the reference draws them,
 ``uniform(key, (T, K, L))`` row-major, i.e. (..., T*K, L).
 
-It serves what the observables kernel (``ops/observables.py``, K5) does
-not: complex128, and every L or schedule length outside K5's range.
-``autocorr_forward`` and ``autocorr_echo`` are not ported here; they go
-with ``core/density.py`` (ROADMAP.md queue 1, item 1).
+The cycle functions act on branch pairs (..., 2, 2^L), (phi1, phi2) =
+(|psi>, Z_q|psi>) evolved under the same noise, and serve the carried
+adaptive stepper (``experiments/adaptive.py``). Their noise comes from an
+explicit ``torch.Generator``: one uniform per qubit and pair, through the
+reference's ``_codes_from_uniform``, one Pauli string per pair applied to
+both branches. ``autocorr_forward`` and ``autocorr_echo`` are not ported
+here; they go with ``core/density.py`` (ROADMAP.md queue 1, exact density
+matrix).
 """
 
 from __future__ import annotations
@@ -17,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from dtc_tpu_torch.core.sigma_evolve import _codes_from_uniform
-from dtc_tpu_torch.models.drives import slot_unitary
+from dtc_tpu_torch.models.drives import slot_unitary, slot_unitary_inverse
 from dtc_tpu_torch.ops.diag import zz_z_phase_mask
 from dtc_tpu_torch.ops.gates import expect_x, expect_z
 from dtc_tpu_torch.ops.kick import apply_uniform_1q_layer
@@ -65,3 +75,56 @@ def evolve_observables(psi0, angles, diag_mask, diag_energy, x_coeff,
                     state, *pauli_string_masks(codes[..., t, k, :]))
         state = state * diag_mask
     return torch.stack(energies, -1), torch.stack(zs, -2)
+
+
+def _noise_layer(state, generator, p: float, L: int, active=None):
+    """One depolarizing event per qubit on branch pairs (..., 2, 2^L): one
+    sampled Pauli string per pair, applied to both branches (the noise acts
+    on the whole superposed state). ``active`` (...) bool leaves a pair
+    untouched where False."""
+    u = torch.rand((*state.shape[:-2], L), generator=generator,
+                   dtype=torch.float32, device=state.device)
+    codes = _codes_from_uniform(u, p)
+    if active is not None:
+        codes = torch.where(active[..., None], codes, 0)
+    xm, zm, n_y = pauli_string_masks(codes)
+    return apply_pauli_string(state, xm[..., None], zm[..., None],
+                              n_y[..., None])
+
+
+def forward_cycle(state, angles, diag_mask, *, L: int, K: int, p: float,
+                  generator=None):
+    """One forward Floquet cycle on branch pairs: the K kick slots of
+    ``angles`` (K, 2), each followed by its noise event, then the fused
+    diagonal."""
+    for k in range(K):
+        u = slot_unitary(angles[k, 0], angles[k, 1], state.dtype)
+        state = apply_uniform_1q_layer(state, u, L)
+        if p > 0.0:
+            state = _noise_layer(state, generator, p, L)
+    return state * diag_mask
+
+
+def inverse_cycle(state, angles, diag_mask, *, L: int, K: int, p: float,
+                  generator=None):
+    """One inverse cycle: conj(diagonal), then the inverse slots in reverse
+    order, each followed by its noise event."""
+    state = state * diag_mask.conj()
+    for k in range(K - 1, -1, -1):
+        u = slot_unitary_inverse(angles[k, 0], angles[k, 1], state.dtype)
+        state = apply_uniform_1q_layer(state, u, L)
+        if p > 0.0:
+            state = _noise_layer(state, generator, p, L)
+    return state
+
+
+def _branch_pair(psi0, zq_sign):
+    """(..., 2, 2^L) pair (|psi>, Z_q|psi>) of a state (..., 2^L)."""
+    return torch.stack([psi0, psi0 * zq_sign.to(psi0.dtype)], dim=-2)
+
+
+def _branch_autocorr(state, zq_sign, ancilla_factor):
+    """af * Re <phi1| Z_q |phi2> of branch pairs (..., 2, 2^L) -> (...)."""
+    return ancilla_factor * (state[..., 0, :].conj()
+                             * zq_sign.to(state.dtype)
+                             * state[..., 1, :]).sum(-1).real

@@ -44,156 +44,13 @@
 // order by a second kernel (double accumulator). Offsets are 64-bit. The
 // pieces shared with floquet_general.cu are in floquet_common.cuh, the RX
 // kick and the row coefficients shared with floquet_x_streamed.cu in
-// floquet_rx.cuh.
+// floquet_rx.cuh, the two passes shared with floquet_x_resident.cu (K3,
+// whose kick angle may change per cycle) in floquet_x_pass.cuh; here they
+// take one angle (ConstKick).
 
 #include "floquet_common.cuh"
 #include "floquet_rx.cuh"
-
-namespace {
-
-// Per-pair row pointer and trip gate. Forward (echo == 0): row `step` is
-// the cycle's row, the kick sign is +1. Echo: rows 2*step (pre) and
-// 2*step+1 (post); the pair runs only while step < trip (lane 124 of row 0).
-struct StepRows {
-  const float* pre;   // nullptr when there is no pre diagonal
-  const float* post;
-  float sign;
-  bool active;
-};
-
-__device__ __forceinline__ StepRows step_rows(const float* rows,
-                                              int64_t rows_per_pair, int pair,
-                                              int step, int echo) {
-  const float* base = rows + (int64_t)pair * rows_per_pair * kRowWidth;
-  StepRows r;
-  if (echo) {
-    const int trip = (int)base[kRowWidth - 4];
-    r.active = step < trip;
-    r.pre = base + (int64_t)(2 * step) * kRowWidth;
-    r.post = r.pre + kRowWidth;
-    r.sign = r.pre[kRowWidth - 3];
-  } else {
-    r.active = true;
-    r.pre = nullptr;
-    r.post = base + (int64_t)step * kRowWidth;
-    r.sign = 1.0f;
-  }
-  return r;
-}
-
-// Pass lo: [pre diagonal] then the kick on bits [0, k1).
-__global__ void pass_lo_kernel(float2* __restrict__ st, int L, int k1,
-                               const float* __restrict__ rows,
-                               int64_t rows_per_pair, int step, int echo,
-                               float c, float s) {
-  extern __shared__ float2 tile[];
-  __shared__ float cz[64], cb[64], c0;
-  const int pair = blockIdx.y;
-  const StepRows r = step_rows(rows, rows_per_pair, pair, step, echo);
-  if (!r.active) return;
-  const int64_t N = (int64_t)1 << L;
-  const int64_t hi = blockIdx.x;
-  const int n = 1 << k1;
-  float2* g = st + (int64_t)pair * N + (hi << k1);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) tile[i] = g[i];
-  if (r.pre != nullptr) {
-    load_coeffs(r.pre, L, cz, cb, &c0);
-    __syncthreads();
-    // factorized phase: high part and straddle sign fixed per block
-    const float th_hi = c0 + angle_bits(cz, cb, hi, k1, L - k1);
-    const float cs = cb[k1 - 1] * zsign(hi, 0);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const float th = th_hi + angle_bits(cz, cb, i, 0, k1)
-                       + cs * zsign(i, k1 - 1);
-      tile[i] = cmul_phase(tile[i], th);
-    }
-  }
-  __syncthreads();
-  kick_bits(tile, k1, 0, k1, c, s * r.sign);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) g[i] = tile[i];
-}
-
-// Pass hi: the kick on bits [k1, L), the post diagonal, and (forward) the
-// partial sum of |psi|^2 z_q into partials[(pair * T + step + 1) * nblk + bx].
-__global__ void pass_hi_kernel(float2* __restrict__ st, int L, int k1,
-                               const float* __restrict__ rows,
-                               int64_t rows_per_pair, int step, int echo,
-                               float c, float s, int q,
-                               float* __restrict__ partials, int T) {
-  extern __shared__ float2 tile[];  // [2^n2][kW]
-  __shared__ float cz[64], cb[64], c0, th_lo[kW], red[kThreads / 32];
-  const int pair = blockIdx.y;
-  const StepRows r = step_rows(rows, rows_per_pair, pair, step, echo);
-  if (!r.active) return;
-  const int n2 = L - k1;
-  const int64_t N = (int64_t)1 << L;
-  const int64_t o = (int64_t)blockIdx.x * kW;
-  const int n = (1 << n2) * kW;
-  float2* g = st + (int64_t)pair * N + o;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    tile[i] = g[((int64_t)(i / kW) << k1) + (i % kW)];
-  }
-  load_coeffs(r.post, L, cz, cb, &c0);
-  __syncthreads();
-  if (threadIdx.x < kW) {
-    th_lo[threadIdx.x] = c0 + angle_bits(cz, cb, o + threadIdx.x, 0, k1);
-  }
-  // tile index = h * kW + w: the high bits sit at tile bits [2, 2 + n2)
-  kick_bits(tile, n2 + 2, 2, n2, c, s * r.sign);  // ends in __syncthreads
-  float acc = 0.0f;
-  const int64_t zq_lo = q < k1 ? q : -1;
-  for (int h = threadIdx.x; h < (1 << n2); h += blockDim.x) {
-    const float th_h = angle_bits(cz, cb, h, k1, n2);
-    const float cs = cb[k1 - 1] * zsign(h, 0);
-#pragma unroll
-    for (int w = 0; w < kW; ++w) {
-      const int64_t lo = o + w;
-      const float th = th_lo[w] + th_h + cs * zsign(lo, k1 - 1);
-      const float2 v = cmul_phase(tile[h * kW + w], th);
-      tile[h * kW + w] = v;
-      if (!echo) {
-        const float z = zq_lo >= 0 ? zsign(lo, q) : zsign(h, q - k1);
-        acc += (v.x * v.x + v.y * v.y) * z;
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    g[((int64_t)(i / kW) << k1) + (i % kW)] = tile[i];
-  }
-  if (!echo) {
-    const float tot = block_sum(acc, red);
-    if (threadIdx.x == 0) {
-      partials[((int64_t)pair * T + step + 1) * gridDim.x + blockIdx.x] = tot;
-    }
-  }
-}
-
-cudaError_t launch_step(float2* st, int L, const float* rows,
-                        int64_t rows_per_pair, int n_pairs, int step, int echo,
-                        float c, float s, int q, float* partials, int T,
-                        cudaStream_t stream) {
-  const int k1 = lo_bits(L);
-  const int n2 = L - k1;
-  const size_t smem_lo = sizeof(float2) << k1;
-  const size_t smem_hi = (sizeof(float2) * kW) << n2;
-  cudaError_t e = cudaFuncSetAttribute(
-      pass_lo_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_lo);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(pass_hi_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_hi);
-  if (e != cudaSuccess) return e;
-  pass_lo_kernel<<<dim3(1u << n2, n_pairs), kThreads, smem_lo, stream>>>(
-      st, L, k1, rows, rows_per_pair, step, echo, c, s);
-  pass_hi_kernel<<<dim3((1u << k1) / kW, n_pairs), kThreads, smem_hi,
-                   stream>>>(st, L, k1, rows, rows_per_pair, step, echo, c, s,
-                             q, partials, T);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "floquet_x_pass.cuh"
 
 extern "C" {
 
@@ -217,8 +74,8 @@ int floquet_x_forward(void* state, const void* rows, void* partials,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   for (int cyc = 0; cyc + 1 < T; ++cyc) {
-    e = launch_step(st, L, (const float*)rows, T, n_traj, cyc, 0, c, s, q,
-                    (float*)partials, T, stream);
+    e = launch_step(st, L, (const float*)rows, T, n_traj, cyc, 0,
+                    ConstKick{c, s}, q, (float*)partials, T, stream);
     if (e != cudaSuccess) return (int)e;
   }
   const int64_t n_rows = (int64_t)n_traj * T;
@@ -244,7 +101,7 @@ int floquet_x_echo(void* state, const void* tiles, void* partials, void* out,
   if (e != cudaSuccess) return (int)e;
   for (int k = 0; k < n_steps; ++k) {
     e = launch_step(st, L, (const float*)tiles, rows_per_pair, n_pairs, k, 1,
-                    c, s, q, nullptr, 0, stream);
+                    ConstKick{c, s}, q, nullptr, 0, stream);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)measure_and_reduce(st, L, q, n_pairs, (float*)partials,

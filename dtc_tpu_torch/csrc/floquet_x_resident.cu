@@ -1,0 +1,111 @@
+// Resident x-drive Floquet kernels for Hopper (sm_90a): forward A(t) (K3a)
+// and echo A0(t) (K3b) of the kicked-Ising chain in the sigma frame, for a
+// constant or a per-cycle x schedule at 14 <= L <= 21.
+//
+// Replaces
+//   K3a dtc_tpu/ops/pallas_resident.py::_make_kernel
+//       (entry resident_forward_batch)
+//   K3b dtc_tpu/ops/pallas_resident.py::_make_echo_kernel
+//       (entry resident_echo_batch)
+//
+// What is ported is the math, not the TPU design. The sigma frame, the
+// compact rows, the fused diagonal angle and the host factor are K1/K2's
+// (floquet_x.cu; ops/params.py builds K3's rows bit for bit). What K3 adds
+// is the schedule: the TPU kernel carries (Tu, 128, 128) and (Tu, TOP, TOP)
+// kick matrices, one per cycle of a per-cycle schedule (Tu = T) or one for
+// a constant one (Tu = 1), because its kick is a matrix product. Here the
+// kick is RX(theta_t) on every qubit, so the schedule is a device table of
+// (cos theta_t/2, sin theta_t/2), Tu x 2 f32:
+//   - the forward's cycle `cyc` reads row cyc, bounded by Tu (row 0 when
+//     Tu = 1);
+//   - an echo step reads the row its pre row names in lane 127 (forward
+//     step k: k; inverse step: 2t-1-k; ops/params.py::echo_pair_tiles),
+//     read as an int and bounded by Tu, with the imaginary sign of lane
+//     125 (-1 on inverse steps), as K2.
+// The TPU kernel's q < 14 limit (its probe on the column axis) is not
+// carried over: any 0 <= q < L.
+//
+// Design: K1/K2's two passes (floquet_x_pass.cuh), instantiated with the
+// table (TableKick) where K1/K2 take one angle (ConstKick); the entries
+// below are K1/K2's but for the table. k1 = L - L/2, n2 = L/2: at L=14 a lo
+// tile is 1 KiB and a hi tile 4 KiB, at L=21 16 and 32 KiB. Butterflies run
+// three bits per shared-memory round (floquet_rx.cuh). Reductions are
+// deterministic: one partial per block, summed in a fixed order
+// (floquet_common.cuh).
+//
+// What bounds it on this card: the same as K1/K2, two read+write sweeps of
+// the state per cycle (32 B per amplitude and cycle). At 14 <= L <= 16 a
+// batch of 32 trajectories (4-16 MiB of states) sits in the 50 MB L2, and
+// each cycle still makes two launches of small blocks, so launch and
+// latency, not bytes, set the time there.
+
+#include "floquet_common.cuh"
+#include "floquet_rx.cuh"
+#include "floquet_x_pass.cuh"
+
+extern "C" {
+
+// Sizes the wrapper allocates: partials of the forward entry.
+int floquet_x_resident_forward_partials(int L) {
+  return (1 << lo_bits(L)) / kW;
+}
+
+// Sizes the wrapper allocates: partials of the echo entry (per pair).
+int floquet_x_resident_echo_partials(int L) {
+  return (1 << L) / kMeasureChunk;
+}
+
+// K3a. state: n_traj x 2^L complex64 scratch; rows: n_traj x T x 128 f32;
+// cs: tu x 2 f32 (cos, sin of theta_t / 2); partials: n_traj x T x
+// floquet_x_resident_forward_partials(L) f32; out: n_traj x T f32 (A(t)
+// before the host's sigma/ancilla factor). Runs the T - 1 cycles whose
+// results are measured.
+int floquet_x_resident_forward(void* state, const void* rows, const void* cs,
+                               void* partials, void* out, int n_traj, int L,
+                               int T, int tu, int q, int64_t b0,
+                               void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  float2* st = (float2*)state;
+  const int64_t N = (int64_t)1 << L;
+  init_kernel<<<dim3(256, n_traj), kThreads, 0, stream>>>(st, N, b0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  for (int cyc = 0; cyc + 1 < T; ++cyc) {
+    e = launch_step(st, L, (const float*)rows, T, n_traj, cyc, 0,
+                    TableKick{(const float*)cs, tu}, q, (float*)partials, T,
+                    stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int64_t n_rows = (int64_t)n_traj * T;
+  const float a0 = 1.0f - 2.0f * (float)((b0 >> q) & 1);
+  reduce_kernel<<<(unsigned)((n_rows + kThreads - 1) / kThreads), kThreads,
+                  0, stream>>>((const float*)partials, (float*)out, n_rows,
+                               floquet_x_resident_forward_partials(L), T, a0);
+  return (int)cudaGetLastError();
+}
+
+// K3b. state: n_pairs x 2^L complex64 scratch; tiles: n_pairs x rows x 128
+// f32 (interleaved pre/post step rows, trip count 2t at lane 124 of row 0,
+// table row at lane 127 of each pre row); cs: tu x 2 f32; partials: n_pairs
+// x floquet_x_resident_echo_partials(L) f32; out: n_pairs f32. n_steps = the
+// largest trip count of the batch.
+int floquet_x_resident_echo(void* state, const void* tiles, const void* cs,
+                            void* partials, void* out, int n_pairs, int L,
+                            int rows_per_pair, int n_steps, int tu, int q,
+                            int64_t b0, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  float2* st = (float2*)state;
+  const int64_t N = (int64_t)1 << L;
+  init_kernel<<<dim3(256, n_pairs), kThreads, 0, stream>>>(st, N, b0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  for (int k = 0; k < n_steps; ++k) {
+    e = launch_step(st, L, (const float*)tiles, rows_per_pair, n_pairs, k, 1,
+                    TableKick{(const float*)cs, tu}, q, nullptr, 0, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)measure_and_reduce(st, L, q, n_pairs, (float*)partials,
+                                 (float*)out, stream);
+}
+
+}  // extern "C"

@@ -8,7 +8,10 @@ columns when requested); and the studies built on it,
 ``run_polarization_comparison``, ``run_shots_study`` and
 ``run_xy_cycle_comparison``, with the reference's CSV columns and file
 names. The xy-cycle plot (matplotlib) is not ported: ROADMAP.md queue 1,
-item 8 (``analysis/plots.py``).
+CLI and edges (``analysis/plots.py``). Every study here refuses
+``use_fakebackend=1``: the device-noise path is not ported, and they do not
+run depolarizing noise in its place (the reference's ``run_shots_study``
+does).
 """
 
 from __future__ import annotations
@@ -36,6 +39,13 @@ def _raw_sqrt(x):
         return np.sqrt(np.asarray(x, dtype=float))
 
 
+def _refuse_fakebackend(cfg) -> None:
+    if cfg.use_fakebackend:
+        raise NotImplementedError(
+            "use_fakebackend=1 (device noise) is not ported yet: ROADMAP.md"
+            " queue 1, device noise (core/device_evolve.py)")
+
+
 def run_autocorr(cfg, hs=None, phis=None, *, device="cuda", out_dir=None,
                  disorder_dir=None, with_envelopes: bool = False, write=True,
                  method: str = "trajectories", uniforms=None) -> dict:
@@ -49,13 +59,10 @@ def run_autocorr(cfg, hs=None, phis=None, *, device="cuda", out_dir=None,
     if method == "exact":
         raise NotImplementedError(
             "method='exact' (density-matrix superoperator) is not ported yet:"
-            " ROADMAP.md queue 1, item 1 (core/density.py)")
+            " ROADMAP.md queue 1, exact density matrix (core/density.py)")
     if method != "trajectories":
         raise ValueError(f"unknown method {method!r}")
-    if cfg.use_fakebackend:
-        raise NotImplementedError(
-            "use_fakebackend=1 (device noise) is not ported yet: ROADMAP.md"
-            " queue 1, item 5 (core/device_evolve.py)")
+    _refuse_fakebackend(cfg)
     if hs is None or phis is None:
         hs, phis = get_disorder(cfg, disorder_dir)
     sched, params, noise = build_context(cfg, hs, phis, device=device)
@@ -131,6 +138,7 @@ def run_shots_study(cfg, shots_list=(100, 1000, 10_000, 100_000, 1_000_000),
                     *, device="cuda", out_dir=None, disorder_dir=None,
                     write=True) -> dict:
     """Echo A0(t) under binomial shot sampling, one column per shot count."""
+    _refuse_fakebackend(cfg)
     if cfg.shots:
         cfg = cfg.replace(shots=0)
     hs, phis = get_disorder(cfg, disorder_dir)

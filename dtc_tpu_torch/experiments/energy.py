@@ -79,7 +79,7 @@ def _refuse_fakebackend(cfg) -> None:
     if cfg.use_fakebackend:
         raise NotImplementedError(
             "use_fakebackend=1 (device noise) is not ported yet: ROADMAP.md"
-            " queue 1, item 5 (core/device_evolve.py); the energy studies"
+            " queue 1, device noise (core/device_evolve.py); the energy studies"
             " do not run depolarizing noise in its place")
 
 

@@ -5,14 +5,17 @@ Port of ``dtc_tpu/experiments/engine.py`` (``build_context``,
 ``echo_sweep``, ``apply_shot_noise``).
 
 Dispatch is by shape, as in the reference, with the port's own tiers:
-- a constant x-drive (K = 1, no y angle, one angle for every cycle) in
-  complex64 goes to the blocked x entries at 17 <= L <= 23
-  (``ops/resident_blocked.py``: CUDA kernels K1/K2 for CUDA tensors, their
-  plain versions for CPU tensors) and to the streamed x entries at
-  24 <= L <= 30 (``ops/streamed.py``: the large-L CUDA family, or its plain
-  versions);
-- every other drive (y, xy, yx, circular, xy-cycle, per-cycle x) in
-  complex64 goes to the lab-frame general entries at 14 <= L <= 23
+- an x drive (K = 1, no y angle) in complex64 goes to the resident x
+  entries (``ops/resident.py``: CUDA kernels K3a/K3b for CUDA tensors, their
+  plain versions for CPU tensors) at 14 <= L <= 16 when it is constant (one
+  angle for every cycle) and at 14 <= L <= 21 when it is per-cycle (the
+  adaptive-g schedules), the reference's K3 range;
+- a constant x drive goes to the blocked x entries at 17 <= L <= 23
+  (``ops/resident_blocked.py``: K1/K2, or their plain versions) and to the
+  streamed x entries at 24 <= L <= 30 (``ops/streamed.py``: the large-L
+  CUDA family, or its plain versions);
+- every other drive (y, xy, yx, circular, xy-cycle, per-cycle x at
+  22 <= L) in complex64 goes to the lab-frame general entries at 14 <= L <= 23
   (``ops/resident_general.py``: CUDA kernel K4, or its plain versions) and
   to the streamed lab-frame entries at 24 <= L <= 29
   (``ops/cycle_hi_general.py``: the large-L CUDA family K10a/K10b, or its
@@ -47,6 +50,7 @@ from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.models.noise import NoiseSpec
 from dtc_tpu_torch.ops import (
     cycle_hi_general,
+    resident,
     resident_blocked,
     resident_general,
     streamed,
@@ -115,24 +119,38 @@ def build_context(cfg, hs, phis, *, device):
     return sched, (hs, phis), NoiseSpec(p=cfg.noise_p)
 
 
+def x_schedule(angles) -> bool:
+    """Whether the schedule kicks about x only: K = 1 and no y angle."""
+    ang = angles.detach().cpu()
+    return ang.shape[1] == 1 and not bool((ang[:, :, 1] != 0).any())
+
+
 def constant_x_theta(angles) -> float | None:
     """The kick angle of a constant x-drive schedule, else None."""
-    ang = angles.detach().cpu()
-    if ang.shape[1] != 1 or bool((ang[:, :, 1] != 0).any()):
+    if not x_schedule(angles):
         return None
+    ang = angles.detach().cpu()
     if not bool((ang == ang[0]).all()):
         return None
     return float(ang[0, 0, 0])
 
 
 def engine_for(angles, *, L, T, q, dtype_name, has_y, echo: bool) -> str:
-    """'blocked' (x kernels K1/K2 or their plain versions), 'streamed' (the
-    large-L x family or its plain versions), 'general' (the lab-frame kernel
-    K4 or its plain versions), 'general_hi' (the large-L lab-frame family
-    or its plain versions) or 'sigma'."""
+    """'resident' (x kernels K3a/K3b or their plain versions), 'blocked'
+    (K1/K2 or their plain versions), 'streamed' (the large-L x family or its
+    plain versions), 'general' (the lab-frame kernel K4 or its plain
+    versions), 'general_hi' (the large-L lab-frame family or its plain
+    versions) or 'sigma'."""
     if dtype_name != "complex64" or not 0 <= q < L:
         return "sigma"
-    const_x = not has_y and constant_x_theta(angles) is not None
+    x_only = not has_y and x_schedule(angles)
+    const_x = x_only and constant_x_theta(angles) is not None
+    if x_only:
+        # constant x: K3 below K1's range; per-cycle x: K3's whole range
+        top = resident_blocked.MIN_L - 1 if const_x else resident.MAX_L
+        t_max = resident.MAX_T_ECHO if echo else resident.MAX_T_FORWARD
+        if resident.MIN_L <= L <= top and T <= t_max:
+            return "resident"
     if const_x:
         for name, mod in (("blocked", resident_blocked),
                           ("streamed", streamed)):
@@ -150,25 +168,41 @@ def engine_for(angles, *, L, T, q, dtype_name, has_y, echo: bool) -> str:
     return "sigma"
 
 
+def _host_and_device(angles, device):
+    """(a host copy, a copy on ``device``) of a kick schedule: the route
+    and the constant angle are read from the host copy, so that a batch
+    costs at most one device-to-host copy of its schedule."""
+    return angles.detach().cpu(), angles.to(device)
+
+
 def _forward_batch(hs, phis, angles, uniforms, *, L, T, K, p, q,
                    initial_state, dtype_name, ancilla_factor, has_y=False,
                    n_traj=None, generator=None):
-    """(inst, L), (inst, L-1), (T, K, 2), uniforms (inst, c, T*K, L) or
-    None -> (inst, c, T) tensor on hs's device."""
-    engine = engine_for(angles, L=L, T=T, q=q, dtype_name=dtype_name,
+    """(inst, L), (inst, L-1), (T, K, 2) on any device, uniforms (inst, c,
+    T*K, L) or None -> (inst, c, T) tensor on hs's device."""
+    host, angles = _host_and_device(angles, hs.device)
+    engine = engine_for(host, L=L, T=T, q=q, dtype_name=dtype_name,
                         has_y=has_y, echo=False)
+    theta = constant_x_theta(host)
     if engine != "sigma":
         inst = hs.shape[0]
         if uniforms is None and p > 0.0:
             uniforms = draw_uniforms((inst, n_traj, T * K, L),
                                      generator=generator, device=hs.device)
         c = uniforms.shape[1] if uniforms is not None else n_traj
+    if engine == "resident":
+        rows, sig_after = forward_rows(uniforms, hs[:, None], phis[:, None],
+                                       L=L, T=T, p=p, batch=(inst, c))
+        return resident.resident_forward_batch(
+            rows, sig_after, angles, L=L, q=q, initial_state=initial_state,
+            ancilla_factor=ancilla_factor,
+            time_dependent=theta is None)
     if engine in ("blocked", "streamed"):
         rows, sig_after = forward_rows(uniforms, hs[:, None], phis[:, None],
                                        L=L, T=T, p=p, batch=(inst, c))
         entry = (resident_blocked.blocked_forward_batch if engine == "blocked"
                  else streamed.streamed_forward_batch)
-        return entry(rows, sig_after, constant_x_theta(angles), L=L, q=q,
+        return entry(rows, sig_after, theta, L=L, q=q,
                      initial_state=initial_state,
                      ancilla_factor=ancilla_factor)
     if engine in ("general", "general_hi"):
@@ -191,21 +225,31 @@ def _echo_batch(hs, phis, angles, ts, uniforms, *, L, T, K, p, q,
                 initial_state, dtype_name, ancilla_factor, has_y=False,
                 n_traj=None, generator=None):
     """-> (inst, c, n_ts) echo values; uniforms (inst, c, 2T*K, L)."""
-    engine = engine_for(angles, L=L, T=T, q=q, dtype_name=dtype_name,
+    host, angles = _host_and_device(angles, hs.device)
+    engine = engine_for(host, L=L, T=T, q=q, dtype_name=dtype_name,
                         has_y=has_y, echo=True)
+    theta = constant_x_theta(host)
     if engine != "sigma":
         inst = hs.shape[0]
         if uniforms is None and p > 0.0:
             uniforms = draw_uniforms((inst, n_traj, 2 * T * K, L),
                                      generator=generator, device=hs.device)
         c = uniforms.shape[1] if uniforms is not None else n_traj
+    if engine == "resident":
+        tiles, sig_fin = echo_pair_tiles(uniforms, ts, hs[:, None],
+                                         phis[:, None], L=L, T=T, p=p,
+                                         batch=(inst, c))
+        return resident.resident_echo_batch(
+            tiles, sig_fin, angles, L=L, q=q, initial_state=initial_state,
+            ancilla_factor=ancilla_factor,
+            time_dependent=theta is None)
     if engine in ("blocked", "streamed"):
         tiles, sig_fin = echo_pair_tiles(uniforms, ts, hs[:, None],
                                          phis[:, None], L=L, T=T, p=p,
                                          batch=(inst, c))
         entry = (resident_blocked.blocked_echo_batch if engine == "blocked"
                  else streamed.streamed_echo_batch)
-        return entry(tiles, sig_fin, constant_x_theta(angles), L=L, q=q,
+        return entry(tiles, sig_fin, theta, L=L, q=q,
                      initial_state=initial_state,
                      ancilla_factor=ancilla_factor)
     if engine in ("general", "general_hi"):

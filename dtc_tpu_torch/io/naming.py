@@ -1,11 +1,17 @@
-"""Config-encoded file names of the autocorrelator and energy results.
+"""Config-encoded file names of the autocorrelator, energy and adaptive
+results.
 
-A copy of the autocorr and energy names of ``dtc_tpu/io/naming.py``
-(``autocorr_csv_name``, ``autocorr_comparison_csv_name``,
-``autocorr_folder_name``, ``energy_csv_name``, ``energy_folder_name``);
-the file name is the experiment's config key:
+A copy of the autocorr, energy and adaptive names of
+``dtc_tpu/io/naming.py`` (``autocorr_csv_name``,
+``autocorr_comparison_csv_name``, ``autocorr_folder_name``,
+``energy_csv_name``, ``energy_folder_name``, ``adaptive_csv_name``,
+``adaptive_comparison_csv_name``, ``g_history_csv_name``); the file name is
+the experiment's config key:
 autocorr_data_{state}_g{g}_L{L}_inst{inst}_tf{tf}_randomphi{r}_delta{d}
 _amplitude{A}_noise{p}_usenoise{u}[_pol{pol}][_with_envelopes].csv
+autocorr_data_{state}_realtime_adaptive[_optimization_iterN|_expD|_linear]
+_g{g}_L{L}_inst{inst}_randomphi{r}_delta{d}_amplitude{A}_noise{p}
+_usenoise{u}_target{T}_gain{G}.csv
 """
 
 from __future__ import annotations
@@ -52,3 +58,37 @@ def energy_csv_name(cfg) -> str:
 
 def energy_folder_name(cfg) -> str:
     return f"energy-data_L{cfg.L}-full-ham"
+
+
+def adaptive_csv_name(cfg) -> str:
+    if cfg.use_optimization:
+        method = f"_optimization_iter{cfg.optimization_iterations}"
+    elif cfg.exponential_feedback:
+        method = f"_exp{cfg.decay_compensation}"
+    else:
+        method = "_linear"
+    return (
+        f"autocorr_data_{cfg.initial_state}_realtime_adaptive{method}_{_base(cfg)}"
+        f"_{_suffix(cfg)}_target{cfg.target_echo}_gain{cfg.feedback_gain}.csv"
+    )
+
+
+def adaptive_comparison_csv_name(cfg) -> str:
+    """comparison_{state}_adaptive_{method}_vs_fixed_g{g0}_L{L}_inst{n}_
+    target{t}_gain{gain}.csv — the adaptive-vs-fixed comparison file."""
+    if cfg.use_optimization:
+        method = "optimization"
+    elif cfg.exponential_feedback:
+        method = "exponential"
+    else:
+        method = "linear"
+    return (f"comparison_{cfg.initial_state}_adaptive_{method}_vs_fixed_"
+            f"g{cfg.g}_L{cfg.L}_inst{cfg.inst}_target{cfg.target_echo}"
+            f"_gain{cfg.feedback_gain}.csv")
+
+
+def g_history_csv_name(cfg) -> str:
+    return (
+        f"g_history_{cfg.initial_state}_realtime_g{cfg.g}_L{cfg.L}_inst{cfg.inst}"
+        f"_target{cfg.target_echo}_gain{cfg.feedback_gain}.csv"
+    )

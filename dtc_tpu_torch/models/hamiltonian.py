@@ -6,7 +6,7 @@ Port of ``dtc_tpu/models/hamiltonian.py`` (``COMPONENTS``,
 terms are coefficient tensors for the energy engines: the Z and ZZ parts
 form one diagonal reduction, the X part a sum of pair reductions.
 ``pauli_string_terms`` (the QASM export) is not ported yet: ROADMAP.md
-queue 1, item 8.
+queue 1, CLI and edges.
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
 Each source ``dtc_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and
-is one library: ``floquet_x`` (K1/K2), ``floquet_x_streamed`` (the large-L
-x family that replaces K6a/K6b/K7a/K7b), ``floquet_general`` (K4, K5) and
-``floquet_general_streamed`` (the large-L lab-frame family, K10a/K10b). A
+is one library: ``floquet_x`` (K1/K2), ``floquet_x_resident`` (K3a/K3b,
+constant or per-cycle x at 14 <= L <= 21), ``floquet_x_streamed`` (the
+large-L x family that replaces K6a/K6b/K7a/K7b), ``floquet_general`` (K4,
+K5) and ``floquet_general_streamed`` (the large-L lab-frame family,
+K10a/K10b). A
 source is compiled at first use with nvcc for sm_90a into a shared library
 under
 ``dtc_tpu_torch/csrc/build/`` (named by the hash of the source, the shared
@@ -42,6 +44,14 @@ LIBRARIES = {
                               _I64, _F32, _F32, _VP],
         "floquet_x_echo": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
                            _I64, _F32, _F32, _VP],
+    },
+    "floquet_x_resident": {
+        "floquet_x_resident_forward_partials": [_I32],
+        "floquet_x_resident_echo_partials": [_I32],
+        "floquet_x_resident_forward": [_VP, _VP, _VP, _VP, _VP, _I32, _I32,
+                                       _I32, _I32, _I32, _I64, _VP],
+        "floquet_x_resident_echo": [_VP, _VP, _VP, _VP, _VP, _I32, _I32,
+                                    _I32, _I32, _I32, _I32, _I64, _VP],
     },
     "floquet_x_streamed": {
         "floquet_x_streamed_partials": [_I32],

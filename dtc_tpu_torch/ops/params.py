@@ -12,9 +12,10 @@ lanes [0,L) noise-Z bits n_q, [L,2L) sigma bits, [2L,3L-1) bond flips,
 [3L-1,4L-1) h_q, [4L-1,5L-2) phi_j. Echo rows carry flags at the tail:
 lane width-4 (first row only) = the pair's trip count 2t, width-3 = imag
 sign of the step's kick (-1 on inverse steps), width-2 = step active,
-width-1 = kick matrix index. Only the first two flags are read by the port
-(the x kernels and their plain versions); the others are kept so that the
-tiles equal the reference's bit for bit, which the tests check.
+width-1 = kick matrix index. K3 (``ops/resident.py``) reads the trip
+count, the sign and the kick index; K1/K2 and the streamed family the first
+two. The active flag is kept so that the tiles equal the reference's bit for
+bit, which the tests check.
 
 Width, the reference's rule (``pallas_streamed.py``): 128 lanes while the
 5L-2 data lanes fit (forward: 5L-2 <= 128, L <= 26; echo: 5L-2 <= 124, so
@@ -95,12 +96,13 @@ def forward_rows(uniforms, hs, phis, *, L: int, T: int, p: float,
     return rows, csum
 
 
-def kick_matrices(angles, L: int):
-    """Planar (1, 128, 128) U7 and (1, TOP, TOP) U_top kick matrices
-    (RX(theta)^{(x)7} and ^{(x)(L-14)}) of a constant x schedule
-    (T, 1, 2), f32. Returns (u7r, u7i, utr, uti)."""
+def kick_matrices(angles, L: int, time_dependent: bool = False):
+    """Planar (Tu, 128, 128) U7 and (Tu, TOP, TOP) U_top kick matrices
+    (RX(theta_t)^{(x)7} and ^{(x)(L-14)}) of an x schedule (T, 1, 2), f32:
+    Tu = T for a per-cycle schedule (``time_dependent``), else 1, from the
+    first angle. Returns (u7r, u7i, utr, uti)."""
     TOP = 1 << max(L - 14, 0)
-    thetas = angles[:1, 0, 0]
+    thetas = angles[:, 0, 0] if time_dependent else angles[:1, 0, 0]
     c = torch.cos(thetas / 2).to(torch.float32)
     s = torch.sin(thetas / 2).to(torch.float32)
     eye = torch.eye(2, dtype=torch.float32, device=angles.device)

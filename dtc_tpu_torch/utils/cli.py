@@ -1,10 +1,10 @@
 """CLI of the port: ``python -m dtc_tpu_torch {autocorr,polarization,shots,
-xy-cycle,energy,ham-comparison,per-qubit-z,bench}``.
+xy-cycle,energy,ham-comparison,per-qubit-z,adaptive,adaptive-batch,bench}``.
 
 Port of those subcommands of ``dtc_tpu/utils/cli.py``, with its flag
-vocabulary (``add_common_flags`` and ``config_from_args`` are copies), plus
-``--device`` (default cuda; a CUDA request on a machine without CUDA raises,
-it does not run on the CPU).
+vocabulary (``add_common_flags``, ``add_adaptive_flags`` and
+``config_from_args`` are copies), plus ``--device`` (default cuda; a CUDA
+request on a machine without CUDA raises, it does not run on the CPU).
 """
 
 from __future__ import annotations
@@ -48,6 +48,19 @@ def add_common_flags(p: argparse.ArgumentParser):
                    help="Folder with hs_L{L}.csv / phis_L{L}.csv (generated if absent)")
 
 
+def add_adaptive_flags(p: argparse.ArgumentParser):
+    p.add_argument("--target_echo", type=float, default=1.0)
+    p.add_argument("--feedback_gain", type=float, default=0.01)
+    p.add_argument("--exponential_feedback", type=int, default=1)
+    p.add_argument("--decay_compensation", type=float, default=0.1)
+    p.add_argument("--g_min", type=float, default=0.84)
+    p.add_argument("--g_max", type=float, default=1.0)
+    p.add_argument("--use_optimization", type=int, default=1)
+    p.add_argument("--optimization_iterations", type=int, default=5)
+    p.add_argument("--optimizer_method", type=str, default="golden",
+                   choices=["golden", "bounded", "grid"])
+
+
 def config_from_args(args) -> SimConfig:
     fields = set(SimConfig.__dataclass_fields__)
     kw = {k: v for k, v in vars(args).items() if k in fields and v is not None}
@@ -67,10 +80,16 @@ def build_parser() -> argparse.ArgumentParser:
         ("energy", "energy sweep over noise probabilities"),
         ("ham-comparison", "component-Hamiltonian energy comparison"),
         ("per-qubit-z", "per-qubit <Z_i(t)> sweep"),
+        ("adaptive", "real-time adaptive-g control loop"),
+        ("adaptive-batch", "batch (non-causal) adaptive-g control"),
     ]:
         p = sub.add_parser(name, help=hlp)
         add_common_flags(p)
         p.add_argument("--device", type=str, default="cuda")
+        if name.startswith("adaptive"):
+            add_adaptive_flags(p)
+            p.add_argument("--realtime_csv", action="store_true",
+                           help="append+flush per completed timestep")
     p = sub.choices["autocorr"]
     p.add_argument("--with_envelopes", action="store_true")
     p.add_argument("--method", type=str, default="trajectories",
@@ -114,7 +133,7 @@ def main(argv=None) -> int:
 
         bench.main(device=args.device)
         return 0
-    from dtc_tpu_torch.experiments import autocorr, energy
+    from dtc_tpu_torch.experiments import adaptive, autocorr, energy
 
     cfg = config_from_args(args)
     kw = dict(device=args.device, out_dir=args.out_dir,
@@ -122,12 +141,12 @@ def main(argv=None) -> int:
     if getattr(args, "sharded", False) or getattr(args, "n_amp", None):
         raise NotImplementedError(
             "--sharded / --n_amp (amplitude sharding) is not ported yet:"
-            " ROADMAP.md queue 1, item 7")
+            " ROADMAP.md queue 1, sharding")
     if args.command == "autocorr":
         if args.emit_gate_counts:
             raise NotImplementedError(
                 "--emit_gate_counts is not ported yet: ROADMAP.md queue 1,"
-                " item 8")
+                " CLI and edges")
         r = autocorr.run_autocorr(cfg, with_envelopes=args.with_envelopes,
                                   method=args.method, **kw)
     elif args.command == "polarization":
@@ -145,6 +164,12 @@ def main(argv=None) -> int:
         r = energy.run_ham_comparison(cfg, **kw)
     elif args.command == "per-qubit-z":
         r = energy.run_per_qubit_z(cfg, **kw)
+    elif args.command == "adaptive":
+        r = adaptive.run_adaptive_realtime(
+            cfg, optimizer_method=args.optimizer_method,
+            realtime_csv=args.realtime_csv, **kw)
+    elif args.command == "adaptive-batch":
+        r = adaptive.run_adaptive_batch(cfg, **kw)
     else:
         r = autocorr.run_xy_cycle_comparison(cfg, **kw)
     print(f"wrote {r['csv_path']}")

@@ -205,8 +205,8 @@ def test_shot_noise_identical():
 
 @pytest.mark.parametrize("command,extra,engines", [
     ("polarization", ["--polarizations", "x,y"],
-     {("sigma", "x"), ("general", "y")}),
-    ("xy-cycle", [], {("sigma", "x"), ("general", "xy_cycle")}),
+     {("resident", "x"), ("general", "y")}),
+    ("xy-cycle", [], {("resident", "x"), ("general", "xy_cycle")}),
     ("shots", ["--polarization", "xy", "--shots_list", "10,100"],
      {("general", "xy")}),
 ])

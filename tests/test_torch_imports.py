@@ -21,7 +21,8 @@ def test_no_module_of_the_port_loads_jax():
         dtc_tpu_torch.__path__, "dtc_tpu_torch.")
         if m.name != "dtc_tpu_torch.__main__"]
     for module in ("ops.resident_general", "io.disorder", "experiments.energy",
-                   "ops.observables", "utils.checkpoints", "ops.streamed"):
+                   "ops.observables", "utils.checkpoints", "ops.streamed",
+                   "ops.resident", "experiments.adaptive"):
         assert f"dtc_tpu_torch.{module}" in names
     code = ("import importlib, sys\n"
             f"for n in {names + ['chip_smoke']!r}:\n"
@@ -74,6 +75,27 @@ def test_unported_energy_flags_raise(flag, tmp_path):
     from dtc_tpu_torch.utils.cli import main
 
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 7"):
+                       match="ROADMAP.md queue 1, sharding"):
         main(["energy", "--device", "cpu", "--L", "4", "--tf", "2",
               "--out_dir", str(tmp_path), *flag])
+
+
+@pytest.mark.parametrize("via", ["function", "cli"])
+def test_shots_refuses_fakebackend(via, tmp_path):
+    """``shots`` does not run depolarizing noise in place of the device
+    noise it was asked for."""
+    from dtc_tpu_torch.experiments.autocorr import run_shots_study
+    from dtc_tpu_torch.utils.cli import main
+    from dtc_tpu_torch.utils.config import SimConfig
+
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1, device noise"):
+        if via == "function":
+            run_shots_study(SimConfig(L=4, tf=2, use_fakebackend=1),
+                            device="cpu", write=False,
+                            disorder_dir=str(tmp_path))
+        else:
+            main(["shots", "--device", "cpu", "--L", "4", "--tf", "2",
+                  "--use_fakebackend", "1", "--out_dir", str(tmp_path),
+                  "--disorder_dir", str(tmp_path)])
+    assert not os.listdir(tmp_path)

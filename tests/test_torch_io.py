@@ -72,6 +72,43 @@ def test_names_identical(kw):
         jcfg)
 
 
+@pytest.mark.parametrize("kw", CONFIGS + [
+    dict(use_optimization=0, optimization_iterations=7),
+    dict(use_optimization=0, exponential_feedback=0, target_echo=0.9,
+         feedback_gain=0.05, g=0.84, decay_compensation=0.2)])
+def test_adaptive_names_identical(kw):
+    cfg, jcfg = SimConfig(**kw), JSimConfig(**kw)
+    for name in ("adaptive_csv_name", "adaptive_comparison_csv_name",
+                 "g_history_csv_name"):
+        assert getattr(naming, name)(cfg) == getattr(j_naming, name)(jcfg)
+
+
+def test_realtime_writer_bytes_identical(tmp_path):
+    """Header on first write, one flushed row per step, the same bytes;
+    resume=True appends after the rows on disk, resume=False truncates."""
+    rows = [{"time": t, "g": 0.84 + 0.01 * t, "forward": np.float32(-0.5),
+             "echo": np.float64(0.25) ** t} for t in range(3)]
+    fields = ["time", "g", "forward", "echo"]
+    for side, mod in (("ours", csvio), ("ref", j_csvio)):
+        path = str(tmp_path / side / "rt.csv")
+        with mod.RealtimeCSVWriter(path, fields) as w:
+            assert w.resume_index() == 0
+            for r in rows[:2]:
+                w.write_row(r)
+        w = mod.RealtimeCSVWriter(path, fields)
+        assert w.resume_index() == 2
+        w.write_row(rows[2])
+        w.close()
+    assert (tmp_path / "ours" / "rt.csv").read_bytes() == (
+        tmp_path / "ref" / "rt.csv").read_bytes()
+    assert len((tmp_path / "ours" / "rt.csv").read_text().splitlines()) == 4
+    w = csvio.RealtimeCSVWriter(str(tmp_path / "ours" / "rt.csv"), fields,
+                                resume=False)
+    w.write_row(rows[0])
+    w.close()
+    assert len((tmp_path / "ours" / "rt.csv").read_text().splitlines()) == 2
+
+
 def test_csv_bytes_identical(tmp_path):
     rng = np.random.default_rng(0)
     cols = {"time": np.arange(7), "a": rng.normal(size=7),

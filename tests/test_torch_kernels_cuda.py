@@ -1,7 +1,8 @@
-"""CUDA kernels K1/K2 (constant x), the streamed x family (constant x at
-22 <= L <= 30), K4 (lab frame, any drive), K5 (per-cycle observables) and
-the streamed lab-frame family (K10a/K10b, any drive at 22 <= L <= 29)
-against their plain versions, on the card.
+"""CUDA kernels K1/K2 (constant x), K3a/K3b (constant or per-cycle x at
+14 <= L <= 21), the streamed x family (constant x at 22 <= L <= 30), K4
+(lab frame, any drive), K5 (per-cycle observables) and the streamed
+lab-frame family (K10a/K10b, any drive at 22 <= L <= 29) against their
+plain versions, on the card.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one. They import neither jax nor ``tests/conftest.py``'s setup, so
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from dtc_tpu_torch.experiments import adaptive
 from dtc_tpu_torch.experiments.autocorr import run_autocorr
 from dtc_tpu_torch.experiments.energy import run_energy
 from dtc_tpu_torch.models.hamiltonian import hamiltonian_terms
@@ -25,6 +27,7 @@ from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.ops import cycle_hi_general as chg
 from dtc_tpu_torch.ops import resident_blocked as rb
 from dtc_tpu_torch.ops import observables as obs
+from dtc_tpu_torch.ops import resident as rs
 from dtc_tpu_torch.ops import resident_general as rg
 from dtc_tpu_torch.ops import streamed as sm
 from dtc_tpu_torch.ops.params import echo_pair_tiles, forward_rows
@@ -465,3 +468,136 @@ def test_general_hi_wrappers_reject_bad_inputs(cuda_device):
         tiles = torch.zeros((1, 4, 128), device=cuda_device)
         tiles[0, 0, 4 * 22 - 1 + 10] = 3.0
         chg.general_hi_echo_batch(tiles, L=22, q=3)
+
+
+def _x_schedule(T, device, per_cycle):
+    g = (torch.linspace(0.86, 0.99, T, dtype=torch.float64, device=device)
+         if per_cycle else 0.97)
+    return build_kick_schedule("x", g, T, device=device).angles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,per_cycle,state,q", [
+    (14, False, "neel", 0), (15, True, "vacuum", 7), (16, True, "vacuum", 15),
+    (17, False, "neel", 8), (21, True, "neel", 20)])
+def test_resident_kernels_match_plain_on_card(cuda_device, L, per_cycle,
+                                              state, q):
+    """K3a and K3b, constant and per-cycle x, probes in every bit band."""
+    hs, phis = _disorder(L, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(L)
+    u = torch.rand((1, 3, 6, L), generator=gen, device=cuda_device)
+    rows, sig = forward_rows(u, hs[:, None], phis[:, None], L=L, T=6, p=0.1)
+    kw = dict(L=L, q=q, initial_state=state, time_dependent=per_cycle)
+    launches = rs.LAUNCHES["forward"]
+    ang = _x_schedule(6, cuda_device, per_cycle)
+    k = rs.resident_forward_batch(rows, sig, ang, **kw)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["forward"] == launches + 1
+    ref = rs.resident_forward_batch_ref(rows, sig, ang, **kw)
+    assert float((k - ref).abs().max()) <= TOL
+    ue = torch.rand((1, 2, 8, L), generator=gen, device=cuda_device)
+    ang = _x_schedule(4, cuda_device, per_cycle)
+    for p in (0.6, 0.0):
+        tiles, sfin = echo_pair_tiles(
+            ue, torch.tensor([0, 1, 2, 4], device=cuda_device), hs[:, None],
+            phis[:, None], L=L, T=4, p=p)
+        k = rs.resident_echo_batch(tiles, sfin, ang, **kw)
+        torch.cuda.synchronize()
+        ref = rs.resident_echo_batch_ref(tiles, sfin, ang, **kw)
+        assert float((k - ref).abs().max()) <= TOL
+        if p == 0:
+            assert float((k - 1).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_resident_kernels_match_k1_k2_and_k4_on_card(cuda_device):
+    """On the same rows: K3 with a constant schedule against K1/K2 at L=17,
+    and with a per-cycle schedule against K4 (its rows built from the same
+    uniforms) at L=20."""
+    from dtc_tpu_torch.ops.params_general import general_echo_rows
+
+    hs, phis = _disorder(17, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    u = torch.rand((1, 3, 8, 17), generator=gen, device=cuda_device)
+    rows, sig = forward_rows(u, hs[:, None], phis[:, None], L=17, T=8, p=0.1)
+    a = rs.resident_forward_batch(rows, sig, _x_schedule(8, cuda_device,
+                                                         False), L=17, q=8)
+    b = rb.blocked_forward_batch(rows, sig, THETA, L=17, q=8)
+    assert float((a - b).abs().max()) <= TOL
+    tiles, sfin = echo_pair_tiles(u, torch.arange(1, 5, device=cuda_device),
+                                  hs[:, None], phis[:, None], L=17, T=4,
+                                  p=0.6)
+    a = rs.resident_echo_batch(tiles, sfin, _x_schedule(4, cuda_device,
+                                                        False), L=17, q=8)
+    b = rb.blocked_echo_batch(tiles, sfin, THETA, L=17, q=8)
+    assert float((a - b).abs().max()) <= TOL
+    L, T = 20, 6
+    hs, phis = _disorder(L, cuda_device)
+    ang = _x_schedule(T, cuda_device, True)
+    u = torch.rand((1, 2, 2 * T, L), generator=gen, device=cuda_device)
+    rows, sig = forward_rows(u[:, :, :T], hs[:, None], phis[:, None], L=L,
+                             T=T, p=0.1)
+    grows = general_forward_rows(u[:, :, :T], hs[:, None], phis[:, None],
+                                 ang, L=L, T=T, K=1, p=0.1)
+    a = rs.resident_forward_batch(rows, sig, ang, L=L, q=10,
+                                  time_dependent=True)
+    b = rg.general_forward_batch(grows, L=L, T=T, q=10)
+    assert float((a - b).abs().max()) <= TOL
+    ts = torch.tensor([1, 3, 6], device=cuda_device)
+    tiles, sfin = echo_pair_tiles(u, ts, hs[:, None], phis[:, None], L=L,
+                                  T=T, p=0.6)
+    gtiles = general_echo_rows(u, ts, hs[:, None], phis[:, None], ang, L=L,
+                               T=T, K=1, p=0.6)
+    a = rs.resident_echo_batch(tiles, sfin, ang, L=L, q=10,
+                               time_dependent=True)
+    b = rg.general_echo_batch(gtiles, L=L, q=10)
+    assert float((a - b).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_resident_wrappers_reject_bad_inputs(cuda_device):
+    ang = _x_schedule(3, cuda_device, True)
+    sig = torch.zeros((1, 3), dtype=torch.int64, device=cuda_device)
+    rows = torch.zeros((1, 3, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        rs.resident_forward_batch(rows.double(), sig, ang, L=14, q=3)
+    with pytest.raises(ValueError, match="14 <= L <= 21"):
+        rs.resident_forward_batch(rows, sig, ang, L=22, q=3)
+    with pytest.raises(ValueError, match="does not cover"):
+        rs.resident_forward_batch(torch.zeros((1, 4, 128),
+                                              device=cuda_device),
+                                  sig, ang, L=14, q=3, time_dependent=True)
+
+
+@pytest.mark.cuda
+def test_adaptive_on_card_runs_k3_and_matches_cpu(cuda_device, monkeypatch):
+    """The adaptive runs at L=14 on the card (kernel stepper, K3) and on
+    the CPU (the same stepper, K3's plain versions), fed the same uniforms:
+    every column agrees at 1e-4."""
+    def numpy_uniforms(seed, n_traj, shapes, device):
+        rng = np.random.default_rng(seed)
+        return tuple(torch.tensor(rng.random((1, n_traj, *s),
+                                             dtype=np.float32), device=device)
+                     for s in shapes)
+
+    monkeypatch.setattr(adaptive, "instance_uniforms", numpy_uniforms)
+    cfg = SimConfig(L=14, tf=4, n_trajectories=3, noise_prob=0.1,
+                    use_optimization=0)
+    hs, phis = generate_disorder(14, 1, seed=4)
+    rs.reset_counters()
+    got = adaptive.run_adaptive_realtime(cfg, hs, phis, device="cuda",
+                                         write=False)
+    assert rs.LAUNCHES["forward"] > 0 and rs.LAUNCHES["echo"] > 0
+    assert rs.PLAIN_ON_CUDA == {"forward": 0, "echo": 0}
+    ref = adaptive.run_adaptive_realtime(cfg, hs, phis, device="cpu",
+                                         mode="kernel", write=False)
+    for k in ("forward", "echo", "g_history", "av_autocorr_standard_g97",
+              "av_autocorr_echo_standard_g97"):
+        np.testing.assert_allclose(got[k], ref[k], atol=TOL, rtol=0)
+    got = adaptive.run_adaptive_batch(cfg, hs, phis, device="cuda",
+                                      write=False)
+    ref = adaptive.run_adaptive_batch(cfg, hs, phis, device="cpu",
+                                      write=False)
+    for k in ("av_autocorr_adaptive", "av_autocorr_echo_adaptive",
+              "g_history"):
+        np.testing.assert_allclose(got[k], ref[k], atol=TOL, rtol=0)
