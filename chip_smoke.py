@@ -31,7 +31,15 @@ each; any failure raises and the script exits non-zero without a result:
    p=0.6 and 0), against K1/K2 on the same rows (constant, L=17) and against
    K4 (the ramp, L=20), and on the main paths' own shapes (constant x at
    L=16, T=50, 2 x 32 trajectories: the forward and every echo chunk; the
-   ramp at L=20, T=51 x 32; 32 pairs at t=12);
+   ramp at L=20, T=51 x 32; 32 pairs at t=12); the per-shard cycle kernels
+   K8a-d against their plain versions at L_loc = 17, 20, 23 (q = 0, L//2,
+   15, L-1; vacuum and neel; chains of T=4 cycles, every partial held; the
+   x echo through K8a/K8b and the general echo through K8d at p=0.6 and 0;
+   y, xy, circular_left, xy_cycle for K8c/K8d), and the sharded engines
+   (shards sharing the card) against the unsharded kernels on the same
+   uniforms: x at L=25 on 4 shards against the streamed x family, xy at
+   L=24 on 2 shards against K10, x and xy at L=19 on 4 shards against
+   K1/K2 and K4, a (1,1) mesh at L=17 against K1/K2;
 4. main paths, each through the CLI's ``main(argv)`` with every launch
    count set to 0 just before it and read just after:
    ``autocorr --device cuda`` (x drive: K1/K2) at L=20, T=50, 2 instances x
@@ -60,7 +68,12 @@ each; any failure raises and the script exits non-zero without a result:
    engine=blocked, K3 launched (in ``adaptive``, once for each forward and
    echo call of a per-cycle schedule), no plain version on CUDA, g within
    [g_min, g_max], |A| and echo <= 1, the g=0.97 comparison alternating,
-   and the reference-named CSVs written;
+   and the reference-named CSVs written; then the amplitude-sharded path:
+   ``--num_devices 4 autocorr --sharded --n_amp 4`` of the x drive at L=25
+   (T=20, 4 trajectories; engine=cycle, K8a/K8b only) and ``--num_devices
+   2 autocorr --sharded --n_amp 2 --polarization xy`` at L=24 (T=12, 2
+   trajectories; engine=cycle_general, K8c/K8d only), logical devices
+   sharing the card, with physics checks and the sweep seconds;
 5. timing: the bench shape (``dtc_tpu_torch/bench.py::run_case``) and every
    kernel against its plain version on identical inputs, whose outputs are
    held to the same bound (the streamed family: forward at L=24, 26, 28 and
@@ -69,7 +82,9 @@ each; any failure raises and the script exits non-zero without a result:
    circular_left at L=29, echo y at L=28 and circular_left at L=29, the
    main paths' launches, with the peak memory; K3a on the ramp at L=14, 16
    and 20, T=51 x 32, and K3b on 32 pairs at t=12, each beside K4 on the
-   same schedule and rows); each kernel's bound: the larger
+   same schedule and rows; K8a-d at L_loc=23 on 2 shards x 4 trajectories,
+   one cycle, beside K1 and K4 per cycle at L=23 on 8 trajectories); each
+   kernel's bound: the larger
    of its bytes (inputs read once, outputs written once) over 3.35 TB/s and
    its f32 operations over 67 TFLOP/s (the H100 SXM's published peaks), and
    its state floor (16 B per amplitude per pass and step, 2 or 3 passes);
@@ -632,6 +647,229 @@ def compare_resident(dev, err) -> None:
         rg.general_echo_batch(gtiles, L=20, q=10)))
 
 
+def cycle_x_rows(L, T, c, p, dev, seed):
+    """The x cycle engines' rows at L = L_loc from uniforms (c, T, L) (no
+    shard bits): forward rows (c, T, 128) of (zm, sigma after the event);
+    inverse rows of (the previous event's zm, zeroed at the turnaround
+    t = T // 2; sigma before the event); and the final sigma (c,)."""
+    from dtc_tpu_torch.core.sigma_evolve import (
+        _codes_from_uniform,
+        _masks_from_codes,
+        xor_scan,
+    )
+    from dtc_tpu_torch.ops.params import pack_cycle_params_compact
+
+    hs, phis = disorder(L, dev)
+    if p > 0:
+        xm, zm = _masks_from_codes(_codes_from_uniform(
+            uniforms((c, T, L), dev, seed), p), L)
+    else:
+        xm = zm = torch.zeros((c, T), dtype=torch.int64, device=dev)
+    csum = xor_scan(xm, L)
+
+    def prev(w):
+        return torch.cat([torch.zeros_like(w[:, :1]), w[:, :-1]], 1)
+
+    zm_prev = prev(zm)
+    zm_prev[:, T // 2] = 0
+    rows_f = pack_cycle_params_compact(zm, csum, hs[0], phis[0], L)
+    rows_i = pack_cycle_params_compact(zm_prev, prev(csum), hs[0], phis[0], L)
+    return rows_f, rows_i, csum[:, -1]
+
+
+def held_chain(what, key, err, steps, L, state, dev, c=2):
+    """Run each (kernel, plain) step on two copies of the basis state; a
+    step returns its partial or None. Holds every partial and the final
+    state within TOL; returns the kernel's final state."""
+    from dtc_tpu_torch.core.statevector import basis_index
+    from dtc_tpu_torch.ops import resident_blocked as rb
+
+    a = rb.basis_states(c, L, basis_index(L, state), dev)
+    b = a.clone()
+    d = 0.0
+    for kernel, plain in steps:
+        ka, pb = kernel(a), plain(b)
+        torch.cuda.synchronize()
+        if ka is not None:
+            d = max(d, float((ka - pb).abs().max()))
+    d = max(d, float((a - b).abs().max()))
+    phase(f"[compare] {what}: max|kernel-plain| = {d:.3e} (partials and "
+          "final state)")
+    if not d <= TOL:
+        raise RuntimeError(f"{what}: kernel disagrees with its plain version"
+                           f" by {d} > {TOL}")
+    err[key] = max(err[key], d)
+    return a
+
+
+def no_partial(fn):
+    return lambda s: (fn(s), None)[1]
+
+
+def compare_cycle(dev, err) -> None:
+    """K8a-d against their plain versions on one shard's local bits at
+    L_loc = 17, 20, 23, 2 trajectories, q = 0, L//2, 15, L-1 with vacuum and
+    neel in turn: K8a over T=4 cycles and K8c (y, xy, circular_left,
+    xy_cycle in turn) over T=4 cycles from the basis state, every cycle's
+    partial (the first is one cycle's) and the final state held; the x echo
+    at t=2 (K8a twice, the turnaround conjugation, K8b twice on the inverse
+    rows) and K8d on every step of the general echo rows at t=2, at p=0.6
+    and 0 (the noiseless echo = 1). These launches are not the main
+    path's."""
+    from dtc_tpu_torch.core.statevector import basis_index
+    from dtc_tpu_torch.ops import cycle as cy
+    from dtc_tpu_torch.ops import resident_blocked as rb
+
+    drives = ("y", "xy", "circular_left", "xy_cycle")
+    c = 2
+
+    def k8a(r, L, q):
+        return (lambda s: cy.cycle_forward_apply(s, r, THETA, L=L, q=q)[1],
+                lambda s: cy.cycle_forward_apply_ref(s, r, THETA, L=L,
+                                                     q=q)[1])
+
+    def conj(s):
+        s.imag.neg_()
+
+    for i, L in enumerate((17, 20, 23)):
+        for j, q in enumerate((0, L // 2, 15, L - 1)):
+            state = ("vacuum", "neel")[(i + j) % 2]
+            rows = cycle_x_rows(L, 4, c, 0.6, dev, seed=L + q)[0]
+            held_chain(f"K8a L_loc={L} T=4 {state} q={q} 1x{c}", "K8a", err,
+                       [k8a(r.contiguous(), L, q) for r in rows.unbind(1)], L,
+                       state, dev)
+            pol = drives[(i + j) % 4]
+            grows = general_forward_inputs(L, pol, 4, c, 0.6, dev,
+                                           seed=L + j)[0]
+            K = grows.shape[-2] // 4
+            steps = [(lambda s, r=r.contiguous():
+                      cy.general_cycle_forward_apply(s, r, L=L, K=K, q=q)[1],
+                      lambda s, r=r: cy.general_cycle_forward_apply_ref(
+                          s, r, L=L, K=K, q=q)[1])
+                     for r in grows.reshape(c, 4, K, -1).unbind(1)]
+            held_chain(f"K8c L_loc={L} {pol} T=4 {state} q={q} 1x{c}", "K8c",
+                       err, steps, L, state, dev)
+        q, state = (L // 2, L - 1, 15)[i], ("neel", "vacuum")[i % 2]
+        s0 = rb.basis_sign(basis_index(L, state), q)
+        zq = rb.angle_table(L, dev)[q]
+        for p in (0.6, 0.0):
+            rows_f, rows_i, sig = cycle_x_rows(L, 4, c, p, dev, seed=L)
+            steps = [k8a(r.contiguous(), L, q)
+                     for r in rows_f[:, :2].unbind(1)]
+            steps.append((conj, conj))
+            steps += [(no_partial(lambda s, r=r.contiguous():
+                                  cy.cycle_inverse_apply(s, r, THETA, L=L)),
+                       no_partial(lambda s, r=r:
+                                  cy.cycle_inverse_apply_ref(s, r, THETA,
+                                                             L=L)))
+                      for r in rows_i[:, 2:].unbind(1)]
+            st = held_chain(f"K8a/K8b echo L_loc={L} t=2 p={p} {state} q={q}"
+                            f" 1x{c}", "K8b", err, steps, L, state, dev)
+            echo = (s0 * rb._sigma_sign(sig, q)
+                    * ((st.real ** 2 + st.imag ** 2) @ zq))
+            if p == 0.0 and not float((echo - 1).abs().max()) <= TOL:
+                raise RuntimeError(f"noiseless x echo != 1: {echo.tolist()}")
+            pol = drives[(i + 1) % 4]
+            tiles = general_echo_inputs(L, pol, 2, c, p, [2], dev, seed=L)
+            K = tiles.shape[-2] // 8
+            steps = [(no_partial(lambda s, r=r.contiguous():
+                                 cy.general_cycle_inverse_apply(s, r, L=L,
+                                                                K=K)),
+                      no_partial(lambda s, r=r:
+                                 cy.general_cycle_inverse_apply_ref(s, r, L=L,
+                                                                    K=K)))
+                     for r in tiles.reshape(c, 4, K, 2, -1).unbind(1)]
+            st = held_chain(f"K8d echo L_loc={L} {pol} t=2 p={p} {state} "
+                            f"q={q} 1x{c}", "K8d", err, steps, L, state,
+                            dev)
+            echo = s0 * ((st.real ** 2 + st.imag ** 2) @ zq)
+            if p == 0.0 and not float((echo - 1).abs().max()) <= TOL:
+                raise RuntimeError(f"noiseless general echo != 1: "
+                                   f"{echo.tolist()}")
+
+
+def sharded_vs_unsharded(L, n_amp, pol, T, c, ts, dev, err) -> None:
+    """The cycle-kernel engines on ``n_amp`` shards that share the card
+    against the unsharded route at L on the same uniforms (p=0.6,
+    ancilla factor 1, q = L_loc - 1, next to the shard bits): forward A(t)
+    and the echo at ``ts``, each within TOL per time point."""
+    from dtc_tpu_torch.ops import cycle_hi_general as chg
+    from dtc_tpu_torch.ops import resident_blocked as rb
+    from dtc_tpu_torch.ops import resident_general as rg
+    from dtc_tpu_torch.ops import streamed as sm
+    from dtc_tpu_torch.ops.params import echo_pair_tiles, forward_rows
+    from dtc_tpu_torch.ops.params_general import (
+        general_echo_rows,
+        general_forward_rows,
+    )
+    from dtc_tpu_torch.parallel import sharded as sh
+    from dtc_tpu_torch.parallel.mesh import make_mesh
+
+    p = 0.6
+    L_loc = L - (n_amp.bit_length() - 1)
+    q = L_loc - 1
+    hs, phis = disorder(L, dev)
+    h, ph = hs[:, None], phis[:, None]
+    angles = schedule(pol, T, dev)
+    K = angles.shape[1]
+    uf = uniforms((c, T * K, L), dev, seed=L)
+    ue = uniforms((c, 2 * T, K, L), dev, seed=L + 1)
+    tt = torch.as_tensor(ts, device=dev)
+    kw = dict(L=L, T=T, p=p, q=q, ancilla_factor=1.0)
+    mesh = make_mesh(n_amp, 1, devices=[dev] * n_amp)
+    if pol == "x":
+        fwd = sh.make_sharded_autocorr_forward_kernel(mesh, **kw)
+        ech = sh.make_sharded_echo_kernel(mesh, **kw)
+        rows, sig = forward_rows(uf[None], h, ph, L=L, T=T, p=p)
+        tiles, sfin = echo_pair_tiles(ue.reshape(1, c, 2 * T, L), tt, h, ph,
+                                      L=L, T=T, p=p)
+        f_un, e_un, route = ((rb.blocked_forward_batch, rb.blocked_echo_batch,
+                              "K1/K2") if L <= 23 else
+                             (sm.streamed_forward_batch,
+                              sm.streamed_echo_batch, "the streamed x family"))
+        a_un = f_un(rows, sig, THETA, L=L, q=q)
+        e_un = e_un(tiles, sfin, THETA, L=L, q=q)
+    else:
+        fwd = sh.make_sharded_autocorr_forward_general(mesh, K=K, **kw)
+        ech = sh.make_sharded_echo_general(mesh, K=K, **kw)
+        rows = general_forward_rows(uf[None], h, ph, angles, L=L, T=T, K=K,
+                                    p=p)
+        tiles = general_echo_rows(ue.reshape(1, c, 2 * T * K, L), tt, h, ph,
+                                  angles, L=L, T=T, K=K, p=p)
+        f_un, e_un, route = ((rg.general_forward_batch,
+                              rg.general_echo_batch, "K4") if L <= 23 else
+                             (chg.general_hi_forward_batch,
+                              chg.general_hi_echo_batch, "K10"))
+        a_un = f_un(rows, L=L, T=T, q=q)
+        e_un = e_un(tiles, L=L, q=q)
+    a_sh = fwd(angles, hs[0], phis[0], uf)
+    e_sh = torch.stack([ech(angles, hs[0], phis[0], ue, t) for t in ts])
+    torch.cuda.synchronize()
+    d = max(float((a_sh - a_un[0].mean(0)).abs().max()),
+            float((e_sh - e_un[0].mean(0)).abs().max()))
+    what = (f"{pol} L={L} on {n_amp} shards (L_loc={L_loc}, q={q}) vs "
+            f"{route} at L={L}, T={T} ts={ts} 1x{c} p={p}")
+    phase(f"[compare] sharded {what}: max|sharded-unsharded| = {d:.3e} "
+          f"(A[1:3] {a_sh[1:3].tolist()})")
+    if not d <= TOL:
+        raise RuntimeError(f"sharded {what}: disagrees by {d} > {TOL}")
+    fam = ("K8a", "K8b") if pol == "x" else ("K8c", "K8d")
+    for k in fam:
+        err[k] = max(err[k], d)
+
+
+def compare_sharded(dev, err) -> None:
+    """The sharded route against the unsharded kernels on the card, the
+    same uniforms: x at L=25 on 4 shards (L_loc 23: two shard bits and a
+    shard-shard bond) against the streamed x family, xy at L=24 on 2 shards
+    against K10, x and xy at L=19 on 4 shards against K1/K2 and K4, and a
+    (1,1) mesh at L=17 against K1/K2."""
+    for L, n_amp, pol in ((25, 4, "x"), (24, 2, "xy"), (19, 4, "x"),
+                          (19, 4, "xy"), (17, 1, "x")):
+        sharded_vs_unsharded(L, n_amp, pol, 4, 2, [1, 2, 4], dev, err)
+
+
+
 def anchors_l30(dev) -> None:
     """L=30, 8 GiB a state: values the physics fixes, which a wrapped 32-bit
     offset would break."""
@@ -704,6 +942,7 @@ def one_csv(tmp, prefix) -> dict:
 def run_cli(argv) -> tuple:
     """Run the CLI with every launch count at 0; returns (launches,
     plain calls on CUDA, sweep log, seconds)."""
+    from dtc_tpu_torch.ops import cycle as cy
     from dtc_tpu_torch.ops import cycle_hi_general as chg
     from dtc_tpu_torch.ops import observables as ob
     from dtc_tpu_torch.ops import resident as rs
@@ -715,7 +954,7 @@ def run_cli(argv) -> tuple:
     log = SweepLog()
     logger = logging.getLogger("dtc_tpu_torch")
     logger.addHandler(log)
-    for mod in (rb, rs, rg, ob, sm, chg):
+    for mod in (rb, rs, rg, ob, sm, chg, cy):
         mod.reset_counters()
     t0 = time.perf_counter()
     try:
@@ -733,15 +972,19 @@ def run_cli(argv) -> tuple:
                 "K6 forward": sm.LAUNCHES["forward"],
                 "K6 echo": sm.LAUNCHES["echo"],
                 "K10 forward": chg.LAUNCHES["forward"],
-                "K10 echo": chg.LAUNCHES["echo"]}
+                "K10 echo": chg.LAUNCHES["echo"],
+                "K8a": cy.LAUNCHES["forward"], "K8b": cy.LAUNCHES["inverse"],
+                "K8c": cy.LAUNCHES["general_forward"],
+                "K8d": cy.LAUNCHES["general_inverse"]}
     plain = {**{f"x {k}": v for k, v in rb.PLAIN_ON_CUDA.items()},
              **{f"resident {k}": v for k, v in rs.PLAIN_ON_CUDA.items()},
              **{f"general {k}": v for k, v in rg.PLAIN_ON_CUDA.items()},
              **ob.PLAIN_ON_CUDA,
              **{f"streamed {k}": v for k, v in sm.PLAIN_ON_CUDA.items()},
-             **{f"general_hi {k}": v for k, v in chg.PLAIN_ON_CUDA.items()}}
+             **{f"general_hi {k}": v for k, v in chg.PLAIN_ON_CUDA.items()},
+             **{f"cycle {k}": v for k, v in cy.PLAIN_ON_CUDA.items()}}
     if rc != 0:
-        raise RuntimeError(f"{argv[0]} CLI returned {rc}")
+        raise RuntimeError(f"{' '.join(argv[:3])} CLI returned {rc}")
     return launches, plain, log, seconds
 
 
@@ -1126,6 +1369,47 @@ def main_resident(smi) -> dict:
     return total
 
 
+def main_sharded(smi) -> dict:
+    """The amplitude-sharded path through the CLI, logical devices sharing
+    the card: ``--num_devices 4 autocorr --sharded --n_amp 4`` of the x
+    drive at L=25 (T=20, 4 trajectories; engine=cycle, K8a/K8b) and
+    ``--num_devices 2 ... --n_amp 2 --polarization xy`` at L=24 (T=12, 2
+    trajectories; engine=cycle_general, K8c/K8d). Returns K8's launches."""
+    total = {"K8a": 0, "K8b": 0, "K8c": 0, "K8d": 0}
+    for pol, L, n_amp, T, n in (("x", 25, 4, 20, 4), ("xy", 24, 2, 12, 2)):
+        route, fam = (("cycle", ("K8a", "K8b")) if pol == "x"
+                      else ("cycle_general", ("K8c", "K8d")))
+        with tempfile.TemporaryDirectory() as tmp:
+            launches, plain, log, seconds = run_cli(
+                ["--num_devices", str(n_amp), "autocorr", "--sharded",
+                 "--n_amp", str(n_amp), "--inst", "1", "--polarization", pol,
+                 *common_argv(T, tmp, L=L, n_traj=n)])
+            cols = one_csv(tmp, "autocorr_data_")
+        a, e = cols["av_autocorr"], cols["av_autocorr_echo"]
+        checks = physics_checks(a, e, (1 - P) ** 6, alternates=pol == "x")
+        checks.update({
+            f"engine={route} mesh=(1,{n_amp})": log.sweeps == [
+                ("sharded_sweep", route, f"(1,{n_amp})")],
+            **{f"{k} launched": launches[k] > 0 for k in fam},
+            "no other kernel": not any(v for k, v in launches.items()
+                                       if k not in fam),
+            "no plain version on CUDA": not any(plain.values()),
+        })
+        phase(f"[main] autocorr --sharded {pol} L={L} n_amp={n_amp} T={T} "
+              f"inst=1 traj={n} in {seconds:.2f}s: "
+              f"A[0:4]={[round(x, 6) for x in a[:4]]} "
+              f"echo[0:4]={[round(x, 6) for x in e[:4]]} launches="
+              f"{ {k: v for k, v in launches.items() if v} }")
+        fail_on(f"autocorr --sharded {pol} L={L}", checks)
+        phase(f"[main] autocorr --sharded {pol} L={L} sweep seconds: forward "
+              f"{log.seconds['sharded forward inst 0'][0]:.3f} s, echo "
+              f"{log.seconds['sharded echo inst 0'][0]:.3f} s (inst=1 x {n} "
+              f"trajectories, {n_amp} shards on one card) on {smi}")
+        for k in total:
+            total[k] += launches[k]
+    return total
+
+
 def time_ms(fn, reps=3):
     """(ms per call, the last call's output)."""
     fn()
@@ -1460,12 +1744,96 @@ def timing_resident(dev, smi, err) -> dict:
     return {"K3 forward": out[f"forward {MAIN_L}"], "K3 echo": out["echo"]}
 
 
+def timing_cycle(dev, smi, err) -> dict:
+    """K8a-d at L_loc=23 on 2 shards of 4 trajectories (the engines' launch:
+    one per shard and cycle, here 2 per timed call) against their plain
+    versions on identical inputs, noisy rows (p=0.6), xy for K8c/K8d (K=2
+    slots); K1 and K4 at L=23 on 8 trajectories beside them (the same
+    amplitudes, no shard bits; their time per cycle). Bytes: the shard
+    states read and written once (16 B per amplitude) and the rows.
+    Operations per amplitude and cycle: 6 L + 6 (K8a, K8b: RX on every bit,
+    one diagonal), per slot 14 L + 6 (K8c) and 14 L + 12 (K8d: two
+    diagonals). State floor: two sweeps per slot."""
+    from dtc_tpu_torch.ops import cycle as cy
+    from dtc_tpu_torch.ops import resident_blocked as rb
+    from dtc_tpu_torch.ops import resident_general as rg
+
+    L, c, n_sh = 23, 4, 2
+    N = 1 << L
+    gen = torch.Generator(device=dev).manual_seed(23)
+    start = [torch.randn((c, N), dtype=torch.complex64, generator=gen,
+                         device=dev) for _ in range(n_sh)]
+    start = [s / s.abs().pow(2).sum(-1, keepdim=True).sqrt() for s in start]
+    rows = cycle_x_rows(L, 2, c, 0.6, dev, seed=23)[0][:, 1].contiguous()
+    grows = general_forward_inputs(L, "xy", 2, c, 0.6, dev, seed=23)[0]
+    grows = grows.reshape(c, 2, 2, -1)[:, 1].contiguous()
+    tiles = general_echo_inputs(L, "xy", 2, c, 0.6, [1], dev, seed=24)[0]
+    tiles = tiles.reshape(c, 4, 2, 2, -1)[:, 1].contiguous()
+    cases = {
+        "K8a": ("forward x", cy.cycle_forward_apply,
+                cy.cycle_forward_apply_ref,
+                (rows, THETA), dict(L=L, q=L // 2), 1, 6 * L + 6),
+        "K8b": ("inverse x", cy.cycle_inverse_apply,
+                cy.cycle_inverse_apply_ref,
+                (rows, THETA), dict(L=L), 1, 6 * L + 6),
+        "K8c": ("forward xy", cy.general_cycle_forward_apply,
+                cy.general_cycle_forward_apply_ref, (grows,),
+                dict(L=L, K=2, q=L // 2), 2, 14 * L + 6),
+        "K8d": ("inverse xy", cy.general_cycle_inverse_apply,
+                cy.general_cycle_inverse_apply_ref, (tiles,), dict(L=L, K=2),
+                2, 14 * L + 12),
+    }
+    out = {}
+    for key, (what, kernel, plain, args, kw, K, flops) in cases.items():
+        a = [s.clone() for s in start]
+        b = [s.clone() for s in start]
+        ka = [kernel(s, *args, **kw) for s in a]
+        pb = [plain(s, *args, **kw) for s in b]
+        torch.cuda.synchronize()
+        d = max(float((x - y).abs().max()) for x, y in zip(a, b))
+        if isinstance(ka[0], tuple):  # the forwards' partials
+            d = max(d, *(float((x[1] - y[1]).abs().max())
+                         for x, y in zip(ka, pb)))
+        phase(f"[compare] {key} {what} L_loc={L} {n_sh} shards x {c} "
+              f"(timed inputs): max|kernel-plain| = {d:.3e}")
+        if not d <= TOL:
+            raise RuntimeError(f"{key}: kernel disagrees by {d}")
+        err[key] = max(err[key], d)
+        del b, pb
+        k_ms, _ = time_ms(lambda: [kernel(s, *args, **kw) for s in a])
+        p_ms, _ = time_ms(lambda: [plain(s, *args, **kw) for s in a], 1)
+        amp_steps = n_sh * c * K * N
+        io_bytes = 16 * n_sh * c * N + 4 * args[0].numel()
+        out[key] = report(key, f"{what} L_loc={L} {n_sh} shards x {c} traj, "
+                          f"one cycle ({K} slot{'s' * (K > 1)})", k_ms, p_ms,
+                          amp_steps, "cycles", 1, io_bytes, flops, smi)
+        del a
+    T = 9
+    rows1, sig = forward_inputs(L, T, n_sh * c, P, dev, seed=25)
+    k1_ms, _ = time_ms(lambda: rb.blocked_forward_batch(rows1, sig, THETA,
+                                                        L=L, q=L // 2))
+    rows4 = general_forward_inputs(L, "xy", T, n_sh * c, P, dev, seed=26)
+    k4_ms, _ = time_ms(lambda: rg.general_forward_batch(rows4, L=L, T=T,
+                                                        q=L // 2))
+    k1_ms, k4_ms = k1_ms / (T - 1), k4_ms / (T - 1)
+    for key in ("K8a", "K8b"):
+        out[key]["k1_ms"] = k1_ms
+    for key in ("K8c", "K8d"):
+        out[key]["k4_ms"] = k4_ms
+    phase(f"[timing] beside K8 at L={L}, {n_sh * c} states of 2^{L}, per "
+          "cycle:"
+          f" K1 (x) {k1_ms:.3f} ms against K8a {out['K8a']['ms']:.3f} ms; K4"
+          f" (xy, 2 slots) {k4_ms:.3f} ms against K8c {out['K8c']['ms']:.3f}"
+          f" ms on {smi}")
+    return out
+
+
 def main() -> None:
     csrc = os.path.join(HERE, "dtc_tpu_torch", "csrc")
     if not all(os.path.isfile(os.path.join(csrc, f))
                for f in ("floquet_x.cu", "floquet_x_resident.cu",
                          "floquet_x_streamed.cu", "floquet_general.cu",
-                         "floquet_general_streamed.cu")):
+                         "floquet_general_streamed.cu", "floquet_cycle.cu")):
         sys.exit("chip_smoke: run it from the root of a checkout of the"
                  " repository (dtc_tpu_torch/csrc not found beside it)")
     smi = card()
@@ -1474,7 +1842,8 @@ def main() -> None:
     err = {"K1": 0.0, "K2": 0.0, "K3 forward": 0.0, "K3 echo": 0.0,
            "K4 forward": 0.0, "K4 echo": 0.0,
            "K5": 0.0, "K6 forward": 0.0, "K6 echo": 0.0,
-           "K10 forward": 0.0, "K10 echo": 0.0}
+           "K10 forward": 0.0, "K10 echo": 0.0,
+           "K8a": 0.0, "K8b": 0.0, "K8c": 0.0, "K8d": 0.0}
     compare_x(dev, err)
     compare_general(dev, err)
     compare_obs(dev, err)
@@ -1482,6 +1851,8 @@ def main() -> None:
     compare_streamed(dev, err)
     compare_general_hi(dev, err)
     compare_resident(dev, err)
+    compare_cycle(dev, err)
+    compare_sharded(dev, err)
     anchors_l30(dev)
     launches = main_autocorr(smi)
     launches.update({k: v for k, v in main_polarization(smi).items()
@@ -1495,10 +1866,12 @@ def main() -> None:
     for k, v in main_large(smi).items():
         launches[k] = v + large[k]
     launches.update(main_resident(smi))
+    launches.update(main_sharded(smi))
     times = timing(dev, smi, err)
     times.update(timing_streamed(dev, smi, err))
     times.update(timing_general_hi(dev, smi, err))
     times.update(timing_resident(dev, smi, err))
+    times.update(timing_cycle(dev, smi, err))
     times["K4 forward"] = times.pop("K4 forward xy")
     times["K5"] = times.pop("K5 x")
     general = "dtc_tpu/ops/pallas_resident_general.py"
@@ -1536,6 +1909,16 @@ def main() -> None:
         ("K10 echo", "floquet_general_streamed_echo",
          "dtc_tpu_torch/csrc/floquet_general_streamed.cu",
          "dtc_tpu/ops/pallas_cycle_hi_general.py:250", None),
+        ("K8a", "floquet_cycle_forward", "dtc_tpu_torch/csrc/floquet_cycle.cu",
+         "dtc_tpu/ops/pallas_cycle.py:51", None),
+        ("K8b", "floquet_cycle_inverse", "dtc_tpu_torch/csrc/floquet_cycle.cu",
+         "dtc_tpu/ops/pallas_cycle.py:242", None),
+        ("K8c", "floquet_cycle_general_forward",
+         "dtc_tpu_torch/csrc/floquet_cycle.cu",
+         "dtc_tpu/ops/pallas_cycle.py:530", None),
+        ("K8d", "floquet_cycle_general_inverse",
+         "dtc_tpu_torch/csrc/floquet_cycle.cu",
+         "dtc_tpu/ops/pallas_cycle.py:778", None),
     ]
     line = []
     for key, fn, src, where, also in kernels:
@@ -1548,8 +1931,9 @@ def main() -> None:
                  "state_floor_ms": times[key]["state_floor_ms"]}
         if also:
             entry["also_replaces"] = also
-        if "k4_ms" in times[key]:  # K3: K4 on the same schedule and rows
-            entry["k4_ms"] = times[key]["k4_ms"]
+        for extra in ("k1_ms", "k4_ms"):  # K3, K8: K1/K4 beside them
+            if extra in times[key]:
+                entry[extra] = times[key][extra]
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -163,7 +163,8 @@ class AdaptiveStepper:
     """Carries trajectory-batched branch pairs (n_traj, 2, 2^L) through a
     per-cycle g schedule, one eager cycle per ``advance``."""
 
-    def __init__(self, cfg, hs_row, phis_row, *, n_traj=None, device="cpu"):
+    def __init__(self, cfg, hs_row, phis_row, *, n_traj=None,
+                 device="cuda"):
         self.cfg = cfg
         self.L = cfg.L
         self.T = cfg.tf

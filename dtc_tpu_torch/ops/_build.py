@@ -5,7 +5,8 @@ is one library: ``floquet_x`` (K1/K2), ``floquet_x_resident`` (K3a/K3b,
 constant or per-cycle x at 14 <= L <= 21), ``floquet_x_streamed`` (the
 large-L x family that replaces K6a/K6b/K7a/K7b), ``floquet_general`` (K4,
 K5) and ``floquet_general_streamed`` (the large-L lab-frame family,
-K10a/K10b). A
+K10a/K10b) and ``floquet_cycle`` (K8a-d, one cycle on a shard's local
+bits). A
 source is compiled at first use with nvcc for sm_90a into a shared library
 under
 ``dtc_tpu_torch/csrc/build/`` (named by the hash of the source, the shared
@@ -80,6 +81,15 @@ LIBRARIES = {
                                              _VP],
         "floquet_general_streamed_echo": [_VP, _VP, _VP, _VP, _I32, _I32,
                                           _I32, _I32, _I32, _I64, _VP],
+    },
+    "floquet_cycle": {
+        "floquet_cycle_partials": [_I32],
+        "floquet_cycle_forward": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _F32,
+                                  _F32, _VP],
+        "floquet_cycle_inverse": [_VP, _VP, _I32, _I32, _F32, _F32, _VP],
+        "floquet_cycle_general_forward": [_VP, _VP, _VP, _VP, _I32, _I32,
+                                          _I32, _I32, _VP],
+        "floquet_cycle_general_inverse": [_VP, _VP, _I32, _I32, _I32, _VP],
     },
 }
 

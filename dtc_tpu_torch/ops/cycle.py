@@ -1,0 +1,247 @@
+"""One Floquet cycle on a batch of shard-local states, 17 <= L_loc <= 23.
+
+Port of ``dtc_tpu/ops/pallas_cycle.py`` (``cycle_forward_apply``,
+``cycle_inverse_apply``, ``general_cycle_forward_apply``,
+``general_cycle_inverse_apply``): the per-shard engines of the
+amplitude-sharded path (``parallel/sharded.py``). Its four Pallas kernels
+become one hand-written CUDA family, ``csrc/floquet_cycle.cu``, which runs
+the passes of K1/K2 (``csrc/floquet_x_pass.cuh``) and K4
+(``csrc/floquet_general_pass.cuh``) for one cycle at L = L_loc:
+
+- K8a ``cycle_forward_apply``: a sigma-frame x cycle, RX(theta) on every
+  local bit, then the cycle's diagonal from its compact row
+  (``ops/params.py::pack_cycle_params_compact`` at L = L_loc, the local bits
+  of the cycle's noise-Z and sigma words); returns the partial
+  sum |psi|^2 z_q, q < L_loc;
+- K8b ``cycle_inverse_apply``: the pre-fold inverse step K.D with the same
+  row and un-negated angles, for the echo's once-conjugated frame;
+- K8c ``general_cycle_forward_apply``: a lab-frame cycle of K slot rows (K4's
+  layout, ``ops/params_general.py``; the diagonal on the final slot) and its
+  partial after the final slot;
+- K8d ``general_cycle_inverse_apply``: a daggered lab-frame cycle, per slot
+  a (pre, post) row pair (K4's echo layout).
+
+The flag lanes the kernels read (K8b's trip count and kick sign, K8c's
+MPOS, K8d's COUNT) are set here, on a copy of the rows: the reference's
+rows carry none of them. States are flat (n, 2^L_loc) complex64, local bit
+j on bit j of the index. Every entry updates ``state`` in place, as the
+reference aliases its state input to its output, and returns it. A tensor
+on the CPU goes to the plain version (``*_ref``); a CUDA tensor launches
+the kernel or raises. Each entry counts its kernel launches in
+``LAUNCHES``; the plain versions count the calls they get on CUDA tensors
+in ``PLAIN_ON_CUDA``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dtc_tpu_torch.ops import resident_blocked as rb
+from dtc_tpu_torch.ops import resident_general as rg
+from dtc_tpu_torch.ops.params import WIDTH
+from dtc_tpu_torch.ops.params_general import LANE_COUNT, LANE_MPOS, flag_base
+
+MIN_L, MAX_L = 17, 23
+_LANE_TRIP, _LANE_SIGN = WIDTH - 4, WIDTH - 3  # K2's echo flags (params.py)
+
+LAUNCHES = {"forward": 0, "inverse": 0, "general_forward": 0,
+            "general_inverse": 0}
+PLAIN_ON_CUDA = {"forward": 0, "inverse": 0, "general_forward": 0,
+                 "general_inverse": 0}
+
+
+def reset_counters() -> None:
+    for d in (LAUNCHES, PLAIN_ON_CUDA):
+        for k in d:
+            d[k] = 0
+
+
+def check_range(L: int, q: int | None = None) -> None:
+    """Raise ValueError outside 17 <= L_loc <= 23, or (forwards) for a
+    probe that is not shard-local, q >= L_loc."""
+    if not (MIN_L <= L <= MAX_L):
+        raise ValueError(f"cycle kernels support {MIN_L} <= L_loc <= {MAX_L}"
+                         f" (got L_loc={L})")
+    if q is not None and not (0 <= q < L):
+        raise ValueError(f"cycle kernels require a shard-local probe qubit "
+                         f"q < L_loc = {L} (got q={q})")
+
+
+def _check_state(state, L: int) -> int:
+    if state.dim() != 2 or state.shape[1] != 1 << L:
+        raise ValueError(f"state must be (n, 2^{L}) (got "
+                         f"{tuple(state.shape)})")
+    if state.dtype != torch.complex64:
+        raise ValueError(f"state must be complex64 (got {state.dtype})")
+    return state.shape[0]
+
+
+def _check_rows(rows, n: int, lead: tuple) -> None:
+    if tuple(rows.shape) != (n, *lead, WIDTH):
+        raise ValueError(f"rows must be {(n, *lead, WIDTH)} (got "
+                         f"{tuple(rows.shape)})")
+
+
+def _cuda_inputs(state, rows, what: str) -> tuple:
+    """(n, the library, the stream) after the kernel's input checks."""
+    if not state.is_contiguous() or state.device != rows.device:
+        raise ValueError(f"{what}: state must be contiguous and on the rows'"
+                         " device")
+    rb.check_cuda_input("rows", rows, 2, WIDTH)
+    n = rb.batch_size((state.shape[0],), what)
+    from dtc_tpu_torch.ops import _build
+
+    lib = _build.load("floquet_cycle")
+    return n, lib, torch.cuda.current_stream(state.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
+
+def cycle_forward_apply_ref(state, rows, theta, *, L, q):
+    """Plain version of ``cycle_forward_apply`` (same arguments)."""
+    if state.is_cuda:
+        PLAIN_ON_CUDA["forward"] += 1
+    check_range(L, q)
+    _check_rows(rows, _check_state(state, L), ())
+    table = rb.angle_table(L, state.device)
+    u7, utop = rb._kick_pair(theta, L, state.device)
+    new = rb.apply_phase(rb._kick(state, u7, utop, L),
+                         rb._row_angles(rows.to(torch.float32), L, table))
+    state.copy_(new)
+    return state, (new.real ** 2 + new.imag ** 2) @ table[q]
+
+
+def cycle_inverse_apply_ref(state, rows, theta, *, L):
+    """Plain version of ``cycle_inverse_apply`` (same arguments)."""
+    if state.is_cuda:
+        PLAIN_ON_CUDA["inverse"] += 1
+    check_range(L)
+    _check_rows(rows, _check_state(state, L), ())
+    table = rb.angle_table(L, state.device)
+    u7, utop = rb._kick_pair(theta, L, state.device)
+    pre = rb.apply_phase(state, rb._row_angles(rows.to(torch.float32), L,
+                                               table))
+    return state.copy_(rb._kick(pre, u7, utop, L))
+
+
+def general_cycle_forward_apply_ref(state, rows, *, L, K, q):
+    """Plain version of ``general_cycle_forward_apply`` (same arguments)."""
+    if state.is_cuda:
+        PLAIN_ON_CUDA["general_forward"] += 1
+    check_range(L, q)
+    _check_rows(rows, _check_state(state, L), (K,))
+    table = rb.angle_table(L, state.device)
+    rows = rows.to(torch.float32)
+    new = state
+    for j in range(K):
+        new = rb.apply_phase(rg._kick(new, rows[:, j], L),
+                             rg._row_angles(rows[:, j], L, table))
+    state.copy_(new)
+    return state, (new.real ** 2 + new.imag ** 2) @ table[q]
+
+
+def general_cycle_inverse_apply_ref(state, tiles, *, L, K):
+    """Plain version of ``general_cycle_inverse_apply`` (same arguments)."""
+    if state.is_cuda:
+        PLAIN_ON_CUDA["general_inverse"] += 1
+    check_range(L)
+    _check_rows(tiles, _check_state(state, L), (K, 2))
+    table = rb.angle_table(L, state.device)
+    tiles = tiles.to(torch.float32)
+    new = state
+    for j in range(K):
+        pre, post = tiles[:, j, 0], tiles[:, j, 1]
+        new = rb.apply_phase(new, rg._row_angles(pre, L, table))
+        new = rb.apply_phase(rg._kick(new, pre, L),
+                             rg._row_angles(post, L, table))
+    return state.copy_(new)
+
+
+# ---------------------------------------------------------------------------
+# kernel entries
+
+
+def cycle_forward_apply(state, rows, theta, *, L, q):
+    """One sigma-frame x cycle (K8a): state (n, 2^L) complex64, rows (n,
+    128) compact cycle rows at L = L_loc, theta the RX angle. Returns
+    (state, the partial sum |psi|^2 z_q (n,) after the cycle); the sum over
+    the shards and the sigma sign are the caller's."""
+    if rb.route(state, "cycle") == "plain":
+        return cycle_forward_apply_ref(state, rows, theta, L=L, q=q)
+    check_range(L, q)
+    _check_rows(rows, _check_state(state, L), ())
+    n, lib, stream = _cuda_inputs(state, rows, "cycle forward")
+    partials = torch.empty((n, 2, lib.floquet_cycle_partials(L)),
+                           dtype=torch.float32, device=state.device)
+    out = torch.empty((n, 2), dtype=torch.float32, device=state.device)
+    c, s = rb.kick_cs(theta)
+    err = lib.floquet_cycle_forward(state.data_ptr(), rows.data_ptr(),
+                                    partials.data_ptr(), out.data_ptr(), n, L,
+                                    q, c, s, stream)
+    LAUNCHES["forward"] += 1
+    rb.raise_on(err, "floquet_cycle_forward")
+    return state, out[:, 1]
+
+
+def cycle_inverse_apply(state, rows, theta, *, L):
+    """One pre-fold inverse x cycle K.D (K8b) with the same rows and angle
+    as the forward; the caller negates the imaginary part once at the echo's
+    turnaround. Returns state."""
+    if rb.route(state, "cycle") == "plain":
+        return cycle_inverse_apply_ref(state, rows, theta, L=L)
+    check_range(L)
+    _check_rows(rows, _check_state(state, L), ())
+    n, lib, stream = _cuda_inputs(state, rows, "cycle inverse")
+    tiles = torch.zeros((n, 2, WIDTH), dtype=torch.float32,
+                        device=state.device)
+    tiles[:, 0] = rows
+    tiles[:, 0, _LANE_TRIP] = 1.0   # one step
+    tiles[:, 0, _LANE_SIGN] = 1.0   # the un-negated kick
+    c, s = rb.kick_cs(theta)
+    err = lib.floquet_cycle_inverse(state.data_ptr(), tiles.data_ptr(), n, L,
+                                    c, s, stream)
+    LAUNCHES["inverse"] += 1
+    rb.raise_on(err, "floquet_cycle_inverse")
+    return state
+
+
+def general_cycle_forward_apply(state, rows, *, L, K, q):
+    """One lab-frame cycle (K8c): rows (n, K, 128), K4's step rows at
+    L = L_loc (the diagonal on the final slot). Returns (state, the partial
+    sum |psi|^2 z_q (n,) after the final slot)."""
+    if rb.route(state, "cycle") == "plain":
+        return general_cycle_forward_apply_ref(state, rows, L=L, K=K, q=q)
+    check_range(L, q)
+    _check_rows(rows, _check_state(state, L), (K,))
+    n, lib, stream = _cuda_inputs(state, rows, "general cycle forward")
+    rows = rows.clone()
+    rows[:, :, flag_base(L) + LANE_MPOS] = -1.0
+    rows[:, K - 1, flag_base(L) + LANE_MPOS] = 0.0  # measure the final slot
+    partials = torch.empty((n, lib.floquet_cycle_partials(L)),
+                           dtype=torch.float32, device=state.device)
+    out = torch.empty((n,), dtype=torch.float32, device=state.device)
+    err = lib.floquet_cycle_general_forward(
+        state.data_ptr(), rows.data_ptr(), partials.data_ptr(),
+        out.data_ptr(), n, L, K, q, stream)
+    LAUNCHES["general_forward"] += 1
+    rb.raise_on(err, "floquet_cycle_general_forward")
+    return state, out
+
+
+def general_cycle_inverse_apply(state, tiles, *, L, K):
+    """One daggered lab-frame cycle (K8d): tiles (n, K, 2, 128), per slot
+    the (pre, post) rows of K4's echo layout. Returns state."""
+    if rb.route(state, "cycle") == "plain":
+        return general_cycle_inverse_apply_ref(state, tiles, L=L, K=K)
+    check_range(L)
+    _check_rows(tiles, _check_state(state, L), (K, 2))
+    n, lib, stream = _cuda_inputs(state, tiles, "general cycle inverse")
+    tiles = tiles.reshape(n, 2 * K, WIDTH).clone()
+    tiles[:, 0, flag_base(L) + LANE_COUNT] = float(K)  # the K slot steps
+    err = lib.floquet_cycle_general_inverse(state.data_ptr(),
+                                            tiles.data_ptr(), n, L, K, stream)
+    LAUNCHES["general_inverse"] += 1
+    rb.raise_on(err, "floquet_cycle_general_inverse")
+    return state

@@ -4,7 +4,9 @@ Port of ``dtc_tpu/ops/diag.py`` (``zz_z_diag_energy``, ``zz_z_phase_mask``,
 ``z_sign_mask``). With z_q = 1 - 2*bit_q the RZZ(even) + RZZ(odd) + RZ layer
 is the single mask exp(-i/2 E(s)),
 E(s) = sum_q h_q z_q(s) + sum_q phi_q z_q(s) z_{q+1}(s).
-Indices are int64 (torch has no shifts on CPU uint32).
+Indices are int64 (torch has no shifts on CPU uint32). ``offset``/``size``
+select a contiguous window of global indices, as the reference's do: an
+amplitude shard's (offset = shard index * local size).
 """
 
 from __future__ import annotations
@@ -16,12 +18,19 @@ def _z_signs(idx: torch.Tensor, q: int, dtype) -> torch.Tensor:
     return (1 - 2 * ((idx >> q) & 1)).to(dtype)
 
 
-def zz_z_diag_energy(hs, phis, n: int, *, dtype=torch.float64):
-    """E(s) for every basis index s < 2^n."""
+def _window(n: int, offset: int, size: int | None, device) -> torch.Tensor:
+    size = 1 << n if size is None else size
+    return torch.arange(size, dtype=torch.int64, device=device) + offset
+
+
+def zz_z_diag_energy(hs, phis, n: int, *, offset=0, size=None,
+                     dtype=torch.float64):
+    """E(s) for the basis indices s in [offset, offset + size), default
+    every s < 2^n."""
     hs = torch.as_tensor(hs)
     phis = torch.as_tensor(phis)
-    idx = torch.arange(1 << n, dtype=torch.int64, device=hs.device)
-    e = torch.zeros(1 << n, dtype=dtype, device=hs.device)
+    idx = _window(n, offset, size, hs.device)
+    e = torch.zeros(idx.shape, dtype=dtype, device=hs.device)
     z_prev = None
     for q in range(n):
         z = _z_signs(idx, q, dtype)
@@ -32,18 +41,19 @@ def zz_z_diag_energy(hs, phis, n: int, *, dtype=torch.float64):
     return e
 
 
-def zz_z_phase_mask(hs, phis, n: int, *, dtype=torch.complex64):
+def zz_z_phase_mask(hs, phis, n: int, *, offset=0, size=None,
+                    dtype=torch.complex64):
     """exp(-i/2 E(s)) — one mask for the full RZZ+RZZ+RZ layer. E is
     accumulated in the promoted dtype of (hs, float32), as the reference
     does, then cast to ``dtype`` before the exponential."""
     hs = torch.as_tensor(hs)
     real = torch.float64 if (dtype == torch.complex128
                              or hs.dtype == torch.float64) else torch.float32
-    e = zz_z_diag_energy(hs, phis, n, dtype=real)
+    e = zz_z_diag_energy(hs, phis, n, offset=offset, size=size, dtype=real)
     return torch.exp(-0.5j * e.to(dtype))
 
 
-def z_sign_mask(q: int, n: int, *, dtype=torch.float32, device=None):
+def z_sign_mask(q: int, n: int, *, offset=0, size=None, dtype=torch.float32,
+                device=None):
     """z_q(s) signs — the diagonal of the Z_q observable."""
-    idx = torch.arange(1 << n, dtype=torch.int64, device=device)
-    return _z_signs(idx, q, dtype)
+    return _z_signs(_window(n, offset, size, device), q, dtype)

@@ -1,0 +1,917 @@
+"""Amplitude-sharded Floquet simulation over the single-controller mesh.
+
+Port of ``dtc_tpu/parallel/sharded.py``: the global-bit algebra
+(``_global_1q``, ``_sharded_pauli_string``, ``_sharded_kick_factored``,
+``_sharded_forward_cycle``, ``_tail_phase_angles``, ``_global_shard_kicks``,
+``_global_diag``, ``_global_diag_inv``, ``_global_cycle_tail``,
+``_global_cycle_head``, ``_check_constant_x``,
+``_global_general_slot_kick``), the sigma-frame engines
+``make_sharded_autocorr_forward`` and ``make_sharded_echo``, and the
+cycle-kernel engines at 17 <= L_loc <= 23:
+``make_sharded_autocorr_forward_kernel`` (K8a), ``make_sharded_echo_kernel``
+(K8a/K8b), ``make_sharded_autocorr_forward_general`` (K8c) and
+``make_sharded_echo_general`` (K8c/K8d).
+
+Layout, as in the reference: the 2^L statevector is split along its top
+k = log2(n_amp) index bits; shard a holds global indices [a M, (a+1) M),
+M = 2^L_loc, L_loc = L - k, as a flat (n, M) complex64 tensor of n
+trajectories (the reference's split (re, im) planes and its ``_on_fused``
+are TPU DMA mechanics and are not ported). A 1q gate on a global qubit is
+one XOR-partner exchange (``Mesh.xor_partners``) and a two-term combine,
+computed out of place: every new shard is built from the old shards before
+any is stored. The diagonal and every Z-type sign are shard-local; sums
+over 'amp' and 'traj' go through ``Mesh.psum`` in shard order.
+
+Noise is injectable (ROADMAP.md rule 2): every engine function takes a
+block of f32 uniforms with one row per trajectory, in the shape the
+reference draws per trajectory key: sigma forward (T*K, L), sigma echo
+(2T, K, L); x kernel forward (T, L), x kernel echo (2T, 1, L); general
+forward (T*K, L), general echo (2T, K, L). The trajectories split over
+'traj' in order (the reference's P("traj")). With p == 0 the block may be
+None and ``n_traj`` gives the count. An engine function returns the
+trajectory average, forward (T,) and echo a scalar, as a tensor of the
+state's real type on the device of shard (0, 0).
+
+The cycle-kernel engines launch one kernel per shard and cycle: the shards
+of a trajectory group are separate tensors that may sit on different
+cards, and the local rows are the same on every shard, so a launch holds
+the group's trajectories of one shard. The shard-bit kicks, the global
+diagonal and the boundary bond phi[L_loc-1] are torch tensor ops between
+the launches. Two paths of the reference's engines are not ported here:
+24 <= L_loc <= 30 (its K9 and K10 shard-local kernels) and device noise
+(``device=``); both raise NotImplementedError naming their ROADMAP.md
+item.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from dtc_tpu_torch.core.sigma_evolve import (
+    _bits,
+    _codes_from_uniform,
+    _group_column_factors,
+    _group_starts,
+    _masks_from_codes,
+    _per_b,
+    _sigma_signs,
+    _straddle_factor,
+    presample_noise,
+    xor_scan,
+)
+from dtc_tpu_torch.core.statevector import basis_index
+from dtc_tpu_torch.models.drives import slot_unitary, slot_unitary_inverse
+from dtc_tpu_torch.ops import cycle
+from dtc_tpu_torch.ops.diag import z_sign_mask, zz_z_phase_mask
+from dtc_tpu_torch.ops.kick import kron, kron_power
+from dtc_tpu_torch.ops.params import pack_cycle_params_compact
+from dtc_tpu_torch.ops.params_general import (
+    general_echo_rows,
+    general_forward_rows,
+)
+from dtc_tpu_torch.ops.paulis import _i_power, _parity
+from dtc_tpu_torch.parallel.mesh import amp_bits
+
+_HALF_PI = math.pi / 2
+
+NOT_PORTED_HI = ("cycle-kernel sharding at 24 <= L_loc is not ported yet: "
+                 "ROADMAP.md queue 1, sharding at 24 <= L_loc (K9, K10 "
+                 "shard-local)")
+NOT_PORTED_DEVICE = ("device-noise rows on the sharded engines are not "
+                     "ported yet: ROADMAP.md queue 1, device noise")
+
+
+# ---------------------------------------------------------------------------
+# the global-bit algebra (shards: one (n, M) tensor per 'amp' index)
+
+
+def _global_1q(mesh, shards, u, gbit):
+    """(n, 2, 2) unitaries on global qubit (shard-id bit ``gbit``): pair
+    exchange + local two-term combine."""
+    partners = mesh.xor_partners(shards, gbit)
+    out = []
+    for a, (st, pt) in enumerate(zip(shards, partners)):
+        ud = u.to(st.device)
+        row = (a >> gbit) & 1
+        diag_c, off_c = ud[:, row, row], ud[:, row, 1 - row]
+        out.append(diag_c[:, None] * st + off_c[:, None] * pt)
+    return out
+
+
+def _sharded_pauli_string(mesh, shards, xmask, zmask, n_y, *, local_bits):
+    """Apply a Pauli string per trajectory (int64 masks (n,)) whose x-mask
+    may touch global (shard-id) bits."""
+    M = 1 << local_bits
+    xhigh = xmask >> local_bits
+    for gb in range(amp_bits(mesh)):
+        partners = mesh.xor_partners(shards, gb)
+        take = ((xhigh >> gb) & 1).bool()[:, None]
+        shards = [torch.where(take.to(s.device), p, s)
+                  for s, p in zip(shards, partners)]
+    out = []
+    for a, st in enumerate(shards):
+        dev = st.device
+        xm, zm = xmask.to(dev)[:, None], zmask.to(dev)[:, None]
+        local = torch.arange(M, dtype=torch.int64, device=dev)
+        st = torch.gather(st, 1, (local ^ (xm & (M - 1))).expand(st.shape))
+        sign = 1 - 2 * _parity(((a * M + local) ^ xm) & zm)
+        phase = _i_power(n_y.to(dev), st.dtype)[:, None]
+        out.append(st * (phase * sign.to(st.real.dtype)))
+    return out
+
+
+def _sharded_kick_factored(mesh, shards, theta_x, theta_y, sigma, pend_zm,
+                           diag_sig, exp_h, exp_p, *, L, local_bits, dtype,
+                           has_y, inverse=False):
+    """Sigma-conjugated kick on every shard with the pending noise Z-signs
+    and diagonal sigma corrections folded in (core/sigma_evolve's
+    ``_kick_factored`` on the local bits). Shard bits get their per-qubit
+    factors on the exchange's 2x2 columns, the boundary bond (local top
+    bit, shard bit 0) a (2,) broadcast on the local top bit, and bonds
+    between shard bits a per-shard scalar. Per trajectory: theta_x,
+    theta_y (n,) or scalars, masks (n,) int64, exp_h (n, L), exp_p
+    (n, L-1); ``inverse`` daggers the slot unitary."""
+    k_bits = L - local_bits
+    M = 1 << local_bits
+    B = shards[0].shape[0]
+    theta_x, theta_y = _per_b(theta_x, B), _per_b(theta_y, B)
+    sig_bits = _bits(diag_sig, L)
+    zm_bits = _bits(pend_zm, L)
+    make = slot_unitary_inverse if inverse else slot_unitary
+    starts = _group_starts(local_bits)
+    one = torch.ones((), dtype=dtype, device=exp_h.device)
+    if has_y:
+        s_all = _sigma_signs(sigma, L, theta_y.dtype)              # (B, L)
+        us = make(theta_x[:, None], s_all * theta_y[:, None], dtype)
+    else:
+        u = make(theta_x, theta_y, dtype)                          # (B,2,2)
+    kicks = []
+    for q0, k in starts:
+        if has_y:
+            uk = us[:, q0 + k - 1]
+            for jq in range(k - 2, -1, -1):
+                uk = kron(uk, us[:, q0 + jq])
+        else:
+            uk = kron_power(u, k) if k > 1 else u
+        cols = _group_column_factors(q0, k, pend_zm, diag_sig, exp_h, exp_p,
+                                     L, dtype)
+        kicks.append((q0, k, uk * cols[:, None, :]))
+    if k_bits > 0:
+        b = local_bits - 1
+        flip = (sig_bits[:, b] ^ sig_bits[:, b + 1]) == 1
+        g_bnd = torch.where(flip, exp_p[:, b], one)
+    out = []
+    for a, st in enumerate(shards):
+        dev = st.device
+        # pre-kick diagonal factors on bonds outside the local kron groups
+        for q0, k in starts[:-1]:
+            b = q0 + k - 1
+            if b < local_bits - 1:
+                st = _straddle_factor(st, b, diag_sig.to(dev),
+                                      exp_p.to(dev), L, dtype)
+        if k_bits > 0:
+            g = g_bnd.to(dev)
+            vec2 = (torch.stack([g, g.conj()], -1) if (a & 1) == 0
+                    else torch.stack([g.conj(), g], -1))           # (B, 2)
+            st = (st.reshape(B, 2, M >> 1) * vec2[:, :, None]).reshape(B, M)
+        for b in range(local_bits, L - 1):
+            gb, gb1 = b - local_bits, b + 1 - local_bits
+            flip = (sig_bits[:, b] ^ sig_bits[:, b + 1]) == 1
+            equal = ((a >> gb) & 1) == ((a >> gb1) & 1)
+            e = exp_p[:, b] if equal else exp_p[:, b].conj()
+            st = st * torch.where(flip, e, one).to(dev)[:, None]
+        for q0, k, uk in kicks:
+            s2 = st.reshape(B, M >> (q0 + k), 1 << k, 1 << q0)
+            st = torch.einsum("bxy,bhyl->bhxl", uk.to(dev), s2).reshape(B, M)
+        out.append(st)
+    # global (shard-bit) kicks: per-qubit factors ride the 2x2 columns
+    for gb in range(k_bits):
+        qq = local_bits + gb
+        u1 = (make(theta_x, s_all[:, qq] * theta_y, dtype) if has_y
+              else make(theta_x, theta_y, dtype))
+        f0 = torch.where(sig_bits[:, qq] == 1, exp_h[:, qq], one)
+        f1 = torch.where(sig_bits[:, qq] == 1, exp_h[:, qq].conj(), one)
+        f1 = f1 * torch.where(zm_bits[:, qq] == 1, -one, one)
+        out = _global_1q(mesh, out, u1 * torch.stack([f0, f1], -1)[:, None],
+                         gb)
+    return out
+
+
+def _sharded_forward_cycle(mesh, shards, pending, ang, ev, d0s, exp_h, exp_p,
+                           *, L, local_bits, K, p, dtype, has_y):
+    """Sharded counterpart of core/sigma_evolve's ``forward_cycle_fac``
+    followed by the diagonal D0 (``d0s``: one (M,) mask per shard)."""
+    kw = dict(L=L, local_bits=local_bits, dtype=dtype)
+    pend_zm, pend_sig = pending
+    if p <= 0.0:
+        zero = torch.zeros_like(pend_zm)
+        for k in range(K):
+            shards = _sharded_kick_factored(
+                mesh, shards, ang[k, 0], ang[k, 1], zero, zero, zero, exp_h,
+                exp_p, has_y=False, **kw)
+        return [s * d for s, d in zip(shards, d0s)], pending
+    zm, sig_b, sig_after = ev
+    for k in range(K):
+        shards = _sharded_kick_factored(
+            mesh, shards, ang[k, 0], ang[k, 1], sig_b[:, k], pend_zm, pend_sig,
+            exp_h, exp_p, has_y=has_y, **kw)
+        pend_zm, pend_sig = zm[:, k], torch.zeros_like(pend_zm)
+    return [s * d for s, d in zip(shards, d0s)], (pend_zm, sig_after)
+
+
+def _tail_phase_angles(zm_t, sig_t, hs, phis, aidx, *, L, local_bits):
+    """Per-trajectory angles (theta_scalar (n,), theta_boundary (n,)) of
+    shard ``aidx``: the global part of a cycle-kernel cycle's post-fold
+    diagonal is exp(i theta_scalar) * exp(i theta_boundary z_top), z_top the
+    local top bit's sign. theta_scalar holds the shard-bit h terms with
+    their sigma corrections, the noise-Z signs on shard bits and the
+    shard-shard bonds; theta_boundary the boundary bond phi[L_loc-1] with
+    its shard-bit-0 leg. The compact-row formula (cz = h (sig - 1/2) -
+    (pi/2) n, cb = phi (flip - 1/2), c0 = (pi/2) sum n) restricted to bits
+    >= L_loc. hs (L,), phis (L-1,); masks (n,) int64."""
+    zb = _bits(sig_t, L).to(torch.float32)                         # (n, L)
+    nb = _bits(zm_t, L).to(torch.float32)
+    hf = hs.to(torch.float32).to(zb.device)
+    pf = phis.to(torch.float32).to(zb.device)
+    th_sc = torch.zeros(zm_t.shape, dtype=torch.float32, device=zb.device)
+    for qq in range(local_bits, L):
+        z = 1.0 - 2.0 * ((aidx >> (qq - local_bits)) & 1)
+        czq = hf[qq] * (zb[:, qq] - 0.5) - _HALF_PI * nb[:, qq]
+        th_sc = th_sc + czq * z + _HALF_PI * nb[:, qq]
+    for b in range(local_bits, L - 1):
+        gb, gb1 = b - local_bits, b + 1 - local_bits
+        zz = ((1.0 - 2.0 * ((aidx >> gb) & 1))
+              * (1.0 - 2.0 * ((aidx >> gb1) & 1)))
+        flip = (zb[:, b] - zb[:, b + 1]).abs()
+        th_sc = th_sc + pf[b] * (flip - 0.5) * zz
+    b = local_bits - 1
+    flip = (zb[:, b] - zb[:, b + 1]).abs()
+    th_bnd = pf[b] * (flip - 0.5) * (1.0 - 2.0 * (aidx & 1))
+    return th_sc, th_bnd
+
+
+def _global_diag(st, zm_t, sig_t, hs, phis, aidx, *, L, local_bits,
+                 sign=1.0):
+    """Global diagonal factors of one cycle on shard ``aidx``: the
+    per-trajectory scalar phase and the boundary bond's split on the local
+    top bit (the upper half of the flat shard). ``sign=-1`` daggers it."""
+    th_sc, th_bnd = _tail_phase_angles(zm_t, sig_t, hs, phis, aidx, L=L,
+                                       local_bits=local_bits)
+    ones = torch.ones_like(th_sc)
+    f = torch.stack([torch.polar(ones, sign * (th_sc + th_bnd)),
+                     torch.polar(ones, sign * (th_sc - th_bnd))], -1)
+    n, M = st.shape
+    return (st.reshape(n, 2, M >> 1) * f.to(st.device)[:, :, None]).reshape(
+        n, M)
+
+
+def _global_diag_inv(st, zm_t, sig_t, hs, phis, aidx, *, L, local_bits):
+    """Daggered ``_global_diag`` (negated angles): the general echo's
+    inverse-step global diagonal, at the step's pre-event sigma with the
+    previous event's Z word."""
+    return _global_diag(st, zm_t, sig_t, hs, phis, aidx, L=L,
+                        local_bits=local_bits, sign=-1.0)
+
+
+def _global_shard_kicks(mesh, shards, theta):
+    """RX(theta) on every shard-id bit: pair exchange + combine per bit,
+    new = cos(theta/2) mine - i sin(theta/2) partner. The bits' kicks
+    commute, so their order is free."""
+    c = float(torch.tensor(math.cos(theta / 2), dtype=torch.float32))
+    s = float(torch.tensor(math.sin(theta / 2), dtype=torch.float32))
+    for gb in range(amp_bits(mesh)):
+        partners = mesh.xor_partners(shards, gb)
+        shards = [st * c + pt * complex(0.0, -s)
+                  for st, pt in zip(shards, partners)]
+    return shards
+
+
+def _global_cycle_tail(mesh, shards, zm_t, sig_t, hs, phis, theta, *, L,
+                       local_bits):
+    """After a K8a cycle: RX on every shard bit, then the global diagonal
+    (exact: the local diagonal commutes with the shard-bit kicks, and the
+    boundary bond, which involves the local top bit, lands after every
+    kick)."""
+    shards = _global_shard_kicks(mesh, shards, theta)
+    return [_global_diag(st, zm_t, sig_t, hs, phis, a, L=L,
+                         local_bits=local_bits) for a, st in enumerate(shards)]
+
+
+def _global_cycle_head(mesh, shards, zm_t, sig_t, hs, phis, theta, *, L,
+                       local_bits):
+    """Before a K8b step, in the once-conjugated echo frame: the same global
+    factors with un-negated angles in mirrored order, the diagonal (at the
+    step's pre-event sigma with the previous event's Z word) before the
+    shard-bit kicks."""
+    shards = [_global_diag(st, zm_t, sig_t, hs, phis, a, L=L,
+                           local_bits=local_bits)
+              for a, st in enumerate(shards)]
+    return _global_shard_kicks(mesh, shards, theta)
+
+
+def _check_constant_x(angles) -> float:
+    """The kick angle of a constant x-only K=1 schedule; raises for any
+    other schedule (the x cycle kernels read only angles[0, 0, 0])."""
+    ang = angles.detach().cpu()
+    if not (ang.shape[1] == 1 and bool((ang[:, :, 1] == 0.0).all())
+            and bool((ang == ang[0]).all())):
+        raise ValueError("cycle-kernel sharded engine requires a constant "
+                         "x-only K=1 schedule (only angles[0,0,0] is read)")
+    return float(ang[0, 0, 0])
+
+
+def _global_general_slot_kick(mesh, shards, tx, ty, sig_w, zmp_w, *,
+                              local_bits, dagger=False):
+    """Per-trajectory sigma-conjugated slot kick RY(+-ty) RX(tx) on every
+    shard-id bit, the previous event's global Z-signs folded into the 2x2
+    columns. The +-ty sign is the trajectory's shard-bit XOR frame at this
+    slot (X RY X = RY(-ty)); ``dagger`` applies (X^s U X^s)^dag, the
+    general echo's inverse steps. tx, ty Python floats (no device read in
+    the loop); sig_w, zmp_w (n,)."""
+    cx = float(torch.tensor(math.cos(tx / 2), dtype=torch.float32))
+    sx = float(torch.tensor(math.sin(tx / 2), dtype=torch.float32))
+    for gb in range(amp_bits(mesh)):
+        qq = local_bits + gb
+        ysign = 1.0 - 2.0 * ((sig_w >> qq) & 1).to(torch.float64)   # (n,)
+        cy = torch.cos(ysign * ty / 2).to(torch.float32)
+        sy = torch.sin(ysign * ty / 2).to(torch.float32)
+        f1 = 1.0 - 2.0 * ((zmp_w >> qq) & 1).to(torch.float32)
+        partners = mesh.xor_partners(shards, gb)
+        out = []
+        for a, (st, pt) in enumerate(zip(shards, partners)):
+            # slot_unitary's entries: u00=(cy cx, sy sx) u01=(-sy cx, -cy sx)
+            # u10=(sy cx, -cy sx) u11=(cy cx, -sy sx); columns diag(1, f1)
+            mine = (a >> gb) & 1 == 0
+            if dagger:
+                d = ((cy * cx, -sy * sx) if mine
+                     else (cy * cx * f1, sy * sx * f1))
+                o = ((sy * cx * f1, cy * sx * f1) if mine
+                     else (-sy * cx, cy * sx))
+            else:
+                d = ((cy * cx, sy * sx) if mine
+                     else (cy * cx * f1, -sy * sx * f1))
+                o = ((-sy * cx * f1, -cy * sx * f1) if mine
+                     else (sy * cx, -cy * sx))
+            dc = torch.complex(*d).to(st.device)[:, None]
+            oc = torch.complex(*o).to(st.device)[:, None]
+            out.append(dc * st + oc * pt)
+        shards = out
+    return shards
+
+
+# ---------------------------------------------------------------------------
+# shared set-up
+
+
+def _ancilla(p, ancilla_factor):
+    if ancilla_factor is not None:
+        return ancilla_factor
+    return (1.0 - p) ** 6 if p > 0 else 1.0
+
+
+def _traj_groups(mesh, uniforms, n_traj, p):
+    """[(t, uniforms of group t or None, trajectories c)]: the trajectories
+    split over 'traj' in order."""
+    if uniforms is None and p > 0.0:
+        raise ValueError("a noisy run (p > 0) needs its block of uniforms")
+    n = uniforms.shape[0] if uniforms is not None else n_traj
+    groups = mesh.shape["traj"]
+    if n is None or n % groups:
+        raise ValueError(f"{n} trajectories do not split over the mesh's "
+                         f"{groups} traj groups")
+    c = n // groups
+    return [(t, None if uniforms is None else uniforms[t * c:(t + 1) * c], c)
+            for t in range(groups)]
+
+
+def _basis_shards(mesh, t, c, L, local_bits, b0, dtype):
+    """The basis state b0 of c trajectories, one (c, M) tensor per shard."""
+    M = 1 << local_bits
+    out = []
+    for a in range(mesh.shape["amp"]):
+        st = torch.zeros((c, M), dtype=dtype, device=mesh.device(t, a))
+        if a * M <= b0 < (a + 1) * M:
+            st[:, b0 - a * M] = 1.0
+        out.append(st)
+    return out
+
+
+def _zq_shards(mesh, t, q, L, local_bits):
+    M = 1 << local_bits
+    return [z_sign_mask(q, L, offset=a * M, size=M,
+                        device=mesh.device(t, a))
+            for a in range(mesh.shape["amp"])]
+
+
+def _measure(mesh, shards, zqs):
+    """sum_a sum |psi|^2 z_q over the shards, per trajectory (n,)."""
+    return mesh.psum([(st.real ** 2 + st.imag ** 2) @ zq.to(st.real.dtype)
+                      for st, zq in zip(shards, zqs)])
+
+
+def _sign(mask, q):
+    return (1 - 2 * ((mask >> q) & 1)).to(torch.float32)
+
+
+def _prev(words):
+    """Each step's previous word along the last axis (0 first)."""
+    return torch.cat([torch.zeros_like(words[..., :1]), words[..., :-1]], -1)
+
+
+def _kernel_geometry(mesh, L, q, K=None):
+    """L_loc after the cycle kernels' checks: ValueError outside
+    17 <= L_loc <= 30 or for q >= L_loc (the reference's), and
+    NotImplementedError at 24 <= L_loc (its K9/K10 shard-local kernels)."""
+    local_bits = L - amp_bits(mesh)
+    n_amp = mesh.shape["amp"]
+    if not (17 <= local_bits <= 30):
+        raise ValueError(
+            f"cycle-kernel sharding needs 17 <= L - log2(n_amp) <= 30 "
+            f"(got L={L}, n_amp={n_amp}: local_bits={local_bits})")
+    if not (0 <= q < local_bits):
+        raise ValueError(
+            "cycle-kernel sharding requires a shard-local probe qubit "
+            f"q < L - log2(n_amp) = {local_bits} (got q={q})")
+    if local_bits > cycle.MAX_L:
+        raise NotImplementedError(NOT_PORTED_HI)
+    return local_bits
+
+
+# ---------------------------------------------------------------------------
+# sigma-frame engines (every shape; the plain reference of the kernel ones)
+
+
+def make_sharded_autocorr_forward(mesh, *, L, T, K, p, q,
+                                  initial_state="vacuum",
+                                  dtype=torch.complex64, ancilla_factor=None,
+                                  has_y=False):
+    """Sharded sigma-frame forward autocorrelator.
+
+    Returns fn(angles (T, K, 2), hs (L,), phis (L-1,), uniforms (n, T*K, L)
+    or None, n_traj=None) -> A (T,), the trajectory average. Noise X-parts
+    are deferred into the XOR frame sigma, shard-id bits included, so a
+    sampled X on a global qubit costs no exchange."""
+    n_amp = mesh.shape["amp"]
+    local_bits = L - amp_bits(mesh)
+    if local_bits < 1:
+        raise ValueError(f"L={L} too small for {n_amp} amp-shards")
+    M = 1 << local_bits
+    af = _ancilla(p, ancilla_factor)
+    b0 = basis_index(L, initial_state)
+    s0 = 1.0 if ((b0 >> q) & 1) == 0 else -1.0
+    ckw = dict(L=L, local_bits=local_bits, K=K, p=p, dtype=dtype,
+               has_y=has_y)
+
+    def fn(angles, hs, phis, uniforms=None, n_traj=None):
+        total = 0.0
+        n = 0
+        for t, u, c in _traj_groups(mesh, uniforms, n_traj, p):
+            dev0 = mesh.device(t, 0)
+            d0s = [zz_z_phase_mask(hs.to(mesh.device(t, a)),
+                                   phis.to(mesh.device(t, a)), L,
+                                   offset=a * M, size=M, dtype=dtype)
+                   for a in range(n_amp)]
+            zqs = _zq_shards(mesh, t, q, L, local_bits)
+            exp_h = torch.exp(1j * hs.to(dev0, torch.float32)).to(
+                dtype).expand(c, L)
+            exp_p = torch.exp(1j * phis.to(dev0, torch.float32)).to(
+                dtype).expand(c, L - 1)
+            if p > 0.0:
+                _, zm, sig_b, csum = presample_noise(u.to(dev0), p, L)
+                zm, sig_b = zm.reshape(c, T, K), sig_b.reshape(c, T, K)
+                sig_after = csum.reshape(c, T, K)[:, :, -1]
+            else:
+                zm = sig_b = torch.zeros((c, T, K), dtype=torch.int64,
+                                         device=dev0)
+                sig_after = torch.zeros((c, T), dtype=torch.int64, device=dev0)
+            sig_start = _prev(sig_after)
+            shards = _basis_shards(mesh, t, c, L, local_bits, b0, dtype)
+            zero = torch.zeros(c, dtype=torch.int64, device=dev0)
+            pend = (zero, zero)
+            out = []
+            for tt in range(T):
+                part = _measure(mesh, shards, zqs).to(dev0)
+                out.append(af * s0 * _sign(sig_start[:, tt], q) * part)
+                if tt == T - 1:
+                    break  # the last cycle's state is never measured
+                shards, pend = _sharded_forward_cycle(
+                    mesh, shards, pend, angles[tt],
+                    (zm[:, tt], sig_b[:, tt], sig_after[:, tt]), d0s, exp_h,
+                    exp_p, **ckw)
+            total = total + torch.stack(out, 1).sum(0)
+            n += c
+        return total / n
+
+    return fn
+
+
+def make_sharded_echo(mesh, *, L, T, K, p, q, initial_state="vacuum",
+                      dtype=torch.complex64, ancilla_factor=None,
+                      has_y=False):
+    """Sharded sigma-frame echo A0(t): t forward cycles, then t inverse
+    cycles in reverse order, each followed by its noise event.
+
+    Returns fn(angles, hs, phis, uniforms (n, 2T, K, L) or None, t_value,
+    n_traj=None) -> the scalar echo. The uniforms are shared by every t,
+    their codes zeroed from step 2t on."""
+    n_amp = mesh.shape["amp"]
+    local_bits = L - amp_bits(mesh)
+    M = 1 << local_bits
+    af = _ancilla(p, ancilla_factor)
+    b0 = basis_index(L, initial_state)
+    s0 = 1.0 if ((b0 >> q) & 1) == 0 else -1.0
+    kw = dict(L=L, local_bits=local_bits, dtype=dtype, has_y=has_y)
+
+    def fn(angles, hs, phis, uniforms, t_value, n_traj=None):
+        t_value = int(t_value)
+        total = 0.0
+        n = 0
+        for t, u, c in _traj_groups(mesh, uniforms, n_traj, p):
+            dev0 = mesh.device(t, 0)
+            d0s = [zz_z_phase_mask(hs.to(mesh.device(t, a)),
+                                   phis.to(mesh.device(t, a)), L,
+                                   offset=a * M, size=M, dtype=dtype)
+                   for a in range(n_amp)]
+            zqs = _zq_shards(mesh, t, q, L, local_bits)
+            exp_h = torch.exp(1j * hs.to(dev0, torch.float32)).to(
+                dtype).expand(c, L)
+            exp_p = torch.exp(1j * phis.to(dev0, torch.float32)).to(
+                dtype).expand(c, L - 1)
+            if p > 0.0:
+                codes = _codes_from_uniform(u.to(dev0).reshape(c, 2 * T, K, L),
+                                            p)
+                active = torch.arange(2 * T, device=dev0) < 2 * t_value
+                codes = torch.where(active[:, None, None], codes, 0)
+                xm, zm = _masks_from_codes(codes, L)               # (c, 2T, K)
+                csum = xor_scan(xm.reshape(c, 2 * T * K), L)
+                sig_b = _prev(csum).reshape(c, 2 * T, K)
+                sig_after = csum.reshape(c, 2 * T, K)[:, :, -1]
+            else:
+                zm = sig_b = torch.zeros((c, 2 * T, K), dtype=torch.int64,
+                                         device=dev0)
+                sig_after = torch.zeros((c, 2 * T), dtype=torch.int64,
+                                        device=dev0)
+            shards = _basis_shards(mesh, t, c, L, local_bits, b0, dtype)
+            zero = torch.zeros(c, dtype=torch.int64, device=dev0)
+            pend_zm, pend_sig = zero, zero
+            for k in range(2 * t_value):
+                fwd = k < t_value
+                ang = angles[k if fwd else min(max(2 * t_value - 1 - k, 0),
+                                               T - 1)]
+                eh, ep = (exp_h, exp_p) if fwd else (exp_h.conj(),
+                                                     exp_p.conj())
+                if not fwd:
+                    shards = [s * d.conj() for s, d in zip(shards, d0s)]
+                for j in range(K):
+                    slot = j if fwd else K - 1 - j
+                    pz = pend_zm if j == 0 else zm[:, k, j - 1]
+                    if j == 0:
+                        dsig = pend_sig if fwd else sig_b[:, k, 0] ^ pend_sig
+                    else:
+                        dsig = zero
+                    shards = _sharded_kick_factored(
+                        mesh, shards, ang[slot, 0], ang[slot, 1],
+                        sig_b[:, k, j], pz, dsig, eh, ep, inverse=not fwd,
+                        **kw)
+                if fwd:
+                    shards = [s * d for s, d in zip(shards, d0s)]
+                pend_zm = zm[:, k, K - 1]
+                pend_sig = sig_after[:, k] if fwd else zero
+            part = _measure(mesh, shards, zqs).to(dev0)
+            e = af * s0 * _sign(sig_after[:, -1], q) * part
+            total = total + e.sum()
+            n += c
+        return total / n
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# cycle-kernel engines, 17 <= L_loc <= 23
+
+
+def make_sharded_autocorr_forward_kernel(mesh, *, L, T, p, q,
+                                         initial_state="vacuum",
+                                         ancilla_factor=None):
+    """Cycle-kernel sharded forward autocorrelator of a constant x drive:
+    the shard-local part of every cycle is one K8a launch per shard (kick,
+    noise-Z, sigma-conjugated D0 and the A(t) partial), the shard-bit kicks
+    and the global diagonal torch ops after it.
+
+    Same semantics as ``make_sharded_autocorr_forward`` (K=1): fn(angles,
+    hs, phis, uniforms (n, T, L) or None, n_traj=None) -> A (T,). Requires a
+    constant x-only schedule, 17 <= L_loc <= 23 and q < L_loc."""
+    local_bits = _kernel_geometry(mesh, L, q)
+    k_bits = L - local_bits
+    af = _ancilla(p, ancilla_factor)
+    b0 = basis_index(L, initial_state)
+    s0 = 1.0 if ((b0 >> q) & 1) == 0 else -1.0
+    gkw = dict(L=L, local_bits=local_bits)
+
+    def fn(angles, hs, phis, uniforms=None, n_traj=None):
+        theta = _check_constant_x(angles)
+        total = 0.0
+        n = 0
+        for t, u, c in _traj_groups(mesh, uniforms, n_traj, p):
+            dev0 = mesh.device(t, 0)
+            h_loc = hs[:local_bits].to(dev0)
+            ph_loc = phis[:local_bits - 1].to(dev0)
+            if p > 0.0:
+                _, zm, _, csum = presample_noise(u.to(dev0), p, L)  # (c, T)
+            else:
+                zm = csum = torch.zeros((c, T), dtype=torch.int64,
+                                        device=dev0)
+            rows = pack_cycle_params_compact(zm, csum, h_loc, ph_loc,
+                                             local_bits)           # (c,T,128)
+            rows = rows.transpose(0, 1).contiguous()
+            shards = _basis_shards(mesh, t, c, L, local_bits, b0,
+                                   torch.complex64)
+            frames = []
+            for tt in range(T - 1):  # A(0) is analytic
+                parts = []
+                for a, st in enumerate(shards):
+                    _, part = cycle.cycle_forward_apply(
+                        st, rows[tt].to(st.device), theta, L=local_bits, q=q)
+                    parts.append(part)
+                if k_bits:
+                    shards = _global_cycle_tail(mesh, shards, zm[:, tt],
+                                                csum[:, tt], hs, phis, theta,
+                                                **gkw)
+                frames.append(mesh.psum(parts).to(dev0))
+            # A(t >= 1) carries the sigma sign after cycle t-1
+            a_traj = torch.full((c, T), af, dtype=torch.float32, device=dev0)
+            if T > 1:
+                a_traj[:, 1:] = (af * s0 * _sign(csum[:, :T - 1], q)
+                                 * torch.stack(frames, 1))
+            total = total + a_traj.sum(0)
+            n += c
+        return total / n
+
+    return fn
+
+
+def make_sharded_echo_kernel(mesh, *, L, T, p, q, initial_state="vacuum",
+                             ancilla_factor=None):
+    """Cycle-kernel sharded echo A0(t) of a constant x drive: forward steps
+    one K8a launch per shard then the global tail; at the turnaround the
+    imaginary part is negated once, after which every inverse step is the
+    global head (diagonal, then shard-bit kicks, with the previous event's
+    Z word, zeroed at step t) then one K8b launch per shard, in reverse time
+    order. Only the 2t active steps run.
+
+    Same semantics as ``make_sharded_echo`` (K=1): fn(angles, hs, phis,
+    uniforms (n, 2T, 1, L) or None, t_value, n_traj=None) -> scalar."""
+    local_bits = _kernel_geometry(mesh, L, q)
+    k_bits = L - local_bits
+    af = _ancilla(p, ancilla_factor)
+    b0 = basis_index(L, initial_state)
+    s0 = 1.0 if ((b0 >> q) & 1) == 0 else -1.0
+    gkw = dict(L=L, local_bits=local_bits)
+    T2 = 2 * T
+
+    def fn(angles, hs, phis, uniforms, t_value, n_traj=None):
+        theta = _check_constant_x(angles)
+        t_value = int(t_value)
+        total = 0.0
+        n = 0
+        for t, u, c in _traj_groups(mesh, uniforms, n_traj, p):
+            dev0 = mesh.device(t, 0)
+            h_loc = hs[:local_bits].to(dev0)
+            ph_loc = phis[:local_bits - 1].to(dev0)
+            step = torch.arange(T2, device=dev0)
+            if p > 0.0:
+                codes = _codes_from_uniform(u.to(dev0).reshape(c, T2, L), p)
+                codes = torch.where((step < 2 * t_value)[:, None], codes, 0)
+                xm, zm = _masks_from_codes(codes, L)               # (c, 2T)
+                csum = xor_scan(xm, L)
+            else:
+                zm = csum = torch.zeros((c, T2), dtype=torch.int64,
+                                        device=dev0)
+            sig_b = _prev(csum)
+            zm_prev = torch.where(step == t_value, 0, _prev(zm))
+            rows_f = pack_cycle_params_compact(zm, csum, h_loc, ph_loc,
+                                               local_bits)
+            rows_i = pack_cycle_params_compact(zm_prev, sig_b, h_loc, ph_loc,
+                                               local_bits)
+            rows_f = rows_f.transpose(0, 1).contiguous()          # (2T,c,128)
+            rows_i = rows_i.transpose(0, 1).contiguous()
+            shards = _basis_shards(mesh, t, c, L, local_bits, b0,
+                                   torch.complex64)
+            for k in range(2 * t_value):
+                if k < t_value:
+                    for st in shards:
+                        cycle.cycle_forward_apply(st, rows_f[k].to(st.device),
+                                                  theta, L=local_bits, q=q)
+                    if k_bits:
+                        shards = _global_cycle_tail(mesh, shards, zm[:, k],
+                                                    csum[:, k], hs, phis,
+                                                    theta, **gkw)
+                    continue
+                if k == t_value:
+                    shards = [s.conj_physical() for s in shards]
+                if k_bits:
+                    shards = _global_cycle_head(mesh, shards, zm_prev[:, k],
+                                                sig_b[:, k], hs, phis, theta,
+                                                **gkw)
+                for st in shards:
+                    cycle.cycle_inverse_apply(st, rows_i[k].to(st.device),
+                                              theta, L=local_bits)
+            zqs = _zq_shards(mesh, t, q, L, local_bits)
+            part = _measure(mesh, shards, zqs).to(dev0)
+            e = af * s0 * _sign(csum[:, -1], q) * part
+            total = total + e.sum()
+            n += c
+        return total / n
+
+    return fn
+
+
+def _general_words(u, p, L, shape, dev):
+    """(xm, zm) int64 of ``shape`` from uniforms (..., L); zeros at p=0."""
+    if p > 0.0:
+        return _masks_from_codes(_codes_from_uniform(u.to(dev), p), L)
+    zero = torch.zeros(shape, dtype=torch.int64, device=dev)
+    return zero, zero
+
+
+def make_sharded_autocorr_forward_general(mesh, *, L, T, K, p, q,
+                                          initial_state="vacuum",
+                                          ancilla_factor=None, device=None):
+    """Lab-frame cycle-kernel sharded forward autocorrelator for every
+    drive and per-cycle schedule: the shard-local work of a cycle (K slot
+    kicks with X-mask row folds, the local diagonal, the partial) is one
+    K8c launch per shard; the shard-id bits keep an XOR noise frame, so the
+    global slot kicks are sigma-conjugated per trajectory and the cycle's
+    global diagonal is evaluated at the cycle-end frame with the sig words
+    masked to shard bits (local bits are lab-frame).
+
+    Same semantics as ``make_sharded_autocorr_forward``: fn(angles, hs,
+    phis, uniforms (n, T*K, L) or None, n_traj=None) -> A (T,). Requires
+    17 <= L_loc <= 23 and q < L_loc."""
+    if device is not None:
+        raise NotImplementedError(NOT_PORTED_DEVICE)
+    local_bits = _kernel_geometry(mesh, L, q)
+    k_bits = L - local_bits
+    af = _ancilla(p, ancilla_factor)
+    b0 = basis_index(L, initial_state)
+    s0 = 1.0 if ((b0 >> q) & 1) == 0 else -1.0
+    S = T * K
+    gmask = ((1 << L) - 1) & ~((1 << local_bits) - 1)
+    gkw = dict(L=L, local_bits=local_bits)
+
+    def fn(angles, hs, phis, uniforms=None, n_traj=None):
+        host = angles.detach().cpu().tolist()
+        total = 0.0
+        n = 0
+        for t, u, c in _traj_groups(mesh, uniforms, n_traj, p):
+            dev0 = mesh.device(t, 0)
+            ang = angles.to(dev0)
+            xm, zm = _general_words(u, p, L, (c, S), dev0)         # (c, S)
+            csum = xor_scan(xm, L)
+            sig_b = _prev(csum).reshape(c, T, K)
+            zm_prev = _prev(zm).reshape(c, T, K)
+            # the previous cycle's final event reached the shard bits in
+            # that cycle's global diagonal: slot 0 folds no Z word
+            zm_prev[:, :, 0] = 0
+            zm_fin = zm.reshape(c, T, K)[:, :, K - 1] & gmask
+            csum_fin = csum.reshape(c, T, K)[:, :, K - 1] & gmask
+            rows = general_forward_rows(
+                None if u is None else u.to(dev0)[..., :local_bits],
+                hs[:local_bits].to(dev0), phis[:local_bits - 1].to(dev0),
+                ang, L=local_bits, T=T, K=K, p=p, batch=(c,))
+            rows = rows.reshape(c, T, K, -1).transpose(0, 1).contiguous()
+            shards = _basis_shards(mesh, t, c, L, local_bits, b0,
+                                   torch.complex64)
+            frames = []
+            for tt in range(T - 1):  # A(0) is analytic
+                parts = []
+                for st in shards:
+                    _, part = cycle.general_cycle_forward_apply(
+                        st, rows[tt].to(st.device), L=local_bits, K=K, q=q)
+                    parts.append(part)
+                if k_bits:
+                    for k in range(K):
+                        shards = _global_general_slot_kick(
+                            mesh, shards, host[tt][k][0], host[tt][k][1],
+                            sig_b[:, tt, k], zm_prev[:, tt, k],
+                            local_bits=local_bits)
+                    shards = [_global_diag(st, zm_fin[:, tt], csum_fin[:, tt],
+                                           hs, phis, a, **gkw)
+                              for a, st in enumerate(shards)]
+                frames.append(mesh.psum(parts).to(dev0))
+            a_traj = torch.full((c, T), af, dtype=torch.float32, device=dev0)
+            if T > 1:  # no sigma sign: q is a lab-frame local bit
+                a_traj[:, 1:] = af * s0 * torch.stack(frames, 1)
+            total = total + a_traj.sum(0)
+            n += c
+        return total / n
+
+    return fn
+
+
+def make_sharded_echo_general(mesh, *, L, T, K, p, q, initial_state="vacuum",
+                              ancilla_factor=None, device=None):
+    """Lab-frame cycle-kernel sharded echo A0(t) for every drive: forward
+    steps are the forward engine's cycle (one K8c launch per shard, the
+    sigma-conjugated global slot kicks, the global diagonal); inverse steps
+    have no conjugation trick (Y slots are not symmetric): the daggered
+    global diagonal (at the step's pre-event sigma with the previous
+    event's Z word, zeroed at the turnaround), the daggered global slot
+    kicks in reversed slot order, then one K8d launch per shard with K4's
+    echo rows of the inverse step (daggered slot unitaries in reversed
+    order, the D0^dag lead on the first slot).
+
+    Same semantics as ``make_sharded_echo``: fn(angles, hs, phis, uniforms
+    (n, 2T, K, L) or None, t_value, n_traj=None) -> scalar. Requires
+    17 <= L_loc <= 23 and q < L_loc."""
+    if device is not None:
+        raise NotImplementedError(NOT_PORTED_DEVICE)
+    local_bits = _kernel_geometry(mesh, L, q)
+    k_bits = L - local_bits
+    af = _ancilla(p, ancilla_factor)
+    b0 = basis_index(L, initial_state)
+    s0 = 1.0 if ((b0 >> q) & 1) == 0 else -1.0
+    T2 = 2 * T
+    gmask = ((1 << L) - 1) & ~((1 << local_bits) - 1)
+    gkw = dict(L=L, local_bits=local_bits)
+
+    def fn(angles, hs, phis, uniforms, t_value, n_traj=None):
+        t_value = int(t_value)
+        host = angles.detach().cpu().tolist()
+        total = 0.0
+        n = 0
+        for t, u, c in _traj_groups(mesh, uniforms, n_traj, p):
+            dev0 = mesh.device(t, 0)
+            ang = angles.to(dev0)
+            u = None if u is None else u.to(dev0).reshape(c, T2 * K, L)
+            xm, zm = _general_words(u, p, L, (c, T2 * K), dev0)
+            if p > 0.0:
+                active = (torch.arange(T2 * K, device=dev0) // K
+                          < 2 * t_value)
+                xm, zm = xm * active, zm * active
+            csum = xor_scan(xm, L)
+            sig_b = _prev(csum).reshape(c, T2, K)
+            zm_prev = _prev(zm).reshape(c, T2, K)
+            if t_value < T2:  # the last forward cycle folded its own event
+                zm_prev[:, t_value, 0] = 0
+            zero = torch.zeros(c, dtype=torch.int64, device=dev0)
+            zm_fin = zm.reshape(c, T2, K)[:, :, K - 1] & gmask
+            csum_fin = csum.reshape(c, T2, K)[:, :, K - 1] & gmask
+            h_loc = hs[:local_bits].to(dev0)
+            ph_loc = phis[:local_bits - 1].to(dev0)
+            u_loc = None if u is None else u[..., :local_bits]
+            rows_f = general_forward_rows(
+                None if u is None else u_loc[:, :T * K], h_loc, ph_loc, ang,
+                L=local_bits, T=T, K=K, p=p, batch=(c,))
+            rows_f = rows_f.reshape(c, T, K, -1).transpose(0, 1).contiguous()
+            tiles = general_echo_rows(u_loc, [t_value], h_loc, ph_loc, ang,
+                                      L=local_bits, T=T, K=K, p=p,
+                                      batch=(c,))
+            tiles = tiles.reshape(c, T2, K, 2, -1).transpose(0, 1).contiguous()
+            shards = _basis_shards(mesh, t, c, L, local_bits, b0,
+                                   torch.complex64)
+            for k in range(2 * t_value):
+                if k < t_value:
+                    for st in shards:
+                        cycle.general_cycle_forward_apply(
+                            st, rows_f[k].to(st.device), L=local_bits, K=K,
+                            q=q)
+                    if k_bits:
+                        # slot 0 folds no Z word: the previous step's final
+                        # event is in that step's global diagonal
+                        for j in range(K):
+                            shards = _global_general_slot_kick(
+                                mesh, shards, host[k][j][0], host[k][j][1],
+                                sig_b[:, k, j],
+                                zero if j == 0 else zm_prev[:, k, j],
+                                local_bits=local_bits)
+                        shards = [_global_diag(st, zm_fin[:, k],
+                                               csum_fin[:, k], hs, phis, a,
+                                               **gkw)
+                                  for a, st in enumerate(shards)]
+                    continue
+                if k_bits:
+                    ci = min(max(2 * t_value - 1 - k, 0), T - 1)
+                    shards = [_global_diag_inv(st, zm_prev[:, k, 0] & gmask,
+                                               sig_b[:, k, 0] & gmask, hs,
+                                               phis, a, **gkw)
+                              for a, st in enumerate(shards)]
+                    for j in range(K):
+                        shards = _global_general_slot_kick(
+                            mesh, shards, host[ci][K - 1 - j][0],
+                            host[ci][K - 1 - j][1], sig_b[:, k, j],
+                            zero if j == 0 else zm_prev[:, k, j],
+                            local_bits=local_bits, dagger=True)
+                for st in shards:
+                    cycle.general_cycle_inverse_apply(
+                        st, tiles[k].to(st.device), L=local_bits, K=K)
+            zqs = _zq_shards(mesh, t, q, L, local_bits)
+            part = _measure(mesh, shards, zqs).to(dev0)
+            # q is a lab-frame local bit: no sigma measurement sign
+            total = total + (af * s0 * part).sum()
+            n += c
+        return total / n
+
+    return fn

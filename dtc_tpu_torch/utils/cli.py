@@ -5,6 +5,12 @@ Port of those subcommands of ``dtc_tpu/utils/cli.py``, with its flag
 vocabulary (``add_common_flags``, ``add_adaptive_flags`` and
 ``config_from_args`` are copies), plus ``--device`` (default cuda; a CUDA
 request on a machine without CUDA raises, it does not run on the CPU).
+``autocorr --sharded`` / ``--n_amp`` runs the amplitude-sharded sweep
+(``experiments/sharded_run.py``) on a mesh of the visible cards, or of
+``--num_devices`` logical devices (before the subcommand) laid round-robin
+over them: the counterpart of the reference's virtual host devices, so
+that ``--num_devices 4 autocorr --sharded --n_amp 4`` runs four shards on
+one card.
 """
 
 from __future__ import annotations
@@ -71,6 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m dtc_tpu_torch",
         description="PyTorch/CUDA kicked-Ising DTC simulation")
+    ap.add_argument("--num_devices", type=int, default=None,
+                    help="logical devices of the sharded mesh, laid "
+                         "round-robin over the cards of --device")
     sub = ap.add_subparsers(dest="command", required=True)
     for name, hlp in [
         ("autocorr", "forward+echo interferometric autocorrelator sweep"),
@@ -98,7 +107,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--emit_gate_counts", action="store_true",
                    help="transpiled gate-count CSVs (not ported)")
     p.add_argument("--sharded", action="store_true",
-                   help="amplitude-shard over all devices (not ported)")
+                   help="amplitude-shard over all devices")
     p.add_argument("--n_amp", type=int, default=None)
     sub.choices["polarization"].add_argument(
         "--polarizations", type=str, default="x,y,xy,yx")
@@ -138,17 +147,31 @@ def main(argv=None) -> int:
     cfg = config_from_args(args)
     kw = dict(device=args.device, out_dir=args.out_dir,
               disorder_dir=args.disorder_dir)
-    if getattr(args, "sharded", False) or getattr(args, "n_amp", None):
+    sharded = getattr(args, "sharded", False) or getattr(args, "n_amp", None)
+    if sharded and args.command != "autocorr":
         raise NotImplementedError(
-            "--sharded / --n_amp (amplitude sharding) is not ported yet:"
-            " ROADMAP.md queue 1, sharding")
+            f"{args.command} --sharded / --n_amp (run_energy_sharded) is not"
+            " ported yet: ROADMAP.md queue 1, sharding")
     if args.command == "autocorr":
         if args.emit_gate_counts:
             raise NotImplementedError(
                 "--emit_gate_counts is not ported yet: ROADMAP.md queue 1,"
                 " CLI and edges")
-        r = autocorr.run_autocorr(cfg, with_envelopes=args.with_envelopes,
-                                  method=args.method, **kw)
+        if sharded:
+            from dtc_tpu_torch.experiments.sharded_run import (
+                run_autocorr_sharded,
+            )
+            from dtc_tpu_torch.parallel.mesh import logical_devices
+
+            devices = (logical_devices(args.num_devices, args.device)
+                       if args.num_devices else None)
+            r = run_autocorr_sharded(cfg, n_amp=args.n_amp, devices=devices,
+                                     **kw)
+            print(f"mesh={r['mesh_shape']}")
+        else:
+            r = autocorr.run_autocorr(cfg,
+                                      with_envelopes=args.with_envelopes,
+                                      method=args.method, **kw)
     elif args.command == "polarization":
         r = autocorr.run_polarization_comparison(
             cfg, polarizations=tuple(args.polarizations.split(",")), **kw)

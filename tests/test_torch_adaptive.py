@@ -216,12 +216,31 @@ def test_carried_stepper_noisy_echo_is_an_estimate():
     hs, phis = _disorder(5)
     vals = []
     for _ in range(2):
-        step = adaptive.AdaptiveStepper(cfg, hs[0], phis[0])
+        step = adaptive.AdaptiveStepper(cfg, hs[0], phis[0], device="cpu")
         gen = torch.Generator().manual_seed(3)
         s = step.advance(step.reset(), 0.97, 0, gen)
         vals.append(step.echo_value(s, np.full(3, 0.97), 0.97, 2, gen))
     assert vals[0] == vals[1]
     assert 0.0 < vals[0] < 1.0
+
+
+@pytest.mark.parametrize("entry", ["AdaptiveStepper", "make_stepper"])
+def test_carried_stepper_defaults_to_the_card(entry):
+    """The carried stepper, built directly or by ``make_stepper(mode=
+    "carried")``, defaults to device="cuda" as every other entry of the
+    port: without a card the request raises, it does not run on the CPU."""
+    import inspect
+
+    cfg = PortConfig(L=6, tf=2, n_trajectories=2)
+    hs, phis = _disorder(6)
+    fn = getattr(adaptive, entry)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    kw = {"mode": "carried"} if entry == "make_stepper" else {}
+    if torch.cuda.is_available():
+        assert fn(cfg, hs[0], phis[0], **kw).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(cfg, hs[0], phis[0], **kw)
 
 
 def test_feedback_laws_and_optimizers_match_reference():

@@ -22,7 +22,9 @@ def test_no_module_of_the_port_loads_jax():
         if m.name != "dtc_tpu_torch.__main__"]
     for module in ("ops.resident_general", "io.disorder", "experiments.energy",
                    "ops.observables", "utils.checkpoints", "ops.streamed",
-                   "ops.resident", "experiments.adaptive"):
+                   "ops.resident", "experiments.adaptive", "ops.cycle",
+                   "parallel.mesh", "parallel.sharded",
+                   "experiments.sharded_run"):
         assert f"dtc_tpu_torch.{module}" in names
     code = ("import importlib, sys\n"
             f"for n in {names + ['chip_smoke']!r}:\n"
@@ -60,9 +62,12 @@ def test_unported_methods_raise():
         run_autocorr(SimConfig(L=4, tf=2, use_fakebackend=1), device="cpu")
 
 
-@pytest.mark.parametrize("flag", [["--sharded"], ["--n_amp", "2"],
+@pytest.mark.parametrize("flag", [["--sharded", "--L", "26"],
+                                  ["--n_amp", "1", "--L", "25"],
                                   ["--emit_gate_counts"]])
 def test_unported_autocorr_flags_raise(flag, tmp_path):
+    """--emit_gate_counts; and --sharded / --n_amp where the route is a
+    constant x drive at 24 <= L_loc (the reference's K9 kernels)."""
     from dtc_tpu_torch.utils.cli import main
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):

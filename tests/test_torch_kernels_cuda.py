@@ -1,8 +1,9 @@
 """CUDA kernels K1/K2 (constant x), K3a/K3b (constant or per-cycle x at
 14 <= L <= 21), the streamed x family (constant x at 22 <= L <= 30), K4
-(lab frame, any drive), K5 (per-cycle observables) and the streamed
-lab-frame family (K10a/K10b, any drive at 22 <= L <= 29) against their
-plain versions, on the card.
+(lab frame, any drive), K5 (per-cycle observables), the streamed
+lab-frame family (K10a/K10b, any drive at 22 <= L <= 29) and the per-shard
+cycle kernels K8a-d (one cycle at 17 <= L_loc <= 23) against their plain
+versions, on the card.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one. They import neither jax nor ``tests/conftest.py``'s setup, so
@@ -24,6 +25,7 @@ from dtc_tpu_torch.experiments.energy import run_energy
 from dtc_tpu_torch.models.hamiltonian import hamiltonian_terms
 from dtc_tpu_torch.io.disorder import generate_disorder
 from dtc_tpu_torch.models.drives import build_kick_schedule
+from dtc_tpu_torch.ops import cycle as cy
 from dtc_tpu_torch.ops import cycle_hi_general as chg
 from dtc_tpu_torch.ops import resident_blocked as rb
 from dtc_tpu_torch.ops import observables as obs
@@ -31,6 +33,8 @@ from dtc_tpu_torch.ops import resident as rs
 from dtc_tpu_torch.ops import resident_general as rg
 from dtc_tpu_torch.ops import streamed as sm
 from dtc_tpu_torch.ops.params import echo_pair_tiles, forward_rows
+from dtc_tpu_torch.parallel import sharded as sh
+from dtc_tpu_torch.parallel.mesh import make_mesh
 from dtc_tpu_torch.ops.params_general import (
     general_echo_rows,
     general_forward_rows,
@@ -601,3 +605,100 @@ def test_adaptive_on_card_runs_k3_and_matches_cpu(cuda_device, monkeypatch):
     for k in ("av_autocorr_adaptive", "av_autocorr_echo_adaptive",
               "g_history"):
         np.testing.assert_allclose(got[k], ref[k], atol=TOL, rtol=0)
+
+
+def _unit_states(n, L, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    s = torch.randn((n, 1 << L), dtype=torch.complex64, generator=gen,
+                    device=device)
+    return s / s.abs().pow(2).sum(-1, keepdim=True).sqrt()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,q", [(17, 16), (20, 10), (23, 15)])
+def test_cycle_kernels_match_plain_on_card(cuda_device, L, q):
+    """K8a-d on one cycle of random unit states, noisy rows (p=0.6):
+    the state and the partial against the plain versions on the same
+    inputs."""
+    hs, phis = _disorder(L, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(L)
+    u = torch.rand((1, 3, 2, L), generator=gen, device=cuda_device)
+    rows = forward_rows(u, hs[:, None], phis[:, None], L=L, T=2,
+                        p=0.6)[0][0, :, 1].contiguous()
+    st = _unit_states(3, L, cuda_device, L)
+    launches = dict(cy.LAUNCHES)
+    k, kp = cy.cycle_forward_apply(st.clone(), rows, THETA, L=L, q=q)
+    r, rp = cy.cycle_forward_apply_ref(st.clone(), rows, THETA, L=L, q=q)
+    assert float((k - r).abs().max()) <= TOL
+    assert float((kp - rp).abs().max()) <= TOL
+    k = cy.cycle_inverse_apply(st.clone(), rows, THETA, L=L)
+    r = cy.cycle_inverse_apply_ref(st.clone(), rows, THETA, L=L)
+    assert float((k - r).abs().max()) <= TOL
+    grows = _general_inputs(cuda_device, L, "circular_left", 2, 3, L,
+                            p=0.6)[0].reshape(3, 2, 2, -1)[:, 1].contiguous()
+    k, kp = cy.general_cycle_forward_apply(st.clone(), grows, L=L, K=2, q=q)
+    r, rp = cy.general_cycle_forward_apply_ref(st.clone(), grows, L=L, K=2,
+                                               q=q)
+    assert float((k - r).abs().max()) <= TOL
+    assert float((kp - rp).abs().max()) <= TOL
+    tiles = _general_inputs(cuda_device, L, "xy", 2, 3, L + 1, ts=[1],
+                            p=0.6)[0].reshape(3, 4, 2, 2, -1)[:, 1]
+    k = cy.general_cycle_inverse_apply(st.clone(), tiles.contiguous(), L=L,
+                                       K=2)
+    r = cy.general_cycle_inverse_apply_ref(st.clone(), tiles, L=L, K=2)
+    torch.cuda.synchronize()
+    assert float((k - r).abs().max()) <= TOL
+    assert {n: cy.LAUNCHES[n] - launches[n] for n in launches} == {
+        "forward": 1, "inverse": 1, "general_forward": 1,
+        "general_inverse": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol", ["x", "xy"])
+def test_sharded_engines_on_card_match_cpu(cuda_device, pol):
+    """The cycle-kernel engines at L=18 on 2 shards that share the card,
+    against the same engines on the CPU (the plain versions), fed the same
+    uniforms; no plain version runs on a CUDA tensor."""
+    L, T, q = 18, 4, 16
+    hs, phis = _disorder(L, "cpu")
+    angles = build_kick_schedule(pol, 0.97, T).angles
+    K = angles.shape[1]
+    gen = torch.Generator().manual_seed(3)
+    uf = torch.rand((2, T * K, L), generator=gen)
+    ue = torch.rand((2, 2 * T, K, L), generator=gen)
+    kw = dict(L=L, T=T, p=0.3, q=q, ancilla_factor=1.0)
+    if pol == "x":
+        fwd, ech = (sh.make_sharded_autocorr_forward_kernel,
+                    sh.make_sharded_echo_kernel)
+    else:
+        kw["K"] = K
+        fwd, ech = (sh.make_sharded_autocorr_forward_general,
+                    sh.make_sharded_echo_general)
+    cy.reset_counters()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_mesh(2, 1, devices=[dev, dev])
+        args = (angles, hs[0], phis[0])
+        out[dev] = (fwd(mesh, **kw)(*args, uf.to(dev)).cpu(),
+                    torch.stack([ech(mesh, **kw)(*args, ue.to(dev), t).cpu()
+                                 for t in (1, T)]))
+    assert sum(cy.LAUNCHES.values()) > 0
+    assert not any(cy.PLAIN_ON_CUDA.values())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a - b).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_cycle_wrappers_reject_bad_inputs(cuda_device):
+    st = torch.zeros((1, 1 << 17), dtype=torch.complex64, device=cuda_device)
+    rows = torch.zeros((1, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        cy.cycle_forward_apply(st, rows.double(), THETA, L=17, q=3)
+    with pytest.raises(ValueError, match="17 <= L_loc <= 23"):
+        cy.cycle_inverse_apply(torch.zeros((1, 1 << 16), dtype=torch.complex64,
+                                           device=cuda_device), rows, THETA,
+                               L=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        cy.general_cycle_forward_apply(
+            st, torch.zeros((1, 128, 2), device=cuda_device).transpose(1, 2),
+            L=17, K=2, q=3)
