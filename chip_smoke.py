@@ -7,7 +7,9 @@ each; any failure raises and the script exits non-zero without a result:
 2. build: every CUDA library from ``dtc_tpu_torch/csrc`` (one nvcc per
    source, all started at once, sm_90a);
 3. kernel vs plain version on the card, max |diff| <= 1e-4 each (K5's
-   e_diag <= 1e-4 * (sum|th| + sum|tph|), x_sum <= 1e-4 * L): small shapes
+   e_diag <= 1e-4 * (sum|th| + sum|tph|), x_sum <= 1e-4 * L; from a random
+   unit state of 2^L amplitudes 1e-3 * 2^(-L/2), one part in 10^3 of a
+   typical amplitude, on the state and the partial): small shapes
    across each kernel's range, then the main paths' own shapes (K1 on 2
    instances x 32 trajectories at T=50; K2 on the echo sweep's last two
    chunks; K4 forward on 32 trajectories of the xy drive at T=50; K4 echo
@@ -39,7 +41,20 @@ each; any failure raises and the script exits non-zero without a result:
    (shards sharing the card) against the unsharded kernels on the same
    uniforms: x at L=25 on 4 shards against the streamed x family, xy at
    L=24 on 2 shards against K10, x and xy at L=19 on 4 shards against
-   K1/K2 and K4, a (1,1) mesh at L=17 against K1/K2;
+   K1/K2 and K4, a (1,1) mesh at L=17 against K1/K2; the per-shard streamed
+   cycle kernels K9a/K9b against their plain versions at L_loc = 22, 24,
+   25, 27, 29 (q = 0, 14, 16, L//2, L-1 across them; vacuum and neel;
+   chains of 3-4 cycles, every partial held; the echo at t=2 at p=0.6 and
+   0) and K10's shard-local forms at 24, 26, 29 (y, xy, circular_left,
+   xy_cycle) and at 27 (xy, the sharded general main path's shape; chains
+   of 3 cycles and the echo at t=2), and one cycle of each at L_loc = 30
+   (one trajectory, 256-lane rows) from a random unit state, the forwards'
+   partial also from the neel state, with the peak device memory; the sharded engines on them against the unsharded kernels: x at
+   L=26 on 2 shards against the streamed x family, xy at L=26 on 2 shards
+   against K10, a (1,1) mesh at L=25; and at L=31 on 2 shards (one
+   trajectory) the anchors A(1) = cos(pi g) within 1e-5 and the noiseless
+   echo = 1 within 1e-4, for x through K9a/K9b and for y through K10's
+   shard-local forms with 256-lane rows;
 4. main paths, each through the CLI's ``main(argv)`` with every launch
    count set to 0 just before it and read just after:
    ``autocorr --device cuda`` (x drive: K1/K2) at L=20, T=50, 2 instances x
@@ -73,7 +88,12 @@ each; any failure raises and the script exits non-zero without a result:
    (T=20, 4 trajectories; engine=cycle, K8a/K8b only) and ``--num_devices
    2 autocorr --sharded --n_amp 2 --polarization xy`` at L=24 (T=12, 2
    trajectories; engine=cycle_general, K8c/K8d only), logical devices
-   sharing the card, with physics checks and the sweep seconds;
+   sharing the card, with physics checks and the sweep seconds; then
+   ``--num_devices 2 autocorr --sharded --n_amp 2`` of the x drive at L=28
+   (L_loc = 27; T=8, 2 trajectories; engine=cycle_hi, K9a/K9b only), and
+   the lab-frame sharded engines called directly for xy at L=28 on 2
+   shards (T=6, 2 trajectories, the echo at t=1, 3, 5; K10's shard-local
+   forms only: the routing sends no drive there, as the reference's);
 5. timing: the bench shape (``dtc_tpu_torch/bench.py::run_case``) and every
    kernel against its plain version on identical inputs, whose outputs are
    held to the same bound (the streamed family: forward at L=24, 26, 28 and
@@ -83,8 +103,10 @@ each; any failure raises and the script exits non-zero without a result:
    main paths' launches, with the peak memory; K3a on the ramp at L=14, 16
    and 20, T=51 x 32, and K3b on 32 pairs at t=12, each beside K4 on the
    same schedule and rows; K8a-d at L_loc=23 on 2 shards x 4 trajectories,
-   one cycle, beside K1 and K4 per cycle at L=23 on 8 trajectories); each
-   kernel's bound: the larger
+   one cycle, beside K1 and K4 per cycle at L=23 on 8 trajectories; K9a/K9b
+   and K10's shard-local forms (y and xy) at L_loc=28 on 2 shards x 2
+   trajectories, one cycle, beside K6 and the one-card K10 per cycle at
+   L=28 on 4 trajectories); each kernel's bound: the larger
    of its bytes (inputs read once, outputs written once) over 3.35 TB/s and
    its f32 operations over 67 TFLOP/s (the H100 SXM's published peaks), and
    its state floor (16 B per amplitude per pass and step, 2 or 3 passes);
@@ -193,7 +215,7 @@ def schedule(pol, T, dev):
                                device=dev).angles
 
 
-def general_forward_inputs(L, pol, T, c, p, dev, seed, inst=1):
+def general_forward_inputs(L, pol, T, c, p, dev, seed, inst=1, width=128):
     from dtc_tpu_torch.ops.params_general import general_forward_rows
 
     hs, phis = disorder(L, dev, inst)
@@ -201,10 +223,10 @@ def general_forward_inputs(L, pol, T, c, p, dev, seed, inst=1):
     K = angles.shape[1]
     u = uniforms((inst, c, T * K, L), dev, seed)
     return general_forward_rows(u, hs[:, None], phis[:, None], angles, L=L,
-                                T=T, K=K, p=p)
+                                T=T, K=K, p=p, width=width)
 
 
-def general_echo_inputs(L, pol, T, c, p, ts, dev, seed, inst=1):
+def general_echo_inputs(L, pol, T, c, p, ts, dev, seed, inst=1, width=128):
     from dtc_tpu_torch.ops.params_general import general_echo_rows
 
     hs, phis = disorder(L, dev, inst)
@@ -212,7 +234,8 @@ def general_echo_inputs(L, pol, T, c, p, ts, dev, seed, inst=1):
     K = angles.shape[1]
     u = uniforms((inst, c, 2 * T * K, L), dev, seed)
     return general_echo_rows(u, torch.as_tensor(ts, device=dev), hs[:, None],
-                             phis[:, None], angles, L=L, T=T, K=K, p=p)
+                             phis[:, None], angles, L=L, T=T, K=K, p=p,
+                             width=width)
 
 
 def held_obs(what, k, ref, L, scale) -> float:
@@ -649,7 +672,8 @@ def compare_resident(dev, err) -> None:
 
 def cycle_x_rows(L, T, c, p, dev, seed):
     """The x cycle engines' rows at L = L_loc from uniforms (c, T, L) (no
-    shard bits): forward rows (c, T, 128) of (zm, sigma after the event);
+    shard bits): forward rows (c, T, forward_width(L)) of (zm, sigma after
+    the event);
     inverse rows of (the previous event's zm, zeroed at the turnaround
     t = T // 2; sigma before the event); and the final sigma (c,)."""
     from dtc_tpu_torch.core.sigma_evolve import (
@@ -657,7 +681,10 @@ def cycle_x_rows(L, T, c, p, dev, seed):
         _masks_from_codes,
         xor_scan,
     )
-    from dtc_tpu_torch.ops.params import pack_cycle_params_compact
+    from dtc_tpu_torch.ops.params import (
+        forward_width,
+        pack_cycle_params_compact,
+    )
 
     hs, phis = disorder(L, dev)
     if p > 0:
@@ -672,8 +699,10 @@ def cycle_x_rows(L, T, c, p, dev, seed):
 
     zm_prev = prev(zm)
     zm_prev[:, T // 2] = 0
-    rows_f = pack_cycle_params_compact(zm, csum, hs[0], phis[0], L)
-    rows_i = pack_cycle_params_compact(zm_prev, prev(csum), hs[0], phis[0], L)
+    width = forward_width(L)
+    rows_f = pack_cycle_params_compact(zm, csum, hs[0], phis[0], L, width)
+    rows_i = pack_cycle_params_compact(zm_prev, prev(csum), hs[0], phis[0], L,
+                                       width)
     return rows_f, rows_i, csum[:, -1]
 
 
@@ -704,6 +733,38 @@ def held_chain(what, key, err, steps, L, state, dev, c=2):
 
 def no_partial(fn):
     return lambda s: (fn(s), None)[1]
+
+
+def unit_tol(L):
+    """The limit on states drawn as random unit vectors of 2^L amplitudes,
+    and on their partials sum |psi|^2 z_q, which are of the same size: one
+    part in 10^3 of a typical amplitude, 2^(-L/2). TOL on such a state
+    would pass a kernel that is wrong by a typical amplitude."""
+    return 1e-3 * 2 ** (-L / 2)
+
+
+def held_unit(what, key, err, kernel, plain, starts, args, kw, L):
+    """One call of ``kernel`` and of ``plain`` on copies of each random unit
+    state of ``starts``: the states and the forwards' partials held within
+    unit_tol(L). Returns the kernel's states."""
+    a = [st.clone() for st in starts]
+    b = [st.clone() for st in starts]
+    ka = [kernel(st, *args, **kw) for st in a]
+    pb = [plain(st, *args, **kw) for st in b]
+    torch.cuda.synchronize()
+    d = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    if isinstance(ka[0], tuple):  # the forwards' partials
+        d = max(d, *(float((x[1] - y[1]).abs().max())
+                     for x, y in zip(ka, pb)))
+    del b, pb
+    lim = unit_tol(L)
+    phase(f"[compare] {what}: max|kernel-plain| = {d:.3e} (<= {lim:.3e}, "
+          "1e-3 of a typical amplitude)")
+    if not d <= lim:
+        raise RuntimeError(f"{what}: kernel disagrees with its plain version"
+                           f" by {d} > {lim}")
+    err[key] = max(err[key], d)
+    return a
 
 
 def compare_cycle(dev, err) -> None:
@@ -788,6 +849,182 @@ def compare_cycle(dev, err) -> None:
                                    f"{echo.tolist()}")
 
 
+def z_of(st, q, L):
+    """sum |psi|^2 z_q of each state of (c, 2^L), with no table over 2^L."""
+    from dtc_tpu_torch.ops import streamed as sm
+
+    return torch.stack([sm.measure_z(s, q, L) for s in st])
+
+
+# (L_loc, q): every band of the streamed passes at 22 (pass lo 0, the
+# strided bits 14 and 16, L//2, the top bit), two of them at each other L
+HI_PROBES = [(22, 0), (22, 14), (22, 16), (22, 11), (22, 21), (24, 16),
+             (24, 23), (25, 0), (25, 12), (27, 14), (27, 26), (29, 16),
+             (29, 28)]
+
+
+# K10's shard-local forms: (L_loc, forward chains (drive, q, state), echoes
+# (drive, q, state, p)); y, xy, circular_left and xy_cycle at 24, 26 and 29,
+# and the shape of the sharded general main path (xy, K=2, L_loc = 27, q=14)
+GENERAL_HI_PROBES = [
+    (24, [("y", 16, "vacuum"), ("xy", 12, "neel")],
+     [("circular_left", 23, "neel", 0.6), ("xy_cycle", 14, "vacuum", 0.0)]),
+    (26, [("xy", 13, "neel"), ("circular_left", 25, "vacuum")],
+     [("xy_cycle", 25, "neel", 0.6), ("y", 14, "vacuum", 0.0)]),
+    (27, [("xy", 14, "vacuum")],
+     [("xy", 14, "neel", 0.6), ("xy", 14, "vacuum", 0.0)]),
+    (29, [("circular_left", 28, "vacuum"), ("xy_cycle", 16, "neel")],
+     [("y", 28, "neel", 0.6), ("xy", 14, "vacuum", 0.0)]),
+]
+
+
+def compare_cycle_hi(dev, err) -> None:
+    """K9a/K9b and K10's shard-local forms against their plain versions on
+    one shard's local bits, 2 trajectories, vacuum and neel in turn: K9a
+    over chains of 4 cycles (3 at L_loc = 29) at the (L_loc, q) of
+    HI_PROBES, every partial and the final state held; the x echo at t=2
+    (K9a twice, the turnaround conjugation, K9b twice on the inverse rows)
+    at L_loc = 22, 24, 25, 27, 29 at p=0.6 and 0 (the noiseless echo = 1);
+    at the L_loc of GENERAL_HI_PROBES K10a shard-local over chains of 3
+    cycles, and K10b on every step of the general echo rows at t=2 (p=0.6,
+    then 0). Then L_loc = 30 (``compare_cycle_hi_l30``). These launches are
+    not the main path's."""
+    from dtc_tpu_torch.core.statevector import basis_index
+    from dtc_tpu_torch.ops import cycle_hi as chi
+    from dtc_tpu_torch.ops import resident_blocked as rb
+    from dtc_tpu_torch.ops.params_general import general_hi_width
+
+    c = 2
+
+    def k9a(r, L, q):
+        return (lambda s: chi.hi_cycle_forward_apply(s, r, THETA, L=L,
+                                                     q=q)[1],
+                lambda s: chi.hi_cycle_forward_apply_ref(s, r, THETA, L=L,
+                                                         q=q)[1])
+
+    def k9b(r, L):
+        return (no_partial(lambda s: chi.hi_cycle_inverse_apply(s, r, THETA,
+                                                                L=L)),
+                no_partial(lambda s: chi.hi_cycle_inverse_apply_ref(
+                    s, r, THETA, L=L)))
+
+    def conj(s):
+        s.imag.neg_()
+
+    for i, (L, q) in enumerate(HI_PROBES):
+        state = ("vacuum", "neel")[i % 2]
+        T = 3 if L == 29 else 4
+        rows = cycle_x_rows(L, T, c, 0.6, dev, seed=L + q)[0]
+        held_chain(f"K9a L_loc={L} T={T} {state} q={q} 1x{c} "
+                   f"({rows.shape[-1]} lanes)", "K9a", err,
+                   [k9a(r.contiguous(), L, q) for r in rows.unbind(1)], L,
+                   state, dev)
+    for i, L in enumerate((22, 24, 25, 27, 29)):
+        q, state = (L - 1, 16, 0, L // 2, 14)[i], ("neel", "vacuum")[i % 2]
+        s0 = rb.basis_sign(basis_index(L, state), q)
+        for p in (0.6, 0.0):
+            rows_f, rows_i, sig = cycle_x_rows(L, 4, c, p, dev, seed=L)
+            steps = [k9a(r.contiguous(), L, q)
+                     for r in rows_f[:, :2].unbind(1)]
+            steps.append((conj, conj))
+            steps += [k9b(r.contiguous(), L) for r in rows_i[:, 2:].unbind(1)]
+            st = held_chain(f"K9a/K9b echo L_loc={L} t=2 p={p} {state} q={q}"
+                            f" 1x{c}", "K9b", err, steps, L, state, dev)
+            echo = s0 * rb._sigma_sign(sig, q) * z_of(st, q, L)
+            if p == 0.0 and not float((echo - 1).abs().max()) <= TOL:
+                raise RuntimeError(f"noiseless x echo != 1 at L_loc={L}: "
+                                   f"{echo.tolist()}")
+            del st
+    for L, fwd, ech in GENERAL_HI_PROBES:
+        w = general_hi_width(L)
+        for j, (pol, q, state) in enumerate(fwd):
+            grows = general_forward_inputs(L, pol, 3, c, 0.6, dev, seed=L + j,
+                                           width=w)[0]
+            K = grows.shape[-2] // 3
+            steps = [(lambda s, r=r.contiguous():
+                      chi.general_hi_cycle_forward_apply(s, r, L=L, K=K,
+                                                         q=q)[1],
+                      lambda s, r=r: chi.general_hi_cycle_forward_apply_ref(
+                          s, r, L=L, K=K, q=q)[1])
+                     for r in grows.reshape(c, 3, K, w).unbind(1)]
+            held_chain(f"K10a shard-local L_loc={L} {pol} T=3 {state} q={q} "
+                       f"1x{c} ({w} lanes)", "K10a local", err, steps, L,
+                       state, dev)
+        for pol, q, state, p in ech:
+            s0 = rb.basis_sign(basis_index(L, state), q)
+            tiles = general_echo_inputs(L, pol, 2, c, p, [2], dev, seed=L,
+                                        width=w)
+            K = tiles.shape[-2] // 8
+            steps = [(no_partial(lambda s, r=r.contiguous():
+                                 chi.general_hi_cycle_inverse_apply(
+                                     s, r, L=L, K=K)),
+                      no_partial(lambda s, r=r:
+                                 chi.general_hi_cycle_inverse_apply_ref(
+                                     s, r, L=L, K=K)))
+                     for r in tiles.reshape(c, 4, K, 2, w).unbind(1)]
+            st = held_chain(f"K10b shard-local echo L_loc={L} {pol} t=2 "
+                            f"p={p} {state} q={q} 1x{c}", "K10b local", err,
+                            steps, L, state, dev)
+            echo = s0 * z_of(st, q, L)
+            if p == 0.0 and not float((echo - 1).abs().max()) <= TOL:
+                raise RuntimeError(f"noiseless general echo != 1 at "
+                                   f"L_loc={L}: {echo.tolist()}")
+            del st
+    compare_cycle_hi_l30(dev, err)
+
+
+def compare_cycle_hi_l30(dev, err) -> None:
+    """One cycle of each streamed per-shard kernel at L_loc = 30 (one
+    trajectory, 8 GiB a state: offsets past 2^31 elements) against its plain
+    version from the same random unit state, the state and the partial held
+    within unit_tol(30); the forwards' partials again from the neel basis
+    state, where they are O(1) and their weight lies past byte 2^31 (at
+    the neel index and its complement), within TOL; the peak device memory
+    of the kernel/plain pairs."""
+    from dtc_tpu_torch.ops import cycle_hi as chi
+    from dtc_tpu_torch.ops.params_general import general_hi_width
+
+    L, q = 30, 29
+    gen = torch.Generator(device=dev).manual_seed(30)
+    start = torch.randn((1, 1 << L), dtype=torch.complex64, generator=gen,
+                        device=dev)
+    start.div_(start.abs().pow(2).sum().sqrt())
+    rows = cycle_x_rows(L, 2, 1, 0.6, dev, seed=30)[0][:, 1].contiguous()
+    w = general_hi_width(L)
+    grows = general_forward_inputs(L, "xy", 2, 1, 0.6, dev, seed=30,
+                                   width=w)[0].reshape(1, 2, 2, w)[:, 1]
+    tiles = general_echo_inputs(L, "circular_left", 2, 1, 0.6, [1], dev,
+                                seed=31, width=w)[0].reshape(1, 4, 2, 2, w)
+    cases = [
+        ("K9a", "forward x", chi.hi_cycle_forward_apply,
+         chi.hi_cycle_forward_apply_ref, (rows, THETA), dict(L=L, q=q)),
+        ("K9b", "inverse x", chi.hi_cycle_inverse_apply,
+         chi.hi_cycle_inverse_apply_ref, (rows, THETA), dict(L=L)),
+        ("K10a local", "forward xy", chi.general_hi_cycle_forward_apply,
+         chi.general_hi_cycle_forward_apply_ref, (grows.contiguous(),),
+         dict(L=L, K=2, q=q)),
+        ("K10b local", "inverse circular_left",
+         chi.general_hi_cycle_inverse_apply,
+         chi.general_hi_cycle_inverse_apply_ref,
+         (tiles[:, 1].contiguous(),), dict(L=L, K=2)),
+    ]
+    torch.cuda.reset_peak_memory_stats(dev)
+    for key, what, kernel, plain, args, kw in cases:
+        what = (f"{key} {what} L_loc={L} 1 trajectory "
+                f"({args[0].shape[-1]} lanes)")
+        held_unit(f"{what}, random unit state", key, err, kernel, plain,
+                  [start], args, kw, L)
+        if "q" in kw:
+            held_chain(f"{what}, neel: the partial O(1)", key, err,
+                       [(lambda s: kernel(s, *args, **kw)[1],
+                         lambda s: plain(s, *args, **kw)[1])], L, "neel",
+                       dev, c=1)
+    phase(f"[compare] L_loc=30: peak device memory of the start state and "
+          f"the kernel/plain pairs "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (a state "
+          f"8 GiB)")
+
+
 def sharded_vs_unsharded(L, n_amp, pol, T, c, ts, dev, err) -> None:
     """The cycle-kernel engines on ``n_amp`` shards that share the card
     against the unsharded route at L on the same uniforms (p=0.6,
@@ -853,7 +1090,9 @@ def sharded_vs_unsharded(L, n_amp, pol, T, c, ts, dev, err) -> None:
           f"(A[1:3] {a_sh[1:3].tolist()})")
     if not d <= TOL:
         raise RuntimeError(f"sharded {what}: disagrees by {d} > {TOL}")
-    fam = ("K8a", "K8b") if pol == "x" else ("K8c", "K8d")
+    hi = L_loc >= 24
+    fam = {("x", False): ("K8a", "K8b"), ("x", True): ("K9a", "K9b")}.get(
+        (pol, hi), ("K10a local", "K10b local") if hi else ("K8c", "K8d"))
     for k in fam:
         err[k] = max(err[k], d)
 
@@ -863,9 +1102,14 @@ def compare_sharded(dev, err) -> None:
     same uniforms: x at L=25 on 4 shards (L_loc 23: two shard bits and a
     shard-shard bond) against the streamed x family, xy at L=24 on 2 shards
     against K10, x and xy at L=19 on 4 shards against K1/K2 and K4, and a
-    (1,1) mesh at L=17 against K1/K2."""
+    (1,1) mesh at L=17 against K1/K2; then through the streamed per-shard
+    kernels: x at L=26 on 2 shards (K9a/K9b) against the streamed x family,
+    xy at L=26 on 2 shards (K10's shard-local forms) against the one-card
+    K10, and a (1,1) mesh at L=25 (K9a/K9b) against the streamed x
+    family."""
     for L, n_amp, pol in ((25, 4, "x"), (24, 2, "xy"), (19, 4, "x"),
-                          (19, 4, "xy"), (17, 1, "x")):
+                          (19, 4, "xy"), (17, 1, "x"), (26, 2, "x"),
+                          (26, 2, "xy"), (25, 1, "x")):
         sharded_vs_unsharded(L, n_amp, pol, 4, 2, [1, 2, 4], dev, err)
 
 
@@ -901,6 +1145,52 @@ def anchors_l30(dev) -> None:
     phase(f"[anchor] L=30 forward p={P} T=8 q=15: {[round(x, 6) for x in vals]}")
     if not all(math.isfinite(x) and abs(x) <= 1 + 1e-5 for x in vals):
         raise RuntimeError("L=30 noisy forward not finite or |A| > 1")
+
+
+def anchors_l31_sharded(dev) -> None:
+    """L=31 on 2 shards of one card (L_loc = 30, 8 GiB a shard, one
+    trajectory), the engines called directly: from the vacuum at p=0,
+    A(1) = cos(pi g) within 1e-5 for x through K9a (q = 0, 15, 29) and for
+    y through K10a's shard-local form with 256-lane rows (q = 15); the
+    noiseless echo = 1 within 1e-4 at t=1, 2 through K9a/K9b and through
+    K10a/K10b. A wrapped 32-bit offset would break them. Prints the peak
+    device memory."""
+    from dtc_tpu_torch.parallel import sharded as sh
+    from dtc_tpu_torch.parallel.mesh import make_mesh
+
+    L, T = 31, 3
+    hs, phis = disorder(L, dev)
+    mesh = make_mesh(2, 1, devices=[dev, dev])
+    kw = dict(L=L, T=T, p=0.0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for pol, fwd, ech, extra, qs, route in (
+            ("x", sh.make_sharded_autocorr_forward_kernel,
+             sh.make_sharded_echo_kernel, {}, (0, 15, 29), "K9a/K9b"),
+            ("y", sh.make_sharded_autocorr_forward_general,
+             sh.make_sharded_echo_general, {"K": 1}, (15,),
+             "K10a/K10b shard-local, 256-lane rows")):
+        angles = schedule(pol, T, dev)
+        for q in qs:
+            a = fwd(mesh, q=q, **extra, **kw)(angles, hs[0], phis[0], None,
+                                               n_traj=1)
+            d = abs(float(a[1]) - math.cos(THETA))
+            phase(f"[anchor] L=31 on 2 shards {pol} ({route}) p=0 vacuum "
+                  f"q={q}: A(1) = {float(a[1]):.7f}, |A(1) - cos(pi g)| = "
+                  f"{d:.3e}")
+            if not d <= 1e-5:
+                raise RuntimeError(f"L=31 sharded {pol} A(1) at q={q} is not"
+                                   " cos(pi g)")
+        echo = ech(mesh, q=15, **extra, **kw)
+        e = torch.stack([echo(angles, hs[0], phis[0], None, t, n_traj=1)
+                         for t in (1, 2)])
+        d = float((e - 1).abs().max())
+        phase(f"[anchor] L=31 on 2 shards {pol} ({route}) noiseless echo "
+              f"t=1,2 q=15: {e.tolist()}, max|A0 - 1| = {d:.3e}")
+        if not d <= TOL:
+            raise RuntimeError(f"L=31 sharded {pol} noiseless echo != 1")
+    phase(f"[anchor] L=31 on 2 shards: peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (two "
+          "shards 16 GiB)")
 
 
 class SweepLog(logging.Handler):
@@ -942,23 +1232,32 @@ def one_csv(tmp, prefix) -> dict:
 def run_cli(argv) -> tuple:
     """Run the CLI with every launch count at 0; returns (launches,
     plain calls on CUDA, sweep log, seconds)."""
+    from dtc_tpu_torch.utils.cli import main as cli_main
+
+    return run_counted(lambda: cli_main(argv), " ".join(argv[:3]))
+
+
+def run_counted(fn, what) -> tuple:
+    """Run ``fn`` with every launch count at 0 just before it and read just
+    after; returns (launches, plain calls on CUDA, sweep log, seconds).
+    ``fn`` returns the CLI's exit code, or None."""
     from dtc_tpu_torch.ops import cycle as cy
+    from dtc_tpu_torch.ops import cycle_hi as chi
     from dtc_tpu_torch.ops import cycle_hi_general as chg
     from dtc_tpu_torch.ops import observables as ob
     from dtc_tpu_torch.ops import resident as rs
     from dtc_tpu_torch.ops import resident_blocked as rb
     from dtc_tpu_torch.ops import resident_general as rg
     from dtc_tpu_torch.ops import streamed as sm
-    from dtc_tpu_torch.utils.cli import main as cli_main
 
     log = SweepLog()
     logger = logging.getLogger("dtc_tpu_torch")
     logger.addHandler(log)
-    for mod in (rb, rs, rg, ob, sm, chg, cy):
+    for mod in (rb, rs, rg, ob, sm, chg, cy, chi):
         mod.reset_counters()
     t0 = time.perf_counter()
     try:
-        rc = cli_main(argv)
+        rc = fn()
         torch.cuda.synchronize()
     finally:
         logger.removeHandler(log)
@@ -975,16 +1274,20 @@ def run_cli(argv) -> tuple:
                 "K10 echo": chg.LAUNCHES["echo"],
                 "K8a": cy.LAUNCHES["forward"], "K8b": cy.LAUNCHES["inverse"],
                 "K8c": cy.LAUNCHES["general_forward"],
-                "K8d": cy.LAUNCHES["general_inverse"]}
+                "K8d": cy.LAUNCHES["general_inverse"],
+                "K9a": chi.LAUNCHES["forward"], "K9b": chi.LAUNCHES["inverse"],
+                "K10a local": chi.LAUNCHES["general_forward"],
+                "K10b local": chi.LAUNCHES["general_inverse"]}
     plain = {**{f"x {k}": v for k, v in rb.PLAIN_ON_CUDA.items()},
              **{f"resident {k}": v for k, v in rs.PLAIN_ON_CUDA.items()},
              **{f"general {k}": v for k, v in rg.PLAIN_ON_CUDA.items()},
              **ob.PLAIN_ON_CUDA,
              **{f"streamed {k}": v for k, v in sm.PLAIN_ON_CUDA.items()},
              **{f"general_hi {k}": v for k, v in chg.PLAIN_ON_CUDA.items()},
-             **{f"cycle {k}": v for k, v in cy.PLAIN_ON_CUDA.items()}}
-    if rc != 0:
-        raise RuntimeError(f"{' '.join(argv[:3])} CLI returned {rc}")
+             **{f"cycle {k}": v for k, v in cy.PLAIN_ON_CUDA.items()},
+             **{f"cycle_hi {k}": v for k, v in chi.PLAIN_ON_CUDA.items()}}
+    if rc not in (0, None):
+        raise RuntimeError(f"{what} CLI returned {rc}")
     return launches, plain, log, seconds
 
 
@@ -1410,6 +1713,94 @@ def main_sharded(smi) -> dict:
     return total
 
 
+def main_sharded_hi(smi) -> dict:
+    """The amplitude-sharded path on the streamed per-shard kernels through
+    the CLI: ``--num_devices 2 autocorr --sharded --n_amp 2`` of the x drive
+    at L=28 (L_loc = 27: three passes, 256-lane rows), T=8, 2 trajectories,
+    both shards on the card (engine=cycle_hi, K9a/K9b only). Returns their
+    launches."""
+    L, n_amp, T, n = 28, 2, 8, 2
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, plain, log, seconds = run_cli(
+            ["--num_devices", str(n_amp), "autocorr", "--sharded", "--n_amp",
+             str(n_amp), "--inst", "1", *common_argv(T, tmp, L=L, n_traj=n)])
+        cols = one_csv(tmp, "autocorr_data_")
+    a, e = cols["av_autocorr"], cols["av_autocorr_echo"]
+    fam = ("K9a", "K9b")
+    checks = physics_checks(a, e, (1 - P) ** 6, alternates=True)
+    checks.update({
+        f"engine=cycle_hi mesh=(1,{n_amp})": log.sweeps == [
+            ("sharded_sweep", "cycle_hi", f"(1,{n_amp})")],
+        **{f"{k} launched": launches[k] > 0 for k in fam},
+        "no other kernel": not any(v for k, v in launches.items()
+                                   if k not in fam),
+        "no plain version on CUDA": not any(plain.values()),
+    })
+    phase(f"[main] autocorr --sharded x L={L} n_amp={n_amp} T={T} inst=1 "
+          f"traj={n} in {seconds:.2f}s: A[0:4]={[round(x, 6) for x in a[:4]]}"
+          f" echo[0:4]={[round(x, 6) for x in e[:4]]} launches="
+          f"{ {k: v for k, v in launches.items() if v} }")
+    fail_on(f"autocorr --sharded x L={L}", checks)
+    phase(f"[main] autocorr --sharded x L={L} sweep seconds: forward "
+          f"{log.seconds['sharded forward inst 0'][0]:.3f} s, echo "
+          f"{log.seconds['sharded echo inst 0'][0]:.3f} s (inst=1 x {n} "
+          f"trajectories, {n_amp} shards on one card) on {smi}")
+    return {k: launches[k] for k in fam}
+
+
+def main_sharded_general_hi(smi) -> dict:
+    """K10's shard-local forms on their path: the lab-frame engines
+    ``make_sharded_autocorr_forward_general`` / ``make_sharded_echo_general``
+    called directly, as the routing sends no drive there (the reference's
+    own), for xy at L=28 on 2 shards of the card (L_loc = 27), T=6, 2
+    trajectories, p=0.05: the forward and the echo at t=1, 3, 5. Checks
+    A(0) = (1-p)^6, |A| <= 1, the echo within [-1, 1], K10a/K10b shard-local
+    launched, no other kernel, no plain version on CUDA. Returns their
+    launches."""
+    from dtc_tpu_torch.parallel import sharded as sh
+    from dtc_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(DEVICE)
+    L, n_amp, T, n, pol = 28, 2, 6, 2, "xy"
+    hs, phis = disorder(L, dev)
+    angles = schedule(pol, T, dev)
+    K = angles.shape[1]
+    mesh = make_mesh(n_amp, 1, devices=[dev] * n_amp)
+    kw = dict(L=L, T=T, K=K, p=P, q=L // 2)
+    uf = uniforms((n, T * K, L), dev, seed=28)
+    ue = uniforms((n, 2 * T, K, L), dev, seed=29)
+    ts = (1, 3, 5)
+    out = {}
+
+    def run():
+        out["a"] = sh.make_sharded_autocorr_forward_general(mesh, **kw)(
+            angles, hs[0], phis[0], uf)
+        echo = sh.make_sharded_echo_general(mesh, **kw)
+        out["e"] = torch.stack([echo(angles, hs[0], phis[0], ue, t)
+                                for t in ts])
+
+    launches, plain, _, seconds = run_counted(run, "sharded general engines")
+    a, e = out["a"].tolist(), out["e"].tolist()
+    fam = ("K10a local", "K10b local")
+    checks = {
+        "A(0) = (1-p)^6": abs(a[0] - (1 - P) ** 6) < 1e-3,
+        "|A| <= 1": all(abs(x) <= 1 + 1e-3 for x in a),
+        "finite": all(math.isfinite(x) for x in a + e),
+        "|echo| <= 1": all(abs(x) <= 1 + 1e-3 for x in e),
+        **{f"{k} launched": launches[k] > 0 for k in fam},
+        "no other kernel": not any(v for k, v in launches.items()
+                                   if k not in fam),
+        "no plain version on CUDA": not any(plain.values()),
+    }
+    phase(f"[main] sharded general engines {pol} L={L} n_amp={n_amp} T={T} "
+          f"traj={n} in {seconds:.2f}s (forward + echo at t={ts}): "
+          f"A[0:4]={[round(x, 6) for x in a[:4]]} echo="
+          f"{[round(x, 6) for x in e]} launches="
+          f"{ {k: v for k, v in launches.items() if v} } on {smi}")
+    fail_on(f"sharded general engines {pol} L={L}", checks)
+    return {k: launches[k] for k in fam}
+
+
 def time_ms(fn, reps=3):
     """(ms per call, the last call's output)."""
     fn()
@@ -1634,8 +2025,9 @@ def timing_streamed(dev, smi, err) -> dict:
 def timing_general_hi(dev, smi, err) -> dict:
     """The streamed lab-frame family against its plain version on the main
     paths' shapes, with the peak device memory of each kernel/plain pair:
-    forward at L=28 (y, 4 trajectories, T=8) and L=29 (circular_left, 1
-    trajectory, T=6: the ``autocorr`` run's launch), echo at L=28 (y, the
+    forward at L=24, 26 and 28 (y, 4 trajectories, T=8) and L=29
+    (circular_left, 1 trajectory, T=6: the ``autocorr`` run's launch),
+    echo at L=28 (y, the
     ``polarization`` run's first launch: ts=0..3, 1 trajectory) and L=29
     (circular_left, its last: t=5). Operations per amplitude and step: K4's
     (14 L + 6 forward, 14 L + 12 echo). Returns the L=28 numbers."""
@@ -1644,7 +2036,8 @@ def timing_general_hi(dev, smi, err) -> dict:
 
     lib = _build.load("floquet_general_streamed")
     out = {}
-    for L, pol, T, c in ((28, "y", 8, 4), (29, "circular_left", 6, 1)):
+    for L, pol, T, c in ((24, "y", 8, 4), (26, "y", 8, 4), (28, "y", 8, 4),
+                         (29, "circular_left", 6, 1)):
         rows = general_forward_inputs(L, pol, T, c, P, dev, seed=L)
         K = rows.shape[-2] // T
         kw = dict(L=L, T=T, q=L // 2)
@@ -1785,21 +2178,8 @@ def timing_cycle(dev, smi, err) -> dict:
     }
     out = {}
     for key, (what, kernel, plain, args, kw, K, flops) in cases.items():
-        a = [s.clone() for s in start]
-        b = [s.clone() for s in start]
-        ka = [kernel(s, *args, **kw) for s in a]
-        pb = [plain(s, *args, **kw) for s in b]
-        torch.cuda.synchronize()
-        d = max(float((x - y).abs().max()) for x, y in zip(a, b))
-        if isinstance(ka[0], tuple):  # the forwards' partials
-            d = max(d, *(float((x[1] - y[1]).abs().max())
-                         for x, y in zip(ka, pb)))
-        phase(f"[compare] {key} {what} L_loc={L} {n_sh} shards x {c} "
-              f"(timed inputs): max|kernel-plain| = {d:.3e}")
-        if not d <= TOL:
-            raise RuntimeError(f"{key}: kernel disagrees by {d}")
-        err[key] = max(err[key], d)
-        del b, pb
+        a = held_unit(f"{key} {what} L_loc={L} {n_sh} shards x {c} (timed "
+                      "inputs)", key, err, kernel, plain, start, args, kw, L)
         k_ms, _ = time_ms(lambda: [kernel(s, *args, **kw) for s in a])
         p_ms, _ = time_ms(lambda: [plain(s, *args, **kw) for s in a], 1)
         amp_steps = n_sh * c * K * N
@@ -1828,12 +2208,108 @@ def timing_cycle(dev, smi, err) -> dict:
     return out
 
 
+def timing_cycle_hi(dev, smi, err) -> dict:
+    """K9a/K9b and K10's shard-local forms (y: one slot; xy: two) at
+    L_loc = 28 on 2 shards of 2 trajectories (the engines' launch: one per
+    shard and cycle, here 2 per timed call) against their plain versions on
+    identical inputs, noisy rows (p=0.6); the streamed x family (K6) and the
+    one-card K10 at L=28 on the same four states beside them (no shard bits;
+    their time per cycle over T-1 = 4 cycles). Bytes: the shard states read
+    and written once (16 B per amplitude) and the rows. Operations per
+    amplitude and cycle: 6 L + 6 (K9a, K9b: RX on every bit, one diagonal),
+    per slot 14 L + 6 (K10a) and 14 L + 12 (K10b: two diagonals). State
+    floor: three sweeps per slot. The JSON line takes the xy numbers for
+    K10a/K10b."""
+    from dtc_tpu_torch.ops import cycle_hi as chi
+    from dtc_tpu_torch.ops import cycle_hi_general as chg
+    from dtc_tpu_torch.ops import streamed as sm
+    from dtc_tpu_torch.ops.params_general import general_hi_width
+
+    L, c, n_sh = 28, 2, 2
+    N = 1 << L
+    w = general_hi_width(L)
+    gen = torch.Generator(device=dev).manual_seed(28)
+    start = []
+    for _ in range(n_sh):
+        st = torch.randn((c, N), dtype=torch.complex64, generator=gen,
+                         device=dev)
+        start.append(st.div_(st.abs().pow(2).sum(-1, keepdim=True).sqrt()))
+    rows = cycle_x_rows(L, 2, c, 0.6, dev, seed=28)[0][:, 1].contiguous()
+    cases = {
+        "K9a": ("forward x", chi.hi_cycle_forward_apply,
+                chi.hi_cycle_forward_apply_ref, (rows, THETA),
+                dict(L=L, q=L // 2), 1, 6 * L + 6),
+        "K9b": ("inverse x", chi.hi_cycle_inverse_apply,
+                chi.hi_cycle_inverse_apply_ref, (rows, THETA), dict(L=L), 1,
+                6 * L + 6),
+    }
+    for pol in ("y", "xy"):
+        grows = general_forward_inputs(L, pol, 2, c, 0.6, dev, seed=29,
+                                       width=w)[0]
+        K = grows.shape[-2] // 2
+        grows = grows.reshape(c, 2, K, w)[:, 1].contiguous()
+        tiles = general_echo_inputs(L, pol, 2, c, 0.6, [1], dev, seed=30,
+                                    width=w)[0]
+        tiles = tiles.reshape(c, 4, K, 2, w)[:, 1].contiguous()
+        cases[f"K10a local {pol}"] = (
+            f"forward {pol}", chi.general_hi_cycle_forward_apply,
+            chi.general_hi_cycle_forward_apply_ref, (grows,),
+            dict(L=L, K=K, q=L // 2), K, 14 * L + 6)
+        cases[f"K10b local {pol}"] = (
+            f"inverse {pol}", chi.general_hi_cycle_inverse_apply,
+            chi.general_hi_cycle_inverse_apply_ref, (tiles,), dict(L=L, K=K),
+            K, 14 * L + 12)
+    passes = 3  # L_loc = 28
+    out = {}
+    for key, (what, kernel, plain, args, kw, K, flops) in cases.items():
+        err_key = " ".join(key.split()[:2]) if "local" in key else key
+        a = held_unit(f"{key} {what} L_loc={L} {n_sh} shards x {c} (timed "
+                      "inputs)", err_key, err, kernel, plain, start, args,
+                      kw, L)
+        k_ms, _ = time_ms(lambda: [kernel(st, *args, **kw) for st in a])
+        p_ms, _ = time_ms(lambda: [plain(st, *args, **kw) for st in a], 1)
+        amp_steps = n_sh * c * K * N
+        io_bytes = 16 * n_sh * c * N + 4 * args[0].numel()
+        out[key] = report(key, f"{what} L_loc={L} {n_sh} shards x {c} traj, "
+                          f"one cycle ({K} slot{'s' * (K > 1)})", k_ms, p_ms,
+                          amp_steps, "cycles", 1, io_bytes, flops, smi,
+                          passes=passes)
+        del a
+    T = 5
+    rows6, sig = forward_inputs(L, T, n_sh * c, P, dev, seed=31)
+    k6_ms, _ = time_ms(lambda: sm.streamed_forward_batch(
+        rows6, sig, THETA, L=L, q=L // 2), 1)
+    del rows6
+    per = {"K6": k6_ms / (T - 1)}
+    for pol in ("y", "xy"):
+        rows10 = general_forward_inputs(L, pol, T, n_sh * c, P, dev, seed=32)
+        k10_ms, _ = time_ms(lambda: chg.general_hi_forward_batch(
+            rows10, L=L, T=T, q=L // 2), 1)
+        per[f"K10 {pol}"] = k10_ms / (T - 1)
+        del rows10
+    for key in ("K9a", "K9b"):
+        out[key]["k6_ms"] = per["K6"]
+    for key in out:
+        if "local" in key:
+            out[key]["k10_ms"] = per[f"K10 {key.split()[-1]}"]
+    phase(f"[timing] beside K9/K10 shard-local at L={L}, {n_sh * c} states "
+          f"of 2^{L}, per cycle: K6 (x) {per['K6']:.3f} ms against K9a "
+          f"{out['K9a']['ms']:.3f} ms; one-card K10 y {per['K10 y']:.3f} ms"
+          f" against K10a local {out['K10a local y']['ms']:.3f} ms; xy "
+          f"{per['K10 xy']:.3f} ms against "
+          f"{out['K10a local xy']['ms']:.3f} ms on {smi}")
+    out["K10a local"] = out["K10a local xy"]
+    out["K10b local"] = out["K10b local xy"]
+    return {k: out[k] for k in ("K9a", "K9b", "K10a local", "K10b local")}
+
+
 def main() -> None:
     csrc = os.path.join(HERE, "dtc_tpu_torch", "csrc")
     if not all(os.path.isfile(os.path.join(csrc, f))
                for f in ("floquet_x.cu", "floquet_x_resident.cu",
                          "floquet_x_streamed.cu", "floquet_general.cu",
-                         "floquet_general_streamed.cu", "floquet_cycle.cu")):
+                         "floquet_general_streamed.cu", "floquet_cycle.cu",
+                         "floquet_cycle_hi.cu")):
         sys.exit("chip_smoke: run it from the root of a checkout of the"
                  " repository (dtc_tpu_torch/csrc not found beside it)")
     smi = card()
@@ -1843,7 +2319,8 @@ def main() -> None:
            "K4 forward": 0.0, "K4 echo": 0.0,
            "K5": 0.0, "K6 forward": 0.0, "K6 echo": 0.0,
            "K10 forward": 0.0, "K10 echo": 0.0,
-           "K8a": 0.0, "K8b": 0.0, "K8c": 0.0, "K8d": 0.0}
+           "K8a": 0.0, "K8b": 0.0, "K8c": 0.0, "K8d": 0.0,
+           "K9a": 0.0, "K9b": 0.0, "K10a local": 0.0, "K10b local": 0.0}
     compare_x(dev, err)
     compare_general(dev, err)
     compare_obs(dev, err)
@@ -1852,8 +2329,10 @@ def main() -> None:
     compare_general_hi(dev, err)
     compare_resident(dev, err)
     compare_cycle(dev, err)
+    compare_cycle_hi(dev, err)
     compare_sharded(dev, err)
     anchors_l30(dev)
+    anchors_l31_sharded(dev)
     launches = main_autocorr(smi)
     launches.update({k: v for k, v in main_polarization(smi).items()
                      if k.startswith("K4")})
@@ -1867,11 +2346,14 @@ def main() -> None:
         launches[k] = v + large[k]
     launches.update(main_resident(smi))
     launches.update(main_sharded(smi))
+    launches.update(main_sharded_hi(smi))
+    launches.update(main_sharded_general_hi(smi))
     times = timing(dev, smi, err)
     times.update(timing_streamed(dev, smi, err))
     times.update(timing_general_hi(dev, smi, err))
     times.update(timing_resident(dev, smi, err))
     times.update(timing_cycle(dev, smi, err))
+    times.update(timing_cycle_hi(dev, smi, err))
     times["K4 forward"] = times.pop("K4 forward xy")
     times["K5"] = times.pop("K5 x")
     general = "dtc_tpu/ops/pallas_resident_general.py"
@@ -1919,6 +2401,18 @@ def main() -> None:
         ("K8d", "floquet_cycle_general_inverse",
          "dtc_tpu_torch/csrc/floquet_cycle.cu",
          "dtc_tpu/ops/pallas_cycle.py:778", None),
+        ("K9a", "floquet_cycle_hi_forward",
+         "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
+         "dtc_tpu/ops/pallas_cycle_hi.py:170", None),
+        ("K9b", "floquet_cycle_hi_inverse",
+         "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
+         "dtc_tpu/ops/pallas_cycle_hi.py:346", None),
+        ("K10a local", "floquet_cycle_hi_general_forward",
+         "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
+         "dtc_tpu/ops/pallas_cycle_hi_general.py:65", None),
+        ("K10b local", "floquet_cycle_hi_general_inverse",
+         "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
+         "dtc_tpu/ops/pallas_cycle_hi_general.py:250", None),
     ]
     line = []
     for key, fn, src, where, also in kernels:
@@ -1931,7 +2425,8 @@ def main() -> None:
                  "state_floor_ms": times[key]["state_floor_ms"]}
         if also:
             entry["also_replaces"] = also
-        for extra in ("k1_ms", "k4_ms"):  # K3, K8: K1/K4 beside them
+        # K3, K8: K1/K4 beside them; K9, K10 shard-local: K6, one-card K10
+        for extra in ("k1_ms", "k4_ms", "k6_ms", "k10_ms"):
             if extra in times[key]:
                 entry[extra] = times[key][extra]
         line.append(entry)

@@ -11,18 +11,23 @@ mesh=(traj,amp)``:
 
 - ``cycle``: a constant x drive with q < L_loc and 17 <= L_loc <= 23, the
   x cycle kernels K8a/K8b (``make_sharded_*_kernel``);
+- ``cycle_hi``: a constant x drive with q < L_loc and 24 <= L_loc <= 29
+  (from ``ops.cycle_hi.MIN_ROUTE_L``), the same engines on the streamed
+  per-shard kernels K9a/K9b;
 - ``cycle_general``: every other drive with q < L_loc and
   17 <= L_loc <= 23, the lab-frame cycle kernels K8c/K8d
   (``make_sharded_*_general``);
 - ``sharded_sigma``: everything else, the sigma-frame engines, as the
-  reference's fallback; except a constant x drive at 24 <= L_loc <= 29,
-  which the reference sends to its K9 kernels and which raises
-  NotImplementedError here.
+  reference's fallback: x at L_loc = 30 and every other drive at
+  L_loc >= 24 among them. The general engines run K10's shard-local forms
+  at 24 <= L_loc <= 30 where they are called directly, as the reference's
+  tests call them.
 
 ``run_energy_sharded`` is not ported yet and raises. The reference's
 environment switches (``DTC_TPU_SHARDED_ENGINE``,
 ``DTC_TPU_SHARDED_HI_MIN_LB``, ``DTC_TPU_SHARDED_HI_SPLIT_MIN_LB``) are not
-ported: the engines are called directly where a route must be forced.
+ported: the engines are called directly where a route must be forced, and
+``ops.cycle_hi.MIN_ROUTE_L`` takes the place of the second.
 
 Noise: one f32 block of uniforms per run, forward (inst, n_traj, T*K, L)
 and echo (inst, n_traj, 2T, K, L) (each instance's echo block shared by
@@ -44,16 +49,15 @@ from dtc_tpu_torch.io import csvio, naming
 from dtc_tpu_torch.io.disorder import get_disorder
 from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.models.noise import NoiseSpec
-from dtc_tpu_torch.ops import cycle
 from dtc_tpu_torch.parallel.mesh import amp_bits, make_mesh, visible_devices
 from dtc_tpu_torch.parallel.sharded import (
-    NOT_PORTED_HI,
     make_sharded_autocorr_forward,
     make_sharded_autocorr_forward_general,
     make_sharded_autocorr_forward_kernel,
     make_sharded_echo,
     make_sharded_echo_general,
     make_sharded_echo_kernel,
+    use_hi,
 )
 from dtc_tpu_torch.utils.profiling import phase_timer
 from dtc_tpu_torch.utils.validation import guard
@@ -78,15 +82,11 @@ def _auto_mesh(L: int, n_amp=None, devices=None, device="cuda"):
 
 def _cycle_kernel_ok(mesh, sched, cfg) -> bool:
     """The x cycle kernels' gate: a constant x-only schedule, a shard-local
-    probe q < L_loc and 17 <= L_loc <= 29 (the reference's; 24..29 raise
-    NotImplementedError, its K9 kernels)."""
+    probe q < L_loc and 17 <= L_loc <= 29 (the reference's)."""
     local_bits = cfg.L - amp_bits(mesh)
-    eligible = (constant_x_theta(sched.angles) is not None
-                and cfg.probe_qubit < local_bits
-                and 17 <= local_bits <= 29)
-    if eligible and local_bits > cycle.MAX_L:
-        raise NotImplementedError(NOT_PORTED_HI)
-    return eligible
+    return (constant_x_theta(sched.angles) is not None
+            and cfg.probe_qubit < local_bits
+            and 17 <= local_bits <= 29)
 
 
 def _general_kernel_ok(mesh, cfg) -> bool:
@@ -96,9 +96,9 @@ def _general_kernel_ok(mesh, cfg) -> bool:
 
 
 def sharded_route(mesh, sched, cfg) -> str:
-    """'cycle', 'cycle_general' or 'sharded_sigma'."""
+    """'cycle', 'cycle_hi', 'cycle_general' or 'sharded_sigma'."""
     if _cycle_kernel_ok(mesh, sched, cfg):
-        return "cycle"
+        return "cycle_hi" if use_hi(cfg.L - amp_bits(mesh)) else "cycle"
     if _general_kernel_ok(mesh, cfg):
         return "cycle_general"
     return "sharded_sigma"
@@ -108,7 +108,7 @@ def _engines(route, mesh, cfg, K, p):
     """(forward fn, echo fn) of ``route``."""
     kw = dict(L=cfg.L, T=cfg.tf, p=p, q=cfg.probe_qubit,
               initial_state=cfg.initial_state)
-    if route == "cycle":
+    if route in ("cycle", "cycle_hi"):
         return (make_sharded_autocorr_forward_kernel(mesh, **kw),
                 make_sharded_echo_kernel(mesh, **kw))
     if route == "cycle_general":
@@ -144,8 +144,14 @@ def run_autocorr_sharded(cfg, hs=None, phis=None, *, n_amp=None, mesh=None,
     every visible card of ``device``). The 2^L statevector never exists on
     one device. uniforms: optional (forward, echo) pair of blocks (module
     doc). Echo times not evaluated read NaN in the CSV; at p=0 the echo is
-    1 everywhere, as the reference writes it.
+    1 everywhere, as the reference writes it. ``cfg.use_fakebackend``
+    raises: the sharded engines run no device noise (the reference's
+    ``run_autocorr_sharded`` runs depolarizing noise under the flag).
     """
+    if cfg.use_fakebackend:
+        raise NotImplementedError(
+            "use_fakebackend=1 on the sharded engines is not ported yet: "
+            "ROADMAP.md queue 1, device noise")
     if hs is None or phis is None:
         hs, phis = get_disorder(cfg, disorder_dir)
     if mesh is None:

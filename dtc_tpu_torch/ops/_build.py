@@ -4,11 +4,11 @@ Each source ``dtc_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and
 is one library: ``floquet_x`` (K1/K2), ``floquet_x_resident`` (K3a/K3b,
 constant or per-cycle x at 14 <= L <= 21), ``floquet_x_streamed`` (the
 large-L x family that replaces K6a/K6b/K7a/K7b), ``floquet_general`` (K4,
-K5) and ``floquet_general_streamed`` (the large-L lab-frame family,
-K10a/K10b) and ``floquet_cycle`` (K8a-d, one cycle on a shard's local
-bits). A
-source is compiled at first use with nvcc for sm_90a into a shared library
-under
+K5), ``floquet_general_streamed`` (the large-L lab-frame family,
+K10a/K10b), ``floquet_cycle`` (K8a-d, one cycle on a shard's local bits,
+17 <= L_loc <= 23) and ``floquet_cycle_hi`` (K9a/K9b and K10's shard-local
+forms, one cycle on a shard's local bits, 22 <= L_loc <= 30). A source is
+compiled at first use with nvcc for sm_90a into a shared library under
 ``dtc_tpu_torch/csrc/build/`` (named by the hash of the source, the shared
 headers ``csrc/*.cuh`` and the flags, so an edit rebuilds) and loaded with
 ``ctypes``. This takes seconds; ``torch.utils.cpp_extension.load`` would
@@ -90,6 +90,17 @@ LIBRARIES = {
         "floquet_cycle_general_forward": [_VP, _VP, _VP, _VP, _I32, _I32,
                                           _I32, _I32, _VP],
         "floquet_cycle_general_inverse": [_VP, _VP, _I32, _I32, _I32, _VP],
+    },
+    "floquet_cycle_hi": {
+        "floquet_cycle_hi_partials": [_I32],
+        "floquet_cycle_hi_forward": [_VP, _VP, _VP, _VP, _I32, _I32, _I32,
+                                     _I32, _F32, _F32, _VP],
+        "floquet_cycle_hi_inverse": [_VP, _VP, _I32, _I32, _I32, _F32, _F32,
+                                     _VP],
+        "floquet_cycle_hi_general_forward": [_VP, _VP, _VP, _VP, _I32, _I32,
+                                             _I32, _I32, _I32, _VP],
+        "floquet_cycle_hi_general_inverse": [_VP, _VP, _I32, _I32, _I32,
+                                             _I32, _VP],
     },
 }
 

@@ -76,22 +76,23 @@ def _check_state(state, L: int) -> int:
     return state.shape[0]
 
 
-def _check_rows(rows, n: int, lead: tuple) -> None:
-    if tuple(rows.shape) != (n, *lead, WIDTH):
-        raise ValueError(f"rows must be {(n, *lead, WIDTH)} (got "
+def _check_rows(rows, n: int, lead: tuple, width: int = WIDTH) -> None:
+    if tuple(rows.shape) != (n, *lead, width):
+        raise ValueError(f"rows must be {(n, *lead, width)} (got "
                          f"{tuple(rows.shape)})")
 
 
-def _cuda_inputs(state, rows, what: str) -> tuple:
+def _cuda_inputs(state, rows, what: str, library: str = "floquet_cycle",
+                 width: int = WIDTH) -> tuple:
     """(n, the library, the stream) after the kernel's input checks."""
     if not state.is_contiguous() or state.device != rows.device:
         raise ValueError(f"{what}: state must be contiguous and on the rows'"
                          " device")
-    rb.check_cuda_input("rows", rows, 2, WIDTH)
+    rb.check_cuda_input("rows", rows, 2, width)
     n = rb.batch_size((state.shape[0],), what)
     from dtc_tpu_torch.ops import _build
 
-    lib = _build.load("floquet_cycle")
+    lib = _build.load(library)
     return n, lib, torch.cuda.current_stream(state.device).cuda_stream
 
 

@@ -1,0 +1,298 @@
+"""One Floquet cycle on a batch of shard-local states, 22 <= L_loc <= 30,
+each shard streamed through device memory.
+
+Port of ``dtc_tpu/ops/pallas_cycle_hi.py`` (``hi_cycle_forward_apply``,
+``hi_cycle_inverse_apply``) and ``dtc_tpu/ops/pallas_cycle_hi_general.py``
+(``general_hi_cycle_forward_apply``, ``general_hi_cycle_inverse_apply``):
+the per-shard engines of the amplitude-sharded path (``parallel/sharded.py``)
+where a shard outgrows the per-shard kernels of ``ops/cycle.py`` (K8,
+L_loc <= 23). Their four Pallas kernels become one hand-written CUDA family,
+``csrc/floquet_cycle_hi.cu``, which runs the passes of the streamed x family
+(``csrc/floquet_x_streamed_pass.cuh``) and of the streamed lab-frame family
+(``csrc/floquet_general_streamed_pass.cuh``) for one cycle at L = L_loc:
+
+- K9a ``hi_cycle_forward_apply``: a sigma-frame x cycle, RX(theta) on every
+  local bit, then the cycle's diagonal from its compact row
+  (``ops/params.py::pack_cycle_params_compact`` at L = L_loc and
+  ``forward_width(L_loc)``: 256 lanes from L_loc = 27); returns the partial
+  sum |psi|^2 z_q, q < L_loc;
+- K9b ``hi_cycle_inverse_apply``: the pre-fold inverse step K.D with the
+  same row and un-negated angles, for the echo's once-conjugated frame;
+- K10a, shard-local, ``general_hi_cycle_forward_apply``: a lab-frame cycle
+  of K slot rows (``ops/params_general.py`` at ``general_hi_width(L_loc)``:
+  256 lanes at L_loc = 30; the diagonal on the final slot) and its partial
+  after the final slot;
+- K10b, shard-local, ``general_hi_cycle_inverse_apply``: a daggered
+  lab-frame cycle, per slot a (pre, post) row pair (K4's echo layout).
+
+The reference's split (re, im) state at L_loc = 30 and its per-call
+trajectory chunks exist for the TPU's 2^32-byte DMA offset wrap and are not
+ported: states are flat (n, 2^L_loc) complex64 with 64-bit offsets, and
+the caller sizes its launches (``parallel/sharded.py``). The flag lanes
+the kernels read (K9b's trip count and kick sign at the row's own width-4
+and width-3, K10a's MPOS, K10b's COUNT) are set here, on a copy of the
+rows: the reference's rows carry none of them. Every entry updates
+``state`` in place and returns it. A tensor on the CPU goes to the plain
+version (``*_ref``); a CUDA tensor launches the kernel or raises. Each
+entry counts its kernel launches in ``LAUNCHES``; the plain versions count
+the calls they get on CUDA tensors in ``PLAIN_ON_CUDA``.
+
+The plain versions hold one state at a time and no table over 2^L_loc: RX
+or K4's kick in kron groups of 7 bits and the diagonal as the streamed
+families' plain versions factor it (``streamed.angle_grid``). They run at
+L_loc = 22 on a CPU in seconds and at L_loc = 30 on the card.
+
+``MIN_ROUTE_L`` stands in for the reference's
+``DTC_TPU_SHARDED_HI_MIN_LB``: the sharded engines take these kernels from
+L_loc = MIN_ROUTE_L on and K8 below it. Tests lower it to 22 to run this
+route at a size a CPU holds.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dtc_tpu_torch.ops import cycle
+from dtc_tpu_torch.ops import cycle_hi_general as chg
+from dtc_tpu_torch.ops import resident_blocked as rb
+from dtc_tpu_torch.ops import streamed as sm
+from dtc_tpu_torch.ops.kick import apply_uniform_1q_layer
+from dtc_tpu_torch.ops.params import echo_width, forward_width
+from dtc_tpu_torch.ops.params_general import (
+    LANE_COUNT,
+    LANE_MPOS,
+    flag_base,
+    general_hi_width,
+)
+
+LIBRARY = "floquet_cycle_hi"
+MIN_L, MAX_L = 22, 30
+MIN_ROUTE_L = 24  # the reference's DTC_TPU_SHARDED_HI_MIN_LB default
+
+LAUNCHES = {"forward": 0, "inverse": 0, "general_forward": 0,
+            "general_inverse": 0}
+PLAIN_ON_CUDA = {"forward": 0, "inverse": 0, "general_forward": 0,
+                 "general_inverse": 0}
+
+
+def reset_counters() -> None:
+    for d in (LAUNCHES, PLAIN_ON_CUDA):
+        for k in d:
+            d[k] = 0
+
+
+def check_range(L: int, q: int | None = None) -> None:
+    """Raise ValueError outside 22 <= L_loc <= 30, or (forwards) for a
+    probe that is not shard-local, q >= L_loc."""
+    if not (MIN_L <= L <= MAX_L):
+        raise ValueError(f"streamed cycle kernels support {MIN_L} <= L_loc <="
+                         f" {MAX_L} (got L_loc={L})")
+    if q is not None and not (0 <= q < L):
+        raise ValueError(f"streamed cycle kernels require a shard-local "
+                         f"probe qubit q < L_loc = {L} (got q={q})")
+
+
+def _check(state, rows, L: int, lead: tuple, width: int) -> int:
+    """n after the shape checks of state (n, 2^L) complex64 and rows
+    (n, *lead, width)."""
+    n = cycle._check_state(state, L)
+    cycle._check_rows(rows, n, lead, width)
+    return n
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
+
+def hi_cycle_forward_apply_ref(state, rows, theta, *, L, q):
+    """Plain version of ``hi_cycle_forward_apply`` (same arguments)."""
+    if state.is_cuda:
+        PLAIN_ON_CUDA["forward"] += 1
+    check_range(L, q)
+    n = _check(state, rows, L, (), forward_width(L))
+    rows = rows.to(torch.float32)
+    rx = sm._rx(theta, 1.0, state.device)
+    part = torch.empty(n, dtype=torch.float32, device=state.device)
+    for i in range(n):
+        new = sm.phase_grid(apply_uniform_1q_layer(state[i], rx, L),
+                            sm._angles(rows[i], L))
+        state[i].copy_(new)
+        part[i] = sm.measure_z(new, q, L)
+    return state, part
+
+
+def hi_cycle_inverse_apply_ref(state, rows, theta, *, L):
+    """Plain version of ``hi_cycle_inverse_apply`` (same arguments)."""
+    if state.is_cuda:
+        PLAIN_ON_CUDA["inverse"] += 1
+    check_range(L)
+    n = _check(state, rows, L, (), forward_width(L))
+    rows = rows.to(torch.float32)
+    rx = sm._rx(theta, 1.0, state.device)
+    for i in range(n):
+        pre = sm.phase_grid(state[i], sm._angles(rows[i], L))
+        state[i].copy_(apply_uniform_1q_layer(pre, rx, L))
+    return state
+
+
+def general_hi_cycle_forward_apply_ref(state, rows, *, L, K, q):
+    """Plain version of ``general_hi_cycle_forward_apply`` (same
+    arguments)."""
+    if state.is_cuda:
+        PLAIN_ON_CUDA["general_forward"] += 1
+    check_range(L, q)
+    n = _check(state, rows, L, (K,), general_hi_width(L))
+    rows = rows.to(torch.float32)
+    part = torch.empty(n, dtype=torch.float32, device=state.device)
+    for i in range(n):
+        new = state[i]
+        for j in range(K):
+            new = chg._lab_phase(chg._kick_one(new, rows[i, j], L),
+                                 rows[i, j], L)
+        state[i].copy_(new)
+        part[i] = sm.measure_z(new, q, L)
+    return state, part
+
+
+def general_hi_cycle_inverse_apply_ref(state, tiles, *, L, K):
+    """Plain version of ``general_hi_cycle_inverse_apply`` (same
+    arguments)."""
+    if state.is_cuda:
+        PLAIN_ON_CUDA["general_inverse"] += 1
+    check_range(L)
+    n = _check(state, tiles, L, (K, 2), general_hi_width(L))
+    tiles = tiles.to(torch.float32)
+    for i in range(n):
+        new = state[i]
+        for j in range(K):
+            pre, post = tiles[i, j, 0], tiles[i, j, 1]
+            new = chg._lab_phase(
+                chg._kick_one(chg._lab_phase(new, pre, L), pre, L), post, L)
+        state[i].copy_(new)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# the flag lanes the kernels read, set on copies of the rows
+
+
+def inverse_tiles(rows, L: int) -> torch.Tensor:
+    """K9b's (n, 2, echo_width(L)) (pre, post) pair of the streamed echo
+    step: the cycle rows' 5L-2 data lanes as the pre row, trip count 2 at
+    lane width-4 (one step is launched, so it is not the pair's last and
+    measures nothing), kick sign +1 at width-3; a zero post row."""
+    width = echo_width(L)
+    data = 5 * L - 2
+    tiles = torch.zeros((rows.shape[0], 2, width), dtype=torch.float32,
+                        device=rows.device)
+    tiles[:, 0, :data] = rows[:, :data]
+    tiles[:, 0, width - 4] = 2.0
+    tiles[:, 0, width - 3] = 1.0
+    return tiles
+
+
+def measured_rows(rows, L: int, K: int) -> torch.Tensor:
+    """K10a's rows: MPOS -1 on slots 0..K-2, 0 on the final slot."""
+    rows = rows.clone()
+    rows[:, :, flag_base(L) + LANE_MPOS] = -1.0
+    rows[:, K - 1, flag_base(L) + LANE_MPOS] = 0.0
+    return rows
+
+
+def counted_tiles(tiles, L: int, K: int) -> torch.Tensor:
+    """K10b's (n, 2K, width) rows: COUNT K + 1 on row 0, so that none of
+    the K steps launched is the pair's last and none measures."""
+    tiles = tiles.reshape(tiles.shape[0], 2 * K, tiles.shape[-1]).clone()
+    tiles[:, 0, flag_base(L) + LANE_COUNT] = float(K + 1)
+    return tiles
+
+
+# ---------------------------------------------------------------------------
+# kernel entries
+
+
+def hi_cycle_forward_apply(state, rows, theta, *, L, q):
+    """One sigma-frame x cycle (K9a): state (n, 2^L) complex64, rows (n,
+    forward_width(L)) compact cycle rows at L = L_loc, theta the RX angle.
+    Returns (state, the partial sum |psi|^2 z_q (n,) after the cycle); the
+    sum over the shards and the sigma sign are the caller's."""
+    if rb.route(state, "streamed cycle") == "plain":
+        return hi_cycle_forward_apply_ref(state, rows, theta, L=L, q=q)
+    check_range(L, q)
+    width = forward_width(L)
+    _check(state, rows, L, (), width)
+    n, lib, stream = cycle._cuda_inputs(state, rows, "hi cycle forward",
+                                        LIBRARY, width)
+    partials = torch.empty((n, lib.floquet_cycle_hi_partials(L)),
+                           dtype=torch.float32, device=state.device)
+    out = torch.empty((n,), dtype=torch.float32, device=state.device)
+    c, s = rb.kick_cs(theta)
+    err = lib.floquet_cycle_hi_forward(state.data_ptr(), rows.data_ptr(),
+                                       partials.data_ptr(), out.data_ptr(),
+                                       n, L, width, q, c, s, stream)
+    LAUNCHES["forward"] += 1
+    rb.raise_on(err, "floquet_cycle_hi_forward")
+    return state, out
+
+
+def hi_cycle_inverse_apply(state, rows, theta, *, L):
+    """One pre-fold inverse x cycle K.D (K9b) with the same rows and angle
+    as the forward; the caller negates the imaginary part once at the echo's
+    turnaround. Returns state."""
+    if rb.route(state, "streamed cycle") == "plain":
+        return hi_cycle_inverse_apply_ref(state, rows, theta, L=L)
+    check_range(L)
+    _check(state, rows, L, (), forward_width(L))
+    n, lib, stream = cycle._cuda_inputs(state, rows, "hi cycle inverse",
+                                        LIBRARY, forward_width(L))
+    tiles = inverse_tiles(rows, L)
+    c, s = rb.kick_cs(theta)
+    err = lib.floquet_cycle_hi_inverse(state.data_ptr(), tiles.data_ptr(), n,
+                                       L, tiles.shape[-1], c, s, stream)
+    LAUNCHES["inverse"] += 1
+    rb.raise_on(err, "floquet_cycle_hi_inverse")
+    return state
+
+
+def general_hi_cycle_forward_apply(state, rows, *, L, K, q):
+    """One lab-frame cycle (K10a, shard-local): rows (n, K,
+    general_hi_width(L)), K4's step rows at L = L_loc (the diagonal on the
+    final slot). Returns (state, the partial sum |psi|^2 z_q (n,) after the
+    final slot)."""
+    if rb.route(state, "streamed cycle") == "plain":
+        return general_hi_cycle_forward_apply_ref(state, rows, L=L, K=K, q=q)
+    check_range(L, q)
+    width = general_hi_width(L)
+    _check(state, rows, L, (K,), width)
+    n, lib, stream = cycle._cuda_inputs(
+        state, rows, "general hi cycle forward", LIBRARY, width)
+    rows = measured_rows(rows, L, K)
+    partials = torch.empty((n, lib.floquet_cycle_hi_partials(L)),
+                           dtype=torch.float32, device=state.device)
+    out = torch.empty((n,), dtype=torch.float32, device=state.device)
+    err = lib.floquet_cycle_hi_general_forward(
+        state.data_ptr(), rows.data_ptr(), partials.data_ptr(),
+        out.data_ptr(), n, L, width, K, q, stream)
+    LAUNCHES["general_forward"] += 1
+    rb.raise_on(err, "floquet_cycle_hi_general_forward")
+    return state, out
+
+
+def general_hi_cycle_inverse_apply(state, tiles, *, L, K):
+    """One daggered lab-frame cycle (K10b, shard-local): tiles (n, K, 2,
+    general_hi_width(L)), per slot the (pre, post) rows of K4's echo
+    layout. Returns state."""
+    if rb.route(state, "streamed cycle") == "plain":
+        return general_hi_cycle_inverse_apply_ref(state, tiles, L=L, K=K)
+    check_range(L)
+    width = general_hi_width(L)
+    _check(state, tiles, L, (K, 2), width)
+    n, lib, stream = cycle._cuda_inputs(
+        state, tiles, "general hi cycle inverse", LIBRARY, width)
+    tiles = counted_tiles(tiles, L, K)
+    err = lib.floquet_cycle_hi_general_inverse(state.data_ptr(),
+                                               tiles.data_ptr(), n, L, width,
+                                               K, stream)
+    LAUNCHES["general_inverse"] += 1
+    rb.raise_on(err, "floquet_cycle_hi_general_inverse")
+    return state

@@ -5,7 +5,8 @@ compact step rows that ``general_forward_batch`` and ``general_echo_batch``
 build per trajectory (their ``tiles_one``). The reference vmaps them per
 trajectory and per t; here they are batched tensor ops with int64 masks.
 
-Row layout, width 128, one row per kick slot (step):
+Row layout, width 128 (256 where the flag lanes pass lane 127,
+``general_hi_width``), one row per kick slot (step):
 lanes [0, L) noise-Z bits n_q, [L, 2L) noise-X mask bits, [2L, 3L) h_q,
 [3L, 4L-1) phi_j, then flag lanes from FO = 4L-1:
 FO+0 MPOS (forward: the A(t) slot this step's state is measured into, -1
@@ -20,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from dtc_tpu_torch.core.sigma_evolve import _codes_from_uniform, _masks_from_codes
-from dtc_tpu_torch.ops.params import WIDTH, _bit_lanes
+from dtc_tpu_torch.ops.params import WIDE, WIDTH, _bit_lanes
 
 LANE_MPOS, LANE_U8, LANE_COUNT = 0, 2, 10
 
@@ -30,9 +31,17 @@ def flag_base(L: int) -> int:
     return 4 * L - 1
 
 
-def _check_width(L: int) -> None:
-    if flag_base(L) + LANE_COUNT >= WIDTH:
-        raise ValueError(f"L={L} leaves no room for the flag lanes")
+def general_hi_width(L: int) -> int:
+    """Lanes of a step row at L = L_loc on the streamed lab-frame cycle
+    kernels: 128 while the 4L+9 lanes fit, else 256 (L_loc = 30). Copy of
+    ``dtc_tpu/ops/pallas_cycle_hi_general.py::general_hi_width``."""
+    return WIDTH if 4 * L + 9 <= WIDTH else WIDE
+
+
+def _check_width(L: int, width: int) -> None:
+    if flag_base(L) + LANE_COUNT >= width:
+        raise ValueError(f"L={L} leaves no room for the flag lanes in "
+                         f"{width} lanes")
 
 
 def slot_u8(theta_x, theta_y, inverse: bool = False) -> torch.Tensor:
@@ -63,14 +72,16 @@ def _noise_masks(uniforms, p, L, shape, dev):
 
 
 def general_forward_rows(uniforms, hs, phis, angles, *, L: int, T: int,
-                         K: int, p: float, batch=None) -> torch.Tensor:
-    """Per-step rows of the forward kernel, (..., T*K, 128) f32.
+                         K: int, p: float, batch=None,
+                         width: int = WIDTH) -> torch.Tensor:
+    """Per-step rows of the forward kernel, (..., T*K, width) f32.
 
     uniforms (..., T*K, L) f32, drawn per trajectory as the reference's
     ``uniform(key, (T*K, L))``; hs (..., L) and phis (..., L-1) broadcast
     over the leading dimensions; angles (T, K, 2). With p == 0 the uniforms
-    are unused (may be None) and ``batch`` gives the leading shape."""
-    _check_width(L)
+    are unused (may be None) and ``batch`` gives the leading shape; width
+    128 (K4, K10 on one card, K8) or ``general_hi_width(L)``."""
+    _check_width(L, width)
     dev = hs.device
     S = T * K
     lead = uniforms.shape[:-2] if uniforms is not None else tuple(batch)
@@ -82,7 +93,7 @@ def general_forward_rows(uniforms, hs, phis, angles, *, L: int, T: int,
     final = torch.zeros((T, K, 1), dtype=torch.float32, device=dev)
     final[:, K - 1] = 1.0
     final = final.reshape(S, 1)
-    flags = torch.zeros((S, WIDTH - flag_base(L)), dtype=torch.float32,
+    flags = torch.zeros((S, width - flag_base(L)), dtype=torch.float32,
                         device=dev)
     flags[:, LANE_MPOS] = mpos.reshape(S)
     flags[:, LANE_U8:LANE_U8 + 8] = u8
@@ -96,20 +107,21 @@ def general_forward_rows(uniforms, hs, phis, angles, *, L: int, T: int,
 
 
 def general_echo_rows(uniforms, ts, hs, phis, angles, *, L: int, T: int,
-                      K: int, p: float, batch=None) -> torch.Tensor:
+                      K: int, p: float, batch=None,
+                      width: int = WIDTH) -> torch.Tensor:
     """Interleaved (pre, post) step rows for every (trajectory, t) pair,
-    (..., n_ts, 4T*K, 128) f32.
+    (..., n_ts, 4T*K, width) f32.
 
     uniforms (..., 2T*K, L) f32, one block per trajectory shared by every
     t, as the reference's ``uniform(key, (2T, K, L))``; codes past step 2t
-    are zeroed. ts (n_ts,) int; hs, phis, angles and ``batch`` as in
-    ``general_forward_rows``. Step k of a pair is forward cycle k (slots in
-    order) while k < t, then inverse cycle 2t-1-k (slots reversed, daggered
-    unitaries); each slot j is one row pair. The pre row carries the kick
+    are zeroed. ts (n_ts,) int; hs, phis, angles, ``batch`` and ``width``
+    as in ``general_forward_rows``. Step k of a pair is forward cycle k
+    (slots in order) while k < t, then inverse cycle 2t-1-k (slots
+    reversed, daggered unitaries); each slot j is one row pair. The pre row carries the kick
     (unitary and X-mask) and, on the first slot of an inverse cycle, the
     inverse diagonal D0* (-h, -phi); the post row the event's Z bits and, on
     the final slot of a forward cycle, D0 (h, phi)."""
-    _check_width(L)
+    _check_width(L, width)
     dev = hs.device
     T2 = 2 * T
     ts = torch.as_tensor(ts, dtype=torch.int64, device=dev)
@@ -133,7 +145,7 @@ def general_echo_rows(uniforms, ts, hs, phis, angles, *, L: int, T: int,
     u8f = slot_u8(angles[..., 0], angles[..., 1])[ci]     # (n_ts, 2T, K, 8)
     u8i = slot_u8(angles[..., 0], angles[..., 1], inverse=True)[ci]
     slot_u = torch.where(fwd[..., None, None], u8f, u8i.flip(-2))
-    flags = torch.zeros((n_ts, T2, K, WIDTH - flag_base(L)),
+    flags = torch.zeros((n_ts, T2, K, width - flag_base(L)),
                         dtype=torch.float32, device=dev)
     flags[..., LANE_U8:LANE_U8 + 8] = slot_u
     first = (torch.arange(K, device=dev) == 0).to(torch.float32)
@@ -145,8 +157,8 @@ def general_echo_rows(uniforms, ts, hs, phis, angles, *, L: int, T: int,
     shape = torch.broadcast_shapes((*lead, n_ts, T2, K), h.shape[:-1])
     zl = torch.zeros((*shape, L), dtype=torch.float32, device=dev)
 
-    def full(x, width):
-        return x.expand(*shape, width)
+    def full(x, lanes):
+        return x.expand(*shape, lanes)
 
     pre = torch.cat([zl, full(_bit_lanes(xm, L), L),
                      full(-pre_d[..., None] * h, L),
@@ -158,6 +170,6 @@ def general_echo_rows(uniforms, ts, hs, phis, angles, *, L: int, T: int,
                       torch.zeros((*shape, flags.shape[-1]),
                                   dtype=torch.float32, device=dev)], -1)
     tiles = torch.stack([pre, post], dim=-2).reshape(*shape[:-2],
-                                                     2 * T2 * K, WIDTH)
+                                                     2 * T2 * K, width)
     tiles[..., 0, flag_base(L) + LANE_COUNT] = (2 * K * ts).to(torch.float32)
     return tiles.contiguous()

@@ -7,10 +7,12 @@ Port of ``dtc_tpu/parallel/sharded.py``: the global-bit algebra
 ``_global_cycle_head``, ``_check_constant_x``,
 ``_global_general_slot_kick``), the sigma-frame engines
 ``make_sharded_autocorr_forward`` and ``make_sharded_echo``, and the
-cycle-kernel engines at 17 <= L_loc <= 23:
-``make_sharded_autocorr_forward_kernel`` (K8a), ``make_sharded_echo_kernel``
-(K8a/K8b), ``make_sharded_autocorr_forward_general`` (K8c) and
-``make_sharded_echo_general`` (K8c/K8d).
+cycle-kernel engines at 17 <= L_loc <= 30:
+``make_sharded_autocorr_forward_kernel`` (K8a; K9a from
+``cycle_hi.MIN_ROUTE_L`` = 24 on), ``make_sharded_echo_kernel`` (K8a/K8b;
+K9a/K9b), ``make_sharded_autocorr_forward_general`` (K8c; K10a
+shard-local) and ``make_sharded_echo_general`` (K8c/K8d; K10a/K10b
+shard-local).
 
 Layout, as in the reference: the 2^L statevector is split along its top
 k = log2(n_amp) index bits; shard a holds global indices [a M, (a+1) M),
@@ -35,12 +37,18 @@ state's real type on the device of shard (0, 0).
 The cycle-kernel engines launch one kernel per shard and cycle: the shards
 of a trajectory group are separate tensors that may sit on different
 cards, and the local rows are the same on every shard, so a launch holds
-the group's trajectories of one shard. The shard-bit kicks, the global
-diagonal and the boundary bond phi[L_loc-1] are torch tensor ops between
-the launches. Two paths of the reference's engines are not ported here:
-24 <= L_loc <= 30 (its K9 and K10 shard-local kernels) and device noise
-(``device=``); both raise NotImplementedError naming their ROADMAP.md
-item.
+the group's trajectories of one shard, in runs of at most
+``_launch_traj(mesh, L_loc)`` trajectories so that the shard states of a
+run that share one device stay within ``engine.KERNEL_STATE_BYTES`` through
+the out-of-place exchange (one trajectory at L_loc = 29 and 30 with a card
+a shard). The per-shard kernels are K8 (``ops/cycle.py``,
+L_loc < ``cycle_hi.MIN_ROUTE_L``) and the streamed family (``ops/cycle_hi.py``,
+from it up to 30), as the reference switches at its
+``DTC_TPU_SHARDED_HI_MIN_LB``; x rows are ``forward_width(L_loc)`` lanes
+wide and lab-frame rows ``general_hi_width(L_loc)``. The shard-bit kicks,
+the global diagonal and the boundary bond phi[L_loc-1] are torch tensor
+ops between the launches. Device noise (``device=``) is not ported here
+and raises NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -62,23 +70,22 @@ from dtc_tpu_torch.core.sigma_evolve import (
     xor_scan,
 )
 from dtc_tpu_torch.core.statevector import basis_index
+from dtc_tpu_torch.experiments.engine import KERNEL_STATE_BYTES
 from dtc_tpu_torch.models.drives import slot_unitary, slot_unitary_inverse
-from dtc_tpu_torch.ops import cycle
-from dtc_tpu_torch.ops.diag import z_sign_mask, zz_z_phase_mask
+from dtc_tpu_torch.ops import cycle, cycle_hi
+from dtc_tpu_torch.ops.diag import zz_z_phase_mask
 from dtc_tpu_torch.ops.kick import kron, kron_power
-from dtc_tpu_torch.ops.params import pack_cycle_params_compact
+from dtc_tpu_torch.ops.params import forward_width, pack_cycle_params_compact
 from dtc_tpu_torch.ops.params_general import (
     general_echo_rows,
     general_forward_rows,
+    general_hi_width,
 )
 from dtc_tpu_torch.ops.paulis import _i_power, _parity
 from dtc_tpu_torch.parallel.mesh import amp_bits
 
 _HALF_PI = math.pi / 2
 
-NOT_PORTED_HI = ("cycle-kernel sharding at 24 <= L_loc is not ported yet: "
-                 "ROADMAP.md queue 1, sharding at 24 <= L_loc (K9, K10 "
-                 "shard-local)")
 NOT_PORTED_DEVICE = ("device-noise rows on the sharded engines are not "
                      "ported yet: ROADMAP.md queue 1, device noise")
 
@@ -256,15 +263,16 @@ def _global_diag(st, zm_t, sig_t, hs, phis, aidx, *, L, local_bits,
                  sign=1.0):
     """Global diagonal factors of one cycle on shard ``aidx``: the
     per-trajectory scalar phase and the boundary bond's split on the local
-    top bit (the upper half of the flat shard). ``sign=-1`` daggers it."""
+    top bit (the upper half of the flat shard), in place on ``st`` (the
+    cycle-kernel engines own their shards). ``sign=-1`` daggers it."""
     th_sc, th_bnd = _tail_phase_angles(zm_t, sig_t, hs, phis, aidx, L=L,
                                        local_bits=local_bits)
     ones = torch.ones_like(th_sc)
     f = torch.stack([torch.polar(ones, sign * (th_sc + th_bnd)),
                      torch.polar(ones, sign * (th_sc - th_bnd))], -1)
     n, M = st.shape
-    return (st.reshape(n, 2, M >> 1) * f.to(st.device)[:, :, None]).reshape(
-        n, M)
+    st.view(n, 2, M >> 1).mul_(f.to(st.device)[:, :, None])
+    return st
 
 
 def _global_diag_inv(st, zm_t, sig_t, hs, phis, aidx, *, L, local_bits):
@@ -277,13 +285,14 @@ def _global_diag_inv(st, zm_t, sig_t, hs, phis, aidx, *, L, local_bits):
 
 def _global_shard_kicks(mesh, shards, theta):
     """RX(theta) on every shard-id bit: pair exchange + combine per bit,
-    new = cos(theta/2) mine - i sin(theta/2) partner. The bits' kicks
-    commute, so their order is free."""
+    new = cos(theta/2) mine - i sin(theta/2) partner, one new tensor per
+    shard (the old shards stay whole until every new one is built). The
+    bits' kicks commute, so their order is free."""
     c = float(torch.tensor(math.cos(theta / 2), dtype=torch.float32))
     s = float(torch.tensor(math.sin(theta / 2), dtype=torch.float32))
     for gb in range(amp_bits(mesh)):
         partners = mesh.xor_partners(shards, gb)
-        shards = [st * c + pt * complex(0.0, -s)
+        shards = [st.mul(c).add_(pt, alpha=complex(0.0, -s))
                   for st, pt in zip(shards, partners)]
     return shards
 
@@ -356,7 +365,7 @@ def _global_general_slot_kick(mesh, shards, tx, ty, sig_w, zmp_w, *,
                      else (sy * cx, -cy * sx))
             dc = torch.complex(*d).to(st.device)[:, None]
             oc = torch.complex(*o).to(st.device)[:, None]
-            out.append(dc * st + oc * pt)
+            out.append(st.mul(dc).addcmul_(pt, oc))
         shards = out
     return shards
 
@@ -371,9 +380,9 @@ def _ancilla(p, ancilla_factor):
     return (1.0 - p) ** 6 if p > 0 else 1.0
 
 
-def _traj_groups(mesh, uniforms, n_traj, p):
-    """[(t, uniforms of group t or None, trajectories c)]: the trajectories
-    split over 'traj' in order."""
+def _traj_groups(mesh, uniforms, n_traj, p, chunk=None):
+    """[(t, uniforms of the run or None, trajectories c)]: the trajectories
+    split over 'traj' in order, each group in runs of at most ``chunk``."""
     if uniforms is None and p > 0.0:
         raise ValueError("a noisy run (p > 0) needs its block of uniforms")
     n = uniforms.shape[0] if uniforms is not None else n_traj
@@ -382,8 +391,14 @@ def _traj_groups(mesh, uniforms, n_traj, p):
         raise ValueError(f"{n} trajectories do not split over the mesh's "
                          f"{groups} traj groups")
     c = n // groups
-    return [(t, None if uniforms is None else uniforms[t * c:(t + 1) * c], c)
-            for t in range(groups)]
+    step = chunk or c
+    out = []
+    for t in range(groups):
+        for lo in range(t * c, (t + 1) * c, step):
+            run = min(step, (t + 1) * c - lo)
+            out.append((t, None if uniforms is None
+                        else uniforms[lo:lo + run], run))
+    return out
 
 
 def _basis_shards(mesh, t, c, L, local_bits, b0, dtype):
@@ -398,17 +413,20 @@ def _basis_shards(mesh, t, c, L, local_bits, b0, dtype):
     return out
 
 
-def _zq_shards(mesh, t, q, L, local_bits):
-    M = 1 << local_bits
-    return [z_sign_mask(q, L, offset=a * M, size=M,
-                        device=mesh.device(t, a))
-            for a in range(mesh.shape["amp"])]
-
-
-def _measure(mesh, shards, zqs):
-    """sum_a sum |psi|^2 z_q over the shards, per trajectory (n,)."""
-    return mesh.psum([(st.real ** 2 + st.imag ** 2) @ zq.to(st.real.dtype)
-                      for st, zq in zip(shards, zqs)])
+def _measure(mesh, shards, q, local_bits):
+    """sum_a sum |psi|^2 z_q over the shards, per trajectory (n,): for a
+    shard-local q the halves of |psi|^2 with bit q at 0 and at 1; for a
+    shard-id bit q each shard's one sign."""
+    parts = []
+    for a, st in enumerate(shards):
+        prob = st.real.square().addcmul_(st.imag, st.imag)
+        if q < local_bits:
+            prob = prob.view(st.shape[0], -1, 2, 1 << q)
+            parts.append(prob[:, :, 0].sum((1, 2)) - prob[:, :, 1].sum((1, 2)))
+        else:
+            sign = 1 - 2 * (((a << local_bits) >> q) & 1)
+            parts.append(sign * prob.sum(1))
+    return mesh.psum(parts)
 
 
 def _sign(mask, q):
@@ -420,10 +438,9 @@ def _prev(words):
     return torch.cat([torch.zeros_like(words[..., :1]), words[..., :-1]], -1)
 
 
-def _kernel_geometry(mesh, L, q, K=None):
+def _kernel_geometry(mesh, L, q):
     """L_loc after the cycle kernels' checks: ValueError outside
-    17 <= L_loc <= 30 or for q >= L_loc (the reference's), and
-    NotImplementedError at 24 <= L_loc (its K9/K10 shard-local kernels)."""
+    17 <= L_loc <= 30 or for q >= L_loc (the reference's)."""
     local_bits = L - amp_bits(mesh)
     n_amp = mesh.shape["amp"]
     if not (17 <= local_bits <= 30):
@@ -434,9 +451,25 @@ def _kernel_geometry(mesh, L, q, K=None):
         raise ValueError(
             "cycle-kernel sharding requires a shard-local probe qubit "
             f"q < L - log2(n_amp) = {local_bits} (got q={q})")
-    if local_bits > cycle.MAX_L:
-        raise NotImplementedError(NOT_PORTED_HI)
     return local_bits
+
+
+def use_hi(local_bits) -> bool:
+    """The streamed per-shard kernels (``ops/cycle_hi.py``) from
+    ``cycle_hi.MIN_ROUTE_L`` (at least 22) on, K8 below."""
+    return local_bits >= max(cycle_hi.MIN_L, cycle_hi.MIN_ROUTE_L)
+
+
+def _launch_traj(mesh, local_bits) -> int:
+    """Trajectories of one kernel run: the states of the run's shards on
+    the device that holds most of them, doubled for the out-of-place
+    exchange, within KERNEL_STATE_BYTES (one at L_loc >= 29 with a card a
+    shard)."""
+    per_device = max(
+        sum(mesh.device(t, a) == mesh.device(t, b)
+            for b in range(mesh.shape["amp"]))
+        for t in range(mesh.shape["traj"]) for a in range(mesh.shape["amp"]))
+    return max(1, KERNEL_STATE_BYTES // (16 * per_device << local_bits))
 
 
 # ---------------------------------------------------------------------------
@@ -473,7 +506,6 @@ def make_sharded_autocorr_forward(mesh, *, L, T, K, p, q,
                                    phis.to(mesh.device(t, a)), L,
                                    offset=a * M, size=M, dtype=dtype)
                    for a in range(n_amp)]
-            zqs = _zq_shards(mesh, t, q, L, local_bits)
             exp_h = torch.exp(1j * hs.to(dev0, torch.float32)).to(
                 dtype).expand(c, L)
             exp_p = torch.exp(1j * phis.to(dev0, torch.float32)).to(
@@ -492,7 +524,7 @@ def make_sharded_autocorr_forward(mesh, *, L, T, K, p, q,
             pend = (zero, zero)
             out = []
             for tt in range(T):
-                part = _measure(mesh, shards, zqs).to(dev0)
+                part = _measure(mesh, shards, q, local_bits).to(dev0)
                 out.append(af * s0 * _sign(sig_start[:, tt], q) * part)
                 if tt == T - 1:
                     break  # the last cycle's state is never measured
@@ -534,7 +566,6 @@ def make_sharded_echo(mesh, *, L, T, K, p, q, initial_state="vacuum",
                                    phis.to(mesh.device(t, a)), L,
                                    offset=a * M, size=M, dtype=dtype)
                    for a in range(n_amp)]
-            zqs = _zq_shards(mesh, t, q, L, local_bits)
             exp_h = torch.exp(1j * hs.to(dev0, torch.float32)).to(
                 dtype).expand(c, L)
             exp_p = torch.exp(1j * phis.to(dev0, torch.float32)).to(
@@ -579,7 +610,7 @@ def make_sharded_echo(mesh, *, L, T, K, p, q, initial_state="vacuum",
                     shards = [s * d for s, d in zip(shards, d0s)]
                 pend_zm = zm[:, k, K - 1]
                 pend_sig = sig_after[:, k] if fwd else zero
-            part = _measure(mesh, shards, zqs).to(dev0)
+            part = _measure(mesh, shards, q, local_bits).to(dev0)
             e = af * s0 * _sign(sig_after[:, -1], q) * part
             total = total + e.sum()
             n += c
@@ -589,21 +620,25 @@ def make_sharded_echo(mesh, *, L, T, K, p, q, initial_state="vacuum",
 
 
 # ---------------------------------------------------------------------------
-# cycle-kernel engines, 17 <= L_loc <= 23
+# cycle-kernel engines, 17 <= L_loc <= 30
 
 
 def make_sharded_autocorr_forward_kernel(mesh, *, L, T, p, q,
                                          initial_state="vacuum",
                                          ancilla_factor=None):
     """Cycle-kernel sharded forward autocorrelator of a constant x drive:
-    the shard-local part of every cycle is one K8a launch per shard (kick,
-    noise-Z, sigma-conjugated D0 and the A(t) partial), the shard-bit kicks
-    and the global diagonal torch ops after it.
+    the shard-local part of every cycle is one K8a (K9a from
+    ``cycle_hi.MIN_ROUTE_L`` on) launch per shard (kick, noise-Z,
+    sigma-conjugated D0 and the A(t) partial), the shard-bit kicks and the
+    global diagonal torch ops after it.
 
     Same semantics as ``make_sharded_autocorr_forward`` (K=1): fn(angles,
     hs, phis, uniforms (n, T, L) or None, n_traj=None) -> A (T,). Requires a
-    constant x-only schedule, 17 <= L_loc <= 23 and q < L_loc."""
+    constant x-only schedule, 17 <= L_loc <= 30 and q < L_loc."""
     local_bits = _kernel_geometry(mesh, L, q)
+    forward_apply = (cycle_hi.hi_cycle_forward_apply if use_hi(local_bits)
+                     else cycle.cycle_forward_apply)
+    width = forward_width(local_bits)
     k_bits = L - local_bits
     af = _ancilla(p, ancilla_factor)
     b0 = basis_index(L, initial_state)
@@ -614,7 +649,8 @@ def make_sharded_autocorr_forward_kernel(mesh, *, L, T, p, q,
         theta = _check_constant_x(angles)
         total = 0.0
         n = 0
-        for t, u, c in _traj_groups(mesh, uniforms, n_traj, p):
+        for t, u, c in _traj_groups(mesh, uniforms, n_traj, p,
+                                    _launch_traj(mesh, local_bits)):
             dev0 = mesh.device(t, 0)
             h_loc = hs[:local_bits].to(dev0)
             ph_loc = phis[:local_bits - 1].to(dev0)
@@ -624,15 +660,15 @@ def make_sharded_autocorr_forward_kernel(mesh, *, L, T, p, q,
                 zm = csum = torch.zeros((c, T), dtype=torch.int64,
                                         device=dev0)
             rows = pack_cycle_params_compact(zm, csum, h_loc, ph_loc,
-                                             local_bits)           # (c,T,128)
+                                             local_bits, width)  # (c,T,width)
             rows = rows.transpose(0, 1).contiguous()
             shards = _basis_shards(mesh, t, c, L, local_bits, b0,
                                    torch.complex64)
             frames = []
             for tt in range(T - 1):  # A(0) is analytic
                 parts = []
-                for a, st in enumerate(shards):
-                    _, part = cycle.cycle_forward_apply(
+                for st in shards:
+                    _, part = forward_apply(
                         st, rows[tt].to(st.device), theta, L=local_bits, q=q)
                     parts.append(part)
                 if k_bits:
@@ -655,15 +691,20 @@ def make_sharded_autocorr_forward_kernel(mesh, *, L, T, p, q,
 def make_sharded_echo_kernel(mesh, *, L, T, p, q, initial_state="vacuum",
                              ancilla_factor=None):
     """Cycle-kernel sharded echo A0(t) of a constant x drive: forward steps
-    one K8a launch per shard then the global tail; at the turnaround the
-    imaginary part is negated once, after which every inverse step is the
-    global head (diagonal, then shard-bit kicks, with the previous event's
-    Z word, zeroed at step t) then one K8b launch per shard, in reverse time
-    order. Only the 2t active steps run.
+    one K8a (K9a) launch per shard then the global tail; at the turnaround
+    the imaginary part is negated once, after which every inverse step is
+    the global head (diagonal, then shard-bit kicks, with the previous
+    event's Z word, zeroed at step t) then one K8b (K9b) launch per shard,
+    in reverse time order. Only the 2t active steps run.
 
     Same semantics as ``make_sharded_echo`` (K=1): fn(angles, hs, phis,
     uniforms (n, 2T, 1, L) or None, t_value, n_traj=None) -> scalar."""
     local_bits = _kernel_geometry(mesh, L, q)
+    forward_apply, inverse_apply = (
+        (cycle_hi.hi_cycle_forward_apply, cycle_hi.hi_cycle_inverse_apply)
+        if use_hi(local_bits)
+        else (cycle.cycle_forward_apply, cycle.cycle_inverse_apply))
+    width = forward_width(local_bits)
     k_bits = L - local_bits
     af = _ancilla(p, ancilla_factor)
     b0 = basis_index(L, initial_state)
@@ -676,7 +717,8 @@ def make_sharded_echo_kernel(mesh, *, L, T, p, q, initial_state="vacuum",
         t_value = int(t_value)
         total = 0.0
         n = 0
-        for t, u, c in _traj_groups(mesh, uniforms, n_traj, p):
+        for t, u, c in _traj_groups(mesh, uniforms, n_traj, p,
+                                    _launch_traj(mesh, local_bits)):
             dev0 = mesh.device(t, 0)
             h_loc = hs[:local_bits].to(dev0)
             ph_loc = phis[:local_bits - 1].to(dev0)
@@ -692,34 +734,33 @@ def make_sharded_echo_kernel(mesh, *, L, T, p, q, initial_state="vacuum",
             sig_b = _prev(csum)
             zm_prev = torch.where(step == t_value, 0, _prev(zm))
             rows_f = pack_cycle_params_compact(zm, csum, h_loc, ph_loc,
-                                               local_bits)
+                                               local_bits, width)
             rows_i = pack_cycle_params_compact(zm_prev, sig_b, h_loc, ph_loc,
-                                               local_bits)
-            rows_f = rows_f.transpose(0, 1).contiguous()          # (2T,c,128)
+                                               local_bits, width)
+            rows_f = rows_f.transpose(0, 1).contiguous()        # (2T,c,width)
             rows_i = rows_i.transpose(0, 1).contiguous()
             shards = _basis_shards(mesh, t, c, L, local_bits, b0,
                                    torch.complex64)
             for k in range(2 * t_value):
                 if k < t_value:
                     for st in shards:
-                        cycle.cycle_forward_apply(st, rows_f[k].to(st.device),
-                                                  theta, L=local_bits, q=q)
+                        forward_apply(st, rows_f[k].to(st.device), theta,
+                                      L=local_bits, q=q)
                     if k_bits:
                         shards = _global_cycle_tail(mesh, shards, zm[:, k],
                                                     csum[:, k], hs, phis,
                                                     theta, **gkw)
                     continue
                 if k == t_value:
-                    shards = [s.conj_physical() for s in shards]
+                    shards = [s.conj_physical_() for s in shards]
                 if k_bits:
                     shards = _global_cycle_head(mesh, shards, zm_prev[:, k],
                                                 sig_b[:, k], hs, phis, theta,
                                                 **gkw)
                 for st in shards:
-                    cycle.cycle_inverse_apply(st, rows_i[k].to(st.device),
-                                              theta, L=local_bits)
-            zqs = _zq_shards(mesh, t, q, L, local_bits)
-            part = _measure(mesh, shards, zqs).to(dev0)
+                    inverse_apply(st, rows_i[k].to(st.device), theta,
+                                  L=local_bits)
+            part = _measure(mesh, shards, q, local_bits).to(dev0)
             e = af * s0 * _sign(csum[:, -1], q) * part
             total = total + e.sum()
             n += c
@@ -742,17 +783,22 @@ def make_sharded_autocorr_forward_general(mesh, *, L, T, K, p, q,
     """Lab-frame cycle-kernel sharded forward autocorrelator for every
     drive and per-cycle schedule: the shard-local work of a cycle (K slot
     kicks with X-mask row folds, the local diagonal, the partial) is one
-    K8c launch per shard; the shard-id bits keep an XOR noise frame, so the
+    K8c (K10a, shard-local, from ``cycle_hi.MIN_ROUTE_L`` on) launch per
+    shard; the shard-id bits keep an XOR noise frame, so the
     global slot kicks are sigma-conjugated per trajectory and the cycle's
     global diagonal is evaluated at the cycle-end frame with the sig words
     masked to shard bits (local bits are lab-frame).
 
     Same semantics as ``make_sharded_autocorr_forward``: fn(angles, hs,
     phis, uniforms (n, T*K, L) or None, n_traj=None) -> A (T,). Requires
-    17 <= L_loc <= 23 and q < L_loc."""
+    17 <= L_loc <= 30 and q < L_loc."""
     if device is not None:
         raise NotImplementedError(NOT_PORTED_DEVICE)
     local_bits = _kernel_geometry(mesh, L, q)
+    forward_apply = (cycle_hi.general_hi_cycle_forward_apply
+                     if use_hi(local_bits)
+                     else cycle.general_cycle_forward_apply)
+    width = general_hi_width(local_bits)
     k_bits = L - local_bits
     af = _ancilla(p, ancilla_factor)
     b0 = basis_index(L, initial_state)
@@ -765,7 +811,8 @@ def make_sharded_autocorr_forward_general(mesh, *, L, T, K, p, q,
         host = angles.detach().cpu().tolist()
         total = 0.0
         n = 0
-        for t, u, c in _traj_groups(mesh, uniforms, n_traj, p):
+        for t, u, c in _traj_groups(mesh, uniforms, n_traj, p,
+                                    _launch_traj(mesh, local_bits)):
             dev0 = mesh.device(t, 0)
             ang = angles.to(dev0)
             xm, zm = _general_words(u, p, L, (c, S), dev0)         # (c, S)
@@ -780,7 +827,7 @@ def make_sharded_autocorr_forward_general(mesh, *, L, T, K, p, q,
             rows = general_forward_rows(
                 None if u is None else u.to(dev0)[..., :local_bits],
                 hs[:local_bits].to(dev0), phis[:local_bits - 1].to(dev0),
-                ang, L=local_bits, T=T, K=K, p=p, batch=(c,))
+                ang, L=local_bits, T=T, K=K, p=p, batch=(c,), width=width)
             rows = rows.reshape(c, T, K, -1).transpose(0, 1).contiguous()
             shards = _basis_shards(mesh, t, c, L, local_bits, b0,
                                    torch.complex64)
@@ -788,8 +835,8 @@ def make_sharded_autocorr_forward_general(mesh, *, L, T, K, p, q,
             for tt in range(T - 1):  # A(0) is analytic
                 parts = []
                 for st in shards:
-                    _, part = cycle.general_cycle_forward_apply(
-                        st, rows[tt].to(st.device), L=local_bits, K=K, q=q)
+                    _, part = forward_apply(st, rows[tt].to(st.device),
+                                            L=local_bits, K=K, q=q)
                     parts.append(part)
                 if k_bits:
                     for k in range(K):
@@ -814,21 +861,28 @@ def make_sharded_autocorr_forward_general(mesh, *, L, T, K, p, q,
 def make_sharded_echo_general(mesh, *, L, T, K, p, q, initial_state="vacuum",
                               ancilla_factor=None, device=None):
     """Lab-frame cycle-kernel sharded echo A0(t) for every drive: forward
-    steps are the forward engine's cycle (one K8c launch per shard, the
-    sigma-conjugated global slot kicks, the global diagonal); inverse steps
+    steps are the forward engine's cycle (one K8c, or K10a shard-local,
+    launch per shard, the sigma-conjugated global slot kicks, the global
+    diagonal); inverse steps
     have no conjugation trick (Y slots are not symmetric): the daggered
     global diagonal (at the step's pre-event sigma with the previous
     event's Z word, zeroed at the turnaround), the daggered global slot
-    kicks in reversed slot order, then one K8d launch per shard with K4's
-    echo rows of the inverse step (daggered slot unitaries in reversed
-    order, the D0^dag lead on the first slot).
+    kicks in reversed slot order, then one K8d (K10b shard-local) launch
+    per shard with K4's echo rows of the inverse step (daggered slot
+    unitaries in reversed order, the D0^dag lead on the first slot).
 
     Same semantics as ``make_sharded_echo``: fn(angles, hs, phis, uniforms
     (n, 2T, K, L) or None, t_value, n_traj=None) -> scalar. Requires
-    17 <= L_loc <= 23 and q < L_loc."""
+    17 <= L_loc <= 30 and q < L_loc."""
     if device is not None:
         raise NotImplementedError(NOT_PORTED_DEVICE)
     local_bits = _kernel_geometry(mesh, L, q)
+    forward_apply, inverse_apply = (
+        (cycle_hi.general_hi_cycle_forward_apply,
+         cycle_hi.general_hi_cycle_inverse_apply) if use_hi(local_bits)
+        else (cycle.general_cycle_forward_apply,
+              cycle.general_cycle_inverse_apply))
+    width = general_hi_width(local_bits)
     k_bits = L - local_bits
     af = _ancilla(p, ancilla_factor)
     b0 = basis_index(L, initial_state)
@@ -842,7 +896,8 @@ def make_sharded_echo_general(mesh, *, L, T, K, p, q, initial_state="vacuum",
         host = angles.detach().cpu().tolist()
         total = 0.0
         n = 0
-        for t, u, c in _traj_groups(mesh, uniforms, n_traj, p):
+        for t, u, c in _traj_groups(mesh, uniforms, n_traj, p,
+                                    _launch_traj(mesh, local_bits)):
             dev0 = mesh.device(t, 0)
             ang = angles.to(dev0)
             u = None if u is None else u.to(dev0).reshape(c, T2 * K, L)
@@ -864,20 +919,19 @@ def make_sharded_echo_general(mesh, *, L, T, K, p, q, initial_state="vacuum",
             u_loc = None if u is None else u[..., :local_bits]
             rows_f = general_forward_rows(
                 None if u is None else u_loc[:, :T * K], h_loc, ph_loc, ang,
-                L=local_bits, T=T, K=K, p=p, batch=(c,))
+                L=local_bits, T=T, K=K, p=p, batch=(c,), width=width)
             rows_f = rows_f.reshape(c, T, K, -1).transpose(0, 1).contiguous()
             tiles = general_echo_rows(u_loc, [t_value], h_loc, ph_loc, ang,
                                       L=local_bits, T=T, K=K, p=p,
-                                      batch=(c,))
+                                      batch=(c,), width=width)
             tiles = tiles.reshape(c, T2, K, 2, -1).transpose(0, 1).contiguous()
             shards = _basis_shards(mesh, t, c, L, local_bits, b0,
                                    torch.complex64)
             for k in range(2 * t_value):
                 if k < t_value:
                     for st in shards:
-                        cycle.general_cycle_forward_apply(
-                            st, rows_f[k].to(st.device), L=local_bits, K=K,
-                            q=q)
+                        forward_apply(st, rows_f[k].to(st.device),
+                                      L=local_bits, K=K, q=q)
                     if k_bits:
                         # slot 0 folds no Z word: the previous step's final
                         # event is in that step's global diagonal
@@ -905,10 +959,9 @@ def make_sharded_echo_general(mesh, *, L, T, K, p, q, initial_state="vacuum",
                             zero if j == 0 else zm_prev[:, k, j],
                             local_bits=local_bits, dagger=True)
                 for st in shards:
-                    cycle.general_cycle_inverse_apply(
-                        st, tiles[k].to(st.device), L=local_bits, K=K)
-            zqs = _zq_shards(mesh, t, q, L, local_bits)
-            part = _measure(mesh, shards, zqs).to(dev0)
+                    inverse_apply(st, tiles[k].to(st.device), L=local_bits,
+                                  K=K)
+            part = _measure(mesh, shards, q, local_bits).to(dev0)
             # q is a lab-frame local bit: no sigma measurement sign
             total = total + (af * s0 * part).sum()
             n += c

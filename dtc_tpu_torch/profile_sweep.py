@@ -65,15 +65,16 @@ P, G, INST = 0.05, 0.97, 2
 
 def short_name(name: str) -> str:
     """A kernel's name without its namespace prefix, template arguments and
-    parameter list: ``void ns::k<...>(float*, ...)`` -> ``ns::k``; a single
+    parameter list: ``void ns::k<...>(float*, ...)`` -> ``ns::k``; a leading
     bool template argument stays (``k<true>``: the port's passes that
-    measure, against ``k<false>``)."""
+    measure, against ``k<false>``; the lab-frame passes' row width after it
+    goes)."""
     name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
     cut = [i for i in (name.find("<"), name.find("(")) if i > 0]
     if not cut:
         return name
-    flag = re.match(r"<(true|false)>", name[min(cut):])
-    return name[:min(cut)].strip() + (flag.group(0) if flag else "")
+    flag = re.match(r"<(true|false)[,>]", name[min(cut):])
+    return name[:min(cut)].strip() + (f"<{flag.group(1)}>" if flag else "")
 
 
 def busy_summary(events, top: int = 6) -> dict:

@@ -1,0 +1,325 @@
+"""The plain versions of the per-shard streamed cycle kernels K9a/K9b and
+K10's shard-local forms (``ops/cycle_hi.py``) against the reference's Pallas
+kernels (``dtc_tpu/ops/pallas_cycle_hi.py``,
+``dtc_tpu/ops/pallas_cycle_hi_general.py``) in interpret mode, and against
+the port's own K8 plain versions (``ops/cycle.py``) on the same rows.
+
+One cycle at L_loc = 22 (and 23 against K8) on random unit states: the
+reference's planar (n, 2, TOP, 16384) f32 state is the port's flat
+(n, 2^L) complex64 state, index by index. Probes cover the bands where a
+streamed pass sits: q = 0 (pass lo), 11 = L//2, 14 and 16 (the strided
+bits) and 21 (the top bit). The wide rows (256 lanes: x forward rows from
+L_loc = 27, lab-frame rows at 30) are held bit for bit against the
+reference's. Tolerances: amplitudes of a unit state at 2^22 are about
+5e-4, and f32 sums of a cycle leave them within 2e-6 (TOL_AMP); partial
+sums within 1e-5 (TOL_SUM).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dtc_tpu.core.sigma_evolve import _codes_from_uniform as j_codes
+from dtc_tpu.core.sigma_evolve import _masks_from_codes as j_masks
+from dtc_tpu.io.disorder import generate_disorder
+from dtc_tpu.ops import pallas_cycle_hi as jh
+from dtc_tpu.ops import pallas_cycle_hi_general as jhg
+from dtc_tpu.ops.pallas_noise import pack_cycle_params_compact as j_pack
+from dtc_tpu.ops.pallas_resident import _C
+from dtc_tpu.ops.pallas_resident_general import _LANE_U8, _bits_row, slot_u8
+from dtc_tpu.ops.pallas_streamed import _rx_kron
+from dtc_tpu_torch.core.sigma_evolve import presample_noise
+from dtc_tpu_torch.models.drives import build_kick_schedule
+from dtc_tpu_torch.ops import cycle
+from dtc_tpu_torch.ops import cycle_hi as ch
+from dtc_tpu_torch.ops import resident_blocked as rb
+from dtc_tpu_torch.ops import streamed as sm
+from dtc_tpu_torch.ops.params import (
+    WIDE,
+    echo_width,
+    forward_rows,
+    forward_width,
+    pack_cycle_params_compact,
+)
+from dtc_tpu_torch.ops.params_general import (
+    LANE_COUNT,
+    LANE_MPOS,
+    flag_base,
+    general_echo_rows,
+    general_forward_rows,
+    general_hi_width,
+)
+
+torch.set_num_threads(2)
+L = 22
+TOL_AMP, TOL_SUM = 2e-6, 1e-5
+THETA = float(np.pi * 0.93)
+
+
+def _disorder(Lr=L):
+    hs, phis = generate_disorder(Lr, 1, seed=9)
+    return (torch.as_tensor(hs[0, :Lr]), torch.as_tensor(phis[0, :Lr - 1]))
+
+
+def _states(n, seed=2, Lr=L):
+    """(port (n, 2^L) complex64, reference (n, 2, TOP, C) f32) unit states."""
+    rng = np.random.default_rng(seed)
+    s = rng.standard_normal((n, 2, 1 << Lr)).astype(np.float32)
+    s /= np.sqrt((s ** 2).sum(axis=(1, 2), keepdims=True))
+    port = torch.complex(torch.from_numpy(s[:, 0]), torch.from_numpy(s[:, 1]))
+    return port, jnp.asarray(s.reshape(n, 2, -1, _C))
+
+
+def _flat(planar):
+    s = np.array(planar).reshape(planar.shape[0], 2, -1)
+    return torch.complex(torch.from_numpy(s[:, 0]), torch.from_numpy(s[:, 1]))
+
+
+def _x_rows(n, seed=4, Lr=L):
+    """Noisy compact rows (p=0.6) of cycle 1 for n trajectories."""
+    hs, phis = _disorder(Lr)
+    u = torch.rand((n, 2, Lr), generator=torch.Generator().manual_seed(seed))
+    _, zm, _, csum = presample_noise(u, 0.6, Lr)
+    return pack_cycle_params_compact(zm[:, 1], csum[:, 1], hs, phis, Lr,
+                                     forward_width(Lr))
+
+
+def _general(pol, n, seed=5, Lr=L):
+    """(forward rows of cycle 1 (n, K, width), inverse tiles of echo step 1
+    at t=1 (n, K, 2, width), K) for a p=0.6 run of ``pol``."""
+    hs, phis = _disorder(Lr)
+    sched = build_kick_schedule(pol, 0.97, 2)
+    K = sched.K
+    u = torch.rand((n, 4 * K, Lr),
+                   generator=torch.Generator().manual_seed(seed))
+    w = general_hi_width(Lr)
+    rows = general_forward_rows(u[:, :2 * K], hs, phis, sched.angles, L=Lr,
+                                T=2, K=K, p=0.6, width=w)
+    tiles = general_echo_rows(u, [1], hs, phis, sched.angles, L=Lr, T=2, K=K,
+                              p=0.6, width=w)
+    return (rows.reshape(n, 2, K, w)[:, 1],
+            tiles.reshape(n, 4, K, 2, w)[:, 1], K)
+
+
+def _kicks():
+    u7r, u7i = (m[None] for m in _rx_kron(jnp.float32(THETA), 7))
+    utr, uti = (m[None] for m in _rx_kron(jnp.float32(THETA), L - 21))
+    return u7r, u7i, utr, uti
+
+
+@pytest.mark.parametrize("q", [0, 11, 14, 16, 21])
+def test_k9a_matches_reference_interpret(q):
+    st, jst = _states(1)
+    rows = _x_rows(1)
+    got, part = ch.hi_cycle_forward_apply(st, rows, THETA, L=L, q=q)
+    want, jpart = jh.hi_cycle_forward_apply(jst, jnp.asarray(rows.numpy()),
+                                            *_kicks(), L=L, q=q,
+                                            interpret=True)
+    assert float((got - _flat(want)).abs().max()) < TOL_AMP
+    np.testing.assert_allclose(part.numpy(), np.asarray(jpart), atol=TOL_SUM)
+
+
+def test_k9b_matches_reference_interpret():
+    st, jst = _states(1, seed=3)
+    rows = _x_rows(1, seed=6)
+    got = ch.hi_cycle_inverse_apply(st, rows, THETA, L=L)
+    want = jh.hi_cycle_inverse_apply(jst, jnp.asarray(rows.numpy()),
+                                     *_kicks(), L=L, interpret=True)
+    assert float((got - _flat(want)).abs().max()) < TOL_AMP
+
+
+@pytest.mark.parametrize("pol,q", [("y", 16), ("xy", 11),
+                                   ("circular_left", 0)])
+def test_k10a_shard_local_matches_reference_interpret(pol, q):
+    rows, _, K = _general(pol, 1)
+    st, jst = _states(1, seed=7)
+    got, part = ch.general_hi_cycle_forward_apply(st, rows, L=L, K=K, q=q)
+    want, jpart = jhg.general_hi_cycle_forward_apply(
+        jst, jnp.asarray(rows.numpy()), L=L, K=K, q=q, interpret=True)
+    assert float((got - _flat(want)).abs().max()) < TOL_AMP
+    np.testing.assert_allclose(part.numpy(), np.asarray(jpart), atol=TOL_SUM)
+
+
+@pytest.mark.parametrize("pol", ["y", "xy"])
+def test_k10b_shard_local_matches_reference_interpret(pol):
+    _, tiles, K = _general(pol, 1)
+    st, jst = _states(1, seed=8)
+    got = ch.general_hi_cycle_inverse_apply(st, tiles, L=L, K=K)
+    want = jhg.general_hi_cycle_inverse_apply(
+        jst, jnp.asarray(tiles.numpy()), L=L, K=K, interpret=True)
+    assert float((got - _flat(want)).abs().max()) < TOL_AMP
+
+
+@pytest.mark.parametrize("Lr", [22, 23])
+@pytest.mark.parametrize("kind", ["forward", "inverse", "general_forward",
+                                  "general_inverse"])
+def test_plain_matches_k8_plain(kind, Lr):
+    """On the rows both take (L_loc = 22, 23: 128 lanes) the streamed
+    family's plain versions equal K8's, with the angle tables that K8's
+    plain versions build."""
+    n, q = 1, Lr - 6
+    st, _ = _states(n, seed=Lr, Lr=Lr)
+    a, b = st.clone(), st.clone()
+    if kind == "forward":
+        rows = _x_rows(n, seed=Lr, Lr=Lr)
+        _, pa = ch.hi_cycle_forward_apply(a, rows, THETA, L=Lr, q=q)
+        _, pb = cycle.cycle_forward_apply(b, rows, THETA, L=Lr, q=q)
+    elif kind == "inverse":
+        rows = _x_rows(n, seed=Lr, Lr=Lr)
+        ch.hi_cycle_inverse_apply(a, rows, THETA, L=Lr)
+        cycle.cycle_inverse_apply(b, rows, THETA, L=Lr)
+        pa = pb = torch.zeros(n)
+    elif kind == "general_forward":
+        rows, _, K = _general("circular_left", n, seed=Lr, Lr=Lr)
+        _, pa = ch.general_hi_cycle_forward_apply(a, rows, L=Lr, K=K, q=q)
+        _, pb = cycle.general_cycle_forward_apply(b, rows, L=Lr, K=K, q=q)
+    else:
+        _, tiles, K = _general("xy", n, seed=Lr, Lr=Lr)
+        ch.general_hi_cycle_inverse_apply(a, tiles, L=Lr, K=K)
+        cycle.general_cycle_inverse_apply(b, tiles, L=Lr, K=K)
+        pa = pb = torch.zeros(n)
+    assert float((a - b).abs().max()) < TOL_AMP
+    torch.testing.assert_close(pa, pb, atol=TOL_SUM, rtol=0)
+
+
+def test_k9b_undoes_k9a_in_the_conjugated_frame():
+    """conj(K9b(conj(K9a(s)))) = s on the same row: the inverse applies the
+    diagonal before the kick with un-negated angles, (D K)^dag =
+    conj(K D)."""
+    st, _ = _states(1, seed=9)
+    rows = _x_rows(1, seed=10)
+    s1, _ = ch.hi_cycle_forward_apply(st.clone(), rows, THETA, L=L, q=8)
+    back = ch.hi_cycle_inverse_apply(s1.conj().resolve_conj(), rows, THETA,
+                                     L=L).conj()
+    assert float((back - st).abs().max()) < TOL_AMP
+
+
+def test_chain_equals_the_streamed_forward():
+    """With no shard bits a chain of K9a cycles from the basis state is the
+    one-card streamed forward: its partials, with the sigma sign, are A(t)
+    of ``streamed_forward_batch``'s plain version on the same rows."""
+    T, q, n = 3, 14, 1
+    hs, phis = _disorder()
+    u = torch.rand((n, T, L), generator=torch.Generator().manual_seed(1))
+    rows, sig = forward_rows(u, hs[None], phis[None], L=L, T=T, p=0.6)
+    want = sm.streamed_forward_batch_ref(rows, sig, THETA, L=L, q=q)
+    st = rb.basis_states(n, L, 0, "cpu")
+    parts = [torch.ones(n)]
+    for t in range(T - 1):
+        parts.append(ch.hi_cycle_forward_apply(st, rows[:, t].contiguous(),
+                                               THETA, L=L, q=q)[1])
+    got = rb.forward_host_factor(torch.stack(parts, 1), sig, q, 0, 1.0)
+    torch.testing.assert_close(got, want, atol=TOL_SUM, rtol=0)
+
+
+@pytest.mark.parametrize("Lr", [27, 30])
+def test_wide_x_rows_bit_identical(Lr):
+    """256-lane compact rows (x forward, L_loc >= 27) equal the reference's
+    ``pack_cycle_params_compact(width=256)`` bit for bit."""
+    hs, phis = generate_disorder(Lr, 1, seed=3)
+    hs, phis = hs[0, :Lr], phis[0, :Lr - 1]
+    rng = np.random.default_rng(Lr)
+    zm = int(rng.integers(0, 1 << Lr))
+    sig = int(rng.integers(0, 1 << Lr))
+    assert forward_width(Lr) == WIDE
+    got = pack_cycle_params_compact(torch.tensor(zm), torch.tensor(sig),
+                                    torch.as_tensor(hs), torch.as_tensor(phis),
+                                    Lr, WIDE)
+    want = j_pack(jnp.uint32(zm), jnp.uint32(sig), jnp.asarray(hs),
+                  jnp.asarray(phis), Lr, width=WIDE)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_wide_general_rows_bit_identical():
+    """Lab-frame step rows at L_loc = 30 are 256 lanes wide (4L+9 > 128),
+    as ``general_hi_width``; the forward rows equal the ones the
+    reference's ``make_sharded_autocorr_forward_general`` builds at that
+    width (its ``sample``: Z bits, X-mask bits, h and phi on the final slot,
+    then the flag lanes with the slot's 2x2), bit for bit, on the same
+    uniforms. The echo rows at 256 lanes are the 128-lane rows zero-padded
+    where both exist (L = 29)."""
+    Lr, T, p = 30, 3, 0.6
+    assert (general_hi_width(29), general_hi_width(Lr)) == (128, WIDE)
+    assert jhg.general_hi_width(Lr) == WIDE
+    hs, phis = generate_disorder(Lr, 1, seed=4)
+    hs, phis = hs[0, :Lr], phis[0, :Lr - 1]
+    sched = build_kick_schedule("circular_left", 0.97, T)
+    K, S = sched.K, T * sched.K
+    u = np.asarray(jax.random.uniform(jax.random.PRNGKey(3), (S, Lr),
+                                      dtype=jnp.float32))
+    got = general_forward_rows(torch.tensor(u)[None], torch.as_tensor(hs),
+                               torch.as_tensor(phis), sched.angles, L=Lr,
+                               T=T, K=K, p=p, width=WIDE)[0]
+    xm, zm = j_masks(j_codes(jnp.asarray(u), p), Lr)
+    ang = jnp.asarray(sched.angles.numpy())
+    u8 = jax.vmap(jax.vmap(lambda a: slot_u8(a[0], a[1])))(ang)
+    flags = jnp.zeros((T, K, WIDE - (4 * Lr - 1)), jnp.float32)
+    flags = flags.at[:, :, _LANE_U8:_LANE_U8 + 8].set(u8)
+    final = jnp.zeros((T, K, 1), jnp.float32).at[:, K - 1, :].set(1.0)
+    want = jnp.concatenate(
+        [_bits_row(zm, Lr).reshape(T, K, Lr),
+         _bits_row(xm, Lr).reshape(T, K, Lr),
+         final * jnp.asarray(hs, jnp.float32)[None, None],
+         final * jnp.asarray(phis, jnp.float32)[None, None], flags],
+        axis=-1).reshape(S, WIDE)
+    # the port's rows carry MPOS (the reference's kernel computes it)
+    want = np.asarray(want).copy()
+    mpos = flag_base(Lr) + LANE_MPOS
+    want[:, mpos] = got[:, mpos].numpy()
+    np.testing.assert_array_equal(got.numpy(), want)
+    h29, p29 = torch.as_tensor(hs[:29]), torch.as_tensor(phis[:28])
+    narrow = general_echo_rows(None, [2], h29, p29, sched.angles, L=29, T=T,
+                               K=K, p=0.0, batch=(1,))
+    wide = general_echo_rows(None, [2], h29, p29, sched.angles, L=29, T=T,
+                             K=K, p=0.0, batch=(1,), width=WIDE)
+    torch.testing.assert_close(wide[..., :128], narrow, atol=0, rtol=0)
+    assert not wide[..., 128:].any()
+
+
+def test_flag_lanes_of_the_wrappers():
+    """What the CUDA entries are handed: K9b's (pre, post) pair at the echo
+    width (256 from L_loc = 26, where the 5L-2 data lanes reach lane 124)
+    with trip count 2 and kick sign +1; K10a's MPOS only on the final slot;
+    K10b's COUNT one past its K steps, at 256 lanes at L_loc = 30."""
+    for Lr in (25, 26, 30):
+        rows = torch.rand((2, forward_width(Lr)))
+        tiles = ch.inverse_tiles(rows, Lr)
+        w = echo_width(Lr)
+        assert tiles.shape == (2, 2, w) and w == (128 if Lr == 25 else WIDE)
+        d = 5 * Lr - 2
+        torch.testing.assert_close(tiles[:, 0, :d], rows[:, :d])
+        assert (tiles[:, 0, w - 4] == 2).all()
+        assert (tiles[:, 0, w - 3] == 1).all()
+        assert not tiles[:, 1].any() and not tiles[:, 0, d:w - 4].any()
+    rows = torch.zeros((2, 3, WIDE))
+    rows = ch.measured_rows(rows, 30, 3)
+    assert rows[:, :, flag_base(30) + LANE_MPOS].tolist() == [[-1, -1, 0]] * 2
+    tiles = ch.counted_tiles(torch.zeros((2, 3, 2, WIDE)), 30, 3)
+    assert tiles.shape == (2, 6, WIDE)
+    assert (tiles[:, 0, flag_base(30) + LANE_COUNT] == 4).all()
+
+
+def test_range_checks_and_cpu_route():
+    ch.reset_counters()
+    st = torch.zeros((1, 1 << 21), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="22 <= L_loc <= 30"):
+        ch.hi_cycle_forward_apply(st, torch.zeros(1, 128), THETA, L=21, q=3)
+    with pytest.raises(ValueError, match="22 <= L_loc <= 30"):
+        ch.general_hi_cycle_inverse_apply(st, torch.zeros(1, 1, 2, 256),
+                                          L=31, K=1)
+    st, _ = _states(1)
+    with pytest.raises(ValueError, match="shard-local probe"):
+        ch.hi_cycle_forward_apply(st, torch.zeros(1, 128), THETA, L=L, q=L)
+    with pytest.raises(ValueError, match="shard-local probe"):
+        ch.general_hi_cycle_forward_apply(st, torch.zeros(1, 1, 128), L=L,
+                                          K=1, q=22)
+    with pytest.raises(ValueError, match="rows must be"):
+        ch.hi_cycle_inverse_apply(st, torch.zeros(1, 256), THETA, L=L)
+    with pytest.raises(ValueError, match="rows must be"):
+        ch.general_hi_cycle_inverse_apply(st, torch.zeros(1, 2, 128), L=L,
+                                          K=2)
+    ch.hi_cycle_inverse_apply(st, torch.zeros(1, 128), THETA, L=L)
+    assert not any(ch.LAUNCHES.values())
+    assert not any(ch.PLAIN_ON_CUDA.values())

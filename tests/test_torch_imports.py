@@ -23,7 +23,7 @@ def test_no_module_of_the_port_loads_jax():
     for module in ("ops.resident_general", "io.disorder", "experiments.energy",
                    "ops.observables", "utils.checkpoints", "ops.streamed",
                    "ops.resident", "experiments.adaptive", "ops.cycle",
-                   "parallel.mesh", "parallel.sharded",
+                   "ops.cycle_hi", "parallel.mesh", "parallel.sharded",
                    "experiments.sharded_run"):
         assert f"dtc_tpu_torch.{module}" in names
     code = ("import importlib, sys\n"
@@ -62,12 +62,14 @@ def test_unported_methods_raise():
         run_autocorr(SimConfig(L=4, tf=2, use_fakebackend=1), device="cpu")
 
 
-@pytest.mark.parametrize("flag", [["--sharded", "--L", "26"],
-                                  ["--n_amp", "1", "--L", "25"],
+@pytest.mark.parametrize("flag", [["--sharded", "--use_fakebackend", "1"],
+                                  ["--n_amp", "1", "--use_fakebackend", "1"],
                                   ["--emit_gate_counts"]])
 def test_unported_autocorr_flags_raise(flag, tmp_path):
-    """--emit_gate_counts; and --sharded / --n_amp where the route is a
-    constant x drive at 24 <= L_loc (the reference's K9 kernels)."""
+    """--emit_gate_counts; and --sharded / --n_amp with device noise
+    (``--use_fakebackend 1``), which the sharded engines do not run: the
+    reference's ``run_autocorr_sharded`` runs depolarizing noise under the
+    flag."""
     from dtc_tpu_torch.utils.cli import main
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,9 +1,10 @@
 """CUDA kernels K1/K2 (constant x), K3a/K3b (constant or per-cycle x at
 14 <= L <= 21), the streamed x family (constant x at 22 <= L <= 30), K4
 (lab frame, any drive), K5 (per-cycle observables), the streamed
-lab-frame family (K10a/K10b, any drive at 22 <= L <= 29) and the per-shard
-cycle kernels K8a-d (one cycle at 17 <= L_loc <= 23) against their plain
-versions, on the card.
+lab-frame family (K10a/K10b, any drive at 22 <= L <= 29), the per-shard
+cycle kernels K8a-d (one cycle at 17 <= L_loc <= 23) and the per-shard
+streamed cycle kernels K9a/K9b and K10's shard-local forms (one cycle at
+22 <= L_loc <= 30) against their plain versions, on the card.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one. They import neither jax nor ``tests/conftest.py``'s setup, so
@@ -12,13 +13,16 @@ on a machine with a card and no jax they run as
 Tolerance 1e-4: f32 sums over 2^L amplitudes in another order than the
 plain version's; K5's energy sums reach sum|th| + sum|tph| (tens at L=20)
 and its x sum L, so e_diag is held to 1e-4 * (sum|th| + sum|tph|) and
-x_sum to 1e-4 * L.
+x_sum to 1e-4 * L. From a random unit state of 2^L amplitudes the state
+and the partial are held to ``_unit_tol(L)`` = 1e-3 * 2^(-L/2), one part
+in 10^3 of a typical amplitude.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from dtc_tpu_torch.core.statevector import basis_index
 from dtc_tpu_torch.experiments import adaptive
 from dtc_tpu_torch.experiments.autocorr import run_autocorr
 from dtc_tpu_torch.experiments.energy import run_energy
@@ -26,6 +30,7 @@ from dtc_tpu_torch.models.hamiltonian import hamiltonian_terms
 from dtc_tpu_torch.io.disorder import generate_disorder
 from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.ops import cycle as cy
+from dtc_tpu_torch.ops import cycle_hi as ch
 from dtc_tpu_torch.ops import cycle_hi_general as chg
 from dtc_tpu_torch.ops import resident_blocked as rb
 from dtc_tpu_torch.ops import observables as obs
@@ -38,6 +43,7 @@ from dtc_tpu_torch.parallel.mesh import make_mesh
 from dtc_tpu_torch.ops.params_general import (
     general_echo_rows,
     general_forward_rows,
+    general_hi_width,
 )
 from dtc_tpu_torch.utils.config import SimConfig
 
@@ -397,9 +403,10 @@ def test_streamed_wrappers_reject_bad_inputs(cuda_device):
                                   sig, THETA, L=31, q=3)
 
 
-def _general_inputs(device, L, pol, T, n, seed, ts=None, p=0.1):
+def _general_inputs(device, L, pol, T, n, seed, ts=None, p=0.1, width=128):
     """Forward rows of n trajectories, or echo tiles of n trajectories x
-    ``ts``, of the drive ``pol`` on the suite's disorder."""
+    ``ts``, of the drive ``pol`` on the suite's disorder, ``width`` lanes
+    wide."""
     hs, phis = _disorder(L, device)
     angles = build_kick_schedule(pol, 0.97, T, xy_cycle_period=1,
                                  device=device).angles
@@ -408,11 +415,11 @@ def _general_inputs(device, L, pol, T, n, seed, ts=None, p=0.1):
     if ts is None:
         u = torch.rand((1, n, T * K, L), generator=gen, device=device)
         return general_forward_rows(u, hs[:, None], phis[:, None], angles,
-                                    L=L, T=T, K=K, p=p)
+                                    L=L, T=T, K=K, p=p, width=width)
     u = torch.rand((1, n, 2 * T * K, L), generator=gen, device=device)
     return general_echo_rows(u, torch.as_tensor(ts, device=device),
                              hs[:, None], phis[:, None], angles, L=L, T=T,
-                             K=K, p=p)
+                             K=K, p=p, width=width)
 
 
 @pytest.mark.cuda
@@ -614,12 +621,20 @@ def _unit_states(n, L, device, seed):
     return s / s.abs().pow(2).sum(-1, keepdim=True).sqrt()
 
 
+def _unit_tol(L):
+    """The limit on a random unit state of 2^L amplitudes and its partial
+    sum |psi|^2 z_q, both of size 2^(-L/2): 1e-4 would pass a kernel wrong
+    by a typical amplitude."""
+    return 1e-3 * 2 ** (-L / 2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,q", [(17, 16), (20, 10), (23, 15)])
 def test_cycle_kernels_match_plain_on_card(cuda_device, L, q):
     """K8a-d on one cycle of random unit states, noisy rows (p=0.6):
     the state and the partial against the plain versions on the same
-    inputs."""
+    inputs, within _unit_tol(L)."""
+    tol = _unit_tol(L)
     hs, phis = _disorder(L, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(L)
     u = torch.rand((1, 3, 2, L), generator=gen, device=cuda_device)
@@ -629,25 +644,25 @@ def test_cycle_kernels_match_plain_on_card(cuda_device, L, q):
     launches = dict(cy.LAUNCHES)
     k, kp = cy.cycle_forward_apply(st.clone(), rows, THETA, L=L, q=q)
     r, rp = cy.cycle_forward_apply_ref(st.clone(), rows, THETA, L=L, q=q)
-    assert float((k - r).abs().max()) <= TOL
-    assert float((kp - rp).abs().max()) <= TOL
+    assert float((k - r).abs().max()) <= tol
+    assert float((kp - rp).abs().max()) <= tol
     k = cy.cycle_inverse_apply(st.clone(), rows, THETA, L=L)
     r = cy.cycle_inverse_apply_ref(st.clone(), rows, THETA, L=L)
-    assert float((k - r).abs().max()) <= TOL
+    assert float((k - r).abs().max()) <= tol
     grows = _general_inputs(cuda_device, L, "circular_left", 2, 3, L,
                             p=0.6)[0].reshape(3, 2, 2, -1)[:, 1].contiguous()
     k, kp = cy.general_cycle_forward_apply(st.clone(), grows, L=L, K=2, q=q)
     r, rp = cy.general_cycle_forward_apply_ref(st.clone(), grows, L=L, K=2,
                                                q=q)
-    assert float((k - r).abs().max()) <= TOL
-    assert float((kp - rp).abs().max()) <= TOL
+    assert float((k - r).abs().max()) <= tol
+    assert float((kp - rp).abs().max()) <= tol
     tiles = _general_inputs(cuda_device, L, "xy", 2, 3, L + 1, ts=[1],
                             p=0.6)[0].reshape(3, 4, 2, 2, -1)[:, 1]
     k = cy.general_cycle_inverse_apply(st.clone(), tiles.contiguous(), L=L,
                                        K=2)
     r = cy.general_cycle_inverse_apply_ref(st.clone(), tiles, L=L, K=2)
     torch.cuda.synchronize()
-    assert float((k - r).abs().max()) <= TOL
+    assert float((k - r).abs().max()) <= tol
     assert {n: cy.LAUNCHES[n] - launches[n] for n in launches} == {
         "forward": 1, "inverse": 1, "general_forward": 1,
         "general_inverse": 1}
@@ -702,3 +717,115 @@ def test_cycle_wrappers_reject_bad_inputs(cuda_device):
         cy.general_cycle_forward_apply(
             st, torch.zeros((1, 128, 2), device=cuda_device).transpose(1, 2),
             L=17, K=2, q=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,q", [(22, 16), (24, 12), (27, 16), (30, 29)])
+def test_cycle_hi_kernels_match_plain_on_card(cuda_device, L, q):
+    """K9a/K9b and K10a/K10b shard-local on one cycle of random unit states,
+    noisy rows (p=0.6; x rows 256 lanes from L_loc = 27, K9b's pair from 26,
+    lab-frame rows at 30): the state and the partial against the plain
+    versions on the same inputs, within _unit_tol(L); the forwards'
+    partials again from the neel state, where they are O(1), within 1e-4.
+    One state at L_loc = 30 (8 GiB: offsets past 2^31 elements), two
+    below."""
+    n = 1 if L == 30 else 2
+    tol = _unit_tol(L)
+    neel = rb.basis_states(n, L, basis_index(L, "neel"), cuda_device)
+    hs, phis = _disorder(L, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(L)
+    u = torch.rand((1, n, 2, L), generator=gen, device=cuda_device)
+    rows = forward_rows(u, hs[:, None], phis[:, None], L=L, T=2,
+                        p=0.6)[0][0, :, 1].contiguous()
+    st = _unit_states(n, L, cuda_device, L)
+    launches = dict(ch.LAUNCHES)
+
+    def held(kernel, plain, *args, **kw):
+        k = kernel(st.clone(), *args, **kw)
+        r = plain(st.clone(), *args, **kw)
+        torch.cuda.synchronize()
+        forward = isinstance(k, tuple)
+        if forward:
+            assert float((k[1] - r[1]).abs().max()) <= tol
+            k, r = k[0], r[0]
+        assert float((k - r).abs().max()) <= tol
+        del k, r  # two 8 GiB states at L_loc = 30
+        if forward:
+            kp = kernel(neel.clone(), *args, **kw)[1]
+            rp = plain(neel.clone(), *args, **kw)[1]
+            assert float(rp.abs().max()) > 0.05  # not 2^(-L/2)
+            assert float((kp - rp).abs().max()) <= TOL
+
+    held(ch.hi_cycle_forward_apply, ch.hi_cycle_forward_apply_ref, rows,
+         THETA, L=L, q=q)
+    held(ch.hi_cycle_inverse_apply, ch.hi_cycle_inverse_apply_ref, rows,
+         THETA, L=L)
+    w = general_hi_width(L)
+    grows = _general_inputs(cuda_device, L, "circular_left", 2, n, L, p=0.6,
+                            width=w)[0].reshape(n, 2, 2, w)[:, 1]
+    held(ch.general_hi_cycle_forward_apply,
+         ch.general_hi_cycle_forward_apply_ref, grows.contiguous(), L=L,
+         K=2, q=q)
+    tiles = _general_inputs(cuda_device, L, "xy", 2, n, L + 1, ts=[1], p=0.6,
+                            width=w)[0].reshape(n, 4, 2, 2, w)[:, 1]
+    held(ch.general_hi_cycle_inverse_apply,
+         ch.general_hi_cycle_inverse_apply_ref, tiles.contiguous(), L=L, K=2)
+    assert {k: ch.LAUNCHES[k] - launches[k] for k in launches} == {
+        "forward": 2, "inverse": 1, "general_forward": 2,
+        "general_inverse": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol", ["x", "xy"])
+def test_sharded_hi_engines_on_card_match_cpu(cuda_device, pol, monkeypatch):
+    """The cycle-kernel engines on the streamed per-shard kernels (route
+    lowered to L_loc = 22) at L=23 on 2 shards that share the card, against
+    the same engines on the CPU (the plain versions), fed the same
+    uniforms; K8 launches nothing and no plain version runs on a CUDA
+    tensor."""
+    monkeypatch.setattr(ch, "MIN_ROUTE_L", 22)
+    L, T, q = 23, 3, 16
+    hs, phis = _disorder(L, "cpu")
+    angles = build_kick_schedule(pol, 0.97, T).angles
+    K = angles.shape[1]
+    gen = torch.Generator().manual_seed(4)
+    uf = torch.rand((2, T * K, L), generator=gen)
+    ue = torch.rand((2, 2 * T, K, L), generator=gen)
+    kw = dict(L=L, T=T, p=0.3, q=q, ancilla_factor=1.0)
+    if pol == "x":
+        fwd, ech = (sh.make_sharded_autocorr_forward_kernel,
+                    sh.make_sharded_echo_kernel)
+    else:
+        kw["K"] = K
+        fwd, ech = (sh.make_sharded_autocorr_forward_general,
+                    sh.make_sharded_echo_general)
+    cy.reset_counters()
+    ch.reset_counters()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_mesh(2, 1, devices=[dev, dev])
+        args = (angles, hs[0], phis[0])
+        out[dev] = (fwd(mesh, **kw)(*args, uf.to(dev)).cpu(),
+                    ech(mesh, **kw)(*args, ue.to(dev), T).cpu())
+    assert sum(ch.LAUNCHES.values()) > 0
+    assert not any(cy.LAUNCHES.values())
+    assert not any(ch.PLAIN_ON_CUDA.values())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert float((a - b).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_cycle_hi_wrappers_reject_bad_inputs(cuda_device):
+    st = torch.zeros((1, 1 << 22), dtype=torch.complex64, device=cuda_device)
+    rows = torch.zeros((1, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        ch.hi_cycle_forward_apply(st, rows.double(), THETA, L=22, q=3)
+    with pytest.raises(ValueError, match="22 <= L_loc <= 30"):
+        ch.hi_cycle_inverse_apply(torch.zeros((1, 1 << 21),
+                                              dtype=torch.complex64,
+                                              device=cuda_device), rows,
+                                  THETA, L=21)
+    with pytest.raises(ValueError, match="contiguous"):
+        ch.general_hi_cycle_forward_apply(
+            st, torch.zeros((1, 128, 2), device=cuda_device).transpose(1, 2),
+            L=22, K=2, q=3)

@@ -49,6 +49,12 @@ def test_top_kernels_and_other():
     ("void (anonymous namespace)::general_strided_kernel<true>(float2*, int, "
      "int, int, float const*, long, int, int, int, float*)",
      "general_strided_kernel<true>"),
+    ("void (anonymous namespace)::general_strided_kernel<false, 128>(float2*,"
+     " int, int, int, float const*, long, int, int, int, float*)",
+     "general_strided_kernel<false>"),
+    ("void (anonymous namespace)::measured_reduce_kernel<128>(float const*, "
+     "int, float const*, long, int, int, float*, int)",
+     "measured_reduce_kernel"),
 ])
 def test_short_name(raw, short):
     assert short_name(raw) == short

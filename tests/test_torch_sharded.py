@@ -194,15 +194,15 @@ def test_kernel_engines_refuse_what_they_do_not_run():
         sh.make_sharded_echo_kernel(mesh, L=18, T=3, p=0.0, q=17)
     for maker in (sh.make_sharded_autocorr_forward_kernel,
                   sh.make_sharded_echo_kernel):
-        with pytest.raises(NotImplementedError,
-                           match="queue 1, sharding at 24 <= L_loc"):
-            maker(mesh, L=25, T=3, p=0.0, q=9)
+        # L_loc 24..30 builds on the streamed per-shard kernels (K9a/K9b)
+        maker(mesh, L=25, T=3, p=0.0, q=9)
+        with pytest.raises(ValueError, match="<= 30"):
+            maker(mesh, L=32, T=3, p=0.0, q=9)
     for maker in (sh.make_sharded_autocorr_forward_general,
                   sh.make_sharded_echo_general):
         with pytest.raises(NotImplementedError, match="device noise"):
             maker(mesh, L=18, T=3, K=1, p=0.0, q=9, device=(1, 2, 3))
-        with pytest.raises(NotImplementedError, match="24 <= L_loc"):
-            maker(mesh, L=26, T=3, K=1, p=0.0, q=9)
+        maker(mesh, L=26, T=3, K=1, p=0.0, q=9)  # K10's shard-local forms
     _, (ang, hs, phis, _) = _inputs(18, "y", 3, 1, (1,))
     fn = sh.make_sharded_autocorr_forward_kernel(mesh, L=18, T=3, p=0.0, q=9)
     with pytest.raises(ValueError, match="constant x-only"):
@@ -222,10 +222,13 @@ def test_routes():
                                      cfg.replace(L=12)) == "sharded_sigma"
     assert sharded_run.sharded_route(  # q = 18 is a shard bit
         mesh2, x, cfg.replace(qubit=18)) == "sharded_sigma"
-    assert sharded_run.sharded_route(mesh2, y,
-                                     cfg.replace(L=26)) == "sharded_sigma"
-    with pytest.raises(NotImplementedError, match="K9"):
-        sharded_run.sharded_route(mesh2, x, cfg.replace(L=26))
+    # the reference's routing at L_loc >= 24: x takes K9 to L_loc = 29,
+    # every other drive and x at L_loc = 30 the sigma-frame engines
+    for L in range(25, 32):
+        assert sharded_run.sharded_route(mesh2, y, cfg.replace(
+            L=L)) == "sharded_sigma"
+        assert sharded_run.sharded_route(mesh2, x, cfg.replace(L=L)) == (
+            "cycle_hi" if L <= 30 else "sharded_sigma")
     assert sharded_run._auto_mesh(6, devices=["cpu"] * 8).shape == {
         "traj": 1, "amp": 8}
     with pytest.raises(NotImplementedError, match="run_energy_sharded"):
