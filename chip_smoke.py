@@ -54,7 +54,12 @@ each; any failure raises and the script exits non-zero without a result:
    against K10, a (1,1) mesh at L=25; and at L=31 on 2 shards (one
    trajectory) the anchors A(1) = cos(pi g) within 1e-5 and the noiseless
    echo = 1 within 1e-4, for x through K9a/K9b and for y through K10's
-   shard-local forms with 256-lane rows;
+   shard-local forms with 256-lane rows; the planar engine's noise factor
+   K11 against its plain version on random unit states and tiles, L=20 with
+   32 states and L=30 with one 8 GiB state, within 1e-5 of the largest
+   amplitude; device-noise rows on K4 (xy at L=20: forward and echo) and on
+   K10's shard-local forms through the one-shard mesh (xy at L=24, y at
+   L=25) against the kernels' plain versions on the same rows;
 4. main paths, each through the CLI's ``main(argv)`` with every launch
    count set to 0 just before it and read just after:
    ``autocorr --device cuda`` (x drive: K1/K2) at L=20, T=50, 2 instances x
@@ -93,7 +98,18 @@ each; any failure raises and the script exits non-zero without a result:
    (L_loc = 27; T=8, 2 trajectories; engine=cycle_hi, K9a/K9b only), and
    the lab-frame sharded engines called directly for xy at L=28 on 2
    shards (T=6, 2 trajectories, the echo at t=1, 3, 5; K10's shard-local
-   forms only: the routing sends no drive there, as the reference's);
+   forms only: the routing sends no drive there, as the reference's); then
+   ``DTC_TPU_ENGINE=planar autocorr`` at the bench shape (inst=1): the
+   forward on the planar engine, K11 once a measured cycle and no other
+   kernel, the echo on the sigma engine, and the planar forward held
+   against K1 on the same uniforms within 2.7e-4; then device noise,
+   ``autocorr --use_fakebackend 1 --fake_device brisbane``: config 4, x at
+   L=27 (T=8, 4 trajectories) on the streamed x family with device rows,
+   xy at L=20 (T=20, 8 trajectories) on K4 and xy at L=24 (T=4, 2
+   trajectories) on K10's shard-local forms through the one-shard mesh,
+   each with its route logged, its kernels only and A(0) = the model's
+   ancilla and readout factor; config 4 held against the sigma device
+   engine on the same draws (forward, echo at t=1..3) within 2.7e-4;
 5. timing: the bench shape (``dtc_tpu_torch/bench.py::run_case``) and every
    kernel against its plain version on identical inputs, whose outputs are
    held to the same bound (the streamed family: forward at L=24, 26, 28 and
@@ -106,7 +122,9 @@ each; any failure raises and the script exits non-zero without a result:
    one cycle, beside K1 and K4 per cycle at L=23 on 8 trajectories; K9a/K9b
    and K10's shard-local forms (y and xy) at L_loc=28 on 2 shards x 2
    trajectories, one cycle, beside K6 and the one-card K10 per cycle at
-   L=28 on 4 trajectories); each kernel's bound: the larger
+   L=28 on 4 trajectories); K11 on the planar path's 32 states of
+   L=20; the planar forward's and K1's cycles/s and the config-4 device
+   forward's trajectory-cycles/s; each kernel's bound: the larger
    of its bytes (inputs read once, outputs written once) over 3.35 TB/s and
    its f32 operations over 67 TFLOP/s (the H100 SXM's published peaks), and
    its state floor (16 B per amplitude per pass and step, 2 or 3 passes);
@@ -1114,6 +1132,126 @@ def compare_sharded(dev, err) -> None:
 
 
 
+def compare_noise_factor(dev, err) -> None:
+    """K11 against its plain version on identical inputs: L=20, 32 random
+    normalised states with random tiles (the planar main path's batch), and
+    L=30, one 8 GiB state (two planes of 2^30 f32: 64-bit offsets); max
+    |kernel - plain| <= 1e-5 of the largest amplitude."""
+    from dtc_tpu_torch.ops import noise_factor as nf
+
+    for L, B in ((20, 32), (30, 1)):
+        gen = torch.Generator(device=dev).manual_seed(L)
+        st = torch.randn((B, 2, 1 << L), generator=gen, device=dev)
+        st /= st.square().sum((1, 2), keepdim=True).sqrt()
+        rnd = torch.randint(0, 1 << L, (2, B), generator=gen, device=dev)
+        h, ph = ((torch.rand((B, n), generator=gen, device=dev) * 2 - 1)
+                 * math.pi for n in (L, L - 1))
+        par = nf.pack_cycle_params(rnd[0], rnd[1], h, ph, L)
+        plain = nf.noise_factor_plain(st, par, L=L)
+        st = nf.apply_noise_factor(st, par, L=L)  # in place on the card
+        torch.cuda.synchronize()
+        d = float((st - plain).abs().max())
+        lim = 1e-5 * float(plain.abs().max())
+        phase(f"[compare] K11 L={L} B={B} random unit states and tiles: "
+              f"max|kernel-plain| = {d:.3e} (<= {lim:.3e}, 1e-5 of the "
+              "largest amplitude)")
+        if not d <= lim:
+            raise RuntimeError(f"K11 disagrees with its plain version at "
+                               f"L={L}: {d} > {lim}")
+        err["K11"] = max(err["K11"], d)
+        del st, plain
+        torch.cuda.empty_cache()
+
+
+def with_plain(mod, names, fn):
+    """``fn()`` with the kernel entries ``names`` of ``mod`` replaced by
+    their plain versions (``<name>_ref``), restored after."""
+    saved = {n: getattr(mod, n) for n in names}
+    try:
+        for n in names:
+            setattr(mod, n, getattr(mod, n + "_ref"))
+        return fn()
+    finally:
+        for n, f in saved.items():
+            setattr(mod, n, f)
+
+
+def device_case(L, pol, T, dev, seed=7):
+    """Disorder, rates (site-varying, dense events), schedule of a
+    device-noise comparison."""
+    hs, phis = disorder(L, dev, seed=seed)
+    p1 = torch.linspace(0.05, 0.3, L, dtype=torch.float64, device=dev)
+    p2 = torch.linspace(0.1, 0.4, L - 1, dtype=torch.float64, device=dev)
+    return hs[0], phis[0], p1, p2, schedule(pol, T, dev)
+
+
+def device_blocks(L, steps, e, n, dev, seed):
+    from dtc_tpu_torch.core.device_evolve import n_bonds
+
+    ne, no = n_bonds(L)
+    return tuple(uniforms((n, steps, *s), dev, seed + i)
+                 for i, s in enumerate(((e, L), (ne,), (no,))))
+
+
+def compare_device(dev, err) -> None:
+    """Device-noise rows on the lab-frame kernels against the kernels'
+    plain versions on the same rows: K4 at L=20 (xy, T=8, 4 trajectories:
+    the forward and the echo at t=1, 4, 8) through
+    ``device_general_kernel_*_batch``, and K10's shard-local forms through
+    the one-shard mesh engines (the device sweeps' route at 24 <= L <= 30)
+    at L=24 (xy) and L=25 (y), T=3, 2 trajectories, the forward and the
+    echo at t=1, 3. These launches are not the main path's."""
+    from dtc_tpu_torch.core import device_evolve as de
+    from dtc_tpu_torch.ops import cycle_hi as chi
+    from dtc_tpu_torch.ops import resident_general as rg
+    from dtc_tpu_torch.parallel import sharded as sh
+    from dtc_tpu_torch.parallel.mesh import make_mesh
+
+    L, T, n, pol = 20, 8, 4, "xy"
+    args = device_case(L, pol, T, dev)
+    K = args[-1].shape[1]
+    kw = dict(L=L, T=T, K=K, q=L // 2, ancilla_factor=0.9)
+    uf = device_blocks(L, T, 2 * K, n, dev, 20)
+    ue = device_blocks(L, 2 * T, 2 * K, n, dev, 23)
+    ts = [1, 4, 8]
+
+    def k4():
+        return (de.device_general_kernel_forward_batch(*args, uf, **kw),
+                de.device_general_kernel_echo_batch(*args, ue, ts, **kw))
+
+    got = k4()
+    ref = with_plain(rg, ("general_forward_batch", "general_echo_batch"), k4)
+    for name, g, r in zip(("K4 forward", "K4 echo"), got, ref):
+        err[name] = max(err[name], held(
+            f"{name} device rows L={L} {pol} T={T} 1x{n}", g, r))
+    if not float(got[1].max() - got[1].min()) > 0.05:
+        raise RuntimeError("device K4 echo: no event fired")
+    mesh = make_mesh(1, 1, devices=[dev])
+    for L, pol in ((24, "xy"), (25, "y")):
+        T, n = 3, 2
+        hs, phis, p1, p2, ang = device_case(L, pol, T, dev, seed=L)
+        K = ang.shape[1]
+        kw = dict(L=L, T=T, K=K, p=0.0, q=L // 2,
+                  device=(p1, p2, 2))
+        uf = device_blocks(L, T, 2 * K, n, dev, L)
+        ue = device_blocks(L, 2 * T, 2 * K, n, dev, L + 3)
+
+        def k10():
+            a = sh.make_sharded_autocorr_forward_general(mesh, **kw)(
+                ang, hs, phis, uf)
+            echo = sh.make_sharded_echo_general(mesh, **kw)
+            return a, torch.stack([echo(ang, hs, phis, ue, t)
+                                   for t in (1, 3)])
+
+        got = k10()
+        ref = with_plain(chi, ("general_hi_cycle_forward_apply",
+                               "general_hi_cycle_inverse_apply"), k10)
+        for name, g, r in zip(("K10a local", "K10b local"), got, ref):
+            err[name] = max(err[name], held(
+                f"{name} device rows, one-shard mesh L={L} {pol} T={T} "
+                f"1x{n}", g, r))
+
+
 def anchors_l30(dev) -> None:
     """L=30, 8 GiB a state: values the physics fixes, which a wrapped 32-bit
     offset would break."""
@@ -1244,6 +1382,7 @@ def run_counted(fn, what) -> tuple:
     from dtc_tpu_torch.ops import cycle as cy
     from dtc_tpu_torch.ops import cycle_hi as chi
     from dtc_tpu_torch.ops import cycle_hi_general as chg
+    from dtc_tpu_torch.ops import noise_factor as nf
     from dtc_tpu_torch.ops import observables as ob
     from dtc_tpu_torch.ops import resident as rs
     from dtc_tpu_torch.ops import resident_blocked as rb
@@ -1253,7 +1392,7 @@ def run_counted(fn, what) -> tuple:
     log = SweepLog()
     logger = logging.getLogger("dtc_tpu_torch")
     logger.addHandler(log)
-    for mod in (rb, rs, rg, ob, sm, chg, cy, chi):
+    for mod in (rb, rs, rg, ob, sm, chg, cy, chi, nf):
         mod.reset_counters()
     t0 = time.perf_counter()
     try:
@@ -1277,7 +1416,8 @@ def run_counted(fn, what) -> tuple:
                 "K8d": cy.LAUNCHES["general_inverse"],
                 "K9a": chi.LAUNCHES["forward"], "K9b": chi.LAUNCHES["inverse"],
                 "K10a local": chi.LAUNCHES["general_forward"],
-                "K10b local": chi.LAUNCHES["general_inverse"]}
+                "K10b local": chi.LAUNCHES["general_inverse"],
+                "K11": nf.LAUNCHES["noise_factor"]}
     plain = {**{f"x {k}": v for k, v in rb.PLAIN_ON_CUDA.items()},
              **{f"resident {k}": v for k, v in rs.PLAIN_ON_CUDA.items()},
              **{f"general {k}": v for k, v in rg.PLAIN_ON_CUDA.items()},
@@ -1285,7 +1425,8 @@ def run_counted(fn, what) -> tuple:
              **{f"streamed {k}": v for k, v in sm.PLAIN_ON_CUDA.items()},
              **{f"general_hi {k}": v for k, v in chg.PLAIN_ON_CUDA.items()},
              **{f"cycle {k}": v for k, v in cy.PLAIN_ON_CUDA.items()},
-             **{f"cycle_hi {k}": v for k, v in chi.PLAIN_ON_CUDA.items()}}
+             **{f"cycle_hi {k}": v for k, v in chi.PLAIN_ON_CUDA.items()},
+             **nf.PLAIN_ON_CUDA}
     if rc not in (0, None):
         raise RuntimeError(f"{what} CLI returned {rc}")
     return launches, plain, log, seconds
@@ -1801,6 +1942,174 @@ def main_sharded_general_hi(smi) -> dict:
     return {k: launches[k] for k in fam}
 
 
+def main_planar(smi, dev) -> dict:
+    """``DTC_TPU_ENGINE=planar autocorr --device cuda`` at the bench shape
+    (L=20, T=50, 32 trajectories, p=0.05, g=0.97): the forward on the
+    planar engine (K11 once per measured cycle, no other kernel), the echo
+    on the sigma engine, as the reference routes them; physics checks on
+    the CSV. Then the planar forward against the blocked route (K1) on the
+    same uniforms, within 2.7e-4 (the reference's kernels against its sigma
+    engine on its chip), each timed. Returns K11's launches and the
+    times."""
+    from dtc_tpu_torch.experiments.engine import build_context, forward_sweep
+    from dtc_tpu_torch.utils.config import SimConfig
+
+    os.environ["DTC_TPU_ENGINE"] = "planar"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            launches, plain, log, seconds = run_cli(
+                ["autocorr", "--inst", "1", *common_argv(MAIN_T, tmp)])
+            cols = one_csv(tmp, "autocorr_data_")
+    finally:
+        del os.environ["DTC_TPU_ENGINE"]
+    a, e = cols["av_autocorr"], cols["av_autocorr_echo"]
+    checks = physics_checks(a, e, (1 - P) ** 6, alternates=True)
+    checks.update({
+        "forward engine=planar, echo engine=sigma": sorted(
+            s[:2] for s in log.sweeps) == [("echo_sweep", "sigma"),
+                                           ("forward_sweep", "planar")],
+        f"K11 launched once a measured cycle ({MAIN_T - 1})":
+            launches["K11"] == MAIN_T - 1,
+        "no other kernel": not any(v for k, v in launches.items()
+                                   if k != "K11"),
+        "no plain version on CUDA": not any(plain.values()),
+    })
+    phase(f"[main] DTC_TPU_ENGINE=planar autocorr L={MAIN_L} T={MAIN_T} "
+          f"inst=1 traj={N_TRAJ} in {seconds:.2f}s: "
+          f"A[0:4]={[round(x, 6) for x in a[:4]]} "
+          f"echo[0:4]={[round(x, 6) for x in e[:4]]} launches="
+          f"{ {k: v for k, v in launches.items() if v} }")
+    fail_on("planar autocorr", checks)
+    phase(f"[main] planar autocorr sweep seconds: forward "
+          f"{log.seconds['forward'][0]:.3f} s (planar), echo "
+          f"{log.seconds['echo'][0]:.3f} s (sigma) on {smi}")
+    cfg = SimConfig(L=MAIN_L, tf=MAIN_T, n_trajectories=N_TRAJ,
+                    noise_prob=P, g=0.97)
+    hs, phis = disorder(MAIN_L, "cpu")
+    sched, params, noise = build_context(cfg, hs.numpy(), phis.numpy(),
+                                         device=dev)
+    u = uniforms((1, N_TRAJ, MAIN_T, MAIN_L), dev, seed=50)
+    sweeps = {}
+    for engine in ("planar", "auto", "planar", "auto"):
+        t0 = time.perf_counter()
+        vals = forward_sweep(cfg, sched, params, noise, uniforms=u,
+                             engine=engine)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        best = sweeps.get(engine, (math.inf, None))[0]
+        sweeps[engine] = (min(best, dt), vals)
+    d = float(abs(sweeps["planar"][1] - sweeps["auto"][1]).max())
+    rates = {k: MAIN_T * N_TRAJ / v[0] for k, v in sweeps.items()}
+    phase(f"[main] planar forward vs the blocked route (K1), same uniforms, "
+          f"L={MAIN_L} T={MAIN_T} 1x{N_TRAJ}: max|planar-K1| = {d:.3e} "
+          f"(<= 2.7e-4); forward sweep {sweeps['planar'][0] * 1e3:.3f} ms = "
+          f"{rates['planar']:.1f} cycles/s (planar) against "
+          f"{sweeps['auto'][0] * 1e3:.3f} ms = {rates['auto']:.1f} "
+          f"cycles/s (K1) on {smi}")
+    if not d <= 2.7e-4:
+        raise RuntimeError(f"planar forward disagrees with K1 by {d}")
+    return {"K11": launches["K11"], "planar_cycles_per_s": rates["planar"],
+            "k1_cycles_per_s": rates["auto"]}
+
+
+def device_af(L, seed=0):
+    """A(0) of a device-noise run: the brisbane model's ancilla and
+    readout contraction at q = L//2."""
+    from dtc_tpu_torch.models.device_noise import fake_device_model
+
+    m = fake_device_model(L, "brisbane", seed=seed + 7)
+    return m.ancilla_interferometric_factor() * m.readout_z_factor(L // 2)
+
+
+def main_device(smi, dev) -> dict:
+    """``autocorr --use_fakebackend 1 --fake_device brisbane`` through the
+    CLI: config 4, the x drive at L=27 (T=8, 4 trajectories) on the
+    streamed x family with device rows (route x_kernel); xy at L=20 (T=20,
+    8 trajectories) on K4 with lab-frame device rows (route general); xy at
+    L=24 (T=4, 2 trajectories) on K10's shard-local forms through the
+    one-shard mesh (route general_mesh). Each: the route logged for both
+    sweeps, its kernels launched and no other, no plain version on CUDA,
+    A(0) = the ancilla and readout factor, |A| <= 1, the echo <= 1. Then
+    config 4 held against the sigma device engine on the same draws: the
+    forward sweeps (the kernel route timed, in trajectory-cycles/s) and the
+    echo at t=1..3, within 2.7e-4. Returns the launches and the rate."""
+    from dtc_tpu_torch.core import device_evolve as de
+    from dtc_tpu_torch.experiments import device_sweeps as ds
+    from dtc_tpu_torch.experiments.engine import build_context
+    from dtc_tpu_torch.utils.config import SimConfig
+
+    out = {}
+    for pol, L, T, n, route, fam in (
+            ("x", 27, 8, 4, "x_kernel", ("K6 forward", "K6 echo")),
+            ("xy", 20, 20, 8, "general", ("K4 forward", "K4 echo")),
+            ("xy", 24, 4, 2, "general_mesh", ("K10a local", "K10b local"))):
+        with tempfile.TemporaryDirectory() as tmp:
+            launches, plain, log, seconds = run_cli(
+                ["autocorr", "--inst", "1", "--polarization", pol,
+                 "--use_fakebackend", "1", "--fake_device", "brisbane",
+                 *common_argv(T, tmp, L=L, n_traj=n)])
+            cols = one_csv(tmp, "autocorr_data_")
+        a, e = cols["av_autocorr"], cols["av_autocorr_echo"]
+        af = device_af(L)
+        checks = physics_checks(a, e, af, alternates=pol == "x")
+        checks.update({
+            f"engine={route} for both sweeps": sorted(
+                s[:2] for s in log.sweeps) == [
+                    ("device_echo_sweep", route),
+                    ("device_forward_sweep", route)],
+            **{f"{k} launched": launches[k] > 0 for k in fam},
+            "no other kernel": not any(v for k, v in launches.items()
+                                       if k not in fam),
+            "no plain version on CUDA": not any(plain.values()),
+        })
+        phase(f"[main] autocorr --use_fakebackend 1 {pol} L={L} T={T} "
+              f"inst=1 traj={n} in {seconds:.2f}s: A(0) = {a[0]:.6f} "
+              f"(the model's {af:.6f}), A[0:4]={[round(x, 6) for x in a[:4]]}"
+              f" echo[0:4]={[round(x, 6) for x in e[:4]]} launches="
+              f"{ {k: v for k, v in launches.items() if v} }")
+        fail_on(f"autocorr --use_fakebackend 1 {pol} L={L}", checks)
+        phase(f"[main] device {pol} L={L} sweep seconds: forward "
+              f"{log.seconds['forward(device)'][0]:.3f} s, echo "
+              f"{log.seconds['echo(device)'][0]:.3f} s on {smi}")
+        out[route] = {k: launches[k] for k in fam}
+    L, T, n = 27, 8, 4
+    cfg = SimConfig(L=L, tf=T, n_trajectories=n, use_fakebackend=1, g=0.97)
+    hs, phis = disorder(L, "cpu")
+    sched, params, _ = build_context(cfg, hs.numpy(), phis.numpy(),
+                                     device=dev)
+    vals, secs = {}, {}
+    for engine in ("auto", "sigma", "auto"):
+        t0 = time.perf_counter()
+        vals[engine] = ds.device_forward_sweep(cfg, sched, params,
+                                               device_engine=engine)
+        torch.cuda.synchronize()
+        secs[engine] = min(secs.get(engine, math.inf),
+                           time.perf_counter() - t0)
+    d = float(abs(vals["auto"] - vals["sigma"]).max())
+    rate = T * n / secs["auto"]
+    phase(f"[main] config 4 (x, L={L}, brisbane) device forward: streamed "
+          f"family with device rows {secs['auto']:.3f} s = {rate:.1f} "
+          f"traj-cycles/s, sigma device engine {secs['sigma']:.3f} s; "
+          f"max|kernel route - sigma| = {d:.3e} (<= 2.7e-4) on {smi}")
+    if not d <= 2.7e-4:
+        raise RuntimeError(f"config 4 forward: kernel route vs sigma {d}")
+    p1, p2, af = ds._rates(cfg, dev)
+    ub = device_blocks(L, 2 * T, 2, n, dev, 70)
+    ts = [1, 2, 3]
+    kw = dict(L=L, T=T, q=L // 2, ancilla_factor=af)
+    ek = de.device_kernel_echo_batch(hs[0].to(dev), phis[0].to(dev), p1, p2,
+                                     sched.angles, ub, ts, **kw)
+    es = de.device_sigma_echo_batch(hs[0].to(dev), phis[0].to(dev), p1, p2,
+                                    sched.angles, ub, ts, **kw)
+    d = float((ek - es).abs().max())
+    phase(f"[main] config 4 device echo t=1..3 1x{n}: max|kernel route - "
+          f"sigma| = {d:.3e} (<= 2.7e-4)")
+    if not d <= 2.7e-4:
+        raise RuntimeError(f"config 4 echo: kernel route vs sigma {d}")
+    out["config4_traj_cycles_per_s"] = rate
+    return out
+
+
 def time_ms(fn, reps=3):
     """(ms per call, the last call's output)."""
     fn()
@@ -2303,13 +2612,42 @@ def timing_cycle_hi(dev, smi, err) -> dict:
     return {k: out[k] for k in ("K9a", "K9b", "K10a local", "K10b local")}
 
 
+def timing_noise_factor(dev, smi, launches) -> dict:
+    """K11 against its plain version at the planar main path's shape: 32
+    states of L=20 and their tiles (one launch of the forward sweep; the
+    outputs were held in ``compare_noise_factor``). Bytes: the state read
+    and written once (16 B per amplitude) and the tiles. Operations per
+    amplitude: 6 L for the angle and the parity, about 20 for a precise
+    sincos, 6 for the complex multiply."""
+    from dtc_tpu_torch.ops import noise_factor as nf
+
+    L, B = MAIN_L, N_TRAJ
+    N = 1 << L
+    gen = torch.Generator(device=dev).manual_seed(3)
+    st = torch.randn((B, 2, N), generator=gen, device=dev)
+    st /= st.square().sum((1, 2), keepdim=True).sqrt()
+    rnd = torch.randint(0, N, (2, B), generator=gen, device=dev)
+    h, ph = ((torch.rand((B, n), generator=gen, device=dev) * 2 - 1)
+             * math.pi for n in (L, L - 1))
+    par = nf.pack_cycle_params(rnd[0], rnd[1], h, ph, L)
+    k_ms, p_ms, _, _ = timed_pair(
+        lambda: nf.apply_noise_factor(st, par, L=L),
+        lambda: nf.noise_factor_plain(st, par, L=L), 3)
+    out = report("K11", f"noise factor L={L} B={B} (planar forward, one "
+                 f"of {launches} launches a sweep)", k_ms, p_ms, B * N,
+                 "states", B, 16 * B * N + 4 * par.numel(), 6 * L + 26, smi,
+                 passes=1)
+    del st
+    return out
+
+
 def main() -> None:
     csrc = os.path.join(HERE, "dtc_tpu_torch", "csrc")
     if not all(os.path.isfile(os.path.join(csrc, f))
                for f in ("floquet_x.cu", "floquet_x_resident.cu",
                          "floquet_x_streamed.cu", "floquet_general.cu",
                          "floquet_general_streamed.cu", "floquet_cycle.cu",
-                         "floquet_cycle_hi.cu")):
+                         "floquet_cycle_hi.cu", "noise_factor.cu")):
         sys.exit("chip_smoke: run it from the root of a checkout of the"
                  " repository (dtc_tpu_torch/csrc not found beside it)")
     smi = card()
@@ -2320,7 +2658,8 @@ def main() -> None:
            "K5": 0.0, "K6 forward": 0.0, "K6 echo": 0.0,
            "K10 forward": 0.0, "K10 echo": 0.0,
            "K8a": 0.0, "K8b": 0.0, "K8c": 0.0, "K8d": 0.0,
-           "K9a": 0.0, "K9b": 0.0, "K10a local": 0.0, "K10b local": 0.0}
+           "K9a": 0.0, "K9b": 0.0, "K10a local": 0.0, "K10b local": 0.0,
+           "K11": 0.0}
     compare_x(dev, err)
     compare_general(dev, err)
     compare_obs(dev, err)
@@ -2331,6 +2670,8 @@ def main() -> None:
     compare_cycle(dev, err)
     compare_cycle_hi(dev, err)
     compare_sharded(dev, err)
+    compare_noise_factor(dev, err)
+    compare_device(dev, err)
     anchors_l30(dev)
     anchors_l31_sharded(dev)
     launches = main_autocorr(smi)
@@ -2348,12 +2689,16 @@ def main() -> None:
     launches.update(main_sharded(smi))
     launches.update(main_sharded_hi(smi))
     launches.update(main_sharded_general_hi(smi))
+    planar = main_planar(smi, dev)
+    launches["K11"] = planar["K11"]
+    device = main_device(smi, dev)
     times = timing(dev, smi, err)
     times.update(timing_streamed(dev, smi, err))
     times.update(timing_general_hi(dev, smi, err))
     times.update(timing_resident(dev, smi, err))
     times.update(timing_cycle(dev, smi, err))
     times.update(timing_cycle_hi(dev, smi, err))
+    times["K11"] = timing_noise_factor(dev, smi, launches["K11"])
     times["K4 forward"] = times.pop("K4 forward xy")
     times["K5"] = times.pop("K5 x")
     general = "dtc_tpu/ops/pallas_resident_general.py"
@@ -2413,6 +2758,8 @@ def main() -> None:
         ("K10b local", "floquet_cycle_hi_general_inverse",
          "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
          "dtc_tpu/ops/pallas_cycle_hi_general.py:250", None),
+        ("K11", "noise_factor_apply", "dtc_tpu_torch/csrc/noise_factor.cu",
+         "dtc_tpu/ops/pallas_noise.py:42", None),
     ]
     line = []
     for key, fn, src, where, also in kernels:
@@ -2430,6 +2777,11 @@ def main() -> None:
             if extra in times[key]:
                 entry[extra] = times[key][extra]
         line.append(entry)
+    phase(f"[timing] planar forward {planar['planar_cycles_per_s']:.1f} "
+          f"cycles/s against K1's {planar['k1_cycles_per_s']:.1f} at the "
+          f"bench shape; config 4 device forward "
+          f"{device['config4_traj_cycles_per_s']:.1f} traj-cycles/s on "
+          f"{smi}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

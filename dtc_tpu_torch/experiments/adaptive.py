@@ -35,9 +35,9 @@ Each adaptive or fixed-g sweep logs its engine once (``..._sweep:
 engine=...``; the carried stepper's is ``carried``). The kernel stepper
 logs the route its calls take, once for each: a step whose schedule is
 still constant (the first) takes the constant-x route, as in the
-reference, the later ones the per-cycle route. Unlike the reference, ``use_fakebackend=1`` raises: the
-device-noise path is not ported, and these runs do not use depolarizing
-noise in its place.
+reference, the later ones the per-cycle route. Unlike the reference,
+``use_fakebackend=1`` raises: the reference's adaptive loops have no
+device-noise path and run depolarizing noise under the flag.
 """
 
 from __future__ import annotations
@@ -132,9 +132,9 @@ def instance_uniforms(seed: int, n_traj: int, shapes, device):
 def _refuse_fakebackend(cfg) -> None:
     if cfg.use_fakebackend:
         raise NotImplementedError(
-            "use_fakebackend=1 (device noise) is not ported yet: ROADMAP.md"
-            " queue 1, device noise; the adaptive runs do not use"
-            " depolarizing noise in its place")
+            "use_fakebackend=1 (device noise) is refused by the adaptive"
+            " runs: the reference's have no device-noise path and run"
+            " depolarizing noise under the flag (ROADMAP.md queue 3)")
 
 
 def stepper_engine(cfg) -> str:

@@ -8,10 +8,11 @@ columns when requested); and the studies built on it,
 ``run_polarization_comparison``, ``run_shots_study`` and
 ``run_xy_cycle_comparison``, with the reference's CSV columns and file
 names. The xy-cycle plot (matplotlib) is not ported: ROADMAP.md queue 1,
-CLI and edges (``analysis/plots.py``). Every study here refuses
-``use_fakebackend=1``: the device-noise path is not ported, and they do not
-run depolarizing noise in its place (the reference's ``run_shots_study``
-does).
+CLI and edges (``analysis/plots.py``). ``use_fakebackend=1`` takes the
+device-noise sweeps (``experiments/device_sweeps.py``) in ``run_autocorr``,
+and so in ``run_polarization_comparison`` and ``run_xy_cycle_comparison``,
+as the reference's does. ``run_shots_study`` refuses it: the reference's
+runs depolarizing noise under the flag (ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
@@ -24,6 +25,10 @@ from dtc_tpu_torch.analysis.envelope import find_envelope
 from dtc_tpu_torch.io import csvio, naming
 from dtc_tpu_torch.io.disorder import get_disorder
 from dtc_tpu_torch.utils.profiling import phase_timer
+from dtc_tpu_torch.experiments.device_sweeps import (
+    device_echo_sweep,
+    device_forward_sweep,
+)
 from dtc_tpu_torch.experiments.engine import (
     apply_shot_noise,
     build_context,
@@ -42,8 +47,9 @@ def _raw_sqrt(x):
 def _refuse_fakebackend(cfg) -> None:
     if cfg.use_fakebackend:
         raise NotImplementedError(
-            "use_fakebackend=1 (device noise) is not ported yet: ROADMAP.md"
-            " queue 1, device noise (core/device_evolve.py)")
+            "use_fakebackend=1 (device noise) is refused by the shots study:"
+            " the reference's runs depolarizing noise under the flag"
+            " (ROADMAP.md queue 3)")
 
 
 def run_autocorr(cfg, hs=None, phis=None, *, device="cuda", out_dir=None,
@@ -54,7 +60,9 @@ def run_autocorr(cfg, hs=None, phis=None, *, device="cuda", out_dir=None,
 
     uniforms: optional (forward, echo) pair of f32 blocks,
     (inst, n_traj, T*K, L) and (inst, n_traj, 2T*K, L); drawn from
-    generators seeded with cfg.seed when None.
+    generators seeded with cfg.seed when None. With ``use_fakebackend=1``
+    the sweeps are the device-noise ones and the blocks theirs
+    (``experiments/device_sweeps.py``).
     """
     if method == "exact":
         raise NotImplementedError(
@@ -62,16 +70,23 @@ def run_autocorr(cfg, hs=None, phis=None, *, device="cuda", out_dir=None,
             " ROADMAP.md queue 1, exact density matrix (core/density.py)")
     if method != "trajectories":
         raise ValueError(f"unknown method {method!r}")
-    _refuse_fakebackend(cfg)
     if hs is None or phis is None:
         hs, phis = get_disorder(cfg, disorder_dir)
     sched, params, noise = build_context(cfg, hs, phis, device=device)
     u_fwd, u_echo = uniforms if uniforms is not None else (None, None)
 
-    with phase_timer("forward"):
-        autocorr = forward_sweep(cfg, sched, params, noise, uniforms=u_fwd)
-    with phase_timer("echo"):
-        echo = echo_sweep(cfg, sched, params, noise, uniforms=u_echo)
+    if cfg.use_fakebackend:
+        with phase_timer("forward(device)"):
+            autocorr = device_forward_sweep(cfg, sched, params,
+                                            uniforms=u_fwd)
+        with phase_timer("echo(device)"):
+            echo = device_echo_sweep(cfg, sched, params, uniforms=u_echo)
+    else:
+        with phase_timer("forward"):
+            autocorr = forward_sweep(cfg, sched, params, noise,
+                                     uniforms=u_fwd)
+        with phase_timer("echo"):
+            echo = echo_sweep(cfg, sched, params, noise, uniforms=u_echo)
 
     if cfg.shots:
         autocorr = apply_shot_noise(autocorr, cfg.shots, cfg.seed)

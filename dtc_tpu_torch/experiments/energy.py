@@ -78,9 +78,9 @@ def apply_estimator_noise(values: np.ndarray, shots: int,
 def _refuse_fakebackend(cfg) -> None:
     if cfg.use_fakebackend:
         raise NotImplementedError(
-            "use_fakebackend=1 (device noise) is not ported yet: ROADMAP.md"
-            " queue 1, device noise (core/device_evolve.py); the energy studies"
-            " do not run depolarizing noise in its place")
+            "use_fakebackend=1 (device noise) is refused by the energy"
+            " studies: the reference's have no device-noise path and run"
+            " depolarizing noise under the flag (ROADMAP.md queue 3)")
 
 
 def energy_engine(cfg, K: int) -> str:

@@ -26,6 +26,14 @@ Dispatch is by shape, as in the reference, with the port's own tiers:
   whose single-chip general route stops at L=29 and complex64.
 Each sweep logs once which engine served it (``engine=...``).
 
+The engine choice ``DTC_TPU_ENGINE`` (read by each sweep, as the reference
+reads it; also the sweeps' ``engine=`` keyword) takes ``auto`` (the routes
+above) or ``planar``: then a constant x drive's forward sweep takes the
+planar engine (``core/planar_evolve.py``, kernel K11 once per cycle), and
+every other forward shape and every echo the sigma engine, as the
+reference's dispatch does under that name. The reference's other names
+select v5e code shapes, which the port does not have; they raise.
+
 Noise: every entry takes an optional block of f32 uniforms laid out as the
 reference draws them per trajectory — forward (inst, n_traj, T*K, L), echo
 (inst, n_traj, 2T*K, L), the echo block shared by every t. Without one, the
@@ -37,10 +45,12 @@ not depend on chunking.
 from __future__ import annotations
 
 import logging
+import os
 
 import numpy as np
 import torch
 
+from dtc_tpu_torch.core.planar_evolve import planar_forward_batch
 from dtc_tpu_torch.core.sigma_evolve import (
     draw_uniforms,
     sigma_echo_batch,
@@ -77,6 +87,19 @@ DEFAULT_BATCH_BYTES = 2 << 30
 KERNEL_STATE_BYTES = 8 << 30
 
 ECHO_SALT = 7919
+
+ENGINES = ("auto", "planar")
+
+
+def engine_choice(engine=None) -> str:
+    """``engine``, else ``DTC_TPU_ENGINE``, else "auto"; ValueError for a
+    name the port does not take."""
+    if engine is None:
+        engine = os.environ.get("DTC_TPU_ENGINE", "auto")
+    if engine not in ENGINES:
+        raise ValueError(f"engine {engine!r} (DTC_TPU_ENGINE) is not one of "
+                         f"{', '.join(ENGINES)}")
+    return engine
 
 
 def resolve_device(device) -> torch.device:
@@ -135,16 +158,22 @@ def constant_x_theta(angles) -> float | None:
     return float(ang[0, 0, 0])
 
 
-def engine_for(angles, *, L, T, q, dtype_name, has_y, echo: bool) -> str:
+def engine_for(angles, *, L, T, q, dtype_name, has_y, echo: bool,
+               engine: str = "auto") -> str:
     """'resident' (x kernels K3a/K3b or their plain versions), 'blocked'
     (K1/K2 or their plain versions), 'streamed' (the large-L x family or its
     plain versions), 'general' (the lab-frame kernel K4 or its plain
     versions), 'general_hi' (the large-L lab-frame family or its plain
-    versions) or 'sigma'."""
-    if dtype_name != "complex64" or not 0 <= q < L:
-        return "sigma"
+    versions) or 'sigma'; under ``engine="planar"`` 'planar' (a constant x
+    drive's forward, any L and dtype: the planar engine computes in f32
+    planes) or 'sigma'."""
     x_only = not has_y and x_schedule(angles)
     const_x = x_only and constant_x_theta(angles) is not None
+    if engine == "planar":
+        return ("planar" if const_x and not echo and 0 <= q < L
+                else "sigma")
+    if dtype_name != "complex64" or not 0 <= q < L:
+        return "sigma"
     if x_only:
         # constant x: K3 below K1's range; per-cycle x: K3's whole range
         top = resident_blocked.MIN_L - 1 if const_x else resident.MAX_L
@@ -177,12 +206,17 @@ def _host_and_device(angles, device):
 
 def _forward_batch(hs, phis, angles, uniforms, *, L, T, K, p, q,
                    initial_state, dtype_name, ancilla_factor, has_y=False,
-                   n_traj=None, generator=None):
+                   n_traj=None, generator=None, engine="auto"):
     """(inst, L), (inst, L-1), (T, K, 2) on any device, uniforms (inst, c,
     T*K, L) or None -> (inst, c, T) tensor on hs's device."""
     host, angles = _host_and_device(angles, hs.device)
     engine = engine_for(host, L=L, T=T, q=q, dtype_name=dtype_name,
-                        has_y=has_y, echo=False)
+                        has_y=has_y, echo=False, engine=engine)
+    if engine == "planar":
+        return planar_forward_batch(
+            hs, phis, angles, uniforms, L=L, T=T, p=p, q=q,
+            initial_state=initial_state, ancilla_factor=ancilla_factor,
+            n_traj=n_traj, generator=generator)
     theta = constant_x_theta(host)
     if engine != "sigma":
         inst = hs.shape[0]
@@ -223,11 +257,11 @@ def _forward_batch(hs, phis, angles, uniforms, *, L, T, K, p, q,
 
 def _echo_batch(hs, phis, angles, ts, uniforms, *, L, T, K, p, q,
                 initial_state, dtype_name, ancilla_factor, has_y=False,
-                n_traj=None, generator=None):
+                n_traj=None, generator=None, engine="auto"):
     """-> (inst, c, n_ts) echo values; uniforms (inst, c, 2T*K, L)."""
     host, angles = _host_and_device(angles, hs.device)
     engine = engine_for(host, L=L, T=T, q=q, dtype_name=dtype_name,
-                        has_y=has_y, echo=True)
+                        has_y=has_y, echo=True, engine=engine)
     theta = constant_x_theta(host)
     if engine != "sigma":
         inst = hs.shape[0]
@@ -279,23 +313,34 @@ def _sweep_uniforms(uniforms, shape, seed, device):
     return draw_uniforms(shape, generator=gen, device=device)
 
 
-def forward_sweep(cfg, sched, params, noise, *, uniforms=None) -> np.ndarray:
-    """A(t) per instance, trajectory-averaged: (inst, T) numpy."""
+def forward_sweep(cfg, sched, params, noise, *, uniforms=None,
+                  engine=None) -> np.ndarray:
+    """A(t) per instance, trajectory-averaged: (inst, T) numpy. ``engine``
+    (default ``DTC_TPU_ENGINE``, else "auto"): "auto" or "planar"."""
     hs, phis = params
     p = noise.p
     af = noise.ancilla_factor if p > 0 else 1.0
     K, L, T = sched.K, cfg.L, cfg.tf
+    choice = engine_choice(engine)
     kw = dict(L=L, T=T, K=K, p=p, q=cfg.probe_qubit,
               initial_state=cfg.initial_state, dtype_name=cfg.dtype,
-              ancilla_factor=af, has_y=cfg.polarization != "x")
+              ancilla_factor=af, has_y=cfg.polarization != "x",
+              engine=choice)
     engine = engine_for(sched.angles, L=L, T=T, q=cfg.probe_qubit,
-                        dtype_name=cfg.dtype, has_y=kw["has_y"], echo=False)
+                        dtype_name=cfg.dtype, has_y=kw["has_y"], echo=False,
+                        engine=choice)
     log.info("forward_sweep: engine=%s pol=%s L=%d T=%d", engine,
              cfg.polarization, L, T)
     n_traj = cfg.n_trajectories if p > 0 else 1
     u = (_sweep_uniforms(uniforms, (cfg.inst, n_traj, T * K, L), cfg.seed,
                          hs.device) if p > 0 else None)
-    if engine != "sigma":
+    if engine == "planar":
+        # whole states and their matmul temporaries, like the sigma engine,
+        # within the kernel routes' budget
+        ic = cfg.inst
+        chunk = traj_chunks(n_traj, L, extra_factor=2 * cfg.inst,
+                            budget_bytes=KERNEL_STATE_BYTES)
+    elif engine != "sigma":
         ic, chunk, _ = kernel_chunks(cfg.inst, n_traj, 1, L)
     else:
         ic = cfg.inst
@@ -314,22 +359,25 @@ def forward_sweep(cfg, sched, params, noise, *, uniforms=None) -> np.ndarray:
 
 
 def echo_sweep(cfg, sched, params, noise, *, uniforms=None,
-               t_chunk: int = 8) -> np.ndarray:
+               t_chunk: int = 8, engine=None) -> np.ndarray:
     """Echo A0(t) per instance, trajectory-averaged: (inst, T) numpy.
     The noiseless echo is exactly 1 and is returned analytically. The
     kernel routes take at most ``t_chunk`` t values per launch, fewer where
-    KERNEL_STATE_BYTES holds fewer states."""
+    KERNEL_STATE_BYTES holds fewer states. ``engine`` as in
+    ``forward_sweep`` ("planar": every echo takes the sigma engine)."""
     hs, phis = params
     p = noise.p
+    choice = engine_choice(engine)
     if p == 0.0:
         return np.ones((cfg.inst, cfg.tf))
     K, L, T = sched.K, cfg.L, cfg.tf
     kw = dict(L=L, T=T, K=K, p=p, q=cfg.probe_qubit,
               initial_state=cfg.initial_state, dtype_name=cfg.dtype,
               ancilla_factor=noise.ancilla_factor,
-              has_y=cfg.polarization != "x")
+              has_y=cfg.polarization != "x", engine=choice)
     engine = engine_for(sched.angles, L=L, T=T, q=cfg.probe_qubit,
-                        dtype_name=cfg.dtype, has_y=kw["has_y"], echo=True)
+                        dtype_name=cfg.dtype, has_y=kw["has_y"], echo=True,
+                        engine=choice)
     log.info("echo_sweep: engine=%s pol=%s L=%d T=%d", engine,
              cfg.polarization, L, T)
     n_traj = cfg.n_trajectories

@@ -150,8 +150,9 @@ def run_autocorr_sharded(cfg, hs=None, phis=None, *, n_amp=None, mesh=None,
     """
     if cfg.use_fakebackend:
         raise NotImplementedError(
-            "use_fakebackend=1 on the sharded engines is not ported yet: "
-            "ROADMAP.md queue 1, device noise")
+            "use_fakebackend=1 is refused by run_autocorr_sharded: the "
+            "reference's never reads the flag and runs depolarizing noise "
+            "(ROADMAP.md queue 3)")
     if hs is None or phis is None:
         hs, phis = get_disorder(cfg, disorder_dir)
     if mesh is None:

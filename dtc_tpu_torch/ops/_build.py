@@ -7,7 +7,8 @@ large-L x family that replaces K6a/K6b/K7a/K7b), ``floquet_general`` (K4,
 K5), ``floquet_general_streamed`` (the large-L lab-frame family,
 K10a/K10b), ``floquet_cycle`` (K8a-d, one cycle on a shard's local bits,
 17 <= L_loc <= 23) and ``floquet_cycle_hi`` (K9a/K9b and K10's shard-local
-forms, one cycle on a shard's local bits, 22 <= L_loc <= 30). A source is
+forms, one cycle on a shard's local bits, 22 <= L_loc <= 30) and
+``noise_factor`` (K11, the planar engine's per-cycle noise factor). A source is
 compiled at first use with nvcc for sm_90a into a shared library under
 ``dtc_tpu_torch/csrc/build/`` (named by the hash of the source, the shared
 headers ``csrc/*.cuh`` and the flags, so an edit rebuilds) and loaded with
@@ -101,6 +102,9 @@ LIBRARIES = {
                                              _I32, _I32, _I32, _VP],
         "floquet_cycle_hi_general_inverse": [_VP, _VP, _I32, _I32, _I32,
                                              _I32, _VP],
+    },
+    "noise_factor": {
+        "noise_factor_apply": [_VP, _VP, _I32, _I32, _VP],
     },
 }
 

@@ -2,7 +2,8 @@
 
 Ports of
 - ``dtc_tpu/ops/pallas_noise.py::pack_cycle_params_compact`` (the compact
-  per-cycle parameter row),
+  per-cycle parameter row) and ``::pack_device_cycle_params_compact`` (the
+  same row for device-noise events),
 - ``dtc_tpu/ops/pallas_resident.py::_kick_matrices`` (RX kron-group kick
   matrices) and ``::echo_pair_tiles`` (the echo's (pre, post) step rows).
 
@@ -72,6 +73,34 @@ def pack_cycle_params_compact(zm, sigma, hs, phis, L: int,
     pad = torch.zeros((*batch, width - (5 * L - 2)), dtype=torch.float32,
                       device=hs.device)
     return torch.cat([zmb, sgb, flip,
+                      hs.to(torch.float32).expand(*batch, L),
+                      phis.to(torch.float32).expand(*batch, L - 1), pad], -1)
+
+
+def pack_device_cycle_params_compact(zm, sig_a, sig_b, sig_c, hs, phis,
+                                     L: int, width: int = WIDTH
+                                     ) -> torch.Tensor:
+    """The compact row of a device-noise cycle (the x kernels read it
+    unchanged): the n lanes carry the cycle's combined Z mask, the sigma
+    lanes sig_c's bits (the field terms apply last), and bond j's flip comes
+    from sig_a for even bonds, from sig_b for odd ones (each RZZ sublayer at
+    its own pre-event frame; ``core/device_evolve.py``). int64 masks (...),
+    hs (..., L), phis (..., L-1); leading dimensions broadcast."""
+    if 5 * L - 2 > width:
+        raise ValueError(f"L={L} needs {5 * L - 2} lanes > {width}")
+    dev = hs.device
+    masks = [torch.as_tensor(m, dtype=torch.int64, device=dev)
+             for m in (zm, sig_a, sig_b, sig_c)]
+    batch = torch.broadcast_shapes(*(m.shape for m in masks), hs.shape[:-1],
+                                   phis.shape[:-1])
+    zmb, sab, sbb, scb = (_bit_lanes(m, L).expand(*batch, L) for m in masks)
+    flip_a = (sab[..., :L - 1] - sab[..., 1:]).abs()
+    flip_b = (sbb[..., :L - 1] - sbb[..., 1:]).abs()
+    even = torch.arange(L - 1, device=dev) % 2 == 0
+    flip = torch.where(even, flip_a, flip_b)
+    pad = torch.zeros((*batch, width - (5 * L - 2)), dtype=torch.float32,
+                      device=dev)
+    return torch.cat([zmb, scb, flip,
                       hs.to(torch.float32).expand(*batch, L),
                       phis.to(torch.float32).expand(*batch, L - 1), pad], -1)
 

@@ -73,19 +73,28 @@ def _noise_masks(uniforms, p, L, shape, dev):
 
 def general_forward_rows(uniforms, hs, phis, angles, *, L: int, T: int,
                          K: int, p: float, batch=None,
-                         width: int = WIDTH) -> torch.Tensor:
+                         width: int = WIDTH, masks=None,
+                         phi_rows=None, h_rows=None) -> torch.Tensor:
     """Per-step rows of the forward kernel, (..., T*K, width) f32.
 
     uniforms (..., T*K, L) f32, drawn per trajectory as the reference's
     ``uniform(key, (T*K, L))``; hs (..., L) and phis (..., L-1) broadcast
     over the leading dimensions; angles (T, K, 2). With p == 0 the uniforms
     are unused (may be None) and ``batch`` gives the leading shape; width
-    128 (K4, K10 on one card, K8) or ``general_hi_width(L)``."""
+    128 (K4, K10 on one card, K8) or ``general_hi_width(L)``. The
+    reference's device-noise hook: ``masks`` = (zm, xm) int64 (..., T*K)
+    replace the sampled events, ``phi_rows`` (..., T*K, L-1) the phi lanes
+    and ``h_rows`` (..., T*K, L) the h lanes (already zero off the final
+    slots)."""
     _check_width(L, width)
     dev = hs.device
     S = T * K
-    lead = uniforms.shape[:-2] if uniforms is not None else tuple(batch)
-    xm, zm = _noise_masks(uniforms, p, L, (*lead, S), dev)
+    if masks is not None:
+        zm, xm = masks
+        lead = zm.shape[:-1]
+    else:
+        lead = uniforms.shape[:-2] if uniforms is not None else tuple(batch)
+        xm, zm = _noise_masks(uniforms, p, L, (*lead, S), dev)
     u8 = slot_u8(angles[..., 0], angles[..., 1]).reshape(S, 8)
     # the final slot of cycle t < T-1 is measured into A(t+1)
     mpos = torch.full((T, K), -1.0, dtype=torch.float32, device=dev)
@@ -97,8 +106,10 @@ def general_forward_rows(uniforms, hs, phis, angles, *, L: int, T: int,
                         device=dev)
     flags[:, LANE_MPOS] = mpos.reshape(S)
     flags[:, LANE_U8:LANE_U8 + 8] = u8
-    h = final * hs[..., None, :].to(torch.float32)
-    ph = final * phis[..., None, :].to(torch.float32)
+    h = (final * hs[..., None, :].to(torch.float32) if h_rows is None
+         else h_rows.to(torch.float32))
+    ph = (final * phis[..., None, :].to(torch.float32) if phi_rows is None
+          else phi_rows.to(torch.float32))
     lead = torch.broadcast_shapes(lead, h.shape[:-2], ph.shape[:-2])
     return torch.cat([_bit_lanes(zm, L).expand(*lead, S, L),
                       _bit_lanes(xm, L).expand(*lead, S, L),
@@ -108,7 +119,8 @@ def general_forward_rows(uniforms, hs, phis, angles, *, L: int, T: int,
 
 def general_echo_rows(uniforms, ts, hs, phis, angles, *, L: int, T: int,
                       K: int, p: float, batch=None,
-                      width: int = WIDTH) -> torch.Tensor:
+                      width: int = WIDTH, masks=None,
+                      diag_rows=None) -> torch.Tensor:
     """Interleaved (pre, post) step rows for every (trajectory, t) pair,
     (..., n_ts, 4T*K, width) f32.
 
@@ -120,23 +132,33 @@ def general_echo_rows(uniforms, ts, hs, phis, angles, *, L: int, T: int,
     reversed, daggered unitaries); each slot j is one row pair. The pre row carries the kick
     (unitary and X-mask) and, on the first slot of an inverse cycle, the
     inverse diagonal D0* (-h, -phi); the post row the event's Z bits and, on
-    the final slot of a forward cycle, D0 (h, phi)."""
+    the final slot of a forward cycle, D0 (h, phi).
+
+    The reference's device-noise hook: ``masks`` = (xm, zm) int64
+    (..., n_ts, 2T, K) replace the sampled events, and ``diag_rows`` =
+    (pre_h, pre_phi, post_h, post_phi), (..., n_ts, 2T, L or L-1), replace
+    the first slot's pre diagonal and the final slot's post diagonal
+    (already signed, and zero off the inverse and forward steps)."""
     _check_width(L, width)
     dev = hs.device
     T2 = 2 * T
     ts = torch.as_tensor(ts, dtype=torch.int64, device=dev)
     n_ts = ts.shape[0]
-    lead = uniforms.shape[:-2] if uniforms is not None else tuple(batch)
     kstep = torch.arange(T2, device=dev)
     t_ = ts[:, None]
     fwd = kstep < t_                                            # (n_ts, 2T)
     inv = (kstep >= t_) & (kstep < 2 * t_)
-    if p > 0.0:
+    if masks is not None:
+        xm, zm = masks
+        lead = xm.shape[:-3]
+    elif p > 0.0:
+        lead = uniforms.shape[:-2]
         u = uniforms.reshape(*lead, 1, T2, K, L)
         codes = torch.where((fwd | inv)[..., None, None],
                             _codes_from_uniform(u, p), 0)
         xm, zm = _masks_from_codes(codes, L)              # (..., n_ts, 2T, K)
     else:
+        lead = uniforms.shape[:-2] if uniforms is not None else tuple(batch)
         xm = zm = torch.zeros((*lead, n_ts, T2, K), dtype=torch.int64,
                               device=dev)
     # cycle of step k: forward k, inverse 2t-1-k; slot j runs slot j
@@ -160,13 +182,19 @@ def general_echo_rows(uniforms, ts, hs, phis, angles, *, L: int, T: int,
     def full(x, lanes):
         return x.expand(*shape, lanes)
 
+    if diag_rows is None:
+        pre_h, pre_ph = -pre_d[..., None] * h, -pre_d[..., None] * ph
+        post_h, post_ph = post_d[..., None] * h, post_d[..., None] * ph
+    else:
+        # the given rows sit on the first (pre) and final (post) slot
+        pre_h, pre_ph, post_h, post_ph = (
+            r.to(torch.float32)[..., None, :] * s[..., None]
+            for r, s in zip(diag_rows, (first, first, last, last)))
     pre = torch.cat([zl, full(_bit_lanes(xm, L), L),
-                     full(-pre_d[..., None] * h, L),
-                     full(-pre_d[..., None] * ph, L - 1),
+                     full(pre_h, L), full(pre_ph, L - 1),
                      full(flags, flags.shape[-1])], -1)
     post = torch.cat([full(_bit_lanes(zm, L), L), zl,
-                      full(post_d[..., None] * h, L),
-                      full(post_d[..., None] * ph, L - 1),
+                      full(post_h, L), full(post_ph, L - 1),
                       torch.zeros((*shape, flags.shape[-1]),
                                   dtype=torch.float32, device=dev)], -1)
     tiles = torch.stack([pre, post], dim=-2).reshape(*shape[:-2],

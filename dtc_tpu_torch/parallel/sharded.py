@@ -47,8 +47,20 @@ from it up to 30), as the reference switches at its
 ``DTC_TPU_SHARDED_HI_MIN_LB``; x rows are ``forward_width(L_loc)`` lanes
 wide and lab-frame rows ``general_hi_width(L_loc)``. The shard-bit kicks,
 the global diagonal and the boundary bond phi[L_loc-1] are torch tensor
-ops between the launches. Device noise (``device=``) is not ported here
-and raises NotImplementedError naming its ROADMAP.md item.
+ops between the launches.
+
+Device noise: the lab-frame cycle-kernel engines take ``device=(p_1q,
+p_2q, events_per_kick)`` with p == 0, as the reference's do. The
+depolarizing draw is replaced by the lab-frame device rows of
+``core/device_evolve.py`` (composed per-slot Pauli words, the commutation
+signs baked into per-step h and phi rows). The words' shard-bit parts take
+the depolarizing bookkeeping (X into the XOR frame, Z through the slot kicks
+and the global diagonal), and the per-step rows reach the global and
+boundary bonds through the global diagonal. Uniforms are then the device
+block ``(u1, ue, uo)`` of ``core/device_evolve.py`` (forward T steps, echo
+2T), trajectories first. It is the route of the device sweeps for every
+non-x drive at 24 <= L <= 30 on a one-shard mesh
+(``experiments/device_sweeps.py``).
 """
 
 from __future__ import annotations
@@ -57,6 +69,10 @@ import math
 
 import torch
 
+from dtc_tpu_torch.core.device_evolve import (
+    _device_general_echo_rows,
+    _device_general_rows,
+)
 from dtc_tpu_torch.core.sigma_evolve import (
     _bits,
     _codes_from_uniform,
@@ -85,10 +101,6 @@ from dtc_tpu_torch.ops.paulis import _i_power, _parity
 from dtc_tpu_torch.parallel.mesh import amp_bits
 
 _HALF_PI = math.pi / 2
-
-NOT_PORTED_DEVICE = ("device-noise rows on the sharded engines are not "
-                     "ported yet: ROADMAP.md queue 1, device noise")
-
 
 # ---------------------------------------------------------------------------
 # the global-bit algebra (shards: one (n, M) tensor per 'amp' index)
@@ -237,7 +249,8 @@ def _tail_phase_angles(zm_t, sig_t, hs, phis, aidx, *, L, local_bits):
     shard-shard bonds; theta_boundary the boundary bond phi[L_loc-1] with
     its shard-bit-0 leg. The compact-row formula (cz = h (sig - 1/2) -
     (pi/2) n, cb = phi (flip - 1/2), c0 = (pi/2) sum n) restricted to bits
-    >= L_loc. hs (L,), phis (L-1,); masks (n,) int64."""
+    >= L_loc. hs (L,) or per trajectory (n, L), phis likewise; masks (n,)
+    int64."""
     zb = _bits(sig_t, L).to(torch.float32)                         # (n, L)
     nb = _bits(zm_t, L).to(torch.float32)
     hf = hs.to(torch.float32).to(zb.device)
@@ -245,17 +258,17 @@ def _tail_phase_angles(zm_t, sig_t, hs, phis, aidx, *, L, local_bits):
     th_sc = torch.zeros(zm_t.shape, dtype=torch.float32, device=zb.device)
     for qq in range(local_bits, L):
         z = 1.0 - 2.0 * ((aidx >> (qq - local_bits)) & 1)
-        czq = hf[qq] * (zb[:, qq] - 0.5) - _HALF_PI * nb[:, qq]
+        czq = hf[..., qq] * (zb[:, qq] - 0.5) - _HALF_PI * nb[:, qq]
         th_sc = th_sc + czq * z + _HALF_PI * nb[:, qq]
     for b in range(local_bits, L - 1):
         gb, gb1 = b - local_bits, b + 1 - local_bits
         zz = ((1.0 - 2.0 * ((aidx >> gb) & 1))
               * (1.0 - 2.0 * ((aidx >> gb1) & 1)))
         flip = (zb[:, b] - zb[:, b + 1]).abs()
-        th_sc = th_sc + pf[b] * (flip - 0.5) * zz
+        th_sc = th_sc + pf[..., b] * (flip - 0.5) * zz
     b = local_bits - 1
     flip = (zb[:, b] - zb[:, b + 1]).abs()
-    th_bnd = pf[b] * (flip - 0.5) * (1.0 - 2.0 * (aidx & 1))
+    th_bnd = pf[..., b] * (flip - 0.5) * (1.0 - 2.0 * (aidx & 1))
     return th_sc, th_bnd
 
 
@@ -382,23 +395,29 @@ def _ancilla(p, ancilla_factor):
 
 def _traj_groups(mesh, uniforms, n_traj, p, chunk=None):
     """[(t, uniforms of the run or None, trajectories c)]: the trajectories
-    split over 'traj' in order, each group in runs of at most ``chunk``."""
+    split over 'traj' in order, each group in runs of at most ``chunk``.
+    ``uniforms`` may be a tuple of blocks (device noise), each sliced."""
     if uniforms is None and p > 0.0:
         raise ValueError("a noisy run (p > 0) needs its block of uniforms")
+    if isinstance(uniforms, (tuple, list)):
+        blocks = uniforms
+        return [(t, tuple(b[lo:lo + run] for b in blocks), run)
+                for t, lo, run in _runs(mesh, blocks[0].shape[0], chunk)]
     n = uniforms.shape[0] if uniforms is not None else n_traj
+    return [(t, None if uniforms is None else uniforms[lo:lo + run], run)
+            for t, lo, run in _runs(mesh, n, chunk)]
+
+
+def _runs(mesh, n, chunk):
+    """[(traj group, first trajectory, count)] of n trajectories."""
     groups = mesh.shape["traj"]
     if n is None or n % groups:
         raise ValueError(f"{n} trajectories do not split over the mesh's "
                          f"{groups} traj groups")
     c = n // groups
     step = chunk or c
-    out = []
-    for t in range(groups):
-        for lo in range(t * c, (t + 1) * c, step):
-            run = min(step, (t + 1) * c - lo)
-            out.append((t, None if uniforms is None
-                        else uniforms[lo:lo + run], run))
-    return out
+    return [(t, lo, min(step, (t + 1) * c - lo)) for t in range(groups)
+            for lo in range(t * c, (t + 1) * c, step)]
 
 
 def _basis_shards(mesh, t, c, L, local_bits, b0, dtype):
@@ -769,6 +788,33 @@ def make_sharded_echo_kernel(mesh, *, L, T, p, q, initial_state="vacuum",
     return fn
 
 
+def _check_device(device, p, uniforms=None, called=False):
+    """The device mode's conditions: p == 0 when the engine is made, the
+    device uniform blocks when it is called."""
+    if device is not None and p != 0.0:
+        raise ValueError("device mode replaces depolarizing noise; pass p=0")
+    if device is not None and called and not isinstance(uniforms,
+                                                         (tuple, list)):
+        raise ValueError("device mode needs its uniform blocks (u1, ue, uo)")
+
+
+def _device_rates(device, dev):
+    """(p_1q, p_2q, events_per_kick) on ``dev``: the rates in f32, as the
+    reference's sharded engines take them."""
+    p1, p2, epk = device
+    return (torch.as_tensor(p1, dtype=torch.float32, device=dev),
+            torch.as_tensor(p2, dtype=torch.float32, device=dev), int(epk))
+
+
+def _on_final(rows, K):
+    """Per-cycle rows (c, T, n) -> per-slot rows (c, T*K, n), zero off the
+    final slots."""
+    c, T, n = rows.shape
+    out = torch.zeros((c, T, K, n), dtype=rows.dtype, device=rows.device)
+    out[:, :, K - 1] = rows
+    return out.reshape(c, T * K, n)
+
+
 def _general_words(u, p, L, shape, dev):
     """(xm, zm) int64 of ``shape`` from uniforms (..., L); zeros at p=0."""
     if p > 0.0:
@@ -791,9 +837,12 @@ def make_sharded_autocorr_forward_general(mesh, *, L, T, K, p, q,
 
     Same semantics as ``make_sharded_autocorr_forward``: fn(angles, hs,
     phis, uniforms (n, T*K, L) or None, n_traj=None) -> A (T,). Requires
-    17 <= L_loc <= 30 and q < L_loc."""
-    if device is not None:
-        raise NotImplementedError(NOT_PORTED_DEVICE)
+    17 <= L_loc <= 30 and q < L_loc. ``device=(p_1q, p_2q,
+    events_per_kick)`` (p == 0) takes the device rows of
+    ``core/device_evolve.py::_device_general_rows`` from uniforms (u1 (n,
+    T, K*E, L), ue, uo); the final slot's sign-adjusted phi row also
+    reaches the global diagonal."""
+    _check_device(device, p)
     local_bits = _kernel_geometry(mesh, L, q)
     forward_apply = (cycle_hi.general_hi_cycle_forward_apply
                      if use_hi(local_bits)
@@ -808,6 +857,7 @@ def make_sharded_autocorr_forward_general(mesh, *, L, T, K, p, q,
     gkw = dict(L=L, local_bits=local_bits)
 
     def fn(angles, hs, phis, uniforms=None, n_traj=None):
+        _check_device(device, p, uniforms, called=True)
         host = angles.detach().cpu().tolist()
         total = 0.0
         n = 0
@@ -815,7 +865,16 @@ def make_sharded_autocorr_forward_general(mesh, *, L, T, K, p, q,
                                     _launch_traj(mesh, local_bits)):
             dev0 = mesh.device(t, 0)
             ang = angles.to(dev0)
-            xm, zm = _general_words(u, p, L, (c, S), dev0)         # (c, S)
+            if device is not None:
+                zm, xm, phi_rows = _device_general_rows(
+                    tuple(b.to(dev0) for b in u), phis.to(dev0),
+                    *_device_rates(device, dev0), T, K, L)
+                dkw = dict(masks=(zm, xm),
+                           phi_rows=phi_rows[..., :local_bits - 1])
+                phi_fin = phi_rows.reshape(c, T, K, L - 1)[:, :, K - 1]
+            else:
+                xm, zm = _general_words(u, p, L, (c, S), dev0)     # (c, S)
+                dkw = {}
             csum = xor_scan(xm, L)
             sig_b = _prev(csum).reshape(c, T, K)
             zm_prev = _prev(zm).reshape(c, T, K)
@@ -825,9 +884,11 @@ def make_sharded_autocorr_forward_general(mesh, *, L, T, K, p, q,
             zm_fin = zm.reshape(c, T, K)[:, :, K - 1] & gmask
             csum_fin = csum.reshape(c, T, K)[:, :, K - 1] & gmask
             rows = general_forward_rows(
-                None if u is None else u.to(dev0)[..., :local_bits],
+                None if u is None or device is not None
+                else u.to(dev0)[..., :local_bits],
                 hs[:local_bits].to(dev0), phis[:local_bits - 1].to(dev0),
-                ang, L=local_bits, T=T, K=K, p=p, batch=(c,), width=width)
+                ang, L=local_bits, T=T, K=K, p=p, batch=(c,), width=width,
+                **dkw)
             rows = rows.reshape(c, T, K, -1).transpose(0, 1).contiguous()
             shards = _basis_shards(mesh, t, c, L, local_bits, b0,
                                    torch.complex64)
@@ -844,8 +905,9 @@ def make_sharded_autocorr_forward_general(mesh, *, L, T, K, p, q,
                             mesh, shards, host[tt][k][0], host[tt][k][1],
                             sig_b[:, tt, k], zm_prev[:, tt, k],
                             local_bits=local_bits)
+                    ph_t = phis if device is None else phi_fin[:, tt]
                     shards = [_global_diag(st, zm_fin[:, tt], csum_fin[:, tt],
-                                           hs, phis, a, **gkw)
+                                           hs, ph_t, a, **gkw)
                               for a, st in enumerate(shards)]
                 frames.append(mesh.psum(parts).to(dev0))
             a_traj = torch.full((c, T), af, dtype=torch.float32, device=dev0)
@@ -873,9 +935,12 @@ def make_sharded_echo_general(mesh, *, L, T, K, p, q, initial_state="vacuum",
 
     Same semantics as ``make_sharded_echo``: fn(angles, hs, phis, uniforms
     (n, 2T, K, L) or None, t_value, n_traj=None) -> scalar. Requires
-    17 <= L_loc <= 30 and q < L_loc."""
-    if device is not None:
-        raise NotImplementedError(NOT_PORTED_DEVICE)
+    17 <= L_loc <= 30 and q < L_loc. ``device=`` as in the forward, from
+    ``core/device_evolve.py::_device_general_echo_rows`` (uniforms of 2T
+    steps): the forward steps' rows and global diagonal take the signed
+    post rows, the inverse steps' global diagonal the pre rows, which carry
+    the D0^dag negation (so it is not negated again)."""
+    _check_device(device, p)
     local_bits = _kernel_geometry(mesh, L, q)
     forward_apply, inverse_apply = (
         (cycle_hi.general_hi_cycle_forward_apply,
@@ -892,6 +957,7 @@ def make_sharded_echo_general(mesh, *, L, T, K, p, q, initial_state="vacuum",
     gkw = dict(L=L, local_bits=local_bits)
 
     def fn(angles, hs, phis, uniforms, t_value, n_traj=None):
+        _check_device(device, p, uniforms, called=True)
         t_value = int(t_value)
         host = angles.detach().cpu().tolist()
         total = 0.0
@@ -900,12 +966,40 @@ def make_sharded_echo_general(mesh, *, L, T, K, p, q, initial_state="vacuum",
                                     _launch_traj(mesh, local_bits)):
             dev0 = mesh.device(t, 0)
             ang = angles.to(dev0)
-            u = None if u is None else u.to(dev0).reshape(c, T2 * K, L)
-            xm, zm = _general_words(u, p, L, (c, T2 * K), dev0)
-            if p > 0.0:
-                active = (torch.arange(T2 * K, device=dev0) // K
-                          < 2 * t_value)
-                xm, zm = xm * active, zm * active
+            h_loc = hs[:local_bits].to(dev0)
+            ph_loc = phis[:local_bits - 1].to(dev0)
+            if device is not None:
+                xk, zk, *diag = _device_general_echo_rows(
+                    tuple(b.to(dev0) for b in u), [t_value], hs.to(dev0),
+                    phis.to(dev0), *_device_rates(device, dev0), T, K, L)
+                pre_h, pre_phi, post_h, post_phi = (r[:, 0] for r in diag)
+                xm = xk[:, 0].reshape(c, T2 * K)
+                zm = zk[:, 0].reshape(c, T2 * K)
+                rows_f = general_forward_rows(
+                    None, h_loc, ph_loc, ang, L=local_bits, T=T, K=K, p=0.0,
+                    width=width, masks=(zm[:, :T * K], xm[:, :T * K]),
+                    h_rows=_on_final(post_h[:, :T, :local_bits], K),
+                    phi_rows=_on_final(post_phi[:, :T, :local_bits - 1], K))
+                tiles = general_echo_rows(
+                    None, [t_value], h_loc, ph_loc, ang, L=local_bits, T=T,
+                    K=K, p=0.0, width=width, masks=(xk, zk),
+                    diag_rows=tuple(r[..., :local_bits - (i % 2)]
+                                    for i, r in enumerate(diag)))
+            else:
+                u = None if u is None else u.to(dev0).reshape(c, T2 * K, L)
+                xm, zm = _general_words(u, p, L, (c, T2 * K), dev0)
+                if p > 0.0:
+                    active = (torch.arange(T2 * K, device=dev0) // K
+                              < 2 * t_value)
+                    xm, zm = xm * active, zm * active
+                u_loc = None if u is None else u[..., :local_bits]
+                rows_f = general_forward_rows(
+                    None if u is None else u_loc[:, :T * K], h_loc, ph_loc,
+                    ang, L=local_bits, T=T, K=K, p=p, batch=(c,),
+                    width=width)
+                tiles = general_echo_rows(u_loc, [t_value], h_loc, ph_loc,
+                                          ang, L=local_bits, T=T, K=K, p=p,
+                                          batch=(c,), width=width)
             csum = xor_scan(xm, L)
             sig_b = _prev(csum).reshape(c, T2, K)
             zm_prev = _prev(zm).reshape(c, T2, K)
@@ -914,16 +1008,7 @@ def make_sharded_echo_general(mesh, *, L, T, K, p, q, initial_state="vacuum",
             zero = torch.zeros(c, dtype=torch.int64, device=dev0)
             zm_fin = zm.reshape(c, T2, K)[:, :, K - 1] & gmask
             csum_fin = csum.reshape(c, T2, K)[:, :, K - 1] & gmask
-            h_loc = hs[:local_bits].to(dev0)
-            ph_loc = phis[:local_bits - 1].to(dev0)
-            u_loc = None if u is None else u[..., :local_bits]
-            rows_f = general_forward_rows(
-                None if u is None else u_loc[:, :T * K], h_loc, ph_loc, ang,
-                L=local_bits, T=T, K=K, p=p, batch=(c,), width=width)
             rows_f = rows_f.reshape(c, T, K, -1).transpose(0, 1).contiguous()
-            tiles = general_echo_rows(u_loc, [t_value], h_loc, ph_loc, ang,
-                                      L=local_bits, T=T, K=K, p=p,
-                                      batch=(c,), width=width)
             tiles = tiles.reshape(c, T2, K, 2, -1).transpose(0, 1).contiguous()
             shards = _basis_shards(mesh, t, c, L, local_bits, b0,
                                    torch.complex64)
@@ -941,16 +1026,22 @@ def make_sharded_echo_general(mesh, *, L, T, K, p, q, initial_state="vacuum",
                                 sig_b[:, k, j],
                                 zero if j == 0 else zm_prev[:, k, j],
                                 local_bits=local_bits)
+                        hk, pk = ((hs, phis) if device is None
+                                  else (post_h[:, k], post_phi[:, k]))
                         shards = [_global_diag(st, zm_fin[:, k],
-                                               csum_fin[:, k], hs, phis, a,
+                                               csum_fin[:, k], hk, pk, a,
                                                **gkw)
                                   for a, st in enumerate(shards)]
                     continue
                 if k_bits:
                     ci = min(max(2 * t_value - 1 - k, 0), T - 1)
-                    shards = [_global_diag_inv(st, zm_prev[:, k, 0] & gmask,
-                                               sig_b[:, k, 0] & gmask, hs,
-                                               phis, a, **gkw)
+                    # device rows carry the D0^dag negation themselves
+                    head, hk, pk = ((_global_diag_inv, hs, phis)
+                                    if device is None else
+                                    (_global_diag, pre_h[:, k],
+                                     pre_phi[:, k]))
+                    shards = [head(st, zm_prev[:, k, 0] & gmask,
+                                   sig_b[:, k, 0] & gmask, hk, pk, a, **gkw)
                               for a, st in enumerate(shards)]
                     for j in range(K):
                         shards = _global_general_slot_kick(

@@ -30,7 +30,7 @@ class SimConfig:
     # Noise
     noise_prob: float = 0.05
     use_noise: int = 1
-    use_fakebackend: int = 0    # device-noise mode (not ported yet)
+    use_fakebackend: int = 0    # device-noise mode
     fake_device: str = "brisbane"  # "brisbane" | "garnet"
     calibration_path: Optional[str] = None
     n_trajectories: int = 256   # Pauli-twirl trajectories per instance

@@ -327,5 +327,5 @@ def test_adaptive_flags_match_reference():
 def test_fakebackend_is_refused(fn):
     cfg = PortConfig(L=4, tf=2, use_fakebackend=1)
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, device noise"):
+                       match="ROADMAP.md queue 3"):
         getattr(adaptive, fn)(cfg, device="cpu", write=False)

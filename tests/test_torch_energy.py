@@ -241,7 +241,7 @@ def test_complex128_is_never_served_by_the_f32_kernel(caplog, monkeypatch):
 def test_fakebackend_is_refused(fn):
     cfg = PortConfig(L=4, tf=2, use_fakebackend=1)
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, device noise"):
+                       match="ROADMAP.md queue 3"):
         getattr(energy, fn)(cfg, device="cpu", write=False)
 
 

@@ -2,9 +2,11 @@
 14 <= L <= 21), the streamed x family (constant x at 22 <= L <= 30), K4
 (lab frame, any drive), K5 (per-cycle observables), the streamed
 lab-frame family (K10a/K10b, any drive at 22 <= L <= 29), the per-shard
-cycle kernels K8a-d (one cycle at 17 <= L_loc <= 23) and the per-shard
+cycle kernels K8a-d (one cycle at 17 <= L_loc <= 23), the per-shard
 streamed cycle kernels K9a/K9b and K10's shard-local forms (one cycle at
-22 <= L_loc <= 30) against their plain versions, on the card.
+22 <= L_loc <= 30) and the planar engine's noise factor K11 against their
+plain versions, on the card; the planar route and the device-noise rows
+on the kernels against the same calls on the CPU.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode) and skip
 without one. They import neither jax nor ``tests/conftest.py``'s setup, so
@@ -829,3 +831,131 @@ def test_cycle_hi_wrappers_reject_bad_inputs(cuda_device):
         ch.general_hi_cycle_forward_apply(
             st, torch.zeros((1, 128, 2), device=cuda_device).transpose(1, 2),
             L=22, K=2, q=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,B", [(4, 3), (12, 5), (20, 8)])
+def test_noise_factor_kernel_matches_plain_on_card(cuda_device, L, B):
+    """K11 on random unit states and random tiles, in place, against its
+    plain version: within 1e-5 of the largest amplitude."""
+    from dtc_tpu_torch.ops import noise_factor as nf
+
+    gen = torch.Generator(device=cuda_device).manual_seed(L)
+    st = torch.randn((B, 2, 1 << L), generator=gen, device=cuda_device)
+    st /= st.square().sum((1, 2), keepdim=True).sqrt()
+    rnd = torch.randint(0, 1 << L, (2, B), generator=gen, device=cuda_device)
+    par = nf.pack_cycle_params(
+        rnd[0], rnd[1],
+        torch.rand((B, L), generator=gen, device=cuda_device) * 6 - 3,
+        torch.rand((B, L - 1), generator=gen, device=cuda_device) * 6 - 3, L)
+    plain = nf.noise_factor_plain(st, par, L=L)
+    launches = nf.LAUNCHES["noise_factor"]
+    got = nf.apply_noise_factor(st, par, L=L)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == st.data_ptr()  # in place
+    assert nf.LAUNCHES["noise_factor"] == launches + 1
+    lim = 1e-5 * float(plain.abs().max())
+    assert float((got - plain).abs().max()) <= lim
+    with pytest.raises(ValueError):
+        nf.apply_noise_factor(st.double(), par, L=L)
+    with pytest.raises(ValueError):
+        nf.apply_noise_factor(st[:, :, ::2], par, L=L)
+
+
+@pytest.mark.cuda
+def test_planar_route_on_card_matches_cpu(cuda_device):
+    """The planar forward at L=12 on the card (K11 once per measured cycle)
+    and on the CPU (its plain version), fed the same uniforms."""
+    from dtc_tpu_torch.experiments import engine
+    from dtc_tpu_torch.ops import noise_factor as nf
+
+    cfg = SimConfig(L=12, tf=6, inst=2, n_trajectories=4, noise_prob=0.1)
+    hs, phis = generate_disorder(12, 2, seed=5)
+    u = torch.rand((2, 4, 6, 12), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sched, params, noise = engine.build_context(cfg, hs, phis,
+                                                    device=dev)
+        nf.reset_counters()
+        out[dev] = engine.forward_sweep(cfg, sched, params, noise,
+                                        uniforms=u.to(dev), engine="planar")
+        if dev == "cuda":
+            assert nf.LAUNCHES["noise_factor"] == cfg.tf - 1
+            assert nf.PLAIN_ON_CUDA["noise_factor"] == 0
+    np.testing.assert_allclose(out["cuda"], out["cpu"], atol=TOL, rtol=0)
+
+
+def _device_blocks(L, steps, e, n, seed):
+    from dtc_tpu_torch.core.device_evolve import n_bonds
+
+    rng = np.random.default_rng(seed)
+    ne, no = n_bonds(L)
+    return tuple(torch.tensor(rng.random((n, steps, *s), dtype=np.float32))
+                 for s in ((e, L), (ne,), (no,)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol,L", [("x", 15), ("x", 17), ("xy", 14),
+                                   ("y", 17)])
+def test_device_rows_on_card_match_cpu(cuda_device, pol, L):
+    """Device-noise rows on the kernels (K3 at L=15, K1/K2 at 17, K4 for
+    y and xy) on the card against the same calls on the CPU (the plain
+    versions), forward and echo."""
+    from dtc_tpu_torch.core import device_evolve as de
+    from dtc_tpu_torch.models.drives import n_kick_slots
+
+    T, K, n = 4, n_kick_slots(pol), 3
+    hs, phis = generate_disorder(L, 1, seed=3)
+    h, ph = torch.as_tensor(hs[0, :L]), torch.as_tensor(phis[0, :L - 1])
+    p1 = torch.linspace(0.05, 0.3, L, dtype=torch.float64)
+    p2 = torch.linspace(0.1, 0.4, L - 1, dtype=torch.float64)
+    ang = build_kick_schedule(pol, 0.95, T).angles
+    fwd, echo = ((de.device_kernel_forward_batch, de.device_kernel_echo_batch)
+                 if pol == "x" else
+                 (de.device_general_kernel_forward_batch,
+                  de.device_general_kernel_echo_batch))
+    kw = dict(L=L, T=T, q=L // 2, ancilla_factor=0.9)
+    if pol != "x":
+        kw["K"] = K
+    uf = _device_blocks(L, T, 2 * K, n, L)
+    ue = _device_blocks(L, 2 * T, 2 * K, n, L + 1)
+    ts = [1, 2, 4]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        args = [x.to(dev) for x in (h, ph, p1, p2, ang)]
+        a = fwd(*args, tuple(b.to(dev) for b in uf), **kw)
+        e = echo(*args, tuple(b.to(dev) for b in ue), ts, **kw)
+        out[dev] = (a.cpu().numpy(), e.cpu().numpy())
+    for g, r in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(g, r, atol=TOL, rtol=0)
+    assert np.ptp(out["cpu"][1]) > 0.05  # events fired
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol", ["x", "y", "xy", "circular_left"])
+def test_run_autocorr_fakebackend_on_card(cuda_device, pol, tmp_path):
+    """``run_autocorr`` with ``use_fakebackend=1`` on the card at L=14 (x on
+    K3's device rows, the other drives on K4's) and on the CPU (the plain
+    versions) on the same draws: every column within 1e-4, A(0) the
+    model's ancilla and readout factor."""
+    from dtc_tpu_torch.core.device_evolve import n_bonds
+    from dtc_tpu_torch.experiments.device_sweeps import _rates
+    from dtc_tpu_torch.models.drives import n_kick_slots
+
+    L, T, n = 14, 4, 3
+    cfg = SimConfig(L=L, tf=T, n_trajectories=n, use_fakebackend=1,
+                    polarization=pol)
+    hs, phis = generate_disorder(L, 1, seed=2)
+    rng = np.random.default_rng(5)
+    ne, no = n_bonds(L)
+    e = 2 * n_kick_slots(pol)
+    blocks = [tuple(rng.random((1, n, steps, *s), dtype=np.float32)
+                    for s in ((e, L), (ne,), (no,))) for steps in (T, 2 * T)]
+    out = {dev: run_autocorr(cfg, hs, phis, device=dev, write=False,
+                             uniforms=blocks)
+           for dev in ("cuda", "cpu")}
+    for k in ("av_autocorr", "av_autocorr_echo"):
+        np.testing.assert_allclose(out["cuda"][k], out["cpu"][k], atol=TOL,
+                                   rtol=0)
+    af = _rates(cfg, torch.device("cpu"))[2]
+    assert abs(out["cuda"]["av_autocorr"][0] - af) < 1e-5

@@ -200,8 +200,10 @@ def test_kernel_engines_refuse_what_they_do_not_run():
             maker(mesh, L=32, T=3, p=0.0, q=9)
     for maker in (sh.make_sharded_autocorr_forward_general,
                   sh.make_sharded_echo_general):
-        with pytest.raises(NotImplementedError, match="device noise"):
-            maker(mesh, L=18, T=3, K=1, p=0.0, q=9, device=(1, 2, 3))
+        # device-noise rows replace the depolarizing draw: p must be 0
+        with pytest.raises(ValueError, match="p=0"):
+            maker(mesh, L=18, T=3, K=1, p=0.1, q=9, device=(1, 2, 2))
+        maker(mesh, L=18, T=3, K=1, p=0.0, q=9, device=(1, 2, 2))
         maker(mesh, L=26, T=3, K=1, p=0.0, q=9)  # K10's shard-local forms
     _, (ang, hs, phis, _) = _inputs(18, "y", 3, 1, (1,))
     fn = sh.make_sharded_autocorr_forward_kernel(mesh, L=18, T=3, p=0.0, q=9)
