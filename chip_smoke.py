@@ -128,8 +128,13 @@ each; any failure raises and the script exits non-zero without a result:
    of its bytes (inputs read once, outputs written once) over 3.35 TB/s and
    its f32 operations over 67 TFLOP/s (the H100 SXM's published peaks), and
    its state floor (16 B per amplitude per pass and step, 2 or 3 passes);
-6. a JSON line of the kernels, then the last line
-   ``{"ok": true, "device": {...}}``.
+   the two echo entries on folded diagonals (K4's echo on 512 xy pairs at
+   ts=0..7, K3b on 32 pairs at t=12, L=20) also with their launches a call
+   and their shares of the state floor and of the bound;
+6. the device seconds and calls of each kernel entry summed over every
+   main-path run of phase 4 (CUDA events around each entry call), a JSON
+   line of the kernels (with those as ``main_s`` and ``main_calls``), then
+   the last line ``{"ok": true, "device": {...}}``.
 
 It imports only the standard library, torch and the port.
 """
@@ -157,6 +162,69 @@ P = 0.05
 # the main paths' shape: the bench shape of the reference (L=20, T=50, 32
 # trajectories); the studies run at T=20
 MAIN_L, MAIN_T, STUDY_T, N_TRAJ, DEVICE = 20, 50, 20, 32, "cuda"
+
+
+GENERAL = "dtc_tpu/ops/pallas_resident_general.py"
+# (key, C entry, source, the TPU kernel it replaces, a second one or None)
+KERNELS = [
+    ("K1", "floquet_x_forward", "dtc_tpu_torch/csrc/floquet_x.cu",
+     "dtc_tpu/ops/pallas_resident_blocked.py:131", None),
+    ("K2", "floquet_x_echo", "dtc_tpu_torch/csrc/floquet_x.cu",
+     "dtc_tpu/ops/pallas_resident_blocked.py:374", None),
+    ("K3 forward", "floquet_x_resident_forward",
+     "dtc_tpu_torch/csrc/floquet_x_resident.cu",
+     "dtc_tpu/ops/pallas_resident.py:119", None),
+    ("K3 echo", "floquet_x_resident_echo",
+     "dtc_tpu_torch/csrc/floquet_x_resident.cu",
+     "dtc_tpu/ops/pallas_resident.py:320", None),
+    ("K4 forward", "floquet_general_forward",
+     "dtc_tpu_torch/csrc/floquet_general.cu", f"{GENERAL}:166",
+     f"{GENERAL}:334"),
+    ("K4 echo", "floquet_general_echo",
+     "dtc_tpu_torch/csrc/floquet_general.cu", f"{GENERAL}:166",
+     f"{GENERAL}:334"),
+    ("K5", "floquet_general_observables",
+     "dtc_tpu_torch/csrc/floquet_general.cu",
+     "dtc_tpu/ops/pallas_observables.py:87", None),
+    ("K6 forward", "floquet_x_streamed_forward",
+     "dtc_tpu_torch/csrc/floquet_x_streamed.cu",
+     "dtc_tpu/ops/pallas_streamed.py:58",
+     "dtc_tpu/ops/pallas_streamed_hi.py:82"),
+    ("K6 echo", "floquet_x_streamed_echo",
+     "dtc_tpu_torch/csrc/floquet_x_streamed.cu",
+     "dtc_tpu/ops/pallas_streamed.py:322",
+     "dtc_tpu/ops/pallas_streamed_hi.py:344"),
+    ("K10 forward", "floquet_general_streamed_forward",
+     "dtc_tpu_torch/csrc/floquet_general_streamed.cu",
+     "dtc_tpu/ops/pallas_cycle_hi_general.py:65", None),
+    ("K10 echo", "floquet_general_streamed_echo",
+     "dtc_tpu_torch/csrc/floquet_general_streamed.cu",
+     "dtc_tpu/ops/pallas_cycle_hi_general.py:250", None),
+    ("K8a", "floquet_cycle_forward", "dtc_tpu_torch/csrc/floquet_cycle.cu",
+     "dtc_tpu/ops/pallas_cycle.py:51", None),
+    ("K8b", "floquet_cycle_inverse", "dtc_tpu_torch/csrc/floquet_cycle.cu",
+     "dtc_tpu/ops/pallas_cycle.py:242", None),
+    ("K8c", "floquet_cycle_general_forward",
+     "dtc_tpu_torch/csrc/floquet_cycle.cu",
+     "dtc_tpu/ops/pallas_cycle.py:530", None),
+    ("K8d", "floquet_cycle_general_inverse",
+     "dtc_tpu_torch/csrc/floquet_cycle.cu",
+     "dtc_tpu/ops/pallas_cycle.py:778", None),
+    ("K9a", "floquet_cycle_hi_forward",
+     "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
+     "dtc_tpu/ops/pallas_cycle_hi.py:170", None),
+    ("K9b", "floquet_cycle_hi_inverse",
+     "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
+     "dtc_tpu/ops/pallas_cycle_hi.py:346", None),
+    ("K10a local", "floquet_cycle_hi_general_forward",
+     "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
+     "dtc_tpu/ops/pallas_cycle_hi_general.py:65", None),
+    ("K10b local", "floquet_cycle_hi_general_inverse",
+     "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
+     "dtc_tpu/ops/pallas_cycle_hi_general.py:250", None),
+    ("K11", "noise_factor_apply", "dtc_tpu_torch/csrc/noise_factor.cu",
+     "dtc_tpu/ops/pallas_noise.py:42", None),
+]
 
 
 def phase(msg: str) -> None:
@@ -1375,6 +1443,50 @@ def run_cli(argv) -> tuple:
     return run_counted(lambda: cli_main(argv), " ".join(argv[:3]))
 
 
+# device seconds and calls of each C entry, summed over every run_counted
+# run (the [main] phases): PERF.md's "seconds on the main paths"
+MAIN_SECONDS = {key: 0.0 for key, *_ in KERNELS}
+MAIN_CALLS = {key: 0 for key, *_ in KERNELS}
+
+
+class EntryTimer:
+    """Inside ``with``, every C entry of KERNELS records a CUDA event pair
+    on the current stream around each call (its launches, basis states,
+    measures and reduces); ``add_to`` sums them into MAIN_SECONDS and
+    MAIN_CALLS."""
+
+    def __enter__(self):
+        from dtc_tpu_torch.ops import _build
+
+        self.saved, self.events = [], {key: [] for key, *_ in KERNELS}
+        for key, fn, src, *_ in KERNELS:
+            lib = _build.load(os.path.splitext(os.path.basename(src))[0])
+            entry = getattr(lib, fn)
+
+            def timed(*args, _entry=entry, _ev=self.events[key]):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                rc = _entry(*args)
+                end.record()
+                _ev.append((start, end))
+                return rc
+
+            setattr(lib, fn, timed)
+            self.saved.append((lib, fn, entry))
+        return self
+
+    def __exit__(self, *exc):
+        for lib, fn, entry in self.saved:
+            setattr(lib, fn, entry)
+
+    def add_to(self, seconds, calls) -> None:
+        torch.cuda.synchronize()
+        for key, ev in self.events.items():
+            seconds[key] += sum(a.elapsed_time(b) for a, b in ev) / 1e3
+            calls[key] += len(ev)
+
+
 def run_counted(fn, what) -> tuple:
     """Run ``fn`` with every launch count at 0 just before it and read just
     after; returns (launches, plain calls on CUDA, sweep log, seconds).
@@ -1396,11 +1508,13 @@ def run_counted(fn, what) -> tuple:
         mod.reset_counters()
     t0 = time.perf_counter()
     try:
-        rc = fn()
-        torch.cuda.synchronize()
+        with EntryTimer() as timer:
+            rc = fn()
+            torch.cuda.synchronize()
     finally:
         logger.removeHandler(log)
     seconds = time.perf_counter() - t0
+    timer.add_to(MAIN_SECONDS, MAIN_CALLS)
     launches = {"K1": rb.LAUNCHES["forward"], "K2": rb.LAUNCHES["echo"],
                 "K3 forward": rs.LAUNCHES["forward"],
                 "K3 echo": rs.LAUNCHES["echo"],
@@ -2212,21 +2326,73 @@ def timing(dev, smi, err) -> dict:
             "K4", f"forward {pol} L=20 T=50 traj=32 steps/cycle={K}", k_ms,
             p_ms, c * (T - 1) * K * N, "cycles", T * c,
             4 * (rows.numel() + k.numel()), 14 * L + 6, smi)
-    tiles = general_echo_inputs(L, "xy", T, c, P, list(range(8)), dev,
-                                seed=8, inst=2)
-    k_ms, p_ms, k, ref = timed_pair(
-        lambda: rg.general_echo_batch(tiles, L=L, q=L // 2),
-        lambda: rg.general_echo_batch_ref(tiles, L=L, q=L // 2), 1)
-    err["K4 echo"] = max(err["K4 echo"], held(
-        "K4 echo L=20 xy ts=0..7 2x32 (timed inputs)", k, ref))
-    steps = 2 * c * sum(2 * 2 * t for t in range(8))  # inst x traj x 2tK
-    out["K4 echo"] = report("K4", f"echo xy L=20 ts=0..7 pairs=512 "
-                            f"steps={steps}", k_ms, p_ms, steps * N, "steps",
-                            steps, 4 * (tiles.numel() + k.numel()),
-                            14 * L + 12, smi)
-    del tiles
+    out["K4 echo"] = timing_k4_echo(dev, smi, err)
     out.update(timing_obs(dev, smi, err))
     return out
+
+
+def timed_echo(name, what, kernel, plain, n_steps, err, key, amp_steps,
+               units, io_bytes, flops, smi) -> dict:
+    """One echo entry's timing row: kernel and plain in turns, and the
+    shares of the state floor and of the bound. Every pair runs in lockstep,
+    ``n_steps`` steps of two launches, with the basis state, the measure
+    and the reduce."""
+    k_ms, p_ms, k, ref = timed_pair(kernel, plain, 1)
+    err[key] = max(err[key], held(f"{name} {what} (timed inputs)", k, ref))
+    row = report(name, what, k_ms, p_ms, amp_steps, "steps", units, io_bytes,
+                 flops, smi)
+    phase(f"[timing] {name} {what}: {2 * n_steps + 3} launches a call; "
+          f"{100 * row['state_floor_ms'] / k_ms:.1f}% of the state floor, "
+          f"{100 * row['bound_ms'] / k_ms:.1f}% of the bound on {smi}")
+    return row
+
+
+def timing_k4_echo(dev, smi, err) -> dict:
+    """K4's echo on the main path's first echo call: 2 instances x 32
+    trajectories x t=0..7 of the xy drive at L=20 (512 pairs)."""
+    from dtc_tpu_torch.ops import resident_general as rg
+    from dtc_tpu_torch.ops.params_general import LANE_COUNT, flag_base
+
+    L, T, c = MAIN_L, MAIN_T, N_TRAJ
+    tiles = general_echo_inputs(L, "xy", T, c, P, list(range(8)), dev,
+                                seed=8, inst=2)
+    steps = 2 * c * sum(2 * 2 * t for t in range(8))  # inst x traj x 2tK
+    n_steps = int(tiles.reshape(-1, *tiles.shape[-2:])[
+        :, 0, flag_base(L) + LANE_COUNT].max())
+    return timed_echo(
+        "K4", f"echo xy L=20 ts=0..7 pairs=512 steps={steps}",
+        lambda: rg.general_echo_batch(tiles, L=L, q=L // 2),
+        lambda: rg.general_echo_batch_ref(tiles, L=L, q=L // 2), n_steps,
+        err, "K4 echo", steps << L, steps, 4 * (tiles.numel() + 512),
+        14 * L + 6, smi)
+
+
+def timing_k3_echo(dev, smi, err) -> dict:
+    """K3b on one ``echo_value`` of the T=12 adaptive loop: 32 trajectories
+    x t=12 of the per-cycle ramp at L=20, beside K4 on the same rows."""
+    from dtc_tpu_torch.ops import resident as rs
+    from dtc_tpu_torch.ops import resident_general as rg
+
+    L, c = MAIN_L, N_TRAJ
+    angles, tiles, sfin, gtiles = ramp_inputs(L, 13, c, P, [12], dev,
+                                              seed=12)
+    kw = dict(L=L, q=L // 2, time_dependent=True)
+    steps = c * 2 * 12
+    what = f"echo ramp L={L} t=12 pairs={c} steps={steps}"
+    row = timed_echo(
+        "K3", what, lambda: rs.resident_echo_batch(tiles, sfin, angles, **kw),
+        lambda: rs.resident_echo_batch_ref(tiles, sfin, angles, **kw), 2 * 12,
+        err, "K3 echo", steps << L, steps,
+        4 * (tiles.numel() + 2 * angles.shape[0] + c), 6 * L + 6, smi)
+    k = rs.resident_echo_batch(tiles, sfin, angles, **kw)
+    k4_ms, k4 = time_ms(lambda: rg.general_echo_batch(gtiles, L=L,
+                                                      q=L // 2))
+    held(f"K3 {what} vs K4 (timed inputs)", k, k4)
+    row["k4_ms"] = k4_ms
+    phase(f"[timing] K4 on the same ramp and rows, {what}: {k4_ms:.3f} ms = "
+          f"{steps / (k4_ms / 1e3):.1f} steps/s ({k4_ms / row['ms']:.3f} x "
+          f"K3) on {smi}")
+    return row
 
 
 def timing_obs(dev, smi, err) -> dict:
@@ -2392,8 +2558,8 @@ def timing_resident(dev, smi, err) -> dict:
     schedule and rows: K3a on the per-cycle ramp at L=20, T=51 x 32 (one
     ``forward_value`` of the L=20 loop at T=50) and at L=14 and 16; K3b on
     32 pairs at t=12 (one ``echo_value`` of the T=12 loop). Operations per
-    amplitude and step: 6 L for RX on every bit, 6 per diagonal (forward
-    one, echo two). Returns the L=20 numbers."""
+    amplitude and step: 6 L for RX on every bit, 6 for the diagonal (one a
+    step; the echo's two fold into one). Returns the L=20 numbers."""
     from dtc_tpu_torch.ops import resident as rs
     from dtc_tpu_torch.ops import resident_general as rg
 
@@ -2422,27 +2588,7 @@ def timing_resident(dev, smi, err) -> dict:
         phase(f"[timing] K4 on the same ramp and rows, {what}: {k4_ms:.3f}"
               f" ms = {T * c / (k4_ms / 1e3):.1f} cycles/s ({k4_ms / k_ms:.3f}"
               f" x K3) on {smi}")
-    # 32 trajectories x t=12 on a T=13 schedule: one echo_value at t=12
-    L, T, ts = MAIN_L, 13, [12] * c
-    angles, tiles, sfin, gtiles = ramp_inputs(L, T, c, P, [12], dev, seed=12)
-    kw = dict(L=L, q=L // 2, time_dependent=True)
-    k_ms, p_ms, k, ref = timed_pair(
-        lambda: rs.resident_echo_batch(tiles, sfin, angles, **kw),
-        lambda: rs.resident_echo_batch_ref(tiles, sfin, angles, **kw), 1)
-    steps = sum(2 * t for t in ts)
-    what = f"echo ramp L={L} t=12 pairs={c} steps={steps}"
-    err["K3 echo"] = max(err["K3 echo"], held(f"K3 {what} (timed inputs)", k,
-                                              ref))
-    k4_ms, k4 = time_ms(lambda: rg.general_echo_batch(gtiles, L=L,
-                                                      q=L // 2))
-    held(f"K3 {what} vs K4 (timed inputs)", k, k4)
-    out["echo"] = report("K3", what, k_ms, p_ms, steps << L, "steps", steps,
-                         4 * (tiles.numel() + 2 * angles.shape[0]
-                              + k.numel()), 6 * L + 12, smi)
-    out["echo"]["k4_ms"] = k4_ms
-    phase(f"[timing] K4 on the same ramp and rows, {what}: {k4_ms:.3f} ms = "
-          f"{steps / (k4_ms / 1e3):.1f} steps/s ({k4_ms / k_ms:.3f} x K3) on "
-          f"{smi}")
+    out["echo"] = timing_k3_echo(dev, smi, err)
     return {"K3 forward": out[f"forward {MAIN_L}"], "K3 echo": out["echo"]}
 
 
@@ -2701,75 +2847,15 @@ def main() -> None:
     times["K11"] = timing_noise_factor(dev, smi, launches["K11"])
     times["K4 forward"] = times.pop("K4 forward xy")
     times["K5"] = times.pop("K5 x")
-    general = "dtc_tpu/ops/pallas_resident_general.py"
-    kernels = [
-        ("K1", "floquet_x_forward", "dtc_tpu_torch/csrc/floquet_x.cu",
-         "dtc_tpu/ops/pallas_resident_blocked.py:131", None),
-        ("K2", "floquet_x_echo", "dtc_tpu_torch/csrc/floquet_x.cu",
-         "dtc_tpu/ops/pallas_resident_blocked.py:374", None),
-        ("K3 forward", "floquet_x_resident_forward",
-         "dtc_tpu_torch/csrc/floquet_x_resident.cu",
-         "dtc_tpu/ops/pallas_resident.py:119", None),
-        ("K3 echo", "floquet_x_resident_echo",
-         "dtc_tpu_torch/csrc/floquet_x_resident.cu",
-         "dtc_tpu/ops/pallas_resident.py:320", None),
-        ("K4 forward", "floquet_general_forward",
-         "dtc_tpu_torch/csrc/floquet_general.cu", f"{general}:166",
-         f"{general}:334"),
-        ("K4 echo", "floquet_general_echo",
-         "dtc_tpu_torch/csrc/floquet_general.cu", f"{general}:166",
-         f"{general}:334"),
-        ("K5", "floquet_general_observables",
-         "dtc_tpu_torch/csrc/floquet_general.cu",
-         "dtc_tpu/ops/pallas_observables.py:87", None),
-        ("K6 forward", "floquet_x_streamed_forward",
-         "dtc_tpu_torch/csrc/floquet_x_streamed.cu",
-         "dtc_tpu/ops/pallas_streamed.py:58",
-         "dtc_tpu/ops/pallas_streamed_hi.py:82"),
-        ("K6 echo", "floquet_x_streamed_echo",
-         "dtc_tpu_torch/csrc/floquet_x_streamed.cu",
-         "dtc_tpu/ops/pallas_streamed.py:322",
-         "dtc_tpu/ops/pallas_streamed_hi.py:344"),
-        ("K10 forward", "floquet_general_streamed_forward",
-         "dtc_tpu_torch/csrc/floquet_general_streamed.cu",
-         "dtc_tpu/ops/pallas_cycle_hi_general.py:65", None),
-        ("K10 echo", "floquet_general_streamed_echo",
-         "dtc_tpu_torch/csrc/floquet_general_streamed.cu",
-         "dtc_tpu/ops/pallas_cycle_hi_general.py:250", None),
-        ("K8a", "floquet_cycle_forward", "dtc_tpu_torch/csrc/floquet_cycle.cu",
-         "dtc_tpu/ops/pallas_cycle.py:51", None),
-        ("K8b", "floquet_cycle_inverse", "dtc_tpu_torch/csrc/floquet_cycle.cu",
-         "dtc_tpu/ops/pallas_cycle.py:242", None),
-        ("K8c", "floquet_cycle_general_forward",
-         "dtc_tpu_torch/csrc/floquet_cycle.cu",
-         "dtc_tpu/ops/pallas_cycle.py:530", None),
-        ("K8d", "floquet_cycle_general_inverse",
-         "dtc_tpu_torch/csrc/floquet_cycle.cu",
-         "dtc_tpu/ops/pallas_cycle.py:778", None),
-        ("K9a", "floquet_cycle_hi_forward",
-         "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
-         "dtc_tpu/ops/pallas_cycle_hi.py:170", None),
-        ("K9b", "floquet_cycle_hi_inverse",
-         "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
-         "dtc_tpu/ops/pallas_cycle_hi.py:346", None),
-        ("K10a local", "floquet_cycle_hi_general_forward",
-         "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
-         "dtc_tpu/ops/pallas_cycle_hi_general.py:65", None),
-        ("K10b local", "floquet_cycle_hi_general_inverse",
-         "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
-         "dtc_tpu/ops/pallas_cycle_hi_general.py:250", None),
-        ("K11", "noise_factor_apply", "dtc_tpu_torch/csrc/noise_factor.cu",
-         "dtc_tpu/ops/pallas_noise.py:42", None),
-    ]
     line = []
-    for key, fn, src, where, also in kernels:
+    for key, fn, src, where, also in KERNELS:
         entry = {"name": f"{key.split()[0]} {fn}", "route": "cuda",
                  "source": src, "replaces": where,
                  "launches": launches[key], "max_abs_err": err[key],
                  "ms": times[key]["ms"], "plain_ms": times[key]["plain_ms"],
                  "bound_ms": times[key]["bound_ms"],
                  "bound_by": times[key]["bound_by"], "library_ms": None,
-                 "state_floor_ms": times[key]["state_floor_ms"]}
+                 "main_s": MAIN_SECONDS[key], "main_calls": MAIN_CALLS[key]}
         if also:
             entry["also_replaces"] = also
         # K3, K8: K1/K4 beside them; K9, K10 shard-local: K6, one-card K10
@@ -2782,6 +2868,9 @@ def main() -> None:
           f"bench shape; config 4 device forward "
           f"{device['config4_traj_cycles_per_s']:.1f} traj-cycles/s on "
           f"{smi}")
+    phase("[main] device seconds of each entry over the main paths: "
+          + ", ".join(f"{k} {MAIN_SECONDS[k]:.3f} s ({MAIN_CALLS[k]} calls)"
+                      for k in MAIN_SECONDS) + f" on {smi}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,344 @@
+// The echo passes shared by floquet_x_resident.cu (K3b) and
+// floquet_general.cu (K4's echo): the folded diagonal rows, the phase
+// tables, the swizzled butterfly rounds and the two passes, templated on
+// the family's kick. Each redesign below was timed on its own on an H100
+// (PERF.md section 6).
+//
+// Folded rows (ops/echo_fold.py): an echo step k applies D_pre(k), the kick,
+// then D_post(k); D_post(k) D_pre(k+1) is one diagonal whose coefficients
+// are the sums, so a pair carries S+1 rows of (cz [0, L), cb [L, 2L-1), c0
+// at 2L-1): step 0's pass lo applies row 0 before its kick, step k's pass hi
+// row k+1 after it. One diagonal per step instead of two.
+//
+// Phase tables: a pass that applies a diagonal builds, once per block, the
+// unit phases of the bits that vary in its tile as two tables of at most
+// 2^6 and 2^7 entries (the upper one also indexed by the boundary bit, so
+// that it carries the bond across the split, and with the block's constant
+// angle folded in): 192 sincosf a block instead of one per amplitude, and
+// an amplitude then costs two or three complex multiplies.
+//
+// Rounds (swz_kick): a pass's kick runs in rounds of 2 or 3 bits, 8
+// amplitudes in registers; the first round reads its amplitudes from device
+// memory and the last writes them there (the diagonal on the way), so a
+// pass makes one read and one write of the state and the tile in shared
+// memory, swizzled so that no round has bank conflicts, holds it between
+// rounds only.
+//
+// Every pair steps in lockstep: a step is two launches over all pairs. (A
+// schedule that ran groups of pairs small enough to stay in the L2 was
+// measured and taken out: with these passes it gained nothing on K4's echo
+// and about 6 % on K3b at L=20, PERF.md section 6.)
+//
+// Include after floquet_common.cuh; the definitions sit in an anonymous
+// namespace of their own.
+
+#pragma once
+
+#include "floquet_common.cuh"
+
+namespace {
+
+constexpr int kTabBits = 6;              // tile bits per phase-table group
+constexpr int kTabLo = 1 << kTabBits;    // lower table entries
+constexpr int kTabHi = 2 << kTabBits;    // upper table: one more bit
+constexpr int kMaxEchoL = 32;
+
+// A pair's folded rows: pair p's row j at rows + p * stride + j * 2L.
+struct Fold {
+  const float* __restrict__ rows;
+  int64_t stride;
+  __device__ __forceinline__ const float* row(int pair, int j, int L) const {
+    return rows + (int64_t)pair * stride + (int64_t)j * 2 * L;
+  }
+};
+
+__device__ __forceinline__ float2 phase_mul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+__device__ __forceinline__ float2 unit(float th) {
+  float s, c;
+  sincosf(th, &s, &c);
+  return make_float2(c, s);
+}
+
+// A folded row into shared memory: coef[0, 2L).
+__device__ __forceinline__ void load_fold(const float* __restrict__ row,
+                                          int L, float* coef) {
+  for (int i = threadIdx.x; i < 2 * L; i += blockDim.x) coef[i] = row[i];
+}
+
+// The unit phases of nb tile bits, tile bit j on qubit q0 + j, the other
+// qubits fixed: exp(i theta) = lo[i & (2^a - 1)] * hi[i >> (a - 1)] with
+// a = (nb + 1) / 2 (nb <= 12). lo: the z terms of tile bits [0, a), their
+// bonds, and the bond to the fixed qubit q0 - 1 of sign zb (0: none). hi,
+// indexed from tile bit a - 1: the z terms of bits [a, nb), the bonds
+// (a-1, a) .. (nb-2, nb-1), the bond to the fixed qubit q0 + nb of sign za
+// (0: none) and the fixed angle th. Ends in __syncthreads.
+__device__ void phase_tables(const float* cz, const float* cb, int q0, int nb,
+                             float zb, float za, float th, float2* lo,
+                             float2* hi) {
+  const int a = (nb + 1) / 2;
+  const int n_lo = 1 << a;
+  for (int e = threadIdx.x; e < n_lo + (2 << (nb - a)); e += blockDim.x) {
+    if (e < n_lo) {
+      float ang = angle_bits(cz, cb, e, q0, a);
+      if (zb != 0.0f) ang += cb[q0 - 1] * zb * zsign(e, 0);
+      lo[e] = unit(ang);
+    } else {
+      const int u = e - n_lo;  // bit 0: tile bit a - 1, bit m: a - 1 + m
+      float ang = th;
+      float zp = zsign(u, 0);
+      for (int j = a; j < nb; ++j) {
+        const float z = zsign(u, j - a + 1);
+        ang += cz[q0 + j] * z + cb[q0 + j - 1] * zp * z;
+        zp = z;
+      }
+      if (za != 0.0f) ang += cb[q0 + nb - 1] * zp * za;
+      hi[u] = unit(ang);
+    }
+  }
+  __syncthreads();
+}
+
+// The phase of tile index i from the two tables of nb bits.
+__device__ __forceinline__ float2 table_phase(const float2* lo,
+                                              const float2* hi, int nb,
+                                              int i) {
+  const int a = (nb + 1) / 2;
+  return phase_mul(lo[i & ((1 << a) - 1)], hi[i >> (a - 1)]);
+}
+
+// The tile layout in shared memory: amplitude x of a tile sits at swz(x),
+// its low 4 bits XORed with F(bits 4..7 of x), F linear over XOR (the
+// 4-bit table kSwz, one nibble per value of bits 4..7). Every access of the
+// butterfly rounds that swz_kick plans (tiles of 2^7 to 2^13 amplitudes,
+// rounds of 2 or 3 bits) then falls on distinct 8-byte slots of a 128-byte
+// line within each half-warp, where the plain layout had 2- to 8-way bank
+// conflicts (F was found by checking every round of every tile, L = 14-23).
+constexpr uint64_t kSwz = 0xfd6431a875ecb920ull;
+
+__device__ __forceinline__ int swz(int x) {
+  return x ^ (int)((kSwz >> (((x >> 4) & 15) << 2)) & 15);
+}
+
+// Threads of a block whose tile has 2^tbits amplitudes: one per 8-amplitude
+// tuple of a butterfly round, 32 to 256.
+inline int echo_threads(int tbits) {
+  const int t = 1 << (tbits - 3);
+  return t < 32 ? 32 : (t > kThreads ? kThreads : t);
+}
+
+// One butterfly round on NB consecutive tile bits [b, b + NB) of a swizzled
+// 2^tbits tile, 2^NB amplitudes in registers: kick.round<NB>(b - b0) gives
+// the butterflies (k, a, b) of bits b + k. The round's bits are disjoint
+// from the tuple's base, so amplitude j of a tuple sits at
+// swz(base) ^ swz(j << b). The tuple comes from the tile or, with kIn, from
+// in(base, j << b) for each amplitude base | j << b (the first round fused
+// into the load); it goes back to the tile (the round then ends in
+// __syncthreads) or, with kOut, to out(base, j << b, v) (the last round
+// fused into the store). The functors see the base and the offset apart,
+// so that what depends on the base alone is computed once per tuple.
+template <int NB, bool kIn, bool kOut, class Kick, class In, class Out>
+__device__ void swz_round(float2* tile, int tbits, int b, int b0,
+                          const Kick& kick, const In& in, const Out& out) {
+  constexpr int M = 1 << NB;
+  const auto bf = kick.template round<NB>(b - b0);
+  int off[M];
+#pragma unroll
+  for (int j = 0; j < M; ++j) off[j] = swz(j << b);
+  const int ntup = 1 << (tbits - NB);
+  const int lowmask = (1 << b) - 1;
+  for (int p = threadIdx.x; p < ntup; p += blockDim.x) {
+    const int base = ((p >> b) << (b + NB)) | (p & lowmask);
+    const int sb = swz(base);
+    float2 v[M];
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      if constexpr (kIn) {
+        v[j] = in(base, j << b);
+      } else {
+        v[j] = tile[sb ^ off[j]];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        if (!(j & (1 << k))) bf(k, v[j], v[j | (1 << k)]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      if constexpr (kOut) {
+        out(base, j << b, v[j]);
+      } else {
+        tile[sb ^ off[j]] = v[j];
+      }
+    }
+  }
+  if constexpr (!kOut) __syncthreads();
+}
+
+template <bool kIn, bool kOut, class Kick, class In, class Out>
+__device__ void swz_round_n(int nb, float2* tile, int tbits, int b, int b0,
+                            const Kick& kick, const In& in, const Out& out) {
+  if (nb == 3) {
+    swz_round<3, kIn, kOut>(tile, tbits, b, b0, kick, in, out);
+  } else if (nb == 2) {
+    swz_round<2, kIn, kOut>(tile, tbits, b, b0, kick, in, out);
+  } else {
+    swz_round<1, kIn, kOut>(tile, tbits, b, b0, kick, in, out);
+  }
+}
+
+// The kick on tile bits [b0, b0 + n) (n <= 12) of a 2^tbits tile in
+// ceil(n / 3) rounds of 2 or 3 bits, the last on the top bits: the first
+// takes its amplitudes from in, the last hands them to out (swz_round), and
+// the tile (swizzled shared memory) holds the state between rounds.
+template <class Kick, class In, class Out>
+__device__ void swz_kick(float2* tile, int tbits, int b0, int n,
+                         const Kick& kick, const In& in, const Out& out) {
+  const int rounds = (n + 2) / 3;
+  const int nb0 = n / rounds + (n % rounds > 0 ? 1 : 0);
+  if (rounds == 1) {
+    swz_round_n<true, true>(n, tile, tbits, b0, b0, kick, in, out);
+    return;
+  }
+  swz_round_n<true, false>(nb0, tile, tbits, b0, b0, kick, in, out);
+  int b = b0 + nb0;
+  for (int i = 1; i < rounds - 1; ++i) {
+    const int nb = n / rounds + (i < n % rounds ? 1 : 0);
+    swz_round_n<false, false>(nb, tile, tbits, b, b0, kick, in, out);
+    b += nb;
+  }
+  swz_round_n<false, true>(b0 + n - b, tile, tbits, b, b0, kick, in, out);
+}
+
+// The passes take the step's kick through a policy P of the family
+// (XEcho in floquet_x_echo.cuh, GeneralEcho in floquet_general_echo.cuh):
+//   P::kMinBlocks  blocks an SM, the passes' launch bounds;
+//   P::Shared      what a block keeps of its kick in shared memory;
+//   P::Kick        a block's kick: from(q) the kick from qubit q on, and
+//                  round<NB>(j) the butterflies of its qubits [j, j + NB);
+//   begin(rows, L, rows_per_pair, pair, step, sh, kick): false once the
+//                  pair has run its COUNT steps, else sets kick (its shared
+//                  part in sh, read after the next __syncthreads).
+
+// Echo pass lo (pair blockIdx.y): step 0 applies folded row 0, the first
+// pre diagonal (later steps' pre diagonals are folded into the previous
+// pass hi), then the kick of the step's pre row on bits [0, k1).
+template <class P>
+__global__ void __launch_bounds__(kThreads, P::kMinBlocks)
+    echo_lo_kernel(float2* __restrict__ st, int L, int k1,
+                   const float* __restrict__ rows, int64_t rows_per_pair,
+                   Fold fold, int step, P policy) {
+  extern __shared__ float2 tile[];
+  __shared__ float coef[2 * kMaxEchoL];
+  __shared__ float2 tlo[kTabLo], thi[kTabHi];
+  __shared__ typename P::Shared sh;
+  const int pair = blockIdx.y;
+  typename P::Kick kick;
+  if (!policy.begin(rows, L, rows_per_pair, pair, step, sh, kick)) return;
+  const int64_t N = (int64_t)1 << L;
+  const int64_t hi = blockIdx.x;
+  float2* g = st + (int64_t)pair * N + (hi << k1);
+  const bool first = step == 0;
+  if (first) load_fold(fold.row(pair, 0, L), L, coef);
+  __syncthreads();
+  if (first) {
+    const float* cb = coef + L;
+    phase_tables(coef, cb, 0, k1, 0.0f, zsign(hi, 0),
+                 coef[2 * L - 1] + angle_bits(coef, cb, hi, k1, L - k1), tlo,
+                 thi);
+  }
+  swz_kick(
+      tile, k1, 0, k1, kick,
+      [&](int base, int jb) {
+        const float2 v = g[base + jb];
+        return first ? phase_mul(v, table_phase(tlo, thi, k1, base + jb)) : v;
+      },
+      [&](int base, int jb, float2 v) { g[base + jb] = v; });
+}
+
+// Echo pass hi (pair blockIdx.y): the kick on bits [k1, L), then folded
+// row step + 1 (this step's post diagonal and the next step's pre) as the
+// tile is stored.
+template <class P>
+__global__ void __launch_bounds__(kThreads, P::kMinBlocks)
+    echo_hi_kernel(float2* __restrict__ st, int L, int k1,
+                   const float* __restrict__ rows, int64_t rows_per_pair,
+                   Fold fold, int step, P policy) {
+  extern __shared__ float2 tile[];  // [2^n2][kW], swizzled
+  __shared__ float coef[2 * kMaxEchoL];
+  __shared__ float2 tlo[kTabLo], thi[kTabHi], tw[kW];
+  __shared__ typename P::Shared sh;
+  const int pair = blockIdx.y;
+  typename P::Kick kick;
+  if (!policy.begin(rows, L, rows_per_pair, pair, step, sh, kick)) return;
+  const int n2 = L - k1;
+  const int64_t N = (int64_t)1 << L;
+  const int64_t o = (int64_t)blockIdx.x * kW;
+  float2* g = st + (int64_t)pair * N + o;
+  load_fold(fold.row(pair, step + 1, L), L, coef);
+  __syncthreads();
+  const float* cb = coef + L;
+  if (threadIdx.x < kW) {
+    tw[threadIdx.x] =
+        unit(coef[2 * L - 1] + angle_bits(coef, cb, o + threadIdx.x, 0, k1));
+  }
+  phase_tables(coef, cb, k1, n2, zsign(o, k1 - 1), 0.0f, 0.0f, tlo, thi);
+  // tile index x = h * kW + w: the high bits sit at tile bits [2, 2 + n2)
+  swz_kick(
+      tile, n2 + 2, 2, n2, kick.from(k1),
+      [&](int base, int jb) {
+        return g[((base / kW + jb / kW) << k1) + base % kW];
+      },
+      [&](int base, int jb, float2 v) {
+        // the last round's bits are the top ones, above the lower table's
+        const int a = (n2 + 1) / 2;
+        const int h = base / kW;
+        const float2 ph =
+            phase_mul(phase_mul(tlo[h & ((1 << a) - 1)], tw[base % kW]),
+                      thi[(h + jb / kW) >> (a - 1)]);
+        g[((h + jb / kW) << k1) + base % kW] = phase_mul(v, ph);
+      });
+}
+
+// The echo of n_pairs states in st on the folded rows: the basis state,
+// n_steps echo steps of two passes each (a pair stops at its COUNT), the
+// measure and the fixed-order reduce into out.
+template <class P>
+cudaError_t run_echo(float2* st, int L, const float* rows,
+                     int64_t rows_per_pair, Fold fold, int n_pairs,
+                     int n_steps, P policy, int q, int64_t b0,
+                     float* partials, float* out, cudaStream_t stream) {
+  const int k1 = lo_bits(L);
+  const int n2 = L - k1;
+  const size_t smem_lo = sizeof(float2) << k1;
+  const size_t smem_hi = (sizeof(float2) * kW) << n2;
+  const int t_lo = echo_threads(k1), t_hi = echo_threads(n2 + 2);
+  cudaError_t e = cudaFuncSetAttribute(
+      echo_lo_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_lo);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(echo_hi_kernel<P>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem_hi);
+  if (e != cudaSuccess) return e;
+  init_kernel<<<dim3(256, n_pairs), kThreads, 0, stream>>>(
+      st, (int64_t)1 << L, b0);
+  e = cudaGetLastError();
+  for (int k = 0; e == cudaSuccess && k < n_steps; ++k) {
+    echo_lo_kernel<P><<<dim3(1u << n2, n_pairs), t_lo, smem_lo, stream>>>(
+        st, L, k1, rows, rows_per_pair, fold, k, policy);
+    echo_hi_kernel<P><<<dim3((1u << k1) / kW, n_pairs), t_hi, smem_hi,
+                        stream>>>(st, L, k1, rows, rows_per_pair, fold, k,
+                                  policy);
+    e = cudaGetLastError();
+  }
+  if (e != cudaSuccess) return e;
+  return measure_and_reduce(st, L, q, n_pairs, partials, out, stream);
+}
+
+}  // namespace

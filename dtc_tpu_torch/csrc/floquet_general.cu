@@ -27,7 +27,13 @@
 // (lane FO, the final slot of a cycle) sum |psi|^2 z_q into A(MPOS).
 // Echo: rows come in (pre, post) pairs; a step is the pre diagonal, the
 // kick of the pre row, then the post diagonal; each pair runs COUNT = 2tK
-// steps (lane FO+10 of its row 0) and is measured at the end.
+// steps (lane FO+10 of its row 0) and is measured at the end. The echo
+// runs its own two passes (floquet_general_echo.cuh), redesigned for this
+// card (floquet_echo.cuh): the post diagonal and the next step's pre are
+// one folded row (ops/echo_fold.py), applied once per step from two small
+// phase tables per block; the kick runs in rounds whose first reads the
+// state and whose last writes it, on a swizzled tile without bank
+// conflicts.
 //
 // What bounds it on this card: as for K1/K2 (floquet_x.cu), the 2^L
 // complex64 state (8 MiB at L=20) lives in device memory, and a step is two
@@ -49,6 +55,7 @@
 #include "floquet_common.cuh"
 #include "floquet_lab.cuh"
 #include "floquet_general_pass.cuh"
+#include "floquet_general_echo.cuh"
 
 extern "C" {
 
@@ -92,24 +99,18 @@ int floquet_general_forward(void* state, const void* rows, void* partials,
 
 // K4 echo. state: n_pairs x 2^L complex64 scratch; tiles: n_pairs x
 // rows_per_pair x 128 f32 (interleaved pre/post step rows, COUNT at lane
-// 4L+9 of row 0); partials: n_pairs x floquet_general_echo_partials(L) f32;
-// out: n_pairs f32. n_steps = the largest COUNT of the batch.
-int floquet_general_echo(void* state, const void* tiles, void* partials,
-                         void* out, int n_pairs, int L, int rows_per_pair,
-                         int n_steps, int q, int64_t b0, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  float2* st = (float2*)state;
-  const int64_t N = (int64_t)1 << L;
-  init_kernel<<<dim3(256, n_pairs), kThreads, 0, stream>>>(st, N, b0);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  for (int k = 0; k < n_steps; ++k) {
-    e = launch_step(st, L, (const float*)tiles, rows_per_pair, n_pairs, k, 1,
-                    q, nullptr, 0, stream);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)measure_and_reduce(st, L, q, n_pairs, (float*)partials,
-                                 (float*)out, stream);
+// 4L+9 of row 0); fold: n_pairs x fold_rows x 2L f32, the folded diagonals
+// (ops/echo_fold.py); partials: n_pairs x floquet_general_echo_partials(L)
+// f32; out: n_pairs f32. n_steps = the largest COUNT of the batch.
+int floquet_general_echo(void* state, const void* tiles, const void* fold,
+                         void* partials, void* out, int n_pairs, int L,
+                         int rows_per_pair, int fold_rows, int n_steps, int q,
+                         int64_t b0, void* stream_ptr) {
+  return (int)run_echo(
+      (float2*)state, L, (const float*)tiles, rows_per_pair,
+      Fold{(const float*)fold, (int64_t)fold_rows * 2 * L}, n_pairs, n_steps,
+      GeneralEcho{}, q, b0, (float*)partials, (float*)out,
+      (cudaStream_t)stream_ptr);
 }
 
 // Sizes the wrapper allocates: block slots per lane of the K5 partials.

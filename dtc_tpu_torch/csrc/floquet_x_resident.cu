@@ -25,23 +25,31 @@
 // The TPU kernel's q < 14 limit (its probe on the column axis) is not
 // carried over: any 0 <= q < L.
 //
-// Design: K1/K2's two passes (floquet_x_pass.cuh), instantiated with the
-// table (TableKick) where K1/K2 take one angle (ConstKick); the entries
-// below are K1/K2's but for the table. k1 = L - L/2, n2 = L/2: at L=14 a lo
-// tile is 1 KiB and a hi tile 4 KiB, at L=21 16 and 32 KiB. Butterflies run
-// three bits per shared-memory round (floquet_rx.cuh). Reductions are
-// deterministic: one partial per block, summed in a fixed order
-// (floquet_common.cuh).
+// Design: the forward runs K1's two passes (floquet_x_pass.cuh),
+// instantiated with the table (TableKick) where K1 takes one angle
+// (ConstKick). k1 = L - L/2, n2 = L/2: at L=14 a lo tile is 1 KiB and a hi
+// tile 4 KiB, at L=21 16 and 32 KiB. Butterflies run three bits per
+// shared-memory round (floquet_rx.cuh). Reductions are deterministic: one
+// partial per block, summed in a fixed order (floquet_common.cuh).
+// The echo runs its own two passes (floquet_x_echo.cuh) on the same tiles,
+// redesigned for this card (floquet_echo.cuh): one diagonal per step, the
+// post diagonal and the next step's pre folded into one row by the wrapper
+// (ops/echo_fold.py), its phases from two small tables per block instead of
+// a sincos per amplitude; the kick in rounds whose first reads the state
+// and whose last writes it, on a swizzled tile without bank conflicts.
 //
-// What bounds it on this card: the same as K1/K2, two read+write sweeps of
-// the state per cycle (32 B per amplitude and cycle). At 14 <= L <= 16 a
-// batch of 32 trajectories (4-16 MiB of states) sits in the 50 MB L2, and
-// each cycle still makes two launches of small blocks, so launch and
-// latency, not bytes, set the time there.
+// What bounds it on this card: the forward, two read+write sweeps of the
+// state per cycle (32 B per amplitude and cycle) at the HBM rate; the echo,
+// one read and one write of the state a pass (its rate: PERF.md section
+// 6). At 14 <= L <= 16 a batch of 32 trajectories
+// (4-16 MiB of states) sits in the L2 anyway, and each cycle still makes
+// two launches of small blocks, so launch and latency, not bytes, set the
+// forward's time there.
 
 #include "floquet_common.cuh"
 #include "floquet_rx.cuh"
 #include "floquet_x_pass.cuh"
+#include "floquet_x_echo.cuh"
 
 extern "C" {
 
@@ -86,26 +94,20 @@ int floquet_x_resident_forward(void* state, const void* rows, const void* cs,
 
 // K3b. state: n_pairs x 2^L complex64 scratch; tiles: n_pairs x rows x 128
 // f32 (interleaved pre/post step rows, trip count 2t at lane 124 of row 0,
-// table row at lane 127 of each pre row); cs: tu x 2 f32; partials: n_pairs
-// x floquet_x_resident_echo_partials(L) f32; out: n_pairs f32. n_steps = the
-// largest trip count of the batch.
-int floquet_x_resident_echo(void* state, const void* tiles, const void* cs,
-                            void* partials, void* out, int n_pairs, int L,
-                            int rows_per_pair, int n_steps, int tu, int q,
+// table row at lane 127 of each pre row); fold: n_pairs x fold_rows x 2L
+// f32, the folded diagonals (ops/echo_fold.py); cs: tu x 2 f32; partials:
+// n_pairs x floquet_x_resident_echo_partials(L) f32; out: n_pairs f32.
+// n_steps = the largest trip count of the batch.
+int floquet_x_resident_echo(void* state, const void* tiles, const void* fold,
+                            const void* cs, void* partials, void* out,
+                            int n_pairs, int L, int rows_per_pair,
+                            int fold_rows, int n_steps, int tu, int q,
                             int64_t b0, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  float2* st = (float2*)state;
-  const int64_t N = (int64_t)1 << L;
-  init_kernel<<<dim3(256, n_pairs), kThreads, 0, stream>>>(st, N, b0);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  for (int k = 0; k < n_steps; ++k) {
-    e = launch_step(st, L, (const float*)tiles, rows_per_pair, n_pairs, k, 1,
-                    TableKick{(const float*)cs, tu}, q, nullptr, 0, stream);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)measure_and_reduce(st, L, q, n_pairs, (float*)partials,
-                                 (float*)out, stream);
+  return (int)run_echo(
+      (float2*)state, L, (const float*)tiles, rows_per_pair,
+      Fold{(const float*)fold, (int64_t)fold_rows * 2 * L}, n_pairs, n_steps,
+      XEcho<TableKick>{TableKick{(const float*)cs, tu}}, q, b0,
+      (float*)partials, (float*)out, (cudaStream_t)stream_ptr);
 }
 
 }  // extern "C"

@@ -52,8 +52,9 @@ LIBRARIES = {
         "floquet_x_resident_echo_partials": [_I32],
         "floquet_x_resident_forward": [_VP, _VP, _VP, _VP, _VP, _I32, _I32,
                                        _I32, _I32, _I32, _I64, _VP],
-        "floquet_x_resident_echo": [_VP, _VP, _VP, _VP, _VP, _I32, _I32,
-                                    _I32, _I32, _I32, _I32, _I64, _VP],
+        "floquet_x_resident_echo": [_VP, _VP, _VP, _VP, _VP, _VP, _I32,
+                                    _I32, _I32, _I32, _I32, _I32, _I32, _I64,
+                                    _VP],
     },
     "floquet_x_streamed": {
         "floquet_x_streamed_partials": [_I32],
@@ -68,8 +69,8 @@ LIBRARIES = {
         "floquet_general_echo_partials": [_I32],
         "floquet_general_forward": [_VP, _VP, _VP, _VP, _I32, _I32, _I32,
                                     _I32, _I32, _I32, _I64, _VP],
-        "floquet_general_echo": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32,
-                                 _I32, _I64, _VP],
+        "floquet_general_echo": [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32,
+                                 _I32, _I32, _I32, _I64, _VP],
         "floquet_general_observables_slots": [_I32],
         "floquet_general_observables": [_VP, _VP, _VP, _VP, _VP, _I32, _I32,
                                         _I32, _I32, _I32, _I64, _VP],

@@ -2,9 +2,10 @@
 
 Port of ``dtc_tpu/ops/pallas_resident.py`` (``resident_forward_batch``,
 ``resident_echo_batch``). The two Pallas kernels (K3a forward, K3b echo)
-become the CUDA entries of ``csrc/floquet_x_resident.cu``, which run
-K1/K2's hand-written passes (``csrc/floquet_x_pass.cuh``) with the kick
-angle read from a table;
+become the CUDA entries of ``csrc/floquet_x_resident.cu``: the forward runs
+K1's hand-written passes (``csrc/floquet_x_pass.cuh``) with the kick angle
+read from a table, the echo its own passes (``csrc/floquet_x_echo.cuh``) on
+the folded diagonals (``ops/echo_fold.py``);
 beside each is its plain PyTorch version (``resident_forward_batch_ref``,
 ``resident_echo_batch_ref``), which runs the reference's kick matrices
 (``ops/params.py::kick_matrices``, one per cycle when ``time_dependent``)
@@ -32,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from dtc_tpu_torch.core.statevector import basis_index
+from dtc_tpu_torch.ops.echo_fold import echo_plan
 from dtc_tpu_torch.ops.params import WIDTH, kick_matrices
 from dtc_tpu_torch.ops.resident_blocked import (
     MAX_T_ECHO,
@@ -48,6 +50,7 @@ from dtc_tpu_torch.ops.resident_blocked import (
     forward_host_factor,
     raise_on,
     route,
+    row_coeffs,
 )
 
 MIN_L, MAX_L = 14, 21
@@ -237,10 +240,7 @@ def resident_echo_batch(tiles, sig_fin, angles, *, L, q,
     b0 = basis_index(L, initial_state)
     dev = tiles.device
     flat = tiles.view(n, R, WIDTH)
-    n_steps = int(flat[:, 0, WIDTH - 4].max().item())
-    if n_steps > R // 2:
-        raise ValueError(f"trip count {n_steps} exceeds the {R // 2} step"
-                         " rows")
+    fold, n_steps = echo_plan(flat, WIDTH - 4, L, row_coeffs, "trip count")
     cs = kick_table(angles, time_dependent, dev)
     state = torch.empty((n, 1 << L), dtype=torch.complex64, device=dev)
     partials = torch.empty((n, lib.floquet_x_resident_echo_partials(L)),
@@ -248,8 +248,9 @@ def resident_echo_batch(tiles, sig_fin, angles, *, L, q,
     val = torch.empty((n,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.floquet_x_resident_echo(
-        state.data_ptr(), tiles.data_ptr(), cs.data_ptr(), partials.data_ptr(),
-        val.data_ptr(), n, L, R, n_steps, cs.shape[0], q, b0, stream)
+        state.data_ptr(), tiles.data_ptr(), fold.data_ptr(), cs.data_ptr(),
+        partials.data_ptr(), val.data_ptr(), n, L, R, fold.shape[1], n_steps,
+        cs.shape[0], q, b0, stream)
     LAUNCHES["echo"] += 1
     raise_on(err, "floquet_x_resident_echo")
     return echo_host_factor(val.reshape(batch), sig_fin, q, b0,

@@ -83,13 +83,20 @@ def angle_table(L: int, device) -> torch.Tensor:
     return torch.cat([z, z[:-1] * z[1:]])
 
 
+def row_coeffs(rows: torch.Tensor, L: int):
+    """(..., width) compact rows -> the diagonal's coefficients (cz (..., L),
+    cb (..., L-1), c0 (...)) in the sigma frame (the kernels' load_coeffs,
+    ``csrc/floquet_rx.cuh``)."""
+    n_bits = rows[..., :L]
+    cz = rows[..., 3 * L - 1:4 * L - 1] * (rows[..., L:2 * L] - 0.5) \
+        - _HALF_PI * n_bits
+    cb = rows[..., 4 * L - 1:5 * L - 2] * (rows[..., 2 * L:3 * L - 1] - 0.5)
+    return cz, cb, _HALF_PI * n_bits.sum(-1)
+
+
 def _row_angles(rows: torch.Tensor, L: int, table: torch.Tensor):
     """(n, 128) rows -> (n, 2^L) diagonal angles theta(s)."""
-    n_bits = rows[:, :L]
-    cz = rows[:, 3 * L - 1:4 * L - 1] * (rows[:, L:2 * L] - 0.5) \
-        - _HALF_PI * n_bits
-    cb = rows[:, 4 * L - 1:5 * L - 2] * (rows[:, 2 * L:3 * L - 1] - 0.5)
-    c0 = _HALF_PI * n_bits.sum(-1)
+    cz, cb, c0 = row_coeffs(rows, L)
     return c0[:, None] + torch.cat([cz, cb], dim=-1) @ table
 
 

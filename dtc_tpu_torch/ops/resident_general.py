@@ -19,7 +19,9 @@ slot unitary, m its X-mask), then the diagonal exp(i theta(s)) with
     cz_q = -h_q/2 - (pi/2) n_q,   cb_j = -phi_j/2,   c0 = (pi/2) sum_q n_q.
 Forward: a step whose row has MPOS >= 0 gives A(MPOS) = sum |psi|^2 z_q;
 A(0) is the initial sign. Echo: each pair runs the COUNT steps its row 0
-names, then sum |psi|^2 z_q. The host factor is ancilla_factor * s0.
+names, then sum |psi|^2 z_q. The host factor is ancilla_factor * s0. The
+echo kernel takes, beside the step rows, their folded diagonals
+(``ops/echo_fold.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import math
 import torch
 
 from dtc_tpu_torch.core.statevector import basis_index
+from dtc_tpu_torch.ops.echo_fold import echo_plan
 from dtc_tpu_torch.ops.kick import kron
 from dtc_tpu_torch.ops.params import WIDTH
 from dtc_tpu_torch.ops.params_general import (
@@ -83,12 +86,19 @@ def check_range(L: int, q: int, steps: int) -> None:
 # plain versions
 
 
+def row_coeffs(rows: torch.Tensor, L: int):
+    """(..., 128) step rows -> the diagonal's coefficients (cz (..., L),
+    cb (..., L-1), c0 (...)) in the lab frame (the kernels' load_coeffs,
+    ``csrc/floquet_lab.cuh``)."""
+    n_bits = rows[..., :L]
+    cz = -0.5 * rows[..., 2 * L:3 * L] - _HALF_PI * n_bits
+    cb = -0.5 * rows[..., 3 * L:4 * L - 1]
+    return cz, cb, _HALF_PI * n_bits.sum(-1)
+
+
 def _row_angles(rows: torch.Tensor, L: int, table: torch.Tensor):
     """(n, 128) rows -> (n, 2^L) diagonal angles theta(s)."""
-    n_bits = rows[:, :L]
-    cz = -0.5 * rows[:, 2 * L:3 * L] - _HALF_PI * n_bits
-    cb = -0.5 * rows[:, 3 * L:4 * L - 1]
-    c0 = _HALF_PI * n_bits.sum(-1)
+    cz, cb, c0 = row_coeffs(rows, L)
     return c0[:, None] + torch.cat([cz, cb], dim=-1) @ table
 
 
@@ -220,18 +230,17 @@ def general_echo_batch(tiles, *, L, q, initial_state="vacuum",
     b0 = basis_index(L, initial_state)
     dev = tiles.device
     flat = tiles.view(n, R, WIDTH)
-    n_steps = int(flat[:, 0, flag_base(L) + LANE_COUNT].max().item())
-    if n_steps > R // 2:
-        raise ValueError(f"step count {n_steps} exceeds the {R // 2} step"
-                         " rows")
+    fold, n_steps = echo_plan(flat, flag_base(L) + LANE_COUNT, L, row_coeffs,
+                              "step count")
     state = torch.empty((n, 1 << L), dtype=torch.complex64, device=dev)
     partials = torch.empty((n, lib.floquet_general_echo_partials(L)),
                            dtype=torch.float32, device=dev)
     val = torch.empty((n,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.floquet_general_echo(state.data_ptr(), tiles.data_ptr(),
-                                   partials.data_ptr(), val.data_ptr(), n, L,
-                                   R, n_steps, q, b0, stream)
+    err = lib.floquet_general_echo(
+        state.data_ptr(), tiles.data_ptr(), fold.data_ptr(),
+        partials.data_ptr(), val.data_ptr(), n, L, R, fold.shape[1], n_steps,
+        q, b0, stream)
     LAUNCHES["echo"] += 1
     raise_on(err, "floquet_general_echo")
     return (ancilla_factor * basis_sign(b0, q)) * val.reshape(batch)

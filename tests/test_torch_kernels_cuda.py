@@ -568,6 +568,49 @@ def test_resident_kernels_match_k1_k2_and_k4_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("L", [14, 17, 20, 21, 23])
+def test_folded_echo_kernels_match_plain_on_card(cuda_device, L):
+    """K3b (to L=21) and K4's echo (to L=23) on the folded diagonals against
+    their plain versions: 8 pairs with ragged counts (0, 1, a few, the
+    largest), probes q = 0, L//2, L-1, at p = 0.6 and 0."""
+    from dtc_tpu_torch.ops.params_general import LANE_COUNT, flag_base
+
+    hs, phis = _disorder(L, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(L)
+    T = 2 if L == 23 else 3
+    ts = torch.tensor([0, 1, 2, T], device=cuda_device)
+    angles = build_kick_schedule("xy", 0.97, T, device=cuda_device).angles
+    ug = torch.rand((1, 2, 4 * T, L), generator=gen, device=cuda_device)
+    ux = torch.rand((1, 2, 2 * T, L), generator=gen, device=cuda_device)
+    ang = _x_schedule(T, cuda_device, True)
+    for p in (0.6, 0.0):
+        tiles = general_echo_rows(ug, ts, hs[:, None], phis[:, None], angles,
+                                  L=L, T=T, K=2, p=p)
+        tiles[0, 1, 2, 0, flag_base(L) + LANE_COUNT] = 1.0
+        runs = [(rg.general_echo_batch, rg.general_echo_batch_ref, rg.LAUNCHES,
+                 (tiles,), {})]
+        if L <= rs.MAX_L:
+            xt, sfin = echo_pair_tiles(ux, ts, hs[:, None], phis[:, None],
+                                       L=L, T=T, p=p)
+            xt[0, 1, 2, 0, 124] = 1.0
+            runs.append((rs.resident_echo_batch, rs.resident_echo_batch_ref,
+                         rs.LAUNCHES, (xt, sfin, ang),
+                         dict(time_dependent=True)))
+        for kernel, plain, launches, args, kw in runs:
+            for q in (0, L // 2, L - 1):
+                kw.update(L=L, q=q, initial_state="neel" if q else "vacuum")
+                before = launches["echo"]
+                k = kernel(*args, **kw)
+                torch.cuda.synchronize()
+                assert launches["echo"] == before + 1
+                ref = plain(*args, **kw)
+                assert float((k - ref).abs().max()) <= TOL
+                if p == 0:  # but the pair cut to one step
+                    k[0, 1, 2] = 1.0
+                    assert float((k - 1).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
 def test_resident_wrappers_reject_bad_inputs(cuda_device):
     ang = _x_schedule(3, cuda_device, True)
     sig = torch.zeros((1, 3), dtype=torch.int64, device=cuda_device)
