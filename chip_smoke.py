@@ -125,12 +125,16 @@ each; any failure raises and the script exits non-zero without a result:
    L=28 on 4 trajectories); K11 on the planar path's 32 states of
    L=20; the planar forward's and K1's cycles/s and the config-4 device
    forward's trajectory-cycles/s; each kernel's bound: the larger
-   of its bytes (inputs read once, outputs written once) over 3.35 TB/s and
-   its f32 operations over 67 TFLOP/s (the H100 SXM's published peaks), and
+   of its bytes (inputs read once, outputs written once; for the streamed
+   families, whose states of 64 MiB and more do not fit the L2, at least
+   16 B per amplitude and step) over 3.35 TB/s and its f32 operations over
+   67 TFLOP/s (the H100 SXM's published peaks), and
    its state floor (16 B per amplitude per pass and step, 2 or 3 passes);
-   the two echo entries on folded diagonals (K4's echo on 512 xy pairs at
-   ts=0..7, K3b on 32 pairs at t=12, L=20) also with their launches a call
-   and their shares of the state floor and of the bound;
+   the four echo entries on folded diagonals (K4's echo on 512 xy pairs at
+   ts=0..7, K3b on 32 pairs at t=12, L=20; the streamed x echo at L=28,
+   ts=0..3, and L=30, t=5; the streamed lab-frame echo, y at L=28, ts=0..3,
+   and circular_left at L=29, t=5) also with their launches a call and
+   their shares of the state floor and of the bound;
 6. the device seconds and calls of each kernel entry summed over every
    main-path run of phase 4 (CUDA events around each entry call), a JSON
    line of the kernels (with those as ``main_s`` and ``main_calls``), then
@@ -2259,19 +2263,23 @@ def bound(io_bytes, amp_steps, flops_per_amp_step, extra_ops=0) -> tuple:
 
 
 def report(name, what, ms, plain_ms, amp_steps, unit, units, io_bytes,
-           flops, smi, extra_ops=0, passes=2) -> dict:
+           flops, smi, extra_ops=0, passes=2, spills=False) -> dict:
     """Print one kernel's timing line; return its numbers. The state floor:
     ``passes`` read+write sweeps of the state per step, 16 B per amplitude
-    each."""
-    bound_ms, bound_by = bound(io_bytes, amp_steps, flops, extra_ops)
+    each. ``spills``: the state (L >= 23, 64 MiB and more) does not fit the
+    L2, so every step reads and writes it at least once, and the bytes of
+    the bound are at least 16 B per amplitude and step."""
+    bound_ms, bound_by = bound(max(io_bytes, 16 * amp_steps * spills),
+                               amp_steps, flops, extra_ops)
     floor_ms = amp_steps * 16 * passes / HBM_BYTES_PER_S * 1e3
     gbps = amp_steps * 16 * passes / (ms / 1e3) / 1e9
     phase(f"[timing] {name} {what}: kernel {ms:.3f} ms = "
           f"{units / (ms / 1e3):.1f} {unit}/s, plain {plain_ms:.3f} ms = "
           f"{units / (plain_ms / 1e3):.1f} {unit}/s; state {gbps:.1f} GB/s"
           f" = {100 * floor_ms / ms:.1f}% of the {passes}-sweep floor "
-          f"({floor_ms:.3f} ms at {16 * passes} B/amp/step); bound "
-          f"{bound_ms:.3f} ms ({bound_by}) on {smi}")
+          f"({floor_ms:.3f} ms at {16 * passes} B/amp/step; one sweep "
+          f"{floor_ms / passes:.3f} ms); bound {bound_ms:.3f} ms "
+          f"({bound_by}) on {smi}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "state_floor_ms": floor_ms}
 
@@ -2332,16 +2340,16 @@ def timing(dev, smi, err) -> dict:
 
 
 def timed_echo(name, what, kernel, plain, n_steps, err, key, amp_steps,
-               units, io_bytes, flops, smi) -> dict:
+               units, io_bytes, flops, smi, passes=2, spills=False) -> dict:
     """One echo entry's timing row: kernel and plain in turns, and the
     shares of the state floor and of the bound. Every pair runs in lockstep,
-    ``n_steps`` steps of two launches, with the basis state, the measure
-    and the reduce."""
+    ``n_steps`` steps of ``passes`` launches, with the basis state, the
+    measure and the reduce. ``spills`` as in ``report``."""
     k_ms, p_ms, k, ref = timed_pair(kernel, plain, 1)
     err[key] = max(err[key], held(f"{name} {what} (timed inputs)", k, ref))
     row = report(name, what, k_ms, p_ms, amp_steps, "steps", units, io_bytes,
-                 flops, smi)
-    phase(f"[timing] {name} {what}: {2 * n_steps + 3} launches a call; "
+                 flops, smi, passes=passes, spills=spills)
+    phase(f"[timing] {name} {what}: {passes * n_steps + 3} launches a call; "
           f"{100 * row['state_floor_ms'] / k_ms:.1f}% of the state floor, "
           f"{100 * row['bound_ms'] / k_ms:.1f}% of the bound on {smi}")
     return row
@@ -2384,14 +2392,15 @@ def timing_k3_echo(dev, smi, err) -> dict:
         lambda: rs.resident_echo_batch_ref(tiles, sfin, angles, **kw), 2 * 12,
         err, "K3 echo", steps << L, steps,
         4 * (tiles.numel() + 2 * angles.shape[0] + c), 6 * L + 6, smi)
-    k = rs.resident_echo_batch(tiles, sfin, angles, **kw)
-    k4_ms, k4 = time_ms(lambda: rg.general_echo_batch(gtiles, L=L,
-                                                      q=L // 2))
+    # K4 and K3 in turns, so that the two times are compared alike
+    k4_ms, k3_ms, k4, k = timed_pair(
+        lambda: rg.general_echo_batch(gtiles, L=L, q=L // 2),
+        lambda: rs.resident_echo_batch(tiles, sfin, angles, **kw), 3)
     held(f"K3 {what} vs K4 (timed inputs)", k, k4)
     row["k4_ms"] = k4_ms
     phase(f"[timing] K4 on the same ramp and rows, {what}: {k4_ms:.3f} ms = "
-          f"{steps / (k4_ms / 1e3):.1f} steps/s ({k4_ms / row['ms']:.3f} x "
-          f"K3) on {smi}")
+          f"{steps / (k4_ms / 1e3):.1f} steps/s ({k4_ms / k3_ms:.3f} x "
+          f"K3 at {k3_ms:.3f} ms, in turns) on {smi}")
     return row
 
 
@@ -2436,12 +2445,11 @@ def peak(name, what, L, dev, smi) -> None:
 
 def timing_streamed(dev, smi, err) -> dict:
     """The streamed family's forward at L=24, 26, 28 (4 trajectories, T=8)
-    and 30 (1 trajectory, T=6: the main path's launch), its echo at L=28
-    (the main path's first launch: ts=0..3, 1 trajectory) and L=30 (its
-    last: t=5), each against its plain version on the same inputs, with
-    the peak device memory of each kernel/plain pair; and the family
-    against K1 on the same L=23 rows (32 trajectories, T=20). Returns the
-    L=28 numbers."""
+    and 30 (1 trajectory, T=6: the main path's launch) against its plain
+    version on the same inputs, with the peak device memory of each
+    kernel/plain pair, and against K1 on the same L=23 rows (32
+    trajectories, T=20). Returns the L=28 numbers; the echo's rows are
+    ``timing_streamed_echo``'s."""
     from dtc_tpu_torch.ops import _build
     from dtc_tpu_torch.ops import resident_blocked as rb
     from dtc_tpu_torch.ops import streamed as sm
@@ -2462,27 +2470,7 @@ def timing_streamed(dev, smi, err) -> dict:
         out[f"forward {L}"] = report(
             "K6", what, k_ms, p_ms, c * (T - 1) << L, "cycles", T * c,
             4 * (rows.numel() + k.numel()), 6 * L + 6, smi,
-            passes=lib.floquet_x_streamed_passes(L))
-    # the main path's first echo launch at L=28 (one trajectory, t=0..3)
-    # and its last at L=30 (one pair, t=5)
-    for L, T, ts in ((28, 20, [0, 1, 2, 3]), (30, 6, [5])):
-        tiles, sfin = echo_inputs(L, T, 1, P, ts, dev, seed=L)
-        kw = dict(L=L, q=L // 2)
-        torch.cuda.reset_peak_memory_stats(dev)
-        k_ms, p_ms, k, ref = timed_pair(
-            lambda: sm.streamed_echo_batch(tiles, sfin, THETA, **kw),
-            lambda: sm.streamed_echo_batch_ref(tiles, sfin, THETA, **kw), 1)
-        steps = sum(2 * t for t in ts)
-        what = (f"echo L={L} ts={ts[0]}..{ts[-1]} pairs={len(ts)} "
-                f"steps={steps}")
-        err["K6 echo"] = max(err["K6 echo"], held(
-            f"K6 {what} (timed inputs)", k, ref))
-        peak("K6", what, L, dev, smi)
-        out[f"echo {L}"] = report(
-            "K6", what, k_ms, p_ms, steps << L, "steps", steps,
-            4 * (tiles.numel() + k.numel()), 6 * L + 12, smi,
-            passes=lib.floquet_x_streamed_passes(L))
-        del tiles
+            passes=lib.floquet_x_streamed_passes(L), spills=True)
     L, c, T = 23, 32, 20
     rows, sig = forward_inputs(L, T, c, P, dev, seed=23)
     kw = dict(L=L, q=L // 2)
@@ -2494,18 +2482,74 @@ def timing_streamed(dev, smi, err) -> dict:
           f"{s_ms:.3f} ms, K1 {k1_ms:.3f} ms "
           f"({c * (T - 1) / (s_ms / 1e3):.1f} / "
           f"{c * (T - 1) / (k1_ms / 1e3):.1f} cycles/s) on {smi}")
-    return {"K6 forward": out["forward 28"], "K6 echo": out["echo 28"]}
+    return {"K6 forward": out["forward 28"]}
+
+
+def timing_streamed_echo(dev, smi, err) -> dict:
+    """The streamed echoes (K6b/K7b, K10b) on the main paths' launches
+    against their plain versions on the same inputs, with the peak device
+    memory of each kernel/plain pair, the launches a call and the shares of
+    the state floor and of the bound: the x echo at L=28 (the ``autocorr``
+    run's first launch: ts=0..3, 1 trajectory) and L=30 (its last: t=5), the
+    lab-frame echo y at L=28 (the ``polarization`` run's first launch:
+    ts=0..3, 1 trajectory) and circular_left at L=29 (the ``autocorr`` run's
+    last: t=5). Operations per amplitude and step: the kick and one folded
+    diagonal (6 L + 6 for RX, 14 L + 6 for the general 2x2). Returns the
+    L=28 numbers."""
+    from dtc_tpu_torch.ops import _build
+    from dtc_tpu_torch.ops import cycle_hi_general as chg
+    from dtc_tpu_torch.ops import streamed as sm
+    from dtc_tpu_torch.ops.params import echo_width
+    from dtc_tpu_torch.ops.params_general import LANE_COUNT, flag_base
+
+    passes = _build.load("floquet_x_streamed").floquet_x_streamed_passes
+    out = {}
+    for L, T, ts in ((28, 20, [0, 1, 2, 3]), (30, 6, [5])):
+        tiles, sfin = echo_inputs(L, T, 1, P, ts, dev, seed=L)
+        kw = dict(L=L, q=L // 2)
+        steps = sum(2 * t for t in ts)
+        n_steps = int(tiles.reshape(-1, *tiles.shape[-2:])[
+            :, 0, echo_width(L) - 4].max())
+        what = (f"echo L={L} ts={ts[0]}..{ts[-1]} pairs={len(ts)} "
+                f"steps={steps}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        out[f"K6 {L}"] = timed_echo(
+            "K6", what,
+            lambda: sm.streamed_echo_batch(tiles, sfin, THETA, **kw),
+            lambda: sm.streamed_echo_batch_ref(tiles, sfin, THETA, **kw),
+            n_steps, err, "K6 echo", steps << L, steps,
+            4 * (tiles.numel() + len(ts)), 6 * L + 6, smi,
+            passes=passes(L), spills=True)
+        peak("K6", what, L, dev, smi)
+        del tiles
+    for L, pol, T, ts in ((28, "y", 12, [0, 1, 2, 3]),
+                          (29, "circular_left", 6, [5])):
+        tiles = general_echo_inputs(L, pol, T, 1, P, ts, dev, seed=L)
+        K = tiles.shape[-2] // (4 * T)
+        kw = dict(L=L, q=L // 2)
+        steps = sum(2 * t * K for t in ts)
+        n_steps = int(tiles.reshape(-1, *tiles.shape[-2:])[
+            :, 0, flag_base(L) + LANE_COUNT].max())
+        what = (f"echo {pol} L={L} ts={ts[0]}..{ts[-1]} pairs={len(ts)} "
+                f"steps={steps}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        out[f"K10 {L}"] = timed_echo(
+            "K10", what, lambda: chg.general_hi_echo_batch(tiles, **kw),
+            lambda: chg.general_hi_echo_batch_ref(tiles, **kw), n_steps, err,
+            "K10 echo", steps << L, steps, 4 * (tiles.numel() + len(ts)),
+            14 * L + 6, smi, passes=passes(L), spills=True)
+        peak("K10", what, L, dev, smi)
+        del tiles
+    return {"K6 echo": out["K6 28"], "K10 echo": out["K10 28"]}
 
 
 def timing_general_hi(dev, smi, err) -> dict:
-    """The streamed lab-frame family against its plain version on the main
-    paths' shapes, with the peak device memory of each kernel/plain pair:
-    forward at L=24, 26 and 28 (y, 4 trajectories, T=8) and L=29
-    (circular_left, 1 trajectory, T=6: the ``autocorr`` run's launch),
-    echo at L=28 (y, the
-    ``polarization`` run's first launch: ts=0..3, 1 trajectory) and L=29
-    (circular_left, its last: t=5). Operations per amplitude and step: K4's
-    (14 L + 6 forward, 14 L + 12 echo). Returns the L=28 numbers."""
+    """The streamed lab-frame family's forward against its plain version on
+    the main paths' shapes, with the peak device memory of each kernel/plain
+    pair: L=24, 26 and 28 (y, 4 trajectories, T=8) and L=29 (circular_left,
+    1 trajectory, T=6: the ``autocorr`` run's launch). Operations per
+    amplitude and step: K4's forward, 14 L + 6. Returns the L=28 numbers;
+    the echo's rows are ``timing_streamed_echo``'s."""
     from dtc_tpu_torch.ops import _build
     from dtc_tpu_torch.ops import cycle_hi_general as chg
 
@@ -2527,29 +2571,9 @@ def timing_general_hi(dev, smi, err) -> dict:
         out[f"forward {L}"] = report(
             "K10", what, k_ms, p_ms, c * (T - 1) * K << L, "cycles", T * c,
             4 * (rows.numel() + k.numel()), 14 * L + 6, smi,
-            passes=lib.floquet_general_streamed_passes(L))
+            passes=lib.floquet_general_streamed_passes(L), spills=True)
         del rows
-    for L, pol, T, ts in ((28, "y", 12, [0, 1, 2, 3]),
-                          (29, "circular_left", 6, [5])):
-        tiles = general_echo_inputs(L, pol, T, 1, P, ts, dev, seed=L)
-        K = tiles.shape[-2] // (4 * T)
-        kw = dict(L=L, q=L // 2)
-        torch.cuda.reset_peak_memory_stats(dev)
-        k_ms, p_ms, k, ref = timed_pair(
-            lambda: chg.general_hi_echo_batch(tiles, **kw),
-            lambda: chg.general_hi_echo_batch_ref(tiles, **kw), 1)
-        steps = sum(2 * t * K for t in ts)
-        what = (f"echo {pol} L={L} ts={ts[0]}..{ts[-1]} pairs={len(ts)} "
-                f"steps={steps}")
-        err["K10 echo"] = max(err["K10 echo"], held(
-            f"K10 {what} (timed inputs)", k, ref))
-        peak("K10", what, L, dev, smi)
-        out[f"echo {L}"] = report(
-            "K10", what, k_ms, p_ms, steps << L, "steps", steps,
-            4 * (tiles.numel() + k.numel()), 14 * L + 12, smi,
-            passes=lib.floquet_general_streamed_passes(L))
-        del tiles
-    return {"K10 forward": out["forward 28"], "K10 echo": out["echo 28"]}
+    return {"K10 forward": out["forward 28"]}
 
 
 def timing_resident(dev, smi, err) -> dict:
@@ -2841,6 +2865,7 @@ def main() -> None:
     times = timing(dev, smi, err)
     times.update(timing_streamed(dev, smi, err))
     times.update(timing_general_hi(dev, smi, err))
+    times.update(timing_streamed_echo(dev, smi, err))
     times.update(timing_resident(dev, smi, err))
     times.update(timing_cycle(dev, smi, err))
     times.update(timing_cycle_hi(dev, smi, err))

@@ -103,13 +103,20 @@ __global__ void reduce_kernel(const float* __restrict__ partials,
 
 int lo_bits(int L) { return L - L / 2; }
 
+// Measure blocks of one state: one per kMeasureChunk amplitudes, at most
+// 4096 (from L = 25 a block measures 2^(L-12) amplitudes), so that the
+// reduce, one thread a pair, sums at most 4096 partials.
+int measure_blocks(int L) {
+  return L <= 24 ? (1 << L) / kMeasureChunk : 4096;
+}
+
 // Echo tail: measure every pair's state, then sum its partials in order.
 cudaError_t measure_and_reduce(const float2* st, int L, int q, int n_pairs,
                                float* partials, float* out,
                                cudaStream_t stream) {
-  const int nb = (int)(((int64_t)1 << L) / kMeasureChunk);
+  const int nb = measure_blocks(L);
   measure_kernel<<<dim3(nb, n_pairs), kThreads, 0, stream>>>(
-      st, L, q, kMeasureChunk, partials);
+      st, L, q, (int)(((int64_t)1 << L) / nb), partials);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   reduce_kernel<<<(n_pairs + kThreads - 1) / kThreads, kThreads, 0, stream>>>(

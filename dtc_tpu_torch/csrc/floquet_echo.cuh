@@ -1,8 +1,19 @@
-// The echo passes shared by floquet_x_resident.cu (K3b) and
-// floquet_general.cu (K4's echo): the folded diagonal rows, the phase
-// tables, the swizzled butterfly rounds and the two passes, templated on
-// the family's kick. Each redesign below was timed on its own on an H100
+// The echo passes shared by floquet_x_resident.cu (K3b), floquet_general.cu
+// (K4's echo), floquet_x_streamed.cu (K6b/K7b) and
+// floquet_general_streamed.cu (K10b): the folded diagonal rows, the phase
+// tables, the swizzled butterfly rounds and the passes of a step, templated
+// on the family's kick. Each redesign below was timed on its own on an H100
 // (PERF.md section 6).
+//
+// Pass plan: an echo step cuts the 2^L state into the tiles of
+//   pass lo:  bits [0, a), 2^a consecutive amplitudes;
+//   pass mid: bits [a, a + b) (b = 0: no mid pass), 2^b rows x CW
+//             consecutive columns, the kick only;
+//   pass hi:  bits [a + b, L), 2^c rows x CW columns, c = L - a - b.
+// The resident echoes (K3b, K4's, L <= 23) take a = L - L/2, b = 0 and
+// CW = kW = 4; the streamed ones (L = 22..30) the plan of floquet_plan.cuh
+// (two passes at L <= 24, CW = 4; three above, CW = 16: 128-byte column
+// runs), tiles of 16-64 KiB.
 //
 // Folded rows (ops/echo_fold.py): an echo step k applies D_pre(k), the kick,
 // then D_post(k); D_post(k) D_pre(k+1) is one diagonal whose coefficients
@@ -12,10 +23,10 @@
 //
 // Phase tables: a pass that applies a diagonal builds, once per block, the
 // unit phases of the bits that vary in its tile as two tables of at most
-// 2^6 and 2^7 entries (the upper one also indexed by the boundary bit, so
+// 2^7 entries each (the upper one also indexed by the boundary bit, so
 // that it carries the bond across the split, and with the block's constant
-// angle folded in): 192 sincosf a block instead of one per amplitude, and
-// an amplitude then costs two or three complex multiplies.
+// angle folded in): at most 256 sincosf a block instead of one per
+// amplitude, and an amplitude then costs two or three complex multiplies.
 //
 // Rounds (swz_kick): a pass's kick runs in rounds of 2 or 3 bits, 8
 // amplitudes in registers; the first round reads its amplitudes from device
@@ -24,10 +35,11 @@
 // memory, swizzled so that no round has bank conflicts, holds it between
 // rounds only.
 //
-// Every pair steps in lockstep: a step is two launches over all pairs. (A
-// schedule that ran groups of pairs small enough to stay in the L2 was
-// measured and taken out: with these passes it gained nothing on K4's echo
-// and about 6 % on K3b at L=20, PERF.md section 6.)
+// Every pair steps in lockstep: a step is two or three launches over all
+// pairs. (A schedule that ran groups of pairs small enough to stay in the
+// L2 was measured and taken out: with these passes it gained nothing on
+// K4's echo and about 6 % on K3b at L=20, PERF.md section 6.) Tile offsets
+// are 64-bit: a pair's state reaches 2^30 amplitudes.
 //
 // Include after floquet_common.cuh; the definitions sit in an anonymous
 // namespace of their own.
@@ -41,6 +53,10 @@ namespace {
 constexpr int kTabBits = 6;              // tile bits per phase-table group
 constexpr int kTabLo = 1 << kTabBits;    // lower table entries
 constexpr int kTabHi = 2 << kTabBits;    // upper table: one more bit
+// Pass lo's tile reaches 13 bits (the streamed plan at L = 23, 24): its
+// lower table has 2^7 entries, so that step 0's diagonal takes the tables
+// at every L (1 KiB of shared memory more, against 2^13 sincosf a block).
+constexpr int kLoTabLo = 2 << kTabBits;
 constexpr int kMaxEchoL = 32;
 
 // A pair's folded rows: pair p's row j at rows + p * stride + j * 2L.
@@ -70,8 +86,9 @@ __device__ __forceinline__ void load_fold(const float* __restrict__ row,
 
 // The unit phases of nb tile bits, tile bit j on qubit q0 + j, the other
 // qubits fixed: exp(i theta) = lo[i & (2^a - 1)] * hi[i >> (a - 1)] with
-// a = (nb + 1) / 2 (nb <= 12). lo: the z terms of tile bits [0, a), their
-// bonds, and the bond to the fixed qubit q0 - 1 of sign zb (0: none). hi,
+// a = (nb + 1) / 2: 2^a entries in lo, 2^(nb - a + 1) in hi (at most 2^7
+// each for nb <= 13). lo: the z terms of tile bits [0, a), their bonds,
+// and the bond to the fixed qubit q0 - 1 of sign zb (0: none). hi,
 // indexed from tile bit a - 1: the z terms of bits [a, nb), the bonds
 // (a-1, a) .. (nb-2, nb-1), the bond to the fixed qubit q0 + nb of sign za
 // (0: none) and the fixed angle th. Ends in __syncthreads.
@@ -115,7 +132,10 @@ __device__ __forceinline__ float2 table_phase(const float2* lo,
 // butterfly rounds that swz_kick plans (tiles of 2^7 to 2^13 amplitudes,
 // rounds of 2 or 3 bits) then falls on distinct 8-byte slots of a 128-byte
 // line within each half-warp, where the plain layout had 2- to 8-way bank
-// conflicts (F was found by checking every round of every tile, L = 14-23).
+// conflicts (F was found by checking every round of every tile, L = 14-23;
+// tests/test_torch_streamed_echo.py replays every round of every tile of
+// both plans, L = 14-30, from this constant; on tiles of 16 columns a
+// half-warp reads one line anyway).
 constexpr uint64_t kSwz = 0xfd6431a875ecb920ull;
 
 __device__ __forceinline__ int swz(int x) {
@@ -216,7 +236,8 @@ __device__ void swz_kick(float2* tile, int tbits, int b0, int n,
 }
 
 // The passes take the step's kick through a policy P of the family
-// (XEcho in floquet_x_echo.cuh, GeneralEcho in floquet_general_echo.cuh):
+// (XEcho in floquet_x_echo.cuh, GeneralEcho in floquet_general_echo.cuh,
+// each on its family's step rows):
 //   P::kMinBlocks  blocks an SM, the passes' launch bounds;
 //   P::Shared      what a block keeps of its kick in shared memory;
 //   P::Kick        a block's kick: from(q) the kick from qubit q on, and
@@ -235,14 +256,13 @@ __global__ void __launch_bounds__(kThreads, P::kMinBlocks)
                    Fold fold, int step, P policy) {
   extern __shared__ float2 tile[];
   __shared__ float coef[2 * kMaxEchoL];
-  __shared__ float2 tlo[kTabLo], thi[kTabHi];
+  __shared__ float2 tlo[kLoTabLo], thi[kTabHi];
   __shared__ typename P::Shared sh;
   const int pair = blockIdx.y;
   typename P::Kick kick;
   if (!policy.begin(rows, L, rows_per_pair, pair, step, sh, kick)) return;
-  const int64_t N = (int64_t)1 << L;
   const int64_t hi = blockIdx.x;
-  float2* g = st + (int64_t)pair * N + (hi << k1);
+  float2* g = st + ((int64_t)pair << L) + (hi << k1);
   const bool first = step == 0;
   if (first) load_fold(fold.row(pair, 0, L), L, coef);
   __syncthreads();
@@ -261,80 +281,142 @@ __global__ void __launch_bounds__(kThreads, P::kMinBlocks)
       [&](int base, int jb, float2 v) { g[base + jb] = v; });
 }
 
-// Echo pass hi (pair blockIdx.y): the kick on bits [k1, L), then folded
-// row step + 1 (this step's post diagonal and the next step's pre) as the
-// tile is stored.
-template <class P>
+// Columns of the strided tiles (passes mid and hi): kW = 4, 32-byte runs,
+// where a tile must stay small (the resident echoes, the streamed plan at
+// L <= 24, 2^10-2^11 rows); kWideCols = 16, 128-byte runs (whole L2
+// lines), on the streamed three-pass plan (L >= 25, at most 2^9 rows: tiles
+// of 16-64 KiB).
+constexpr int kWideCols = 16;
+
+__host__ __device__ constexpr int log2_of(int x) {
+  return x > 1 ? 1 + log2_of(x / 2) : 0;
+}
+
+// Amplitude (row, column) of a strided tile of CW columns whose rows sit
+// at bits [k0, k0 + n) and whose columns at bits [0, log2 CW): tile index
+// base + jb = row * CW + column (jb holds row bits only).
+template <int CW>
+__device__ __forceinline__ int64_t strided_at(int base, int jb, int k0) {
+  return ((int64_t)(base / CW + jb / CW) << k0) + base % CW;
+}
+
+// Echo pass mid (pair blockIdx.y; only where b > 0): the kick on bits
+// [a, a + b) on a tile of 2^b rows x CW consecutive columns, no diagonal.
+// Block x = (top << (a - log2 CW)) | column group, top the bits above
+// a + b.
+template <class P, int CW>
 __global__ void __launch_bounds__(kThreads, P::kMinBlocks)
-    echo_hi_kernel(float2* __restrict__ st, int L, int k1,
-                   const float* __restrict__ rows, int64_t rows_per_pair,
-                   Fold fold, int step, P policy) {
-  extern __shared__ float2 tile[];  // [2^n2][kW], swizzled
-  __shared__ float coef[2 * kMaxEchoL];
-  __shared__ float2 tlo[kTabLo], thi[kTabHi], tw[kW];
+    echo_mid_kernel(float2* __restrict__ st, int L, int a, int b,
+                    const float* __restrict__ rows, int64_t rows_per_pair,
+                    int step, P policy) {
+  constexpr int kc = log2_of(CW);
+  extern __shared__ float2 tile[];  // [2^b][CW], swizzled
   __shared__ typename P::Shared sh;
   const int pair = blockIdx.y;
   typename P::Kick kick;
   if (!policy.begin(rows, L, rows_per_pair, pair, step, sh, kick)) return;
-  const int n2 = L - k1;
-  const int64_t N = (int64_t)1 << L;
-  const int64_t o = (int64_t)blockIdx.x * kW;
-  float2* g = st + (int64_t)pair * N + o;
-  load_fold(fold.row(pair, step + 1, L), L, coef);
-  __syncthreads();
-  const float* cb = coef + L;
-  if (threadIdx.x < kW) {
-    tw[threadIdx.x] =
-        unit(coef[2 * L - 1] + angle_bits(coef, cb, o + threadIdx.x, 0, k1));
-  }
-  phase_tables(coef, cb, k1, n2, zsign(o, k1 - 1), 0.0f, 0.0f, tlo, thi);
-  // tile index x = h * kW + w: the high bits sit at tile bits [2, 2 + n2)
+  const int64_t cols = ((int64_t)1 << a) / CW;
+  const int64_t top = blockIdx.x / cols;
+  float2* g = st + ((int64_t)pair << L) + (blockIdx.x % cols) * CW
+              + (top << (a + b));
+  __syncthreads();  // the policy's shared part
   swz_kick(
-      tile, n2 + 2, 2, n2, kick.from(k1),
-      [&](int base, int jb) {
-        return g[((base / kW + jb / kW) << k1) + base % kW];
-      },
+      tile, b + kc, kc, b, kick.from(a),
+      [&](int base, int jb) { return g[strided_at<CW>(base, jb, a)]; },
       [&](int base, int jb, float2 v) {
-        // the last round's bits are the top ones, above the lower table's
-        const int a = (n2 + 1) / 2;
-        const int h = base / kW;
-        const float2 ph =
-            phase_mul(phase_mul(tlo[h & ((1 << a) - 1)], tw[base % kW]),
-                      thi[(h + jb / kW) >> (a - 1)]);
-        g[((h + jb / kW) << k1) + base % kW] = phase_mul(v, ph);
+        g[strided_at<CW>(base, jb, a)] = v;
       });
 }
 
-// The echo of n_pairs states in st on the folded rows: the basis state,
-// n_steps echo steps of two passes each (a pair stops at its COUNT), the
-// measure and the fixed-order reduce into out.
-template <class P>
-cudaError_t run_echo(float2* st, int L, const float* rows,
+// Echo pass hi (pair blockIdx.y): the kick on bits [k0, L) on a tile of
+// 2^(L - k0) rows x CW columns, then folded row step + 1 (this step's post
+// diagonal and the next step's pre) as the tile is stored.
+template <class P, int CW>
+__global__ void __launch_bounds__(kThreads, P::kMinBlocks)
+    echo_hi_kernel(float2* __restrict__ st, int L, int k0,
+                   const float* __restrict__ rows, int64_t rows_per_pair,
+                   Fold fold, int step, P policy) {
+  constexpr int kc = log2_of(CW);
+  extern __shared__ float2 tile[];  // [2^n2][CW], swizzled
+  __shared__ float coef[2 * kMaxEchoL];
+  __shared__ float2 tlo[kTabLo], thi[kTabHi], tw[CW];
+  __shared__ typename P::Shared sh;
+  const int pair = blockIdx.y;
+  typename P::Kick kick;
+  if (!policy.begin(rows, L, rows_per_pair, pair, step, sh, kick)) return;
+  const int n2 = L - k0;
+  const int64_t o = (int64_t)blockIdx.x * CW;
+  float2* g = st + ((int64_t)pair << L) + o;
+  load_fold(fold.row(pair, step + 1, L), L, coef);
+  __syncthreads();
+  const float* cb = coef + L;
+  if (threadIdx.x < CW) {
+    tw[threadIdx.x] =
+        unit(coef[2 * L - 1] + angle_bits(coef, cb, o + threadIdx.x, 0, k0));
+  }
+  phase_tables(coef, cb, k0, n2, zsign(o, k0 - 1), 0.0f, 0.0f, tlo, thi);
+  // tile index x = h * CW + w: the high bits sit at tile bits
+  // [kc, kc + n2)
+  swz_kick(
+      tile, n2 + kc, kc, n2, kick.from(k0),
+      [&](int base, int jb) { return g[strided_at<CW>(base, jb, k0)]; },
+      [&](int base, int jb, float2 v) {
+        // the last round's bits are the top ones, above the lower table's
+        const int a = (n2 + 1) / 2;
+        const int h = base / CW;
+        const float2 ph =
+            phase_mul(phase_mul(tlo[h & ((1 << a) - 1)], tw[base % CW]),
+                      thi[(h + jb / CW) >> (a - 1)]);
+        g[strided_at<CW>(base, jb, k0)] = phase_mul(v, ph);
+      });
+}
+
+// The echo of n_pairs states in st on the folded rows and the pass plan
+// (a, b), strided tiles of CW columns: the basis state, n_steps echo steps
+// of two or three passes each (a pair stops at its COUNT), the measure and
+// the fixed-order reduce into out (partials: n_pairs x measure_blocks(L)).
+template <int CW, class P>
+cudaError_t run_echo(float2* st, int L, int a, int b, const float* rows,
                      int64_t rows_per_pair, Fold fold, int n_pairs,
                      int n_steps, P policy, int q, int64_t b0,
                      float* partials, float* out, cudaStream_t stream) {
-  const int k1 = lo_bits(L);
-  const int n2 = L - k1;
-  const size_t smem_lo = sizeof(float2) << k1;
-  const size_t smem_hi = (sizeof(float2) * kW) << n2;
-  const int t_lo = echo_threads(k1), t_hi = echo_threads(n2 + 2);
+  constexpr int kc = log2_of(CW);
+  const int k0 = a + b;
+  const int c = L - k0;
+  const size_t smem_lo = sizeof(float2) << a;
+  const size_t smem_mid = (sizeof(float2) * CW) << b;
+  const size_t smem_hi = (sizeof(float2) * CW) << c;
+  const int t_lo = echo_threads(a), t_mid = echo_threads(b + kc),
+            t_hi = echo_threads(c + kc);
   cudaError_t e = cudaFuncSetAttribute(
       echo_lo_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_lo);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(echo_hi_kernel<P>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_hi);
+  if (e == cudaSuccess && b > 0) {
+    e = cudaFuncSetAttribute(echo_mid_kernel<P, CW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_mid);
+  }
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(echo_hi_kernel<P, CW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_hi);
+  }
   if (e != cudaSuccess) return e;
   init_kernel<<<dim3(256, n_pairs), kThreads, 0, stream>>>(
       st, (int64_t)1 << L, b0);
   e = cudaGetLastError();
   for (int k = 0; e == cudaSuccess && k < n_steps; ++k) {
-    echo_lo_kernel<P><<<dim3(1u << n2, n_pairs), t_lo, smem_lo, stream>>>(
-        st, L, k1, rows, rows_per_pair, fold, k, policy);
-    echo_hi_kernel<P><<<dim3((1u << k1) / kW, n_pairs), t_hi, smem_hi,
-                        stream>>>(st, L, k1, rows, rows_per_pair, fold, k,
+    echo_lo_kernel<P><<<dim3(1u << (L - a), n_pairs), t_lo, smem_lo,
+                        stream>>>(st, L, a, rows, rows_per_pair, fold, k,
                                   policy);
+    if (b > 0) {
+      echo_mid_kernel<P, CW><<<dim3((1u << (L - b)) / CW, n_pairs), t_mid,
+                               smem_mid, stream>>>(st, L, a, b, rows,
+                                                   rows_per_pair, k, policy);
+    }
+    echo_hi_kernel<P, CW><<<dim3((1u << k0) / CW, n_pairs), t_hi, smem_hi,
+                            stream>>>(st, L, k0, rows, rows_per_pair, fold,
+                                      k, policy);
     e = cudaGetLastError();
   }
   if (e != cudaSuccess) return e;

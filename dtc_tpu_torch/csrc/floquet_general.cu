@@ -28,8 +28,9 @@
 // Echo: rows come in (pre, post) pairs; a step is the pre diagonal, the
 // kick of the pre row, then the post diagonal; each pair runs COUNT = 2tK
 // steps (lane FO+10 of its row 0) and is measured at the end. The echo
-// runs its own two passes (floquet_general_echo.cuh), redesigned for this
-// card (floquet_echo.cuh): the post diagonal and the next step's pre are
+// runs the two echo passes of floquet_echo.cuh, redesigned for this card,
+// with the kick policy of floquet_general_echo.cuh: the post diagonal and
+// the next step's pre are
 // one folded row (ops/echo_fold.py), applied once per step from two small
 // phase tables per block; the kick runs in rounds whose first reads the
 // state and whose last writes it, on a swizzled tile without bank
@@ -57,6 +58,19 @@
 #include "floquet_general_pass.cuh"
 #include "floquet_general_echo.cuh"
 
+namespace {
+
+// K4's echo step rows for GeneralEcho (floquet_general_echo.cuh).
+struct PairRows {
+  __device__ __forceinline__ StepRows at(const float* rows, int L,
+                                         int64_t rows_per_pair, int pair,
+                                         int step) const {
+    return step_rows(rows, L, rows_per_pair, pair, step, 1);
+  }
+};
+
+}  // namespace
+
 extern "C" {
 
 // Sizes the wrapper allocates: partials of the forward entry.
@@ -66,7 +80,7 @@ int floquet_general_forward_partials(int L) {
 
 // Sizes the wrapper allocates: partials of the echo entry (per pair).
 int floquet_general_echo_partials(int L) {
-  return (1 << L) / kMeasureChunk;
+  return measure_blocks(L);
 }
 
 // K4 forward. state: n_traj x 2^L complex64 scratch; rows: n_traj x
@@ -106,10 +120,10 @@ int floquet_general_echo(void* state, const void* tiles, const void* fold,
                          void* partials, void* out, int n_pairs, int L,
                          int rows_per_pair, int fold_rows, int n_steps, int q,
                          int64_t b0, void* stream_ptr) {
-  return (int)run_echo(
-      (float2*)state, L, (const float*)tiles, rows_per_pair,
+  return (int)run_echo<kW>(
+      (float2*)state, L, lo_bits(L), 0, (const float*)tiles, rows_per_pair,
       Fold{(const float*)fold, (int64_t)fold_rows * 2 * L}, n_pairs, n_steps,
-      GeneralEcho{}, q, b0, (float*)partials, (float*)out,
+      GeneralEcho<PairRows>{}, q, b0, (float*)partials, (float*)out,
       (cudaStream_t)stream_ptr);
 }
 

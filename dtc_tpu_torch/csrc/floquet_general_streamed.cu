@@ -33,23 +33,35 @@
 // writes one partial of |psi|^2 z_q per block, and a fixed-order reduce
 // after every step sums them where the step's row is measured. A(0) is the
 // basis state's z_q. Echo: rows come in (pre, post) pairs; a step is the
-// pre diagonal (in pass lo, before the kick), the kick of the pre row, then
-// the post diagonal; each pair runs the COUNT = 2tK steps of lane FO+10 of
-// its row 0 and is measured in pass hi on its last step; a pair with COUNT
-// 0 gets z_q of its basis state.
+// pre diagonal, the kick of the pre row, then the post diagonal; each pair
+// runs the COUNT = 2tK steps of lane FO+10 of its row 0 and is measured
+// after its last step (a pair with COUNT 0 keeps its basis state). The
+// echo runs the echo passes of floquet_echo.cuh on the same plan, with
+// K4's echo policy (floquet_general_echo.cuh): one folded diagonal per step
+// (ops/echo_fold.py: step 0's pass lo applies the first pre diagonal,
+// every pass hi the step's post diagonal and the next step's pre; pass lo
+// of a later step and pass mid only kick), its phases from two small
+// tables per block, and the kick in swizzled 2-3-bit rounds whose first
+// reads the state and whose last writes it, so each pass makes one read
+// and one write.
 //
 // What bounds it on this card: a state is 2^L complex64, 32 MiB at L=22 and
 // 4 GiB at L=29, so every step streams it from device memory: 32 B per
 // amplitude and step at L <= 24 (two passes), 48 B from L=25 (three). A
 // general 2x2 costs 14 flops per amplitude and bit against RX's 6, and the
 // operation bound stays below the state floor. The kick's per-qubit
-// matrices are built once per block in shared memory from the row.
+// matrices are built once per block in shared memory from the row. The
+// forward keeps the passes of floquet_general_streamed_pass.cuh (shared
+// with K10's shard-local forms, floquet_cycle_hi.cu): a sincos per
+// amplitude for its diagonal, the tile staged whole through shared memory.
 //
 // The state's initialisation stays out of launch_step, which applies one
 // step to any state. Every offset that can pass 2^31 (state, tile rows,
 // blocks, rows of a batch) is 64-bit.
 
 #include "floquet_common.cuh"
+#include "floquet_echo.cuh"
+#include "floquet_general_echo.cuh"
 #include "floquet_lab.cuh"
 #include "floquet_plan.cuh"
 #include "floquet_general_streamed_pass.cuh"
@@ -58,12 +70,26 @@ namespace {
 
 bool in_range(int L, int q) { return 22 <= L && L <= 29 && 0 <= q && q < L; }
 
+// K10's echo step rows for GeneralEcho (floquet_general_echo.cuh).
+struct PairRows {
+  __device__ __forceinline__ StepRows at(const float* rows, int L,
+                                         int64_t rows_per_pair, int pair,
+                                         int step) const {
+    return step_rows<kRowWidth>(rows, L, rows_per_pair, pair, step, 1);
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
-// Partials per trajectory or pair the wrapper allocates.
+// Partials per trajectory the forward entry allocates.
 int floquet_general_streamed_partials(int L) { return hi_blocks(L); }
+
+// Partials per pair the echo entry allocates.
+int floquet_general_streamed_echo_partials(int L) {
+  return measure_blocks(L);
+}
 
 // State passes per step: 2 (L <= 24) or 3.
 int floquet_general_streamed_passes(int L) {
@@ -108,32 +134,26 @@ int floquet_general_streamed_forward(void* state, const void* rows,
 
 // K10 echo. state: n_pairs x 2^L complex64 scratch; tiles: n_pairs x
 // rows_per_pair x 128 f32 (interleaved pre/post step rows, COUNT at lane
-// 4L+9 of row 0); partials: n_pairs x floquet_general_streamed_partials(L)
-// f32 scratch; out: n_pairs f32. n_steps = the largest COUNT of the batch.
+// 4L+9 of row 0); fold: n_pairs x fold_rows x 2L f32, the folded diagonals
+// (ops/echo_fold.py); partials: n_pairs x
+// floquet_general_streamed_echo_partials(L) f32 scratch; out: n_pairs f32.
+// n_steps = the largest COUNT of the batch.
 int floquet_general_streamed_echo(void* state, const void* tiles,
-                                  void* partials, void* out, int n_pairs,
-                                  int L, int rows_per_pair, int n_steps,
-                                  int q, int64_t b0, void* stream_ptr) {
+                                  const void* fold, void* partials, void* out,
+                                  int n_pairs, int L, int rows_per_pair,
+                                  int fold_rows, int n_steps, int q,
+                                  int64_t b0, void* stream_ptr) {
   if (!in_range(L, q) || 2 * n_steps > rows_per_pair) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  float2* st = (float2*)state;
-  const float* t = (const float*)tiles;
-  init_kernel<<<dim3(256, n_pairs), kThreads, 0, stream>>>(st, (int64_t)1 << L,
-                                                           b0);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  for (int k = 0; k < n_steps; ++k) {
-    e = launch_step<kRowWidth>(st, L, t, rows_per_pair, n_pairs, k, 1, q,
-                    (float*)partials, stream);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const float a0 = 1.0f - 2.0f * (float)((b0 >> q) & 1);
-  reduce_rows_kernel<<<n_pairs, kThreads, 0, stream>>>(
-      (const float*)partials, hi_blocks(L), (float*)out, 1, 0,
-      t + 4 * L - 1 + kLaneCount, (int64_t)rows_per_pair * kRowWidth, a0);
-  return (int)cudaGetLastError();
+  const Plan p = plan_for(L);
+  const auto run = p.b > 0 ? run_echo<kWideCols, GeneralEcho<PairRows>>
+                           : run_echo<kW, GeneralEcho<PairRows>>;
+  return (int)run(
+      (float2*)state, L, p.a, p.b, (const float*)tiles, rows_per_pair,
+      Fold{(const float*)fold, (int64_t)fold_rows * 2 * L}, n_pairs, n_steps,
+      GeneralEcho<PairRows>{}, q, b0, (float*)partials, (float*)out,
+      (cudaStream_t)stream_ptr);
 }
 
 }  // extern "C"

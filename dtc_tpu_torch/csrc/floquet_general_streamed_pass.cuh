@@ -1,10 +1,12 @@
 // The pass kernels of the streamed lab-frame family: one kick slot of any
 // drive (the X-mask row fold of the slot's 2x2, then the slot's diagonal)
 // on a batch of 2^L states in device memory, cut by the pass plan of
-// floquet_plan.cuh. Shared by floquet_general_streamed.cu (K10 on one card,
-// whole trajectories, 22 <= L <= 29) and floquet_cycle_hi.cu (K10's
-// shard-local forms: one cycle on a shard's local bits, 22 <= L_loc <= 30);
-// floquet_general_streamed.cu says what bounds them.
+// floquet_plan.cuh. Shared by floquet_general_streamed.cu (K10a on one
+// card, the forward of whole trajectories, 22 <= L <= 29; its echo runs
+// floquet_echo.cuh's passes and reads its rows through step_rows) and
+// floquet_cycle_hi.cu (K10's shard-local forms: one cycle on a shard's
+// local bits, 22 <= L_loc <= 30); floquet_general_streamed.cu says what
+// bounds them.
 //
 // Rows are K4's step rows (ops/params_general.py) of W lanes, a template
 // argument: 128, or 256 where the flag lanes from FO = 4L-1 pass lane 127

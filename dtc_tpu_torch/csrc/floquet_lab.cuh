@@ -2,7 +2,8 @@
 // floquet_general_streamed.cu (the large-L lab-frame family): the flag lanes
 // of a step row, the per-qubit kick matrices B = X_m U of one row, the
 // diagonal's coefficients, and the general 2x2 kick on shared-memory tiles,
-// three bits per round with 2^3 amplitudes in registers.
+// three bits per round with 2^3 amplitudes in registers, and as the echo
+// passes' rounds take it (MatKick).
 //
 // Row layout (ops/params_general.py), 128 lanes: noise-Z bits n [0, L),
 // X-mask bits m [L, 2L), h [2L, 3L), phi [3L, 4L-1), then the flag lanes
@@ -105,5 +106,29 @@ __device__ void kick_bits(float2* tile, int tbits, int b0, int n,
   if (end - b == 2) kick_round<2>(tile, tbits, b, mats + (b - b0));
   if (end - b == 1) kick_round<1>(tile, tbits, b, mats + (b - b0));
 }
+
+// The per-qubit 2x2 kicks of a swizzled round of the echo passes
+// (floquet_echo.cuh), in registers.
+template <int NB>
+struct MatRound {
+  Mat2 m[NB];
+  __device__ __forceinline__ void operator()(int k, float2& a,
+                                             float2& b) const {
+    mat_pair(a, b, m[k]);
+  }
+};
+
+// The echo passes' kick: mats[j] acts on qubit j of the kick's range.
+struct MatKick {
+  const Mat2* mats;
+  __device__ __forceinline__ MatKick from(int q) const { return {mats + q}; }
+  template <int NB>
+  __device__ __forceinline__ MatRound<NB> round(int off) const {
+    MatRound<NB> r;
+#pragma unroll
+    for (int k = 0; k < NB; ++k) r.m[k] = mats[off + k];
+    return r;
+  }
+};
 
 }  // namespace

@@ -9,7 +9,9 @@
 //   pass hi:  bits [a+b, L), tiles of 2^c rows x kW columns, which end the
 //             step (the diagonal and the partial of |psi|^2 z_q).
 // L <= 24 takes two passes (a <= 13, c <= 11: at most 64 KiB a tile), L =
-// 25..30 three (tiles of 4-32 KiB); floquet_x_streamed.cu says why.
+// 25..30 three (tiles of 4-32 KiB); floquet_x_streamed.cu says why. The
+// streamed echoes run this plan on the echo passes of floquet_echo.cuh,
+// whose strided tiles take 16 columns from L = 25.
 //
 // Include after floquet_common.cuh; the definitions sit in an anonymous
 // namespace of their own.
@@ -63,18 +65,13 @@ __device__ double fixed_sum(const float* __restrict__ p, int nb) {
 }
 
 // out[row * stride + off] = the sum of partials[row * nb + b] over b, in a
-// fixed order. With trips (echo): a pair whose trip count is 0 ran no step
-// and gets a0, the z_q of its basis state.
+// fixed order.
 __global__ void reduce_rows_kernel(const float* __restrict__ partials, int nb,
                                    float* __restrict__ out, int64_t stride,
-                                   int64_t off, const float* __restrict__ trips,
-                                   int64_t trip_stride, float a0) {
+                                   int64_t off) {
   const int64_t row = blockIdx.x;
   const double sum = fixed_sum(partials + row * nb, nb);
-  if (threadIdx.x == 0) {
-    const bool idle = trips != nullptr && trips[row * trip_stride] == 0.0f;
-    out[row * stride + off] = idle ? a0 : (float)sum;
-  }
+  if (threadIdx.x == 0) out[row * stride + off] = (float)sum;
 }
 
 // out[i * T] = a0: A(0) of every trajectory, its basis state's z_q.

@@ -1,7 +1,8 @@
 // The constant x-drive pieces shared by floquet_x.cu (K1/K2) and
 // floquet_x_streamed.cu (the large-L family): the diagonal's coefficients of
 // one compact row and the RX(theta) kick on shared-memory tiles, three bits
-// per round with 2^3 amplitudes in registers.
+// per round with 2^3 amplitudes in registers, one angle for every step
+// (ConstKick), and the kick as the echo passes' rounds take it (RxKick).
 //
 // Include after floquet_common.cuh; the definitions sit in an anonymous
 // namespace of their own.
@@ -74,5 +75,32 @@ __device__ void kick_bits(float2* tile, int tbits, int b0, int n, float c,
   if (end - b == 2) kick_round<2>(tile, tbits, b, c, s);
   if (end - b == 1) kick_round<1>(tile, tbits, b, c, s);
 }
+
+// One angle for every step: at(pre, step) gives (cos theta/2, sin
+// theta/2), the pre row not read.
+struct ConstKick {
+  float c, s;
+  __device__ __forceinline__ float2 at(const float*, int) const {
+    return make_float2(c, s);
+  }
+};
+
+// RX(theta) on every bit: the butterflies of a swizzled round of the echo
+// passes (floquet_echo.cuh).
+struct RxRound {
+  float c, s;
+  __device__ __forceinline__ void operator()(int, float2& a, float2& b) const {
+    rx_pair(a, b, c, s);
+  }
+};
+
+struct RxKick {
+  float c, s;
+  __device__ __forceinline__ RxKick from(int) const { return *this; }
+  template <int NB>
+  __device__ __forceinline__ RxRound round(int) const {
+    return {c, s};
+  }
+};
 
 }  // namespace

@@ -58,7 +58,7 @@ extern "C" {
 int floquet_x_forward_partials(int L) { return (1 << lo_bits(L)) / kW; }
 
 // Sizes the wrapper allocates: partials of the echo entry (per pair).
-int floquet_x_echo_partials(int L) { return (1 << L) / kMeasureChunk; }
+int floquet_x_echo_partials(int L) { return measure_blocks(L); }
 
 // K1. state: n_traj x 2^L complex64 scratch; rows: n_traj x T x 128 f32;
 // partials: n_traj x T x floquet_x_forward_partials(L) f32;

@@ -9,9 +9,9 @@
 //            (forward) the A(t+1) partial sum of |psi|^2 z_q.
 // The kernels take the step's RX through a template parameter `Kick`, whose
 // at(pre, step) gives (cos theta/2, sin theta/2) before the step's sign:
-// ConstKick for one angle (the pre row is not read), TableKick for a
-// (tu, 2) device table, indexed by the forward's cycle or by lane 127 of
-// the echo step's pre row (read as an int, bounded by tu).
+// ConstKick (floquet_rx.cuh) for one angle (the pre row is not read),
+// TableKick for a (tu, 2) device table, indexed by the forward's cycle or
+// by lane 127 of the echo step's pre row (read as an int, bounded by tu).
 //
 // Include after floquet_common.cuh and floquet_rx.cuh; the definitions sit
 // in an anonymous namespace of their own.
@@ -22,14 +22,6 @@
 #include "floquet_rx.cuh"
 
 namespace {
-
-// One angle for every step.
-struct ConstKick {
-  float c, s;
-  __device__ __forceinline__ float2 at(const float*, int) const {
-    return make_float2(c, s);
-  }
-};
 
 // Row `step` (forward) or the row the pre row names (echo) of a (tu, 2)
 // table of (cos, sin) of theta_t / 2.

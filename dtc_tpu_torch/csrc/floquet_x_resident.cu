@@ -51,6 +51,19 @@
 #include "floquet_x_pass.cuh"
 #include "floquet_x_echo.cuh"
 
+namespace {
+
+// K3b's step rows for XEcho (floquet_x_echo.cuh): 128 lanes.
+struct PairRows {
+  __device__ __forceinline__ StepRows at(const float* rows,
+                                         int64_t rows_per_pair, int pair,
+                                         int step) const {
+    return step_rows(rows, rows_per_pair, pair, step, 1);
+  }
+};
+
+}  // namespace
+
 extern "C" {
 
 // Sizes the wrapper allocates: partials of the forward entry.
@@ -60,7 +73,7 @@ int floquet_x_resident_forward_partials(int L) {
 
 // Sizes the wrapper allocates: partials of the echo entry (per pair).
 int floquet_x_resident_echo_partials(int L) {
-  return (1 << L) / kMeasureChunk;
+  return measure_blocks(L);
 }
 
 // K3a. state: n_traj x 2^L complex64 scratch; rows: n_traj x T x 128 f32;
@@ -103,10 +116,10 @@ int floquet_x_resident_echo(void* state, const void* tiles, const void* fold,
                             int n_pairs, int L, int rows_per_pair,
                             int fold_rows, int n_steps, int tu, int q,
                             int64_t b0, void* stream_ptr) {
-  return (int)run_echo(
-      (float2*)state, L, (const float*)tiles, rows_per_pair,
+  return (int)run_echo<kW>(
+      (float2*)state, L, lo_bits(L), 0, (const float*)tiles, rows_per_pair,
       Fold{(const float*)fold, (int64_t)fold_rows * 2 * L}, n_pairs, n_steps,
-      XEcho<TableKick>{TableKick{(const float*)cs, tu}}, q, b0,
+      XEcho<PairRows, TableKick>{{}, TableKick{(const float*)cs, tu}}, q, b0,
       (float*)partials, (float*)out, (cudaStream_t)stream_ptr);
 }
 

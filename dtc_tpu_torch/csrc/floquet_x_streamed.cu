@@ -22,38 +22,70 @@
 // 8 GiB at L=30, so every step streams it from device memory. What is new
 // against K1/K2 is a pass plan whose tiles fit a block's shared memory up to
 // L=30 (K1/K2's pass-hi tile is 2^(L/2) x 4 amplitudes, 256 KiB at L=26):
-//   pass lo:  bits [0, a), a tile of 2^a consecutive amplitudes; the echo's
-//             pre diagonal before its kick;
+//   pass lo:  bits [0, a), a tile of 2^a consecutive amplitudes;
 //   pass mid: bits [a, a+b) (only when L >= 25), tiles of 2^b rows x kW
 //             consecutive columns;
 //   pass hi:  bits [a+b, L), tiles of 2^c rows x kW columns; the kick, the
-//             post diagonal and the partial of |psi|^2 z_q.
+//             diagonal [and the forward's partial of |psi|^2 z_q].
 // L <= 24 takes two passes (a <= 13, c <= 11: at most 64 KiB a tile), L =
 // 25..30 three (tiles of 4-32 KiB). Two passes would reach L=26 with 128 KiB
 // tiles, but at one block per SM they stream the state at half the rate of
 // three passes of small tiles (H100 SXM: 627 GB/s at L=26 against 1,345 GB/s
 // at L=28), which costs more than the third pass. The byte floor is 32 B per
 // amplitude per step at L <= 24 and 48 B at L >= 25; kW = 4 keeps the
-// strided column runs at 32 B.
+// forward's strided column runs at 32 B. The echo's strided tiles take 16
+// columns from L = 25 (128-byte runs, whole L2 lines: on an H100 SXM its
+// passes mid and hi went from 1.6-1.8 to 2.5-3.0 TB/s at L=28, PERF.md
+// section 6).
+//
+// The forward runs the passes of floquet_x_streamed_pass.cuh (shared with
+// the per-shard cycle family, floquet_cycle_hi.cu): a sincos per amplitude
+// for its diagonal, the tile staged whole through shared memory. The echo
+// runs the echo passes of floquet_echo.cuh on the same plan, with the kick
+// policy of floquet_x_echo.cuh (shared with K3b): one folded diagonal per
+// step (ops/echo_fold.py: step 0's pass lo applies the first pre diagonal,
+// every pass hi the step's post diagonal and the next step's pre; pass lo
+// of a later step and pass mid only kick), its phases from two small tables
+// per block, and the kick in swizzled 2-3-bit rounds whose first reads the
+// state and whose last writes it, so each pass makes one read and one
+// write. It measures each pair after its last step (one more read of the
+// state a pair).
 //
 // A(t) and the echo value are summed without atomics: one partial per
-// pass-hi block (the echo's only on the pair's last step), then one block
-// per output row adds them in a fixed order in double. Every offset that
-// can pass 2^31 (state, tile rows, blocks) is 64-bit. The plan and the
-// reductions are in floquet_plan.cuh, shared with the lab-frame family
-// (floquet_general_streamed.cu); the pass kernels are in
-// floquet_x_streamed_pass.cuh, shared with the per-shard cycle family
-// (floquet_cycle_hi.cu).
+// block (the forward's per pass-hi block, the echo's per measure block),
+// then a fixed-order sum per output row in double. Every offset that can
+// pass 2^31 (state, tile rows, blocks) is 64-bit. The plan and the
+// forward's reductions are in floquet_plan.cuh, shared with the lab-frame
+// family (floquet_general_streamed.cu).
 
 #include "floquet_common.cuh"
+#include "floquet_echo.cuh"
 #include "floquet_plan.cuh"
 #include "floquet_rx.cuh"
+#include "floquet_x_echo.cuh"
 #include "floquet_x_streamed_pass.cuh"
+
+namespace {
+
+// The echo's step rows for XEcho (floquet_x_echo.cuh): `width` lanes.
+struct WideRows {
+  int width;
+  __device__ __forceinline__ StepRows at(const float* rows,
+                                         int64_t rows_per_pair, int pair,
+                                         int step) const {
+    return step_rows(rows, width, rows_per_pair, pair, step, 1);
+  }
+};
+
+}  // namespace
 
 extern "C" {
 
-// Partials per trajectory or pair the wrapper allocates.
+// Partials per trajectory the forward entry allocates.
 int floquet_x_streamed_partials(int L) { return hi_blocks(L); }
+
+// Partials per pair the echo entry allocates.
+int floquet_x_streamed_echo_partials(int L) { return measure_blocks(L); }
 
 // State passes per step: 2 (L <= 24) or 3.
 int floquet_x_streamed_passes(int L) { return plan_for(L).b > 0 ? 3 : 2; }
@@ -81,7 +113,7 @@ int floquet_x_streamed_forward(void* state, const void* rows, void* partials,
                     q, (float*)partials, stream);
     if (e != cudaSuccess) return (int)e;
     reduce_rows_kernel<<<n_traj, kThreads, 0, stream>>>(
-        (const float*)partials, hi_blocks(L), a, T, cyc + 1, nullptr, 0, 0.0f);
+        (const float*)partials, hi_blocks(L), a, T, cyc + 1);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -90,30 +122,24 @@ int floquet_x_streamed_forward(void* state, const void* rows, void* partials,
 
 // Echo. state: n_pairs x 2^L complex64 scratch; tiles: n_pairs x
 // rows_per_pair x width f32 (interleaved pre/post step rows, trip count 2t
-// at lane width-4 of row 0); partials: n_pairs x
-// floquet_x_streamed_partials(L) f32 scratch; out: n_pairs f32. n_steps =
-// the largest trip count of the batch.
-int floquet_x_streamed_echo(void* state, const void* tiles, void* partials,
-                            void* out, int n_pairs, int L, int rows_per_pair,
-                            int width, int n_steps, int q, int64_t b0, float c,
-                            float s, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  float2* st = (float2*)state;
-  const float* t = (const float*)tiles;
-  init_kernel<<<dim3(256, n_pairs), kThreads, 0, stream>>>(st, (int64_t)1 << L,
-                                                           b0);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  for (int k = 0; k < n_steps; ++k) {
-    e = launch_step(st, L, t, width, rows_per_pair, n_pairs, k, 1, c, s, q,
-                    (float*)partials, stream);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const float a0 = 1.0f - 2.0f * (float)((b0 >> q) & 1);
-  reduce_rows_kernel<<<n_pairs, kThreads, 0, stream>>>(
-      (const float*)partials, hi_blocks(L), (float*)out, 1, 0, t + width - 4,
-      (int64_t)rows_per_pair * width, a0);
-  return (int)cudaGetLastError();
+// at lane width-4 of row 0, the kick sign at lane width-3 of each pre row);
+// fold: n_pairs x fold_rows x 2L f32, the folded diagonals
+// (ops/echo_fold.py); partials: n_pairs x
+// floquet_x_streamed_echo_partials(L) f32 scratch; out: n_pairs f32.
+// n_steps = the largest trip count of the batch.
+int floquet_x_streamed_echo(void* state, const void* tiles, const void* fold,
+                            void* partials, void* out, int n_pairs, int L,
+                            int rows_per_pair, int fold_rows, int width,
+                            int n_steps, int q, int64_t b0, float c, float s,
+                            void* stream_ptr) {
+  const Plan p = plan_for(L);
+  const auto run = p.b > 0 ? run_echo<kWideCols, XEcho<WideRows, ConstKick>>
+                           : run_echo<kW, XEcho<WideRows, ConstKick>>;
+  return (int)run(
+      (float2*)state, L, p.a, p.b, (const float*)tiles, rows_per_pair,
+      Fold{(const float*)fold, (int64_t)fold_rows * 2 * L}, n_pairs, n_steps,
+      XEcho<WideRows, ConstKick>{WideRows{width}, ConstKick{c, s}}, q, b0,
+      (float*)partials, (float*)out, (cudaStream_t)stream_ptr);
 }
 
 }  // extern "C"

@@ -52,18 +52,30 @@ def _refuse_fakebackend(cfg) -> None:
             " (ROADMAP.md queue 3)")
 
 
+def refuse_gate_counts(emit_gate_counts) -> None:
+    """The reference's per-timepoint gate-count CSVs are not ported."""
+    if emit_gate_counts:
+        raise NotImplementedError(
+            "--emit_gate_counts is not ported yet: ROADMAP.md queue 1,"
+            " CLI and edges")
+
+
 def run_autocorr(cfg, hs=None, phis=None, *, device="cuda", out_dir=None,
                  disorder_dir=None, with_envelopes: bool = False, write=True,
-                 method: str = "trajectories", uniforms=None) -> dict:
+                 method: str = "trajectories", emit_gate_counts=False,
+                 uniforms=None) -> dict:
     """Run the forward + echo sweep on ``device``; returns the result dict
     and writes the CSV.
 
+    emit_gate_counts: the reference's keyword; True raises
+    NotImplementedError (``refuse_gate_counts``).
     uniforms: optional (forward, echo) pair of f32 blocks,
     (inst, n_traj, T*K, L) and (inst, n_traj, 2T*K, L); drawn from
     generators seeded with cfg.seed when None. With ``use_fakebackend=1``
     the sweeps are the device-noise ones and the blocks theirs
     (``experiments/device_sweeps.py``).
     """
+    refuse_gate_counts(emit_gate_counts)
     if method == "exact":
         raise NotImplementedError(
             "method='exact' (density-matrix superoperator) is not ported yet:"

@@ -61,8 +61,10 @@ LIBRARIES = {
         "floquet_x_streamed_passes": [_I32],
         "floquet_x_streamed_forward": [_VP, _VP, _VP, _VP, _I32, _I32, _I32,
                                        _I32, _I32, _I64, _F32, _F32, _VP],
-        "floquet_x_streamed_echo": [_VP, _VP, _VP, _VP, _I32, _I32, _I32,
-                                    _I32, _I32, _I32, _I64, _F32, _F32, _VP],
+        "floquet_x_streamed_echo_partials": [_I32],
+        "floquet_x_streamed_echo": [_VP, _VP, _VP, _VP, _VP, _I32, _I32,
+                                    _I32, _I32, _I32, _I32, _I32, _I64, _F32,
+                                    _F32, _VP],
     },
     "floquet_general": {
         "floquet_general_forward_partials": [_I32],
@@ -81,8 +83,10 @@ LIBRARIES = {
         "floquet_general_streamed_forward": [_VP, _VP, _VP, _VP, _I32, _I32,
                                              _I32, _I32, _I32, _I32, _I64,
                                              _VP],
-        "floquet_general_streamed_echo": [_VP, _VP, _VP, _VP, _I32, _I32,
-                                          _I32, _I32, _I32, _I64, _VP],
+        "floquet_general_streamed_echo_partials": [_I32],
+        "floquet_general_streamed_echo": [_VP, _VP, _VP, _VP, _VP, _I32,
+                                          _I32, _I32, _I32, _I32, _I32, _I64,
+                                          _VP],
     },
     "floquet_cycle": {
         "floquet_cycle_partials": [_I32],

@@ -12,8 +12,10 @@ local, with the HBM-streamed kernels of
 (``general_hi_cycle_inverse_apply`` :543, one daggered cycle). Here one
 hand-written CUDA family, ``csrc/floquet_general_streamed.cu``
 (``floquet_general_streamed_forward``, ``floquet_general_streamed_echo``),
-runs K4's lab-frame step on the streamed x family's pass plan; beside each
-entry is its plain PyTorch version (``general_hi_forward_batch_ref``,
+runs K4's lab-frame step on the streamed x family's pass plan; the echo
+kernel takes, beside the step rows, their folded diagonals
+(``ops/echo_fold.py``), as K4's does. Beside each entry is its plain
+PyTorch version (``general_hi_forward_batch_ref``,
 ``general_hi_echo_batch_ref``).
 
 The entries take the step rows of ``ops/params_general.py``, exactly as
@@ -44,6 +46,7 @@ import math
 import torch
 
 from dtc_tpu_torch.core.statevector import basis_index
+from dtc_tpu_torch.ops.echo_fold import echo_plan
 from dtc_tpu_torch.ops.params import WIDTH
 from dtc_tpu_torch.ops.params_general import LANE_COUNT, LANE_MPOS, flag_base
 from dtc_tpu_torch.ops.resident_blocked import (
@@ -54,7 +57,7 @@ from dtc_tpu_torch.ops.resident_blocked import (
     raise_on,
     route,
 )
-from dtc_tpu_torch.ops.resident_general import MAX_STEPS, _kick
+from dtc_tpu_torch.ops.resident_general import MAX_STEPS, _kick, row_coeffs
 from dtc_tpu_torch.ops.streamed import angle_grid, measure_z, phase_grid
 
 _HALF_PI = math.pi / 2
@@ -207,19 +210,19 @@ def general_hi_echo_batch(tiles, *, L, q, initial_state="vacuum",
     lib = _build.load("floquet_general_streamed")
     b0 = basis_index(L, initial_state)
     dev = tiles.device
-    n_steps = int(tiles.view(n, R, WIDTH)[:, 0, flag_base(L) + LANE_COUNT]
-                  .max().item())
-    if n_steps > R // 2:
-        raise ValueError(f"step count {n_steps} exceeds the {R // 2} step"
-                         " rows")
+    fold, n_steps = echo_plan(tiles.view(n, R, WIDTH),
+                              flag_base(L) + LANE_COUNT, L, row_coeffs,
+                              "step count")
     state = torch.empty((n, 1 << L), dtype=torch.complex64, device=dev)
-    partials = torch.empty((n, lib.floquet_general_streamed_partials(L)),
-                           dtype=torch.float32, device=dev)
+    partials = torch.empty(
+        (n, lib.floquet_general_streamed_echo_partials(L)),
+        dtype=torch.float32, device=dev)
     val = torch.empty((n,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.floquet_general_streamed_echo(
-        state.data_ptr(), tiles.data_ptr(), partials.data_ptr(),
-        val.data_ptr(), n, L, R, n_steps, q, b0, stream)
+        state.data_ptr(), tiles.data_ptr(), fold.data_ptr(),
+        partials.data_ptr(), val.data_ptr(), n, L, R, fold.shape[1], n_steps,
+        q, b0, stream)
     LAUNCHES["echo"] += 1
     raise_on(err, "floquet_general_streamed_echo")
     return (ancilla_factor * basis_sign(b0, q)) * val.reshape(batch)

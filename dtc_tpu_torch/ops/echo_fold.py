@@ -1,4 +1,4 @@
-"""The echo kernels' folded diagonals (K3b, K4's echo).
+"""The echo kernels' folded diagonals (K3b, K4's echo, K6b/K7b, K10b).
 
 An echo step k of a pair applies its pre diagonal D_pre(k), the kick B(k)
 and its post diagonal D_post(k). D_post(k) and D_pre(k+1) are adjacent and
@@ -13,7 +13,9 @@ coefficients are the sums. ``fold_rows`` builds, per pair, S + 1 rows of
 so that step 0 applies row 0 before its kick and every step k applies row
 k + 1 after it: one diagonal per step instead of two. Each family's
 coefficient formula is its ``row_coeffs`` (``ops/resident_blocked.py``,
-sigma frame; ``ops/resident_general.py``, lab frame).
+sigma frame, for K3b's and the streamed x family's compact rows of 128 or
+256 lanes; ``ops/resident_general.py``, lab frame, for K4's and K10's step
+rows).
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ def fold_rows(tiles: torch.Tensor, count: torch.Tensor, L: int,
 
 
 def echo_plan(flat: torch.Tensor, lane: int, L: int, row_coeffs, what: str):
-    """What an echo kernel takes beside its (n, 2S, 128) step rows on the
+    """What an echo kernel takes beside its (n, 2S, width) step rows on the
     card, whose COUNT sits at ``lane`` of each pair's row 0: the folded rows
     (n, S + 1, 2L) and the largest COUNT (one read to the host). Raises
     ValueError when it exceeds the S step rows."""

@@ -8,8 +8,9 @@ Port of the HBM-streamed entries of the JAX package:
 On the TPU the four differ only in how VMEM slabs cut a state held in HBM.
 Here one hand-written CUDA family (``csrc/floquet_x_streamed.cu``) with a
 forward and an echo entry serves the whole range: two state passes per step
-at L <= 24, three above. Beside each entry is its plain PyTorch version
-(``streamed_forward_batch_ref``, ``streamed_echo_batch_ref``).
+at L <= 24, three above. The echo kernel takes, beside the step rows, their
+folded diagonals (``ops/echo_fold.py``). Beside each entry is its plain
+PyTorch version (``streamed_forward_batch_ref``, ``streamed_echo_batch_ref``).
 
 The entries take what ``ops/resident_blocked.py``'s take: the compact rows
 of ``ops/params.py`` (128 or 256 lanes, ``forward_width``/``echo_width``),
@@ -32,6 +33,7 @@ import math
 import torch
 
 from dtc_tpu_torch.core.statevector import basis_index
+from dtc_tpu_torch.ops.echo_fold import echo_plan
 from dtc_tpu_torch.ops.kick import apply_uniform_1q_layer
 from dtc_tpu_torch.ops.params import WIDE, WIDTH
 from dtc_tpu_torch.ops.resident_blocked import (
@@ -43,6 +45,7 @@ from dtc_tpu_torch.ops.resident_blocked import (
     kick_cs,
     raise_on,
     route,
+    row_coeffs,
 )
 
 _HALF_PI = math.pi / 2
@@ -249,19 +252,18 @@ def streamed_echo_batch(tiles, sig_fin, theta, *, L, q,
     lib = _build.load("floquet_x_streamed")
     b0 = basis_index(L, initial_state)
     dev = tiles.device
-    n_steps = int(tiles.view(n, R, width)[:, 0, width - 4].max().item())
-    if n_steps > R // 2:
-        raise ValueError(f"trip count {n_steps} exceeds the {R // 2} step"
-                         " rows")
+    fold, n_steps = echo_plan(tiles.view(n, R, width), width - 4, L,
+                              row_coeffs, "trip count")
     state = torch.empty((n, 1 << L), dtype=torch.complex64, device=dev)
-    partials = torch.empty((n, lib.floquet_x_streamed_partials(L)),
+    partials = torch.empty((n, lib.floquet_x_streamed_echo_partials(L)),
                            dtype=torch.float32, device=dev)
     val = torch.empty((n,), dtype=torch.float32, device=dev)
     c, s = kick_cs(theta)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.floquet_x_streamed_echo(
-        state.data_ptr(), tiles.data_ptr(), partials.data_ptr(),
-        val.data_ptr(), n, L, R, width, n_steps, q, b0, c, s, stream)
+        state.data_ptr(), tiles.data_ptr(), fold.data_ptr(),
+        partials.data_ptr(), val.data_ptr(), n, L, R, fold.shape[1], width,
+        n_steps, q, b0, c, s, stream)
     LAUNCHES["echo"] += 1
     raise_on(err, "floquet_x_streamed_echo")
     return echo_host_factor(val.reshape(batch), sig_fin, q, b0,

@@ -18,10 +18,12 @@ drives the streamed lab-frame family) a whole echo sweep takes minutes, so
 T-k..T-1, the longest trip counts, k and the trajectories as
 ``engine.kernel_chunks`` sizes them for one instance); there is no energy
 trace (the energy route is the eager engine there). The streamed families'
-passes are lo (``lo_kernel``, ``general_lo_kernel``), mid and hi
+forward passes are lo (``lo_kernel``, ``general_lo_kernel``), mid and hi
 (``strided_kernel<false>``/``<true>``, ``general_strided_kernel<false>``/
 ``<true>``) and the fixed-order reduce (``reduce_rows_kernel``, and
-``measured_reduce_kernel`` in the lab-frame forward).
+``measured_reduce_kernel`` in the lab-frame forward); their echoes run the
+echo passes of K3b and K4's echo (``echo_lo_kernel``, ``echo_mid_kernel``,
+``echo_hi_kernel``), then ``measure_kernel`` and ``reduce_kernel``.
 
 For each it prints one JSON line: the wall ms, the device-busy ms (the union
 of the intervals of every device event, kernels and copies), the idle share

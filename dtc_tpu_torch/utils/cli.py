@@ -153,10 +153,7 @@ def main(argv=None) -> int:
             f"{args.command} --sharded / --n_amp (run_energy_sharded) is not"
             " ported yet: ROADMAP.md queue 1, sharding")
     if args.command == "autocorr":
-        if args.emit_gate_counts:
-            raise NotImplementedError(
-                "--emit_gate_counts is not ported yet: ROADMAP.md queue 1,"
-                " CLI and edges")
+        autocorr.refuse_gate_counts(args.emit_gate_counts)
         if sharded:
             from dtc_tpu_torch.experiments.sharded_run import (
                 run_autocorr_sharded,

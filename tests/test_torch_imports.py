@@ -78,6 +78,26 @@ def test_unported_autocorr_flags_raise(flag, tmp_path):
               "--out_dir", str(tmp_path), *flag])
 
 
+@pytest.mark.parametrize("emit", [False, True])
+def test_run_autocorr_takes_emit_gate_counts(emit, tmp_path):
+    """The reference's keyword: False runs the sweep as before, True raises
+    the CLI's refusal before any work."""
+    from dtc_tpu_torch.experiments.autocorr import run_autocorr
+    from dtc_tpu_torch.utils.config import SimConfig
+
+    cfg = SimConfig(L=4, tf=2, n_trajectories=2)
+    kw = dict(device="cpu", write=False, disorder_dir=str(tmp_path),
+              emit_gate_counts=emit)
+    if not emit:
+        r = run_autocorr(cfg, **kw)
+        assert r["av_autocorr"].shape == r["av_autocorr_echo"].shape == (2,)
+        return
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1, CLI and edges"):
+        run_autocorr(cfg, **kw)
+    assert not os.listdir(tmp_path)
+
+
 @pytest.mark.parametrize("flag", [["--sharded"], ["--n_amp", "2"]])
 def test_unported_energy_flags_raise(flag, tmp_path):
     from dtc_tpu_torch.utils.cli import main

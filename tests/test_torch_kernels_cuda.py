@@ -567,37 +567,71 @@ def test_resident_kernels_match_k1_k2_and_k4_on_card(cuda_device):
     assert float((a - b).abs().max()) <= TOL
 
 
+def _echo_probes(L, streamed):
+    """Probe qubits in the bits of pass lo, pass mid (the streamed plan's
+    third pass, L >= 25: bits [a, a + c), c = (L - 2) // 3, a = L - 2c) or
+    the middle, and pass hi."""
+    if streamed and L >= 25:
+        c = (L - 2) // 3
+        return (0, L - 2 * c + c // 2, L - 1)
+    return (0, L // 2, L - 1)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [14, 17, 20, 21, 23])
+@pytest.mark.parametrize("L", [14, 17, 20, 21, 22, 23, 24, 25, 28, 29])
 def test_folded_echo_kernels_match_plain_on_card(cuda_device, L):
-    """K3b (to L=21) and K4's echo (to L=23) on the folded diagonals against
-    their plain versions: 8 pairs with ragged counts (0, 1, a few, the
-    largest), probes q = 0, L//2, L-1, at p = 0.6 and 0."""
+    """K3b (to L=21), K4's echo (to L=23), the streamed x echo (K6b/K7b;
+    L = 22-25, 28) and the streamed lab-frame echo (K10b, y and xy; L = 22,
+    24, 25, 28, 29) on the folded diagonals against their plain versions:
+    pairs with ragged counts (0, 1, a few, the largest; 8 pairs, 4 from
+    L = 24), probes q in the bits of pass lo, pass mid (three passes, from
+    L = 25) and pass hi, at p = 0.6 and 0."""
     from dtc_tpu_torch.ops.params_general import LANE_COUNT, flag_base
 
     hs, phis = _disorder(L, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(L)
-    T = 2 if L == 23 else 3
+    T = 2 if L >= 23 else 3
+    n = 1 if L >= 24 else 2
     ts = torch.tensor([0, 1, 2, T], device=cuda_device)
-    angles = build_kick_schedule("xy", 0.97, T, device=cuda_device).angles
-    ug = torch.rand((1, 2, 4 * T, L), generator=gen, device=cuda_device)
-    ux = torch.rand((1, 2, 2 * T, L), generator=gen, device=cuda_device)
+    angles = {pol: build_kick_schedule(pol, 0.97, T,
+                                       device=cuda_device).angles
+              for pol in ("y", "xy")}
+    ug = torch.rand((1, n, 4 * T, L), generator=gen, device=cuda_device)
+    ux = torch.rand((1, n, 2 * T, L), generator=gen, device=cuda_device)
     ang = _x_schedule(T, cuda_device, True)
+    lab_lane = flag_base(L) + LANE_COUNT
     for p in (0.6, 0.0):
-        tiles = general_echo_rows(ug, ts, hs[:, None], phis[:, None], angles,
-                                  L=L, T=T, K=2, p=p)
-        tiles[0, 1, 2, 0, flag_base(L) + LANE_COUNT] = 1.0
-        runs = [(rg.general_echo_batch, rg.general_echo_batch_ref, rg.LAUNCHES,
-                 (tiles,), {})]
+        gtiles = {}
+        for pol, K in (("y", 1), ("xy", 2)):
+            gtiles[pol] = general_echo_rows(
+                ug[..., :2 * T * K, :], ts, hs[:, None], phis[:, None],
+                angles[pol], L=L, T=T, K=K, p=p)
+            gtiles[pol][0, n - 1, 2, 0, lab_lane] = 1.0
+        runs = []
+        if L <= rg.MAX_L:
+            runs.append((rg.general_echo_batch, rg.general_echo_batch_ref,
+                         rg.LAUNCHES, (gtiles["xy"],), {}, False))
         if L <= rs.MAX_L:
             xt, sfin = echo_pair_tiles(ux, ts, hs[:, None], phis[:, None],
                                        L=L, T=T, p=p)
-            xt[0, 1, 2, 0, 124] = 1.0
+            xt[0, n - 1, 2, 0, 124] = 1.0
             runs.append((rs.resident_echo_batch, rs.resident_echo_batch_ref,
                          rs.LAUNCHES, (xt, sfin, ang),
-                         dict(time_dependent=True)))
-        for kernel, plain, launches, args, kw in runs:
-            for q in (0, L // 2, L - 1):
+                         dict(time_dependent=True), False))
+        if L in (22, 23, 24, 25, 28):
+            st, sfin = echo_pair_tiles(ux, ts, hs[:, None], phis[:, None],
+                                       L=L, T=T, p=p)
+            st[0, n - 1, 2, 0, st.shape[-1] - 4] = 1.0
+            runs.append((sm.streamed_echo_batch, sm.streamed_echo_batch_ref,
+                         sm.LAUNCHES, (st, sfin, THETA), {}, True))
+        if L in (22, 24, 25, 28, 29):
+            for pol in ("y", "xy"):
+                runs.append((chg.general_hi_echo_batch,
+                             chg.general_hi_echo_batch_ref, chg.LAUNCHES,
+                             (gtiles[pol],), {}, True))
+        assert runs
+        for kernel, plain, launches, args, kw, streamed in runs:
+            for q in _echo_probes(L, streamed):
                 kw.update(L=L, q=q, initial_state="neel" if q else "vacuum")
                 before = launches["echo"]
                 k = kernel(*args, **kw)
@@ -606,7 +640,7 @@ def test_folded_echo_kernels_match_plain_on_card(cuda_device, L):
                 ref = plain(*args, **kw)
                 assert float((k - ref).abs().max()) <= TOL
                 if p == 0:  # but the pair cut to one step
-                    k[0, 1, 2] = 1.0
+                    k[0, n - 1, 2] = 1.0
                     assert float((k - 1).abs().max()) <= TOL
 
 
