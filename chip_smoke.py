@@ -130,11 +130,12 @@ each; any failure raises and the script exits non-zero without a result:
    16 B per amplitude and step) over 3.35 TB/s and its f32 operations over
    67 TFLOP/s (the H100 SXM's published peaks), and
    its state floor (16 B per amplitude per pass and step, 2 or 3 passes);
-   the four echo entries on folded diagonals (K4's echo on 512 xy pairs at
-   ts=0..7, K3b on 32 pairs at t=12, L=20; the streamed x echo at L=28,
-   ts=0..3, and L=30, t=5; the streamed lab-frame echo, y at L=28, ts=0..3,
-   and circular_left at L=29, t=5) also with their launches a call and
-   their shares of the state floor and of the bound;
+   the entries on the step passes of ``floquet_echo.cuh`` (K2 and K4's
+   echo on 512 x or xy pairs at ts=0..7, K3b on 32 pairs at t=12, L=20;
+   the streamed x echo at L=28, ts=0..3, and L=30, t=5; the streamed
+   lab-frame echo, y at L=28, ts=0..3, and circular_left at L=29, t=5; the
+   streamed lab-frame forward at L=24-29) also with their launches a call
+   and their shares of the state floor and of the bound;
 6. the device seconds and calls of each kernel entry summed over every
    main-path run of phase 4 (CUDA events around each entry call), a JSON
    line of the kernels (with those as ``main_s`` and ``main_calls``), then
@@ -377,14 +378,16 @@ def compare_x(dev, err) -> None:
             rb.blocked_forward_batch_ref, (rows, sig, THETA),
             dict(L=L, q=L // 2, initial_state=state))
         err["K1"] = max(err["K1"], d)
-    for p in (0.6, 0.0):
-        tiles, sig = echo_inputs(20, 4, 2, p, [1, 2, 3, 4], dev, seed=2)
-        d, k = against_plain(
-            f"K2 L=20 T=4 ts=1..4 p={p}", rb.blocked_echo_batch,
-            rb.blocked_echo_batch_ref, (tiles, sig, THETA), dict(L=20, q=10))
-        if p == 0.0 and not float((k - 1).abs().max()) <= TOL:
-            raise RuntimeError(f"noiseless echo != 1: {k.tolist()}")
-        err["K2"] = max(err["K2"], d)
+    for L, q in ((17, 16), (20, 10), (23, 0)):
+        for p in (0.6, 0.0):
+            tiles, sig = echo_inputs(L, 4, 2, p, [1, 2, 3, 4], dev, seed=2)
+            d, k = against_plain(
+                f"K2 L={L} T=4 ts=1..4 p={p} q={q}", rb.blocked_echo_batch,
+                rb.blocked_echo_batch_ref, (tiles, sig, THETA),
+                dict(L=L, q=q))
+            if p == 0.0 and not float((k - 1).abs().max()) <= TOL:
+                raise RuntimeError(f"noiseless echo != 1: {k.tolist()}")
+            err["K2"] = max(err["K2"], d)
     # the main path's last two echo chunks (T=50, t_chunk=8): the longest
     # trip counts, 80..98 steps, on 2 instances x 32 trajectories
     for ts in (list(range(40, 48)), [48, 49]):
@@ -2310,16 +2313,13 @@ def timing(dev, smi, err) -> dict:
     # the main path's first echo call: 2 instances x 32 trajectories x t=0..7
     tiles, sfin = echo_inputs(L, T, c, P, list(range(8)), dev, seed=6,
                               inst=2)
-    k_ms, p_ms, k, ref = timed_pair(
+    steps = 2 * c * sum(2 * t for t in range(8))  # inst x traj x 2t
+    out["K2"] = timed_echo(
+        "K2", f"echo L=20 ts=0..7 pairs=512 steps={steps}",
         lambda: rb.blocked_echo_batch(tiles, sfin, THETA, L=L, q=L // 2),
         lambda: rb.blocked_echo_batch_ref(tiles, sfin, THETA, L=L, q=L // 2),
-        1)
-    err["K2"] = max(err["K2"], held("K2 L=20 T=50 ts=0..7 2x32 (timed "
-                                    "inputs)", k, ref))
-    steps = 2 * c * sum(2 * t for t in range(8))  # inst x traj x 2t
-    out["K2"] = report("K2", f"echo L=20 ts=0..7 pairs=512 steps={steps}",
-                       k_ms, p_ms, steps * N, "steps", steps,
-                       4 * (tiles.numel() + k.numel()), 6 * L + 12, smi)
+        2 * 7, err, "K2", steps * N, steps, 4 * (tiles.numel() + 512),
+        6 * L + 6, smi)
     del tiles
     for pol in ("y", "xy"):
         rows = general_forward_inputs(L, pol, T, c, P, dev, seed=7)
@@ -2349,10 +2349,17 @@ def timed_echo(name, what, kernel, plain, n_steps, err, key, amp_steps,
     err[key] = max(err[key], held(f"{name} {what} (timed inputs)", k, ref))
     row = report(name, what, k_ms, p_ms, amp_steps, "steps", units, io_bytes,
                  flops, smi, passes=passes, spills=spills)
-    phase(f"[timing] {name} {what}: {passes * n_steps + 3} launches a call; "
-          f"{100 * row['state_floor_ms'] / k_ms:.1f}% of the state floor, "
-          f"{100 * row['bound_ms'] / k_ms:.1f}% of the bound on {smi}")
+    shares(name, what, row, passes * n_steps + 3, smi)
     return row
+
+
+def shares(name, what, row, launches, smi) -> None:
+    """The launches a call of an entry on the step passes and its shares
+    of the state floor and of the bound."""
+    phase(f"[timing] {name} {what}: {launches} launches a call; "
+          f"{100 * row['state_floor_ms'] / row['ms']:.1f}% of the state "
+          f"floor, {100 * row['bound_ms'] / row['ms']:.1f}% of the bound on "
+          f"{smi}")
 
 
 def timing_k4_echo(dev, smi, err) -> dict:
@@ -2547,7 +2554,9 @@ def timing_general_hi(dev, smi, err) -> dict:
     """The streamed lab-frame family's forward against its plain version on
     the main paths' shapes, with the peak device memory of each kernel/plain
     pair: L=24, 26 and 28 (y, 4 trajectories, T=8) and L=29 (circular_left,
-    1 trajectory, T=6: the ``autocorr`` run's launch). Operations per
+    1 trajectory, T=6: the ``autocorr`` run's launch), with the launches a
+    call (the basis state, two or three passes a step, the reduce and A(0))
+    and the shares of the state floor and of the bound. Operations per
     amplitude and step: K4's forward, 14 L + 6. Returns the L=28 numbers;
     the echo's rows are ``timing_streamed_echo``'s."""
     from dtc_tpu_torch.ops import _build
@@ -2568,10 +2577,13 @@ def timing_general_hi(dev, smi, err) -> dict:
         err["K10 forward"] = max(err["K10 forward"], held(
             f"K10 {what} (timed inputs)", k, ref))
         peak("K10", what, L, dev, smi)
+        passes = lib.floquet_general_streamed_passes(L)
         out[f"forward {L}"] = report(
             "K10", what, k_ms, p_ms, c * (T - 1) * K << L, "cycles", T * c,
-            4 * (rows.numel() + k.numel()), 14 * L + 6, smi,
-            passes=lib.floquet_general_streamed_passes(L), spills=True)
+            4 * (rows.numel() + k.numel()), 14 * L + 6, smi, passes=passes,
+            spills=True)
+        shares("K10", what, out[f"forward {L}"], passes * (T - 1) * K + 3,
+               smi)
         del rows
     return {"K10 forward": out["forward 28"]}
 

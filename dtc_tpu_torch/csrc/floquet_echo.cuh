@@ -1,25 +1,27 @@
-// The echo passes shared by floquet_x_resident.cu (K3b), floquet_general.cu
-// (K4's echo), floquet_x_streamed.cu (K6b/K7b) and
-// floquet_general_streamed.cu (K10b): the folded diagonal rows, the phase
-// tables, the swizzled butterfly rounds and the passes of a step, templated
-// on the family's kick. Each redesign below was timed on its own on an H100
-// (PERF.md section 6).
+// The step passes shared by floquet_x_resident.cu (K3b), floquet_x.cu (K2),
+// floquet_general.cu (K4's echo), floquet_x_streamed.cu (K6b/K7b) and
+// floquet_general_streamed.cu (K10b, and K10a's forward): the folded
+// diagonal rows, the phase tables, the swizzled butterfly rounds and the
+// passes of a step, templated on the family's kick and step rows. Each
+// redesign below was timed on its own on an H100 (PERF.md section 6).
 //
-// Pass plan: an echo step cuts the 2^L state into the tiles of
+// Pass plan: a step cuts the 2^L state into the tiles of
 //   pass lo:  bits [0, a), 2^a consecutive amplitudes;
 //   pass mid: bits [a, a + b) (b = 0: no mid pass), 2^b rows x CW
 //             consecutive columns, the kick only;
 //   pass hi:  bits [a + b, L), 2^c rows x CW columns, c = L - a - b.
-// The resident echoes (K3b, K4's, L <= 23) take a = L - L/2, b = 0 and
-// CW = kW = 4; the streamed ones (L = 22..30) the plan of floquet_plan.cuh
-// (two passes at L <= 24, CW = 4; three above, CW = 16: 128-byte column
-// runs), tiles of 16-64 KiB.
+// The resident echoes (K2, K3b, K4's, L <= 23) take a = L - L/2, b = 0 and
+// CW = kW = 4; the streamed ones and the streamed lab-frame forward
+// (L = 22..30) the plan of floquet_plan.cuh (two passes at L <= 24,
+// CW = 4; three above, CW = 16: 128-byte column runs), tiles of 16-64 KiB.
 //
 // Folded rows (ops/echo_fold.py): an echo step k applies D_pre(k), the kick,
 // then D_post(k); D_post(k) D_pre(k+1) is one diagonal whose coefficients
 // are the sums, so a pair carries S+1 rows of (cz [0, L), cb [L, 2L-1), c0
 // at 2L-1): step 0's pass lo applies row 0 before its kick, step k's pass hi
-// row k+1 after it. One diagonal per step instead of two.
+// row k+1 after it. One diagonal per step instead of two. A forward step k
+// is the kick, then its diagonal: row k+1 (forward_fold), and no row 0
+// (Fold::pre0 false: pass lo of step 0 only kicks).
 //
 // Phase tables: a pass that applies a diagonal builds, once per block, the
 // unit phases of the bits that vary in its tile as two tables of at most
@@ -30,10 +32,16 @@
 //
 // Rounds (swz_kick): a pass's kick runs in rounds of 2 or 3 bits, 8
 // amplitudes in registers; the first round reads its amplitudes from device
-// memory and the last writes them there (the diagonal on the way), so a
-// pass makes one read and one write of the state and the tile in shared
-// memory, swizzled so that no round has bank conflicts, holds it between
-// rounds only.
+// memory and the last writes them there (the diagonal on the way, and the
+// forward's measure), so a pass makes one read and one write of the state
+// and the tile in shared memory, swizzled so that no round has bank
+// conflicts, holds it between rounds only.
+//
+// Measures: an echo pair is measured once, after its last step
+// (measure_and_reduce); the forward measures a step whose row names a time
+// t in pass hi's store, one partial of |psi|^2 z_q a block into a
+// (pairs, T, blocks) buffer, summed once at the end in a fixed order
+// (Times).
 //
 // Every pair steps in lockstep: a step is two or three launches over all
 // pairs. (A schedule that ran groups of pairs small enough to stay in the
@@ -60,9 +68,12 @@ constexpr int kLoTabLo = 2 << kTabBits;
 constexpr int kMaxEchoL = 32;
 
 // A pair's folded rows: pair p's row j at rows + p * stride + j * 2L.
+// pre0: row 0 is a diagonal before step 0's kick (the echoes); the forward
+// has none.
 struct Fold {
   const float* __restrict__ rows;
   int64_t stride;
+  bool pre0 = true;
   __device__ __forceinline__ const float* row(int pair, int j, int L) const {
     return rows + (int64_t)pair * stride + (int64_t)j * 2 * L;
   }
@@ -237,18 +248,34 @@ __device__ void swz_kick(float2* tile, int tbits, int b0, int n,
 
 // The passes take the step's kick through a policy P of the family
 // (XEcho in floquet_x_echo.cuh, GeneralEcho in floquet_general_echo.cuh,
-// each on its family's step rows):
+// each on its family's step rows, echo or forward):
 //   P::kMinBlocks  blocks an SM, the passes' launch bounds;
 //   P::Shared      what a block keeps of its kick in shared memory;
 //   P::Kick        a block's kick: from(q) the kick from qubit q on, and
 //                  round<NB>(j) the butterflies of its qubits [j, j + NB);
 //   begin(rows, L, rows_per_pair, pair, step, sh, kick): false once the
 //                  pair has run its COUNT steps, else sets kick (its shared
-//                  part in sh, read after the next __syncthreads).
+//                  part in sh, read after the next __syncthreads);
+//   time(rows, L, rows_per_pair, pair, step): with Times only, the time t
+//                  the step's end is measured into (t < 0: none).
 
-// Echo pass lo (pair blockIdx.y): step 0 applies folded row 0, the first
-// pre diagonal (later steps' pre diagonals are folded into the previous
-// pass hi), then the kick of the step's pre row on bits [0, k1).
+// What pass hi measures as it stores a step: NoTimes, nothing (the echoes);
+// Times, the forward's A(t): on a step whose time is 0 <= t < T, each block
+// writes its partial of |psi|^2 z_q, any 0 <= q < L, to
+// partials[(pair * T + t) * blocks + block].
+struct NoTimes {
+  static constexpr bool kOn = false;
+};
+
+struct Times {
+  static constexpr bool kOn = true;
+  float* __restrict__ partials;
+  int q, T;
+};
+
+// Pass lo (pair blockIdx.y): an echo's step 0 applies folded row 0, the
+// first pre diagonal (later steps' pre diagonals are folded into the
+// previous pass hi), then the kick of the step's row on bits [0, k1).
 template <class P>
 __global__ void __launch_bounds__(kThreads, P::kMinBlocks)
     echo_lo_kernel(float2* __restrict__ st, int L, int k1,
@@ -263,7 +290,7 @@ __global__ void __launch_bounds__(kThreads, P::kMinBlocks)
   if (!policy.begin(rows, L, rows_per_pair, pair, step, sh, kick)) return;
   const int64_t hi = blockIdx.x;
   float2* g = st + ((int64_t)pair << L) + (hi << k1);
-  const bool first = step == 0;
+  const bool first = step == 0 && fold.pre0;
   if (first) load_fold(fold.row(pair, 0, L), L, coef);
   __syncthreads();
   if (first) {
@@ -300,7 +327,7 @@ __device__ __forceinline__ int64_t strided_at(int base, int jb, int k0) {
   return ((int64_t)(base / CW + jb / CW) << k0) + base % CW;
 }
 
-// Echo pass mid (pair blockIdx.y; only where b > 0): the kick on bits
+// Pass mid (pair blockIdx.y; only where b > 0): the kick on bits
 // [a, a + b) on a tile of 2^b rows x CW consecutive columns, no diagonal.
 // Block x = (top << (a - log2 CW)) | column group, top the bits above
 // a + b.
@@ -328,14 +355,15 @@ __global__ void __launch_bounds__(kThreads, P::kMinBlocks)
       });
 }
 
-// Echo pass hi (pair blockIdx.y): the kick on bits [k0, L) on a tile of
-// 2^(L - k0) rows x CW columns, then folded row step + 1 (this step's post
-// diagonal and the next step's pre) as the tile is stored.
-template <class P, int CW>
+// Pass hi (pair blockIdx.y): the kick on bits [k0, L) on a tile of
+// 2^(L - k0) rows x CW columns, then folded row step + 1 (an echo's post
+// diagonal and the next step's pre; the forward's step diagonal) as the
+// tile is stored, and what M measures.
+template <class P, int CW, class M>
 __global__ void __launch_bounds__(kThreads, P::kMinBlocks)
     echo_hi_kernel(float2* __restrict__ st, int L, int k0,
                    const float* __restrict__ rows, int64_t rows_per_pair,
-                   Fold fold, int step, P policy) {
+                   Fold fold, int step, P policy, M m) {
   constexpr int kc = log2_of(CW);
   extern __shared__ float2 tile[];  // [2^n2][CW], swizzled
   __shared__ float coef[2 * kMaxEchoL];
@@ -347,6 +375,13 @@ __global__ void __launch_bounds__(kThreads, P::kMinBlocks)
   const int n2 = L - k0;
   const int64_t o = (int64_t)blockIdx.x * CW;
   float2* g = st + ((int64_t)pair << L) + o;
+  [[maybe_unused]] float* slot = nullptr;  // uniform over the block
+  if constexpr (M::kOn) {
+    const int t = policy.time(rows, L, rows_per_pair, pair, step);
+    if (0 <= t && t < m.T) {
+      slot = m.partials + ((int64_t)pair * m.T + t) * gridDim.x;
+    }
+  }
   load_fold(fold.row(pair, step + 1, L), L, coef);
   __syncthreads();
   const float* cb = coef + L;
@@ -355,6 +390,7 @@ __global__ void __launch_bounds__(kThreads, P::kMinBlocks)
         unit(coef[2 * L - 1] + angle_bits(coef, cb, o + threadIdx.x, 0, k0));
   }
   phase_tables(coef, cb, k0, n2, zsign(o, k0 - 1), 0.0f, 0.0f, tlo, thi);
+  [[maybe_unused]] float acc = 0.0f;
   // tile index x = h * CW + w: the high bits sit at tile bits
   // [kc, kc + n2)
   swz_kick(
@@ -367,19 +403,39 @@ __global__ void __launch_bounds__(kThreads, P::kMinBlocks)
         const float2 ph =
             phase_mul(phase_mul(tlo[h & ((1 << a) - 1)], tw[base % CW]),
                       thi[(h + jb / CW) >> (a - 1)]);
-        g[strided_at<CW>(base, jb, k0)] = phase_mul(v, ph);
+        const int64_t at = strided_at<CW>(base, jb, k0);
+        const float2 w = phase_mul(v, ph);
+        g[at] = w;
+        if constexpr (M::kOn) {
+          if (slot != nullptr) {
+            acc += (w.x * w.x + w.y * w.y) * zsign(o + at, m.q);
+          }
+        }
       });
+  if constexpr (M::kOn) {
+    if (slot != nullptr) {
+      __shared__ float red[kThreads / 32];
+      const float tot = block_sum(acc, red);
+      if (threadIdx.x == 0) slot[blockIdx.x] = tot;
+    }
+  }
 }
 
-// The echo of n_pairs states in st on the folded rows and the pass plan
-// (a, b), strided tiles of CW columns: the basis state, n_steps echo steps
-// of two or three passes each (a pair stops at its COUNT), the measure and
-// the fixed-order reduce into out (partials: n_pairs x measure_blocks(L)).
-template <int CW, class P>
-cudaError_t run_echo(float2* st, int L, int a, int b, const float* rows,
-                     int64_t rows_per_pair, Fold fold, int n_pairs,
-                     int n_steps, P policy, int q, int64_t b0,
-                     float* partials, float* out, cudaStream_t stream) {
+// Pass-hi blocks of one state on the plan (a, b) with CW columns: the
+// forward's partials per pair and time.
+__host__ __device__ constexpr int step_hi_blocks(int a, int b, int cw) {
+  return (1 << (a + b)) / cw;
+}
+
+// n_steps steps of n_pairs states in st from the basis state b0, on the
+// folded rows and the pass plan (a, b), strided tiles of CW columns: two
+// or three passes a step, a pair stopping at its COUNT; pass hi measures
+// what m says.
+template <int CW, class P, class M>
+cudaError_t run_steps(float2* st, int L, int a, int b, const float* rows,
+                      int64_t rows_per_pair, Fold fold, int n_pairs,
+                      int n_steps, P policy, M m, int64_t b0,
+                      cudaStream_t stream) {
   constexpr int kc = log2_of(CW);
   const int k0 = a + b;
   const int c = L - k0;
@@ -397,7 +453,7 @@ cudaError_t run_echo(float2* st, int L, int a, int b, const float* rows,
                              (int)smem_mid);
   }
   if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(echo_hi_kernel<P, CW>,
+    e = cudaFuncSetAttribute(echo_hi_kernel<P, CW, M>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_hi);
   }
@@ -414,11 +470,27 @@ cudaError_t run_echo(float2* st, int L, int a, int b, const float* rows,
                                smem_mid, stream>>>(st, L, a, b, rows,
                                                    rows_per_pair, k, policy);
     }
-    echo_hi_kernel<P, CW><<<dim3((1u << k0) / CW, n_pairs), t_hi, smem_hi,
-                            stream>>>(st, L, k0, rows, rows_per_pair, fold,
-                                      k, policy);
+    echo_hi_kernel<P, CW, M><<<dim3(step_hi_blocks(a, b, CW), n_pairs), t_hi,
+                               smem_hi, stream>>>(st, L, k0, rows,
+                                                  rows_per_pair, fold, k,
+                                                  policy, m);
     e = cudaGetLastError();
   }
+  return e;
+}
+
+// The echo of n_pairs states in st on the folded rows and the pass plan
+// (a, b), strided tiles of CW columns: the basis state, n_steps echo steps
+// (run_steps), the measure and the fixed-order reduce into out (partials:
+// n_pairs x measure_blocks(L)).
+template <int CW, class P>
+cudaError_t run_echo(float2* st, int L, int a, int b, const float* rows,
+                     int64_t rows_per_pair, Fold fold, int n_pairs,
+                     int n_steps, P policy, int q, int64_t b0,
+                     float* partials, float* out, cudaStream_t stream) {
+  const cudaError_t e =
+      run_steps<CW>(st, L, a, b, rows, rows_per_pair, fold, n_pairs, n_steps,
+                    policy, NoTimes{}, b0, stream);
   if (e != cudaSuccess) return e;
   return measure_and_reduce(st, L, q, n_pairs, partials, out, stream);
 }

@@ -1,9 +1,10 @@
-// The lab-frame echo policy for the passes of floquet_echo.cuh: the step's
-// per-qubit 2x2 kicks (X-mask and U of the echo step's pre row), held in
-// shared memory, read through the family's step rows `Rows` (K4's in
-// floquet_general.cu, K10's in floquet_general_streamed.cu: the same
-// 128-lane layout); at most 85 registers a thread (three blocks of 256
-// threads an SM), which the 2x2 butterflies would exceed unbounded.
+// The lab-frame kick policy for the step passes of floquet_echo.cuh: the
+// step's per-qubit 2x2 kicks (X-mask and U of the step's kick row), held in
+// shared memory, read through the family's step rows `Rows` (K4's echo rows
+// in floquet_general.cu; K10's echo and forward rows in
+// floquet_general_streamed.cu: the same 128-lane layout); at most 85
+// registers a thread (three blocks of 256 threads an SM), which the 2x2
+// butterflies would exceed unbounded.
 //
 // Include after floquet_common.cuh and floquet_lab.cuh; the definitions sit
 // in an anonymous namespace of their own.
@@ -16,8 +17,9 @@
 
 namespace {
 
-// The lab-frame echo policy (floquet_echo.cuh). rows.at(rows, L,
-// rows_per_pair, pair, step) gives the pair's step (active, kick).
+// The lab-frame step policy (floquet_echo.cuh). rows.at(rows, L,
+// rows_per_pair, pair, step) gives the pair's step (active, kick); a
+// forward reader's rows.time(...) the time the step is measured into.
 template <class Rows>
 struct GeneralEcho {
   static constexpr int kMinBlocks = 3;
@@ -35,6 +37,11 @@ struct GeneralEcho {
     load_mats(s.kick, L, sh.mats);
     kick = MatKick{sh.mats};
     return true;
+  }
+  __device__ __forceinline__ int time(const float* r, int L,
+                                      int64_t rows_per_pair, int pair,
+                                      int step) const {
+    return rows.time(r, L, rows_per_pair, pair, step);
   }
 };
 

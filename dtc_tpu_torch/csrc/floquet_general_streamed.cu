@@ -26,38 +26,40 @@
 // - diagonal exp(i theta(s)), theta(s) = c0 + sum_q cz_q z_q(s)
 //   + sum_j cb_j z_j(s) z_{j+1}(s), cz_q = -h_q/2 - (pi/2) n_q,
 //   cb_j = -phi_j/2, c0 = (pi/2) sum_q n_q (lab frame: no sigma, no host
-//   sign), factorized over the split at a+b and applied at the end of pass
-//   hi.
-// Forward: step k of a trajectory runs row k; a row with MPOS >= 0 (lane FO,
-// the final slot of each cycle t < T-1) is measured into A(MPOS): pass hi
-// writes one partial of |psi|^2 z_q per block, and a fixed-order reduce
-// after every step sums them where the step's row is measured. A(0) is the
-// basis state's z_q. Echo: rows come in (pre, post) pairs; a step is the
-// pre diagonal, the kick of the pre row, then the post diagonal; each pair
-// runs the COUNT = 2tK steps of lane FO+10 of its row 0 and is measured
-// after its last step (a pair with COUNT 0 keeps its basis state). The
-// echo runs the echo passes of floquet_echo.cuh on the same plan, with
-// K4's echo policy (floquet_general_echo.cuh): one folded diagonal per step
-// (ops/echo_fold.py: step 0's pass lo applies the first pre diagonal,
-// every pass hi the step's post diagonal and the next step's pre; pass lo
-// of a later step and pass mid only kick), its phases from two small
-// tables per block, and the kick in swizzled 2-3-bit rounds whose first
-// reads the state and whose last writes it, so each pass makes one read
-// and one write.
+//   sign).
+// Forward: step k of a trajectory is the kick of row k, then row k's
+// diagonal; a row with MPOS >= 0 (lane FO, the final slot of each cycle
+// t < T-1) is measured into A(MPOS). A(0) is the basis state's z_q. Echo:
+// rows come in (pre, post) pairs; a step is the pre diagonal, the kick of
+// the pre row, then the post diagonal; each pair runs the COUNT = 2tK steps
+// of lane FO+10 of its row 0 and is measured after its last step (a pair
+// with COUNT 0 keeps its basis state).
+//
+// Both entries run the step passes of floquet_echo.cuh (run_steps) on this
+// plan with K4's kick policy (GeneralEcho, floquet_general_echo.cuh), the
+// echo on PairRows, the forward on ForwardRows (every step active, the kick
+// of row k, the time from MPOS): one diagonal per step from folded rows
+// (ops/echo_fold.py: the echo's step 0 pass lo applies the first pre
+// diagonal, every pass hi the step's post diagonal and the next step's pre;
+// the forward's pass hi row k+1 = step k's diagonal, and no row 0), its
+// phases from two small tables per block, and the kick in swizzled 2-3-bit
+// rounds whose first reads the state and whose last writes it, so each
+// pass makes one read and one write. The forward's pass hi writes, on a
+// measured step, one partial of |psi|^2 z_q per block as it stores; one
+// fixed-order reduce at the end sums them, in double. K10's shard-local
+// forms (floquet_cycle_hi.cu) keep the passes of
+// floquet_general_streamed_pass.cuh, whose step rows (step_rows) both
+// readers here take.
 //
 // What bounds it on this card: a state is 2^L complex64, 32 MiB at L=22 and
 // 4 GiB at L=29, so every step streams it from device memory: 32 B per
 // amplitude and step at L <= 24 (two passes), 48 B from L=25 (three). A
 // general 2x2 costs 14 flops per amplitude and bit against RX's 6, and the
 // operation bound stays below the state floor. The kick's per-qubit
-// matrices are built once per block in shared memory from the row. The
-// forward keeps the passes of floquet_general_streamed_pass.cuh (shared
-// with K10's shard-local forms, floquet_cycle_hi.cu): a sincos per
-// amplitude for its diagonal, the tile staged whole through shared memory.
+// matrices are built once per block in shared memory from the row.
 //
-// The state's initialisation stays out of launch_step, which applies one
-// step to any state. Every offset that can pass 2^31 (state, tile rows,
-// blocks, rows of a batch) is 64-bit.
+// Every offset that can pass 2^31 (state, tile rows, blocks, rows of a
+// batch, partials) is 64-bit.
 
 #include "floquet_common.cuh"
 #include "floquet_echo.cuh"
@@ -79,12 +81,34 @@ struct PairRows {
   }
 };
 
+// K10's forward step rows for GeneralEcho: every step active, the kick of
+// row `step`, measured into the time its MPOS names (-1: none).
+struct ForwardRows {
+  __device__ __forceinline__ StepRows at(const float* rows, int L,
+                                         int64_t rows_per_pair, int pair,
+                                         int step) const {
+    return step_rows<kRowWidth>(rows, L, rows_per_pair, pair, step, 0);
+  }
+  __device__ __forceinline__ int time(const float* rows, int L,
+                                      int64_t rows_per_pair, int pair,
+                                      int step) const {
+    return (int)rows[((int64_t)pair * rows_per_pair + step) * kRowWidth +
+                     4 * L - 1 + kLaneMpos];
+  }
+};
+
+// Strided tile columns of the plan: 4 on two passes, 16 on three.
+int cols_of(const Plan& p) { return p.b > 0 ? kWideCols : kW; }
+
 }  // namespace
 
 extern "C" {
 
-// Partials per trajectory the forward entry allocates.
-int floquet_general_streamed_partials(int L) { return hi_blocks(L); }
+// Partials per trajectory and time the forward entry allocates.
+int floquet_general_streamed_partials(int L) {
+  const Plan p = plan_for(L);
+  return step_hi_blocks(p.a, p.b, cols_of(p));
+}
 
 // Partials per pair the echo entry allocates.
 int floquet_general_streamed_echo_partials(int L) {
@@ -97,39 +121,41 @@ int floquet_general_streamed_passes(int L) {
 }
 
 // K10 forward. state: n_traj x 2^L complex64 scratch; rows: n_traj x
-// rows_per_traj x 128 f32 (one row per kick slot, T*K of them); partials:
-// n_traj x floquet_general_streamed_partials(L) f32 scratch; out: n_traj x
-// T f32, zeroed (A(t) before the host's ancilla factor and sign). Runs the
-// first n_steps = (T-1)*K steps, the ones whose results are measured.
+// rows_per_traj x 128 f32 (one row per kick slot, T*K of them); fold:
+// n_traj x fold_rows x 2L f32, the step diagonals
+// (ops/echo_fold.py::forward_fold); partials: n_traj x T x
+// floquet_general_streamed_partials(L) f32, zeroed; out: n_traj x T f32
+// (A(t) before the host's ancilla factor and sign). Runs the first
+// n_steps = (T-1)*K steps, the ones whose results are measured.
 int floquet_general_streamed_forward(void* state, const void* rows,
-                                     void* partials, void* out, int n_traj,
-                                     int L, int rows_per_traj, int T,
+                                     const void* fold, void* partials,
+                                     void* out, int n_traj, int L,
+                                     int rows_per_traj, int fold_rows, int T,
                                      int n_steps, int q, int64_t b0,
                                      void* stream_ptr) {
-  if (!in_range(L, q) || n_steps > rows_per_traj) {
+  if (!in_range(L, q) || n_steps > rows_per_traj ||
+      n_steps >= fold_rows) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  float2* st = (float2*)state;
-  const float* r = (const float*)rows;
+  const Plan p = plan_for(L);
+  const auto run = p.b > 0
+                       ? run_steps<kWideCols, GeneralEcho<ForwardRows>, Times>
+                       : run_steps<kW, GeneralEcho<ForwardRows>, Times>;
+  cudaError_t e = run(
+      (float2*)state, L, p.a, p.b, (const float*)rows, rows_per_traj,
+      Fold{(const float*)fold, (int64_t)fold_rows * 2 * L, false}, n_traj,
+      n_steps, GeneralEcho<ForwardRows>{}, Times{(float*)partials, q, T}, b0,
+      stream);
+  if (e != cudaSuccess) return (int)e;
   float* a = (float*)out;
-  init_kernel<<<dim3(256, n_traj), kThreads, 0, stream>>>(st, (int64_t)1 << L,
-                                                          b0);
+  const int64_t n_rows = (int64_t)n_traj * T;
+  reduce_rows_kernel<<<(unsigned)n_rows, kThreads, 0, stream>>>(
+      (const float*)partials, floquet_general_streamed_partials(L), a, 1, 0);
   const float a0 = 1.0f - 2.0f * (float)((b0 >> q) & 1);
   first_kernel<<<(n_traj + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       a, n_traj, T, a0);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  for (int k = 0; k < n_steps; ++k) {
-    e = launch_step<kRowWidth>(st, L, r, rows_per_traj, n_traj, k, 0, q,
-                    (float*)partials, stream);
-    if (e != cudaSuccess) return (int)e;
-    measured_reduce_kernel<kRowWidth><<<n_traj, kThreads, 0, stream>>>(
-        (const float*)partials, hi_blocks(L), r, rows_per_traj, k, L, a, T);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
+  return (int)cudaGetLastError();
 }
 
 // K10 echo. state: n_pairs x 2^L complex64 scratch; tiles: n_pairs x

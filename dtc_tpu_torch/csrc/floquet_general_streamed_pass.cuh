@@ -1,12 +1,14 @@
-// The pass kernels of the streamed lab-frame family: one kick slot of any
-// drive (the X-mask row fold of the slot's 2x2, then the slot's diagonal)
-// on a batch of 2^L states in device memory, cut by the pass plan of
-// floquet_plan.cuh. Shared by floquet_general_streamed.cu (K10a on one
-// card, the forward of whole trajectories, 22 <= L <= 29; its echo runs
-// floquet_echo.cuh's passes and reads its rows through step_rows) and
+// The pass kernels of the streamed lab-frame family's shard-local forms:
+// one kick slot of any drive (the X-mask row fold of the slot's 2x2, then
+// the slot's diagonal) on a batch of 2^L states in device memory, cut by
+// the pass plan of floquet_plan.cuh, a sincos per amplitude for the
+// diagonal and the tile staged whole through shared memory. Run by
 // floquet_cycle_hi.cu (K10's shard-local forms: one cycle on a shard's
-// local bits, 22 <= L_loc <= 30); floquet_general_streamed.cu says what
-// bounds them.
+// local bits, 22 <= L_loc <= 30). The one-card family,
+// floquet_general_streamed.cu (K10a's forward and K10b's echo of whole
+// trajectories, 22 <= L <= 29), runs the step passes of floquet_echo.cuh
+// instead and takes from here only the step rows (StepRows, step_rows);
+// it says what bounds them.
 //
 // Rows are K4's step rows (ops/params_general.py) of W lanes, a template
 // argument: 128, or 256 where the flag lanes from FO = 4L-1 pass lane 127
@@ -158,21 +160,6 @@ __global__ void general_strided_kernel(float2* __restrict__ st, int L, int k0,
   for (int i = threadIdx.x; i < nt; i += blockDim.x) {
     g[((int64_t)(i / kW) << k0) + (i % kW)] = tile[i];
   }
-}
-
-// Forward: out[pair * T + MPOS] = the sum of the pair's partials in a fixed
-// order, where row `step` of the pair has 0 <= MPOS < T; else nothing.
-template <int W>
-__global__ void measured_reduce_kernel(const float* __restrict__ partials,
-                                       int nb, const float* __restrict__ rows,
-                                       int64_t rows_per_pair, int step, int L,
-                                       float* __restrict__ out, int T) {
-  const int64_t pair = blockIdx.x;
-  const float* row = rows + (pair * rows_per_pair + step) * W;
-  const int mpos = (int)row[4 * L - 1 + kLaneMpos];
-  if (mpos < 0 || mpos >= T) return;  // uniform over the block
-  const double sum = fixed_sum(partials + pair * nb, nb);
-  if (threadIdx.x == 0) out[pair * T + mpos] = (float)sum;
 }
 
 // One step of every pair: pass lo, [pass mid], pass hi.

@@ -10,8 +10,9 @@
 //             step (the diagonal and the partial of |psi|^2 z_q).
 // L <= 24 takes two passes (a <= 13, c <= 11: at most 64 KiB a tile), L =
 // 25..30 three (tiles of 4-32 KiB); floquet_x_streamed.cu says why. The
-// streamed echoes run this plan on the echo passes of floquet_echo.cuh,
-// whose strided tiles take 16 columns from L = 25.
+// streamed echoes and the lab-frame forward run this plan on the step
+// passes of floquet_echo.cuh, whose strided tiles take 16 columns from
+// L = 25.
 //
 // Include after floquet_common.cuh; the definitions sit in an anonymous
 // namespace of their own.

@@ -1,8 +1,8 @@
 // The x family's echo policy for the passes of floquet_echo.cuh: RX(theta)
 // on every qubit, read from the echo step's pre row through two template
-// parameters, the family's step rows `Rows` (K3b's 128-lane rows in
-// floquet_x_resident.cu, the streamed family's rows of run-time width in
-// floquet_x_streamed.cu) and the angle `Table` (TableKick,
+// parameters, the family's step rows `Rows` (K2's and K3b's 128-lane rows,
+// PairRows in floquet_x_pass.cuh; the streamed family's rows of run-time
+// width in floquet_x_streamed.cu) and the angle `Table` (TableKick,
 // floquet_x_pass.cuh, or ConstKick, floquet_rx.cuh); the kick's sign is
 // lane width-3 of the pre row.
 //

@@ -1,6 +1,7 @@
 // The two passes of one x-drive step in the sigma frame, shared by
-// floquet_x.cu (K1/K2: a constant kick) and floquet_x_resident.cu (K3a/K3b:
-// a constant or per-cycle kick read from a table):
+// floquet_x.cu (K1: a constant kick), floquet_x_resident.cu (K3a: a
+// constant or per-cycle kick read from a table) and floquet_cycle.cu (K8a,
+// and K8b on the echo branch: one inverse cycle a launch):
 //   pass lo: a block owns 2^k1 consecutive amplitudes (fixed high bits),
 //            [echo: the pre diagonal], the kick on bits [0, k1) in shared
 //            memory;
@@ -12,6 +13,8 @@
 // ConstKick (floquet_rx.cuh) for one angle (the pre row is not read),
 // TableKick for a (tu, 2) device table, indexed by the forward's cycle or
 // by lane 127 of the echo step's pre row (read as an int, bounded by tu).
+// The whole-trajectory echoes K2 and K3b run the passes of
+// floquet_echo.cuh instead, reading their step rows through PairRows.
 //
 // Include after floquet_common.cuh and floquet_rx.cuh; the definitions sit
 // in an anonymous namespace of their own.
@@ -64,6 +67,16 @@ __device__ __forceinline__ StepRows step_rows(const float* rows,
   }
   return r;
 }
+
+// K2's and K3b's echo step rows for XEcho (floquet_x_echo.cuh), which runs
+// them on the passes of floquet_echo.cuh: 128 lanes.
+struct PairRows {
+  __device__ __forceinline__ StepRows at(const float* rows,
+                                         int64_t rows_per_pair, int pair,
+                                         int step) const {
+    return step_rows(rows, rows_per_pair, pair, step, 1);
+  }
+};
 
 // Pass lo: [pre diagonal] then the kick on bits [0, k1).
 template <class Kick>

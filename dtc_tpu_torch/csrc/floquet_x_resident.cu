@@ -51,19 +51,6 @@
 #include "floquet_x_pass.cuh"
 #include "floquet_x_echo.cuh"
 
-namespace {
-
-// K3b's step rows for XEcho (floquet_x_echo.cuh): 128 lanes.
-struct PairRows {
-  __device__ __forceinline__ StepRows at(const float* rows,
-                                         int64_t rows_per_pair, int pair,
-                                         int step) const {
-    return step_rows(rows, rows_per_pair, pair, step, 1);
-  }
-};
-
-}  // namespace
-
 extern "C" {
 
 // Sizes the wrapper allocates: partials of the forward entry.

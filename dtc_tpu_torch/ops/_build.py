@@ -44,8 +44,8 @@ LIBRARIES = {
         "floquet_x_echo_partials": [_I32],
         "floquet_x_forward": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32,
                               _I64, _F32, _F32, _VP],
-        "floquet_x_echo": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
-                           _I64, _F32, _F32, _VP],
+        "floquet_x_echo": [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32,
+                           _I32, _I32, _I64, _F32, _F32, _VP],
     },
     "floquet_x_resident": {
         "floquet_x_resident_forward_partials": [_I32],
@@ -80,9 +80,9 @@ LIBRARIES = {
     "floquet_general_streamed": {
         "floquet_general_streamed_partials": [_I32],
         "floquet_general_streamed_passes": [_I32],
-        "floquet_general_streamed_forward": [_VP, _VP, _VP, _VP, _I32, _I32,
-                                             _I32, _I32, _I32, _I32, _I64,
-                                             _VP],
+        "floquet_general_streamed_forward": [_VP, _VP, _VP, _VP, _VP, _I32,
+                                             _I32, _I32, _I32, _I32, _I32,
+                                             _I32, _I64, _VP],
         "floquet_general_streamed_echo_partials": [_I32],
         "floquet_general_streamed_echo": [_VP, _VP, _VP, _VP, _VP, _I32,
                                           _I32, _I32, _I32, _I32, _I32, _I64,

@@ -12,9 +12,10 @@ local, with the HBM-streamed kernels of
 (``general_hi_cycle_inverse_apply`` :543, one daggered cycle). Here one
 hand-written CUDA family, ``csrc/floquet_general_streamed.cu``
 (``floquet_general_streamed_forward``, ``floquet_general_streamed_echo``),
-runs K4's lab-frame step on the streamed x family's pass plan; the echo
-kernel takes, beside the step rows, their folded diagonals
-(``ops/echo_fold.py``), as K4's does. Beside each entry is its plain
+runs K4's lab-frame step on the streamed x family's pass plan; both
+kernels take, beside the step rows, their diagonals as folded rows
+(``ops/echo_fold.py``: ``echo_plan`` for the echo, as K4's does,
+``forward_fold`` for the forward). Beside each entry is its plain
 PyTorch version (``general_hi_forward_batch_ref``,
 ``general_hi_echo_batch_ref``).
 
@@ -46,7 +47,7 @@ import math
 import torch
 
 from dtc_tpu_torch.core.statevector import basis_index
-from dtc_tpu_torch.ops.echo_fold import echo_plan
+from dtc_tpu_torch.ops.echo_fold import echo_plan, forward_fold
 from dtc_tpu_torch.ops.params import WIDTH
 from dtc_tpu_torch.ops.params_general import LANE_COUNT, LANE_MPOS, flag_base
 from dtc_tpu_torch.ops.resident_blocked import (
@@ -177,14 +178,17 @@ def general_hi_forward_batch(rows, *, L, T, q, initial_state="vacuum",
     lib = _build.load("floquet_general_streamed")
     b0 = basis_index(L, initial_state)
     dev = rows.device
+    fold = forward_fold(rows.view(n, S, WIDTH), L, row_coeffs)
     state = torch.empty((n, 1 << L), dtype=torch.complex64, device=dev)
-    partials = torch.empty((n, lib.floquet_general_streamed_partials(L)),
+    # an A(t) that no row measures sums zeros
+    partials = torch.zeros((n, T, lib.floquet_general_streamed_partials(L)),
                            dtype=torch.float32, device=dev)
-    a_raw = torch.zeros((n, T), dtype=torch.float32, device=dev)
+    a_raw = torch.empty((n, T), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.floquet_general_streamed_forward(
-        state.data_ptr(), rows.data_ptr(), partials.data_ptr(),
-        a_raw.data_ptr(), n, L, S, T, (T - 1) * (S // T), q, b0, stream)
+        state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
+        partials.data_ptr(), a_raw.data_ptr(), n, L, S, fold.shape[1], T,
+        (T - 1) * (S // T), q, b0, stream)
     LAUNCHES["forward"] += 1
     raise_on(err, "floquet_general_streamed_forward")
     return (ancilla_factor * basis_sign(b0, q)) * a_raw.reshape(*batch, T)

@@ -1,4 +1,6 @@
-"""The echo kernels' folded diagonals (K3b, K4's echo, K6b/K7b, K10b).
+"""The folded diagonals of the kernels on the step passes of
+``csrc/floquet_echo.cuh``: the echoes (K2, K3b, K4's echo, K6b/K7b, K10b)
+and the streamed lab-frame forward (K10a).
 
 An echo step k of a pair applies its pre diagonal D_pre(k), the kick B(k)
 and its post diagonal D_post(k). D_post(k) and D_pre(k+1) are adjacent and
@@ -16,6 +18,11 @@ coefficient formula is its ``row_coeffs`` (``ops/resident_blocked.py``,
 sigma frame, for K3b's and the streamed x family's compact rows of 128 or
 256 lanes; ``ops/resident_general.py``, lab frame, for K4's and K10's step
 rows).
+
+A forward step k is the kick of row k, then row k's diagonal: nothing
+comes before step 0's kick, so ``forward_fold`` gives row 0 = zero (not
+read: the kernel's pass lo of step 0 applies no diagonal) and row k + 1 =
+step k's diagonal, the same (n, S + 1, 2L) layout.
 """
 
 from __future__ import annotations
@@ -57,3 +64,15 @@ def echo_plan(flat: torch.Tensor, lane: int, L: int, row_coeffs, what: str):
     if n_steps > S:
         raise ValueError(f"{what} {n_steps} exceeds the {S} step rows")
     return fold_rows(flat, count, L, row_coeffs), n_steps
+
+
+def forward_fold(rows: torch.Tensor, L: int, row_coeffs) -> torch.Tensor:
+    """(n, S, width) forward step rows -> (n, S + 1, 2L) f32 diagonal rows
+    (cz [0, L), cb [L, 2L-1), c0 at 2L-1): row 0 zero, not read; row k + 1
+    step k's. Taken in f64 and rounded once, as ``fold_rows``."""
+    n, S = rows.shape[:2]
+    cz, cb, c0 = row_coeffs(rows.to(torch.float64), L)
+    out = torch.zeros((n, S + 1, 2 * L), dtype=torch.float32,
+                      device=rows.device)
+    out[:, 1:] = torch.cat([cz, cb, c0[..., None]], -1).to(torch.float32)
+    return out

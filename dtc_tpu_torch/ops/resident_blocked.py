@@ -13,6 +13,8 @@ the engine, the tests and the reference can feed identical rows. A tensor on
 the CPU goes to the plain version; a CUDA tensor launches the kernel or
 raises. Each entry counts its kernel launches in ``LAUNCHES`` and the plain
 versions count the calls they get on CUDA tensors in ``PLAIN_ON_CUDA``.
+The echo kernel takes, beside the step rows, their folded diagonals
+(``ops/echo_fold.py``), as K3b's does.
 
 Per cycle (forward): RX(theta) on every qubit, then the cycle's diagonal
 exp(i theta(s)) with the angle linear in the bits,
@@ -33,6 +35,7 @@ import math
 import torch
 
 from dtc_tpu_torch.core.statevector import basis_index
+from dtc_tpu_torch.ops.echo_fold import echo_plan
 from dtc_tpu_torch.ops.params import WIDTH, kick_matrices
 
 _HALF_PI = math.pi / 2
@@ -295,11 +298,8 @@ def blocked_echo_batch(tiles, sig_fin, theta, *, L, q,
     lib = _build.load("floquet_x")
     b0 = basis_index(L, initial_state)
     dev = tiles.device
-    flat = tiles.view(n, R, WIDTH)
-    n_steps = int(flat[:, 0, WIDTH - 4].max().item())
-    if n_steps > R // 2:
-        raise ValueError(f"trip count {n_steps} exceeds the {R // 2} step"
-                         " rows")
+    fold, n_steps = echo_plan(tiles.view(n, R, WIDTH), WIDTH - 4, L,
+                              row_coeffs, "trip count")
     state = torch.empty((n, 1 << L), dtype=torch.complex64, device=dev)
     partials = torch.empty((n, lib.floquet_x_echo_partials(L)),
                            dtype=torch.float32, device=dev)
@@ -307,8 +307,9 @@ def blocked_echo_batch(tiles, sig_fin, theta, *, L, q,
     c, s = kick_cs(theta)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.floquet_x_echo(state.data_ptr(), tiles.data_ptr(),
-                             partials.data_ptr(), val.data_ptr(), n, L, R,
-                             n_steps, q, b0, c, s, stream)
+                             fold.data_ptr(), partials.data_ptr(),
+                             val.data_ptr(), n, L, R, fold.shape[1], n_steps,
+                             q, b0, c, s, stream)
     LAUNCHES["echo"] += 1
     raise_on(err, "floquet_x_echo")
     return echo_host_factor(val.reshape(batch), sig_fin, q, b0,

@@ -1,13 +1,13 @@
 """The echo kernels' folded diagonals (``ops/echo_fold.py``).
 
-K3b and K4's echo apply one diagonal per step: folded row 0 before step 0's
+K2, K3b and K4's echo apply one diagonal per step: folded row 0 before step 0's
 kick, folded row k+1 (post(k) + pre(k+1), post(COUNT-1) at the end) after
 step k's kick. Here, on the CPU, a plain loop over the folded rows is held
 against the unfolded plain step loop state by state (after step k the
 folded state carries pre(k+1) already; 1e-5 on the f32 state: the folded
 angles are the same sums, rounded once), against the
 plain versions ``resident_echo_batch_ref`` / ``general_echo_batch_ref``
-(1e-5) and against JAX's interpret kernels (1e-4, the bound of
+/ ``blocked_echo_batch_ref`` (1e-5) and against JAX's interpret kernels (1e-4, the bound of
 ``test_torch_resident.py``). The kernels themselves are held against the plain versions
 on the card by ``test_torch_kernels_cuda.py``.
 """
@@ -21,6 +21,9 @@ import torch
 from dtc_tpu.io.disorder import generate_disorder
 from dtc_tpu.models.drives import build_kick_schedule as j_sched
 from dtc_tpu.ops.pallas_resident import resident_echo_batch as j_x_echo
+from dtc_tpu.ops.pallas_resident_blocked import (
+    blocked_echo_batch as j_blocked_echo,
+)
 from dtc_tpu.ops.pallas_resident_general import general_echo_batch as j_echo
 from dtc_tpu_torch.core.statevector import basis_index
 from dtc_tpu_torch.models.drives import build_kick_schedule
@@ -254,6 +257,33 @@ def test_folded_loop_matches_reference_interpret(drive):
     fam.count = fam.flat[:, 0, fam.lane].to(torch.int64)
     got = _measure(fam, _folded_loop(fam, "vacuum"), q, "vacuum").numpy()
     assert got.shape == ref.shape == (1, 2, 2)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+def test_folded_loop_on_k2_rows_matches_plain_and_reference_interpret():
+    """K2 on the step passes: the folded loop on K2's rows (constant x,
+    ``echo_pair_tiles``) at L=17, 2 pairs, T=3, against
+    ``blocked_echo_batch_ref`` (1e-5) and JAX's interpret
+    ``blocked_echo_batch`` (1e-4)."""
+    L, q, ts = 17, 11, [2, T]
+    hs, phis, _ = _jax_inputs(L)
+    keys = jax.random.split(jax.random.PRNGKey(5), 1)[None]
+    ref = np.asarray(j_blocked_echo(
+        jnp.asarray(hs), jnp.asarray(phis), j_sched("x", 0.97, T).angles,
+        keys, jnp.asarray(ts), L=L, T=T, p=0.6, q=q, interpret=True))
+    fam = Family("x", L)
+    fam.tiles, fam.sfin = echo_pair_tiles(
+        _uniforms(keys, (2 * T, L)), torch.tensor(ts),
+        torch.from_numpy(hs)[:, None], torch.from_numpy(phis)[:, None], L=L,
+        T=T, p=0.6)
+    fam.flat = fam.tiles.reshape(-1, *fam.tiles.shape[-2:])
+    fam.count = fam.flat[:, 0, fam.lane].to(torch.int64)
+    assert fam.count.tolist() == [4, 6]
+    got = _measure(fam, _folded_loop(fam, "vacuum"), q, "vacuum").numpy()
+    plain = rb.blocked_echo_batch_ref(fam.tiles, fam.sfin, 0.97 * np.pi,
+                                      L=L, q=q).numpy()
+    assert got.shape == ref.shape == (1, 1, 2)
+    np.testing.assert_allclose(got, plain, atol=1e-5, rtol=0)
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
 
 

@@ -580,9 +580,10 @@ def _echo_probes(L, streamed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("L", [14, 17, 20, 21, 22, 23, 24, 25, 28, 29])
 def test_folded_echo_kernels_match_plain_on_card(cuda_device, L):
-    """K3b (to L=21), K4's echo (to L=23), the streamed x echo (K6b/K7b;
-    L = 22-25, 28) and the streamed lab-frame echo (K10b, y and xy; L = 22,
-    24, 25, 28, 29) on the folded diagonals against their plain versions:
+    """K3b (to L=21), K2 (L = 17-23), K4's echo (to L=23), the streamed x
+    echo (K6b/K7b; L = 22-25, 28) and the streamed lab-frame echo (K10b, y
+    and xy; L = 22, 24, 25, 28, 29) on the folded diagonals against their
+    plain versions:
     pairs with ragged counts (0, 1, a few, the largest; 8 pairs, 4 from
     L = 24), probes q in the bits of pass lo, pass mid (three passes, from
     L = 25) and pass hi, at p = 0.6 and 0."""
@@ -618,6 +619,12 @@ def test_folded_echo_kernels_match_plain_on_card(cuda_device, L):
             runs.append((rs.resident_echo_batch, rs.resident_echo_batch_ref,
                          rs.LAUNCHES, (xt, sfin, ang),
                          dict(time_dependent=True), False))
+        if rb.MIN_L <= L <= rb.MAX_L:
+            bt, bfin = echo_pair_tiles(ux, ts, hs[:, None], phis[:, None],
+                                       L=L, T=T, p=p)
+            bt[0, n - 1, 2, 0, 124] = 1.0
+            runs.append((rb.blocked_echo_batch, rb.blocked_echo_batch_ref,
+                         rb.LAUNCHES, (bt, bfin, THETA), {}, False))
         if L in (22, 23, 24, 25, 28):
             st, sfin = echo_pair_tiles(ux, ts, hs[:, None], phis[:, None],
                                        L=L, T=T, p=p)
@@ -642,6 +649,30 @@ def test_folded_echo_kernels_match_plain_on_card(cuda_device, L):
                 if p == 0:  # but the pair cut to one step
                     k[0, n - 1, 2] = 1.0
                     assert float((k - 1).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [22, 24, 25, 28, 29])
+def test_general_hi_forward_on_step_passes_matches_plain_on_card(cuda_device,
+                                                                 L):
+    """K10a's forward on the step passes of floquet_echo.cuh (two passes to
+    L = 24, three from 25; the measure in pass hi's store) against its
+    plain version: y (K=1), xy (K=2) and circular_left, probes q in the
+    bits of pass lo, pass mid (or the middle) and pass hi, one launch a
+    call."""
+    T, n = (3, 1) if L >= 28 else (4, 2)
+    for pol in ("y", "xy", "circular_left"):
+        rows = _general_inputs(cuda_device, L, pol, T, n, L)
+        for q in _echo_probes(L, True):
+            kw = dict(L=L, T=T, q=q, initial_state="neel" if q else "vacuum")
+            before = chg.LAUNCHES["forward"]
+            k = chg.general_hi_forward_batch(rows, **kw)
+            torch.cuda.synchronize()
+            assert chg.LAUNCHES["forward"] == before + 1
+            ref = chg.general_hi_forward_batch_ref(rows, **kw)
+            assert k.shape == ref.shape == (1, n, T)
+            assert float((k - ref).abs().max()) <= TOL
+        del rows
 
 
 @pytest.mark.cuda

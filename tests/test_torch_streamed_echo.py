@@ -190,7 +190,8 @@ def _header(name) -> str:
 
 # The C that the replay below mirrors, whitespace made single: the pass
 # plans (``lo_bits`` for the resident echoes, ``plan_for`` for the streamed
-# ones, and the columns each entry's ``run_echo`` takes), the tile and bits
+# ones, and the columns each entry's ``run_echo`` or ``run_steps`` takes: the
+# streamed lab-frame forward runs the echo's plan), the tile and bits
 # each pass hands ``swz_kick``, and ``swz_kick``'s rounds. A change to any of
 # it fails ``test_echo_swizzle_replay_mirrors_the_headers`` until the replay
 # follows it.
@@ -202,6 +203,7 @@ MIRRORED = {
         "return {L - 2 * c, c, c}; }"],
     "floquet_x_resident.cu": [
         "run_echo<kW>( (float2*)state, L, lo_bits(L), 0,"],
+    "floquet_x.cu": ["run_echo<kW>( (float2*)state, L, lo_bits(L), 0,"],
     "floquet_general.cu": ["run_echo<kW>( (float2*)state, L, lo_bits(L), 0,"],
     "floquet_x_streamed.cu": [
         "const auto run = p.b > 0 ? run_echo<kWideCols, XEcho<WideRows, "
@@ -210,6 +212,8 @@ MIRRORED = {
     "floquet_general_streamed.cu": [
         "const auto run = p.b > 0 ? run_echo<kWideCols, GeneralEcho<PairRows>>"
         " : run_echo<kW, GeneralEcho<PairRows>>;",
+        "? run_steps<kWideCols, GeneralEcho<ForwardRows>, Times> : "
+        "run_steps<kW, GeneralEcho<ForwardRows>, Times>;",
         "(float2*)state, L, p.a, p.b,"],
     "floquet_echo.cuh": [
         "const int k0 = a + b; const int c = L - k0;",
