@@ -114,7 +114,10 @@ each; any failure raises and the script exits non-zero without a result:
    kernel against its plain version on identical inputs, whose outputs are
    held to the same bound (the streamed family: forward at L=24, 26, 28 and
    30, echo at L=28 and 30, with the plain version's peak device memory,
-   and against K1 on the same L=23 rows; K10: forward y at L=28 and
+   and against K1 on the same L=23 rows; before them the registers and
+   spills of the forward's passes and one L=30 forward launch at T=1024
+   with its peak device memory, its first cycles held to a T=6 launch;
+   K10: forward y at L=28 and
    circular_left at L=29, echo y at L=28 and circular_left at L=29, the
    main paths' launches, with the peak memory; K3a on the ramp at L=14, 16
    and 20, T=51 x 32, and K3b on 32 pairs at t=12, each beside K4 on the
@@ -134,7 +137,8 @@ each; any failure raises and the script exits non-zero without a result:
    echo on 512 x or xy pairs at ts=0..7, K3b on 32 pairs at t=12, L=20;
    the streamed x echo at L=28, ts=0..3, and L=30, t=5; the streamed
    lab-frame echo, y at L=28, ts=0..3, and circular_left at L=29, t=5; the
-   streamed lab-frame forward at L=24-29) also with their launches a call
+   streamed forwards, x at L=24-30 and lab-frame at L=24-29) also with
+   their launches a call
    and their shares of the state floor and of the bound;
 6. the device seconds and calls of each kernel entry summed over every
    main-path run of phase 4 (CUDA events around each entry call), a JSON
@@ -2450,18 +2454,70 @@ def peak(name, what, L, dev, smi) -> None:
           f" GiB (a state {2 ** (L + 3) / 2**30:.3f} GiB) on {smi}")
 
 
+def ptxas_kernels(name: str) -> list:
+    """(mangled kernel name, registers, spill stores, spill loads) of each
+    kernel of library ``name``, from the ``nvcc -Xptxas -v`` log of this
+    run's build (empty if the library was found built)."""
+    from dtc_tpu_torch.ops import _build
+
+    found, cur = {}, None
+    for ln in _build.build_info[name]["log"].splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1]
+            found[cur] = [0, 0, 0]
+        elif cur and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split()
+                    if w.isdigit()]
+            found[cur][1:] = nums[1:3]
+        elif cur and "Used" in ln and "registers" in ln:
+            found[cur][0] = int(ln.split("Used")[1].split()[0])
+    return [(k, *v) for k, v in found.items()]
+
+
 def timing_streamed(dev, smi, err) -> dict:
     """The streamed family's forward at L=24, 26, 28 (4 trajectories, T=8)
     and 30 (1 trajectory, T=6: the main path's launch) against its plain
     version on the same inputs, with the peak device memory of each
-    kernel/plain pair, and against K1 on the same L=23 rows (32
-    trajectories, T=20). Returns the L=28 numbers; the echo's rows are
+    kernel/plain pair, the launches a call and the shares of the state
+    floor and of the bound, and against K1 on the same L=23 rows (32
+    trajectories, T=20); before them the registers and spills of every
+    kernel of the library (the forward's passes are those of
+    ``XEcho<ForwardWideRows, ...>``; ``lo_kernel`` and ``strided_kernel``
+    are the first passes, which the per-shard K9 keeps), and one L=30
+    launch at T = MAX_T_FORWARD (1024) with its peak device
+    memory (the partials grow with T), its first cycles held to a T=6
+    launch on the same rows. Returns the L=28 numbers; the echo's rows are
     ``timing_streamed_echo``'s."""
     from dtc_tpu_torch.ops import _build
     from dtc_tpu_torch.ops import resident_blocked as rb
     from dtc_tpu_torch.ops import streamed as sm
 
     lib = _build.load("floquet_x_streamed")
+    for kernel, regs, st, ld in ptxas_kernels("floquet_x_streamed"):
+        phase(f"[build] floquet_x_streamed.cu {kernel}: {regs} registers, "
+              f"spill stores {st} B, spill loads {ld} B")
+    L, T = 30, sm.MAX_T_FORWARD
+    rows, sig = forward_inputs(L, T, 1, P, dev, seed=L)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    a = sm.streamed_forward_batch(rows, sig, THETA, L=L, q=L // 2)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    vals = a.flatten()
+    if not (bool(torch.isfinite(vals).all())
+            and float(vals.abs().max()) <= 1 + 1e-5):
+        raise RuntimeError("L=30 T=1024 forward not finite or |A| > 1")
+    held(f"K6 forward L=30 T={T} 1x1, its first 6 cycles vs a T=6 launch",
+         a[..., :6], sm.streamed_forward_batch(
+             rows[..., :6, :].contiguous(), sig[..., :6], THETA, L=L,
+             q=L // 2))
+    phase(f"[timing] K6 forward L=30 T={T} traj=1, one launch: {sec:.3f} s, "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (a state "
+          f"{2 ** (L + 3) / 2**30:.3f} GiB, partials "
+          f"{T * lib.floquet_x_streamed_partials(L) * 4 / 2**30:.3f} GiB) "
+          f"on {smi}")
+    del rows, sig, a
     out = {}
     for L, c, T in ((24, 4, 8), (26, 4, 8), (28, 4, 8), (30, 1, 6)):
         rows, sig = forward_inputs(L, T, c, P, dev, seed=L)
@@ -2474,10 +2530,12 @@ def timing_streamed(dev, smi, err) -> dict:
         err["K6 forward"] = max(err["K6 forward"], held(
             f"K6 {what} (timed inputs)", k, ref))
         peak("K6", what, L, dev, smi)
+        passes = lib.floquet_x_streamed_passes(L)
         out[f"forward {L}"] = report(
             "K6", what, k_ms, p_ms, c * (T - 1) << L, "cycles", T * c,
-            4 * (rows.numel() + k.numel()), 6 * L + 6, smi,
-            passes=lib.floquet_x_streamed_passes(L), spills=True)
+            4 * (rows.numel() + k.numel()), 6 * L + 6, smi, passes=passes,
+            spills=True)
+        shares("K6", what, out[f"forward {L}"], passes * (T - 1) + 3, smi)
     L, c, T = 23, 32, 20
     rows, sig = forward_inputs(L, T, c, P, dev, seed=23)
     kw = dict(L=L, q=L // 2)

@@ -17,9 +17,10 @@
 //       (entry general_hi_cycle_inverse_apply)
 //
 // K9 and K10's shard-local forms are the streamed families restricted to
-// the local bits, so the passes are not forked: the entries run the passes
-// of floquet_x_streamed_pass.cuh (K6/K7) and
-// floquet_general_streamed_pass.cuh (K10 on one card) for one cycle at
+// the local bits: the entries run the first passes of the one-card
+// families, floquet_x_streamed_pass.cuh and
+// floquet_general_streamed_pass.cuh (K6/K7 and K10 on one card now run the
+// step passes of floquet_echo.cuh), for one cycle at
 // L = L_loc, on the pass plan of floquet_plan.cuh (two passes at
 // L_loc <= 24, three above).
 // - K9a (sigma-frame x forward): the streamed x step on one compact row

@@ -1,6 +1,7 @@
 // The step passes shared by floquet_x_resident.cu (K3b), floquet_x.cu (K2),
-// floquet_general.cu (K4's echo), floquet_x_streamed.cu (K6b/K7b) and
-// floquet_general_streamed.cu (K10b, and K10a's forward): the folded
+// floquet_general.cu (K4's echo), floquet_x_streamed.cu (K6b/K7b, and
+// K6a/K7a's forward) and floquet_general_streamed.cu (K10b, and K10a's
+// forward): the folded
 // diagonal rows, the phase tables, the swizzled butterfly rounds and the
 // passes of a step, templated on the family's kick and step rows. Each
 // redesign below was timed on its own on an H100 (PERF.md section 6).
@@ -249,7 +250,8 @@ __device__ void swz_kick(float2* tile, int tbits, int b0, int n,
 // The passes take the step's kick through a policy P of the family
 // (XEcho in floquet_x_echo.cuh, GeneralEcho in floquet_general_echo.cuh,
 // each on its family's step rows, echo or forward):
-//   P::kMinBlocks  blocks an SM, the passes' launch bounds;
+//   P::kMinBlocks  blocks an SM, the passes' launch bounds (pass hi's:
+//                  hi_min_blocks);
 //   P::Shared      what a block keeps of its kick in shared memory;
 //   P::Kick        a block's kick: from(q) the kick from qubit q on, and
 //                  round<NB>(j) the butterflies of its qubits [j, j + NB);
@@ -355,12 +357,24 @@ __global__ void __launch_bounds__(kThreads, P::kMinBlocks)
       });
 }
 
+// Blocks an SM that pass hi's launch bounds ask for: the policy's, but 3
+// (at most 85 registers) for a pass hi that measures (Times) on 16-column
+// tiles. Unbounded, the x forward's (XEcho, kMinBlocks 1) took 92-93
+// registers and ran two blocks an SM, the echoes' pass hi three at 80; at 3
+// it takes 80, no spill, and its L=28 pass hi went 476 -> 410 ms in 57
+// launches, while on 4-column tiles (L=24) 3 made it slower (31.1 -> 36.9
+// ms); H100 SXM, PERF.md section 6.
+template <class P, int CW, class M>
+constexpr int hi_min_blocks() {
+  return M::kOn && CW == kWideCols ? 3 : P::kMinBlocks;
+}
+
 // Pass hi (pair blockIdx.y): the kick on bits [k0, L) on a tile of
 // 2^(L - k0) rows x CW columns, then folded row step + 1 (an echo's post
 // diagonal and the next step's pre; the forward's step diagonal) as the
 // tile is stored, and what M measures.
 template <class P, int CW, class M>
-__global__ void __launch_bounds__(kThreads, P::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, hi_min_blocks<P, CW, M>())
     echo_hi_kernel(float2* __restrict__ st, int L, int k0,
                    const float* __restrict__ rows, int64_t rows_per_pair,
                    Fold fold, int step, P policy, M m) {

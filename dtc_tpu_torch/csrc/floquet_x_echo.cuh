@@ -1,10 +1,12 @@
-// The x family's echo policy for the passes of floquet_echo.cuh: RX(theta)
-// on every qubit, read from the echo step's pre row through two template
+// The x family's step policy for the passes of floquet_echo.cuh: RX(theta)
+// on every qubit, read from the step's pre row through two template
 // parameters, the family's step rows `Rows` (K2's and K3b's 128-lane rows,
-// PairRows in floquet_x_pass.cuh; the streamed family's rows of run-time
-// width in floquet_x_streamed.cu) and the angle `Table` (TableKick,
+// PairRows in floquet_x_pass.cuh; the streamed family's echo and forward
+// rows of run-time width, WideRows and ForwardWideRows in
+// floquet_x_streamed.cu) and the angle `Table` (TableKick,
 // floquet_x_pass.cuh, or ConstKick, floquet_rx.cuh); the kick's sign is
-// lane width-3 of the pre row.
+// lane width-3 of an echo's pre row, +1 in the forward (no pre row:
+// ConstKick does not read it).
 //
 // Include after floquet_common.cuh and floquet_rx.cuh; the definitions sit
 // in an anonymous namespace of their own.
@@ -17,9 +19,10 @@
 
 namespace {
 
-// The x family's echo policy (floquet_echo.cuh): the kick lives in
+// The x family's step policy (floquet_echo.cuh): the kick lives in
 // registers, nothing in shared memory. rows.at(rows, rows_per_pair, pair,
-// step) gives the pair's step (active, pre, sign).
+// step) gives the pair's step (active, pre, sign); a forward reader's
+// rows.time(...) the time the step is measured into (only under Times).
 template <class Rows, class Table>
 struct XEcho {
   static constexpr int kMinBlocks = 1;
@@ -35,6 +38,11 @@ struct XEcho {
     const float2 k = table.at(s.pre, step);
     kick = RxKick{k.x, k.y * s.sign};
     return true;
+  }
+  __device__ __forceinline__ int time(const float* r, int L,
+                                      int64_t rows_per_pair, int pair,
+                                      int step) const {
+    return rows.time(r, L, rows_per_pair, pair, step);
   }
 };
 

@@ -23,40 +23,44 @@
 // against K1/K2 is a pass plan whose tiles fit a block's shared memory up to
 // L=30 (K1/K2's pass-hi tile is 2^(L/2) x 4 amplitudes, 256 KiB at L=26):
 //   pass lo:  bits [0, a), a tile of 2^a consecutive amplitudes;
-//   pass mid: bits [a, a+b) (only when L >= 25), tiles of 2^b rows x kW
+//   pass mid: bits [a, a+b) (only when L >= 25), tiles of 2^b rows x CW
 //             consecutive columns;
-//   pass hi:  bits [a+b, L), tiles of 2^c rows x kW columns; the kick, the
-//             diagonal [and the forward's partial of |psi|^2 z_q].
+//   pass hi:  bits [a+b, L), tiles of 2^c rows x CW columns; the kick, the
+//             step's diagonal [and the forward's partial of |psi|^2 z_q].
 // L <= 24 takes two passes (a <= 13, c <= 11: at most 64 KiB a tile), L =
-// 25..30 three (tiles of 4-32 KiB). Two passes would reach L=26 with 128 KiB
-// tiles, but at one block per SM they stream the state at half the rate of
-// three passes of small tiles (H100 SXM: 627 GB/s at L=26 against 1,345 GB/s
-// at L=28), which costs more than the third pass. The byte floor is 32 B per
-// amplitude per step at L <= 24 and 48 B at L >= 25; kW = 4 keeps the
-// forward's strided column runs at 32 B. The echo's strided tiles take 16
-// columns from L = 25 (128-byte runs, whole L2 lines: on an H100 SXM its
-// passes mid and hi went from 1.6-1.8 to 2.5-3.0 TB/s at L=28, PERF.md
-// section 6).
+// 25..30 three (tiles of 16-64 KiB). Two passes would reach L=26 with 128
+// KiB tiles, but at one block per SM they stream the state at half the
+// rate of three passes of small tiles (H100 SXM: 627 GB/s at L=26 against
+// 1,345 GB/s at L=28), which costs more than the third pass. The byte floor
+// is 32 B per amplitude per step at L <= 24 and 48 B at L >= 25. The
+// strided tiles take CW = kW = 4 columns (32-byte runs) on the two-pass
+// plan and kWideCols = 16 (128-byte runs, whole L2 lines) on the three-pass
+// one: on an H100 SXM the echo's passes mid and hi went from 1.6-1.8 to
+// 2.5-3.0 TB/s at L=28 with them (PERF.md section 6).
 //
-// The forward runs the passes of floquet_x_streamed_pass.cuh (shared with
-// the per-shard cycle family, floquet_cycle_hi.cu): a sincos per amplitude
-// for its diagonal, the tile staged whole through shared memory. The echo
-// runs the echo passes of floquet_echo.cuh on the same plan, with the kick
-// policy of floquet_x_echo.cuh (shared with K3b): one folded diagonal per
-// step (ops/echo_fold.py: step 0's pass lo applies the first pre diagonal,
-// every pass hi the step's post diagonal and the next step's pre; pass lo
-// of a later step and pass mid only kick), its phases from two small tables
-// per block, and the kick in swizzled 2-3-bit rounds whose first reads the
-// state and whose last writes it, so each pass makes one read and one
-// write. It measures each pair after its last step (one more read of the
-// state a pair).
+// Both entries run the step passes of floquet_echo.cuh (run_steps) on this
+// plan with the kick policy of floquet_x_echo.cuh (XEcho, shared with K2
+// and K3b; the echo on WideRows, the forward on ForwardWideRows: every step
+// active, row k's diagonal, measured into A(k+1)): one diagonal per step
+// from folded rows (ops/echo_fold.py: the echo's step 0 pass lo applies the
+// first pre diagonal, every pass hi the step's post diagonal and the next
+// step's pre; the forward's pass hi row k+1 = step k's diagonal, and no
+// row 0), its phases from two small tables per block, and the kick in
+// swizzled 2-3-bit rounds whose first reads the state and whose last
+// writes it, so each pass makes one read and one write. The echo measures
+// each pair after its last step (one more read of the state a pair); the
+// forward's pass hi writes, on every step, one partial of |psi|^2 z_q per
+// block as it stores, into (n_traj, T, blocks). The per-shard cycle family
+// (floquet_cycle_hi.cu: K9a/K9b) keeps the passes of
+// floquet_x_streamed_pass.cuh, whose step rows (step_rows) both readers
+// here take.
 //
 // A(t) and the echo value are summed without atomics: one partial per
-// block (the forward's per pass-hi block, the echo's per measure block),
-// then a fixed-order sum per output row in double. Every offset that can
-// pass 2^31 (state, tile rows, blocks) is 64-bit. The plan and the
-// forward's reductions are in floquet_plan.cuh, shared with the lab-frame
-// family (floquet_general_streamed.cu).
+// block (the forward's per pass-hi block and step, the echo's per measure
+// block), then one fixed-order sum per output row in double. Every offset
+// that can pass 2^31 (state, tile rows, blocks, partials) is 64-bit. The
+// plan and the forward's reductions are in floquet_plan.cuh, shared with
+// the lab-frame family (floquet_general_streamed.cu).
 
 #include "floquet_common.cuh"
 #include "floquet_echo.cuh"
@@ -66,6 +70,11 @@
 #include "floquet_x_streamed_pass.cuh"
 
 namespace {
+
+bool in_range(int L, int q, int width) {
+  return 22 <= L && L <= 30 && 0 <= q && q < L &&
+         (width == 128 || width == 256) && 5 * L - 2 <= width;
+}
 
 // The echo's step rows for XEcho (floquet_x_echo.cuh): `width` lanes.
 struct WideRows {
@@ -77,12 +86,33 @@ struct WideRows {
   }
 };
 
+// The forward's step rows for XEcho: every step active, no pre row, kick
+// sign +1; step k (row k's diagonal) is measured into A(k + 1).
+struct ForwardWideRows {
+  int width;
+  __device__ __forceinline__ StepRows at(const float* rows,
+                                         int64_t rows_per_pair, int pair,
+                                         int step) const {
+    return step_rows(rows, width, rows_per_pair, pair, step, 0);
+  }
+  __device__ __forceinline__ int time(const float*, int, int64_t, int,
+                                      int step) const {
+    return step + 1;
+  }
+};
+
+// Strided tile columns of the plan: 4 on two passes, 16 on three.
+int cols_of(const Plan& p) { return p.b > 0 ? kWideCols : kW; }
+
 }  // namespace
 
 extern "C" {
 
-// Partials per trajectory the forward entry allocates.
-int floquet_x_streamed_partials(int L) { return hi_blocks(L); }
+// Partials per trajectory and time the forward entry allocates.
+int floquet_x_streamed_partials(int L) {
+  const Plan p = plan_for(L);
+  return step_hi_blocks(p.a, p.b, cols_of(p));
+}
 
 // Partials per pair the echo entry allocates.
 int floquet_x_streamed_echo_partials(int L) { return measure_blocks(L); }
@@ -91,33 +121,40 @@ int floquet_x_streamed_echo_partials(int L) { return measure_blocks(L); }
 int floquet_x_streamed_passes(int L) { return plan_for(L).b > 0 ? 3 : 2; }
 
 // Forward. state: n_traj x 2^L complex64 scratch; rows: n_traj x T x width
-// f32; partials: n_traj x floquet_x_streamed_partials(L) f32 scratch; out:
-// n_traj x T f32 (A(t) before the host's sigma/ancilla factor). Runs the
-// T - 1 cycles whose results are measured.
-int floquet_x_streamed_forward(void* state, const void* rows, void* partials,
-                               void* out, int n_traj, int L, int T, int width,
-                               int q, int64_t b0, float c, float s,
-                               void* stream_ptr) {
+// f32 (one compact row per cycle); fold: n_traj x fold_rows x 2L f32, the
+// cycles' diagonals (ops/echo_fold.py::forward_fold of rows 0..T-2;
+// fold_rows >= T); partials: n_traj x T x floquet_x_streamed_partials(L)
+// f32, zeroed; out: n_traj x T f32 (A(t) before the host's sigma/ancilla
+// factor). Runs the T - 1 cycles whose results are measured.
+int floquet_x_streamed_forward(void* state, const void* rows,
+                               const void* fold, void* partials, void* out,
+                               int n_traj, int L, int T, int width,
+                               int fold_rows, int q, int64_t b0, float c,
+                               float s, void* stream_ptr) {
+  if (!in_range(L, q, width) || n_traj < 1 || T < 1 || fold_rows < T) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  float2* st = (float2*)state;
+  const Plan p = plan_for(L);
+  const auto run =
+      p.b > 0 ? run_steps<kWideCols, XEcho<ForwardWideRows, ConstKick>, Times>
+              : run_steps<kW, XEcho<ForwardWideRows, ConstKick>, Times>;
+  cudaError_t e = run(
+      (float2*)state, L, p.a, p.b, (const float*)rows, T,
+      Fold{(const float*)fold, (int64_t)fold_rows * 2 * L, false}, n_traj,
+      T - 1,
+      XEcho<ForwardWideRows, ConstKick>{ForwardWideRows{width},
+                                        ConstKick{c, s}},
+      Times{(float*)partials, q, T}, b0, stream);
+  if (e != cudaSuccess) return (int)e;
   float* a = (float*)out;
-  init_kernel<<<dim3(256, n_traj), kThreads, 0, stream>>>(st, (int64_t)1 << L,
-                                                          b0);
+  const int64_t n_rows = (int64_t)n_traj * T;
+  reduce_rows_kernel<<<(unsigned)n_rows, kThreads, 0, stream>>>(
+      (const float*)partials, floquet_x_streamed_partials(L), a, 1, 0);
   const float a0 = 1.0f - 2.0f * (float)((b0 >> q) & 1);
   first_kernel<<<(n_traj + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       a, n_traj, T, a0);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  for (int cyc = 0; cyc + 1 < T; ++cyc) {
-    e = launch_step(st, L, (const float*)rows, width, T, n_traj, cyc, 0, c, s,
-                    q, (float*)partials, stream);
-    if (e != cudaSuccess) return (int)e;
-    reduce_rows_kernel<<<n_traj, kThreads, 0, stream>>>(
-        (const float*)partials, hi_blocks(L), a, T, cyc + 1);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
+  return (int)cudaGetLastError();
 }
 
 // Echo. state: n_pairs x 2^L complex64 scratch; tiles: n_pairs x

@@ -1,11 +1,13 @@
-// The pass kernels of the streamed x family: one step of the sigma-frame
-// x drive (RX(theta) on every qubit, then the step's diagonal) on a batch
-// of 2^L states in device memory, cut by the pass plan of floquet_plan.cuh.
-// Shared by floquet_x_streamed.cu (K6a/K7a, the forward of whole
-// trajectories, 22 <= L <= 30; its echo runs floquet_echo.cuh's passes and
-// reads its rows through step_rows) and floquet_cycle_hi.cu (K9a/K9b: one
-// cycle on a shard's local bits); floquet_x_streamed.cu says what bounds
-// them and why the plan is cut so.
+// The first pass kernels of the streamed x family: one step of the
+// sigma-frame x drive (RX(theta) on every qubit, then the step's diagonal)
+// on a batch of 2^L states in device memory, cut by the pass plan of
+// floquet_plan.cuh. Their only user is floquet_cycle_hi.cu (K9a/K9b: one
+// cycle a launch on a shard's local bits, with the caller's torch ops
+// between cycles, so they cannot take the folded rows of the step passes of
+// floquet_echo.cuh). floquet_x_streamed.cu (K6/K7) runs those step passes
+// for its forward and echo and reads only step_rows here;
+// floquet_x_streamed.cu says what bounds the passes and why the plan is cut
+// so.
 //
 // Rows are compact rows (ops/params.py) of a run-time `width`, 128 or 256
 // lanes; the echo's flags sit at width-4 (trip count, first row of a pair)

@@ -59,8 +59,9 @@ LIBRARIES = {
     "floquet_x_streamed": {
         "floquet_x_streamed_partials": [_I32],
         "floquet_x_streamed_passes": [_I32],
-        "floquet_x_streamed_forward": [_VP, _VP, _VP, _VP, _I32, _I32, _I32,
-                                       _I32, _I32, _I64, _F32, _F32, _VP],
+        "floquet_x_streamed_forward": [_VP, _VP, _VP, _VP, _VP, _I32, _I32,
+                                       _I32, _I32, _I32, _I32, _I64, _F32,
+                                       _F32, _VP],
         "floquet_x_streamed_echo_partials": [_I32],
         "floquet_x_streamed_echo": [_VP, _VP, _VP, _VP, _VP, _I32, _I32,
                                     _I32, _I32, _I32, _I32, _I32, _I64, _F32,

@@ -8,9 +8,10 @@ Port of the HBM-streamed entries of the JAX package:
 On the TPU the four differ only in how VMEM slabs cut a state held in HBM.
 Here one hand-written CUDA family (``csrc/floquet_x_streamed.cu``) with a
 forward and an echo entry serves the whole range: two state passes per step
-at L <= 24, three above. The echo kernel takes, beside the step rows, their
-folded diagonals (``ops/echo_fold.py``). Beside each entry is its plain
-PyTorch version (``streamed_forward_batch_ref``, ``streamed_echo_batch_ref``).
+at L <= 24, three above. Both kernels take, beside the step rows, their
+diagonals (``ops/echo_fold.py``: ``forward_fold`` for the forward,
+``echo_plan`` for the echo). Beside each entry is its plain PyTorch version
+(``streamed_forward_batch_ref``, ``streamed_echo_batch_ref``).
 
 The entries take what ``ops/resident_blocked.py``'s take: the compact rows
 of ``ops/params.py`` (128 or 256 lanes, ``forward_width``/``echo_width``),
@@ -33,7 +34,7 @@ import math
 import torch
 
 from dtc_tpu_torch.core.statevector import basis_index
-from dtc_tpu_torch.ops.echo_fold import echo_plan
+from dtc_tpu_torch.ops.echo_fold import echo_plan, forward_fold
 from dtc_tpu_torch.ops.kick import apply_uniform_1q_layer
 from dtc_tpu_torch.ops.params import WIDE, WIDTH
 from dtc_tpu_torch.ops.resident_blocked import (
@@ -217,15 +218,22 @@ def streamed_forward_batch(rows, sig_after, theta, *, L, q,
     lib = _build.load("floquet_x_streamed")
     b0 = basis_index(L, initial_state)
     dev = rows.device
+    # cycle k's diagonal is fold row k + 1; the last cycle is not run
+    fold = forward_fold(rows.view(n, T, width)[:, :T - 1], L, row_coeffs)
     state = torch.empty((n, 1 << L), dtype=torch.complex64, device=dev)
-    partials = torch.empty((n, lib.floquet_x_streamed_partials(L)),
+    # one partial per pass-hi block, trajectory and time; no step measures
+    # t = 0 (its row is zeros, then A(0)). Per time 1 / (2^(c+1) CW) of a
+    # state's bytes: at T = 1024 at most a quarter of the states' bytes
+    # (L = 25: c = 7, CW = 16), 2 GiB beside the engine's 8 GiB a launch
+    partials = torch.zeros((n, T, lib.floquet_x_streamed_partials(L)),
                            dtype=torch.float32, device=dev)
     a_raw = torch.empty((n, T), dtype=torch.float32, device=dev)
     c, s = kick_cs(theta)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.floquet_x_streamed_forward(
-        state.data_ptr(), rows.data_ptr(), partials.data_ptr(),
-        a_raw.data_ptr(), n, L, T, width, q, b0, c, s, stream)
+        state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
+        partials.data_ptr(), a_raw.data_ptr(), n, L, T, width, fold.shape[1],
+        q, b0, c, s, stream)
     LAUNCHES["forward"] += 1
     raise_on(err, "floquet_x_streamed_forward")
     return forward_host_factor(a_raw.reshape(*batch, T), sig_after, q, b0,

@@ -1,6 +1,7 @@
-"""The streamed lab-frame forward's diagonal rows (``ops/echo_fold.py``
-``forward_fold``) and its pass order on the step passes of
-``csrc/floquet_echo.cuh``.
+"""The streamed forwards' diagonal rows (``ops/echo_fold.py``
+``forward_fold``) and their pass order on the step passes of
+``csrc/floquet_echo.cuh``: the lab-frame forward (K10a) and the sigma-frame
+x forward (K6a/K7a).
 
 A forward step k of K10a is the kick of step row k, applied pass by pass to
 the bits of pass lo [0, a), pass mid [a, a + b) and pass hi [a + b, L),
@@ -13,8 +14,16 @@ rows carry the same coefficients, rounded once) at L = 14, 15, below the
 kernel's range (its range check is lowered for the test; its arithmetic
 does not depend on L), and against JAX's interpret K4 forward, the same
 lab-frame math, at L=14 (1e-4, the bound of ``test_torch_resident.py``).
-The kernel itself is held against the plain version on the card by
-``test_torch_kernels_cuda.py``.
+
+The x forward's step k is RX(theta) on the bits of pass lo, mid and hi,
+then row k + 1 of ``forward_fold`` with the sigma-frame coefficients
+(``ops/resident_blocked.py::row_coeffs``) as pass hi stores, measured into
+A(k + 1) there, and the host's sigma/ancilla factor after the kernel. The
+same kind of loop is held against ``streamed_forward_batch_ref`` (1e-5, both
+plans, L = 14, 15, the range check lowered as above) and against JAX's sigma
+engine ``sigma_forward_batch`` at L=14 on uniforms drawn in JAX (1e-4, the
+bound of ``test_torch_streamed.py``). The kernels themselves are held
+against the plain versions on the card by ``test_torch_kernels_cuda.py``.
 """
 
 import jax
@@ -23,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from dtc_tpu.core.sigma_evolve import sigma_forward_batch as j_sigma_forward
 from dtc_tpu.io.disorder import generate_disorder
 from dtc_tpu.models.drives import build_kick_schedule as j_sched
 from dtc_tpu.ops.pallas_resident_general import (
@@ -33,7 +43,9 @@ from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.ops import cycle_hi_general as chg
 from dtc_tpu_torch.ops import resident_blocked as rb
 from dtc_tpu_torch.ops import resident_general as rg
+from dtc_tpu_torch.ops import streamed as sm
 from dtc_tpu_torch.ops.echo_fold import forward_fold
+from dtc_tpu_torch.ops.params import forward_rows
 from dtc_tpu_torch.ops.params_general import (
     LANE_MPOS,
     LANE_U8,
@@ -171,5 +183,111 @@ def test_step_pass_order_matches_reference_interpret(drive):
         K=K, p=0.3, q=q, interpret=True))
     rows = _rows(drive, L, uniforms=_uniforms(keys, (T * K, L)))
     got = _step_pass_loop(rows, L, q, "vacuum", 3).numpy()
+    assert got.shape == ref.shape == (1, 2, T)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+# --- the sigma-frame x forward (K6a/K7a)
+
+THETA = 0.97 * np.pi
+
+
+def _x_rows(L, uniforms=None, n=2, T_=T, p=0.3, seed=13):
+    """(1, n, T, width) compact rows and (1, n, T) sigma of n trajectories
+    of different uniforms (numpy seed unless given) on the suite's
+    disorder."""
+    hs, phis = _disorder(L)
+    if uniforms is None:
+        rng = np.random.default_rng(seed)
+        uniforms = torch.from_numpy(
+            rng.random((1, n, T_, L), dtype=np.float32))
+    return forward_rows(uniforms, torch.from_numpy(hs)[:, None],
+                        torch.from_numpy(phis)[:, None], L=L, T=T_, p=p)
+
+
+def _rx_bits(state, L, lo, hi):
+    """RX(THETA) from the kernels' f32 cos/sin on qubits [lo, hi) of the
+    (n, 2^L) states, one qubit at a time."""
+    c, s = rb.kick_cs(THETA)
+    rx = torch.tensor([[c, -1j * s], [-1j * s, c]], dtype=state.dtype)
+    n = state.shape[0]
+    for j in range(lo, hi):
+        st = state.reshape(n, 1 << (L - j - 1), 2, 1 << j)
+        state = torch.einsum("ab,nhbl->nhal", rx, st)
+    return state.reshape(n, 1 << L)
+
+
+def _x_step_pass_loop(rows, sig, L, q, initial_state, passes):
+    """A(t) of the x forward in the kernel's order: per cycle k < T-1 the
+    kick on pass lo's, mid's and hi's bits, then fold row k + 1 of the
+    wrapper's ``forward_fold`` (rows 0..T-2), measured into A(k + 1); A(0)
+    the basis state's z_q; then the host's sigma/ancilla factor."""
+    flat = rows.reshape(-1, *rows.shape[-2:])
+    n, T_ = flat.shape[:2]
+    a, b = _plan(L, passes)
+    fold = forward_fold(flat[:, :T_ - 1], L, rb.row_coeffs)
+    assert fold.shape == (n, T_, 2 * L)
+    table = rb.angle_table(L, flat.device)
+    b0 = basis_index(L, initial_state)
+    state = rb.basis_states(n, L, b0, flat.device)
+    a_raw = torch.zeros((n, T_))
+    a_raw[:, 0] = rb.basis_sign(b0, q)
+    for k in range(T_ - 1):
+        for lo, hi in ((0, a), (a, a + b), (a + b, L)):
+            state = _rx_bits(state, L, lo, hi)
+        f = fold[:, k + 1]
+        theta = f[:, -1:] + f[:, :-1] @ table
+        state = state * torch.polar(torch.ones_like(theta), theta)
+        a_raw[:, k + 1] = (state.abs() ** 2) @ table[q]
+    return rb.forward_host_factor(a_raw.reshape(*rows.shape[:-2], T_), sig,
+                                  q, b0, 1.0)
+
+
+@pytest.mark.parametrize("L", [14, 15])
+def test_x_forward_fold_layout(L):
+    """``forward_fold`` on compact rows (the wrapper passes rows 0..T-2):
+    (n, T, 2L) f32, row 0 zero, row k + 1 = the sigma-frame row_coeffs of
+    cycle row k."""
+    rows, _ = _x_rows(L)
+    flat = rows.reshape(-1, *rows.shape[-2:])
+    n = flat.shape[0]
+    fold = forward_fold(flat[:, :T - 1], L, rb.row_coeffs)
+    assert fold.shape == (n, T, 2 * L)
+    assert fold.dtype == torch.float32
+    assert not fold[:, 0].any()
+    cz, cb, c0 = rb.row_coeffs(flat[:, :T - 1].double(), L)
+    want = torch.cat([cz, cb, c0[..., None]], -1)
+    np.testing.assert_allclose(fold[:, 1:].numpy(), want.numpy(), atol=1e-6,
+                               rtol=0)
+    assert not torch.equal(fold[0], fold[1])  # the trajectories differ
+
+
+@pytest.mark.parametrize("passes", [2, 3])
+@pytest.mark.parametrize("initial_state", ["vacuum", "neel"])
+@pytest.mark.parametrize("L", [14, 15])
+def test_x_step_pass_order_matches_plain(L, initial_state, passes,
+                                         monkeypatch):
+    monkeypatch.setattr(sm, "MIN_L", 14)
+    rows, sig = _x_rows(L)
+    for q in (0, L // 2, L - 1):
+        got = _x_step_pass_loop(rows, sig, L, q, initial_state, passes)
+        want = sm.streamed_forward_batch_ref(rows, sig, THETA, L=L, q=q,
+                                             initial_state=initial_state)
+        assert got.shape == want.shape == (1, 2, T)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("initial_state", ["vacuum", "neel"])
+def test_x_step_pass_order_matches_reference_sigma_engine(initial_state):
+    L, q, p = 14, 9, 0.3
+    hs, phis = _disorder(L)
+    keys = jax.random.split(jax.random.PRNGKey(5), 2)[None]
+    ref = np.asarray(j_sigma_forward(
+        jnp.asarray(hs), jnp.asarray(phis), j_sched("x", 0.97, T).angles,
+        keys, L=L, T=T, K=1, p=p, q=q, initial_state=initial_state,
+        dtype_name="complex64", ancilla_factor=1.0, has_y=False))
+    rows, sig = _x_rows(L, uniforms=_uniforms(keys, (T, L)), p=p)
+    got = _x_step_pass_loop(rows, sig, L, q, initial_state, 3).numpy()
     assert got.shape == ref.shape == (1, 2, T)
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)

@@ -344,19 +344,33 @@ def test_energy_on_card_matches_cpu(cuda_device, L, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,q,state", [(22, 0, "neel"), (24, 12, "vacuum"),
-                                       (27, 26, "vacuum")])
+                                       (25, 24, "neel"), (27, 26, "vacuum"),
+                                       (30, 15, "vacuum")])
 def test_streamed_kernels_match_plain_on_card(cuda_device, L, q, state):
-    """Two passes (L=22, 24) and three (L=27), probes in every bit band."""
+    """Two passes (L=22, 24) and three (L=25, the first three-pass plan with
+    16-column tiles; 27; 30 on 256-lane rows), probes in every bit band.
+    The forward (on the step passes of floquet_echo.cuh, one launch a
+    call) at q and at a probe in each of pass lo's, mid's (or the middle)
+    and hi's bits, 3 trajectories of different rows (1 at L=30, T=3); the
+    echo at q (the L=30 echo: ``test_folded_echo_kernels_match_plain_on_card``
+    takes L <= 29 and chip_smoke.py L=30)."""
     hs, phis = _disorder(L, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(L)
-    u = torch.rand((1, 2, 4, L), generator=gen, device=cuda_device)
-    rows, sig = forward_rows(u, hs[:, None], phis[:, None], L=L, T=4, p=0.1)
-    k = sm.streamed_forward_batch(rows, sig, THETA, L=L, q=q,
-                                  initial_state=state)
-    torch.cuda.synchronize()
-    ref = sm.streamed_forward_batch_ref(rows, sig, THETA, L=L, q=q,
-                                        initial_state=state)
-    assert float((k - ref).abs().max()) <= TOL
+    n, T = (1, 3) if L == 30 else (3, 4)
+    u = torch.rand((1, n, T, L), generator=gen, device=cuda_device)
+    rows, sig = forward_rows(u, hs[:, None], phis[:, None], L=L, T=T, p=0.1)
+    assert rows.shape[-1] == (256 if L >= 27 else 128)
+    for qf in (q, *_echo_probes(L, True)):
+        kw = dict(L=L, q=qf, initial_state=state)
+        before = sm.LAUNCHES["forward"]
+        k = sm.streamed_forward_batch(rows, sig, THETA, **kw)
+        torch.cuda.synchronize()
+        assert sm.LAUNCHES["forward"] == before + 1
+        ref = sm.streamed_forward_batch_ref(rows, sig, THETA, **kw)
+        assert k.shape == ref.shape == (1, n, T)
+        assert float((k - ref).abs().max()) <= TOL
+    if L == 30:
+        return
     ue = torch.rand((1, 1, 6, L), generator=gen, device=cuda_device)
     for p in (0.6, 0.0):
         tiles, sfin = echo_pair_tiles(ue, torch.arange(4, device=cuda_device),
@@ -388,6 +402,42 @@ def test_streamed_kernels_match_k1_k2_on_card(cuda_device, L):
     a = sm.streamed_echo_batch(tiles, sfin, THETA, L=L, q=L // 2)
     b = rb.blocked_echo_batch(tiles, sfin, THETA, L=L, q=L // 2)
     assert float((a - b).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_streamed_forward_entry_checks_its_range(cuda_device):
+    """The C forward entry returns cudaErrorInvalidValue (1) without a
+    launch for arguments out of its range: L, q, the row width, and fold
+    rows fewer than T; in range it launches (0)."""
+    from dtc_tpu_torch.ops import _build
+
+    lib = _build.load("floquet_x_streamed")
+    L, T, width = 22, 3, 128
+    dev = cuda_device
+    state = torch.zeros((1, 1 << L), dtype=torch.complex64, device=dev)
+    rows = torch.zeros((1, T, width), device=dev)
+    fold = torch.zeros((1, T, 2 * L), device=dev)
+    partials = torch.zeros((1, T, lib.floquet_x_streamed_partials(L)),
+                           device=dev)
+    out = torch.full((1, T), 7.0, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call(L=L, T=T, width=width, fold_rows=T, q=0):
+        return lib.floquet_x_streamed_forward(
+            state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), 1, L, T, width, fold_rows,
+            q, 0, 1.0, 0.0, stream)
+
+    for bad in (dict(L=21), dict(L=31), dict(q=L), dict(q=-1),
+                dict(width=192), dict(L=27, width=128), dict(fold_rows=T - 1),
+                dict(T=0)):
+        assert call(**bad) == 1, bad
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full_like(out, 7.0))  # nothing ran
+    assert call() == 0
+    torch.cuda.synchronize()
+    # the identity kick (c=1, s=0) on the vacuum: A(t) = z_0 = 1
+    assert torch.equal(out, torch.ones_like(out))
 
 
 @pytest.mark.cuda

@@ -19,8 +19,10 @@ echo do (``ops/echo_fold.py``). Here, on the CPU:
   of every tile of the resident plan (L = 14-23) and of the streamed plan
   (L = 22-30; strided tiles of 16 columns from L = 25) touches distinct
   8-byte slots of a 128-byte line within each half-warp, so no round has a
-  bank conflict; the pass plans, tiles and rounds that the replay walks are
-  held to the C they mirror, so that a change there fails the check.
+  bank conflict (the streamed forwards run the same tiles); the pass
+  plans, tiles and rounds that the replay walks are held to the C they
+  mirror, the x and lab-frame forwards' ``run_steps`` lines too, so that a
+  change there fails the check.
 
 The kernels themselves are held against the plain versions on the card by
 ``test_torch_kernels_cuda.py::test_folded_echo_kernels_match_plain_on_card``.
@@ -208,6 +210,9 @@ MIRRORED = {
     "floquet_x_streamed.cu": [
         "const auto run = p.b > 0 ? run_echo<kWideCols, XEcho<WideRows, "
         "ConstKick>> : run_echo<kW, XEcho<WideRows, ConstKick>>;",
+        "const auto run = p.b > 0 ? run_steps<kWideCols, "
+        "XEcho<ForwardWideRows, ConstKick>, Times> : run_steps<kW, "
+        "XEcho<ForwardWideRows, ConstKick>, Times>;",
         "(float2*)state, L, p.a, p.b,"],
     "floquet_general_streamed.cu": [
         "const auto run = p.b > 0 ? run_echo<kWideCols, GeneralEcho<PairRows>>"
