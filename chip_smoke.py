@@ -14,7 +14,9 @@ each; any failure raises and the script exits non-zero without a result:
    instances x 32 trajectories at T=50; K2 on the echo sweep's last two
    chunks; K4 forward on 32 trajectories of the xy drive at T=50; K4 echo
    on the xy echo sweep's last two chunks; K5 on 32 trajectories of the x
-   drive at T=50, p=0.1); and the eager observables engine on the card
+   drive at T=50, p=0.1; K5 also at L=14-23 on 3 trajectories of different
+   rows, K=1 and 2, with and without x pairs, T=1 and T past one reduce
+   chunk); and the eager observables engine on the card
    against the same call on the CPU (L=12, complex64 and complex128); the
    streamed x family (K6/K7) against its plain version at L=22, 24 (two
    passes), 26 and 28 (three), probes q = 0, L//2, L-1, vacuum and neel, and
@@ -117,7 +119,10 @@ each; any failure raises and the script exits non-zero without a result:
    and against K1 on the same L=23 rows; before them the registers and
    spills of the forward's passes and one L=30 forward launch at T=1024
    with its peak device memory, its first cycles held to a T=6 launch;
-   K10: forward y at L=28 and
+   K5: x and xy at L=20, T=50 x 32, after the registers and spills of
+   every kernel of ``floquet_general.cu``, then one L=23 launch at the most
+   cycles one reduce chunk holds and one at one more, with their peak
+   device memory; K10: forward y at L=28 and
    circular_left at L=29, echo y at L=28 and circular_left at L=29, the
    main paths' launches, with the peak memory; K3a on the ramp at L=14, 16
    and 20, T=51 x 32, and K3b on 32 pairs at t=12, each beside K4 on the
@@ -474,18 +479,23 @@ def obs_inputs(L, pol, component, T, c, p, dev, seed, inst=1):
 def compare_obs(dev, err) -> None:
     from dtc_tpu_torch.ops import observables as ob
 
-    # every drive, state and component family across the range, p=0 and
-    # p=0.3; then the main path's batch (32 trajectories through 50 cycles)
-    cases = [(14, "x", "vacuum", "full", 0.0),
-             (14, "circular_left", "neel", "x_only", 0.3),
-             (17, "y", "neel", "z_zz", 0.3), (17, "xy", "vacuum", "full", 0.3),
-             (20, "x", "vacuum", "full", 0.3),
-             (20, "xy", "neel", "x_only", 0.0),
-             (23, "y", "vacuum", "full", 0.3),
-             (23, "circular_left", "vacuum", "z_zz", 0.0)]
-    for L, pol, state, comp, p in cases:
-        T = 4 if L < 23 else 3
-        rows, erow, with_x, scale = obs_inputs(L, pol, comp, T, 2, p, dev,
+    # every drive, state and component family across the range (3
+    # trajectories of different rows), p=0 and p=0.3, the measure only
+    # (T=1) and more cycles than one reduce chunk (ob.chunk_cycles: 6 at
+    # L=14); then the main path's batch (32 trajectories through 50 cycles)
+    cases = [(14, "x", "vacuum", "full", 0.0, 4),
+             (14, "circular_left", "neel", "x_only", 0.3, 4),
+             (14, "xy", "vacuum", "full", 0.3, 1),
+             (14, "xy", "neel", "full", 0.3, 20),
+             (17, "y", "neel", "z_zz", 0.3, 4),
+             (17, "xy", "vacuum", "full", 0.3, 4),
+             (20, "x", "vacuum", "full", 0.3, 4),
+             (20, "xy", "neel", "x_only", 0.0, 4),
+             (22, "xy_cycle", "neel", "full", 0.3, 3),
+             (23, "y", "vacuum", "full", 0.3, 3),
+             (23, "circular_left", "vacuum", "z_zz", 0.0, 3)]
+    for L, pol, state, comp, p, T in cases:
+        rows, erow, with_x, scale = obs_inputs(L, pol, comp, T, 3, p, dev,
                                                seed=L)
         kw = dict(L=L, T=T, initial_state=state, with_x=with_x)
         k = ob.observables_forward_batch(rows, erow, **kw)
@@ -2424,8 +2434,13 @@ def timing_obs(dev, smi, err) -> dict:
     sums of the k1 tile bits 2 k1: a high bit's z_q is the block's
     probability times one sign; the x pairs 2 L: 4 flops per pair, 2^L / 2
     pairs per bit)."""
+    from dtc_tpu_torch.ops import _build
     from dtc_tpu_torch.ops import observables as ob
 
+    lib = _build.load("floquet_general")
+    for kernel, regs, st, ld in ptxas_kernels("floquet_general"):
+        phase(f"[build] floquet_general.cu {kernel}: {regs} registers, "
+              f"spill stores {st} B, spill loads {ld} B")
     L, T, c = MAIN_L, MAIN_T, N_TRAJ
     N = 1 << L
     k1 = L - L // 2
@@ -2445,6 +2460,30 @@ def timing_obs(dev, smi, err) -> dict:
             "K5", f"observables {pol} L=20 T=50 traj=32 steps/cycle={K}",
             k_ms, p_ms, c * (T - 1) * K * N, "cycles", T * c, io_bytes,
             14 * L + 6, smi, extra_ops=c * T * N * (5 + 2 * k1 + 2 * L))
+    # L=23, one trajectory: the most cycles one reduce chunk holds (x, K=1)
+    # and one more (two chunks), each one launch with its peak memory
+    L = 23
+    slots = lib.floquet_general_observables_slots(L)
+    one = ob.chunk_cycles(L, ob.MAX_STEPS, slots)
+    for T in (one, one + 1):
+        rows, erow, _, scale = obs_inputs(L, "x", "full", T, 1, P, dev,
+                                          seed=T)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        k = ob.observables_forward_batch(rows, erow, L=L, T=T)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        mem = torch.cuda.max_memory_allocated(dev) / 2**30
+        ref = ob.observables_forward_batch_ref(rows, erow, L=L, T=T)
+        err["K5"] = max(err["K5"], held_obs(
+            f"K5 L=23 x T={T} 1x1 ({-(-T // one)} reduce chunks)", k, ref, L,
+            scale))
+        phase(f"[timing] K5 L=23 x T={T} traj=1, one launch in "
+              f"{-(-T // one)} chunks of at most {one} cycles: {sec:.3f} s, "
+              f"peak device memory {mem:.4f} GiB (a state "
+              f"{2 ** (L + 3) / 2**30:.4f} GiB, partials "
+              f"{one * slots * 4 / 2**30:.4f} GiB) on {smi}")
+        del rows, k, ref
     return out
 
 

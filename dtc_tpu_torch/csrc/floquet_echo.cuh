@@ -42,7 +42,9 @@
 // (measure_and_reduce); the forward measures a step whose row names a time
 // t in pass hi's store, one partial of |psi|^2 z_q a block into a
 // (pairs, T, blocks) buffer, summed once at the end in a fixed order
-// (Times).
+// (Times); K5 measures the state a step loads, on a step that opens a
+// cycle, in the rounds of both passes before their butterflies (Obs), one
+// partial a lane and block, summed once a chunk of cycles.
 //
 // Every pair steps in lockstep: a step is two or three launches over all
 // pairs. (A schedule that ran groups of pairs small enough to stay in the
@@ -103,17 +105,19 @@ __device__ __forceinline__ void load_fold(const float* __restrict__ row,
 // and the bond to the fixed qubit q0 - 1 of sign zb (0: none). hi,
 // indexed from tile bit a - 1: the z terms of bits [a, nb), the bonds
 // (a-1, a) .. (nb-2, nb-1), the bond to the fixed qubit q0 + nb of sign za
-// (0: none) and the fixed angle th. Ends in __syncthreads.
-__device__ void phase_tables(const float* cz, const float* cb, int q0, int nb,
-                             float zb, float za, float th, float2* lo,
-                             float2* hi) {
+// (0: none) and the fixed angle th. table_angles hands each entry's angle
+// to emit(e, angle), e < 2^a for lo[e], else hi[e - 2^a]; phase_tables
+// stores its unit phase. Both end in __syncthreads.
+template <class Emit>
+__device__ void table_angles(const float* cz, const float* cb, int q0, int nb,
+                             float zb, float za, float th, const Emit& emit) {
   const int a = (nb + 1) / 2;
   const int n_lo = 1 << a;
   for (int e = threadIdx.x; e < n_lo + (2 << (nb - a)); e += blockDim.x) {
     if (e < n_lo) {
       float ang = angle_bits(cz, cb, e, q0, a);
       if (zb != 0.0f) ang += cb[q0 - 1] * zb * zsign(e, 0);
-      lo[e] = unit(ang);
+      emit(e, ang);
     } else {
       const int u = e - n_lo;  // bit 0: tile bit a - 1, bit m: a - 1 + m
       float ang = th;
@@ -124,10 +128,19 @@ __device__ void phase_tables(const float* cz, const float* cb, int q0, int nb,
         zp = z;
       }
       if (za != 0.0f) ang += cb[q0 + nb - 1] * zp * za;
-      hi[u] = unit(ang);
+      emit(e, ang);
     }
   }
   __syncthreads();
+}
+
+__device__ void phase_tables(const float* cz, const float* cb, int q0, int nb,
+                             float zb, float za, float th, float2* lo,
+                             float2* hi) {
+  const int n_lo = 1 << ((nb + 1) / 2);
+  table_angles(cz, cb, q0, nb, zb, za, th, [&](int e, float ang) {
+    (e < n_lo ? lo[e] : hi[e - n_lo]) = unit(ang);
+  });
 }
 
 // The phase of tile index i from the two tables of nb bits.
@@ -171,9 +184,21 @@ inline int echo_threads(int tbits) {
 // __syncthreads) or, with kOut, to out(base, j << b, v) (the last round
 // fused into the store). The functors see the base and the offset apart,
 // so that what depends on the base alone is computed once per tuple.
-template <int NB, bool kIn, bool kOut, class Kick, class In, class Out>
+// meas.tuple<NB, kIn>(base, b, v) sees each tuple as loaded, before the
+// round's butterflies, and meas.end<NB>(b) runs once the thread's tuples
+// are done (every thread of the block; NoMeasure: neither does anything).
+struct NoMeasure {
+  template <int NB, bool kIn>
+  __device__ __forceinline__ void tuple(int, int, const float2*) {}
+  template <int NB>
+  __device__ __forceinline__ void end(int) {}
+};
+
+template <int NB, bool kIn, bool kOut, class Kick, class In, class Out,
+          class Meas>
 __device__ void swz_round(float2* tile, int tbits, int b, int b0,
-                          const Kick& kick, const In& in, const Out& out) {
+                          const Kick& kick, const In& in, const Out& out,
+                          Meas& meas) {
   constexpr int M = 1 << NB;
   const auto bf = kick.template round<NB>(b - b0);
   int off[M];
@@ -193,6 +218,7 @@ __device__ void swz_round(float2* tile, int tbits, int b, int b0,
         v[j] = tile[sb ^ off[j]];
       }
     }
+    meas.template tuple<NB, kIn>(base, b, v);
 #pragma unroll
     for (int k = 0; k < NB; ++k) {
 #pragma unroll
@@ -209,42 +235,54 @@ __device__ void swz_round(float2* tile, int tbits, int b, int b0,
       }
     }
   }
+  meas.template end<NB>(b);
   if constexpr (!kOut) __syncthreads();
 }
 
-template <bool kIn, bool kOut, class Kick, class In, class Out>
+template <bool kIn, bool kOut, class Kick, class In, class Out, class Meas>
 __device__ void swz_round_n(int nb, float2* tile, int tbits, int b, int b0,
-                            const Kick& kick, const In& in, const Out& out) {
+                            const Kick& kick, const In& in, const Out& out,
+                            Meas& meas) {
   if (nb == 3) {
-    swz_round<3, kIn, kOut>(tile, tbits, b, b0, kick, in, out);
+    swz_round<3, kIn, kOut>(tile, tbits, b, b0, kick, in, out, meas);
   } else if (nb == 2) {
-    swz_round<2, kIn, kOut>(tile, tbits, b, b0, kick, in, out);
+    swz_round<2, kIn, kOut>(tile, tbits, b, b0, kick, in, out, meas);
   } else {
-    swz_round<1, kIn, kOut>(tile, tbits, b, b0, kick, in, out);
+    swz_round<1, kIn, kOut>(tile, tbits, b, b0, kick, in, out, meas);
   }
 }
 
 // The kick on tile bits [b0, b0 + n) (n <= 12) of a 2^tbits tile in
 // ceil(n / 3) rounds of 2 or 3 bits, the last on the top bits: the first
 // takes its amplitudes from in, the last hands them to out (swz_round), and
-// the tile (swizzled shared memory) holds the state between rounds.
-template <class Kick, class In, class Out>
+// the tile (swizzled shared memory) holds the state between rounds; meas
+// sees every round's tuples before its butterflies.
+template <class Kick, class In, class Out, class Meas>
 __device__ void swz_kick(float2* tile, int tbits, int b0, int n,
-                         const Kick& kick, const In& in, const Out& out) {
+                         const Kick& kick, const In& in, const Out& out,
+                         Meas& meas) {
   const int rounds = (n + 2) / 3;
   const int nb0 = n / rounds + (n % rounds > 0 ? 1 : 0);
   if (rounds == 1) {
-    swz_round_n<true, true>(n, tile, tbits, b0, b0, kick, in, out);
+    swz_round_n<true, true>(n, tile, tbits, b0, b0, kick, in, out, meas);
     return;
   }
-  swz_round_n<true, false>(nb0, tile, tbits, b0, b0, kick, in, out);
+  swz_round_n<true, false>(nb0, tile, tbits, b0, b0, kick, in, out, meas);
   int b = b0 + nb0;
   for (int i = 1; i < rounds - 1; ++i) {
     const int nb = n / rounds + (i < n % rounds ? 1 : 0);
-    swz_round_n<false, false>(nb, tile, tbits, b, b0, kick, in, out);
+    swz_round_n<false, false>(nb, tile, tbits, b, b0, kick, in, out, meas);
     b += nb;
   }
-  swz_round_n<false, true>(b0 + n - b, tile, tbits, b, b0, kick, in, out);
+  swz_round_n<false, true>(b0 + n - b, tile, tbits, b, b0, kick, in, out,
+                           meas);
+}
+
+template <class Kick, class In, class Out>
+__device__ void swz_kick(float2* tile, int tbits, int b0, int n,
+                         const Kick& kick, const In& in, const Out& out) {
+  NoMeasure none;
+  swz_kick(tile, tbits, b0, n, kick, in, out, none);
 }
 
 // The passes take the step's kick through a policy P of the family
@@ -258,31 +296,203 @@ __device__ void swz_kick(float2* tile, int tbits, int b0, int n,
 //   begin(rows, L, rows_per_pair, pair, step, sh, kick): false once the
 //                  pair has run its COUNT steps, else sets kick (its shared
 //                  part in sh, read after the next __syncthreads);
-//   time(rows, L, rows_per_pair, pair, step): with Times only, the time t
-//                  the step's end is measured into (t < 0: none).
+//   time(rows, L, rows_per_pair, pair, step): with Times and Obs only, the
+//                  time t the step's end is measured into, or the cycle t
+//                  whose start it measures (t < 0: none).
 
-// What pass hi measures as it stores a step: NoTimes, nothing (the echoes);
-// Times, the forward's A(t): on a step whose time is 0 <= t < T, each block
-// writes its partial of |psi|^2 z_q, any 0 <= q < L, to
-// partials[(pair * T + t) * blocks + block].
+// What the passes measure (M): NoTimes, nothing (the echoes); Times, the
+// forward's A(t) as pass hi stores: on a step whose time is 0 <= t < T,
+// each block writes its partial of |psi|^2 z_q, any 0 <= q < L, to
+// partials[(pair * T + t) * blocks + block]; Obs, K5's observables of the
+// state a step loads (below). kOn: pass hi's store measures (Times);
+// kObs: both passes' rounds measure (Obs).
 struct NoTimes {
   static constexpr bool kOn = false;
+  static constexpr bool kObs = false;
 };
 
 struct Times {
   static constexpr bool kOn = true;
+  static constexpr bool kObs = false;
   float* __restrict__ partials;
   int q, T;
 };
 
+// K5's per-cycle observables (floquet_general.cu), on the two-pass plan
+// (b = 0: pass lo on bits [0, a), pass hi on [a, L)). On a step whose
+// time() opens cycle t, t0 <= t < t0 + chunk, each pass measures the state
+// it loads, before its butterflies: pass lo's block writes four kinds of
+// lanes, lane j of pass-lo block b at cycle(pair, t)[j * blocks + b]:
+//   0: sum |psi|^2 E(s), E(s) = sum_q th_q z_q + sum_j tph_j z_j z_{j+1}
+//      (erow, one 128-lane row a pair: th [0, L), tph [L, 2L-1));
+//   1: its bits' x pairs, sum Re conj(psi_s) psi_{s ^ 2^q} over bit q = 0;
+//   2: sum |psi|^2 (a qubit above the tile has one sign a block: the
+//      reduce expands it into z_q, q >= a);
+//   3 + q: sum |psi|^2 z_q of its bit q < a;
+// pass hi's block b its bits' x pairs at cycle(pair, t)[slots - blocks +
+// b] (with_x; without, pass hi measures nothing and lane 1 is 0). Step
+// `last` (the last cycle's first) is measured only: neither pass stores.
+struct Obs {
+  static constexpr bool kOn = false;
+  static constexpr bool kObs = true;
+  const float* __restrict__ erow;
+  float* __restrict__ part;  // (pairs, chunk, slots)
+  int t0, chunk, slots, last, with_x;
+  // The pair's slots of cycle t; nullptr outside the chunk.
+  __device__ __forceinline__ float* cycle(int pair, int t) const {
+    return 0 <= t - t0 && t - t0 < chunk
+               ? part + ((int64_t)pair * chunk + t - t0) * slots
+               : nullptr;
+  }
+};
+
+constexpr int kMaxObsBits = 12;  // pass lo's tile bits under Obs (L <= 23)
+
+// Sum over a warp in a fixed order (shuffles): lane 0 holds it. Every lane
+// of the warp calls it.
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// A tuple's x pairs on its round bits k: sum over j with bit k = 0 of
+// Re conj(v_j) v_{j + 2^k}.
+template <int NB>
+__device__ __forceinline__ float x_pairs(const float2* v) {
+  float x = 0.0f;
+#pragma unroll
+  for (int k = 0; k < NB; ++k) {
+#pragma unroll
+    for (int j = 0; j < (1 << NB); ++j) {
+      if (!(j & (1 << k))) {
+        const float2 w = v[j | (1 << k)];
+        x += v[j].x * w.x + v[j].y * w.y;
+      }
+    }
+  }
+  return x;
+}
+
+// Obs in pass lo's rounds (swz_round's meas): the first round, on the
+// amplitudes it loads, sums |psi|^2 and |psi|^2 E(s), E of tile index i
+// from two tables as the diagonal's phases (elo[i & (2^h - 1)] +
+// ehi[i >> (h - 1)], the block's high bits and the bond across the tile's
+// edge folded in); every round, before its butterflies, the signed sums
+// |psi|^2 z_q and the x pairs of its own bits. The butterflies of earlier
+// rounds act on other qubits, whose gates commute with Z_q and X_q, so
+// both are the cycle's. A thread keeps six sums over its tuples, whatever
+// their base; a round's z sums go to red[3 + q][warp] as it ends.
+struct LoObs {
+  const float* elo;
+  const float* ehi;
+  int h;
+  float (*red)[kThreads / 32];
+  bool with_x;
+  float p = 0.0f, e = 0.0f, x = 0.0f, s[3] = {0.0f, 0.0f, 0.0f};
+  template <int NB, bool kIn>
+  __device__ __forceinline__ void tuple(int base, int b, const float2* v) {
+#pragma unroll
+    for (int j = 0; j < (1 << NB); ++j) {
+      const float pj = v[j].x * v[j].x + v[j].y * v[j].y;
+#pragma unroll
+      for (int k = 0; k < NB; ++k) s[k] += (j & (1 << k)) ? -pj : pj;
+      if constexpr (kIn) {
+        const int i = base | (j << b);
+        p += pj;
+        e += pj * (elo[i & ((1 << h) - 1)] + ehi[i >> (h - 1)]);
+      }
+    }
+    if (with_x) x += x_pairs<NB>(v);
+  }
+  template <int NB>
+  __device__ __forceinline__ void end(int b) {
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      const float z = warp_sum(s[k]);
+      if ((threadIdx.x & 31) == 0) red[3 + b + k][threadIdx.x >> 5] = z;
+      s[k] = 0.0f;
+    }
+  }
+};
+
+// Obs in pass hi's rounds: the x pairs of its bits.
+struct XObs {
+  float x = 0.0f;
+  template <int NB, bool kIn>
+  __device__ __forceinline__ void tuple(int, int, const float2* v) {
+    x += x_pairs<NB>(v);
+  }
+  template <int NB>
+  __device__ __forceinline__ void end(int) {}
+};
+
+// Pass lo under Obs on a step that opens a cycle: the energy row's tables,
+// the kick on bits [0, k1) with LoObs in its rounds (stored unless `store`
+// is false), then lanes 0 .. 2 + k1 of the block into slot[j * blocks].
+template <class Kick, class In, class Out>
+__device__ void obs_lo(float2* tile, int L, int k1, int64_t hi,
+                       const float* erow, float* slot, bool with_x,
+                       bool store, const Kick& kick, const In& in,
+                       const Out& out) {
+  __shared__ float coef[2 * kMaxEchoL], elo[kLoTabLo], ehi[kTabHi];
+  __shared__ float red[3 + kMaxObsBits][kThreads / 32];
+  load_fold(erow, L, coef);
+  __syncthreads();
+  const float* tph = coef + L;
+  const int h = (k1 + 1) / 2;
+  table_angles(coef, tph, 0, k1, 0.0f, zsign(hi, 0),
+               angle_bits(coef, tph, hi, k1, L - k1),
+               [&](int e, float ang) {
+                 (e < (1 << h) ? elo[e] : ehi[e - (1 << h)]) = ang;
+               });
+  LoObs meas{elo, ehi, h, red, with_x};
+  swz_kick(
+      tile, k1, 0, k1, kick, in,
+      [&](int base, int jb, float2 v) {
+        if (store) out(base, jb, v);
+      },
+      meas);
+  const float sums[3] = {warp_sum(meas.e), warp_sum(meas.x),
+                         warp_sum(meas.p)};
+  if ((threadIdx.x & 31) == 0) {
+    for (int j = 0; j < 3; ++j) red[j][threadIdx.x >> 5] = sums[j];
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < 3 + k1; j += blockDim.x) {
+    float sum = 0.0f;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) sum += red[j][w];
+    slot[(int64_t)j * gridDim.x + blockIdx.x] = sum;
+  }
+}
+
+// Pass hi under Obs on a step that opens a cycle, with x pairs: the kick
+// on tile bits [b0, b0 + n) with XObs in its rounds (stored unless `store`
+// is false), the block's sum into *slot.
+template <class Kick, class In, class Out>
+__device__ void obs_hi(float2* tile, int tbits, int b0, int n, float* slot,
+                       bool store, const Kick& kick, const In& in,
+                       const Out& out) {
+  __shared__ float red[kThreads / 32];
+  XObs meas;
+  swz_kick(
+      tile, tbits, b0, n, kick, in,
+      [&](int base, int jb, float2 v) {
+        if (store) out(base, jb, v);
+      },
+      meas);
+  const float tot = block_sum(meas.x, red);
+  if (threadIdx.x == 0) *slot = tot;
+}
+
 // Pass lo (pair blockIdx.y): an echo's step 0 applies folded row 0, the
 // first pre diagonal (later steps' pre diagonals are folded into the
-// previous pass hi), then the kick of the step's row on bits [0, k1).
-template <class P>
+// previous pass hi), then the kick of the step's row on bits [0, k1); what
+// M measures (Obs: obs_lo on a step that opens a cycle).
+template <class P, class M>
 __global__ void __launch_bounds__(kThreads, P::kMinBlocks)
     echo_lo_kernel(float2* __restrict__ st, int L, int k1,
                    const float* __restrict__ rows, int64_t rows_per_pair,
-                   Fold fold, int step, P policy) {
+                   Fold fold, int step, P policy, M m) {
   extern __shared__ float2 tile[];
   __shared__ float coef[2 * kMaxEchoL];
   __shared__ float2 tlo[kLoTabLo], thi[kTabHi];
@@ -301,13 +511,20 @@ __global__ void __launch_bounds__(kThreads, P::kMinBlocks)
                  coef[2 * L - 1] + angle_bits(coef, cb, hi, k1, L - k1), tlo,
                  thi);
   }
-  swz_kick(
-      tile, k1, 0, k1, kick,
-      [&](int base, int jb) {
-        const float2 v = g[base + jb];
-        return first ? phase_mul(v, table_phase(tlo, thi, k1, base + jb)) : v;
-      },
-      [&](int base, int jb, float2 v) { g[base + jb] = v; });
+  const auto in = [&](int base, int jb) {
+    const float2 v = g[base + jb];
+    return first ? phase_mul(v, table_phase(tlo, thi, k1, base + jb)) : v;
+  };
+  const auto out = [&](int base, int jb, float2 v) { g[base + jb] = v; };
+  if constexpr (M::kObs) {
+    float* cyc = m.cycle(pair, policy.time(rows, L, rows_per_pair, pair, step));
+    if (cyc != nullptr) {
+      obs_lo(tile, L, k1, hi, m.erow + (int64_t)pair * kRowWidth, cyc,
+             m.with_x, step != m.last, kick, in, out);
+      return;
+    }
+  }
+  swz_kick(tile, k1, 0, k1, kick, in, out);
 }
 
 // Columns of the strided tiles (passes mid and hi): kW = 4, 32-byte runs,
@@ -372,7 +589,8 @@ constexpr int hi_min_blocks() {
 // Pass hi (pair blockIdx.y): the kick on bits [k0, L) on a tile of
 // 2^(L - k0) rows x CW columns, then folded row step + 1 (an echo's post
 // diagonal and the next step's pre; the forward's step diagonal) as the
-// tile is stored, and what M measures.
+// tile is stored, and what M measures (Times: in the store; Obs: obs_hi
+// on a step that opens a cycle).
 template <class P, int CW, class M>
 __global__ void __launch_bounds__(kThreads, hi_min_blocks<P, CW, M>())
     echo_hi_kernel(float2* __restrict__ st, int L, int k0,
@@ -386,6 +604,12 @@ __global__ void __launch_bounds__(kThreads, hi_min_blocks<P, CW, M>())
   const int pair = blockIdx.y;
   typename P::Kick kick;
   if (!policy.begin(rows, L, rows_per_pair, pair, step, sh, kick)) return;
+  [[maybe_unused]] float* cyc = nullptr;  // Obs: the cycle's slots
+  if constexpr (M::kObs) {
+    cyc = m.cycle(pair, policy.time(rows, L, rows_per_pair, pair, step));
+    // the measure-only step has nothing for pass hi without x pairs
+    if (cyc != nullptr && step == m.last && !m.with_x) return;
+  }
   const int n2 = L - k0;
   const int64_t o = (int64_t)blockIdx.x * CW;
   float2* g = st + ((int64_t)pair << L) + o;
@@ -407,25 +631,33 @@ __global__ void __launch_bounds__(kThreads, hi_min_blocks<P, CW, M>())
   [[maybe_unused]] float acc = 0.0f;
   // tile index x = h * CW + w: the high bits sit at tile bits
   // [kc, kc + n2)
-  swz_kick(
-      tile, n2 + kc, kc, n2, kick.from(k0),
-      [&](int base, int jb) { return g[strided_at<CW>(base, jb, k0)]; },
-      [&](int base, int jb, float2 v) {
-        // the last round's bits are the top ones, above the lower table's
-        const int a = (n2 + 1) / 2;
-        const int h = base / CW;
-        const float2 ph =
-            phase_mul(phase_mul(tlo[h & ((1 << a) - 1)], tw[base % CW]),
-                      thi[(h + jb / CW) >> (a - 1)]);
-        const int64_t at = strided_at<CW>(base, jb, k0);
-        const float2 w = phase_mul(v, ph);
-        g[at] = w;
-        if constexpr (M::kOn) {
-          if (slot != nullptr) {
-            acc += (w.x * w.x + w.y * w.y) * zsign(o + at, m.q);
-          }
-        }
-      });
+  const auto in = [&](int base, int jb) {
+    return g[strided_at<CW>(base, jb, k0)];
+  };
+  const auto out = [&](int base, int jb, float2 v) {
+    // the last round's bits are the top ones, above the lower table's
+    const int a = (n2 + 1) / 2;
+    const int h = base / CW;
+    const float2 ph =
+        phase_mul(phase_mul(tlo[h & ((1 << a) - 1)], tw[base % CW]),
+                  thi[(h + jb / CW) >> (a - 1)]);
+    const int64_t at = strided_at<CW>(base, jb, k0);
+    const float2 w = phase_mul(v, ph);
+    g[at] = w;
+    if constexpr (M::kOn) {
+      if (slot != nullptr) {
+        acc += (w.x * w.x + w.y * w.y) * zsign(o + at, m.q);
+      }
+    }
+  };
+  if constexpr (M::kObs) {
+    if (cyc != nullptr && m.with_x) {
+      obs_hi(tile, n2 + kc, kc, n2, cyc + m.slots - gridDim.x + blockIdx.x,
+             step != m.last, kick.from(k0), in, out);
+      return;
+    }
+  }
+  swz_kick(tile, n2 + kc, kc, n2, kick.from(k0), in, out);
   if constexpr (M::kOn) {
     if (slot != nullptr) {
       __shared__ float red[kThreads / 32];
@@ -441,15 +673,14 @@ __host__ __device__ constexpr int step_hi_blocks(int a, int b, int cw) {
   return (1 << (a + b)) / cw;
 }
 
-// n_steps steps of n_pairs states in st from the basis state b0, on the
-// folded rows and the pass plan (a, b), strided tiles of CW columns: two
-// or three passes a step, a pair stopping at its COUNT; pass hi measures
-// what m says.
+// Steps [from, to) of n_pairs states in st, on the folded rows and the
+// pass plan (a, b), strided tiles of CW columns: two or three passes a
+// step, a pair stopping at its COUNT; the passes measure what m says.
 template <int CW, class P, class M>
-cudaError_t run_steps(float2* st, int L, int a, int b, const float* rows,
-                      int64_t rows_per_pair, Fold fold, int n_pairs,
-                      int n_steps, P policy, M m, int64_t b0,
-                      cudaStream_t stream) {
+cudaError_t launch_steps(float2* st, int L, int a, int b, const float* rows,
+                         int64_t rows_per_pair, Fold fold, int n_pairs,
+                         int from, int to, P policy, M m,
+                         cudaStream_t stream) {
   constexpr int kc = log2_of(CW);
   const int k0 = a + b;
   const int c = L - k0;
@@ -459,7 +690,7 @@ cudaError_t run_steps(float2* st, int L, int a, int b, const float* rows,
   const int t_lo = echo_threads(a), t_mid = echo_threads(b + kc),
             t_hi = echo_threads(c + kc);
   cudaError_t e = cudaFuncSetAttribute(
-      echo_lo_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      echo_lo_kernel<P, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_lo);
   if (e == cudaSuccess && b > 0) {
     e = cudaFuncSetAttribute(echo_mid_kernel<P, CW>,
@@ -471,14 +702,10 @@ cudaError_t run_steps(float2* st, int L, int a, int b, const float* rows,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_hi);
   }
-  if (e != cudaSuccess) return e;
-  init_kernel<<<dim3(256, n_pairs), kThreads, 0, stream>>>(
-      st, (int64_t)1 << L, b0);
-  e = cudaGetLastError();
-  for (int k = 0; e == cudaSuccess && k < n_steps; ++k) {
-    echo_lo_kernel<P><<<dim3(1u << (L - a), n_pairs), t_lo, smem_lo,
-                        stream>>>(st, L, a, rows, rows_per_pair, fold, k,
-                                  policy);
+  for (int k = from; e == cudaSuccess && k < to; ++k) {
+    echo_lo_kernel<P, M><<<dim3(1u << (L - a), n_pairs), t_lo, smem_lo,
+                           stream>>>(st, L, a, rows, rows_per_pair, fold, k,
+                                     policy, m);
     if (b > 0) {
       echo_mid_kernel<P, CW><<<dim3((1u << (L - b)) / CW, n_pairs), t_mid,
                                smem_mid, stream>>>(st, L, a, b, rows,
@@ -491,6 +718,21 @@ cudaError_t run_steps(float2* st, int L, int a, int b, const float* rows,
     e = cudaGetLastError();
   }
   return e;
+}
+
+// n_steps steps of n_pairs states in st from the basis state b0
+// (launch_steps).
+template <int CW, class P, class M>
+cudaError_t run_steps(float2* st, int L, int a, int b, const float* rows,
+                      int64_t rows_per_pair, Fold fold, int n_pairs,
+                      int n_steps, P policy, M m, int64_t b0,
+                      cudaStream_t stream) {
+  init_kernel<<<dim3(256, n_pairs), kThreads, 0, stream>>>(
+      st, (int64_t)1 << L, b0);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_steps<CW>(st, L, a, b, rows, rows_per_pair, fold, n_pairs, 0,
+                          n_steps, policy, m, stream);
 }
 
 // The echo of n_pairs states in st on the folded rows and the pass plan

@@ -36,6 +36,10 @@
 // state and whose last writes it, on a swizzled tile without bank
 // conflicts.
 //
+// K5 runs K4's forward steps on the same step passes (launch_steps of
+// floquet_echo.cuh with GeneralEcho<ObsRows>, diagonals from forward_fold)
+// and measures in them (Obs); see the note above its entry.
+//
 // What bounds it on this card: as for K1/K2 (floquet_x.cu), the 2^L
 // complex64 state (8 MiB at L=20) lives in device memory, and a step is two
 // read+write sweeps of it (32 B per amplitude):
@@ -50,8 +54,9 @@
 // than in K1/K2. The per-qubit matrices are built once per block in shared
 // memory. Reductions are deterministic (floquet_common.cuh). The row lanes,
 // the kick matrices and the butterflies are in floquet_lab.cuh, shared with
-// the large-L lab-frame family (floquet_general_streamed.cu); the two passes
-// in floquet_general_pass.cuh, shared with K8c/K8d (floquet_cycle.cu).
+// the large-L lab-frame family (floquet_general_streamed.cu); the forward's
+// two passes in floquet_general_pass.cuh, shared with K8c/K8d
+// (floquet_cycle.cu).
 
 #include "floquet_common.cuh"
 #include "floquet_lab.cuh"
@@ -68,6 +73,59 @@ struct PairRows {
     return step_rows(rows, L, rows_per_pair, pair, step, 1);
   }
 };
+
+// K5's step rows for GeneralEcho: K4's forward rows, every step active,
+// the kick of row `step` (the MPOS lane is not read); a step opens cycle
+// step / K where step % K == 0.
+struct ObsRows {
+  int K;
+  __device__ __forceinline__ StepRows at(const float* rows, int L,
+                                         int64_t rows_per_pair, int pair,
+                                         int step) const {
+    return step_rows(rows, L, rows_per_pair, pair, step, 0);
+  }
+  __device__ __forceinline__ int time(const float*, int, int64_t, int,
+                                      int step) const {
+    return step % K == 0 ? step / K : -1;
+  }
+};
+
+// K5's fixed-order reduce of one chunk of cycles (Obs, floquet_echo.cuh):
+// block (c, pair) turns the slots of cycle t0 + c into out[(pair * T + t0 +
+// c) * (2 + L) + lane]: e_diag (lane 0 of pass lo's blocks), x_sum (2 x
+// pass lo's lane 1 and pass hi's slots; 0 without x), z_q (lane 3 + q for
+// q < a; for q >= a, sum_b z_q(b) P_b over pass lo's blocks b, P in lane
+// 2). A warp a lane, its threads over the blocks in double, then the warp
+// sum in a fixed order.
+__global__ void obs_reduce_kernel(const float* __restrict__ part,
+                                  float* __restrict__ out, int L, int a,
+                                  int T, int t0, int slots, int with_x) {
+  const int nb = 1 << (L - a);
+  const int n_hi = slots - (3 + a) * nb;
+  const float* s = part + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                              slots;
+  float* o = out + ((int64_t)blockIdx.y * T + t0 + blockIdx.x) * (2 + L);
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < 2 + L; j += blockDim.x >> 5) {
+    const int q = j - 2;
+    double acc = 0.0;
+    if (j == 1) {
+      if (with_x) {
+        for (int b = lane; b < nb; b += 32) acc += s[nb + b];
+        for (int b = lane; b < n_hi; b += 32) acc += s[(3 + a) * nb + b];
+      }
+    } else {
+      const float* lo = s + (j == 0 ? 0 : q < a ? 3 + q : 2) * nb;
+      for (int b = lane; b < nb; b += 32) {
+        acc += (j > 1 && q >= a ? zsign(b, q - a) : 1.0f) * lo[b];
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      acc += __shfl_down_sync(0xffffffffu, acc, off);
+    }
+    if (lane == 0) o[j] = (float)(j == 1 ? 2.0 * acc : acc);
+  }
+}
 
 }  // namespace
 
@@ -127,9 +185,12 @@ int floquet_general_echo(void* state, const void* tiles, const void* fold,
       (cudaStream_t)stream_ptr);
 }
 
-// Sizes the wrapper allocates: block slots per lane of the K5 partials.
+// Sizes the wrapper allocates: K5's partial slots per trajectory and cycle
+// (Obs, floquet_echo.cuh): 3 + a lanes of pass lo's 2^(L-a) blocks, then
+// pass hi's 2^a / kW, a = lo_bits(L).
 int floquet_general_observables_slots(int L) {
-  return (1 << (L - lo_bits(L))) + (1 << lo_bits(L)) / kW;
+  const int a = lo_bits(L);
+  return (3 + a) * (1 << (L - a)) + (1 << a) / kW;
 }
 
 // K5: per cycle t < T, the observables of the state before the cycle's
@@ -138,52 +199,64 @@ int floquet_general_observables_slots(int L) {
 //
 // What bounds it: the steps are K4's (two read+write sweeps of the state
 // per step, the butterflies' operations); the measure adds no sweep of its
-// own. It rides the passes of each cycle's first slot, which read the
-// state anyway: pass lo, before its kick, sums |psi|^2 E(s), |psi|^2 z_q
-// and the x pairs of the tile's low bits; pass hi, before its kick, the x
-// pairs of the high bits. The last cycle runs the two passes as a measure
-// only. Per cycle a fixed-order reduce turns the block slots into one row.
+// own. It runs the steps on the step passes of floquet_echo.cuh
+// (launch_steps on the resident plan a = lo_bits(L), b = 0, with
+// GeneralEcho<ObsRows>; one diagonal per step from the forward_fold rows,
+// phase tables, swizzled rounds fused into the load and the store), and a
+// cycle's first step measures the state it loads (Obs): pass lo the
+// energy, the probability and the z_q and x pairs of its bits, pass hi the
+// x pairs of its bits, each in the round that holds the bit, before its
+// butterflies. The last cycle's first step is measured only: its passes
+// read the state and store nothing (the same two reads as a measure of
+// its own; a whole step would write twice more for nothing). Cycles go in
+// chunks of `chunk`, each ending in one fixed-order reduce
+// (obs_reduce_kernel): the wrapper sizes the chunk so that the partials
+// stay within a quarter of the states' bytes.
 //
 // state: n_traj x 2^L complex64 scratch; rows: n_traj x rows_per_traj x
-// 128 f32 (K4 forward rows, T*K of them); erow: n_traj x 128 f32 energy
-// rows; part: n_traj x (2+L) x floquet_general_observables_slots(L) f32,
-// zeroed; out: T x n_traj x (2+L) f32, lanes e_diag, x_sum, z_0..z_{L-1}
-// (x_sum = 0 when with_x == 0).
+// 128 f32 (K4 forward rows, T*K of them); fold: n_traj x fold_rows x 2L
+// f32, the step diagonals (ops/echo_fold.py::forward_fold, fold_rows =
+// T*K + 1); erow: n_traj x 128 f32 energy rows; part: n_traj x chunk x
+// floquet_general_observables_slots(L) f32 scratch; out: n_traj x T x
+// (2+L) f32, lanes e_diag, x_sum, z_0..z_{L-1} (x_sum = 0 when with_x ==
+// 0). Returns cudaErrorInvalidValue without a launch outside 14 <= L <= 23,
+// T < 1, rows_per_traj not K per cycle, fold_rows short of the last step's
+// row, or chunk < 1.
 int floquet_general_observables(void* state, const void* rows,
-                                const void* erow, void* part, void* out,
-                                int n_traj, int L, int rows_per_traj, int T,
-                                int with_x, int64_t b0, void* stream_ptr) {
-  if (lo_bits(L) > kMaxLo || L - lo_bits(L) < 1 || rows_per_traj % T != 0) {
+                                const void* fold, const void* erow,
+                                void* part, void* out, int n_traj, int L,
+                                int rows_per_traj, int fold_rows, int T,
+                                int chunk, int with_x, int64_t b0,
+                                void* stream_ptr) {
+  if (L < 14 || L > 23 || T < 1 || rows_per_traj % T != 0 || chunk < 1) {
     return (int)cudaErrorInvalidValue;
   }
+  const int K = rows_per_traj / T;
+  const int last = (T - 1) * K;  // the last cycle's first step
+  if (K < 1 || fold_rows < last + 2) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   float2* st = (float2*)state;
-  const int64_t N = (int64_t)1 << L;
-  const int K = rows_per_traj / T;
-  const int nq = 2 + L;
-  init_kernel<<<dim3(256, n_traj), kThreads, 0, stream>>>(st, N, b0);
+  const int a = lo_bits(L);
+  const int slots = floquet_general_observables_slots(L);
+  const Fold f{(const float*)fold, (int64_t)fold_rows * 2 * L, false};
+  const GeneralEcho<ObsRows> policy{{K}};
+  init_kernel<<<dim3(256, n_traj), kThreads, 0, stream>>>(
+      st, (int64_t)1 << L, b0);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  Obs obs{(const float*)erow, (float*)part,
-          floquet_general_observables_slots(L), with_x, 1};
-  const int64_t n_rows = (int64_t)n_traj * nq;
-  for (int t = 0; t < T; ++t) {
-    obs.apply = t < T - 1;
-    e = launch_passes<true>(st, L, (const float*)rows, rows_per_traj, n_traj,
-                            t * K, 0, 0, nullptr, T, obs, stream);
-    for (int k = 1; e == cudaSuccess && obs.apply && k < K; ++k) {
-      e = launch_step(st, L, (const float*)rows, rows_per_traj, n_traj,
-                      t * K + k, 0, 0, nullptr, T, stream);
-    }
-    if (e != cudaSuccess) return (int)e;
-    reduce_kernel<<<(unsigned)((n_rows + kThreads - 1) / kThreads), kThreads,
-                    0, stream>>>((const float*)part,
-                                 (float*)out + (int64_t)t * n_rows, n_rows,
-                                 obs.nb, 0, 0.0f);
+  for (int t0 = 0; e == cudaSuccess && t0 < T; t0 += chunk) {
+    const int c = T - t0 < chunk ? T - t0 : chunk;
+    const int to = (t0 + c) * K < last + 1 ? (t0 + c) * K : last + 1;
+    e = launch_steps<kW>(
+        st, L, a, 0, (const float*)rows, rows_per_traj, f, n_traj, t0 * K,
+        to, policy,
+        Obs{(const float*)erow, (float*)part, t0, c, slots, last, with_x},
+        stream);
+    if (e != cudaSuccess) break;
+    obs_reduce_kernel<<<dim3(c, n_traj), kThreads, 0, stream>>>(
+        (const float*)part, (float*)out, L, a, T, t0, slots, with_x);
     e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
   }
-  return 0;
+  return (int)e;
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
-// The two passes of one lab-frame step, shared by floquet_general.cu (K4
-// forward and echo over whole trajectories, K5's measuring instances) and
-// floquet_cycle.cu (K8c/K8d: the K slots of one cycle on a shard's local
-// bits):
+// The two passes of one lab-frame step, shared by floquet_general.cu (K4's
+// forward over whole trajectories; its step rows also feed K4's echo and
+// K5 on the step passes of floquet_echo.cuh) and floquet_cycle.cu (K8c/K8d:
+// the K slots of one cycle on a shard's local bits):
 //   pass lo: a block owns 2^k1 consecutive amplitudes and applies the
 //            [pre diagonal and] kick on bits [0, k1) in shared memory;
 //   pass hi: a block owns kW low columns x all 2^n2 high values, applies
@@ -10,7 +10,6 @@
 // A step's rows: forward, row `step` is the kick and diagonal row and the
 // partial goes where its MPOS lane says (-1: none); echo, rows 2*step (pre)
 // and 2*step+1 (post), while step < COUNT (lane FO+10 of the pair's row 0).
-// K5's measure rides the passes of a cycle's first slot (kObs).
 //
 // Include after floquet_common.cuh and floquet_lab.cuh; the definitions sit
 // in an anonymous namespace of their own.
@@ -23,7 +22,6 @@
 namespace {
 
 constexpr int kMaxL = 32;
-constexpr int kMaxLo = 12;     // pass-lo tile bits L - L/2 for L <= 23 (K5)
 
 // The rows of one pair's step. Forward (echo == 0): row `step` is both the
 // kick row and the diagonal row. Echo: rows 2*step (pre: pre diagonal and
@@ -55,109 +53,10 @@ __device__ __forceinline__ StepRows step_rows(const float* rows, int L,
   return r;
 }
 
-// K5's measure of one cycle, riding the passes of the cycle's first slot.
-// part: per trajectory (2 + L) lanes x nb block slots, zeroed by the
-// wrapper; lane 0 sum |psi|^2 E(s), lane 1 sum_q <X_q>, lane 2+q <Z_q>.
-// Pass-lo block b writes slot b of every lane; pass-hi block b adds its x
-// pairs to slot 2^(L-k1) + b of lane 1. The slots are summed in order by
-// reduce_kernel (floquet_common.cuh).
-struct Obs {
-  const float* erow;  // n x 128 energy rows: th [0, L), tph [L, 2L-1)
-  float* part;
-  int nb;             // 2^(L-k1) + 2^k1/kW slots per lane
-  int with_x;         // 0: no x pairs (lane 1 stays 0)
-  int apply;          // 0: measure only, no kick (the last cycle)
-};
-
-// Pass lo, before the kick: the block holds amplitudes (hi << k1) + i.
-// E(s) splits as in the diagonal: the high bits' part and the straddling
-// bond's sign are fixed per block. z_q of a high bit is the block's
-// probability times its sign; the x pairs of bits q < k1 lie in the tile.
-__device__ void measure_lo(const float2* tile, int L, int k1, int64_t hi,
-                           int pair, const Obs& o) {
-  __shared__ float th[kMaxL], tph[kMaxL];
-  __shared__ float red[kMaxLo + 3][kThreads / 32];
-  const float* e = o.erow + (int64_t)pair * kRowWidth;
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    th[i] = e[i];
-    if (i < L - 1) tph[i] = e[L + i];
-  }
-  __syncthreads();  // the tile and the coefficients are in place
-  const float e_hi = angle_bits(th, tph, hi, k1, L - k1);
-  const float cs = tph[k1 - 1] * zsign(hi, 0);
-  float acc[kMaxLo + 3];  // E, x pairs, probability, z_q for q < k1
-#pragma unroll
-  for (int j = 0; j < kMaxLo + 3; ++j) acc[j] = 0.0f;
-  for (int i = threadIdx.x; i < (1 << k1); i += blockDim.x) {
-    const float2 v = tile[i];
-    const float p = v.x * v.x + v.y * v.y;
-    acc[0] += p * (e_hi + angle_bits(th, tph, i, 0, k1)
-                   + cs * zsign(i, k1 - 1));
-    acc[2] += p;
-#pragma unroll
-    for (int q = 0; q < kMaxLo; ++q) {
-      if (q < k1) {
-        acc[3 + q] += p * zsign(i, q);
-        if (o.with_x && !((i >> q) & 1)) {
-          const float2 w = tile[i | (1 << q)];
-          acc[1] += v.x * w.x + v.y * w.y;
-        }
-      }
-    }
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < kMaxLo + 3; ++j) {
-    float x = acc[j];
-    for (int off = 16; off > 0; off >>= 1) {
-      x += __shfl_down_sync(0xffffffffu, x, off);
-    }
-    if (lane == 0) red[j][warp] = x;
-  }
-  __syncthreads();
-  float* part = o.part + (int64_t)pair * (2 + L) * o.nb + blockIdx.x;
-  for (int j = threadIdx.x; j < 2 + L; j += blockDim.x) {
-    const int q = j - 2;
-    const int src = j < 2 ? j : (q < k1 ? 3 + q : 2);
-    float sum = 0.0f;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) sum += red[src][w];
-    if (j == 1) sum *= 2.0f;  // <X_q> = 2 Re sum conj(psi_s) psi_{s^2^q}
-    if (j >= 2 && q >= k1) sum *= zsign(hi, q - k1);
-    part[(int64_t)j * o.nb] = sum;
-  }
-}
-
-// Pass hi, after the low kick and before the high one: the x pairs of the
-// bits q >= k1 (tile bits 2.., tile index h * kW + w). The low kick acts
-// on other qubits and commutes with these X_q, so <X_q> is still the
-// cycle's.
-__device__ void measure_hi(const float2* tile, int L, int n2, int pair,
-                           const Obs& o, float* red) {
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < (kW << n2); i += blockDim.x) {
-    const float2 v = tile[i];
-    for (int b = 2; b < n2 + 2; ++b) {
-      if (!((i >> b) & 1)) {
-        const float2 w = tile[i | (1 << b)];
-        acc += v.x * w.x + v.y * w.y;
-      }
-    }
-  }
-  const float tot = block_sum(acc, red);  // ends in __syncthreads
-  if (threadIdx.x == 0) {
-    o.part[((int64_t)pair * (2 + L) + 1) * o.nb + (1 << n2) + blockIdx.x] =
-        2.0f * tot;
-  }
-}
-
-// Pass lo: [pre diagonal] then the kick on bits [0, k1); with kObs, K5's
-// measure first.
-template <bool kObs>
+// Pass lo: [pre diagonal] then the kick on bits [0, k1).
 __global__ void pass_lo_kernel(float2* __restrict__ st, int L, int k1,
                                const float* __restrict__ rows,
-                               int64_t rows_per_pair, int step, int echo,
-                               Obs obs) {
+                               int64_t rows_per_pair, int step, int echo) {
   extern __shared__ float2 tile[];
   __shared__ float cz[kMaxL], cb[kMaxL], c0;
   __shared__ Mat2 mats[kMaxL];
@@ -169,10 +68,6 @@ __global__ void pass_lo_kernel(float2* __restrict__ st, int L, int k1,
   const int n = 1 << k1;
   float2* g = st + (int64_t)pair * N + (hi << k1);
   for (int i = threadIdx.x; i < n; i += blockDim.x) tile[i] = g[i];
-  if constexpr (kObs) {
-    measure_lo(tile, L, k1, hi, pair, obs);
-    if (!obs.apply) return;
-  }
   load_mats(r.kick, L, mats);
   if (r.pre != nullptr) {
     load_coeffs(r.pre, L, cz, cb, &c0);
@@ -193,14 +88,11 @@ __global__ void pass_lo_kernel(float2* __restrict__ st, int L, int k1,
 
 // Pass hi: the kick on bits [k1, L), the (post) diagonal, and (forward, on
 // a row with MPOS >= 0, when partials are given) the partial sum of
-// |psi|^2 z_q into partials[(pair * T + MPOS) * nblk + bx]; with kObs,
-// K5's high-bit x pairs first.
-template <bool kObs>
+// |psi|^2 z_q into partials[(pair * T + MPOS) * nblk + bx].
 __global__ void pass_hi_kernel(float2* __restrict__ st, int L, int k1,
                                const float* __restrict__ rows,
                                int64_t rows_per_pair, int step, int echo,
-                               int q, float* __restrict__ partials, int T,
-                               Obs obs) {
+                               int q, float* __restrict__ partials, int T) {
   extern __shared__ float2 tile[];  // [2^n2][kW]
   __shared__ float cz[kMaxL], cb[kMaxL], c0, th_lo[kW], red[kThreads / 32];
   __shared__ Mat2 mats[kMaxL];
@@ -218,10 +110,6 @@ __global__ void pass_hi_kernel(float2* __restrict__ st, int L, int k1,
   load_coeffs(r.post, L, cz, cb, &c0);
   load_mats(r.kick, L, mats);
   __syncthreads();
-  if constexpr (kObs) {
-    if (obs.with_x) measure_hi(tile, L, n2, pair, obs, red);
-    if (!obs.apply) return;
-  }
   if (threadIdx.x < kW) {
     th_lo[threadIdx.x] = c0 + angle_bits(cz, cb, o + threadIdx.x, 0, k1);
   }
@@ -258,41 +146,28 @@ __global__ void pass_hi_kernel(float2* __restrict__ st, int L, int k1,
   }
 }
 
-// One step's two passes; with obs (K5, the first slot of a cycle) the
-// measuring instances, and no pass hi when it has nothing to do.
-template <bool kObs>
-cudaError_t launch_passes(float2* st, int L, const float* rows,
-                          int64_t rows_per_pair, int n_pairs, int step,
-                          int echo, int q, float* partials, int T,
-                          const Obs& obs, cudaStream_t stream) {
+// One step's two passes.
+cudaError_t launch_step(float2* st, int L, const float* rows,
+                        int64_t rows_per_pair, int n_pairs, int step, int echo,
+                        int q, float* partials, int T, cudaStream_t stream) {
   const int k1 = lo_bits(L);
   const int n2 = L - k1;
   const size_t smem_lo = sizeof(float2) << k1;
   const size_t smem_hi = (sizeof(float2) * kW) << n2;
   cudaError_t e = cudaFuncSetAttribute(
-      pass_lo_kernel<kObs>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pass_lo_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_lo);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(pass_hi_kernel<kObs>,
+  e = cudaFuncSetAttribute(pass_hi_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem_hi);
   if (e != cudaSuccess) return e;
-  pass_lo_kernel<kObs><<<dim3(1u << n2, n_pairs), kThreads, smem_lo,
-                         stream>>>(st, L, k1, rows, rows_per_pair, step, echo,
-                                   obs);
-  if (!kObs || obs.apply || obs.with_x) {
-    pass_hi_kernel<kObs><<<dim3((1u << k1) / kW, n_pairs), kThreads, smem_hi,
-                           stream>>>(st, L, k1, rows, rows_per_pair, step,
-                                     echo, q, partials, T, obs);
-  }
+  pass_lo_kernel<<<dim3(1u << n2, n_pairs), kThreads, smem_lo, stream>>>(
+      st, L, k1, rows, rows_per_pair, step, echo);
+  pass_hi_kernel<<<dim3((1u << k1) / kW, n_pairs), kThreads, smem_hi,
+                   stream>>>(st, L, k1, rows, rows_per_pair, step, echo, q,
+                             partials, T);
   return cudaGetLastError();
-}
-
-cudaError_t launch_step(float2* st, int L, const float* rows,
-                        int64_t rows_per_pair, int n_pairs, int step, int echo,
-                        int q, float* partials, int T, cudaStream_t stream) {
-  return launch_passes<false>(st, L, rows, rows_per_pair, n_pairs, step, echo,
-                              q, partials, T, Obs{}, stream);
 }
 
 }  // namespace

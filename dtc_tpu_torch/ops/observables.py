@@ -3,8 +3,9 @@
 Port of ``dtc_tpu/ops/pallas_observables.py``
 (``observables_forward_batch``). Its Pallas kernel (``_make_obs_kernel``)
 becomes a third entry of the hand-written CUDA family of K4,
-``csrc/floquet_general.cu`` (``floquet_general_observables``), which reuses
-K4's forward step; beside it is the plain PyTorch version
+``csrc/floquet_general.cu`` (``floquet_general_observables``), which runs
+K4's forward steps on the step passes of ``csrc/floquet_echo.cuh`` and
+measures in them; beside it is the plain PyTorch version
 ``observables_forward_batch_ref``, which consumes the same rows and
 computes the same algebra with tensor ops.
 
@@ -22,6 +23,10 @@ cycle's kicks:
 then, for t < T-1, the cycle's K steps of K4 (kick X_m U^{(x)L}, then the
 row's diagonal). The caller forms E = e_diag + x_coeff * x_sum.
 
+The kernel takes, beside the rows, their step diagonals
+(``ops/echo_fold.py::forward_fold``) and partials for a chunk of cycles
+(``chunk_cycles``), summed once a chunk.
+
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
 kernel or raises. The entry counts its launches in ``LAUNCHES``; the plain
 version counts the calls it gets on CUDA tensors in ``PLAIN_ON_CUDA``.
@@ -32,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from dtc_tpu_torch.core.statevector import basis_index
+from dtc_tpu_torch.ops.echo_fold import forward_fold
 from dtc_tpu_torch.ops.gates import expect_x
 from dtc_tpu_torch.ops.params import WIDTH
 from dtc_tpu_torch.ops.resident_blocked import (
@@ -49,6 +55,7 @@ from dtc_tpu_torch.ops.resident_general import (
     MIN_L,
     _kick,
     _row_angles,
+    row_coeffs,
 )
 
 LAUNCHES = {"observables": 0}
@@ -72,6 +79,13 @@ def check_range(L: int, T: int, steps: int) -> None:
                          f"{MAX_STEPS} (got {steps})")
     if T < 1 or steps % T:
         raise ValueError(f"{steps} step rows are not K per cycle for T={T}")
+
+
+def chunk_cycles(L: int, T: int, slots: int) -> int:
+    """Cycles whose partials (``slots`` f32 per trajectory and cycle) one
+    launch keeps before a reduce: as many as stay within a quarter of a
+    state's bytes (2^L complex64), at least one, at most T."""
+    return max(1, min(T, (8 << L) // 4 // (4 * slots)))
 
 
 def energy_row(th, tph, L: int) -> torch.Tensor:
@@ -137,15 +151,18 @@ def observables_forward_batch(rows, erow, *, L, T, initial_state="vacuum",
     lib = _build.load("floquet_general")
     dev = rows.device
     coef = erow.to(dev, torch.float32).expand(*batch, WIDTH).contiguous()
+    # step k's diagonal is fold row k + 1
+    fold = forward_fold(rows.view(n, S, WIDTH), L, row_coeffs)
+    slots = lib.floquet_general_observables_slots(L)
+    chunk = chunk_cycles(L, T, slots)
     state = torch.empty((n, 1 << L), dtype=torch.complex64, device=dev)
-    part = torch.zeros((n, 2 + L, lib.floquet_general_observables_slots(L)),
-                       dtype=torch.float32, device=dev)
-    out = torch.empty((T, n, 2 + L), dtype=torch.float32, device=dev)
+    part = torch.empty((n, chunk, slots), dtype=torch.float32, device=dev)
+    out = torch.empty((n, T, 2 + L), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.floquet_general_observables(
-        state.data_ptr(), rows.data_ptr(), coef.data_ptr(), part.data_ptr(),
-        out.data_ptr(), n, L, S, T, int(bool(with_x)),
-        basis_index(L, initial_state), stream)
+        state.data_ptr(), rows.data_ptr(), fold.data_ptr(), coef.data_ptr(),
+        part.data_ptr(), out.data_ptr(), n, L, S, fold.shape[1], T, chunk,
+        int(bool(with_x)), basis_index(L, initial_state), stream)
     LAUNCHES["observables"] += 1
     raise_on(err, "floquet_general_observables")
-    return _split_out(out.transpose(0, 1).reshape(*batch, T, 2 + L))
+    return _split_out(out.reshape(*batch, T, 2 + L))

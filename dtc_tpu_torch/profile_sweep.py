@@ -10,7 +10,10 @@ the streamed lab-frame family K10 at 24 <= L <= 29):
   copied to the host as ``bench.py`` does;
 - ``echo``: the ``autocorr`` echo sweep of 2 instances x n_trajectories;
 - ``energy_level``: one noise level (p=0.05, the full Hamiltonian) of the
-  ``energy`` sweep on 1 instance x n_trajectories (K5 on its range).
+  ``energy`` sweep on 1 instance x n_trajectories (K5 on its range: the
+  step passes ``echo_lo_kernel`` and ``echo_hi_kernel``, a cycle's first
+  step measuring in them, and one ``obs_reduce_kernel`` a chunk of
+  cycles).
 
 Above K1/K2's range (L >= 24, the streamed x family, and for the other
 drives the streamed lab-frame family) a whole echo sweep takes minutes, so

@@ -237,16 +237,26 @@ def test_general_autocorr_on_card_runs_k4_and_matches_cpu(cuda_device, pol):
         np.testing.assert_allclose(got[k], ref[k], atol=TOL, rtol=0)
 
 
-OBS_CASES = [(14, "x", "vacuum", "full", 0.0),
-             (14, "circular_left", "neel", "x_only", 0.3),
-             (17, "y", "neel", "z_zz", 0.3), (17, "xy", "vacuum", "full", 0.3),
-             (20, "x", "vacuum", "full", 0.3),
-             (20, "xy", "neel", "x_only", 0.0),
-             (23, "y", "vacuum", "full", 0.3),
-             (23, "circular_left", "vacuum", "z_zz", 0.0)]
+# (L, drive, state, component, p, T); 3 trajectories of different rows
+# each. The range's ends (pass lo's tile of 2^7 and 2^12 amplitudes, two
+# tuples a thread in some rounds from L = 16), K = 1 and K = 2 (xy,
+# circular_left), with_x off (z_zz), T = 1 (the measure only) and T*K past
+# one reduce chunk (``obs.chunk_cycles``: 6 cycles at L = 14, 132 at 23).
+OBS_CASES = [(14, "x", "vacuum", "full", 0.0, 4),
+             (14, "circular_left", "neel", "x_only", 0.3, 4),
+             (14, "xy", "vacuum", "full", 0.3, 1),
+             (14, "xy", "neel", "full", 0.3, 20),
+             (17, "y", "neel", "z_zz", 0.3, 4),
+             (17, "xy", "vacuum", "full", 0.3, 4),
+             (20, "x", "vacuum", "full", 0.3, 4),
+             (20, "xy", "neel", "x_only", 0.0, 4),
+             (22, "xy_cycle", "neel", "full", 0.3, 3),
+             (23, "y", "vacuum", "full", 0.3, 3),
+             (23, "circular_left", "vacuum", "z_zz", 0.0, 3),
+             (23, "x", "neel", "full", 0.3, 133)]
 
 
-def _obs_inputs(device, L, pol, component, p, T, inst=1, n=2):
+def _obs_inputs(device, L, pol, component, p, T, inst=1, n=3):
     hs, phis = generate_disorder(L, inst, seed=7)
     hs = torch.as_tensor(hs[:, :L], device=device)
     phis = torch.as_tensor(phis[:, :L - 1], device=device)
@@ -271,12 +281,13 @@ def _held_obs(k, ref, L, scale):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L,pol,state,component,p", OBS_CASES)
+@pytest.mark.parametrize("L,pol,state,component,p,T", OBS_CASES)
 def test_observables_kernel_matches_plain_on_card(cuda_device, L, pol, state,
-                                                  component, p):
-    T = 4 if L < 23 else 3
+                                                  component, p, T):
     rows, erow, with_x, scale = _obs_inputs(cuda_device, L, pol, component,
                                             p, T)
+    if p > 0:  # the trajectories' rows differ
+        assert not torch.equal(rows[0, 0], rows[0, 1])
     launches = obs.LAUNCHES["observables"]
     k = obs.observables_forward_batch(rows, erow, L=L, T=T,
                                       initial_state=state, with_x=with_x)
@@ -288,6 +299,47 @@ def test_observables_kernel_matches_plain_on_card(cuda_device, L, pol, state,
     _held_obs(k, ref, L, scale)
     if not with_x:
         assert not k[1].any()
+
+
+@pytest.mark.cuda
+def test_observables_entry_checks_its_range(cuda_device):
+    """The C entry returns cudaErrorInvalidValue (1) without a launch for
+    arguments out of its range: L, T, rows not K per cycle, fold rows short
+    of the last step's, a chunk below 1; in range it launches (0)."""
+    from dtc_tpu_torch.ops import _build
+
+    from dtc_tpu_torch.ops.params_general import LANE_U8, flag_base
+
+    lib = _build.load("floquet_general")
+    L, T, K = 14, 3, 2
+    dev = cuda_device
+    slots = lib.floquet_general_observables_slots(L)
+    state = torch.zeros((1, 1 << L), dtype=torch.complex64, device=dev)
+    rows = torch.zeros((1, T * K, 128), device=dev)
+    u8 = flag_base(L) + LANE_U8
+    rows[..., u8] = rows[..., u8 + 6] = 1.0  # U = 1, no noise, h = phi = 0
+    fold = torch.zeros((1, T * K + 1, 2 * L), device=dev)
+    erow = torch.zeros((1, 128), device=dev)
+    part = torch.zeros((1, T, slots), device=dev)
+    out = torch.full((1, T, 2 + L), 7.0, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call(L=L, S=T * K, fold_rows=T * K + 1, T=T, chunk=T):
+        return lib.floquet_general_observables(
+            state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
+            erow.data_ptr(), part.data_ptr(), out.data_ptr(), 1, L, S,
+            fold_rows, T, chunk, 1, 0, stream)
+
+    for bad in (dict(L=13), dict(L=24), dict(T=0), dict(S=T * K + 1),
+                dict(S=0), dict(fold_rows=(T - 1) * K + 1), dict(chunk=0)):
+        assert call(**bad) == 1, bad
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full_like(out, 7.0))  # nothing ran
+    assert call() == 0
+    torch.cuda.synchronize()
+    # the identity steps keep the vacuum: z_q = 1, no energy, no x pairs
+    assert torch.equal(out[..., 2:], torch.ones_like(out[..., 2:]))
+    assert not out[..., :2].any()
 
 
 @pytest.mark.cuda

@@ -1,0 +1,323 @@
+"""K5's measure order on the step passes of ``csrc/floquet_echo.cuh``.
+
+``floquet_general_observables`` runs K4's forward steps on the resident
+plan (pass lo on bits [0, a), a = lo_bits(L), pass hi on [a, L)): a step is
+the kick, pass by pass in the rounds of ``swz_kick``, then row k + 1 of
+``forward_fold``. A step that opens cycle t measures the state it loads
+(``Obs``): pass lo's first round, on the amplitudes it loads, sums
+|psi|^2 E(s) and each block's |psi|^2 (a qubit above the tile has one sign
+a block: the reduce expands z_q, q >= a, from those); every round, before
+its butterflies, sums |psi|^2 z_q (pass lo) and the x pairs of its own
+bits. The butterflies before that point act on other qubits, so what each
+round reads is the cycle's. The last cycle is measured only.
+
+Here, on the CPU, a plain loop in that order, with the rounds read from
+the header, is held against the plain version
+``observables_forward_batch_ref`` (1e-5: the same sums in another order,
+the diagonals rounded once) at L = 14, 15 and 16 on their own plans, and at
+L = 15 on the round splits of every L of the range (16-23: pass lo's split
+of lo_bits(L) bits and pass hi's of L - lo_bits(L)); and against JAX's
+interpret K5 at L = 17, the lowest L it takes (1e-4, the bound of
+``test_torch_forward_fold.py``).
+For every L from 14 to 23 the replay checks that each qubit's x pair is read
+exactly once and before its own butterfly. The C that the replay mirrors
+(the split, the hook's place in ``swz_round``, K5's plan) is held to the
+headers. e_diag reaches sum|th| + sum|tph| (60-70 here), so it is held to
+the bound times that scale over 10 (the f32 sums on either side round at
+~1e-7 of it); z_q and x_sum to the bound. The kernel itself is held
+against the plain version on the card by
+``test_torch_kernels_cuda.py::test_observables_kernel_matches_plain_on_card``.
+"""
+
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dtc_tpu.io.disorder import generate_disorder
+from dtc_tpu.models import hamiltonian as j_ham
+from dtc_tpu.models.drives import build_kick_schedule as j_sched
+from dtc_tpu.ops.pallas_observables import (
+    observables_forward_batch as j_obs,
+)
+from dtc_tpu_torch.core.statevector import basis_index
+from dtc_tpu_torch.models import hamiltonian
+from dtc_tpu_torch.models.drives import build_kick_schedule
+from dtc_tpu_torch.ops import observables as obs
+from dtc_tpu_torch.ops import resident_blocked as rb
+from dtc_tpu_torch.ops import resident_general as rg
+from dtc_tpu_torch.ops.echo_fold import forward_fold
+from dtc_tpu_torch.ops.params_general import (
+    LANE_U8,
+    flag_base,
+    general_forward_rows,
+)
+
+torch.set_num_threads(2)
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "dtc_tpu_torch", "csrc")
+T = 3
+
+
+def _header(name) -> str:
+    """A header of ``csrc`` with its whitespace runs made single spaces."""
+    with open(os.path.join(CSRC, name)) as f:
+        return " ".join(f.read().split())
+
+
+# The C the replay mirrors, whitespace made single: the measure hook of a
+# round before its butterflies, the two passes' calls of swz_kick under Obs,
+# and K5's plan (a = lo_bits(L), b = 0) with the steps of a chunk.
+MIRRORED = {
+    "floquet_echo.cuh": [
+        "meas.template tuple<NB, kIn>(base, b, v); #pragma unroll for (int k "
+        "= 0; k < NB; ++k) { #pragma unroll for (int j = 0; j < M; ++j) { if "
+        "(!(j & (1 << k))) bf(k, v[j], v[j | (1 << k)]); } }",
+        "swz_kick( tile, k1, 0, k1, kick, in, [&](int base, int jb, float2 "
+        "v) { if (store) out(base, jb, v); }, meas);",
+        "obs_hi(tile, n2 + kc, kc, n2,",
+        "swz_round_n<true, false>(nb0, tile, tbits, b0, b0, kick, in, out, "
+        "meas);"],
+    "floquet_common.cuh": ["int lo_bits(int L) { return L - L / 2; }"],
+    "floquet_general.cu": [
+        "const int a = lo_bits(L);",
+        "const int last = (T - 1) * K;",
+        "const int to = (t0 + c) * K < last + 1 ? (t0 + c) * K : last + 1; "
+        "e = launch_steps<kW>( st, L, a, 0, (const float*)rows, "
+        "rows_per_traj, f, n_traj, t0 * K, to, policy,",
+        "return step % K == 0 ? step / K : -1;"],
+}
+
+
+def _split_exprs():
+    """swz_kick's round counts, read from the header as Python expressions
+    of n (bits), rounds and i (the round): rounds, the first round's bits
+    and a middle round's."""
+    m = re.search(r"const int rounds = (.+?); const int nb0 = (.+?); .*?"
+                  r"const int nb = (.+?); swz_round_n<false, false>",
+                  _header("floquet_echo.cuh"))
+    assert m, "swz_kick's split not found in floquet_echo.cuh"
+
+    def py(e):
+        e = re.sub(r"\((.+?) \? (.+?) : (.+?)\)", r"((\2) if (\1) else (\3))",
+                   e)
+        return compile(e.replace("/", "//"), "floquet_echo.cuh", "eval")
+
+    return tuple(py(e) for e in m.groups())
+
+
+ROUNDS, NB0, NB = _split_exprs()
+
+
+def _rounds(n):
+    """The rounds of swz_kick over n bits as (first bit, bits), from the
+    header's expressions: the first, the middle ones, the last on the top
+    bits."""
+    r = eval(ROUNDS, {"n": n})
+    if r == 1:
+        return [(0, n)]
+    nb0 = eval(NB0, {"n": n, "rounds": r})
+    out, b = [(0, nb0)], nb0
+    for i in range(1, r - 1):
+        nb = eval(NB, {"n": n, "rounds": r, "i": i})
+        out.append((b, nb))
+        b += nb
+    out.append((b, n - b))
+    return out
+
+
+def _lo_bits(L):
+    return L - L // 2
+
+
+def _kick_bits(state, row, L, qubits):
+    """The step's 2x2 (U, rows swapped where the X-mask bit is 1) on the
+    given qubits of the (n, 2^L) states, one qubit at a time."""
+    u8 = row[:, flag_base(L) + LANE_U8:flag_base(L) + LANE_U8 + 8]
+    u = torch.complex(u8[:, 0::2], u8[:, 1::2]).reshape(-1, 2, 2)
+    n = state.shape[0]
+    for j in qubits:
+        m = torch.where(row[:, L + j, None, None] > 0.5, u.flip(-2), u)
+        s = state.reshape(n, 1 << (L - j - 1), 2, 1 << j)
+        state = torch.einsum("nab,nhbl->nhal", m.to(state.dtype), s)
+    return state.reshape(n, 1 << L)
+
+
+def _x_pairs(state, q):
+    """sum over s with bit q = 0 of Re conj(psi_s) psi_{s + 2^q}, per
+    state."""
+    s = state.reshape(state.shape[0], -1, 2, 1 << q)
+    return (s[:, :, 0].conj() * s[:, :, 1]).real.sum((1, 2))
+
+
+def _measured_step(L, a):
+    """The events of a measuring step in the kernel's order: per pass (bits
+    [0, a), then [a, L)), per round, ("read", q) for each of its qubits
+    before ("kick", q) for each."""
+    events = []
+    for lo, hi in ((0, a), (a, L)):
+        for b, nb in _rounds(hi - lo):
+            qs = range(lo + b, lo + b + nb)
+            events += [("read", q) for q in qs] + [("kick", q) for q in qs]
+    return events
+
+
+def _obs_pass_loop(rows, erow, L, a, initial_state, with_x):
+    """(e_diag, x_sum, zs) of K5 in the kernel's order on the plan a: each
+    step kicks pass lo's and pass hi's rounds (``_measured_step``), then
+    fold row k + 1; a step that opens a cycle measures E and the pass-lo
+    blocks' probabilities at the load (z_q, q >= a, one sign a block), the
+    z_q of pass lo's round bits and every round's x pairs at its "read";
+    the last cycle's first step is measured only."""
+    flat = rows.reshape(-1, *rows.shape[-2:])
+    n, S = flat.shape[:2]
+    K = S // T
+    fold = forward_fold(flat, L, rg.row_coeffs)
+    table = rb.angle_table(L, flat.device)  # z_q rows, then z_j z_{j+1}
+    coef = erow.expand(*rows.shape[:-2], erow.shape[-1]).reshape(n, -1)
+    energy = coef[:, :L] @ table[:L] + coef[:, L:2 * L - 1] @ table[L:]
+    sign_hi = table[a:L, ::1 << a]  # z_q of pass lo's blocks, q >= a
+    state = rb.basis_states(n, L, basis_index(L, initial_state), flat.device)
+    out = torch.zeros((n, T, 2 + L))
+    for step in range((T - 1) * K + 1):
+        t, k = divmod(step, K)
+        row = flat[:, step]
+        if k == 0:  # pass lo's load
+            prob = state.real ** 2 + state.imag ** 2
+            out[:, t, 0] = (prob * energy).sum(-1)
+            blocks = prob.reshape(n, 1 << (L - a), 1 << a).sum(-1)
+            out[:, t, 2 + a:] = blocks @ sign_hi.T
+        for what, q in _measured_step(L, a):
+            if what == "kick":
+                state = _kick_bits(state, row, L, [q])
+            elif k == 0:
+                if q < a:
+                    prob = state.real ** 2 + state.imag ** 2
+                    out[:, t, 2 + q] = prob @ table[q]
+                if with_x:
+                    out[:, t, 1] += 2 * _x_pairs(state, q)
+        if step == (T - 1) * K:
+            break  # measured only
+        f = fold[:, step + 1]
+        theta = f[:, -1:] + f[:, :-1] @ table
+        state = state * torch.polar(torch.ones_like(theta), theta)
+    out = out.reshape(*rows.shape[:-2], T, 2 + L)
+    return out[..., 0], out[..., 1], out[..., 2:]
+
+
+def _inputs(L, drive, component, uniforms=None, n=2, p=0.3, seed=11):
+    """(1, n, T*K, 128) rows of n trajectories of different uniforms (a
+    numpy seed unless given), (1, 1, 128) energy rows and with_x."""
+    hs, phis = generate_disorder(L, 1, seed=7)
+    hs = torch.from_numpy(hs[:, :L])
+    phis = torch.from_numpy(phis[:, :L - 1])
+    angles = build_kick_schedule(drive, 0.97, T, xy_cycle_period=1).angles
+    K = angles.shape[1]
+    if uniforms is None:
+        rng = np.random.default_rng(seed)
+        uniforms = torch.from_numpy(
+            rng.random((1, n, T * K, L), dtype=np.float32))
+    rows = general_forward_rows(uniforms, hs[:, None], phis[:, None],
+                                angles, L=L, T=T, K=K, p=p)
+    terms = hamiltonian.hamiltonian_terms(L, 0.97, hs[0], phis[0], component)
+    erow = obs.energy_row(terms.hs, terms.phis, L)[None, None]
+    return rows, erow, terms.x_coeff != 0.0
+
+
+def _held(got, want, tol, erow, L):
+    scale = float(erow[..., :2 * L - 1].abs().sum())
+    for name, a, b, t in zip(("e_diag", "x_sum", "zs"), got, want,
+                             (tol * scale / 10, tol, tol)):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=t, rtol=0,
+                                   err_msg=name)
+
+
+def test_round_split_mirrors_the_headers():
+    for header, snippets in MIRRORED.items():
+        text = _header(header)
+        for snippet in snippets:
+            assert snippet in text, (header, snippet)
+
+
+@pytest.mark.parametrize("L", range(14, 24))
+def test_round_split_reads_each_x_pair_once_before_its_butterfly(L):
+    a = _lo_bits(L)
+    for n in (a, L - a):
+        split = _rounds(n)
+        assert all(1 <= nb <= 3 for _, nb in split), split
+        assert [b for b, _ in split] == list(
+            np.cumsum([0] + [nb for _, nb in split[:-1]])), split
+        assert sum(nb for _, nb in split) == n, split
+    events = _measured_step(L, a)
+    reads = [q for what, q in events if what == "read"]
+    kicks = [q for what, q in events if what == "kick"]
+    assert sorted(reads) == sorted(kicks) == list(range(L))
+    for q in range(L):
+        assert events.index(("read", q)) < events.index(("kick", q)), q
+
+
+CASES = [(drive, comp, state) for drive in ("x", "xy", "xy_cycle")
+         for comp, state in (("full", "vacuum"), ("z_zz", "neel"))]
+
+
+@pytest.mark.parametrize("drive,component,initial_state", CASES)
+@pytest.mark.parametrize("L", [14, 15, 16])
+def test_obs_pass_order_matches_plain(L, drive, component, initial_state):
+    rows, erow, with_x = _inputs(L, drive, component)
+    assert with_x == (component == "full")
+    got = _obs_pass_loop(rows, erow, L, _lo_bits(L), initial_state, with_x)
+    want = obs.observables_forward_batch_ref(
+        rows, erow, L=L, T=T, initial_state=initial_state, with_x=with_x)
+    assert want[2].shape == (1, 2, T, L)
+    _held(got, want, 1e-5, erow, L)
+    assert not torch.equal(got[2][0, 0], got[2][0, 1])  # the rows differ
+    if not with_x:
+        assert not got[1].any()
+
+
+@pytest.mark.parametrize("pass_", ["lo", "hi"])
+@pytest.mark.parametrize("Lp", range(16, 24))
+def test_obs_pass_order_on_the_round_splits_of_the_range(Lp, pass_):
+    """At L=15, pass lo on lo_bits(Lp) bits or pass hi on Lp - lo_bits(Lp)
+    bits: the rounds of the plan at Lp."""
+    L = 15
+    a = _lo_bits(Lp) if pass_ == "lo" else L - (Lp - _lo_bits(Lp))
+    rows, erow, with_x = _inputs(L, "xy", "full", seed=Lp)
+    got = _obs_pass_loop(rows, erow, L, a, "neel", with_x)
+    want = obs.observables_forward_batch_ref(rows, erow, L=L, T=T,
+                                             initial_state="neel")
+    _held(got, want, 1e-5, erow, L)
+
+
+def _j_uniforms(keys, shape):
+    return torch.from_numpy(np.array(jax.vmap(jax.vmap(
+        lambda k: jax.random.uniform(k, shape, dtype=jnp.float32)))(keys)))
+
+
+@pytest.mark.parametrize("drive,component", [("y", "full"), ("xy", "z_zz")])
+def test_obs_pass_order_matches_reference_interpret(drive, component):
+    L, p = 17, 0.3
+    hs, phis = generate_disorder(L, 1, seed=7)
+    hs, phis = hs[:, :L], phis[:, :L - 1]
+    terms = j_ham.hamiltonian_terms(L, 0.97, hs[0], phis[0], component)
+    sched = j_sched(drive, 0.97, T)
+    K = sched.angles.shape[1]
+    with_x = float(terms.x_coeff) != 0.0
+    keys = jax.random.split(jax.random.PRNGKey(3), 2)
+    ref = j_obs(jnp.asarray(hs), jnp.asarray(phis),
+                jnp.asarray(terms.hs)[None], jnp.asarray(terms.phis)[None],
+                sched.angles, keys[None], L=L, T=T, K=K, p=p,
+                initial_state="vacuum", with_x=with_x, interpret=True)
+    rows, erow, port_x = _inputs(L, drive, component,
+                                 uniforms=_j_uniforms(keys[None], (T * K, L)),
+                                 p=p)
+    assert port_x == with_x
+    got = _obs_pass_loop(rows, erow, L, _lo_bits(L), "vacuum", with_x)
+    _held(got, [torch.from_numpy(np.array(r)) for r in ref], 1e-4, erow,
+          L)

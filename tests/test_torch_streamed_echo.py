@@ -194,7 +194,8 @@ def _header(name) -> str:
 # plans (``lo_bits`` for the resident echoes, ``plan_for`` for the streamed
 # ones, and the columns each entry's ``run_echo`` or ``run_steps`` takes: the
 # streamed lab-frame forward runs the echo's plan), the tile and bits
-# each pass hands ``swz_kick``, and ``swz_kick``'s rounds. A change to any of
+# each pass hands ``swz_kick`` (K5's measuring passes, ``obs_lo`` and
+# ``obs_hi``, the same), and ``swz_kick``'s rounds. A change to any of
 # it fails ``test_echo_swizzle_replay_mirrors_the_headers`` until the replay
 # follows it.
 MIRRORED = {
@@ -222,18 +223,20 @@ MIRRORED = {
         "(float2*)state, L, p.a, p.b,"],
     "floquet_echo.cuh": [
         "const int k0 = a + b; const int c = L - k0;",
-        "swz_kick( tile, k1, 0, k1, kick,",
+        "swz_kick(tile, k1, 0, k1, kick, in, out);",
+        "swz_kick( tile, k1, 0, k1, kick, in,",
         "swz_kick( tile, b + kc, kc, b, kick.from(a),",
-        "swz_kick( tile, n2 + kc, kc, n2, kick.from(k0),",
+        "swz_kick(tile, n2 + kc, kc, n2, kick.from(k0), in, out);",
+        "obs_hi(tile, n2 + kc, kc, n2,",
         "const int rounds = (n + 2) / 3; const int nb0 = n / rounds + "
         "(n % rounds > 0 ? 1 : 0); if (rounds == 1) { swz_round_n<true, "
-        "true>(n, tile, tbits, b0, b0, kick, in, out); return; } "
-        "swz_round_n<true, false>(nb0, tile, tbits, b0, b0, kick, in, out); "
-        "int b = b0 + nb0; for (int i = 1; i < rounds - 1; ++i) { const int "
-        "nb = n / rounds + (i < n % rounds ? 1 : 0); swz_round_n<false, "
-        "false>(nb, tile, tbits, b, b0, kick, in, out); b += nb; } "
-        "swz_round_n<false, true>(b0 + n - b, tile, tbits, b, b0, kick, in, "
-        "out);"],
+        "true>(n, tile, tbits, b0, b0, kick, in, out, meas); return; } "
+        "swz_round_n<true, false>(nb0, tile, tbits, b0, b0, kick, in, out, "
+        "meas); int b = b0 + nb0; for (int i = 1; i < rounds - 1; ++i) { "
+        "const int nb = n / rounds + (i < n % rounds ? 1 : 0); "
+        "swz_round_n<false, false>(nb, tile, tbits, b, b0, kick, in, out, "
+        "meas); b += nb; } swz_round_n<false, true>(b0 + n - b, tile, tbits, "
+        "b, b0, kick, in, out, meas);"],
 }
 
 
