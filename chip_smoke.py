@@ -39,7 +39,9 @@ each; any failure raises and the script exits non-zero without a result:
    K8a-d against their plain versions at L_loc = 17, 20, 23 (q = 0, L//2,
    15, L-1; vacuum and neel; chains of T=4 cycles, every partial held; the
    x echo through K8a/K8b and the general echo through K8d at p=0.6 and 0;
-   y, xy, circular_left, xy_cycle for K8c/K8d), and the sharded engines
+   K8a/K8b on rows folded with non-zero global angles, the echo's K8a
+   without a measure; y, xy, circular_left, xy_cycle for K8c/K8d), and the
+   sharded engines
    (shards sharing the card) against the unsharded kernels on the same
    uniforms: x at L=25 on 4 shards against the streamed x family, xy at
    L=24 on 2 shards against K10, x and xy at L=19 on 4 shards against
@@ -127,7 +129,8 @@ each; any failure raises and the script exits non-zero without a result:
    main paths' launches, with the peak memory; K3a on the ramp at L=14, 16
    and 20, T=51 x 32, and K3b on 32 pairs at t=12, each beside K4 on the
    same schedule and rows; K8a-d at L_loc=23 on 2 shards x 4 trajectories,
-   one cycle, beside K1 and K4 per cycle at L=23 on 8 trajectories; K9a/K9b
+   one cycle, beside K1 and K4 per cycle at L=23 on 8 trajectories, after
+   the registers and spills of every kernel of ``floquet_cycle.cu``; K9a/K9b
    and K10's shard-local forms (y and xy) at L_loc=28 on 2 shards x 2
    trajectories, one cycle, beside K6 and the one-card K10 per cycle at
    L=28 on 4 trajectories); K11 on the planar path's 32 states of
@@ -813,6 +816,18 @@ def cycle_x_rows(L, T, c, p, dev, seed):
     return rows_f, rows_i, csum[:, -1]
 
 
+def cycle_fold(rows, L, seed, inverse=False):
+    """K8a's (K8b's with ``inverse``) folded row pairs of compact rows (c,
+    width) with non-zero global angles: a shard's th_sc and th_bnd per
+    trajectory, uniform in [-pi, pi), from ``seed``."""
+    from dtc_tpu_torch.ops import cycle as cy
+
+    gen = torch.Generator(device=rows.device).manual_seed(seed)
+    th = (torch.rand((2, rows.shape[0]), generator=gen, device=rows.device)
+          - 0.5) * (2 * math.pi)
+    return cy.fold_cycle_rows(rows, L, *th, inverse=inverse)
+
+
 def held_chain(what, key, err, steps, L, state, dev, c=2):
     """Run each (kernel, plain) step on two copies of the basis state; a
     step returns its partial or None. Holds every partial and the final
@@ -880,9 +895,11 @@ def compare_cycle(dev, err) -> None:
     neel in turn: K8a over T=4 cycles and K8c (y, xy, circular_left,
     xy_cycle in turn) over T=4 cycles from the basis state, every cycle's
     partial (the first is one cycle's) and the final state held; the x echo
-    at t=2 (K8a twice, the turnaround conjugation, K8b twice on the inverse
-    rows) and K8d on every step of the general echo rows at t=2, at p=0.6
-    and 0 (the noiseless echo = 1). These launches are not the main
+    at t=2 (K8a twice without a measure, the turnaround conjugation, K8b
+    twice on the inverse rows) and K8d on every step of the general echo
+    rows at t=2, at p=0.6 and 0 (the noiseless echo = 1). K8a's and K8b's
+    rows are folded with non-zero global angles (``cycle_fold``); at p=0 the
+    echo's have none, as on a (1,1) mesh. These launches are not the main
     path's."""
     from dtc_tpu_torch.core.statevector import basis_index
     from dtc_tpu_torch.ops import cycle as cy
@@ -891,7 +908,7 @@ def compare_cycle(dev, err) -> None:
     drives = ("y", "xy", "circular_left", "xy_cycle")
     c = 2
 
-    def k8a(r, L, q):
+    def k8a(r, L, q=None):
         return (lambda s: cy.cycle_forward_apply(s, r, THETA, L=L, q=q)[1],
                 lambda s: cy.cycle_forward_apply_ref(s, r, THETA, L=L,
                                                      q=q)[1])
@@ -903,9 +920,10 @@ def compare_cycle(dev, err) -> None:
         for j, q in enumerate((0, L // 2, 15, L - 1)):
             state = ("vacuum", "neel")[(i + j) % 2]
             rows = cycle_x_rows(L, 4, c, 0.6, dev, seed=L + q)[0]
-            held_chain(f"K8a L_loc={L} T=4 {state} q={q} 1x{c}", "K8a", err,
-                       [k8a(r.contiguous(), L, q) for r in rows.unbind(1)], L,
-                       state, dev)
+            held_chain(f"K8a L_loc={L} T=4 {state} q={q} 1x{c} (global "
+                       "angles)", "K8a", err,
+                       [k8a(cycle_fold(r, L, seed=L + q + k), L, q)
+                        for k, r in enumerate(rows.unbind(1))], L, state, dev)
             pol = drives[(i + j) % 4]
             grows = general_forward_inputs(L, pol, 4, c, 0.6, dev,
                                            seed=L + j)[0]
@@ -922,15 +940,21 @@ def compare_cycle(dev, err) -> None:
         zq = rb.angle_table(L, dev)[q]
         for p in (0.6, 0.0):
             rows_f, rows_i, sig = cycle_x_rows(L, 4, c, p, dev, seed=L)
-            steps = [k8a(r.contiguous(), L, q)
-                     for r in rows_f[:, :2].unbind(1)]
+
+            def fold(r, seed, inverse=False):
+                if p == 0.0:
+                    return cy.fold_cycle_rows(r, L, inverse=inverse)
+                return cycle_fold(r, L, seed, inverse)
+
+            steps = [k8a(fold(r, L + k), L)
+                     for k, r in enumerate(rows_f[:, :2].unbind(1))]
             steps.append((conj, conj))
-            steps += [(no_partial(lambda s, r=r.contiguous():
+            steps += [(no_partial(lambda s, r=fold(r, L + k, True):
                                   cy.cycle_inverse_apply(s, r, THETA, L=L)),
-                       no_partial(lambda s, r=r:
+                       no_partial(lambda s, r=fold(r, L + k, True):
                                   cy.cycle_inverse_apply_ref(s, r, THETA,
                                                              L=L)))
-                      for r in rows_i[:, 2:].unbind(1)]
+                      for k, r in enumerate(rows_i[:, 2:].unbind(1))]
             st = held_chain(f"K8a/K8b echo L_loc={L} t=2 p={p} {state} q={q}"
                             f" 1x{c}", "K8b", err, steps, L, state, dev)
             echo = (s0 * rb._sigma_sign(sig, q)
@@ -2734,11 +2758,18 @@ def timing_cycle(dev, smi, err) -> dict:
     states read and written once (16 B per amplitude) and the rows.
     Operations per amplitude and cycle: 6 L + 6 (K8a, K8b: RX on every bit,
     one diagonal), per slot 14 L + 6 (K8c) and 14 L + 12 (K8d: two
-    diagonals). State floor: two sweeps per slot."""
+    diagonals). State floor: two sweeps per slot. K8a's and K8b's rows are
+    the engines' folded row pairs with a shard's global angles; before the
+    timing, the registers and spills of every kernel of
+    ``floquet_cycle.cu`` (K8a's and K8b's are the ``echo_lo_kernel`` and
+    ``echo_hi_kernel`` instances of ``XEcho<CycleRows, ...>``)."""
     from dtc_tpu_torch.ops import cycle as cy
     from dtc_tpu_torch.ops import resident_blocked as rb
     from dtc_tpu_torch.ops import resident_general as rg
 
+    for kernel, regs, st, ld in ptxas_kernels("floquet_cycle"):
+        phase(f"[build] floquet_cycle.cu {kernel}: {regs} registers, "
+              f"spill stores {st} B, spill loads {ld} B")
     L, c, n_sh = 23, 4, 2
     N = 1 << L
     gen = torch.Generator(device=dev).manual_seed(23)
@@ -2746,6 +2777,8 @@ def timing_cycle(dev, smi, err) -> dict:
                          device=dev) for _ in range(n_sh)]
     start = [s / s.abs().pow(2).sum(-1, keepdim=True).sqrt() for s in start]
     rows = cycle_x_rows(L, 2, c, 0.6, dev, seed=23)[0][:, 1].contiguous()
+    fold_f, fold_i = (cycle_fold(rows, L, 23, inverse)
+                      for inverse in (False, True))
     grows = general_forward_inputs(L, "xy", 2, c, 0.6, dev, seed=23)[0]
     grows = grows.reshape(c, 2, 2, -1)[:, 1].contiguous()
     tiles = general_echo_inputs(L, "xy", 2, c, 0.6, [1], dev, seed=24)[0]
@@ -2753,10 +2786,10 @@ def timing_cycle(dev, smi, err) -> dict:
     cases = {
         "K8a": ("forward x", cy.cycle_forward_apply,
                 cy.cycle_forward_apply_ref,
-                (rows, THETA), dict(L=L, q=L // 2), 1, 6 * L + 6),
+                (fold_f, THETA), dict(L=L, q=L // 2), 1, 6 * L + 6),
         "K8b": ("inverse x", cy.cycle_inverse_apply,
                 cy.cycle_inverse_apply_ref,
-                (rows, THETA), dict(L=L), 1, 6 * L + 6),
+                (fold_i, THETA), dict(L=L), 1, 6 * L + 6),
         "K8c": ("forward xy", cy.general_cycle_forward_apply,
                 cy.general_cycle_forward_apply_ref, (grows,),
                 dict(L=L, K=2, q=L // 2), 2, 14 * L + 6),

@@ -12,46 +12,81 @@
 //   K8d dtc_tpu/ops/pallas_cycle.py::_make_general_inverse_cycle_kernel
 //       (entry general_cycle_inverse_apply)
 //
-// K8 is K1/K2/K4 restricted to the local bits, so the passes are not
-// forked: the entries run the existing passes for one cycle at L = L_loc.
-// - K8a (sigma-frame x forward): K1's step (floquet_x_pass.cuh, ConstKick)
-//   on one compact row: RX(theta) on every local bit, then that cycle's
-//   diagonal (noise-Z signs, sigma-corrected h and phi of the local bits),
-//   and the partial sum of |psi|^2 z_q, q < L_loc.
-// - K8b (x inverse, pre-fold K.D): K2's echo step on a (pre, post) pair
-//   whose pre row is the cycle's compact row (sign +1: the caller negated
-//   the imaginary part once at the echo's turnaround, so each inverse cycle
-//   is the un-negated forward operator in reverse order) and whose post row
-//   is zero (the identity diagonal).
+// K8a and K8b run the step passes of floquet_echo.cuh (launch_steps, one
+// step from the states as they are) with the x family's policy
+// (floquet_x_echo.cuh, XEcho on CycleRows below: every pair active, kick
+// sign +1, one angle) on K2's plan at L = L_loc (a = L - L/2, b = 0, CW =
+// kW = 4): the diagonal's phases from two small tables a block, the kick
+// in swizzled 2-3-bit rounds whose first reads the state and whose last
+// writes it, so each pass makes one read and one write.
+// - K8a (sigma-frame x forward): RX(theta) on every local bit, then the
+//   cycle's diagonal: folded row 1 of a pair (ops/cycle.py::
+//   fold_cycle_rows; row 0 is not read, Fold::pre0 false), the local
+//   noise-Z signs and sigma-corrected h and phi of the cycle's compact row
+//   with the shard's global diagonal (a constant in c0 and the boundary
+//   bond's Z term on the local top bit in cz[L-1]); with q >= 0 pass hi's
+//   store writes one partial of |psi|^2 z_q a block (Times), summed in a
+//   fixed order by one reduce; with q < 0 nothing is measured (NoTimes).
+// - K8b (x inverse, pre-fold K.D): folded row 0 of a pair (the shard's
+//   global and local diagonal of the step) in pass lo before the kick
+//   (Fold::pre0 true), row 1 zero (the identity) in pass hi. The caller
+//   negated the imaginary part once at the echo's turnaround, so each
+//   inverse cycle is the un-negated forward operator in reverse order.
 // - K8c (lab-frame forward): K4's forward steps for the cycle's K slot rows
 //   (X-mask row swap, the cycle's diagonal on the final slot), the partial
-//   on the final slot.
+//   on the final slot (floquet_general_pass.cuh).
 // - K8d (daggered lab-frame cycle): K4's echo steps for the K slots' (pre,
-//   post) row pairs.
-// Everything that touches a shard bit (the global kicks, the global
-// diagonal, the boundary bond phi[L_loc-1]) is the caller's; measuring
-// before it is exact because z_q of a local bit commutes with all of it.
+//   post) row pairs (floquet_general_pass.cuh).
+// The shard-bit kicks are the caller's, and for K8c/K8d the global diagonal
+// and the boundary bond phi[L_loc-1] too. A shard's global diagonal commutes
+// with nothing that touches its local top bit, but the shard-bit kicks
+// commute with the local kick and the local diagonal, so the caller runs
+// them before K8a and after K8b, and each launch still applies one
+// diagonal; measuring z_q of a local bit after them is exact, because z_q
+// commutes with them.
 //
 // What bounds it on this card: as K1/K2/K4, the shard's 2^L_loc complex64
 // amplitudes (64 MiB at L_loc=23) live in device memory and a step is two
 // read+write sweeps (32 B per amplitude); the butterflies' operations are
 // the second limit (6 flops per amplitude and bit for RX, 14 for a general
-// 2x2). One launch pair per slot; the partials are summed in a fixed order
-// by a second kernel. Offsets are 64-bit. The rows a wrapper hands in are
-// n x 128 (K8a), n x 2 x 128 (K8b), n x K x 128 (K8c) and n x K x 2 x 128
-// (K8d) f32, with the flag lanes set by the wrapper (ops/cycle.py).
+// 2x2). Offsets are 64-bit. The rows a wrapper hands in are n x 2 x 2L
+// (K8a, K8b: folded pairs), n x K x 128 (K8c) and n x K x 2 x 128 (K8d)
+// f32, K8c's and K8d's flag lanes set by the wrapper (ops/cycle.py).
 //
-// The x passes and the lab-frame passes both define load_coeffs, StepRows
-// and the pass kernels, each in an anonymous namespace of its own header;
-// here each family's headers are included inside a named namespace so that
-// the two sets of names stay apart. floquet_common.cuh comes first, at file
-// scope, so that the headers' own includes of it are skipped.
+// The x headers and the lab-frame passes both define load_coeffs and
+// more, each in an anonymous namespace of its own header; here each
+// family's headers are included inside a named namespace so that the two
+// sets of names stay apart. floquet_echo.cuh is #pragma once: it is
+// included once, by floquet_x_echo.cuh inside xpass, the namespace that
+// uses it. floquet_common.cuh and floquet_plan.cuh come first, at file
+// scope, so that the headers' own includes of them are skipped.
 
 #include "floquet_common.cuh"
+#include "floquet_plan.cuh"
 
 namespace xpass {
 #include "floquet_rx.cuh"
-#include "floquet_x_pass.cuh"
+#include "floquet_x_echo.cuh"
+
+// K8a's and K8b's step rows for XEcho: one step, always active, no pre
+// row (ConstKick does not read it), kick sign +1; K8a's step is measured
+// into time 0 (under Times).
+struct CycleRows {
+  struct Step {
+    const float* pre;
+    float sign;
+    bool active;
+  };
+  __device__ __forceinline__ Step at(const float*, int64_t, int, int) const {
+    return {nullptr, 1.0f, true};
+  }
+  __device__ __forceinline__ int time(const float*, int, int64_t, int,
+                                      int) const {
+    return 0;
+  }
+};
+
+using CyclePolicy = XEcho<CycleRows, ConstKick>;
 }  // namespace xpass
 
 namespace labpass {
@@ -62,35 +97,46 @@ namespace labpass {
 extern "C" {
 
 // Partial slots per state of the forward entries (pass hi's blocks).
-int floquet_cycle_partials(int L) { return (1 << lo_bits(L)) / kW; }
+int floquet_cycle_partials(int L) {
+  return xpass::step_hi_blocks(lo_bits(L), 0, kW);
+}
 
-// K8a. state: n x 2^L complex64, updated in place; rows: n x 128 f32;
-// partials: n x 2 x floquet_cycle_partials(L) f32 scratch; out: n x 2 f32,
-// out[i][1] = sum |psi|^2 z_q of state i after the cycle (out[i][0] = 0).
-int floquet_cycle_forward(void* state, const void* rows, void* partials,
+// K8a. state: n x 2^L complex64, updated in place; fold: n x 2 x 2L f32
+// folded rows (row 1 the cycle's diagonal); partials: n x
+// floquet_cycle_partials(L) f32 scratch; out: n f32, sum |psi|^2 z_q of
+// state i after the cycle. q < 0: no measure (partials and out unused).
+int floquet_cycle_forward(void* state, const void* fold, void* partials,
                           void* out, int n, int L, int q, float c, float s,
                           void* stream_ptr) {
+  using namespace xpass;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  // K1's forward step 0 of a T=2 run: its partial lands in slot 1
-  cudaError_t e = xpass::launch_step(
-      (float2*)state, L, (const float*)rows, 1, n, 0, 0,
-      xpass::ConstKick{c, s}, q, (float*)partials, 2, stream);
+  const float* rows = (const float*)fold;
+  const Fold f{rows, 4 * (int64_t)L, false};
+  const CyclePolicy policy{{}, ConstKick{c, s}};
+  if (q < 0) {
+    return (int)launch_steps<kW>((float2*)state, L, lo_bits(L), 0, rows, 2,
+                                 f, n, 0, 1, policy, NoTimes{}, stream);
+  }
+  cudaError_t e = launch_steps<kW>((float2*)state, L, lo_bits(L), 0, rows, 2,
+                                   f, n, 0, 1, policy,
+                                   Times{(float*)partials, q, 1}, stream);
   if (e != cudaSuccess) return (int)e;
-  const int64_t n_rows = 2 * (int64_t)n;
-  reduce_kernel<<<(unsigned)((n_rows + kThreads - 1) / kThreads), kThreads,
-                  0, stream>>>((const float*)partials, (float*)out, n_rows,
-                               floquet_cycle_partials(L), 2, 0.0f);
+  reduce_rows_kernel<<<(unsigned)n, kThreads, 0, stream>>>(
+      (const float*)partials, floquet_cycle_partials(L), (float*)out, 1, 0);
   return (int)cudaGetLastError();
 }
 
-// K8b. state: n x 2^L complex64, updated in place; tiles: n x 2 x 128 f32
-// (the pre row with trip count 1 at lane 124 and kick sign +1 at lane 125,
-// then a zero post row).
-int floquet_cycle_inverse(void* state, const void* tiles, int n, int L,
+// K8b. state: n x 2^L complex64, updated in place; fold: n x 2 x 2L f32
+// folded rows (row 0 the step's diagonal, row 1 zero).
+int floquet_cycle_inverse(void* state, const void* fold, int n, int L,
                           float c, float s, void* stream_ptr) {
-  return (int)xpass::launch_step(
-      (float2*)state, L, (const float*)tiles, 2, n, 0, 1,
-      xpass::ConstKick{c, s}, 0, nullptr, 0, (cudaStream_t)stream_ptr);
+  using namespace xpass;
+  const float* rows = (const float*)fold;
+  return (int)launch_steps<kW>(
+      (float2*)state, L, lo_bits(L), 0, rows, 2,
+      Fold{rows, 4 * (int64_t)L, true}, n, 0, 1,
+      CyclePolicy{{}, ConstKick{c, s}}, NoTimes{},
+      (cudaStream_t)stream_ptr);
 }
 
 // K8c. state: n x 2^L complex64, updated in place; rows: n x K x 128 f32

@@ -1,20 +1,22 @@
 // The step passes shared by floquet_x_resident.cu (K3b), floquet_x.cu (K2),
-// floquet_general.cu (K4's echo), floquet_x_streamed.cu (K6b/K7b, and
-// K6a/K7a's forward) and floquet_general_streamed.cu (K10b, and K10a's
-// forward): the folded
-// diagonal rows, the phase tables, the swizzled butterfly rounds and the
-// passes of a step, templated on the family's kick and step rows. Each
-// redesign below was timed on its own on an H100 (PERF.md section 6).
+// floquet_general.cu (K4's echo, and K5), floquet_x_streamed.cu (K6b/K7b,
+// and K6a/K7a's forward), floquet_general_streamed.cu (K10b, and K10a's
+// forward) and floquet_cycle.cu (K8a/K8b, one step on a shard's local
+// bits): the folded diagonal rows, the phase tables, the swizzled
+// butterfly rounds and the passes of a step, templated on the family's
+// kick and step rows. Each redesign below was timed on its own on an H100
+// (PERF.md section 6).
 //
 // Pass plan: a step cuts the 2^L state into the tiles of
 //   pass lo:  bits [0, a), 2^a consecutive amplitudes;
 //   pass mid: bits [a, a + b) (b = 0: no mid pass), 2^b rows x CW
 //             consecutive columns, the kick only;
 //   pass hi:  bits [a + b, L), 2^c rows x CW columns, c = L - a - b.
-// The resident echoes (K2, K3b, K4's, L <= 23) take a = L - L/2, b = 0 and
-// CW = kW = 4; the streamed ones and the streamed lab-frame forward
-// (L = 22..30) the plan of floquet_plan.cuh (two passes at L <= 24,
-// CW = 4; three above, CW = 16: 128-byte column runs), tiles of 16-64 KiB.
+// The resident echoes (K2, K3b, K4's, L <= 23) and K8a/K8b take
+// a = L - L/2, b = 0 and CW = kW = 4; the streamed ones and the streamed
+// lab-frame forward (L = 22..30) the plan of floquet_plan.cuh (two passes
+// at L <= 24, CW = 4; three above, CW = 16: 128-byte column runs), tiles
+// of 16-64 KiB.
 //
 // Folded rows (ops/echo_fold.py): an echo step k applies D_pre(k), the kick,
 // then D_post(k); D_post(k) D_pre(k+1) is one diagonal whose coefficients

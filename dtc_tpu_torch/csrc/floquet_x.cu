@@ -33,8 +33,8 @@
 // With k1 = L - L/2 and n2 = L/2 the tiles are at most 32 KiB (lo) and
 // 64 KiB (hi) at L=23. The byte floor is 32 B per amplitude per step.
 //
-// The forward runs the passes of floquet_x_pass.cuh (shared with K3a and
-// K8a/K8b): a sincos per amplitude for its diagonal, the tile staged whole
+// The forward runs the passes of floquet_x_pass.cuh (shared with K3a): a
+// sincos per amplitude for its diagonal, the tile staged whole
 // through shared memory, three bits per round. The echo runs the passes of
 // floquet_echo.cuh with the kick policy of floquet_x_echo.cuh (XEcho on
 // PairRows, one angle: ConstKick), as K3b does: one folded diagonal per
@@ -78,7 +78,7 @@ int floquet_x_forward(void* state, const void* rows, void* partials,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   for (int cyc = 0; cyc + 1 < T; ++cyc) {
-    e = launch_step(st, L, (const float*)rows, T, n_traj, cyc, 0,
+    e = launch_step(st, L, (const float*)rows, T, n_traj, cyc,
                     ConstKick{c, s}, q, (float*)partials, T, stream);
     if (e != cudaSuccess) return (int)e;
   }

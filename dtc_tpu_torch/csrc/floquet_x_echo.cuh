@@ -3,7 +3,8 @@
 // parameters, the family's step rows `Rows` (K2's and K3b's 128-lane rows,
 // PairRows in floquet_x_pass.cuh; the streamed family's echo and forward
 // rows of run-time width, WideRows and ForwardWideRows in
-// floquet_x_streamed.cu) and the angle `Table` (TableKick,
+// floquet_x_streamed.cu; K8a's and K8b's one step, CycleRows in
+// floquet_cycle.cu) and the angle `Table` (TableKick,
 // floquet_x_pass.cuh, or ConstKick, floquet_rx.cuh); the kick's sign is
 // lane width-3 of an echo's pre row, +1 in the forward (no pre row:
 // ConstKick does not read it).

@@ -1,20 +1,19 @@
-// The two passes of one x-drive step in the sigma frame, shared by
-// floquet_x.cu (K1: a constant kick), floquet_x_resident.cu (K3a: a
-// constant or per-cycle kick read from a table) and floquet_cycle.cu (K8a,
-// and K8b on the echo branch: one inverse cycle a launch):
+// The two passes of one forward x-drive step in the sigma frame, shared by
+// floquet_x.cu (K1: a constant kick) and floquet_x_resident.cu (K3a: a
+// constant or per-cycle kick read from a table):
 //   pass lo: a block owns 2^k1 consecutive amplitudes (fixed high bits),
-//            [echo: the pre diagonal], the kick on bits [0, k1) in shared
-//            memory;
+//            the kick on bits [0, k1) in shared memory;
 //   pass hi: a block owns kW = 4 consecutive low columns x all 2^n2 high
-//            values, the kick on bits [k1, L), the post diagonal and
-//            (forward) the A(t+1) partial sum of |psi|^2 z_q.
+//            values, the kick on bits [k1, L), the cycle's diagonal and
+//            the A(t+1) partial sum of |psi|^2 z_q.
 // The kernels take the step's RX through a template parameter `Kick`, whose
 // at(pre, step) gives (cos theta/2, sin theta/2) before the step's sign:
 // ConstKick (floquet_rx.cuh) for one angle (the pre row is not read),
 // TableKick for a (tu, 2) device table, indexed by the forward's cycle or
-// by lane 127 of the echo step's pre row (read as an int, bounded by tu).
-// The whole-trajectory echoes K2 and K3b run the passes of
-// floquet_echo.cuh instead, reading their step rows through PairRows.
+// by lane 127 of an echo step's pre row (read as an int, bounded by tu).
+// The echoes K2 and K3b, and the per-shard cycles K8a/K8b
+// (floquet_cycle.cu), run the passes of floquet_echo.cuh instead; K2 and
+// K3b read their (pre, post) step rows through PairRows below.
 //
 // Include after floquet_common.cuh and floquet_rx.cuh; the definitions sit
 // in an anonymous namespace of their own.
@@ -38,33 +37,24 @@ struct TableKick {
   }
 };
 
-// Per-pair row pointer and trip gate. Forward (echo == 0): row `step` is
-// the cycle's row, the kick sign is +1. Echo: rows 2*step (pre) and
-// 2*step+1 (post); the pair runs only while step < trip (lane 124 of row 0).
+// An echo step's pre row, 2*step of the pair (its diagonals come folded,
+// ops/echo_fold.py); the pair runs only while step < trip (lane 124 of row
+// 0), with the kick sign of lane 125 of its pre row.
 struct StepRows {
-  const float* pre;   // nullptr when there is no pre diagonal
-  const float* post;
+  const float* pre;
   float sign;
   bool active;
 };
 
 __device__ __forceinline__ StepRows step_rows(const float* rows,
                                               int64_t rows_per_pair, int pair,
-                                              int step, int echo) {
+                                              int step) {
   const float* base = rows + (int64_t)pair * rows_per_pair * kRowWidth;
   StepRows r;
-  if (echo) {
-    const int trip = (int)base[kRowWidth - 4];
-    r.active = step < trip;
-    r.pre = base + (int64_t)(2 * step) * kRowWidth;
-    r.post = r.pre + kRowWidth;
-    r.sign = r.pre[kRowWidth - 3];
-  } else {
-    r.active = true;
-    r.pre = nullptr;
-    r.post = base + (int64_t)step * kRowWidth;
-    r.sign = 1.0f;
-  }
+  const int trip = (int)base[kRowWidth - 4];
+  r.active = step < trip;
+  r.pre = base + (int64_t)(2 * step) * kRowWidth;
+  r.sign = r.pre[kRowWidth - 3];
   return r;
 }
 
@@ -74,58 +64,41 @@ struct PairRows {
   __device__ __forceinline__ StepRows at(const float* rows,
                                          int64_t rows_per_pair, int pair,
                                          int step) const {
-    return step_rows(rows, rows_per_pair, pair, step, 1);
+    return step_rows(rows, rows_per_pair, pair, step);
   }
 };
 
-// Pass lo: [pre diagonal] then the kick on bits [0, k1).
+// Pass lo: the kick of cycle `step` on bits [0, k1).
 template <class Kick>
 __global__ void pass_lo_kernel(float2* __restrict__ st, int L, int k1,
-                               const float* __restrict__ rows,
-                               int64_t rows_per_pair, int step, int echo,
-                               Kick kick) {
+                               int step, Kick kick) {
   extern __shared__ float2 tile[];
-  __shared__ float cz[64], cb[64], c0;
   const int pair = blockIdx.y;
-  const StepRows r = step_rows(rows, rows_per_pair, pair, step, echo);
-  if (!r.active) return;
-  const float2 k = kick.at(r.pre, step);
+  const float2 k = kick.at(nullptr, step);
   const int64_t N = (int64_t)1 << L;
   const int64_t hi = blockIdx.x;
   const int n = 1 << k1;
   float2* g = st + (int64_t)pair * N + (hi << k1);
   for (int i = threadIdx.x; i < n; i += blockDim.x) tile[i] = g[i];
-  if (r.pre != nullptr) {
-    load_coeffs(r.pre, L, cz, cb, &c0);
-    __syncthreads();
-    // factorized phase: high part and straddle sign fixed per block
-    const float th_hi = c0 + angle_bits(cz, cb, hi, k1, L - k1);
-    const float cs = cb[k1 - 1] * zsign(hi, 0);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const float th = th_hi + angle_bits(cz, cb, i, 0, k1)
-                       + cs * zsign(i, k1 - 1);
-      tile[i] = cmul_phase(tile[i], th);
-    }
-  }
   __syncthreads();
-  kick_bits(tile, k1, 0, k1, k.x, k.y * r.sign);
+  kick_bits(tile, k1, 0, k1, k.x, k.y);
   for (int i = threadIdx.x; i < n; i += blockDim.x) g[i] = tile[i];
 }
 
-// Pass hi: the kick on bits [k1, L), the post diagonal, and (forward) the
-// partial sum of |psi|^2 z_q into partials[(pair * T + step + 1) * nblk + bx].
+// Pass hi: the kick on bits [k1, L), the diagonal of row `step` of the
+// pair's rows_per_pair rows, and the partial sum of |psi|^2 z_q into
+// partials[(pair * T + step + 1) * nblk + bx].
 template <class Kick>
 __global__ void pass_hi_kernel(float2* __restrict__ st, int L, int k1,
                                const float* __restrict__ rows,
-                               int64_t rows_per_pair, int step, int echo,
-                               Kick kick, int q, float* __restrict__ partials,
-                               int T) {
+                               int64_t rows_per_pair, int step, Kick kick,
+                               int q, float* __restrict__ partials, int T) {
   extern __shared__ float2 tile[];  // [2^n2][kW]
   __shared__ float cz[64], cb[64], c0, th_lo[kW], red[kThreads / 32];
   const int pair = blockIdx.y;
-  const StepRows r = step_rows(rows, rows_per_pair, pair, step, echo);
-  if (!r.active) return;
-  const float2 k = kick.at(r.pre, step);
+  const float* post =
+      rows + ((int64_t)pair * rows_per_pair + step) * kRowWidth;
+  const float2 k = kick.at(nullptr, step);
   const int n2 = L - k1;
   const int64_t N = (int64_t)1 << L;
   const int64_t o = (int64_t)blockIdx.x * kW;
@@ -134,13 +107,13 @@ __global__ void pass_hi_kernel(float2* __restrict__ st, int L, int k1,
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     tile[i] = g[((int64_t)(i / kW) << k1) + (i % kW)];
   }
-  load_coeffs(r.post, L, cz, cb, &c0);
+  load_coeffs(post, L, cz, cb, &c0);
   __syncthreads();
   if (threadIdx.x < kW) {
     th_lo[threadIdx.x] = c0 + angle_bits(cz, cb, o + threadIdx.x, 0, k1);
   }
   // tile index = h * kW + w: the high bits sit at tile bits [2, 2 + n2)
-  kick_bits(tile, n2 + 2, 2, n2, k.x, k.y * r.sign);  // ends in __syncthreads
+  kick_bits(tile, n2 + 2, 2, n2, k.x, k.y);  // ends in __syncthreads
   float acc = 0.0f;
   const int64_t zq_lo = q < k1 ? q : -1;
   for (int h = threadIdx.x; h < (1 << n2); h += blockDim.x) {
@@ -152,28 +125,25 @@ __global__ void pass_hi_kernel(float2* __restrict__ st, int L, int k1,
       const float th = th_lo[w] + th_h + cs * zsign(lo, k1 - 1);
       const float2 v = cmul_phase(tile[h * kW + w], th);
       tile[h * kW + w] = v;
-      if (!echo) {
-        const float z = zq_lo >= 0 ? zsign(lo, q) : zsign(h, q - k1);
-        acc += (v.x * v.x + v.y * v.y) * z;
-      }
+      const float z = zq_lo >= 0 ? zsign(lo, q) : zsign(h, q - k1);
+      acc += (v.x * v.x + v.y * v.y) * z;
     }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     g[((int64_t)(i / kW) << k1) + (i % kW)] = tile[i];
   }
-  if (!echo) {
-    const float tot = block_sum(acc, red);
-    if (threadIdx.x == 0) {
-      partials[((int64_t)pair * T + step + 1) * gridDim.x + blockIdx.x] = tot;
-    }
+  const float tot = block_sum(acc, red);
+  if (threadIdx.x == 0) {
+    partials[((int64_t)pair * T + step + 1) * gridDim.x + blockIdx.x] = tot;
   }
 }
 
-// One step (both passes) of n_pairs states; partials only for the forward.
+// Forward cycle `step` (both passes) of n_pairs states, row `step` of each
+// pair's rows_per_pair rows, measured into time step + 1.
 template <class Kick>
 cudaError_t launch_step(float2* st, int L, const float* rows,
-                        int64_t rows_per_pair, int n_pairs, int step, int echo,
+                        int64_t rows_per_pair, int n_pairs, int step,
                         Kick kick, int q, float* partials, int T,
                         cudaStream_t stream) {
   const int k1 = lo_bits(L);
@@ -189,11 +159,10 @@ cudaError_t launch_step(float2* st, int L, const float* rows,
                            (int)smem_hi);
   if (e != cudaSuccess) return e;
   pass_lo_kernel<Kick><<<dim3(1u << n2, n_pairs), kThreads, smem_lo,
-                         stream>>>(st, L, k1, rows, rows_per_pair, step, echo,
-                                   kick);
+                         stream>>>(st, L, k1, step, kick);
   pass_hi_kernel<Kick><<<dim3((1u << k1) / kW, n_pairs), kThreads, smem_hi,
-                         stream>>>(st, L, k1, rows, rows_per_pair, step, echo,
-                                   kick, q, partials, T);
+                         stream>>>(st, L, k1, rows, rows_per_pair, step, kick,
+                                   q, partials, T);
   return cudaGetLastError();
 }
 

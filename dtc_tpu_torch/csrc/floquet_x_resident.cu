@@ -79,7 +79,7 @@ int floquet_x_resident_forward(void* state, const void* rows, const void* cs,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   for (int cyc = 0; cyc + 1 < T; ++cyc) {
-    e = launch_step(st, L, (const float*)rows, T, n_traj, cyc, 0,
+    e = launch_step(st, L, (const float*)rows, T, n_traj, cyc,
                     TableKick{(const float*)cs, tu}, q, (float*)partials, T,
                     stream);
     if (e != cudaSuccess) return (int)e;

@@ -4,32 +4,33 @@ Port of ``dtc_tpu/ops/pallas_cycle.py`` (``cycle_forward_apply``,
 ``cycle_inverse_apply``, ``general_cycle_forward_apply``,
 ``general_cycle_inverse_apply``): the per-shard engines of the
 amplitude-sharded path (``parallel/sharded.py``). Its four Pallas kernels
-become one hand-written CUDA family, ``csrc/floquet_cycle.cu``, which runs
-the passes of K1/K2 (``csrc/floquet_x_pass.cuh``) and K4
-(``csrc/floquet_general_pass.cuh``) for one cycle at L = L_loc:
+become one hand-written CUDA family, ``csrc/floquet_cycle.cu``: K8a/K8b on
+the step passes of ``csrc/floquet_echo.cuh`` (K2's plan at L = L_loc), K8c/K8d
+on K4's passes (``csrc/floquet_general_pass.cuh``) for one cycle:
 
 - K8a ``cycle_forward_apply``: a sigma-frame x cycle, RX(theta) on every
-  local bit, then the cycle's diagonal from its compact row
-  (``ops/params.py::pack_cycle_params_compact`` at L = L_loc, the local bits
-  of the cycle's noise-Z and sigma words); returns the partial
-  sum |psi|^2 z_q, q < L_loc;
+  local bit, then the cycle's diagonal from its folded row pair
+  (``fold_cycle_rows``: the local bits of the cycle's noise-Z and sigma
+  words, from its compact row ``ops/params.py::pack_cycle_params_compact``
+  at L = L_loc, and the shard's global diagonal); returns the partial
+  sum |psi|^2 z_q, q < L_loc, or nothing with q=None;
 - K8b ``cycle_inverse_apply``: the pre-fold inverse step K.D with the same
-  row and un-negated angles, for the echo's once-conjugated frame;
+  diagonal (folded ``inverse=True``) and un-negated angles, for the echo's
+  once-conjugated frame;
 - K8c ``general_cycle_forward_apply``: a lab-frame cycle of K slot rows (K4's
   layout, ``ops/params_general.py``; the diagonal on the final slot) and its
   partial after the final slot;
 - K8d ``general_cycle_inverse_apply``: a daggered lab-frame cycle, per slot
   a (pre, post) row pair (K4's echo layout).
 
-The flag lanes the kernels read (K8b's trip count and kick sign, K8c's
-MPOS, K8d's COUNT) are set here, on a copy of the rows: the reference's
-rows carry none of them. States are flat (n, 2^L_loc) complex64, local bit
-j on bit j of the index. Every entry updates ``state`` in place, as the
-reference aliases its state input to its output, and returns it. A tensor
-on the CPU goes to the plain version (``*_ref``); a CUDA tensor launches
-the kernel or raises. Each entry counts its kernel launches in
-``LAUNCHES``; the plain versions count the calls they get on CUDA tensors
-in ``PLAIN_ON_CUDA``.
+The flag lanes K8c/K8d read (MPOS, COUNT) are set here, on a copy of the
+rows: the reference's rows carry none of them. States are flat (n, 2^L_loc)
+complex64, local bit j on bit j of the index. Every entry updates ``state``
+in place, as the reference aliases its state input to its output, and
+returns it. A tensor on the CPU goes to the plain version (``*_ref``); a
+CUDA tensor launches the kernel or raises. Each entry counts its kernel
+launches in ``LAUNCHES``; the plain versions count the calls they get on
+CUDA tensors in ``PLAIN_ON_CUDA``.
 """
 
 from __future__ import annotations
@@ -42,7 +43,6 @@ from dtc_tpu_torch.ops.params import WIDTH
 from dtc_tpu_torch.ops.params_general import LANE_COUNT, LANE_MPOS, flag_base
 
 MIN_L, MAX_L = 17, 23
-_LANE_TRIP, _LANE_SIGN = WIDTH - 4, WIDTH - 3  # K2's echo flags (params.py)
 
 LAUNCHES = {"forward": 0, "inverse": 0, "general_forward": 0,
             "general_inverse": 0}
@@ -96,21 +96,51 @@ def _cuda_inputs(state, rows, what: str, library: str = "floquet_cycle",
     return n, lib, torch.cuda.current_stream(state.device).cuda_stream
 
 
+def fold_cycle_rows(rows, L: int, th_sc=None, th_bnd=None, *,
+                    inverse: bool = False) -> torch.Tensor:
+    """(..., width) compact cycle rows at L = L_loc -> (..., 2, 2L) f32
+    folded row pairs of K8a (``inverse=False``: row 0 zero, not read; row 1
+    the cycle's diagonal) or K8b (row 0 the step's diagonal, applied before
+    its kick; row 1 zero, the identity). A diagonal row is (cz [0, L), cb
+    [L, 2L-1), c0 at 2L-1), the x family's ``row_coeffs`` in f64, rounded
+    once. th_sc and th_bnd, broadcastable against the rows' leading shape,
+    are a shard's global diagonal exp(i (th_sc + th_bnd z_{L-1}))
+    (``parallel/sharded.py::_tail_phase_angles``): th_sc joins c0, th_bnd
+    cz[L-1]."""
+    cz, cb, c0 = rb.row_coeffs(rows[..., :5 * L - 2].to(torch.float64), L)
+    if th_sc is not None:
+        c0 = c0 + th_sc.to(c0.device, torch.float64)
+        cz = cz.expand(*c0.shape, L).clone()
+        cz[..., L - 1] += th_bnd.to(cz.device, torch.float64)
+        cb = cb.expand(*c0.shape, L - 1)
+    diag = torch.cat([cz, cb, c0[..., None]], -1)
+    zero = torch.zeros_like(diag)
+    return torch.stack([diag, zero] if inverse else [zero, diag],
+                       -2).to(torch.float32)
+
+
+def _fold_angles(fold, L: int, table):
+    """(n, 2L) folded rows -> (n, 2^L) diagonal angles theta(s)."""
+    return fold[:, 2 * L - 1, None] + fold[:, :2 * L - 1] @ table
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 
 
-def cycle_forward_apply_ref(state, rows, theta, *, L, q):
+def cycle_forward_apply_ref(state, rows, theta, *, L, q=None):
     """Plain version of ``cycle_forward_apply`` (same arguments)."""
     if state.is_cuda:
         PLAIN_ON_CUDA["forward"] += 1
     check_range(L, q)
-    _check_rows(rows, _check_state(state, L), ())
+    _check_rows(rows, _check_state(state, L), (2,), 2 * L)
     table = rb.angle_table(L, state.device)
     u7, utop = rb._kick_pair(theta, L, state.device)
     new = rb.apply_phase(rb._kick(state, u7, utop, L),
-                         rb._row_angles(rows.to(torch.float32), L, table))
+                         _fold_angles(rows[:, 1].to(torch.float32), L, table))
     state.copy_(new)
+    if q is None:
+        return state, None
     return state, (new.real ** 2 + new.imag ** 2) @ table[q]
 
 
@@ -119,12 +149,13 @@ def cycle_inverse_apply_ref(state, rows, theta, *, L):
     if state.is_cuda:
         PLAIN_ON_CUDA["inverse"] += 1
     check_range(L)
-    _check_rows(rows, _check_state(state, L), ())
+    _check_rows(rows, _check_state(state, L), (2,), 2 * L)
     table = rb.angle_table(L, state.device)
     u7, utop = rb._kick_pair(theta, L, state.device)
-    pre = rb.apply_phase(state, rb._row_angles(rows.to(torch.float32), L,
-                                               table))
-    return state.copy_(rb._kick(pre, u7, utop, L))
+    rows = rows.to(torch.float32)
+    pre = rb.apply_phase(state, _fold_angles(rows[:, 0], L, table))
+    return state.copy_(rb.apply_phase(rb._kick(pre, u7, utop, L),
+                                      _fold_angles(rows[:, 1], L, table)))
 
 
 def general_cycle_forward_apply_ref(state, rows, *, L, K, q):
@@ -164,44 +195,47 @@ def general_cycle_inverse_apply_ref(state, tiles, *, L, K):
 # kernel entries
 
 
-def cycle_forward_apply(state, rows, theta, *, L, q):
-    """One sigma-frame x cycle (K8a): state (n, 2^L) complex64, rows (n,
-    128) compact cycle rows at L = L_loc, theta the RX angle. Returns
-    (state, the partial sum |psi|^2 z_q (n,) after the cycle); the sum over
-    the shards and the sigma sign are the caller's."""
+def cycle_forward_apply(state, rows, theta, *, L, q=None):
+    """One sigma-frame x cycle (K8a): state (n, 2^L) complex64, rows (n, 2,
+    2L) the cycle's folded row pairs at L = L_loc (``fold_cycle_rows``),
+    theta the RX angle. Returns (state, the partial sum |psi|^2 z_q (n,)
+    after the cycle), or (state, None) with q=None: nothing is measured.
+    The sum over the shards and the sigma sign are the caller's."""
     if rb.route(state, "cycle") == "plain":
         return cycle_forward_apply_ref(state, rows, theta, L=L, q=q)
     check_range(L, q)
-    _check_rows(rows, _check_state(state, L), ())
-    n, lib, stream = _cuda_inputs(state, rows, "cycle forward")
-    partials = torch.empty((n, 2, lib.floquet_cycle_partials(L)),
-                           dtype=torch.float32, device=state.device)
-    out = torch.empty((n, 2), dtype=torch.float32, device=state.device)
+    _check_rows(rows, _check_state(state, L), (2,), 2 * L)
+    n, lib, stream = _cuda_inputs(state, rows, "cycle forward",
+                                  width=2 * L)
     c, s = rb.kick_cs(theta)
-    err = lib.floquet_cycle_forward(state.data_ptr(), rows.data_ptr(),
-                                    partials.data_ptr(), out.data_ptr(), n, L,
-                                    q, c, s, stream)
+    if q is None:
+        err = lib.floquet_cycle_forward(state.data_ptr(), rows.data_ptr(),
+                                        None, None, n, L, -1, c, s, stream)
+        out = None
+    else:
+        partials = torch.empty((n, lib.floquet_cycle_partials(L)),
+                               dtype=torch.float32, device=state.device)
+        out = torch.empty((n,), dtype=torch.float32, device=state.device)
+        err = lib.floquet_cycle_forward(state.data_ptr(), rows.data_ptr(),
+                                        partials.data_ptr(), out.data_ptr(),
+                                        n, L, q, c, s, stream)
     LAUNCHES["forward"] += 1
     rb.raise_on(err, "floquet_cycle_forward")
-    return state, out[:, 1]
+    return state, out
 
 
 def cycle_inverse_apply(state, rows, theta, *, L):
-    """One pre-fold inverse x cycle K.D (K8b) with the same rows and angle
-    as the forward; the caller negates the imaginary part once at the echo's
-    turnaround. Returns state."""
+    """One pre-fold inverse x cycle K.D (K8b): rows (n, 2, 2L) the step's
+    folded row pairs (``fold_cycle_rows(..., inverse=True)``), theta the
+    forward's angle; the caller negates the imaginary part once at the
+    echo's turnaround. Returns state."""
     if rb.route(state, "cycle") == "plain":
         return cycle_inverse_apply_ref(state, rows, theta, L=L)
     check_range(L)
-    _check_rows(rows, _check_state(state, L), ())
-    n, lib, stream = _cuda_inputs(state, rows, "cycle inverse")
-    tiles = torch.zeros((n, 2, WIDTH), dtype=torch.float32,
-                        device=state.device)
-    tiles[:, 0] = rows
-    tiles[:, 0, _LANE_TRIP] = 1.0   # one step
-    tiles[:, 0, _LANE_SIGN] = 1.0   # the un-negated kick
+    _check_rows(rows, _check_state(state, L), (2,), 2 * L)
+    n, lib, stream = _cuda_inputs(state, rows, "cycle inverse", width=2 * L)
     c, s = rb.kick_cs(theta)
-    err = lib.floquet_cycle_inverse(state.data_ptr(), tiles.data_ptr(), n, L,
+    err = lib.floquet_cycle_inverse(state.data_ptr(), rows.data_ptr(), n, L,
                                     c, s, stream)
     LAUNCHES["inverse"] += 1
     rb.raise_on(err, "floquet_cycle_inverse")

@@ -18,6 +18,9 @@ L_loc <= 23). Their four Pallas kernels become one hand-written CUDA family,
   sum |psi|^2 z_q, q < L_loc;
 - K9b ``hi_cycle_inverse_apply``: the pre-fold inverse step K.D with the
   same row and un-negated angles, for the echo's once-conjugated frame;
+  both take the shard's global diagonal (th_sc, th_bnd) as K8a/K8b's folded
+  rows carry it (``ops/cycle.py::fold_cycle_rows``) and apply it as a torch
+  phase (``global_phase``): after K9a's kernel, before K9b's;
 - K10a, shard-local, ``general_hi_cycle_forward_apply``: a lab-frame cycle
   of K slot rows (``ops/params_general.py`` at ``general_hi_width(L_loc)``:
   256 lanes at L_loc = 30; the diagonal on the final slot) and its partial
@@ -100,11 +103,26 @@ def _check(state, rows, L: int, lead: tuple, width: int) -> int:
     return n
 
 
+def global_phase(state, th_sc=None, th_bnd=None, sign: float = 1.0):
+    """exp(i sign (th_sc + th_bnd z_top)) on each state of (n, 2^L) in place,
+    z_top the sign of its top bit: a shard's global diagonal (th_sc, th_bnd
+    (n,), ``parallel/sharded.py::_tail_phase_angles``). None: nothing."""
+    if th_sc is None:
+        return state
+    ones = torch.ones_like(th_sc)
+    f = torch.stack([torch.polar(ones, sign * (th_sc + th_bnd)),
+                     torch.polar(ones, sign * (th_sc - th_bnd))], -1)
+    n, M = state.shape
+    state.view(n, 2, M >> 1).mul_(f.to(state.device)[:, :, None])
+    return state
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 
 
-def hi_cycle_forward_apply_ref(state, rows, theta, *, L, q):
+def hi_cycle_forward_apply_ref(state, rows, theta, *, L, q=None,
+                               th_sc=None, th_bnd=None):
     """Plain version of ``hi_cycle_forward_apply`` (same arguments)."""
     if state.is_cuda:
         PLAIN_ON_CUDA["forward"] += 1
@@ -112,16 +130,19 @@ def hi_cycle_forward_apply_ref(state, rows, theta, *, L, q):
     n = _check(state, rows, L, (), forward_width(L))
     rows = rows.to(torch.float32)
     rx = sm._rx(theta, 1.0, state.device)
-    part = torch.empty(n, dtype=torch.float32, device=state.device)
+    part = None if q is None else torch.empty(n, dtype=torch.float32,
+                                              device=state.device)
     for i in range(n):
         new = sm.phase_grid(apply_uniform_1q_layer(state[i], rx, L),
                             sm._angles(rows[i], L))
         state[i].copy_(new)
-        part[i] = sm.measure_z(new, q, L)
-    return state, part
+        if part is not None:
+            part[i] = sm.measure_z(new, q, L)
+    return global_phase(state, th_sc, th_bnd), part
 
 
-def hi_cycle_inverse_apply_ref(state, rows, theta, *, L):
+def hi_cycle_inverse_apply_ref(state, rows, theta, *, L, th_sc=None,
+                               th_bnd=None):
     """Plain version of ``hi_cycle_inverse_apply`` (same arguments)."""
     if state.is_cuda:
         PLAIN_ON_CUDA["inverse"] += 1
@@ -129,6 +150,7 @@ def hi_cycle_inverse_apply_ref(state, rows, theta, *, L):
     n = _check(state, rows, L, (), forward_width(L))
     rows = rows.to(torch.float32)
     rx = sm._rx(theta, 1.0, state.device)
+    global_phase(state, th_sc, th_bnd)
     for i in range(n):
         pre = sm.phase_grid(state[i], sm._angles(rows[i], L))
         state[i].copy_(apply_uniform_1q_layer(pre, rx, L))
@@ -211,13 +233,17 @@ def counted_tiles(tiles, L: int, K: int) -> torch.Tensor:
 # kernel entries
 
 
-def hi_cycle_forward_apply(state, rows, theta, *, L, q):
+def hi_cycle_forward_apply(state, rows, theta, *, L, q=None, th_sc=None,
+                           th_bnd=None):
     """One sigma-frame x cycle (K9a): state (n, 2^L) complex64, rows (n,
-    forward_width(L)) compact cycle rows at L = L_loc, theta the RX angle.
-    Returns (state, the partial sum |psi|^2 z_q (n,) after the cycle); the
-    sum over the shards and the sigma sign are the caller's."""
+    forward_width(L)) compact cycle rows at L = L_loc, theta the RX angle,
+    then the shard's global diagonal (th_sc, th_bnd (n,); None: none).
+    Returns (state, the partial sum |psi|^2 z_q (n,) after the cycle), or
+    (state, None) with q=None (the kernel measures q=0, unread); the sum
+    over the shards and the sigma sign are the caller's."""
     if rb.route(state, "streamed cycle") == "plain":
-        return hi_cycle_forward_apply_ref(state, rows, theta, L=L, q=q)
+        return hi_cycle_forward_apply_ref(state, rows, theta, L=L, q=q,
+                                          th_sc=th_sc, th_bnd=th_bnd)
     check_range(L, q)
     width = forward_width(L)
     _check(state, rows, L, (), width)
@@ -229,22 +255,27 @@ def hi_cycle_forward_apply(state, rows, theta, *, L, q):
     c, s = rb.kick_cs(theta)
     err = lib.floquet_cycle_hi_forward(state.data_ptr(), rows.data_ptr(),
                                        partials.data_ptr(), out.data_ptr(),
-                                       n, L, width, q, c, s, stream)
+                                       n, L, width, 0 if q is None else q, c,
+                                       s, stream)
     LAUNCHES["forward"] += 1
     rb.raise_on(err, "floquet_cycle_hi_forward")
-    return state, out
+    return global_phase(state, th_sc, th_bnd), None if q is None else out
 
 
-def hi_cycle_inverse_apply(state, rows, theta, *, L):
+def hi_cycle_inverse_apply(state, rows, theta, *, L, th_sc=None,
+                           th_bnd=None):
     """One pre-fold inverse x cycle K.D (K9b) with the same rows and angle
-    as the forward; the caller negates the imaginary part once at the echo's
+    as the forward, after the shard's global diagonal (th_sc, th_bnd (n,);
+    None: none); the caller negates the imaginary part once at the echo's
     turnaround. Returns state."""
     if rb.route(state, "streamed cycle") == "plain":
-        return hi_cycle_inverse_apply_ref(state, rows, theta, L=L)
+        return hi_cycle_inverse_apply_ref(state, rows, theta, L=L,
+                                          th_sc=th_sc, th_bnd=th_bnd)
     check_range(L)
     _check(state, rows, L, (), forward_width(L))
     n, lib, stream = cycle._cuda_inputs(state, rows, "hi cycle inverse",
                                         LIBRARY, forward_width(L))
+    global_phase(state, th_sc, th_bnd)
     tiles = inverse_tiles(rows, L)
     c, s = rb.kick_cs(theta)
     err = lib.floquet_cycle_hi_inverse(state.data_ptr(), tiles.data_ptr(), n,

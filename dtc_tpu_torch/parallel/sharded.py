@@ -3,8 +3,7 @@
 Port of ``dtc_tpu/parallel/sharded.py``: the global-bit algebra
 (``_global_1q``, ``_sharded_pauli_string``, ``_sharded_kick_factored``,
 ``_sharded_forward_cycle``, ``_tail_phase_angles``, ``_global_shard_kicks``,
-``_global_diag``, ``_global_diag_inv``, ``_global_cycle_tail``,
-``_global_cycle_head``, ``_check_constant_x``,
+``_global_diag``, ``_global_diag_inv``, ``_check_constant_x``,
 ``_global_general_slot_kick``), the sigma-frame engines
 ``make_sharded_autocorr_forward`` and ``make_sharded_echo``, and the
 cycle-kernel engines at 17 <= L_loc <= 30:
@@ -45,9 +44,12 @@ a shard). The per-shard kernels are K8 (``ops/cycle.py``,
 L_loc < ``cycle_hi.MIN_ROUTE_L``) and the streamed family (``ops/cycle_hi.py``,
 from it up to 30), as the reference switches at its
 ``DTC_TPU_SHARDED_HI_MIN_LB``; x rows are ``forward_width(L_loc)`` lanes
-wide and lab-frame rows ``general_hi_width(L_loc)``. The shard-bit kicks,
-the global diagonal and the boundary bond phi[L_loc-1] are torch tensor
-ops between the launches.
+wide and lab-frame rows ``general_hi_width(L_loc)``. The shard-bit kicks
+are torch tensor ops between the launches. A shard's global diagonal
+(the shard-bit terms and the boundary bond phi[L_loc-1]) is one too for
+the lab-frame engines; the x engines hand it to the launch (K8: in its
+folded row, built once a run for every step and shard; K9: its wrappers'
+torch phase).
 
 Device noise: the lab-frame cycle-kernel engines take ``device=(p_1q,
 p_2q, events_per_kick)`` with p == 0, as the reference's do. The
@@ -241,34 +243,36 @@ def _sharded_forward_cycle(mesh, shards, pending, ang, ev, d0s, exp_h, exp_p,
 
 
 def _tail_phase_angles(zm_t, sig_t, hs, phis, aidx, *, L, local_bits):
-    """Per-trajectory angles (theta_scalar (n,), theta_boundary (n,)) of
-    shard ``aidx``: the global part of a cycle-kernel cycle's post-fold
-    diagonal is exp(i theta_scalar) * exp(i theta_boundary z_top), z_top the
-    local top bit's sign. theta_scalar holds the shard-bit h terms with
-    their sigma corrections, the noise-Z signs on shard bits and the
-    shard-shard bonds; theta_boundary the boundary bond phi[L_loc-1] with
-    its shard-bit-0 leg. The compact-row formula (cz = h (sig - 1/2) -
+    """Per-trajectory angles (theta_scalar, theta_boundary) of shard
+    ``aidx``: the global part of a cycle-kernel cycle's post-fold diagonal
+    is exp(i theta_scalar) * exp(i theta_boundary z_top), z_top the local
+    top bit's sign. theta_scalar holds the shard-bit h terms with their
+    sigma corrections, the noise-Z signs on shard bits and the shard-shard
+    bonds; theta_boundary the boundary bond phi[L_loc-1] with its
+    shard-bit-0 leg. The compact-row formula (cz = h (sig - 1/2) -
     (pi/2) n, cb = phi (flip - 1/2), c0 = (pi/2) sum n) restricted to bits
-    >= L_loc. hs (L,) or per trajectory (n, L), phis likewise; masks (n,)
-    int64."""
-    zb = _bits(sig_t, L).to(torch.float32)                         # (n, L)
-    nb = _bits(zm_t, L).to(torch.float32)
-    hf = hs.to(torch.float32).to(zb.device)
-    pf = phis.to(torch.float32).to(zb.device)
-    th_sc = torch.zeros(zm_t.shape, dtype=torch.float32, device=zb.device)
-    for qq in range(local_bits, L):
-        z = 1.0 - 2.0 * ((aidx >> (qq - local_bits)) & 1)
-        czq = hf[..., qq] * (zb[:, qq] - 0.5) - _HALF_PI * nb[:, qq]
-        th_sc = th_sc + czq * z + _HALF_PI * nb[:, qq]
-    for b in range(local_bits, L - 1):
-        gb, gb1 = b - local_bits, b + 1 - local_bits
-        zz = ((1.0 - 2.0 * ((aidx >> gb) & 1))
-              * (1.0 - 2.0 * ((aidx >> gb1) & 1)))
-        flip = (zb[:, b] - zb[:, b + 1]).abs()
-        th_sc = th_sc + pf[..., b] * (flip - 0.5) * zz
-    b = local_bits - 1
-    flip = (zb[:, b] - zb[:, b + 1]).abs()
-    th_bnd = pf[..., b] * (flip - 0.5) * (1.0 - 2.0 * (aidx & 1))
+    >= L_loc. Masks int64 of any shape, aidx an int or an int64 tensor that
+    broadcasts against them (every step and shard at once: masks (S, 1, n),
+    aidx (A, 1)); hs (>= L,) or per trajectory (n, >= L), phis likewise
+    (>= L-1), their first L (L-1) read. Both angles f32 of the broadcast
+    shape."""
+    dev = zm_t.device
+    bit = torch.arange(L, device=dev)
+    zb = ((sig_t[..., None] >> bit) & 1).to(torch.float32)        # (..., L)
+    nb = ((zm_t[..., None] >> bit) & 1).to(torch.float32)
+    hf = hs[..., :L].to(torch.float32).to(dev)
+    pf = phis[..., :L - 1].to(torch.float32).to(dev)
+    # an int shard index stays on the host: a copy of it to the card would
+    # wait for the card's queue to drain, once a call
+    shard = aidx[..., None] if torch.is_tensor(aidx) else aidx
+    za = (1.0 - 2.0 * ((shard >> bit[:L - local_bits]) & 1)).to(
+        torch.float32)                                  # shard-bit z signs
+    g = slice(local_bits, L)
+    czq = hf[..., g] * (zb[..., g] - 0.5) - _HALF_PI * nb[..., g]
+    bond = pf * ((zb[..., :-1] - zb[..., 1:]).abs() - 0.5)
+    th_sc = ((czq * za + _HALF_PI * nb[..., g]).sum(-1)
+             + (bond[..., local_bits:] * za[..., :-1] * za[..., 1:]).sum(-1))
+    th_bnd = bond[..., local_bits - 1] * za[..., 0]
     return th_sc, th_bnd
 
 
@@ -280,12 +284,7 @@ def _global_diag(st, zm_t, sig_t, hs, phis, aidx, *, L, local_bits,
     cycle-kernel engines own their shards). ``sign=-1`` daggers it."""
     th_sc, th_bnd = _tail_phase_angles(zm_t, sig_t, hs, phis, aidx, L=L,
                                        local_bits=local_bits)
-    ones = torch.ones_like(th_sc)
-    f = torch.stack([torch.polar(ones, sign * (th_sc + th_bnd)),
-                     torch.polar(ones, sign * (th_sc - th_bnd))], -1)
-    n, M = st.shape
-    st.view(n, 2, M >> 1).mul_(f.to(st.device)[:, :, None])
-    return st
+    return cycle_hi.global_phase(st, th_sc, th_bnd, sign)
 
 
 def _global_diag_inv(st, zm_t, sig_t, hs, phis, aidx, *, L, local_bits):
@@ -308,29 +307,6 @@ def _global_shard_kicks(mesh, shards, theta):
         shards = [st.mul(c).add_(pt, alpha=complex(0.0, -s))
                   for st, pt in zip(shards, partners)]
     return shards
-
-
-def _global_cycle_tail(mesh, shards, zm_t, sig_t, hs, phis, theta, *, L,
-                       local_bits):
-    """After a K8a cycle: RX on every shard bit, then the global diagonal
-    (exact: the local diagonal commutes with the shard-bit kicks, and the
-    boundary bond, which involves the local top bit, lands after every
-    kick)."""
-    shards = _global_shard_kicks(mesh, shards, theta)
-    return [_global_diag(st, zm_t, sig_t, hs, phis, a, L=L,
-                         local_bits=local_bits) for a, st in enumerate(shards)]
-
-
-def _global_cycle_head(mesh, shards, zm_t, sig_t, hs, phis, theta, *, L,
-                       local_bits):
-    """Before a K8b step, in the once-conjugated echo frame: the same global
-    factors with un-negated angles in mirrored order, the diagonal (at the
-    step's pre-event sigma with the previous event's Z word) before the
-    shard-bit kicks."""
-    shards = [_global_diag(st, zm_t, sig_t, hs, phis, a, L=L,
-                           local_bits=local_bits)
-              for a, st in enumerate(shards)]
-    return _global_shard_kicks(mesh, shards, theta)
 
 
 def _check_constant_x(angles) -> float:
@@ -642,27 +618,73 @@ def make_sharded_echo(mesh, *, L, T, K, p, q, initial_state="vacuum",
 # cycle-kernel engines, 17 <= L_loc <= 30
 
 
+def _x_cycles(shards, zm, sig, hs, phis, theta, *, L, local_bits,
+              inverse=False):
+    """The per-shard x cycle of every step of a run, with each shard's
+    global diagonal, its rows built once, before the step loop: zm and sig
+    (c, S) the noise-Z and sigma words of the S steps, from which come the
+    compact rows of the local bits (``pack_cycle_params_compact`` at L =
+    L_loc) and every step's and shard's global diagonal at once
+    (``_tail_phase_angles``). K8 carries it in its folded rows
+    (``cycle.fold_cycle_rows``), K9 (from ``cycle_hi.MIN_ROUTE_L``) takes
+    it as its wrappers' torch phase. Returns run(k, a, st, q=None): step k
+    on shard a's states st in place; the forward's partial sum |psi|^2 z_q
+    with q, else None (no measure; the inverse never measures)."""
+    hi = use_hi(local_bits)
+    rows = pack_cycle_params_compact(
+        zm, sig, hs[:local_bits].to(zm.device),
+        phis[:local_bits - 1].to(zm.device), local_bits,
+        forward_width(local_bits)).transpose(0, 1)       # (S, c, width)
+    th = None
+    if L > local_bits:
+        aidx = torch.arange(len(shards), device=zm.device)[:, None]
+        th = _tail_phase_angles(zm.T[:, None], sig.T[:, None], hs, phis,
+                                aidx, L=L, local_bits=local_bits)  # (S, A, c)
+    if hi:
+        rows = rows.contiguous()
+        per = [(rows.to(st.device),
+                None if th is None else [x[:, a].to(st.device) for x in th])
+               for a, st in enumerate(shards)]
+    else:
+        fold = cycle.fold_cycle_rows(rows if th is None else rows[:, None],
+                                     local_bits, *(th or (None, None)),
+                                     inverse=inverse)
+        per = [((fold if th is None else fold[:, a]).contiguous().to(
+            st.device), None) for a, st in enumerate(shards)]
+    entry = {(False, False): cycle.cycle_forward_apply,
+             (False, True): cycle.cycle_inverse_apply,
+             (True, False): cycle_hi.hi_cycle_forward_apply,
+             (True, True): cycle_hi.hi_cycle_inverse_apply}[hi, inverse]
+
+    def run(k, a, st, q=None):
+        r, g = per[a]
+        kw = {} if inverse else {"q": q}
+        if g is not None:
+            kw.update(th_sc=g[0][k], th_bnd=g[1][k])
+        out = entry(st, r[k], theta, L=local_bits, **kw)
+        return None if inverse else out[1]
+
+    return run
+
+
 def make_sharded_autocorr_forward_kernel(mesh, *, L, T, p, q,
                                          initial_state="vacuum",
                                          ancilla_factor=None):
     """Cycle-kernel sharded forward autocorrelator of a constant x drive:
-    the shard-local part of every cycle is one K8a (K9a from
-    ``cycle_hi.MIN_ROUTE_L`` on) launch per shard (kick, noise-Z,
-    sigma-conjugated D0 and the A(t) partial), the shard-bit kicks and the
-    global diagonal torch ops after it.
+    every cycle is the shard-bit kicks (torch ops), then one K8a (K9a from
+    ``cycle_hi.MIN_ROUTE_L`` on) launch per shard: the local kick, the
+    local noise-Z and sigma-conjugated D0 with the shard's global diagonal,
+    and the A(t) partial (exact: the shard-bit kicks commute with the local
+    kick and diagonal, and z_q of a local bit with them).
 
     Same semantics as ``make_sharded_autocorr_forward`` (K=1): fn(angles,
     hs, phis, uniforms (n, T, L) or None, n_traj=None) -> A (T,). Requires a
     constant x-only schedule, 17 <= L_loc <= 30 and q < L_loc."""
     local_bits = _kernel_geometry(mesh, L, q)
-    forward_apply = (cycle_hi.hi_cycle_forward_apply if use_hi(local_bits)
-                     else cycle.cycle_forward_apply)
-    width = forward_width(local_bits)
     k_bits = L - local_bits
     af = _ancilla(p, ancilla_factor)
     b0 = basis_index(L, initial_state)
     s0 = 1.0 if ((b0 >> q) & 1) == 0 else -1.0
-    gkw = dict(L=L, local_bits=local_bits)
 
     def fn(angles, hs, phis, uniforms=None, n_traj=None):
         theta = _check_constant_x(angles)
@@ -671,30 +693,22 @@ def make_sharded_autocorr_forward_kernel(mesh, *, L, T, p, q,
         for t, u, c in _traj_groups(mesh, uniforms, n_traj, p,
                                     _launch_traj(mesh, local_bits)):
             dev0 = mesh.device(t, 0)
-            h_loc = hs[:local_bits].to(dev0)
-            ph_loc = phis[:local_bits - 1].to(dev0)
             if p > 0.0:
                 _, zm, _, csum = presample_noise(u.to(dev0), p, L)  # (c, T)
             else:
                 zm = csum = torch.zeros((c, T), dtype=torch.int64,
                                         device=dev0)
-            rows = pack_cycle_params_compact(zm, csum, h_loc, ph_loc,
-                                             local_bits, width)  # (c,T,width)
-            rows = rows.transpose(0, 1).contiguous()
             shards = _basis_shards(mesh, t, c, L, local_bits, b0,
                                    torch.complex64)
+            # A(0) is analytic: the T - 1 cycles after it
+            run = _x_cycles(shards, zm[:, :T - 1], csum[:, :T - 1], hs, phis,
+                            theta, L=L, local_bits=local_bits)
             frames = []
-            for tt in range(T - 1):  # A(0) is analytic
-                parts = []
-                for st in shards:
-                    _, part = forward_apply(
-                        st, rows[tt].to(st.device), theta, L=local_bits, q=q)
-                    parts.append(part)
+            for tt in range(T - 1):
                 if k_bits:
-                    shards = _global_cycle_tail(mesh, shards, zm[:, tt],
-                                                csum[:, tt], hs, phis, theta,
-                                                **gkw)
-                frames.append(mesh.psum(parts).to(dev0))
+                    shards = _global_shard_kicks(mesh, shards, theta)
+                frames.append(mesh.psum([run(tt, a, st, q) for a, st in
+                                         enumerate(shards)]).to(dev0))
             # A(t >= 1) carries the sigma sign after cycle t-1
             a_traj = torch.full((c, T), af, dtype=torch.float32, device=dev0)
             if T > 1:
@@ -709,26 +723,22 @@ def make_sharded_autocorr_forward_kernel(mesh, *, L, T, p, q,
 
 def make_sharded_echo_kernel(mesh, *, L, T, p, q, initial_state="vacuum",
                              ancilla_factor=None):
-    """Cycle-kernel sharded echo A0(t) of a constant x drive: forward steps
-    one K8a (K9a) launch per shard then the global tail; at the turnaround
-    the imaginary part is negated once, after which every inverse step is
-    the global head (diagonal, then shard-bit kicks, with the previous
-    event's Z word, zeroed at step t) then one K8b (K9b) launch per shard,
-    in reverse time order. Only the 2t active steps run.
+    """Cycle-kernel sharded echo A0(t) of a constant x drive: a forward step
+    is the shard-bit kicks, then one K8a (K9a) launch per shard with the
+    shard's global diagonal and no measure; at the turnaround the imaginary
+    part is negated once, after which every inverse step is one K8b (K9b)
+    launch per shard, the global diagonal (with the previous event's Z
+    word, zeroed at step t) with the local one before the local kick, then
+    the shard-bit kicks, in reverse time order. Only the 2t active steps
+    run.
 
     Same semantics as ``make_sharded_echo`` (K=1): fn(angles, hs, phis,
     uniforms (n, 2T, 1, L) or None, t_value, n_traj=None) -> scalar."""
     local_bits = _kernel_geometry(mesh, L, q)
-    forward_apply, inverse_apply = (
-        (cycle_hi.hi_cycle_forward_apply, cycle_hi.hi_cycle_inverse_apply)
-        if use_hi(local_bits)
-        else (cycle.cycle_forward_apply, cycle.cycle_inverse_apply))
-    width = forward_width(local_bits)
     k_bits = L - local_bits
     af = _ancilla(p, ancilla_factor)
     b0 = basis_index(L, initial_state)
     s0 = 1.0 if ((b0 >> q) & 1) == 0 else -1.0
-    gkw = dict(L=L, local_bits=local_bits)
     T2 = 2 * T
 
     def fn(angles, hs, phis, uniforms, t_value, n_traj=None):
@@ -739,8 +749,6 @@ def make_sharded_echo_kernel(mesh, *, L, T, p, q, initial_state="vacuum",
         for t, u, c in _traj_groups(mesh, uniforms, n_traj, p,
                                     _launch_traj(mesh, local_bits)):
             dev0 = mesh.device(t, 0)
-            h_loc = hs[:local_bits].to(dev0)
-            ph_loc = phis[:local_bits - 1].to(dev0)
             step = torch.arange(T2, device=dev0)
             if p > 0.0:
                 codes = _codes_from_uniform(u.to(dev0).reshape(c, T2, L), p)
@@ -752,33 +760,26 @@ def make_sharded_echo_kernel(mesh, *, L, T, p, q, initial_state="vacuum",
                                         device=dev0)
             sig_b = _prev(csum)
             zm_prev = torch.where(step == t_value, 0, _prev(zm))
-            rows_f = pack_cycle_params_compact(zm, csum, h_loc, ph_loc,
-                                               local_bits, width)
-            rows_i = pack_cycle_params_compact(zm_prev, sig_b, h_loc, ph_loc,
-                                               local_bits, width)
-            rows_f = rows_f.transpose(0, 1).contiguous()        # (2T,c,width)
-            rows_i = rows_i.transpose(0, 1).contiguous()
             shards = _basis_shards(mesh, t, c, L, local_bits, b0,
                                    torch.complex64)
-            for k in range(2 * t_value):
-                if k < t_value:
-                    for st in shards:
-                        forward_apply(st, rows_f[k].to(st.device), theta,
-                                      L=local_bits, q=q)
-                    if k_bits:
-                        shards = _global_cycle_tail(mesh, shards, zm[:, k],
-                                                    csum[:, k], hs, phis,
-                                                    theta, **gkw)
-                    continue
-                if k == t_value:
-                    shards = [s.conj_physical_() for s in shards]
+            # the forward steps [0, t), the inverse steps [t, 2t)
+            f, i = slice(0, t_value), slice(t_value, 2 * t_value)
+            kw = dict(L=L, local_bits=local_bits)
+            fwd = _x_cycles(shards, zm[:, f], csum[:, f], hs, phis, theta,
+                            **kw)
+            inv = _x_cycles(shards, zm_prev[:, i], sig_b[:, i], hs, phis,
+                            theta, inverse=True, **kw)
+            for k in range(t_value):
                 if k_bits:
-                    shards = _global_cycle_head(mesh, shards, zm_prev[:, k],
-                                                sig_b[:, k], hs, phis, theta,
-                                                **gkw)
-                for st in shards:
-                    inverse_apply(st, rows_i[k].to(st.device), theta,
-                                  L=local_bits)
+                    shards = _global_shard_kicks(mesh, shards, theta)
+                for a, st in enumerate(shards):
+                    fwd(k, a, st)
+            shards = [s.conj_physical_() for s in shards]
+            for k in range(t_value):
+                for a, st in enumerate(shards):
+                    inv(k, a, st)
+                if k_bits:
+                    shards = _global_shard_kicks(mesh, shards, theta)
             part = _measure(mesh, shards, q, local_bits).to(dev0)
             e = af * s0 * _sign(csum[:, -1], q) * part
             total = total + e.sum()

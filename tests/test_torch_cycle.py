@@ -6,7 +6,11 @@ One cycle at L_loc = 17 on random unit states: the reference's planar
 (n, 2, TOP, 16384) f32 state is the port's flat (n, 2^17) complex64 state,
 index by index. The rows are the port's (``pack_cycle_params_compact``,
 ``general_forward_rows``, ``general_echo_rows``), which
-``tests/test_torch_params*.py`` hold equal to the reference's. Tolerances:
+``tests/test_torch_params*.py`` hold equal to the reference's; K8a and K8b
+take them folded (``cycle.fold_cycle_rows``), the reference's kernels as
+they are. With a shard's global angles the folded rows are held against
+the compact-row cycle followed (K8a) or preceded (K8b) by the engines'
+global diagonal (``parallel/sharded.py::_global_diag``). Tolerances:
 amplitudes of a unit state at 2^17 are about 3e-3, and f32 sums of a cycle
 leave them within 2e-6 (TOL_AMP); partial sums within 1e-5 (TOL_SUM).
 """
@@ -30,6 +34,7 @@ from dtc_tpu_torch.ops.params_general import (
     general_echo_rows,
     general_forward_rows,
 )
+from dtc_tpu_torch.parallel import sharded as sh
 
 torch.set_num_threads(2)
 L = 17
@@ -84,7 +89,8 @@ def test_k8a_matches_reference_interpret(q):
     n = 2
     st, jst = _states(n)
     rows = _x_rows(n)
-    got, part = cycle.cycle_forward_apply(st, rows, THETA, L=L, q=q)
+    got, part = cycle.cycle_forward_apply(
+        st, cycle.fold_cycle_rows(rows, L), THETA, L=L, q=q)
     want, jpart = jc.cycle_forward_apply(jst, jnp.asarray(rows.numpy()),
                                          *_kicks(), L=L, q=q, interpret=True)
     assert float((got - _flat(want)).abs().max()) < TOL_AMP
@@ -95,7 +101,8 @@ def test_k8b_matches_reference_interpret():
     n = 2
     st, jst = _states(n, seed=3)
     rows = _x_rows(n, seed=6)
-    got = cycle.cycle_inverse_apply(st, rows, THETA, L=L)
+    got = cycle.cycle_inverse_apply(
+        st, cycle.fold_cycle_rows(rows, L, inverse=True), THETA, L=L)
     want = jc.cycle_inverse_apply(jst, jnp.asarray(rows.numpy()), *_kicks(),
                                   L=L, interpret=True)
     assert float((got - _flat(want)).abs().max()) < TOL_AMP
@@ -134,9 +141,13 @@ def test_k8b_undoes_k8a_in_the_conjugated_frame():
     conj(K D)."""
     st, _ = _states(1, seed=9)
     rows = _x_rows(1, seed=10)
-    s1, _ = cycle.cycle_forward_apply(st.clone(), rows, THETA, L=L, q=8)
-    back = cycle.cycle_inverse_apply(s1.conj().resolve_conj(), rows, THETA,
-                                     L=L).conj()
+    s1, _ = cycle.cycle_forward_apply(st.clone(),
+                                      cycle.fold_cycle_rows(rows, L), THETA,
+                                      L=L, q=8)
+    back = cycle.cycle_inverse_apply(
+        s1.conj().resolve_conj(), cycle.fold_cycle_rows(rows, L,
+                                                        inverse=True),
+        THETA, L=L).conj()
     assert float((back - st).abs().max()) < TOL_AMP
 
 
@@ -152,8 +163,8 @@ def test_chains_equal_the_whole_state_plain_kernels():
     st = rb.basis_states(n, L, 0, "cpu")
     parts = [torch.ones(n)]
     for t in range(T - 1):
-        parts.append(cycle.cycle_forward_apply(st, rows[:, t], THETA, L=L,
-                                               q=q)[1])
+        parts.append(cycle.cycle_forward_apply(
+            st, cycle.fold_cycle_rows(rows[:, t], L), THETA, L=L, q=q)[1])
     got = rb.forward_host_factor(torch.stack(parts, 1), sig, q, 0, 1.0)
     torch.testing.assert_close(got, want, atol=TOL_SUM, rtol=0)
 
@@ -179,13 +190,102 @@ def test_range_checks_and_cpu_route():
     cycle.reset_counters()
     st = torch.zeros((1, 1 << 16), dtype=torch.complex64)
     with pytest.raises(ValueError, match="17 <= L_loc <= 23"):
-        cycle.cycle_forward_apply(st, torch.zeros(1, 128), THETA, L=16, q=3)
+        cycle.cycle_forward_apply(st, torch.zeros(1, 2, 32), THETA, L=16,
+                                  q=3)
     st, _ = _states(1)
     with pytest.raises(ValueError, match="shard-local probe"):
-        cycle.cycle_forward_apply(st, torch.zeros(1, 128), THETA, L=L, q=L)
+        cycle.cycle_forward_apply(st, torch.zeros(1, 2, 2 * L), THETA, L=L,
+                                  q=L)
     with pytest.raises(ValueError, match="rows must be"):
         cycle.general_cycle_inverse_apply(st, torch.zeros(1, 2, 128), L=L,
                                           K=2)
-    cycle.cycle_inverse_apply(st, torch.zeros(1, 128), THETA, L=L)
+    with pytest.raises(ValueError, match="rows must be"):
+        cycle.cycle_forward_apply(st, torch.zeros(1, 128), THETA, L=L, q=3)
+    cycle.cycle_inverse_apply(st, torch.zeros(1, 2, 2 * L), THETA, L=L)
     assert not any(cycle.LAUNCHES.values())
     assert not any(cycle.PLAIN_ON_CUDA.values())
+
+
+def _global_case(L_loc, n_amp, n, seed):
+    """A noisy cycle (p=0.6) of n trajectories on shard bits: the compact
+    rows at L_loc, and per shard the masks and the global angles as the
+    engines take them (every shard at once, ``_tail_phase_angles`` on an
+    (A, 1) shard index)."""
+    Lg = L_loc + n_amp.bit_length() - 1
+    hs, phis = generate_disorder(Lg, 1, seed=9)
+    hs, phis = torch.as_tensor(hs[0, :Lg]), torch.as_tensor(phis[0, :Lg - 1])
+    u = torch.rand((n, 2, Lg), generator=torch.Generator().manual_seed(seed))
+    _, zm, _, csum = presample_noise(u, 0.6, Lg)
+    zm, csum = zm[:, 1], csum[:, 1]
+    rows = pack_cycle_params_compact(zm, csum, hs[:L_loc], phis[:L_loc - 1],
+                                     L_loc)
+    th_sc, th_bnd = sh._tail_phase_angles(
+        zm[None], csum[None], hs, phis, torch.arange(n_amp)[:, None], L=Lg,
+        local_bits=L_loc)                                       # (A, n)
+    return Lg, hs, phis, zm, csum, rows, th_sc, th_bnd
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n_amp", [2, 4])
+@pytest.mark.parametrize("L_loc", [17, 18])
+def test_folded_global_diagonal_matches_the_torch_phase(L_loc, n_amp,
+                                                        inverse):
+    """On every shard, the plain K8a on ``fold_cycle_rows`` with the shard's
+    global angles equals the compact-row cycle (kick, then the row's
+    diagonal) followed by ``_global_diag``; the plain K8b equals
+    ``_global_diag``, then the row's diagonal and the kick. The forward's
+    partial is the same: the global diagonal is a phase."""
+    n, q = 2, L_loc - 1
+    Lg, hs, phis, zm, csum, rows, th_sc, th_bnd = _global_case(
+        L_loc, n_amp, n, seed=L_loc + n_amp)
+    table = rb.angle_table(L_loc, "cpu")
+    u7, utop = rb._kick_pair(THETA, L_loc, "cpu")
+    angles = rb._row_angles(rows, L_loc, table)
+    fold = cycle.fold_cycle_rows(rows, L_loc, th_sc, th_bnd, inverse=inverse)
+    assert fold.shape == (n_amp, n, 2, 2 * L_loc)
+    gen = torch.Generator().manual_seed(L_loc)
+    for a in range(n_amp):
+        st = torch.randn((n, 1 << L_loc), dtype=torch.complex64,
+                         generator=gen)
+        st /= st.abs().pow(2).sum(-1, keepdim=True).sqrt()
+        want = st.clone()
+        if inverse:
+            sh._global_diag(want, zm, csum, hs, phis, a, L=Lg,
+                            local_bits=L_loc)
+            want = rb._kick(rb.apply_phase(want, angles), u7, utop, L_loc)
+            got = cycle.cycle_inverse_apply(st, fold[a], THETA, L=L_loc)
+        else:
+            want = rb.apply_phase(rb._kick(want, u7, utop, L_loc), angles)
+            sh._global_diag(want, zm, csum, hs, phis, a, L=Lg,
+                            local_bits=L_loc)
+            got, part = cycle.cycle_forward_apply(st, fold[a], THETA,
+                                                  L=L_loc, q=q)
+            wpart = (want.real ** 2 + want.imag ** 2) @ table[q]
+            torch.testing.assert_close(part, wpart, atol=TOL_SUM, rtol=0)
+        assert float((got - want).abs().max()) < TOL_AMP
+
+
+def test_fold_of_zero_angles_is_the_plain_fold():
+    """Zero global angles fold to the rows without them, bit for bit, and
+    the pairs lay the diagonal where K8a (row 1) and K8b (row 0) read it,
+    the other row zero."""
+    rows = _x_rows(3, seed=12)
+    zero = torch.zeros(3)
+    for inverse in (False, True):
+        plain = cycle.fold_cycle_rows(rows, L, inverse=inverse)
+        assert torch.equal(cycle.fold_cycle_rows(rows, L, zero, zero,
+                                                 inverse=inverse), plain)
+        cz, cb, c0 = rb.row_coeffs(rows.double(), L)
+        diag = torch.cat([cz, cb, c0[:, None]], -1).float()
+        assert torch.equal(plain[:, 0 if inverse else 1], diag)
+        assert not plain[:, 1 if inverse else 0].any()
+
+
+def test_no_measure_forward_runs_the_same_cycle():
+    """q=None: the same state, no partial."""
+    st, _ = _states(2, seed=13)
+    fold = cycle.fold_cycle_rows(_x_rows(2, seed=14), L)
+    a, part = cycle.cycle_forward_apply(st.clone(), fold, THETA, L=L)
+    b, _ = cycle.cycle_forward_apply(st.clone(), fold, THETA, L=L, q=3)
+    assert part is None
+    assert torch.equal(a, b)

@@ -156,20 +156,22 @@ def test_k10b_shard_local_matches_reference_interpret(pol):
 @pytest.mark.parametrize("kind", ["forward", "inverse", "general_forward",
                                   "general_inverse"])
 def test_plain_matches_k8_plain(kind, Lr):
-    """On the rows both take (L_loc = 22, 23: 128 lanes) the streamed
-    family's plain versions equal K8's, with the angle tables that K8's
-    plain versions build."""
+    """On the rows both take (L_loc = 22, 23: 128 lanes; K8a/K8b folded)
+    the streamed family's plain versions equal K8's, with the angle tables
+    that K8's plain versions build."""
     n, q = 1, Lr - 6
     st, _ = _states(n, seed=Lr, Lr=Lr)
     a, b = st.clone(), st.clone()
     if kind == "forward":
         rows = _x_rows(n, seed=Lr, Lr=Lr)
         _, pa = ch.hi_cycle_forward_apply(a, rows, THETA, L=Lr, q=q)
-        _, pb = cycle.cycle_forward_apply(b, rows, THETA, L=Lr, q=q)
+        _, pb = cycle.cycle_forward_apply(b, cycle.fold_cycle_rows(rows, Lr),
+                                          THETA, L=Lr, q=q)
     elif kind == "inverse":
         rows = _x_rows(n, seed=Lr, Lr=Lr)
         ch.hi_cycle_inverse_apply(a, rows, THETA, L=Lr)
-        cycle.cycle_inverse_apply(b, rows, THETA, L=Lr)
+        cycle.cycle_inverse_apply(
+            b, cycle.fold_cycle_rows(rows, Lr, inverse=True), THETA, L=Lr)
         pa = pb = torch.zeros(n)
     elif kind == "general_forward":
         rows, _, K = _general("circular_left", n, seed=Lr, Lr=Lr)

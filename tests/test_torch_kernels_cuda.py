@@ -843,23 +843,31 @@ def _unit_tol(L):
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,q", [(17, 16), (20, 10), (23, 15)])
 def test_cycle_kernels_match_plain_on_card(cuda_device, L, q):
-    """K8a-d on one cycle of random unit states, noisy rows (p=0.6):
-    the state and the partial against the plain versions on the same
-    inputs, within _unit_tol(L)."""
+    """K8a-d on one cycle of random unit states, noisy rows (p=0.6), K8a/K8b
+    on folded rows with non-zero global angles (a shard's th_sc, th_bnd,
+    uniform in [-pi, pi)), K8a also without a measure: the state and the
+    partial against the plain versions on the same inputs, within
+    _unit_tol(L)."""
     tol = _unit_tol(L)
     hs, phis = _disorder(L, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(L)
     u = torch.rand((1, 3, 2, L), generator=gen, device=cuda_device)
     rows = forward_rows(u, hs[:, None], phis[:, None], L=L, T=2,
                         p=0.6)[0][0, :, 1].contiguous()
+    th = (torch.rand((2, 3), generator=gen, device=cuda_device) - 0.5) * 6.28
     st = _unit_states(3, L, cuda_device, L)
     launches = dict(cy.LAUNCHES)
-    k, kp = cy.cycle_forward_apply(st.clone(), rows, THETA, L=L, q=q)
-    r, rp = cy.cycle_forward_apply_ref(st.clone(), rows, THETA, L=L, q=q)
+    fold = cy.fold_cycle_rows(rows, L, *th)
+    k, kp = cy.cycle_forward_apply(st.clone(), fold, THETA, L=L, q=q)
+    r, rp = cy.cycle_forward_apply_ref(st.clone(), fold, THETA, L=L, q=q)
     assert float((k - r).abs().max()) <= tol
     assert float((kp - rp).abs().max()) <= tol
-    k = cy.cycle_inverse_apply(st.clone(), rows, THETA, L=L)
-    r = cy.cycle_inverse_apply_ref(st.clone(), rows, THETA, L=L)
+    k, kp = cy.cycle_forward_apply(st.clone(), fold, THETA, L=L)
+    assert kp is None
+    assert float((k - r).abs().max()) <= tol
+    fold = cy.fold_cycle_rows(rows, L, *th, inverse=True)
+    k = cy.cycle_inverse_apply(st.clone(), fold, THETA, L=L)
+    r = cy.cycle_inverse_apply_ref(st.clone(), fold, THETA, L=L)
     assert float((k - r).abs().max()) <= tol
     grows = _general_inputs(cuda_device, L, "circular_left", 2, 3, L,
                             p=0.6)[0].reshape(3, 2, 2, -1)[:, 1].contiguous()
@@ -876,7 +884,7 @@ def test_cycle_kernels_match_plain_on_card(cuda_device, L, q):
     torch.cuda.synchronize()
     assert float((k - r).abs().max()) <= tol
     assert {n: cy.LAUNCHES[n] - launches[n] for n in launches} == {
-        "forward": 1, "inverse": 1, "general_forward": 1,
+        "forward": 2, "inverse": 1, "general_forward": 1,
         "general_inverse": 1}
 
 
@@ -918,7 +926,7 @@ def test_sharded_engines_on_card_match_cpu(cuda_device, pol):
 @pytest.mark.cuda
 def test_cycle_wrappers_reject_bad_inputs(cuda_device):
     st = torch.zeros((1, 1 << 17), dtype=torch.complex64, device=cuda_device)
-    rows = torch.zeros((1, 128), device=cuda_device)
+    rows = torch.zeros((1, 2, 34), device=cuda_device)
     with pytest.raises(ValueError, match="float32"):
         cy.cycle_forward_apply(st, rows.double(), THETA, L=17, q=3)
     with pytest.raises(ValueError, match="17 <= L_loc <= 23"):

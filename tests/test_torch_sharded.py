@@ -66,14 +66,16 @@ def _inputs(L, pol, T, n, shape, seed=11, **kw):
     return jargs, (ang, h[0], ph[0], uu)
 
 
-X_CASES = [(18, 2, 2, None), (19, 4, 2, None), (18, 2, 2, 15)]
+X_CASES = [(18, 2, 2, None), (19, 4, 2, None), (18, 2, 2, 15),
+           (19, 4, 2, 16)]
 
 
 @pytest.mark.parametrize("L,n_amp,n_traj,q", X_CASES)
 def test_x_cycle_forward_matches_reference(L, n_amp, n_traj, q):
     """K8a's engine: L=18/n_amp=2 has the boundary bond and one global
     kick; L=19/n_amp=4 adds a shard-shard bond and a second exchange bit;
-    q=15 is a probe in the high local bits."""
+    q=15 is a probe in the high local bits, q=16 on the local top bit,
+    where the boundary bond's angle rides the folded row."""
     T, p = 3, 0.6
     q = L // 2 if q is None else q
     jargs, args = _inputs(L, "x", T, 2 * n_traj, (T, L))
@@ -86,18 +88,20 @@ def test_x_cycle_forward_matches_reference(L, n_amp, n_traj, q):
     np.testing.assert_allclose(got.numpy(), want, atol=TOL)
 
 
-@pytest.mark.parametrize("L,n_amp,q", [(18, 2, 9), (19, 4, 15)])
+@pytest.mark.parametrize("L,n_amp,q", [(18, 2, 9), (19, 4, 15),
+                                       (18, 2, 16)])
 def test_x_cycle_echo_matches_reference(L, n_amp, q):
-    """K8a/K8b's echo engine at every t of (0, 1, T): the turnaround
-    conjugation, the global head before each inverse step, the previous
-    event's Z word zeroed at step t."""
+    """K8a/K8b's echo engine at every t of (0, 1, 2, T): the turnaround
+    conjugation, the global diagonal in each inverse step's folded row
+    before its local kick, the shard-bit kicks after it, the previous
+    event's Z word zeroed at step t; q=16 on the local top bit."""
     T, p, n_traj = 3, 0.6, 2
     jargs, args = _inputs(L, "x", T, 2 * n_traj, (2 * T, 1, L))
     ref = j_echo(j_make_mesh(n_amp=n_amp, n_traj=n_traj), L=L, T=T, K=1, p=p,
                  q=q, ancilla_factor=1.0)
     port = sh.make_sharded_echo_kernel(_mesh(n_amp, n_traj), L=L, T=T, p=p,
                                        q=q, ancilla_factor=1.0)
-    for t in (0, 1, T):
+    for t in (0, 1, 2, T):
         want = float(ref(*jargs, jnp.asarray(t)))
         assert abs(float(port(*args, t)) - want) < TOL, t
 
