@@ -49,11 +49,13 @@ each; any failure raises and the script exits non-zero without a result:
    cycle kernels K9a/K9b against their plain versions at L_loc = 22, 24,
    25, 27, 29 (q = 0, 14, 16, L//2, L-1 across them; vacuum and neel;
    chains of 3-4 cycles, every partial held; the echo at t=2 at p=0.6 and
-   0) and K10's shard-local forms at 24, 26, 29 (y, xy, circular_left,
+   0; K9a/K9b on rows folded with non-zero global angles, the echo's K9a
+   without a measure) and K10's shard-local forms at 24, 26, 29 (y, xy, circular_left,
    xy_cycle) and at 27 (xy, the sharded general main path's shape; chains
    of 3 cycles and the echo at t=2), and one cycle of each at L_loc = 30
-   (one trajectory, 256-lane rows) from a random unit state, the forwards'
-   partial also from the neel state, with the peak device memory; the sharded engines on them against the unsharded kernels: x at
+   (one trajectory; K9a with and without a probe; K10's 256-lane rows)
+   from a random unit state, the forwards' partial also from the neel
+   state, with the peak device memory; the sharded engines on them against the unsharded kernels: x at
    L=26 on 2 shards against the streamed x family, xy at L=26 on 2 shards
    against K10, a (1,1) mesh at L=25; and at L=31 on 2 shards (one
    trajectory) the anchors A(1) = cos(pi g) within 1e-5 and the noiseless
@@ -133,7 +135,8 @@ each; any failure raises and the script exits non-zero without a result:
    the registers and spills of every kernel of ``floquet_cycle.cu``; K9a/K9b
    and K10's shard-local forms (y and xy) at L_loc=28 on 2 shards x 2
    trajectories, one cycle, beside K6 and the one-card K10 per cycle at
-   L=28 on 4 trajectories); K11 on the planar path's 32 states of
+   L=28 on 4 trajectories, after the registers and spills of every kernel
+   of ``floquet_cycle_hi.cu``); K11 on the planar path's 32 states of
    L=20; the planar forward's and K1's cycles/s and the config-4 device
    forward's trajectory-cycles/s; each kernel's bound: the larger
    of its bytes (inputs read once, outputs written once; for the streamed
@@ -1014,20 +1017,23 @@ def compare_cycle_hi(dev, err) -> None:
     one shard's local bits, 2 trajectories, vacuum and neel in turn: K9a
     over chains of 4 cycles (3 at L_loc = 29) at the (L_loc, q) of
     HI_PROBES, every partial and the final state held; the x echo at t=2
-    (K9a twice, the turnaround conjugation, K9b twice on the inverse rows)
-    at L_loc = 22, 24, 25, 27, 29 at p=0.6 and 0 (the noiseless echo = 1);
-    at the L_loc of GENERAL_HI_PROBES K10a shard-local over chains of 3
-    cycles, and K10b on every step of the general echo rows at t=2 (p=0.6,
-    then 0). Then L_loc = 30 (``compare_cycle_hi_l30``). These launches are
-    not the main path's."""
+    (K9a twice without a measure, the turnaround conjugation, K9b twice on
+    the inverse rows) at L_loc = 22, 24, 25, 27, 29 at p=0.6 and 0 (the
+    noiseless echo = 1); at the L_loc of GENERAL_HI_PROBES K10a shard-local
+    over chains of 3 cycles, and K10b on every step of the general echo rows
+    at t=2 (p=0.6, then 0). K9a's and K9b's rows are folded with non-zero
+    global angles (``cycle_fold``); at p=0 the echo's have none, as on a
+    (1,1) mesh. Then L_loc = 30 (``compare_cycle_hi_l30``). These launches
+    are not the main path's."""
     from dtc_tpu_torch.core.statevector import basis_index
+    from dtc_tpu_torch.ops import cycle as cy
     from dtc_tpu_torch.ops import cycle_hi as chi
     from dtc_tpu_torch.ops import resident_blocked as rb
     from dtc_tpu_torch.ops.params_general import general_hi_width
 
     c = 2
 
-    def k9a(r, L, q):
+    def k9a(r, L, q=None):
         return (lambda s: chi.hi_cycle_forward_apply(s, r, THETA, L=L,
                                                      q=q)[1],
                 lambda s: chi.hi_cycle_forward_apply_ref(s, r, THETA, L=L,
@@ -1046,19 +1052,26 @@ def compare_cycle_hi(dev, err) -> None:
         state = ("vacuum", "neel")[i % 2]
         T = 3 if L == 29 else 4
         rows = cycle_x_rows(L, T, c, 0.6, dev, seed=L + q)[0]
-        held_chain(f"K9a L_loc={L} T={T} {state} q={q} 1x{c} "
-                   f"({rows.shape[-1]} lanes)", "K9a", err,
-                   [k9a(r.contiguous(), L, q) for r in rows.unbind(1)], L,
-                   state, dev)
+        held_chain(f"K9a L_loc={L} T={T} {state} q={q} 1x{c} (global "
+                   "angles)", "K9a", err,
+                   [k9a(cycle_fold(r, L, seed=L + q + k), L, q)
+                    for k, r in enumerate(rows.unbind(1))], L, state, dev)
     for i, L in enumerate((22, 24, 25, 27, 29)):
         q, state = (L - 1, 16, 0, L // 2, 14)[i], ("neel", "vacuum")[i % 2]
         s0 = rb.basis_sign(basis_index(L, state), q)
         for p in (0.6, 0.0):
             rows_f, rows_i, sig = cycle_x_rows(L, 4, c, p, dev, seed=L)
-            steps = [k9a(r.contiguous(), L, q)
-                     for r in rows_f[:, :2].unbind(1)]
+
+            def fold(r, seed, inverse=False):
+                if p == 0.0:
+                    return cy.fold_cycle_rows(r, L, inverse=inverse)
+                return cycle_fold(r, L, seed, inverse)
+
+            steps = [k9a(fold(r, L + k), L)
+                     for k, r in enumerate(rows_f[:, :2].unbind(1))]
             steps.append((conj, conj))
-            steps += [k9b(r.contiguous(), L) for r in rows_i[:, 2:].unbind(1)]
+            steps += [k9b(fold(r, L + k, True), L)
+                      for k, r in enumerate(rows_i[:, 2:].unbind(1))]
             st = held_chain(f"K9a/K9b echo L_loc={L} t=2 p={p} {state} q={q}"
                             f" 1x{c}", "K9b", err, steps, L, state, dev)
             echo = s0 * rb._sigma_sign(sig, q) * z_of(st, q, L)
@@ -1108,10 +1121,11 @@ def compare_cycle_hi_l30(dev, err) -> None:
     """One cycle of each streamed per-shard kernel at L_loc = 30 (one
     trajectory, 8 GiB a state: offsets past 2^31 elements) against its plain
     version from the same random unit state, the state and the partial held
-    within unit_tol(30); the forwards' partials again from the neel basis
-    state, where they are O(1) and their weight lies past byte 2^31 (at
-    the neel index and its complement), within TOL; the peak device memory
-    of the kernel/plain pairs."""
+    within unit_tol(30), K9a also without a probe; the forwards' partials
+    again from the neel basis state, where they are O(1) and their weight
+    lies past byte 2^31 (at the neel index and its complement), within TOL;
+    K9a's and K9b's rows folded with non-zero global angles; the peak device
+    memory of the kernel/plain pairs."""
     from dtc_tpu_torch.ops import cycle_hi as chi
     from dtc_tpu_torch.ops.params_general import general_hi_width
 
@@ -1120,7 +1134,9 @@ def compare_cycle_hi_l30(dev, err) -> None:
     start = torch.randn((1, 1 << L), dtype=torch.complex64, generator=gen,
                         device=dev)
     start.div_(start.abs().pow(2).sum().sqrt())
-    rows = cycle_x_rows(L, 2, 1, 0.6, dev, seed=30)[0][:, 1].contiguous()
+    rows = cycle_x_rows(L, 2, 1, 0.6, dev, seed=30)[0][:, 1]
+    fold_f, fold_i = (cycle_fold(rows, L, 30, inverse)
+                      for inverse in (False, True))
     w = general_hi_width(L)
     grows = general_forward_inputs(L, "xy", 2, 1, 0.6, dev, seed=30,
                                    width=w)[0].reshape(1, 2, 2, w)[:, 1]
@@ -1128,9 +1144,13 @@ def compare_cycle_hi_l30(dev, err) -> None:
                                 seed=31, width=w)[0].reshape(1, 4, 2, 2, w)
     cases = [
         ("K9a", "forward x", chi.hi_cycle_forward_apply,
-         chi.hi_cycle_forward_apply_ref, (rows, THETA), dict(L=L, q=q)),
+         chi.hi_cycle_forward_apply_ref, (fold_f, THETA), dict(L=L, q=q)),
+        ("K9a", "forward x, no probe",
+         lambda *a, **kw: chi.hi_cycle_forward_apply(*a, **kw)[0],
+         lambda *a, **kw: chi.hi_cycle_forward_apply_ref(*a, **kw)[0],
+         (fold_f, THETA), dict(L=L)),
         ("K9b", "inverse x", chi.hi_cycle_inverse_apply,
-         chi.hi_cycle_inverse_apply_ref, (rows, THETA), dict(L=L)),
+         chi.hi_cycle_inverse_apply_ref, (fold_i, THETA), dict(L=L)),
         ("K10a local", "forward xy", chi.general_hi_cycle_forward_apply,
          chi.general_hi_cycle_forward_apply_ref, (grows.contiguous(),),
          dict(L=L, K=2, q=q)),
@@ -1141,8 +1161,9 @@ def compare_cycle_hi_l30(dev, err) -> None:
     ]
     torch.cuda.reset_peak_memory_stats(dev)
     for key, what, kernel, plain, args, kw in cases:
-        what = (f"{key} {what} L_loc={L} 1 trajectory "
-                f"({args[0].shape[-1]} lanes)")
+        what = f"{key} {what} L_loc={L} 1 trajectory"
+        if key.startswith("K10"):
+            what += f" ({args[0].shape[-1]} lanes)"
         held_unit(f"{what}, random unit state", key, err, kernel, plain,
                   [start], args, kw, L)
         if "q" in kw:
@@ -2545,8 +2566,7 @@ def timing_streamed(dev, smi, err) -> dict:
     floor and of the bound, and against K1 on the same L=23 rows (32
     trajectories, T=20); before them the registers and spills of every
     kernel of the library (the forward's passes are those of
-    ``XEcho<ForwardWideRows, ...>``; ``lo_kernel`` and ``strided_kernel``
-    are the first passes, which the per-shard K9 keeps), and one L=30
+    ``XEcho<ForwardWideRows, ...>``), and one L=30
     launch at T = MAX_T_FORWARD (1024) with its peak device
     memory (the partials grow with T), its first cycles held to a T=6
     launch on the same rows. Returns the L=28 numbers; the echo's rows are
@@ -2839,13 +2859,19 @@ def timing_cycle_hi(dev, smi, err) -> dict:
     and written once (16 B per amplitude) and the rows. Operations per
     amplitude and cycle: 6 L + 6 (K9a, K9b: RX on every bit, one diagonal),
     per slot 14 L + 6 (K10a) and 14 L + 12 (K10b: two diagonals). State
-    floor: three sweeps per slot. The JSON line takes the xy numbers for
-    K10a/K10b."""
+    floor: three sweeps per slot. K9a's and K9b's rows are the engines'
+    folded row pairs with a shard's global angles; before the timing, the
+    registers and spills of every kernel of ``floquet_cycle_hi.cu`` (K9a's
+    and K9b's are the ``echo_*_kernel`` instances of ``XEcho<CycleRows,
+    ...>``). The JSON line takes the xy numbers for K10a/K10b."""
     from dtc_tpu_torch.ops import cycle_hi as chi
     from dtc_tpu_torch.ops import cycle_hi_general as chg
     from dtc_tpu_torch.ops import streamed as sm
     from dtc_tpu_torch.ops.params_general import general_hi_width
 
+    for kernel, regs, st, ld in ptxas_kernels("floquet_cycle_hi"):
+        phase(f"[build] floquet_cycle_hi.cu {kernel}: {regs} registers, "
+              f"spill stores {st} B, spill loads {ld} B")
     L, c, n_sh = 28, 2, 2
     N = 1 << L
     w = general_hi_width(L)
@@ -2855,13 +2881,15 @@ def timing_cycle_hi(dev, smi, err) -> dict:
         st = torch.randn((c, N), dtype=torch.complex64, generator=gen,
                          device=dev)
         start.append(st.div_(st.abs().pow(2).sum(-1, keepdim=True).sqrt()))
-    rows = cycle_x_rows(L, 2, c, 0.6, dev, seed=28)[0][:, 1].contiguous()
+    rows = cycle_x_rows(L, 2, c, 0.6, dev, seed=28)[0][:, 1]
+    fold_f, fold_i = (cycle_fold(rows, L, 28, inverse)
+                      for inverse in (False, True))
     cases = {
         "K9a": ("forward x", chi.hi_cycle_forward_apply,
-                chi.hi_cycle_forward_apply_ref, (rows, THETA),
+                chi.hi_cycle_forward_apply_ref, (fold_f, THETA),
                 dict(L=L, q=L // 2), 1, 6 * L + 6),
         "K9b": ("inverse x", chi.hi_cycle_inverse_apply,
-                chi.hi_cycle_inverse_apply_ref, (rows, THETA), dict(L=L), 1,
+                chi.hi_cycle_inverse_apply_ref, (fold_i, THETA), dict(L=L), 1,
                 6 * L + 6),
     }
     for pol in ("y", "xy"):

@@ -14,7 +14,7 @@
 //
 // K8a and K8b run the step passes of floquet_echo.cuh (launch_steps, one
 // step from the states as they are) with the x family's policy
-// (floquet_x_echo.cuh, XEcho on CycleRows below: every pair active, kick
+// (floquet_x_echo.cuh, XEcho on its CycleRows: every pair active, kick
 // sign +1, one angle) on K2's plan at L = L_loc (a = L - L/2, b = 0, CW =
 // kW = 4): the diagonal's phases from two small tables a block, the kick
 // in swizzled 2-3-bit rounds whose first reads the state and whose last
@@ -67,26 +67,6 @@
 namespace xpass {
 #include "floquet_rx.cuh"
 #include "floquet_x_echo.cuh"
-
-// K8a's and K8b's step rows for XEcho: one step, always active, no pre
-// row (ConstKick does not read it), kick sign +1; K8a's step is measured
-// into time 0 (under Times).
-struct CycleRows {
-  struct Step {
-    const float* pre;
-    float sign;
-    bool active;
-  };
-  __device__ __forceinline__ Step at(const float*, int64_t, int, int) const {
-    return {nullptr, 1.0f, true};
-  }
-  __device__ __forceinline__ int time(const float*, int, int64_t, int,
-                                      int) const {
-    return 0;
-  }
-};
-
-using CyclePolicy = XEcho<CycleRows, ConstKick>;
 }  // namespace xpass
 
 namespace labpass {

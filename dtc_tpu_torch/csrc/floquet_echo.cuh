@@ -675,6 +675,12 @@ __host__ __device__ constexpr int step_hi_blocks(int a, int b, int cw) {
   return (1 << (a + b)) / cw;
 }
 
+// The same on the streamed plan (floquet_plan.cuh), whose strided tiles
+// take kW columns on two passes (b = 0) and kWideCols on three.
+__host__ __device__ constexpr int streamed_hi_blocks(int a, int b) {
+  return step_hi_blocks(a, b, b > 0 ? kWideCols : kW);
+}
+
 // Steps [from, to) of n_pairs states in st, on the folded rows and the
 // pass plan (a, b), strided tiles of CW columns: two or three passes a
 // step, a pair stopping at its COUNT; the passes measure what m says.

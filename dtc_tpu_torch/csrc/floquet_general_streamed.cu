@@ -97,9 +97,6 @@ struct ForwardRows {
   }
 };
 
-// Strided tile columns of the plan: 4 on two passes, 16 on three.
-int cols_of(const Plan& p) { return p.b > 0 ? kWideCols : kW; }
-
 }  // namespace
 
 extern "C" {
@@ -107,7 +104,7 @@ extern "C" {
 // Partials per trajectory and time the forward entry allocates.
 int floquet_general_streamed_partials(int L) {
   const Plan p = plan_for(L);
-  return step_hi_blocks(p.a, p.b, cols_of(p));
+  return streamed_hi_blocks(p.a, p.b);
 }
 
 // Partials per pair the echo entry allocates.

@@ -10,11 +10,12 @@
 //             step (the diagonal and the partial of |psi|^2 z_q).
 // L <= 24 takes two passes (a <= 13, c <= 11: at most 64 KiB a tile), L =
 // 25..30 three (tiles of 4-32 KiB); floquet_x_streamed.cu says why. The
-// one-card streamed forwards and echoes run this plan on the step passes
-// of floquet_echo.cuh, whose strided tiles take 16 columns from L = 25
-// (tiles of 16-64 KiB); the per-shard cycle kernels (floquet_cycle_hi.cu)
-// on the passes of floquet_x_streamed_pass.cuh and
-// floquet_general_streamed_pass.cuh, with the kW columns above.
+// one-card streamed forwards and echoes and the per-shard x cycle kernels
+// (K9a/K9b, floquet_cycle_hi.cu) run this plan on the step passes of
+// floquet_echo.cuh, whose strided tiles take 16 columns from L = 25
+// (tiles of 16-64 KiB); K10's shard-local forms (floquet_cycle_hi.cu) on
+// the passes of floquet_general_streamed_pass.cuh, with the kW columns
+// above.
 //
 // Include after floquet_common.cuh; the definitions sit in an anonymous
 // namespace of their own.

@@ -3,8 +3,9 @@
 // parameters, the family's step rows `Rows` (K2's and K3b's 128-lane rows,
 // PairRows in floquet_x_pass.cuh; the streamed family's echo and forward
 // rows of run-time width, WideRows and ForwardWideRows in
-// floquet_x_streamed.cu; K8a's and K8b's one step, CycleRows in
-// floquet_cycle.cu) and the angle `Table` (TableKick,
+// floquet_x_streamed.cu; the per-shard cycle kernels' one step, CycleRows
+// below, shared by K8a/K8b (floquet_cycle.cu) and K9a/K9b
+// (floquet_cycle_hi.cu)) and the angle `Table` (TableKick,
 // floquet_x_pass.cuh, or ConstKick, floquet_rx.cuh); the kick's sign is
 // lane width-3 of an echo's pre row, +1 in the forward (no pre row:
 // ConstKick does not read it).
@@ -46,5 +47,25 @@ struct XEcho {
     return rows.time(r, L, rows_per_pair, pair, step);
   }
 };
+
+// The per-shard cycle kernels' step rows (K8a/K8b, K9a/K9b): one step,
+// always active, no pre row (ConstKick does not read it), kick sign +1;
+// the forward's step is measured into time 0 (under Times).
+struct CycleRows {
+  struct Step {
+    const float* pre;
+    float sign;
+    bool active;
+  };
+  __device__ __forceinline__ Step at(const float*, int64_t, int, int) const {
+    return {nullptr, 1.0f, true};
+  }
+  __device__ __forceinline__ int time(const float*, int, int64_t, int,
+                                      int) const {
+    return 0;
+  }
+};
+
+using CyclePolicy = XEcho<CycleRows, ConstKick>;
 
 }  // namespace

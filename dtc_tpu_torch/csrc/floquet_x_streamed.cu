@@ -50,10 +50,10 @@
 // writes it, so each pass makes one read and one write. The echo measures
 // each pair after its last step (one more read of the state a pair); the
 // forward's pass hi writes, on every step, one partial of |psi|^2 z_q per
-// block as it stores, into (n_traj, T, blocks). The per-shard cycle family
-// (floquet_cycle_hi.cu: K9a/K9b) keeps the passes of
-// floquet_x_streamed_pass.cuh, whose step rows (step_rows) both readers
-// here take.
+// block as it stores, into (n_traj, T, blocks). Both readers here take
+// their step rows from floquet_x_streamed_pass.cuh (step_rows); the
+// per-shard cycle kernels (floquet_cycle_hi.cu: K9a/K9b) run the same
+// passes one step at a time on K8's CycleRows.
 //
 // A(t) and the echo value are summed without atomics: one partial per
 // block (the forward's per pass-hi block and step, the echo's per measure
@@ -101,9 +101,6 @@ struct ForwardWideRows {
   }
 };
 
-// Strided tile columns of the plan: 4 on two passes, 16 on three.
-int cols_of(const Plan& p) { return p.b > 0 ? kWideCols : kW; }
-
 }  // namespace
 
 extern "C" {
@@ -111,7 +108,7 @@ extern "C" {
 // Partials per trajectory and time the forward entry allocates.
 int floquet_x_streamed_partials(int L) {
   const Plan p = plan_for(L);
-  return step_hi_blocks(p.a, p.b, cols_of(p));
+  return streamed_hi_blocks(p.a, p.b);
 }
 
 // Partials per pair the echo entry allocates.

@@ -101,10 +101,10 @@ LIBRARIES = {
     },
     "floquet_cycle_hi": {
         "floquet_cycle_hi_partials": [_I32],
+        "floquet_cycle_hi_general_partials": [_I32],
         "floquet_cycle_hi_forward": [_VP, _VP, _VP, _VP, _I32, _I32, _I32,
-                                     _I32, _F32, _F32, _VP],
-        "floquet_cycle_hi_inverse": [_VP, _VP, _I32, _I32, _I32, _F32, _F32,
-                                     _VP],
+                                     _F32, _F32, _VP],
+        "floquet_cycle_hi_inverse": [_VP, _VP, _I32, _I32, _F32, _F32, _VP],
         "floquet_cycle_hi_general_forward": [_VP, _VP, _VP, _VP, _I32, _I32,
                                              _I32, _I32, _I32, _VP],
         "floquet_cycle_hi_general_inverse": [_VP, _VP, _I32, _I32, _I32,

@@ -7,20 +7,23 @@ Port of ``dtc_tpu/ops/pallas_cycle_hi.py`` (``hi_cycle_forward_apply``,
 the per-shard engines of the amplitude-sharded path (``parallel/sharded.py``)
 where a shard outgrows the per-shard kernels of ``ops/cycle.py`` (K8,
 L_loc <= 23). Their four Pallas kernels become one hand-written CUDA family,
-``csrc/floquet_cycle_hi.cu``, which runs the passes of the streamed x family
-(``csrc/floquet_x_streamed_pass.cuh``) and of the streamed lab-frame family
-(``csrc/floquet_general_streamed_pass.cuh``) for one cycle at L = L_loc:
+``csrc/floquet_cycle_hi.cu``, for one cycle at L = L_loc on the pass plan
+of the streamed families (``csrc/floquet_plan.cuh``): K9a/K9b on the step
+passes of ``csrc/floquet_echo.cuh``, as K8a/K8b and the one-card streamed x
+family run them, K10's shard-local forms on the streamed lab-frame passes
+(``csrc/floquet_general_streamed_pass.cuh``):
 
 - K9a ``hi_cycle_forward_apply``: a sigma-frame x cycle, RX(theta) on every
-  local bit, then the cycle's diagonal from its compact row
-  (``ops/params.py::pack_cycle_params_compact`` at L = L_loc and
-  ``forward_width(L_loc)``: 256 lanes from L_loc = 27); returns the partial
-  sum |psi|^2 z_q, q < L_loc;
+  local bit, then the cycle's diagonal from its folded row pair
+  (``ops/cycle.py::fold_cycle_rows``: the local bits of the cycle's
+  noise-Z and sigma words, from its compact row
+  ``ops/params.py::pack_cycle_params_compact`` at L = L_loc, and the
+  shard's global diagonal); returns the partial sum |psi|^2 z_q,
+  q < L_loc, or nothing with q=None;
 - K9b ``hi_cycle_inverse_apply``: the pre-fold inverse step K.D with the
-  same row and un-negated angles, for the echo's once-conjugated frame;
-  both take the shard's global diagonal (th_sc, th_bnd) as K8a/K8b's folded
-  rows carry it (``ops/cycle.py::fold_cycle_rows``) and apply it as a torch
-  phase (``global_phase``): after K9a's kernel, before K9b's;
+  same diagonal (folded ``inverse=True``: the shard's global diagonal and
+  the local one before the kick) and un-negated angles, for the echo's
+  once-conjugated frame;
 - K10a, shard-local, ``general_hi_cycle_forward_apply``: a lab-frame cycle
   of K slot rows (``ops/params_general.py`` at ``general_hi_width(L_loc)``:
   256 lanes at L_loc = 30; the diagonal on the final slot) and its partial
@@ -32,9 +35,8 @@ The reference's split (re, im) state at L_loc = 30 and its per-call
 trajectory chunks exist for the TPU's 2^32-byte DMA offset wrap and are not
 ported: states are flat (n, 2^L_loc) complex64 with 64-bit offsets, and
 the caller sizes its launches (``parallel/sharded.py``). The flag lanes
-the kernels read (K9b's trip count and kick sign at the row's own width-4
-and width-3, K10a's MPOS, K10b's COUNT) are set here, on a copy of the
-rows: the reference's rows carry none of them. Every entry updates
+K10's kernels read (K10a's MPOS, K10b's COUNT) are set here, on a copy of
+the rows: the reference's rows carry none of them. Every entry updates
 ``state`` in place and returns it. A tensor on the CPU goes to the plain
 version (``*_ref``); a CUDA tensor launches the kernel or raises. Each
 entry counts its kernel launches in ``LAUNCHES``; the plain versions count
@@ -60,7 +62,6 @@ from dtc_tpu_torch.ops import cycle_hi_general as chg
 from dtc_tpu_torch.ops import resident_blocked as rb
 from dtc_tpu_torch.ops import streamed as sm
 from dtc_tpu_torch.ops.kick import apply_uniform_1q_layer
-from dtc_tpu_torch.ops.params import echo_width, forward_width
 from dtc_tpu_torch.ops.params_general import (
     LANE_COUNT,
     LANE_MPOS,
@@ -103,12 +104,11 @@ def _check(state, rows, L: int, lead: tuple, width: int) -> int:
     return n
 
 
-def global_phase(state, th_sc=None, th_bnd=None, sign: float = 1.0):
+def global_phase(state, th_sc, th_bnd, sign: float = 1.0):
     """exp(i sign (th_sc + th_bnd z_top)) on each state of (n, 2^L) in place,
     z_top the sign of its top bit: a shard's global diagonal (th_sc, th_bnd
-    (n,), ``parallel/sharded.py::_tail_phase_angles``). None: nothing."""
-    if th_sc is None:
-        return state
+    (n,), ``parallel/sharded.py::_tail_phase_angles``), as the lab-frame
+    engines apply it (``parallel/sharded.py::_global_diag``)."""
     ones = torch.ones_like(th_sc)
     f = torch.stack([torch.polar(ones, sign * (th_sc + th_bnd)),
                      torch.polar(ones, sign * (th_sc - th_bnd))], -1)
@@ -121,39 +121,43 @@ def global_phase(state, th_sc=None, th_bnd=None, sign: float = 1.0):
 # plain versions
 
 
-def hi_cycle_forward_apply_ref(state, rows, theta, *, L, q=None,
-                               th_sc=None, th_bnd=None):
+def _fold_grid(fold, L: int) -> torch.Tensor:
+    """One folded row (2L,) -> its diagonal angle grid
+    (``streamed.angle_grid``)."""
+    return sm.angle_grid(fold[:L], fold[L:2 * L - 1], fold[2 * L - 1], L)
+
+
+def hi_cycle_forward_apply_ref(state, rows, theta, *, L, q=None):
     """Plain version of ``hi_cycle_forward_apply`` (same arguments)."""
     if state.is_cuda:
         PLAIN_ON_CUDA["forward"] += 1
     check_range(L, q)
-    n = _check(state, rows, L, (), forward_width(L))
+    n = _check(state, rows, L, (2,), 2 * L)
     rows = rows.to(torch.float32)
     rx = sm._rx(theta, 1.0, state.device)
     part = None if q is None else torch.empty(n, dtype=torch.float32,
                                               device=state.device)
     for i in range(n):
         new = sm.phase_grid(apply_uniform_1q_layer(state[i], rx, L),
-                            sm._angles(rows[i], L))
+                            _fold_grid(rows[i, 1], L))
         state[i].copy_(new)
         if part is not None:
             part[i] = sm.measure_z(new, q, L)
-    return global_phase(state, th_sc, th_bnd), part
+    return state, part
 
 
-def hi_cycle_inverse_apply_ref(state, rows, theta, *, L, th_sc=None,
-                               th_bnd=None):
+def hi_cycle_inverse_apply_ref(state, rows, theta, *, L):
     """Plain version of ``hi_cycle_inverse_apply`` (same arguments)."""
     if state.is_cuda:
         PLAIN_ON_CUDA["inverse"] += 1
     check_range(L)
-    n = _check(state, rows, L, (), forward_width(L))
+    n = _check(state, rows, L, (2,), 2 * L)
     rows = rows.to(torch.float32)
     rx = sm._rx(theta, 1.0, state.device)
-    global_phase(state, th_sc, th_bnd)
     for i in range(n):
-        pre = sm.phase_grid(state[i], sm._angles(rows[i], L))
-        state[i].copy_(apply_uniform_1q_layer(pre, rx, L))
+        pre = sm.phase_grid(state[i], _fold_grid(rows[i, 0], L))
+        state[i].copy_(sm.phase_grid(apply_uniform_1q_layer(pre, rx, L),
+                                     _fold_grid(rows[i, 1], L)))
     return state
 
 
@@ -195,22 +199,7 @@ def general_hi_cycle_inverse_apply_ref(state, tiles, *, L, K):
 
 
 # ---------------------------------------------------------------------------
-# the flag lanes the kernels read, set on copies of the rows
-
-
-def inverse_tiles(rows, L: int) -> torch.Tensor:
-    """K9b's (n, 2, echo_width(L)) (pre, post) pair of the streamed echo
-    step: the cycle rows' 5L-2 data lanes as the pre row, trip count 2 at
-    lane width-4 (one step is launched, so it is not the pair's last and
-    measures nothing), kick sign +1 at width-3; a zero post row."""
-    width = echo_width(L)
-    data = 5 * L - 2
-    tiles = torch.zeros((rows.shape[0], 2, width), dtype=torch.float32,
-                        device=rows.device)
-    tiles[:, 0, :data] = rows[:, :data]
-    tiles[:, 0, width - 4] = 2.0
-    tiles[:, 0, width - 3] = 1.0
-    return tiles
+# the flag lanes K10's kernels read, set on copies of the rows
 
 
 def measured_rows(rows, L: int, K: int) -> torch.Tensor:
@@ -233,53 +222,51 @@ def counted_tiles(tiles, L: int, K: int) -> torch.Tensor:
 # kernel entries
 
 
-def hi_cycle_forward_apply(state, rows, theta, *, L, q=None, th_sc=None,
-                           th_bnd=None):
-    """One sigma-frame x cycle (K9a): state (n, 2^L) complex64, rows (n,
-    forward_width(L)) compact cycle rows at L = L_loc, theta the RX angle,
-    then the shard's global diagonal (th_sc, th_bnd (n,); None: none).
-    Returns (state, the partial sum |psi|^2 z_q (n,) after the cycle), or
-    (state, None) with q=None (the kernel measures q=0, unread); the sum
-    over the shards and the sigma sign are the caller's."""
+def hi_cycle_forward_apply(state, rows, theta, *, L, q=None):
+    """One sigma-frame x cycle (K9a): state (n, 2^L) complex64, rows (n, 2,
+    2L) the cycle's folded row pairs at L = L_loc
+    (``cycle.fold_cycle_rows``, with the shard's global angles), theta the
+    RX angle. Returns (state, the partial sum |psi|^2 z_q (n,) after the
+    cycle), or (state, None) with q=None: nothing is measured. The sum over
+    the shards and the sigma sign are the caller's."""
     if rb.route(state, "streamed cycle") == "plain":
-        return hi_cycle_forward_apply_ref(state, rows, theta, L=L, q=q,
-                                          th_sc=th_sc, th_bnd=th_bnd)
+        return hi_cycle_forward_apply_ref(state, rows, theta, L=L, q=q)
     check_range(L, q)
-    width = forward_width(L)
-    _check(state, rows, L, (), width)
+    _check(state, rows, L, (2,), 2 * L)
     n, lib, stream = cycle._cuda_inputs(state, rows, "hi cycle forward",
-                                        LIBRARY, width)
-    partials = torch.empty((n, lib.floquet_cycle_hi_partials(L)),
-                           dtype=torch.float32, device=state.device)
-    out = torch.empty((n,), dtype=torch.float32, device=state.device)
+                                        LIBRARY, 2 * L)
     c, s = rb.kick_cs(theta)
-    err = lib.floquet_cycle_hi_forward(state.data_ptr(), rows.data_ptr(),
-                                       partials.data_ptr(), out.data_ptr(),
-                                       n, L, width, 0 if q is None else q, c,
-                                       s, stream)
+    if q is None:
+        err = lib.floquet_cycle_hi_forward(state.data_ptr(), rows.data_ptr(),
+                                           None, None, n, L, -1, c, s, stream)
+        out = None
+    else:
+        partials = torch.empty((n, lib.floquet_cycle_hi_partials(L)),
+                               dtype=torch.float32, device=state.device)
+        out = torch.empty((n,), dtype=torch.float32, device=state.device)
+        err = lib.floquet_cycle_hi_forward(
+            state.data_ptr(), rows.data_ptr(), partials.data_ptr(),
+            out.data_ptr(), n, L, q, c, s, stream)
     LAUNCHES["forward"] += 1
     rb.raise_on(err, "floquet_cycle_hi_forward")
-    return global_phase(state, th_sc, th_bnd), None if q is None else out
+    return state, out
 
 
-def hi_cycle_inverse_apply(state, rows, theta, *, L, th_sc=None,
-                           th_bnd=None):
-    """One pre-fold inverse x cycle K.D (K9b) with the same rows and angle
-    as the forward, after the shard's global diagonal (th_sc, th_bnd (n,);
-    None: none); the caller negates the imaginary part once at the echo's
-    turnaround. Returns state."""
+def hi_cycle_inverse_apply(state, rows, theta, *, L):
+    """One pre-fold inverse x cycle K.D (K9b): rows (n, 2, 2L) the step's
+    folded row pairs (``cycle.fold_cycle_rows(..., inverse=True)``, the
+    shard's global diagonal with the local one), theta the forward's angle;
+    the caller negates the imaginary part once at the echo's turnaround.
+    Returns state."""
     if rb.route(state, "streamed cycle") == "plain":
-        return hi_cycle_inverse_apply_ref(state, rows, theta, L=L,
-                                          th_sc=th_sc, th_bnd=th_bnd)
+        return hi_cycle_inverse_apply_ref(state, rows, theta, L=L)
     check_range(L)
-    _check(state, rows, L, (), forward_width(L))
+    _check(state, rows, L, (2,), 2 * L)
     n, lib, stream = cycle._cuda_inputs(state, rows, "hi cycle inverse",
-                                        LIBRARY, forward_width(L))
-    global_phase(state, th_sc, th_bnd)
-    tiles = inverse_tiles(rows, L)
+                                        LIBRARY, 2 * L)
     c, s = rb.kick_cs(theta)
-    err = lib.floquet_cycle_hi_inverse(state.data_ptr(), tiles.data_ptr(), n,
-                                       L, tiles.shape[-1], c, s, stream)
+    err = lib.floquet_cycle_hi_inverse(state.data_ptr(), rows.data_ptr(), n,
+                                       L, c, s, stream)
     LAUNCHES["inverse"] += 1
     rb.raise_on(err, "floquet_cycle_hi_inverse")
     return state
@@ -298,7 +285,7 @@ def general_hi_cycle_forward_apply(state, rows, *, L, K, q):
     n, lib, stream = cycle._cuda_inputs(
         state, rows, "general hi cycle forward", LIBRARY, width)
     rows = measured_rows(rows, L, K)
-    partials = torch.empty((n, lib.floquet_cycle_hi_partials(L)),
+    partials = torch.empty((n, lib.floquet_cycle_hi_general_partials(L)),
                            dtype=torch.float32, device=state.device)
     out = torch.empty((n,), dtype=torch.float32, device=state.device)
     err = lib.floquet_cycle_hi_general_forward(

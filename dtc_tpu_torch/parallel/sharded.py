@@ -47,9 +47,8 @@ from it up to 30), as the reference switches at its
 wide and lab-frame rows ``general_hi_width(L_loc)``. The shard-bit kicks
 are torch tensor ops between the launches. A shard's global diagonal
 (the shard-bit terms and the boundary bond phi[L_loc-1]) is one too for
-the lab-frame engines; the x engines hand it to the launch (K8: in its
-folded row, built once a run for every step and shard; K9: its wrappers'
-torch phase).
+the lab-frame engines; the x engines hand it to the launch in its folded
+row (K8 and K9 alike), built once a run for every step and shard.
 
 Device noise: the lab-frame cycle-kernel engines take ``device=(p_1q,
 p_2q, events_per_kick)`` with p == 0, as the reference's do. The
@@ -625,44 +624,35 @@ def _x_cycles(shards, zm, sig, hs, phis, theta, *, L, local_bits,
     (c, S) the noise-Z and sigma words of the S steps, from which come the
     compact rows of the local bits (``pack_cycle_params_compact`` at L =
     L_loc) and every step's and shard's global diagonal at once
-    (``_tail_phase_angles``). K8 carries it in its folded rows
-    (``cycle.fold_cycle_rows``), K9 (from ``cycle_hi.MIN_ROUTE_L``) takes
-    it as its wrappers' torch phase. Returns run(k, a, st, q=None): step k
-    on shard a's states st in place; the forward's partial sum |psi|^2 z_q
-    with q, else None (no measure; the inverse never measures)."""
-    hi = use_hi(local_bits)
+    (``_tail_phase_angles``), folded together into each launch's row pairs
+    (``cycle.fold_cycle_rows``) for K8 or, from ``cycle_hi.MIN_ROUTE_L``,
+    K9. Returns run(k, a, st, q=None): step k on shard a's states st in
+    place; the forward's partial sum |psi|^2 z_q with q, else None (no
+    measure; the inverse never measures)."""
     rows = pack_cycle_params_compact(
         zm, sig, hs[:local_bits].to(zm.device),
         phis[:local_bits - 1].to(zm.device), local_bits,
         forward_width(local_bits)).transpose(0, 1)       # (S, c, width)
-    th = None
+    th = (None, None)
     if L > local_bits:
         aidx = torch.arange(len(shards), device=zm.device)[:, None]
         th = _tail_phase_angles(zm.T[:, None], sig.T[:, None], hs, phis,
                                 aidx, L=L, local_bits=local_bits)  # (S, A, c)
-    if hi:
-        rows = rows.contiguous()
-        per = [(rows.to(st.device),
-                None if th is None else [x[:, a].to(st.device) for x in th])
-               for a, st in enumerate(shards)]
-    else:
-        fold = cycle.fold_cycle_rows(rows if th is None else rows[:, None],
-                                     local_bits, *(th or (None, None)),
-                                     inverse=inverse)
-        per = [((fold if th is None else fold[:, a]).contiguous().to(
-            st.device), None) for a, st in enumerate(shards)]
+    fold = cycle.fold_cycle_rows(rows[:, None], local_bits, *th,
+                                 inverse=inverse)  # (S, A or 1, c, 2, 2L)
+    per = [fold[:, a].contiguous().to(st.device)
+           for a, st in enumerate(shards)]
     entry = {(False, False): cycle.cycle_forward_apply,
              (False, True): cycle.cycle_inverse_apply,
              (True, False): cycle_hi.hi_cycle_forward_apply,
-             (True, True): cycle_hi.hi_cycle_inverse_apply}[hi, inverse]
+             (True, True): cycle_hi.hi_cycle_inverse_apply}[
+                 use_hi(local_bits), inverse]
 
     def run(k, a, st, q=None):
-        r, g = per[a]
-        kw = {} if inverse else {"q": q}
-        if g is not None:
-            kw.update(th_sc=g[0][k], th_bnd=g[1][k])
-        out = entry(st, r[k], theta, L=local_bits, **kw)
-        return None if inverse else out[1]
+        if inverse:
+            entry(st, per[a][k], theta, L=local_bits)
+            return None
+        return entry(st, per[a][k], theta, L=local_bits, q=q)[1]
 
     return run
 

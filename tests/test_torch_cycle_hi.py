@@ -3,6 +3,10 @@ K10's shard-local forms (``ops/cycle_hi.py``) against the reference's Pallas
 kernels (``dtc_tpu/ops/pallas_cycle_hi.py``,
 ``dtc_tpu/ops/pallas_cycle_hi_general.py``) in interpret mode, and against
 the port's own K8 plain versions (``ops/cycle.py``) on the same rows.
+K9a/K9b take K8's folded row pairs (``cycle.fold_cycle_rows``) of the
+compact rows the reference's kernels get; folded with a shard's global
+angles they are held against the compact-row cycle with the engines'
+torch global diagonal (``parallel/sharded.py::_global_diag``).
 
 One cycle at L_loc = 22 (and 23 against K8) on random unit states: the
 reference's planar (n, 2, TOP, 16384) f32 state is the port's flat
@@ -36,9 +40,9 @@ from dtc_tpu_torch.ops import cycle
 from dtc_tpu_torch.ops import cycle_hi as ch
 from dtc_tpu_torch.ops import resident_blocked as rb
 from dtc_tpu_torch.ops import streamed as sm
+from dtc_tpu_torch.ops.kick import apply_uniform_1q_layer
 from dtc_tpu_torch.ops.params import (
     WIDE,
-    echo_width,
     forward_rows,
     forward_width,
     pack_cycle_params_compact,
@@ -51,6 +55,7 @@ from dtc_tpu_torch.ops.params_general import (
     general_forward_rows,
     general_hi_width,
 )
+from dtc_tpu_torch.parallel import sharded as sh
 
 torch.set_num_threads(2)
 L = 22
@@ -113,7 +118,8 @@ def _kicks():
 def test_k9a_matches_reference_interpret(q):
     st, jst = _states(1)
     rows = _x_rows(1)
-    got, part = ch.hi_cycle_forward_apply(st, rows, THETA, L=L, q=q)
+    got, part = ch.hi_cycle_forward_apply(st, cycle.fold_cycle_rows(rows, L),
+                                          THETA, L=L, q=q)
     want, jpart = jh.hi_cycle_forward_apply(jst, jnp.asarray(rows.numpy()),
                                             *_kicks(), L=L, q=q,
                                             interpret=True)
@@ -124,7 +130,8 @@ def test_k9a_matches_reference_interpret(q):
 def test_k9b_matches_reference_interpret():
     st, jst = _states(1, seed=3)
     rows = _x_rows(1, seed=6)
-    got = ch.hi_cycle_inverse_apply(st, rows, THETA, L=L)
+    got = ch.hi_cycle_inverse_apply(
+        st, cycle.fold_cycle_rows(rows, L, inverse=True), THETA, L=L)
     want = jh.hi_cycle_inverse_apply(jst, jnp.asarray(rows.numpy()),
                                      *_kicks(), L=L, interpret=True)
     assert float((got - _flat(want)).abs().max()) < TOL_AMP
@@ -156,22 +163,22 @@ def test_k10b_shard_local_matches_reference_interpret(pol):
 @pytest.mark.parametrize("kind", ["forward", "inverse", "general_forward",
                                   "general_inverse"])
 def test_plain_matches_k8_plain(kind, Lr):
-    """On the rows both take (L_loc = 22, 23: 128 lanes; K8a/K8b folded)
+    """On the rows both take (L_loc = 22, 23: K8a/K8b and K9a/K9b the same
+    folded row pairs, K10's shard-local forms and K8c/K8d 128-lane rows)
     the streamed family's plain versions equal K8's, with the angle tables
     that K8's plain versions build."""
     n, q = 1, Lr - 6
     st, _ = _states(n, seed=Lr, Lr=Lr)
     a, b = st.clone(), st.clone()
     if kind == "forward":
-        rows = _x_rows(n, seed=Lr, Lr=Lr)
-        _, pa = ch.hi_cycle_forward_apply(a, rows, THETA, L=Lr, q=q)
-        _, pb = cycle.cycle_forward_apply(b, cycle.fold_cycle_rows(rows, Lr),
-                                          THETA, L=Lr, q=q)
+        fold = cycle.fold_cycle_rows(_x_rows(n, seed=Lr, Lr=Lr), Lr)
+        _, pa = ch.hi_cycle_forward_apply(a, fold, THETA, L=Lr, q=q)
+        _, pb = cycle.cycle_forward_apply(b, fold, THETA, L=Lr, q=q)
     elif kind == "inverse":
-        rows = _x_rows(n, seed=Lr, Lr=Lr)
-        ch.hi_cycle_inverse_apply(a, rows, THETA, L=Lr)
-        cycle.cycle_inverse_apply(
-            b, cycle.fold_cycle_rows(rows, Lr, inverse=True), THETA, L=Lr)
+        fold = cycle.fold_cycle_rows(_x_rows(n, seed=Lr, Lr=Lr), Lr,
+                                     inverse=True)
+        ch.hi_cycle_inverse_apply(a, fold, THETA, L=Lr)
+        cycle.cycle_inverse_apply(b, fold, THETA, L=Lr)
         pa = pb = torch.zeros(n)
     elif kind == "general_forward":
         rows, _, K = _general("circular_left", n, seed=Lr, Lr=Lr)
@@ -192,9 +199,12 @@ def test_k9b_undoes_k9a_in_the_conjugated_frame():
     conj(K D)."""
     st, _ = _states(1, seed=9)
     rows = _x_rows(1, seed=10)
-    s1, _ = ch.hi_cycle_forward_apply(st.clone(), rows, THETA, L=L, q=8)
-    back = ch.hi_cycle_inverse_apply(s1.conj().resolve_conj(), rows, THETA,
-                                     L=L).conj()
+    s1, _ = ch.hi_cycle_forward_apply(st.clone(),
+                                      cycle.fold_cycle_rows(rows, L), THETA,
+                                      L=L, q=8)
+    back = ch.hi_cycle_inverse_apply(
+        s1.conj().resolve_conj(),
+        cycle.fold_cycle_rows(rows, L, inverse=True), THETA, L=L).conj()
     assert float((back - st).abs().max()) < TOL_AMP
 
 
@@ -210,8 +220,8 @@ def test_chain_equals_the_streamed_forward():
     st = rb.basis_states(n, L, 0, "cpu")
     parts = [torch.ones(n)]
     for t in range(T - 1):
-        parts.append(ch.hi_cycle_forward_apply(st, rows[:, t].contiguous(),
-                                               THETA, L=L, q=q)[1])
+        fold = cycle.fold_cycle_rows(rows[:, t], L)
+        parts.append(ch.hi_cycle_forward_apply(st, fold, THETA, L=L, q=q)[1])
     got = rb.forward_host_factor(torch.stack(parts, 1), sig, q, 0, 1.0)
     torch.testing.assert_close(got, want, atol=TOL_SUM, rtol=0)
 
@@ -281,20 +291,8 @@ def test_wide_general_rows_bit_identical():
 
 
 def test_flag_lanes_of_the_wrappers():
-    """What the CUDA entries are handed: K9b's (pre, post) pair at the echo
-    width (256 from L_loc = 26, where the 5L-2 data lanes reach lane 124)
-    with trip count 2 and kick sign +1; K10a's MPOS only on the final slot;
-    K10b's COUNT one past its K steps, at 256 lanes at L_loc = 30."""
-    for Lr in (25, 26, 30):
-        rows = torch.rand((2, forward_width(Lr)))
-        tiles = ch.inverse_tiles(rows, Lr)
-        w = echo_width(Lr)
-        assert tiles.shape == (2, 2, w) and w == (128 if Lr == 25 else WIDE)
-        d = 5 * Lr - 2
-        torch.testing.assert_close(tiles[:, 0, :d], rows[:, :d])
-        assert (tiles[:, 0, w - 4] == 2).all()
-        assert (tiles[:, 0, w - 3] == 1).all()
-        assert not tiles[:, 1].any() and not tiles[:, 0, d:w - 4].any()
+    """What K10's CUDA entries are handed: K10a's MPOS only on the final
+    slot; K10b's COUNT one past its K steps, at 256 lanes at L_loc = 30."""
     rows = torch.zeros((2, 3, WIDE))
     rows = ch.measured_rows(rows, 30, 3)
     assert rows[:, :, flag_base(30) + LANE_MPOS].tolist() == [[-1, -1, 0]] * 2
@@ -307,21 +305,92 @@ def test_range_checks_and_cpu_route():
     ch.reset_counters()
     st = torch.zeros((1, 1 << 21), dtype=torch.complex64)
     with pytest.raises(ValueError, match="22 <= L_loc <= 30"):
-        ch.hi_cycle_forward_apply(st, torch.zeros(1, 128), THETA, L=21, q=3)
+        ch.hi_cycle_forward_apply(st, torch.zeros(1, 2, 42), THETA, L=21,
+                                  q=3)
     with pytest.raises(ValueError, match="22 <= L_loc <= 30"):
         ch.general_hi_cycle_inverse_apply(st, torch.zeros(1, 1, 2, 256),
                                           L=31, K=1)
     st, _ = _states(1)
     with pytest.raises(ValueError, match="shard-local probe"):
-        ch.hi_cycle_forward_apply(st, torch.zeros(1, 128), THETA, L=L, q=L)
+        ch.hi_cycle_forward_apply(st, torch.zeros(1, 2, 2 * L), THETA, L=L,
+                                  q=L)
     with pytest.raises(ValueError, match="shard-local probe"):
         ch.general_hi_cycle_forward_apply(st, torch.zeros(1, 1, 128), L=L,
                                           K=1, q=22)
     with pytest.raises(ValueError, match="rows must be"):
-        ch.hi_cycle_inverse_apply(st, torch.zeros(1, 256), THETA, L=L)
+        ch.hi_cycle_inverse_apply(st, torch.zeros(1, 128), THETA, L=L)
+    with pytest.raises(ValueError, match="rows must be"):
+        ch.hi_cycle_forward_apply(st, torch.zeros(1, 2, 2 * L - 2), THETA,
+                                  L=L, q=3)
     with pytest.raises(ValueError, match="rows must be"):
         ch.general_hi_cycle_inverse_apply(st, torch.zeros(1, 2, 128), L=L,
                                           K=2)
-    ch.hi_cycle_inverse_apply(st, torch.zeros(1, 128), THETA, L=L)
+    ch.hi_cycle_inverse_apply(st, torch.zeros(1, 2, 2 * L), THETA, L=L)
     assert not any(ch.LAUNCHES.values())
     assert not any(ch.PLAIN_ON_CUDA.values())
+
+
+def _global_case(n_amp, n, seed):
+    """A noisy cycle (p=0.6) of n trajectories at L_loc = L on log2(n_amp)
+    shard bits: the compact rows of the local bits, the masks, and every
+    shard's global angles as the engines take them (``_tail_phase_angles``
+    on an (A, 1) shard index)."""
+    Lg = L + n_amp.bit_length() - 1
+    hs, phis = _disorder(Lg)
+    u = torch.rand((n, 2, Lg), generator=torch.Generator().manual_seed(seed))
+    _, zm, _, csum = presample_noise(u, 0.6, Lg)
+    zm, csum = zm[:, 1], csum[:, 1]
+    rows = pack_cycle_params_compact(zm, csum, hs[:L], phis[:L - 1], L,
+                                     forward_width(L))
+    th_sc, th_bnd = sh._tail_phase_angles(
+        zm[None], csum[None], hs, phis, torch.arange(n_amp)[:, None], L=Lg,
+        local_bits=L)                                           # (A, n)
+    return Lg, hs, phis, zm, csum, rows, th_sc, th_bnd
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n_amp", [2, 4])
+def test_folded_global_diagonal_matches_the_torch_phase(n_amp, inverse):
+    """On every shard at L_loc = 22, the plain K9a on ``fold_cycle_rows``
+    with the shard's global angles equals the compact-row cycle (kick, then
+    the row's diagonal) followed by ``_global_diag``; the plain K9b equals
+    ``_global_diag``, then the row's diagonal and the kick. The forward's
+    partial is the same: the global diagonal is a phase."""
+    n, q = 2, L - 1
+    Lg, hs, phis, zm, csum, rows, th_sc, th_bnd = _global_case(
+        n_amp, n, seed=L + n_amp)
+    rx = sm._rx(THETA, 1.0, "cpu")
+    fold = cycle.fold_cycle_rows(rows, L, th_sc, th_bnd, inverse=inverse)
+    assert fold.shape == (n_amp, n, 2, 2 * L)
+    gen = torch.Generator().manual_seed(L + n_amp)
+    for a in range(n_amp):
+        st = torch.randn((n, 1 << L), dtype=torch.complex64, generator=gen)
+        st /= st.abs().pow(2).sum(-1, keepdim=True).sqrt()
+        want = st.clone()
+        if inverse:
+            sh._global_diag(want, zm, csum, hs, phis, a, L=Lg, local_bits=L)
+            for i in range(n):
+                want[i] = apply_uniform_1q_layer(
+                    sm.phase_grid(want[i], sm._angles(rows[i], L)), rx, L)
+            got = ch.hi_cycle_inverse_apply(st, fold[a], THETA, L=L)
+        else:
+            for i in range(n):
+                want[i] = sm.phase_grid(
+                    apply_uniform_1q_layer(want[i], rx, L),
+                    sm._angles(rows[i], L))
+            sh._global_diag(want, zm, csum, hs, phis, a, L=Lg, local_bits=L)
+            got, part = ch.hi_cycle_forward_apply(st, fold[a], THETA, L=L,
+                                                  q=q)
+            wpart = torch.stack([sm.measure_z(w, q, L) for w in want])
+            torch.testing.assert_close(part, wpart, atol=TOL_SUM, rtol=0)
+        assert float((got - want).abs().max()) < TOL_AMP
+
+
+def test_no_measure_forward_runs_the_same_cycle():
+    """K9a with q=None: the same state, no partial."""
+    st, _ = _states(2, seed=13)
+    fold = cycle.fold_cycle_rows(_x_rows(2, seed=14), L)
+    a, part = ch.hi_cycle_forward_apply(st.clone(), fold, THETA, L=L)
+    b, _ = ch.hi_cycle_forward_apply(st.clone(), fold, THETA, L=L, q=3)
+    assert part is None
+    assert torch.equal(a, b)

@@ -940,13 +940,16 @@ def test_cycle_wrappers_reject_bad_inputs(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L,q", [(22, 16), (24, 12), (27, 16), (30, 29)])
+@pytest.mark.parametrize("L,q", [(22, 16), (24, 12), (25, 20), (27, 16),
+                                 (30, 29)])
 def test_cycle_hi_kernels_match_plain_on_card(cuda_device, L, q):
     """K9a/K9b and K10a/K10b shard-local on one cycle of random unit states,
-    noisy rows (p=0.6; x rows 256 lanes from L_loc = 27, K9b's pair from 26,
-    lab-frame rows at 30): the state and the partial against the plain
-    versions on the same inputs, within _unit_tol(L); the forwards'
-    partials again from the neel state, where they are O(1), within 1e-4.
+    noisy rows (p=0.6; K9a/K9b on folded rows with non-zero global angles,
+    a shard's th_sc, th_bnd, uniform in [-pi, pi), K9a also without a
+    measure; lab-frame rows 256 lanes at 30): the state and the partial
+    against the plain versions on the same inputs, within _unit_tol(L); the
+    forwards' partials again from the neel state, where they are O(1),
+    within 1e-4. L_loc = 25 is the first three-pass plan (16-column tiles).
     One state at L_loc = 30 (8 GiB: offsets past 2^31 elements), two
     below."""
     n = 1 if L == 30 else 2
@@ -956,7 +959,8 @@ def test_cycle_hi_kernels_match_plain_on_card(cuda_device, L, q):
     gen = torch.Generator(device=cuda_device).manual_seed(L)
     u = torch.rand((1, n, 2, L), generator=gen, device=cuda_device)
     rows = forward_rows(u, hs[:, None], phis[:, None], L=L, T=2,
-                        p=0.6)[0][0, :, 1].contiguous()
+                        p=0.6)[0][0, :, 1]
+    th = (torch.rand((2, n), generator=gen, device=cuda_device) - 0.5) * 6.28
     st = _unit_states(n, L, cuda_device, L)
     launches = dict(ch.LAUNCHES)
 
@@ -976,10 +980,17 @@ def test_cycle_hi_kernels_match_plain_on_card(cuda_device, L, q):
             assert float(rp.abs().max()) > 0.05  # not 2^(-L/2)
             assert float((kp - rp).abs().max()) <= TOL
 
-    held(ch.hi_cycle_forward_apply, ch.hi_cycle_forward_apply_ref, rows,
+    fold = cy.fold_cycle_rows(rows, L, *th)
+    held(ch.hi_cycle_forward_apply, ch.hi_cycle_forward_apply_ref, fold,
          THETA, L=L, q=q)
-    held(ch.hi_cycle_inverse_apply, ch.hi_cycle_inverse_apply_ref, rows,
-         THETA, L=L)
+    k, kp = ch.hi_cycle_forward_apply(st.clone(), fold, THETA, L=L)
+    assert kp is None
+    r = ch.hi_cycle_forward_apply_ref(st.clone(), fold, THETA, L=L)[0]
+    torch.cuda.synchronize()
+    assert float((k - r).abs().max()) <= tol
+    del k, r
+    held(ch.hi_cycle_inverse_apply, ch.hi_cycle_inverse_apply_ref,
+         cy.fold_cycle_rows(rows, L, *th, inverse=True), THETA, L=L)
     w = general_hi_width(L)
     grows = _general_inputs(cuda_device, L, "circular_left", 2, n, L, p=0.6,
                             width=w)[0].reshape(n, 2, 2, w)[:, 1]
@@ -991,7 +1002,7 @@ def test_cycle_hi_kernels_match_plain_on_card(cuda_device, L, q):
     held(ch.general_hi_cycle_inverse_apply,
          ch.general_hi_cycle_inverse_apply_ref, tiles.contiguous(), L=L, K=2)
     assert {k: ch.LAUNCHES[k] - launches[k] for k in launches} == {
-        "forward": 2, "inverse": 1, "general_forward": 2,
+        "forward": 3, "inverse": 1, "general_forward": 2,
         "general_inverse": 1}
 
 
@@ -1037,9 +1048,17 @@ def test_sharded_hi_engines_on_card_match_cpu(cuda_device, pol, monkeypatch):
 @pytest.mark.cuda
 def test_cycle_hi_wrappers_reject_bad_inputs(cuda_device):
     st = torch.zeros((1, 1 << 22), dtype=torch.complex64, device=cuda_device)
-    rows = torch.zeros((1, 128), device=cuda_device)
+    rows = torch.zeros((1, 2, 44), device=cuda_device)
     with pytest.raises(ValueError, match="float32"):
         ch.hi_cycle_forward_apply(st, rows.double(), THETA, L=22, q=3)
+    with pytest.raises(ValueError, match="rows must be"):
+        ch.hi_cycle_forward_apply(st, torch.zeros((1, 128),
+                                                  device=cuda_device),
+                                  THETA, L=22, q=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ch.hi_cycle_inverse_apply(
+            st, torch.zeros((1, 44, 2), device=cuda_device).transpose(1, 2),
+            THETA, L=22)
     with pytest.raises(ValueError, match="22 <= L_loc <= 30"):
         ch.hi_cycle_inverse_apply(torch.zeros((1, 1 << 21),
                                               dtype=torch.complex64,
