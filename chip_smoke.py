@@ -50,9 +50,10 @@ each; any failure raises and the script exits non-zero without a result:
    25, 27, 29 (q = 0, 14, 16, L//2, L-1 across them; vacuum and neel;
    chains of 3-4 cycles, every partial held; the echo at t=2 at p=0.6 and
    0; K9a/K9b on rows folded with non-zero global angles, the echo's K9a
-   without a measure) and K10's shard-local forms at 24, 26, 29 (y, xy, circular_left,
-   xy_cycle) and at 27 (xy, the sharded general main path's shape; chains
-   of 3 cycles and the echo at t=2), and one cycle of each at L_loc = 30
+   without a measure) and K10's shard-local forms at 24, 26, 29 (y, xy,
+   circular_left, xy_cycle) and at 27 (xy, the sharded general main path's
+   shape; chains of 3 cycles and the echo at t=2, their rows folded with
+   non-zero global angles), and one cycle of each at L_loc = 30
    (one trajectory; K9a with and without a probe; K10's 256-lane rows)
    from a random unit state, the forwards' partial also from the neel
    state, with the peak device memory; the sharded engines on them against the unsharded kernels: x at
@@ -136,9 +137,10 @@ each; any failure raises and the script exits non-zero without a result:
    and K10's shard-local forms (y and xy) at L_loc=28 on 2 shards x 2
    trajectories, one cycle, beside K6 and the one-card K10 per cycle at
    L=28 on 4 trajectories, after the registers and spills of every kernel
-   of ``floquet_cycle_hi.cu``); K11 on the planar path's 32 states of
-   L=20; the planar forward's and K1's cycles/s and the config-4 device
-   forward's trajectory-cycles/s; each kernel's bound: the larger
+   of ``floquet_cycle_hi.cu`` and ``floquet_general_streamed.cu``); K11 on
+   the planar path's 32 states of L=20; the planar forward's and K1's
+   cycles/s and the config-4 device forward's trajectory-cycles/s; each
+   kernel's bound: the larger
    of its bytes (inputs read once, outputs written once; for the streamed
    families, whose states of 64 MiB and more do not fit the L2, at least
    16 B per amplitude and step) over 3.35 TB/s and its f32 operations over
@@ -237,10 +239,10 @@ KERNELS = [
      "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
      "dtc_tpu/ops/pallas_cycle_hi.py:346", None),
     ("K10a local", "floquet_cycle_hi_general_forward",
-     "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
+     "dtc_tpu_torch/csrc/floquet_general_streamed.cu",
      "dtc_tpu/ops/pallas_cycle_hi_general.py:65", None),
     ("K10b local", "floquet_cycle_hi_general_inverse",
-     "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
+     "dtc_tpu_torch/csrc/floquet_general_streamed.cu",
      "dtc_tpu/ops/pallas_cycle_hi_general.py:250", None),
     ("K11", "noise_factor_apply", "dtc_tpu_torch/csrc/noise_factor.cu",
      "dtc_tpu/ops/pallas_noise.py:42", None),
@@ -831,6 +833,20 @@ def cycle_fold(rows, L, seed, inverse=False):
     return cy.fold_cycle_rows(rows, L, *th, inverse=inverse)
 
 
+def general_fold(rows, L, seed, inverse=False, angles=True):
+    """K10a's folded rows of slot rows (c, K, width) (K10b's of slot pairs
+    (c, K, 2, width) with ``inverse``), with non-zero global angles as
+    ``cycle_fold`` draws them, or none with ``angles=False``."""
+    from dtc_tpu_torch.ops import cycle_hi as chi
+
+    th = (None, None)
+    if angles:
+        gen = torch.Generator(device=rows.device).manual_seed(seed)
+        th = (torch.rand((2, rows.shape[0]), generator=gen,
+                         device=rows.device) - 0.5) * (2 * math.pi)
+    return chi.fold_general_rows(rows, L, *th, inverse=inverse)
+
+
 def held_chain(what, key, err, steps, L, state, dev, c=2):
     """Run each (kernel, plain) step on two copies of the basis state; a
     step returns its partial or None. Holds every partial and the final
@@ -1021,10 +1037,10 @@ def compare_cycle_hi(dev, err) -> None:
     the inverse rows) at L_loc = 22, 24, 25, 27, 29 at p=0.6 and 0 (the
     noiseless echo = 1); at the L_loc of GENERAL_HI_PROBES K10a shard-local
     over chains of 3 cycles, and K10b on every step of the general echo rows
-    at t=2 (p=0.6, then 0). K9a's and K9b's rows are folded with non-zero
-    global angles (``cycle_fold``); at p=0 the echo's have none, as on a
-    (1,1) mesh. Then L_loc = 30 (``compare_cycle_hi_l30``). These launches
-    are not the main path's."""
+    at t=2 (p=0.6, then 0). The rows of all four are folded with non-zero
+    global angles (``cycle_fold``, ``general_fold``); at p=0 the echoes'
+    have none, as on a (1,1) mesh. Then L_loc = 30
+    (``compare_cycle_hi_l30``). These launches are not the main path's."""
     from dtc_tpu_torch.core.statevector import basis_index
     from dtc_tpu_torch.ops import cycle as cy
     from dtc_tpu_torch.ops import cycle_hi as chi
@@ -1085,27 +1101,35 @@ def compare_cycle_hi(dev, err) -> None:
             grows = general_forward_inputs(L, pol, 3, c, 0.6, dev, seed=L + j,
                                            width=w)[0]
             K = grows.shape[-2] // 3
-            steps = [(lambda s, r=r.contiguous():
-                      chi.general_hi_cycle_forward_apply(s, r, L=L, K=K,
+            steps = [(lambda s, r=r.contiguous(), f=general_fold(
+                          r, L, L + q + k):
+                      chi.general_hi_cycle_forward_apply(s, r, f, L=L, K=K,
                                                          q=q)[1],
-                      lambda s, r=r: chi.general_hi_cycle_forward_apply_ref(
-                          s, r, L=L, K=K, q=q)[1])
-                     for r in grows.reshape(c, 3, K, w).unbind(1)]
+                      lambda s, r=r, f=general_fold(r, L, L + q + k):
+                      chi.general_hi_cycle_forward_apply_ref(
+                          s, r, f, L=L, K=K, q=q)[1])
+                     for k, r in enumerate(grows.reshape(c, 3, K,
+                                                         w).unbind(1))]
             held_chain(f"K10a shard-local L_loc={L} {pol} T=3 {state} q={q} "
-                       f"1x{c} ({w} lanes)", "K10a local", err, steps, L,
-                       state, dev)
+                       f"1x{c} ({w} lanes, global angles)", "K10a local",
+                       err, steps, L, state, dev)
         for pol, q, state, p in ech:
             s0 = rb.basis_sign(basis_index(L, state), q)
             tiles = general_echo_inputs(L, pol, 2, c, p, [2], dev, seed=L,
                                         width=w)
             K = tiles.shape[-2] // 8
-            steps = [(no_partial(lambda s, r=r.contiguous():
+            # at p=0 the rows carry no global angles (a (1,1) mesh), so
+            # that the echo is 1
+            steps = [(no_partial(lambda s, r=r.contiguous(), f=general_fold(
+                          r, L, L + k, True, p > 0):
                                  chi.general_hi_cycle_inverse_apply(
-                                     s, r, L=L, K=K)),
-                      no_partial(lambda s, r=r:
+                                     s, r, f, L=L, K=K)),
+                      no_partial(lambda s, r=r, f=general_fold(
+                          r, L, L + k, True, p > 0):
                                  chi.general_hi_cycle_inverse_apply_ref(
-                                     s, r, L=L, K=K)))
-                     for r in tiles.reshape(c, 4, K, 2, w).unbind(1)]
+                                     s, r, f, L=L, K=K)))
+                     for k, r in enumerate(tiles.reshape(c, 4, K, 2,
+                                                         w).unbind(1))]
             st = held_chain(f"K10b shard-local echo L_loc={L} {pol} t=2 "
                             f"p={p} {state} q={q} 1x{c}", "K10b local", err,
                             steps, L, state, dev)
@@ -1124,7 +1148,7 @@ def compare_cycle_hi_l30(dev, err) -> None:
     within unit_tol(30), K9a also without a probe; the forwards' partials
     again from the neel basis state, where they are O(1) and their weight
     lies past byte 2^31 (at the neel index and its complement), within TOL;
-    K9a's and K9b's rows folded with non-zero global angles; the peak device
+    every kernel's rows folded with non-zero global angles; the peak device
     memory of the kernel/plain pairs."""
     from dtc_tpu_torch.ops import cycle_hi as chi
     from dtc_tpu_torch.ops.params_general import general_hi_width
@@ -1142,6 +1166,9 @@ def compare_cycle_hi_l30(dev, err) -> None:
                                    width=w)[0].reshape(1, 2, 2, w)[:, 1]
     tiles = general_echo_inputs(L, "circular_left", 2, 1, 0.6, [1], dev,
                                 seed=31, width=w)[0].reshape(1, 4, 2, 2, w)
+    grows, tiles = grows.contiguous(), tiles[:, 1].contiguous()
+    gfold_f = general_fold(grows, L, 30)
+    gfold_i = general_fold(tiles, L, 31, inverse=True)
     cases = [
         ("K9a", "forward x", chi.hi_cycle_forward_apply,
          chi.hi_cycle_forward_apply_ref, (fold_f, THETA), dict(L=L, q=q)),
@@ -1152,12 +1179,12 @@ def compare_cycle_hi_l30(dev, err) -> None:
         ("K9b", "inverse x", chi.hi_cycle_inverse_apply,
          chi.hi_cycle_inverse_apply_ref, (fold_i, THETA), dict(L=L)),
         ("K10a local", "forward xy", chi.general_hi_cycle_forward_apply,
-         chi.general_hi_cycle_forward_apply_ref, (grows.contiguous(),),
+         chi.general_hi_cycle_forward_apply_ref, (grows, gfold_f),
          dict(L=L, K=2, q=q)),
         ("K10b local", "inverse circular_left",
          chi.general_hi_cycle_inverse_apply,
-         chi.general_hi_cycle_inverse_apply_ref,
-         (tiles[:, 1].contiguous(),), dict(L=L, K=2)),
+         chi.general_hi_cycle_inverse_apply_ref, (tiles, gfold_i),
+         dict(L=L, K=2)),
     ]
     torch.cuda.reset_peak_memory_stats(dev)
     for key, what, kernel, plain, args, kw in cases:
@@ -2858,20 +2885,26 @@ def timing_cycle_hi(dev, smi, err) -> dict:
     their time per cycle over T-1 = 4 cycles). Bytes: the shard states read
     and written once (16 B per amplitude) and the rows. Operations per
     amplitude and cycle: 6 L + 6 (K9a, K9b: RX on every bit, one diagonal),
-    per slot 14 L + 6 (K10a) and 14 L + 12 (K10b: two diagonals). State
-    floor: three sweeps per slot. K9a's and K9b's rows are the engines'
-    folded row pairs with a shard's global angles; before the timing, the
+    per slot 14 L + 6 (K10a, K10b: the 2x2 on every bit, one folded
+    diagonal), and 6 more for K10b's row 0. State floor: three sweeps per
+    slot. Every kernel's rows are the engines' folded rows with a shard's
+    global angles; before the timing, the
     registers and spills of every kernel of ``floquet_cycle_hi.cu`` (K9a's
     and K9b's are the ``echo_*_kernel`` instances of ``XEcho<CycleRows,
-    ...>``). The JSON line takes the xy numbers for K10a/K10b."""
+    ...>``) and of ``floquet_general_streamed.cu`` (K10's shard-local forms
+    are its ``echo_*_kernel`` instances of ``GeneralEcho<ForwardRows<...>>``
+    with ``Times`` and ``GeneralEcho<SlotPairRows<...>>``; the 128-lane
+    forward's are the one-card forward's). The JSON line takes the xy
+    numbers for K10a/K10b."""
     from dtc_tpu_torch.ops import cycle_hi as chi
     from dtc_tpu_torch.ops import cycle_hi_general as chg
     from dtc_tpu_torch.ops import streamed as sm
     from dtc_tpu_torch.ops.params_general import general_hi_width
 
-    for kernel, regs, st, ld in ptxas_kernels("floquet_cycle_hi"):
-        phase(f"[build] floquet_cycle_hi.cu {kernel}: {regs} registers, "
-              f"spill stores {st} B, spill loads {ld} B")
+    for lib in ("floquet_cycle_hi", "floquet_general_streamed"):
+        for kernel, regs, st, ld in ptxas_kernels(lib):
+            phase(f"[build] {lib}.cu {kernel}: {regs} registers, "
+                  f"spill stores {st} B, spill loads {ld} B")
     L, c, n_sh = 28, 2, 2
     N = 1 << L
     w = general_hi_width(L)
@@ -2902,12 +2935,14 @@ def timing_cycle_hi(dev, smi, err) -> dict:
         tiles = tiles.reshape(c, 4, K, 2, w)[:, 1].contiguous()
         cases[f"K10a local {pol}"] = (
             f"forward {pol}", chi.general_hi_cycle_forward_apply,
-            chi.general_hi_cycle_forward_apply_ref, (grows,),
-            dict(L=L, K=K, q=L // 2), K, 14 * L + 6)
+            chi.general_hi_cycle_forward_apply_ref,
+            (grows, general_fold(grows, L, 28)), dict(L=L, K=K, q=L // 2),
+            K, 14 * L + 6)
         cases[f"K10b local {pol}"] = (
             f"inverse {pol}", chi.general_hi_cycle_inverse_apply,
-            chi.general_hi_cycle_inverse_apply_ref, (tiles,), dict(L=L, K=K),
-            K, 14 * L + 12)
+            chi.general_hi_cycle_inverse_apply_ref,
+            (tiles, general_fold(tiles, L, 29, inverse=True)),
+            dict(L=L, K=K), K, 14 * L + 6)
     passes = 3  # L_loc = 28
     out = {}
     for key, (what, kernel, plain, args, kw, K, flops) in cases.items():
@@ -2918,11 +2953,14 @@ def timing_cycle_hi(dev, smi, err) -> dict:
         k_ms, _ = time_ms(lambda: [kernel(st, *args, **kw) for st in a])
         p_ms, _ = time_ms(lambda: [plain(st, *args, **kw) for st in a], 1)
         amp_steps = n_sh * c * K * N
-        io_bytes = 16 * n_sh * c * N + 4 * args[0].numel()
+        io_bytes = 16 * n_sh * c * N + 4 * sum(
+            x.numel() for x in args if torch.is_tensor(x))
+        # K10b's row 0 (the first pre diagonal) before its first kick
+        extra = 6 * n_sh * c * N if key.startswith("K10b") else 0
         out[key] = report(key, f"{what} L_loc={L} {n_sh} shards x {c} traj, "
                           f"one cycle ({K} slot{'s' * (K > 1)})", k_ms, p_ms,
                           amp_steps, "cycles", 1, io_bytes, flops, smi,
-                          passes=passes)
+                          extra_ops=extra, passes=passes)
         del a
     T = 5
     rows6, sig = forward_inputs(L, T, n_sh * c, P, dev, seed=31)

@@ -1,11 +1,12 @@
 // The step passes shared by floquet_x_resident.cu (K3b), floquet_x.cu (K2),
 // floquet_general.cu (K4's echo, and K5), floquet_x_streamed.cu (K6b/K7b,
-// and K6a/K7a's forward), floquet_general_streamed.cu (K10b, and K10a's
-// forward) and floquet_cycle.cu (K8a/K8b, one step on a shard's local
-// bits): the folded diagonal rows, the phase tables, the swizzled
-// butterfly rounds and the passes of a step, templated on the family's
-// kick and step rows. Each redesign below was timed on its own on an H100
-// (PERF.md section 6).
+// and K6a/K7a's forward), floquet_general_streamed.cu (K10b, K10a's
+// forward, and K10's shard-local forms: one cycle on a shard's local
+// bits), floquet_cycle.cu (K8a/K8b, one step on a shard's local bits) and
+// floquet_cycle_hi.cu (K9a/K9b, the same from L_loc = 22): the folded
+// diagonal rows, the phase tables, the swizzled butterfly rounds and the
+// passes of a step, templated on the family's kick and step rows. Each
+// redesign below was timed on its own on an H100 (PERF.md section 6).
 //
 // Pass plan: a step cuts the 2^L state into the tiles of
 //   pass lo:  bits [0, a), 2^a consecutive amplitudes;

@@ -2,9 +2,12 @@
 // (sm_90a), any kick schedule: forward A(t) and echo A0(t) of the
 // kicked-Ising chain under y, xy, yx, circular and xy-cycle drives and
 // per-cycle x schedules (K kick slots per cycle), the state streamed
-// through device memory.
+// through device memory; and their shard-local forms, one cycle on the
+// local bits of a batch of amplitude shards (22 <= L_loc <= 30), for the
+// amplitude-sharded engines (dtc_tpu_torch/parallel/sharded.py).
 //
-// Replaces, as one family with a forward and an echo entry,
+// Replaces, as one family with a forward and an echo entry and a
+// shard-local forward and inverse entry,
 //   K10a dtc_tpu/ops/pallas_cycle_hi_general.py::_make_general_hi_cycle_kernel
 //        (entry general_hi_cycle_forward_apply, one forward cycle)
 //   K10b dtc_tpu/ops/pallas_cycle_hi_general.py::
@@ -13,7 +16,8 @@
 // as the reference's single-chip route runs them (engine.py
 // _singlechip_general_forward / _singlechip_general_echo: the cycle scans of
 // parallel/sharded.py make_sharded_autocorr_forward_general and
-// make_sharded_echo_general on one rank, where every bit is local).
+// make_sharded_echo_general on one rank, where every bit is local), and as
+// its sharded engines run them, one cycle a launch on each shard.
 //
 // What is ported is K4's math (floquet_general.cu) on the streamed x
 // family's pass plan (floquet_plan.cuh), not the TPU design (no r2 blocks,
@@ -35,10 +39,11 @@
 // of lane FO+10 of its row 0 and is measured after its last step (a pair
 // with COUNT 0 keeps its basis state).
 //
-// Both entries run the step passes of floquet_echo.cuh (run_steps) on this
-// plan with K4's kick policy (GeneralEcho, floquet_general_echo.cuh), the
-// echo on PairRows, the forward on ForwardRows (every step active, the kick
-// of row k, the time from MPOS): one diagonal per step from folded rows
+// The one-card entries run the step passes of floquet_echo.cuh (run_steps)
+// on this plan with K4's kick policy (GeneralEcho,
+// floquet_general_echo.cuh), the echo on PairRows, the forward on
+// ForwardRows (every step active, the kick of row k, the time from MPOS):
+// one diagonal per step from folded rows
 // (ops/echo_fold.py: the echo's step 0 pass lo applies the first pre
 // diagonal, every pass hi the step's post diagonal and the next step's pre;
 // the forward's pass hi row k+1 = step k's diagonal, and no row 0), its
@@ -46,20 +51,37 @@
 // rounds whose first reads the state and whose last writes it, so each
 // pass makes one read and one write. The forward's pass hi writes, on a
 // measured step, one partial of |psi|^2 z_q per block as it stores; one
-// fixed-order reduce at the end sums them, in double. K10's shard-local
-// forms (floquet_cycle_hi.cu) keep the passes of
-// floquet_general_streamed_pass.cuh, whose step rows (step_rows) both
-// readers here take.
+// fixed-order reduce at the end sums them, in double. The readers take
+// their kick rows from step_rows (floquet_general_streamed_pass.cuh), on
+// rows of W = 128 lanes (256 for the shard-local forms at L_loc = 30).
+//
+// The shard-local forms run K steps (one cycle) from the shard states as
+// they are, on the same passes and plan:
+// - K10a, shard-local: the kick of slot row k, then folded row k + 1
+//   (forward_fold of the K slot rows; row 0 not read, Fold::pre0 false);
+//   the final slot's row K also carries the shard's global diagonal (th_sc
+//   in c0, the boundary bond's th_bnd in cz[L-1], on the local top bit,
+//   which lies in pass hi's tile; ops/cycle_hi.py::fold_general_rows), and
+//   its MPOS 0 is measured in pass hi's store (Times, T = 1), one reduce;
+// - K10b, shard-local: the K (pre, post) slot pairs' fold_rows (COUNT =
+//   K), row 0 the first pre diagonal plus the shard's daggered global
+//   diagonal, before the first kick in pass lo (Fold::pre0 true); every
+//   step runs, so the rows need no COUNT, and nothing is measured.
+// The shard-bit kicks, the rest of the cycle, are the caller's: they
+// commute with the local kicks and diagonals, so the engines run them
+// before each K10a and after each K10b, and z_q of a local bit commutes
+// with them.
 //
 // What bounds it on this card: a state is 2^L complex64, 32 MiB at L=22 and
-// 4 GiB at L=29, so every step streams it from device memory: 32 B per
-// amplitude and step at L <= 24 (two passes), 48 B from L=25 (three). A
+// 4 GiB at L=29 (a shard 8 GiB at L_loc = 30), so every step streams it
+// from device memory: 32 B per amplitude and step at L <= 24 (two passes),
+// 48 B from L=25 (three). A
 // general 2x2 costs 14 flops per amplitude and bit against RX's 6, and the
 // operation bound stays below the state floor. The kick's per-qubit
 // matrices are built once per block in shared memory from the row.
 //
 // Every offset that can pass 2^31 (state, tile rows, blocks, rows of a
-// batch, partials) is 64-bit.
+// batch, partials) is 64-bit: one shard at L_loc = 30 is 2^30 amplitudes.
 
 #include "floquet_common.cuh"
 #include "floquet_echo.cuh"
@@ -72,30 +94,76 @@ namespace {
 
 bool in_range(int L, int q) { return 22 <= L && L <= 29 && 0 <= q && q < L; }
 
-// K10's echo step rows for GeneralEcho (floquet_general_echo.cuh).
+// The shard-local forms' range: L_loc = 22..30, K >= 1 slots, rows of 128
+// lanes, or 256 where the flag lanes up to FO + 10 = 4L + 9 pass lane 127
+// (L_loc = 30, a three-pass plan).
+bool local_range(int L, int q, int width, int K) {
+  return 22 <= L && L <= 30 && 0 <= q && q < L && K >= 1 &&
+         width == (4 * L + 9 < kRowWidth ? kRowWidth : 2 * kRowWidth);
+}
+
+// K10's echo step rows for GeneralEcho (floquet_general_echo.cuh): (pre,
+// post) pairs, a pair running the COUNT steps of its row 0.
+template <int W>
 struct PairRows {
   __device__ __forceinline__ StepRows at(const float* rows, int L,
                                          int64_t rows_per_pair, int pair,
                                          int step) const {
-    return step_rows<kRowWidth>(rows, L, rows_per_pair, pair, step, 1);
+    return step_rows<W>(rows, L, rows_per_pair, pair, step, true, true);
+  }
+};
+
+// K10b shard-local's slot pairs: the same layout, every step active.
+template <int W>
+struct SlotPairRows {
+  __device__ __forceinline__ StepRows at(const float* rows, int L,
+                                         int64_t rows_per_pair, int pair,
+                                         int step) const {
+    return step_rows<W>(rows, L, rows_per_pair, pair, step, true, false);
   }
 };
 
 // K10's forward step rows for GeneralEcho: every step active, the kick of
 // row `step`, measured into the time its MPOS names (-1: none).
+template <int W>
 struct ForwardRows {
   __device__ __forceinline__ StepRows at(const float* rows, int L,
                                          int64_t rows_per_pair, int pair,
                                          int step) const {
-    return step_rows<kRowWidth>(rows, L, rows_per_pair, pair, step, 0);
+    return step_rows<W>(rows, L, rows_per_pair, pair, step, false, false);
   }
   __device__ __forceinline__ int time(const float* rows, int L,
                                       int64_t rows_per_pair, int pair,
                                       int step) const {
-    return (int)rows[((int64_t)pair * rows_per_pair + step) * kRowWidth +
-                     4 * L - 1 + kLaneMpos];
+    return (int)rows[((int64_t)pair * rows_per_pair + step) * W + 4 * L - 1 +
+                     kLaneMpos];
   }
 };
+
+using Forward = GeneralEcho<ForwardRows<kRowWidth>>;
+using Echo = GeneralEcho<PairRows<kRowWidth>>;
+
+// Steps [0, K) of n shard states on the streamed plan with GeneralEcho on
+// rows of W lanes: 16-column strided tiles on the three-pass plan, 4 on
+// the two-pass one (256-lane rows come only at L_loc = 30, three passes:
+// local_range).
+template <int W, template <int> class Rows, class M>
+cudaError_t cycle_steps(float2* st, int L, const float* rows,
+                        int64_t rows_per_pair, Fold fold, int n, int K, M m,
+                        cudaStream_t stream) {
+  using P = GeneralEcho<Rows<W>>;
+  const Plan p = plan_for(L);
+  if (p.b > 0) {
+    return launch_steps<kWideCols, P, M>(st, L, p.a, p.b, rows,
+                                         rows_per_pair, fold, n, 0, K, P{}, m,
+                                         stream);
+  }
+  if constexpr (W == kRowWidth) {
+    return launch_steps<kW, P, M>(st, L, p.a, p.b, rows, rows_per_pair, fold,
+                                  n, 0, K, P{}, m, stream);
+  }
+  return cudaErrorInvalidValue;
+}
 
 }  // namespace
 
@@ -136,14 +204,12 @@ int floquet_general_streamed_forward(void* state, const void* rows,
   }
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const Plan p = plan_for(L);
-  const auto run = p.b > 0
-                       ? run_steps<kWideCols, GeneralEcho<ForwardRows>, Times>
-                       : run_steps<kW, GeneralEcho<ForwardRows>, Times>;
+  const auto run = p.b > 0 ? run_steps<kWideCols, Forward, Times>
+                           : run_steps<kW, Forward, Times>;
   cudaError_t e = run(
       (float2*)state, L, p.a, p.b, (const float*)rows, rows_per_traj,
       Fold{(const float*)fold, (int64_t)fold_rows * 2 * L, false}, n_traj,
-      n_steps, GeneralEcho<ForwardRows>{}, Times{(float*)partials, q, T}, b0,
-      stream);
+      n_steps, Forward{}, Times{(float*)partials, q, T}, b0, stream);
   if (e != cudaSuccess) return (int)e;
   float* a = (float*)out;
   const int64_t n_rows = (int64_t)n_traj * T;
@@ -170,13 +236,60 @@ int floquet_general_streamed_echo(void* state, const void* tiles,
     return (int)cudaErrorInvalidValue;
   }
   const Plan p = plan_for(L);
-  const auto run = p.b > 0 ? run_echo<kWideCols, GeneralEcho<PairRows>>
-                           : run_echo<kW, GeneralEcho<PairRows>>;
+  const auto run = p.b > 0 ? run_echo<kWideCols, Echo> : run_echo<kW, Echo>;
   return (int)run(
       (float2*)state, L, p.a, p.b, (const float*)tiles, rows_per_pair,
       Fold{(const float*)fold, (int64_t)fold_rows * 2 * L}, n_pairs, n_steps,
-      GeneralEcho<PairRows>{}, q, b0, (float*)partials, (float*)out,
-      (cudaStream_t)stream_ptr);
+      Echo{}, q, b0, (float*)partials, (float*)out, (cudaStream_t)stream_ptr);
+}
+
+// K10a, shard-local. state: n x 2^L complex64, updated in place; rows: n x
+// K x width f32 slot rows (width 128, or 256 at L = 30; MPOS -1 on slots
+// 0..K-2, 0 on slot K-1); fold: n x (K+1) x 2L f32, the slots' diagonals
+// with the shard's global diagonal on row K
+// (ops/cycle_hi.py::fold_general_rows); partials: n x
+// floquet_general_streamed_partials(L) f32 scratch; out: n f32, sum
+// |psi|^2 z_q after the cycle.
+int floquet_cycle_hi_general_forward(void* state, const void* rows,
+                                     const void* fold, void* partials,
+                                     void* out, int n, int L, int width,
+                                     int K, int q, void* stream_ptr) {
+  if (!local_range(L, q, width, K)) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const Fold f{(const float*)fold, (int64_t)(K + 1) * 2 * L, false};
+  const Times m{(float*)partials, q, 1};
+  const cudaError_t e =
+      width == kRowWidth
+          ? cycle_steps<kRowWidth, ForwardRows>((float2*)state, L,
+                                                (const float*)rows, K, f, n,
+                                                K, m, stream)
+          : cycle_steps<2 * kRowWidth, ForwardRows>((float2*)state, L,
+                                                    (const float*)rows, K, f,
+                                                    n, K, m, stream);
+  if (e != cudaSuccess) return (int)e;
+  reduce_rows_kernel<<<n, kThreads, 0, stream>>>(
+      (const float*)partials, floquet_general_streamed_partials(L),
+      (float*)out, 1, 0);
+  return (int)cudaGetLastError();
+}
+
+// K10b, shard-local. state: n x 2^L complex64, updated in place; tiles: n x
+// K x 2 x width f32, per slot the (pre, post) rows (the pre row's kick);
+// fold: n x (K+1) x 2L f32, their folded diagonals with the shard's
+// daggered global diagonal on row 0 (ops/cycle_hi.py::fold_general_rows).
+int floquet_cycle_hi_general_inverse(void* state, const void* tiles,
+                                     const void* fold, int n, int L,
+                                     int width, int K, void* stream_ptr) {
+  if (!local_range(L, 0, width, K)) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const Fold f{(const float*)fold, (int64_t)(K + 1) * 2 * L, true};
+  return (int)(width == kRowWidth
+                   ? cycle_steps<kRowWidth, SlotPairRows>(
+                         (float2*)state, L, (const float*)tiles, 2 * K, f, n,
+                         K, NoTimes{}, stream)
+                   : cycle_steps<2 * kRowWidth, SlotPairRows>(
+                         (float2*)state, L, (const float*)tiles, 2 * K, f, n,
+                         K, NoTimes{}, stream));
 }
 
 }  // extern "C"

@@ -1,5 +1,7 @@
 // The pass plan of the streamed families, floquet_x_streamed.cu (constant
-// x) and floquet_general_streamed.cu (lab frame, any drive): how a step cuts
+// x) and floquet_general_streamed.cu (lab frame, any drive), and of the
+// per-shard cycle kernels from L_loc = 22 (floquet_cycle_hi.cu, and K10's
+// shard-local forms in floquet_general_streamed.cu): how a step cuts
 // a 2^L state in device memory into shared-memory tiles up to L=30, and the
 // fixed-order reductions of the per-block partials.
 //
@@ -9,13 +11,9 @@
 //   pass hi:  bits [a+b, L), tiles of 2^c rows x kW columns, which end the
 //             step (the diagonal and the partial of |psi|^2 z_q).
 // L <= 24 takes two passes (a <= 13, c <= 11: at most 64 KiB a tile), L =
-// 25..30 three (tiles of 4-32 KiB); floquet_x_streamed.cu says why. The
-// one-card streamed forwards and echoes and the per-shard x cycle kernels
-// (K9a/K9b, floquet_cycle_hi.cu) run this plan on the step passes of
-// floquet_echo.cuh, whose strided tiles take 16 columns from L = 25
-// (tiles of 16-64 KiB); K10's shard-local forms (floquet_cycle_hi.cu) on
-// the passes of floquet_general_streamed_pass.cuh, with the kW columns
-// above.
+// 25..30 three; floquet_x_streamed.cu says why. Every kernel on this plan
+// runs it on the step passes of floquet_echo.cuh, whose strided tiles take
+// 16 columns from L = 25 (tiles of 16-64 KiB).
 //
 // Include after floquet_common.cuh; the definitions sit in an anonymous
 // namespace of their own.
@@ -41,16 +39,6 @@ Plan plan_for(int L) {
   }
   const int c = (L - 2) / 3;
   return {L - 2 * c, c, c};
-}
-
-// Pass-hi blocks of one state: the partials per trajectory or pair.
-int hi_blocks(int L) { return (1 << (L - plan_for(L).c)) / kW; }
-
-template <typename K>
-cudaError_t allow_smem(K* kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 // The sum of p[0..nb) in a fixed order (a fixed strided share per thread,

@@ -5,9 +5,10 @@ is one library: ``floquet_x`` (K1/K2), ``floquet_x_resident`` (K3a/K3b,
 constant or per-cycle x at 14 <= L <= 21), ``floquet_x_streamed`` (the
 large-L x family that replaces K6a/K6b/K7a/K7b), ``floquet_general`` (K4,
 K5), ``floquet_general_streamed`` (the large-L lab-frame family,
-K10a/K10b), ``floquet_cycle`` (K8a-d, one cycle on a shard's local bits,
-17 <= L_loc <= 23) and ``floquet_cycle_hi`` (K9a/K9b and K10's shard-local
-forms, one cycle on a shard's local bits, 22 <= L_loc <= 30) and
+K10a/K10b, and K10's shard-local forms, one cycle on a shard's local bits,
+22 <= L_loc <= 30), ``floquet_cycle`` (K8a-d, one cycle on a shard's local
+bits, 17 <= L_loc <= 23), ``floquet_cycle_hi`` (K9a/K9b, one x cycle on a
+shard's local bits, 22 <= L_loc <= 30) and
 ``noise_factor`` (K11, the planar engine's per-cycle noise factor). A source is
 compiled at first use with nvcc for sm_90a into a shared library under
 ``dtc_tpu_torch/csrc/build/`` (named by the hash of the source, the shared
@@ -89,6 +90,10 @@ LIBRARIES = {
         "floquet_general_streamed_echo": [_VP, _VP, _VP, _VP, _VP, _I32,
                                           _I32, _I32, _I32, _I32, _I32, _I64,
                                           _VP],
+        "floquet_cycle_hi_general_forward": [_VP, _VP, _VP, _VP, _VP, _I32,
+                                             _I32, _I32, _I32, _I32, _VP],
+        "floquet_cycle_hi_general_inverse": [_VP, _VP, _VP, _I32, _I32, _I32,
+                                             _I32, _VP],
     },
     "floquet_cycle": {
         "floquet_cycle_partials": [_I32],
@@ -101,14 +106,9 @@ LIBRARIES = {
     },
     "floquet_cycle_hi": {
         "floquet_cycle_hi_partials": [_I32],
-        "floquet_cycle_hi_general_partials": [_I32],
         "floquet_cycle_hi_forward": [_VP, _VP, _VP, _VP, _I32, _I32, _I32,
                                      _F32, _F32, _VP],
         "floquet_cycle_hi_inverse": [_VP, _VP, _I32, _I32, _F32, _F32, _VP],
-        "floquet_cycle_hi_general_forward": [_VP, _VP, _VP, _VP, _I32, _I32,
-                                             _I32, _I32, _I32, _VP],
-        "floquet_cycle_hi_general_inverse": [_VP, _VP, _I32, _I32, _I32,
-                                             _I32, _VP],
     },
     "noise_factor": {
         "noise_factor_apply": [_VP, _VP, _I32, _I32, _VP],

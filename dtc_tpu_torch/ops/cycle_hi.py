@@ -6,12 +6,13 @@ Port of ``dtc_tpu/ops/pallas_cycle_hi.py`` (``hi_cycle_forward_apply``,
 (``general_hi_cycle_forward_apply``, ``general_hi_cycle_inverse_apply``):
 the per-shard engines of the amplitude-sharded path (``parallel/sharded.py``)
 where a shard outgrows the per-shard kernels of ``ops/cycle.py`` (K8,
-L_loc <= 23). Their four Pallas kernels become one hand-written CUDA family,
-``csrc/floquet_cycle_hi.cu``, for one cycle at L = L_loc on the pass plan
-of the streamed families (``csrc/floquet_plan.cuh``): K9a/K9b on the step
-passes of ``csrc/floquet_echo.cuh``, as K8a/K8b and the one-card streamed x
-family run them, K10's shard-local forms on the streamed lab-frame passes
-(``csrc/floquet_general_streamed_pass.cuh``):
+L_loc <= 23). Their four Pallas kernels become hand-written CUDA for one
+cycle at L = L_loc on the pass plan of the streamed families
+(``csrc/floquet_plan.cuh``) and the step passes of ``csrc/floquet_echo.cuh``:
+K9a/K9b in ``csrc/floquet_cycle_hi.cu``, as K8a/K8b and the one-card
+streamed x family run them, K10's shard-local forms in
+``csrc/floquet_general_streamed.cu``, beside the one-card lab-frame family
+whose policy they share:
 
 - K9a ``hi_cycle_forward_apply``: a sigma-frame x cycle, RX(theta) on every
   local bit, then the cycle's diagonal from its folded row pair
@@ -26,21 +27,25 @@ family run them, K10's shard-local forms on the streamed lab-frame passes
   once-conjugated frame;
 - K10a, shard-local, ``general_hi_cycle_forward_apply``: a lab-frame cycle
   of K slot rows (``ops/params_general.py`` at ``general_hi_width(L_loc)``:
-  256 lanes at L_loc = 30; the diagonal on the final slot) and its partial
-  after the final slot;
+  256 lanes at L_loc = 30), each slot's kick then its diagonal from the
+  folded rows (``fold_general_rows``: the slots' diagonals, the shard's
+  global diagonal on the final slot's), and its partial after the final
+  slot;
 - K10b, shard-local, ``general_hi_cycle_inverse_apply``: a daggered
-  lab-frame cycle, per slot a (pre, post) row pair (K4's echo layout).
+  lab-frame cycle, per slot a (pre, post) row pair (K4's echo layout), the
+  diagonals folded (``fold_general_rows(..., inverse=True)``: the shard's
+  daggered global diagonal with the first pre diagonal, before the first
+  kick).
 
 The reference's split (re, im) state at L_loc = 30 and its per-call
 trajectory chunks exist for the TPU's 2^32-byte DMA offset wrap and are not
 ported: states are flat (n, 2^L_loc) complex64 with 64-bit offsets, and
-the caller sizes its launches (``parallel/sharded.py``). The flag lanes
-K10's kernels read (K10a's MPOS, K10b's COUNT) are set here, on a copy of
-the rows: the reference's rows carry none of them. Every entry updates
-``state`` in place and returns it. A tensor on the CPU goes to the plain
-version (``*_ref``); a CUDA tensor launches the kernel or raises. Each
-entry counts its kernel launches in ``LAUNCHES``; the plain versions count
-the calls they get on CUDA tensors in ``PLAIN_ON_CUDA``.
+the caller sizes its launches (``parallel/sharded.py``). K10a's MPOS flag
+lane is set here, on a copy of the rows: the reference's rows carry none.
+Every entry updates ``state`` in place and returns it. A tensor on the CPU
+goes to the plain version (``*_ref``); a CUDA tensor launches the kernel or
+raises. Each entry counts its kernel launches in ``LAUNCHES``; the plain
+versions count the calls they get on CUDA tensors in ``PLAIN_ON_CUDA``.
 
 The plain versions hold one state at a time and no table over 2^L_loc: RX
 or K4's kick in kron groups of 7 bits and the diagonal as the streamed
@@ -60,16 +65,18 @@ import torch
 from dtc_tpu_torch.ops import cycle
 from dtc_tpu_torch.ops import cycle_hi_general as chg
 from dtc_tpu_torch.ops import resident_blocked as rb
+from dtc_tpu_torch.ops import resident_general as rg
 from dtc_tpu_torch.ops import streamed as sm
+from dtc_tpu_torch.ops.echo_fold import fold_rows, forward_fold
 from dtc_tpu_torch.ops.kick import apply_uniform_1q_layer
 from dtc_tpu_torch.ops.params_general import (
-    LANE_COUNT,
     LANE_MPOS,
     flag_base,
     general_hi_width,
 )
 
-LIBRARY = "floquet_cycle_hi"
+LIBRARY = "floquet_cycle_hi"  # K9a/K9b
+LIBRARY_GENERAL = "floquet_general_streamed"  # K10's shard-local forms
 MIN_L, MAX_L = 22, 30
 MIN_ROUTE_L = 24  # the reference's DTC_TPU_SHARDED_HI_MIN_LB default
 
@@ -117,6 +124,38 @@ def global_phase(state, th_sc, th_bnd, sign: float = 1.0):
     return state
 
 
+def fold_general_rows(rows, L: int, th_sc=None, th_bnd=None, *,
+                      inverse: bool = False) -> torch.Tensor:
+    """K10's shard-local folded rows: (..., K, width) slot rows (K10a) or
+    (..., K, 2, width) (pre, post) slot pairs (K10b, ``inverse=True``) at
+    L = L_loc -> (..., K + 1, 2L) f32 diagonal rows (cz [0, L), cb
+    [L, 2L-1), c0 at 2L-1), the lab-frame ``row_coeffs`` in f64, rounded
+    once: K10a's row 0 zero (not read), row k + 1 slot k's diagonal
+    (``echo_fold.forward_fold``); K10b's row 0 the first pre diagonal, row
+    k + 1 post(k) + pre(k + 1), row K the last post (``echo_fold.fold_rows``
+    with COUNT = K). th_sc and th_bnd, broadcastable against the rows'
+    leading shape, are a shard's global diagonal exp(i (th_sc + th_bnd
+    z_{L-1})) (``parallel/sharded.py::_tail_phase_angles``), as the launch
+    applies it: th_sc joins c0 and th_bnd cz[L-1] of K10a's row K (after
+    the final slot) or K10b's row 0 (before the first kick; the caller
+    negates them to dagger it)."""
+    lead = rows.shape[:-3 if inverse else -2]
+    K = rows.shape[len(lead)]
+    flat = rows.reshape(-1, (2 if inverse else 1) * K, rows.shape[-1])
+    if inverse:
+        count = torch.full((flat.shape[0],), K, device=rows.device)
+        fold = fold_rows(flat, count, L, rg.row_coeffs, torch.float64)
+    else:
+        fold = forward_fold(flat, L, rg.row_coeffs, torch.float64)
+    fold, at = fold.reshape(*lead, K + 1, 2 * L), 0 if inverse else -1
+    if th_sc is not None:
+        lead = torch.broadcast_shapes(fold.shape[:-2], th_sc.shape)
+        fold = fold.expand(*lead, *fold.shape[-2:]).clone()
+        fold[..., at, 2 * L - 1] += th_sc.to(fold.device, torch.float64)
+        fold[..., at, L - 1] += th_bnd.to(fold.device, torch.float64)
+    return fold.to(torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 
@@ -161,45 +200,46 @@ def hi_cycle_inverse_apply_ref(state, rows, theta, *, L):
     return state
 
 
-def general_hi_cycle_forward_apply_ref(state, rows, *, L, K, q):
+def general_hi_cycle_forward_apply_ref(state, rows, fold, *, L, K, q):
     """Plain version of ``general_hi_cycle_forward_apply`` (same
     arguments)."""
     if state.is_cuda:
         PLAIN_ON_CUDA["general_forward"] += 1
     check_range(L, q)
     n = _check(state, rows, L, (K,), general_hi_width(L))
-    rows = rows.to(torch.float32)
+    cycle._check_rows(fold, n, (K + 1,), 2 * L)
+    rows, fold = rows.to(torch.float32), fold.to(torch.float32)
     part = torch.empty(n, dtype=torch.float32, device=state.device)
     for i in range(n):
         new = state[i]
         for j in range(K):
-            new = chg._lab_phase(chg._kick_one(new, rows[i, j], L),
-                                 rows[i, j], L)
+            new = sm.phase_grid(chg._kick_one(new, rows[i, j], L),
+                                _fold_grid(fold[i, j + 1], L))
         state[i].copy_(new)
         part[i] = sm.measure_z(new, q, L)
     return state, part
 
 
-def general_hi_cycle_inverse_apply_ref(state, tiles, *, L, K):
+def general_hi_cycle_inverse_apply_ref(state, tiles, fold, *, L, K):
     """Plain version of ``general_hi_cycle_inverse_apply`` (same
     arguments)."""
     if state.is_cuda:
         PLAIN_ON_CUDA["general_inverse"] += 1
     check_range(L)
     n = _check(state, tiles, L, (K, 2), general_hi_width(L))
-    tiles = tiles.to(torch.float32)
+    cycle._check_rows(fold, n, (K + 1,), 2 * L)
+    tiles, fold = tiles.to(torch.float32), fold.to(torch.float32)
     for i in range(n):
-        new = state[i]
+        new = sm.phase_grid(state[i], _fold_grid(fold[i, 0], L))
         for j in range(K):
-            pre, post = tiles[i, j, 0], tiles[i, j, 1]
-            new = chg._lab_phase(
-                chg._kick_one(chg._lab_phase(new, pre, L), pre, L), post, L)
+            new = sm.phase_grid(chg._kick_one(new, tiles[i, j, 0], L),
+                                _fold_grid(fold[i, j + 1], L))
         state[i].copy_(new)
     return state
 
 
 # ---------------------------------------------------------------------------
-# the flag lanes K10's kernels read, set on copies of the rows
+# the flag lane K10a's kernel reads, set on a copy of the rows
 
 
 def measured_rows(rows, L: int, K: int) -> torch.Tensor:
@@ -208,14 +248,6 @@ def measured_rows(rows, L: int, K: int) -> torch.Tensor:
     rows[:, :, flag_base(L) + LANE_MPOS] = -1.0
     rows[:, K - 1, flag_base(L) + LANE_MPOS] = 0.0
     return rows
-
-
-def counted_tiles(tiles, L: int, K: int) -> torch.Tensor:
-    """K10b's (n, 2K, width) rows: COUNT K + 1 on row 0, so that none of
-    the K steps launched is the pair's last and none measures."""
-    tiles = tiles.reshape(tiles.shape[0], 2 * K, tiles.shape[-1]).clone()
-    tiles[:, 0, flag_base(L) + LANE_COUNT] = float(K + 1)
-    return tiles
 
 
 # ---------------------------------------------------------------------------
@@ -272,45 +304,60 @@ def hi_cycle_inverse_apply(state, rows, theta, *, L):
     return state
 
 
-def general_hi_cycle_forward_apply(state, rows, *, L, K, q):
-    """One lab-frame cycle (K10a, shard-local): rows (n, K,
-    general_hi_width(L)), K4's step rows at L = L_loc (the diagonal on the
-    final slot). Returns (state, the partial sum |psi|^2 z_q (n,) after the
-    final slot)."""
-    if rb.route(state, "streamed cycle") == "plain":
-        return general_hi_cycle_forward_apply_ref(state, rows, L=L, K=K, q=q)
-    check_range(L, q)
+def _general_inputs(state, rows, fold, what: str, lead: tuple, L: int,
+                    K: int):
+    """(n, the library, the stream, the row width) after the shape and CUDA
+    checks of K10's shard-local entries."""
     width = general_hi_width(L)
-    _check(state, rows, L, (K,), width)
-    n, lib, stream = cycle._cuda_inputs(
-        state, rows, "general hi cycle forward", LIBRARY, width)
+    n = _check(state, rows, L, lead, width)
+    cycle._check_rows(fold, n, (K + 1,), 2 * L)
+    rb.check_cuda_input("fold", fold, 2, 2 * L)
+    if fold.device != state.device:
+        raise ValueError(f"{what}: fold must be on the state's device")
+    n, lib, stream = cycle._cuda_inputs(state, rows, what, LIBRARY_GENERAL,
+                                        width)
+    return n, lib, stream, width
+
+
+def general_hi_cycle_forward_apply(state, rows, fold, *, L, K, q):
+    """One lab-frame cycle (K10a, shard-local): rows (n, K,
+    general_hi_width(L)), K4's step rows at L = L_loc; fold (n, K + 1, 2L)
+    their diagonals (``fold_general_rows``, with the shard's global angles
+    on the final slot). Returns (state, the partial sum |psi|^2 z_q (n,)
+    after the final slot)."""
+    if rb.route(state, "streamed cycle") == "plain":
+        return general_hi_cycle_forward_apply_ref(state, rows, fold, L=L,
+                                                  K=K, q=q)
+    check_range(L, q)
+    n, lib, stream, width = _general_inputs(
+        state, rows, fold, "general hi cycle forward", (K,), L, K)
     rows = measured_rows(rows, L, K)
-    partials = torch.empty((n, lib.floquet_cycle_hi_general_partials(L)),
+    partials = torch.empty((n, lib.floquet_general_streamed_partials(L)),
                            dtype=torch.float32, device=state.device)
     out = torch.empty((n,), dtype=torch.float32, device=state.device)
     err = lib.floquet_cycle_hi_general_forward(
-        state.data_ptr(), rows.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), n, L, width, K, q, stream)
+        state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), n, L, width, K, q, stream)
     LAUNCHES["general_forward"] += 1
     rb.raise_on(err, "floquet_cycle_hi_general_forward")
     return state, out
 
 
-def general_hi_cycle_inverse_apply(state, tiles, *, L, K):
+def general_hi_cycle_inverse_apply(state, tiles, fold, *, L, K):
     """One daggered lab-frame cycle (K10b, shard-local): tiles (n, K, 2,
     general_hi_width(L)), per slot the (pre, post) rows of K4's echo
-    layout. Returns state."""
+    layout; fold (n, K + 1, 2L) their folded diagonals
+    (``fold_general_rows(..., inverse=True)``, with the shard's daggered
+    global angles before the first kick). Returns state."""
     if rb.route(state, "streamed cycle") == "plain":
-        return general_hi_cycle_inverse_apply_ref(state, tiles, L=L, K=K)
+        return general_hi_cycle_inverse_apply_ref(state, tiles, fold, L=L,
+                                                  K=K)
     check_range(L)
-    width = general_hi_width(L)
-    _check(state, tiles, L, (K, 2), width)
-    n, lib, stream = cycle._cuda_inputs(
-        state, tiles, "general hi cycle inverse", LIBRARY, width)
-    tiles = counted_tiles(tiles, L, K)
-    err = lib.floquet_cycle_hi_general_inverse(state.data_ptr(),
-                                               tiles.data_ptr(), n, L, width,
-                                               K, stream)
+    n, lib, stream, width = _general_inputs(
+        state, tiles, fold, "general hi cycle inverse", (K, 2), L, K)
+    err = lib.floquet_cycle_hi_general_inverse(
+        state.data_ptr(), tiles.data_ptr(), fold.data_ptr(), n, L, width, K,
+        stream)
     LAUNCHES["general_inverse"] += 1
     rb.raise_on(err, "floquet_cycle_hi_general_inverse")
     return state

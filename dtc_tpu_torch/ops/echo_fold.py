@@ -31,12 +31,13 @@ import torch
 
 
 def fold_rows(tiles: torch.Tensor, count: torch.Tensor, L: int,
-              row_coeffs) -> torch.Tensor:
+              row_coeffs, dtype=torch.float32) -> torch.Tensor:
     """(n, 2S, width) interleaved (pre, post) step rows and (n,) step counts
-    -> (n, S + 1, 2L) f32 folded rows (cz [0, L), cb [L, 2L-1), c0 at 2L-1).
+    -> (n, S + 1, 2L) folded rows (cz [0, L), cb [L, 2L-1), c0 at 2L-1).
 
-    The sums are taken in f64 and rounded once. Rows past a pair's COUNT are
-    not read by the kernels."""
+    The sums are taken in f64 and rounded once to ``dtype`` (f64 for a
+    caller that adds more terms first). Rows past a pair's COUNT are not
+    read by the kernels."""
     n, R = tiles.shape[:2]
     S = R // 2
     # both families' data lanes lie in [0, 5L - 2)
@@ -50,7 +51,7 @@ def fold_rows(tiles: torch.Tensor, count: torch.Tensor, L: int,
     out[:, 0] = pre[:, 0]
     out[:, 1:S] = post[:, :S - 1] + pre[:, 1:] * live[..., None]
     out[:, S] = post[:, S - 1]
-    return out.to(torch.float32)
+    return out.to(dtype)
 
 
 def echo_plan(flat: torch.Tensor, lane: int, L: int, row_coeffs, what: str):
@@ -66,13 +67,14 @@ def echo_plan(flat: torch.Tensor, lane: int, L: int, row_coeffs, what: str):
     return fold_rows(flat, count, L, row_coeffs), n_steps
 
 
-def forward_fold(rows: torch.Tensor, L: int, row_coeffs) -> torch.Tensor:
-    """(n, S, width) forward step rows -> (n, S + 1, 2L) f32 diagonal rows
+def forward_fold(rows: torch.Tensor, L: int, row_coeffs,
+                 dtype=torch.float32) -> torch.Tensor:
+    """(n, S, width) forward step rows -> (n, S + 1, 2L) diagonal rows
     (cz [0, L), cb [L, 2L-1), c0 at 2L-1): row 0 zero, not read; row k + 1
-    step k's. Taken in f64 and rounded once, as ``fold_rows``."""
+    step k's. Taken in f64 and rounded once to ``dtype``, as
+    ``fold_rows``."""
     n, S = rows.shape[:2]
     cz, cb, c0 = row_coeffs(rows.to(torch.float64), L)
-    out = torch.zeros((n, S + 1, 2 * L), dtype=torch.float32,
-                      device=rows.device)
-    out[:, 1:] = torch.cat([cz, cb, c0[..., None]], -1).to(torch.float32)
+    out = torch.zeros((n, S + 1, 2 * L), dtype=dtype, device=rows.device)
+    out[:, 1:] = torch.cat([cz, cb, c0[..., None]], -1).to(dtype)
     return out

@@ -45,10 +45,12 @@ L_loc < ``cycle_hi.MIN_ROUTE_L``) and the streamed family (``ops/cycle_hi.py``,
 from it up to 30), as the reference switches at its
 ``DTC_TPU_SHARDED_HI_MIN_LB``; x rows are ``forward_width(L_loc)`` lanes
 wide and lab-frame rows ``general_hi_width(L_loc)``. The shard-bit kicks
-are torch tensor ops between the launches. A shard's global diagonal
-(the shard-bit terms and the boundary bond phi[L_loc-1]) is one too for
-the lab-frame engines; the x engines hand it to the launch in its folded
-row (K8 and K9 alike), built once a run for every step and shard.
+are torch tensor ops between the launches. A shard's global diagonal (the
+shard-bit terms and the boundary bond phi[L_loc-1]) rides in the launch's
+folded rows (K8a/K8b, K9a/K9b and K10's shard-local forms), its angles
+built once a run for every step and shard; only K8c/K8d, which take no
+folded rows, leave it to a torch pass (``cycle_hi.global_phase``) beside
+the launch.
 
 Device noise: the lab-frame cycle-kernel engines take ``device=(p_1q,
 p_2q, events_per_kick)`` with p == 0, as the reference's do. The
@@ -814,17 +816,80 @@ def _general_words(u, p, L, shape, dev):
     return zero, zero
 
 
+def _global_angles(shards, zm, sig, hs, phis, *, L, local_bits):
+    """Every step's and shard's global diagonal of a run, in one
+    ``_tail_phase_angles`` call: zm and sig (c, S) the words of each step's
+    global diagonal (masked to the shard bits), hs and phis as it takes
+    them, broadcast against (S, 1, c) (per step and trajectory in device
+    mode). Returns (th_sc, th_bnd) (S, A, c), or None without shard bits."""
+    if L == local_bits:
+        return None
+    aidx = torch.arange(len(shards), device=zm.device)[:, None]
+    return _tail_phase_angles(zm.T[:, None], sig.T[:, None], hs, phis, aidx,
+                              L=L, local_bits=local_bits)
+
+
+def _general_cycles(shards, rows, th, *, local_bits, K, inverse=False):
+    """The per-shard lab-frame cycle of every step of a run, with each
+    shard's global diagonal: rows (S, c, K, width) the steps' slot rows
+    (forward) or (S, c, K, 2, width) their (pre, post) slot pairs
+    (``inverse``) at L = L_loc, th the steps' (th_sc, th_bnd) (S, A, c) of
+    ``_global_angles`` (negated by the caller to dagger them) or None. From
+    ``cycle_hi.MIN_ROUTE_L`` the angles are folded into each launch's rows
+    (``cycle_hi.fold_general_rows``, once, before the step loop): K10a
+    carries the global diagonal after its final slot, K10b before its first
+    kick. Below it K8c/K8d take no folded rows, and the global diagonal is
+    a torch pass (``cycle_hi.global_phase``) after K8c, before K8d. Returns
+    run(k, a, st, q=None): step k on shard a's states st in place; the
+    forward's partial sum |psi|^2 z_q, the inverse None."""
+    hi = use_hi(local_bits)
+    if hi:
+        fold = cycle_hi.fold_general_rows(rows[:, None], local_bits,
+                                          *(th or (None, None)),
+                                          inverse=inverse)
+        per = [fold[:, a].contiguous().to(st.device)
+               for a, st in enumerate(shards)]
+    kw = dict(L=local_bits, K=K)
+
+    def run(k, a, st, q=None):
+        r = rows[k].to(st.device)
+        if hi and inverse:
+            cycle_hi.general_hi_cycle_inverse_apply(st, r, per[a][k], **kw)
+            return None
+        if hi:
+            return cycle_hi.general_hi_cycle_forward_apply(st, r, per[a][k],
+                                                           q=q, **kw)[1]
+        if inverse:
+            if th is not None:
+                cycle_hi.global_phase(st, th[0][k, a], th[1][k, a])
+            cycle.general_cycle_inverse_apply(st, r, **kw)
+            return None
+        part = cycle.general_cycle_forward_apply(st, r, q=q, **kw)[1]
+        if th is not None:
+            cycle_hi.global_phase(st, th[0][k, a], th[1][k, a])
+        return part
+
+    return run
+
+
 def make_sharded_autocorr_forward_general(mesh, *, L, T, K, p, q,
                                           initial_state="vacuum",
                                           ancilla_factor=None, device=None):
     """Lab-frame cycle-kernel sharded forward autocorrelator for every
-    drive and per-cycle schedule: the shard-local work of a cycle (K slot
-    kicks with X-mask row folds, the local diagonal, the partial) is one
-    K8c (K10a, shard-local, from ``cycle_hi.MIN_ROUTE_L`` on) launch per
-    shard; the shard-id bits keep an XOR noise frame, so the
-    global slot kicks are sigma-conjugated per trajectory and the cycle's
-    global diagonal is evaluated at the cycle-end frame with the sig words
-    masked to shard bits (local bits are lab-frame).
+    drive and per-cycle schedule: a cycle is the K global slot kicks, then
+    one K8c (K10a, shard-local, from ``cycle_hi.MIN_ROUTE_L`` on) launch per
+    shard for its shard-local work (K slot kicks with X-mask row folds, the
+    local diagonal, the partial) and the shard's global diagonal
+    (``_general_cycles``: in K10a's rows, after K8c as a torch pass). The
+    shard-id bits keep an XOR noise frame, so the global slot kicks are
+    sigma-conjugated per trajectory and the cycle's global diagonal is
+    evaluated at the cycle-end frame with the sig words masked to shard
+    bits (local bits are lab-frame); its angles are built once a call for
+    every cycle and shard. The order is exact: the global slot kicks (their
+    noise-Z words on the 2x2 columns) act on shard bits only and the local
+    slots and diagonal on local bits only, so they commute; the global
+    diagonal, which holds the boundary bond, still follows every kick, and
+    z_q of a local bit commutes with the global kicks.
 
     Same semantics as ``make_sharded_autocorr_forward``: fn(angles, hs,
     phis, uniforms (n, T*K, L) or None, n_traj=None) -> A (T,). Requires
@@ -835,9 +900,6 @@ def make_sharded_autocorr_forward_general(mesh, *, L, T, K, p, q,
     reaches the global diagonal."""
     _check_device(device, p)
     local_bits = _kernel_geometry(mesh, L, q)
-    forward_apply = (cycle_hi.general_hi_cycle_forward_apply
-                     if use_hi(local_bits)
-                     else cycle.general_cycle_forward_apply)
     width = general_hi_width(local_bits)
     k_bits = L - local_bits
     af = _ancilla(p, ancilla_factor)
@@ -883,24 +945,23 @@ def make_sharded_autocorr_forward_general(mesh, *, L, T, K, p, q,
             rows = rows.reshape(c, T, K, -1).transpose(0, 1).contiguous()
             shards = _basis_shards(mesh, t, c, L, local_bits, b0,
                                    torch.complex64)
+            # A(0) is analytic: the T - 1 cycles after it
+            ph = (phis if device is None
+                  else phi_fin[:, :T - 1].transpose(0, 1)[:, None])
+            th = _global_angles(shards, zm_fin[:, :T - 1],
+                                csum_fin[:, :T - 1], hs, ph, **gkw)
+            run = _general_cycles(shards, rows[:T - 1], th,
+                                  local_bits=local_bits, K=K)
             frames = []
-            for tt in range(T - 1):  # A(0) is analytic
-                parts = []
-                for st in shards:
-                    _, part = forward_apply(st, rows[tt].to(st.device),
-                                            L=local_bits, K=K, q=q)
-                    parts.append(part)
+            for tt in range(T - 1):
                 if k_bits:
                     for k in range(K):
                         shards = _global_general_slot_kick(
                             mesh, shards, host[tt][k][0], host[tt][k][1],
                             sig_b[:, tt, k], zm_prev[:, tt, k],
                             local_bits=local_bits)
-                    ph_t = phis if device is None else phi_fin[:, tt]
-                    shards = [_global_diag(st, zm_fin[:, tt], csum_fin[:, tt],
-                                           hs, ph_t, a, **gkw)
-                              for a, st in enumerate(shards)]
-                frames.append(mesh.psum(parts).to(dev0))
+                frames.append(mesh.psum([run(tt, a, st, q) for a, st in
+                                         enumerate(shards)]).to(dev0))
             a_traj = torch.full((c, T), af, dtype=torch.float32, device=dev0)
             if T > 1:  # no sigma sign: q is a lab-frame local bit
                 a_traj[:, 1:] = af * s0 * torch.stack(frames, 1)
@@ -914,15 +975,20 @@ def make_sharded_autocorr_forward_general(mesh, *, L, T, K, p, q,
 def make_sharded_echo_general(mesh, *, L, T, K, p, q, initial_state="vacuum",
                               ancilla_factor=None, device=None):
     """Lab-frame cycle-kernel sharded echo A0(t) for every drive: forward
-    steps are the forward engine's cycle (one K8c, or K10a shard-local,
-    launch per shard, the sigma-conjugated global slot kicks, the global
-    diagonal); inverse steps
-    have no conjugation trick (Y slots are not symmetric): the daggered
-    global diagonal (at the step's pre-event sigma with the previous
-    event's Z word, zeroed at the turnaround), the daggered global slot
-    kicks in reversed slot order, then one K8d (K10b shard-local) launch
-    per shard with K4's echo rows of the inverse step (daggered slot
-    unitaries in reversed order, the D0^dag lead on the first slot).
+    steps are the forward engine's cycle (the sigma-conjugated global slot
+    kicks, then one K8c, or K10a shard-local, launch per shard with the
+    global diagonal); inverse steps have no conjugation trick (Y slots are
+    not symmetric): one K8d (K10b shard-local) launch per shard with K4's
+    echo rows of the inverse step (daggered slot unitaries in reversed
+    order, the D0^dag lead on the first slot), led by the daggered global
+    diagonal (at the step's pre-event sigma with the previous event's Z
+    word, zeroed at the turnaround), then the daggered global slot kicks in
+    reversed slot order. The global diagonal rides in K10a's and K10b's
+    folded rows, or is a torch pass after K8c and before K8d
+    (``_general_cycles``); the angles of every step and shard come from one
+    ``_tail_phase_angles`` call. The order is exact for the reason the
+    forward engine gives: the global diagonal still comes before every
+    kick of an inverse step.
 
     Same semantics as ``make_sharded_echo``: fn(angles, hs, phis, uniforms
     (n, 2T, K, L) or None, t_value, n_traj=None) -> scalar. Requires
@@ -933,11 +999,6 @@ def make_sharded_echo_general(mesh, *, L, T, K, p, q, initial_state="vacuum",
     the D0^dag negation (so it is not negated again)."""
     _check_device(device, p)
     local_bits = _kernel_geometry(mesh, L, q)
-    forward_apply, inverse_apply = (
-        (cycle_hi.general_hi_cycle_forward_apply,
-         cycle_hi.general_hi_cycle_inverse_apply) if use_hi(local_bits)
-        else (cycle.general_cycle_forward_apply,
-              cycle.general_cycle_inverse_apply))
     width = general_hi_width(local_bits)
     k_bits = L - local_bits
     af = _ancilla(p, ancilla_factor)
@@ -1003,46 +1064,51 @@ def make_sharded_echo_general(mesh, *, L, T, K, p, q, initial_state="vacuum",
             tiles = tiles.reshape(c, T2, K, 2, -1).transpose(0, 1).contiguous()
             shards = _basis_shards(mesh, t, c, L, local_bits, b0,
                                    torch.complex64)
-            for k in range(2 * t_value):
-                if k < t_value:
-                    for st in shards:
-                        forward_apply(st, rows_f[k].to(st.device),
-                                      L=local_bits, K=K, q=q)
-                    if k_bits:
-                        # slot 0 folds no Z word: the previous step's final
-                        # event is in that step's global diagonal
-                        for j in range(K):
-                            shards = _global_general_slot_kick(
-                                mesh, shards, host[k][j][0], host[k][j][1],
-                                sig_b[:, k, j],
-                                zero if j == 0 else zm_prev[:, k, j],
-                                local_bits=local_bits)
-                        hk, pk = ((hs, phis) if device is None
-                                  else (post_h[:, k], post_phi[:, k]))
-                        shards = [_global_diag(st, zm_fin[:, k],
-                                               csum_fin[:, k], hk, pk, a,
-                                               **gkw)
-                                  for a, st in enumerate(shards)]
-                    continue
+            # the forward steps [0, t) and the inverse steps [t, 2t)
+            f, i = slice(0, t_value), slice(t_value, 2 * t_value)
+            if device is None:
+                hk, pk = hs, phis
+            else:
+                hk, pk = (torch.cat([post[:, f], pre[:, i]], 1).transpose(
+                    0, 1)[:, None] for post, pre in ((post_h, pre_h),
+                                                     (post_phi, pre_phi)))
+            th = _global_angles(
+                shards, torch.cat([zm_fin[:, f], zm_prev[:, i, 0] & gmask], 1),
+                torch.cat([csum_fin[:, f], sig_b[:, i, 0] & gmask], 1), hk,
+                pk, **gkw)
+            th_f = th_i = None
+            if th is not None:
+                # device rows carry the D0^dag negation themselves
+                sign = -1.0 if device is None else 1.0
+                th_f = tuple(x[f] for x in th)
+                th_i = tuple(sign * x[t_value:] for x in th)
+            fwd = _general_cycles(shards, rows_f[f], th_f,
+                                  local_bits=local_bits, K=K)
+            inv = _general_cycles(shards, tiles[i], th_i,
+                                  local_bits=local_bits, K=K, inverse=True)
+            for k in range(t_value):
+                if k_bits:
+                    # slot 0 folds no Z word: the previous step's final
+                    # event is in that step's global diagonal
+                    for j in range(K):
+                        shards = _global_general_slot_kick(
+                            mesh, shards, host[k][j][0], host[k][j][1],
+                            sig_b[:, k, j],
+                            zero if j == 0 else zm_prev[:, k, j],
+                            local_bits=local_bits)
+                for a, st in enumerate(shards):
+                    fwd(k, a, st, q)
+            for k in range(t_value, 2 * t_value):
+                for a, st in enumerate(shards):
+                    inv(k - t_value, a, st)
                 if k_bits:
                     ci = min(max(2 * t_value - 1 - k, 0), T - 1)
-                    # device rows carry the D0^dag negation themselves
-                    head, hk, pk = ((_global_diag_inv, hs, phis)
-                                    if device is None else
-                                    (_global_diag, pre_h[:, k],
-                                     pre_phi[:, k]))
-                    shards = [head(st, zm_prev[:, k, 0] & gmask,
-                                   sig_b[:, k, 0] & gmask, hk, pk, a, **gkw)
-                              for a, st in enumerate(shards)]
                     for j in range(K):
                         shards = _global_general_slot_kick(
                             mesh, shards, host[ci][K - 1 - j][0],
                             host[ci][K - 1 - j][1], sig_b[:, k, j],
                             zero if j == 0 else zm_prev[:, k, j],
                             local_bits=local_bits, dagger=True)
-                for st in shards:
-                    inverse_apply(st, tiles[k].to(st.device), L=local_bits,
-                                  K=K)
             part = _measure(mesh, shards, q, local_bits).to(dev0)
             # q is a lab-frame local bit: no sigma measurement sign
             total = total + (af * s0 * part).sum()

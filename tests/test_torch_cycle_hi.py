@@ -4,9 +4,11 @@ kernels (``dtc_tpu/ops/pallas_cycle_hi.py``,
 ``dtc_tpu/ops/pallas_cycle_hi_general.py``) in interpret mode, and against
 the port's own K8 plain versions (``ops/cycle.py``) on the same rows.
 K9a/K9b take K8's folded row pairs (``cycle.fold_cycle_rows``) of the
-compact rows the reference's kernels get; folded with a shard's global
-angles they are held against the compact-row cycle with the engines'
-torch global diagonal (``parallel/sharded.py::_global_diag``).
+compact rows the reference's kernels get, K10's shard-local forms the slot
+rows the reference's kernels get and their folded diagonals
+(``cycle_hi.fold_general_rows``); folded with a shard's global angles they
+are held against the unfolded cycle with the engines' torch global
+diagonal (``parallel/sharded.py::_global_diag``, ``_global_diag_inv``).
 
 One cycle at L_loc = 22 (and 23 against K8) on random unit states: the
 reference's planar (n, 2, TOP, 16384) f32 state is the port's flat
@@ -38,8 +40,11 @@ from dtc_tpu_torch.core.sigma_evolve import presample_noise
 from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.ops import cycle
 from dtc_tpu_torch.ops import cycle_hi as ch
+from dtc_tpu_torch.ops import cycle_hi_general as chg
 from dtc_tpu_torch.ops import resident_blocked as rb
+from dtc_tpu_torch.ops import resident_general as rg
 from dtc_tpu_torch.ops import streamed as sm
+from dtc_tpu_torch.ops.echo_fold import fold_rows
 from dtc_tpu_torch.ops.kick import apply_uniform_1q_layer
 from dtc_tpu_torch.ops.params import (
     WIDE,
@@ -48,7 +53,6 @@ from dtc_tpu_torch.ops.params import (
     pack_cycle_params_compact,
 )
 from dtc_tpu_torch.ops.params_general import (
-    LANE_COUNT,
     LANE_MPOS,
     flag_base,
     general_echo_rows,
@@ -142,7 +146,8 @@ def test_k9b_matches_reference_interpret():
 def test_k10a_shard_local_matches_reference_interpret(pol, q):
     rows, _, K = _general(pol, 1)
     st, jst = _states(1, seed=7)
-    got, part = ch.general_hi_cycle_forward_apply(st, rows, L=L, K=K, q=q)
+    got, part = ch.general_hi_cycle_forward_apply(
+        st, rows, ch.fold_general_rows(rows, L), L=L, K=K, q=q)
     want, jpart = jhg.general_hi_cycle_forward_apply(
         jst, jnp.asarray(rows.numpy()), L=L, K=K, q=q, interpret=True)
     assert float((got - _flat(want)).abs().max()) < TOL_AMP
@@ -153,7 +158,8 @@ def test_k10a_shard_local_matches_reference_interpret(pol, q):
 def test_k10b_shard_local_matches_reference_interpret(pol):
     _, tiles, K = _general(pol, 1)
     st, jst = _states(1, seed=8)
-    got = ch.general_hi_cycle_inverse_apply(st, tiles, L=L, K=K)
+    got = ch.general_hi_cycle_inverse_apply(
+        st, tiles, ch.fold_general_rows(tiles, L, inverse=True), L=L, K=K)
     want = jhg.general_hi_cycle_inverse_apply(
         jst, jnp.asarray(tiles.numpy()), L=L, K=K, interpret=True)
     assert float((got - _flat(want)).abs().max()) < TOL_AMP
@@ -164,9 +170,10 @@ def test_k10b_shard_local_matches_reference_interpret(pol):
                                   "general_inverse"])
 def test_plain_matches_k8_plain(kind, Lr):
     """On the rows both take (L_loc = 22, 23: K8a/K8b and K9a/K9b the same
-    folded row pairs, K10's shard-local forms and K8c/K8d 128-lane rows)
-    the streamed family's plain versions equal K8's, with the angle tables
-    that K8's plain versions build."""
+    folded row pairs, K10's shard-local forms and K8c/K8d the same 128-lane
+    slot rows, K10's also their folded diagonals) the streamed family's
+    plain versions equal K8's, with the angle tables that K8's plain
+    versions build."""
     n, q = 1, Lr - 6
     st, _ = _states(n, seed=Lr, Lr=Lr)
     a, b = st.clone(), st.clone()
@@ -182,11 +189,14 @@ def test_plain_matches_k8_plain(kind, Lr):
         pa = pb = torch.zeros(n)
     elif kind == "general_forward":
         rows, _, K = _general("circular_left", n, seed=Lr, Lr=Lr)
-        _, pa = ch.general_hi_cycle_forward_apply(a, rows, L=Lr, K=K, q=q)
+        _, pa = ch.general_hi_cycle_forward_apply(
+            a, rows, ch.fold_general_rows(rows, Lr), L=Lr, K=K, q=q)
         _, pb = cycle.general_cycle_forward_apply(b, rows, L=Lr, K=K, q=q)
     else:
         _, tiles, K = _general("xy", n, seed=Lr, Lr=Lr)
-        ch.general_hi_cycle_inverse_apply(a, tiles, L=Lr, K=K)
+        ch.general_hi_cycle_inverse_apply(
+            a, tiles, ch.fold_general_rows(tiles, Lr, inverse=True), L=Lr,
+            K=K)
         cycle.general_cycle_inverse_apply(b, tiles, L=Lr, K=K)
         pa = pb = torch.zeros(n)
     assert float((a - b).abs().max()) < TOL_AMP
@@ -288,17 +298,39 @@ def test_wide_general_rows_bit_identical():
                              K=K, p=0.0, batch=(1,), width=WIDE)
     torch.testing.assert_close(wide[..., :128], narrow, atol=0, rtol=0)
     assert not wide[..., 128:].any()
+    # K10's folded diagonals read the data lanes only: the same at either
+    # width, and at L_loc = 30 row k + 1 is slot k's lab-frame diagonal
+    pairs = (wide.reshape(1, 2 * T, K, 2, WIDE),
+             narrow.reshape(1, 2 * T, K, 2, 128))
+    for inverse in (False, True):
+        fw, fn = (ch.fold_general_rows(x if inverse else x[..., 0, :], 29,
+                                       inverse=inverse) for x in pairs)
+        torch.testing.assert_close(fw, fn, atol=0, rtol=0)
+    fold = ch.fold_general_rows(got.reshape(T, K, WIDE), Lr)
+    assert fold.shape == (T, K + 1, 2 * Lr) and not fold[:, 0].any()
+    cz, cb, c0 = rg.row_coeffs(got.reshape(T, K, WIDE).double(), Lr)
+    want = torch.cat([cz, cb, c0[..., None]], -1).float()
+    torch.testing.assert_close(fold[:, 1:], want, atol=0, rtol=0)
 
 
 def test_flag_lanes_of_the_wrappers():
     """What K10's CUDA entries are handed: K10a's MPOS only on the final
-    slot; K10b's COUNT one past its K steps, at 256 lanes at L_loc = 30."""
+    slot; K10b's slot pairs need no flag lane (every step runs), and its
+    folded rows are ``echo_fold.fold_rows`` with COUNT = K: row 0 the first
+    pre diagonal, row k + 1 post(k) + pre(k + 1), row K the last post, at
+    256 lanes at L_loc = 30."""
     rows = torch.zeros((2, 3, WIDE))
     rows = ch.measured_rows(rows, 30, 3)
     assert rows[:, :, flag_base(30) + LANE_MPOS].tolist() == [[-1, -1, 0]] * 2
-    tiles = ch.counted_tiles(torch.zeros((2, 3, 2, WIDE)), 30, 3)
-    assert tiles.shape == (2, 6, WIDE)
-    assert (tiles[:, 0, flag_base(30) + LANE_COUNT] == 4).all()
+    _, tiles, K = _general("xy", 2, seed=3)
+    fold = ch.fold_general_rows(tiles, L, inverse=True)
+    assert fold.shape == (2, K + 1, 2 * L)
+    want = fold_rows(tiles.reshape(2, 2 * K, -1), torch.full((2,), K), L,
+                     rg.row_coeffs)
+    torch.testing.assert_close(fold, want, atol=0, rtol=0)
+    fold = ch.fold_general_rows(torch.zeros((2, 3, 2, WIDE)), 30,
+                                inverse=True)
+    assert fold.shape == (2, 4, 60) and not fold.any()
 
 
 def test_range_checks_and_cpu_route():
@@ -309,13 +341,14 @@ def test_range_checks_and_cpu_route():
                                   q=3)
     with pytest.raises(ValueError, match="22 <= L_loc <= 30"):
         ch.general_hi_cycle_inverse_apply(st, torch.zeros(1, 1, 2, 256),
-                                          L=31, K=1)
+                                          torch.zeros(1, 2, 62), L=31, K=1)
     st, _ = _states(1)
     with pytest.raises(ValueError, match="shard-local probe"):
         ch.hi_cycle_forward_apply(st, torch.zeros(1, 2, 2 * L), THETA, L=L,
                                   q=L)
     with pytest.raises(ValueError, match="shard-local probe"):
-        ch.general_hi_cycle_forward_apply(st, torch.zeros(1, 1, 128), L=L,
+        ch.general_hi_cycle_forward_apply(st, torch.zeros(1, 1, 128),
+                                          torch.zeros(1, 2, 2 * L), L=L,
                                           K=1, q=22)
     with pytest.raises(ValueError, match="rows must be"):
         ch.hi_cycle_inverse_apply(st, torch.zeros(1, 128), THETA, L=L)
@@ -323,8 +356,13 @@ def test_range_checks_and_cpu_route():
         ch.hi_cycle_forward_apply(st, torch.zeros(1, 2, 2 * L - 2), THETA,
                                   L=L, q=3)
     with pytest.raises(ValueError, match="rows must be"):
-        ch.general_hi_cycle_inverse_apply(st, torch.zeros(1, 2, 128), L=L,
+        ch.general_hi_cycle_inverse_apply(st, torch.zeros(1, 2, 128),
+                                          torch.zeros(1, 3, 2 * L), L=L,
                                           K=2)
+    with pytest.raises(ValueError, match="rows must be"):
+        ch.general_hi_cycle_forward_apply(st, torch.zeros(1, 2, 128),
+                                          torch.zeros(1, 2, 2 * L), L=L,
+                                          K=2, q=3)
     ch.hi_cycle_inverse_apply(st, torch.zeros(1, 2, 2 * L), THETA, L=L)
     assert not any(ch.LAUNCHES.values())
     assert not any(ch.PLAIN_ON_CUDA.values())
@@ -394,3 +432,71 @@ def test_no_measure_forward_runs_the_same_cycle():
     b, _ = ch.hi_cycle_forward_apply(st.clone(), fold, THETA, L=L, q=3)
     assert part is None
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("mode", ["depolarizing", "device"])
+@pytest.mark.parametrize("pol", ["y", "xy"])
+@pytest.mark.parametrize("n_amp", [2, 4])
+def test_folded_global_diagonal_matches_the_torch_phase_general(
+        n_amp, pol, mode, inverse):
+    """On every shard at L_loc = 22, the plain K10a on slot rows folded with
+    the shard's global angles (``fold_general_rows``) equals the slot
+    cycle (each slot's kick, then its row's diagonal) followed by
+    ``_global_diag``; the plain K10b equals the daggered global diagonal,
+    then the daggered cycle (per slot the pre diagonal, the kick, the post
+    diagonal). The daggered global diagonal is ``_global_diag_inv`` under
+    depolarizing noise and ``_global_diag`` on per-trajectory rows in device
+    mode, whose pre rows carry the negation (the engines' sign
+    conventions). The forward's partial is the same: the global diagonal
+    is a phase."""
+    n, q = 2, L - 1
+    Lg = L + n_amp.bit_length() - 1
+    rows, tiles, K = _general(pol, n, seed=L + n_amp)
+    hs, phis = _disorder(Lg)
+    gen = torch.Generator().manual_seed(Lg)
+    if mode == "device":  # per-trajectory rows, as the device rows give
+        hs = hs + torch.rand((n, Lg), generator=gen, dtype=torch.float64)
+        phis = phis + torch.rand((n, Lg - 1), generator=gen,
+                                 dtype=torch.float64)
+    zm, sig = (torch.randint(0, 1 << Lg, (n,), generator=gen)
+               & ~((1 << L) - 1) for _ in range(2))
+    th_sc, th_bnd = sh._tail_phase_angles(
+        zm[None], sig[None], hs, phis, torch.arange(n_amp)[:, None], L=Lg,
+        local_bits=L)                                           # (A, n)
+    sign = -1.0 if inverse and mode == "depolarizing" else 1.0
+    fold = ch.fold_general_rows(tiles if inverse else rows, L, sign * th_sc,
+                                sign * th_bnd, inverse=inverse)
+    assert fold.shape == (n_amp, n, K + 1, 2 * L)
+    gkw = dict(L=Lg, local_bits=L)
+    for a in range(n_amp):
+        st = torch.randn((n, 1 << L), dtype=torch.complex64, generator=gen)
+        st /= st.abs().pow(2).sum(-1, keepdim=True).sqrt()
+        want = st.clone()
+        if inverse:
+            head = (sh._global_diag_inv if mode == "depolarizing"
+                    else sh._global_diag)
+            head(want, zm, sig, hs, phis, a, **gkw)
+            for i in range(n):
+                w = want[i]
+                for j in range(K):
+                    pre, post = tiles[i, j, 0], tiles[i, j, 1]
+                    w = chg._lab_phase(
+                        chg._kick_one(chg._lab_phase(w, pre, L), pre, L),
+                        post, L)
+                want[i] = w
+            got = ch.general_hi_cycle_inverse_apply(st, tiles, fold[a], L=L,
+                                                    K=K)
+        else:
+            for i in range(n):
+                w = want[i]
+                for j in range(K):
+                    w = chg._lab_phase(chg._kick_one(w, rows[i, j], L),
+                                       rows[i, j], L)
+                want[i] = w
+            sh._global_diag(want, zm, sig, hs, phis, a, **gkw)
+            got, part = ch.general_hi_cycle_forward_apply(st, rows, fold[a],
+                                                          L=L, K=K, q=q)
+            wpart = torch.stack([sm.measure_z(w, q, L) for w in want])
+            torch.testing.assert_close(part, wpart, atol=TOL_SUM, rtol=0)
+        assert float((got - want).abs().max()) < TOL_AMP

@@ -15,6 +15,17 @@ kernel's range (its range check is lowered for the test; its arithmetic
 does not depend on L), and against JAX's interpret K4 forward, the same
 lab-frame math, at L=14 (1e-4, the bound of ``test_torch_resident.py``).
 
+K10's shard-local forms (``ops/cycle_hi.py``: one lab-frame cycle on a
+shard's local bits) run the same passes for the K slots of a cycle from the
+shard states as they are: K10a's slot k is the kick of slot row k, pass by
+pass, then row k + 1 of ``fold_general_rows`` as pass hi stores (the final
+slot's row also carrying the shard's global angles); K10b first applies
+fold row 0 (the first pre diagonal and the shard's daggered global
+diagonal) in pass lo before its first kick, then per slot the kick of the
+pre row and row k + 1. That loop is held against the plain versions on
+rows folded with random global angles (1e-5 on amplitudes and partials,
+both plans, L = 14, 15, the range check lowered as above).
+
 The x forward's step k is RX(theta) on the bits of pass lo, mid and hi,
 then row k + 1 of ``forward_fold`` with the sigma-frame coefficients
 (``ops/resident_blocked.py::row_coeffs``) as pass hi stores, measured into
@@ -40,6 +51,7 @@ from dtc_tpu.ops.pallas_resident_general import (
 )
 from dtc_tpu_torch.core.statevector import basis_index
 from dtc_tpu_torch.models.drives import build_kick_schedule
+from dtc_tpu_torch.ops import cycle_hi as ch
 from dtc_tpu_torch.ops import cycle_hi_general as chg
 from dtc_tpu_torch.ops import resident_blocked as rb
 from dtc_tpu_torch.ops import resident_general as rg
@@ -50,6 +62,7 @@ from dtc_tpu_torch.ops.params_general import (
     LANE_MPOS,
     LANE_U8,
     flag_base,
+    general_echo_rows,
     general_forward_rows,
 )
 
@@ -185,6 +198,78 @@ def test_step_pass_order_matches_reference_interpret(drive):
     got = _step_pass_loop(rows, L, q, "vacuum", 3).numpy()
     assert got.shape == ref.shape == (1, 2, T)
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+# --- K10's shard-local forms: one cycle on a shard's local bits
+
+
+def _cycle_rows(drive, L, n=2, seed=17):
+    """(forward slot rows (n, K, 128) of cycle 1, inverse slot pairs
+    (n, K, 2, 128) of echo step 1 at t=1, K, global angles (th_sc, th_bnd)
+    (n,) each uniform in [-pi, pi)) of a p=0.3 run of ``drive``."""
+    hs, phis = _disorder(L)
+    angles = build_kick_schedule(drive, 0.97, 2, xy_cycle_period=1).angles
+    K = angles.shape[1]
+    rng = np.random.default_rng(seed)
+    u = torch.from_numpy(rng.random((n, 4 * K, L), dtype=np.float32))
+    h, ph = torch.from_numpy(hs[0]), torch.from_numpy(phis[0])
+    rows = general_forward_rows(u[:, :2 * K], h, ph, angles, L=L, T=2, K=K,
+                                p=0.3)
+    tiles = general_echo_rows(u, [1], h, ph, angles, L=L, T=2, K=K, p=0.3)
+    th = torch.from_numpy(rng.uniform(-np.pi, np.pi, (2, n)))
+    return (rows.reshape(n, 2, K, -1)[:, 1],
+            tiles.reshape(n, 4, K, 2, -1)[:, 1], K, th)
+
+
+def _cycle_pass_loop(state, slots, fold, L, passes, inverse):
+    """One shard-local K10 cycle in the step passes' order: K10b's fold row
+    0 before its first kick (pass lo); per slot k the kick of its row (the
+    pre row of K10b's pair) on pass lo's, mid's and hi's bits, then fold
+    row k + 1 as pass hi stores."""
+    a, b = _plan(L, passes)
+    table = rb.angle_table(L, state.device)
+
+    def diag(st, f):
+        theta = f[:, -1:] + f[:, :-1] @ table
+        return st * torch.polar(torch.ones_like(theta), theta)
+
+    if inverse:
+        state = diag(state, fold[:, 0])
+    for k in range(slots.shape[1]):
+        row = slots[:, k, 0] if inverse else slots[:, k]
+        for lo, hi in ((0, a), (a, a + b), (a + b, L)):
+            state = _kick_bits(state, row, L, lo, hi)
+        state = diag(state, fold[:, k + 1])
+    return state
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("passes", [2, 3])
+@pytest.mark.parametrize("L", [14, 15])
+@pytest.mark.parametrize("drive", ["y", "xy", "circular_left"])
+def test_cycle_step_pass_order_matches_plain(drive, L, passes, inverse,
+                                             monkeypatch):
+    monkeypatch.setattr(ch, "MIN_L", 14)
+    rows, tiles, K, th = _cycle_rows(drive, L)
+    slots = tiles if inverse else rows
+    fold = ch.fold_general_rows(slots, L, *th, inverse=inverse)
+    rng = np.random.default_rng(L)
+    s = rng.standard_normal((2, 2, 1 << L)).astype(np.float32)
+    s /= np.sqrt((s ** 2).sum(axis=(1, 2), keepdims=True))
+    st = torch.complex(torch.from_numpy(s[:, 0]), torch.from_numpy(s[:, 1]))
+    got = _cycle_pass_loop(st, slots, fold, L, passes, inverse)
+    if inverse:
+        want = ch.general_hi_cycle_inverse_apply_ref(st.clone(), tiles, fold,
+                                                     L=L, K=K)
+    else:
+        table = rb.angle_table(L, st.device)
+        for q in (0, L // 2, L - 1):
+            want, part = ch.general_hi_cycle_forward_apply_ref(
+                st.clone(), rows, fold, L=L, K=K, q=q)
+            np.testing.assert_allclose(part.numpy(),
+                                       ((got.abs() ** 2) @ table[q]).numpy(),
+                                       atol=1e-5, rtol=0)
+    assert float((got - want).abs().max()) < 1e-5
 
 
 # --- the sigma-frame x forward (K6a/K7a)

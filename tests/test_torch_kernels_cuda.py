@@ -944,12 +944,12 @@ def test_cycle_wrappers_reject_bad_inputs(cuda_device):
                                  (30, 29)])
 def test_cycle_hi_kernels_match_plain_on_card(cuda_device, L, q):
     """K9a/K9b and K10a/K10b shard-local on one cycle of random unit states,
-    noisy rows (p=0.6; K9a/K9b on folded rows with non-zero global angles,
-    a shard's th_sc, th_bnd, uniform in [-pi, pi), K9a also without a
-    measure; lab-frame rows 256 lanes at 30): the state and the partial
-    against the plain versions on the same inputs, within _unit_tol(L); the
-    forwards' partials again from the neel state, where they are O(1),
-    within 1e-4. L_loc = 25 is the first three-pass plan (16-column tiles).
+    noisy rows (p=0.6; every kernel on folded rows with non-zero global
+    angles, a shard's th_sc, th_bnd, uniform in [-pi, pi), K9a also
+    without a measure; lab-frame rows 256 lanes at 30): the state and the
+    partial against the plain versions on the same inputs, within
+    _unit_tol(L); the forwards' partials again from the neel state, where
+    they are O(1), within 1e-4. L_loc = 25 is the first three-pass plan (16-column tiles).
     One state at L_loc = 30 (8 GiB: offsets past 2^31 elements), two
     below."""
     n = 1 if L == 30 else 2
@@ -994,13 +994,16 @@ def test_cycle_hi_kernels_match_plain_on_card(cuda_device, L, q):
     w = general_hi_width(L)
     grows = _general_inputs(cuda_device, L, "circular_left", 2, n, L, p=0.6,
                             width=w)[0].reshape(n, 2, 2, w)[:, 1]
+    grows = grows.contiguous()
     held(ch.general_hi_cycle_forward_apply,
-         ch.general_hi_cycle_forward_apply_ref, grows.contiguous(), L=L,
-         K=2, q=q)
+         ch.general_hi_cycle_forward_apply_ref, grows,
+         ch.fold_general_rows(grows, L, *th), L=L, K=2, q=q)
     tiles = _general_inputs(cuda_device, L, "xy", 2, n, L + 1, ts=[1], p=0.6,
                             width=w)[0].reshape(n, 4, 2, 2, w)[:, 1]
+    tiles = tiles.contiguous()
     held(ch.general_hi_cycle_inverse_apply,
-         ch.general_hi_cycle_inverse_apply_ref, tiles.contiguous(), L=L, K=2)
+         ch.general_hi_cycle_inverse_apply_ref, tiles,
+         ch.fold_general_rows(tiles, L, *th, inverse=True), L=L, K=2)
     assert {k: ch.LAUNCHES[k] - launches[k] for k in launches} == {
         "forward": 3, "inverse": 1, "general_forward": 2,
         "general_inverse": 1}
@@ -1064,10 +1067,59 @@ def test_cycle_hi_wrappers_reject_bad_inputs(cuda_device):
                                               dtype=torch.complex64,
                                               device=cuda_device), rows,
                                   THETA, L=21)
+    fold = torch.zeros((1, 3, 44), device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         ch.general_hi_cycle_forward_apply(
             st, torch.zeros((1, 128, 2), device=cuda_device).transpose(1, 2),
-            L=22, K=2, q=3)
+            fold, L=22, K=2, q=3)
+    tiles = torch.zeros((1, 2, 2, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="fold must be a CUDA tensor"):
+        ch.general_hi_cycle_inverse_apply(st, tiles, fold.cpu(), L=22, K=2)
+    with pytest.raises(ValueError, match="rows must be"):
+        ch.general_hi_cycle_inverse_apply(st, tiles, fold[:, :2], L=22, K=2)
+    with pytest.raises(ValueError, match="float32"):
+        ch.general_hi_cycle_inverse_apply(st, tiles, fold.double(), L=22,
+                                          K=2)
+
+
+@pytest.mark.cuda
+def test_cycle_hi_general_entries_check_their_range(cuda_device):
+    """K10's shard-local C entries return cudaErrorInvalidValue (1) without
+    a launch outside their range: L_loc outside 22..30, q outside
+    [0, L_loc), a row width other than ``general_hi_width(L_loc)`` (128
+    below 30, 256 at 30), K < 1; in range they launch (0)."""
+    from dtc_tpu_torch.ops import _build
+
+    lib = _build.load(ch.LIBRARY_GENERAL)
+    L, K, dev = 22, 2, cuda_device
+    state = torch.zeros((1, 1 << L), dtype=torch.complex64, device=dev)
+    rows = torch.zeros((1, 2 * K, 256), device=dev)
+    fold = torch.zeros((1, K + 1, 60), device=dev)
+    partials = torch.zeros((1, lib.floquet_general_streamed_partials(L)),
+                           device=dev)
+    out = torch.full((1,), 7.0, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def forward(L=L, width=128, K=K, q=0):
+        return lib.floquet_cycle_hi_general_forward(
+            state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), 1, L, width, K, q, stream)
+
+    def inverse(L=L, width=128, K=K):
+        return lib.floquet_cycle_hi_general_inverse(
+            state.data_ptr(), rows.data_ptr(), fold.data_ptr(), 1, L, width,
+            K, stream)
+
+    for bad in (dict(L=21), dict(L=31), dict(q=L), dict(q=-1),
+                dict(width=192), dict(width=256), dict(L=30, width=128),
+                dict(K=0)):
+        assert forward(**bad) == 1, bad
+        if "q" not in bad:
+            assert inverse(**bad) == 1, bad
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full_like(out, 7.0))  # nothing ran
+    assert forward() == 0 and inverse() == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -192,8 +192,9 @@ def _header(name) -> str:
 
 # The C that the replay below mirrors, whitespace made single: the pass
 # plans (``lo_bits`` for the resident echoes, ``plan_for`` for the streamed
-# ones, and the columns each entry's ``run_echo`` or ``run_steps`` takes: the
-# streamed lab-frame forward runs the echo's plan), the tile and bits
+# ones, and the columns each entry's ``run_echo``, ``run_steps`` or
+# ``launch_steps`` takes: the streamed lab-frame forward and K10's
+# shard-local forms run the echo's plan), the tile and bits
 # each pass hands ``swz_kick`` (K5's measuring passes, ``obs_lo`` and
 # ``obs_hi``, the same), and ``swz_kick``'s rounds. A change to any of
 # it fails ``test_echo_swizzle_replay_mirrors_the_headers`` until the replay
@@ -216,11 +217,16 @@ MIRRORED = {
         "XEcho<ForwardWideRows, ConstKick>, Times>;",
         "(float2*)state, L, p.a, p.b,"],
     "floquet_general_streamed.cu": [
-        "const auto run = p.b > 0 ? run_echo<kWideCols, GeneralEcho<PairRows>>"
-        " : run_echo<kW, GeneralEcho<PairRows>>;",
-        "? run_steps<kWideCols, GeneralEcho<ForwardRows>, Times> : "
-        "run_steps<kW, GeneralEcho<ForwardRows>, Times>;",
-        "(float2*)state, L, p.a, p.b,"],
+        "using Forward = GeneralEcho<ForwardRows<kRowWidth>>; "
+        "using Echo = GeneralEcho<PairRows<kRowWidth>>;",
+        "const auto run = p.b > 0 ? run_echo<kWideCols, Echo> : "
+        "run_echo<kW, Echo>;",
+        "const auto run = p.b > 0 ? run_steps<kWideCols, Forward, Times> : "
+        "run_steps<kW, Forward, Times>;",
+        "(float2*)state, L, p.a, p.b,",
+        "const Plan p = plan_for(L); if (p.b > 0) { return "
+        "launch_steps<kWideCols, P, M>(st, L, p.a, p.b, rows,",
+        "return launch_steps<kW, P, M>(st, L, p.a, p.b, rows,"],
     "floquet_echo.cuh": [
         "const int k0 = a + b; const int c = L - k0;",
         "swz_kick(tile, k1, 0, k1, kick, in, out);",
