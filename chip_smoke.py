@@ -10,7 +10,9 @@ each; any failure raises and the script exits non-zero without a result:
    e_diag <= 1e-4 * (sum|th| + sum|tph|), x_sum <= 1e-4 * L; from a random
    unit state of 2^L amplitudes 1e-3 * 2^(-L/2), one part in 10^3 of a
    typical amplitude, on the state and the partial): small shapes
-   across each kernel's range, then the main paths' own shapes (K1 on 2
+   across each kernel's range (K1 also at L=17, 20, 23 with probes in the
+   bits of pass lo and of pass hi, at T=1 and T=57; K3a the same at L=14,
+   16, 21, constant and ramp), then the main paths' own shapes (K1 on 2
    instances x 32 trajectories at T=50; K2 on the echo sweep's last two
    chunks; K4 forward on 32 trajectories of the xy drive at T=50; K4 echo
    on the xy echo sweep's last two chunks; K5 on 32 trajectories of the x
@@ -119,11 +121,14 @@ each; any failure raises and the script exits non-zero without a result:
    engine on the same draws (forward, echo at t=1..3) within 2.7e-4;
 5. timing: the bench shape (``dtc_tpu_torch/bench.py::run_case``) and every
    kernel against its plain version on identical inputs, whose outputs are
-   held to the same bound (the streamed family: forward at L=24, 26, 28 and
-   30, echo at L=28 and 30, with the plain version's peak device memory,
-   and against K1 on the same L=23 rows; before them the registers and
-   spills of the forward's passes and one L=30 forward launch at T=1024
-   with its peak device memory, its first cycles held to a T=6 launch;
+   held to the same bound (K1 after the registers and spills of every
+   kernel of ``floquet_x.cu`` and ``floquet_x_resident.cu``, with the time
+   of its folded rows; the streamed family: forward at L=24, 26, 28 and
+   30, echo at L=28 and 30, with the plain version's peak device memory;
+   before them the registers and spills of the forward's passes and one
+   L=30 forward launch at T=1024 with its peak device memory, its first
+   cycles held to a T=6 launch; then K1 beside it on the same L=22 and 23
+   rows;
    K5: x and xy at L=20, T=50 x 32, after the registers and spills of
    every kernel of ``floquet_general.cu``, then one L=23 launch at the most
    cycles one reduce chunk holds and one at one more, with their peak
@@ -146,7 +151,8 @@ each; any failure raises and the script exits non-zero without a result:
    16 B per amplitude and step) over 3.35 TB/s and its f32 operations over
    67 TFLOP/s (the H100 SXM's published peaks), and
    its state floor (16 B per amplitude per pass and step, 2 or 3 passes);
-   the entries on the step passes of ``floquet_echo.cuh`` (K2 and K4's
+   the entries on the step passes of ``floquet_echo.cuh`` (K1 at the bench
+   shape, K3a on the ramp at L=14, 16, 20; K2 and K4's
    echo on 512 x or xy pairs at ts=0..7, K3b on 32 pairs at t=12, L=20;
    the streamed x echo at L=28, ts=0..3, and L=30, t=5; the streamed
    lab-frame echo, y at L=28, ts=0..3, and circular_left at L=29, t=5; the
@@ -395,6 +401,18 @@ def compare_x(dev, err) -> None:
             rb.blocked_forward_batch_ref, (rows, sig, THETA),
             dict(L=L, q=L // 2, initial_state=state))
         err["K1"] = max(err["K1"], d)
+    # probes in pass lo's bits (0, a - 1) and pass hi's (a, L - 1) of the
+    # step passes' split a = L - L/2, at T = 1 (no cycle runs) and T = 57
+    for L in (17, 20, 23):
+        a = L - L // 2
+        for T, state in ((1, "neel"), (57, "vacuum")):
+            rows, sig = forward_inputs(L, T, 3, 0.1, dev, seed=L * T)
+            for q in (0, a - 1, a, L - 1):
+                d, _ = against_plain(
+                    f"K1 L={L} T={T} {state} q={q} 1x3",
+                    rb.blocked_forward_batch, rb.blocked_forward_batch_ref,
+                    (rows, sig, THETA), dict(L=L, q=q, initial_state=state))
+                err["K1"] = max(err["K1"], d)
     for L, q in ((17, 16), (20, 10), (23, 0)):
         for p in (0.6, 0.0):
             tiles, sig = echo_inputs(L, 4, 2, p, [1, 2, 3, 4], dev, seed=2)
@@ -740,6 +758,22 @@ def compare_resident(dev, err) -> None:
             if p == 0.0 and not float((k - 1).abs().max()) <= TOL:
                 raise RuntimeError(f"noiseless echo != 1: {k.tolist()}")
             err["K3 echo"] = max(err["K3 echo"], d)
+    # the forward at T = 1 (no cycle runs) and T = 57, constant and ramp,
+    # probes in pass lo's bits and pass hi's (split a = L - L/2)
+    for L in (14, 16, 21):
+        a = L - L // 2
+        for T, per_cycle in ((1, True), (57, False), (57, True)):
+            rows, sig = forward_inputs(L, T, 3, 0.1, dev, seed=L + T)
+            what = "ramp" if per_cycle else "constant"
+            for q, state in ((0, "neel"), (a - 1, "vacuum"), (a, "neel"),
+                             (L - 1, "vacuum")):
+                d, _ = against_plain(
+                    f"K3 forward L={L} {what} T={T} {state} q={q} 1x3",
+                    rs.resident_forward_batch, rs.resident_forward_batch_ref,
+                    (rows, sig, x_schedule(T, dev, per_cycle)),
+                    dict(L=L, q=q, initial_state=state,
+                         time_dependent=per_cycle))
+                err["K3 forward"] = max(err["K3 forward"], d)
     # the L=16 main path's shapes: the constant drive's forward on 2
     # instances x 32 trajectories through all 50 cycles, and every chunk of
     # its echo sweep (t_chunk=8: ts 0..7, ..., 48..49; trips up to 98)
@@ -2377,6 +2411,7 @@ def timing(dev, smi, err) -> dict:
     """Times of every kernel and its plain version at the main paths'
     shapes; the outputs are held to the same bound."""
     from dtc_tpu_torch.bench import run_case
+    from dtc_tpu_torch.ops import _build
     from dtc_tpu_torch.ops import resident_blocked as rb
     from dtc_tpu_torch.ops import resident_general as rg
 
@@ -2385,6 +2420,10 @@ def timing(dev, smi, err) -> dict:
     cps, dt = run_case(L=L, T=T, p=P, n_traj=c, device=dev)
     phase(f"[timing] bench shape L=20 T=50 traj=32 p=0.05 via run_case: "
           f"{cps:.1f} cycles/s ({dt * 1e3:.3f} ms/dispatch) on {smi}")
+    for name in ("floquet_x", "floquet_x_resident"):
+        for kernel, regs, st, ld in ptxas_kernels(name):
+            phase(f"[build] {name}.cu {kernel}: {regs} registers, spill "
+                  f"stores {st} B, spill loads {ld} B")
     out = {}
     rows, sig = forward_inputs(L, T, c, P, dev, seed=5)
     k_ms, p_ms, k, ref = timed_pair(
@@ -2393,9 +2432,15 @@ def timing(dev, smi, err) -> dict:
         3)
     err["K1"] = max(err["K1"], held("K1 L=20 T=50 1x32 (timed inputs)", k,
                                     ref))
-    out["K1"] = report("K1", "forward L=20 T=50 traj=32", k_ms, p_ms,
-                       c * (T - 1) * N, "cycles", T * c,
-                       4 * (rows.numel() + k.numel()), 6 * L + 6, smi)
+    what = "forward L=20 T=50 traj=32"
+    out["K1"] = report("K1", what, k_ms, p_ms, c * (T - 1) * N, "cycles",
+                       T * c, 4 * (rows.numel() + k.numel()), 6 * L + 6, smi)
+    shares("K1", what, out["K1"], 2 * (T - 1) + 3, smi)
+    blocks = _build.load("floquet_x").floquet_x_forward_partials(L)
+    fold_ms, _ = time_ms(lambda: rb.forward_scratch(
+        rows.view(c, T, rows.shape[-1]), L, blocks))
+    phase(f"[timing] K1 {what}: its folded rows and zeroed partials "
+          f"{fold_ms:.3f} ms of the {k_ms:.3f} ms call on {smi}")
     # the main path's first echo call: 2 instances x 32 trajectories x t=0..7
     tiles, sfin = echo_inputs(L, T, c, P, list(range(8)), dev, seed=6,
                               inst=2)
@@ -2590,16 +2635,14 @@ def timing_streamed(dev, smi, err) -> dict:
     and 30 (1 trajectory, T=6: the main path's launch) against its plain
     version on the same inputs, with the peak device memory of each
     kernel/plain pair, the launches a call and the shares of the state
-    floor and of the bound, and against K1 on the same L=23 rows (32
-    trajectories, T=20); before them the registers and spills of every
+    floor and of the bound; before them the registers and spills of every
     kernel of the library (the forward's passes are those of
-    ``XEcho<ForwardWideRows, ...>``), and one L=30
+    ``XEcho<ForwardRows, ...>``, K1's and K3a's reader), and one L=30
     launch at T = MAX_T_FORWARD (1024) with its peak device
     memory (the partials grow with T), its first cycles held to a T=6
     launch on the same rows. Returns the L=28 numbers; the echo's rows are
     ``timing_streamed_echo``'s."""
     from dtc_tpu_torch.ops import _build
-    from dtc_tpu_torch.ops import resident_blocked as rb
     from dtc_tpu_torch.ops import streamed as sm
 
     lib = _build.load("floquet_x_streamed")
@@ -2646,18 +2689,29 @@ def timing_streamed(dev, smi, err) -> dict:
             4 * (rows.numel() + k.numel()), 6 * L + 6, smi, passes=passes,
             spills=True)
         shares("K6", what, out[f"forward {L}"], passes * (T - 1) + 3, smi)
-    L, c, T = 23, 32, 20
-    rows, sig = forward_inputs(L, T, c, P, dev, seed=23)
-    kw = dict(L=L, q=L // 2)
-    s_ms, k1_ms, a, b = timed_pair(
-        lambda: sm.streamed_forward_batch(rows, sig, THETA, **kw),
-        lambda: rb.blocked_forward_batch(rows, sig, THETA, **kw), 3)
-    held(f"K6 forward vs K1 L=23 T={T} 1x{c} (timed inputs)", a, b)
-    phase(f"[timing] forward L=23 T={T} traj={c}, same rows: streamed family "
-          f"{s_ms:.3f} ms, K1 {k1_ms:.3f} ms "
-          f"({c * (T - 1) / (s_ms / 1e3):.1f} / "
-          f"{c * (T - 1) / (k1_ms / 1e3):.1f} cycles/s) on {smi}")
     return {"K6 forward": out["forward 28"]}
+
+
+def timing_route(dev, smi) -> None:
+    """K1 beside the streamed x forward on the same rows (32 trajectories,
+    T=20) at L=22 and 23, where both run (the engine routes L <= 23 to
+    K1), in turns, their outputs held to each other."""
+    from dtc_tpu_torch.ops import resident_blocked as rb
+    from dtc_tpu_torch.ops import streamed as sm
+
+    c, T = 32, 20
+    for L in (22, 23):
+        rows, sig = forward_inputs(L, T, c, P, dev, seed=L)
+        kw = dict(L=L, q=L // 2)
+        s_ms, k1_ms, a, b = timed_pair(
+            lambda: sm.streamed_forward_batch(rows, sig, THETA, **kw),
+            lambda: rb.blocked_forward_batch(rows, sig, THETA, **kw), 3)
+        held(f"K6 forward vs K1 L={L} T={T} 1x{c} (timed inputs)", a, b)
+        phase(f"[timing] forward L={L} T={T} traj={c}, same rows: streamed "
+              f"family {s_ms:.3f} ms, K1 {k1_ms:.3f} ms "
+              f"({c * (T - 1) / (s_ms / 1e3):.1f} / "
+              f"{c * (T - 1) / (k1_ms / 1e3):.1f} cycles/s) on {smi}")
+        del rows, sig, a, b
 
 
 def timing_streamed_echo(dev, smi, err) -> dict:
@@ -2789,6 +2843,7 @@ def timing_resident(dev, smi, err) -> dict:
             4 * (rows.numel() + 2 * angles.shape[0] + k.numel()), 6 * L + 6,
             smi)
         out[f"forward {L}"]["k4_ms"] = k4_ms
+        shares("K3", what, out[f"forward {L}"], 2 * (T - 1) + 3, smi)
         phase(f"[timing] K4 on the same ramp and rows, {what}: {k4_ms:.3f}"
               f" ms = {T * c / (k4_ms / 1e3):.1f} cycles/s ({k4_ms / k_ms:.3f}"
               f" x K3) on {smi}")
@@ -3072,6 +3127,7 @@ def main() -> None:
     device = main_device(smi, dev)
     times = timing(dev, smi, err)
     times.update(timing_streamed(dev, smi, err))
+    timing_route(dev, smi)
     times.update(timing_general_hi(dev, smi, err))
     times.update(timing_streamed_echo(dev, smi, err))
     times.update(timing_resident(dev, smi, err))

@@ -52,33 +52,19 @@
 // 2x2). Offsets are 64-bit. The rows a wrapper hands in are n x 2 x 2L
 // (K8a, K8b: folded pairs), n x K x 128 (K8c) and n x K x 2 x 128 (K8d)
 // f32, K8c's and K8d's flag lanes set by the wrapper (ops/cycle.py).
-//
-// The x headers and the lab-frame passes both define load_coeffs and
-// more, each in an anonymous namespace of its own header; here each
-// family's headers are included inside a named namespace so that the two
-// sets of names stay apart. floquet_echo.cuh is #pragma once: it is
-// included once, by floquet_x_echo.cuh inside xpass, the namespace that
-// uses it. floquet_common.cuh and floquet_plan.cuh come first, at file
-// scope, so that the headers' own includes of them are skipped.
 
 #include "floquet_common.cuh"
 #include "floquet_plan.cuh"
-
-namespace xpass {
 #include "floquet_rx.cuh"
 #include "floquet_x_echo.cuh"
-}  // namespace xpass
-
-namespace labpass {
 #include "floquet_lab.cuh"
 #include "floquet_general_pass.cuh"
-}  // namespace labpass
 
 extern "C" {
 
 // Partial slots per state of the forward entries (pass hi's blocks).
 int floquet_cycle_partials(int L) {
-  return xpass::step_hi_blocks(lo_bits(L), 0, kW);
+  return step_hi_blocks(lo_bits(L), 0, kW);
 }
 
 // K8a. state: n x 2^L complex64, updated in place; fold: n x 2 x 2L f32
@@ -88,7 +74,6 @@ int floquet_cycle_partials(int L) {
 int floquet_cycle_forward(void* state, const void* fold, void* partials,
                           void* out, int n, int L, int q, float c, float s,
                           void* stream_ptr) {
-  using namespace xpass;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const float* rows = (const float*)fold;
   const Fold f{rows, 4 * (int64_t)L, false};
@@ -110,7 +95,6 @@ int floquet_cycle_forward(void* state, const void* fold, void* partials,
 // folded rows (row 0 the step's diagonal, row 1 zero).
 int floquet_cycle_inverse(void* state, const void* fold, int n, int L,
                           float c, float s, void* stream_ptr) {
-  using namespace xpass;
   const float* rows = (const float*)fold;
   return (int)launch_steps<kW>(
       (float2*)state, L, lo_bits(L), 0, rows, 2,
@@ -128,9 +112,9 @@ int floquet_cycle_general_forward(void* state, const void* rows,
                                   int K, int q, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   for (int k = 0; k < K; ++k) {
-    cudaError_t e = labpass::launch_step((float2*)state, L,
-                                         (const float*)rows, K, n, k, 0, q,
-                                         (float*)partials, 1, stream);
+    cudaError_t e = launch_step((float2*)state, L, (const float*)rows,
+                                K, n, k, 0, q, (float*)partials, 1,
+                                stream);
     if (e != cudaSuccess) return (int)e;
   }
   reduce_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
@@ -145,9 +129,8 @@ int floquet_cycle_general_inverse(void* state, const void* tiles, int n,
                                   int L, int K, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   for (int k = 0; k < K; ++k) {
-    cudaError_t e = labpass::launch_step((float2*)state, L,
-                                         (const float*)tiles, 2 * K, n, k, 1,
-                                         0, nullptr, 0, stream);
+    cudaError_t e = launch_step((float2*)state, L, (const float*)tiles,
+                                2 * K, n, k, 1, 0, nullptr, 0, stream);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;

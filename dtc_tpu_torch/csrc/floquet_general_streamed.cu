@@ -211,14 +211,9 @@ int floquet_general_streamed_forward(void* state, const void* rows,
       Fold{(const float*)fold, (int64_t)fold_rows * 2 * L, false}, n_traj,
       n_steps, Forward{}, Times{(float*)partials, q, T}, b0, stream);
   if (e != cudaSuccess) return (int)e;
-  float* a = (float*)out;
-  const int64_t n_rows = (int64_t)n_traj * T;
-  reduce_rows_kernel<<<(unsigned)n_rows, kThreads, 0, stream>>>(
-      (const float*)partials, floquet_general_streamed_partials(L), a, 1, 0);
-  const float a0 = 1.0f - 2.0f * (float)((b0 >> q) & 1);
-  first_kernel<<<(n_traj + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      a, n_traj, T, a0);
-  return (int)cudaGetLastError();
+  return (int)reduce_times((const float*)partials,
+                           floquet_general_streamed_partials(L), (float*)out,
+                           n_traj, T, q, b0, stream);
 }
 
 // K10 echo. state: n_pairs x 2^L complex64 scratch; tiles: n_pairs x

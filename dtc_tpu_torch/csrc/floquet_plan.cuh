@@ -2,8 +2,9 @@
 // x) and floquet_general_streamed.cu (lab frame, any drive), and of the
 // per-shard cycle kernels from L_loc = 22 (floquet_cycle_hi.cu, and K10's
 // shard-local forms in floquet_general_streamed.cu): how a step cuts
-// a 2^L state in device memory into shared-memory tiles up to L=30, and the
-// fixed-order reductions of the per-block partials.
+// a 2^L state in device memory into shared-memory tiles up to L=30; and the
+// fixed-order reductions of the per-block partials, shared with every
+// forward that measures in pass hi's store (K1, K3a, K8a).
 //
 //   pass lo:  bits [0, a), a tile of 2^a consecutive amplitudes;
 //   pass mid: bits [a, a+b) (only when L >= 25), tiles of 2^b rows x kW
@@ -70,6 +71,20 @@ __global__ void reduce_rows_kernel(const float* __restrict__ partials, int nb,
 __global__ void first_kernel(float* __restrict__ out, int n, int T, float a0) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) out[(int64_t)i * T] = a0;
+}
+
+// A forward's tail: out (n_traj x T) = the fixed-order sums of its
+// (n_traj, T, nb) partials (Times, floquet_echo.cuh), then A(0) = z_q of
+// the basis state b0 (no step measures t = 0).
+cudaError_t reduce_times(const float* partials, int nb, float* out,
+                         int n_traj, int T, int q, int64_t b0,
+                         cudaStream_t stream) {
+  reduce_rows_kernel<<<(unsigned)((int64_t)n_traj * T), kThreads, 0,
+                       stream>>>(partials, nb, out, 1, 0);
+  const float a0 = 1.0f - 2.0f * (float)((b0 >> q) & 1);
+  first_kernel<<<(n_traj + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      out, n_traj, T, a0);
+  return cudaGetLastError();
 }
 
 }  // namespace

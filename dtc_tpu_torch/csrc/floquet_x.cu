@@ -24,70 +24,83 @@
 // What bounds it on this card: the state is 2^L complex64 per trajectory
 // (8 MiB at L=20), far above shared memory, so it lives in device memory
 // and every step must stream it, two read+write sweeps (16 B per amplitude
-// each):
-//   pass lo: a block owns 2^k1 consecutive amplitudes (fixed high bits)
-//            and applies the kick to bits [0, k1) in shared memory;
-//   pass hi: a block owns W consecutive low columns x all 2^n2 high values,
-//            applies the kick to bits [k1, L), then the diagonal phase and
-//            (forward) the A(t+1) partial sum of |psi|^2 z_q.
-// With k1 = L - L/2 and n2 = L/2 the tiles are at most 32 KiB (lo) and
-// 64 KiB (hi) at L=23. The byte floor is 32 B per amplitude per step.
-//
-// The forward runs the passes of floquet_x_pass.cuh (shared with K3a): a
-// sincos per amplitude for its diagonal, the tile staged whole
-// through shared memory, three bits per round. The echo runs the passes of
-// floquet_echo.cuh with the kick policy of floquet_x_echo.cuh (XEcho on
-// PairRows, one angle: ConstKick), as K3b does: one folded diagonal per
-// step (ops/echo_fold.py: step 0's pass lo applies the first pre diagonal,
-// every pass hi the step's post diagonal and the next step's pre), its
-// phases from two small tables per block, and the kick in swizzled 2-3-bit
-// rounds whose first reads the state and whose last writes it, so each
-// pass makes one read and one write; each pair is measured after its last
-// step.
+// each). Both entries run the step passes of floquet_echo.cuh with the
+// kick policy of floquet_x_echo.cuh (XEcho, one angle: ConstKick), as K3
+// does, on the plan a = L - L/2, b = 0, CW = kW = 4:
+//   pass lo: a block owns 2^a consecutive amplitudes (fixed high bits)
+//            and applies the kick to bits [0, a);
+//   pass hi: a block owns kW consecutive low columns x all 2^(L/2) high
+//            values, applies the kick to bits [a, L), then the step's
+//            diagonal and (forward) the A(t+1) partial of |psi|^2 z_q.
+// The tiles are at most 32 KiB (lo) and 64 KiB (hi) at L=23. The byte
+// floor is 32 B per amplitude per step. One folded diagonal per step
+// (ops/echo_fold.py), its phases from two small tables per block; the kick
+// in swizzled 2-3-bit rounds whose first reads the state and whose last
+// writes it, so each pass makes one read and one write.
+// - K1 (forward, ForwardRows): step k is cycle k's kick, then fold row k+1
+//   (forward_fold: cycle k's diagonal; row 0 not read), measured into
+//   A(k+1) in pass hi's store (Times), one partial a block and step; one
+//   fixed-order reduce at the end (floquet_plan.cuh).
+// - K2 (echo, PairRows): step 0's pass lo applies the first pre diagonal,
+//   every pass hi the step's post diagonal and the next step's pre; each
+//   pair is measured after its last step.
 //
 // Reductions are deterministic: one partial per block, summed in a fixed
 // order by a second kernel (double accumulator). Offsets are 64-bit. The
 // pieces shared with floquet_general.cu are in floquet_common.cuh, the RX
-// kick and the row coefficients shared with floquet_x_streamed.cu in
-// floquet_rx.cuh.
+// kick shared with the other x libraries in floquet_rx.cuh.
 
 #include "floquet_common.cuh"
+#include "floquet_echo.cuh"
+#include "floquet_plan.cuh"
 #include "floquet_rx.cuh"
-#include "floquet_x_pass.cuh"
 #include "floquet_x_echo.cuh"
+#include "floquet_x_pass.cuh"
+
+namespace {
+
+bool forward_in_range(int L, int q, int n_traj, int T, int fold_rows) {
+  return 17 <= L && L <= 23 && 0 <= q && q < L && n_traj >= 1 && T >= 1 &&
+         fold_rows >= T;
+}
+
+}  // namespace
 
 extern "C" {
 
-// Sizes the wrapper allocates: partials of the forward entry.
-int floquet_x_forward_partials(int L) { return (1 << lo_bits(L)) / kW; }
+// Sizes the wrapper allocates: partials of the forward entry, per
+// trajectory and time (pass hi's blocks).
+int floquet_x_forward_partials(int L) {
+  return step_hi_blocks(lo_bits(L), 0, kW);
+}
 
 // Sizes the wrapper allocates: partials of the echo entry (per pair).
 int floquet_x_echo_partials(int L) { return measure_blocks(L); }
 
-// K1. state: n_traj x 2^L complex64 scratch; rows: n_traj x T x 128 f32;
-// partials: n_traj x T x floquet_x_forward_partials(L) f32;
-// out: n_traj x T f32 (A(t) before the host's sigma/ancilla factor).
-// Runs the T - 1 cycles whose results are measured.
-int floquet_x_forward(void* state, const void* rows, void* partials,
-                      void* out, int n_traj, int L, int T, int q, int64_t b0,
-                      float c, float s, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  float2* st = (float2*)state;
-  const int64_t N = (int64_t)1 << L;
-  init_kernel<<<dim3(256, n_traj), kThreads, 0, stream>>>(st, N, b0);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  for (int cyc = 0; cyc + 1 < T; ++cyc) {
-    e = launch_step(st, L, (const float*)rows, T, n_traj, cyc,
-                    ConstKick{c, s}, q, (float*)partials, T, stream);
-    if (e != cudaSuccess) return (int)e;
+// K1. state: n_traj x 2^L complex64 scratch; rows: n_traj x T x 128 f32
+// (one compact row per cycle); fold: n_traj x fold_rows x 2L f32, the
+// cycles' diagonals (ops/echo_fold.py::forward_fold of rows 0..T-2;
+// fold_rows >= T); partials: n_traj x T x floquet_x_forward_partials(L)
+// f32, zeroed; out: n_traj x T f32 (A(t) before the host's sigma/ancilla
+// factor). Runs the T - 1 cycles whose results are measured; out of range
+// (17 <= L <= 23, 0 <= q < L, T >= 1, fold_rows >= T) it launches nothing.
+int floquet_x_forward(void* state, const void* rows, const void* fold,
+                      void* partials, void* out, int n_traj, int L, int T,
+                      int fold_rows, int q, int64_t b0, float c, float s,
+                      void* stream_ptr) {
+  if (!forward_in_range(L, q, n_traj, T, fold_rows)) {
+    return (int)cudaErrorInvalidValue;
   }
-  const int64_t n_rows = (int64_t)n_traj * T;
-  const float a0 = 1.0f - 2.0f * (float)((b0 >> q) & 1);
-  reduce_kernel<<<(unsigned)((n_rows + kThreads - 1) / kThreads), kThreads,
-                  0, stream>>>((const float*)partials, (float*)out, n_rows,
-                               floquet_x_forward_partials(L), T, a0);
-  return (int)cudaGetLastError();
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const cudaError_t e = run_steps<kW>(
+      (float2*)state, L, lo_bits(L), 0, (const float*)rows, T,
+      Fold{(const float*)fold, (int64_t)fold_rows * 2 * L, false}, n_traj,
+      T - 1, XEcho<ForwardRows, ConstKick>{{}, ConstKick{c, s}},
+      Times{(float*)partials, q, T}, b0, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)reduce_times((const float*)partials,
+                           floquet_x_forward_partials(L), (float*)out, n_traj,
+                           T, q, b0, stream);
 }
 
 // K2. state: n_pairs x 2^L complex64 scratch; tiles: n_pairs x rows x 128

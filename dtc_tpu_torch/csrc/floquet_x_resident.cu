@@ -25,37 +25,49 @@
 // The TPU kernel's q < 14 limit (its probe on the column axis) is not
 // carried over: any 0 <= q < L.
 //
-// Design: the forward runs K1's two passes (floquet_x_pass.cuh),
-// instantiated with the table (TableKick) where K1 takes one angle
-// (ConstKick). k1 = L - L/2, n2 = L/2: at L=14 a lo tile is 1 KiB and a hi
-// tile 4 KiB, at L=21 16 and 32 KiB. Butterflies run three bits per
-// shared-memory round (floquet_rx.cuh). Reductions are deterministic: one
-// partial per block, summed in a fixed order (floquet_common.cuh).
-// The echo runs its own two passes (floquet_x_echo.cuh) on the same tiles,
-// redesigned for this card (floquet_echo.cuh): one diagonal per step, the
-// post diagonal and the next step's pre folded into one row by the wrapper
+// Design: both entries run the step passes of floquet_echo.cuh with the
+// kick policy of floquet_x_echo.cuh on K1/K2's plan (a = L - L/2, b = 0,
+// CW = kW = 4): at L=14 a lo tile is 1 KiB and a hi tile 4 KiB, at L=21 16
+// and 32 KiB. One diagonal per step, folded by the wrapper
 // (ops/echo_fold.py), its phases from two small tables per block instead of
 // a sincos per amplitude; the kick in rounds whose first reads the state
 // and whose last writes it, on a swizzled tile without bank conflicts.
+// The forward (XEcho<ForwardRows, TableKick>, K1's reader with the table
+// where K1 takes one angle) applies cycle k's diagonal, fold row k+1 of
+// forward_fold, in step k's pass hi and measures A(k+1) as it stores
+// (Times), one fixed-order reduce at the end; the echo (XEcho<PairRows,
+// TableKick>) folds each step's post diagonal and the next step's pre into
+// one row and measures each pair after its last step.
 //
-// What bounds it on this card: the forward, two read+write sweeps of the
-// state per cycle (32 B per amplitude and cycle) at the HBM rate; the echo,
-// one read and one write of the state a pass (its rate: PERF.md section
-// 6). At 14 <= L <= 16 a batch of 32 trajectories
-// (4-16 MiB of states) sits in the L2 anyway, and each cycle still makes
-// two launches of small blocks, so launch and latency, not bytes, set the
-// forward's time there.
+// What bounds it on this card: two read+write sweeps of the state per step
+// (32 B per amplitude and step) at the HBM rate (the rates: PERF.md section
+// 6). At 14 <= L <= 16 a batch of 32 trajectories (4-16 MiB of states) sits
+// in the L2 anyway, and each step still makes two launches of small
+// blocks, so launch and latency, not bytes, set the forward's time there.
 
 #include "floquet_common.cuh"
+#include "floquet_echo.cuh"
+#include "floquet_plan.cuh"
 #include "floquet_rx.cuh"
-#include "floquet_x_pass.cuh"
 #include "floquet_x_echo.cuh"
+#include "floquet_x_pass.cuh"
+
+namespace {
+
+bool forward_in_range(int L, int q, int n_traj, int T, int tu,
+                      int fold_rows) {
+  return 14 <= L && L <= 21 && 0 <= q && q < L && n_traj >= 1 && T >= 1 &&
+         tu >= 1 && fold_rows >= T;
+}
+
+}  // namespace
 
 extern "C" {
 
-// Sizes the wrapper allocates: partials of the forward entry.
+// Sizes the wrapper allocates: partials of the forward entry, per
+// trajectory and time (pass hi's blocks).
 int floquet_x_resident_forward_partials(int L) {
-  return (1 << lo_bits(L)) / kW;
+  return step_hi_blocks(lo_bits(L), 0, kW);
 }
 
 // Sizes the wrapper allocates: partials of the echo entry (per pair).
@@ -63,33 +75,34 @@ int floquet_x_resident_echo_partials(int L) {
   return measure_blocks(L);
 }
 
-// K3a. state: n_traj x 2^L complex64 scratch; rows: n_traj x T x 128 f32;
-// cs: tu x 2 f32 (cos, sin of theta_t / 2); partials: n_traj x T x
-// floquet_x_resident_forward_partials(L) f32; out: n_traj x T f32 (A(t)
-// before the host's sigma/ancilla factor). Runs the T - 1 cycles whose
-// results are measured.
-int floquet_x_resident_forward(void* state, const void* rows, const void* cs,
+// K3a. state: n_traj x 2^L complex64 scratch; rows: n_traj x T x 128 f32
+// (one compact row per cycle); fold: n_traj x fold_rows x 2L f32, the
+// cycles' diagonals (ops/echo_fold.py::forward_fold of rows 0..T-2;
+// fold_rows >= T); cs: tu x 2 f32 (cos, sin of theta_t / 2; cycle k reads
+// row min(k, tu - 1)); partials: n_traj x T x
+// floquet_x_resident_forward_partials(L) f32, zeroed; out: n_traj x T f32
+// (A(t) before the host's sigma/ancilla factor). Runs the T - 1 cycles
+// whose results are measured; out of range (14 <= L <= 21, 0 <= q < L,
+// T >= 1, tu >= 1, fold_rows >= T) it launches nothing.
+int floquet_x_resident_forward(void* state, const void* rows,
+                               const void* fold, const void* cs,
                                void* partials, void* out, int n_traj, int L,
-                               int T, int tu, int q, int64_t b0,
-                               void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  float2* st = (float2*)state;
-  const int64_t N = (int64_t)1 << L;
-  init_kernel<<<dim3(256, n_traj), kThreads, 0, stream>>>(st, N, b0);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  for (int cyc = 0; cyc + 1 < T; ++cyc) {
-    e = launch_step(st, L, (const float*)rows, T, n_traj, cyc,
-                    TableKick{(const float*)cs, tu}, q, (float*)partials, T,
-                    stream);
-    if (e != cudaSuccess) return (int)e;
+                               int T, int fold_rows, int tu, int q,
+                               int64_t b0, void* stream_ptr) {
+  if (!forward_in_range(L, q, n_traj, T, tu, fold_rows)) {
+    return (int)cudaErrorInvalidValue;
   }
-  const int64_t n_rows = (int64_t)n_traj * T;
-  const float a0 = 1.0f - 2.0f * (float)((b0 >> q) & 1);
-  reduce_kernel<<<(unsigned)((n_rows + kThreads - 1) / kThreads), kThreads,
-                  0, stream>>>((const float*)partials, (float*)out, n_rows,
-                               floquet_x_resident_forward_partials(L), T, a0);
-  return (int)cudaGetLastError();
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const cudaError_t e = run_steps<kW>(
+      (float2*)state, L, lo_bits(L), 0, (const float*)rows, T,
+      Fold{(const float*)fold, (int64_t)fold_rows * 2 * L, false}, n_traj,
+      T - 1,
+      XEcho<ForwardRows, TableKick>{{}, TableKick{(const float*)cs, tu}},
+      Times{(float*)partials, q, T}, b0, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)reduce_times((const float*)partials,
+                           floquet_x_resident_forward_partials(L),
+                           (float*)out, n_traj, T, q, b0, stream);
 }
 
 // K3b. state: n_pairs x 2^L complex64 scratch; tiles: n_pairs x rows x 128

@@ -39,21 +39,22 @@
 // 2.5-3.0 TB/s at L=28 with them (PERF.md section 6).
 //
 // Both entries run the step passes of floquet_echo.cuh (run_steps) on this
-// plan with the kick policy of floquet_x_echo.cuh (XEcho, shared with K2
-// and K3b; the echo on WideRows, the forward on ForwardWideRows: every step
-// active, row k's diagonal, measured into A(k+1)): one diagonal per step
-// from folded rows (ops/echo_fold.py: the echo's step 0 pass lo applies the
-// first pre diagonal, every pass hi the step's post diagonal and the next
-// step's pre; the forward's pass hi row k+1 = step k's diagonal, and no
-// row 0), its phases from two small tables per block, and the kick in
-// swizzled 2-3-bit rounds whose first reads the state and whose last
-// writes it, so each pass makes one read and one write. The echo measures
+// plan with the kick policy of floquet_x_echo.cuh (XEcho, shared with K1,
+// K2 and K3; the echo on WideRows, the forward on ForwardRows, as K1's and
+// K3a's: every step active, row k's diagonal, measured into A(k+1)): one
+// diagonal per step from folded rows (ops/echo_fold.py: the echo's step 0
+// pass lo applies the first pre diagonal, every pass hi the step's post
+// diagonal and the next step's pre; the forward's pass hi row k+1 = step
+// k's diagonal, and no row 0), its phases from two small tables per
+// block, and the kick in swizzled 2-3-bit rounds whose first reads the
+// state and whose last writes it, so each pass makes one read and one
+// write. The echo measures
 // each pair after its last step (one more read of the state a pair); the
 // forward's pass hi writes, on every step, one partial of |psi|^2 z_q per
-// block as it stores, into (n_traj, T, blocks). Both readers here take
-// their step rows from floquet_x_streamed_pass.cuh (step_rows); the
-// per-shard cycle kernels (floquet_cycle_hi.cu: K9a/K9b) run the same
-// passes one step at a time on K8's CycleRows.
+// block as it stores, into (n_traj, T, blocks). The echo's reader takes its
+// step rows from floquet_x_streamed_pass.cuh (step_rows); the per-shard
+// cycle kernels (floquet_cycle_hi.cu: K9a/K9b) run the same passes one step
+// at a time on K8's CycleRows.
 //
 // A(t) and the echo value are summed without atomics: one partial per
 // block (the forward's per pass-hi block and step, the echo's per measure
@@ -82,22 +83,7 @@ struct WideRows {
   __device__ __forceinline__ StepRows at(const float* rows,
                                          int64_t rows_per_pair, int pair,
                                          int step) const {
-    return step_rows(rows, width, rows_per_pair, pair, step, 1);
-  }
-};
-
-// The forward's step rows for XEcho: every step active, no pre row, kick
-// sign +1; step k (row k's diagonal) is measured into A(k + 1).
-struct ForwardWideRows {
-  int width;
-  __device__ __forceinline__ StepRows at(const float* rows,
-                                         int64_t rows_per_pair, int pair,
-                                         int step) const {
-    return step_rows(rows, width, rows_per_pair, pair, step, 0);
-  }
-  __device__ __forceinline__ int time(const float*, int, int64_t, int,
-                                      int step) const {
-    return step + 1;
+    return step_rows(rows, width, rows_per_pair, pair, step);
   }
 };
 
@@ -134,24 +120,17 @@ int floquet_x_streamed_forward(void* state, const void* rows,
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const Plan p = plan_for(L);
   const auto run =
-      p.b > 0 ? run_steps<kWideCols, XEcho<ForwardWideRows, ConstKick>, Times>
-              : run_steps<kW, XEcho<ForwardWideRows, ConstKick>, Times>;
-  cudaError_t e = run(
+      p.b > 0 ? run_steps<kWideCols, XEcho<ForwardRows, ConstKick>, Times>
+              : run_steps<kW, XEcho<ForwardRows, ConstKick>, Times>;
+  const cudaError_t e = run(
       (float2*)state, L, p.a, p.b, (const float*)rows, T,
       Fold{(const float*)fold, (int64_t)fold_rows * 2 * L, false}, n_traj,
-      T - 1,
-      XEcho<ForwardWideRows, ConstKick>{ForwardWideRows{width},
-                                        ConstKick{c, s}},
+      T - 1, XEcho<ForwardRows, ConstKick>{{}, ConstKick{c, s}},
       Times{(float*)partials, q, T}, b0, stream);
   if (e != cudaSuccess) return (int)e;
-  float* a = (float*)out;
-  const int64_t n_rows = (int64_t)n_traj * T;
-  reduce_rows_kernel<<<(unsigned)n_rows, kThreads, 0, stream>>>(
-      (const float*)partials, floquet_x_streamed_partials(L), a, 1, 0);
-  const float a0 = 1.0f - 2.0f * (float)((b0 >> q) & 1);
-  first_kernel<<<(n_traj + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      a, n_traj, T, a0);
-  return (int)cudaGetLastError();
+  return (int)reduce_times((const float*)partials,
+                           floquet_x_streamed_partials(L), (float*)out,
+                           n_traj, T, q, b0, stream);
 }
 
 // Echo. state: n_pairs x 2^L complex64 scratch; tiles: n_pairs x

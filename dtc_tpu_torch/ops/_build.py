@@ -43,16 +43,17 @@ LIBRARIES = {
     "floquet_x": {
         "floquet_x_forward_partials": [_I32],
         "floquet_x_echo_partials": [_I32],
-        "floquet_x_forward": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32,
-                              _I64, _F32, _F32, _VP],
+        "floquet_x_forward": [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32,
+                              _I32, _I32, _I64, _F32, _F32, _VP],
         "floquet_x_echo": [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32,
                            _I32, _I32, _I64, _F32, _F32, _VP],
     },
     "floquet_x_resident": {
         "floquet_x_resident_forward_partials": [_I32],
         "floquet_x_resident_echo_partials": [_I32],
-        "floquet_x_resident_forward": [_VP, _VP, _VP, _VP, _VP, _I32, _I32,
-                                       _I32, _I32, _I32, _I64, _VP],
+        "floquet_x_resident_forward": [_VP, _VP, _VP, _VP, _VP, _VP, _I32,
+                                       _I32, _I32, _I32, _I32, _I32, _I64,
+                                       _VP],
         "floquet_x_resident_echo": [_VP, _VP, _VP, _VP, _VP, _VP, _I32,
                                     _I32, _I32, _I32, _I32, _I32, _I32, _I64,
                                     _VP],

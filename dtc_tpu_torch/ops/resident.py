@@ -2,14 +2,14 @@
 
 Port of ``dtc_tpu/ops/pallas_resident.py`` (``resident_forward_batch``,
 ``resident_echo_batch``). The two Pallas kernels (K3a forward, K3b echo)
-become the CUDA entries of ``csrc/floquet_x_resident.cu``: the forward runs
-K1's hand-written passes (``csrc/floquet_x_pass.cuh``) with the kick angle
-read from a table, the echo its own passes (``csrc/floquet_x_echo.cuh``) on
-the folded diagonals (``ops/echo_fold.py``);
-beside each is its plain PyTorch version (``resident_forward_batch_ref``,
-``resident_echo_batch_ref``), which runs the reference's kick matrices
-(``ops/params.py::kick_matrices``, one per cycle when ``time_dependent``)
-through K1's kron-group kick.
+become the CUDA entries of ``csrc/floquet_x_resident.cu``, both on the step
+passes of ``csrc/floquet_echo.cuh`` with the x kick policy
+(``csrc/floquet_x_echo.cuh``) and the kick angle read from a table, on
+folded diagonals (``ops/echo_fold.py``: the forward's ``forward_fold``, as
+K1's, the echo's ``echo_plan``); beside each is its plain PyTorch version
+(``resident_forward_batch_ref``, ``resident_echo_batch_ref``), which runs
+the reference's kick matrices (``ops/params.py::kick_matrices``, one per
+cycle when ``time_dependent``) through K1's kron-group kick.
 
 The entries take K1/K2's rows and host factor (``ops/params.py``,
 ``ops/resident_blocked.py``: the same sigma frame) and the x schedule
@@ -48,6 +48,7 @@ from dtc_tpu_torch.ops.resident_blocked import (
     check_cuda_input,
     echo_host_factor,
     forward_host_factor,
+    forward_scratch,
     raise_on,
     route,
     row_coeffs,
@@ -201,15 +202,15 @@ def resident_forward_batch(rows, sig_after, angles, *, L, q,
     b0 = basis_index(L, initial_state)
     dev = rows.device
     cs = kick_table(angles, time_dependent, dev)
+    fold, partials = forward_scratch(
+        rows.view(n, T, WIDTH), L, lib.floquet_x_resident_forward_partials(L))
     state = torch.empty((n, 1 << L), dtype=torch.complex64, device=dev)
-    partials = torch.empty(
-        (n, T, lib.floquet_x_resident_forward_partials(L)),
-        dtype=torch.float32, device=dev)
     a_raw = torch.empty((n, T), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.floquet_x_resident_forward(
-        state.data_ptr(), rows.data_ptr(), cs.data_ptr(), partials.data_ptr(),
-        a_raw.data_ptr(), n, L, T, cs.shape[0], q, b0, stream)
+        state.data_ptr(), rows.data_ptr(), fold.data_ptr(), cs.data_ptr(),
+        partials.data_ptr(), a_raw.data_ptr(), n, L, T, fold.shape[1],
+        cs.shape[0], q, b0, stream)
     LAUNCHES["forward"] += 1
     raise_on(err, "floquet_x_resident_forward")
     return forward_host_factor(a_raw.reshape(*batch, T), sig_after, q, b0,

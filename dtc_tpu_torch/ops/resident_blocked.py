@@ -13,8 +13,9 @@ the engine, the tests and the reference can feed identical rows. A tensor on
 the CPU goes to the plain version; a CUDA tensor launches the kernel or
 raises. Each entry counts its kernel launches in ``LAUNCHES`` and the plain
 versions count the calls they get on CUDA tensors in ``PLAIN_ON_CUDA``.
-The echo kernel takes, beside the step rows, their folded diagonals
-(``ops/echo_fold.py``), as K3b's does.
+Both kernels run on the step passes of ``csrc/floquet_echo.cuh`` and take,
+beside the step rows, their folded diagonals (``ops/echo_fold.py``: the
+forward's ``forward_fold``, the echo's ``echo_plan``), as K3's do.
 
 Per cycle (forward): RX(theta) on every qubit, then the cycle's diagonal
 exp(i theta(s)) with the angle linear in the bits,
@@ -35,7 +36,7 @@ import math
 import torch
 
 from dtc_tpu_torch.core.statevector import basis_index
-from dtc_tpu_torch.ops.echo_fold import echo_plan
+from dtc_tpu_torch.ops.echo_fold import echo_plan, forward_fold
 from dtc_tpu_torch.ops.params import WIDTH, kick_matrices
 
 _HALF_PI = math.pi / 2
@@ -88,8 +89,8 @@ def angle_table(L: int, device) -> torch.Tensor:
 
 def row_coeffs(rows: torch.Tensor, L: int):
     """(..., width) compact rows -> the diagonal's coefficients (cz (..., L),
-    cb (..., L-1), c0 (...)) in the sigma frame (the kernels' load_coeffs,
-    ``csrc/floquet_rx.cuh``)."""
+    cb (..., L-1), c0 (...)) in the sigma frame, which the wrappers fold
+    into the kernels' diagonal rows (``ops/echo_fold.py``)."""
     n_bits = rows[..., :L]
     cz = rows[..., 3 * L - 1:4 * L - 1] * (rows[..., L:2 * L] - 0.5) \
         - _HALF_PI * n_bits
@@ -244,6 +245,18 @@ def route(x, what: str) -> str:
     raise ValueError(f"no {what} kernel for device {x.device}")
 
 
+def forward_scratch(flat, L: int, blocks: int):
+    """What an x forward kernel (K1, K3a, the streamed family) takes
+    beside its (n, T, width) compact rows: the folded diagonals (n, T, 2L)
+    (cycle k's at row k + 1; the last cycle is not run) and the zeroed
+    partials (n, T, blocks): one per pass-hi block, trajectory and time; no
+    step measures t = 0."""
+    n, T = flat.shape[:2]
+    fold = forward_fold(flat[:, :T - 1], L, row_coeffs)
+    return fold, torch.zeros((n, T, blocks), dtype=torch.float32,
+                             device=flat.device)
+
+
 def blocked_forward_batch(rows, sig_after, theta, *, L, q,
                           initial_state="vacuum", ancilla_factor=1.0):
     """(..., T, 128) rows, (..., T) sigma after each cycle -> (..., T) A(t).
@@ -263,15 +276,16 @@ def blocked_forward_batch(rows, sig_after, theta, *, L, q,
     lib = _build.load("floquet_x")
     b0 = basis_index(L, initial_state)
     dev = rows.device
+    fold, partials = forward_scratch(rows.view(n, T, WIDTH), L,
+                                     lib.floquet_x_forward_partials(L))
     state = torch.empty((n, 1 << L), dtype=torch.complex64, device=dev)
-    partials = torch.empty((n, T, lib.floquet_x_forward_partials(L)),
-                           dtype=torch.float32, device=dev)
     a_raw = torch.empty((n, T), dtype=torch.float32, device=dev)
     c, s = kick_cs(theta)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.floquet_x_forward(state.data_ptr(), rows.data_ptr(),
-                                partials.data_ptr(), a_raw.data_ptr(), n, L,
-                                T, q, b0, c, s, stream)
+                                fold.data_ptr(), partials.data_ptr(),
+                                a_raw.data_ptr(), n, L, T, fold.shape[1], q,
+                                b0, c, s, stream)
     LAUNCHES["forward"] += 1
     raise_on(err, "floquet_x_forward")
     return forward_host_factor(a_raw.reshape(*batch, T), sig_after, q, b0,

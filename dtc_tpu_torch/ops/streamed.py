@@ -34,7 +34,7 @@ import math
 import torch
 
 from dtc_tpu_torch.core.statevector import basis_index
-from dtc_tpu_torch.ops.echo_fold import echo_plan, forward_fold
+from dtc_tpu_torch.ops.echo_fold import echo_plan
 from dtc_tpu_torch.ops.kick import apply_uniform_1q_layer
 from dtc_tpu_torch.ops.params import WIDE, WIDTH
 from dtc_tpu_torch.ops.resident_blocked import (
@@ -43,6 +43,7 @@ from dtc_tpu_torch.ops.resident_blocked import (
     check_cuda_input,
     echo_host_factor,
     forward_host_factor,
+    forward_scratch,
     kick_cs,
     raise_on,
     route,
@@ -218,15 +219,12 @@ def streamed_forward_batch(rows, sig_after, theta, *, L, q,
     lib = _build.load("floquet_x_streamed")
     b0 = basis_index(L, initial_state)
     dev = rows.device
-    # cycle k's diagonal is fold row k + 1; the last cycle is not run
-    fold = forward_fold(rows.view(n, T, width)[:, :T - 1], L, row_coeffs)
+    # the partials take per time 1 / (2^(c+1) CW) of a state's bytes: at
+    # T = 1024 at most a quarter of the states' bytes (L = 25: c = 7,
+    # CW = 16), 2 GiB beside the engine's 8 GiB a launch
+    fold, partials = forward_scratch(rows.view(n, T, width), L,
+                                     lib.floquet_x_streamed_partials(L))
     state = torch.empty((n, 1 << L), dtype=torch.complex64, device=dev)
-    # one partial per pass-hi block, trajectory and time; no step measures
-    # t = 0 (its row is zeros, then A(0)). Per time 1 / (2^(c+1) CW) of a
-    # state's bytes: at T = 1024 at most a quarter of the states' bytes
-    # (L = 25: c = 7, CW = 16), 2 GiB beside the engine's 8 GiB a launch
-    partials = torch.zeros((n, T, lib.floquet_x_streamed_partials(L)),
-                           dtype=torch.float32, device=dev)
     a_raw = torch.empty((n, T), dtype=torch.float32, device=dev)
     c, s = kick_cs(theta)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -20,12 +20,13 @@ drives the streamed lab-frame family) a whole echo sweep takes minutes, so
 ``echo_chunk`` traces one launch of it instead: its last (t values
 T-k..T-1, the longest trip counts, k and the trajectories as
 ``engine.kernel_chunks`` sizes them for one instance); there is no energy
-trace (the energy route is the eager engine there). Both streamed
-forwards, x and lab-frame, run the step passes of K2, K3b and K4's echo
-(``echo_lo_kernel``, ``echo_mid_kernel`` from L = 25, ``echo_hi_kernel``,
-the last measuring as it stores) and one ``reduce_rows_kernel`` and
-``first_kernel`` at the end; the echoes run the same passes, then
-``measure_kernel`` and ``reduce_kernel``.
+trace (the energy route is the eager engine there). The x forwards (K1,
+K3a and the streamed family) and the streamed lab-frame forward run the
+step passes of K2, K3b and K4's echo (``echo_lo_kernel``,
+``echo_mid_kernel`` from L = 25, ``echo_hi_kernel``, the last measuring as
+it stores) and one ``reduce_rows_kernel`` and ``first_kernel`` at the end;
+the echoes run the same passes, then ``measure_kernel`` and
+``reduce_kernel``.
 
 For each it prints one JSON line: the wall ms, the device-busy ms (the union
 of the intervals of every device event, kernels and copies), the idle share

@@ -33,8 +33,17 @@ A(k + 1) there, and the host's sigma/ancilla factor after the kernel. The
 same kind of loop is held against ``streamed_forward_batch_ref`` (1e-5, both
 plans, L = 14, 15, the range check lowered as above) and against JAX's sigma
 engine ``sigma_forward_batch`` at L=14 on uniforms drawn in JAX (1e-4, the
-bound of ``test_torch_streamed.py``). The kernels themselves are held
-against the plain versions on the card by ``test_torch_kernels_cuda.py``.
+bound of ``test_torch_streamed.py``).
+
+The resident x forwards, K1 and K3a, run the same steps on their own
+split (``lo_bits``: pass lo's bits [0, L - L/2), pass hi's the rest), K3a
+with the step's kick read from its table (cycle k its row k, bounded by
+the table's rows). That loop is held against ``blocked_forward_batch_ref``
+at L=17 and ``resident_forward_batch_ref`` at L = 14, 15 with a ramp whose
+every cycle differs and with a constant schedule (1e-5; probes in each
+pass's bits), and against JAX's interpret K1 at L=17 and K3a at L=14 on
+the same uniforms (1e-4). The kernels themselves are held against the
+plain versions on the card by ``test_torch_kernels_cuda.py``.
 """
 
 import jax
@@ -46,6 +55,12 @@ import torch
 from dtc_tpu.core.sigma_evolve import sigma_forward_batch as j_sigma_forward
 from dtc_tpu.io.disorder import generate_disorder
 from dtc_tpu.models.drives import build_kick_schedule as j_sched
+from dtc_tpu.ops.pallas_resident import (
+    resident_forward_batch as j_resident_forward,
+)
+from dtc_tpu.ops.pallas_resident_blocked import (
+    blocked_forward_batch as j_blocked_forward,
+)
 from dtc_tpu.ops.pallas_resident_general import (
     general_forward_batch as j_forward,
 )
@@ -53,6 +68,7 @@ from dtc_tpu_torch.core.statevector import basis_index
 from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.ops import cycle_hi as ch
 from dtc_tpu_torch.ops import cycle_hi_general as chg
+from dtc_tpu_torch.ops import resident as rs
 from dtc_tpu_torch.ops import resident_blocked as rb
 from dtc_tpu_torch.ops import resident_general as rg
 from dtc_tpu_torch.ops import streamed as sm
@@ -290,10 +306,11 @@ def _x_rows(L, uniforms=None, n=2, T_=T, p=0.3, seed=13):
                         torch.from_numpy(phis)[:, None], L=L, T=T_, p=p)
 
 
-def _rx_bits(state, L, lo, hi):
-    """RX(THETA) from the kernels' f32 cos/sin on qubits [lo, hi) of the
-    (n, 2^L) states, one qubit at a time."""
-    c, s = rb.kick_cs(THETA)
+def _rx_bits(state, L, lo, hi, cs=None):
+    """RX from the kernels' f32 (cos, sin) of theta/2 (``cs``, default
+    THETA's) on qubits [lo, hi) of the (n, 2^L) states, one qubit at a
+    time."""
+    c, s = rb.kick_cs(THETA) if cs is None else cs
     rx = torch.tensor([[c, -1j * s], [-1j * s, c]], dtype=state.dtype)
     n = state.shape[0]
     for j in range(lo, hi):
@@ -302,14 +319,17 @@ def _rx_bits(state, L, lo, hi):
     return state.reshape(n, 1 << L)
 
 
-def _x_step_pass_loop(rows, sig, L, q, initial_state, passes):
-    """A(t) of the x forward in the kernel's order: per cycle k < T-1 the
-    kick on pass lo's, mid's and hi's bits, then fold row k + 1 of the
-    wrapper's ``forward_fold`` (rows 0..T-2), measured into A(k + 1); A(0)
-    the basis state's z_q; then the host's sigma/ancilla factor."""
+def _x_step_pass_loop(rows, sig, L, q, initial_state, split, cs=None):
+    """A(t) of the x forward in the kernel's order on the split (a, b): per
+    cycle k < T-1 the kick on pass lo's bits [0, a), mid's [a, a + b) and
+    hi's [a + b, L), then fold row k + 1 of the wrapper's ``forward_fold``
+    (rows 0..T-2), measured into A(k + 1); A(0) the basis state's z_q; then
+    the host's sigma/ancilla factor. ``cs``: K3a's (tu, 2) table of (cos,
+    sin) of theta/2, cycle k reading row min(k, tu - 1) (``TableKick``);
+    default THETA every cycle (K1's ``ConstKick``)."""
     flat = rows.reshape(-1, *rows.shape[-2:])
     n, T_ = flat.shape[:2]
-    a, b = _plan(L, passes)
+    a, b = split
     fold = forward_fold(flat[:, :T_ - 1], L, rb.row_coeffs)
     assert fold.shape == (n, T_, 2 * L)
     table = rb.angle_table(L, flat.device)
@@ -318,8 +338,9 @@ def _x_step_pass_loop(rows, sig, L, q, initial_state, passes):
     a_raw = torch.zeros((n, T_))
     a_raw[:, 0] = rb.basis_sign(b0, q)
     for k in range(T_ - 1):
+        ck = None if cs is None else cs[min(k, cs.shape[0] - 1)].tolist()
         for lo, hi in ((0, a), (a, a + b), (a + b, L)):
-            state = _rx_bits(state, L, lo, hi)
+            state = _rx_bits(state, L, lo, hi, ck)
         f = fold[:, k + 1]
         theta = f[:, -1:] + f[:, :-1] @ table
         state = state * torch.polar(torch.ones_like(theta), theta)
@@ -355,7 +376,8 @@ def test_x_step_pass_order_matches_plain(L, initial_state, passes,
     monkeypatch.setattr(sm, "MIN_L", 14)
     rows, sig = _x_rows(L)
     for q in (0, L // 2, L - 1):
-        got = _x_step_pass_loop(rows, sig, L, q, initial_state, passes)
+        got = _x_step_pass_loop(rows, sig, L, q, initial_state,
+                                _plan(L, passes))
         want = sm.streamed_forward_batch_ref(rows, sig, THETA, L=L, q=q,
                                              initial_state=initial_state)
         assert got.shape == want.shape == (1, 2, T)
@@ -373,6 +395,128 @@ def test_x_step_pass_order_matches_reference_sigma_engine(initial_state):
         keys, L=L, T=T, K=1, p=p, q=q, initial_state=initial_state,
         dtype_name="complex64", ancilla_factor=1.0, has_y=False))
     rows, sig = _x_rows(L, uniforms=_uniforms(keys, (T, L)), p=p)
-    got = _x_step_pass_loop(rows, sig, L, q, initial_state, 3).numpy()
+    got = _x_step_pass_loop(rows, sig, L, q, initial_state,
+                            _plan(L, 3)).numpy()
+    assert got.shape == ref.shape == (1, 2, T)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+# --- the resident x forwards (K1, K3a) on the same step passes
+
+def _resident_split(L):
+    """K1's and K3a's split (``floquet_common.cuh::lo_bits``, two passes):
+    pass lo's bits [0, L - L/2), pass hi's the rest."""
+    return L - L // 2, 0
+
+
+@pytest.mark.parametrize("T_", [1, 3])
+def test_resident_forward_scratch_layout(T_):
+    """What K1's and K3a's wrappers hand the kernel beside the rows:
+    ``forward_fold`` of rows 0..T-2, (n, T, 2L) with row 0 zero (T = 1: no
+    cycle runs, one unread row), and zeroed partials (n, T, blocks)."""
+    L = 17
+    rows, _ = _x_rows(L, T_=T_)
+    flat = rows.reshape(-1, *rows.shape[-2:])
+    fold, partials = rb.forward_scratch(flat, L, 5)
+    assert fold.shape == (2, T_, 2 * L) and fold.dtype == torch.float32
+    assert partials.shape == (2, T_, 5) and not partials.any()
+    assert not fold[:, 0].any()
+    torch.testing.assert_close(
+        fold, forward_fold(flat[:, :T_ - 1], L, rb.row_coeffs), rtol=0,
+        atol=0)
+
+
+@pytest.mark.parametrize("q_at", ["lo", "mid", "hi"])
+@pytest.mark.parametrize("initial_state", ["vacuum", "neel"])
+def test_resident_x_step_pass_order_matches_plain(initial_state, q_at):
+    """K1's pass order on its split at L=17 (probes in pass lo's bits, at
+    the split and in pass hi's) against ``blocked_forward_batch_ref``, 2
+    trajectories of different rows."""
+    L = 17
+    q = {"lo": 0, "mid": L // 2, "hi": L - 1}[q_at]
+    rows, sig = _x_rows(L)
+    got = _x_step_pass_loop(rows, sig, L, q, initial_state,
+                            _resident_split(L))
+    want = rb.blocked_forward_batch_ref(rows, sig, THETA, L=L, q=q,
+                                        initial_state=initial_state)
+    assert got.shape == want.shape == (1, 2, T)
+    assert not torch.equal(got[0, 0], got[0, 1])  # the rows differ
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("initial_state", ["vacuum", "neel"])
+def test_resident_x_step_pass_order_matches_reference_interpret(
+        initial_state):
+    """The same loop against JAX's interpret K1 (``blocked_forward_batch``)
+    on the same uniforms, L=17 (1e-4, ``test_torch_resident_blocked.py``'s
+    bound)."""
+    L, q, p = 17, 11, 0.3
+    hs, phis = _disorder(L)
+    keys = jax.random.split(jax.random.PRNGKey(3), 2)[None]
+    ref = np.asarray(j_blocked_forward(
+        jnp.asarray(hs), jnp.asarray(phis), j_sched("x", 0.97, T).angles,
+        keys, L=L, T=T, p=p, q=q, initial_state=initial_state,
+        ancilla_factor=1.0, interpret=True))
+    rows, sig = _x_rows(L, uniforms=_uniforms(keys, (T, L)), p=p)
+    got = _x_step_pass_loop(rows, sig, L, q, initial_state,
+                            _resident_split(L)).numpy()
+    assert got.shape == ref.shape == (1, 2, T)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+RAMP = np.linspace(0.86, 0.99, T)
+
+
+def _ramp(time_dependent):
+    """The (T, 1, 2) x schedule (a ramp whose every cycle differs, or the
+    constant g = 0.97) and K3a's kick table from it, as the wrapper builds
+    it (``ops/resident.py::kick_table``)."""
+    g = torch.from_numpy(RAMP) if time_dependent else 0.97
+    angles = build_kick_schedule("x", g, T).angles
+    cs = rs.kick_table(angles, time_dependent, "cpu")
+    assert cs.shape == ((T, 2) if time_dependent else (1, 2))
+    assert len({tuple(r) for r in cs.tolist()}) == cs.shape[0]
+    return angles, cs
+
+
+@pytest.mark.parametrize("initial_state", ["vacuum", "neel"])
+@pytest.mark.parametrize("time_dependent", [False, True])
+@pytest.mark.parametrize("L", [14, 15])
+def test_resident_x_ramp_step_pass_order_matches_plain(L, time_dependent,
+                                                       initial_state):
+    """K3a's pass order: K1's loop with the step's kick read from the table
+    (cycle k its row k, every row different on the ramp), against
+    ``resident_forward_batch_ref``; probes in pass lo's bits, at the split
+    and in pass hi's."""
+    rows, sig = _x_rows(L)
+    angles, cs = _ramp(time_dependent)
+    for q in (0, L // 2, L - 1):
+        got = _x_step_pass_loop(rows, sig, L, q, initial_state,
+                                _resident_split(L), cs)
+        want = rs.resident_forward_batch_ref(
+            rows, sig, angles, L=L, q=q, initial_state=initial_state,
+            time_dependent=time_dependent)
+        assert got.shape == want.shape == (1, 2, T)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("time_dependent", [False, True])
+def test_resident_x_ramp_step_pass_order_matches_reference_interpret(
+        time_dependent):
+    """The same against JAX's interpret K3a (``resident_forward_batch``) at
+    L=14 on the same uniforms and schedule (1e-4)."""
+    L, q, p = 14, 7, 0.6
+    hs, phis = _disorder(L)
+    keys = jax.random.split(jax.random.PRNGKey(9), 2)[None]
+    _, cs = _ramp(time_dependent)
+    g = jnp.asarray(RAMP) if time_dependent else 0.97
+    ref = np.asarray(j_resident_forward(
+        jnp.asarray(hs), jnp.asarray(phis), j_sched("x", g, T).angles, keys,
+        L=L, T=T, p=p, q=q, initial_state="neel", ancilla_factor=1.0,
+        time_dependent=time_dependent, interpret=True))
+    rows, sig = _x_rows(L, uniforms=_uniforms(keys, (T, L)), p=p)
+    got = _x_step_pass_loop(rows, sig, L, q, "neel", _resident_split(L),
+                            cs).numpy()
     assert got.shape == ref.shape == (1, 2, T)
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)

@@ -792,6 +792,99 @@ def test_resident_wrappers_reject_bad_inputs(cuda_device):
                                   sig, ang, L=14, q=3, time_dependent=True)
 
 
+RESIDENT_FORWARDS = [("K1", 17, False), ("K1", 20, False), ("K1", 23, False),
+                     *[("K3a", L, per_cycle) for L in (14, 16, 20, 21)
+                       for per_cycle in (False, True)]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,L,per_cycle", RESIDENT_FORWARDS)
+def test_resident_forward_kernels_match_plain_on_card(cuda_device, kernel, L,
+                                                      per_cycle):
+    """K1 and K3a (constant x, and K3a's per-cycle ramp) on the step passes
+    of floquet_echo.cuh against their plain versions: probes in pass lo's
+    bits (0, a - 1) and pass hi's (a, L - 1), a = L - L/2; 3 trajectories
+    of different rows; T = 1 (no cycle runs) and T = 57 (past the main
+    paths' 50); one launch a call."""
+    hs, phis = _disorder(L, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(100 + L)
+    a = L - L // 2
+    mod = rb if kernel == "K1" else rs
+    for T, state in ((1, "neel"), (57, "vacuum")):
+        u = torch.rand((1, 3, T, L), generator=gen, device=cuda_device)
+        rows, sig = forward_rows(u, hs[:, None], phis[:, None], L=L, T=T,
+                                 p=0.1)
+        ang = _x_schedule(T, cuda_device, per_cycle)
+        for q in (0, a - 1, a, L - 1):
+            if kernel == "K1":
+                args, kw = (rows, sig, THETA), dict(L=L, q=q,
+                                                    initial_state=state)
+                fn, ref_fn = rb.blocked_forward_batch, \
+                    rb.blocked_forward_batch_ref
+            else:
+                args, kw = (rows, sig, ang), dict(
+                    L=L, q=q, initial_state=state, time_dependent=per_cycle)
+                fn, ref_fn = rs.resident_forward_batch, \
+                    rs.resident_forward_batch_ref
+            before = mod.LAUNCHES["forward"]
+            k = fn(*args, **kw)
+            torch.cuda.synchronize()
+            assert mod.LAUNCHES["forward"] == before + 1
+            ref = ref_fn(*args, **kw)
+            assert k.shape == ref.shape == (1, 3, T)
+            assert float((k - ref).abs().max()) <= TOL, (T, q)
+
+
+@pytest.mark.cuda
+def test_resident_forward_entries_check_their_range(cuda_device):
+    """K1's and K3a's C entries return cudaErrorInvalidValue (1) without a
+    launch for arguments out of their range: L, q, T, the batch, fold rows
+    fewer than T (and K3a's table rows); in range they launch (0)."""
+    from dtc_tpu_torch.ops import _build
+
+    dev = cuda_device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    L, T = 17, 3
+    x = _build.load("floquet_x")
+    res = _build.load("floquet_x_resident")
+    state = torch.zeros((1, 1 << L), dtype=torch.complex64, device=dev)
+    rows = torch.zeros((1, T, 128), device=dev)
+    fold = torch.zeros((1, T, 2 * L), device=dev)
+    cs = torch.tensor([[1.0, 0.0]], device=dev)
+    partials = torch.zeros((1, T, x.floquet_x_forward_partials(L)),
+                           device=dev)
+    assert (res.floquet_x_resident_forward_partials(L)
+            == x.floquet_x_forward_partials(L))
+    out = torch.full((1, T), 7.0, device=dev)
+
+    def k1(L=L, T=T, n=1, fold_rows=T, q=0):
+        return x.floquet_x_forward(
+            state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), n, L, T, fold_rows, q, 0,
+            1.0, 0.0, stream)
+
+    def k3a(L=L, T=T, n=1, fold_rows=T, q=0, tu=1):
+        return res.floquet_x_resident_forward(
+            state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
+            cs.data_ptr(), partials.data_ptr(), out.data_ptr(), n, L, T,
+            fold_rows, tu, q, 0, stream)
+
+    common = (dict(q=L), dict(q=-1), dict(T=0), dict(n=0),
+              dict(fold_rows=T - 1))
+    for call, bad in [(k1, b) for b in (dict(L=16), dict(L=24), *common)] + [
+            (k3a, b) for b in (dict(L=13), dict(L=22), dict(tu=0),
+                               *common)]:
+        assert call(**bad) == 1, (call.__name__, bad)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full_like(out, 7.0))  # nothing ran
+    for call in (k1, k3a):
+        out.fill_(7.0)
+        assert call() == 0
+        torch.cuda.synchronize()
+        # the identity kick (c=1, s=0) on the vacuum: A(t) = z_0 = 1
+        assert torch.equal(out, torch.ones_like(out)), call.__name__
+
+
 @pytest.mark.cuda
 def test_adaptive_on_card_runs_k3_and_matches_cpu(cuda_device, monkeypatch):
     """The adaptive runs at L=14 on the card (kernel stepper, K3) and on

@@ -191,9 +191,9 @@ def _header(name) -> str:
 
 
 # The C that the replay below mirrors, whitespace made single: the pass
-# plans (``lo_bits`` for the resident echoes, ``plan_for`` for the streamed
-# ones, and the columns each entry's ``run_echo``, ``run_steps`` or
-# ``launch_steps`` takes: the streamed lab-frame forward and K10's
+# plans (``lo_bits`` for the resident forwards and echoes, ``plan_for`` for
+# the streamed ones, and the columns each entry's ``run_echo``,
+# ``run_steps`` or ``launch_steps`` takes: the streamed forwards and K10's
 # shard-local forms run the echo's plan), the tile and bits
 # each pass hands ``swz_kick`` (K5's measuring passes, ``obs_lo`` and
 # ``obs_hi``, the same), and ``swz_kick``'s rounds. A change to any of
@@ -206,15 +206,17 @@ MIRRORED = {
         "return {L - c, 0, c}; } const int c = (L - 2) / 3; "
         "return {L - 2 * c, c, c}; }"],
     "floquet_x_resident.cu": [
-        "run_echo<kW>( (float2*)state, L, lo_bits(L), 0,"],
-    "floquet_x.cu": ["run_echo<kW>( (float2*)state, L, lo_bits(L), 0,"],
+        "run_echo<kW>( (float2*)state, L, lo_bits(L), 0,",
+        "run_steps<kW>( (float2*)state, L, lo_bits(L), 0,"],
+    "floquet_x.cu": ["run_echo<kW>( (float2*)state, L, lo_bits(L), 0,",
+                     "run_steps<kW>( (float2*)state, L, lo_bits(L), 0,"],
     "floquet_general.cu": ["run_echo<kW>( (float2*)state, L, lo_bits(L), 0,"],
     "floquet_x_streamed.cu": [
         "const auto run = p.b > 0 ? run_echo<kWideCols, XEcho<WideRows, "
         "ConstKick>> : run_echo<kW, XEcho<WideRows, ConstKick>>;",
         "const auto run = p.b > 0 ? run_steps<kWideCols, "
-        "XEcho<ForwardWideRows, ConstKick>, Times> : run_steps<kW, "
-        "XEcho<ForwardWideRows, ConstKick>, Times>;",
+        "XEcho<ForwardRows, ConstKick>, Times> : run_steps<kW, "
+        "XEcho<ForwardRows, ConstKick>, Times>;",
         "(float2*)state, L, p.a, p.b,"],
     "floquet_general_streamed.cu": [
         "using Forward = GeneralEcho<ForwardRows<kRowWidth>>; "
