@@ -41,8 +41,9 @@ each; any failure raises and the script exits non-zero without a result:
    K8a-d against their plain versions at L_loc = 17, 20, 23 (q = 0, L//2,
    15, L-1; vacuum and neel; chains of T=4 cycles, every partial held; the
    x echo through K8a/K8b and the general echo through K8d at p=0.6 and 0;
-   K8a/K8b on rows folded with non-zero global angles, the echo's K8a
-   without a measure; y, xy, circular_left, xy_cycle for K8c/K8d), and the
+   every K8 kernel on rows folded with non-zero global angles, but the
+   noiseless echoes', the echo's K8a without a measure; y, xy,
+   circular_left, xy_cycle for K8c/K8d), and the
    sharded engines
    (shards sharing the card) against the unsharded kernels on the same
    uniforms: x at L=25 on 4 shards against the streamed x family, xy at
@@ -137,8 +138,10 @@ each; any failure raises and the script exits non-zero without a result:
    main paths' launches, with the peak memory; K3a on the ramp at L=14, 16
    and 20, T=51 x 32, and K3b on 32 pairs at t=12, each beside K4 on the
    same schedule and rows; K8a-d at L_loc=23 on 2 shards x 4 trajectories,
-   one cycle, beside K1 and K4 per cycle at L=23 on 8 trajectories, after
-   the registers and spills of every kernel of ``floquet_cycle.cu``; K9a/K9b
+   one cycle, beside K1 and K4 per cycle at L=23 on 8 trajectories and
+   the torch global diagonal pass K8c/K8d no longer need, after the
+   registers and spills of every kernel of ``floquet_cycle.cu`` and of
+   K8c's and K8d's in ``floquet_general_streamed.cu``; K9a/K9b
    and K10's shard-local forms (y and xy) at L_loc=28 on 2 shards x 2
    trajectories, one cycle, beside K6 and the one-card K10 per cycle at
    L=28 on 4 trajectories, after the registers and spills of every kernel
@@ -233,10 +236,10 @@ KERNELS = [
     ("K8b", "floquet_cycle_inverse", "dtc_tpu_torch/csrc/floquet_cycle.cu",
      "dtc_tpu/ops/pallas_cycle.py:242", None),
     ("K8c", "floquet_cycle_general_forward",
-     "dtc_tpu_torch/csrc/floquet_cycle.cu",
+     "dtc_tpu_torch/csrc/floquet_general_streamed.cu",
      "dtc_tpu/ops/pallas_cycle.py:530", None),
     ("K8d", "floquet_cycle_general_inverse",
-     "dtc_tpu_torch/csrc/floquet_cycle.cu",
+     "dtc_tpu_torch/csrc/floquet_general_streamed.cu",
      "dtc_tpu/ops/pallas_cycle.py:778", None),
     ("K9a", "floquet_cycle_hi_forward",
      "dtc_tpu_torch/csrc/floquet_cycle_hi.cu",
@@ -868,17 +871,18 @@ def cycle_fold(rows, L, seed, inverse=False):
 
 
 def general_fold(rows, L, seed, inverse=False, angles=True):
-    """K10a's folded rows of slot rows (c, K, width) (K10b's of slot pairs
-    (c, K, 2, width) with ``inverse``), with non-zero global angles as
-    ``cycle_fold`` draws them, or none with ``angles=False``."""
-    from dtc_tpu_torch.ops import cycle_hi as chi
+    """K8c's and K10a's folded rows of slot rows (c, K, width) (K8d's and
+    K10b's of slot pairs (c, K, 2, width) with ``inverse``), with non-zero
+    global angles as ``cycle_fold`` draws them, or none with
+    ``angles=False``."""
+    from dtc_tpu_torch.ops import cycle as cy
 
     th = (None, None)
     if angles:
         gen = torch.Generator(device=rows.device).manual_seed(seed)
         th = (torch.rand((2, rows.shape[0]), generator=gen,
                          device=rows.device) - 0.5) * (2 * math.pi)
-    return chi.fold_general_rows(rows, L, *th, inverse=inverse)
+    return cy.fold_general_rows(rows, L, *th, inverse=inverse)
 
 
 def held_chain(what, key, err, steps, L, state, dev, c=2):
@@ -950,10 +954,11 @@ def compare_cycle(dev, err) -> None:
     partial (the first is one cycle's) and the final state held; the x echo
     at t=2 (K8a twice without a measure, the turnaround conjugation, K8b
     twice on the inverse rows) and K8d on every step of the general echo
-    rows at t=2, at p=0.6 and 0 (the noiseless echo = 1). K8a's and K8b's
-    rows are folded with non-zero global angles (``cycle_fold``); at p=0 the
-    echo's have none, as on a (1,1) mesh. These launches are not the main
-    path's."""
+    rows at t=2, at p=0.6 and 0 (the noiseless echo = 1). Every kernel's
+    rows are folded with non-zero global angles (``cycle_fold``,
+    ``general_fold``; q = L-1 is the local top bit, where th_bnd lands); at
+    p=0 the echoes' have none, as on a (1,1) mesh. These launches are not
+    the main path's."""
     from dtc_tpu_torch.core.statevector import basis_index
     from dtc_tpu_torch.ops import cycle as cy
     from dtc_tpu_torch.ops import resident_blocked as rb
@@ -981,13 +986,17 @@ def compare_cycle(dev, err) -> None:
             grows = general_forward_inputs(L, pol, 4, c, 0.6, dev,
                                            seed=L + j)[0]
             K = grows.shape[-2] // 4
-            steps = [(lambda s, r=r.contiguous():
-                      cy.general_cycle_forward_apply(s, r, L=L, K=K, q=q)[1],
-                      lambda s, r=r: cy.general_cycle_forward_apply_ref(
-                          s, r, L=L, K=K, q=q)[1])
-                     for r in grows.reshape(c, 4, K, -1).unbind(1)]
-            held_chain(f"K8c L_loc={L} {pol} T=4 {state} q={q} 1x{c}", "K8c",
-                       err, steps, L, state, dev)
+            steps = [(lambda s, r=r.contiguous(), f=general_fold(
+                          r, L, L + q + k):
+                      cy.general_cycle_forward_apply(s, r, f, L=L, K=K,
+                                                     q=q)[1],
+                      lambda s, r=r, f=general_fold(r, L, L + q + k):
+                      cy.general_cycle_forward_apply_ref(s, r, f, L=L, K=K,
+                                                         q=q)[1])
+                     for k, r in enumerate(grows.reshape(c, 4, K,
+                                                         -1).unbind(1))]
+            held_chain(f"K8c L_loc={L} {pol} T=4 {state} q={q} 1x{c} (global"
+                       " angles)", "K8c", err, steps, L, state, dev)
         q, state = (L // 2, L - 1, 15)[i], ("neel", "vacuum")[i % 2]
         s0 = rb.basis_sign(basis_index(L, state), q)
         zq = rb.angle_table(L, dev)[q]
@@ -1017,13 +1026,18 @@ def compare_cycle(dev, err) -> None:
             pol = drives[(i + 1) % 4]
             tiles = general_echo_inputs(L, pol, 2, c, p, [2], dev, seed=L)
             K = tiles.shape[-2] // 8
-            steps = [(no_partial(lambda s, r=r.contiguous():
-                                 cy.general_cycle_inverse_apply(s, r, L=L,
+            # at p=0 the rows carry no global angles (a (1,1) mesh), so
+            # that the echo is 1
+            steps = [(no_partial(lambda s, r=r.contiguous(), f=general_fold(
+                          r, L, L + k, True, p > 0):
+                                 cy.general_cycle_inverse_apply(s, r, f, L=L,
                                                                 K=K)),
-                      no_partial(lambda s, r=r:
-                                 cy.general_cycle_inverse_apply_ref(s, r, L=L,
-                                                                    K=K)))
-                     for r in tiles.reshape(c, 4, K, 2, -1).unbind(1)]
+                      no_partial(lambda s, r=r, f=general_fold(
+                          r, L, L + k, True, p > 0):
+                                 cy.general_cycle_inverse_apply_ref(
+                                     s, r, f, L=L, K=K)))
+                     for k, r in enumerate(tiles.reshape(c, 4, K, 2,
+                                                         -1).unbind(1))]
             st = held_chain(f"K8d echo L_loc={L} {pol} t=2 p={p} {state} "
                             f"q={q} 1x{c}", "K8d", err, steps, L, state,
                             dev)
@@ -2859,19 +2873,31 @@ def timing_cycle(dev, smi, err) -> dict:
     amplitudes, no shard bits; their time per cycle). Bytes: the shard
     states read and written once (16 B per amplitude) and the rows.
     Operations per amplitude and cycle: 6 L + 6 (K8a, K8b: RX on every bit,
-    one diagonal), per slot 14 L + 6 (K8c) and 14 L + 12 (K8d: two
-    diagonals). State floor: two sweeps per slot. K8a's and K8b's rows are
-    the engines' folded row pairs with a shard's global angles; before the
-    timing, the registers and spills of every kernel of
-    ``floquet_cycle.cu`` (K8a's and K8b's are the ``echo_lo_kernel`` and
-    ``echo_hi_kernel`` instances of ``XEcho<CycleRows, ...>``)."""
+    one diagonal), per slot 14 L + 6 (K8c, K8d: the 2x2 on every bit, one
+    folded diagonal), and 6 more for K8d's row 0. State floor: two sweeps
+    per slot. Every kernel's rows are the engines' folded rows with a
+    shard's global angles; beside K8c/K8d, the torch pass that applied the
+    global diagonal before they carried it (``cycle_hi.global_phase``, once
+    on each shard). Before the timing, the registers and spills of every
+    kernel of ``floquet_cycle.cu`` (K8a's and K8b's are the
+    ``echo_lo_kernel`` and ``echo_hi_kernel`` instances of
+    ``XEcho<CycleRows, ...>``) and K8c's and K8d's instances in
+    ``floquet_general_streamed.cu`` (``GeneralEcho<ForwardRows<128>>`` with
+    ``Times``, ``GeneralEcho<SlotPairRows<128>>``; their 4-column ones run
+    here)."""
     from dtc_tpu_torch.ops import cycle as cy
+    from dtc_tpu_torch.ops import cycle_hi as chi
     from dtc_tpu_torch.ops import resident_blocked as rb
     from dtc_tpu_torch.ops import resident_general as rg
 
     for kernel, regs, st, ld in ptxas_kernels("floquet_cycle"):
         phase(f"[build] floquet_cycle.cu {kernel}: {regs} registers, "
               f"spill stores {st} B, spill loads {ld} B")
+    for kernel, regs, st, ld in ptxas_kernels("floquet_general_streamed"):
+        if "ForwardRowsILi128" in kernel or "SlotPairRowsILi128" in kernel:
+            phase(f"[build] floquet_general_streamed.cu (K8c/K8d) {kernel}: "
+                  f"{regs} registers, spill stores {st} B, spill loads "
+                  f"{ld} B")
     L, c, n_sh = 23, 4, 2
     N = 1 << L
     gen = torch.Generator(device=dev).manual_seed(23)
@@ -2893,11 +2919,13 @@ def timing_cycle(dev, smi, err) -> dict:
                 cy.cycle_inverse_apply_ref,
                 (fold_i, THETA), dict(L=L), 1, 6 * L + 6),
         "K8c": ("forward xy", cy.general_cycle_forward_apply,
-                cy.general_cycle_forward_apply_ref, (grows,),
+                cy.general_cycle_forward_apply_ref,
+                (grows, general_fold(grows, L, 23)),
                 dict(L=L, K=2, q=L // 2), 2, 14 * L + 6),
         "K8d": ("inverse xy", cy.general_cycle_inverse_apply,
-                cy.general_cycle_inverse_apply_ref, (tiles,), dict(L=L, K=2),
-                2, 14 * L + 12),
+                cy.general_cycle_inverse_apply_ref,
+                (tiles, general_fold(tiles, L, 24, inverse=True)),
+                dict(L=L, K=2), 2, 14 * L + 6),
     }
     out = {}
     for key, (what, kernel, plain, args, kw, K, flops) in cases.items():
@@ -2906,11 +2934,21 @@ def timing_cycle(dev, smi, err) -> dict:
         k_ms, _ = time_ms(lambda: [kernel(s, *args, **kw) for s in a])
         p_ms, _ = time_ms(lambda: [plain(s, *args, **kw) for s in a], 1)
         amp_steps = n_sh * c * K * N
-        io_bytes = 16 * n_sh * c * N + 4 * args[0].numel()
+        io_bytes = 16 * n_sh * c * N + 4 * sum(
+            x.numel() for x in args if torch.is_tensor(x))
+        # K8d's row 0 (the first pre diagonal) before its first kick
+        extra = 6 * n_sh * c * N if key == "K8d" else 0
         out[key] = report(key, f"{what} L_loc={L} {n_sh} shards x {c} traj, "
                           f"one cycle ({K} slot{'s' * (K > 1)})", k_ms, p_ms,
-                          amp_steps, "cycles", 1, io_bytes, flops, smi)
+                          amp_steps, "cycles", 1, io_bytes, flops, smi,
+                          extra_ops=extra)
         del a
+    th = torch.rand((2, c), generator=gen, device=dev)
+    g_ms, _ = time_ms(lambda: [chi.global_phase(s, *th) for s in start])
+    phase(f"[timing] K8c/K8d's former torch pass, global_phase once on each"
+          f" of the {n_sh} shards x {c} at L_loc={L}: {g_ms:.3f} ms (K8c "
+          f"{out['K8c']['ms']:.3f} ms and K8d {out['K8d']['ms']:.3f} ms now "
+          f"carry it in their rows) on {smi}")
     T = 9
     rows1, sig = forward_inputs(L, T, n_sh * c, P, dev, seed=25)
     k1_ms, _ = time_ms(lambda: rb.blocked_forward_batch(rows1, sig, THETA,

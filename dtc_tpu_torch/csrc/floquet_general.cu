@@ -55,8 +55,7 @@
 // memory. Reductions are deterministic (floquet_common.cuh). The row lanes,
 // the kick matrices and the butterflies are in floquet_lab.cuh, shared with
 // the large-L lab-frame family (floquet_general_streamed.cu); the forward's
-// two passes in floquet_general_pass.cuh, shared with K8c/K8d
-// (floquet_cycle.cu).
+// two passes in floquet_general_pass.cuh, which no other kernel uses.
 
 #include "floquet_common.cuh"
 #include "floquet_lab.cuh"

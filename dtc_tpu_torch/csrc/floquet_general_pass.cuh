@@ -1,7 +1,7 @@
-// The two passes of one lab-frame step, shared by floquet_general.cu (K4's
-// forward over whole trajectories; its step rows also feed K4's echo and
-// K5 on the step passes of floquet_echo.cuh) and floquet_cycle.cu (K8c/K8d:
-// the K slots of one cycle on a shard's local bits):
+// The two passes of one lab-frame step of K4's forward over whole
+// trajectories (floquet_general.cu, its only user), and the step rows that
+// floquet_general.cu's PairRows (K4's echo) and ObsRows (K5) read on the
+// step passes of floquet_echo.cuh:
 //   pass lo: a block owns 2^k1 consecutive amplitudes and applies the
 //            [pre diagonal and] kick on bits [0, k1) in shared memory;
 //   pass hi: a block owns kW low columns x all 2^n2 high values, applies

@@ -2,12 +2,13 @@
 // (sm_90a), any kick schedule: forward A(t) and echo A0(t) of the
 // kicked-Ising chain under y, xy, yx, circular and xy-cycle drives and
 // per-cycle x schedules (K kick slots per cycle), the state streamed
-// through device memory; and their shard-local forms, one cycle on the
-// local bits of a batch of amplitude shards (22 <= L_loc <= 30), for the
-// amplitude-sharded engines (dtc_tpu_torch/parallel/sharded.py).
+// through device memory; and the per-shard lab-frame cycle kernels, one
+// cycle on the local bits of a batch of amplitude shards, for the
+// amplitude-sharded engines (dtc_tpu_torch/parallel/sharded.py): K8c/K8d
+// at 17 <= L_loc <= 23 and K10's shard-local forms at 22 <= L_loc <= 30.
 //
-// Replaces, as one family with a forward and an echo entry and a
-// shard-local forward and inverse entry,
+// Replaces, as one family with a forward and an echo entry and two
+// per-shard forward and inverse entries,
 //   K10a dtc_tpu/ops/pallas_cycle_hi_general.py::_make_general_hi_cycle_kernel
 //        (entry general_hi_cycle_forward_apply, one forward cycle)
 //   K10b dtc_tpu/ops/pallas_cycle_hi_general.py::
@@ -17,7 +18,12 @@
 // _singlechip_general_forward / _singlechip_general_echo: the cycle scans of
 // parallel/sharded.py make_sharded_autocorr_forward_general and
 // make_sharded_echo_general on one rank, where every bit is local), and as
-// its sharded engines run them, one cycle a launch on each shard.
+// its sharded engines run them, one cycle a launch on each shard; and
+//   K8c  dtc_tpu/ops/pallas_cycle.py::_make_general_cycle_kernel
+//        (entry general_cycle_forward_apply, one forward cycle)
+//   K8d  dtc_tpu/ops/pallas_cycle.py::_make_general_inverse_cycle_kernel
+//        (entry general_cycle_inverse_apply, one daggered cycle)
+// the same per-shard cycle where a shard is small enough for K2's plan.
 //
 // What is ported is K4's math (floquet_general.cu) on the streamed x
 // family's pass plan (floquet_plan.cuh), not the TPU design (no r2 blocks,
@@ -55,22 +61,24 @@
 // their kick rows from step_rows (floquet_general_streamed_pass.cuh), on
 // rows of W = 128 lanes (256 for the shard-local forms at L_loc = 30).
 //
-// The shard-local forms run K steps (one cycle) from the shard states as
-// they are, on the same passes and plan:
-// - K10a, shard-local: the kick of slot row k, then folded row k + 1
+// The per-shard forms run K steps (one cycle) from the shard states as
+// they are, on the same passes, K8c/K8d on K2's plan (floquet_echo.cuh: a
+// = L - L/2, b = 0, 4 columns; for K1 it beat plan_for's two-pass split
+// by 5-10 %, PERF.md section 6), K10's shard-local forms on the streamed plan:
+// - K8c, K10a shard-local: the kick of slot row k, then folded row k + 1
 //   (forward_fold of the K slot rows; row 0 not read, Fold::pre0 false);
 //   the final slot's row K also carries the shard's global diagonal (th_sc
 //   in c0, the boundary bond's th_bnd in cz[L-1], on the local top bit,
-//   which lies in pass hi's tile; ops/cycle_hi.py::fold_general_rows), and
+//   which lies in pass hi's tile; ops/cycle.py::fold_general_rows), and
 //   its MPOS 0 is measured in pass hi's store (Times, T = 1), one reduce;
-// - K10b, shard-local: the K (pre, post) slot pairs' fold_rows (COUNT =
-//   K), row 0 the first pre diagonal plus the shard's daggered global
+// - K8d, K10b shard-local: the K (pre, post) slot pairs' fold_rows (COUNT
+//   = K), row 0 the first pre diagonal plus the shard's daggered global
 //   diagonal, before the first kick in pass lo (Fold::pre0 true); every
 //   step runs, so the rows need no COUNT, and nothing is measured.
 // The shard-bit kicks, the rest of the cycle, are the caller's: they
 // commute with the local kicks and diagonals, so the engines run them
-// before each K10a and after each K10b, and z_q of a local bit commutes
-// with them.
+// before each forward and after each inverse launch, and z_q of a local
+// bit commutes with them.
 //
 // What bounds it on this card: a state is 2^L complex64, 32 MiB at L=22 and
 // 4 GiB at L=29 (a shard 8 GiB at L_loc = 30), so every step streams it
@@ -82,6 +90,8 @@
 //
 // Every offset that can pass 2^31 (state, tile rows, blocks, rows of a
 // batch, partials) is 64-bit: one shard at L_loc = 30 is 2^30 amplitudes.
+// K8c/K8d's shards (64 MiB at L_loc = 23) fit the L2 no better than a
+// one-card state at L = 23: the same two sweeps a step bound them.
 
 #include "floquet_common.cuh"
 #include "floquet_echo.cuh"
@@ -113,7 +123,8 @@ struct PairRows {
   }
 };
 
-// K10b shard-local's slot pairs: the same layout, every step active.
+// K8d's and K10b shard-local's slot pairs: the same layout, every step
+// active.
 template <int W>
 struct SlotPairRows {
   __device__ __forceinline__ StepRows at(const float* rows, int L,
@@ -123,8 +134,9 @@ struct SlotPairRows {
   }
 };
 
-// K10's forward step rows for GeneralEcho: every step active, the kick of
-// row `step`, measured into the time its MPOS names (-1: none).
+// K10's forward step rows for GeneralEcho (also K8c's and K10a
+// shard-local's slot rows): every step active, the kick of row `step`,
+// measured into the time its MPOS names (-1: none).
 template <int W>
 struct ForwardRows {
   __device__ __forceinline__ StepRows at(const float* rows, int L,
@@ -143,16 +155,23 @@ struct ForwardRows {
 using Forward = GeneralEcho<ForwardRows<kRowWidth>>;
 using Echo = GeneralEcho<PairRows<kRowWidth>>;
 
-// Steps [0, K) of n shard states on the streamed plan with GeneralEcho on
-// rows of W lanes: 16-column strided tiles on the three-pass plan, 4 on
-// the two-pass one (256-lane rows come only at L_loc = 30, three passes:
-// local_range).
+// K8c/K8d's range: L_loc = 17..23, K >= 1 slots, rows of 128 lanes (the
+// flag lanes up to FO + 10 = 4L + 9 stay below lane 128).
+bool cycle_range(int L, int q, int K) {
+  return 17 <= L && L <= 23 && 0 <= q && q < L && K >= 1;
+}
+
+// K2's plan (floquet_echo.cuh): two passes, a = L - L/2, 4 columns.
+Plan resident_plan(int L) { return {lo_bits(L), 0, L - lo_bits(L)}; }
+
+// Steps [0, K) of n shard states on the plan p with GeneralEcho on rows of
+// W lanes: 16-column strided tiles on a three-pass plan, 4 on a two-pass
+// one (256-lane rows come only at L_loc = 30, three passes: local_range).
 template <int W, template <int> class Rows, class M>
-cudaError_t cycle_steps(float2* st, int L, const float* rows,
+cudaError_t cycle_steps(float2* st, int L, Plan p, const float* rows,
                         int64_t rows_per_pair, Fold fold, int n, int K, M m,
                         cudaStream_t stream) {
   using P = GeneralEcho<Rows<W>>;
-  const Plan p = plan_for(L);
   if (p.b > 0) {
     return launch_steps<kWideCols, P, M>(st, L, p.a, p.b, rows,
                                          rows_per_pair, fold, n, 0, K, P{}, m,
@@ -163,6 +182,46 @@ cudaError_t cycle_steps(float2* st, int L, const float* rows,
                                   n, 0, K, P{}, m, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+// One forward cycle (K8c, K10a shard-local) on the plan p: the K slot
+// steps on rows n x K x width with their folded rows n x (K+1) x 2L, the
+// final slot measured into partials (n x streamed_hi_blocks(p.a, p.b)),
+// one fixed-order reduce into out (n).
+cudaError_t cycle_forward(void* state, const void* rows, const void* fold,
+                          void* partials, void* out, int n, int L, Plan p,
+                          int width, int K, int q, cudaStream_t stream) {
+  const Fold f{(const float*)fold, (int64_t)(K + 1) * 2 * L, false};
+  const Times m{(float*)partials, q, 1};
+  const cudaError_t e =
+      width == kRowWidth
+          ? cycle_steps<kRowWidth, ForwardRows>((float2*)state, L, p,
+                                                (const float*)rows, K, f, n,
+                                                K, m, stream)
+          : cycle_steps<2 * kRowWidth, ForwardRows>((float2*)state, L, p,
+                                                    (const float*)rows, K, f,
+                                                    n, K, m, stream);
+  if (e != cudaSuccess) return e;
+  reduce_rows_kernel<<<n, kThreads, 0, stream>>>(
+      (const float*)partials, streamed_hi_blocks(p.a, p.b), (float*)out, 1,
+      0);
+  return cudaGetLastError();
+}
+
+// One daggered cycle (K8d, K10b shard-local) on the plan p: the K slot
+// pairs' steps on tiles n x K x 2 x width with their folded rows n x
+// (K+1) x 2L, row 0 before the first kick.
+cudaError_t cycle_inverse(void* state, const void* tiles, const void* fold,
+                          int n, int L, Plan p, int width, int K,
+                          cudaStream_t stream) {
+  const Fold f{(const float*)fold, (int64_t)(K + 1) * 2 * L, true};
+  return width == kRowWidth
+             ? cycle_steps<kRowWidth, SlotPairRows>(
+                   (float2*)state, L, p, (const float*)tiles, 2 * K, f, n, K,
+                   NoTimes{}, stream)
+             : cycle_steps<2 * kRowWidth, SlotPairRows>(
+                   (float2*)state, L, p, (const float*)tiles, 2 * K, f, n, K,
+                   NoTimes{}, stream);
 }
 
 }  // namespace
@@ -242,7 +301,7 @@ int floquet_general_streamed_echo(void* state, const void* tiles,
 // K x width f32 slot rows (width 128, or 256 at L = 30; MPOS -1 on slots
 // 0..K-2, 0 on slot K-1); fold: n x (K+1) x 2L f32, the slots' diagonals
 // with the shard's global diagonal on row K
-// (ops/cycle_hi.py::fold_general_rows); partials: n x
+// (ops/cycle.py::fold_general_rows); partials: n x
 // floquet_general_streamed_partials(L) f32 scratch; out: n f32, sum
 // |psi|^2 z_q after the cycle.
 int floquet_cycle_hi_general_forward(void* state, const void* rows,
@@ -250,41 +309,55 @@ int floquet_cycle_hi_general_forward(void* state, const void* rows,
                                      void* out, int n, int L, int width,
                                      int K, int q, void* stream_ptr) {
   if (!local_range(L, q, width, K)) return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const Fold f{(const float*)fold, (int64_t)(K + 1) * 2 * L, false};
-  const Times m{(float*)partials, q, 1};
-  const cudaError_t e =
-      width == kRowWidth
-          ? cycle_steps<kRowWidth, ForwardRows>((float2*)state, L,
-                                                (const float*)rows, K, f, n,
-                                                K, m, stream)
-          : cycle_steps<2 * kRowWidth, ForwardRows>((float2*)state, L,
-                                                    (const float*)rows, K, f,
-                                                    n, K, m, stream);
-  if (e != cudaSuccess) return (int)e;
-  reduce_rows_kernel<<<n, kThreads, 0, stream>>>(
-      (const float*)partials, floquet_general_streamed_partials(L),
-      (float*)out, 1, 0);
-  return (int)cudaGetLastError();
+  return (int)cycle_forward(state, rows, fold, partials, out, n, L,
+                            plan_for(L), width, K, q,
+                            (cudaStream_t)stream_ptr);
 }
 
 // K10b, shard-local. state: n x 2^L complex64, updated in place; tiles: n x
 // K x 2 x width f32, per slot the (pre, post) rows (the pre row's kick);
 // fold: n x (K+1) x 2L f32, their folded diagonals with the shard's
-// daggered global diagonal on row 0 (ops/cycle_hi.py::fold_general_rows).
+// daggered global diagonal on row 0 (ops/cycle.py::fold_general_rows).
 int floquet_cycle_hi_general_inverse(void* state, const void* tiles,
                                      const void* fold, int n, int L,
                                      int width, int K, void* stream_ptr) {
   if (!local_range(L, 0, width, K)) return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const Fold f{(const float*)fold, (int64_t)(K + 1) * 2 * L, true};
-  return (int)(width == kRowWidth
-                   ? cycle_steps<kRowWidth, SlotPairRows>(
-                         (float2*)state, L, (const float*)tiles, 2 * K, f, n,
-                         K, NoTimes{}, stream)
-                   : cycle_steps<2 * kRowWidth, SlotPairRows>(
-                         (float2*)state, L, (const float*)tiles, 2 * K, f, n,
-                         K, NoTimes{}, stream));
+  return (int)cycle_inverse(state, tiles, fold, n, L, plan_for(L), width, K,
+                            (cudaStream_t)stream_ptr);
+}
+
+// Partials per state K8c allocates (pass hi's blocks on K2's plan).
+int floquet_cycle_general_partials(int L) {
+  const Plan p = resident_plan(L);
+  return streamed_hi_blocks(p.a, p.b);
+}
+
+// K8c. state: n x 2^L complex64, updated in place; rows: n x K x 128 f32
+// slot rows (MPOS -1 on slots 0..K-2, 0 on slot K-1); fold: n x (K+1) x
+// 2L f32, the slots' diagonals with the shard's global diagonal on row K
+// (ops/cycle.py::fold_general_rows); partials: n x
+// floquet_cycle_general_partials(L) f32 scratch; out: n f32, sum |psi|^2
+// z_q after the cycle.
+int floquet_cycle_general_forward(void* state, const void* rows,
+                                  const void* fold, void* partials, void* out,
+                                  int n, int L, int K, int q,
+                                  void* stream_ptr) {
+  if (!cycle_range(L, q, K)) return (int)cudaErrorInvalidValue;
+  return (int)cycle_forward(state, rows, fold, partials, out, n, L,
+                            resident_plan(L), kRowWidth, K, q,
+                            (cudaStream_t)stream_ptr);
+}
+
+// K8d. state: n x 2^L complex64, updated in place; tiles: n x K x 2 x 128
+// f32, per slot the (pre, post) rows (the pre row's kick); fold: n x
+// (K+1) x 2L f32, their folded diagonals with the shard's daggered global
+// diagonal on row 0 (ops/cycle.py::fold_general_rows).
+int floquet_cycle_general_inverse(void* state, const void* tiles,
+                                  const void* fold, int n, int L, int K,
+                                  void* stream_ptr) {
+  if (!cycle_range(L, 0, K)) return (int)cudaErrorInvalidValue;
+  return (int)cycle_inverse(state, tiles, fold, n, L, resident_plan(L),
+                            kRowWidth, K, (cudaStream_t)stream_ptr);
 }
 
 }  // extern "C"

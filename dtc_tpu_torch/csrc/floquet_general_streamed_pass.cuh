@@ -1,7 +1,7 @@
 // The step rows of the streamed lab-frame family (floquet_general_streamed.cu:
 // K10a's forward and K10b's echo of whole trajectories, 22 <= L <= 29, and
-// K10's shard-local forms, one cycle on a shard's local bits,
-// 22 <= L_loc <= 30): where a pair's step finds its kick row, and whether
+// the per-shard cycles, one cycle on a shard's local bits: K8c/K8d at
+// 17 <= L_loc <= 23, K10's shard-local forms at 22 <= L_loc <= 30): where a pair's step finds its kick row, and whether
 // the step runs. The step passes of floquet_echo.cuh read them through the
 // family's readers (GeneralEcho, floquet_general_echo.cuh);
 // floquet_general_streamed.cu says what bounds them.

@@ -5,9 +5,10 @@ is one library: ``floquet_x`` (K1/K2), ``floquet_x_resident`` (K3a/K3b,
 constant or per-cycle x at 14 <= L <= 21), ``floquet_x_streamed`` (the
 large-L x family that replaces K6a/K6b/K7a/K7b), ``floquet_general`` (K4,
 K5), ``floquet_general_streamed`` (the large-L lab-frame family,
-K10a/K10b, and K10's shard-local forms, one cycle on a shard's local bits,
-22 <= L_loc <= 30), ``floquet_cycle`` (K8a-d, one cycle on a shard's local
-bits, 17 <= L_loc <= 23), ``floquet_cycle_hi`` (K9a/K9b, one x cycle on a
+K10a/K10b, and the per-shard lab-frame cycles, one cycle on a shard's
+local bits: K8c/K8d at 17 <= L_loc <= 23, K10's shard-local forms at
+22 <= L_loc <= 30), ``floquet_cycle`` (K8a/K8b, one x cycle on a shard's
+local bits, 17 <= L_loc <= 23), ``floquet_cycle_hi`` (K9a/K9b, one x cycle on a
 shard's local bits, 22 <= L_loc <= 30) and
 ``noise_factor`` (K11, the planar engine's per-cycle noise factor). A source is
 compiled at first use with nvcc for sm_90a into a shared library under
@@ -95,15 +96,17 @@ LIBRARIES = {
                                              _I32, _I32, _I32, _I32, _VP],
         "floquet_cycle_hi_general_inverse": [_VP, _VP, _VP, _I32, _I32, _I32,
                                              _I32, _VP],
+        "floquet_cycle_general_partials": [_I32],
+        "floquet_cycle_general_forward": [_VP, _VP, _VP, _VP, _VP, _I32,
+                                          _I32, _I32, _I32, _VP],
+        "floquet_cycle_general_inverse": [_VP, _VP, _VP, _I32, _I32, _I32,
+                                          _VP],
     },
     "floquet_cycle": {
         "floquet_cycle_partials": [_I32],
         "floquet_cycle_forward": [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _F32,
                                   _F32, _VP],
         "floquet_cycle_inverse": [_VP, _VP, _I32, _I32, _F32, _F32, _VP],
-        "floquet_cycle_general_forward": [_VP, _VP, _VP, _VP, _I32, _I32,
-                                          _I32, _I32, _VP],
-        "floquet_cycle_general_inverse": [_VP, _VP, _I32, _I32, _I32, _VP],
     },
     "floquet_cycle_hi": {
         "floquet_cycle_hi_partials": [_I32],

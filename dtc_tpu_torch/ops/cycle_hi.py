@@ -28,20 +28,21 @@ whose policy they share:
 - K10a, shard-local, ``general_hi_cycle_forward_apply``: a lab-frame cycle
   of K slot rows (``ops/params_general.py`` at ``general_hi_width(L_loc)``:
   256 lanes at L_loc = 30), each slot's kick then its diagonal from the
-  folded rows (``fold_general_rows``: the slots' diagonals, the shard's
-  global diagonal on the final slot's), and its partial after the final
-  slot;
+  folded rows (``cycle.fold_general_rows``, as K8c's: the slots'
+  diagonals, the shard's global diagonal on the final slot's), and its
+  partial after the final slot;
 - K10b, shard-local, ``general_hi_cycle_inverse_apply``: a daggered
   lab-frame cycle, per slot a (pre, post) row pair (K4's echo layout), the
-  diagonals folded (``fold_general_rows(..., inverse=True)``: the shard's
-  daggered global diagonal with the first pre diagonal, before the first
-  kick).
+  diagonals folded (``cycle.fold_general_rows(..., inverse=True)``: the
+  shard's daggered global diagonal with the first pre diagonal, before the
+  first kick).
 
 The reference's split (re, im) state at L_loc = 30 and its per-call
 trajectory chunks exist for the TPU's 2^32-byte DMA offset wrap and are not
 ported: states are flat (n, 2^L_loc) complex64 with 64-bit offsets, and
 the caller sizes its launches (``parallel/sharded.py``). K10a's MPOS flag
-lane is set here, on a copy of the rows: the reference's rows carry none.
+lane is set on a copy of the rows (``cycle.measured_rows``): the
+reference's rows carry none.
 Every entry updates ``state`` in place and returns it. A tensor on the CPU
 goes to the plain version (``*_ref``); a CUDA tensor launches the kernel or
 raises. Each entry counts its kernel launches in ``LAUNCHES``; the plain
@@ -65,18 +66,11 @@ import torch
 from dtc_tpu_torch.ops import cycle
 from dtc_tpu_torch.ops import cycle_hi_general as chg
 from dtc_tpu_torch.ops import resident_blocked as rb
-from dtc_tpu_torch.ops import resident_general as rg
 from dtc_tpu_torch.ops import streamed as sm
-from dtc_tpu_torch.ops.echo_fold import fold_rows, forward_fold
 from dtc_tpu_torch.ops.kick import apply_uniform_1q_layer
-from dtc_tpu_torch.ops.params_general import (
-    LANE_MPOS,
-    flag_base,
-    general_hi_width,
-)
+from dtc_tpu_torch.ops.params_general import general_hi_width
 
-LIBRARY = "floquet_cycle_hi"  # K9a/K9b
-LIBRARY_GENERAL = "floquet_general_streamed"  # K10's shard-local forms
+LIBRARY = "floquet_cycle_hi"  # K9a/K9b; K10's: cycle.LIBRARY_GENERAL
 MIN_L, MAX_L = 22, 30
 MIN_ROUTE_L = 24  # the reference's DTC_TPU_SHARDED_HI_MIN_LB default
 
@@ -114,46 +108,16 @@ def _check(state, rows, L: int, lead: tuple, width: int) -> int:
 def global_phase(state, th_sc, th_bnd, sign: float = 1.0):
     """exp(i sign (th_sc + th_bnd z_top)) on each state of (n, 2^L) in place,
     z_top the sign of its top bit: a shard's global diagonal (th_sc, th_bnd
-    (n,), ``parallel/sharded.py::_tail_phase_angles``), as the lab-frame
-    engines apply it (``parallel/sharded.py::_global_diag``)."""
+    (n,), ``parallel/sharded.py::_tail_phase_angles``): the torch form of
+    what the per-shard lab-frame kernels carry in their folded rows
+    (``cycle.fold_general_rows``), which the tests hold them against
+    (``parallel/sharded.py::_global_diag``); no engine calls it."""
     ones = torch.ones_like(th_sc)
     f = torch.stack([torch.polar(ones, sign * (th_sc + th_bnd)),
                      torch.polar(ones, sign * (th_sc - th_bnd))], -1)
     n, M = state.shape
     state.view(n, 2, M >> 1).mul_(f.to(state.device)[:, :, None])
     return state
-
-
-def fold_general_rows(rows, L: int, th_sc=None, th_bnd=None, *,
-                      inverse: bool = False) -> torch.Tensor:
-    """K10's shard-local folded rows: (..., K, width) slot rows (K10a) or
-    (..., K, 2, width) (pre, post) slot pairs (K10b, ``inverse=True``) at
-    L = L_loc -> (..., K + 1, 2L) f32 diagonal rows (cz [0, L), cb
-    [L, 2L-1), c0 at 2L-1), the lab-frame ``row_coeffs`` in f64, rounded
-    once: K10a's row 0 zero (not read), row k + 1 slot k's diagonal
-    (``echo_fold.forward_fold``); K10b's row 0 the first pre diagonal, row
-    k + 1 post(k) + pre(k + 1), row K the last post (``echo_fold.fold_rows``
-    with COUNT = K). th_sc and th_bnd, broadcastable against the rows'
-    leading shape, are a shard's global diagonal exp(i (th_sc + th_bnd
-    z_{L-1})) (``parallel/sharded.py::_tail_phase_angles``), as the launch
-    applies it: th_sc joins c0 and th_bnd cz[L-1] of K10a's row K (after
-    the final slot) or K10b's row 0 (before the first kick; the caller
-    negates them to dagger it)."""
-    lead = rows.shape[:-3 if inverse else -2]
-    K = rows.shape[len(lead)]
-    flat = rows.reshape(-1, (2 if inverse else 1) * K, rows.shape[-1])
-    if inverse:
-        count = torch.full((flat.shape[0],), K, device=rows.device)
-        fold = fold_rows(flat, count, L, rg.row_coeffs, torch.float64)
-    else:
-        fold = forward_fold(flat, L, rg.row_coeffs, torch.float64)
-    fold, at = fold.reshape(*lead, K + 1, 2 * L), 0 if inverse else -1
-    if th_sc is not None:
-        lead = torch.broadcast_shapes(fold.shape[:-2], th_sc.shape)
-        fold = fold.expand(*lead, *fold.shape[-2:]).clone()
-        fold[..., at, 2 * L - 1] += th_sc.to(fold.device, torch.float64)
-        fold[..., at, L - 1] += th_bnd.to(fold.device, torch.float64)
-    return fold.to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -239,18 +203,6 @@ def general_hi_cycle_inverse_apply_ref(state, tiles, fold, *, L, K):
 
 
 # ---------------------------------------------------------------------------
-# the flag lane K10a's kernel reads, set on a copy of the rows
-
-
-def measured_rows(rows, L: int, K: int) -> torch.Tensor:
-    """K10a's rows: MPOS -1 on slots 0..K-2, 0 on the final slot."""
-    rows = rows.clone()
-    rows[:, :, flag_base(L) + LANE_MPOS] = -1.0
-    rows[:, K - 1, flag_base(L) + LANE_MPOS] = 0.0
-    return rows
-
-
-# ---------------------------------------------------------------------------
 # kernel entries
 
 
@@ -304,34 +256,20 @@ def hi_cycle_inverse_apply(state, rows, theta, *, L):
     return state
 
 
-def _general_inputs(state, rows, fold, what: str, lead: tuple, L: int,
-                    K: int):
-    """(n, the library, the stream, the row width) after the shape and CUDA
-    checks of K10's shard-local entries."""
-    width = general_hi_width(L)
-    n = _check(state, rows, L, lead, width)
-    cycle._check_rows(fold, n, (K + 1,), 2 * L)
-    rb.check_cuda_input("fold", fold, 2, 2 * L)
-    if fold.device != state.device:
-        raise ValueError(f"{what}: fold must be on the state's device")
-    n, lib, stream = cycle._cuda_inputs(state, rows, what, LIBRARY_GENERAL,
-                                        width)
-    return n, lib, stream, width
-
-
 def general_hi_cycle_forward_apply(state, rows, fold, *, L, K, q):
     """One lab-frame cycle (K10a, shard-local): rows (n, K,
     general_hi_width(L)), K4's step rows at L = L_loc; fold (n, K + 1, 2L)
-    their diagonals (``fold_general_rows``, with the shard's global angles
-    on the final slot). Returns (state, the partial sum |psi|^2 z_q (n,)
-    after the final slot)."""
+    their diagonals (``cycle.fold_general_rows``, with the shard's global
+    angles on the final slot). Returns (state, the partial sum |psi|^2 z_q
+    (n,) after the final slot)."""
     if rb.route(state, "streamed cycle") == "plain":
         return general_hi_cycle_forward_apply_ref(state, rows, fold, L=L,
                                                   K=K, q=q)
     check_range(L, q)
-    n, lib, stream, width = _general_inputs(
-        state, rows, fold, "general hi cycle forward", (K,), L, K)
-    rows = measured_rows(rows, L, K)
+    width = general_hi_width(L)
+    n, lib, stream = cycle._general_inputs(
+        state, rows, fold, "general hi cycle forward", (K,), L, K, width)
+    rows = cycle.measured_rows(rows, L, K)
     partials = torch.empty((n, lib.floquet_general_streamed_partials(L)),
                            dtype=torch.float32, device=state.device)
     out = torch.empty((n,), dtype=torch.float32, device=state.device)
@@ -347,14 +285,15 @@ def general_hi_cycle_inverse_apply(state, tiles, fold, *, L, K):
     """One daggered lab-frame cycle (K10b, shard-local): tiles (n, K, 2,
     general_hi_width(L)), per slot the (pre, post) rows of K4's echo
     layout; fold (n, K + 1, 2L) their folded diagonals
-    (``fold_general_rows(..., inverse=True)``, with the shard's daggered
-    global angles before the first kick). Returns state."""
+    (``cycle.fold_general_rows(..., inverse=True)``, with the shard's
+    daggered global angles before the first kick). Returns state."""
     if rb.route(state, "streamed cycle") == "plain":
         return general_hi_cycle_inverse_apply_ref(state, tiles, fold, L=L,
                                                   K=K)
     check_range(L)
-    n, lib, stream, width = _general_inputs(
-        state, tiles, fold, "general hi cycle inverse", (K, 2), L, K)
+    width = general_hi_width(L)
+    n, lib, stream = cycle._general_inputs(
+        state, tiles, fold, "general hi cycle inverse", (K, 2), L, K, width)
     err = lib.floquet_cycle_hi_general_inverse(
         state.data_ptr(), tiles.data_ptr(), fold.data_ptr(), n, L, width, K,
         stream)

@@ -47,10 +47,9 @@ from it up to 30), as the reference switches at its
 wide and lab-frame rows ``general_hi_width(L_loc)``. The shard-bit kicks
 are torch tensor ops between the launches. A shard's global diagonal (the
 shard-bit terms and the boundary bond phi[L_loc-1]) rides in the launch's
-folded rows (K8a/K8b, K9a/K9b and K10's shard-local forms), its angles
-built once a run for every step and shard; only K8c/K8d, which take no
-folded rows, leave it to a torch pass (``cycle_hi.global_phase``) beside
-the launch.
+folded rows (every per-shard kernel: K8a-d, K9a/K9b and K10's shard-local
+forms), its angles built once a run for every step and shard; no engine
+applies it as a torch pass.
 
 Device noise: the lab-frame cycle-kernel engines take ``device=(p_1q,
 p_2q, events_per_kick)`` with p == 0, as the reference's do. The
@@ -281,8 +280,9 @@ def _global_diag(st, zm_t, sig_t, hs, phis, aidx, *, L, local_bits,
                  sign=1.0):
     """Global diagonal factors of one cycle on shard ``aidx``: the
     per-trajectory scalar phase and the boundary bond's split on the local
-    top bit (the upper half of the flat shard), in place on ``st`` (the
-    cycle-kernel engines own their shards). ``sign=-1`` daggers it."""
+    top bit (the upper half of the flat shard), in place on ``st``, as a
+    torch pass: the oracle the tests hold the per-shard kernels' folded
+    rows against (no engine calls it). ``sign=-1`` daggers it."""
     th_sc, th_bnd = _tail_phase_angles(zm_t, sig_t, hs, phis, aidx, L=L,
                                        local_bits=local_bits)
     return cycle_hi.global_phase(st, th_sc, th_bnd, sign)
@@ -834,40 +834,31 @@ def _general_cycles(shards, rows, th, *, local_bits, K, inverse=False):
     shard's global diagonal: rows (S, c, K, width) the steps' slot rows
     (forward) or (S, c, K, 2, width) their (pre, post) slot pairs
     (``inverse``) at L = L_loc, th the steps' (th_sc, th_bnd) (S, A, c) of
-    ``_global_angles`` (negated by the caller to dagger them) or None. From
-    ``cycle_hi.MIN_ROUTE_L`` the angles are folded into each launch's rows
-    (``cycle_hi.fold_general_rows``, once, before the step loop): K10a
-    carries the global diagonal after its final slot, K10b before its first
-    kick. Below it K8c/K8d take no folded rows, and the global diagonal is
-    a torch pass (``cycle_hi.global_phase``) after K8c, before K8d. Returns
-    run(k, a, st, q=None): step k on shard a's states st in place; the
-    forward's partial sum |psi|^2 z_q, the inverse None."""
-    hi = use_hi(local_bits)
-    if hi:
-        fold = cycle_hi.fold_general_rows(rows[:, None], local_bits,
-                                          *(th or (None, None)),
-                                          inverse=inverse)
-        per = [fold[:, a].contiguous().to(st.device)
-               for a, st in enumerate(shards)]
+    ``_global_angles`` (negated by the caller to dagger them) or None. The
+    angles are folded into each launch's rows (``cycle.fold_general_rows``,
+    once, before the step loop): K8c (K10a shard-local from
+    ``cycle_hi.MIN_ROUTE_L``) carries the global diagonal after its final
+    slot, K8d (K10b shard-local) before its first kick. Returns run(k, a,
+    st, q=None): step k on shard a's states st in place; the forward's
+    partial sum |psi|^2 z_q, the inverse None."""
+    fold = cycle.fold_general_rows(rows[:, None], local_bits,
+                                   *(th or (None, None)), inverse=inverse)
+    per = [fold[:, a].contiguous().to(st.device)
+           for a, st in enumerate(shards)]
+    if use_hi(local_bits):
+        fwd, inv = (cycle_hi.general_hi_cycle_forward_apply,
+                    cycle_hi.general_hi_cycle_inverse_apply)
+    else:
+        fwd, inv = (cycle.general_cycle_forward_apply,
+                    cycle.general_cycle_inverse_apply)
     kw = dict(L=local_bits, K=K)
 
     def run(k, a, st, q=None):
         r = rows[k].to(st.device)
-        if hi and inverse:
-            cycle_hi.general_hi_cycle_inverse_apply(st, r, per[a][k], **kw)
-            return None
-        if hi:
-            return cycle_hi.general_hi_cycle_forward_apply(st, r, per[a][k],
-                                                           q=q, **kw)[1]
         if inverse:
-            if th is not None:
-                cycle_hi.global_phase(st, th[0][k, a], th[1][k, a])
-            cycle.general_cycle_inverse_apply(st, r, **kw)
+            inv(st, r, per[a][k], **kw)
             return None
-        part = cycle.general_cycle_forward_apply(st, r, q=q, **kw)[1]
-        if th is not None:
-            cycle_hi.global_phase(st, th[0][k, a], th[1][k, a])
-        return part
+        return fwd(st, r, per[a][k], q=q, **kw)[1]
 
     return run
 
@@ -880,7 +871,8 @@ def make_sharded_autocorr_forward_general(mesh, *, L, T, K, p, q,
     one K8c (K10a, shard-local, from ``cycle_hi.MIN_ROUTE_L`` on) launch per
     shard for its shard-local work (K slot kicks with X-mask row folds, the
     local diagonal, the partial) and the shard's global diagonal
-    (``_general_cycles``: in K10a's rows, after K8c as a torch pass). The
+    (``_general_cycles``: in the launch's folded rows, after the final
+    slot). The
     shard-id bits keep an XOR noise frame, so the global slot kicks are
     sigma-conjugated per trajectory and the cycle's global diagonal is
     evaluated at the cycle-end frame with the sig words masked to shard
@@ -983,10 +975,10 @@ def make_sharded_echo_general(mesh, *, L, T, K, p, q, initial_state="vacuum",
     order, the D0^dag lead on the first slot), led by the daggered global
     diagonal (at the step's pre-event sigma with the previous event's Z
     word, zeroed at the turnaround), then the daggered global slot kicks in
-    reversed slot order. The global diagonal rides in K10a's and K10b's
-    folded rows, or is a torch pass after K8c and before K8d
-    (``_general_cycles``); the angles of every step and shard come from one
-    ``_tail_phase_angles`` call. The order is exact for the reason the
+    reversed slot order. The global diagonal rides in the launches' folded
+    rows, after the forward's final slot and before the inverse's first
+    kick (``_general_cycles``); the angles of every step and shard come from
+    one ``_tail_phase_angles`` call. The order is exact for the reason the
     forward engine gives: the global diagonal still comes before every
     kick of an inverse step.
 

@@ -7,10 +7,12 @@ One cycle at L_loc = 17 on random unit states: the reference's planar
 index by index. The rows are the port's (``pack_cycle_params_compact``,
 ``general_forward_rows``, ``general_echo_rows``), which
 ``tests/test_torch_params*.py`` hold equal to the reference's; K8a and K8b
-take them folded (``cycle.fold_cycle_rows``), the reference's kernels as
+take them folded (``cycle.fold_cycle_rows``), K8c and K8d beside their
+folded diagonals (``cycle.fold_general_rows``), the reference's kernels as
 they are. With a shard's global angles the folded rows are held against
-the compact-row cycle followed (K8a) or preceded (K8b) by the engines'
-global diagonal (``parallel/sharded.py::_global_diag``). Tolerances:
+the unfolded cycle followed (K8a, K8c) or preceded (K8b, K8d) by the torch
+global diagonal (``parallel/sharded.py::_global_diag``,
+``_global_diag_inv``). Tolerances:
 amplitudes of a unit state at 2^17 are about 3e-3, and f32 sums of a cycle
 leave them within 2e-6 (TOL_AMP); partial sums within 1e-5 (TOL_SUM).
 """
@@ -115,7 +117,10 @@ def test_k8c_matches_reference_interpret(pol, q):
     rows = general_forward_rows(u[:, :2 * K], hs, phis, ang, L=L, T=2, K=K,
                                 p=0.6).reshape(n, 2, K, -1)[:, 1]
     st, jst = _states(n, seed=7)
-    got, part = cycle.general_cycle_forward_apply(st, rows, L=L, K=K, q=q)
+    zero = torch.zeros(n)
+    got, part = cycle.general_cycle_forward_apply(
+        st, rows, cycle.fold_general_rows(rows, L, zero, zero), L=L, K=K,
+        q=q)
     want, jpart = jc.general_cycle_forward_apply(
         jst, jnp.asarray(rows.numpy()), L=L, K=K, q=q, interpret=True)
     assert float((got - _flat(want)).abs().max()) < TOL_AMP
@@ -129,7 +134,10 @@ def test_k8d_matches_reference_interpret(pol):
     tiles = general_echo_rows(u, [1], hs, phis, ang, L=L, T=2, K=K, p=0.6)
     tiles = tiles.reshape(n, 4, K, 2, -1)[:, 1]            # inverse step 1
     st, jst = _states(n, seed=8)
-    got = cycle.general_cycle_inverse_apply(st, tiles, L=L, K=K)
+    zero = torch.zeros(n)
+    got = cycle.general_cycle_inverse_apply(
+        st, tiles, cycle.fold_general_rows(tiles, L, zero, zero,
+                                           inverse=True), L=L, K=K)
     want = jc.general_cycle_inverse_apply(jst, jnp.asarray(tiles.numpy()),
                                           L=L, K=K, interpret=True)
     assert float((got - _flat(want)).abs().max()) < TOL_AMP
@@ -173,15 +181,19 @@ def test_chains_equal_the_whole_state_plain_kernels():
                                  K=K, p=0.6)
     want = rg.general_forward_batch_ref(grows, L=L, T=2, q=q)
     st = rb.basis_states(n, L, 0, "cpu")
-    a1 = cycle.general_cycle_forward_apply(st, grows[:, :K], L=L, K=K, q=q)[1]
+    a1 = cycle.general_cycle_forward_apply(
+        st, grows[:, :K], cycle.fold_general_rows(grows[:, :K], L), L=L, K=K,
+        q=q)[1]
     torch.testing.assert_close(a1, want[:, 1], atol=TOL_SUM, rtol=0)
 
     tiles = general_echo_rows(ug, [2], hs, phis, ang, L=L, T=2, K=K, p=0.6)
     want = rg.general_echo_batch_ref(tiles, L=L, q=q)[:, 0]
     st = rb.basis_states(n, L, 0, "cpu")
     for k in range(4):
+        slots = tiles[:, 0].reshape(n, 4, K, 2, -1)[:, k]
         cycle.general_cycle_inverse_apply(
-            st, tiles[:, 0].reshape(n, 4, K, 2, -1)[:, k], L=L, K=K)
+            st, slots, cycle.fold_general_rows(slots, L, inverse=True), L=L,
+            K=K)
     got = (st.real ** 2 + st.imag ** 2) @ rb.angle_table(L, "cpu")[q]
     torch.testing.assert_close(got, want, atol=TOL_SUM, rtol=0)
 
@@ -197,8 +209,12 @@ def test_range_checks_and_cpu_route():
         cycle.cycle_forward_apply(st, torch.zeros(1, 2, 2 * L), THETA, L=L,
                                   q=L)
     with pytest.raises(ValueError, match="rows must be"):
-        cycle.general_cycle_inverse_apply(st, torch.zeros(1, 2, 128), L=L,
-                                          K=2)
+        cycle.general_cycle_inverse_apply(st, torch.zeros(1, 2, 128),
+                                          torch.zeros(1, 3, 2 * L), L=L, K=2)
+    with pytest.raises(ValueError, match="rows must be"):
+        cycle.general_cycle_forward_apply(st, torch.zeros(1, 2, 128),
+                                          torch.zeros(1, 2, 2 * L), L=L, K=2,
+                                          q=3)
     with pytest.raises(ValueError, match="rows must be"):
         cycle.cycle_forward_apply(st, torch.zeros(1, 128), THETA, L=L, q=3)
     cycle.cycle_inverse_apply(st, torch.zeros(1, 2, 2 * L), THETA, L=L)
@@ -289,3 +305,92 @@ def test_no_measure_forward_runs_the_same_cycle():
     b, _ = cycle.cycle_forward_apply(st.clone(), fold, THETA, L=L, q=3)
     assert part is None
     assert torch.equal(a, b)
+
+
+def _general_case(pol, L_loc, n_amp, n, mode, seed):
+    """A noisy lab-frame cycle (p=0.6) of n trajectories on shard bits: the
+    slot rows of cycle 1 (n, K, 128) and the (pre, post) slot pairs of echo
+    step 1 at t=1 (n, K, 2, 128) at L_loc, and per shard the global angles
+    as the engines take them; in device mode h and phi per trajectory, as
+    the device rows give them."""
+    Lg = L_loc + n_amp.bit_length() - 1
+    hs, phis = generate_disorder(Lg, 1, seed=9)
+    hs, phis = torch.as_tensor(hs[0, :Lg]), torch.as_tensor(phis[0, :Lg - 1])
+    gen = torch.Generator().manual_seed(seed)
+    sched = build_kick_schedule(pol, 0.97, 2)
+    K = sched.K
+    u = torch.rand((n, 4 * K, L_loc), generator=gen)
+    h_loc, p_loc = hs[:L_loc], phis[:L_loc - 1]
+    rows = general_forward_rows(u[:, :2 * K], h_loc, p_loc, sched.angles,
+                                L=L_loc, T=2, K=K, p=0.6)
+    tiles = general_echo_rows(u, [1], h_loc, p_loc, sched.angles, L=L_loc,
+                              T=2, K=K, p=0.6)
+    if mode == "device":
+        hs = hs + torch.rand((n, Lg), generator=gen, dtype=torch.float64)
+        phis = phis + torch.rand((n, Lg - 1), generator=gen,
+                                 dtype=torch.float64)
+    zm, sig = (torch.randint(0, 1 << Lg, (n,), generator=gen)
+               & ~((1 << L_loc) - 1) for _ in range(2))
+    th = sh._tail_phase_angles(zm[None], sig[None], hs, phis,
+                               torch.arange(n_amp)[:, None], L=Lg,
+                               local_bits=L_loc)                # (A, n)
+    return (Lg, hs, phis, zm, sig, rows.reshape(n, 2, K, -1)[:, 1],
+            tiles.reshape(n, 4, K, 2, -1)[:, 1], K, th)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("mode", ["depolarizing", "device"])
+@pytest.mark.parametrize("pol", ["y", "xy"])
+@pytest.mark.parametrize("n_amp", [2, 4])
+@pytest.mark.parametrize("L_loc", [17, 18])
+def test_folded_global_diagonal_matches_the_torch_phase_general(
+        L_loc, n_amp, pol, mode, inverse):
+    """On every shard, the plain K8c on slot rows folded with the shard's
+    global angles (``fold_general_rows``) equals the slot cycle (each slot's
+    kick, then its row's diagonal) followed by ``_global_diag``; the plain
+    K8d equals the daggered global diagonal, then the daggered cycle (per
+    slot the pre diagonal, the kick, the post diagonal). The daggered
+    global diagonal is ``_global_diag_inv`` under depolarizing noise and
+    ``_global_diag`` on per-trajectory rows in device mode, whose pre rows
+    carry the negation (the engines' sign conventions). q = L_loc - 1, the
+    local top bit, where th_bnd lands; the forward's partial is the same:
+    the global diagonal is a phase."""
+    n, q = 2, L_loc - 1
+    Lg, hs, phis, zm, sig, rows, tiles, K, (th_sc, th_bnd) = _general_case(
+        pol, L_loc, n_amp, n, mode, seed=L_loc + n_amp)
+    sign = -1.0 if inverse and mode == "depolarizing" else 1.0
+    fold = cycle.fold_general_rows(tiles if inverse else rows, L_loc,
+                                   sign * th_sc, sign * th_bnd,
+                                   inverse=inverse)
+    assert fold.shape == (n_amp, n, K + 1, 2 * L_loc)
+    table = rb.angle_table(L_loc, "cpu")
+    gkw = dict(L=Lg, local_bits=L_loc)
+    gen = torch.Generator().manual_seed(L_loc)
+    for a in range(n_amp):
+        st = torch.randn((n, 1 << L_loc), dtype=torch.complex64,
+                         generator=gen)
+        st /= st.abs().pow(2).sum(-1, keepdim=True).sqrt()
+        want = st.clone()
+        if inverse:
+            head = (sh._global_diag_inv if mode == "depolarizing"
+                    else sh._global_diag)
+            head(want, zm, sig, hs, phis, a, **gkw)
+            for j in range(K):
+                pre, post = tiles[:, j, 0], tiles[:, j, 1]
+                want = rb.apply_phase(want,
+                                      rg._row_angles(pre, L_loc, table))
+                want = rb.apply_phase(rg._kick(want, pre, L_loc),
+                                      rg._row_angles(post, L_loc, table))
+            got = cycle.general_cycle_inverse_apply(st, tiles, fold[a],
+                                                    L=L_loc, K=K)
+        else:
+            for j in range(K):
+                want = rb.apply_phase(rg._kick(want, rows[:, j], L_loc),
+                                      rg._row_angles(rows[:, j], L_loc,
+                                                     table))
+            sh._global_diag(want, zm, sig, hs, phis, a, **gkw)
+            got, part = cycle.general_cycle_forward_apply(st, rows, fold[a],
+                                                          L=L_loc, K=K, q=q)
+            wpart = (want.real ** 2 + want.imag ** 2) @ table[q]
+            torch.testing.assert_close(part, wpart, atol=TOL_SUM, rtol=0)
+        assert float((got - want).abs().max()) < TOL_AMP

@@ -6,7 +6,7 @@ the port's own K8 plain versions (``ops/cycle.py``) on the same rows.
 K9a/K9b take K8's folded row pairs (``cycle.fold_cycle_rows``) of the
 compact rows the reference's kernels get, K10's shard-local forms the slot
 rows the reference's kernels get and their folded diagonals
-(``cycle_hi.fold_general_rows``); folded with a shard's global angles they
+(``cycle.fold_general_rows``); folded with a shard's global angles they
 are held against the unfolded cycle with the engines' torch global
 diagonal (``parallel/sharded.py::_global_diag``, ``_global_diag_inv``).
 
@@ -147,7 +147,7 @@ def test_k10a_shard_local_matches_reference_interpret(pol, q):
     rows, _, K = _general(pol, 1)
     st, jst = _states(1, seed=7)
     got, part = ch.general_hi_cycle_forward_apply(
-        st, rows, ch.fold_general_rows(rows, L), L=L, K=K, q=q)
+        st, rows, cycle.fold_general_rows(rows, L), L=L, K=K, q=q)
     want, jpart = jhg.general_hi_cycle_forward_apply(
         jst, jnp.asarray(rows.numpy()), L=L, K=K, q=q, interpret=True)
     assert float((got - _flat(want)).abs().max()) < TOL_AMP
@@ -159,7 +159,7 @@ def test_k10b_shard_local_matches_reference_interpret(pol):
     _, tiles, K = _general(pol, 1)
     st, jst = _states(1, seed=8)
     got = ch.general_hi_cycle_inverse_apply(
-        st, tiles, ch.fold_general_rows(tiles, L, inverse=True), L=L, K=K)
+        st, tiles, cycle.fold_general_rows(tiles, L, inverse=True), L=L, K=K)
     want = jhg.general_hi_cycle_inverse_apply(
         jst, jnp.asarray(tiles.numpy()), L=L, K=K, interpret=True)
     assert float((got - _flat(want)).abs().max()) < TOL_AMP
@@ -171,7 +171,7 @@ def test_k10b_shard_local_matches_reference_interpret(pol):
 def test_plain_matches_k8_plain(kind, Lr):
     """On the rows both take (L_loc = 22, 23: K8a/K8b and K9a/K9b the same
     folded row pairs, K10's shard-local forms and K8c/K8d the same 128-lane
-    slot rows, K10's also their folded diagonals) the streamed family's
+    slot rows and their folded diagonals) the streamed family's
     plain versions equal K8's, with the angle tables that K8's plain
     versions build."""
     n, q = 1, Lr - 6
@@ -189,15 +189,16 @@ def test_plain_matches_k8_plain(kind, Lr):
         pa = pb = torch.zeros(n)
     elif kind == "general_forward":
         rows, _, K = _general("circular_left", n, seed=Lr, Lr=Lr)
-        _, pa = ch.general_hi_cycle_forward_apply(
-            a, rows, ch.fold_general_rows(rows, Lr), L=Lr, K=K, q=q)
-        _, pb = cycle.general_cycle_forward_apply(b, rows, L=Lr, K=K, q=q)
+        fold = cycle.fold_general_rows(rows, Lr)
+        _, pa = ch.general_hi_cycle_forward_apply(a, rows, fold, L=Lr, K=K,
+                                                  q=q)
+        _, pb = cycle.general_cycle_forward_apply(b, rows, fold, L=Lr, K=K,
+                                                  q=q)
     else:
         _, tiles, K = _general("xy", n, seed=Lr, Lr=Lr)
-        ch.general_hi_cycle_inverse_apply(
-            a, tiles, ch.fold_general_rows(tiles, Lr, inverse=True), L=Lr,
-            K=K)
-        cycle.general_cycle_inverse_apply(b, tiles, L=Lr, K=K)
+        fold = cycle.fold_general_rows(tiles, Lr, inverse=True)
+        ch.general_hi_cycle_inverse_apply(a, tiles, fold, L=Lr, K=K)
+        cycle.general_cycle_inverse_apply(b, tiles, fold, L=Lr, K=K)
         pa = pb = torch.zeros(n)
     assert float((a - b).abs().max()) < TOL_AMP
     torch.testing.assert_close(pa, pb, atol=TOL_SUM, rtol=0)
@@ -303,10 +304,10 @@ def test_wide_general_rows_bit_identical():
     pairs = (wide.reshape(1, 2 * T, K, 2, WIDE),
              narrow.reshape(1, 2 * T, K, 2, 128))
     for inverse in (False, True):
-        fw, fn = (ch.fold_general_rows(x if inverse else x[..., 0, :], 29,
-                                       inverse=inverse) for x in pairs)
+        fw, fn = (cycle.fold_general_rows(x if inverse else x[..., 0, :], 29,
+                                          inverse=inverse) for x in pairs)
         torch.testing.assert_close(fw, fn, atol=0, rtol=0)
-    fold = ch.fold_general_rows(got.reshape(T, K, WIDE), Lr)
+    fold = cycle.fold_general_rows(got.reshape(T, K, WIDE), Lr)
     assert fold.shape == (T, K + 1, 2 * Lr) and not fold[:, 0].any()
     cz, cb, c0 = rg.row_coeffs(got.reshape(T, K, WIDE).double(), Lr)
     want = torch.cat([cz, cb, c0[..., None]], -1).float()
@@ -320,15 +321,15 @@ def test_flag_lanes_of_the_wrappers():
     pre diagonal, row k + 1 post(k) + pre(k + 1), row K the last post, at
     256 lanes at L_loc = 30."""
     rows = torch.zeros((2, 3, WIDE))
-    rows = ch.measured_rows(rows, 30, 3)
+    rows = cycle.measured_rows(rows, 30, 3)
     assert rows[:, :, flag_base(30) + LANE_MPOS].tolist() == [[-1, -1, 0]] * 2
     _, tiles, K = _general("xy", 2, seed=3)
-    fold = ch.fold_general_rows(tiles, L, inverse=True)
+    fold = cycle.fold_general_rows(tiles, L, inverse=True)
     assert fold.shape == (2, K + 1, 2 * L)
     want = fold_rows(tiles.reshape(2, 2 * K, -1), torch.full((2,), K), L,
                      rg.row_coeffs)
     torch.testing.assert_close(fold, want, atol=0, rtol=0)
-    fold = ch.fold_general_rows(torch.zeros((2, 3, 2, WIDE)), 30,
+    fold = cycle.fold_general_rows(torch.zeros((2, 3, 2, WIDE)), 30,
                                 inverse=True)
     assert fold.shape == (2, 4, 60) and not fold.any()
 
@@ -465,7 +466,7 @@ def test_folded_global_diagonal_matches_the_torch_phase_general(
         zm[None], sig[None], hs, phis, torch.arange(n_amp)[:, None], L=Lg,
         local_bits=L)                                           # (A, n)
     sign = -1.0 if inverse and mode == "depolarizing" else 1.0
-    fold = ch.fold_general_rows(tiles if inverse else rows, L, sign * th_sc,
+    fold = cycle.fold_general_rows(tiles if inverse else rows, L, sign * th_sc,
                                 sign * th_bnd, inverse=inverse)
     assert fold.shape == (n_amp, n, K + 1, 2 * L)
     gkw = dict(L=Lg, local_bits=L)

@@ -18,13 +18,16 @@ lab-frame math, at L=14 (1e-4, the bound of ``test_torch_resident.py``).
 K10's shard-local forms (``ops/cycle_hi.py``: one lab-frame cycle on a
 shard's local bits) run the same passes for the K slots of a cycle from the
 shard states as they are: K10a's slot k is the kick of slot row k, pass by
-pass, then row k + 1 of ``fold_general_rows`` as pass hi stores (the final
-slot's row also carrying the shard's global angles); K10b first applies
-fold row 0 (the first pre diagonal and the shard's daggered global
+pass, then row k + 1 of ``cycle.fold_general_rows`` as pass hi stores (the
+final slot's row also carrying the shard's global angles); K10b first
+applies fold row 0 (the first pre diagonal and the shard's daggered global
 diagonal) in pass lo before its first kick, then per slot the kick of the
 pre row and row k + 1. That loop is held against the plain versions on
 rows folded with random global angles (1e-5 on amplitudes and partials,
-both plans, L = 14, 15, the range check lowered as above).
+both plans, L = 14, 15, the range check lowered as above). K8c and K8d
+(``ops/cycle.py``) run the same cycle on K2's split (``lo_bits``, as K1
+below); the loop on that split is held against their plain versions at
+L_loc = 17 the same way.
 
 The x forward's step k is RX(theta) on the bits of pass lo, mid and hi,
 then row k + 1 of ``forward_fold`` with the sigma-frame coefficients
@@ -66,6 +69,7 @@ from dtc_tpu.ops.pallas_resident_general import (
 )
 from dtc_tpu_torch.core.statevector import basis_index
 from dtc_tpu_torch.models.drives import build_kick_schedule
+from dtc_tpu_torch.ops import cycle
 from dtc_tpu_torch.ops import cycle_hi as ch
 from dtc_tpu_torch.ops import cycle_hi_general as chg
 from dtc_tpu_torch.ops import resident as rs
@@ -237,12 +241,13 @@ def _cycle_rows(drive, L, n=2, seed=17):
             tiles.reshape(n, 4, K, 2, -1)[:, 1], K, th)
 
 
-def _cycle_pass_loop(state, slots, fold, L, passes, inverse):
-    """One shard-local K10 cycle in the step passes' order: K10b's fold row
-    0 before its first kick (pass lo); per slot k the kick of its row (the
-    pre row of K10b's pair) on pass lo's, mid's and hi's bits, then fold
-    row k + 1 as pass hi stores."""
-    a, b = _plan(L, passes)
+def _cycle_pass_loop(state, slots, fold, L, split, inverse):
+    """One per-shard lab-frame cycle (K8c/K8d, K10's shard-local forms) in
+    the step passes' order on the split (a, b): the inverse's fold row 0
+    before its first kick (pass lo); per slot k the kick of its row (the
+    pre row of the inverse's pair) on pass lo's, mid's and hi's bits, then
+    fold row k + 1 as pass hi stores."""
+    a, b = split
     table = rb.angle_table(L, state.device)
 
     def diag(st, f):
@@ -268,12 +273,9 @@ def test_cycle_step_pass_order_matches_plain(drive, L, passes, inverse,
     monkeypatch.setattr(ch, "MIN_L", 14)
     rows, tiles, K, th = _cycle_rows(drive, L)
     slots = tiles if inverse else rows
-    fold = ch.fold_general_rows(slots, L, *th, inverse=inverse)
-    rng = np.random.default_rng(L)
-    s = rng.standard_normal((2, 2, 1 << L)).astype(np.float32)
-    s /= np.sqrt((s ** 2).sum(axis=(1, 2), keepdims=True))
-    st = torch.complex(torch.from_numpy(s[:, 0]), torch.from_numpy(s[:, 1]))
-    got = _cycle_pass_loop(st, slots, fold, L, passes, inverse)
+    fold = cycle.fold_general_rows(slots, L, *th, inverse=inverse)
+    st = _unit_states(L)
+    got = _cycle_pass_loop(st, slots, fold, L, _plan(L, passes), inverse)
     if inverse:
         want = ch.general_hi_cycle_inverse_apply_ref(st.clone(), tiles, fold,
                                                      L=L, K=K)
@@ -281,6 +283,41 @@ def test_cycle_step_pass_order_matches_plain(drive, L, passes, inverse,
         table = rb.angle_table(L, st.device)
         for q in (0, L // 2, L - 1):
             want, part = ch.general_hi_cycle_forward_apply_ref(
+                st.clone(), rows, fold, L=L, K=K, q=q)
+            np.testing.assert_allclose(part.numpy(),
+                                       ((got.abs() ** 2) @ table[q]).numpy(),
+                                       atol=1e-5, rtol=0)
+    assert float((got - want).abs().max()) < 1e-5
+
+
+def _unit_states(L, n=2):
+    """n random unit states (n, 2^L) complex64 from a numpy seed."""
+    rng = np.random.default_rng(L)
+    s = rng.standard_normal((n, 2, 1 << L)).astype(np.float32)
+    s /= np.sqrt((s ** 2).sum(axis=(1, 2), keepdims=True))
+    return torch.complex(torch.from_numpy(s[:, 0]), torch.from_numpy(s[:, 1]))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("drive", ["y", "xy", "circular_left"])
+def test_k8_cycle_step_pass_order_matches_plain(drive, inverse):
+    """K8c/K8d's pass order on K2's split (a = L - L/2, two passes) at
+    L_loc = 17 against their plain versions, on rows folded with random
+    global angles; probes in pass lo's bits, pass hi's and the local top
+    bit, where th_bnd lands."""
+    L = 17
+    rows, tiles, K, th = _cycle_rows(drive, L)
+    slots = tiles if inverse else rows
+    fold = cycle.fold_general_rows(slots, L, *th, inverse=inverse)
+    st = _unit_states(L)
+    got = _cycle_pass_loop(st, slots, fold, L, (L - L // 2, 0), inverse)
+    if inverse:
+        want = cycle.general_cycle_inverse_apply_ref(st.clone(), tiles, fold,
+                                                     L=L, K=K)
+    else:
+        table = rb.angle_table(L, st.device)
+        for q in (0, L // 2, L - 1):
+            want, part = cycle.general_cycle_forward_apply_ref(
                 st.clone(), rows, fold, L=L, K=K, q=q)
             np.testing.assert_allclose(part.numpy(),
                                        ((got.abs() ** 2) @ table[q]).numpy(),

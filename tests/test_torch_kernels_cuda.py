@@ -936,8 +936,8 @@ def _unit_tol(L):
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,q", [(17, 16), (20, 10), (23, 15)])
 def test_cycle_kernels_match_plain_on_card(cuda_device, L, q):
-    """K8a-d on one cycle of random unit states, noisy rows (p=0.6), K8a/K8b
-    on folded rows with non-zero global angles (a shard's th_sc, th_bnd,
+    """K8a-d on one cycle of random unit states, noisy rows (p=0.6), on
+    folded rows with non-zero global angles (a shard's th_sc, th_bnd,
     uniform in [-pi, pi)), K8a also without a measure: the state and the
     partial against the plain versions on the same inputs, within
     _unit_tol(L)."""
@@ -964,16 +964,19 @@ def test_cycle_kernels_match_plain_on_card(cuda_device, L, q):
     assert float((k - r).abs().max()) <= tol
     grows = _general_inputs(cuda_device, L, "circular_left", 2, 3, L,
                             p=0.6)[0].reshape(3, 2, 2, -1)[:, 1].contiguous()
-    k, kp = cy.general_cycle_forward_apply(st.clone(), grows, L=L, K=2, q=q)
-    r, rp = cy.general_cycle_forward_apply_ref(st.clone(), grows, L=L, K=2,
-                                               q=q)
+    fold = cy.fold_general_rows(grows, L, *th)
+    k, kp = cy.general_cycle_forward_apply(st.clone(), grows, fold, L=L, K=2,
+                                           q=q)
+    r, rp = cy.general_cycle_forward_apply_ref(st.clone(), grows, fold, L=L,
+                                               K=2, q=q)
     assert float((k - r).abs().max()) <= tol
     assert float((kp - rp).abs().max()) <= tol
     tiles = _general_inputs(cuda_device, L, "xy", 2, 3, L + 1, ts=[1],
                             p=0.6)[0].reshape(3, 4, 2, 2, -1)[:, 1]
-    k = cy.general_cycle_inverse_apply(st.clone(), tiles.contiguous(), L=L,
-                                       K=2)
-    r = cy.general_cycle_inverse_apply_ref(st.clone(), tiles, L=L, K=2)
+    tiles = tiles.contiguous()
+    fold = cy.fold_general_rows(tiles, L, *th, inverse=True)
+    k = cy.general_cycle_inverse_apply(st.clone(), tiles, fold, L=L, K=2)
+    r = cy.general_cycle_inverse_apply_ref(st.clone(), tiles, fold, L=L, K=2)
     torch.cuda.synchronize()
     assert float((k - r).abs().max()) <= tol
     assert {n: cy.LAUNCHES[n] - launches[n] for n in launches} == {
@@ -1029,7 +1032,103 @@ def test_cycle_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         cy.general_cycle_forward_apply(
             st, torch.zeros((1, 128, 2), device=cuda_device).transpose(1, 2),
-            L=17, K=2, q=3)
+            torch.zeros((1, 3, 34), device=cuda_device), L=17, K=2, q=3)
+    with pytest.raises(ValueError, match="fold"):
+        cy.general_cycle_inverse_apply(
+            st, torch.zeros((1, 2, 2, 128), device=cuda_device),
+            torch.zeros((1, 3, 34), device=cuda_device).double(), L=17, K=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pol", ["y", "xy"])
+@pytest.mark.parametrize("L", [17, 23])
+def test_general_cycle_kernels_match_plain_on_card(cuda_device, L, pol):
+    """K8c and K8d on the step passes, one cycle of random unit states,
+    noisy rows (p=0.6) folded with non-zero global angles (a shard's th_sc,
+    th_bnd, uniform in [-pi, pi)), q = L_loc - 1, the local top bit, where
+    th_bnd lands: the state and the partial against the plain versions
+    within _unit_tol(L), and the partial from the neel state within 1e-4
+    (O(1) on the y drive; the xy cycle leaves z_q near 2e-3); one launch
+    each."""
+    tol, q, n = _unit_tol(L), L - 1, 3
+    gen = torch.Generator(device=cuda_device).manual_seed(L + len(pol))
+    th = (torch.rand((2, n), generator=gen, device=cuda_device) - 0.5) * 6.28
+    st = _unit_states(n, L, cuda_device, L)
+    rows = _general_inputs(cuda_device, L, pol, 2, n, L, p=0.6)[0]
+    K = rows.shape[-2] // 2
+    rows = rows.reshape(n, 2, K, -1)[:, 1].contiguous()
+    tiles = _general_inputs(cuda_device, L, pol, 2, n, L + 1, ts=[1],
+                            p=0.6)[0].reshape(n, 4, K, 2, -1)[:, 1]
+    tiles = tiles.contiguous()
+    launches = dict(cy.LAUNCHES)
+    fold = cy.fold_general_rows(rows, L, *th)
+    k, kp = cy.general_cycle_forward_apply(st.clone(), rows, fold, L=L, K=K,
+                                           q=q)
+    r, rp = cy.general_cycle_forward_apply_ref(st.clone(), rows, fold, L=L,
+                                               K=K, q=q)
+    torch.cuda.synchronize()
+    assert float((k - r).abs().max()) <= tol
+    assert float((kp - rp).abs().max()) <= tol
+    neel = rb.basis_states(n, L, basis_index(L, "neel"), cuda_device)
+    kp = cy.general_cycle_forward_apply(neel.clone(), rows, fold, L=L, K=K,
+                                        q=q)[1]
+    rp = cy.general_cycle_forward_apply_ref(neel.clone(), rows, fold, L=L,
+                                            K=K, q=q)[1]
+    if pol == "y":
+        assert float(rp.abs().max()) > 0.05  # not 2^(-L/2)
+    assert float((kp - rp).abs().max()) <= TOL
+    fold = cy.fold_general_rows(tiles, L, *th, inverse=True)
+    k = cy.general_cycle_inverse_apply(st.clone(), tiles, fold, L=L, K=K)
+    r = cy.general_cycle_inverse_apply_ref(st.clone(), tiles, fold, L=L,
+                                           K=K)
+    torch.cuda.synchronize()
+    assert float((k - r).abs().max()) <= tol
+    assert {k: cy.LAUNCHES[k] - launches[k] for k in launches} == {
+        "forward": 0, "inverse": 0, "general_forward": 2,
+        "general_inverse": 1}
+
+
+@pytest.mark.cuda
+def test_general_cycle_entries_check_their_range(cuda_device):
+    """K8c's and K8d's C entries return cudaErrorInvalidValue (1) without a
+    launch outside 17 <= L_loc <= 23, for q outside [0, L_loc) and K < 1;
+    in range they launch (0)."""
+    from dtc_tpu_torch.ops import _build
+
+    dev = cuda_device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load(cy.LIBRARY_GENERAL)
+    L, K = 17, 1
+    state = torch.zeros((1, 1 << L), dtype=torch.complex64, device=dev)
+    state[0, 0] = 1.0
+    rows = cy.measured_rows(torch.zeros((1, K, 128), device=dev), L, K)
+    tiles = torch.zeros((1, K, 2, 128), device=dev)
+    fold = torch.zeros((1, K + 1, 2 * L), device=dev)
+    partials = torch.zeros((1, lib.floquet_cycle_general_partials(L)),
+                           device=dev)
+    out = torch.full((1,), 7.0, device=dev)
+
+    def fwd(L=L, K=K, q=0):
+        return lib.floquet_cycle_general_forward(
+            state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), 1, L, K, q, stream)
+
+    def inv(L=L, K=K):
+        return lib.floquet_cycle_general_inverse(
+            state.data_ptr(), tiles.data_ptr(), fold.data_ptr(), 1, L, K,
+            stream)
+
+    for call, bad in [(fwd, b) for b in (dict(L=16), dict(L=24), dict(q=L),
+                                         dict(q=-1), dict(K=0))] + [
+            (inv, b) for b in (dict(L=16), dict(L=24), dict(K=0))]:
+        assert call(**bad) == 1, (call.__name__, bad)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full_like(out, 7.0))  # nothing ran
+    # a zero row's kick U = 0 zeroes the state: the measure reads 0
+    assert fwd() == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
+    assert inv() == 0
 
 
 @pytest.mark.cuda
@@ -1090,13 +1189,13 @@ def test_cycle_hi_kernels_match_plain_on_card(cuda_device, L, q):
     grows = grows.contiguous()
     held(ch.general_hi_cycle_forward_apply,
          ch.general_hi_cycle_forward_apply_ref, grows,
-         ch.fold_general_rows(grows, L, *th), L=L, K=2, q=q)
+         cy.fold_general_rows(grows, L, *th), L=L, K=2, q=q)
     tiles = _general_inputs(cuda_device, L, "xy", 2, n, L + 1, ts=[1], p=0.6,
                             width=w)[0].reshape(n, 4, 2, 2, w)[:, 1]
     tiles = tiles.contiguous()
     held(ch.general_hi_cycle_inverse_apply,
          ch.general_hi_cycle_inverse_apply_ref, tiles,
-         ch.fold_general_rows(tiles, L, *th, inverse=True), L=L, K=2)
+         cy.fold_general_rows(tiles, L, *th, inverse=True), L=L, K=2)
     assert {k: ch.LAUNCHES[k] - launches[k] for k in launches} == {
         "forward": 3, "inverse": 1, "general_forward": 2,
         "general_inverse": 1}
@@ -1183,7 +1282,7 @@ def test_cycle_hi_general_entries_check_their_range(cuda_device):
     below 30, 256 at 30), K < 1; in range they launch (0)."""
     from dtc_tpu_torch.ops import _build
 
-    lib = _build.load(ch.LIBRARY_GENERAL)
+    lib = _build.load(cy.LIBRARY_GENERAL)
     L, K, dev = 22, 2, cuda_device
     state = torch.zeros((1, 1 << L), dtype=torch.complex64, device=dev)
     rows = torch.zeros((1, 2 * K, 256), device=dev)

@@ -155,10 +155,10 @@ def test_final_slot_shard_z_is_applied_once_on_the_hi_route(hi_route):
 def test_general_engines_build_the_global_angles_once(route, monkeypatch):
     """A lab-frame engine call (the forward over 2 cycles, the echo at t=1:
     2 steps; xy, 2 trajectories, 2 shards) makes one ``_tail_phase_angles``
-    call, for every step and shard at once, not one a step. On the K10
-    route (L=23, MIN_ROUTE_L at 22) the global diagonal rides in the
-    launches' folded rows and ``global_phase`` is never called; on K8's
-    (L=19) K8c/K8d take no folded rows and it runs once a step and shard."""
+    call, for every step and shard at once, not one a step. On both routes,
+    K10's (L=23, MIN_ROUTE_L at 22) and K8's (L=19), the global diagonal
+    rides in the launches' folded rows and ``global_phase`` is never
+    called."""
     Lr = 23 if route == "hi" else 19
     if route == "hi":
         monkeypatch.setattr(cycle_hi, "MIN_ROUTE_L", 22)
@@ -181,12 +181,10 @@ def test_general_engines_build_the_global_angles_once(route, monkeypatch):
     kw = dict(L=Lr, T=T3, K=K, p=P, q=Lr - 6, ancilla_factor=1.0)
     sh.make_sharded_autocorr_forward_general(_port_mesh(), **kw)(
         ang, hs, phis, u)
-    per_call = 0 if route == "hi" else (T3 - 1) * N_AMP
-    assert calls == {"angles": 1, "phase": per_call}
+    assert calls == {"angles": 1, "phase": 0}
     u = _inputs("xy", 2, lambda K: (2 * T3, K, Lr), Lr=Lr)[2][3]
     sh.make_sharded_echo_general(_port_mesh(), **kw)(ang, hs, phis, u, 1)
-    per_call += 0 if route == "hi" else 2 * N_AMP
-    assert calls == {"angles": 2, "phase": per_call}
+    assert calls == {"angles": 2, "phase": 0}
 
 
 def test_launch_runs_split_a_group(monkeypatch):

@@ -194,7 +194,8 @@ def _header(name) -> str:
 # plans (``lo_bits`` for the resident forwards and echoes, ``plan_for`` for
 # the streamed ones, and the columns each entry's ``run_echo``,
 # ``run_steps`` or ``launch_steps`` takes: the streamed forwards and K10's
-# shard-local forms run the echo's plan), the tile and bits
+# shard-local forms run the echo's plan, K8c/K8d the resident split), the
+# tile and bits
 # each pass hands ``swz_kick`` (K5's measuring passes, ``obs_lo`` and
 # ``obs_hi``, the same), and ``swz_kick``'s rounds. A change to any of
 # it fails ``test_echo_swizzle_replay_mirrors_the_headers`` until the replay
@@ -226,9 +227,14 @@ MIRRORED = {
         "const auto run = p.b > 0 ? run_steps<kWideCols, Forward, Times> : "
         "run_steps<kW, Forward, Times>;",
         "(float2*)state, L, p.a, p.b,",
-        "const Plan p = plan_for(L); if (p.b > 0) { return "
-        "launch_steps<kWideCols, P, M>(st, L, p.a, p.b, rows,",
-        "return launch_steps<kW, P, M>(st, L, p.a, p.b, rows,"],
+        "if (p.b > 0) { return launch_steps<kWideCols, P, M>(st, L, p.a, "
+        "p.b, rows,",
+        "return launch_steps<kW, P, M>(st, L, p.a, p.b, rows,",
+        "Plan resident_plan(int L) { return {lo_bits(L), 0, L - lo_bits(L)}; "
+        "}",
+        "plan_for(L), width, K, q,", "plan_for(L), width, K,",
+        "resident_plan(L), kRowWidth, K, q,",
+        "resident_plan(L), kRowWidth, K,"],
     "floquet_echo.cuh": [
         "const int k0 = a + b; const int c = L - k0;",
         "swz_kick(tile, k1, 0, k1, kick, in, out);",
