@@ -129,7 +129,8 @@ each; any failure raises and the script exits non-zero without a result:
    before them the registers and spills of the forward's passes and one
    L=30 forward launch at T=1024 with its peak device memory, its first
    cycles held to a T=6 launch; then K1 beside it on the same L=22 and 23
-   rows;
+   rows, and K4's forward (K2's split) beside the streamed lab-frame
+   forward (``plan_for``'s split) on the same L=23 rows, y and xy;
    K5: x and xy at L=20, T=50 x 32, after the registers and spills of
    every kernel of ``floquet_general.cu``, then one L=23 launch at the most
    cycles one reduce chunk holds and one at one more, with their peak
@@ -146,7 +147,8 @@ each; any failure raises and the script exits non-zero without a result:
    trajectories, one cycle, beside K6 and the one-card K10 per cycle at
    L=28 on 4 trajectories, after the registers and spills of every kernel
    of ``floquet_cycle_hi.cu`` and ``floquet_general_streamed.cu``); K11 on
-   the planar path's 32 states of L=20; the planar forward's and K1's
+   the planar path's 32 states of L=20, after its registers and spills;
+   the planar forward's and K1's
    cycles/s and the config-4 device forward's trajectory-cycles/s; each
    kernel's bound: the larger
    of its bytes (inputs read once, outputs written once; for the streamed
@@ -155,7 +157,8 @@ each; any failure raises and the script exits non-zero without a result:
    67 TFLOP/s (the H100 SXM's published peaks), and
    its state floor (16 B per amplitude per pass and step, 2 or 3 passes);
    the entries on the step passes of ``floquet_echo.cuh`` (K1 at the bench
-   shape, K3a on the ramp at L=14, 16, 20; K2 and K4's
+   shape, K4's forward y and xy at L=20, T=50 x 32, K3a on the ramp at
+   L=14, 16, 20; K2 and K4's
    echo on 512 x or xy pairs at ts=0..7, K3b on 32 pairs at t=12, L=20;
    the streamed x echo at L=28, ts=0..3, and L=30, t=5; the streamed
    lab-frame echo, y at L=28, ts=0..3, and circular_left at L=29, t=5; the
@@ -2475,10 +2478,12 @@ def timing(dev, smi, err) -> dict:
             1)
         err["K4 forward"] = max(err["K4 forward"], held(
             f"K4 forward L=20 {pol} T=50 1x32 (timed inputs)", k, ref))
+        what = f"forward {pol} L=20 T=50 traj=32 steps/cycle={K}"
         out[f"K4 forward {pol}"] = report(
-            "K4", f"forward {pol} L=20 T=50 traj=32 steps/cycle={K}", k_ms,
-            p_ms, c * (T - 1) * K * N, "cycles", T * c,
+            "K4", what, k_ms, p_ms, c * (T - 1) * K * N, "cycles", T * c,
             4 * (rows.numel() + k.numel()), 14 * L + 6, smi)
+        shares("K4", what, out[f"K4 forward {pol}"], 2 * (T - 1) * K + 3,
+               smi)
     out["K4 echo"] = timing_k4_echo(dev, smi, err)
     out.update(timing_obs(dev, smi, err))
     return out
@@ -2726,6 +2731,31 @@ def timing_route(dev, smi) -> None:
               f"({c * (T - 1) / (s_ms / 1e3):.1f} / "
               f"{c * (T - 1) / (k1_ms / 1e3):.1f} cycles/s) on {smi}")
         del rows, sig, a, b
+
+
+def timing_general_route(dev, smi) -> None:
+    """K4's forward (K2's split, a = L - L/2) beside the streamed
+    lab-frame forward (K10a; ``plan_for``'s two-pass split, a = L - (L-2)/2)
+    on the same L=23 rows (y and xy, 32 trajectories, T=20), where both
+    run, in turns, their outputs held to each other."""
+    from dtc_tpu_torch.ops import cycle_hi_general as chg
+    from dtc_tpu_torch.ops import resident_general as rg
+
+    L, c, T = 23, 32, 20
+    for pol in ("y", "xy"):
+        rows = general_forward_inputs(L, pol, T, c, P, dev, seed=L)
+        kw = dict(L=L, T=T, q=L // 2)
+        s_ms, k4_ms, a, b = timed_pair(
+            lambda: chg.general_hi_forward_batch(rows, **kw),
+            lambda: rg.general_forward_batch(rows, **kw), 3)
+        held(f"K10 forward vs K4 L={L} {pol} T={T} 1x{c} (timed inputs)",
+             a, b)
+        phase(f"[timing] forward {pol} L={L} T={T} traj={c}, same rows: "
+              f"K4 (split a={L - L // 2}) {k4_ms:.3f} ms, streamed family "
+              f"(split a={L - (L - 2) // 2}) {s_ms:.3f} ms "
+              f"({c * (T - 1) / (k4_ms / 1e3):.1f} / "
+              f"{c * (T - 1) / (s_ms / 1e3):.1f} cycles/s) on {smi}")
+        del rows, a, b
 
 
 def timing_streamed_echo(dev, smi, err) -> dict:
@@ -3086,12 +3116,18 @@ def timing_cycle_hi(dev, smi, err) -> dict:
 def timing_noise_factor(dev, smi, launches) -> dict:
     """K11 against its plain version at the planar main path's shape: 32
     states of L=20 and their tiles (one launch of the forward sweep; the
-    outputs were held in ``compare_noise_factor``). Bytes: the state read
-    and written once (16 B per amplitude) and the tiles. Operations per
-    amplitude: 6 L for the angle and the parity, about 20 for a precise
-    sincos, 6 for the complex multiply."""
+    outputs were held in ``compare_noise_factor``), with the kernel's
+    registers and spills. Bytes: the state read and written once (16 B per
+    amplitude) and the tiles. Operations: 12 per amplitude (one complex
+    product of two table phases and the state multiply), and per table
+    entry (2^(a+1) of the low qubits, a = 8, a block; one per row of 2^a
+    amplitudes) its angle and a precise sincos, about 3L + 20, counted once
+    per state."""
     from dtc_tpu_torch.ops import noise_factor as nf
 
+    for kernel, regs, st, ld in ptxas_kernels("noise_factor"):
+        phase(f"[build] noise_factor.cu {kernel}: {regs} registers, spill "
+              f"stores {st} B, spill loads {ld} B")
     L, B = MAIN_L, N_TRAJ
     N = 1 << L
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -3106,7 +3142,8 @@ def timing_noise_factor(dev, smi, launches) -> dict:
         lambda: nf.noise_factor_plain(st, par, L=L), 3)
     out = report("K11", f"noise factor L={L} B={B} (planar forward, one "
                  f"of {launches} launches a sweep)", k_ms, p_ms, B * N,
-                 "states", B, 16 * B * N + 4 * par.numel(), 6 * L + 26, smi,
+                 "states", B, 16 * B * N + 4 * par.numel(), 12, smi,
+                 extra_ops=B * ((2 << 8) + (N >> 8)) * (3 * L + 20),
                  passes=1)
     del st
     return out
@@ -3166,6 +3203,7 @@ def main() -> None:
     times = timing(dev, smi, err)
     times.update(timing_streamed(dev, smi, err))
     timing_route(dev, smi)
+    timing_general_route(dev, smi)
     times.update(timing_general_hi(dev, smi, err))
     times.update(timing_streamed_echo(dev, smi, err))
     times.update(timing_resident(dev, smi, err))

@@ -1,7 +1,6 @@
-// Pieces shared by the Floquet kernels of floquet_x.cu (K1/K2) and
-// floquet_general.cu (K4): constants, the factorized diagonal angle, the
-// phase multiply, the deterministic block sum, and the state init,
-// terminal measurement and fixed-order reduction kernels.
+// Pieces shared by the Floquet kernels (floquet_*.cu): constants, the
+// factorized diagonal angle, the deterministic block sum, and the state
+// init, terminal measurement and fixed-order reduction kernels.
 //
 // Every state is n_pairs x 2^L complex64 (float2) in device memory, qubit j
 // on bit j of the amplitude index, z_j(s) = 1 - 2 bit_j(s). Offsets are
@@ -37,12 +36,6 @@ __device__ __forceinline__ float angle_bits(const float* cz, const float* cb,
     zp = z;
   }
   return th;
-}
-
-__device__ __forceinline__ float2 cmul_phase(float2 a, float th) {
-  float s, c;
-  sincosf(th, &s, &c);
-  return make_float2(a.x * c - a.y * s, a.x * s + a.y * c);
 }
 
 // Block sum in a fixed order (warp shuffles, then warp 0 over the warps).
@@ -85,17 +78,12 @@ __global__ void measure_kernel(const float2* __restrict__ st, int L, int q,
   if (threadIdx.x == 0) partials[(int64_t)pair * gridDim.x + blockIdx.x] = tot;
 }
 
-// out[i] = sum_b partials[i * nb + b] in fixed order; rows with
-// i % period == 0 get a0 instead (forward A(0) = basis-state sign).
+// out[i] = sum_b partials[i * nb + b] in fixed order.
 __global__ void reduce_kernel(const float* __restrict__ partials,
-                              float* __restrict__ out, int64_t n_rows, int nb,
-                              int period, float a0) {
+                              float* __restrict__ out, int64_t n_rows,
+                              int nb) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rows) return;
-  if (period > 0 && i % period == 0) {
-    out[i] = a0;
-    return;
-  }
   double acc = 0.0;
   for (int b = 0; b < nb; ++b) acc += partials[i * nb + b];
   out[i] = (float)acc;
@@ -120,7 +108,7 @@ cudaError_t measure_and_reduce(const float2* st, int L, int q, int n_pairs,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   reduce_kernel<<<(n_pairs + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      partials, out, n_pairs, nb, 0, 0.0f);
+      partials, out, n_pairs, nb);
   return cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
 // The step passes shared by floquet_x.cu (K1, K2), floquet_x_resident.cu
-// (K3a, K3b), floquet_general.cu (K4's echo, and K5), floquet_x_streamed.cu
+// (K3a, K3b), floquet_general.cu (K4, and K5), floquet_x_streamed.cu
 // (K6b/K7b, and K6a/K7a's forward), floquet_general_streamed.cu (K10b, K10a's
 // forward, and the per-shard lab-frame cycles K8c/K8d and K10's shard-local
 // forms: one cycle on a shard's local bits), floquet_cycle.cu (K8a/K8b, one step on a shard's local bits) and
@@ -13,7 +13,7 @@
 //   pass mid: bits [a, a + b) (b = 0: no mid pass), 2^b rows x CW
 //             consecutive columns, the kick only;
 //   pass hi:  bits [a + b, L), 2^c rows x CW columns, c = L - a - b.
-// The resident x kernels (K1/K2, K3a/K3b), K4's echo (L <= 23) and
+// The resident x kernels (K1/K2, K3a/K3b), K4 and K5 (L <= 23) and
 // K8a-d take a = L - L/2, b = 0 and CW = kW = 4; the streamed ones and
 // the streamed forwards (L = 22..30) the plan of floquet_plan.cuh (two passes
 // at L <= 24, CW = 4; three above, CW = 16: 128-byte column runs), tiles

@@ -27,14 +27,19 @@
 // (lane FO, the final slot of a cycle) sum |psi|^2 z_q into A(MPOS).
 // Echo: rows come in (pre, post) pairs; a step is the pre diagonal, the
 // kick of the pre row, then the post diagonal; each pair runs COUNT = 2tK
-// steps (lane FO+10 of its row 0) and is measured at the end. The echo
-// runs the two echo passes of floquet_echo.cuh, redesigned for this card,
-// with the kick policy of floquet_general_echo.cuh: the post diagonal and
-// the next step's pre are
-// one folded row (ops/echo_fold.py), applied once per step from two small
-// phase tables per block; the kick runs in rounds whose first reads the
-// state and whose last writes it, on a swizzled tile without bank
-// conflicts.
+// steps (lane FO+10 of its row 0) and is measured at the end.
+//
+// Both run the step passes of floquet_echo.cuh, redesigned for this card,
+// with the lab-frame kick policy of floquet_general_echo.cuh (GeneralEcho)
+// on the step rows of floquet_general_streamed_pass.cuh: one diagonal a
+// step from folded rows (ops/echo_fold.py; the echo's post diagonal and
+// the next step's pre are one row, the forward's step k is row k + 1 of
+// forward_fold), applied from two small phase tables per block; the kick
+// runs in rounds of 2-3 bits whose first reads the state and whose last
+// writes it, on a swizzled tile without bank conflicts. The forward
+// measures in pass hi's store (Times: one partial of |psi|^2 z_q a block
+// and time) and ends in one fixed-order reduce (reduce_times,
+// floquet_plan.cuh). The echo is measured once, after its last step.
 //
 // K5 runs K4's forward steps on the same step passes (launch_steps of
 // floquet_echo.cuh with GeneralEcho<ObsRows>, diagonals from forward_fold)
@@ -42,46 +47,40 @@
 //
 // What bounds it on this card: as for K1/K2 (floquet_x.cu), the 2^L
 // complex64 state (8 MiB at L=20) lives in device memory, and a step is two
-// read+write sweeps of it (32 B per amplitude):
-//   pass lo: a block owns 2^k1 consecutive amplitudes and applies the
-//            [pre diagonal and] kick on bits [0, k1) in shared memory;
-//   pass hi: a block owns kW low columns x all 2^n2 high values, applies
-//            the kick on bits [k1, L), the (post) diagonal and the forward
-//            partial sum.
-// The butterflies run three bits per shared-memory round with the eight
-// amplitudes in registers; a general complex 2x2 costs 14 flops per
-// amplitude and bit against RX's 6, so the kick's arithmetic weighs more
-// than in K1/K2. The per-qubit matrices are built once per block in shared
-// memory. Reductions are deterministic (floquet_common.cuh). The row lanes,
-// the kick matrices and the butterflies are in floquet_lab.cuh, shared with
-// the large-L lab-frame family (floquet_general_streamed.cu); the forward's
-// two passes in floquet_general_pass.cuh, which no other kernel uses.
+// read+write sweeps of it (32 B per amplitude), on K2's split
+// (a = lo_bits(L) = L - L/2, b = 0, 4 columns):
+//   pass lo: a block owns 2^a consecutive amplitudes and applies the kick
+//            on bits [0, a) (and an echo's step 0 its first pre diagonal);
+//   pass hi: a block owns kW low columns x all 2^(L-a) high values, applies
+//            the kick on bits [a, L), the step's folded diagonal and the
+//            forward's partial as it stores.
+// A general complex 2x2 costs 14 flops per amplitude and bit against RX's
+// 6, so the kick's arithmetic weighs more than in K1/K2. The per-qubit
+// matrices are built once per block in shared memory (floquet_lab.cuh,
+// shared with the large-L lab-frame family, floquet_general_streamed.cu).
+// Reductions are deterministic (floquet_common.cuh, floquet_plan.cuh).
 
 #include "floquet_common.cuh"
-#include "floquet_lab.cuh"
-#include "floquet_general_pass.cuh"
+#include "floquet_echo.cuh"
 #include "floquet_general_echo.cuh"
+#include "floquet_lab.cuh"
+#include "floquet_plan.cuh"
+#include "floquet_general_streamed_pass.cuh"
 
 namespace {
 
-// K4's echo step rows for GeneralEcho (floquet_general_echo.cuh).
-struct PairRows {
-  __device__ __forceinline__ StepRows at(const float* rows, int L,
-                                         int64_t rows_per_pair, int pair,
-                                         int step) const {
-    return step_rows(rows, L, rows_per_pair, pair, step, 1);
-  }
-};
+using Forward = GeneralEcho<ForwardRows<kRowWidth>>;
+using Echo = GeneralEcho<PairRows<kRowWidth>>;
 
-// K5's step rows for GeneralEcho: K4's forward rows, every step active,
-// the kick of row `step` (the MPOS lane is not read); a step opens cycle
-// step / K where step % K == 0.
+// K5's step rows for GeneralEcho: K4's forward rows (ForwardRows), every
+// step active, the kick of row `step` (the MPOS lane is not read); a step
+// opens cycle step / K where step % K == 0.
 struct ObsRows {
   int K;
   __device__ __forceinline__ StepRows at(const float* rows, int L,
                                          int64_t rows_per_pair, int pair,
                                          int step) const {
-    return step_rows(rows, L, rows_per_pair, pair, step, 0);
+    return ForwardRows<kRowWidth>{}.at(rows, L, rows_per_pair, pair, step);
   }
   __device__ __forceinline__ int time(const float*, int, int64_t, int,
                                       int step) const {
@@ -130,9 +129,10 @@ __global__ void obs_reduce_kernel(const float* __restrict__ part,
 
 extern "C" {
 
-// Sizes the wrapper allocates: partials of the forward entry.
+// Sizes the wrapper allocates: partials of the forward entry, per
+// trajectory and time (pass hi's blocks on K2's split).
 int floquet_general_forward_partials(int L) {
-  return (1 << lo_bits(L)) / kW;
+  return step_hi_blocks(lo_bits(L), 0, kW);
 }
 
 // Sizes the wrapper allocates: partials of the echo entry (per pair).
@@ -141,31 +141,35 @@ int floquet_general_echo_partials(int L) {
 }
 
 // K4 forward. state: n_traj x 2^L complex64 scratch; rows: n_traj x
-// rows_per_traj x 128 f32 (one row per kick slot, T*K of them); partials:
-// n_traj x T x floquet_general_forward_partials(L) f32, zeroed; out: n_traj
-// x T f32 (A(t) before the host's ancilla factor and sign). Runs the first
-// n_steps = (T-1)*K steps, the ones whose results are measured.
-int floquet_general_forward(void* state, const void* rows, void* partials,
-                            void* out, int n_traj, int L, int rows_per_traj,
-                            int T, int n_steps, int q, int64_t b0,
+// rows_per_traj x 128 f32 (one row per kick slot, T*K of them); fold:
+// n_traj x fold_rows x 2L f32, the step diagonals
+// (ops/echo_fold.py::forward_fold of rows 0..n_steps-1, fold_rows >
+// n_steps); partials: n_traj x T x floquet_general_forward_partials(L)
+// f32, zeroed; out: n_traj x T f32 (A(t) before the host's ancilla factor
+// and sign). Runs the first n_steps = (T-1)*K steps, the ones whose results
+// are measured, on the step passes (run_steps on K2's split, the kick of
+// row k, the time from its MPOS lane, measured in pass hi's store), then
+// one fixed-order reduce. Returns cudaErrorInvalidValue without a launch
+// outside 14 <= L <= 23, 0 <= q < L, n_traj >= 1, T >= 1,
+// 0 <= n_steps <= rows_per_traj, fold_rows > n_steps.
+int floquet_general_forward(void* state, const void* rows, const void* fold,
+                            void* partials, void* out, int n_traj, int L,
+                            int rows_per_traj, int fold_rows, int T,
+                            int n_steps, int q, int64_t b0,
                             void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  float2* st = (float2*)state;
-  const int64_t N = (int64_t)1 << L;
-  init_kernel<<<dim3(256, n_traj), kThreads, 0, stream>>>(st, N, b0);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  for (int k = 0; k < n_steps; ++k) {
-    e = launch_step(st, L, (const float*)rows, rows_per_traj, n_traj, k, 0, q,
-                    (float*)partials, T, stream);
-    if (e != cudaSuccess) return (int)e;
+  if (L < 14 || L > 23 || q < 0 || q >= L || n_traj < 1 || T < 1 ||
+      n_steps < 0 || n_steps > rows_per_traj || fold_rows <= n_steps) {
+    return (int)cudaErrorInvalidValue;
   }
-  const int64_t n_rows = (int64_t)n_traj * T;
-  const float a0 = 1.0f - 2.0f * (float)((b0 >> q) & 1);
-  reduce_kernel<<<(unsigned)((n_rows + kThreads - 1) / kThreads), kThreads,
-                  0, stream>>>((const float*)partials, (float*)out, n_rows,
-                               floquet_general_forward_partials(L), T, a0);
-  return (int)cudaGetLastError();
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const cudaError_t e = run_steps<kW>(
+      (float2*)state, L, lo_bits(L), 0, (const float*)rows, rows_per_traj,
+      Fold{(const float*)fold, (int64_t)fold_rows * 2 * L, false}, n_traj,
+      n_steps, Forward{}, Times{(float*)partials, q, T}, b0, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)reduce_times((const float*)partials,
+                           floquet_general_forward_partials(L), (float*)out,
+                           n_traj, T, q, b0, stream);
 }
 
 // K4 echo. state: n_pairs x 2^L complex64 scratch; tiles: n_pairs x
@@ -180,7 +184,7 @@ int floquet_general_echo(void* state, const void* tiles, const void* fold,
   return (int)run_echo<kW>(
       (float2*)state, L, lo_bits(L), 0, (const float*)tiles, rows_per_pair,
       Fold{(const float*)fold, (int64_t)fold_rows * 2 * L}, n_pairs, n_steps,
-      GeneralEcho<PairRows>{}, q, b0, (float*)partials, (float*)out,
+      Echo{}, q, b0, (float*)partials, (float*)out,
       (cudaStream_t)stream_ptr);
 }
 

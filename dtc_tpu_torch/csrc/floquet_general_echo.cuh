@@ -1,7 +1,8 @@
 // The lab-frame kick policy for the step passes of floquet_echo.cuh: the
 // step's per-qubit 2x2 kicks (X-mask and U of the step's kick row), held in
-// shared memory, read through the family's step rows `Rows` (K4's echo rows
-// in floquet_general.cu; K10's echo and forward rows and the slot rows of
+// shared memory, read through the step rows `Rows` of
+// floquet_general_streamed_pass.cuh (K4's forward and echo rows and K5's in
+// floquet_general.cu; K10's echo and forward rows and the slot rows of
 // K8c/K8d and K10's shard-local forms in floquet_general_streamed.cu: the
 // same layout, 128 lanes, or 256 at L_loc = 30); at most 85
 // registers a thread (three blocks of 256 threads an SM), which the 2x2

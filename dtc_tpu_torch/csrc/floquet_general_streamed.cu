@@ -57,9 +57,9 @@
 // rounds whose first reads the state and whose last writes it, so each
 // pass makes one read and one write. The forward's pass hi writes, on a
 // measured step, one partial of |psi|^2 z_q per block as it stores; one
-// fixed-order reduce at the end sums them, in double. The readers take
-// their kick rows from step_rows (floquet_general_streamed_pass.cuh), on
-// rows of W = 128 lanes (256 for the shard-local forms at L_loc = 30).
+// fixed-order reduce at the end sums them, in double. The readers, K4's
+// and K5's too, are those of floquet_general_streamed_pass.cuh, on rows of
+// W = 128 lanes (256 for the shard-local forms at L_loc = 30).
 //
 // The per-shard forms run K steps (one cycle) from the shard states as
 // they are, on the same passes, K8c/K8d on K2's plan (floquet_echo.cuh: a
@@ -112,43 +112,14 @@ bool local_range(int L, int q, int width, int K) {
          width == (4 * L + 9 < kRowWidth ? kRowWidth : 2 * kRowWidth);
 }
 
-// K10's echo step rows for GeneralEcho (floquet_general_echo.cuh): (pre,
-// post) pairs, a pair running the COUNT steps of its row 0.
-template <int W>
-struct PairRows {
-  __device__ __forceinline__ StepRows at(const float* rows, int L,
-                                         int64_t rows_per_pair, int pair,
-                                         int step) const {
-    return step_rows<W>(rows, L, rows_per_pair, pair, step, true, true);
-  }
-};
-
-// K8d's and K10b shard-local's slot pairs: the same layout, every step
-// active.
+// K8d's and K10b shard-local's slot pairs: the layout of PairRows
+// (floquet_general_streamed_pass.cuh), every step active.
 template <int W>
 struct SlotPairRows {
   __device__ __forceinline__ StepRows at(const float* rows, int L,
                                          int64_t rows_per_pair, int pair,
                                          int step) const {
     return step_rows<W>(rows, L, rows_per_pair, pair, step, true, false);
-  }
-};
-
-// K10's forward step rows for GeneralEcho (also K8c's and K10a
-// shard-local's slot rows): every step active, the kick of row `step`,
-// measured into the time its MPOS names (-1: none).
-template <int W>
-struct ForwardRows {
-  __device__ __forceinline__ StepRows at(const float* rows, int L,
-                                         int64_t rows_per_pair, int pair,
-                                         int step) const {
-    return step_rows<W>(rows, L, rows_per_pair, pair, step, false, false);
-  }
-  __device__ __forceinline__ int time(const float* rows, int L,
-                                      int64_t rows_per_pair, int pair,
-                                      int step) const {
-    return (int)rows[((int64_t)pair * rows_per_pair + step) * W + 4 * L - 1 +
-                     kLaneMpos];
   }
 };
 

@@ -1,10 +1,13 @@
-// The step rows of the streamed lab-frame family (floquet_general_streamed.cu:
-// K10a's forward and K10b's echo of whole trajectories, 22 <= L <= 29, and
-// the per-shard cycles, one cycle on a shard's local bits: K8c/K8d at
-// 17 <= L_loc <= 23, K10's shard-local forms at 22 <= L_loc <= 30): where a pair's step finds its kick row, and whether
-// the step runs. The step passes of floquet_echo.cuh read them through the
-// family's readers (GeneralEcho, floquet_general_echo.cuh);
-// floquet_general_streamed.cu says what bounds them.
+// The lab-frame step rows, the one reader of every lab-frame kernel on the
+// step passes of floquet_echo.cuh: K4's forward and echo and K5
+// (floquet_general.cu, 14 <= L <= 23), and the streamed lab-frame family
+// (floquet_general_streamed.cu: K10a's forward and K10b's echo of whole
+// trajectories, 22 <= L <= 29, and the per-shard cycles, one cycle on a
+// shard's local bits: K8c/K8d at 17 <= L_loc <= 23, K10's shard-local forms
+// at 22 <= L_loc <= 30): where a pair's step finds its kick row, whether the
+// step runs, and the time a forward step is measured into. The passes read
+// them through the family's kick policy (GeneralEcho,
+// floquet_general_echo.cuh); the two .cu files say what bounds them.
 //
 // Rows are K4's step rows (ops/params_general.py) of W lanes, a template
 // argument: 128, or 256 where the flag lanes from FO = 4L-1 pass lane 127
@@ -41,5 +44,34 @@ __device__ __forceinline__ StepRows step_rows(const float* rows, int L,
       !counted || step < (int)base[4 * L - 1 + kLaneCount];
   return {base + (int64_t)(pairs ? 2 * step : step) * W, active};
 }
+
+// The one-card echoes' step rows (K4's, K10b's): (pre, post) pairs, a pair
+// running the COUNT steps of its row 0.
+template <int W>
+struct PairRows {
+  __device__ __forceinline__ StepRows at(const float* rows, int L,
+                                         int64_t rows_per_pair, int pair,
+                                         int step) const {
+    return step_rows<W>(rows, L, rows_per_pair, pair, step, true, true);
+  }
+};
+
+// The forwards' step rows (K4's, K10a's; also K8c's and K10a
+// shard-local's slot rows): every step active, the kick of row `step`,
+// measured into the time its MPOS names (-1: none).
+template <int W>
+struct ForwardRows {
+  __device__ __forceinline__ StepRows at(const float* rows, int L,
+                                         int64_t rows_per_pair, int pair,
+                                         int step) const {
+    return step_rows<W>(rows, L, rows_per_pair, pair, step, false, false);
+  }
+  __device__ __forceinline__ int time(const float* rows, int L,
+                                      int64_t rows_per_pair, int pair,
+                                      int step) const {
+    return (int)rows[((int64_t)pair * rows_per_pair + step) * W + 4 * L - 1 +
+                     kLaneMpos];
+  }
+};
 
 }  // namespace

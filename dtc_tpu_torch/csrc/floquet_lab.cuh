@@ -1,9 +1,9 @@
 // The lab-frame pieces shared by floquet_general.cu (K4/K5) and
 // floquet_general_streamed.cu (the large-L lab-frame family): the flag lanes
-// of a step row, the per-qubit kick matrices B = X_m U of one row, the
-// diagonal's coefficients, and the general 2x2 kick on shared-memory tiles,
-// three bits per round with 2^3 amplitudes in registers, and as the echo
-// passes' rounds take it (MatKick).
+// of a step row, the per-qubit kick matrices B = X_m U of one row, and the
+// general 2x2 kick as the rounds of the step passes (floquet_echo.cuh)
+// take it (MatKick). The diagonal's coefficients come folded
+// (ops/echo_fold.py).
 //
 // Row layout (ops/params_general.py), 128 lanes: noise-Z bits n [0, L),
 // X-mask bits m [L, 2L), h [2L, 3L), phi [3L, 4L-1), then the flag lanes
@@ -48,63 +48,6 @@ __device__ void load_mats(const float* __restrict__ row, int L, Mat2* mats) {
     mats[j] = row[L + j] > 0.5f ? Mat2{u10, u11, u00, u01}
                                 : Mat2{u00, u01, u10, u11};
   }
-}
-
-// cz_q, cb_j and c0 of one row, into shared memory.
-__device__ void load_coeffs(const float* __restrict__ row, int L, float* cz,
-                            float* cb, float* c0) {
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    cz[i] = -0.5f * row[2 * L + i] - kHalfPi * row[i];
-  }
-  for (int i = threadIdx.x; i < L - 1; i += blockDim.x) {
-    cb[i] = -0.5f * row[3 * L + i];
-  }
-  if (threadIdx.x == 0) {
-    float n = 0.0f;
-    for (int i = 0; i < L; ++i) n += row[i];
-    *c0 = kHalfPi * n;
-  }
-}
-
-// Kick on NB consecutive tile-index bits [b, b + NB) of a 2^tbits tile, one
-// shared-memory round; mats[k] acts on tile bit b + k.
-template <int NB>
-__device__ void kick_round(float2* tile, int tbits, int b, const Mat2* mats) {
-  constexpr int M = 1 << NB;
-  const int ntup = 1 << (tbits - NB);
-  const int lowmask = (1 << b) - 1;
-  Mat2 mk[NB];
-#pragma unroll
-  for (int k = 0; k < NB; ++k) mk[k] = mats[k];
-  for (int p = threadIdx.x; p < ntup; p += blockDim.x) {
-    const int base = ((p >> b) << (b + NB)) | (p & lowmask);
-    float2 v[M];
-#pragma unroll
-    for (int j = 0; j < M; ++j) v[j] = tile[base + (j << b)];
-#pragma unroll
-    for (int k = 0; k < NB; ++k) {
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-        if (!(j & (1 << k))) mat_pair(v[j], v[j | (1 << k)], mk[k]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < M; ++j) tile[base + (j << b)] = v[j];
-  }
-  __syncthreads();
-}
-
-// Kick on tile-index bits [b0, b0 + n); mats[i] acts on tile bit b0 + i.
-__device__ void kick_bits(float2* tile, int tbits, int b0, int n,
-                          const Mat2* mats) {
-  int b = b0;
-  const int end = b0 + n;
-  while (end - b >= 3) {
-    kick_round<3>(tile, tbits, b, mats + (b - b0));
-    b += 3;
-  }
-  if (end - b == 2) kick_round<2>(tile, tbits, b, mats + (b - b0));
-  if (end - b == 1) kick_round<1>(tile, tbits, b, mats + (b - b0));
 }
 
 // The per-qubit 2x2 kicks of a swizzled round of the echo passes

@@ -4,7 +4,7 @@
 // shard-local forms in floquet_general_streamed.cu): how a step cuts
 // a 2^L state in device memory into shared-memory tiles up to L=30; and the
 // fixed-order reductions of the per-block partials, shared with every
-// forward that measures in pass hi's store (K1, K3a, K8a).
+// forward that measures in pass hi's store (K1, K3a, K4, K8a).
 //
 //   pass lo:  bits [0, a), a tile of 2^a consecutive amplitudes;
 //   pass mid: bits [a, a+b) (only when L >= 25), tiles of 2^b rows x kW

@@ -73,8 +73,8 @@ LIBRARIES = {
     "floquet_general": {
         "floquet_general_forward_partials": [_I32],
         "floquet_general_echo_partials": [_I32],
-        "floquet_general_forward": [_VP, _VP, _VP, _VP, _I32, _I32, _I32,
-                                    _I32, _I32, _I32, _I64, _VP],
+        "floquet_general_forward": [_VP, _VP, _VP, _VP, _VP, _I32, _I32,
+                                    _I32, _I32, _I32, _I32, _I32, _I64, _VP],
         "floquet_general_echo": [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32,
                                  _I32, _I32, _I32, _I64, _VP],
         "floquet_general_observables_slots": [_I32],

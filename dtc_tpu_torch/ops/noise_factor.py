@@ -2,8 +2,11 @@
 
 Port of ``dtc_tpu/ops/pallas_noise.py`` (``pack_cycle_params``,
 ``apply_noise_factor``). The Pallas kernel becomes the hand-written CUDA
-kernel of ``csrc/noise_factor.cu``; beside it is its plain PyTorch version
-``noise_factor_plain``, which computes the same function with tensor ops.
+kernel of ``csrc/noise_factor.cu``, which multiplies two per-block phase
+tables (the low qubits', and one phase a row of the high qubits') in place
+of an angle sum and a sincos per amplitude; beside it is its plain PyTorch
+version ``noise_factor_plain``, which computes the same function with
+tensor ops, as the reference does.
 
 For each global index s of a state's (re, im) f32 planes:
 
@@ -138,6 +141,8 @@ def apply_noise_factor(state, params, *, L: int) -> torch.Tensor:
     n = state.shape[0]
     if not 1 <= n <= 65535:
         raise ValueError(f"noise factor batch of {n} outside [1, 65535]")
+    if state.data_ptr() % 16:
+        raise ValueError("state must be 16-byte aligned")
     from dtc_tpu_torch.ops import _build
 
     lib = _build.load("noise_factor")

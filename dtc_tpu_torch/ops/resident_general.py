@@ -6,7 +6,11 @@ plane; the same math) become one hand-written CUDA family,
 ``csrc/floquet_general.cu`` (``floquet_general_forward``,
 ``floquet_general_echo``); beside each entry is its plain PyTorch version
 (``general_forward_batch_ref``, ``general_echo_batch_ref``), which consumes
-the same rows and computes the same algebra with tensor ops.
+the same rows and computes the same algebra with tensor ops. Both kernels
+run the step passes of ``csrc/floquet_echo.cuh`` on K2's split, each step's
+diagonal from a folded row (``ops/echo_fold.py``): the forward's from
+``forward_fold`` (``general_forward_scratch``), the echo's from
+``echo_plan``.
 
 The entries take the step rows of ``ops/params_general.py``. A tensor on the
 CPU goes to the plain version; a CUDA tensor launches the kernel or raises.
@@ -19,9 +23,7 @@ slot unitary, m its X-mask), then the diagonal exp(i theta(s)) with
     cz_q = -h_q/2 - (pi/2) n_q,   cb_j = -phi_j/2,   c0 = (pi/2) sum_q n_q.
 Forward: a step whose row has MPOS >= 0 gives A(MPOS) = sum |psi|^2 z_q;
 A(0) is the initial sign. Echo: each pair runs the COUNT steps its row 0
-names, then sum |psi|^2 z_q. The host factor is ancilla_factor * s0. The
-echo kernel takes, beside the step rows, their folded diagonals
-(``ops/echo_fold.py``).
+names, then sum |psi|^2 z_q. The host factor is ancilla_factor * s0.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import math
 import torch
 
 from dtc_tpu_torch.core.statevector import basis_index
-from dtc_tpu_torch.ops.echo_fold import echo_plan
+from dtc_tpu_torch.ops.echo_fold import echo_plan, forward_fold
 from dtc_tpu_torch.ops.kick import kron
 from dtc_tpu_torch.ops.params import WIDTH
 from dtc_tpu_torch.ops.params_general import (
@@ -88,8 +90,8 @@ def check_range(L: int, q: int, steps: int) -> None:
 
 def row_coeffs(rows: torch.Tensor, L: int):
     """(..., 128) step rows -> the diagonal's coefficients (cz (..., L),
-    cb (..., L-1), c0 (...)) in the lab frame (the kernels' load_coeffs,
-    ``csrc/floquet_lab.cuh``)."""
+    cb (..., L-1), c0 (...)) in the lab frame, which the kernels take
+    folded (``ops/echo_fold.py``)."""
     n_bits = rows[..., :L]
     cz = -0.5 * rows[..., 2 * L:3 * L] - _HALF_PI * n_bits
     cb = -0.5 * rows[..., 3 * L:4 * L - 1]
@@ -174,6 +176,20 @@ def general_echo_batch_ref(tiles, *, L, q, initial_state="vacuum",
 # kernel entries
 
 
+def general_forward_scratch(flat, L: int, T: int, blocks: int):
+    """What the forward kernel takes beside its (n, T*K, 128) step rows:
+    the folded diagonals (n, n_steps + 1, 2L) of the steps it runs (row 0
+    zero, not read; row k + 1 step k's ``row_coeffs``), the zeroed partials
+    (n, T, blocks), one per pass-hi block, trajectory and time (an A(t) that
+    no row measures sums zeros), and n_steps = (T-1) K, the steps whose
+    results are measured."""
+    n, S = flat.shape[:2]
+    n_steps = (T - 1) * (S // T)
+    fold = forward_fold(flat[:, :n_steps], L, row_coeffs)
+    return fold, torch.zeros((n, T, blocks), dtype=torch.float32,
+                             device=flat.device), n_steps
+
+
 def general_forward_batch(rows, *, L, T, q, initial_state="vacuum",
                           ancilla_factor=1.0):
     """(..., T*K, 128) step rows -> (..., T) A(t).
@@ -196,14 +212,15 @@ def general_forward_batch(rows, *, L, T, q, initial_state="vacuum",
     lib = _build.load("floquet_general")
     b0 = basis_index(L, initial_state)
     dev = rows.device
+    fold, partials, n_steps = general_forward_scratch(
+        rows.view(n, S, WIDTH), L, T, lib.floquet_general_forward_partials(L))
     state = torch.empty((n, 1 << L), dtype=torch.complex64, device=dev)
-    partials = torch.zeros((n, T, lib.floquet_general_forward_partials(L)),
-                           dtype=torch.float32, device=dev)
     a_raw = torch.empty((n, T), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.floquet_general_forward(
-        state.data_ptr(), rows.data_ptr(), partials.data_ptr(),
-        a_raw.data_ptr(), n, L, S, T, (T - 1) * (S // T), q, b0, stream)
+        state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
+        partials.data_ptr(), a_raw.data_ptr(), n, L, S, fold.shape[1], T,
+        n_steps, q, b0, stream)
     LAUNCHES["forward"] += 1
     raise_on(err, "floquet_general_forward")
     return (ancilla_factor * basis_sign(b0, q)) * a_raw.reshape(*batch, T)

@@ -21,7 +21,7 @@ drives the streamed lab-frame family) a whole echo sweep takes minutes, so
 T-k..T-1, the longest trip counts, k and the trajectories as
 ``engine.kernel_chunks`` sizes them for one instance); there is no energy
 trace (the energy route is the eager engine there). The x forwards (K1,
-K3a and the streamed family) and the streamed lab-frame forward run the
+K3a and the streamed family) and the lab-frame forwards (K4, K10) run the
 step passes of K2, K3b and K4's echo (``echo_lo_kernel``,
 ``echo_mid_kernel`` from L = 25, ``echo_hi_kernel``, the last measuring as
 it stores) and one ``reduce_rows_kernel`` and ``first_kernel`` at the end;

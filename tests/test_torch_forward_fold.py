@@ -1,7 +1,7 @@
-"""The streamed forwards' diagonal rows (``ops/echo_fold.py``
-``forward_fold``) and their pass order on the step passes of
-``csrc/floquet_echo.cuh``: the lab-frame forward (K10a) and the sigma-frame
-x forward (K6a/K7a).
+"""The forwards' diagonal rows (``ops/echo_fold.py`` ``forward_fold``)
+and their pass order on the step passes of ``csrc/floquet_echo.cuh``: the
+lab-frame forwards (K10a, K4) and the sigma-frame x forwards (K6a/K7a, K1,
+K3a).
 
 A forward step k of K10a is the kick of step row k, applied pass by pass to
 the bits of pass lo [0, a), pass mid [a, a + b) and pass hi [a + b, L),
@@ -14,6 +14,12 @@ rows carry the same coefficients, rounded once) at L = 14, 15, below the
 kernel's range (its range check is lowered for the test; its arithmetic
 does not depend on L), and against JAX's interpret K4 forward, the same
 lab-frame math, at L=14 (1e-4, the bound of ``test_torch_resident.py``).
+K4's forward runs the same steps on K2's split (``lo_bits``: pass lo's
+bits [0, L - L/2), pass hi's the rest) on the rows its wrapper folds
+(``general_forward_scratch``: ``forward_fold`` of the (T-1) K steps it
+runs); that loop is held against ``general_forward_batch_ref`` at L = 14,
+15 (1e-5; the plain version's range starts at 14) and against JAX's
+interpret K4 forward at L=14 (1e-4).
 
 K10's shard-local forms (``ops/cycle_hi.py``: one lab-frame cycle on a
 shard's local bits) run the same passes for the K slots of a cycle from the
@@ -136,16 +142,18 @@ def _kick_bits(state, row, L, lo, hi):
     return state.reshape(n, 1 << L)
 
 
-def _step_pass_loop(rows, L, q, initial_state, passes):
-    """A(t) of the forward in the kernel's order: per step the kick on pass
-    lo's, mid's and hi's bits, then fold row k + 1; the measure after it
-    where the row names a time; A(0) the basis state's z_q; times the
-    host's sign, as the wrappers."""
+def _step_pass_loop(rows, L, q, initial_state, split, fold=None):
+    """A(t) of the forward in the kernel's order on the split (a, b): per
+    step the kick on pass lo's bits [0, a), mid's [a, a + b) and hi's
+    [a + b, L), then fold row k + 1 (``fold``, default ``forward_fold`` of
+    every row); the measure after it where the row names a time; A(0) the
+    basis state's z_q; times the host's sign, as the wrappers."""
     flat = rows.reshape(-1, *rows.shape[-2:])
     n, S = flat.shape[:2]
     K = S // T
-    a, b = _plan(L, passes)
-    fold = forward_fold(flat, L, rg.row_coeffs)
+    a, b = split
+    if fold is None:
+        fold = forward_fold(flat, L, rg.row_coeffs)
     table = rb.angle_table(L, flat.device)
     b0 = basis_index(L, initial_state)
     state = rb.basis_states(n, L, b0, flat.device)
@@ -191,7 +199,7 @@ def test_step_pass_order_matches_plain(drive, L, initial_state, passes,
     monkeypatch.setattr(chg, "MIN_L", 14)
     rows = _rows(drive, L)
     for q in (0, L // 2, L - 1):
-        got = _step_pass_loop(rows, L, q, initial_state, passes)
+        got = _step_pass_loop(rows, L, q, initial_state, _plan(L, passes))
         want = chg.general_hi_forward_batch_ref(
             rows, L=L, T=T, q=q, initial_state=initial_state)
         assert got.shape == want.shape == (1, 2, T)
@@ -215,7 +223,77 @@ def test_step_pass_order_matches_reference_interpret(drive):
         jnp.asarray(hs), jnp.asarray(phis), sched.angles, keys, L=L, T=T,
         K=K, p=0.3, q=q, interpret=True))
     rows = _rows(drive, L, uniforms=_uniforms(keys, (T * K, L)))
-    got = _step_pass_loop(rows, L, q, "vacuum", 3).numpy()
+    got = _step_pass_loop(rows, L, q, "vacuum", _plan(L, 3)).numpy()
+    assert got.shape == ref.shape == (1, 2, T)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+# --- K4's forward on the step passes (K2's split)
+
+
+@pytest.mark.parametrize("L", [14, 15])
+@pytest.mark.parametrize("drive", DRIVES)
+def test_k4_forward_scratch_layout(drive, L):
+    """What K4's forward wrapper hands the kernel beside the rows:
+    n_steps = (T-1) K, ``forward_fold`` of rows 0..n_steps-1 (n, n_steps + 1,
+    2L) with row 0 zero and row k + 1 step k's ``row_coeffs``, and zeroed
+    partials (n, T, blocks)."""
+    rows = _rows(drive, L)
+    flat = rows.reshape(-1, *rows.shape[-2:])
+    n, S = flat.shape[:2]
+    K = S // T
+    fold, partials, n_steps = rg.general_forward_scratch(flat, L, T, 5)
+    assert n_steps == (T - 1) * K
+    assert fold.shape == (n, n_steps + 1, 2 * L)
+    assert fold.dtype == torch.float32
+    assert not fold[:, 0].any()
+    cz, cb, c0 = rg.row_coeffs(flat[:, :n_steps].double(), L)
+    want = torch.cat([cz, cb, c0[..., None]], -1)
+    np.testing.assert_allclose(fold[:, 1:].numpy(), want.numpy(), atol=1e-6,
+                               rtol=0)
+    assert partials.shape == (n, T, 5) and not partials.any()
+
+
+def _k4_fold(rows, L):
+    """The folded rows K4's forward wrapper builds."""
+    flat = rows.reshape(-1, *rows.shape[-2:])
+    return rg.general_forward_scratch(flat, L, T, 1)[0]
+
+
+@pytest.mark.parametrize("initial_state", ["vacuum", "neel"])
+@pytest.mark.parametrize("L", [14, 15])
+@pytest.mark.parametrize("drive", DRIVES)
+def test_k4_forward_step_pass_order_matches_plain(drive, L, initial_state):
+    """K4's forward in the step passes' order on K2's split (``lo_bits``,
+    two passes) and the wrapper's folded rows, against
+    ``general_forward_batch_ref``; probes in pass lo's bits, at the split
+    and in pass hi's."""
+    rows = _rows(drive, L)
+    for q in (0, L // 2, L - 1):
+        got = _step_pass_loop(rows, L, q, initial_state, _resident_split(L),
+                              _k4_fold(rows, L))
+        want = rg.general_forward_batch_ref(rows, L=L, T=T, q=q,
+                                            initial_state=initial_state)
+        assert got.shape == want.shape == (1, 2, T)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("drive", ["y", "circular_left"])
+def test_k4_forward_step_pass_order_matches_reference_interpret(drive):
+    """The same loop against JAX's interpret K4 forward at L=14 on the same
+    uniforms (1e-4)."""
+    L, q = 14, 9
+    hs, phis = _disorder(L)
+    sched = j_sched(drive, 0.97, T)
+    K = sched.angles.shape[1]
+    keys = jax.random.split(jax.random.PRNGKey(3), 2)[None]
+    ref = np.asarray(j_forward(
+        jnp.asarray(hs), jnp.asarray(phis), sched.angles, keys, L=L, T=T,
+        K=K, p=0.3, q=q, interpret=True))
+    rows = _rows(drive, L, uniforms=_uniforms(keys, (T * K, L)))
+    got = _step_pass_loop(rows, L, q, "vacuum", _resident_split(L),
+                          _k4_fold(rows, L)).numpy()
     assert got.shape == ref.shape == (1, 2, T)
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
 

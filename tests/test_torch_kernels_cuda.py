@@ -205,6 +205,78 @@ def test_general_echo_kernel_matches_plain_on_card(cuda_device, L, pol,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("state", ["vacuum", "neel"])
+@pytest.mark.parametrize("L", [14, 17, 20, 23])
+def test_general_forward_on_step_passes_matches_plain_on_card(cuda_device, L,
+                                                              state):
+    """K4's forward on the step passes (K2's split a = L - L/2) against its
+    plain version: y and xy, T=1 (no step runs) and T=4, probes in pass
+    lo's bits (0, a - 1) and pass hi's (a, L - 1)."""
+    hs, phis = _disorder(L, cuda_device)
+    a = L - L // 2
+    for pol in ("y", "xy"):
+        for T in (1, 4):
+            angles = build_kick_schedule(pol, 0.97, T,
+                                         device=cuda_device).angles
+            K = angles.shape[1]
+            gen = torch.Generator(device=cuda_device).manual_seed(L + T)
+            u = torch.rand((1, 3, T * K, L), generator=gen,
+                           device=cuda_device)
+            rows = general_forward_rows(u, hs[:, None], phis[:, None], angles,
+                                        L=L, T=T, K=K, p=0.1)
+            for q in (0, a - 1, a, L - 1):
+                launches = rg.LAUNCHES["forward"]
+                k = rg.general_forward_batch(rows, L=L, T=T, q=q,
+                                             initial_state=state)
+                torch.cuda.synchronize()
+                assert rg.LAUNCHES["forward"] == launches + 1
+                ref = rg.general_forward_batch_ref(rows, L=L, T=T, q=q,
+                                                   initial_state=state)
+                assert k.shape == ref.shape == (1, 3, T)
+                assert float((k - ref).abs().max()) <= TOL, (pol, T, q)
+
+
+@pytest.mark.cuda
+def test_general_forward_entry_checks_its_range(cuda_device):
+    """K4's forward C entry returns cudaErrorInvalidValue (1) without a
+    launch for L outside 14..23, q outside [0, L), no trajectory, T < 1,
+    n_steps < 0 or past the rows, and fold rows not past n_steps; in range
+    it launches (0)."""
+    from dtc_tpu_torch.ops import _build
+
+    dev = cuda_device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load("floquet_general")
+    L, T, K = 14, 2, 1
+    state = torch.zeros((1, 1 << L), dtype=torch.complex64, device=dev)
+    rows = torch.zeros((1, T * K, 128), device=dev)
+    rows[0, :, 4 * L - 1] = torch.tensor([1.0, -1.0], device=dev)  # MPOS
+    fold = torch.zeros((1, T, 2 * L), device=dev)
+    partials = torch.zeros((1, T, lib.floquet_general_forward_partials(L)),
+                           device=dev)
+    out = torch.full((1, T), 7.0, device=dev)
+
+    def fwd(L=L, T=T, n=1, rows_per_traj=T * K, fold_rows=T, n_steps=1,
+            q=0):
+        return lib.floquet_general_forward(
+            state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), n, L, rows_per_traj,
+            fold_rows, T, n_steps, q, 0, stream)
+
+    for bad in (dict(L=13), dict(L=24), dict(q=L), dict(q=-1), dict(n=0),
+                dict(T=0), dict(n_steps=-1), dict(n_steps=3),
+                dict(fold_rows=1)):
+        assert fwd(**bad) == 1, bad
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full_like(out, 7.0))  # nothing ran
+    # a zero row's kick U = 0 zeroes the state: A(0) = z_0 of the vacuum,
+    # A(1) reads 0
+    assert fwd() == 0
+    torch.cuda.synchronize()
+    assert out.tolist() == [[1.0, 0.0]]
+
+
+@pytest.mark.cuda
 def test_general_wrappers_reject_bad_inputs(cuda_device):
     rows = torch.zeros((1, 3, 128), device=cuda_device)
     with pytest.raises(ValueError, match="float32"):
@@ -1315,10 +1387,14 @@ def test_cycle_hi_general_entries_check_their_range(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L,B", [(4, 3), (12, 5), (20, 8)])
+@pytest.mark.parametrize("L,B", [(4, 3), (12, 5), (20, 8), (1, 3), (2, 3),
+                                 (5, 3), (9, 3), (20, 32), (30, 1),
+                                 (5, 65535)])
 def test_noise_factor_kernel_matches_plain_on_card(cuda_device, L, B):
     """K11 on random unit states and random tiles, in place, against its
-    plain version: within 1e-5 of the largest amplitude."""
+    plain version: within 1e-5 of the largest amplitude. L = 1 (one
+    amplitude a thread), 2 .. 8 (one table over the whole chain), 9 and up
+    (the row phases), 30 (64-bit offsets); B = 65535, the grid's edge."""
     from dtc_tpu_torch.ops import noise_factor as nf
 
     gen = torch.Generator(device=cuda_device).manual_seed(L)
@@ -1341,6 +1417,35 @@ def test_noise_factor_kernel_matches_plain_on_card(cuda_device, L, B):
         nf.apply_noise_factor(st.double(), par, L=L)
     with pytest.raises(ValueError):
         nf.apply_noise_factor(st[:, :, ::2], par, L=L)
+
+
+@pytest.mark.cuda
+def test_noise_factor_entry_checks_its_range(cuda_device):
+    """K11's C entry returns cudaErrorInvalidValue (1) without a launch
+    for L outside 1..30, a batch outside 1..65535 and a state not 16-byte
+    aligned; the wrapper refuses the batch first."""
+    from dtc_tpu_torch.ops import _build
+    from dtc_tpu_torch.ops import noise_factor as nf
+
+    dev = cuda_device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load("noise_factor")
+    st = torch.ones((2, 2, 32), device=dev)
+    par = torch.zeros((2, 8, 128), device=dev)
+    par[:, 0, 0] = 1.0  # zm bit 0: a launch would flip odd amplitudes
+    for n, L, ptr in ((2, 0, 0), (2, 31, 0), (0, 5, 0), (65536, 5, 0),
+                      (1, 5, 4)):
+        assert lib.noise_factor_apply(st.data_ptr() + ptr, par.data_ptr(), n,
+                                      L, stream) == 1, (n, L, ptr)
+    torch.cuda.synchronize()
+    assert torch.equal(st, torch.ones_like(st))  # nothing ran
+    assert lib.noise_factor_apply(st.data_ptr(), par.data_ptr(), 2, 5,
+                                  stream) == 0
+    torch.cuda.synchronize()
+    assert float(st[:, :, 1::2].max()) == -1.0
+    with pytest.raises(ValueError, match="65535"):
+        nf.apply_noise_factor(torch.zeros((65536, 2, 4), device=dev),
+                              torch.zeros((65536, 8, 128), device=dev), L=2)
 
 
 @pytest.mark.cuda

@@ -211,7 +211,8 @@ MIRRORED = {
         "run_steps<kW>( (float2*)state, L, lo_bits(L), 0,"],
     "floquet_x.cu": ["run_echo<kW>( (float2*)state, L, lo_bits(L), 0,",
                      "run_steps<kW>( (float2*)state, L, lo_bits(L), 0,"],
-    "floquet_general.cu": ["run_echo<kW>( (float2*)state, L, lo_bits(L), 0,"],
+    "floquet_general.cu": ["run_echo<kW>( (float2*)state, L, lo_bits(L), 0,",
+                           "run_steps<kW>( (float2*)state, L, lo_bits(L), 0,"],
     "floquet_x_streamed.cu": [
         "const auto run = p.b > 0 ? run_echo<kWideCols, XEcho<WideRows, "
         "ConstKick>> : run_echo<kW, XEcho<WideRows, ConstKick>>;",
