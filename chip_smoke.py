@@ -120,6 +120,20 @@ each; any failure raises and the script exits non-zero without a result:
    each with its route logged, its kernels only and A(0) = the model's
    ancilla and readout factor; config 4 held against the sigma device
    engine on the same draws (forward, echo at t=1..3) within 2.7e-4;
+   then the exact density matrix: its run wrappers on the card against
+   the same calls on the CPU (L=8, T=10, x and xy, p=0.05; complex128
+   within 1e-10, complex64 within 1e-5) and the literal Hadamard test
+   against the direct mode (L=5, t=3, forward and echo, within 1e-6), then
+   ``autocorr --device cuda --method exact`` at L=13, T=20 (A(0) = echo(0)
+   = (1-p)^6, |A| and |echo| <= 1, no kernel launched; its seconds and
+   peak device memory); then the sharded observables on 2 logical shards
+   of the card against the unsharded eager engine on the same uniforms
+   (L=20, T=10, 4 trajectories, xy: <Z_q> within 1e-4, E within 1e-4 * L),
+   ``--num_devices 2 energy --device cuda --sharded --n_amp 2`` at L=24
+   (T=10, p = 0 and 0.01, at 4 trajectories and at the CLI's default 256:
+   E(0)/L, <Z_q(0)> = 1, the route logged, no kernel launched; seconds and
+   peak device memory) and ``dryrun_multichip(4)``
+   (``dtc_tpu_torch/dryrun.py``) on four logical shards of the card;
 5. timing: the bench shape (``dtc_tpu_torch/bench.py::run_case``) and every
    kernel against its plain version on identical inputs, whose outputs are
    held to the same bound (K1 after the registers and spills of every
@@ -1558,7 +1572,7 @@ class SweepLog(logging.Handler):
             words = msg.split()
             self.seconds.setdefault(" ".join(words[1:-1]), []).append(
                 float(words[-1].rstrip("s")))
-        elif "_sweep: engine=" in msg:
+        elif "_sweep: engine=" in msg or "sharded_energy: engine=" in msg:
             sweep, engine, pol = msg.split()[:3]
             self.sweeps.append((sweep.rstrip(":"), engine.split("=")[1],
                                 pol.split("=")[1]))
@@ -3149,6 +3163,207 @@ def timing_noise_factor(dev, smi, launches) -> dict:
     return out
 
 
+def compare_exact(dev) -> None:
+    """[compare] exact: the density-matrix run wrappers on the card against
+    the same calls on the CPU (L=8, T=10, x and xy, p=0.05; complex128
+    within 1e-10, complex64 within 1e-5), and the literal Hadamard test on
+    the card against the direct mode (L=5, t=3, forward and echo, within
+    1e-6)."""
+    from dtc_tpu_torch.core import density
+
+    cpu = torch.device("cpu")
+    L, T, p = 8, 10, 0.05
+    hs, phis = disorder(L, cpu)
+    for pol in ("x", "xy"):
+        angles = schedule(pol, T, cpu)
+        for name, tol in (("complex128", 1e-10), ("complex64", 1e-5)):
+            kw = dict(L=L, T=T, K=angles.shape[1], p=p, q=L // 2,
+                      dtype_name=name)
+            out = []
+            for d in (dev, cpu):
+                args = (hs[0].to(d), phis[0].to(d), angles.to(d))
+                out.append(torch.cat([
+                    density.dm_autocorr_forward_run(*args, **kw),
+                    density.dm_autocorr_echo_run(*args, range(T), **kw)
+                ]).cpu())
+            diff = float((out[0] - out[1]).abs().max())
+            phase(f"[compare] exact L={L} T={T} {pol} {name} cuda vs cpu: "
+                  f"max|d(A, echo)| {diff:.3e} (bound {tol:g})")
+            if not diff <= tol:
+                raise RuntimeError(f"exact DM {pol} {name} on the card "
+                                   "disagrees with the CPU")
+    L, t = 5, 3
+    hs, phis = disorder(L, dev)
+    angles = schedule("xy", T, dev)
+    psi0, diag = density._run_inputs(hs[0], phis[0], L, "vacuum",
+                                     "complex128")
+    kw = dict(L=L, K=2, p=p, q=L // 2)
+    for echo in (False, True):
+        lit = density.dm_autocorr_interferometric(psi0, angles, diag, t,
+                                                  echo=echo, **kw)
+        direct = float(
+            density.dm_autocorr_echo(psi0, angles, diag, t, T=T, **kw)
+            if echo else density.dm_autocorr_forward(
+                psi0, angles, diag, T=T, **kw)[t])
+        phase(f"[compare] exact interferometric L={L} t={t} "
+              f"{'echo' if echo else 'forward'} on the card: {lit:.10f} "
+              f"against the direct mode's {direct:.10f}")
+        if not abs(lit - direct) <= 1e-6:
+            raise RuntimeError("the literal Hadamard test disagrees with "
+                               "the direct mode")
+
+
+def main_exact(smi, L=13, T=20) -> None:
+    """[main] exact: ``autocorr --device cuda --method exact`` at L=13
+    (4^13 amplitudes, 512 MiB a complex64 density vector), T=20, one
+    instance; A(0) = echo(0) = (1-p)^6, |A| and |echo| <= 1, no kernel
+    launched (the path has none)."""
+    dev = torch.device(DEVICE)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, plain, log, seconds = run_cli(
+            ["autocorr", "--method", "exact", "--inst", "1",
+             *common_argv(T, tmp, L=L)])
+        cols = one_csv(tmp, "autocorr_data_")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    a, e = cols["av_autocorr"], cols["av_autocorr_echo"]
+    af = (1 - P) ** 6
+    checks = {
+        "A(0) = (1-p)^6": abs(a[0] - af) <= 1e-5,
+        "echo(0) = (1-p)^6": abs(e[0] - af) <= 1e-5,
+        "|A| <= 1": all(abs(x) <= 1 + 1e-5 for x in a),
+        "|echo| <= 1": all(abs(x) <= 1 + 1e-5 for x in e),
+        "A alternates over 4 cycles": all(a[i] * a[i + 1] < 0
+                                          for i in range(3)),
+        "no kernel launched": not any(launches.values()),
+        "no plain version on CUDA": not any(plain.values()),
+    }
+    phase(f"[main] autocorr --method exact L={L} T={T} inst=1 in "
+          f"{seconds:.2f}s (exact phase {log.seconds['exact'][0]:.3f} s), "
+          f"peak device memory {peak:.2f} GiB on {smi}: "
+          f"A[0:4]={[round(x, 6) for x in a[:4]]} "
+          f"echo[0:4]={[round(x, 6) for x in e[:4]]} "
+          f"echo[T-1]={e[-1]:.6f}")
+    fail_on(f"autocorr --method exact L={L}", checks)
+
+
+def compare_sharded_observables(dev, L=20) -> None:
+    """[compare] sharded observables: make_sharded_observables on 2
+    logical shards of the card against the unsharded evolve_observables on
+    the same uniforms (L=20, T=10, 4 trajectories, p=0.05, xy, complex64):
+    <Z_q> within 1e-4, E within 1e-4 * L."""
+    from dtc_tpu_torch.core.evolve import (
+        evolve_observables,
+        make_floquet_params,
+    )
+    from dtc_tpu_torch.core.statevector import initial_statevector
+    from dtc_tpu_torch.models.hamiltonian import hamiltonian_terms
+    from dtc_tpu_torch.ops.diag import zz_z_diag_energy
+    from dtc_tpu_torch.parallel import sharded as sh
+    from dtc_tpu_torch.parallel.mesh import make_mesh
+
+    T, c, p = 10, 4, 0.05
+    hs, phis = disorder(L, dev)
+    angles = schedule("xy", T, dev)
+    terms = hamiltonian_terms(L, 0.97, hs[0], phis[0])
+    u = uniforms((c, T * 2, L), dev, seed=21)
+    t0 = time.perf_counter()
+    e_s, z_s = sh.make_sharded_observables(
+        make_mesh(2, 1, devices=[dev, dev]), L=L, T=T, K=2, p=p)(
+        angles, hs[0], phis[0], terms.hs, terms.phis, terms.x_coeff, u,
+        n_traj=c)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e, z = evolve_observables(
+        initial_statevector(L, device=dev).expand(c, -1), angles,
+        make_floquet_params(hs[0], phis[0], L),
+        zz_z_diag_energy(terms.hs, terms.phis, L, dtype=torch.float32),
+        terms.x_coeff, u, L=L, T=T, K=2, p=p)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    d_e = float((e_s - e.mean(0)).abs().max())
+    d_z = float((z_s - z.mean(0)).abs().max())
+    phase(f"[compare] sharded observables L={L} T={T} xy {c} trajectories "
+          f"on 2 shards of the card vs unsharded: max|dE| {d_e:.3e} "
+          f"(bound {1e-4 * L:g}), max|dz| {d_z:.3e} (bound 1e-4); "
+          f"{sharded_s:.3f} s sharded, {eager_s:.3f} s unsharded")
+    if not (d_e <= 1e-4 * L and d_z <= 1e-4):
+        raise RuntimeError("the sharded observables disagree with the "
+                           "unsharded engine")
+
+
+def main_energy_sharded(smi, L=24, T=10) -> None:
+    """[main] energy sharded: ``--num_devices 2 energy --device cuda
+    --sharded --n_amp 2`` at L=24 (2^23 amplitudes a shard), T=10, p = 0
+    and 0.01, at 4 trajectories and at the CLI's default count (256, in
+    runs of ``_launch_traj(mesh, 23, OBS_AMP_BYTES)``): E(0)/L = (sum h +
+    sum phi)/L and <Z_q(0)> = 1 for the vacuum at each level, the route
+    logged, no kernel launched; the seconds and peak device memory of
+    each."""
+    from dtc_tpu_torch.experiments import sharded_run
+    from dtc_tpu_torch.io.disorder import get_disorder
+    from dtc_tpu_torch.utils.config import SimConfig
+
+    results = []
+    run = sharded_run.run_energy_sharded
+
+    def keep(*args, **kw):
+        results.append(run(*args, **kw))
+        return results[-1]
+
+    for n in (4, SimConfig().n_trajectories):
+        results.clear()
+        sharded_run.run_energy_sharded = keep
+        torch.cuda.reset_peak_memory_stats(DEVICE)
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                launches, plain, log, seconds = run_cli(
+                    ["--num_devices", "2", "energy", "--sharded", "--n_amp",
+                     "2", "--inst", "1", "--nprobs", "0,0.01",
+                     *common_argv(T, tmp, L=L, n_traj=n)])
+                cols = one_csv(tmp, "energy_data_")
+                hs, phis = get_disorder(SimConfig(L=L, inst=1), tmp)
+        finally:
+            sharded_run.run_energy_sharded = run
+        peak = torch.cuda.max_memory_allocated(DEVICE) / 2**30
+        e0 = float(hs[0, :L].sum() + phis[0, :L - 1].sum()) / L
+        zq0 = [float(z[0].min()) for z in results[0]["per_qubit_z"].values()]
+        checks = {
+            "columns": list(cols) == ["time", "energy_p_0", "energy_p_0.01"],
+            "E(0)/L = (sum h + sum phi)/L": all(
+                abs(v[0] - e0) <= 1e-5 for k, v in cols.items()
+                if k != "time"),
+            "values finite": all(math.isfinite(x) for k, v in cols.items()
+                                 for x in v),
+            "z_q(0) = 1": all(abs(z - 1) <= 1e-5 for z in zq0),
+            "mesh (1,2)": results[0]["mesh_shape"] == {"traj": 1, "amp": 2},
+            "engine=sharded_obs mesh=(1,2)": log.sweeps == [
+                ("sharded_energy", "sharded_obs", "(1,2)")] * 2,
+            "no kernel launched": not any(launches.values()),
+            "no plain version on CUDA": not any(plain.values()),
+        }
+        per = ", ".join(f"{k} {v[0]:.3f} s" for k, v in log.seconds.items())
+        phase(f"[main] energy --sharded L={L} T={T} traj={n} on 2 shards "
+              f"of one card in {seconds:.2f}s ({per}), peak {peak:.2f} GiB "
+              f"on {smi}: E/L t=0,1: "
+              + ", ".join(f"{k} {v[0]:.6f} {v[1]:.6f}"
+                          for k, v in cols.items() if k != "time"))
+        fail_on(f"energy --sharded L={L} traj={n}", checks)
+
+
+def dryrun(smi) -> None:
+    """[dryrun]: ``dryrun_multichip(4)`` on four logical shards of the
+    card, its seconds."""
+    from dtc_tpu_torch.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dryrun_multichip(4, device=DEVICE)
+    torch.cuda.synchronize()
+    phase(f"[dryrun] dryrun_multichip(4) on one card in "
+          f"{time.perf_counter() - t0:.2f}s on {smi}")
+
+
 def main() -> None:
     csrc = os.path.join(HERE, "dtc_tpu_torch", "csrc")
     if not all(os.path.isfile(os.path.join(csrc, f))
@@ -3200,6 +3415,11 @@ def main() -> None:
     planar = main_planar(smi, dev)
     launches["K11"] = planar["K11"]
     device = main_device(smi, dev)
+    compare_exact(dev)
+    main_exact(smi)
+    compare_sharded_observables(dev)
+    main_energy_sharded(smi)
+    dryrun(smi)
     times = timing(dev, smi, err)
     times.update(timing_streamed(dev, smi, err))
     timing_route(dev, smi)

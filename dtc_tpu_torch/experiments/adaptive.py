@@ -378,8 +378,8 @@ def _folder(cfg, out_dir):
 def _batch_values(h, ph, angles, uniforms, kw, ts=None) -> np.ndarray:
     """One instance's forward values (1, n_traj, T), or with ``ts`` its echo
     values (1, n_traj, len(ts)), in launches of at most
-    engine.KERNEL_STATE_BYTES of live states (``kernel_chunks``: t values
-    kept together first, then trajectories)."""
+    ``engine.launch_states`` states (``kernel_chunks``: t values kept
+    together first, then trajectories)."""
     n_traj = kw["n_traj"]
     _, chunk, t_chunk = kernel_chunks(1, n_traj, 1 if ts is None else len(ts),
                                       kw["L"])

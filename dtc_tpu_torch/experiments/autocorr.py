@@ -1,8 +1,8 @@
 """Autocorrelation sweep experiments.
 
 Port of ``dtc_tpu/experiments/autocorr.py``: ``run_autocorr`` (trajectory
-method), forward + echo interferometric autocorrelator averaged over
-disorder instances, CSV schema
+and exact methods), forward + echo interferometric autocorrelator averaged
+over disorder instances, CSV schema
 ``time, av_autocorr, av_autocorr_echo, sqrt_av_autocorr_echo`` (+6 envelope
 columns when requested); and the studies built on it,
 ``run_polarization_comparison``, ``run_shots_study`` and
@@ -22,6 +22,10 @@ import os
 import numpy as np
 
 from dtc_tpu_torch.analysis.envelope import find_envelope
+from dtc_tpu_torch.core.density import (
+    dm_autocorr_echo_run,
+    dm_autocorr_forward_run,
+)
 from dtc_tpu_torch.io import csvio, naming
 from dtc_tpu_torch.io.disorder import get_disorder
 from dtc_tpu_torch.utils.profiling import phase_timer
@@ -60,6 +64,25 @@ def refuse_gate_counts(emit_gate_counts) -> None:
             " CLI and edges")
 
 
+def _exact_sweeps(cfg, sched, params, noise):
+    """(forward, echo) (inst, T) of the exact density-matrix mode, one
+    instance at a time; the noiseless echo is exactly 1."""
+    hs, phis = params
+    kw = dict(L=cfg.L, T=cfg.tf, K=sched.K, p=noise.p, q=cfg.probe_qubit,
+              initial_state=cfg.initial_state, dtype_name=cfg.dtype,
+              ancilla_factor=noise.ancilla_factor if noise.p > 0 else 1.0)
+    autocorr = np.stack([
+        dm_autocorr_forward_run(hs[i], phis[i], sched.angles, **kw)
+        .cpu().numpy() for i in range(cfg.inst)])
+    if noise.p == 0:
+        return autocorr, np.ones((cfg.inst, cfg.tf))
+    ts = range(cfg.tf)
+    echo = np.stack([
+        dm_autocorr_echo_run(hs[i], phis[i], sched.angles, ts, **kw)
+        .cpu().numpy() for i in range(cfg.inst)])
+    return autocorr, echo
+
+
 def run_autocorr(cfg, hs=None, phis=None, *, device="cuda", out_dir=None,
                  disorder_dir=None, with_envelopes: bool = False, write=True,
                  method: str = "trajectories", emit_gate_counts=False,
@@ -67,6 +90,10 @@ def run_autocorr(cfg, hs=None, phis=None, *, device="cuda", out_dir=None,
     """Run the forward + echo sweep on ``device``; returns the result dict
     and writes the CSV.
 
+    method: "trajectories" (Pauli-twirl trajectories, any L) or "exact"
+    (the density-matrix superoperator, ``core/density.py``: 4^L amplitudes,
+    L <= 13 in the reference's CLI; it ignores ``use_fakebackend`` and
+    ``uniforms``, as the reference's ignores its key).
     emit_gate_counts: the reference's keyword; True raises
     NotImplementedError (``refuse_gate_counts``).
     uniforms: optional (forward, echo) pair of f32 blocks,
@@ -76,18 +103,17 @@ def run_autocorr(cfg, hs=None, phis=None, *, device="cuda", out_dir=None,
     (``experiments/device_sweeps.py``).
     """
     refuse_gate_counts(emit_gate_counts)
-    if method == "exact":
-        raise NotImplementedError(
-            "method='exact' (density-matrix superoperator) is not ported yet:"
-            " ROADMAP.md queue 1, exact density matrix (core/density.py)")
-    if method != "trajectories":
+    if method not in ("trajectories", "exact"):
         raise ValueError(f"unknown method {method!r}")
     if hs is None or phis is None:
         hs, phis = get_disorder(cfg, disorder_dir)
     sched, params, noise = build_context(cfg, hs, phis, device=device)
     u_fwd, u_echo = uniforms if uniforms is not None else (None, None)
 
-    if cfg.use_fakebackend:
+    if method == "exact":
+        with phase_timer("exact"):
+            autocorr, echo = _exact_sweeps(cfg, sched, params, noise)
+    elif cfg.use_fakebackend:
         with phase_timer("forward(device)"):
             autocorr = device_forward_sweep(cfg, sched, params,
                                             uniforms=u_fwd)

@@ -210,7 +210,7 @@ def device_echo_sweep(cfg, sched, params, *, uniforms=None,
                       device_engine=None, t_chunk: int = 8) -> np.ndarray:
     """Device-noise echo A0(t) per instance, trajectory-averaged: (inst, T).
     The kernel routes take at most ``t_chunk`` t values per launch, fewer
-    where KERNEL_STATE_BYTES holds fewer states."""
+    where a launch holds fewer states (``engine.launch_states``)."""
     hs, phis = params
     dev = hs.device
     L, T, K, q = cfg.L, cfg.tf, sched.K, cfg.probe_qubit

@@ -41,9 +41,9 @@ from dtc_tpu_torch.core.evolve import evolve_observables, make_floquet_params
 from dtc_tpu_torch.core.sigma_evolve import DTYPES
 from dtc_tpu_torch.core.statevector import initial_statevector
 from dtc_tpu_torch.experiments.engine import (
-    KERNEL_STATE_BYTES,
     _sweep_uniforms,
     build_context,
+    launch_states,
     traj_chunks,
 )
 from dtc_tpu_torch.io import csvio, naming
@@ -100,6 +100,12 @@ def _sweep(cfg, hs, phis, device, uniforms):
                                           params[0].device)
 
 
+def obs_chunk(n_traj: int, L: int, inst: int) -> int:
+    """Trajectories per observables launch, which holds inst x chunk
+    states: within ``launch_states``."""
+    return max(1, min(n_traj, launch_states(L) // inst))
+
+
 def _obs_batch(cfg, sched, hs, phis, th, tph, x_coeff, u, c, p):
     """(inst, c, T) energies and (inst, c, T, L) <Z_q> on the obs route."""
     L, T, K = cfg.L, cfg.tf, sched.K
@@ -144,8 +150,7 @@ def _energy_single_noise(cfg, sweep, p: float, component: str = "full"):
     batch = _obs_batch if engine == "obs" else _eager_batch
     n_traj = cfg.n_trajectories if p > 0 else 1
     if engine == "obs":
-        chunk = traj_chunks(n_traj, L, extra_factor=cfg.inst,
-                            budget_bytes=KERNEL_STATE_BYTES)
+        chunk = obs_chunk(n_traj, L, cfg.inst)
     else:
         chunk = traj_chunks(n_traj, L, extra_factor=4 * cfg.inst)
     acc_e = np.zeros((cfg.inst, T))

@@ -118,14 +118,31 @@ def traj_chunks(n_traj: int, L: int, extra_factor: int = 2,
     return max(1, min(n_traj, budget_bytes // max(1, bytes_per_traj)))
 
 
+def launch_states(L: int, state_bytes: int = 8) -> int:
+    """States of 2^L amplitudes, ``state_bytes`` each with their
+    temporaries, that one kernel launch may hold: within KERNEL_STATE_BYTES
+    and at most ``resident_blocked.MAX_LAUNCH``, the kernels' grid limit;
+    at least one."""
+    return max(1, min(resident_blocked.MAX_LAUNCH,
+                      KERNEL_STATE_BYTES // (state_bytes << L)))
+
+
 def kernel_chunks(inst: int, n_traj: int, n_ts: int, L: int):
     """(instances, trajectories, t values) per kernel launch: at most
-    KERNEL_STATE_BYTES of live states, at least one of each; the t values
-    are kept together first, then the instances, then the trajectories."""
-    states = max(1, KERNEL_STATE_BYTES // ((1 << L) * 8))
+    ``launch_states(L)`` states (t values x states for the echoes), at
+    least one of each; the t values are kept together first, then the
+    instances, then the trajectories."""
+    states = launch_states(L)
     ts = min(n_ts, states)
     ic = min(inst, states // ts)
     return ic, min(n_traj, states // (ts * ic)), ts
+
+
+def planar_chunk(n_traj: int, L: int, inst: int) -> int:
+    """Trajectories per planar forward call: its inst x chunk states, whole
+    states and their matmul temporaries (16 bytes an amplitude), all go to
+    one K11 launch a cycle, so within ``launch_states``."""
+    return max(1, min(n_traj, launch_states(L, 16) // inst))
 
 
 def build_context(cfg, hs, phis, *, device):
@@ -335,11 +352,8 @@ def forward_sweep(cfg, sched, params, noise, *, uniforms=None,
     u = (_sweep_uniforms(uniforms, (cfg.inst, n_traj, T * K, L), cfg.seed,
                          hs.device) if p > 0 else None)
     if engine == "planar":
-        # whole states and their matmul temporaries, like the sigma engine,
-        # within the kernel routes' budget
         ic = cfg.inst
-        chunk = traj_chunks(n_traj, L, extra_factor=2 * cfg.inst,
-                            budget_bytes=KERNEL_STATE_BYTES)
+        chunk = planar_chunk(n_traj, L, cfg.inst)
     elif engine != "sigma":
         ic, chunk, _ = kernel_chunks(cfg.inst, n_traj, 1, L)
     else:
@@ -363,7 +377,7 @@ def echo_sweep(cfg, sched, params, noise, *, uniforms=None,
     """Echo A0(t) per instance, trajectory-averaged: (inst, T) numpy.
     The noiseless echo is exactly 1 and is returned analytically. The
     kernel routes take at most ``t_chunk`` t values per launch, fewer where
-    KERNEL_STATE_BYTES holds fewer states. ``engine`` as in
+    a launch holds fewer states (``launch_states``). ``engine`` as in
     ``forward_sweep`` ("planar": every echo takes the sigma engine)."""
     hs, phis = params
     p = noise.p

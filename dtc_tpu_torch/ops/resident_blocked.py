@@ -227,11 +227,16 @@ def kick_cs(theta: float):
             float(torch.tensor(math.sin(theta / 2), dtype=torch.float32)))
 
 
+# Trajectories or pairs one launch may take: the grid's y dimension. The
+# engines' chunk helpers size every launch within it.
+MAX_LAUNCH = 65535
+
+
 def batch_size(batch, what: str) -> int:
     """Trajectories or pairs of a launch: the grid's y dimension."""
     n = math.prod(batch)
-    if not (1 <= n <= 65535):
-        raise ValueError(f"{what} batch of {n} outside [1, 65535]")
+    if not (1 <= n <= MAX_LAUNCH):
+        raise ValueError(f"{what} batch of {n} outside [1, {MAX_LAUNCH}]")
     return n
 
 

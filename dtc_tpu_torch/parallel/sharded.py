@@ -5,8 +5,10 @@ Port of ``dtc_tpu/parallel/sharded.py``: the global-bit algebra
 ``_sharded_forward_cycle``, ``_tail_phase_angles``, ``_global_shard_kicks``,
 ``_global_diag``, ``_global_diag_inv``, ``_check_constant_x``,
 ``_global_general_slot_kick``), the sigma-frame engines
-``make_sharded_autocorr_forward`` and ``make_sharded_echo``, and the
-cycle-kernel engines at 17 <= L_loc <= 30:
+``make_sharded_autocorr_forward`` and ``make_sharded_echo``, the eager
+observables engine ``make_sharded_observables`` (energy and every <Z_q>,
+uniforms (n, T*K, L) as ``core/evolve.py::evolve_observables`` takes
+them), and the cycle-kernel engines at 17 <= L_loc <= 30:
 ``make_sharded_autocorr_forward_kernel`` (K8a; K9a from
 ``cycle_hi.MIN_ROUTE_L`` = 24 on), ``make_sharded_echo_kernel`` (K8a/K8b;
 K9a/K9b), ``make_sharded_autocorr_forward_general`` (K8c; K10a
@@ -40,7 +42,9 @@ the group's trajectories of one shard, in runs of at most
 ``_launch_traj(mesh, L_loc)`` trajectories so that the shard states of a
 run that share one device stay within ``engine.KERNEL_STATE_BYTES`` through
 the out-of-place exchange (one trajectory at L_loc = 29 and 30 with a card
-a shard). The per-shard kernels are K8 (``ops/cycle.py``,
+a shard). The observables engine runs its trajectories in runs of
+``_launch_traj(mesh, L_loc, OBS_AMP_BYTES)`` under the same budget. The
+per-shard kernels are K8 (``ops/cycle.py``,
 L_loc < ``cycle_hi.MIN_ROUTE_L``) and the streamed family (``ops/cycle_hi.py``,
 from it up to 30), as the reference switches at its
 ``DTC_TPU_SHARDED_HI_MIN_LB``; x rows are ``forward_width(L_loc)`` lanes
@@ -91,15 +95,16 @@ from dtc_tpu_torch.core.statevector import basis_index
 from dtc_tpu_torch.experiments.engine import KERNEL_STATE_BYTES
 from dtc_tpu_torch.models.drives import slot_unitary, slot_unitary_inverse
 from dtc_tpu_torch.ops import cycle, cycle_hi
-from dtc_tpu_torch.ops.diag import zz_z_phase_mask
-from dtc_tpu_torch.ops.kick import kron, kron_power
+from dtc_tpu_torch.ops.diag import zz_z_diag_energy, zz_z_phase_mask
+from dtc_tpu_torch.ops.gates import expect_x
+from dtc_tpu_torch.ops.kick import apply_uniform_1q_layer, kron, kron_power
 from dtc_tpu_torch.ops.params import forward_width, pack_cycle_params_compact
 from dtc_tpu_torch.ops.params_general import (
     general_echo_rows,
     general_forward_rows,
     general_hi_width,
 )
-from dtc_tpu_torch.ops.paulis import _i_power, _parity
+from dtc_tpu_torch.ops.paulis import _i_power, _parity, pauli_string_masks
 from dtc_tpu_torch.parallel.mesh import amp_bits
 
 _HALF_PI = math.pi / 2
@@ -409,20 +414,25 @@ def _basis_shards(mesh, t, c, L, local_bits, b0, dtype):
     return out
 
 
+def _probs(shards):
+    """|psi|^2 of each shard, (n, M) real."""
+    return [st.real.square().addcmul_(st.imag, st.imag) for st in shards]
+
+
+def _z_part(prob, a, q, local_bits):
+    """sum |psi|^2 z_q of shard a's probabilities (n, M), per trajectory:
+    for a shard-local q the halves with bit q at 0 and at 1; for a
+    shard-id bit q the shard's one sign."""
+    if q < local_bits:
+        prob = prob.view(prob.shape[0], -1, 2, 1 << q)
+        return prob[:, :, 0].sum((1, 2)) - prob[:, :, 1].sum((1, 2))
+    return (1 - 2 * (((a << local_bits) >> q) & 1)) * prob.sum(1)
+
+
 def _measure(mesh, shards, q, local_bits):
-    """sum_a sum |psi|^2 z_q over the shards, per trajectory (n,): for a
-    shard-local q the halves of |psi|^2 with bit q at 0 and at 1; for a
-    shard-id bit q each shard's one sign."""
-    parts = []
-    for a, st in enumerate(shards):
-        prob = st.real.square().addcmul_(st.imag, st.imag)
-        if q < local_bits:
-            prob = prob.view(st.shape[0], -1, 2, 1 << q)
-            parts.append(prob[:, :, 0].sum((1, 2)) - prob[:, :, 1].sum((1, 2)))
-        else:
-            sign = 1 - 2 * (((a << local_bits) >> q) & 1)
-            parts.append(sign * prob.sum(1))
-    return mesh.psum(parts)
+    """sum_a sum |psi|^2 z_q over the shards, per trajectory (n,)."""
+    return mesh.psum([_z_part(prob, a, q, local_bits)
+                      for a, prob in enumerate(_probs(shards))])
 
 
 def _sign(mask, q):
@@ -456,16 +466,24 @@ def use_hi(local_bits) -> bool:
     return local_bits >= max(cycle_hi.MIN_L, cycle_hi.MIN_ROUTE_L)
 
 
-def _launch_traj(mesh, local_bits) -> int:
-    """Trajectories of one kernel run: the states of the run's shards on
-    the device that holds most of them, doubled for the out-of-place
-    exchange, within KERNEL_STATE_BYTES (one at L_loc >= 29 with a card a
-    shard)."""
+# Bytes an amplitude of a shard holds at the peak of an observables run:
+# the complex64 state (8), the exchanged or gathered copy (8), its f32
+# probabilities (4) and the Pauli string's int64 index and sign words
+# (8 + 8 + 8 for the parity), rounded up.
+OBS_AMP_BYTES = 64
+
+
+def _launch_traj(mesh, local_bits, amp_bytes=16) -> int:
+    """Trajectories of one run: ``amp_bytes`` a shard amplitude (16, a
+    kernel run's complex64 state doubled for the out-of-place exchange) on
+    the device that holds most of the run's shards, within
+    KERNEL_STATE_BYTES (one kernel run's trajectory at L_loc >= 29 with a
+    card a shard)."""
     per_device = max(
         sum(mesh.device(t, a) == mesh.device(t, b)
             for b in range(mesh.shape["amp"]))
         for t in range(mesh.shape["traj"]) for a in range(mesh.shape["amp"]))
-    return max(1, KERNEL_STATE_BYTES // (16 * per_device << local_bits))
+    return max(1, KERNEL_STATE_BYTES // (amp_bytes * per_device << local_bits))
 
 
 # ---------------------------------------------------------------------------
@@ -611,6 +629,106 @@ def make_sharded_echo(mesh, *, L, T, K, p, q, initial_state="vacuum",
             total = total + e.sum()
             n += c
         return total / n
+
+    return fn
+
+
+def make_sharded_observables(mesh, *, L, T, K, p, initial_state="vacuum",
+                             dtype=torch.complex64):
+    """Sharded single-state evolution emitting the energy and every
+    <Z_q>: the counterpart of ``core/evolve.py::evolve_observables``.
+
+    Returns fn(angles (T, K, 2), hs (L,), phis (L-1,), term_hs (L,),
+    term_phis (L-1,), x_coeff, uniforms (n, T*K, L) or None, n_traj=None,
+    seed=0) -> (E (T,), zs (T, L)), trajectory averages in the state's real
+    type on the device of shard (0, 0). Each cycle measures, then (but the
+    last) runs its K slots: the kick on the local bits and, one exchange
+    each, on the shard-id bits, then the slot's sampled Pauli string; then
+    the diagonal. The diagonal energy and every <Z_q> are shard-local
+    sums; <X_q> of a local qubit is a shard-local pair sum, of a shard-id
+    bit one partner exchange, each shard of a pair adding Re <mine|partner>
+    (the pair gives the factor 2); with x_coeff == 0 no X sum is taken.
+    Sums over shards run in shard order. A traj group runs in runs of at
+    most ``_launch_traj(mesh, L_loc, OBS_AMP_BYTES)`` trajectories. Without
+    uniforms and with p > 0 the block is drawn from a generator seeded
+    with ``seed``."""
+    n_amp = mesh.shape["amp"]
+    k_bits = amp_bits(mesh)
+    local_bits = L - k_bits
+    if local_bits < 1:
+        raise ValueError(f"L={L} too small for {n_amp} amp-shards")
+    M = 1 << local_bits
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
+    b0 = basis_index(L, initial_state)
+    run = _launch_traj(mesh, local_bits, OBS_AMP_BYTES)
+
+    def measure(shards, diag_es, x_coeff):
+        probs = _probs(shards)
+        e = mesh.psum([(pr * de).sum(1) for pr, de in zip(probs, diag_es)])
+        zs = torch.stack([
+            mesh.psum([_z_part(pr, a, q, local_bits)
+                       for a, pr in enumerate(probs)]) for q in range(L)], 1)
+        if x_coeff == 0.0:
+            return e, zs
+        xs = []
+        for q in range(L):
+            if q < local_bits:
+                parts = [expect_x(st, q, local_bits) for st in shards]
+            else:
+                partners = mesh.xor_partners(shards, q - local_bits)
+                parts = [(st.real * pt.real + st.imag * pt.imag).sum(1)
+                         for st, pt in zip(shards, partners)]
+            xs.append(mesh.psum(parts))
+        x_sum = torch.stack(xs).sum(0)
+        return e + x_coeff * x_sum.to(e.device), zs
+
+    def fn(angles, hs, phis, term_hs, term_phis, x_coeff, uniforms=None,
+           n_traj=None, seed=0):
+        dev0 = mesh.device(0, 0)
+        if uniforms is None and p > 0.0:
+            gen = torch.Generator(device=dev0).manual_seed(seed)
+            uniforms = torch.rand((n_traj, T * K, L), generator=gen,
+                                  dtype=torch.float32, device=dev0)
+        x_coeff = float(x_coeff)
+        e_tot, z_tot, n = 0.0, 0.0, 0
+        for t, u, c in _traj_groups(mesh, uniforms, n_traj, p, run):
+            devs = [mesh.device(t, a) for a in range(n_amp)]
+            diags = [zz_z_phase_mask(hs.to(d), phis.to(d), L, offset=a * M,
+                                     size=M, dtype=dtype)
+                     for a, d in enumerate(devs)]
+            diag_es = [zz_z_diag_energy(torch.as_tensor(term_hs).to(d),
+                                        torch.as_tensor(term_phis).to(d), L,
+                                        offset=a * M, size=M, dtype=real)
+                       for a, d in enumerate(devs)]
+            if p > 0.0:
+                codes = _codes_from_uniform(u.to(devs[0]), p).reshape(
+                    c, T, K, L)
+            shards = _basis_shards(mesh, t, c, L, local_bits, b0, dtype)
+            es, zs = [], []
+            for tt in range(T):
+                e, z = measure(shards, diag_es, x_coeff)
+                es.append(e.to(dev0))
+                zs.append(z.to(dev0))
+                if tt == T - 1:
+                    break  # the last cycle's kicks are never measured
+                for k in range(K):
+                    uk = slot_unitary(angles[tt, k, 0], angles[tt, k, 1],
+                                      dtype)
+                    shards = [apply_uniform_1q_layer(st, uk.to(st.device),
+                                                     local_bits)
+                              for st in shards]
+                    for gb in range(k_bits):
+                        shards = _global_1q(mesh, shards,
+                                            uk.expand(c, 2, 2), gb)
+                    if p > 0.0:
+                        xm, zm, n_y = pauli_string_masks(codes[:, tt, k])
+                        shards = _sharded_pauli_string(
+                            mesh, shards, xm, zm, n_y, local_bits=local_bits)
+                shards = [st * d for st, d in zip(shards, diags)]
+            e_tot = e_tot + torch.stack(es, 1).sum(0)
+            z_tot = z_tot + torch.stack(zs, 1).sum(0)
+            n += c
+        return e_tot / n, z_tot / n
 
     return fn
 

@@ -5,12 +5,13 @@ Port of those subcommands of ``dtc_tpu/utils/cli.py``, with its flag
 vocabulary (``add_common_flags``, ``add_adaptive_flags`` and
 ``config_from_args`` are copies), plus ``--device`` (default cuda; a CUDA
 request on a machine without CUDA raises, it does not run on the CPU).
-``autocorr --sharded`` / ``--n_amp`` runs the amplitude-sharded sweep
-(``experiments/sharded_run.py``) on a mesh of the visible cards, or of
-``--num_devices`` logical devices (before the subcommand) laid round-robin
-over them: the counterpart of the reference's virtual host devices, so
-that ``--num_devices 4 autocorr --sharded --n_amp 4`` runs four shards on
-one card.
+``autocorr --sharded`` / ``--n_amp`` and ``energy --sharded`` / ``--n_amp``
+run the amplitude-sharded sweeps (``experiments/sharded_run.py``) on a
+mesh of the visible cards, or of ``--num_devices`` logical devices (before
+the subcommand) laid round-robin over them: the counterpart of the
+reference's virtual host devices, so that ``--num_devices 4 autocorr
+--sharded --n_amp 4`` runs four shards on one card. ``autocorr --method
+exact`` runs the density-matrix superoperator (``core/density.py``).
 """
 
 from __future__ import annotations
@@ -103,7 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--with_envelopes", action="store_true")
     p.add_argument("--method", type=str, default="trajectories",
                    choices=["trajectories", "exact"],
-                   help="exact = density-matrix superoperator (not ported)")
+                   help="exact = density-matrix superoperator (L<=13)")
     p.add_argument("--emit_gate_counts", action="store_true",
                    help="transpiled gate-count CSVs (not ported)")
     p.add_argument("--sharded", action="store_true",
@@ -124,7 +125,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", type=str, default=None,
                    help="journal path for crash-safe resume")
     p.add_argument("--sharded", action="store_true",
-                   help="amplitude-shard over all devices (not ported)")
+                   help="amplitude-shard over all devices")
     p.add_argument("--n_amp", type=int, default=None)
     p = sub.add_parser("bench", help="headline benchmark on the GPU")
     p.add_argument("--device", type=str, default="cuda")
@@ -148,22 +149,17 @@ def main(argv=None) -> int:
     kw = dict(device=args.device, out_dir=args.out_dir,
               disorder_dir=args.disorder_dir)
     sharded = getattr(args, "sharded", False) or getattr(args, "n_amp", None)
-    if sharded and args.command != "autocorr":
-        raise NotImplementedError(
-            f"{args.command} --sharded / --n_amp (run_energy_sharded) is not"
-            " ported yet: ROADMAP.md queue 1, sharding")
+    if sharded:
+        from dtc_tpu_torch.experiments import sharded_run
+        from dtc_tpu_torch.parallel.mesh import logical_devices
+
+        devices = (logical_devices(args.num_devices, args.device)
+                   if args.num_devices else None)
     if args.command == "autocorr":
         autocorr.refuse_gate_counts(args.emit_gate_counts)
         if sharded:
-            from dtc_tpu_torch.experiments.sharded_run import (
-                run_autocorr_sharded,
-            )
-            from dtc_tpu_torch.parallel.mesh import logical_devices
-
-            devices = (logical_devices(args.num_devices, args.device)
-                       if args.num_devices else None)
-            r = run_autocorr_sharded(cfg, n_amp=args.n_amp, devices=devices,
-                                     **kw)
+            r = sharded_run.run_autocorr_sharded(cfg, n_amp=args.n_amp,
+                                                 devices=devices, **kw)
             print(f"mesh={r['mesh_shape']}")
         else:
             r = autocorr.run_autocorr(cfg,
@@ -177,9 +173,15 @@ def main(argv=None) -> int:
             cfg, shots_list=[int(s) for s in args.shots_list.split(",")],
             **kw)
     elif args.command == "energy":
-        r = energy.run_energy(
-            cfg, nprobs=[float(s) for s in args.nprobs.split(",")],
-            checkpoint_path=args.checkpoint, **kw)
+        nprobs = [float(s) for s in args.nprobs.split(",")]
+        if sharded:
+            r = sharded_run.run_energy_sharded(cfg, n_amp=args.n_amp,
+                                               devices=devices,
+                                               nprobs=nprobs, **kw)
+            print(f"mesh={r['mesh_shape']}")
+        else:
+            r = energy.run_energy(cfg, nprobs=nprobs,
+                                  checkpoint_path=args.checkpoint, **kw)
     elif args.command == "ham-comparison":
         r = energy.run_ham_comparison(cfg, **kw)
     elif args.command == "per-qubit-z":

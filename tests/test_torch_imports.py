@@ -27,7 +27,7 @@ def test_no_module_of_the_port_loads_jax():
                    "experiments.sharded_run", "ops.noise_factor",
                    "core.planar_evolve", "core.device_evolve",
                    "device.layouts", "models.device_noise",
-                   "experiments.device_sweeps"):
+                   "experiments.device_sweeps", "core.density", "dryrun"):
         assert f"dtc_tpu_torch.{module}" in names
     code = ("import importlib, sys\n"
             f"for n in {names + ['chip_smoke']!r}:\n"
@@ -55,12 +55,18 @@ def test_cuda_request_without_cuda_raises():
         run_autocorr(SimConfig(L=4, tf=2), device="cuda", write=False)
 
 
-def test_unported_methods_raise():
+def test_unported_methods_raise(tmp_path):
+    """method="exact" (once refused) runs on the CPU; an unknown method
+    raises ValueError before any work."""
     from dtc_tpu_torch.utils.config import SimConfig
     from dtc_tpu_torch.experiments.autocorr import run_autocorr
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_autocorr(SimConfig(L=4, tf=2), device="cpu", method="exact")
+    kw = dict(device="cpu", write=False, disorder_dir=str(tmp_path))
+    r = run_autocorr(SimConfig(L=4, tf=2), method="exact", **kw)
+    assert r["av_autocorr"].shape == r["av_autocorr_echo"].shape == (2,)
+    assert abs(r["av_autocorr"][0] - 0.95 ** 6) < 1e-6
+    with pytest.raises(ValueError, match="unknown method"):
+        run_autocorr(SimConfig(L=4, tf=2), method="dense", **kw)
 
 
 @pytest.mark.parametrize("flag", [["--sharded", "--use_fakebackend", "1"],
@@ -99,13 +105,17 @@ def test_run_autocorr_takes_emit_gate_counts(emit, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--sharded"], ["--n_amp", "2"]])
-def test_unported_energy_flags_raise(flag, tmp_path):
+def test_unported_energy_flags_raise(flag, tmp_path, capsys):
+    """``energy --sharded`` and ``--n_amp 2`` (once refused) run the
+    sharded energy sweep on logical CPU devices and write its CSV."""
     from dtc_tpu_torch.utils.cli import main
 
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, sharding"):
-        main(["energy", "--device", "cpu", "--L", "4", "--tf", "2",
-              "--out_dir", str(tmp_path), *flag])
+    assert main(["--num_devices", "2", "energy", "--device", "cpu", "--L",
+                 "4", "--tf", "2", "--n_trajectories", "2", "--out_dir",
+                 str(tmp_path), "--disorder_dir", str(tmp_path), *flag]) == 0
+    out = capsys.readouterr().out
+    assert "mesh={'traj': 1, 'amp': 2}" in out
+    assert os.path.isfile(out.split("wrote ")[-1].strip())
 
 
 @pytest.mark.parametrize("via", ["function", "cli"])

@@ -1545,3 +1545,54 @@ def test_run_autocorr_fakebackend_on_card(cuda_device, pol, tmp_path):
                                    rtol=0)
     af = _rates(cfg, torch.device("cpu"))[2]
     assert abs(out["cuda"]["av_autocorr"][0] - af) < 1e-5
+
+
+@pytest.mark.cuda
+def test_x_echo_past_one_launch_matches_plain_on_card(cuda_device,
+                                                      monkeypatch):
+    """65536 echo pairs at L=14 (16 instances x 512 trajectories x 8 t
+    values) through echo_sweep (route resident, K3b): the sweep splits
+    them into launches of at most MAX_LAUNCH pairs, and matches the same
+    sweep through K3b's plain version on the same uniforms."""
+    from dtc_tpu_torch.experiments import engine
+
+    cfg = SimConfig(L=14, tf=8, inst=16, n_trajectories=512, noise_prob=0.05)
+    hs, phis = generate_disorder(14, 16, seed=3)
+    sched, params, noise = engine.build_context(cfg, hs, phis,
+                                                device=cuda_device)
+    assert engine.engine_for(sched.angles, L=14, T=8, q=7,
+                             dtype_name="complex64", has_y=False,
+                             echo=True) == "resident"
+    rs.reset_counters()
+    got = engine.echo_sweep(cfg, sched, params, noise)
+    torch.cuda.synchronize()
+    assert rs.LAUNCHES["echo"] == 2  # 16 x 511 x 8, then 16 x 1 x 8
+    monkeypatch.setattr(rs, "resident_echo_batch",
+                        rs.resident_echo_batch_ref)
+    want = engine.echo_sweep(cfg, sched, params, noise)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_planar_forward_past_one_launch_matches_plain_on_card(cuda_device,
+                                                              monkeypatch):
+    """65536 planar states at L=10: the planar forward runs them in chunks
+    of at most MAX_LAUNCH states, one K11 launch a chunk and measured
+    cycle, and matches the same forward through K11's plain version."""
+    from dtc_tpu_torch.core import planar_evolve
+    from dtc_tpu_torch.experiments import engine
+    from dtc_tpu_torch.ops import noise_factor as nf
+
+    cfg = SimConfig(L=10, tf=3, inst=1, n_trajectories=65536, noise_prob=0.1)
+    hs, phis = generate_disorder(10, 1, seed=4)
+    sched, params, noise = engine.build_context(cfg, hs, phis,
+                                                device=cuda_device)
+    nf.reset_counters()
+    got = engine.forward_sweep(cfg, sched, params, noise, engine="planar")
+    torch.cuda.synchronize()
+    assert nf.LAUNCHES["noise_factor"] == 2 * (cfg.tf - 1)
+    monkeypatch.setattr(planar_evolve, "apply_noise_factor",
+                        lambda st, par, L: nf.noise_factor_plain(st, par,
+                                                                 L=L))
+    want = engine.forward_sweep(cfg, sched, params, noise, engine="planar")
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)

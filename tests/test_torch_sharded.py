@@ -237,8 +237,14 @@ def test_routes():
             "cycle_hi" if L <= 30 else "sharded_sigma")
     assert sharded_run._auto_mesh(6, devices=["cpu"] * 8).shape == {
         "traj": 1, "amp": 8}
-    with pytest.raises(NotImplementedError, match="run_energy_sharded"):
-        sharded_run.run_energy_sharded(cfg)
+    # run_energy_sharded (once refused) returns the reference's keys
+    r = sharded_run.run_energy_sharded(
+        cfg.replace(L=6, n_trajectories=2), n_amp=2, devices=["cpu"] * 2,
+        nprobs=(0.0, 0.1), write=False)
+    assert set(r) == {"time", "energy_p_0", "energy_p_0.1", "per_qubit_z",
+                      "mesh_shape"}
+    assert r["mesh_shape"] == {"traj": 1, "amp": 2}
+    assert set(r["per_qubit_z"]) == {0.0, 0.1}
 
 
 def test_run_names_and_columns_match_reference(tmp_path, monkeypatch):
