@@ -73,7 +73,12 @@ each; any failure raises and the script exits non-zero without a result:
 4. main paths, each through the CLI's ``main(argv)`` with every launch
    count set to 0 just before it and read just after:
    ``autocorr --device cuda`` (x drive: K1/K2) at L=20, T=50, 2 instances x
-   32 trajectories, and ``polarization --device cuda`` (x, y, xy, yx: K1/K2
+   32 trajectories; ``campaign --simulate --device cuda`` at the same
+   width (4096 shots a job), twice in one job folder: 200 QASM jobs, 100
+   completed records of each kind, 50 CSV rows, every decoded slot within
+   5/sqrt(4096) of ``run_autocorr``'s value on the card, and a second run
+   that finds the export, writes no row and leaves the CSV as it was,
+   with the seconds of export, simulate and ingest; ``polarization --device cuda`` (x, y, xy, yx: K1/K2
    and K4) at L=20, T=50, 32 trajectories; physics checks on their CSVs,
    the engine each sweep logged, every kernel of the path launched and no
    plain version called on a CUDA tensor; then ``xy-cycle`` and ``shots``
@@ -1587,7 +1592,8 @@ def read_csv(path) -> dict:
 def one_csv(tmp, prefix) -> dict:
     """The columns of the one CSV in ``tmp`` whose name starts with
     ``prefix``."""
-    csvs = [f for f in os.listdir(tmp) if f.startswith(prefix)]
+    csvs = [f for f in os.listdir(tmp) if f.startswith(prefix)
+            and f.endswith(".csv")]
     if len(csvs) != 1:
         raise RuntimeError(f"expected one {prefix}* CSV, got {csvs}")
     return read_csv(os.path.join(tmp, csvs[0]))
@@ -1764,6 +1770,101 @@ def main_autocorr(smi) -> dict:
           f"{log.seconds['echo'][0]:.3f} s (inst=2 x 32 trajectories) on "
           f"{smi}")
     return launches
+
+
+def main_campaign(smi) -> dict:
+    """[main] campaign: ``campaign --simulate --device cuda`` at the bench
+    width (L=20, T=50, 2 instances x 32 trajectories, 4096 shots a job),
+    twice in one job folder. The first run exports 200 QASM jobs, writes
+    100 completed records of each kind and 50 CSV rows, and each decoded
+    slot lies within 5/sqrt(4096) of the forward or echo value that
+    ``run_autocorr`` gives for the same config and seed on the card; the
+    second finds the export existing, writes no row and leaves the CSV as
+    it was. Returns the K1/K2 launches of both runs."""
+    from dtc_tpu_torch.experiments import campaign
+    from dtc_tpu_torch.experiments.autocorr import run_autocorr
+    from dtc_tpu_torch.utils.cli import build_parser, config_from_args
+
+    L, T, inst, shots = MAIN_L, MAIN_T, 2, 4096
+    results = []
+    run = campaign.run_hardware_campaign
+
+    def keep(*args, **kw):
+        results.append(run(*args, **kw))
+        return results[-1]
+
+    total = {"K1": 0, "K2": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = os.path.join(tmp, "jobs")
+        argv = ["campaign", "--simulate", "--device", DEVICE, "--L", str(L),
+                "--tf", str(T), "--inst", str(inst), "--n_trajectories",
+                str(N_TRAJ), "--campaign_shots", str(shots), "--job_dir",
+                jobs, "--out_dir", os.path.join(tmp, "out"),
+                "--disorder_dir", tmp]
+        runs = []
+        campaign.run_hardware_campaign = keep
+        try:
+            for _ in range(2):
+                runs.append(run_cli(argv))
+                with open(results[-1]["csv_path"], "rb") as f:
+                    runs[-1] += (f.read(),)
+        finally:
+            campaign.run_hardware_campaign = run
+        qasm = {k: [f for f in os.listdir(os.path.join(jobs, k))
+                    if f.endswith(".qasm")] for k in ("forward", "echo")}
+        done = {}
+        for k in ("forward", "echo"):
+            kdir = os.path.join(jobs, "results", k)
+            done[k] = 0
+            for f in os.listdir(kdir):
+                with open(os.path.join(kdir, f)) as fh:
+                    done[k] += json.load(fh)["status"] == "completed"
+        echo_lines = sum(1 for _ in open(os.path.join(
+            jobs, "echo", f"job_inst0_t{T - 1}_echo.qasm")))
+        cfg = config_from_args(build_parser().parse_args(argv))
+        ref = run_autocorr(cfg, device=DEVICE, write=False, disorder_dir=tmp)
+    first, second = results
+    tol = 5 / math.sqrt(shots)
+    d_fwd = float(abs(first["forward"] - ref["autocorr_per_instance"]).max())
+    d_echo = float(abs(first["echo"] - ref["echo_per_instance"]).max())
+    rows = runs[0][4].decode().count("\n") - 1
+    for launches, *_ in runs:
+        for k in total:
+            total[k] += launches[k]
+    checks = {
+        "200 QASM jobs": sum(map(len, qasm.values())) == 2 * inst * T,
+        "100 completed records of each kind": done == {
+            "forward": inst * T, "echo": inst * T},
+        "50 CSV rows": rows == T and first["rows_on_disk"] == T,
+        f"slots within {tol:.4f} of run_autocorr's": max(d_fwd, d_echo)
+        <= tol,
+        "second run: export existing": second["export"] == {
+            "forward": "existing", "echo": "existing"},
+        "second run: no new row": second["rows_written"] == 0,
+        "second run: CSV unchanged": runs[1][4] == runs[0][4],
+        "engine=blocked": all({s[1] for s in r[2].sweeps} == {"blocked"}
+                              for r in runs),
+        "K1 and K2 launched": all(r[0]["K1"] > 0 and r[0]["K2"] > 0
+                                  for r in runs),
+        "no other kernel": all(not v for r in runs for k, v in r[0].items()
+                               if k not in ("K1", "K2")),
+        "no plain version on CUDA": not any(v for r in runs
+                                            for v in r[1].values()),
+    }
+    for i, (launches, _, log, seconds, _) in enumerate(runs):
+        per = ", ".join(f"{k} {log.seconds[k][0]:.3f} s" for k in (
+            "export", "simulate", "forward", "echo", "ingest")
+            if k in log.seconds)
+        phase(f"[main] campaign --simulate L={L} T={T} inst={inst} "
+              f"traj={N_TRAJ} shots={shots} run {i + 1} in {seconds:.2f}s "
+              f"({per}; forward and echo inside simulate) on {smi}: "
+              f"launches K1 {launches['K1']}, K2 {launches['K2']}")
+    phase(f"[main] campaign: {sum(map(len, qasm.values()))} QASM jobs (the "
+          f"echo at t={T - 1} {echo_lines} lines), records {done}, {rows} "
+          f"rows; max|decoded - run_autocorr| forward {d_fwd:.4f}, echo "
+          f"{d_echo:.4f} (bound {tol:.4f})")
+    fail_on("campaign", checks)
+    return total
 
 
 def main_polarization(smi, L=MAIN_L, T=MAIN_T, n_traj=N_TRAJ,
@@ -3398,6 +3499,8 @@ def main() -> None:
     anchors_l30(dev)
     anchors_l31_sharded(dev)
     launches = main_autocorr(smi)
+    for k, v in main_campaign(smi).items():
+        launches[k] += v
     launches.update({k: v for k, v in main_polarization(smi).items()
                      if k.startswith("K4")})
     main_studies()

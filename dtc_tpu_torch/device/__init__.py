@@ -1,1 +1,2 @@
-"""Device layouts of the noise models."""
+"""Device-facing utilities: QPU layouts of the noise models, gate counts,
+QASM export, job records and execution backends."""

@@ -1,13 +1,14 @@
-"""Coupling graphs and snake layouts of the devices the noise models mimic.
+"""QPU layout design: coupling graphs, snake paths, annotated renderings.
 
-A copy of the part of ``dtc_tpu/device/layouts.py`` that
-``models/device_noise.py`` needs (the port imports nothing of the JAX
-package): the exact Eagle 127q, Heron-r1 133q and Garnet 20q coupling
-graphs, the simulator's linear chain with its ancilla, and the snake search
+A copy of ``dtc_tpu/device/layouts.py`` (the port imports nothing of the
+JAX package): the exact Eagle 127q, Heron-r1 133q and Garnet 20q coupling
+graphs, the generic heavy-hex generator, the simulator's linear chain with
+its ancilla, the reference's shipped snake layouts (``REFERENCE_SNAKES``)
+and their check against a graph (``validate_snake``), the snake search
 (``find_snake_path``, ``find_segmented_snake``, ``snake_layout``) that maps
-an L-site chain onto a device, in pure Python. The rest of the reference's
-``device/`` (the generic heavy-hex generator, the shipped hand layouts,
-their validation and the renderer) is ROADMAP.md queue 1, CLI and edges.
+an L-site chain onto a device, in pure Python, and ``render_layout``
+(matplotlib, imported inside it). ``models/device_noise.py`` places its
+chains with it.
 """
 
 from __future__ import annotations
@@ -93,6 +94,54 @@ def heron_coupling():
     ])
 
 
+def heavy_hex_coupling(long_rows: int = 7, width: int = 15):
+    """Generic heavy-hex lattice generator (parameterized; for exact device
+    graphs in IBM numbering use eagle_coupling()/heron_coupling()).
+
+    `long_rows` rows of `width` qubits (first and last rows are width-1),
+    bridged by 4-qubit connector rows.
+    """
+    rows = []
+    idx = 0
+    coords = {}
+    for r in range(long_rows):
+        w = width - 1 if r in (0, long_rows - 1) else width
+        x0 = 1 if r == 0 else 0
+        row = []
+        for c in range(w):
+            coords[idx] = (x0 + c, 2 * r)
+            row.append(idx)
+            idx += 1
+        rows.append(row)
+        if r < long_rows - 1:
+            # connector row: 4 qubits at alternating column phase
+            cols = range(0, width, 4) if r % 2 == 1 else range(2, width, 4)
+            bridge = []
+            for c in cols:
+                coords[idx] = (c, 2 * r + 1)
+                bridge.append((idx, c))
+                idx += 1
+            rows.append(bridge)
+
+    n = idx
+    edges = []
+    for r in range(0, len(rows), 2):
+        row = rows[r]
+        for a, b in zip(row, row[1:]):
+            edges.append((a, b))
+    for r in range(1, len(rows), 2):
+        above = rows[r - 1]
+        below = rows[r + 1]
+        above_cols = {coords[q][0]: q for q in above}
+        below_cols = {coords[q][0]: q for q in below}
+        for q, c in rows[r]:
+            if c in above_cols:
+                edges.append((above_cols[c], q))
+            if c in below_cols:
+                edges.append((q, below_cols[c]))
+    return n, edges, coords
+
+
 # EXACT IQM Garnet 20-qubit crystal: the reference's explicit connection
 # list (1-indexed there) and rotated-grid coordinates
 # (garnet-normal-layout.py:181-201,215-245 — identical in garnet-echo-layout.py).
@@ -114,6 +163,69 @@ def garnet_coupling():
     edges = [(a - 1, b - 1) for a, b in _GARNET_EDGES_1IDX]
     coords = {i: (float(x), float(y)) for i, (x, y) in enumerate(_GARNET_COORDS)}
     return 20, edges, coords
+
+
+# ---------------------------------------------------------------------------
+# the reference's shipped snake layouts (compatibility contract — these exact
+# index lists produced the on-disk hardware datasets)
+
+REFERENCE_SNAKES = {
+    # L=132 Torino autocorr: entry 0 = ancilla, 1.. = chain
+    # (autocorr-delta-a-single-qiskit-fast-ibm.py:179-185, duplicated at
+    # torino-autocorr-layout.py:169-175)
+    "torino_autocorr": [
+        74, 20, 19, 15, 0, 1, 2, 3, 4, 16, 5, 6, 7, 8, 17, 9, 10, 11, 12, 13,
+        14, 18, 31, 32, 33, 37, 52, 51, 50, 56, 49, 48, 47, 36, 29, 30, 28,
+        27, 26, 25, 35, 24, 23, 22, 21, 34, 40, 41, 39, 38, 53, 57, 58, 59,
+        72, 60, 61, 62, 54, 42, 43, 44, 45, 46, 55, 65, 64, 66, 67, 68, 69,
+        70, 71, 75, 90, 89, 88, 94, 87, 86, 85, 84, 93, 83, 82, 73, 63, 81,
+        80, 92, 79, 78, 77, 76, 91, 95, 96, 97, 110, 98, 99, 100, 101, 111,
+        102, 103, 104, 105, 112, 106, 107, 108, 109, 113, 128, 127, 126, 132,
+        125, 124, 123, 122, 131, 121, 120, 119, 118, 130, 117, 116, 115, 114,
+        129,
+    ],
+    # L=127 Brisbane energy chain (no ancilla)
+    # (brisbane-normal-layout.py:176-197; autocorr-delta-a-single-ibm-energy.py:181-202)
+    "brisbane_energy": [
+        19, 18, 14, 0, 1, 2, 3, 4, 15, 5, 6, 7, 8, 16, 9, 10, 11, 12, 13,
+        17, 30, 31, 32, 36, 51, 50, 49, 55, 48, 47, 46, 35, 28, 29, 27, 26,
+        25, 24, 34, 23, 22, 21, 20, 33, 39, 40, 38, 37, 52, 56, 57, 58, 71,
+        59, 60, 61, 53, 41, 42, 43, 44, 45, 54, 63, 64, 65, 66, 73, 67, 68,
+        69, 70, 74, 89, 88, 87, 93, 86, 85, 84, 83, 92, 82, 81, 72, 62, 80,
+        79, 91, 78, 77, 76, 75, 90, 94, 95, 96, 109, 97, 98, 99, 100, 110,
+        101, 102, 103, 104, 111, 105, 106, 107, 108, 112, 126, 125, 124, 123,
+        122, 121, 120, 119, 118, 117, 116, 115, 114, 113,
+    ],
+    # L=19 Garnet autocorr: entry 0 = ancilla at physical 14, 1.. = chain
+    # (autocorr-delta-a-single-iqm.py:178-201)
+    "garnet_autocorr": [
+        14, 0, 1, 4, 5, 6, 11, 16, 15, 19, 18, 17, 13, 12, 7, 2, 3, 8, 9, 10,
+    ],
+}
+
+
+def validate_snake(path, n, edges, *, distinct=True):
+    """Check a snake layout against a coupling graph.
+
+    Returns {"n_hops": number of non-adjacent consecutive pairs,
+    "hops": the offending pairs, "in_range": all indices valid,
+    "distinct": no repeats} — the reference's own renderers mark
+    non-adjacent snake steps with purple arrows (brisbane-normal-layout.py
+    renderer), so n_hops quantifies layout quality.
+    """
+    eset = {frozenset(e) for e in edges}
+    hops = [(a, b) for a, b in zip(path, path[1:])
+            if frozenset((a, b)) not in eset]
+    return {
+        "n_hops": len(hops),
+        "hops": hops,
+        "in_range": all(0 <= x < n for x in path),
+        "distinct": len(set(path)) == len(path) or not distinct,
+    }
+
+
+# ---------------------------------------------------------------------------
+# snake path search
 
 
 def _adjacency(n, edges):
@@ -240,3 +352,57 @@ def snake_layout(cfg_or_L, device: str = "brisbane", with_ancilla: bool = True):
         anc = min(free) if free else None
     return {"path": path, "ancilla": anc, "n": n, "edges": edges,
             "coords": coords, "n_hops": n_hops}
+
+
+def render_layout(layout: dict, out_png: str, title: str = ""):
+    """Annotated topology rendering: chain position on viridis, chain edges
+    vs physical-only edges, purple dashed arcs for non-physical snake hops."""
+    import os
+
+    from dtc_tpu_torch.analysis.plots import pyplot
+
+    plt = pyplot()
+
+    coords = layout["coords"]
+    path = layout["path"]
+    pos_in_chain = {q: i for i, q in enumerate(path)}
+    fig, ax = plt.subplots(figsize=(10, 7))
+    chain_edges = {frozenset(e) for e in zip(path, path[1:])}
+    for a, b in layout["edges"]:
+        xa, ya = coords[a]
+        xb, yb = coords[b]
+        in_chain = frozenset((a, b)) in chain_edges
+        ax.plot([xa, xb], [ya, yb],
+                color="tab:orange" if in_chain else "lightgray",
+                lw=2.5 if in_chain else 1.0, zorder=1)
+    for a, b in zip(path, path[1:]):
+        if frozenset((a, b)) not in {frozenset(e) for e in layout["edges"]}:
+            xa, ya = coords[a]
+            xb, yb = coords[b]
+            ax.annotate("", xy=(xb, yb), xytext=(xa, ya),
+                        arrowprops=dict(arrowstyle="->", color="purple",
+                                        ls="--", lw=1.2), zorder=2)
+    xs = [coords[q][0] for q in coords]
+    ys = [coords[q][1] for q in coords]
+    cvals = [pos_in_chain.get(q, -1) for q in coords]
+    free = [q for q in coords if q not in pos_in_chain]
+    ax.scatter([coords[q][0] for q in free], [coords[q][1] for q in free],
+               s=60, c="white", edgecolors="gray", zorder=3)
+    inpath = [q for q in coords if q in pos_in_chain]
+    sc = ax.scatter([coords[q][0] for q in inpath],
+                    [coords[q][1] for q in inpath],
+                    s=90, c=[pos_in_chain[q] for q in inpath], cmap="viridis",
+                    edgecolors="black", zorder=4)
+    if layout.get("ancilla") is not None:
+        q = layout["ancilla"]
+        ax.scatter([coords[q][0]], [coords[q][1]], s=140, marker="s",
+                   c="tab:red", edgecolors="black", zorder=5, label="ancilla")
+        ax.legend()
+    fig.colorbar(sc, ax=ax, label="chain position")
+    ax.set_title(title)
+    ax.invert_yaxis()
+    ax.set_aspect("equal")
+    os.makedirs(os.path.dirname(out_png) or ".", exist_ok=True)
+    fig.savefig(out_png, dpi=150, bbox_inches="tight")
+    plt.close(fig)
+    return out_png

@@ -7,8 +7,10 @@ over disorder instances, CSV schema
 columns when requested); and the studies built on it,
 ``run_polarization_comparison``, ``run_shots_study`` and
 ``run_xy_cycle_comparison``, with the reference's CSV columns and file
-names. The xy-cycle plot (matplotlib) is not ported: ROADMAP.md queue 1,
-CLI and edges (``analysis/plots.py``). ``use_fakebackend=1`` takes the
+names; ``run_autocorr(emit_gate_counts=True)`` also writes the per-t
+gate-count CSVs, and ``run_xy_cycle_comparison`` its figure where
+matplotlib is installed (else it logs a warning, and the CSV is written
+all the same). ``use_fakebackend=1`` takes the
 device-noise sweeps (``experiments/device_sweeps.py``) in ``run_autocorr``,
 and so in ``run_polarization_comparison`` and ``run_xy_cycle_comparison``,
 as the reference's does. ``run_shots_study`` refuses it: the reference's
@@ -17,6 +19,7 @@ runs depolarizing noise under the flag (ROADMAP.md queue 3).
 
 from __future__ import annotations
 
+import logging
 import os
 
 import numpy as np
@@ -26,6 +29,7 @@ from dtc_tpu_torch.core.density import (
     dm_autocorr_echo_run,
     dm_autocorr_forward_run,
 )
+from dtc_tpu_torch.device.transpile import write_gate_count_csv
 from dtc_tpu_torch.io import csvio, naming
 from dtc_tpu_torch.io.disorder import get_disorder
 from dtc_tpu_torch.utils.profiling import phase_timer
@@ -39,6 +43,8 @@ from dtc_tpu_torch.experiments.engine import (
     echo_sweep,
     forward_sweep,
 )
+
+log = logging.getLogger("dtc_tpu_torch")
 
 
 def _raw_sqrt(x):
@@ -54,14 +60,6 @@ def _refuse_fakebackend(cfg) -> None:
             "use_fakebackend=1 (device noise) is refused by the shots study:"
             " the reference's runs depolarizing noise under the flag"
             " (ROADMAP.md queue 3)")
-
-
-def refuse_gate_counts(emit_gate_counts) -> None:
-    """The reference's per-timepoint gate-count CSVs are not ported."""
-    if emit_gate_counts:
-        raise NotImplementedError(
-            "--emit_gate_counts is not ported yet: ROADMAP.md queue 1,"
-            " CLI and edges")
 
 
 def _exact_sweeps(cfg, sched, params, noise):
@@ -94,15 +92,14 @@ def run_autocorr(cfg, hs=None, phis=None, *, device="cuda", out_dir=None,
     (the density-matrix superoperator, ``core/density.py``: 4^L amplitudes,
     L <= 13 in the reference's CLI; it ignores ``use_fakebackend`` and
     ``uniforms``, as the reference's ignores its key).
-    emit_gate_counts: the reference's keyword; True raises
-    NotImplementedError (``refuse_gate_counts``).
+    emit_gate_counts: with ``write``, also the gate-count CSVs of every t
+    < tf, forward and echo, beside the result CSV.
     uniforms: optional (forward, echo) pair of f32 blocks,
     (inst, n_traj, T*K, L) and (inst, n_traj, 2T*K, L); drawn from
     generators seeded with cfg.seed when None. With ``use_fakebackend=1``
     the sweeps are the device-noise ones and the blocks theirs
     (``experiments/device_sweeps.py``).
     """
-    refuse_gate_counts(emit_gate_counts)
     if method not in ("trajectories", "exact"):
         raise ValueError(f"unknown method {method!r}")
     if hs is None or phis is None:
@@ -158,6 +155,13 @@ def run_autocorr(cfg, hs=None, phis=None, *, device="cuda", out_dir=None,
             cfg, pol=pol, with_envelopes=with_envelopes))
         csvio.write_columns(path, data)
         result["csv_path"] = path
+        if emit_gate_counts:
+            for t in range(cfg.tf):
+                for echo_flag in (False, True):
+                    write_gate_count_csv(
+                        os.path.join(folder, naming.gate_count_csv_name(
+                            t, echo_flag)), cfg.L, t, echo=echo_flag,
+                        polarization=cfg.polarization)
     return result
 
 
@@ -214,7 +218,8 @@ def run_xy_cycle_comparison(cfg, *, device="cuda", out_dir=None,
                             disorder_dir=None, write=True,
                             period=None) -> dict:
     """The xy-cycle drive (kick axis flips every ``period`` cycles) against
-    the pure-x drive on the same disorder: one merged CSV."""
+    the pure-x drive on the same disorder: one merged CSV, and its figure
+    beside it (``png_path``; None, with a warning, without matplotlib)."""
     period = period or cfg.xy_cycle_period
     hs, phis = get_disorder(cfg.replace(polarization="x"), disorder_dir)
     r_x = run_autocorr(cfg.replace(polarization="x"), hs, phis,
@@ -236,4 +241,23 @@ def run_xy_cycle_comparison(cfg, *, device="cuda", out_dir=None,
             "autocorr_data_", "autocorr_xy_cycle_"))
         csvio.write_columns(path, data)
         result["csv_path"] = path
+        result["png_path"] = _xy_cycle_figure(cfg, data, path, period)
     return result
+
+
+def _xy_cycle_figure(cfg, data, csv_path, period):
+    """The two forward traces with the period's gridlines, as a PNG beside
+    the CSV; None, with a warning, where matplotlib is not installed."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        log.warning("xy-cycle: matplotlib is not installed, so no figure "
+                    "is drawn (the CSV is written)")
+        return None
+    from dtc_tpu_torch.analysis.plots import plot_xy_cycle_comparison
+
+    return plot_xy_cycle_comparison(
+        {"x": (data["time"], data["av_autocorr_x"]),
+         "xy_cycle": (data["time"], data["av_autocorr_xy_cycle"])},
+        csv_path.replace(".csv", ".png"), period=period,
+        title=f"XY-alternating (period {period}) vs pure-X, L={cfg.L}")

@@ -1,7 +1,9 @@
 """Disorder instances: generation and loading.
 
-A copy of ``generate_disorder``, ``load_disorder`` and ``get_disorder`` of
-``dtc_tpu/io/disorder.py``, drawing the same numbers from the same seed:
+A copy of ``dtc_tpu/io/disorder.py`` (``generate_disorder``,
+``disorder_filenames``, ``save_disorder``, ``load_disorder``,
+``get_disorder``), drawing the same numbers from the same seed and writing
+the same bytes:
 - h_i ~ U[-pi, pi], shape (inst, L);
 - DTC phase (randomphi=1): phi_i ~ U[0, amplitude*pi) - 1.5*pi + delta*pi,
   shape (inst, L-1); prethermal (randomphi=0): phi_i = -0.4.
@@ -39,6 +41,28 @@ def generate_disorder(
     else:
         phis = np.full((inst, L - 1), -0.4)
     return hs, phis
+
+
+def disorder_filenames(
+    L, inst, phi_amplitude=1.0, phi_delta=0.0, randomphi=1, folder="."
+):
+    hs = f"{folder}/hs_L{L}_inst{inst}_ampl{phi_amplitude}_delta{phi_delta}_randomphi{randomphi}.csv"
+    phis = f"{folder}/phis_L{L}_inst{inst}_ampl{phi_amplitude}_delta{phi_delta}_randomphi{randomphi}.csv"
+    return hs, phis
+
+
+def save_disorder(hs: np.ndarray, phis: np.ndarray, hs_path: str, phis_path: str):
+    os.makedirs(os.path.dirname(hs_path) or ".", exist_ok=True)
+    _write_csv(hs_path, hs, "h")
+    _write_csv(phis_path, phis, "phi")
+
+
+def _write_csv(path: str, arr: np.ndarray, prefix: str):
+    header = ",".join(f"{prefix}_{i}" for i in range(arr.shape[1]))
+    with open(path, "w") as f:
+        f.write(header + "\n")
+        for row in arr:
+            f.write(",".join(repr(float(v)) for v in row) + "\n")
 
 
 def _read_csv(path: str) -> np.ndarray:

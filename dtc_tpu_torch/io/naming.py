@@ -5,8 +5,10 @@ A copy of the autocorr, energy and adaptive names of
 ``dtc_tpu/io/naming.py`` (``autocorr_csv_name``,
 ``autocorr_comparison_csv_name``, ``autocorr_folder_name``,
 ``energy_csv_name``, ``energy_folder_name``, ``adaptive_csv_name``,
-``adaptive_comparison_csv_name``, ``g_history_csv_name``); the file name is
-the experiment's config key:
+``adaptive_comparison_csv_name``, ``g_history_csv_name``), the gate-count
+names (``gate_count_csv_name``, whose ``backend="dtc_tpu"`` default is part
+of the file name) and their inverse, ``parse_config_from_name``; the file
+name is the experiment's config key:
 autocorr_data_{state}_g{g}_L{L}_inst{inst}_tf{tf}_randomphi{r}_delta{d}
 _amplitude{A}_noise{p}_usenoise{u}[_pol{pol}][_with_envelopes].csv
 autocorr_data_{state}_realtime_adaptive[_optimization_iterN|_expD|_linear]
@@ -15,6 +17,9 @@ _usenoise{u}_target{T}_gain{G}.csv
 """
 
 from __future__ import annotations
+
+import os
+import re
 
 
 def _base(cfg) -> str:
@@ -92,3 +97,57 @@ def g_history_csv_name(cfg) -> str:
         f"g_history_{cfg.initial_state}_realtime_g{cfg.g}_L{cfg.L}_inst{cfg.inst}"
         f"_target{cfg.target_echo}_gain{cfg.feedback_gain}.csv"
     )
+
+
+def gate_count_csv_name(t: int, echo: bool, *, opt_level: int = 0,
+                        backend: str = "dtc_tpu", tag: str = "") -> str:
+    echo_str = "echo" if echo else "forward"
+    name = f"gate_counts_t{t}_{echo_str}_opt{opt_level}_{backend}"
+    if tag:
+        name += f"_{tag}"
+    return name + ".csv"
+
+
+def parse_config_from_name(path: str) -> dict:
+    """Inverse of the encoders above: the config key of a file name.
+
+    Returns a dict with whatever tokens are present; numeric values are
+    parsed. The draw commands pair and grid data sets by these tokens.
+    """
+    stem = os.path.basename(path)
+    stem = stem.rsplit(".", 1)[0]
+    out: dict = {}
+    m = re.match(r"(autocorr_data|energy_data|g_history)_(comparison_)?([a-z]+)_",
+                 stem)
+    if m:
+        out["kind"] = m.group(1)
+        out["initial_state"] = m.group(3)
+    if "_realtime_adaptive" in stem:
+        out["adaptive"] = True
+        am = re.search(r"_realtime_adaptive_(optimization_iter(\d+)|exp([\d.eE+-]+)|linear)",
+                       stem)
+        if am:
+            if am.group(2) is not None:
+                out["method"] = "optimization"
+                out["optimization_iterations"] = int(am.group(2))
+            elif am.group(3) is not None:
+                out["method"] = "exponential"
+                out["decay_compensation"] = float(am.group(3))
+            else:
+                out["method"] = "linear"
+    num = r"(-?[\d.]+(?:[eE][+-]?\d+)?)"
+    for token, key, cast in [
+        ("g", "g", float), ("L", "L", int), ("inst", "inst", int),
+        ("tf", "tf", int), ("randomphi", "randomphi", int),
+        ("delta", "phi_delta", float), ("amplitude", "phi_amplitude", float),
+        ("noise", "noise_prob", float), ("usenoise", "use_noise", int),
+        ("target", "target_echo", float), ("gain", "feedback_gain", float),
+    ]:
+        tm = re.search(rf"_{token}{num}(?=_|$)", stem)
+        if tm:
+            out[key] = cast(tm.group(1))
+    pm = re.search(r"_pol([a-z_]+?)(?:_with_envelopes)?$", stem)
+    if pm:
+        out["polarization"] = pm.group(1)
+    out["with_envelopes"] = stem.endswith("_with_envelopes")
+    return out

@@ -2,11 +2,10 @@
 + g*pi*sum_i X_i and its component selection.
 
 Port of ``dtc_tpu/models/hamiltonian.py`` (``COMPONENTS``,
-``HamiltonianTerms``, ``hamiltonian_terms``, ``dense_hamiltonian``). The
-terms are coefficient tensors for the energy engines: the Z and ZZ parts
-form one diagonal reduction, the X part a sum of pair reductions.
-``pauli_string_terms`` (the QASM export) is not ported yet: ROADMAP.md
-queue 1, CLI and edges.
+``HamiltonianTerms``, ``hamiltonian_terms``, ``pauli_string_terms``,
+``dense_hamiltonian``). The terms are coefficient tensors for the energy
+engines: the Z and ZZ parts form one diagonal reduction, the X part a sum of
+pair reductions; ``pauli_string_terms`` exports them as Pauli strings.
 """
 
 from __future__ import annotations
@@ -42,6 +41,44 @@ def hamiltonian_terms(L: int, g, hs, phis,
         phis=torch.zeros_like(phis) if zero_zz else phis,
         x_coeff=0.0 if zero_x else float(g) * math.pi,
     )
+
+
+def pauli_string_terms(L: int, terms: HamiltonianTerms, *,
+                       num_qubits: int | None = None,
+                       layout: list[int] | None = None) -> list[tuple[str, float]]:
+    """H as (pauli_string, coeff) pairs, the ``SparsePauliOp.from_list``
+    surface, optionally embedded in a wider device register.
+
+    Strings are little-endian (rightmost character = qubit 0). ``layout``
+    maps logical site i to device qubit layout[i] (a snake layout from
+    ``device/layouts.py``, say); default identity, ``num_qubits`` default
+    L. Zero-coefficient terms are dropped, matching component selection.
+    """
+    n = num_qubits if num_qubits is not None else L
+    lay = list(range(L)) if layout is None else list(layout[:L])
+    if len(lay) < L or max(lay) >= n:
+        raise ValueError(f"layout must map {L} sites into [0, {n})")
+
+    def string_with(ops: dict[int, str]) -> str:
+        chars = ["I"] * n
+        for q, c in ops.items():
+            chars[n - 1 - q] = c
+        return "".join(chars)
+
+    hs = torch.as_tensor(terms.hs, dtype=torch.float64).cpu().tolist()
+    phis = torch.as_tensor(terms.phis, dtype=torch.float64).cpu().tolist()
+    xc = float(terms.x_coeff)
+    out: list[tuple[str, float]] = []
+    for i in range(L):
+        if hs[i] != 0.0:
+            out.append((string_with({lay[i]: "Z"}), hs[i]))
+    for i in range(L - 1):
+        if phis[i] != 0.0:
+            out.append((string_with({lay[i]: "Z", lay[i + 1]: "Z"}), phis[i]))
+    if xc != 0.0:
+        for i in range(L):
+            out.append((string_with({lay[i]: "X"}), xc))
+    return out
 
 
 def dense_hamiltonian(L: int, terms: HamiltonianTerms) -> torch.Tensor:

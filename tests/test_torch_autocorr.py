@@ -162,8 +162,17 @@ def test_xy_cycle_comparison_matches_reference(L, atol, tmp_path,
     got = autocorr.run_xy_cycle_comparison(
         PortConfig(**kw), device="cpu", out_dir=str(tmp_path / "torch"),
         disorder_dir=str(tmp_path))
-    assert "png_path" not in got  # the plot waits for analysis/plots.py
     _same_csv(got["csv_path"], ref["csv_path"], atol)
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        assert got["png_path"] is None
+    else:  # the figure beside the CSV, under the reference's name
+        assert os.path.basename(got["png_path"]) == os.path.basename(
+            ref["png_path"])
+        assert os.path.dirname(got["png_path"]) == os.path.dirname(
+            got["csv_path"])
+        assert os.path.getsize(got["png_path"]) > 1000
 
 
 @pytest.mark.parametrize("L,atol", DRIVER_CASES)

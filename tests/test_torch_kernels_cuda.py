@@ -1596,3 +1596,29 @@ def test_planar_forward_past_one_launch_matches_plain_on_card(cuda_device,
                                                                  L=L))
     want = engine.forward_sweep(cfg, sched, params, noise, engine="planar")
     np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_sample_counts_on_card_matches_probs(cuda_device):
+    """``observables.sample_counts`` draws 10^6 shots on the card from an
+    L=20 probability vector there (the distribution after one noiseless x
+    kick of g=0.97 from the vacuum: each qubit flipped with probability
+    sin^2(pi g / 2)): the empirical distribution within 0.01 of it in total
+    variation (its expected distance at this count is about 6e-4)."""
+    from dtc_tpu_torch.observables import sample_counts
+
+    L, shots = 20, 10**6
+    q = float(np.sin(THETA / 2) ** 2)
+    one = torch.tensor([1 - q, q], dtype=torch.float64, device=cuda_device)
+    probs = torch.ones(1, dtype=torch.float64, device=cuda_device)
+    for _ in range(L):
+        probs = torch.kron(one, probs)
+    counts = sample_counts(probs, shots, n_qubits=L, seed=5)
+    assert sum(counts.values()) == shots
+    assert all(len(k) == L for k in counts)
+    emp = torch.zeros_like(probs)
+    emp[torch.tensor([int(k, 2) for k in counts], device=cuda_device)] = \
+        torch.tensor(list(counts.values()), dtype=torch.float64,
+                     device=cuda_device) / shots
+    tv = 0.5 * float((emp - probs).abs().sum())
+    assert tv < 0.01, tv
