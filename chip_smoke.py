@@ -1653,23 +1653,17 @@ class EntryTimer:
 
 def run_counted(fn, what) -> tuple:
     """Run ``fn`` with every launch count at 0 just before it and read just
-    after; returns (launches, plain calls on CUDA, sweep log, seconds).
+    after; returns (launches, plain calls on CUDA, sweep log, seconds),
+    each count by KERNELS's key, read from the launch registry of
+    ``dtc_tpu_torch/utils/profiling.py`` (entry span ``dtc.entry.<kid>``,
+    kid the key with its spaces made dots).
     ``fn`` returns the CLI's exit code, or None."""
-    from dtc_tpu_torch.ops import cycle as cy
-    from dtc_tpu_torch.ops import cycle_hi as chi
-    from dtc_tpu_torch.ops import cycle_hi_general as chg
-    from dtc_tpu_torch.ops import noise_factor as nf
-    from dtc_tpu_torch.ops import observables as ob
-    from dtc_tpu_torch.ops import resident as rs
-    from dtc_tpu_torch.ops import resident_blocked as rb
-    from dtc_tpu_torch.ops import resident_general as rg
-    from dtc_tpu_torch.ops import streamed as sm
+    from dtc_tpu_torch.utils import profiling
 
     log = SweepLog()
     logger = logging.getLogger("dtc_tpu_torch")
     logger.addHandler(log)
-    for mod in (rb, rs, rg, ob, sm, chg, cy, chi, nf):
-        mod.reset_counters()
+    profiling.reset_counters()
     t0 = time.perf_counter()
     try:
         with EntryTimer() as timer:
@@ -1679,32 +1673,10 @@ def run_counted(fn, what) -> tuple:
         logger.removeHandler(log)
     seconds = time.perf_counter() - t0
     timer.add_to(MAIN_SECONDS, MAIN_CALLS)
-    launches = {"K1": rb.LAUNCHES["forward"], "K2": rb.LAUNCHES["echo"],
-                "K3 forward": rs.LAUNCHES["forward"],
-                "K3 echo": rs.LAUNCHES["echo"],
-                "K4 forward": rg.LAUNCHES["forward"],
-                "K4 echo": rg.LAUNCHES["echo"],
-                "K5": ob.LAUNCHES["observables"],
-                "K6 forward": sm.LAUNCHES["forward"],
-                "K6 echo": sm.LAUNCHES["echo"],
-                "K10 forward": chg.LAUNCHES["forward"],
-                "K10 echo": chg.LAUNCHES["echo"],
-                "K8a": cy.LAUNCHES["forward"], "K8b": cy.LAUNCHES["inverse"],
-                "K8c": cy.LAUNCHES["general_forward"],
-                "K8d": cy.LAUNCHES["general_inverse"],
-                "K9a": chi.LAUNCHES["forward"], "K9b": chi.LAUNCHES["inverse"],
-                "K10a local": chi.LAUNCHES["general_forward"],
-                "K10b local": chi.LAUNCHES["general_inverse"],
-                "K11": nf.LAUNCHES["noise_factor"]}
-    plain = {**{f"x {k}": v for k, v in rb.PLAIN_ON_CUDA.items()},
-             **{f"resident {k}": v for k, v in rs.PLAIN_ON_CUDA.items()},
-             **{f"general {k}": v for k, v in rg.PLAIN_ON_CUDA.items()},
-             **ob.PLAIN_ON_CUDA,
-             **{f"streamed {k}": v for k, v in sm.PLAIN_ON_CUDA.items()},
-             **{f"general_hi {k}": v for k, v in chg.PLAIN_ON_CUDA.items()},
-             **{f"cycle {k}": v for k, v in cy.PLAIN_ON_CUDA.items()},
-             **{f"cycle_hi {k}": v for k, v in chi.PLAIN_ON_CUDA.items()},
-             **nf.PLAIN_ON_CUDA}
+    span = {key: profiling.ENTRY + key.replace(" ", ".")
+            for key, *_ in KERNELS}
+    launches = {k: profiling.LAUNCHES[n] for k, n in span.items()}
+    plain = {k: profiling.PLAIN_ON_CUDA[n] for k, n in span.items()}
     if rc not in (0, None):
         raise RuntimeError(f"{what} CLI returned {rc}")
     return launches, plain, log, seconds

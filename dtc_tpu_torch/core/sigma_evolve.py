@@ -25,6 +25,7 @@ from dtc_tpu_torch.core.statevector import basis_index
 from dtc_tpu_torch.models.drives import slot_unitary, slot_unitary_inverse
 from dtc_tpu_torch.ops.diag import z_sign_mask, zz_z_phase_mask
 from dtc_tpu_torch.ops.kick import kron, kron_power
+from dtc_tpu_torch.utils.profiling import span
 
 _GROUP = 7
 
@@ -35,6 +36,7 @@ DTYPES = {"complex64": torch.complex64, "complex128": torch.complex128}
 # presampling
 
 
+@span("dtc.feed.uniforms")
 def draw_uniforms(shape, *, generator=None, device=None) -> torch.Tensor:
     """f32 uniform(0, 1) block, the port's stand-in for the reference's
     per-trajectory ``jax.random.uniform`` draws."""

@@ -32,7 +32,7 @@ from dtc_tpu_torch.core.density import (
 from dtc_tpu_torch.device.transpile import write_gate_count_csv
 from dtc_tpu_torch.io import csvio, naming
 from dtc_tpu_torch.io.disorder import get_disorder
-from dtc_tpu_torch.utils.profiling import phase_timer
+from dtc_tpu_torch.utils.profiling import phase_timer, span
 from dtc_tpu_torch.experiments.device_sweeps import (
     device_echo_sweep,
     device_forward_sweep,
@@ -81,6 +81,7 @@ def _exact_sweeps(cfg, sched, params, noise):
     return autocorr, echo
 
 
+@span("dtc.driver.autocorr")
 def run_autocorr(cfg, hs=None, phis=None, *, device="cuda", out_dir=None,
                  disorder_dir=None, with_envelopes: bool = False, write=True,
                  method: str = "trajectories", emit_gate_counts=False,

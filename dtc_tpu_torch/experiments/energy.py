@@ -53,7 +53,7 @@ from dtc_tpu_torch.ops import observables
 from dtc_tpu_torch.ops.diag import zz_z_diag_energy
 from dtc_tpu_torch.ops.params_general import general_forward_rows
 from dtc_tpu_torch.utils.checkpoints import SweepJournal
-from dtc_tpu_torch.utils.profiling import phase_timer
+from dtc_tpu_torch.utils.profiling import phase_timer, span
 from dtc_tpu_torch.utils.validation import guard
 
 log = logging.getLogger("dtc_tpu_torch")
@@ -139,10 +139,11 @@ def _energy_single_noise(cfg, sweep, p: float, component: str = "full"):
     trajectories (one at p == 0)."""
     sched, (hs, phis), u_all = sweep
     L, T = cfg.L, cfg.tf
-    terms = [hamiltonian_terms(L, cfg.g, hs[i], phis[i], component)
-             for i in range(cfg.inst)]
-    th = torch.stack([t.hs for t in terms])
-    tph = torch.stack([t.phis for t in terms])
+    with span("dtc.feed.energy_terms"):
+        terms = [hamiltonian_terms(L, cfg.g, hs[i], phis[i], component)
+                 for i in range(cfg.inst)]
+        th = torch.stack([t.hs for t in terms])
+        tph = torch.stack([t.phis for t in terms])
     x_coeff = terms[0].x_coeff
     engine = energy_engine(cfg, sched.K)
     log.info("energy_sweep: engine=%s pol=%s L=%d T=%d p=%s component=%s",
@@ -157,16 +158,18 @@ def _energy_single_noise(cfg, sweep, p: float, component: str = "full"):
     acc_z = np.zeros((cfg.inst, T, L))
     done = 0
     while done < n_traj:
-        c = min(chunk, n_traj - done)
-        u = u_all[:, done:done + c] if p > 0 else None
-        e, zs = batch(cfg, sched, hs, phis, th, tph, x_coeff, u, c, p)
-        acc_e += guard("energy_batch", e.sum(dim=1).cpu().numpy())
-        acc_z += guard("perqubit_z_batch", zs.sum(dim=1).cpu().numpy(),
-                       bound=float(c))
+        with span("dtc.sweep.energy_batch"):
+            c = min(chunk, n_traj - done)
+            u = u_all[:, done:done + c] if p > 0 else None
+            e, zs = batch(cfg, sched, hs, phis, th, tph, x_coeff, u, c, p)
+            acc_e += guard("energy_batch", e.sum(dim=1).cpu().numpy())
+            acc_z += guard("perqubit_z_batch", zs.sum(dim=1).cpu().numpy(),
+                           bound=float(c))
         done += c
     return acc_e / n_traj, acc_z / n_traj
 
 
+@span("dtc.driver.energy")
 def run_energy(cfg, hs=None, phis=None, *, nprobs=DEFAULT_NPROBS,
                component="full", device="cuda", out_dir=None,
                disorder_dir=None, write=True, per_qubit_norm=True,

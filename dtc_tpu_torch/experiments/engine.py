@@ -70,6 +70,7 @@ from dtc_tpu_torch.ops.params_general import (
     general_echo_rows,
     general_forward_rows,
 )
+from dtc_tpu_torch.utils.profiling import span
 from dtc_tpu_torch.utils.validation import guard
 
 log = logging.getLogger("dtc_tpu_torch")
@@ -318,6 +319,7 @@ def _echo_batch(hs, phis, angles, ts, uniforms, *, L, T, K, p, q,
         generator=generator)
 
 
+@span("dtc.feed.uniforms")
 def _sweep_uniforms(uniforms, shape, seed, device):
     if uniforms is not None:
         if not torch.is_tensor(uniforms):
@@ -363,12 +365,14 @@ def forward_sweep(cfg, sched, params, noise, *, uniforms=None,
     for i0 in range(0, cfg.inst, ic):
         i1 = min(i0 + ic, cfg.inst)
         for done in range(0, n_traj, chunk):
-            c = min(chunk, n_traj - done)
-            uc = u[i0:i1, done:done + c] if u is not None else None
-            vals = _forward_batch(hs[i0:i1], phis[i0:i1], sched.angles, uc,
-                                  n_traj=c, **kw)
-            acc[i0:i1] += guard("forward_batch",
-                                vals.sum(dim=1).cpu().numpy(), bound=float(c))
+            with span("dtc.sweep.forward_batch"):
+                c = min(chunk, n_traj - done)
+                uc = u[i0:i1, done:done + c] if u is not None else None
+                vals = _forward_batch(hs[i0:i1], phis[i0:i1], sched.angles,
+                                      uc, n_traj=c, **kw)
+                acc[i0:i1] += guard("forward_batch",
+                                    vals.sum(dim=1).cpu().numpy(),
+                                    bound=float(c))
     return guard("forward_sweep", acc / n_traj, bound=1.0)
 
 
@@ -409,11 +413,13 @@ def echo_sweep(cfg, sched, params, noise, *, uniforms=None,
             i1 = min(i0 + ic, cfg.inst)
             acc = np.zeros((i1 - i0, len(ts)))
             for done in range(0, n_traj, chunk):
-                c = min(chunk, n_traj - done)
-                vals = _echo_batch(hs[i0:i1], phis[i0:i1], sched.angles, ts,
-                                   u[i0:i1, done:done + c], n_traj=c, **kw)
-                acc += guard("echo_batch", vals.sum(dim=1).cpu().numpy(),
-                             bound=float(c))
+                with span("dtc.sweep.echo_batch"):
+                    c = min(chunk, n_traj - done)
+                    vals = _echo_batch(hs[i0:i1], phis[i0:i1], sched.angles,
+                                       ts, u[i0:i1, done:done + c], n_traj=c,
+                                       **kw)
+                    acc += guard("echo_batch", vals.sum(dim=1).cpu().numpy(),
+                                 bound=float(c))
             out[i0:i1, t0:t0 + len(ts)] = acc / n_traj
     return guard("echo_sweep", out, bound=1.0)
 

@@ -34,9 +34,9 @@ K8c's MPOS flag lane is set here, on a copy of the rows
 (n, 2^L_loc) complex64, local bit j on bit j of the index. Every entry
 updates ``state`` in place, as the reference aliases its state input to its
 output, and returns it. A tensor on the CPU goes to the plain version
-(``*_ref``); a CUDA tensor launches the kernel or raises. Each entry counts
-its kernel launches in ``LAUNCHES``; the plain versions count the calls
-they get on CUDA tensors in ``PLAIN_ON_CUDA``.
+(``*_ref``); a CUDA tensor launches the kernel or raises. Each call is
+the span ``dtc.entry.K8a`` (``K8b``, ``K8c``, ``K8d``), counted in the
+launch registry of ``utils/profiling.py``.
 """
 
 from __future__ import annotations
@@ -48,21 +48,11 @@ from dtc_tpu_torch.ops import resident_general as rg
 from dtc_tpu_torch.ops.echo_fold import fold_rows, forward_fold
 from dtc_tpu_torch.ops.params import WIDTH
 from dtc_tpu_torch.ops.params_general import LANE_MPOS, flag_base
+from dtc_tpu_torch.utils.profiling import entry, span
 
 LIBRARY = "floquet_cycle"  # K8a/K8b
 LIBRARY_GENERAL = "floquet_general_streamed"  # K8c/K8d, K10 shard-local
 MIN_L, MAX_L = 17, 23
-
-LAUNCHES = {"forward": 0, "inverse": 0, "general_forward": 0,
-            "general_inverse": 0}
-PLAIN_ON_CUDA = {"forward": 0, "inverse": 0, "general_forward": 0,
-                 "general_inverse": 0}
-
-
-def reset_counters() -> None:
-    for d in (LAUNCHES, PLAIN_ON_CUDA):
-        for k in d:
-            d[k] = 0
 
 
 def check_range(L: int, q: int | None = None) -> None:
@@ -105,6 +95,7 @@ def _cuda_inputs(state, rows, what: str, library: str = LIBRARY,
     return n, lib, torch.cuda.current_stream(state.device).cuda_stream
 
 
+@span("dtc.feed.fold")
 def fold_cycle_rows(rows, L: int, th_sc=None, th_bnd=None, *,
                     inverse: bool = False) -> torch.Tensor:
     """(..., width) compact cycle rows at L = L_loc -> (..., 2, 2L) f32
@@ -128,6 +119,7 @@ def fold_cycle_rows(rows, L: int, th_sc=None, th_bnd=None, *,
                        -2).to(torch.float32)
 
 
+@span("dtc.feed.fold")
 def fold_general_rows(rows, L: int, th_sc=None, th_bnd=None, *,
                       inverse: bool = False) -> torch.Tensor:
     """The per-shard lab-frame cycles' folded rows (K8c/K8d, and K10's
@@ -180,10 +172,9 @@ def _fold_angles(fold, L: int, table):
 # plain versions
 
 
+@entry("K8a", plain=True)
 def cycle_forward_apply_ref(state, rows, theta, *, L, q=None):
     """Plain version of ``cycle_forward_apply`` (same arguments)."""
-    if state.is_cuda:
-        PLAIN_ON_CUDA["forward"] += 1
     check_range(L, q)
     _check_rows(rows, _check_state(state, L), (2,), 2 * L)
     table = rb.angle_table(L, state.device)
@@ -196,10 +187,9 @@ def cycle_forward_apply_ref(state, rows, theta, *, L, q=None):
     return state, (new.real ** 2 + new.imag ** 2) @ table[q]
 
 
+@entry("K8b", plain=True)
 def cycle_inverse_apply_ref(state, rows, theta, *, L):
     """Plain version of ``cycle_inverse_apply`` (same arguments)."""
-    if state.is_cuda:
-        PLAIN_ON_CUDA["inverse"] += 1
     check_range(L)
     _check_rows(rows, _check_state(state, L), (2,), 2 * L)
     table = rb.angle_table(L, state.device)
@@ -210,10 +200,9 @@ def cycle_inverse_apply_ref(state, rows, theta, *, L):
                                       _fold_angles(rows[:, 1], L, table)))
 
 
+@entry("K8c", plain=True)
 def general_cycle_forward_apply_ref(state, rows, fold, *, L, K, q):
     """Plain version of ``general_cycle_forward_apply`` (same arguments)."""
-    if state.is_cuda:
-        PLAIN_ON_CUDA["general_forward"] += 1
     check_range(L, q)
     n = _check_state(state, L)
     _check_rows(rows, n, (K,))
@@ -228,10 +217,9 @@ def general_cycle_forward_apply_ref(state, rows, fold, *, L, K, q):
     return state, (new.real ** 2 + new.imag ** 2) @ table[q]
 
 
+@entry("K8d", plain=True)
 def general_cycle_inverse_apply_ref(state, tiles, fold, *, L, K):
     """Plain version of ``general_cycle_inverse_apply`` (same arguments)."""
-    if state.is_cuda:
-        PLAIN_ON_CUDA["general_inverse"] += 1
     check_range(L)
     n = _check_state(state, L)
     _check_rows(tiles, n, (K, 2))
@@ -249,6 +237,7 @@ def general_cycle_inverse_apply_ref(state, tiles, fold, *, L, K):
 # kernel entries
 
 
+@entry("K8a")
 def cycle_forward_apply(state, rows, theta, *, L, q=None):
     """One sigma-frame x cycle (K8a): state (n, 2^L) complex64, rows (n, 2,
     2L) the cycle's folded row pairs at L = L_loc (``fold_cycle_rows``),
@@ -273,11 +262,11 @@ def cycle_forward_apply(state, rows, theta, *, L, q=None):
         err = lib.floquet_cycle_forward(state.data_ptr(), rows.data_ptr(),
                                         partials.data_ptr(), out.data_ptr(),
                                         n, L, q, c, s, stream)
-    LAUNCHES["forward"] += 1
     rb.raise_on(err, "floquet_cycle_forward")
     return state, out
 
 
+@entry("K8b")
 def cycle_inverse_apply(state, rows, theta, *, L):
     """One pre-fold inverse x cycle K.D (K8b): rows (n, 2, 2L) the step's
     folded row pairs (``fold_cycle_rows(..., inverse=True)``), theta the
@@ -291,7 +280,6 @@ def cycle_inverse_apply(state, rows, theta, *, L):
     c, s = rb.kick_cs(theta)
     err = lib.floquet_cycle_inverse(state.data_ptr(), rows.data_ptr(), n, L,
                                     c, s, stream)
-    LAUNCHES["inverse"] += 1
     rb.raise_on(err, "floquet_cycle_inverse")
     return state
 
@@ -311,6 +299,7 @@ def _general_inputs(state, rows, fold, what: str, lead: tuple, L: int,
     return _cuda_inputs(state, rows, what, LIBRARY_GENERAL, width)
 
 
+@entry("K8c")
 def general_cycle_forward_apply(state, rows, fold, *, L, K, q):
     """One lab-frame cycle (K8c): rows (n, K, 128), K4's step rows at
     L = L_loc; fold (n, K + 1, 2L) their diagonals (``fold_general_rows``,
@@ -329,11 +318,11 @@ def general_cycle_forward_apply(state, rows, fold, *, L, K, q):
     err = lib.floquet_cycle_general_forward(
         state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
         partials.data_ptr(), out.data_ptr(), n, L, K, q, stream)
-    LAUNCHES["general_forward"] += 1
     rb.raise_on(err, "floquet_cycle_general_forward")
     return state, out
 
 
+@entry("K8d")
 def general_cycle_inverse_apply(state, tiles, fold, *, L, K):
     """One daggered lab-frame cycle (K8d): tiles (n, K, 2, 128), per slot
     the (pre, post) rows of K4's echo layout; fold (n, K + 1, 2L) their
@@ -347,6 +336,5 @@ def general_cycle_inverse_apply(state, tiles, fold, *, L, K):
                                      "general cycle inverse", (K, 2), L, K)
     err = lib.floquet_cycle_general_inverse(
         state.data_ptr(), tiles.data_ptr(), fold.data_ptr(), n, L, K, stream)
-    LAUNCHES["general_inverse"] += 1
     rb.raise_on(err, "floquet_cycle_general_inverse")
     return state

@@ -45,8 +45,8 @@ lane is set on a copy of the rows (``cycle.measured_rows``): the
 reference's rows carry none.
 Every entry updates ``state`` in place and returns it. A tensor on the CPU
 goes to the plain version (``*_ref``); a CUDA tensor launches the kernel or
-raises. Each entry counts its kernel launches in ``LAUNCHES``; the plain
-versions count the calls they get on CUDA tensors in ``PLAIN_ON_CUDA``.
+raises. Each call is the span ``dtc.entry.K9a`` (``K9b``, ``K10a.local``,
+``K10b.local``), counted in the launch registry of ``utils/profiling.py``.
 
 The plain versions hold one state at a time and no table over 2^L_loc: RX
 or K4's kick in kron groups of 7 bits and the diagonal as the streamed
@@ -69,21 +69,11 @@ from dtc_tpu_torch.ops import resident_blocked as rb
 from dtc_tpu_torch.ops import streamed as sm
 from dtc_tpu_torch.ops.kick import apply_uniform_1q_layer
 from dtc_tpu_torch.ops.params_general import general_hi_width
+from dtc_tpu_torch.utils.profiling import entry
 
 LIBRARY = "floquet_cycle_hi"  # K9a/K9b; K10's: cycle.LIBRARY_GENERAL
 MIN_L, MAX_L = 22, 30
 MIN_ROUTE_L = 24  # the reference's DTC_TPU_SHARDED_HI_MIN_LB default
-
-LAUNCHES = {"forward": 0, "inverse": 0, "general_forward": 0,
-            "general_inverse": 0}
-PLAIN_ON_CUDA = {"forward": 0, "inverse": 0, "general_forward": 0,
-                 "general_inverse": 0}
-
-
-def reset_counters() -> None:
-    for d in (LAUNCHES, PLAIN_ON_CUDA):
-        for k in d:
-            d[k] = 0
 
 
 def check_range(L: int, q: int | None = None) -> None:
@@ -130,10 +120,9 @@ def _fold_grid(fold, L: int) -> torch.Tensor:
     return sm.angle_grid(fold[:L], fold[L:2 * L - 1], fold[2 * L - 1], L)
 
 
+@entry("K9a", plain=True)
 def hi_cycle_forward_apply_ref(state, rows, theta, *, L, q=None):
     """Plain version of ``hi_cycle_forward_apply`` (same arguments)."""
-    if state.is_cuda:
-        PLAIN_ON_CUDA["forward"] += 1
     check_range(L, q)
     n = _check(state, rows, L, (2,), 2 * L)
     rows = rows.to(torch.float32)
@@ -149,10 +138,9 @@ def hi_cycle_forward_apply_ref(state, rows, theta, *, L, q=None):
     return state, part
 
 
+@entry("K9b", plain=True)
 def hi_cycle_inverse_apply_ref(state, rows, theta, *, L):
     """Plain version of ``hi_cycle_inverse_apply`` (same arguments)."""
-    if state.is_cuda:
-        PLAIN_ON_CUDA["inverse"] += 1
     check_range(L)
     n = _check(state, rows, L, (2,), 2 * L)
     rows = rows.to(torch.float32)
@@ -164,11 +152,10 @@ def hi_cycle_inverse_apply_ref(state, rows, theta, *, L):
     return state
 
 
+@entry("K10a.local", plain=True)
 def general_hi_cycle_forward_apply_ref(state, rows, fold, *, L, K, q):
     """Plain version of ``general_hi_cycle_forward_apply`` (same
     arguments)."""
-    if state.is_cuda:
-        PLAIN_ON_CUDA["general_forward"] += 1
     check_range(L, q)
     n = _check(state, rows, L, (K,), general_hi_width(L))
     cycle._check_rows(fold, n, (K + 1,), 2 * L)
@@ -184,11 +171,10 @@ def general_hi_cycle_forward_apply_ref(state, rows, fold, *, L, K, q):
     return state, part
 
 
+@entry("K10b.local", plain=True)
 def general_hi_cycle_inverse_apply_ref(state, tiles, fold, *, L, K):
     """Plain version of ``general_hi_cycle_inverse_apply`` (same
     arguments)."""
-    if state.is_cuda:
-        PLAIN_ON_CUDA["general_inverse"] += 1
     check_range(L)
     n = _check(state, tiles, L, (K, 2), general_hi_width(L))
     cycle._check_rows(fold, n, (K + 1,), 2 * L)
@@ -206,6 +192,7 @@ def general_hi_cycle_inverse_apply_ref(state, tiles, fold, *, L, K):
 # kernel entries
 
 
+@entry("K9a")
 def hi_cycle_forward_apply(state, rows, theta, *, L, q=None):
     """One sigma-frame x cycle (K9a): state (n, 2^L) complex64, rows (n, 2,
     2L) the cycle's folded row pairs at L = L_loc
@@ -231,11 +218,11 @@ def hi_cycle_forward_apply(state, rows, theta, *, L, q=None):
         err = lib.floquet_cycle_hi_forward(
             state.data_ptr(), rows.data_ptr(), partials.data_ptr(),
             out.data_ptr(), n, L, q, c, s, stream)
-    LAUNCHES["forward"] += 1
     rb.raise_on(err, "floquet_cycle_hi_forward")
     return state, out
 
 
+@entry("K9b")
 def hi_cycle_inverse_apply(state, rows, theta, *, L):
     """One pre-fold inverse x cycle K.D (K9b): rows (n, 2, 2L) the step's
     folded row pairs (``cycle.fold_cycle_rows(..., inverse=True)``, the
@@ -251,11 +238,11 @@ def hi_cycle_inverse_apply(state, rows, theta, *, L):
     c, s = rb.kick_cs(theta)
     err = lib.floquet_cycle_hi_inverse(state.data_ptr(), rows.data_ptr(), n,
                                        L, c, s, stream)
-    LAUNCHES["inverse"] += 1
     rb.raise_on(err, "floquet_cycle_hi_inverse")
     return state
 
 
+@entry("K10a.local")
 def general_hi_cycle_forward_apply(state, rows, fold, *, L, K, q):
     """One lab-frame cycle (K10a, shard-local): rows (n, K,
     general_hi_width(L)), K4's step rows at L = L_loc; fold (n, K + 1, 2L)
@@ -276,11 +263,11 @@ def general_hi_cycle_forward_apply(state, rows, fold, *, L, K, q):
     err = lib.floquet_cycle_hi_general_forward(
         state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
         partials.data_ptr(), out.data_ptr(), n, L, width, K, q, stream)
-    LAUNCHES["general_forward"] += 1
     rb.raise_on(err, "floquet_cycle_hi_general_forward")
     return state, out
 
 
+@entry("K10b.local")
 def general_hi_cycle_inverse_apply(state, tiles, fold, *, L, K):
     """One daggered lab-frame cycle (K10b, shard-local): tiles (n, K, 2,
     general_hi_width(L)), per slot the (pre, post) rows of K4's echo
@@ -297,6 +284,5 @@ def general_hi_cycle_inverse_apply(state, tiles, fold, *, L, K):
     err = lib.floquet_cycle_hi_general_inverse(
         state.data_ptr(), tiles.data_ptr(), fold.data_ptr(), n, L, width, K,
         stream)
-    LAUNCHES["general_inverse"] += 1
     rb.raise_on(err, "floquet_cycle_hi_general_inverse")
     return state

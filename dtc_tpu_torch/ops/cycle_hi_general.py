@@ -30,8 +30,8 @@ slot; the noise is lab frame (no sigma frame, no host sign). The host
 factor is ancilla_factor * s0.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises. ``LAUNCHES`` counts kernel launches, ``PLAIN_ON_CUDA``
-plain calls on CUDA tensors.
+kernel or raises. Each call is the span ``dtc.entry.K10.forward`` (or
+``.echo``), counted in the launch registry of ``utils/profiling.py``.
 
 The plain versions hold one state at a time and no table over 2^L: K4's
 kick in kron groups of 7 bits (``resident_general._kick``) and the
@@ -60,19 +60,11 @@ from dtc_tpu_torch.ops.resident_blocked import (
 )
 from dtc_tpu_torch.ops.resident_general import MAX_STEPS, _kick, row_coeffs
 from dtc_tpu_torch.ops.streamed import angle_grid, measure_z, phase_grid
+from dtc_tpu_torch.utils.profiling import entry
 
 _HALF_PI = math.pi / 2
 MIN_L, MAX_L = 22, 29
 MIN_ROUTE_L = 24  # below it the engine takes K4 (``resident_general``)
-
-LAUNCHES = {"forward": 0, "echo": 0}
-PLAIN_ON_CUDA = {"forward": 0, "echo": 0}
-
-
-def reset_counters() -> None:
-    for d in (LAUNCHES, PLAIN_ON_CUDA):
-        for k in d:
-            d[k] = 0
 
 
 def check_range(L: int, q: int, steps: int) -> None:
@@ -105,11 +97,10 @@ def _kick_one(state, row, L: int) -> torch.Tensor:
     return _kick(state[None], row[None], L)[0]
 
 
+@entry("K10.forward", plain=True)
 def general_hi_forward_batch_ref(rows, *, L, T, q, initial_state="vacuum",
                                  ancilla_factor=1.0):
     """Plain version of ``general_hi_forward_batch`` (same arguments)."""
-    if rows.is_cuda:
-        PLAIN_ON_CUDA["forward"] += 1
     batch, S = rows.shape[:-2], rows.shape[-2]
     check_range(L, q, S)
     rows = rows.reshape(-1, S, rows.shape[-1]).to(torch.float32)
@@ -130,11 +121,10 @@ def general_hi_forward_batch_ref(rows, *, L, T, q, initial_state="vacuum",
     return out.reshape(*batch, T)
 
 
+@entry("K10.echo", plain=True)
 def general_hi_echo_batch_ref(tiles, *, L, q, initial_state="vacuum",
                               ancilla_factor=1.0):
     """Plain version of ``general_hi_echo_batch`` (same arguments)."""
-    if tiles.is_cuda:
-        PLAIN_ON_CUDA["echo"] += 1
     batch, R = tiles.shape[:-2], tiles.shape[-2]
     check_range(L, q, R // 2)
     tiles = tiles.reshape(-1, R, tiles.shape[-1]).to(torch.float32)
@@ -156,6 +146,7 @@ def general_hi_echo_batch_ref(tiles, *, L, q, initial_state="vacuum",
 # kernel entries
 
 
+@entry("K10.forward")
 def general_hi_forward_batch(rows, *, L, T, q, initial_state="vacuum",
                              ancilla_factor=1.0):
     """(..., T*K, 128) step rows -> (..., T) A(t).
@@ -189,11 +180,11 @@ def general_hi_forward_batch(rows, *, L, T, q, initial_state="vacuum",
         state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
         partials.data_ptr(), a_raw.data_ptr(), n, L, S, fold.shape[1], T,
         (T - 1) * (S // T), q, b0, stream)
-    LAUNCHES["forward"] += 1
     raise_on(err, "floquet_general_streamed_forward")
     return (ancilla_factor * basis_sign(b0, q)) * a_raw.reshape(*batch, T)
 
 
+@entry("K10.echo")
 def general_hi_echo_batch(tiles, *, L, q, initial_state="vacuum",
                           ancilla_factor=1.0):
     """(..., 4T*K, 128) (pre, post) step rows -> (...) A0.
@@ -227,6 +218,5 @@ def general_hi_echo_batch(tiles, *, L, q, initial_state="vacuum",
         state.data_ptr(), tiles.data_ptr(), fold.data_ptr(),
         partials.data_ptr(), val.data_ptr(), n, L, R, fold.shape[1], n_steps,
         q, b0, stream)
-    LAUNCHES["echo"] += 1
     raise_on(err, "floquet_general_streamed_echo")
     return (ancilla_factor * basis_sign(b0, q)) * val.reshape(batch)

@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import torch
 
+from dtc_tpu_torch.utils.profiling import span
+
 
 def fold_rows(tiles: torch.Tensor, count: torch.Tensor, L: int,
               row_coeffs, dtype=torch.float32) -> torch.Tensor:
@@ -54,6 +56,7 @@ def fold_rows(tiles: torch.Tensor, count: torch.Tensor, L: int,
     return out.to(dtype)
 
 
+@span("dtc.feed.fold")
 def echo_plan(flat: torch.Tensor, lane: int, L: int, row_coeffs, what: str):
     """What an echo kernel takes beside its (n, 2S, width) step rows on the
     card, whose COUNT sits at ``lane`` of each pair's row 0: the folded rows
@@ -67,6 +70,7 @@ def echo_plan(flat: torch.Tensor, lane: int, L: int, row_coeffs, what: str):
     return fold_rows(flat, count, L, row_coeffs), n_steps
 
 
+@span("dtc.feed.fold")
 def forward_fold(rows: torch.Tensor, L: int, row_coeffs,
                  dtype=torch.float32) -> torch.Tensor:
     """(n, S, width) forward step rows -> (n, S + 1, 2L) diagonal rows

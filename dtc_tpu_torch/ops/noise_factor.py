@@ -20,8 +20,9 @@ one (8, 128) f32 tile: rows [zm bits, sigma bits, bond flips, h, phi, 0, 0,
 0]. Unlike the reference, which maps one state per call, an entry takes a
 batch: states (B, 2, 2^L) with one tile per state, and any L >= 1 (the
 reference's ``N < 128`` branch is a TPU tiling detail). A CPU tensor takes
-the plain version; a CUDA tensor launches the kernel or raises. Each launch
-counts one in ``LAUNCHES``.
+the plain version; a CUDA tensor launches the kernel or raises. Each call
+is the span ``dtc.entry.K11``, counted in the launch registry of
+``utils/profiling.py``.
 """
 
 from __future__ import annotations
@@ -29,18 +30,11 @@ from __future__ import annotations
 import torch
 
 from dtc_tpu_torch.ops.resident_blocked import check_cuda_input, raise_on
+from dtc_tpu_torch.utils.profiling import entry
 
 LANES = 128
 MAX_L = 30
 PLAIN_CHUNK = 1 << 24
-
-LAUNCHES = {"noise_factor": 0}
-PLAIN_ON_CUDA = {"noise_factor": 0}
-
-
-def reset_counters() -> None:
-    LAUNCHES["noise_factor"] = 0
-    PLAIN_ON_CUDA["noise_factor"] = 0
 
 
 def _bit_rows(mask: torch.Tensor) -> torch.Tensor:
@@ -87,13 +81,12 @@ def _check(state, params, L):
                          f"(got {tuple(params.shape)})")
 
 
+@entry("K11", plain=True)
 def noise_factor_plain(state, params, *, L: int) -> torch.Tensor:
     """Plain version of ``apply_noise_factor``: a new (B, 2, 2^L) tensor,
     computed over chunks of at most 2^24 amplitudes (to bound the
     temporaries at L = 30)."""
     _check(state, params, L)
-    if state.is_cuda:
-        PLAIN_ON_CUDA["noise_factor"] += 1
     dev = state.device
     par = params.to(torch.float32)
     out = torch.empty_like(state)
@@ -124,6 +117,7 @@ def noise_factor_plain(state, params, *, L: int) -> torch.Tensor:
     return out
 
 
+@entry("K11")
 def apply_noise_factor(state, params, *, L: int) -> torch.Tensor:
     """Multiply each state (B, 2, 2^L) f32 by its cycle's factor; params
     (B, 8, 128) from ``pack_cycle_params``. A CPU tensor returns the plain
@@ -149,6 +143,5 @@ def apply_noise_factor(state, params, *, L: int) -> torch.Tensor:
     stream = torch.cuda.current_stream(state.device).cuda_stream
     err = lib.noise_factor_apply(state.data_ptr(), params.data_ptr(), n, L,
                                  stream)
-    LAUNCHES["noise_factor"] += 1
     raise_on(err, "noise_factor_apply")
     return state

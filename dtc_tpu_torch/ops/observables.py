@@ -28,8 +28,8 @@ The kernel takes, beside the rows, their step diagonals
 (``chunk_cycles``), summed once a chunk.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises. The entry counts its launches in ``LAUNCHES``; the plain
-version counts the calls it gets on CUDA tensors in ``PLAIN_ON_CUDA``.
+kernel or raises. Each call is the span ``dtc.entry.K5``, counted in the
+launch registry of ``utils/profiling.py``.
 """
 
 from __future__ import annotations
@@ -57,15 +57,7 @@ from dtc_tpu_torch.ops.resident_general import (
     _row_angles,
     row_coeffs,
 )
-
-LAUNCHES = {"observables": 0}
-PLAIN_ON_CUDA = {"observables": 0}
-
-
-def reset_counters() -> None:
-    for d in (LAUNCHES, PLAIN_ON_CUDA):
-        for k in d:
-            d[k] = 0
+from dtc_tpu_torch.utils.profiling import entry, span
 
 
 def check_range(L: int, T: int, steps: int) -> None:
@@ -88,6 +80,7 @@ def chunk_cycles(L: int, T: int, slots: int) -> int:
     return max(1, min(T, (8 << L) // 4 // (4 * slots)))
 
 
+@span("dtc.feed.energy_terms")
 def energy_row(th, tph, L: int) -> torch.Tensor:
     """(..., L) th and (..., L-1) tph -> (..., 128) f32 energy rows."""
     th, tph = torch.as_tensor(th), torch.as_tensor(tph)
@@ -103,11 +96,10 @@ def _split_out(out: torch.Tensor):
     return out[..., 0], out[..., 1], out[..., 2:]
 
 
+@entry("K5", plain=True)
 def observables_forward_batch_ref(rows, erow, *, L, T,
                                   initial_state="vacuum", with_x=True):
     """Plain version of ``observables_forward_batch`` (same arguments)."""
-    if rows.is_cuda:
-        PLAIN_ON_CUDA["observables"] += 1
     batch, S = rows.shape[:-2], rows.shape[-2]
     check_range(L, T, S)
     rows = rows.reshape(-1, S, rows.shape[-1]).to(torch.float32)
@@ -131,6 +123,7 @@ def observables_forward_batch_ref(rows, erow, *, L, T,
     return _split_out(out.reshape(*batch, T, 2 + L))
 
 
+@entry("K5")
 def observables_forward_batch(rows, erow, *, L, T, initial_state="vacuum",
                               with_x=True):
     """(..., T*K, 128) K4 forward rows and (..., 128) energy rows (any
@@ -163,6 +156,5 @@ def observables_forward_batch(rows, erow, *, L, T, initial_state="vacuum",
         state.data_ptr(), rows.data_ptr(), fold.data_ptr(), coef.data_ptr(),
         part.data_ptr(), out.data_ptr(), n, L, S, fold.shape[1], T, chunk,
         int(bool(with_x)), basis_index(L, initial_state), stream)
-    LAUNCHES["observables"] += 1
     raise_on(err, "floquet_general_observables")
     return _split_out(out.reshape(*batch, T, 2 + L))

@@ -37,6 +37,7 @@ from dtc_tpu_torch.core.sigma_evolve import (
     xor_scan,
 )
 from dtc_tpu_torch.ops.kick import kron
+from dtc_tpu_torch.utils.profiling import span
 
 WIDTH = 128
 WIDE = 256
@@ -105,6 +106,7 @@ def pack_device_cycle_params_compact(zm, sig_a, sig_b, sig_c, hs, phis,
                       phis.to(torch.float32).expand(*batch, L - 1), pad], -1)
 
 
+@span("dtc.feed.forward_rows")
 def forward_rows(uniforms, hs, phis, *, L: int, T: int, p: float,
                  batch=None):
     """Per-cycle rows of the forward kernel and the sigma after each cycle.
@@ -157,6 +159,7 @@ def kick_matrices(angles, L: int, time_dependent: bool = False):
     return u7r, u7i, utr, uti
 
 
+@span("dtc.feed.echo_pair_tiles")
 def echo_pair_tiles(uniforms, ts, hs, phis, *, L: int, T: int, p: float,
                     batch=None):
     """Interleaved (pre, post) step rows for every (trajectory, t) pair.

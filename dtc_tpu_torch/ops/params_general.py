@@ -22,6 +22,7 @@ import torch
 
 from dtc_tpu_torch.core.sigma_evolve import _codes_from_uniform, _masks_from_codes
 from dtc_tpu_torch.ops.params import WIDE, WIDTH, _bit_lanes
+from dtc_tpu_torch.utils.profiling import span
 
 LANE_MPOS, LANE_U8, LANE_COUNT = 0, 2, 10
 
@@ -71,6 +72,7 @@ def _noise_masks(uniforms, p, L, shape, dev):
     return zero, zero
 
 
+@span("dtc.feed.general_forward_rows")
 def general_forward_rows(uniforms, hs, phis, angles, *, L: int, T: int,
                          K: int, p: float, batch=None,
                          width: int = WIDTH, masks=None,
@@ -117,6 +119,7 @@ def general_forward_rows(uniforms, hs, phis, angles, *, L: int, T: int,
                       flags.expand(*lead, S, flags.shape[-1])], -1)
 
 
+@span("dtc.feed.general_echo_rows")
 def general_echo_rows(uniforms, ts, hs, phis, angles, *, L: int, T: int,
                       K: int, p: float, batch=None,
                       width: int = WIDTH, masks=None,

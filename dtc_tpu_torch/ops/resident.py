@@ -23,9 +23,8 @@ the schedule as a table of (cos theta_t/2, sin theta_t/2) in f32
 layout limit.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
-kernel or raises. Each entry counts its kernel launches in ``LAUNCHES``;
-the plain versions count the calls they get on CUDA tensors in
-``PLAIN_ON_CUDA``.
+kernel or raises. Each call is the span ``dtc.entry.K3.forward`` (or
+``.echo``), counted in the launch registry of ``utils/profiling.py``.
 """
 
 from __future__ import annotations
@@ -53,17 +52,9 @@ from dtc_tpu_torch.ops.resident_blocked import (
     route,
     row_coeffs,
 )
+from dtc_tpu_torch.utils.profiling import entry
 
 MIN_L, MAX_L = 14, 21
-
-LAUNCHES = {"forward": 0, "echo": 0}
-PLAIN_ON_CUDA = {"forward": 0, "echo": 0}
-
-
-def reset_counters() -> None:
-    for d in (LAUNCHES, PLAIN_ON_CUDA):
-        for k in d:
-            d[k] = 0
 
 
 def check_range(L: int, q: int, T: int, *, echo: bool) -> None:
@@ -111,12 +102,11 @@ def _kick_pairs(angles, L, time_dependent, device):
     return torch.complex(u7r, u7i), torch.complex(utr, uti)
 
 
+@entry("K3.forward", plain=True)
 def resident_forward_batch_ref(rows, sig_after, angles, *, L, q,
                                initial_state="vacuum", ancilla_factor=1.0,
                                time_dependent=False):
     """Plain version of ``resident_forward_batch`` (same arguments)."""
-    if rows.is_cuda:
-        PLAIN_ON_CUDA["forward"] += 1
     batch, T = rows.shape[:-2], rows.shape[-2]
     check_range(L, q, T, echo=False)
     _check_schedule(angles, T, time_dependent)
@@ -138,12 +128,11 @@ def resident_forward_batch_ref(rows, sig_after, angles, *, L, q,
                                 ancilla_factor)
 
 
+@entry("K3.echo", plain=True)
 def resident_echo_batch_ref(tiles, sig_fin, angles, *, L, q,
                             initial_state="vacuum", ancilla_factor=1.0,
                             time_dependent=False):
     """Plain version of ``resident_echo_batch`` (same arguments)."""
-    if tiles.is_cuda:
-        PLAIN_ON_CUDA["echo"] += 1
     batch, R = tiles.shape[:-2], tiles.shape[-2]
     check_range(L, q, R // 4, echo=True)
     _check_schedule(angles, R // 4, time_dependent)
@@ -179,6 +168,7 @@ def resident_echo_batch_ref(tiles, sig_fin, angles, *, L, q,
 # kernel entries
 
 
+@entry("K3.forward")
 def resident_forward_batch(rows, sig_after, angles, *, L, q,
                            initial_state="vacuum", ancilla_factor=1.0,
                            time_dependent=False):
@@ -211,12 +201,12 @@ def resident_forward_batch(rows, sig_after, angles, *, L, q,
         state.data_ptr(), rows.data_ptr(), fold.data_ptr(), cs.data_ptr(),
         partials.data_ptr(), a_raw.data_ptr(), n, L, T, fold.shape[1],
         cs.shape[0], q, b0, stream)
-    LAUNCHES["forward"] += 1
     raise_on(err, "floquet_x_resident_forward")
     return forward_host_factor(a_raw.reshape(*batch, T), sig_after, q, b0,
                                 ancilla_factor)
 
 
+@entry("K3.echo")
 def resident_echo_batch(tiles, sig_fin, angles, *, L, q,
                         initial_state="vacuum", ancilla_factor=1.0,
                         time_dependent=False):
@@ -252,7 +242,6 @@ def resident_echo_batch(tiles, sig_fin, angles, *, L, q,
         state.data_ptr(), tiles.data_ptr(), fold.data_ptr(), cs.data_ptr(),
         partials.data_ptr(), val.data_ptr(), n, L, R, fold.shape[1], n_steps,
         cs.shape[0], q, b0, stream)
-    LAUNCHES["echo"] += 1
     raise_on(err, "floquet_x_resident_echo")
     return echo_host_factor(val.reshape(batch), sig_fin, q, b0,
                              ancilla_factor)

@@ -11,8 +11,8 @@ The entries take the per-cycle compact rows (``ops/params.py``) and the
 constant kick angle theta (RX(theta) on every qubit, theta = pi g), so that
 the engine, the tests and the reference can feed identical rows. A tensor on
 the CPU goes to the plain version; a CUDA tensor launches the kernel or
-raises. Each entry counts its kernel launches in ``LAUNCHES`` and the plain
-versions count the calls they get on CUDA tensors in ``PLAIN_ON_CUDA``.
+raises. Each call is the span ``dtc.entry.K1`` (``K2``), counted in the
+launch registry of ``utils/profiling.py``.
 Both kernels run on the step passes of ``csrc/floquet_echo.cuh`` and take,
 beside the step rows, their folded diagonals (``ops/echo_fold.py``: the
 forward's ``forward_fold``, the echo's ``echo_plan``), as K3's do.
@@ -38,19 +38,11 @@ import torch
 from dtc_tpu_torch.core.statevector import basis_index
 from dtc_tpu_torch.ops.echo_fold import echo_plan, forward_fold
 from dtc_tpu_torch.ops.params import WIDTH, kick_matrices
+from dtc_tpu_torch.utils.profiling import entry
 
 _HALF_PI = math.pi / 2
 MIN_L, MAX_L = 17, 23
 MAX_T_FORWARD, MAX_T_ECHO = 1024, 512
-
-LAUNCHES = {"forward": 0, "echo": 0}
-PLAIN_ON_CUDA = {"forward": 0, "echo": 0}
-
-
-def reset_counters() -> None:
-    for d in (LAUNCHES, PLAIN_ON_CUDA):
-        for k in d:
-            d[k] = 0
 
 
 def check_range(L: int, q: int, T: int, *, echo: bool) -> None:
@@ -131,11 +123,10 @@ def basis_states(n, L, b0, device):
     return state
 
 
+@entry("K1", plain=True)
 def blocked_forward_batch_ref(rows, sig_after, theta, *, L, q,
                               initial_state="vacuum", ancilla_factor=1.0):
     """Plain version of ``blocked_forward_batch`` (same arguments)."""
-    if rows.is_cuda:
-        PLAIN_ON_CUDA["forward"] += 1
     batch, T = rows.shape[:-2], rows.shape[-2]
     check_range(L, q, T, echo=False)
     rows = rows.reshape(-1, T, rows.shape[-1]).to(torch.float32)
@@ -155,11 +146,10 @@ def blocked_forward_batch_ref(rows, sig_after, theta, *, L, q,
                                 ancilla_factor)
 
 
+@entry("K2", plain=True)
 def blocked_echo_batch_ref(tiles, sig_fin, theta, *, L, q,
                            initial_state="vacuum", ancilla_factor=1.0):
     """Plain version of ``blocked_echo_batch`` (same arguments)."""
-    if tiles.is_cuda:
-        PLAIN_ON_CUDA["echo"] += 1
     batch, R = tiles.shape[:-2], tiles.shape[-2]
     check_range(L, q, R // 4, echo=True)
     tiles = tiles.reshape(-1, R, tiles.shape[-1]).to(torch.float32)
@@ -262,6 +252,7 @@ def forward_scratch(flat, L: int, blocks: int):
                              device=flat.device)
 
 
+@entry("K1")
 def blocked_forward_batch(rows, sig_after, theta, *, L, q,
                           initial_state="vacuum", ancilla_factor=1.0):
     """(..., T, 128) rows, (..., T) sigma after each cycle -> (..., T) A(t).
@@ -291,12 +282,12 @@ def blocked_forward_batch(rows, sig_after, theta, *, L, q,
                                 fold.data_ptr(), partials.data_ptr(),
                                 a_raw.data_ptr(), n, L, T, fold.shape[1], q,
                                 b0, c, s, stream)
-    LAUNCHES["forward"] += 1
     raise_on(err, "floquet_x_forward")
     return forward_host_factor(a_raw.reshape(*batch, T), sig_after, q, b0,
                                 ancilla_factor)
 
 
+@entry("K2")
 def blocked_echo_batch(tiles, sig_fin, theta, *, L, q,
                        initial_state="vacuum", ancilla_factor=1.0):
     """(..., 4T, 128) (pre, post) step rows, (...) final sigma -> (...) A0.
@@ -329,7 +320,6 @@ def blocked_echo_batch(tiles, sig_fin, theta, *, L, q,
                              fold.data_ptr(), partials.data_ptr(),
                              val.data_ptr(), n, L, R, fold.shape[1], n_steps,
                              q, b0, c, s, stream)
-    LAUNCHES["echo"] += 1
     raise_on(err, "floquet_x_echo")
     return echo_host_factor(val.reshape(batch), sig_fin, q, b0,
                              ancilla_factor)

@@ -14,8 +14,8 @@ diagonal from a folded row (``ops/echo_fold.py``): the forward's from
 
 The entries take the step rows of ``ops/params_general.py``. A tensor on the
 CPU goes to the plain version; a CUDA tensor launches the kernel or raises.
-Each entry counts its kernel launches in ``LAUNCHES``; the plain versions
-count the calls they get on CUDA tensors in ``PLAIN_ON_CUDA``.
+Each call is the span ``dtc.entry.K4.forward`` (or ``.echo``), counted in
+the launch registry of ``utils/profiling.py``.
 
 Per step: [echo: pre diagonal], the kick B = X_m U^{(x)L} (U the row's
 slot unitary, m its X-mask), then the diagonal exp(i theta(s)) with
@@ -52,6 +52,7 @@ from dtc_tpu_torch.ops.resident_blocked import (
     raise_on,
     route,
 )
+from dtc_tpu_torch.utils.profiling import entry
 
 _HALF_PI = math.pi / 2
 _GROUP = 7
@@ -60,15 +61,6 @@ MIN_L, MAX_L = 14, 23
 # kernel reads MPOS/COUNT as f32 (exact far beyond this); the bound keeps
 # an echo pair's rows at 4 MiB and a chunk's at a small share of its states.
 MAX_STEPS = 4096
-
-LAUNCHES = {"forward": 0, "echo": 0}
-PLAIN_ON_CUDA = {"forward": 0, "echo": 0}
-
-
-def reset_counters() -> None:
-    for d in (LAUNCHES, PLAIN_ON_CUDA):
-        for k in d:
-            d[k] = 0
 
 
 def check_range(L: int, q: int, steps: int) -> None:
@@ -122,11 +114,10 @@ def _kick(state: torch.Tensor, rows: torch.Tensor, L: int) -> torch.Tensor:
     return state
 
 
+@entry("K4.forward", plain=True)
 def general_forward_batch_ref(rows, *, L, T, q, initial_state="vacuum",
                               ancilla_factor=1.0):
     """Plain version of ``general_forward_batch`` (same arguments)."""
-    if rows.is_cuda:
-        PLAIN_ON_CUDA["forward"] += 1
     batch, S = rows.shape[:-2], rows.shape[-2]
     check_range(L, q, S)
     rows = rows.reshape(-1, S, rows.shape[-1]).to(torch.float32)
@@ -149,11 +140,10 @@ def general_forward_batch_ref(rows, *, L, T, q, initial_state="vacuum",
     return out.reshape(*batch, T)
 
 
+@entry("K4.echo", plain=True)
 def general_echo_batch_ref(tiles, *, L, q, initial_state="vacuum",
                            ancilla_factor=1.0):
     """Plain version of ``general_echo_batch`` (same arguments)."""
-    if tiles.is_cuda:
-        PLAIN_ON_CUDA["echo"] += 1
     batch, R = tiles.shape[:-2], tiles.shape[-2]
     check_range(L, q, R // 2)
     tiles = tiles.reshape(-1, R, tiles.shape[-1]).to(torch.float32)
@@ -190,6 +180,7 @@ def general_forward_scratch(flat, L: int, T: int, blocks: int):
                              device=flat.device), n_steps
 
 
+@entry("K4.forward")
 def general_forward_batch(rows, *, L, T, q, initial_state="vacuum",
                           ancilla_factor=1.0):
     """(..., T*K, 128) step rows -> (..., T) A(t).
@@ -221,11 +212,11 @@ def general_forward_batch(rows, *, L, T, q, initial_state="vacuum",
         state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
         partials.data_ptr(), a_raw.data_ptr(), n, L, S, fold.shape[1], T,
         n_steps, q, b0, stream)
-    LAUNCHES["forward"] += 1
     raise_on(err, "floquet_general_forward")
     return (ancilla_factor * basis_sign(b0, q)) * a_raw.reshape(*batch, T)
 
 
+@entry("K4.echo")
 def general_echo_batch(tiles, *, L, q, initial_state="vacuum",
                        ancilla_factor=1.0):
     """(..., 4T*K, 128) (pre, post) step rows -> (...) A0.
@@ -258,6 +249,5 @@ def general_echo_batch(tiles, *, L, q, initial_state="vacuum",
         state.data_ptr(), tiles.data_ptr(), fold.data_ptr(),
         partials.data_ptr(), val.data_ptr(), n, L, R, fold.shape[1], n_steps,
         q, b0, stream)
-    LAUNCHES["echo"] += 1
     raise_on(err, "floquet_general_echo")
     return (ancilla_factor * basis_sign(b0, q)) * val.reshape(batch)

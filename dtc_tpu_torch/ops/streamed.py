@@ -17,8 +17,8 @@ The entries take what ``ops/resident_blocked.py``'s take: the compact rows
 of ``ops/params.py`` (128 or 256 lanes, ``forward_width``/``echo_width``),
 the sigma for the host factor and the kick angle theta. A tensor on the CPU
 goes to the plain version; a CUDA tensor launches the kernel or raises.
-``LAUNCHES`` counts kernel launches, ``PLAIN_ON_CUDA`` plain calls on CUDA
-tensors.
+Each call is the span ``dtc.entry.K6.forward`` (or ``.echo``), counted in
+the launch registry of ``utils/profiling.py``.
 
 The plain versions hold one state at a time and no table over 2^L: RX on
 every qubit in kron groups of 7 bits (``ops/kick.py``), the diagonal angle
@@ -49,19 +49,11 @@ from dtc_tpu_torch.ops.resident_blocked import (
     route,
     row_coeffs,
 )
+from dtc_tpu_torch.utils.profiling import entry
 
 _HALF_PI = math.pi / 2
 MIN_L, MAX_L = 22, 30
 MAX_T_FORWARD, MAX_T_ECHO = 1024, 512
-
-LAUNCHES = {"forward": 0, "echo": 0}
-PLAIN_ON_CUDA = {"forward": 0, "echo": 0}
-
-
-def reset_counters() -> None:
-    for d in (LAUNCHES, PLAIN_ON_CUDA):
-        for k in d:
-            d[k] = 0
 
 
 def check_range(L: int, q: int, T: int, width: int, *, echo: bool) -> None:
@@ -147,11 +139,10 @@ def _basis_state(L: int, b0: int, device) -> torch.Tensor:
     return state
 
 
+@entry("K6.forward", plain=True)
 def streamed_forward_batch_ref(rows, sig_after, theta, *, L, q,
                                initial_state="vacuum", ancilla_factor=1.0):
     """Plain version of ``streamed_forward_batch`` (same arguments)."""
-    if rows.is_cuda:
-        PLAIN_ON_CUDA["forward"] += 1
     batch, T, width = rows.shape[:-2], rows.shape[-2], rows.shape[-1]
     check_range(L, q, T, width, echo=False)
     rows = rows.reshape(-1, T, width).to(torch.float32)
@@ -170,11 +161,10 @@ def streamed_forward_batch_ref(rows, sig_after, theta, *, L, q,
                                 ancilla_factor)
 
 
+@entry("K6.echo", plain=True)
 def streamed_echo_batch_ref(tiles, sig_fin, theta, *, L, q,
                             initial_state="vacuum", ancilla_factor=1.0):
     """Plain version of ``streamed_echo_batch`` (same arguments)."""
-    if tiles.is_cuda:
-        PLAIN_ON_CUDA["echo"] += 1
     batch, R, width = tiles.shape[:-2], tiles.shape[-2], tiles.shape[-1]
     check_range(L, q, R // 4, width, echo=True)
     tiles = tiles.reshape(-1, R, width).to(torch.float32)
@@ -199,6 +189,7 @@ def streamed_echo_batch_ref(tiles, sig_fin, theta, *, L, q,
 # kernel entries
 
 
+@entry("K6.forward")
 def streamed_forward_batch(rows, sig_after, theta, *, L, q,
                            initial_state="vacuum", ancilla_factor=1.0):
     """(..., T, width) rows, (..., T) sigma after each cycle -> (..., T) A(t).
@@ -232,12 +223,12 @@ def streamed_forward_batch(rows, sig_after, theta, *, L, q,
         state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
         partials.data_ptr(), a_raw.data_ptr(), n, L, T, width, fold.shape[1],
         q, b0, c, s, stream)
-    LAUNCHES["forward"] += 1
     raise_on(err, "floquet_x_streamed_forward")
     return forward_host_factor(a_raw.reshape(*batch, T), sig_after, q, b0,
                                 ancilla_factor)
 
 
+@entry("K6.echo")
 def streamed_echo_batch(tiles, sig_fin, theta, *, L, q,
                         initial_state="vacuum", ancilla_factor=1.0):
     """(..., 4T, width) (pre, post) step rows, (...) final sigma -> (...) A0.
@@ -270,7 +261,6 @@ def streamed_echo_batch(tiles, sig_fin, theta, *, L, q,
         state.data_ptr(), tiles.data_ptr(), fold.data_ptr(),
         partials.data_ptr(), val.data_ptr(), n, L, R, fold.shape[1], width,
         n_steps, q, b0, c, s, stream)
-    LAUNCHES["echo"] += 1
     raise_on(err, "floquet_x_streamed_echo")
     return echo_host_factor(val.reshape(batch), sig_fin, q, b0,
                              ancilla_factor)

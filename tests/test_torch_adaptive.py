@@ -30,6 +30,7 @@ from dtc_tpu_torch.experiments import adaptive, engine
 from dtc_tpu_torch.io import csvio
 from dtc_tpu_torch.ops import resident as rs
 from dtc_tpu_torch.utils import cli
+from dtc_tpu_torch.utils import profiling
 from dtc_tpu_torch.utils.config import SimConfig as PortConfig
 
 torch.set_num_threads(2)
@@ -78,7 +79,7 @@ def test_realtime_matches_reference(exponential, tmp_path, reference_noise,
     hs, phis = _disorder(14)
     ref = j_adaptive.run_adaptive_realtime(SimConfig(**kw), hs, phis,
                                            out_dir=str(tmp_path / "jax"))
-    rs.reset_counters()
+    profiling.reset_counters()
     with caplog.at_level(logging.INFO, logger="dtc_tpu_torch"):
         got = adaptive.run_adaptive_realtime(
             PortConfig(**kw), hs, phis, device="cpu", mode="kernel",

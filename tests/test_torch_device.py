@@ -38,10 +38,10 @@ from dtc_tpu_torch.experiments.engine import build_context
 from dtc_tpu_torch.models import device_noise as tdn
 from dtc_tpu_torch.models.drives import build_kick_schedule, n_kick_slots
 from dtc_tpu_torch.ops import paulis as tp
-from dtc_tpu_torch.ops import resident_blocked, resident_general
 from dtc_tpu_torch.ops.params import pack_device_cycle_params_compact
 from dtc_tpu_torch.parallel import mesh as pmesh
 from dtc_tpu_torch.parallel import sharded as sh
+from dtc_tpu_torch.utils import profiling
 from dtc_tpu_torch.utils.config import SimConfig
 
 torch.set_num_threads(2)
@@ -316,9 +316,9 @@ def test_x_kernel_rows_match_sigma_engine(L, T):
         ref = np.asarray(jde.device_sigma_echo_batch(
             *jargs, jnp.asarray(ts), dtype_name="complex128", **kw))
         u2 = _split_uniforms(keys, 2 * T, EPK, L)
-        resident_blocked.reset_counters()
+        profiling.reset_counters()
         got = de.device_kernel_echo_batch(*targs, u2, ts, **kw).numpy()
-        assert resident_blocked.PLAIN_ON_CUDA["echo"] == 0
+        assert profiling.PLAIN_ON_CUDA["dtc.entry.K2"] == 0
         np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
         tiles, sig = de.device_echo_pair_tiles(
             u2, ts, _t(h), _t(ph), _t(p1), _t(p2), L=L, T=T, epk=EPK)
@@ -352,7 +352,7 @@ def test_general_rows_match_original_order_oracle(pol):
              build_kick_schedule(pol, 0.97, T).angles)
     u = _split_uniforms(keys, T, K * EPK, L)
     ref = np.asarray(jde.device_general_forward_oracle(*jargs, **kw))
-    resident_general.reset_counters()
+    profiling.reset_counters()
     got = de.device_general_kernel_forward_batch(*targs, u, **kw).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
     orc = de.device_general_forward_oracle(*targs, u, **kw).numpy()

@@ -17,9 +17,12 @@ lab-frame math, at L=14 (1e-4, the bound of ``test_torch_resident.py``).
 K4's forward runs the same steps on K2's split (``lo_bits``: pass lo's
 bits [0, L - L/2), pass hi's the rest) on the rows its wrapper folds
 (``general_forward_scratch``: ``forward_fold`` of the (T-1) K steps it
-runs); that loop is held against ``general_forward_batch_ref`` at L = 14,
-15 (1e-5; the plain version's range starts at 14) and against JAX's
-interpret K4 forward at L=14 (1e-4).
+runs); that loop and ``general_forward_batch_ref`` are each held to the
+same loop in complex128 at L = 14, 15 (the plain version's range starts at
+14), within float32's rounding over the steps (``f32_rounding.py``), and
+the loop against JAX's interpret K4 forward at L=14 (1e-4); the loop with
+each diagonal one step late (a planted fault) is off the plain version by
+over 100 times that tolerance.
 
 K10's shard-local forms (``ops/cycle_hi.py``: one lab-frame cycle on a
 shard's local bits) run the same passes for the K slots of a cycle from the
@@ -92,6 +95,8 @@ from dtc_tpu_torch.ops.params_general import (
     general_forward_rows,
 )
 
+from f32_rounding import expectation_error
+
 torch.set_num_threads(2)
 
 T = 3
@@ -142,22 +147,25 @@ def _kick_bits(state, row, L, lo, hi):
     return state.reshape(n, 1 << L)
 
 
-def _step_pass_loop(rows, L, q, initial_state, split, fold=None):
+def _step_pass_loop(rows, L, q, initial_state, split, fold=None,
+                    dtype=torch.complex64):
     """A(t) of the forward in the kernel's order on the split (a, b): per
     step the kick on pass lo's bits [0, a), mid's [a, a + b) and hi's
     [a + b, L), then fold row k + 1 (``fold``, default ``forward_fold`` of
     every row); the measure after it where the row names a time; A(0) the
-    basis state's z_q; times the host's sign, as the wrappers."""
+    basis state's z_q; times the host's sign, as the wrappers. In ``dtype``
+    (complex64, or complex128 on the same rows and a float64 ``fold``)."""
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
     flat = rows.reshape(-1, *rows.shape[-2:])
     n, S = flat.shape[:2]
     K = S // T
     a, b = split
     if fold is None:
-        fold = forward_fold(flat, L, rg.row_coeffs)
-    table = rb.angle_table(L, flat.device)
+        fold = forward_fold(flat, L, rg.row_coeffs, dtype=real)
+    table = rb.angle_table(L, flat.device).to(real)
     b0 = basis_index(L, initial_state)
-    state = rb.basis_states(n, L, b0, flat.device)
-    a_raw = torch.zeros((n, T))
+    state = rb.basis_states(n, L, b0, flat.device).to(dtype)
+    a_raw = torch.zeros((n, T), dtype=real)
     a_raw[:, 0] = rb.basis_sign(b0, q)
     for k in range((T - 1) * K):
         row = flat[:, k]
@@ -254,10 +262,21 @@ def test_k4_forward_scratch_layout(drive, L):
     assert partials.shape == (n, T, 5) and not partials.any()
 
 
-def _k4_fold(rows, L):
-    """The folded rows K4's forward wrapper builds."""
+def _k4_fold(rows, L, dtype=torch.float32):
+    """The folded rows K4's forward wrapper builds; in float64, the same
+    rows' ``forward_fold`` of the (T-1) K steps it runs, rounded never."""
     flat = rows.reshape(-1, *rows.shape[-2:])
-    return rg.general_forward_scratch(flat, L, T, 1)[0]
+    if dtype == torch.float32:
+        return rg.general_forward_scratch(flat, L, T, 1)[0]
+    steps = (T - 1) * (flat.shape[1] // T)
+    return forward_fold(flat[:, :steps], L, rg.row_coeffs, dtype=dtype)
+
+
+def _k4_tolerance(fold64, L) -> float:
+    """The float32 tolerance of A(t) (``f32_rounding.py``, |z_q| = 1) after
+    the steps of the float64 folded rows, their sum |c| the largest over
+    the trajectories."""
+    return expectation_error(fold64[:, 1:].abs().sum(-1).amax(0).tolist(), L)
 
 
 @pytest.mark.parametrize("initial_state", ["vacuum", "neel"])
@@ -265,18 +284,41 @@ def _k4_fold(rows, L):
 @pytest.mark.parametrize("drive", DRIVES)
 def test_k4_forward_step_pass_order_matches_plain(drive, L, initial_state):
     """K4's forward in the step passes' order on K2's split (``lo_bits``,
-    two passes) and the wrapper's folded rows, against
-    ``general_forward_batch_ref``; probes in pass lo's bits, at the split
-    and in pass hi's."""
+    two passes) and the wrapper's folded rows, and
+    ``general_forward_batch_ref``, each held to the same loop in complex128
+    within float32's rounding over the steps; probes in pass lo's bits, at
+    the split and in pass hi's."""
     rows = _rows(drive, L)
+    fold64 = _k4_fold(rows, L, torch.float64)
+    tol = _k4_tolerance(fold64, L)
     for q in (0, L // 2, L - 1):
         got = _step_pass_loop(rows, L, q, initial_state, _resident_split(L),
                               _k4_fold(rows, L))
         want = rg.general_forward_batch_ref(rows, L=L, T=T, q=q,
                                             initial_state=initial_state)
-        assert got.shape == want.shape == (1, 2, T)
-        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
-                                   rtol=0)
+        ref = _step_pass_loop(rows, L, q, initial_state, _resident_split(L),
+                              fold64, torch.complex128)
+        assert got.shape == want.shape == ref.shape == (1, 2, T)
+        for side in (got, want):
+            np.testing.assert_allclose(side.double().numpy(), ref.numpy(),
+                                       atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("drive", ["xy", "circular_left"])
+def test_k4_forward_pass_order_fault_fails_by_orders_of_magnitude(drive):
+    """A planted fault, each step's diagonal applied after the next step's
+    kick (the folded rows one row late), on the two-slot drives (with one
+    slot a cycle, T=3 leaves one late diagonal before a measure): the plain
+    version is off the faulty loop by over 100 times the float32
+    tolerance."""
+    L, q = 15, 0
+    rows = _rows(drive, L)
+    fold64 = _k4_fold(rows, L, torch.float64)
+    bad = _step_pass_loop(rows, L, q, "vacuum", _resident_split(L),
+                          fold64.roll(1, 1), torch.complex128)
+    want = rg.general_forward_batch_ref(rows, L=L, T=T, q=q)
+    gap = float((want.double() - bad).abs().max())
+    assert gap > 100 * _k4_tolerance(fold64, L), gap
 
 
 @pytest.mark.parametrize("drive", ["y", "circular_left"])

@@ -47,10 +47,24 @@ from dtc_tpu_torch.ops.params_general import (
     general_forward_rows,
     general_hi_width,
 )
+from dtc_tpu_torch.utils import profiling
 from dtc_tpu_torch.utils.config import SimConfig
 
 THETA = 0.97 * np.pi
 TOL = 1e-4
+K8 = ("K8a", "K8b", "K8c", "K8d")
+K9 = ("K9a", "K9b", "K10a.local", "K10b.local")
+
+
+def _launched(*kids) -> int:
+    """Kernel-route calls of the entries ``kids`` (``dtc.entry.<kid>``) in
+    the launch registry."""
+    return sum(profiling.LAUNCHES[profiling.ENTRY + k] for k in kids)
+
+
+def _plain_on_cuda(*kids) -> int:
+    """Their plain versions' calls on CUDA tensors."""
+    return sum(profiling.PLAIN_ON_CUDA[profiling.ENTRY + k] for k in kids)
 
 
 @pytest.fixture
@@ -77,11 +91,11 @@ def test_forward_kernel_matches_plain_on_card(cuda_device, L, T, state):
     gen = torch.Generator(device=cuda_device).manual_seed(L)
     u = torch.rand((1, 3, T, L), generator=gen, device=cuda_device)
     rows, sig = forward_rows(u, hs[:, None], phis[:, None], L=L, T=T, p=0.1)
-    launches = rb.LAUNCHES["forward"]
+    launches = _launched("K1")
     k = rb.blocked_forward_batch(rows, sig, THETA, L=L, q=L // 2,
                                  initial_state=state)
     torch.cuda.synchronize()
-    assert rb.LAUNCHES["forward"] == launches + 1
+    assert _launched("K1") == launches + 1
     ref = rb.blocked_forward_batch_ref(rows, sig, THETA, L=L, q=L // 2,
                                        initial_state=state)
     assert float((k - ref).abs().max()) <= TOL
@@ -131,10 +145,10 @@ def test_autocorr_on_card_runs_the_kernels_and_matches_cpu(cuda_device):
     rng = np.random.default_rng(0)
     u = (rng.random((1, 4, 4, 17), dtype=np.float32),
          rng.random((1, 4, 8, 17), dtype=np.float32))
-    rb.reset_counters()
+    profiling.reset_counters()
     got = run_autocorr(cfg, device="cuda", write=False, uniforms=u)
-    assert rb.LAUNCHES["forward"] >= 1 and rb.LAUNCHES["echo"] >= 1
-    assert rb.PLAIN_ON_CUDA == {"forward": 0, "echo": 0}
+    assert _launched("K1") >= 1 and _launched("K2") >= 1
+    assert not _plain_on_cuda("K1", "K2")
     ref = run_autocorr(cfg, device="cpu", write=False, uniforms=u)
     for k in ("autocorr_per_instance", "echo_per_instance"):
         np.testing.assert_allclose(got[k], ref[k], atol=TOL, rtol=0)
@@ -172,10 +186,10 @@ def test_general_forward_kernel_matches_plain_on_card(cuda_device, L, pol,
     u = torch.rand((1, 3, T * K, L), generator=gen, device=cuda_device)
     rows = general_forward_rows(u, hs[:, None], phis[:, None], angles, L=L,
                                 T=T, K=K, p=0.1)
-    launches = rg.LAUNCHES["forward"]
+    launches = _launched("K4.forward")
     k = rg.general_forward_batch(rows, L=L, T=T, q=q, initial_state=state)
     torch.cuda.synchronize()
-    assert rg.LAUNCHES["forward"] == launches + 1
+    assert _launched("K4.forward") == launches + 1
     ref = rg.general_forward_batch_ref(rows, L=L, T=T, q=q,
                                        initial_state=state)
     assert float((k - ref).abs().max()) <= TOL
@@ -225,11 +239,11 @@ def test_general_forward_on_step_passes_matches_plain_on_card(cuda_device, L,
             rows = general_forward_rows(u, hs[:, None], phis[:, None], angles,
                                         L=L, T=T, K=K, p=0.1)
             for q in (0, a - 1, a, L - 1):
-                launches = rg.LAUNCHES["forward"]
+                launches = _launched("K4.forward")
                 k = rg.general_forward_batch(rows, L=L, T=T, q=q,
                                              initial_state=state)
                 torch.cuda.synchronize()
-                assert rg.LAUNCHES["forward"] == launches + 1
+                assert _launched("K4.forward") == launches + 1
                 ref = rg.general_forward_batch_ref(rows, L=L, T=T, q=q,
                                                    initial_state=state)
                 assert k.shape == ref.shape == (1, 3, T)
@@ -300,10 +314,10 @@ def test_general_autocorr_on_card_runs_k4_and_matches_cpu(cuda_device, pol):
     rng = np.random.default_rng(0)
     u = (rng.random((1, 4, 4 * K, 14), dtype=np.float32),
          rng.random((1, 4, 8 * K, 14), dtype=np.float32))
-    rg.reset_counters()
+    profiling.reset_counters()
     got = run_autocorr(cfg, device="cuda", write=False, uniforms=u)
-    assert rg.LAUNCHES["forward"] >= 1 and rg.LAUNCHES["echo"] >= 1
-    assert rg.PLAIN_ON_CUDA == {"forward": 0, "echo": 0}
+    assert _launched("K4.forward") >= 1 and _launched("K4.echo") >= 1
+    assert not _plain_on_cuda("K4.forward", "K4.echo")
     ref = run_autocorr(cfg, device="cpu", write=False, uniforms=u)
     for k in ("autocorr_per_instance", "echo_per_instance"):
         np.testing.assert_allclose(got[k], ref[k], atol=TOL, rtol=0)
@@ -360,11 +374,11 @@ def test_observables_kernel_matches_plain_on_card(cuda_device, L, pol, state,
                                             p, T)
     if p > 0:  # the trajectories' rows differ
         assert not torch.equal(rows[0, 0], rows[0, 1])
-    launches = obs.LAUNCHES["observables"]
+    launches = _launched("K5")
     k = obs.observables_forward_batch(rows, erow, L=L, T=T,
                                       initial_state=state, with_x=with_x)
     torch.cuda.synchronize()
-    assert obs.LAUNCHES["observables"] == launches + 1
+    assert _launched("K5") == launches + 1
     ref = obs.observables_forward_batch_ref(rows, erow, L=L, T=T,
                                             initial_state=state,
                                             with_x=with_x)
@@ -452,11 +466,11 @@ def test_energy_on_card_matches_cpu(cuda_device, L, dtype):
                     polarization="xy", dtype=dtype)
     hs, phis = generate_disorder(L, 1, seed=4)
     u = np.random.default_rng(0).random((1, 3, 8, L), dtype=np.float32)
-    obs.reset_counters()
+    profiling.reset_counters()
     kw = dict(nprobs=(0.0, 0.2), write=False, uniforms=u)
     got = run_energy(cfg, hs, phis, device="cuda", **kw)
-    assert obs.LAUNCHES["observables"] == (2 if L == 14 else 0)
-    assert obs.PLAIN_ON_CUDA == {"observables": 0}
+    assert _launched("K5") == (2 if L == 14 else 0)
+    assert not _plain_on_cuda("K5")
     ref = run_energy(cfg, hs, phis, device="cpu", **kw)
     scale = (np.abs(hs[0, :L]).sum() + np.abs(phis[0, :L - 1]).sum()) / L
     for p in (0, 0.2):
@@ -486,10 +500,10 @@ def test_streamed_kernels_match_plain_on_card(cuda_device, L, q, state):
     assert rows.shape[-1] == (256 if L >= 27 else 128)
     for qf in (q, *_echo_probes(L, True)):
         kw = dict(L=L, q=qf, initial_state=state)
-        before = sm.LAUNCHES["forward"]
+        before = _launched("K6.forward")
         k = sm.streamed_forward_batch(rows, sig, THETA, **kw)
         torch.cuda.synchronize()
-        assert sm.LAUNCHES["forward"] == before + 1
+        assert _launched("K6.forward") == before + 1
         ref = sm.streamed_forward_batch_ref(rows, sig, THETA, **kw)
         assert k.shape == ref.shape == (1, n, T)
         assert float((k - ref).abs().max()) <= TOL
@@ -607,10 +621,10 @@ def test_general_hi_kernels_match_plain_on_card(cuda_device, L, pol, q,
     """The streamed lab-frame family's forward and echo (two passes at
     L <= 24), K=1 and K=2, probes in the low and the high bits."""
     rows = _general_inputs(cuda_device, L, pol, 3, 2, L)
-    launches = chg.LAUNCHES["forward"]
+    launches = _launched("K10.forward")
     k = chg.general_hi_forward_batch(rows, L=L, T=3, q=q, initial_state=state)
     torch.cuda.synchronize()
-    assert chg.LAUNCHES["forward"] == launches + 1
+    assert _launched("K10.forward") == launches + 1
     ref = chg.general_hi_forward_batch_ref(rows, L=L, T=3, q=q,
                                            initial_state=state)
     assert float((k - ref).abs().max()) <= TOL
@@ -675,11 +689,11 @@ def test_resident_kernels_match_plain_on_card(cuda_device, L, per_cycle,
     u = torch.rand((1, 3, 6, L), generator=gen, device=cuda_device)
     rows, sig = forward_rows(u, hs[:, None], phis[:, None], L=L, T=6, p=0.1)
     kw = dict(L=L, q=q, initial_state=state, time_dependent=per_cycle)
-    launches = rs.LAUNCHES["forward"]
+    launches = _launched("K3.forward")
     ang = _x_schedule(6, cuda_device, per_cycle)
     k = rs.resident_forward_batch(rows, sig, ang, **kw)
     torch.cuda.synchronize()
-    assert rs.LAUNCHES["forward"] == launches + 1
+    assert _launched("K3.forward") == launches + 1
     ref = rs.resident_forward_batch_ref(rows, sig, ang, **kw)
     assert float((k - ref).abs().max()) <= TOL
     ue = torch.rand((1, 2, 8, L), generator=gen, device=cuda_device)
@@ -785,39 +799,39 @@ def test_folded_echo_kernels_match_plain_on_card(cuda_device, L):
         runs = []
         if L <= rg.MAX_L:
             runs.append((rg.general_echo_batch, rg.general_echo_batch_ref,
-                         rg.LAUNCHES, (gtiles["xy"],), {}, False))
+                         "K4.echo", (gtiles["xy"],), {}, False))
         if L <= rs.MAX_L:
             xt, sfin = echo_pair_tiles(ux, ts, hs[:, None], phis[:, None],
                                        L=L, T=T, p=p)
             xt[0, n - 1, 2, 0, 124] = 1.0
             runs.append((rs.resident_echo_batch, rs.resident_echo_batch_ref,
-                         rs.LAUNCHES, (xt, sfin, ang),
+                         "K3.echo", (xt, sfin, ang),
                          dict(time_dependent=True), False))
         if rb.MIN_L <= L <= rb.MAX_L:
             bt, bfin = echo_pair_tiles(ux, ts, hs[:, None], phis[:, None],
                                        L=L, T=T, p=p)
             bt[0, n - 1, 2, 0, 124] = 1.0
             runs.append((rb.blocked_echo_batch, rb.blocked_echo_batch_ref,
-                         rb.LAUNCHES, (bt, bfin, THETA), {}, False))
+                         "K2", (bt, bfin, THETA), {}, False))
         if L in (22, 23, 24, 25, 28):
             st, sfin = echo_pair_tiles(ux, ts, hs[:, None], phis[:, None],
                                        L=L, T=T, p=p)
             st[0, n - 1, 2, 0, st.shape[-1] - 4] = 1.0
             runs.append((sm.streamed_echo_batch, sm.streamed_echo_batch_ref,
-                         sm.LAUNCHES, (st, sfin, THETA), {}, True))
+                         "K6.echo", (st, sfin, THETA), {}, True))
         if L in (22, 24, 25, 28, 29):
             for pol in ("y", "xy"):
                 runs.append((chg.general_hi_echo_batch,
-                             chg.general_hi_echo_batch_ref, chg.LAUNCHES,
+                             chg.general_hi_echo_batch_ref, "K10.echo",
                              (gtiles[pol],), {}, True))
         assert runs
-        for kernel, plain, launches, args, kw, streamed in runs:
+        for kernel, plain, kid, args, kw, streamed in runs:
             for q in _echo_probes(L, streamed):
                 kw.update(L=L, q=q, initial_state="neel" if q else "vacuum")
-                before = launches["echo"]
+                before = _launched(kid)
                 k = kernel(*args, **kw)
                 torch.cuda.synchronize()
-                assert launches["echo"] == before + 1
+                assert _launched(kid) == before + 1
                 ref = plain(*args, **kw)
                 assert float((k - ref).abs().max()) <= TOL
                 if p == 0:  # but the pair cut to one step
@@ -839,10 +853,10 @@ def test_general_hi_forward_on_step_passes_matches_plain_on_card(cuda_device,
         rows = _general_inputs(cuda_device, L, pol, T, n, L)
         for q in _echo_probes(L, True):
             kw = dict(L=L, T=T, q=q, initial_state="neel" if q else "vacuum")
-            before = chg.LAUNCHES["forward"]
+            before = _launched("K10.forward")
             k = chg.general_hi_forward_batch(rows, **kw)
             torch.cuda.synchronize()
-            assert chg.LAUNCHES["forward"] == before + 1
+            assert _launched("K10.forward") == before + 1
             ref = chg.general_hi_forward_batch_ref(rows, **kw)
             assert k.shape == ref.shape == (1, n, T)
             assert float((k - ref).abs().max()) <= TOL
@@ -881,7 +895,7 @@ def test_resident_forward_kernels_match_plain_on_card(cuda_device, kernel, L,
     hs, phis = _disorder(L, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(100 + L)
     a = L - L // 2
-    mod = rb if kernel == "K1" else rs
+    kid = "K1" if kernel == "K1" else "K3.forward"
     for T, state in ((1, "neel"), (57, "vacuum")):
         u = torch.rand((1, 3, T, L), generator=gen, device=cuda_device)
         rows, sig = forward_rows(u, hs[:, None], phis[:, None], L=L, T=T,
@@ -898,10 +912,10 @@ def test_resident_forward_kernels_match_plain_on_card(cuda_device, kernel, L,
                     L=L, q=q, initial_state=state, time_dependent=per_cycle)
                 fn, ref_fn = rs.resident_forward_batch, \
                     rs.resident_forward_batch_ref
-            before = mod.LAUNCHES["forward"]
+            before = _launched(kid)
             k = fn(*args, **kw)
             torch.cuda.synchronize()
-            assert mod.LAUNCHES["forward"] == before + 1
+            assert _launched(kid) == before + 1
             ref = ref_fn(*args, **kw)
             assert k.shape == ref.shape == (1, 3, T)
             assert float((k - ref).abs().max()) <= TOL, (T, q)
@@ -972,11 +986,11 @@ def test_adaptive_on_card_runs_k3_and_matches_cpu(cuda_device, monkeypatch):
     cfg = SimConfig(L=14, tf=4, n_trajectories=3, noise_prob=0.1,
                     use_optimization=0)
     hs, phis = generate_disorder(14, 1, seed=4)
-    rs.reset_counters()
+    profiling.reset_counters()
     got = adaptive.run_adaptive_realtime(cfg, hs, phis, device="cuda",
                                          write=False)
-    assert rs.LAUNCHES["forward"] > 0 and rs.LAUNCHES["echo"] > 0
-    assert rs.PLAIN_ON_CUDA == {"forward": 0, "echo": 0}
+    assert _launched("K3.forward") > 0 and _launched("K3.echo") > 0
+    assert not _plain_on_cuda("K3.forward", "K3.echo")
     ref = adaptive.run_adaptive_realtime(cfg, hs, phis, device="cpu",
                                          mode="kernel", write=False)
     for k in ("forward", "echo", "g_history", "av_autocorr_standard_g97",
@@ -1021,7 +1035,7 @@ def test_cycle_kernels_match_plain_on_card(cuda_device, L, q):
                         p=0.6)[0][0, :, 1].contiguous()
     th = (torch.rand((2, 3), generator=gen, device=cuda_device) - 0.5) * 6.28
     st = _unit_states(3, L, cuda_device, L)
-    launches = dict(cy.LAUNCHES)
+    launches = {k: _launched(k) for k in K8}
     fold = cy.fold_cycle_rows(rows, L, *th)
     k, kp = cy.cycle_forward_apply(st.clone(), fold, THETA, L=L, q=q)
     r, rp = cy.cycle_forward_apply_ref(st.clone(), fold, THETA, L=L, q=q)
@@ -1051,9 +1065,8 @@ def test_cycle_kernels_match_plain_on_card(cuda_device, L, q):
     r = cy.general_cycle_inverse_apply_ref(st.clone(), tiles, fold, L=L, K=2)
     torch.cuda.synchronize()
     assert float((k - r).abs().max()) <= tol
-    assert {n: cy.LAUNCHES[n] - launches[n] for n in launches} == {
-        "forward": 2, "inverse": 1, "general_forward": 1,
-        "general_inverse": 1}
+    assert {n: _launched(n) - launches[n] for n in launches} == {
+        "K8a": 2, "K8b": 1, "K8c": 1, "K8d": 1}
 
 
 @pytest.mark.cuda
@@ -1077,7 +1090,7 @@ def test_sharded_engines_on_card_match_cpu(cuda_device, pol):
         kw["K"] = K
         fwd, ech = (sh.make_sharded_autocorr_forward_general,
                     sh.make_sharded_echo_general)
-    cy.reset_counters()
+    profiling.reset_counters()
     out = {}
     for dev in ("cuda", "cpu"):
         mesh = make_mesh(2, 1, devices=[dev, dev])
@@ -1085,8 +1098,8 @@ def test_sharded_engines_on_card_match_cpu(cuda_device, pol):
         out[dev] = (fwd(mesh, **kw)(*args, uf.to(dev)).cpu(),
                     torch.stack([ech(mesh, **kw)(*args, ue.to(dev), t).cpu()
                                  for t in (1, T)]))
-    assert sum(cy.LAUNCHES.values()) > 0
-    assert not any(cy.PLAIN_ON_CUDA.values())
+    assert _launched(*K8) > 0
+    assert not _plain_on_cuda(*K8)
     for a, b in zip(out["cuda"], out["cpu"]):
         assert float((a - b).abs().max()) <= TOL
 
@@ -1132,7 +1145,7 @@ def test_general_cycle_kernels_match_plain_on_card(cuda_device, L, pol):
     tiles = _general_inputs(cuda_device, L, pol, 2, n, L + 1, ts=[1],
                             p=0.6)[0].reshape(n, 4, K, 2, -1)[:, 1]
     tiles = tiles.contiguous()
-    launches = dict(cy.LAUNCHES)
+    launches = {k: _launched(k) for k in K8}
     fold = cy.fold_general_rows(rows, L, *th)
     k, kp = cy.general_cycle_forward_apply(st.clone(), rows, fold, L=L, K=K,
                                            q=q)
@@ -1155,9 +1168,8 @@ def test_general_cycle_kernels_match_plain_on_card(cuda_device, L, pol):
                                            K=K)
     torch.cuda.synchronize()
     assert float((k - r).abs().max()) <= tol
-    assert {k: cy.LAUNCHES[k] - launches[k] for k in launches} == {
-        "forward": 0, "inverse": 0, "general_forward": 2,
-        "general_inverse": 1}
+    assert {k: _launched(k) - launches[k] for k in launches} == {
+        "K8a": 0, "K8b": 0, "K8c": 2, "K8d": 1}
 
 
 @pytest.mark.cuda
@@ -1226,7 +1238,7 @@ def test_cycle_hi_kernels_match_plain_on_card(cuda_device, L, q):
                         p=0.6)[0][0, :, 1]
     th = (torch.rand((2, n), generator=gen, device=cuda_device) - 0.5) * 6.28
     st = _unit_states(n, L, cuda_device, L)
-    launches = dict(ch.LAUNCHES)
+    launches = {k: _launched(k) for k in K9}
 
     def held(kernel, plain, *args, **kw):
         k = kernel(st.clone(), *args, **kw)
@@ -1268,9 +1280,8 @@ def test_cycle_hi_kernels_match_plain_on_card(cuda_device, L, q):
     held(ch.general_hi_cycle_inverse_apply,
          ch.general_hi_cycle_inverse_apply_ref, tiles,
          cy.fold_general_rows(tiles, L, *th, inverse=True), L=L, K=2)
-    assert {k: ch.LAUNCHES[k] - launches[k] for k in launches} == {
-        "forward": 3, "inverse": 1, "general_forward": 2,
-        "general_inverse": 1}
+    assert {k: _launched(k) - launches[k] for k in launches} == {
+        "K9a": 3, "K9b": 1, "K10a.local": 2, "K10b.local": 1}
 
 
 @pytest.mark.cuda
@@ -1297,17 +1308,16 @@ def test_sharded_hi_engines_on_card_match_cpu(cuda_device, pol, monkeypatch):
         kw["K"] = K
         fwd, ech = (sh.make_sharded_autocorr_forward_general,
                     sh.make_sharded_echo_general)
-    cy.reset_counters()
-    ch.reset_counters()
+    profiling.reset_counters()
     out = {}
     for dev in ("cuda", "cpu"):
         mesh = make_mesh(2, 1, devices=[dev, dev])
         args = (angles, hs[0], phis[0])
         out[dev] = (fwd(mesh, **kw)(*args, uf.to(dev)).cpu(),
                     ech(mesh, **kw)(*args, ue.to(dev), T).cpu())
-    assert sum(ch.LAUNCHES.values()) > 0
-    assert not any(cy.LAUNCHES.values())
-    assert not any(ch.PLAIN_ON_CUDA.values())
+    assert _launched(*K9) > 0
+    assert not _launched(*K8)
+    assert not _plain_on_cuda(*K9)
     for a, b in zip(out["cuda"], out["cpu"]):
         assert float((a - b).abs().max()) <= TOL
 
@@ -1406,11 +1416,11 @@ def test_noise_factor_kernel_matches_plain_on_card(cuda_device, L, B):
         torch.rand((B, L), generator=gen, device=cuda_device) * 6 - 3,
         torch.rand((B, L - 1), generator=gen, device=cuda_device) * 6 - 3, L)
     plain = nf.noise_factor_plain(st, par, L=L)
-    launches = nf.LAUNCHES["noise_factor"]
+    launches = _launched("K11")
     got = nf.apply_noise_factor(st, par, L=L)
     torch.cuda.synchronize()
     assert got.data_ptr() == st.data_ptr()  # in place
-    assert nf.LAUNCHES["noise_factor"] == launches + 1
+    assert _launched("K11") == launches + 1
     lim = 1e-5 * float(plain.abs().max())
     assert float((got - plain).abs().max()) <= lim
     with pytest.raises(ValueError):
@@ -1453,7 +1463,6 @@ def test_planar_route_on_card_matches_cpu(cuda_device):
     """The planar forward at L=12 on the card (K11 once per measured cycle)
     and on the CPU (its plain version), fed the same uniforms."""
     from dtc_tpu_torch.experiments import engine
-    from dtc_tpu_torch.ops import noise_factor as nf
 
     cfg = SimConfig(L=12, tf=6, inst=2, n_trajectories=4, noise_prob=0.1)
     hs, phis = generate_disorder(12, 2, seed=5)
@@ -1462,12 +1471,12 @@ def test_planar_route_on_card_matches_cpu(cuda_device):
     for dev in ("cuda", "cpu"):
         sched, params, noise = engine.build_context(cfg, hs, phis,
                                                     device=dev)
-        nf.reset_counters()
+        profiling.reset_counters()
         out[dev] = engine.forward_sweep(cfg, sched, params, noise,
                                         uniforms=u.to(dev), engine="planar")
         if dev == "cuda":
-            assert nf.LAUNCHES["noise_factor"] == cfg.tf - 1
-            assert nf.PLAIN_ON_CUDA["noise_factor"] == 0
+            assert _launched("K11") == cfg.tf - 1
+            assert _plain_on_cuda("K11") == 0
     np.testing.assert_allclose(out["cuda"], out["cpu"], atol=TOL, rtol=0)
 
 
@@ -1563,10 +1572,10 @@ def test_x_echo_past_one_launch_matches_plain_on_card(cuda_device,
     assert engine.engine_for(sched.angles, L=14, T=8, q=7,
                              dtype_name="complex64", has_y=False,
                              echo=True) == "resident"
-    rs.reset_counters()
+    profiling.reset_counters()
     got = engine.echo_sweep(cfg, sched, params, noise)
     torch.cuda.synchronize()
-    assert rs.LAUNCHES["echo"] == 2  # 16 x 511 x 8, then 16 x 1 x 8
+    assert _launched("K3.echo") == 2  # 16 x 511 x 8, then 16 x 1 x 8
     monkeypatch.setattr(rs, "resident_echo_batch",
                         rs.resident_echo_batch_ref)
     want = engine.echo_sweep(cfg, sched, params, noise)
@@ -1587,10 +1596,10 @@ def test_planar_forward_past_one_launch_matches_plain_on_card(cuda_device,
     hs, phis = generate_disorder(10, 1, seed=4)
     sched, params, noise = engine.build_context(cfg, hs, phis,
                                                 device=cuda_device)
-    nf.reset_counters()
+    profiling.reset_counters()
     got = engine.forward_sweep(cfg, sched, params, noise, engine="planar")
     torch.cuda.synchronize()
-    assert nf.LAUNCHES["noise_factor"] == 2 * (cfg.tf - 1)
+    assert _launched("K11") == 2 * (cfg.tf - 1)
     monkeypatch.setattr(planar_evolve, "apply_noise_factor",
                         lambda st, par, L: nf.noise_factor_plain(st, par,
                                                                  L=L))

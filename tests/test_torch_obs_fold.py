@@ -12,19 +12,23 @@ bits. The butterflies before that point act on other qubits, so what each
 round reads is the cycle's. The last cycle is measured only.
 
 Here, on the CPU, a plain loop in that order, with the rounds read from
-the header, is held against the plain version
-``observables_forward_batch_ref`` (1e-5: the same sums in another order,
-the diagonals rounded once) at L = 14, 15 and 16 on their own plans, and at
-L = 15 on the round splits of every L of the range (16-23: pass lo's split
-of lo_bits(L) bits and pass hi's of L - lo_bits(L)); and against JAX's
-interpret K5 at L = 17, the lowest L it takes (1e-4, the bound of
-``test_torch_forward_fold.py``).
+the header, and the plain version ``observables_forward_batch_ref`` are
+each held to the same loop run in complex128 on the same rows, within
+float32's rounding over the steps (``f32_rounding.py``: from each step's
+sum |c| and the observable's norm), at L = 14, 15 and 16 on their own
+plans, and at L = 15 on the round splits of every L of the range (16-23:
+pass lo's split of lo_bits(L) bits and pass hi's of L - lo_bits(L)); a
+loop that reads each round's qubits after their butterflies (a planted
+fault) is off the plain version by over 100 times that tolerance. The
+loop is also held against JAX's interpret K5 at L = 17, the lowest L it
+takes (1e-4, the bound of ``test_torch_forward_fold.py``).
 For every L from 14 to 23 the replay checks that each qubit's x pair is read
 exactly once and before its own butterfly. The C that the replay mirrors
 (the split, the hook's place in ``swz_round``, K5's plan) is held to the
-headers. e_diag reaches sum|th| + sum|tph| (60-70 here), so it is held to
-the bound times that scale over 10 (the f32 sums on either side round at
-~1e-7 of it); z_q and x_sum to the bound. The kernel itself is held
+headers. Against JAX, e_diag, which reaches sum|th| + sum|tph| (60-70
+here), is held to the bound times that scale over 10 (the f32 sums on
+either side round at ~1e-7 of it); z_q and x_sum to the bound. The kernel
+itself is held
 against the plain version on the card by
 ``test_torch_kernels_cuda.py::test_observables_kernel_matches_plain_on_card``.
 """
@@ -56,6 +60,8 @@ from dtc_tpu_torch.ops.params_general import (
     flag_base,
     general_forward_rows,
 )
+
+from f32_rounding import expectation_error
 
 torch.set_num_threads(2)
 
@@ -167,23 +173,37 @@ def _measured_step(L, a):
     return events
 
 
-def _obs_pass_loop(rows, erow, L, a, initial_state, with_x):
+def _read_after_kick(L, a):
+    """A wrong pass order, a planted fault: each round reads its qubits
+    after their butterflies."""
+    return [(what, q) for lo, hi in ((0, a), (a, L))
+            for b, nb in _rounds(hi - lo) for what in ("kick", "read")
+            for q in range(lo + b, lo + b + nb)]
+
+
+def _obs_pass_loop(rows, erow, L, a, initial_state, with_x,
+                   order=_measured_step, dtype=torch.complex64):
     """(e_diag, x_sum, zs) of K5 in the kernel's order on the plan a: each
-    step kicks pass lo's and pass hi's rounds (``_measured_step``), then
-    fold row k + 1; a step that opens a cycle measures E and the pass-lo
-    blocks' probabilities at the load (z_q, q >= a, one sign a block), the
-    z_q of pass lo's round bits and every round's x pairs at its "read";
-    the last cycle's first step is measured only."""
+    step kicks pass lo's and pass hi's rounds (``order``), then fold row
+    k + 1; a step that opens a cycle measures E and the pass-lo blocks'
+    probabilities at the load (z_q, q >= a, one sign a block), the z_q of
+    pass lo's round bits and every round's x pairs at its "read"; the last
+    cycle's first step is measured only. In ``dtype`` (complex64, or
+    complex128 on the same rows)."""
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
     flat = rows.reshape(-1, *rows.shape[-2:])
     n, S = flat.shape[:2]
     K = S // T
-    fold = forward_fold(flat, L, rg.row_coeffs)
-    table = rb.angle_table(L, flat.device)  # z_q rows, then z_j z_{j+1}
-    coef = erow.expand(*rows.shape[:-2], erow.shape[-1]).reshape(n, -1)
+    fold = forward_fold(flat, L, rg.row_coeffs, dtype=real)
+    # z_q rows, then z_j z_{j+1}
+    table = rb.angle_table(L, flat.device).to(real)
+    coef = erow.to(real).expand(*rows.shape[:-2], erow.shape[-1])
+    coef = coef.reshape(n, -1)
     energy = coef[:, :L] @ table[:L] + coef[:, L:2 * L - 1] @ table[L:]
     sign_hi = table[a:L, ::1 << a]  # z_q of pass lo's blocks, q >= a
-    state = rb.basis_states(n, L, basis_index(L, initial_state), flat.device)
-    out = torch.zeros((n, T, 2 + L))
+    state = rb.basis_states(n, L, basis_index(L, initial_state),
+                            flat.device).to(dtype)
+    out = torch.zeros((n, T, 2 + L), dtype=real)
     for step in range((T - 1) * K + 1):
         t, k = divmod(step, K)
         row = flat[:, step]
@@ -192,7 +212,7 @@ def _obs_pass_loop(rows, erow, L, a, initial_state, with_x):
             out[:, t, 0] = (prob * energy).sum(-1)
             blocks = prob.reshape(n, 1 << (L - a), 1 << a).sum(-1)
             out[:, t, 2 + a:] = blocks @ sign_hi.T
-        for what, q in _measured_step(L, a):
+        for what, q in order(L, a):
             if what == "kick":
                 state = _kick_bits(state, row, L, [q])
             elif k == 0:
@@ -227,6 +247,32 @@ def _inputs(L, drive, component, uniforms=None, n=2, p=0.3, seed=11):
     terms = hamiltonian.hamiltonian_terms(L, 0.97, hs[0], phis[0], component)
     erow = obs.energy_row(terms.hs, terms.phis, L)[None, None]
     return rows, erow, terms.x_coeff != 0.0
+
+
+def _f32_bounds(rows, erow, L):
+    """The float32 tolerances of e_diag, x_sum and zs against complex128
+    (``f32_rounding.py``): the steps' sum |c| from their folded rows (the
+    largest over the trajectories), and |O| the largest |E(s)|, L (a sum of
+    L X_q) and 1."""
+    flat = rows.reshape(-1, *rows.shape[-2:])
+    steps = (T - 1) * (flat.shape[1] // T)
+    fold = forward_fold(flat, L, rg.row_coeffs, dtype=torch.float64)
+    thetas = fold[:, 1:steps + 1].abs().sum(-1).amax(0).tolist()
+    table = rb.angle_table(L, flat.device).double()
+    coef = erow.double().reshape(-1, erow.shape[-1])
+    e_norm = float((coef[:, :L] @ table[:L]
+                    + coef[:, L:2 * L - 1] @ table[L:]).abs().max())
+    return [expectation_error(thetas, L, norm) for norm in (e_norm, L, 1)]
+
+
+def _held_f32(sides, ref, bounds):
+    """Each float32 side within its tolerances of the complex128 run."""
+    for side in sides:
+        for name, a, b, t in zip(("e_diag", "x_sum", "zs"), side, ref,
+                                 bounds):
+            assert a.shape == b.shape, name
+            np.testing.assert_allclose(a.double().numpy(), b.numpy(),
+                                       atol=t, rtol=0, err_msg=name)
 
 
 def _held(got, want, tol, erow, L):
@@ -274,8 +320,10 @@ def test_obs_pass_order_matches_plain(L, drive, component, initial_state):
     got = _obs_pass_loop(rows, erow, L, _lo_bits(L), initial_state, with_x)
     want = obs.observables_forward_batch_ref(
         rows, erow, L=L, T=T, initial_state=initial_state, with_x=with_x)
+    ref = _obs_pass_loop(rows, erow, L, _lo_bits(L), initial_state, with_x,
+                         dtype=torch.complex128)
     assert want[2].shape == (1, 2, T, L)
-    _held(got, want, 1e-5, erow, L)
+    _held_f32((got, want), ref, _f32_bounds(rows, erow, L))
     assert not torch.equal(got[2][0, 0], got[2][0, 1])  # the rows differ
     if not with_x:
         assert not got[1].any()
@@ -292,7 +340,25 @@ def test_obs_pass_order_on_the_round_splits_of_the_range(Lp, pass_):
     got = _obs_pass_loop(rows, erow, L, a, "neel", with_x)
     want = obs.observables_forward_batch_ref(rows, erow, L=L, T=T,
                                              initial_state="neel")
-    _held(got, want, 1e-5, erow, L)
+    ref = _obs_pass_loop(rows, erow, L, a, "neel", with_x,
+                         dtype=torch.complex128)
+    _held_f32((got, want), ref, _f32_bounds(rows, erow, L))
+
+
+@pytest.mark.parametrize("pass_", ["lo", "hi"])
+def test_obs_pass_order_fault_fails_by_orders_of_magnitude(pass_):
+    """A planted fault, reads after their round's butterflies, on the
+    plan of L=15 or a round split of L=23: the plain version is off the
+    faulty loop by over 100 times the float32 tolerance."""
+    L = 15
+    a = _lo_bits(L) if pass_ == "lo" else L - (23 - _lo_bits(23))
+    rows, erow, with_x = _inputs(L, "xy", "full")
+    bad = _obs_pass_loop(rows, erow, L, a, "vacuum", with_x,
+                         order=_read_after_kick, dtype=torch.complex128)
+    want = obs.observables_forward_batch_ref(rows, erow, L=L, T=T)
+    worst = max(float((w.double() - b).abs().max()) / t for w, b, t in
+                zip(want, bad, _f32_bounds(rows, erow, L)))
+    assert worst > 100, worst
 
 
 def _j_uniforms(keys, shape):

@@ -10,7 +10,9 @@ numpy, and go through the reference function and the port's. Tolerances:
   1e-10 in complex128, 1e-5 in complex64;
 - the plain K5 against the reference's K5 in interpret mode at L=17, T=3
   (the reference test's case): energy 2e-3, <Z_q> 1e-4, the reference's
-  own bounds for its interpret kernel against its eager engine.
+  own bounds for its interpret kernel against its eager engine;
+- the plain K5 on two instances at once against two single calls: the
+  float32 sums of the measure in another order (``f32_rounding.py``).
 The CUDA kernel itself is held against the plain K5 on the card by
 ``test_torch_kernels_cuda.py``.
 """
@@ -41,6 +43,9 @@ from dtc_tpu_torch.ops import observables as obs
 from dtc_tpu_torch.ops.diag import zz_z_diag_energy
 from dtc_tpu_torch.ops.kick import apply_uniform_1q_layer
 from dtc_tpu_torch.ops.params_general import general_forward_rows
+from dtc_tpu_torch.utils import profiling
+
+from f32_rounding import sum_order_gap
 
 torch.set_num_threads(2)
 
@@ -243,9 +248,13 @@ def test_plain_k5_matches_reference_interpret(name, k5_reference):
         assert not x_s.any()
 
 
-def test_plain_k5_two_instances_equal_two_single_calls():
-    """Each instance carries its own evolution rows and energy row; the
-    batch is the two single-instance calls, exactly."""
+def _two_instances():
+    """L, T, (2, 2, T*K, 128) rows of two disorder instances, their (2, 1,
+    128) energy rows, and the widths of e_diag, x_sum and zs between a
+    batch and a single call: the batch moves nothing but the measure's
+    float32 sums over the 2^L amplitudes (their matrix product takes
+    another order for one row than for several), so a gap within
+    ``f32_rounding.sum_order_gap`` of |O| = sum |th| + sum |tph|, L, 1."""
     L, T, K, p = 14, 3, 2, 0.3
     hs, phis = generate_disorder(L, 2, seed=5)
     hs, phis = torch.from_numpy(hs[:, :L]), torch.from_numpy(phis[:, :L - 1])
@@ -255,13 +264,38 @@ def test_plain_k5_two_instances_equal_two_single_calls():
     rows = general_forward_rows(u, hs[:, None], phis[:, None], angles, L=L,
                                 T=T, K=K, p=p)
     erow = obs.energy_row(hs, phis, L)[:, None]
+    scale = float(erow[..., :2 * L - 1].abs().sum(-1).max())
+    widths = [sum_order_gap(L, norm) for norm in (scale, L, 1)]
+    return L, T, rows, erow, widths
+
+
+def test_plain_k5_two_instances_equal_two_single_calls():
+    """Each instance carries its own evolution rows and energy row; the
+    batch is the two single-instance calls, within the widths of
+    ``_two_instances``."""
+    L, T, rows, erow, widths = _two_instances()
     both = obs.observables_forward_batch(rows, erow, L=L, T=T)
     for i in range(2):
         one = obs.observables_forward_batch(rows[i:i + 1], erow[i:i + 1],
                                             L=L, T=T)
-        for a, b in zip(both, one):
-            assert torch.equal(a[i:i + 1], b)
+        for a, b, w in zip(both, one, widths):
+            assert a[i:i + 1].shape == b.shape
+            np.testing.assert_allclose(a[i:i + 1].numpy(), b.numpy(),
+                                       atol=w, rtol=0)
     assert not torch.equal(both[0][0], both[0][1])
+
+
+def test_plain_k5_swapped_instance_rows_fail_by_orders_of_magnitude():
+    """A planted fault, each single call given the other instance's
+    evolution rows: off the batch by over 100 times a width."""
+    L, T, rows, erow, widths = _two_instances()
+    both = obs.observables_forward_batch(rows, erow, L=L, T=T)
+    for i in range(2):
+        one = obs.observables_forward_batch(rows[1 - i:2 - i],
+                                            erow[i:i + 1], L=L, T=T)
+        worst = max(float((a[i:i + 1] - b).abs().max()) / w
+                    for a, b, w in zip(both, one, widths))
+        assert worst > 100, worst
 
 
 def test_plain_k5_noiseless_first_cycles():
@@ -306,9 +340,9 @@ def test_observables_wrapper_routes_cpu_to_plain_version():
                                 build_kick_schedule("y", 0.97, T).angles,
                                 L=L, T=T, K=1, p=0.0, batch=(1, 1))
     erow = obs.energy_row(hs, phis, L)[:, None]
-    obs.reset_counters()
+    profiling.reset_counters()
     a = obs.observables_forward_batch(rows, erow, L=L, T=T)
     b = obs.observables_forward_batch_ref(rows, erow, L=L, T=T)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
-    assert obs.LAUNCHES == {"observables": 0}
-    assert obs.PLAIN_ON_CUDA == {"observables": 0}
+    assert not profiling.LAUNCHES
+    assert not profiling.PLAIN_ON_CUDA

@@ -27,6 +27,7 @@ from dtc_tpu_torch.core.planar_evolve import planar_forward_batch
 from dtc_tpu_torch.experiments import engine
 from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.ops import noise_factor
+from dtc_tpu_torch.utils import profiling
 from dtc_tpu_torch.utils.config import SimConfig
 
 torch.set_num_threads(2)
@@ -55,14 +56,14 @@ def _run_both(L, T, p, n_traj, state, seed=60, g=0.9):
 @pytest.mark.parametrize("state", ["vacuum", "neel"])
 @pytest.mark.parametrize("p", [0.0, 0.15])
 def test_matches_reference_trajectory_for_trajectory(state, p):
-    noise_factor.reset_counters()
+    profiling.reset_counters()
     _, _, ref, got = _run_both(5, 6, p, 6 if p else 1, state)
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
     if p:
         assert np.ptp(got[0, :, -1]) > 0.1  # sampled events really differ
     # CPU tensors: the plain version, never the kernel
-    assert noise_factor.LAUNCHES["noise_factor"] == 0
+    assert profiling.LAUNCHES["dtc.entry.K11"] == 0
 
 
 @pytest.mark.parametrize("state,L,T", [("vacuum", 4, 6), ("neel", 5, 5)])

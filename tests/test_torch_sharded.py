@@ -34,13 +34,13 @@ from dtc_tpu.parallel.sharded import make_sharded_echo as j_echo
 from dtc_tpu.utils.config import SimConfig
 from dtc_tpu_torch.experiments import sharded_run
 from dtc_tpu_torch.models.drives import build_kick_schedule
-from dtc_tpu_torch.ops import cycle
 from dtc_tpu_torch.ops import resident_blocked as rb
 from dtc_tpu_torch.ops.params import forward_rows
 from dtc_tpu_torch.ops.paulis import apply_pauli_string
 from dtc_tpu_torch.parallel import mesh as pmesh
 from dtc_tpu_torch.parallel import sharded as sh
 from dtc_tpu_torch.utils import cli
+from dtc_tpu_torch.utils import profiling
 from dtc_tpu_torch.utils.config import SimConfig as PortConfig
 from dtc_tpu_torch.utils.convert import from_reference
 
@@ -279,7 +279,7 @@ def test_cli_sharded_routes(tmp_path, capsys, caplog):
     L_loc=17 takes the x cycle kernels' plain versions (engine=cycle), xy
     the lab-frame ones (engine=cycle_general); the mesh is printed and the
     reference-named CSV written; no kernel is launched."""
-    cycle.reset_counters()
+    profiling.reset_counters()
     for pol, route in (("x", "cycle"), ("xy", "cycle_general")):
         out = tmp_path / pol
         caplog.clear()
@@ -293,5 +293,5 @@ def test_cli_sharded_routes(tmp_path, capsys, caplog):
         printed = capsys.readouterr().out
         assert "mesh={'traj': 1, 'amp': 2}" in printed
         assert len(os.listdir(out)) == 1
-    assert not any(cycle.LAUNCHES.values())
-    assert not any(cycle.PLAIN_ON_CUDA.values())
+    assert not profiling.LAUNCHES
+    assert not profiling.PLAIN_ON_CUDA
