@@ -179,14 +179,17 @@ inline int echo_threads(int tbits) {
 
 // One butterfly round on NB consecutive tile bits [b, b + NB) of a swizzled
 // 2^tbits tile, 2^NB amplitudes in registers: kick.round<NB>(b - b0) gives
-// the butterflies (k, a, b) of bits b + k. The round's bits are disjoint
-// from the tuple's base, so amplitude j of a tuple sits at
-// swz(base) ^ swz(j << b). The tuple comes from the tile or, with kIn, from
-// in(base, j << b) for each amplitude base | j << b (the first round fused
-// into the load); it goes back to the tile (the round then ends in
-// __syncthreads) or, with kOut, to out(base, j << b, v) (the last round
-// fused into the store). The functors see the base and the offset apart,
-// so that what depends on the base alone is computed once per tuple.
+// the butterflies (k, a, b) of bits b + k, and its flip word: amplitude j of
+// the round's result goes to place j ^ flip (an X on bit b + k after its
+// butterfly where bit k of flip is set; 0 for the x family). The round's
+// bits are disjoint from the tuple's base, so amplitude j of a tuple sits at
+// swz(base) ^ swz(j << b), and swz is linear over XOR. The tuple comes from
+// the tile or, with kIn, from in(base, j << b) for each amplitude
+// base | j << b (the first round fused into the load); it goes back to the
+// tile (the round then ends in __syncthreads) or, with kOut, to
+// out(base, (j ^ flip) << b, v) (the last round fused into the store). The
+// functors see the base and the offset apart, so that what depends on the
+// base alone is computed once per tuple.
 // meas.tuple<NB, kIn>(base, b, v) sees each tuple as loaded, before the
 // round's butterflies, and meas.end<NB>(b) runs once the thread's tuples
 // are done (every thread of the block; NoMeasure: neither does anything).
@@ -204,6 +207,8 @@ __device__ void swz_round(float2* tile, int tbits, int b, int b0,
                           Meas& meas) {
   constexpr int M = 1 << NB;
   const auto bf = kick.template round<NB>(b - b0);
+  const int flip = bf.flip << b;
+  const int sflip = swz(flip);
   int off[M];
 #pragma unroll
   for (int j = 0; j < M; ++j) off[j] = swz(j << b);
@@ -232,9 +237,9 @@ __device__ void swz_round(float2* tile, int tbits, int b, int b0,
 #pragma unroll
     for (int j = 0; j < M; ++j) {
       if constexpr (kOut) {
-        out(base, j << b, v[j]);
+        out(base, (j << b) ^ flip, v[j]);
       } else {
-        tile[sb ^ off[j]] = v[j];
+        tile[sb ^ sflip ^ off[j]] = v[j];
       }
     }
   }
@@ -295,7 +300,8 @@ __device__ void swz_kick(float2* tile, int tbits, int b0, int n,
 //                  hi_min_blocks);
 //   P::Shared      what a block keeps of its kick in shared memory;
 //   P::Kick        a block's kick: from(q) the kick from qubit q on, and
-//                  round<NB>(j) the butterflies of its qubits [j, j + NB);
+//                  round<NB>(j) the butterflies of its qubits [j, j + NB)
+//                  and their flip word (swz_round);
 //   begin(rows, L, rows_per_pair, pair, step, sh, kick): false once the
 //                  pair has run its COUNT steps, else sets kick (its shared
 //                  part in sh, read after the next __syncthreads);

@@ -16,8 +16,9 @@
 // in-kernel 128x128 group build, no P-packing). One step of a trajectory:
 // - kick B = X_m U^{(x)L}: U is the step's complex 2x2 (lanes FO+2..9 of the
 //   kick row, FO = 4L-1), m its X-mask (lanes [L, 2L)). Per qubit j the
-//   butterfly applies U, or X U (rows swapped) where m_j = 1: the per-bit
-//   form of B[a, b] = prod_j u[a_j ^ m_j, b_j];
+//   butterfly applies U, then X where m_j = 1 (rows swapped, X U), which
+//   only relabels the round's results: the per-bit form of B[a, b] =
+//   prod_j u[a_j ^ m_j, b_j];
 // - diagonal exp(i theta(s)), one angle linear in the bits,
 //     theta(s) = c0 + sum_q cz_q z_q(s) + sum_j cb_j z_j(s) z_{j+1}(s),
 //     cz_q = -h_q/2 - (pi/2) n_q,  cb_j = -phi_j/2,  c0 = (pi/2) sum_q n_q,
@@ -55,9 +56,12 @@
 //            the kick on bits [a, L), the step's folded diagonal and the
 //            forward's partial as it stores.
 // A general complex 2x2 costs 14 flops per amplitude and bit against RX's
-// 6, so the kick's arithmetic weighs more than in K1/K2. The per-qubit
-// matrices are built once per block in shared memory (floquet_lab.cuh,
-// shared with the large-L lab-frame family, floquet_general_streamed.cu).
+// 6, so the kick's arithmetic weighs more than in K1/K2. Each thread holds
+// the step's kick in registers, U and the X-mask as one 32-bit word packed
+// by a warp ballot of the row (LabKick, floquet_lab.cuh, shared with the
+// large-L lab-frame family, floquet_general_streamed.cu), and the X-mask
+// becomes each round's flip word: no per-qubit table in shared memory, and
+// the passes fit 64 registers, four blocks an SM.
 // Reductions are deterministic (floquet_common.cuh, floquet_plan.cuh).
 
 #include "floquet_common.cuh"

@@ -1,9 +1,9 @@
 // The lab-frame pieces shared by floquet_general.cu (K4/K5) and
 // floquet_general_streamed.cu (the large-L lab-frame family): the flag lanes
-// of a step row, the per-qubit kick matrices B = X_m U of one row, and the
-// general 2x2 kick as the rounds of the step passes (floquet_echo.cuh)
-// take it (MatKick). The diagonal's coefficients come folded
-// (ops/echo_fold.py).
+// of a step row and the step's kick B = X_m U^{(x)L} as the rounds of the
+// step passes (floquet_echo.cuh) take it (LabKick): the complex 2x2 U and
+// the X-mask as one 32-bit word, both in registers, nothing in shared
+// memory. The diagonal's coefficients come folded (ops/echo_fold.py).
 //
 // Row layout (ops/params_general.py), 128 lanes: noise-Z bits n [0, L),
 // X-mask bits m [L, 2L), h [2L, 3L), phi [3L, 4L-1), then the flag lanes
@@ -26,52 +26,54 @@ struct Mat2 {
   float2 a00, a01, a10, a11;
 };
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+// One output of U's butterfly, x a + y b (x, y a row of U): each component
+// one product and three fused multiply-adds, 16 operations a butterfly.
+__device__ __forceinline__ float2 row_dot(float2 x, float2 y, float2 a,
+                                          float2 b) {
+  return make_float2(
+      fmaf(y.x, b.x, fmaf(-y.y, b.y, fmaf(x.x, a.x, -x.y * a.y))),
+      fmaf(y.x, b.y, fmaf(y.y, b.x, fmaf(x.x, a.y, x.y * a.x))));
 }
 
-// (a, b) <- (m00 a + m01 b, m10 a + m11 b)
-__device__ __forceinline__ void mat_pair(float2& a, float2& b,
-                                         const Mat2& m) {
-  const float2 p = cmul(m.a00, a), r = cmul(m.a01, b);
-  const float2 u = cmul(m.a10, a), v = cmul(m.a11, b);
-  a = make_float2(p.x + r.x, p.y + r.y);
-  b = make_float2(u.x + v.x, u.y + v.y);
-}
-
-// Per-qubit kick matrices of one row: U, rows swapped where m_j = 1.
-__device__ void load_mats(const float* __restrict__ row, int L, Mat2* mats) {
-  const float* u = row + 4 * L - 1 + kLaneU8;
-  for (int j = threadIdx.x; j < L; j += blockDim.x) {
-    const float2 u00 = make_float2(u[0], u[1]), u01 = make_float2(u[2], u[3]);
-    const float2 u10 = make_float2(u[4], u[5]), u11 = make_float2(u[6], u[7]);
-    mats[j] = row[L + j] > 0.5f ? Mat2{u10, u11, u00, u01}
-                                : Mat2{u00, u01, u10, u11};
-  }
-}
-
-// The per-qubit 2x2 kicks of a swizzled round of the echo passes
-// (floquet_echo.cuh), in registers.
-template <int NB>
-struct MatRound {
-  Mat2 m[NB];
-  __device__ __forceinline__ void operator()(int k, float2& a,
+// The kick's butterflies of a swizzled round of the step passes: U on each
+// bit of the round. The X that follows U on a bit whose X-mask bit is set
+// is the round's flip word, which places the round's results
+// (floquet_echo.cuh, swz_round) and costs no operation.
+struct LabRound {
+  Mat2 u;
+  int flip;
+  __device__ __forceinline__ void operator()(int, float2& a,
                                              float2& b) const {
-    mat_pair(a, b, m[k]);
+    const float2 top = row_dot(u.a00, u.a01, a, b);
+    b = row_dot(u.a10, u.a11, a, b);
+    a = top;
   }
 };
 
-// The echo passes' kick: mats[j] acts on qubit j of the kick's range.
-struct MatKick {
-  const Mat2* mats;
-  __device__ __forceinline__ MatKick from(int q) const { return {mats + q}; }
+// The step passes' kick: U, and bit j of m the X-mask bit of qubit j of the
+// kick's range.
+struct LabKick {
+  Mat2 u;
+  uint32_t m;
+  __device__ __forceinline__ LabKick from(int q) const { return {u, m >> q}; }
   template <int NB>
-  __device__ __forceinline__ MatRound<NB> round(int off) const {
-    MatRound<NB> r;
-#pragma unroll
-    for (int k = 0; k < NB; ++k) r.m[k] = mats[off + k];
-    return r;
+  __device__ __forceinline__ LabRound round(int off) const {
+    return {u, (int)((m >> off) & ((1u << NB) - 1))};
   }
 };
+
+// The kick of one row: U from lanes FO+2..9, the X-mask lanes [L, 2L)
+// packed by one ballot a warp (lane j reads m_j; L <= kMaxEchoL = 32).
+// Every thread of each warp calls it (the passes' blocks are whole warps).
+__device__ __forceinline__ LabKick load_kick(const float* __restrict__ row,
+                                             int L) {
+  const float* u = row + 4 * L - 1 + kLaneU8;
+  const int lane = threadIdx.x & 31;
+  const uint32_t m =
+      __ballot_sync(0xffffffffu, lane < L && row[L + lane] > 0.5f);
+  return {{make_float2(u[0], u[1]), make_float2(u[2], u[3]),
+           make_float2(u[4], u[5]), make_float2(u[6], u[7])},
+          m};
+}
 
 }  // namespace

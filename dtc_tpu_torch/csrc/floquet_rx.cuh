@@ -32,8 +32,9 @@ struct ConstKick {
 };
 
 // RX(theta) on every bit: the butterflies of a swizzled round of the echo
-// passes (floquet_echo.cuh).
+// passes (floquet_echo.cuh); no X follows them (flip word 0).
 struct RxRound {
+  static constexpr int flip = 0;
   float c, s;
   __device__ __forceinline__ void operator()(int, float2& a, float2& b) const {
     rx_pair(a, b, c, s);

@@ -443,6 +443,72 @@ def test_observables_kernel_two_instances_equal_single_calls(cuda_device):
         _held_obs(one, ref, L, scale)
 
 
+# X-mask words at the edges of the kick's packed mask (one bit a qubit):
+# none, every bit, alternating bits, the two bits either side of K2's split
+# (a - 1 in pass lo, a in pass hi, a = L - L/2) and the top bit L - 1.
+X_MASKS = ["none", "all", "alternating", "split", "top"]
+
+
+def _x_mask_lanes(pattern, L, device):
+    a = L - L // 2
+    bits = {"none": [], "all": range(L), "alternating": range(0, L, 2),
+            "split": [a - 1, a], "top": [L - 1]}[pattern]
+    lanes = torch.zeros(L, device=device)
+    lanes[list(bits)] = 1.0
+    return lanes
+
+
+def _with_x_mask(rows, lanes, L, every=1):
+    """``rows`` with the X-mask lanes [L, 2L) of every ``every``-th row
+    (2: an echo's pre rows, the ones that carry its kicks) set to
+    ``lanes``."""
+    rows = rows.clone()
+    rows[..., ::every, L:2 * L] = lanes
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", X_MASKS)
+@pytest.mark.parametrize("pol", ["x", "y", "xy", "circular_left"])
+def test_general_kernels_take_every_x_mask_on_card(cuda_device, pol,
+                                                   pattern):
+    """K4's forward and echo and K5 on X-mask words that reach the edges of
+    the kick's mask word, on drives whose slot U has no zero entry, against
+    their plain versions at L = 17 and 23 (probes q = L - 1 and a)."""
+    T = 3
+    for L in (17, 23):
+        a = L - L // 2
+        lanes = _x_mask_lanes(pattern, L, cuda_device)
+        hs, phis = _disorder(L, cuda_device)
+        angles = build_kick_schedule(pol, 0.97, T,
+                                     device=cuda_device).angles
+        K = angles.shape[1]
+        gen = torch.Generator(device=cuda_device).manual_seed(L)
+        u = torch.rand((1, 2, 2 * T * K, L), generator=gen,
+                       device=cuda_device)
+        rows = _with_x_mask(general_forward_rows(
+            u[..., :T * K, :], hs[:, None], phis[:, None], angles, L=L, T=T,
+            K=K, p=0.1), lanes, L)
+        k = rg.general_forward_batch(rows, L=L, T=T, q=L - 1)
+        ref = rg.general_forward_batch_ref(rows, L=L, T=T, q=L - 1)
+        assert float((k - ref).abs().max()) <= TOL, ("forward", L)
+        ts = torch.arange(0, T + 1, device=cuda_device)
+        tiles = _with_x_mask(general_echo_rows(
+            u, ts, hs[:, None], phis[:, None], angles, L=L, T=T, K=K, p=0.1),
+            lanes, L, every=2)
+        k = rg.general_echo_batch(tiles, L=L, q=a)
+        ref = rg.general_echo_batch_ref(tiles, L=L, q=a)
+        assert float((k - ref).abs().max()) <= TOL, ("echo", L)
+        orows, erow, with_x, scale = _obs_inputs(cuda_device, L, pol, "full",
+                                                 0.1, T)
+        orows = _with_x_mask(orows, lanes, L)
+        k = obs.observables_forward_batch(orows, erow, L=L, T=T,
+                                          with_x=with_x)
+        ref = obs.observables_forward_batch_ref(orows, erow, L=L, T=T,
+                                                with_x=with_x)
+        _held_obs(k, ref, L, scale)
+
+
 @pytest.mark.cuda
 def test_observables_wrapper_rejects_out_of_range(cuda_device):
     erow = torch.zeros((1, 128), device=cuda_device)

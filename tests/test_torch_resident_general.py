@@ -24,8 +24,13 @@ from dtc_tpu.ops.pallas_resident_general import slot_u8 as j_slot_u8
 from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.ops import resident_general as rg
 from dtc_tpu_torch.ops.params_general import (
+    LANE_COUNT,
+    LANE_MPOS,
+    LANE_U8,
+    flag_base,
     general_echo_rows,
     general_forward_rows,
+    general_hi_width,
     slot_u8,
 )
 from dtc_tpu_torch.utils import profiling
@@ -148,3 +153,74 @@ def test_wrapper_routes_cpu_to_plain_version():
     assert torch.equal(a, b)
     assert not profiling.LAUNCHES
     assert not profiling.PLAIN_ON_CUDA
+
+
+DRIVES = ["x", "y", "xy", "yx", "circular_left", "circular_right",
+          "circular_static", "xy_cycle"]
+
+
+def _u_lanes(rows, L):
+    fo = flag_base(L)
+    return rows[..., fo + LANE_U8:fo + LANE_U8 + 8]
+
+
+def _binary_x_mask(rows, L):
+    """The X-mask lanes [L, 2L) are exactly 0.0 or 1.0, and some are 1."""
+    xm = rows[..., L:2 * L]
+    assert bool(((xm == 0.0) | (xm == 1.0)).all())
+    assert bool((xm == 1.0).any())
+
+
+def _flags_beside_u_are_clear(rows, L, lanes):
+    """No flag lane but ``lanes`` (offsets from FO) and U's is set."""
+    fo = flag_base(L)
+    keep = {LANE_U8 + i for i in range(8)} | set(lanes)
+    rest = [fo + i for i in range(rows.shape[-1] - fo) if i not in keep]
+    assert not rows[..., rest].any()
+
+
+@pytest.mark.parametrize("pol", DRIVES)
+@pytest.mark.parametrize("L", [14, 20, 30])
+def test_rows_hold_one_u_and_a_binary_x_mask(L, pol):
+    """What the kernels' kick reads of a step row (``LabKick``,
+    ``csrc/floquet_lab.cuh``): L <= 32, so the X-mask lanes [L, 2L) pack into
+    one 32-bit word, one lane of a warp each; every X-mask lane is exactly
+    0.0 or 1.0; and the step's U sits once, in lanes FO+2..9 of its kick
+    row: every forward row holds its slot's U, every echo pre row the U of
+    its step (the slot's, or on an inverse step the dagger of the slot
+    taken in reverse), every echo post row none."""
+    assert L <= 32
+    T, p = 4, 0.3
+    width = general_hi_width(L)
+    gen = torch.Generator().manual_seed(L)
+    hs = torch.rand((1, L), generator=gen, dtype=torch.float64)
+    phis = torch.rand((1, L - 1), generator=gen, dtype=torch.float64)
+    angles = build_kick_schedule(pol, 0.97, T).angles
+    K = angles.shape[1]
+    u8 = slot_u8(angles[..., 0], angles[..., 1])                 # (T, K, 8)
+    u8i = slot_u8(angles[..., 0], angles[..., 1], inverse=True)
+
+    u = torch.rand((1, 3, 2 * T * K, L), generator=gen)
+    rows = general_forward_rows(u[..., :T * K, :], hs[:, None],
+                                phis[:, None], angles, L=L, T=T, K=K, p=p,
+                                width=width)
+    assert rows.shape == (1, 3, T * K, width)
+    _binary_x_mask(rows, L)
+    assert torch.equal(_u_lanes(rows, L),
+                       u8.reshape(T * K, 8).expand(1, 3, T * K, 8))
+    _flags_beside_u_are_clear(rows, L, [LANE_MPOS])
+
+    ts = list(range(T + 1))
+    tiles = general_echo_rows(u, torch.tensor(ts), hs[:, None], phis[:, None],
+                              angles, L=L, T=T, K=K, p=p, width=width)
+    assert tiles.shape == (1, 3, T + 1, 4 * T * K, width)
+    _binary_x_mask(tiles, L)
+    pre, post = tiles[..., 0::2, :], tiles[..., 1::2, :]
+    assert not post[..., L:2 * L].any() and not _u_lanes(post, L).any()
+    _flags_beside_u_are_clear(pre[..., 1:, :], L, [])
+    _flags_beside_u_are_clear(pre[..., :1, :], L, [LANE_COUNT])
+    for i, t in enumerate(ts):
+        for k in range(2 * t):  # the steps a pair runs (COUNT = 2tK)
+            want = u8[k] if k < t else u8i[2 * t - 1 - k].flip(0)
+            got = _u_lanes(pre[..., i, k * K:(k + 1) * K, :], L)
+            assert torch.equal(got, want.expand_as(got)), (t, k)

@@ -22,7 +22,10 @@ echo do (``ops/echo_fold.py``). Here, on the CPU:
   bank conflict (the streamed forwards run the same tiles); the pass
   plans, tiles and rounds that the replay walks are held to the C they
   mirror, the x and lab-frame forwards' ``run_steps`` lines too, so that a
-  change there fails the check.
+  change there fails the check;
+- the lab-frame kick's flip word: a round of U's butterflies whose results
+  are placed at j ^ flip is X U on the flipped bits, and the swizzle is
+  linear over XOR, so the flipped stores land where they belong.
 
 The kernels themselves are held against the plain versions on the card by
 ``test_torch_kernels_cuda.py::test_folded_echo_kernels_match_plain_on_card``.
@@ -251,7 +254,14 @@ MIRRORED = {
         "const int nb = n / rounds + (i < n % rounds ? 1 : 0); "
         "swz_round_n<false, false>(nb, tile, tbits, b, b0, kick, in, out, "
         "meas); b += nb; } swz_round_n<false, true>(b0 + n - b, tile, tbits, "
-        "b, b0, kick, in, out, meas);"],
+        "b, b0, kick, in, out, meas);",
+        "const int flip = bf.flip << b; const int sflip = swz(flip);",
+        "out(base, (j << b) ^ flip, v[j]);",
+        "tile[sb ^ sflip ^ off[j]] = v[j];"],
+    "floquet_rx.cuh": ["struct RxRound { static constexpr int flip = 0;"],
+    "floquet_lab.cuh": [
+        "return {u, (int)((m >> off) & ((1u << NB) - 1))};",
+        "__ballot_sync(0xffffffffu, lane < L && row[L + lane] > 0.5f);"],
 }
 
 
@@ -343,6 +353,48 @@ def test_echo_swizzle_has_no_bank_conflicts(L):
         # below 16 columns the plain layout does conflict: the check sees
         # bank conflicts (a half-warp of 16 columns reads one line anyway)
         assert bool(_conflicts(0, tbits, b0, n)) == (b0 < 4)
+
+
+def test_echo_swizzle_is_linear_over_xor():
+    """A round's flip word moves each result by XOR inside its tuple:
+    swz_round stores amplitude j at swz(base) ^ swz(flip) ^ swz(j << b),
+    which is the place of j ^ flip only because swz is linear over XOR;
+    checked on every tile index of up to 13 bits and every bit."""
+    k = _kswz()
+    x = np.arange(1 << 13)
+    assert _swz(0, k) == 0
+    for i in range(13):
+        assert np.array_equal(_swz(x ^ (1 << i), k),
+                              _swz(x, k) ^ _swz(1 << i, k)), i
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3])
+def test_flip_word_places_x_u_results(nb):
+    """The lab-frame round (``floquet_lab.cuh::LabRound``): U's butterfly on
+    every bit of the round, in ``swz_round``'s order, then each result j
+    placed at j ^ flip, equals X U on the bits whose X-mask bit is set and U
+    on the others, for every flip word."""
+    rng = np.random.default_rng(nb)
+    u = rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2))
+    xu = u[::-1]
+    v0 = rng.normal(size=1 << nb) + 1j * rng.normal(size=1 << nb)
+
+    def butterflies(mats):
+        v = v0.copy()
+        for k in range(nb):
+            for j in range(1 << nb):
+                if not j & (1 << k):
+                    a, b = v[j], v[j | (1 << k)]
+                    m = mats[k]
+                    v[j] = m[0, 0] * a + m[0, 1] * b
+                    v[j | (1 << k)] = m[1, 0] * a + m[1, 1] * b
+        return v
+
+    for flip in range(1 << nb):
+        placed = np.empty_like(v0)
+        placed[np.arange(1 << nb) ^ flip] = butterflies([u] * nb)
+        want = butterflies([xu if flip >> k & 1 else u for k in range(nb)])
+        np.testing.assert_allclose(placed, want, rtol=0, atol=1e-12)
 
 
 def test_echo_swizzle_replay_mirrors_the_headers():
