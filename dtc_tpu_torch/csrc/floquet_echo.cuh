@@ -60,6 +60,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "floquet_common.cuh"
 
 namespace {
@@ -260,30 +262,46 @@ __device__ void swz_round_n(int nb, float2* tile, int tbits, int b, int b0,
   }
 }
 
+// A kick whose steps come in kinds (LabKick, floquet_lab.cuh: RX, RY or a
+// general 2x2, read from the step's row) says so with kKinds, and its
+// visit(f) hands f the kick of the block's kind, a type of its own a kind.
+// Any other kick (the x family's) is its one kind.
+template <class K, class = void>
+struct has_kinds : std::false_type {};
+template <class K>
+struct has_kinds<K, std::void_t<decltype(K::kKinds)>> : std::true_type {};
+
 // The kick on tile bits [b0, b0 + n) (n <= 12) of a 2^tbits tile in
 // ceil(n / 3) rounds of 2 or 3 bits, the last on the top bits: the first
 // takes its amplitudes from in, the last hands them to out (swz_round), and
 // the tile (swizzled shared memory) holds the state between rounds; meas
-// sees every round's tuples before its butterflies.
+// sees every round's tuples before its butterflies. A kick with kinds is
+// resolved here, once a pass: the rounds run on its kind's kick.
 template <class Kick, class In, class Out, class Meas>
 __device__ void swz_kick(float2* tile, int tbits, int b0, int n,
                          const Kick& kick, const In& in, const Out& out,
                          Meas& meas) {
-  const int rounds = (n + 2) / 3;
-  const int nb0 = n / rounds + (n % rounds > 0 ? 1 : 0);
-  if (rounds == 1) {
-    swz_round_n<true, true>(n, tile, tbits, b0, b0, kick, in, out, meas);
-    return;
+  if constexpr (has_kinds<Kick>::value) {
+    kick.visit([&](const auto& k) {
+      swz_kick(tile, tbits, b0, n, k, in, out, meas);
+    });
+  } else {
+    const int rounds = (n + 2) / 3;
+    const int nb0 = n / rounds + (n % rounds > 0 ? 1 : 0);
+    if (rounds == 1) {
+      swz_round_n<true, true>(n, tile, tbits, b0, b0, kick, in, out, meas);
+      return;
+    }
+    swz_round_n<true, false>(nb0, tile, tbits, b0, b0, kick, in, out, meas);
+    int b = b0 + nb0;
+    for (int i = 1; i < rounds - 1; ++i) {
+      const int nb = n / rounds + (i < n % rounds ? 1 : 0);
+      swz_round_n<false, false>(nb, tile, tbits, b, b0, kick, in, out, meas);
+      b += nb;
+    }
+    swz_round_n<false, true>(b0 + n - b, tile, tbits, b, b0, kick, in, out,
+                             meas);
   }
-  swz_round_n<true, false>(nb0, tile, tbits, b0, b0, kick, in, out, meas);
-  int b = b0 + nb0;
-  for (int i = 1; i < rounds - 1; ++i) {
-    const int nb = n / rounds + (i < n % rounds ? 1 : 0);
-    swz_round_n<false, false>(nb, tile, tbits, b, b0, kick, in, out, meas);
-    b += nb;
-  }
-  swz_round_n<false, true>(b0 + n - b, tile, tbits, b, b0, kick, in, out,
-                           meas);
 }
 
 template <class Kick, class In, class Out>
@@ -301,7 +319,9 @@ __device__ void swz_kick(float2* tile, int tbits, int b0, int n,
 //   P::Shared      what a block keeps of its kick in shared memory;
 //   P::Kick        a block's kick: from(q) the kick from qubit q on, and
 //                  round<NB>(j) the butterflies of its qubits [j, j + NB)
-//                  and their flip word (swz_round);
+//                  and their flip word (swz_round); or, with kKinds, the
+//                  kick of one of several kinds, which swz_kick resolves
+//                  once a pass through visit (has_kinds);
 //   begin(rows, L, rows_per_pair, pair, step, sh, kick): false once the
 //                  pair has run its COUNT steps, else sets kick (its shared
 //                  part in sh, read after the next __syncthreads);

@@ -55,13 +55,17 @@
 //   pass hi: a block owns kW low columns x all 2^(L-a) high values, applies
 //            the kick on bits [a, L), the step's folded diagonal and the
 //            forward's partial as it stores.
-// A general complex 2x2 costs 14 flops per amplitude and bit against RX's
-// 6, so the kick's arithmetic weighs more than in K1/K2. Each thread holds
-// the step's kick in registers, U and the X-mask as one 32-bit word packed
-// by a warp ballot of the row (LabKick, floquet_lab.cuh, shared with the
-// large-L lab-frame family, floquet_general_streamed.cu), and the X-mask
-// becomes each round's flip word: no per-qubit table in shared memory, and
-// the passes fit 64 registers, four blocks an SM.
+// The kick's arithmetic weighs more than in K1/K2 only where U is a general
+// complex 2x2 (16 operations a butterfly). Each step's kick has a kind, read
+// from its U (floquet_lab.cuh): RX or RY, which every slot of every drive
+// is, runs an 8-operation butterfly as K1/K2's RX does; any other U the
+// general 2x2. Each thread holds the step's kick in registers, U, its kind
+// and the X-mask as one 32-bit word packed by a warp ballot of the row
+// (LabKick, floquet_lab.cuh, shared with the large-L lab-frame family,
+// floquet_general_streamed.cu); a pass's rounds take the kind's butterfly,
+// chosen once a pass (swz_kick), and the X-mask becomes each round's flip
+// word: no per-qubit table in shared memory, and the passes fit 64
+// registers, four blocks an SM.
 // Reductions are deterministic (floquet_common.cuh, floquet_plan.cuh).
 
 #include "floquet_common.cuh"

@@ -1,9 +1,11 @@
 // The lab-frame kick policy for the step passes of floquet_echo.cuh: the
-// step's kick (U and the X-mask word of the step's kick row, LabKick of
-// floquet_lab.cuh) held in registers, nothing in shared memory, read through
-// the step rows `Rows` of floquet_general_streamed_pass.cuh (K4's forward and
-// echo rows and K5's in floquet_general.cu; K10's echo and forward rows and
-// the slot rows of K8c/K8d and K10's shard-local forms in
+// step's kick (U, its kind and the X-mask word of the step's kick row,
+// LabKick of floquet_lab.cuh) held in registers, nothing in shared memory,
+// each pass's rounds on the butterfly of the step's kind (8 operations for
+// an RX or RY, which every drive's slot is; 16 for a general 2x2), read
+// through the step rows `Rows` of floquet_general_streamed_pass.cuh (K4's
+// forward and echo rows and K5's in floquet_general.cu; K10's echo and
+// forward rows and the slot rows of K8c/K8d and K10's shard-local forms in
 // floquet_general_streamed.cu: the same layout, 128 lanes, or 256 at L_loc =
 // 30). At most 64 registers a thread (four blocks of 256 threads an SM, the
 // passes' launch bounds; the measuring pass hi on 16-column tiles keeps 3,

@@ -84,9 +84,11 @@
 // 4 GiB at L=29 (a shard 8 GiB at L_loc = 30), so every step streams it
 // from device memory: 32 B per amplitude and step at L <= 24 (two passes),
 // 48 B from L=25 (three). A
-// general 2x2 costs 14 flops per amplitude and bit against RX's 6, and the
-// operation bound stays below the state floor. The kick sits in registers:
-// U and the X-mask word of the row (LabKick, floquet_lab.cuh).
+// step's kick runs the butterfly of its kind (floquet_lab.cuh): 8
+// operations an amplitude and bit for an RX or RY, which every drive's slot
+// is, 16 for a general 2x2, and the operation bound stays below the state
+// floor. The kick sits in registers: U, its kind and the X-mask word of the
+// row (LabKick, floquet_lab.cuh).
 //
 // Every offset that can pass 2^31 (state, tile rows, blocks, rows of a
 // batch, partials) is 64-bit: one shard at L_loc = 30 is 2^30 amplitudes.

@@ -67,10 +67,12 @@ from dtc_tpu_torch.ops import (
 )
 from dtc_tpu_torch.ops.params import echo_pair_tiles, forward_rows
 from dtc_tpu_torch.ops.params_general import (
+    echo_kick_steps,
+    forward_kick_steps,
     general_echo_rows,
     general_forward_rows,
 )
-from dtc_tpu_torch.utils.profiling import span
+from dtc_tpu_torch.utils.profiling import count_kicks, span
 from dtc_tpu_torch.utils.validation import guard
 
 log = logging.getLogger("dtc_tpu_torch")
@@ -90,6 +92,11 @@ KERNEL_STATE_BYTES = 8 << 30
 ECHO_SALT = 7919
 
 ENGINES = ("auto", "planar")
+
+# The lab-frame routes' entries (forward, echo), under whose spans the
+# sweeps count the steps of each kick kind (``profiling.KICKS``).
+LAB_ENTRIES = {"general": ("K4.forward", "K4.echo"),
+               "general_hi": ("K10.forward", "K10.echo")}
 
 
 def engine_choice(engine=None) -> str:
@@ -146,13 +153,18 @@ def planar_chunk(n_traj: int, L: int, inst: int) -> int:
     return max(1, min(n_traj, launch_states(L, 16) // inst))
 
 
+def kick_schedule(cfg, device=None):
+    """The run's kick schedule on ``device`` (default the CPU)."""
+    return build_kick_schedule(
+        cfg.polarization, cfg.g, cfg.tf,
+        circular_frequency=cfg.circular_frequency,
+        xy_cycle_period=cfg.xy_cycle_period, device=device)
+
+
 def build_context(cfg, hs, phis, *, device):
     """Per-run precomputation: kick schedule + parameter tensors on device."""
     dev = resolve_device(device)
-    sched = build_kick_schedule(
-        cfg.polarization, cfg.g, cfg.tf,
-        circular_frequency=cfg.circular_frequency,
-        xy_cycle_period=cfg.xy_cycle_period, device=dev)
+    sched = kick_schedule(cfg, dev)
     hs = torch.as_tensor(np.asarray(hs)[:, :cfg.L], dtype=torch.float64,
                          device=dev)
     phis = torch.as_tensor(np.asarray(phis)[:, :cfg.L - 1],
@@ -351,6 +363,8 @@ def forward_sweep(cfg, sched, params, noise, *, uniforms=None,
     log.info("forward_sweep: engine=%s pol=%s L=%d T=%d", engine,
              cfg.polarization, L, T)
     n_traj = cfg.n_trajectories if p > 0 else 1
+    lab = LAB_ENTRIES.get(engine)
+    host = sched.angles.detach().cpu() if lab else None
     u = (_sweep_uniforms(uniforms, (cfg.inst, n_traj, T * K, L), cfg.seed,
                          hs.device) if p > 0 else None)
     if engine == "planar":
@@ -370,6 +384,9 @@ def forward_sweep(cfg, sched, params, noise, *, uniforms=None,
                 uc = u[i0:i1, done:done + c] if u is not None else None
                 vals = _forward_batch(hs[i0:i1], phis[i0:i1], sched.angles,
                                       uc, n_traj=c, **kw)
+                if lab:
+                    count_kicks(lab[0], forward_kick_steps(
+                        host, T, (i1 - i0) * c))
                 acc[i0:i1] += guard("forward_batch",
                                     vals.sum(dim=1).cpu().numpy(),
                                     bound=float(c))
@@ -399,6 +416,8 @@ def echo_sweep(cfg, sched, params, noise, *, uniforms=None,
     log.info("echo_sweep: engine=%s pol=%s L=%d T=%d", engine,
              cfg.polarization, L, T)
     n_traj = cfg.n_trajectories
+    lab = LAB_ENTRIES.get(engine)
+    host = sched.angles.detach().cpu() if lab else None
     u = _sweep_uniforms(uniforms, (cfg.inst, n_traj, 2 * T * K, L),
                         cfg.seed + ECHO_SALT, hs.device)
     if engine != "sigma":
@@ -418,6 +437,9 @@ def echo_sweep(cfg, sched, params, noise, *, uniforms=None,
                     vals = _echo_batch(hs[i0:i1], phis[i0:i1], sched.angles,
                                        ts, u[i0:i1, done:done + c], n_traj=c,
                                        **kw)
+                    if lab:
+                        count_kicks(lab[1], echo_kick_steps(
+                            host, range(t0, t0 + len(ts)), (i1 - i0) * c))
                     acc += guard("echo_batch", vals.sum(dim=1).cpu().numpy(),
                                  bound=float(c))
             out[i0:i1, t0:t0 + len(ts)] = acc / n_traj

@@ -63,6 +63,57 @@ def slot_u8(theta_x, theta_y, inverse: bool = False) -> torch.Tensor:
                             torch.float32)
 
 
+KICK_KINDS = ("rx", "ry", "general")
+
+
+def kick_kind(u8) -> torch.Tensor:
+    """The kind of each (..., 8) slot unitary (``slot_u8``'s lanes, f32),
+    an index into ``KICK_KINDS``, by the rule of the kernels' ``load_kick``
+    (``csrc/floquet_lab.cuh``): RX where the real parts of a01 and a10 and
+    the imaginary parts of a00 and a11 are exactly 0, a00 = a11 and
+    a01 = a10; else RY where every imaginary part is exactly 0, a00 = a11
+    and a01 = -a10; else general."""
+    a00r, a00i, a01r, a01i, a10r, a10i, a11r, a11i = torch.as_tensor(
+        u8, dtype=torch.float32).unbind(-1)
+    diag = a00r == a11r
+    rx = ((a01r == 0) & (a10r == 0) & (a00i == 0) & (a11i == 0) & diag
+          & (a01i == a10i))
+    ry = ((a00i == 0) & (a01i == 0) & (a10i == 0) & (a11i == 0) & diag
+          & (a01r == -a10r))
+    return torch.where(rx, 0, torch.where(ry, 1, 2))
+
+
+def _kind_steps(kinds, states: int) -> dict:
+    return {name: states * int((kinds == i).sum())
+            for i, name in enumerate(KICK_KINDS)}
+
+
+def forward_kick_steps(angles, T: int, states: int) -> dict:
+    """{kind: lab-frame steps} of a forward batch of ``states`` trajectories
+    on the (T, K, 2) schedule ``angles`` (a host copy): each runs the K
+    slots of cycles 0 .. T-2, the steps whose results are measured (K4's
+    and K10's forward, K5)."""
+    a = angles[:T - 1]
+    return _kind_steps(kick_kind(slot_u8(a[..., 0], a[..., 1])), states)
+
+
+def echo_kick_steps(angles, ts, states: int) -> dict:
+    """{kind: lab-frame steps} of an echo batch on the (T, K, 2) schedule
+    ``angles`` (a host copy): ``states`` pairs at each t of ``ts`` (host
+    ints), each running the K slots of cycles 0 .. t-1, then their
+    daggers (2tK steps)."""
+    kinds = torch.stack([kick_kind(slot_u8(angles[..., 0], angles[..., 1],
+                                           inverse=inv))
+                         for inv in (False, True)])          # (2, T, K)
+    per_cycle = torch.stack([(kinds == i).sum((0, 2))
+                             for i in range(len(KICK_KINDS))], -1)
+    upto = torch.cat([per_cycle.new_zeros((1, len(KICK_KINDS))),
+                      per_cycle.cumsum(0)])          # (T + 1, kinds)
+    total = upto[list(ts)].sum(0)
+    return {name: states * int(total[i])
+            for i, name in enumerate(KICK_KINDS)}
+
+
 def _noise_masks(uniforms, p, L, shape, dev):
     """(xm, zm) int64 of the codes drawn from ``uniforms`` (..., L); zeros
     of ``shape`` when p == 0."""

@@ -20,6 +20,8 @@ and the partial are held to ``_unit_tol(L)`` = 1e-3 * 2^(-L/2), one part
 in 10^3 of a typical amplitude.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -43,9 +45,13 @@ from dtc_tpu_torch.ops.params import echo_pair_tiles, forward_rows
 from dtc_tpu_torch.parallel import sharded as sh
 from dtc_tpu_torch.parallel.mesh import make_mesh
 from dtc_tpu_torch.ops.params_general import (
+    LANE_U8,
+    flag_base,
     general_echo_rows,
     general_forward_rows,
     general_hi_width,
+    kick_kind,
+    slot_u8,
 )
 from dtc_tpu_torch.utils import profiling
 from dtc_tpu_torch.utils.config import SimConfig
@@ -170,13 +176,40 @@ def test_sigma_engine_on_card_matches_cpu(cuda_device):
 
 GENERAL_CASES = [(14, "y", "neel", 0), (17, "xy", "vacuum", 16),
                  (20, "circular_left", "vacuum", 10),
-                 (23, "xy_cycle", "neel", 22)]
+                 (23, "xy_cycle", "neel", 22), (20, "x", "neel", 3)]
+
+# The kick kinds that the lab-frame kernels choose from a step's U
+# (``csrc/floquet_lab.cuh``): the drive's own rows (RX, RY, or both in one
+# launch), or the same rows with the U of one step row a trajectory or pair
+# planted: a general 2x2 (both angles non-zero, so no entry of U is zero),
+# or an RX off by one non-zero lane; both take the general butterfly.
+KICKS = ["drive", "general", "near_rx"]
+
+
+def _plant_u(rows, L, kick, row=1):
+    """``rows`` with the U lanes of row ``row`` of every trajectory (an
+    echo's pre row of step s is row 2s) set as ``kick`` says."""
+    if kick == "drive":
+        return rows
+    if kick == "general":
+        u8 = slot_u8(torch.tensor(0.9), torch.tensor(0.6))
+        assert bool((u8 != 0).all())
+    else:
+        u8 = slot_u8(torch.tensor(0.97 * math.pi), torch.tensor(0.0))
+        assert int(kick_kind(u8)) == 0  # an RX
+        u8[2] = 1e-3                    # re a01
+    assert int(kick_kind(u8)) == 2
+    rows = rows.clone()
+    fo = flag_base(L) + LANE_U8
+    rows[..., row, fo:fo + 8] = u8.to(rows.device)
+    return rows
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kick", KICKS)
 @pytest.mark.parametrize("L,pol,state,q", GENERAL_CASES)
 def test_general_forward_kernel_matches_plain_on_card(cuda_device, L, pol,
-                                                      state, q):
+                                                      state, q, kick):
     T = 4 if L < 23 else 3
     hs, phis = _disorder(L, cuda_device)
     angles = build_kick_schedule(pol, 0.97, T, xy_cycle_period=1,
@@ -184,8 +217,9 @@ def test_general_forward_kernel_matches_plain_on_card(cuda_device, L, pol,
     K = angles.shape[1]
     gen = torch.Generator(device=cuda_device).manual_seed(L)
     u = torch.rand((1, 3, T * K, L), generator=gen, device=cuda_device)
-    rows = general_forward_rows(u, hs[:, None], phis[:, None], angles, L=L,
-                                T=T, K=K, p=0.1)
+    rows = _plant_u(general_forward_rows(u, hs[:, None], phis[:, None],
+                                         angles, L=L, T=T, K=K, p=0.1),
+                    L, kick)
     launches = _launched("K4.forward")
     k = rg.general_forward_batch(rows, L=L, T=T, q=q, initial_state=state)
     torch.cuda.synchronize()
@@ -196,9 +230,10 @@ def test_general_forward_kernel_matches_plain_on_card(cuda_device, L, pol,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kick", KICKS)
 @pytest.mark.parametrize("L,pol,state,q", GENERAL_CASES)
 def test_general_echo_kernel_matches_plain_on_card(cuda_device, L, pol,
-                                                   state, q):
+                                                   state, q, kick):
     T = 3 if L < 23 else 2
     hs, phis = _disorder(L, cuda_device)
     angles = build_kick_schedule(pol, 0.97, T, xy_cycle_period=1,
@@ -208,13 +243,14 @@ def test_general_echo_kernel_matches_plain_on_card(cuda_device, L, pol,
     u = torch.rand((1, 2, 2 * T * K, L), generator=gen, device=cuda_device)
     ts = torch.arange(0, T + 1, device=cuda_device)
     for p in (0.6, 0.0):
-        tiles = general_echo_rows(u, ts, hs[:, None], phis[:, None], angles,
-                                  L=L, T=T, K=K, p=p)
+        tiles = _plant_u(general_echo_rows(u, ts, hs[:, None],
+                                           phis[:, None], angles, L=L, T=T,
+                                           K=K, p=p), L, kick, row=2)
         k = rg.general_echo_batch(tiles, L=L, q=q, initial_state=state)
         torch.cuda.synchronize()
         ref = rg.general_echo_batch_ref(tiles, L=L, q=q, initial_state=state)
         assert float((k - ref).abs().max()) <= TOL
-        if p == 0:
+        if p == 0 and kick == "drive":  # a planted step is not undone
             assert float((k - 1).abs().max()) <= TOL
 
 
@@ -367,11 +403,13 @@ def _held_obs(k, ref, L, scale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kick", KICKS)
 @pytest.mark.parametrize("L,pol,state,component,p,T", OBS_CASES)
 def test_observables_kernel_matches_plain_on_card(cuda_device, L, pol, state,
-                                                  component, p, T):
+                                                  component, p, T, kick):
     rows, erow, with_x, scale = _obs_inputs(cuda_device, L, pol, component,
                                             p, T)
+    rows = _plant_u(rows, L, kick)
     if p > 0:  # the trajectories' rows differ
         assert not torch.equal(rows[0, 0], rows[0, 1])
     launches = _launched("K5")
@@ -469,12 +507,15 @@ def _with_x_mask(rows, lanes, L, every=1):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pattern", X_MASKS)
-@pytest.mark.parametrize("pol", ["x", "y", "xy", "circular_left"])
-def test_general_kernels_take_every_x_mask_on_card(cuda_device, pol,
+@pytest.mark.parametrize("pol,kick", [
+    ("x", "drive"), ("y", "drive"), ("xy", "drive"),
+    ("circular_left", "drive"), ("xy", "general"), ("x", "near_rx")])
+def test_general_kernels_take_every_x_mask_on_card(cuda_device, pol, kick,
                                                    pattern):
     """K4's forward and echo and K5 on X-mask words that reach the edges of
-    the kick's mask word, on drives whose slot U has no zero entry, against
-    their plain versions at L = 17 and 23 (probes q = L - 1 and a)."""
+    the kick's mask word, on every kick kind (RX, RY, both in one launch,
+    and a planted general U in the same rows), against their plain versions
+    at L = 17 and 23 (probes q = L - 1 and a)."""
     T = 3
     for L in (17, 23):
         a = L - L // 2
@@ -486,22 +527,22 @@ def test_general_kernels_take_every_x_mask_on_card(cuda_device, pol,
         gen = torch.Generator(device=cuda_device).manual_seed(L)
         u = torch.rand((1, 2, 2 * T * K, L), generator=gen,
                        device=cuda_device)
-        rows = _with_x_mask(general_forward_rows(
+        rows = _plant_u(_with_x_mask(general_forward_rows(
             u[..., :T * K, :], hs[:, None], phis[:, None], angles, L=L, T=T,
-            K=K, p=0.1), lanes, L)
+            K=K, p=0.1), lanes, L), L, kick)
         k = rg.general_forward_batch(rows, L=L, T=T, q=L - 1)
         ref = rg.general_forward_batch_ref(rows, L=L, T=T, q=L - 1)
         assert float((k - ref).abs().max()) <= TOL, ("forward", L)
         ts = torch.arange(0, T + 1, device=cuda_device)
-        tiles = _with_x_mask(general_echo_rows(
+        tiles = _plant_u(_with_x_mask(general_echo_rows(
             u, ts, hs[:, None], phis[:, None], angles, L=L, T=T, K=K, p=0.1),
-            lanes, L, every=2)
+            lanes, L, every=2), L, kick, row=2)
         k = rg.general_echo_batch(tiles, L=L, q=a)
         ref = rg.general_echo_batch_ref(tiles, L=L, q=a)
         assert float((k - ref).abs().max()) <= TOL, ("echo", L)
         orows, erow, with_x, scale = _obs_inputs(cuda_device, L, pol, "full",
                                                  0.1, T)
-        orows = _with_x_mask(orows, lanes, L)
+        orows = _plant_u(_with_x_mask(orows, lanes, L), L, kick)
         k = obs.observables_forward_batch(orows, erow, L=L, T=T,
                                           with_x=with_x)
         ref = obs.observables_forward_batch_ref(orows, erow, L=L, T=T,

@@ -8,6 +8,8 @@ is compared with these plain versions on the card by
 ``test_torch_kernels_cuda.py``.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,9 +23,13 @@ from dtc_tpu.ops.pallas_resident_general import (
     general_forward_batch as j_forward,
 )
 from dtc_tpu.ops.pallas_resident_general import slot_u8 as j_slot_u8
+from dtc_tpu_torch.experiments import energy, engine
 from dtc_tpu_torch.models.drives import build_kick_schedule
+from dtc_tpu_torch.models.noise import NoiseSpec
+from dtc_tpu_torch.ops import observables as obs
 from dtc_tpu_torch.ops import resident_general as rg
 from dtc_tpu_torch.ops.params_general import (
+    KICK_KINDS,
     LANE_COUNT,
     LANE_MPOS,
     LANE_U8,
@@ -31,9 +37,11 @@ from dtc_tpu_torch.ops.params_general import (
     general_echo_rows,
     general_forward_rows,
     general_hi_width,
+    kick_kind,
     slot_u8,
 )
 from dtc_tpu_torch.utils import profiling
+from dtc_tpu_torch.utils.config import SimConfig
 
 torch.set_num_threads(2)
 
@@ -224,3 +232,126 @@ def test_rows_hold_one_u_and_a_binary_x_mask(L, pol):
             want = u8[k] if k < t else u8i[2 * t - 1 - k].flip(0)
             got = _u_lanes(pre[..., i, k * K:(k + 1) * K, :], L)
             assert torch.equal(got, want.expand_as(got)), (t, k)
+
+
+@pytest.mark.parametrize("g", [0.97, 1.0, 0.5, 0.0])
+@pytest.mark.parametrize("pol", DRIVES)
+def test_every_drive_slot_is_an_rx_or_an_ry(pol, g):
+    """The kick kind the kernels choose from a step's U (``load_kick``,
+    ``csrc/floquet_lab.cuh``; ``kick_kind`` on the host): every slot of
+    every drive, forward and inverse, is a pure RX or RY with exact f32
+    zeros, never general, at g = 1.0 too and where circular's sine is zero
+    (t = 0): a slot with no y angle is an RX (the identity, both angles
+    zero, among them), any other an RY."""
+    angles = build_kick_schedule(pol, g, 50).angles
+    want = torch.where(angles[..., 1] == 0, 0, 1)
+    assert bool((angles[..., 0] == 0).logical_or(angles[..., 1] == 0).all())
+    for inverse in (False, True):
+        kinds = kick_kind(slot_u8(angles[..., 0], angles[..., 1],
+                                  inverse=inverse))
+        assert torch.equal(kinds, want), inverse
+
+
+@pytest.mark.parametrize("u", ["both_angles", "near_rx_0", "near_rx_1",
+                               "near_rx_2", "near_rx_3", "near_rx_4",
+                               "near_rx_5", "near_rx_6", "near_rx_7",
+                               "near_ry_1"])
+def test_any_other_u_is_general(u):
+    """A U with both angles non-zero (no zero entry), and an RX (or RY) off
+    by one lane, take the general 2x2."""
+    if u == "both_angles":
+        u8 = slot_u8(torch.tensor(0.9), torch.tensor(0.6))
+        assert bool((u8 != 0).all())
+    else:
+        rx = u.startswith("near_rx")
+        u8 = slot_u8(torch.tensor(2.0 if rx else 0.0),
+                     torch.tensor(0.0 if rx else 2.0))
+        assert int(kick_kind(u8)) == (0 if rx else 1)
+        u8[int(u[-1])] += 1e-3
+    assert KICK_KINDS[int(kick_kind(u8))] == "general"
+
+
+# The device rule that ``kick_kind`` states on the host (``load_kick``'s
+# ``kick_kind``, ``csrc/floquet_lab.cuh``), whitespace made single.
+LOAD_KICK_RULE = [
+    "const bool diag = u.a00.x == u.a11.x;",
+    "if (u.a01.x == 0.0f && u.a10.x == 0.0f && u.a00.y == 0.0f && "
+    "u.a11.y == 0.0f && diag && u.a01.y == u.a10.y) { return kKickRx; }",
+    "if (u.a00.y == 0.0f && u.a01.y == 0.0f && u.a10.y == 0.0f && "
+    "u.a11.y == 0.0f && diag && u.a01.x == -u.a10.x) { return kKickRy; }",
+    "return kKickGeneral;",
+    "return {mat, m, kick_kind(mat)};"]
+
+
+@pytest.mark.parametrize("snippet", LOAD_KICK_RULE)
+def test_host_kind_rule_is_load_kicks(snippet):
+    """The header still holds the rule ``kick_kind`` mirrors."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "dtc_tpu_torch", "csrc", "floquet_lab.cuh")
+    with open(path) as f:
+        assert snippet in " ".join(f.read().split())
+
+
+def _kinds_run(rows, n_steps, L):
+    """{kind: steps} of the U lanes of the first ``n_steps`` rows of each
+    batch (n_steps an int, or a tensor of one count a batch)."""
+    fo = flag_base(L) + LANE_U8
+    kinds = kick_kind(rows[..., fo:fo + 8]).reshape(-1, rows.shape[-2])
+    n = torch.as_tensor(n_steps).expand(kinds.shape[0])[:, None]
+    run = torch.arange(kinds.shape[1])[None] < n
+    return {name: int(((kinds == i) & run).sum())
+            for i, name in enumerate(KICK_KINDS)}
+
+
+@pytest.mark.parametrize("study", ["forward", "echo", "energy"])
+def test_kick_counter_counts_the_steps_run(study, monkeypatch):
+    """``profiling.KICKS``, counted on the host from the schedule, holds the
+    steps that the entries' rows run, by the kind of each row's U: the xy
+    forward and echo at L = 14 (K4's plain versions: rx and ry, no
+    general), and the x energy study (K5's: rx only)."""
+    L, T = 14, 3
+    pol = "x" if study == "energy" else "xy"
+    cfg = SimConfig(L=L, tf=T, inst=2, n_trajectories=2, noise_prob=0.1,
+                    polarization=pol)
+    hs, phis = _disorder(L)
+    hs, phis = np.repeat(hs, 2, 0), np.repeat(phis, 2, 0)
+    seen = []
+
+    def wrap(mod, name, kicks):
+        """Record the kinds of the kick rows ``kicks(rows)`` gives (the
+        rows, the steps each batch runs) of every call of the entry."""
+        fn = getattr(mod, name)
+
+        def recorded(rows, *args, **kwargs):
+            seen.append(_kinds_run(*kicks(rows), L))
+            return fn(rows, *args, **kwargs)
+        monkeypatch.setattr(mod, name, recorded)
+
+    def forward(rows):
+        return rows, (T - 1) * (rows.shape[-2] // T)
+
+    def echo(tiles):  # the pre rows, COUNT = 2tK steps a pair
+        count = tiles[..., 0, flag_base(L) + LANE_COUNT]
+        return tiles[..., 0::2, :], count.reshape(-1).to(torch.int64)
+
+    wrap(rg, "general_forward_batch", forward)
+    wrap(rg, "general_echo_batch", echo)
+    wrap(obs, "observables_forward_batch", forward)
+    profiling.reset_counters()
+    if study == "energy":
+        energy.run_energy(cfg, hs, phis, nprobs=(0.0, 0.1), device="cpu",
+                          write=False)
+        kid = "K5"
+    else:
+        sched, params, _ = engine.build_context(cfg, hs, phis, device="cpu")
+        sweep = engine.forward_sweep if study == "forward" else \
+            engine.echo_sweep
+        sweep(cfg, sched, params, NoiseSpec(p=0.1))
+        kid = f"K4.{study}"
+    want = {name: sum(s[name] for s in seen) for name in KICK_KINDS}
+    got = profiling.KICKS[profiling.ENTRY + kid]
+    assert seen and dict(got) == want
+    assert got["general"] == 0 and got["rx"] > 0
+    assert (got["ry"] > 0) == (pol == "xy")
+    assert list(profiling.KICKS) == [profiling.ENTRY + kid]
+
