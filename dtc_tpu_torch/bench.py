@@ -5,7 +5,8 @@ trajectories, p=0.05, g=0.97, vacuum, probe q = L//2), the same metric name
 and ``vs_baseline`` (value / 1000), and the same per-repetition validation
 (A(0) = (1-p)^6 within 1e-3, |A| <= 1 + 1e-3, all finite). It times the
 engine's ``_forward_batch``, noise sampling included, and adds the device
-name. It runs on CUDA only: a missing card fails, it does not time the CPU.
+name. It routes once (``ops/routes.py::sweep_route``), as a sweep does.
+It runs on CUDA only: a missing card fails, it does not time the CPU.
 
 Run: ``python -m dtc_tpu_torch bench``. Prints ONE JSON line.
 """
@@ -22,6 +23,7 @@ from dtc_tpu_torch.core.sigma_evolve import draw_uniforms
 from dtc_tpu_torch.experiments.engine import _forward_batch, resolve_device
 from dtc_tpu_torch.io.disorder import generate_disorder
 from dtc_tpu_torch.models.drives import build_kick_schedule
+from dtc_tpu_torch.ops.routes import sweep_route
 
 G = 0.97
 N_REP, N_GROUPS = 3, 5  # dispatches per timing group, groups per median
@@ -37,8 +39,12 @@ def run_case(L, T, p, n_traj, *, device="cuda"):
     hs_t = torch.as_tensor(hs[:, :L], device=dev)
     phis_t = torch.as_tensor(phis[:, :L - 1], device=dev)
     af = (1 - p) ** 6
-    kw = dict(L=L, T=T, K=1, p=p, q=L // 2, initial_state="vacuum",
-              dtype_name="complex64", ancilla_factor=af)
+    route, theta = sweep_route(sched.angles, L=L, T=T, q=L // 2,
+                               dtype_name="complex64", has_y=False,
+                               echo=False)
+    kw = dict(route=route, theta=theta, L=L, T=T, K=1, p=p, q=L // 2,
+              initial_state="vacuum", dtype_name="complex64",
+              ancilla_factor=af)
 
     def dispatch(seed):
         gen = torch.Generator(device=dev).manual_seed(seed)

@@ -52,10 +52,8 @@ from dtc_tpu_torch.core.sigma_evolve import (
     xor_scan,
 )
 from dtc_tpu_torch.core.statevector import basis_index
-from dtc_tpu_torch.experiments.engine import engine_for
 from dtc_tpu_torch.models.drives import slot_unitary, slot_unitary_inverse
-from dtc_tpu_torch.ops import resident, resident_blocked, resident_general
-from dtc_tpu_torch.ops import streamed
+from dtc_tpu_torch.ops import resident_general
 from dtc_tpu_torch.ops.diag import z_sign_mask, zz_z_phase_mask
 from dtc_tpu_torch.ops.kick import apply_uniform_1q_layer, kron_power
 from dtc_tpu_torch.ops.params import (
@@ -74,13 +72,7 @@ from dtc_tpu_torch.ops.paulis import (
     sample_bond_depolarizing_codes,
     sample_depolarizing_codes,
 )
-
-X_ROUTES = {"resident": (resident.resident_forward_batch,
-                         resident.resident_echo_batch),
-            "blocked": (resident_blocked.blocked_forward_batch,
-                        resident_blocked.blocked_echo_batch),
-            "streamed": (streamed.streamed_forward_batch,
-                         streamed.streamed_echo_batch)}
+from dtc_tpu_torch.ops.routes import ROUTES, engine_for, x_route
 
 
 def n_bonds(L: int) -> tuple[int, int]:
@@ -467,12 +459,13 @@ def device_sigma_echo_batch(hs, phis, p_1q, p_2q, angles, uniforms, ts, *,
 
 
 def _x_route(angles, L, T, q, echo):
+    """The x-family route (``ops/routes.py::ROUTES``) of the shape."""
     route = engine_for(angles, L=L, T=T, q=q, dtype_name="complex64",
                        has_y=False, echo=echo)
-    if route not in X_ROUTES:
+    if not x_route(route):
         raise ValueError(f"no x kernel takes device rows at L={L}, T={T}, "
                          f"q={q} (route {route!r})")
-    return route
+    return ROUTES[route]
 
 
 def device_forward_rows(uniforms, hs, phis, p_1q, p_2q, *, L, epk):
@@ -496,13 +489,10 @@ def device_kernel_forward_batch(hs, phis, p_1q, p_2q, angles, uniforms, *, L,
     route = _x_route(angles, L, T, q, echo=False)
     rows, sig = device_forward_rows(uniforms, hs, phis, p_1q, p_2q, L=L,
                                     epk=events_per_kick)
-    kw = dict(L=L, q=q, initial_state=initial_state,
-              ancilla_factor=ancilla_factor)
-    if route == "resident":
-        return resident.resident_forward_batch(rows, sig, angles.to(hs.device),
-                                               time_dependent=False, **kw)
-    theta = float(angles[0, 0, 0])
-    return X_ROUTES[route][0](rows.contiguous(), sig, theta, **kw)
+    return route.x_entry(False, rows.contiguous(), sig, angles.to(hs.device),
+                         float(angles[0, 0, 0]), L=L, q=q,
+                         initial_state=initial_state,
+                         ancilla_factor=ancilla_factor)
 
 
 def device_echo_pair_tiles(uniforms, ts, hs, phis, p_1q, p_2q, *, L, T, epk,
@@ -564,12 +554,10 @@ def device_kernel_echo_batch(hs, phis, p_1q, p_2q, angles, uniforms, ts, *,
     route = _x_route(angles, L, T, q, echo=True)
     tiles, sig = device_echo_pair_tiles(uniforms, ts, hs, phis, p_1q, p_2q,
                                         L=L, T=T, epk=events_per_kick)
-    kw = dict(L=L, q=q, initial_state=initial_state,
-              ancilla_factor=ancilla_factor)
-    if route == "resident":
-        return resident.resident_echo_batch(tiles, sig, angles.to(hs.device),
-                                            time_dependent=False, **kw)
-    return X_ROUTES[route][1](tiles, sig, float(angles[0, 0, 0]), **kw)
+    return route.x_entry(True, tiles, sig, angles.to(hs.device),
+                         float(angles[0, 0, 0]), L=L, q=q,
+                         initial_state=initial_state,
+                         ancilla_factor=ancilla_factor)
 
 
 # ---------------------------------------------------------------------------

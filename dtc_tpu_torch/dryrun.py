@@ -26,7 +26,7 @@ largest power of two that divides n, and checks:
    launch is held to the kernels' grid limit
    (``resident_blocked.MAX_LAUNCH``) and to the byte rule of
    ``sharded._launch_traj``: 16 bytes a shard amplitude, times the shards
-   of the group on one device, within ``engine.KERNEL_STATE_BYTES`` (or
+   of the group on one device, within ``routes.KERNEL_STATE_BYTES`` (or
    one trajectory); the launches of a shard cover its group.
 
 The reference's device-row checks are not repeated here: on the card
@@ -45,12 +45,12 @@ from collections import Counter
 
 import torch
 
-from dtc_tpu_torch.experiments.engine import KERNEL_STATE_BYTES
 from dtc_tpu_torch.experiments.sharded_run import forward_plan
 from dtc_tpu_torch.io.disorder import generate_disorder
 from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.models.hamiltonian import hamiltonian_terms
 from dtc_tpu_torch.ops.resident_blocked import MAX_LAUNCH
+from dtc_tpu_torch.ops.routes import KERNEL_STATE_BYTES
 from dtc_tpu_torch.parallel import sharded as sh
 from dtc_tpu_torch.parallel.mesh import amp_bits, logical_devices, make_mesh
 from dtc_tpu_torch.utils.config import SimConfig

@@ -60,8 +60,6 @@ from dtc_tpu_torch.core.statevector import initial_statevector
 from dtc_tpu_torch.experiments.engine import (
     _echo_batch,
     _forward_batch,
-    engine_for,
-    kernel_chunks,
     resolve_device,
 )
 from dtc_tpu_torch.io import csvio, naming
@@ -69,6 +67,7 @@ from dtc_tpu_torch.io.disorder import get_disorder
 from dtc_tpu_torch.models.drives import build_kick_schedule, n_kick_slots
 from dtc_tpu_torch.models.noise import NoiseSpec
 from dtc_tpu_torch.ops.diag import z_sign_mask, zz_z_phase_mask
+from dtc_tpu_torch.ops.routes import engine_for, kernel_chunks, sweep_route
 from dtc_tpu_torch.utils.validation import guard
 
 log = logging.getLogger("dtc_tpu_torch")
@@ -257,21 +256,22 @@ class KernelAdaptiveStepper:
 
     def _angles(self, g_schedule, echo: bool):
         """The schedule of ``g_schedule`` on the host (the engine moves it
-        to the device); logs the first call of each engine route."""
+        to the device) and its route (``sweep_route``); logs the first call
+        of each engine route."""
         angles = build_kick_schedule(
             self.cfg.polarization,
             torch.as_tensor(g_schedule, dtype=torch.float64), self.T + 1,
             circular_frequency=self.cfg.circular_frequency,
             xy_cycle_period=self.cfg.xy_cycle_period).angles
         kw = self._kw
-        engine = engine_for(angles, L=kw["L"], T=kw["T"], q=kw["q"],
-                            dtype_name=kw["dtype_name"], has_y=kw["has_y"],
-                            echo=echo)
-        if engine not in self._logged:
-            self._logged.add(engine)
-            log.info("adaptive_sweep: engine=%s pol=%s L=%d T=%d", engine,
+        routed = sweep_route(angles, L=kw["L"], T=kw["T"], q=kw["q"],
+                             dtype_name=kw["dtype_name"], has_y=kw["has_y"],
+                             echo=echo)
+        if routed[0] not in self._logged:
+            self._logged.add(routed[0])
+            log.info("adaptive_sweep: engine=%s pol=%s L=%d T=%d", routed[0],
                      self.cfg.polarization, kw["L"], kw["T"])
-        return angles
+        return angles, routed
 
     def reset(self):
         self._g[:] = self.cfg.g
@@ -283,7 +283,7 @@ class KernelAdaptiveStepper:
 
     def forward_value(self, states) -> float:
         vals = _batch_values(self._h, self._ph,
-                             self._angles(self._g, echo=False), self._u_f,
+                             *self._angles(self._g, echo=False), self._u_f,
                              self._kw)
         return float(vals[0, :, states].mean())
 
@@ -293,7 +293,7 @@ class KernelAdaptiveStepper:
         g_full[: len(g_schedule)] = g_schedule
         g_full[t_next - 1] = g_last
         vals = _batch_values(self._h, self._ph,
-                             self._angles(g_full, echo=True), self._u_e,
+                             *self._angles(g_full, echo=True), self._u_e,
                              self._kw, ts=torch.tensor([t_next],
                                                        device=self.device))
         return float(vals[0, :, 0].mean())
@@ -375,17 +375,21 @@ def _folder(cfg, out_dir):
     return out_dir or f"controlled-autocorr_data_L{cfg.L}"
 
 
-def _batch_values(h, ph, angles, uniforms, kw, ts=None) -> np.ndarray:
+def _batch_values(h, ph, angles, routed, uniforms, kw,
+                  ts=None) -> np.ndarray:
     """One instance's forward values (1, n_traj, T), or with ``ts`` its echo
-    values (1, n_traj, len(ts)), in launches of at most
-    ``engine.launch_states`` states (``kernel_chunks``: t values kept
+    values (1, n_traj, len(ts)), on the route ``routed`` (``sweep_route``'s
+    (route, theta) of ``angles``), in launches of at most
+    ``routes.launch_states`` states (``kernel_chunks``: t values kept
     together first, then trajectories)."""
     n_traj = kw["n_traj"]
     _, chunk, t_chunk = kernel_chunks(1, n_traj, 1 if ts is None else len(ts),
                                       kw["L"])
+    route, theta = routed
     parts = []
     for d in range(0, n_traj, chunk):
-        sub = dict(kw, n_traj=min(chunk, n_traj - d))
+        sub = dict(kw, n_traj=min(chunk, n_traj - d), route=route,
+                   theta=theta)
         u = None if uniforms is None else uniforms[:, d:d + chunk]
         if ts is None:
             parts.append(_forward_batch(h, ph, angles, u, **sub).cpu().numpy())
@@ -569,12 +573,13 @@ def run_fixed_g(cfg, hs, phis, g_value=None, *, device="cuda") -> dict:
               initial_state=cfg.initial_state, dtype_name=cfg.dtype,
               ancilla_factor=af, has_y=cfg.polarization != "x",
               n_traj=n_traj)
-    route = dict(L=cfg.L, T=T + 1, q=cfg.probe_qubit, dtype_name=cfg.dtype,
+    shape = dict(L=cfg.L, T=T + 1, q=cfg.probe_qubit, dtype_name=cfg.dtype,
                  has_y=kw["has_y"])
+    routed = {echo: sweep_route(sched.angles, echo=echo, **shape)
+              for echo in (False, True)}
     for sweep, echo in (("forward", False), ("echo", True)):
         log.info("fixed_g_%s_sweep: engine=%s pol=%s L=%d T=%d g=%s", sweep,
-                 engine_for(sched.angles, echo=echo, **route),
-                 cfg.polarization, cfg.L, T + 1, g)
+                 routed[echo][0], cfg.polarization, cfg.L, T + 1, g)
     ts = torch.arange(1, T + 1, device=dev)
     fwd = np.zeros((cfg.inst, T))
     ech = np.zeros((cfg.inst, T))
@@ -585,10 +590,12 @@ def run_fixed_g(cfg, hs, phis, g_value=None, *, device="cuda") -> dict:
                                     ((steps, cfg.L), (2 * steps, cfg.L)), dev)
                   if p > 0 else (None, None))
         f = guard("fixed_g_forward", _batch_values(
-            h, ph, sched.angles, uf, kw), bound=1.0).mean(axis=1)[0]
+            h, ph, sched.angles, routed[False], uf, kw),
+            bound=1.0).mean(axis=1)[0]
         fwd[i] = f[1:]  # row t = A(t+1)
         ech[i] = guard("fixed_g_echo", _batch_values(
-            h, ph, sched.angles, ue, kw, ts=ts), bound=1.0).mean(axis=1)[0]
+            h, ph, sched.angles, routed[True], ue, kw, ts=ts),
+            bound=1.0).mean(axis=1)[0]
     return {"forward": fwd, "echo": ech}
 
 
@@ -616,12 +623,13 @@ def run_adaptive_batch(cfg, hs=None, phis=None, *, device="cuda",
     kw = dict(L=cfg.L, T=T, K=1, p=p, q=cfg.probe_qubit,
               initial_state=cfg.initial_state, dtype_name=cfg.dtype,
               ancilla_factor=af, has_y=False, n_traj=n_traj)
-    route = dict(L=cfg.L, T=T, q=cfg.probe_qubit, dtype_name=cfg.dtype,
+    shape = dict(L=cfg.L, T=T, q=cfg.probe_qubit, dtype_name=cfg.dtype,
                  has_y=False)
     ts = torch.arange(1, T + 1, device=dev)
     g0 = np.full(T, cfg.g)
+    echo_routed = sweep_route(schedule_angles(g0), echo=True, **shape)
     log.info("adaptive_batch_echo_sweep: engine=%s pol=x L=%d T=%d",
-             engine_for(schedule_angles(g0), echo=True, **route), cfg.L, T)
+             echo_routed[0], cfg.L, T)
     all_fwd, all_echo, all_g = [], [], []
     for i in range(cfg.inst):
         h, ph = _row(hs[i], cfg.L, dev), _row(phis[i], cfg.L - 1, dev)
@@ -630,15 +638,16 @@ def run_adaptive_batch(cfg, hs=None, phis=None, *, device="cuda",
                          if p > 0 else (None, None))
         # echo pass with the initial schedule: echo_vals[t] = A0(t+1)
         echo_vals = guard("adaptive_batch_echo", _batch_values(
-            h, ph, schedule_angles(g0), u_echo, kw, ts=ts),
+            h, ph, schedule_angles(g0), echo_routed, u_echo, kw, ts=ts),
             bound=1.0).mean(axis=1)[0]
         adj = adjust_g_schedule(echo_vals, g0, cfg.target_echo,
                                 cfg.feedback_gain, cfg.g_min, cfg.g_max)
         angles = schedule_angles(adj)
+        routed = sweep_route(angles, echo=False, **shape)
         log.info("adaptive_batch_forward_sweep: engine=%s pol=x L=%d T=%d",
-                 engine_for(angles, echo=False, **route), cfg.L, T)
+                 routed[0], cfg.L, T)
         fwd_vals = guard("adaptive_batch_forward", _batch_values(
-            h, ph, angles, u_fwd, kw), bound=1.0).mean(axis=1)[0]
+            h, ph, angles, routed, u_fwd, kw), bound=1.0).mean(axis=1)[0]
         all_fwd.append(fwd_vals)
         all_echo.append(echo_vals)
         all_g.append(adj)

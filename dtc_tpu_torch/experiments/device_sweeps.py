@@ -8,7 +8,7 @@ contractions ride ``ancilla_factor``. The engine choice
 ``DTC_TPU_DEVICE_ENGINE`` (read by each sweep, as the reference reads it;
 also the ``device_engine=`` keyword) is ``auto``, ``sigma`` or ``kernel``.
 
-Routes follow the port's tiers (``experiments/engine.py::engine_for``), not
+Routes follow the port's tiers (``ops/routes.py::engine_for``), not
 the reference's v5e ones. Under ``auto`` and ``kernel`` the device rows
 (``core/device_evolve.py``) go to the kernel that ``engine_for`` picks for
 the shape, in complex64 or not (the reference's device kernel routes do not
@@ -45,13 +45,9 @@ import numpy as np
 import torch
 
 from dtc_tpu_torch.core import device_evolve as de
-from dtc_tpu_torch.experiments.engine import (
-    ECHO_SALT,
-    engine_for,
-    kernel_chunks,
-    traj_chunks,
-)
+from dtc_tpu_torch.experiments.engine import ECHO_SALT, traj_chunks
 from dtc_tpu_torch.models.device_noise import fake_device_model
+from dtc_tpu_torch.ops.routes import engine_for, kernel_chunks, x_route
 from dtc_tpu_torch.parallel.mesh import make_mesh
 from dtc_tpu_torch.parallel.sharded import (
     make_sharded_autocorr_forward_general,
@@ -99,8 +95,7 @@ def device_route(cfg, sched, *, echo: bool, device_engine=None) -> str:
     kw = dict(L=L, T=T, q=q, dtype_name="complex64", echo=echo)
     if x_drive:
         kernel_ok = (engine in ("auto", "kernel")
-                     and engine_for(sched.angles, has_y=False, **kw)
-                     in de.X_ROUTES)
+                     and x_route(engine_for(sched.angles, has_y=False, **kw)))
         if engine == "kernel" and not kernel_ok:
             raise ValueError(
                 "the device kernel engine needs a constant x-only schedule "
@@ -210,7 +205,7 @@ def device_echo_sweep(cfg, sched, params, *, uniforms=None,
                       device_engine=None, t_chunk: int = 8) -> np.ndarray:
     """Device-noise echo A0(t) per instance, trajectory-averaged: (inst, T).
     The kernel routes take at most ``t_chunk`` t values per launch, fewer
-    where a launch holds fewer states (``engine.launch_states``)."""
+    where a launch holds fewer states (``routes.launch_states``)."""
     hs, phis = params
     dev = hs.device
     L, T, K, q = cfg.L, cfg.tf, sched.K, cfg.probe_qubit

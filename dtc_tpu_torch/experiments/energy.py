@@ -43,8 +43,6 @@ from dtc_tpu_torch.core.statevector import initial_statevector
 from dtc_tpu_torch.experiments.engine import (
     _sweep_uniforms,
     build_context,
-    kick_schedule,
-    launch_states,
     traj_chunks,
 )
 from dtc_tpu_torch.io import csvio, naming
@@ -52,12 +50,10 @@ from dtc_tpu_torch.io.disorder import get_disorder
 from dtc_tpu_torch.models.hamiltonian import hamiltonian_terms
 from dtc_tpu_torch.ops import observables
 from dtc_tpu_torch.ops.diag import zz_z_diag_energy
-from dtc_tpu_torch.ops.params_general import (
-    forward_kick_steps,
-    general_forward_rows,
-)
+from dtc_tpu_torch.ops.params_general import general_forward_rows
+from dtc_tpu_torch.ops.routes import launch_states
 from dtc_tpu_torch.utils.checkpoints import SweepJournal
-from dtc_tpu_torch.utils.profiling import count_kicks, phase_timer, span
+from dtc_tpu_torch.utils.profiling import phase_timer, span
 from dtc_tpu_torch.utils.validation import guard
 
 log = logging.getLogger("dtc_tpu_torch")
@@ -97,13 +93,11 @@ def energy_engine(cfg, K: int) -> str:
 
 
 def _sweep(cfg, hs, phis, device, uniforms):
-    """(schedule, (hs, phis), uniform block, the schedule's angles built on
-    the CPU) of one run; the CPU copy is what the batches count their kick
-    kinds from (``profiling.KICKS``), with no copy from the device."""
+    """(schedule, (hs, phis), uniform block) of one run."""
     sched, params, _ = build_context(cfg, hs, phis, device=device)
     shape = (cfg.inst, cfg.n_trajectories, cfg.tf * sched.K, cfg.L)
     u = _sweep_uniforms(uniforms, shape, cfg.seed, params[0].device)
-    return sched, params, u, kick_schedule(cfg).angles
+    return sched, params, u
 
 
 def obs_chunk(n_traj: int, L: int, inst: int) -> int:
@@ -143,7 +137,7 @@ def _eager_batch(cfg, sched, hs, phis, th, tph, x_coeff, u, c, p):
 def _energy_single_noise(cfg, sweep, p: float, component: str = "full"):
     """(inst, T) energies and (inst, T, L) per-qubit Z, averaged over the
     trajectories (one at p == 0)."""
-    sched, (hs, phis), u_all, host = sweep
+    sched, (hs, phis), u_all = sweep
     L, T = cfg.L, cfg.tf
     with span("dtc.feed.energy_terms"):
         terms = [hamiltonian_terms(L, cfg.g, hs[i], phis[i], component)
@@ -168,9 +162,6 @@ def _energy_single_noise(cfg, sweep, p: float, component: str = "full"):
             c = min(chunk, n_traj - done)
             u = u_all[:, done:done + c] if p > 0 else None
             e, zs = batch(cfg, sched, hs, phis, th, tph, x_coeff, u, c, p)
-            if engine == "obs":
-                count_kicks("K5", forward_kick_steps(host, T,
-                                                     cfg.inst * c))
             acc_e += guard("energy_batch", e.sum(dim=1).cpu().numpy())
             acc_z += guard("perqubit_z_batch", zs.sum(dim=1).cpu().numpy(),
                            bound=float(c))

@@ -60,12 +60,13 @@ from dtc_tpu_torch.experiments.energy import (
     _refuse_fakebackend,
     apply_estimator_noise,
 )
-from dtc_tpu_torch.experiments.engine import ECHO_SALT, constant_x_theta
+from dtc_tpu_torch.experiments.engine import ECHO_SALT
 from dtc_tpu_torch.io import csvio, naming
 from dtc_tpu_torch.io.disorder import get_disorder
 from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.models.hamiltonian import hamiltonian_terms
 from dtc_tpu_torch.models.noise import NoiseSpec
+from dtc_tpu_torch.ops.routes import constant_x_theta
 from dtc_tpu_torch.parallel.mesh import amp_bits, make_mesh, visible_devices
 from dtc_tpu_torch.parallel.sharded import (
     _launch_traj,

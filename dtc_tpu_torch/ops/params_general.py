@@ -83,37 +83,6 @@ def kick_kind(u8) -> torch.Tensor:
     return torch.where(rx, 0, torch.where(ry, 1, 2))
 
 
-def _kind_steps(kinds, states: int) -> dict:
-    return {name: states * int((kinds == i).sum())
-            for i, name in enumerate(KICK_KINDS)}
-
-
-def forward_kick_steps(angles, T: int, states: int) -> dict:
-    """{kind: lab-frame steps} of a forward batch of ``states`` trajectories
-    on the (T, K, 2) schedule ``angles`` (a host copy): each runs the K
-    slots of cycles 0 .. T-2, the steps whose results are measured (K4's
-    and K10's forward, K5)."""
-    a = angles[:T - 1]
-    return _kind_steps(kick_kind(slot_u8(a[..., 0], a[..., 1])), states)
-
-
-def echo_kick_steps(angles, ts, states: int) -> dict:
-    """{kind: lab-frame steps} of an echo batch on the (T, K, 2) schedule
-    ``angles`` (a host copy): ``states`` pairs at each t of ``ts`` (host
-    ints), each running the K slots of cycles 0 .. t-1, then their
-    daggers (2tK steps)."""
-    kinds = torch.stack([kick_kind(slot_u8(angles[..., 0], angles[..., 1],
-                                           inverse=inv))
-                         for inv in (False, True)])          # (2, T, K)
-    per_cycle = torch.stack([(kinds == i).sum((0, 2))
-                             for i in range(len(KICK_KINDS))], -1)
-    upto = torch.cat([per_cycle.new_zeros((1, len(KICK_KINDS))),
-                      per_cycle.cumsum(0)])          # (T + 1, kinds)
-    total = upto[list(ts)].sum(0)
-    return {name: states * int(total[i])
-            for i, name in enumerate(KICK_KINDS)}
-
-
 def _noise_masks(uniforms, p, L, shape, dev):
     """(xm, zm) int64 of the codes drawn from ``uniforms`` (..., L); zeros
     of ``shape`` when p == 0."""

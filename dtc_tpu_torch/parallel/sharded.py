@@ -40,7 +40,7 @@ of a trajectory group are separate tensors that may sit on different
 cards, and the local rows are the same on every shard, so a launch holds
 the group's trajectories of one shard, in runs of at most
 ``_launch_traj(mesh, L_loc)`` trajectories so that the shard states of a
-run that share one device stay within ``engine.KERNEL_STATE_BYTES`` through
+run that share one device stay within ``routes.KERNEL_STATE_BYTES`` through
 the out-of-place exchange (one trajectory at L_loc = 29 and 30 with a card
 a shard). The observables engine runs its trajectories in runs of
 ``_launch_traj(mesh, L_loc, OBS_AMP_BYTES)`` under the same budget. The
@@ -92,7 +92,6 @@ from dtc_tpu_torch.core.sigma_evolve import (
     xor_scan,
 )
 from dtc_tpu_torch.core.statevector import basis_index
-from dtc_tpu_torch.experiments.engine import KERNEL_STATE_BYTES
 from dtc_tpu_torch.models.drives import slot_unitary, slot_unitary_inverse
 from dtc_tpu_torch.ops import cycle, cycle_hi
 from dtc_tpu_torch.ops.diag import zz_z_diag_energy, zz_z_phase_mask
@@ -105,6 +104,7 @@ from dtc_tpu_torch.ops.params_general import (
     general_hi_width,
 )
 from dtc_tpu_torch.ops.paulis import _i_power, _parity, pauli_string_masks
+from dtc_tpu_torch.ops.routes import KERNEL_STATE_BYTES
 from dtc_tpu_torch.parallel.mesh import amp_bits
 
 _HALF_PI = math.pi / 2

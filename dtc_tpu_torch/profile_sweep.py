@@ -19,7 +19,7 @@ Above K1/K2's range (L >= 24, the streamed x family, and for the other
 drives the streamed lab-frame family) a whole echo sweep takes minutes, so
 ``echo_chunk`` traces one launch of it instead: its last (t values
 T-k..T-1, the longest trip counts, k and the trajectories as
-``engine.kernel_chunks`` sizes them for one instance); there is no energy
+``routes.kernel_chunks`` sizes them for one instance); there is no energy
 trace (the energy route is the eager engine there). The x forwards (K1,
 K3a and the streamed family) and the lab-frame forwards (K4, K10) run the
 step passes of K2, K3b and K4's echo (``echo_lo_kernel``,
@@ -57,12 +57,11 @@ from dtc_tpu_torch.experiments.engine import (
     _forward_batch,
     build_context,
     echo_sweep,
-    engine_for,
-    kernel_chunks,
     resolve_device,
 )
 from dtc_tpu_torch.io.disorder import generate_disorder
 from dtc_tpu_torch.ops import resident_blocked
+from dtc_tpu_torch.ops.routes import kernel_chunks, sweep_route
 from dtc_tpu_torch.utils.config import SimConfig
 
 P, G, INST = 0.05, 0.97, 2
@@ -152,11 +151,10 @@ def main(argv=None) -> None:
                     n_trajectories=N_TRAJ, polarization=pol)
     hs, phis = generate_disorder(L, INST, seed=0)
     sched, params, noise = build_context(cfg, hs, phis, device=dev)
-    kw = dict(L=L, T=T, K=sched.K, p=P, q=L // 2, initial_state="vacuum",
-              dtype_name="complex64", ancilla_factor=(1 - P) ** 6,
-              has_y=pol != "x")
-    engine = engine_for(sched.angles, L=L, T=T, q=L // 2,
-                        dtype_name="complex64", has_y=pol != "x", echo=False)
+    shape = dict(L=L, T=T, q=L // 2, dtype_name="complex64", has_y=pol != "x")
+    kw = dict(shape, K=sched.K, p=P, initial_state="vacuum",
+              ancilla_factor=(1 - P) ** 6)
+    engine, theta = sweep_route(sched.angles, echo=False, **shape)
 
     def forward(reps=3):
         for seed in range(reps):
@@ -164,7 +162,7 @@ def main(argv=None) -> None:
             u = draw_uniforms((1, N_TRAJ, T * sched.K, L), generator=gen,
                               device=dev)
             _forward_batch(params[0][:1], params[1][:1], sched.angles, u,
-                           **kw).cpu()
+                           route=engine, theta=theta, **kw).cpu()
 
     forward(1)  # kernel build and first launch stay out of the trace
     tag = ("" if pol == "x" else f"_{pol}") + ("" if L == 20 else f"_L{L}")
@@ -175,8 +173,10 @@ def main(argv=None) -> None:
         gen = torch.Generator(device=dev).manual_seed(0)
         u = draw_uniforms((1, c, 2 * T * sched.K, L), generator=gen,
                           device=dev)
+        route, theta = sweep_route(sched.angles, echo=True, **shape)
         traced(f"echo_chunk{tag}", lambda: _echo_batch(
-            params[0][:1], params[1][:1], sched.angles, ts, u, **kw).cpu(),
+            params[0][:1], params[1][:1], sched.angles, ts, u, route=route,
+            theta=theta, **kw).cpu(),
             args.out, engine=engine, pairs=c * n_ts,
             ts=[T - n_ts, T - 1])
         return

@@ -17,13 +17,8 @@ A span belongs to its innermost ``dtc.`` span's layer.
 ``entry(kid)`` is the span ``dtc.entry.<kid>`` of a kernel entry and the
 launch registry's one counter: each call counts once in ``CALLS`` and, on
 CUDA tensors, in ``LAUNCHES`` (the kernel route) or in ``PLAIN_ON_CUDA``
-(the plain version), keyed by the span's name. ``KICKS`` holds, under the
-same names, the lab-frame steps that the sweeps ran of each kick kind
-(``rx``, ``ry``, ``general``: the butterfly the kernels choose from the
-step's U, ``ops/params_general.py::kick_kind``), counted on the host from
-the schedule by ``count_kicks`` (the sweeps of ``experiments/engine.py``
-and ``experiments/energy.py``, either route). ``reset_counters()`` zeroes
-all four.
+(the plain version), keyed by the span's name; ``reset_counters()`` zeroes
+all three.
 
 ``phase_timer`` is a copy of ``dtc_tpu/utils/profiling.py``'s: wall
 seconds of a named phase, logged as ``phase <name> <seconds>s`` on the
@@ -37,7 +32,7 @@ import contextlib
 import functools
 import logging
 import time
-from collections import Counter, defaultdict
+from collections import Counter
 
 import torch
 
@@ -51,18 +46,11 @@ ENTRY = "dtc.entry."
 CALLS: Counter = Counter()          # entry span -> calls, either route
 LAUNCHES: Counter = Counter()       # entry span -> kernel-route calls
 PLAIN_ON_CUDA: Counter = Counter()  # entry span -> plain calls on CUDA
-KICKS: defaultdict = defaultdict(Counter)  # entry span -> kind -> steps
 
 
 def reset_counters() -> None:
-    for c in (CALLS, LAUNCHES, PLAIN_ON_CUDA, KICKS):
+    for c in (CALLS, LAUNCHES, PLAIN_ON_CUDA):
         c.clear()
-
-
-def count_kicks(kid: str, steps: dict) -> None:
-    """Add ``steps`` ({kick kind: lab-frame steps}) under the entry span
-    ``dtc.entry.<kid>``."""
-    KICKS[ENTRY + kid].update(steps)
 
 
 class span:

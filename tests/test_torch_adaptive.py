@@ -26,9 +26,10 @@ from dtc_tpu.io import csvio as j_csvio
 from dtc_tpu.io.disorder import generate_disorder
 from dtc_tpu.utils import cli as j_cli
 from dtc_tpu.utils.config import SimConfig
-from dtc_tpu_torch.experiments import adaptive, engine
+from dtc_tpu_torch.experiments import adaptive
 from dtc_tpu_torch.io import csvio
 from dtc_tpu_torch.ops import resident as rs
+from dtc_tpu_torch.ops import routes
 from dtc_tpu_torch.utils import cli
 from dtc_tpu_torch.utils import profiling
 from dtc_tpu_torch.utils.config import SimConfig as PortConfig
@@ -152,7 +153,7 @@ def test_fixed_g_in_one_state_launches_equals_unsplit(monkeypatch):
     kw = dict(KW, n_trajectories=3)
     hs, phis = _disorder(14)
     whole = adaptive.run_fixed_g(PortConfig(**kw), hs, phis, device="cpu")
-    monkeypatch.setattr(engine, "KERNEL_STATE_BYTES", 8 << 14)
+    monkeypatch.setattr(routes, "KERNEL_STATE_BYTES", 8 << 14)
     split = adaptive.run_fixed_g(PortConfig(**kw), hs, phis, device="cpu")
     for key in ("forward", "echo"):
         np.testing.assert_allclose(split[key], whole[key], atol=1e-6, rtol=0)

@@ -29,11 +29,11 @@ from dtc_tpu.parallel.sharded import (
     make_sharded_autocorr_forward_general,
     make_sharded_echo_general,
 )
-from dtc_tpu_torch.experiments import engine
 from dtc_tpu_torch.experiments.autocorr import run_autocorr
 from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.ops import cycle_hi_general as chg
 from dtc_tpu_torch.ops import resident_general as rg
+from dtc_tpu_torch.ops import routes
 from dtc_tpu_torch.ops.params_general import (
     LANE_COUNT,
     flag_base,
@@ -132,16 +132,16 @@ def test_engine_routes_large_general_drives(Lr):
         angles = build_kick_schedule(pol, 0.97, 6).angles
         kw = dict(L=Lr, T=6, q=q, has_y=True)
         for echo in (False, True):
-            assert engine.engine_for(angles, dtype_name="complex64",
+            assert routes.engine_for(angles, dtype_name="complex64",
                                      echo=echo, **kw) == want, (pol, echo)
-            assert engine.engine_for(angles, dtype_name="complex128",
+            assert routes.engine_for(angles, dtype_name="complex128",
                                      echo=echo, **kw) == "sigma"
     ramp = build_kick_schedule("x", 0.97, 6).angles.clone()
     ramp[:, 0, 0] *= torch.linspace(0.9, 1.1, 6, dtype=ramp.dtype)
-    assert engine.engine_for(ramp, L=Lr, T=6, q=q, has_y=False,
+    assert routes.engine_for(ramp, L=Lr, T=6, q=q, has_y=False,
                              dtype_name="complex64", echo=False) == want
     x = build_kick_schedule("x", 0.97, 6).angles
-    assert engine.engine_for(x, L=Lr, T=6, q=q, has_y=False,
+    assert routes.engine_for(x, L=Lr, T=6, q=q, has_y=False,
                              dtype_name="complex64", echo=False) == (
         "blocked" if Lr == 23 else "streamed")
 
@@ -149,14 +149,14 @@ def test_engine_routes_large_general_drives(Lr):
 def test_engine_keeps_k4_step_limit():
     y = build_kick_schedule("y", 0.97, rg.MAX_STEPS // 2 + 1).angles
     kw = dict(L=26, T=y.shape[0], q=13, has_y=True, dtype_name="complex64")
-    assert engine.engine_for(y, echo=False, **kw) == "general_hi"
-    assert engine.engine_for(y, echo=True, **kw) == "sigma"
+    assert routes.engine_for(y, echo=False, **kw) == "general_hi"
+    assert routes.engine_for(y, echo=True, **kw) == "sigma"
 
 
 def test_kernel_chunks_at_l29():
     """Two 4 GiB states per launch at L=29 (the 8 GiB budget)."""
-    assert engine.kernel_chunks(1, 4, 1, 29) == (1, 2, 1)
-    assert engine.kernel_chunks(2, 1, 6, 29) == (1, 1, 2)
+    assert routes.kernel_chunks(1, 4, 1, 29) == (1, 2, 1)
+    assert routes.kernel_chunks(2, 1, 6, 29) == (1, 1, 2)
 
 
 def test_sweep_split_to_one_state_equals_unsplit(monkeypatch):
@@ -179,7 +179,7 @@ def test_sweep_split_to_one_state_equals_unsplit(monkeypatch):
     whole = run_autocorr(cfg, device="cpu", write=False)
     assert max(sizes) == 8  # the echo's 2 instances x 2 trajectories x 2 t
     sizes.clear()
-    monkeypatch.setattr(engine, "KERNEL_STATE_BYTES", 8 << L)
+    monkeypatch.setattr(routes, "KERNEL_STATE_BYTES", 8 << L)
     split = run_autocorr(cfg, device="cpu", write=False)
     assert max(sizes) == 1 and len(sizes) == 4 + 2 * 4
     for k in ("autocorr_per_instance", "echo_per_instance"):

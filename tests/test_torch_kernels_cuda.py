@@ -1671,12 +1671,13 @@ def test_x_echo_past_one_launch_matches_plain_on_card(cuda_device,
     them into launches of at most MAX_LAUNCH pairs, and matches the same
     sweep through K3b's plain version on the same uniforms."""
     from dtc_tpu_torch.experiments import engine
+    from dtc_tpu_torch.ops import routes
 
     cfg = SimConfig(L=14, tf=8, inst=16, n_trajectories=512, noise_prob=0.05)
     hs, phis = generate_disorder(14, 16, seed=3)
     sched, params, noise = engine.build_context(cfg, hs, phis,
                                                 device=cuda_device)
-    assert engine.engine_for(sched.angles, L=14, T=8, q=7,
+    assert routes.engine_for(sched.angles, L=14, T=8, q=7,
                              dtype_name="complex64", has_y=False,
                              echo=True) == "resident"
     profiling.reset_counters()

@@ -2,7 +2,7 @@
 
 Every CUDA entry takes at most ``resident_blocked.MAX_LAUNCH`` (65535)
 trajectories or pairs a launch, the grid's y dimension, and
-``engine.KERNEL_STATE_BYTES`` of live states. The helpers that size the
+``routes.KERNEL_STATE_BYTES`` of live states. The helpers that size the
 launches must keep both at every L from 1 to 30: ``kernel_chunks`` with
 the arguments of each caller (the forward and echo sweeps, the device
 sweeps, the adaptive batches; t values x states for the echoes), the
@@ -17,6 +17,7 @@ import pytest
 
 from dtc_tpu_torch.experiments import engine
 from dtc_tpu_torch.experiments.energy import obs_chunk
+from dtc_tpu_torch.ops import routes
 from dtc_tpu_torch.ops.resident_blocked import MAX_LAUNCH, batch_size
 from dtc_tpu_torch.parallel import sharded as sh
 from dtc_tpu_torch.parallel.mesh import make_mesh
@@ -37,13 +38,13 @@ def test_kernel_chunks_stay_within_a_launch(L):
     for inst in (1, 2, 16, 70000):
         for n in COUNTS:
             for n_ts in (1, 8, 50, 512):
-                ic, c, ts = engine.kernel_chunks(inst, n, n_ts, L)
+                ic, c, ts = routes.kernel_chunks(inst, n, n_ts, L)
                 assert ic >= 1 and c >= 1 and ts >= 1
                 items = ic * c * ts
                 assert items <= MAX_LAUNCH, (inst, n, n_ts, ic, c, ts)
                 assert (items == 1
                         or items * _state_bytes(L)
-                        <= engine.KERNEL_STATE_BYTES)
+                        <= routes.KERNEL_STATE_BYTES)
 
 
 @pytest.mark.parametrize("L", LS)
@@ -56,11 +57,11 @@ def test_obs_and_planar_chunks_stay_within_a_launch(L):
             c = obs_chunk(n, L, inst)
             assert 1 <= c <= n and inst * c <= max(inst, MAX_LAUNCH)
             assert c == 1 or inst * c * _state_bytes(L) <= (
-                engine.KERNEL_STATE_BYTES)
+                routes.KERNEL_STATE_BYTES)
             c = engine.planar_chunk(n, L, inst)
             assert 1 <= c <= n and inst * c <= max(inst, MAX_LAUNCH)
             assert c == 1 or 2 * inst * c * _state_bytes(L) <= (
-                engine.KERNEL_STATE_BYTES)
+                routes.KERNEL_STATE_BYTES)
 
 
 @pytest.mark.parametrize("n_amp,n_traj,cards", [
@@ -79,7 +80,7 @@ def test_sharded_launches_stay_within_a_launch(n_amp, n_traj, cards):
         c = sh._launch_traj(mesh, local_bits)
         assert 1 <= c <= 4096 < MAX_LAUNCH
         assert c == 1 or 2 * c * per_device * _state_bytes(local_bits) <= (
-            engine.KERNEL_STATE_BYTES)
+            routes.KERNEL_STATE_BYTES)
 
 
 def test_the_cases_of_f1():
@@ -87,9 +88,9 @@ def test_the_cases_of_f1():
     16 instances x 512 trajectories x 8 t values at L=14, a forward of
     65536 trajectories at L=14, energy at L=14 with 2 instances x 40000
     trajectories, and the planar forward at L=10 with 100000."""
-    ic, c, ts = engine.kernel_chunks(16, 512, 8, 14)
+    ic, c, ts = routes.kernel_chunks(16, 512, 8, 14)
     assert ic * c * ts <= MAX_LAUNCH and ts == 8
-    ic, c, ts = engine.kernel_chunks(1, 65536, 1, 14)
+    ic, c, ts = routes.kernel_chunks(1, 65536, 1, 14)
     assert ic * c * ts == MAX_LAUNCH
     assert 2 * obs_chunk(40000, 14, 2) <= MAX_LAUNCH
     assert engine.planar_chunk(100000, 10, 1) == MAX_LAUNCH

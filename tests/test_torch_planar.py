@@ -26,7 +26,7 @@ from dtc_tpu.models.drives import build_kick_schedule as j_sched
 from dtc_tpu_torch.core.planar_evolve import planar_forward_batch
 from dtc_tpu_torch.experiments import engine
 from dtc_tpu_torch.models.drives import build_kick_schedule
-from dtc_tpu_torch.ops import noise_factor
+from dtc_tpu_torch.ops import noise_factor, routes
 from dtc_tpu_torch.utils import profiling
 from dtc_tpu_torch.utils.config import SimConfig
 
@@ -113,13 +113,13 @@ def test_planar_sends_other_shapes_to_sigma():
     y = build_kick_schedule("y", 0.9, 4).angles
     ramp = build_kick_schedule("x", torch.linspace(0.9, 0.95, 4), 4).angles
     kw = dict(L=20, T=4, q=10, dtype_name="complex64", engine="planar")
-    assert engine.engine_for(x, has_y=False, echo=False, **kw) == "planar"
-    assert engine.engine_for(x, has_y=False, echo=True, **kw) == "sigma"
-    assert engine.engine_for(y, has_y=True, echo=False, **kw) == "sigma"
-    assert engine.engine_for(ramp, has_y=False, echo=False, **kw) == "sigma"
-    assert engine.engine_for(x, has_y=False, echo=False,
+    assert routes.engine_for(x, has_y=False, echo=False, **kw) == "planar"
+    assert routes.engine_for(x, has_y=False, echo=True, **kw) == "sigma"
+    assert routes.engine_for(y, has_y=True, echo=False, **kw) == "sigma"
+    assert routes.engine_for(ramp, has_y=False, echo=False, **kw) == "sigma"
+    assert routes.engine_for(x, has_y=False, echo=False,
                              **{**kw, "dtype_name": "complex128"}) == "planar"
-    assert engine.engine_for(x, has_y=False, echo=False,
+    assert routes.engine_for(x, has_y=False, echo=False,
                              **{**kw, "engine": "auto"}) == "blocked"
 
 

@@ -6,7 +6,6 @@ import pytest
 import torch
 
 from dtc_tpu_torch.profile_sweep import busy_summary, short_name
-from dtc_tpu_torch.utils import profiling
 
 CUDA = torch.autograd.DeviceType.CUDA
 CPU = torch.autograd.DeviceType.CPU
@@ -64,18 +63,3 @@ def test_short_name(raw, short):
 def test_no_device_events():
     s = busy_summary([_ev("aten::add", 0, 10, CPU)])
     assert s == {"busy_ms": 0.0, "kernels": []}
-
-
-@pytest.mark.parametrize("kid", ["K4.forward", "K5"])
-def test_kick_counts_reset_with_the_registry(kid):
-    """``count_kicks`` adds each kind's steps under the entry's span, and
-    ``reset_counters`` empties them with the launch counters."""
-    profiling.reset_counters()
-    profiling.count_kicks(kid, {"rx": 4, "ry": 2, "general": 0})
-    profiling.count_kicks(kid, {"rx": 1, "ry": 0, "general": 3})
-    profiling.CALLS[profiling.ENTRY + kid] += 1
-    assert profiling.KICKS[profiling.ENTRY + kid] == {"rx": 5, "ry": 2,
-                                                      "general": 3}
-    profiling.reset_counters()
-    assert not profiling.KICKS and not profiling.CALLS
-

@@ -20,10 +20,10 @@ from dtc_tpu.models.drives import build_kick_schedule as j_sched
 from dtc_tpu.ops.pallas_resident import _kick_matrices as j_kick_matrices
 from dtc_tpu.ops.pallas_resident import resident_echo_batch as j_echo
 from dtc_tpu.ops.pallas_resident import resident_forward_batch as j_forward
-from dtc_tpu_torch.experiments.engine import engine_for
 from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.ops import resident as rs
 from dtc_tpu_torch.ops.params import echo_pair_tiles, forward_rows, kick_matrices
+from dtc_tpu_torch.ops.routes import engine_for
 from dtc_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)

@@ -23,10 +23,7 @@ from dtc_tpu.ops.pallas_resident_general import (
     general_forward_batch as j_forward,
 )
 from dtc_tpu.ops.pallas_resident_general import slot_u8 as j_slot_u8
-from dtc_tpu_torch.experiments import energy, engine
 from dtc_tpu_torch.models.drives import build_kick_schedule
-from dtc_tpu_torch.models.noise import NoiseSpec
-from dtc_tpu_torch.ops import observables as obs
 from dtc_tpu_torch.ops import resident_general as rg
 from dtc_tpu_torch.ops.params_general import (
     KICK_KINDS,
@@ -41,7 +38,6 @@ from dtc_tpu_torch.ops.params_general import (
     slot_u8,
 )
 from dtc_tpu_torch.utils import profiling
-from dtc_tpu_torch.utils.config import SimConfig
 
 torch.set_num_threads(2)
 
@@ -290,68 +286,3 @@ def test_host_kind_rule_is_load_kicks(snippet):
         __file__))), "dtc_tpu_torch", "csrc", "floquet_lab.cuh")
     with open(path) as f:
         assert snippet in " ".join(f.read().split())
-
-
-def _kinds_run(rows, n_steps, L):
-    """{kind: steps} of the U lanes of the first ``n_steps`` rows of each
-    batch (n_steps an int, or a tensor of one count a batch)."""
-    fo = flag_base(L) + LANE_U8
-    kinds = kick_kind(rows[..., fo:fo + 8]).reshape(-1, rows.shape[-2])
-    n = torch.as_tensor(n_steps).expand(kinds.shape[0])[:, None]
-    run = torch.arange(kinds.shape[1])[None] < n
-    return {name: int(((kinds == i) & run).sum())
-            for i, name in enumerate(KICK_KINDS)}
-
-
-@pytest.mark.parametrize("study", ["forward", "echo", "energy"])
-def test_kick_counter_counts_the_steps_run(study, monkeypatch):
-    """``profiling.KICKS``, counted on the host from the schedule, holds the
-    steps that the entries' rows run, by the kind of each row's U: the xy
-    forward and echo at L = 14 (K4's plain versions: rx and ry, no
-    general), and the x energy study (K5's: rx only)."""
-    L, T = 14, 3
-    pol = "x" if study == "energy" else "xy"
-    cfg = SimConfig(L=L, tf=T, inst=2, n_trajectories=2, noise_prob=0.1,
-                    polarization=pol)
-    hs, phis = _disorder(L)
-    hs, phis = np.repeat(hs, 2, 0), np.repeat(phis, 2, 0)
-    seen = []
-
-    def wrap(mod, name, kicks):
-        """Record the kinds of the kick rows ``kicks(rows)`` gives (the
-        rows, the steps each batch runs) of every call of the entry."""
-        fn = getattr(mod, name)
-
-        def recorded(rows, *args, **kwargs):
-            seen.append(_kinds_run(*kicks(rows), L))
-            return fn(rows, *args, **kwargs)
-        monkeypatch.setattr(mod, name, recorded)
-
-    def forward(rows):
-        return rows, (T - 1) * (rows.shape[-2] // T)
-
-    def echo(tiles):  # the pre rows, COUNT = 2tK steps a pair
-        count = tiles[..., 0, flag_base(L) + LANE_COUNT]
-        return tiles[..., 0::2, :], count.reshape(-1).to(torch.int64)
-
-    wrap(rg, "general_forward_batch", forward)
-    wrap(rg, "general_echo_batch", echo)
-    wrap(obs, "observables_forward_batch", forward)
-    profiling.reset_counters()
-    if study == "energy":
-        energy.run_energy(cfg, hs, phis, nprobs=(0.0, 0.1), device="cpu",
-                          write=False)
-        kid = "K5"
-    else:
-        sched, params, _ = engine.build_context(cfg, hs, phis, device="cpu")
-        sweep = engine.forward_sweep if study == "forward" else \
-            engine.echo_sweep
-        sweep(cfg, sched, params, NoiseSpec(p=0.1))
-        kid = f"K4.{study}"
-    want = {name: sum(s[name] for s in seen) for name in KICK_KINDS}
-    got = profiling.KICKS[profiling.ENTRY + kid]
-    assert seen and dict(got) == want
-    assert got["general"] == 0 and got["rx"] > 0
-    assert (got["ry"] > 0) == (pol == "xy")
-    assert list(profiling.KICKS) == [profiling.ENTRY + kid]
-

@@ -27,10 +27,10 @@ from dtc_tpu.models.drives import build_kick_schedule as j_sched
 from dtc_tpu.ops import pallas_streamed, pallas_streamed_hi
 from dtc_tpu.ops.pallas_noise import pack_cycle_params_compact as j_pack
 from dtc_tpu.ops.pallas_resident import echo_pair_tiles as j_tiles
-from dtc_tpu_torch.experiments import engine
 from dtc_tpu_torch.experiments.autocorr import run_autocorr
 from dtc_tpu_torch.models.drives import build_kick_schedule
 from dtc_tpu_torch.ops import resident_blocked as rb
+from dtc_tpu_torch.ops import routes
 from dtc_tpu_torch.ops import streamed as sm
 from dtc_tpu_torch.ops.params import (
     echo_pair_tiles,
@@ -209,18 +209,18 @@ def test_engine_routes_large_x_to_streamed(Lr):
     x = build_kick_schedule("x", 0.97, 6).angles
     kw = dict(L=Lr, T=6, q=q, has_y=False)
     for echo in (False, True):
-        assert engine.engine_for(x, dtype_name="complex64", echo=echo,
+        assert routes.engine_for(x, dtype_name="complex64", echo=echo,
                                  **kw) == "streamed"
-        assert engine.engine_for(x, dtype_name="complex128", echo=echo,
+        assert routes.engine_for(x, dtype_name="complex128", echo=echo,
                                  **kw) == "sigma"
     y = build_kick_schedule("y", 0.97, 6).angles
-    assert engine.engine_for(y, dtype_name="complex64", echo=False,
+    assert routes.engine_for(y, dtype_name="complex64", echo=False,
                              **{**kw, "has_y": True}) == (
         "sigma" if Lr == 30 else "general_hi")
     long_x = build_kick_schedule("x", 0.97, 513).angles
-    assert engine.engine_for(long_x, L=Lr, T=513, q=q, has_y=False,
+    assert routes.engine_for(long_x, L=Lr, T=513, q=q, has_y=False,
                              dtype_name="complex64", echo=True) == "sigma"
-    assert engine.engine_for(x, L=23, T=6, q=11, has_y=False,
+    assert routes.engine_for(x, L=23, T=6, q=11, has_y=False,
                              dtype_name="complex64", echo=False) == "blocked"
 
 
@@ -229,9 +229,9 @@ def test_engine_routes_large_x_to_streamed(Lr):
     (2, 4, 8, 28, (1, 1, 4)), (2, 4, 1, 28, (2, 2, 1)),
     (2, 1, 8, 30, (1, 1, 1))])
 def test_kernel_chunks_hold_the_budget(inst, n_traj, n_ts, Lr, want):
-    got = engine.kernel_chunks(inst, n_traj, n_ts, Lr)
+    got = routes.kernel_chunks(inst, n_traj, n_ts, Lr)
     assert got == want
-    assert math.prod(got) * (8 << Lr) <= max(engine.KERNEL_STATE_BYTES,
+    assert math.prod(got) * (8 << Lr) <= max(routes.KERNEL_STATE_BYTES,
                                              8 << Lr)
 
 
@@ -253,7 +253,7 @@ def test_sweep_split_to_one_state_equals_unsplit(monkeypatch):
     whole = run_autocorr(cfg, device="cpu", write=False)
     assert max(sizes) == 8  # the echo's 2 instances x 2 trajectories x 2 t
     sizes.clear()
-    monkeypatch.setattr(engine, "KERNEL_STATE_BYTES", 8 << L)
+    monkeypatch.setattr(routes, "KERNEL_STATE_BYTES", 8 << L)
     split = run_autocorr(cfg, device="cpu", write=False)
     assert max(sizes) == 1 and len(sizes) == 4 + 2 * 4
     for k in ("autocorr_per_instance", "echo_per_instance"):
