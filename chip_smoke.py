@@ -151,7 +151,10 @@ each; any failure raises and the script exits non-zero without a result:
    rows, and K4's forward (K2's split) beside the streamed lab-frame
    forward (``plan_for``'s split) on the same L=23 rows, y and xy;
    K5: x and xy at L=20, T=50 x 32, after the registers and spills of
-   every kernel of ``floquet_general.cu``, then one L=23 launch at the most
+   every kernel of ``floquet_general.cu``, then x at the energy cell's
+   launch (L=20, T=50 x 256, p=0.1) and pass lo's walk of 1-16 tiles a
+   block at 256, 32 and 1 trajectories beside the tiles the entry picks,
+   with the launches by walk, then one L=23 launch at the most
    cycles one reduce chunk holds and one at one more, with their peak
    device memory; K10: forward y at L=28 and
    circular_left at L=29, echo y at L=28 and circular_left at L=29, the
@@ -2683,10 +2686,11 @@ def timing_obs(dev, smi, err) -> dict:
             "K5", f"observables {pol} L=20 T=50 traj=32 steps/cycle={K}",
             k_ms, p_ms, c * (T - 1) * K * N, "cycles", T * c, io_bytes,
             14 * L + 6, smi, extra_ops=c * T * N * (5 + 2 * k1 + 2 * L))
+    timing_obs_walk(dev, smi, err, lib)
     # L=23, one trajectory: the most cycles one reduce chunk holds (x, K=1)
     # and one more (two chunks), each one launch with its peak memory
     L = 23
-    slots = lib.floquet_general_observables_slots(L)
+    slots = lib.floquet_general_observables_slots(L, ob.walk_tiles(L, 1))
     one = ob.chunk_cycles(L, ob.MAX_STEPS, slots)
     for T in (one, one + 1):
         rows, erow, _, scale = obs_inputs(L, "x", "full", T, 1, P, dev,
@@ -2708,6 +2712,52 @@ def timing_obs(dev, smi, err) -> dict:
               f"{one * slots * 4 / 2**30:.4f} GiB) on {smi}")
         del rows, k, ref
     return out
+
+
+def timing_obs_walk(dev, smi, err, lib) -> None:
+    """K5 x at L=20, T=50, p=0.1: the energy cell's launch (256
+    trajectories, held to the plain version on three of them) and its
+    share of the state floor; then pass lo's walk of 1, 2, 4, 8 and 16
+    tiles a block at 256, 32 and 1 trajectories through ``launch``, beside
+    the tiles ``walk_tiles`` picks, and the entry's launches by walk
+    (``profiling.OBS_TILES``)."""
+    from dtc_tpu_torch.ops import observables as ob
+    from dtc_tpu_torch.utils import profiling
+
+    L, T, N = MAIN_L, MAIN_T, 1 << MAIN_L
+    kw = dict(L=L, T=T, initial_state="vacuum", with_x=True)
+    for c in (256, 32, 1):
+        rows, erow, _, scale = obs_inputs(L, "x", "full", T, c, 0.1, dev,
+                                          seed=c)
+        pick = ob.walk_tiles(L, c)
+        if c == 256:
+            ms, k = time_ms(lambda: ob.observables_forward_batch(
+                rows, erow, L=L, T=T), reps=2)
+            some = [0, 1, c - 1]
+            ref = ob.observables_forward_batch_ref(rows[:, some], erow, L=L,
+                                                   T=T)
+            err["K5"] = max(err["K5"], held_obs(
+                "K5 L=20 x T=50 1x256 p=0.1 (the energy cell's launch)",
+                [a[:, some] for a in k], ref, L, scale))
+            floor = c * (T - 1) * N * 32 / HBM_BYTES_PER_S * 1e3
+            phase(f"[timing] K5 observables x L=20 T=50 traj=256 p=0.1 "
+                  f"(walks of {pick} tiles): kernel {ms:.3f} ms = "
+                  f"{T * c / (ms / 1e3):.1f} cycles/s; "
+                  f"{100 * floor / ms:.1f}% of the 2-sweep state floor "
+                  f"({floor:.3f} ms) on {smi}")
+        times = {}
+        for tiles in (1, 2, 4, 8, 16):
+            times[tiles], _ = time_ms(
+                lambda: ob.launch(rows, erow, tiles=tiles, **kw),
+                reps=2 if c > 1 else 5)
+        phase(f"[timing] K5 walk x L=20 T=50 traj={c} p=0.1: "
+              + ", ".join(f"{n} tiles {ms:.3f} ms" for n, ms in
+                          times.items())
+              + f"; walk_tiles picks {pick} ({times[pick]:.3f} ms, best "
+              f"{min(times, key=times.get)}) on {smi}")
+        del rows, erow
+    phase(f"[timing] K5 launches by walk (profiling.OBS_TILES): "
+          f"{dict(sorted(profiling.OBS_TILES.items()))}")
 
 
 def peak(name, what, L, dev, smi) -> None:

@@ -46,8 +46,10 @@
 // t in pass hi's store, one partial of |psi|^2 z_q a block into a
 // (pairs, T, blocks) buffer, summed once at the end in a fixed order
 // (Times); K5 measures the state a step loads, on a step that opens a
-// cycle, in the rounds of both passes before their butterflies (Obs), one
-// partial a lane and block, summed once a chunk of cycles.
+// cycle, before the butterflies (Obs): pass lo's diagonal sums in its load
+// round, each round's x pairs in that round, a pass-lo block over a walk
+// of several tiles with its sums in registers and one reduce; one partial
+// a lane and block, summed once a chunk of cycles.
 //
 // Every pair steps in lockstep: a step is two or three launches over all
 // pairs. (A schedule that ran groups of pairs small enough to stay in the
@@ -348,16 +350,19 @@ struct Times {
 };
 
 // K5's per-cycle observables (floquet_general.cu), on the two-pass plan
-// (b = 0: pass lo on bits [0, a), pass hi on [a, L)). On a step whose
-// time() opens cycle t, t0 <= t < t0 + chunk, each pass measures the state
-// it loads, before its butterflies: pass lo's block writes four kinds of
+// (b = 0: pass lo on bits [0, a), pass hi on [a, L)). A pass-lo block walks
+// 2^tb consecutive tiles of its pair, hi0 .. hi0 + 2^tb - 1 with hi0 =
+// blockIdx.x << tb, on every step (obs_lo; the host picks tb). On a step
+// whose time() opens cycle t, t0 <= t < t0 + chunk, each pass measures the
+// state it loads, before its butterflies: pass lo's block writes 3 + a + tb
 // lanes, lane j of pass-lo block b at cycle(pair, t)[j * blocks + b]:
 //   0: sum |psi|^2 E(s), E(s) = sum_q th_q z_q + sum_j tph_j z_j z_{j+1}
 //      (erow, one 128-lane row a pair: th [0, L), tph [L, 2L-1));
 //   1: its bits' x pairs, sum Re conj(psi_s) psi_{s ^ 2^q} over bit q = 0;
-//   2: sum |psi|^2 (a qubit above the tile has one sign a block: the
-//      reduce expands it into z_q, q >= a);
-//   3 + q: sum |psi|^2 z_q of its bit q < a;
+//   2: sum |psi|^2 (a qubit above the walk, q >= a + tb, has one sign a
+//      block: the reduce expands it into z_q);
+//   3 + q: sum |psi|^2 z_q for q < a + tb (the tile's bits, then the
+//      bits of a tile's place in the walk);
 // pass hi's block b its bits' x pairs at cycle(pair, t)[slots - blocks +
 // b] (with_x; without, pass hi measures nothing and lane 1 is 0). Step
 // `last` (the last cycle's first) is measured only: neither pass stores.
@@ -366,7 +371,7 @@ struct Obs {
   static constexpr bool kObs = true;
   const float* __restrict__ erow;
   float* __restrict__ part;  // (pairs, chunk, slots)
-  int t0, chunk, slots, last, with_x;
+  int t0, chunk, slots, last, with_x, tb;
   // The pair's slots of cycle t; nullptr outside the chunk.
   __device__ __forceinline__ float* cycle(int pair, int t) const {
     return 0 <= t - t0 && t - t0 < chunk
@@ -376,6 +381,17 @@ struct Obs {
 };
 
 constexpr int kMaxObsBits = 12;  // pass lo's tile bits under Obs (L <= 23)
+constexpr int kMaxObsWalk = 4;   // a pass-lo block walks <= 2^4 tiles (Obs)
+
+// Log2 of the tiles a pass-lo block walks: Obs's tb, else one tile.
+template <class M>
+__host__ __device__ __forceinline__ int lo_walk_bits(const M& m) {
+  if constexpr (M::kObs) {
+    return m.tb;
+  } else {
+    return 0;
+  }
+}
 
 // Sum over a warp in a fixed order (shuffles): lane 0 holds it. Every lane
 // of the warp calls it.
@@ -402,46 +418,58 @@ __device__ __forceinline__ float x_pairs(const float2* v) {
   return x;
 }
 
-// Obs in pass lo's rounds (swz_round's meas): the first round, on the
-// amplitudes it loads, sums |psi|^2 and |psi|^2 E(s), E of tile index i
-// from two tables as the diagonal's phases (elo[i & (2^h - 1)] +
-// ehi[i >> (h - 1)], the block's high bits and the bond across the tile's
-// edge folded in); every round, before its butterflies, the signed sums
-// |psi|^2 z_q and the x pairs of its own bits. The butterflies of earlier
-// rounds act on other qubits, whose gates commute with Z_q and X_q, so
-// both are the cycle's. A thread keeps six sums over its tuples, whatever
-// their base; a round's z sums go to red[3 + q][warp] as it ends.
+// Obs in pass lo's rounds (swz_round's meas) over the tiles of a block's
+// walk, the sums of a thread in registers until the walk ends. The load
+// round (the first, on tile bits [0, nb0), nb0 = 3 at every a of K5's
+// range) takes every diagonal sum from the amplitudes it loads: tuple
+// base | j (the round's bits by j, the other tile bits by the base, the
+// high bits by the tile) adds each |psi_j|^2 into s[k] signed by bit k of
+// j (z_k, k < nb0) and into e weighted by E_lo(base | j), E's terms on
+// bits [0, a) (elo[i & (2^h - 1)] + ehi[i >> (h - 1)]; i >> (h - 1) is the
+// base's alone, nb0 <= h - 1); the tuple's sum pt goes into e times the
+// tile's constant c0 (the z terms of its high bits and their bonds) plus
+// c1 z_{a-1}(base) (c1 = tph_{a-1} z_a(tile), the bond across the tile's
+// edge), into p (a base bit's z is p signed by that bit of the thread's
+// tuple index: obs_lo's reduce forms it), into pit signed by base bit itb
+// (a thread's second tuple, a = 12), and into zt[k] signed by bit k of the
+// tile's place in the walk (z_{a+k}). Every round adds the x pairs of its
+// bits before its butterflies (a pair is in registers only there; the
+// butterflies of earlier rounds act on other qubits, whose gates commute
+// with X_q, so they are the cycle's); no later round sums anything else.
 struct LoObs {
   const float* elo;
   const float* ehi;
-  int h;
-  float (*red)[kThreads / 32];
+  int h, a, itb, tb;
   bool with_x;
-  float p = 0.0f, e = 0.0f, x = 0.0f, s[3] = {0.0f, 0.0f, 0.0f};
+  int tile = 0;
+  float c0 = 0.0f, c1 = 0.0f;
+  float e = 0.0f, x = 0.0f, p = 0.0f, pit = 0.0f;
+  float s[3] = {0.0f, 0.0f, 0.0f};
+  float zt[kMaxObsWalk] = {0.0f, 0.0f, 0.0f, 0.0f};
   template <int NB, bool kIn>
   __device__ __forceinline__ void tuple(int base, int b, const float2* v) {
+    if constexpr (kIn) {
+      float pt = 0.0f, et = 0.0f;
 #pragma unroll
-    for (int j = 0; j < (1 << NB); ++j) {
-      const float pj = v[j].x * v[j].x + v[j].y * v[j].y;
+      for (int j = 0; j < (1 << NB); ++j) {
+        const float pj = v[j].x * v[j].x + v[j].y * v[j].y;
+        pt += pj;
 #pragma unroll
-      for (int k = 0; k < NB; ++k) s[k] += (j & (1 << k)) ? -pj : pj;
-      if constexpr (kIn) {
-        const int i = base | (j << b);
-        p += pj;
-        e += pj * (elo[i & ((1 << h) - 1)] + ehi[i >> (h - 1)]);
+        for (int k = 0; k < NB; ++k) s[k] += (j & (1 << k)) ? -pj : pj;
+        et += pj * elo[(base | (j << b)) & ((1 << h) - 1)];
+      }
+      e += et + pt * (ehi[base >> (h - 1)] + c0 + c1 * zsign(base, a - 1));
+      p += pt;
+      pit += zsign(base, itb) * pt;
+#pragma unroll
+      for (int k = 0; k < kMaxObsWalk; ++k) {
+        if (k < tb) zt[k] += (tile & (1 << k)) ? -pt : pt;
       }
     }
     if (with_x) x += x_pairs<NB>(v);
   }
   template <int NB>
-  __device__ __forceinline__ void end(int b) {
-#pragma unroll
-    for (int k = 0; k < NB; ++k) {
-      const float z = warp_sum(s[k]);
-      if ((threadIdx.x & 31) == 0) red[3 + b + k][threadIdx.x >> 5] = z;
-      s[k] = 0.0f;
-    }
-  }
+  __device__ __forceinline__ void end(int) {}
 };
 
 // Obs in pass hi's rounds: the x pairs of its bits.
@@ -455,41 +483,115 @@ struct XObs {
   __device__ __forceinline__ void end(int) {}
 };
 
-// Pass lo under Obs on a step that opens a cycle: the energy row's tables,
-// the kick on bits [0, k1) with LoObs in its rounds (stored unless `store`
-// is false), then lanes 0 .. 2 + k1 of the block into slot[j * blocks].
-template <class Kick, class In, class Out>
-__device__ void obs_lo(float2* tile, int L, int k1, int64_t hi,
-                       const float* erow, float* slot, bool with_x,
-                       bool store, const Kick& kick, const In& in,
-                       const Out& out) {
+// f(kick), f taking the kick of the step's kind where the kick has kinds
+// (has_kinds): resolved once for a whole walk of tiles.
+template <class Kick, class F>
+__device__ __forceinline__ void visit_kind(const Kick& kick, const F& f) {
+  if constexpr (has_kinds<Kick>::value) {
+    kick.visit(f);
+  } else {
+    f(kick);
+  }
+}
+
+// Pass lo under Obs: the block walks the 2^tb tiles hi0 + i of its pair's
+// state sp, the kick on each tile's bits [0, k1) (stored unless `store` is
+// false), the tiles in turn with a barrier between (a tile's last round
+// reads the shared tile that the next one's load round writes). On a step
+// that opens a cycle (slot not null) LoObs measures in the rounds: the
+// energy row's tables of bits [0, k1) and each tile's two constants once a
+// block, then one fixed-order reduce of the block into lanes 0 .. 2 + k1 +
+// tb, slot[j * blocks]. A warp sums p by an xor butterfly that also forms
+// the signs of its lanes' bits (a Walsh-Hadamard transform: lane 2^u
+// holds p signed by lane bit u, base bit nb0 + u; lane 0 the sum) and
+// every other register by warp_sum; then the warps in order in shared
+// memory (a warp bit's z: the warp's p signed by the bit), one store a
+// lane.
+template <class Kick>
+__device__ void obs_lo(float2* tile, float2* sp, int L, int k1, int64_t hi0,
+                       int tb, const float* erow, float* slot, bool with_x,
+                       bool store, const Kick& kick) {
+  float2* g = sp;
+  const auto in = [&](int base, int jb) { return g[base + jb]; };
+  const auto out = [&](int base, int jb, float2 v) {
+    if (store) g[base + jb] = v;
+  };
+  const int n = 1 << tb;
+  if (slot == nullptr) {  // a step that opens no cycle: the plain rounds
+    visit_kind(kick, [&](const auto& k) {
+      for (int i = 0; i < n; ++i) {
+        if (i > 0) __syncthreads();
+        g = sp + ((hi0 + i) << k1);
+        swz_kick(tile, k1, 0, k1, k, in, out);
+      }
+    });
+    return;
+  }
   __shared__ float coef[2 * kMaxEchoL], elo[kLoTabLo], ehi[kTabHi];
-  __shared__ float red[3 + kMaxObsBits][kThreads / 32];
+  __shared__ float ct[2][1 << kMaxObsWalk];
+  __shared__ float red[3 + kMaxObsBits + kMaxObsWalk][kThreads / 32];
   load_fold(erow, L, coef);
   __syncthreads();
   const float* tph = coef + L;
+  if (threadIdx.x < n) {
+    const int64_t hi = hi0 + threadIdx.x;
+    ct[0][threadIdx.x] = angle_bits(coef, tph, hi, k1, L - k1);
+    ct[1][threadIdx.x] = tph[k1 - 1] * zsign(hi, 0);
+  }
   const int h = (k1 + 1) / 2;
-  table_angles(coef, tph, 0, k1, 0.0f, zsign(hi, 0),
-               angle_bits(coef, tph, hi, k1, L - k1),
-               [&](int e, float ang) {
-                 (e < (1 << h) ? elo[e] : ehi[e - (1 << h)]) = ang;
-               });
-  LoObs meas{elo, ehi, h, red, with_x};
-  swz_kick(
-      tile, k1, 0, k1, kick, in,
-      [&](int base, int jb, float2 v) {
-        if (store) out(base, jb, v);
-      },
-      meas);
+  table_angles(coef, tph, 0, k1, 0.0f, 0.0f, 0.0f, [&](int e, float ang) {
+    (e < (1 << h) ? elo[e] : ehi[e - (1 << h)]) = ang;
+  });
+  // swz_kick's first round holds tile bits [0, nb0); base bit nb0 + u is
+  // bit u of a thread's tuple index: its lane (u < 5), its warp, then
+  // its tuple (u = tbits: a thread's second tuple)
+  const int rounds = (k1 + 2) / 3;
+  const int nb0 = k1 / rounds + (k1 % rounds > 0 ? 1 : 0);
+  const int tbits = __ffs(blockDim.x) - 1;
+  LoObs meas{elo, ehi, h, k1, nb0 + tbits, tb, with_x};
+  visit_kind(kick, [&](const auto& k) {
+    for (int i = 0; i < n; ++i) {
+      if (i > 0) __syncthreads();
+      g = sp + ((hi0 + i) << k1);
+      meas.tile = i;
+      meas.c0 = ct[0][i];
+      meas.c1 = ct[1][i];
+      swz_kick(tile, k1, 0, k1, k, in, out, meas);
+    }
+  });
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float w = meas.p;
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, w, o);
+    w = (lane & o) ? y - w : w + y;
+  }
   const float sums[3] = {warp_sum(meas.e), warp_sum(meas.x),
-                         warp_sum(meas.p)};
-  if ((threadIdx.x & 31) == 0) {
-    for (int j = 0; j < 3; ++j) red[j][threadIdx.x >> 5] = sums[j];
+                         warp_sum(meas.pit)};
+  float s[3], zt[kMaxObsWalk];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) s[k] = warp_sum(meas.s[k]);
+#pragma unroll
+  for (int k = 0; k < kMaxObsWalk; ++k) {
+    zt[k] = k < tb ? warp_sum(meas.zt[k]) : 0.0f;
+  }
+  const int nbase = k1 - nb0;  // the base bits
+  if (lane == 0) {
+    red[0][warp] = sums[0];
+    red[1][warp] = sums[1];
+    red[2][warp] = w;
+    for (int k = 0; k < nb0; ++k) red[3 + k][warp] = s[k];
+    for (int u = 5; u < tbits && u < nbase; ++u) {
+      red[3 + nb0 + u][warp] = zsign(warp, u - 5) * w;
+    }
+    if (tbits < nbase) red[3 + nb0 + tbits][warp] = sums[2];
+    for (int k = 0; k < tb; ++k) red[3 + k1 + k][warp] = zt[k];
+  } else if ((lane & (lane - 1)) == 0 && __ffs(lane) - 1 < nbase) {
+    red[3 + nb0 + __ffs(lane) - 1][warp] = w;
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < 3 + k1; j += blockDim.x) {
+  for (int j = threadIdx.x; j < 3 + k1 + tb; j += blockDim.x) {
     float sum = 0.0f;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) sum += red[j][w];
+    for (int v = 0; v < (int)(blockDim.x >> 5); ++v) sum += red[j][v];
     slot[(int64_t)j * gridDim.x + blockIdx.x] = sum;
   }
 }
@@ -515,8 +617,9 @@ __device__ void obs_hi(float2* tile, int tbits, int b0, int n, float* slot,
 
 // Pass lo (pair blockIdx.y): an echo's step 0 applies folded row 0, the
 // first pre diagonal (later steps' pre diagonals are folded into the
-// previous pass hi), then the kick of the step's row on bits [0, k1); what
-// M measures (Obs: obs_lo on a step that opens a cycle).
+// previous pass hi), then the kick of the step's row on bits [0, k1). Under
+// Obs (K5, forward rows: no row 0) the block walks 2^m.tb tiles and
+// measures on a step that opens a cycle (obs_lo).
 template <class P, class M>
 __global__ void __launch_bounds__(kThreads, P::kMinBlocks)
     echo_lo_kernel(float2* __restrict__ st, int L, int k1,
@@ -529,6 +632,15 @@ __global__ void __launch_bounds__(kThreads, P::kMinBlocks)
   const int pair = blockIdx.y;
   typename P::Kick kick;
   if (!policy.begin(rows, L, rows_per_pair, pair, step, sh, kick)) return;
+  if constexpr (M::kObs) {
+    __syncthreads();  // the policy's shared part
+    obs_lo(tile, st + ((int64_t)pair << L), L, k1,
+           (int64_t)blockIdx.x << m.tb, m.tb,
+           m.erow + (int64_t)pair * kRowWidth,
+           m.cycle(pair, policy.time(rows, L, rows_per_pair, pair, step)),
+           m.with_x, step != m.last, kick);
+    return;
+  }
   const int64_t hi = blockIdx.x;
   float2* g = st + ((int64_t)pair << L) + (hi << k1);
   const bool first = step == 0 && fold.pre0;
@@ -545,14 +657,6 @@ __global__ void __launch_bounds__(kThreads, P::kMinBlocks)
     return first ? phase_mul(v, table_phase(tlo, thi, k1, base + jb)) : v;
   };
   const auto out = [&](int base, int jb, float2 v) { g[base + jb] = v; };
-  if constexpr (M::kObs) {
-    float* cyc = m.cycle(pair, policy.time(rows, L, rows_per_pair, pair, step));
-    if (cyc != nullptr) {
-      obs_lo(tile, L, k1, hi, m.erow + (int64_t)pair * kRowWidth, cyc,
-             m.with_x, step != m.last, kick, in, out);
-      return;
-    }
-  }
   swz_kick(tile, k1, 0, k1, kick, in, out);
 }
 
@@ -738,9 +842,11 @@ cudaError_t launch_steps(float2* st, int L, int a, int b, const float* rows,
                              (int)smem_hi);
   }
   for (int k = from; e == cudaSuccess && k < to; ++k) {
-    echo_lo_kernel<P, M><<<dim3(1u << (L - a), n_pairs), t_lo, smem_lo,
-                           stream>>>(st, L, a, rows, rows_per_pair, fold, k,
-                                     policy, m);
+    echo_lo_kernel<P, M><<<dim3((1u << (L - a)) >> lo_walk_bits(m),
+                                n_pairs),
+                           t_lo, smem_lo, stream>>>(st, L, a, rows,
+                                                    rows_per_pair, fold, k,
+                                                    policy, m);
     if (b > 0) {
       echo_mid_kernel<P, CW><<<dim3((1u << (L - b)) / CW, n_pairs), t_mid,
                                smem_mid, stream>>>(st, L, a, b, rows,

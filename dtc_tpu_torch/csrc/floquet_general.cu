@@ -44,7 +44,8 @@
 //
 // K5 runs K4's forward steps on the same step passes (launch_steps of
 // floquet_echo.cuh with GeneralEcho<ObsRows>, diagonals from forward_fold)
-// and measures in them (Obs); see the note above its entry.
+// and measures in them (Obs, pass lo's blocks each over a walk of tiles);
+// see the note above its entry.
 //
 // What bounds it on this card: as for K1/K2 (floquet_x.cu), the 2^L
 // complex64 state (8 MiB at L=20) lives in device memory, and a step is two
@@ -100,14 +101,15 @@ struct ObsRows {
 // block (c, pair) turns the slots of cycle t0 + c into out[(pair * T + t0 +
 // c) * (2 + L) + lane]: e_diag (lane 0 of pass lo's blocks), x_sum (2 x
 // pass lo's lane 1 and pass hi's slots; 0 without x), z_q (lane 3 + q for
-// q < a; for q >= a, sum_b z_q(b) P_b over pass lo's blocks b, P in lane
-// 2). A warp a lane, its threads over the blocks in double, then the warp
-// sum in a fixed order.
+// q < a + tb, the tile's and the walk's bits; for q >= a + tb, sum_b
+// z_q(b) P_b over pass lo's blocks b, P in lane 2). A warp a lane, its
+// threads over the blocks in double, then the warp sum in a fixed order.
 __global__ void obs_reduce_kernel(const float* __restrict__ part,
                                   float* __restrict__ out, int L, int a,
-                                  int T, int t0, int slots, int with_x) {
-  const int nb = 1 << (L - a);
-  const int n_hi = slots - (3 + a) * nb;
+                                  int tb, int T, int t0, int slots,
+                                  int with_x) {
+  const int nb = (1 << (L - a)) >> tb;
+  const int n_hi = slots - (3 + a + tb) * nb;
   const float* s = part + ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) *
                               slots;
   float* o = out + ((int64_t)blockIdx.y * T + t0 + blockIdx.x) * (2 + L);
@@ -118,12 +120,15 @@ __global__ void obs_reduce_kernel(const float* __restrict__ part,
     if (j == 1) {
       if (with_x) {
         for (int b = lane; b < nb; b += 32) acc += s[nb + b];
-        for (int b = lane; b < n_hi; b += 32) acc += s[(3 + a) * nb + b];
+        for (int b = lane; b < n_hi; b += 32) {
+          acc += s[(3 + a + tb) * nb + b];
+        }
       }
     } else {
-      const float* lo = s + (j == 0 ? 0 : q < a ? 3 + q : 2) * nb;
+      const bool high = j > 1 && q >= a + tb;  // one sign a block
+      const float* lo = s + (j == 0 ? 0 : high ? 2 : 3 + q) * nb;
       for (int b = lane; b < nb; b += 32) {
-        acc += (j > 1 && q >= a ? zsign(b, q - a) : 1.0f) * lo[b];
+        acc += (high ? zsign(b, q - a - tb) : 1.0f) * lo[b];
       }
     }
     for (int off = 16; off > 0; off >>= 1) {
@@ -131,6 +136,16 @@ __global__ void obs_reduce_kernel(const float* __restrict__ part,
     }
     if (lane == 0) o[j] = (float)(j == 1 ? 2.0 * acc : acc);
   }
+}
+
+// Log2 of a pass-lo walk of `tiles` tiles at L (Obs), -1 unless tiles is
+// a power of two, 1 <= tiles <= 2^kMaxObsWalk and at most a pair's tiles.
+int obs_walk_bits(int L, int tiles) {
+  int tb = 0;
+  while ((1 << tb) < tiles) ++tb;
+  const bool ok = tiles >= 1 && tiles == (1 << tb) && tb <= kMaxObsWalk &&
+                  tb <= L - lo_bits(L);
+  return ok ? tb : -1;
 }
 
 }  // namespace
@@ -197,11 +212,14 @@ int floquet_general_echo(void* state, const void* tiles, const void* fold,
 }
 
 // Sizes the wrapper allocates: K5's partial slots per trajectory and cycle
-// (Obs, floquet_echo.cuh): 3 + a lanes of pass lo's 2^(L-a) blocks, then
-// pass hi's 2^a / kW, a = lo_bits(L).
-int floquet_general_observables_slots(int L) {
+// (Obs, floquet_echo.cuh) for pass-lo blocks that walk `tiles` tiles: 3 + a
+// + log2(tiles) lanes of pass lo's 2^(L-a) / tiles blocks, then pass hi's
+// 2^a / kW, a = lo_bits(L); -1 for a walk out of range (obs_walk_bits).
+int floquet_general_observables_slots(int L, int tiles) {
   const int a = lo_bits(L);
-  return (3 + a) * (1 << (L - a)) + (1 << a) / kW;
+  const int tb = obs_walk_bits(L, tiles);
+  if (tb < 0) return -1;
+  return (3 + a + tb) * ((1 << (L - a)) >> tb) + (1 << a) / kW;
 }
 
 // K5: per cycle t < T, the observables of the state before the cycle's
@@ -214,41 +232,48 @@ int floquet_general_observables_slots(int L) {
 // (launch_steps on the resident plan a = lo_bits(L), b = 0, with
 // GeneralEcho<ObsRows>; one diagonal per step from the forward_fold rows,
 // phase tables, swizzled rounds fused into the load and the store), and a
-// cycle's first step measures the state it loads (Obs): pass lo the
-// energy, the probability and the z_q and x pairs of its bits, pass hi the
-// x pairs of its bits, each in the round that holds the bit, before its
-// butterflies. The last cycle's first step is measured only: its passes
-// read the state and store nothing (the same two reads as a measure of
-// its own; a whole step would write twice more for nothing). Cycles go in
-// chunks of `chunk`, each ending in one fixed-order reduce
-// (obs_reduce_kernel): the wrapper sizes the chunk so that the partials
-// stay within a quarter of the states' bytes.
+// cycle's first step measures the state it loads (Obs): pass lo's load
+// round the energy, the probability and every z_q of its tile, each round
+// of both passes the x pairs of its bits before its butterflies. A pass-lo
+// block walks `tiles` consecutive tiles of its pair on every step, its
+// sums in registers across them: the kick row, the energy row's tables and
+// the block's reduce are paid once a walk (the wrapper picks `tiles` from
+// L and the trajectories, ops/observables.py::walk_tiles). The last
+// cycle's first step is measured only: its passes read the state and
+// store nothing (the same two reads as a measure of its own; a whole step
+// would write twice more for nothing). Cycles go in chunks of `chunk`,
+// each ending in one fixed-order reduce (obs_reduce_kernel): the wrapper
+// sizes the chunk so that the partials stay within a quarter of the
+// states' bytes.
 //
 // state: n_traj x 2^L complex64 scratch; rows: n_traj x rows_per_traj x
 // 128 f32 (K4 forward rows, T*K of them); fold: n_traj x fold_rows x 2L
 // f32, the step diagonals (ops/echo_fold.py::forward_fold, fold_rows =
 // T*K + 1); erow: n_traj x 128 f32 energy rows; part: n_traj x chunk x
-// floquet_general_observables_slots(L) f32 scratch; out: n_traj x T x
-// (2+L) f32, lanes e_diag, x_sum, z_0..z_{L-1} (x_sum = 0 when with_x ==
-// 0). Returns cudaErrorInvalidValue without a launch outside 14 <= L <= 23,
-// T < 1, rows_per_traj not K per cycle, fold_rows short of the last step's
-// row, or chunk < 1.
+// floquet_general_observables_slots(L, tiles) f32 scratch; out: n_traj x
+// T x (2+L) f32, lanes e_diag, x_sum, z_0..z_{L-1} (x_sum = 0 when with_x
+// == 0). Returns cudaErrorInvalidValue without a launch outside 14 <= L <=
+// 23, T < 1, rows_per_traj not K per cycle, fold_rows short of the last
+// step's row, chunk < 1, or a walk out of range (obs_walk_bits).
 int floquet_general_observables(void* state, const void* rows,
                                 const void* fold, const void* erow,
                                 void* part, void* out, int n_traj, int L,
                                 int rows_per_traj, int fold_rows, int T,
-                                int chunk, int with_x, int64_t b0,
+                                int chunk, int with_x, int tiles, int64_t b0,
                                 void* stream_ptr) {
   if (L < 14 || L > 23 || T < 1 || rows_per_traj % T != 0 || chunk < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const int K = rows_per_traj / T;
   const int last = (T - 1) * K;  // the last cycle's first step
-  if (K < 1 || fold_rows < last + 2) return (int)cudaErrorInvalidValue;
+  const int tb = obs_walk_bits(L, tiles);
+  if (K < 1 || fold_rows < last + 2 || tb < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   float2* st = (float2*)state;
   const int a = lo_bits(L);
-  const int slots = floquet_general_observables_slots(L);
+  const int slots = floquet_general_observables_slots(L, tiles);
   const Fold f{(const float*)fold, (int64_t)fold_rows * 2 * L, false};
   const GeneralEcho<ObsRows> policy{{K}};
   init_kernel<<<dim3(256, n_traj), kThreads, 0, stream>>>(
@@ -260,11 +285,12 @@ int floquet_general_observables(void* state, const void* rows,
     e = launch_steps<kW>(
         st, L, a, 0, (const float*)rows, rows_per_traj, f, n_traj, t0 * K,
         to, policy,
-        Obs{(const float*)erow, (float*)part, t0, c, slots, last, with_x},
+        Obs{(const float*)erow, (float*)part, t0, c, slots, last, with_x,
+            tb},
         stream);
     if (e != cudaSuccess) break;
     obs_reduce_kernel<<<dim3(c, n_traj), kThreads, 0, stream>>>(
-        (const float*)part, (float*)out, L, a, T, t0, slots, with_x);
+        (const float*)part, (float*)out, L, a, tb, T, t0, slots, with_x);
     e = cudaGetLastError();
   }
   return (int)e;

@@ -77,10 +77,10 @@ LIBRARIES = {
                                     _I32, _I32, _I32, _I32, _I32, _I64, _VP],
         "floquet_general_echo": [_VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32,
                                  _I32, _I32, _I32, _I64, _VP],
-        "floquet_general_observables_slots": [_I32],
+        "floquet_general_observables_slots": [_I32, _I32],
         "floquet_general_observables": [_VP, _VP, _VP, _VP, _VP, _VP, _I32,
                                         _I32, _I32, _I32, _I32, _I32, _I32,
-                                        _I64, _VP],
+                                        _I32, _I64, _VP],
     },
     "floquet_general_streamed": {
         "floquet_general_streamed_partials": [_I32],

@@ -25,11 +25,15 @@ row's diagonal). The caller forms E = e_diag + x_coeff * x_sum.
 
 The kernel takes, beside the rows, their step diagonals
 (``ops/echo_fold.py::forward_fold``) and partials for a chunk of cycles
-(``chunk_cycles``), summed once a chunk.
+(``chunk_cycles``), summed once a chunk. Each block of its pass lo walks
+``walk_tiles(L, n)`` consecutive tiles of 2^lo_bits(L) amplitudes of one
+trajectory, with its sums in registers across them, so that the kick row,
+the energy tables and the block's reduce are paid once a walk.
 
 A tensor on the CPU goes to the plain version; a CUDA tensor launches the
 kernel or raises. Each call is the span ``dtc.entry.K5``, counted in the
-launch registry of ``utils/profiling.py``.
+launch registry of ``utils/profiling.py``, and each launch in
+``profiling.OBS_TILES`` by its walk.
 """
 
 from __future__ import annotations
@@ -57,7 +61,17 @@ from dtc_tpu_torch.ops.resident_general import (
     _row_angles,
     row_coeffs,
 )
+from dtc_tpu_torch.utils import profiling
 from dtc_tpu_torch.utils.profiling import entry, span
+
+# Tiles a pass-lo block of K5 walks at most (csrc/floquet_echo.cuh:
+# 1 << kMaxObsWalk), and the pass-lo threads a launch keeps at least when
+# its blocks walk more than one: about one wave of an H100 (132 SMs of 1024
+# threads at the passes' 64 registers). Timed on an H100 at L = 14-23 and
+# 1-256 trajectories (PERF.md section 6), the best walk was within 3 % of
+# the longest that keeps one wave.
+MAX_WALK = 16
+MIN_WALK_THREADS = 1 << 17
 
 
 def check_range(L: int, T: int, steps: int) -> None:
@@ -71,6 +85,27 @@ def check_range(L: int, T: int, steps: int) -> None:
                          f"{MAX_STEPS} (got {steps})")
     if T < 1 or steps % T:
         raise ValueError(f"{steps} step rows are not K per cycle for T={T}")
+
+
+def walk_tiles(L: int, n_traj: int) -> int:
+    """Tiles a pass-lo block of K5 walks in a launch of ``n_traj``
+    trajectories at L: the largest power of two up to ``MAX_WALK`` and a
+    trajectory's 2^(L // 2) tiles whose blocks keep at least
+    ``MIN_WALK_THREADS`` threads (``lo_threads(L)`` a block); 1 where two
+    would keep fewer (one trajectory at L <= 20)."""
+    tiles = 1 << (L // 2)  # a trajectory's pass-lo tiles, 2^(L - lo_bits)
+    threads = n_traj * lo_threads(L)
+    n = 1
+    while (2 * n <= min(MAX_WALK, tiles)
+           and tiles // (2 * n) * threads >= MIN_WALK_THREADS):
+        n *= 2
+    return n
+
+
+def lo_threads(L: int) -> int:
+    """Threads of a pass-lo block at L (``echo_threads(lo_bits(L))``,
+    csrc/floquet_echo.cuh): one per 8 amplitudes of the tile, 32 to 256."""
+    return min(max(1 << (L - L // 2 - 3), 32), 256)
 
 
 def chunk_cycles(L: int, T: int, slots: int) -> int:
@@ -139,6 +174,20 @@ def observables_forward_batch(rows, erow, *, L, T, initial_state="vacuum",
     batch, S = rows.shape[:-2], rows.shape[-2]
     check_range(L, T, S)
     n = batch_size(batch, "observables")
+    tiles = walk_tiles(L, n)
+    out = launch(rows, erow, L=L, T=T, initial_state=initial_state,
+                 with_x=with_x, tiles=tiles)
+    profiling.OBS_TILES[tiles] += 1
+    return out
+
+
+def launch(rows, erow, *, L, T, initial_state, with_x, tiles):
+    """One launch of K5 on checked CUDA rows, each pass-lo block walking
+    ``tiles`` tiles (``walk_tiles`` in ``observables_forward_batch``; any
+    other power of two up to ``MAX_WALK`` and a trajectory's tiles gives
+    the same observables up to float32 rounding)."""
+    batch, S = rows.shape[:-2], rows.shape[-2]
+    n = batch_size(batch, "observables")
     from dtc_tpu_torch.ops import _build
 
     lib = _build.load("floquet_general")
@@ -146,7 +195,10 @@ def observables_forward_batch(rows, erow, *, L, T, initial_state="vacuum",
     coef = erow.to(dev, torch.float32).expand(*batch, WIDTH).contiguous()
     # step k's diagonal is fold row k + 1
     fold = forward_fold(rows.view(n, S, WIDTH), L, row_coeffs)
-    slots = lib.floquet_general_observables_slots(L)
+    slots = lib.floquet_general_observables_slots(L, tiles)
+    if slots < 0:
+        raise ValueError(f"K5 takes a walk of 1 to {MAX_WALK} tiles, a "
+                         f"power of two (got {tiles} at L={L})")
     chunk = chunk_cycles(L, T, slots)
     state = torch.empty((n, 1 << L), dtype=torch.complex64, device=dev)
     part = torch.empty((n, chunk, slots), dtype=torch.float32, device=dev)
@@ -155,6 +207,6 @@ def observables_forward_batch(rows, erow, *, L, T, initial_state="vacuum",
     err = lib.floquet_general_observables(
         state.data_ptr(), rows.data_ptr(), fold.data_ptr(), coef.data_ptr(),
         part.data_ptr(), out.data_ptr(), n, L, S, fold.shape[1], T, chunk,
-        int(bool(with_x)), basis_index(L, initial_state), stream)
+        int(bool(with_x)), tiles, basis_index(L, initial_state), stream)
     raise_on(err, "floquet_general_observables")
     return _split_out(out.reshape(*batch, T, 2 + L))

@@ -17,8 +17,9 @@ A span belongs to its innermost ``dtc.`` span's layer.
 ``entry(kid)`` is the span ``dtc.entry.<kid>`` of a kernel entry and the
 launch registry's one counter: each call counts once in ``CALLS`` and, on
 CUDA tensors, in ``LAUNCHES`` (the kernel route) or in ``PLAIN_ON_CUDA``
-(the plain version), keyed by the span's name; ``reset_counters()`` zeroes
-all three.
+(the plain version), keyed by the span's name. ``OBS_TILES`` counts K5's
+launches by the tiles each pass-lo block walks
+(``ops/observables.py::walk_tiles``). ``reset_counters()`` zeroes all four.
 
 ``phase_timer`` is a copy of ``dtc_tpu/utils/profiling.py``'s: wall
 seconds of a named phase, logged as ``phase <name> <seconds>s`` on the
@@ -46,10 +47,11 @@ ENTRY = "dtc.entry."
 CALLS: Counter = Counter()          # entry span -> calls, either route
 LAUNCHES: Counter = Counter()       # entry span -> kernel-route calls
 PLAIN_ON_CUDA: Counter = Counter()  # entry span -> plain calls on CUDA
+OBS_TILES: Counter = Counter()      # K5's tiles a pass-lo block -> launches
 
 
 def reset_counters() -> None:
-    for c in (CALLS, LAUNCHES, PLAIN_ON_CUDA):
+    for c in (CALLS, LAUNCHES, PLAIN_ON_CUDA, OBS_TILES):
         c.clear()
 
 

@@ -363,7 +363,10 @@ def test_general_autocorr_on_card_runs_k4_and_matches_cpu(cuda_device, pol):
 # each. The range's ends (pass lo's tile of 2^7 and 2^12 amplitudes, two
 # tuples a thread in some rounds from L = 16), K = 1 and K = 2 (xy,
 # circular_left), with_x off (z_zz), T = 1 (the measure only) and T*K past
-# one reduce chunk (``obs.chunk_cycles``: 6 cycles at L = 14, 132 at 23).
+# one reduce chunk at L = 14 (``obs.chunk_cycles``: 6 cycles; 3
+# trajectories at L = 23 walk 8 tiles a block, whose chunk holds 744
+# cycles: ``test_observables_walks_past_one_chunk_agree_at_l23_on_card``
+# takes L = 23 past its chunks).
 OBS_CASES = [(14, "x", "vacuum", "full", 0.0, 4),
              (14, "circular_left", "neel", "x_only", 0.3, 4),
              (14, "xy", "vacuum", "full", 0.3, 1),
@@ -437,7 +440,9 @@ def test_observables_entry_checks_its_range(cuda_device):
     lib = _build.load("floquet_general")
     L, T, K = 14, 3, 2
     dev = cuda_device
-    slots = lib.floquet_general_observables_slots(L)
+    slots = lib.floquet_general_observables_slots(L, 1)
+    for bad in (0, 3, 32):
+        assert lib.floquet_general_observables_slots(L, bad) == -1, bad
     state = torch.zeros((1, 1 << L), dtype=torch.complex64, device=dev)
     rows = torch.zeros((1, T * K, 128), device=dev)
     u8 = flag_base(L) + LANE_U8
@@ -448,14 +453,15 @@ def test_observables_entry_checks_its_range(cuda_device):
     out = torch.full((1, T, 2 + L), 7.0, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def call(L=L, S=T * K, fold_rows=T * K + 1, T=T, chunk=T):
+    def call(L=L, S=T * K, fold_rows=T * K + 1, T=T, chunk=T, tiles=1):
         return lib.floquet_general_observables(
             state.data_ptr(), rows.data_ptr(), fold.data_ptr(),
             erow.data_ptr(), part.data_ptr(), out.data_ptr(), 1, L, S,
-            fold_rows, T, chunk, 1, 0, stream)
+            fold_rows, T, chunk, 1, tiles, 0, stream)
 
     for bad in (dict(L=13), dict(L=24), dict(T=0), dict(S=T * K + 1),
-                dict(S=0), dict(fold_rows=(T - 1) * K + 1), dict(chunk=0)):
+                dict(S=0), dict(fold_rows=(T - 1) * K + 1), dict(chunk=0),
+                dict(tiles=0), dict(tiles=3), dict(tiles=32)):
         assert call(**bad) == 1, bad
     torch.cuda.synchronize()
     assert torch.equal(out, torch.full_like(out, 7.0))  # nothing ran
@@ -479,6 +485,104 @@ def test_observables_kernel_two_instances_equal_single_calls(cuda_device):
         ref = obs.observables_forward_batch_ref(rows[i:i + 1],
                                                 erow[i:i + 1], L=L, T=T)
         _held_obs(one, ref, L, scale)
+
+
+# The edges of pass lo's walk (``obs.walk_tiles``): one trajectory (one
+# tile a block to L = 20, 4 at L = 23) and 256 (the energy cell's launch:
+# 8 to 16 tiles a block from L = 14 to 23), x (a measure every step) and
+# xy (K = 2: steps that open no cycle walk the same tiles with the plain
+# rounds), with_x on and off. The kernel's launch of 256 is held to the
+# plain version on its first two and last trajectories.
+WALK_CASES = [(L, n, pol, comp) for L in (14, 17, 20, 23) for n in (1, 256)
+              for pol, comp in (("x", "full"), ("xy", "z_zz"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,n,pol,component", WALK_CASES)
+def test_observables_walk_matches_plain_on_card(cuda_device, L, n, pol,
+                                                component):
+    T = 3
+    rows, erow, with_x, scale = _obs_inputs(cuda_device, L, pol, component,
+                                            0.1, T, n=n)
+    assert with_x == (component == "full")
+    tiles = obs.walk_tiles(L, n)
+    assert tiles == (1 if L <= 20 else 4) if n == 1 else tiles >= 8
+    walks = profiling.OBS_TILES[tiles]
+    k = obs.observables_forward_batch(rows, erow, L=L, T=T, with_x=with_x)
+    torch.cuda.synchronize()
+    assert profiling.OBS_TILES[tiles] == walks + 1
+    some = [0, 1, n - 1] if n > 2 else list(range(n))
+    ref = obs.observables_forward_batch_ref(rows[:, some], erow, L=L, T=T,
+                                            with_x=with_x)
+    _held_obs([a[:, some] for a in k], ref, L, scale)
+    if not with_x:
+        assert not k[1].any()
+
+
+@pytest.mark.cuda
+def test_observables_walk_past_one_chunk_matches_plain_on_card(cuda_device):
+    """256 trajectories at L = 14 (walks of 8 tiles), T one cycle past a
+    reduce chunk of the walk's slots: the second chunk's lanes."""
+    from dtc_tpu_torch.ops import _build
+
+    L, n = 14, 256
+    tiles = obs.walk_tiles(L, n)
+    slots = _build.load("floquet_general").floquet_general_observables_slots(
+        L, tiles)
+    T = obs.chunk_cycles(L, obs.MAX_STEPS, slots) + 1
+    rows, erow, _, scale = _obs_inputs(cuda_device, L, "xy", "full", 0.1, T,
+                                       n=n)
+    k = obs.observables_forward_batch(rows, erow, L=L, T=T)
+    some = [0, 1, n - 1]
+    ref = obs.observables_forward_batch_ref(rows[:, some], erow, L=L, T=T)
+    _held_obs([a[:, some] for a in k], ref, L, scale)
+
+
+@pytest.mark.cuda
+def test_observables_walks_past_one_chunk_agree_at_l23_on_card(cuda_device):
+    """One trajectory at L = 23: one tile a block, T = 133, one cycle past
+    its reduce chunk of 132, against the plain version; then the entry's
+    walk of 4 tiles at T = 432, one cycle past its chunk of 431, against
+    one tile a block (four chunks) on the same rows: the steps are the same
+    arithmetic whatever the walk, so only the sums' order differs (the
+    plain version's float32 rounding over 864 steps is larger)."""
+    from dtc_tpu_torch.ops import _build
+
+    L = 23
+    lib = _build.load("floquet_general")
+    kw = dict(L=L, initial_state="vacuum", with_x=True)
+    assert obs.chunk_cycles(L, obs.MAX_STEPS,
+                            lib.floquet_general_observables_slots(L, 1)) \
+        == 132
+    rows, erow, _, scale = _obs_inputs(cuda_device, L, "xy", "full", 0.1,
+                                       133, n=1)
+    k = obs.launch(rows, erow, T=133, tiles=1, **kw)
+    ref = obs.observables_forward_batch_ref(rows, erow, L=L, T=133)
+    _held_obs(k, ref, L, scale)
+    tiles = obs.walk_tiles(L, 1)
+    T = obs.chunk_cycles(
+        L, obs.MAX_STEPS,
+        lib.floquet_general_observables_slots(L, tiles)) + 1
+    assert (tiles, T) == (4, 432)
+    rows, erow, _, scale = _obs_inputs(cuda_device, L, "xy", "full", 0.1, T,
+                                       n=1)
+    k = obs.observables_forward_batch(rows, erow, L=L, T=T)
+    one = obs.launch(rows, erow, T=T, tiles=1, **kw)
+    _held_obs(k, one, L, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 256])
+def test_observables_kernel_repeats_bit_for_bit_on_card(cuda_device, n):
+    """Two identical calls of K5 at the energy cell's shape (L = 20, x,
+    p = 0.1; 256 trajectories walk 16 tiles a block) give outputs equal
+    bit for bit: every sum is in a fixed order."""
+    L, T = 20, 4
+    rows, erow, _, _ = _obs_inputs(cuda_device, L, "x", "full", 0.1, T, n=n)
+    one = obs.observables_forward_batch(rows, erow, L=L, T=T)
+    two = obs.observables_forward_batch(rows, erow, L=L, T=T)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
 
 
 # X-mask words at the edges of the kick's packed mask (one bit a qubit):

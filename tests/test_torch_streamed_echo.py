@@ -199,8 +199,8 @@ def _header(name) -> str:
 # ``run_steps`` or ``launch_steps`` takes: the streamed forwards and K10's
 # shard-local forms run the echo's plan, K8c/K8d the resident split), the
 # tile and bits
-# each pass hands ``swz_kick`` (K5's measuring passes, ``obs_lo`` and
-# ``obs_hi``, the same), and ``swz_kick``'s rounds. A change to any of
+# each pass hands ``swz_kick`` (K5's passes, ``obs_lo``'s walk of tiles
+# and ``obs_hi``, the same), and ``swz_kick``'s rounds. A change to any of
 # it fails ``test_echo_swizzle_replay_mirrors_the_headers`` until the replay
 # follows it.
 MIRRORED = {
@@ -242,7 +242,8 @@ MIRRORED = {
     "floquet_echo.cuh": [
         "const int k0 = a + b; const int c = L - k0;",
         "swz_kick(tile, k1, 0, k1, kick, in, out);",
-        "swz_kick( tile, k1, 0, k1, kick, in,",
+        "swz_kick(tile, k1, 0, k1, k, in, out);",
+        "swz_kick(tile, k1, 0, k1, k, in, out, meas);",
         "swz_kick( tile, b + kc, kc, b, kick.from(a),",
         "swz_kick(tile, n2 + kc, kc, n2, kick.from(k0), in, out);",
         "obs_hi(tile, n2 + kc, kc, n2,",
